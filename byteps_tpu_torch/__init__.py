@@ -1,0 +1,66 @@
+"""byteps_tpu_torch — the port of byteps_tpu to PyTorch and CUDA.
+
+A BytePS-style data-parallel training framework for NVIDIA Hopper GPUs,
+with the same Horovod-style surface as ``byteps_tpu``:
+
+    init / shutdown / suspend / resume
+    rank / size / local_rank / local_size
+    declare_tensor / push_pull / push_pull_async / poll / synchronize
+    DistributedOptimizer / broadcast_parameters / broadcast_object
+
+This slice runs one worker: ``push_pull`` is the identity, and a
+distributed topology raises at ``init()``.  The flagship transformer is in
+``byteps_tpu_torch.models.transformer``; its attention runs on the
+hand-written CUDA kernels in ``byteps_tpu_torch.ops``.  The package
+imports torch and numpy, never JAX or ``byteps_tpu``.
+"""
+
+from byteps_tpu_torch.api import (
+    broadcast_object,
+    broadcast_parameters,
+    declare_tensor,
+    device,
+    init,
+    local_rank,
+    local_size,
+    poll,
+    push_pull,
+    push_pull_async,
+    rank,
+    resume,
+    shutdown,
+    size,
+    suspend,
+    synchronize,
+)
+from byteps_tpu_torch.common.config import Config, get_config
+from byteps_tpu_torch.common.registry import TensorRegistry, get_registry
+from byteps_tpu_torch.common.types import DegradedError
+from byteps_tpu_torch.optim import DistributedOptimizer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Config",
+    "DegradedError",
+    "DistributedOptimizer",
+    "TensorRegistry",
+    "broadcast_object",
+    "broadcast_parameters",
+    "declare_tensor",
+    "device",
+    "get_config",
+    "get_registry",
+    "init",
+    "local_rank",
+    "local_size",
+    "poll",
+    "push_pull",
+    "push_pull_async",
+    "rank",
+    "resume",
+    "shutdown",
+    "size",
+    "suspend",
+    "synchronize",
+]

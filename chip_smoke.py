@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Smoke test of byteps_tpu_torch on one NVIDIA GPU (built for the H100).
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. the card's name and power limit, torch and CUDA versions;
+  2. build the flash-attention kernels from byteps_tpu_torch/ops/csrc with nvcc;
+  3. hold each kernel against its plain PyTorch version on the card (BERT-large's
+     attention shape in bf16 and f32, a causal case, a ragged S, each head dim),
+     and time kernel, plain version and the library call;
+  4. agreement of a 2-layer BERT-large-width model on the card (kernels) with the
+     same model on the CPU (plain versions) in f32, and in bf16 no further from f32
+     than dense attention;
+  5. the main path: BERT-large (seq 512, bf16, remat, flash attention) trained for a
+     few steps through init -> broadcast_parameters -> DistributedOptimizer(AdamW),
+     with the kernels' launch counts read around it;
+  6. one JSON line listing the kernels, then the contract line
+     {"ok": true, "device": {...}} last.
+
+Exits non-zero, printing no result, without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# main path: BERT-large at seq 512, batch 32
+BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+# tolerances, |kernel - plain| <= atol + rtol * |plain|, elementwise:
+#  f32: the same f32 arithmetic summed in another order over S <= 512 terms
+#  bf16: the plain version runs in f32 on the same bf16 inputs; the kernel also
+#        rounds P and dS to bf16 for its tensor-core products, and its output to
+#        bf16 (8-bit mantissa: 2^-9 relative each)
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def close(name: str, got, want, dtype_name: str) -> float:
+    """Max abs error; fails beyond the dtype's tolerance or on non-finite values."""
+    got, want = got.float(), want.float()
+    atol, rtol = TOL[dtype_name]
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    worst = float((err - rtol * want.abs()).max())
+    max_abs = float(err.max())
+    if worst > atol:
+        fail(f"{name}: max abs err {max_abs:.3e} beyond atol {atol} + rtol {rtol}")
+    return max_abs
+
+
+def phase_build() -> None:
+    from byteps_tpu_torch.ops import _build
+    from byteps_tpu_torch.ops.flash_attention import _lib
+
+    t0 = time.perf_counter()
+    _lib()
+    print(f"build: flash_attention.cu in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds.get('flash_attention', 0.0):.1f} s)", flush=True)
+    for line in _build.build_log.get("flash_attention", "").splitlines():
+        if "Used" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+
+def _inputs(b, h, s, dh, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, s, dh), generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    dlse = torch.randn((b, h, s), generator=g, device="cuda")
+    return q, k, v, do, dlse
+
+
+def check_case(label, b, h, s, dh, dtype, causal, seed=0) -> dict:
+    """Each wrapper against its plain version on the same inputs, then the
+    autograd path (with an lse cotangent) against autograd of the dense
+    reference.  Returns max abs errors per kernel."""
+    import torch
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    dn = str(dtype).split(".")[-1]
+    q, k, v, do, dlse = _inputs(b, h, s, dh, dtype, seed)
+    scale = dh ** -0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa._dense_reference_lse(*f32[:3], causal, scale)
+    err = {"flash_fwd": max(close(f"{label} O", o, o_ref, dn),
+                            close(f"{label} lse", lse, lse_ref, dn))}
+
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dq_ref = fa._plain_bwd_dq(*f32, lse, delta, causal, scale)
+    dk_ref, dv_ref = fa._plain_bwd_dkv(*f32, lse, delta, causal, scale)
+    err["flash_bwd_dq"] = close(f"{label} dQ", dq, dq_ref, dn)
+    err["flash_bwd_dkv"] = max(close(f"{label} dK", dk, dk_ref, dn),
+                               close(f"{label} dV", dv, dv_ref, dn))
+
+    # end to end through autograd, lse cotangent included
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o2, lse2 = fa.flash_attention_lse(*xs, causal=causal)
+    grads = torch.autograd.grad((o2.float() * do.float()).sum() + (lse2 * dlse).sum(), xs)
+    rs = [x.clone().requires_grad_() for x in f32[:3]]
+    o3, lse3 = fa._dense_reference_lse(*rs, causal, scale)
+    refs = torch.autograd.grad((o3 * do.float()).sum() + (lse3 * dlse).sum(), rs)
+    for n, g_, r_ in zip("QKV", grads, refs):
+        close(f"{label} autograd d{n}", g_, r_, dn)
+    print(f"check {label}: B={b} H={h} S={s} dh={dh} {dn} causal={causal}: "
+          + ", ".join(f"{n} max_abs_err {e:.2e}" for n, e in err.items()), flush=True)
+    return err
+
+
+def bounds(b, h, s, dh, dtype_name, causal) -> dict:
+    """Least time (ms) for each kernel's work on this card, and what binds it."""
+    bh, esize = b * h, {"bfloat16": 2, "float32": 4}[dtype_name]
+    pairs = s * (s + 1) // 2 if causal else s * s
+    tile = bh * s * dh * esize
+    rows = bh * s * 4
+    work = {  # (flops, bytes): each input read once, each output written once
+        "flash_fwd": (4 * bh * pairs * dh, 4 * tile + rows),
+        "flash_bwd_dq": (6 * bh * pairs * dh, 5 * tile + 2 * rows),
+        "flash_bwd_dkv": (8 * bh * pairs * dh, 6 * tile + 2 * rows),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    return out
+
+
+def time_kernels(b, h, s, dh, dtype, causal) -> dict:
+    """Kernel, plain version and library times (ms) at the main path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, _ = _inputs(b, h, s, dh, dtype, seed=1)
+    scale = dh ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    t = {
+        "flash_fwd": (
+            time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+            time_ms(lambda: fa._dense_reference_lse(q, k, v, causal, scale), iters=5),
+        ),
+        "flash_bwd_dq": (
+            time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)),
+            time_ms(lambda: fa._plain_bwd_dq(q, k, v, do, lse, delta, causal, scale), iters=5),
+        ),
+        "flash_bwd_dkv": (
+            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)),
+            time_ms(lambda: fa._plain_bwd_dkv(q, k, v, do, lse, delta, causal, scale), iters=5),
+        ),
+    }
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
+    for name, (ms, plain_ms) in t.items():
+        print(f"time {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms", flush=True)
+    print(f"time SDPA (library yardstick, never called by the port): forward "
+          f"{sdpa_fwd:.4f} ms, backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms", flush=True)
+    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd}
+
+
+def check_kernels() -> dict:
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = check_case("bert-large bf16", BATCH, 16, SEQ, 64, bf16, False)
+    check_case("bert-large f32", BATCH, 16, SEQ, 64, f32, False, seed=1)
+    check_case("causal bf16", 2, 16, SEQ, 64, bf16, True, seed=2)
+    check_case("causal f32", 2, 16, SEQ, 64, f32, True, seed=3)
+    check_case("ragged f32", 2, 4, 200, 64, f32, True, seed=4)
+    check_case("ragged bf16", 3, 2, 200, 64, bf16, False, seed=5)
+    check_case("dh32 f32", 2, 4, 130, 32, f32, False, seed=6)
+    check_case("dh32 bf16", 2, 4, 256, 32, bf16, True, seed=7)
+    check_case("dh128 f32", 2, 4, 320, 128, f32, True, seed=8)
+    check_case("dh128 bf16", 2, 4, 77, 128, bf16, False, seed=9)
+    return main
+
+
+def _train_small(cfg, sd, tokens, targets, dev):
+    """Logits (on the host, f32) and the losses of three AdamW steps of one
+    model, through init -> DistributedOptimizer on ``dev``."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.transformer import Transformer, build_train_step
+
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict(sd)
+    tok = torch.as_tensor(tokens, device=dev)
+    tgt = torch.as_tensor(targets, device=dev)
+    with torch.no_grad():
+        logits = model(tok).float().cpu()
+    bps.init(device=dev)
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+    )
+    step = build_train_step(model, opt)
+    losses = [float(step(tok, tgt)) for _ in range(3)]
+    bps.shutdown()
+    return logits, losses
+
+
+def check_model() -> None:
+    """A 2-layer model at BERT-large's widths (B=2, S=128), logits and the
+    losses of three optimizer steps: in f32 on the card (kernels) against the
+    CPU (plain versions); in bf16 on the card, flash attention (kernels) and
+    dense attention, each against the f32 logits."""
+    import torch
+
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import bert_large, init_params
+
+    cfg = dataclasses.replace(
+        bert_large(max_seq=128, use_flash=True, remat=True), n_layers=2
+    )
+    sd = params_from_jax(init_params(cfg, seed=1), cfg)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, size=(2, cfg.max_seq))
+    targets = np.roll(tokens, -1, axis=1)
+    targets[:, -1] = -1  # ignored position
+
+    lg, lc = _train_small(cfg, sd, tokens, targets, "cuda")
+    cg, cc = _train_small(cfg, sd, tokens, targets, "cpu")
+    err = float((lg - cg).abs().max())
+    if not err <= 1e-3:  # f32 over d_model 1024 and vocab 30528, summed in other orders
+        fail(f"model logits: card vs CPU max abs err {err:.3e} > 1e-3")
+    if not np.allclose(lc, cc, rtol=1e-4, atol=1e-4):
+        fail(f"model losses: card {lc} vs CPU {cc}")
+    print(f"model check (2 layers, f32, B=2, S=128): logits max abs err {err:.2e}; "
+          f"losses card {lc} CPU {cc}", flush=True)
+
+    # bf16: at these widths and this init, bf16 compute lands far from f32
+    # whatever the attention (byteps_tpu's own bf16 forward of this model does
+    # too), so the kernels are held to the dense bf16 attention's distance from
+    # the card's f32 logits: no more than 1.25 times it
+    bf = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    fg, fl = _train_small(bf, sd, tokens, targets, "cuda")
+    dg, dl = _train_small(dataclasses.replace(bf, use_flash=False), sd, tokens, targets, "cuda")
+    ef, ed = float((fg - lg).abs().mean()), float((dg - lg).abs().mean())
+    if not ef <= 1.25 * ed:
+        fail(f"bf16 model logits: flash kernels {ef:.3e} from f32 on average, dense "
+             f"attention {ed:.3e}")
+    if not all(math.isfinite(x) for x in fl):
+        fail(f"bf16 model losses: {fl}")
+    print(f"model check (2 layers, bf16, B=2, S=128): mean abs logit distance from f32, "
+          f"flash kernels {ef:.3e}, dense attention {ed:.3e}; losses flash {fl} "
+          f"dense {dl}", flush=True)
+
+
+def profile_step(step, tok, tgt, step_ms: float) -> float:
+    """One more step under torch.profiler: device time by kernel family and
+    the device's busy share, of the profiled step's wall time and of
+    ``step_ms``, the mean step time without the profiler.  Only the device's
+    own events are summed (kernels, copies): a CPU operator's row carries
+    the device time of the kernels it launched, and a user annotation
+    (``Optimizer.step#...``) spans kernels; either would count them twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = float(step(tok, tgt))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("profile: no device time recorded (not measured)", flush=True)
+        return loss
+    families = {"flash attention kernels": 0.0, "matmul": 0.0,
+                "optimizer (multi_tensor_apply)": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        fam = ("flash attention kernels" if "flash_" in name
+               else "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass"))
+               else "optimizer (multi_tensor_apply)" if "multi_tensor_apply" in name
+               else "other")
+        families[fam] += e.self_device_time_total / 1e3
+    busy, busy_plain = 100 * total_ms / wall_ms, 100 * total_ms / step_ms
+    print(f"profile: step wall {wall_ms:.1f} ms under the profiler, device busy "
+          f"{total_ms:.1f} ms ({busy:.1f}% of it, idle {100 - busy:.1f}%; "
+          f"{busy_plain:.1f}% of the {step_ms:.1f} ms step without the profiler); "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()), flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}", flush=True)
+    return loss
+
+
+def train_main_path(card: str) -> dict:
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import (
+        Transformer, bert_large, build_train_step, init_params,
+    )
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    bps.init()
+    cfg = bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True, use_flash=True)
+    t0 = time.perf_counter()
+    model = Transformer(cfg)
+    model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+    bps.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+    )
+    step = build_train_step(model, opt)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)
+    tok = torch.as_tensor(tokens, device=bps.device()).long()
+    tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
+    print(f"main path: setup {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the check models' parameters and optimizer state sit in reference cycles
+    # (each gradient hook holds its optimizer): free them before the peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses = [float(step(tok, tgt)) for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(tok, tgt) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [float(x) for x in timed]
+    losses.append(profile_step(step, tok, tgt, dt / STEPS * 1e3))
+    counts = dict(fa.launches)
+    bps.shutdown()
+
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    n = WARMUP + STEPS + 1
+    want = {"flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
+            "flash_bwd_dkv": cfg.n_layers * n}
+    if counts != want:
+        fail(f"kernel launches on the main path {counts}, expected {want}")
+    sps = BATCH * STEPS / dt
+    print(f"main path: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}: "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"main path: {sps:.2f} samples/s ({dt / STEPS * 1e3:.1f} ms/step over {STEPS} "
+          f"steps), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"on {card}", flush=True)
+    print(f"main path: launches {counts}", flush=True)
+    return counts
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}", flush=True)
+
+    phase_build()
+    errs = check_kernels()
+    perf = time_kernels(BATCH, 16, SEQ, 64, torch.bfloat16, False)
+    check_model()
+    counts = train_main_path(card)
+
+    b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
+    replaces = {
+        "flash_fwd": "byteps_tpu/ops/flash_attention.py:83",
+        "flash_bwd_dq": "byteps_tpu/ops/flash_attention.py:197",
+        "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:237",
+    }
+    kernels = []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        ms, plain_ms = perf["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "byteps_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces[name], "launches": counts[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[name][0], "bound_by": b[name][1],
+            # one PyTorch call computes the forward (SDPA); none computes dQ
+            # alone or dK/dV alone, so SDPA's whole backward is given beside
+            "library_ms": perf["sdpa_fwd"] if name == "flash_fwd" else None,
+            "sdpa_bwd_ms": perf["sdpa_bwd"],
+            "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
