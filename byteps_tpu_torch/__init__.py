@@ -8,8 +8,11 @@ with the same Horovod-style surface as ``byteps_tpu``:
     declare_tensor / push_pull / push_pull_async / poll / synchronize
     DistributedOptimizer / broadcast_parameters / broadcast_object
 
-This slice runs one worker: ``push_pull`` is the identity, and a
-distributed topology raises at ``init()``.  The flagship transformer is in
+With one worker ``push_pull`` is the identity.  In distributed mode
+(``DMLC_NUM_WORKER>1`` or ``BYTEPS_FORCE_DISTRIBUTED=1``) ``init()``
+registers with the scheduler and gradients go through the PS plane to CPU
+servers (``python -m byteps_tpu_torch.server``), optionally 1-bit
+compressed on the card.  The flagship transformer is in
 ``byteps_tpu_torch.models.transformer``; its attention runs on the
 hand-written CUDA kernels in ``byteps_tpu_torch.ops``.  The package
 imports torch and numpy, never JAX or ``byteps_tpu``.
@@ -26,6 +29,8 @@ from byteps_tpu_torch.api import (
     poll,
     push_pull,
     push_pull_async,
+    push_pull_rowsparse,
+    push_pull_rowsparse_async,
     rank,
     resume,
     shutdown,
@@ -57,6 +62,8 @@ __all__ = [
     "poll",
     "push_pull",
     "push_pull_async",
+    "push_pull_rowsparse",
+    "push_pull_rowsparse_async",
     "rank",
     "resume",
     "shutdown",

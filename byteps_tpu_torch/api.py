@@ -2,8 +2,12 @@
 
 The same names and semantics as ``byteps_tpu.api``.  With one worker,
 ``push_pull`` is the identity: the tensor handed in, on its device, is the
-result.  A distributed topology raises at :func:`init` until the port has
-its PS plane.
+result.  In distributed mode (more than one worker, or
+``BYTEPS_FORCE_DISTRIBUTED=1``) it goes through the PS plane: the engine
+partitions the tensor, pushes it to the servers and pulls back the sum,
+averaged over the workers when ``average``.  The result lies on the input's
+device; for a CUDA tensor, :func:`synchronize` makes the caller's current
+stream wait for it.
 """
 
 from __future__ import annotations
@@ -53,11 +57,19 @@ def device() -> torch.device:
 
 
 def rank() -> int:
+    """The worker's rank: the scheduler's in distributed mode."""
+    client = get_state().ps_client
+    if client is not None and client.rank is not None:
+        return client.rank
     cfg = get_config()
     return cfg.global_rank if cfg.global_rank is not None else cfg.worker_id
 
 
 def size() -> int:
+    """The number of workers: the scheduler's book in distributed mode."""
+    client = get_state().ps_client
+    if client is not None:
+        return client.num_workers
     return get_config().num_worker
 
 
@@ -71,7 +83,17 @@ def local_size() -> int:
 
 def declare_tensor(name: str, **kwargs: Any) -> int:
     """Declare a named tensor ahead of communication; returns its stable
-    declared key.  Dict kwargs are canonicalized to JSON strings."""
+    declared key.  Dict kwargs are canonicalized to JSON strings.  A codec
+    config the port cannot run raises here, not at the first push."""
+    from byteps_tpu_torch.compression.registry import check_supported, parse_codec_config
+
+    cfg = parse_codec_config(kwargs, 1)
+    if cfg is not None:
+        check_supported(cfg)
+    if kwargs.get("byteps_server_opt") not in (None, "", "0", "false", "off"):
+        from byteps_tpu_torch.common.config import unported
+
+        raise unported("server_opt", f"byteps_server_opt={kwargs['byteps_server_opt']}")
     ctx = get_registry().declare(name, **{
         k: (json.dumps(v, sort_keys=True) if isinstance(v, dict) else str(v))
         for k, v in kwargs.items()
@@ -91,8 +113,11 @@ def push_pull_async(
     st = require_state()
     get_registry().declare(name)
     handle = st.handles.allocate()
-    # init() refuses a distributed topology, so one worker: identity
-    st.handles.mark_done(handle, tensor)
+    if st.engine is None:
+        st.handles.mark_done(handle, tensor)  # one worker: identity
+        return handle
+    st.engine.submit(name=name, tensor=tensor, average=average,
+                     priority=priority, version=version, handle=handle)
     return handle
 
 
@@ -101,7 +126,17 @@ def poll(handle: int) -> bool:
 
 
 def synchronize(handle: int) -> torch.Tensor:
-    return require_state().handles.wait_and_clear(handle)
+    """Wait for a push_pull and return its result.  A result on a CUDA
+    device is returned once the caller's current stream waits for it."""
+    from byteps_tpu_torch.core.engine import DeviceResult
+
+    out = require_state().handles.wait_and_clear(handle)
+    if isinstance(out, DeviceResult):
+        stream = torch.cuda.current_stream(out.tensor.device)
+        stream.wait_event(out.event)
+        out.tensor.record_stream(stream)
+        out = out.tensor
+    return out
 
 
 def push_pull(
@@ -129,13 +164,53 @@ def broadcast_parameters(params: Any, root_rank: int = 0) -> Any:
     """Sync parameters from ``root_rank`` to every worker, in place: a
     state dict or a list of (name, tensor) pairs such as
     ``module.named_parameters()``.  Returns ``params``.  One worker holds
-    root's values already."""
-    require_state()
-    _named_tensors(params)
+    root's values already; in distributed mode every other worker pushes
+    zeros and an unaveraged sum leaves root's values everywhere
+    (torch/__init__.py:268-299).  All pushes start before the first wait."""
+    st = require_state()
+    items = _named_tensors(params)
+    if st.engine is None:
+        return params
+    root = rank() == root_rank
+    handles = []
+    for name, t in items:
+        src = t.detach() if root else torch.zeros_like(t)
+        handles.append((t, push_pull_async(src, name=f"Parameter.{name}", average=False)))
+    with torch.no_grad():
+        for t, h in handles:
+            t.copy_(synchronize(h))
     return params
 
 
 def broadcast_object(obj: Any, root_rank: int = 0, name: str = "obj") -> Any:
-    """Broadcast a picklable object from ``root_rank``."""
-    require_state()
-    return obj
+    """Broadcast a picklable object from ``root_rank``: its length, then
+    its bytes, each as an unaveraged sum to which the other workers add
+    zeros."""
+    import pickle
+
+    st = require_state()
+    if st.engine is None:
+        return obj
+    payload = pickle.dumps(obj) if rank() == root_rank else b""
+    total = int(push_pull(torch.tensor([len(payload)], dtype=torch.int64),
+                          name=f"{name}.len", average=False)[0])
+    buf = torch.zeros(total, dtype=torch.uint8)
+    if payload:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    out = push_pull(buf, name=f"{name}.data", average=False)
+    return pickle.loads(out.numpy().tobytes())
+
+
+def push_pull_rowsparse_async(indices: Any, values: Any, name: str, total_rows: int,
+                              average: bool = True, priority: int = 0) -> int:
+    """Row-sparse push_pull (``byteps_tpu.api.push_pull_rowsparse_async``):
+    not ported yet."""
+    from byteps_tpu_torch.common.config import unported
+
+    raise unported("rowsparse", f"push_pull_rowsparse of {name!r}")
+
+
+def push_pull_rowsparse(indices: Any, values: Any, name: str, total_rows: int,
+                        average: bool = True, priority: int = 0) -> Any:
+    return synchronize(push_pull_rowsparse_async(
+        indices, values, name, total_rows, average=average, priority=priority))

@@ -1,0 +1,362 @@
+"""Framed TCP transport of the PS plane, byte for byte the wire of
+``byteps_tpu.comm.transport``.
+
+Header (network byte order, 32 bytes):
+
+    u8  magic      0xB5
+    u8  op         Op enum
+    u8  status     0 = OK; bits 7/6/5 = trace block / checksum / lossless
+    u8  flags      the worker's rank + 1 on data-plane requests
+    u32 seq        request/response matching id
+    u64 key        partition key
+    u32 cmd        Cantor-encoded (RequestType, DataType)
+    u32 version    round number (INIT: the idempotency token)
+    u64 length     payload byte count
+
+A ``TRACE_FLAG`` frame carries a 16-byte (trace_id, span_id) block after
+the header.  A ``CHECKSUM_FLAG`` frame then carries a 4-byte big-endian
+CRC32C of everything after the header except itself (trace block and
+payload).  Stamping is per process (``BYTEPS_WIRE_CHECKSUM=1``, data-plane
+ops only); any receiver verifies a stamped frame.  The CRC runs in the
+port's own C helper (``ops/csrc/crc32c.c``, built at first use); the
+table loop :func:`crc32c_plain` is its plain version, which the tests hold
+it to.  ``LOSSLESS_FLAG`` frames are decoded by no receiver of the port:
+:func:`recv_message` raises :class:`UnsupportedFrameError` after consuming
+the frame.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import enum
+import os
+import socket
+import struct
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+MAGIC = 0xB5
+HEADER_FMT = "!BBBBIQIIQ"
+HEADER_SIZE = struct.calcsize(HEADER_FMT)
+
+TRACE_FLAG = 0x80
+_TRACE_FMT = "!QQ"
+TRACE_SIZE = struct.calcsize(_TRACE_FMT)
+
+CHECKSUM_FLAG = 0x40
+_CHECKSUM_FMT = "!I"
+CHECKSUM_SIZE = struct.calcsize(_CHECKSUM_FMT)
+
+LOSSLESS_FLAG = 0x20
+
+
+class Op(enum.IntEnum):
+    # scheduler plane
+    REGISTER = 1
+    ADDRBOOK = 2
+    BARRIER = 3
+    # data plane
+    INIT = 10
+    PUSH = 11
+    PULL = 12
+    REGISTER_COMPRESSOR = 13
+    FUSED = 14
+    # control
+    PING = 20
+    SHUTDOWN = 21
+    QUERY = 22
+    # recovery and resharding planes (not served by the port)
+    RESYNC_QUERY = 23
+    RESYNC_STATE = 24
+    MIGRATE_STATE = 25
+    WRONG_OWNER = 26
+
+
+#: ops the port receives but does not serve: a frame of one of them fails
+#: the request it belongs to
+UNPORTED_OPS = {
+    Op.FUSED: "fusion",
+    Op.RESYNC_QUERY: "resync",
+    Op.RESYNC_STATE: "resync",
+    Op.MIGRATE_STATE: "elastic",
+    Op.WRONG_OWNER: "elastic",
+}
+
+
+class ChecksumError(ValueError):
+    """A frame's CRC32C did not match its bytes.  Raised after the frame
+    was consumed, so the stream stays framed."""
+
+    def __init__(self, op, expected: int, got: int) -> None:
+        super().__init__(
+            f"wire checksum mismatch on {getattr(op, 'name', op)} frame: "
+            f"expected {expected:#010x}, computed {got:#010x}"
+        )
+        self.op = op
+
+
+class UnsupportedFrameError(ValueError):
+    """A received frame needs a plane the port does not carry (a lossless
+    container, or a fused/resync/migration op).  Raised after the frame
+    was consumed."""
+
+
+#: ops that carry a checksum under BYTEPS_WIRE_CHECKSUM=1: the data plane
+#: only, so control frames stay byte-identical
+_CHECKSUM_OPS = frozenset({10, 11, 12, 13, 14, 23, 24, 25, 26})
+
+
+def wire_checksum_enabled() -> bool:
+    """Stamp outgoing data-plane frames with CRC32C?  Read on every call;
+    verification does not depend on it."""
+    return os.environ.get("BYTEPS_WIRE_CHECKSUM", "").lower() not in (
+        "", "0", "false", "no", "off",
+    )
+
+
+_CRC32C_POLY = 0x82F63B78
+_crc_table: Optional[list] = None
+_crc_fn = None
+_crc_lock = threading.Lock()
+
+
+def crc32c_plain(data, crc: int = 0) -> int:
+    """CRC32C by the table loop: the plain version of the C helper."""
+    global _crc_table
+    if _crc_table is None:
+        tbl = []
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (c >> 1) ^ (_CRC32C_POLY if c & 1 else 0)
+            tbl.append(c)
+        _crc_table = tbl
+    c = crc ^ 0xFFFFFFFF
+    for b in bytes(data):
+        c = (c >> 8) ^ _crc_table[(c ^ b) & 0xFF]
+    return c ^ 0xFFFFFFFF
+
+
+def _crc_native():
+    global _crc_fn
+    with _crc_lock:
+        if _crc_fn is None:
+            from byteps_tpu_torch.ops._build import load_library
+
+            fn = load_library("crc32c").bps_crc32c
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]
+            fn.restype = ctypes.c_uint32
+            _crc_fn = fn
+        return _crc_fn
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C of ``data`` (bytes-like or a contiguous ndarray), chained:
+    ``crc32c(b, crc32c(a)) == crc32c(a + b)``.  Runs in the C helper; a
+    helper that does not build raises."""
+    n = memoryview(data).nbytes
+    if not n:
+        return crc
+    arr = np.frombuffer(data, dtype=np.uint8)
+    return int(_crc_native()(arr.ctypes.data, n, crc))
+
+
+def frame_checksum(trace: Optional[Tuple[int, int]], payload) -> int:
+    """The CRC32C a frame's checksum block carries: the trace block, when
+    present, chained with the payload."""
+    crc = 0
+    if trace is not None:
+        crc = crc32c(struct.pack(_TRACE_FMT, trace[0], trace[1]))
+    return crc32c(payload, crc)
+
+
+class Message:
+    __slots__ = (
+        "op", "status", "flags", "seq", "key", "cmd", "version", "payload",
+        "trace", "checksum",
+    )
+
+    def __init__(
+        self,
+        op: Op,
+        key: int = 0,
+        payload=b"",
+        seq: int = 0,
+        cmd: int = 0,
+        version: int = 0,
+        status: int = 0,
+        flags: int = 0,
+        trace: Optional[Tuple[int, int]] = None,
+        checksum: Optional[bool] = None,
+    ) -> None:
+        self.op = op
+        self.status = status
+        self.flags = flags
+        self.seq = seq
+        self.key = key
+        self.cmd = cmd
+        self.version = version
+        self.payload = payload
+        #: (trace_id, span_id) carried in the trace block, or None
+        self.trace = trace
+        #: stamp the CRC32C block?  None follows BYTEPS_WIRE_CHECKSUM for
+        #: data-plane ops; True/False force it
+        self.checksum = checksum
+
+    def _stamp_checksum(self) -> bool:
+        if self.checksum is None:
+            return int(self.op) in _CHECKSUM_OPS and wire_checksum_enabled()
+        return bool(self.checksum)
+
+    def encode_header(self) -> bytes:
+        ck = self._stamp_checksum()
+        hdr = struct.pack(
+            HEADER_FMT,
+            MAGIC,
+            int(self.op),
+            self.status
+            | (TRACE_FLAG if self.trace is not None else 0)
+            | (CHECKSUM_FLAG if ck else 0),
+            self.flags,
+            self.seq,
+            self.key,
+            self.cmd,
+            self.version,
+            memoryview(self.payload).nbytes,
+        )
+        if self.trace is not None:
+            hdr += struct.pack(_TRACE_FMT, self.trace[0], self.trace[1])
+        if ck:
+            hdr += struct.pack(
+                _CHECKSUM_FMT, frame_checksum(self.trace, self.payload)
+            )
+        return hdr
+
+    def encode(self) -> bytes:
+        return self.encode_header() + bytes(self.payload)
+
+
+def recv_into(sock: socket.socket, view: memoryview) -> None:
+    """Receive exactly ``len(view)`` bytes into the caller's buffer."""
+    n = len(view)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], n - got)
+        if r == 0:
+            raise ConnectionError("peer closed")
+        got += r
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray(n)
+    recv_into(sock, memoryview(buf))
+    return bytes(buf)
+
+
+def recv_header_ex(sock: socket.socket) -> tuple:
+    """Read one header and its optional blocks: (op, status, flags, seq,
+    key, cmd, version, length, trace, crc, lossless), with the flag bits
+    cleared from ``status``."""
+    magic, op, status, flags, seq, key, cmd, version, length = struct.unpack(
+        HEADER_FMT, _recv_exact(sock, HEADER_SIZE)
+    )
+    if magic != MAGIC:
+        raise ConnectionError(f"bad magic {magic:#x}")
+    trace = None
+    if status & TRACE_FLAG:
+        trace = struct.unpack(_TRACE_FMT, _recv_exact(sock, TRACE_SIZE))
+        status &= ~TRACE_FLAG
+    crc = None
+    if status & CHECKSUM_FLAG:
+        (crc,) = struct.unpack(_CHECKSUM_FMT, _recv_exact(sock, CHECKSUM_SIZE))
+        status &= ~CHECKSUM_FLAG
+    lossless = bool(status & LOSSLESS_FLAG)
+    status &= ~LOSSLESS_FLAG
+    return (Op(op), status, flags, seq, key, cmd, version, length, trace,
+            crc, lossless)
+
+
+def verify_checksum(crc: Optional[int], trace, payload, op=None) -> None:
+    """Raise :class:`ChecksumError` when a stamped frame's bytes do not
+    match its CRC32C; no-op for an unstamped frame."""
+    if crc is None:
+        return
+    got = frame_checksum(trace, payload)
+    if got != crc:
+        raise ChecksumError(op, crc, got)
+
+
+def recv_message(sock: socket.socket) -> Message:
+    """Receive one frame and verify its checksum.  A lossless container
+    raises :class:`UnsupportedFrameError`, after the frame is consumed."""
+    op, status, flags, seq, key, cmd, version, length, trace, crc, lossless = (
+        recv_header_ex(sock)
+    )
+    payload = _recv_exact(sock, length) if length else b""
+    verify_checksum(crc, trace, payload, op=op)
+    if lossless:
+        raise UnsupportedFrameError(
+            f"{op.name} frame carries a lossless container: not ported yet, "
+            "ROADMAP.md Queue 1b item P11"
+        )
+    return Message(
+        op, key=key, payload=payload, seq=seq, cmd=cmd, version=version,
+        status=status, flags=flags, trace=trace,
+    )
+
+
+def send_message(sock: socket.socket, msg: Message,
+                 lock: Optional[threading.Lock] = None) -> None:
+    """Send one frame: header and payload in one scatter-gather call, with
+    no copy of the payload."""
+    hdr = msg.encode_header()
+    bufs = [memoryview(hdr)]
+    if memoryview(msg.payload).nbytes:
+        bufs.append(memoryview(msg.payload).cast("B"))
+    if lock is not None:
+        with lock:
+            _sendmsg_all(sock, bufs)
+    else:
+        _sendmsg_all(sock, bufs)
+
+
+def _sendmsg_all(sock: socket.socket, bufs: list) -> None:
+    while bufs:
+        sent = sock.sendmsg(bufs)
+        while bufs and sent >= len(bufs[0]):
+            sent -= len(bufs[0])
+            bufs.pop(0)
+        if bufs and sent:
+            bufs[0] = bufs[0][sent:]
+
+
+def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:
+    """Dial an address from the scheduler's book."""
+    from byteps_tpu_torch.comm.van import van_for_address
+
+    return van_for_address(host).connect(host, port, timeout=timeout)
+
+
+def close_socket(sock: Optional[socket.socket]) -> None:
+    """shutdown() then close(): a bare close() while another thread blocks
+    in recv on the socket sends no FIN; shutdown wakes the reader."""
+    if sock is None:
+        return
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def listen(host: str = "0.0.0.0", port: int = 0) -> Tuple[socket.socket, int]:
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    srv.bind((host, port))
+    srv.listen(128)
+    return srv, srv.getsockname()[1]

@@ -37,6 +37,24 @@ class Config:
     force_distributed: bool = False  # BYTEPS_FORCE_DISTRIBUTED
     job_id: int = 0  # BYTEPS_JOB_ID: key namespace of declared tensors
 
+    # --- the PS plane ---
+    num_server: int = 0  # DMLC_NUM_SERVER
+    ps_root_uri: str = "127.0.0.1"  # DMLC_PS_ROOT_URI: the scheduler
+    ps_root_port: int = 9000  # DMLC_PS_ROOT_PORT
+    node_host: str = ""  # DMLC_NODE_HOST: the address a server listens on
+    partition_bytes: int = 4096000  # BYTEPS_PARTITION_BYTES
+    min_compress_bytes: int = 65536  # BYTEPS_MIN_COMPRESS_BYTES
+    scheduling_credit: int = 0  # BYTEPS_SCHEDULING_CREDIT; 0 = unlimited
+    scheduling: str = "priority"  # BYTEPS_SCHEDULING: priority | fifo
+    threadpool_size: int = 4  # BYTEPS_THREADPOOL_SIZE: (de)compress threads
+    key_hash_fn: str = "djb2"  # BYTEPS_KEY_HASH_FN
+    built_in_hash_coef: int = 1  # BYTEPS_BUILT_IN_HASH_COEF
+    enable_mixed_mode: bool = False  # BYTEPS_ENABLE_MIXED_MODE
+    mixed_mode_bound: int = 101  # BYTEPS_MIXED_MODE_BOUND
+    server_engine_threads: int = 4  # BYTEPS_SERVER_ENGINE_THREAD
+    #: small-tensor fusion; > 0 is not ported (raises at init)
+    fusion_threshold: int = 0  # BYTEPS_FUSION_THRESHOLD
+
     @property
     def is_distributed(self) -> bool:
         """More than one worker, or the single-worker fake-cluster
@@ -58,6 +76,21 @@ class Config:
             ),
             force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
             job_id=min((1 << 16) - 1, max(0, _env_int("BYTEPS_JOB_ID", 0))),
+            num_server=_env_int("DMLC_NUM_SERVER", 0),
+            ps_root_uri=os.environ.get("DMLC_PS_ROOT_URI") or "127.0.0.1",
+            ps_root_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
+            node_host=os.environ.get("DMLC_NODE_HOST") or "",
+            partition_bytes=_env_int("BYTEPS_PARTITION_BYTES", 4096000),
+            min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES", 65536),
+            scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT", 0),
+            scheduling=os.environ.get("BYTEPS_SCHEDULING", "priority"),
+            threadpool_size=_env_int("BYTEPS_THREADPOOL_SIZE", 4),
+            key_hash_fn=os.environ.get("BYTEPS_KEY_HASH_FN") or "djb2",
+            built_in_hash_coef=_env_int("BYTEPS_BUILT_IN_HASH_COEF", 1),
+            enable_mixed_mode=_env_bool("BYTEPS_ENABLE_MIXED_MODE"),
+            mixed_mode_bound=_env_int("BYTEPS_MIXED_MODE_BOUND", 101),
+            server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
+            fusion_threshold=max(0, _env_int("BYTEPS_FUSION_THRESHOLD", 0)),
         )
 
 
@@ -82,3 +115,59 @@ def clear_config() -> None:
     """Drop the cached snapshot; the next get_config() re-reads env."""
     global _config
     _config = None
+
+
+#: planes of byteps_tpu's PS path this port does not carry yet, each with
+#: the ROADMAP.md item that brings it.  Selecting one raises rather than
+#: run a different job than the one asked for.
+UNPORTED = {
+    "fusion": "small-tensor fusion (Op.FUSED): ROADMAP.md Queue 1b item P1",
+    "resync": "journal replay and RESYNC healing, RPC deadlines and retries: ROADMAP.md Queue 1b item P2",
+    "elastic": "elastic membership and key migration: ROADMAP.md Queue 1b item P3",
+    "async": "the async / bounded-staleness profile: ROADMAP.md Queue 1b item P4",
+    "server_opt": "the server-side optimizer: ROADMAP.md Queue 1b item P5",
+    "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
+    "native": "the native C++ server and client lanes: ROADMAP.md Queue 1b item P7",
+    "van": "the uds, shm and chaos vans: ROADMAP.md Queue 1b item P8",
+    "codec": "codecs other than bare onebit (topk, randomk, dithering): ROADMAP.md Queue 1b item P9",
+    "ef": "error-feedback and momentum chains: ROADMAP.md Queue 1b item P10",
+    "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
+    "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
+}
+
+
+def unported(plane: str, what: str) -> NotImplementedError:
+    """The error for a request that needs an unported plane."""
+    return NotImplementedError(f"{what}: not ported yet, {UNPORTED[plane]}")
+
+
+#: environment knobs that select an unported plane: (variable, plane, is
+#: it selected by this value)
+_UNPORTED_KNOBS = (
+    ("BYTEPS_FUSION_THRESHOLD", "fusion", lambda v: int(v) > 0),
+    ("BYTEPS_ELASTIC_RESHARD", "elastic", lambda v: _truthy(v)),
+    ("BYTEPS_DEAD_NODE_TIMEOUT_S", "elastic", lambda v: float(v) > 0),
+    ("BYTEPS_AUTOTUNE", "elastic", lambda v: _truthy(v)),
+    ("BYTEPS_ASYNC", "async", lambda v: _truthy(v)),
+    ("BYTEPS_ENABLE_ASYNC", "async", lambda v: _truthy(v)),
+    ("BYTEPS_SERVER_OPT", "server_opt", lambda v: _truthy(v)),
+    ("BYTEPS_SERVER_NATIVE", "native", lambda v: _truthy(v)),
+    ("BYTEPS_NATIVE_CLIENT", "native", lambda v: _truthy(v)),
+    ("BYTEPS_VAN", "van", lambda v: v != "tcp"),
+    ("BYTEPS_WIRE_LOSSLESS", "lossless", lambda v: _truthy(v)),
+    ("BYTEPS_RPC_RETRIES", "resync", lambda v: int(v) > 0),
+    ("BYTEPS_RPC_DEADLINE_S", "resync", lambda v: float(v) > 0),
+)
+
+
+def _truthy(v: str) -> bool:
+    return v.lower() not in ("0", "false", "no", "off")
+
+
+def check_unported_env() -> None:
+    """Raise NotImplementedError when the environment selects a plane of
+    the PS path that the port does not carry."""
+    for name, plane, selected in _UNPORTED_KNOBS:
+        v = os.environ.get(name)
+        if v not in (None, "") and selected(v):
+            raise unported(plane, f"{name}={v}")

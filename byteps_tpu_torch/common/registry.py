@@ -14,6 +14,8 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional
 
+from byteps_tpu_torch.common.types import Partition
+
 MAX_PARTS_PER_TENSOR = 1 << 16
 #: bit position of the job id inside a wire key
 JOB_SHIFT = 48
@@ -35,6 +37,14 @@ class TensorContext:
     declared_key: int
     kwargs: Dict[str, str] = dataclasses.field(default_factory=dict)
     job: int = 0
+    partitions: List[Partition] = dataclasses.field(default_factory=list)
+    #: the init-push barrier ran for every partition
+    initialized: bool = False
+    #: push_pull round of this tensor (the server's round number)
+    version: int = 0
+    #: engine instance that last ran the init barrier: the registry
+    #: outlives shutdown()/init() cycles, the servers' stores do not
+    engine_epoch: int = -1
 
     @property
     def base_key(self) -> int:

@@ -1,10 +1,13 @@
 """Process-wide runtime state: the config snapshot, the bound torch device,
-the tensor registry and the handle table.
+the handle table and, in distributed mode, the PS client and the pipeline
+engine (global.cc:105-403).
 
 ``init_state()`` binds ``cuda:<local_rank>`` unless the caller names a
-device.  A distributed topology needs the PS plane (engine, PS client,
-transport, servers), which the port does not have yet: it raises rather
-than run a different job than the one asked for.
+device.  A distributed topology (more than one worker, or
+``BYTEPS_FORCE_DISTRIBUTED=1``) registers with the scheduler at
+``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, connects to the servers and starts
+the engine; ``shutdown_state()`` stops both.  The server and scheduler
+roles run as their own processes (``python -m byteps_tpu_torch.server``).
 """
 
 from __future__ import annotations
@@ -14,13 +17,8 @@ from typing import Optional, Union
 
 import torch
 
-from byteps_tpu_torch.common.config import Config, reset_config
+from byteps_tpu_torch.common.config import Config, check_unported_env, reset_config
 from byteps_tpu_torch.core.handle_manager import HandleManager
-
-PS_PLANE_SLICE = (
-    "the PS plane (engine, PS client, transport, servers) is the port's next "
-    "slice, ROADMAP.md Queue 1 item 2"
-)
 
 
 class RuntimeState:
@@ -28,6 +26,8 @@ class RuntimeState:
         self.config: Optional[Config] = None
         self.device: Optional[torch.device] = None
         self.handles = HandleManager()
+        self.ps_client = None  # comm.ps_client.PSClient (distributed mode)
+        self.engine = None  # core.engine.PipelineEngine (distributed mode)
         self.initialized = False
         self._lock = threading.Lock()
 
@@ -58,16 +58,21 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
             return st
         cfg = reset_config()
         if cfg.role != "worker":
-            raise NotImplementedError(
-                f"DMLC_ROLE={cfg.role!r}: {PS_PLANE_SLICE}"
-            )
-        if cfg.is_distributed:
-            raise NotImplementedError(
-                f"distributed topology (DMLC_NUM_WORKER={cfg.num_worker}, "
-                f"BYTEPS_FORCE_DISTRIBUTED={int(cfg.force_distributed)}): "
-                f"{PS_PLANE_SLICE}"
+            raise ValueError(
+                f"DMLC_ROLE={cfg.role!r}: init() brings up a worker; run the "
+                "server and scheduler roles with `python -m byteps_tpu_torch.server`"
             )
         st.device = _bind_device(cfg, device)
+        if cfg.is_distributed:
+            check_unported_env()
+            from byteps_tpu_torch.comm.ps_client import PSClient
+            from byteps_tpu_torch.core.engine import PipelineEngine
+
+            client = PSClient(cfg)
+            client.connect()
+            st.ps_client = client
+            st.engine = PipelineEngine(cfg, client)
+            st.engine.start()
         st.config = cfg
         st.initialized = True
         return st
@@ -78,6 +83,12 @@ def shutdown_state() -> None:
     with st._lock:
         if not st.initialized:
             return
+        if st.engine is not None:
+            st.engine.stop()
+            st.engine = None
+        if st.ps_client is not None:
+            st.ps_client.close()
+            st.ps_client = None
         st.handles.clear()
         st.initialized = False
 

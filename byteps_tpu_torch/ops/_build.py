@@ -1,10 +1,11 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into ``build/lib<name>-<digest>.so`` beside this file, at first
 use; the digest covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  The library is loaded with
-``ctypes``.  Nothing here runs at import.
+rebuilt and an unchanged one is reused.  A ``csrc/<name>.c`` (host code,
+such as the wire checksum) is built the same way by the host C compiler.
+The library is loaded with ``ctypes``.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+HOST_CFLAGS = ("-std=c11", "-O3", "-shared", "-fPIC")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -52,17 +55,33 @@ def _nvcc() -> str:
     return found
 
 
+def _cc() -> str:
+    for cand in (os.environ.get("CC"), "cc", "gcc"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C compiler found (looked for $CC, cc and gcc): the port's "
+        "host helpers are built at first use"
+    )
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists;
-    return the library's path.  Safe across processes (file lock)."""
+    """Compile ``csrc/<name>.cu`` (or ``csrc/<name>.c``) unless an
+    up-to-date build exists; return the library's path.  Safe across
+    processes (file lock)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
+    compiler, flags = _nvcc, NVCC_FLAGS
+    if not os.path.exists(src):
+        src = os.path.join(CSRC_DIR, name + ".c")
+        compiler, flags = _cc, HOST_CFLAGS
     with open(src, "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
+            f.read() + " ".join(flags).encode()
         ).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    build_seconds[name] = 0.0
+    build_seconds.setdefault(name, 0.0)
     if os.path.exists(out):
         return out
     with open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as lock:
@@ -72,13 +91,13 @@ def build(name: str) -> str:
         tmp = f"{out}.tmp.{os.getpid()}"
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            [compiler(), *flags, "-o", tmp, src],
             capture_output=True, text=True,
         )
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{compiler()} failed on {src}:\n{proc.stderr}")
         os.replace(tmp, out)
     return out
 

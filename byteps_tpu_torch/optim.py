@@ -6,7 +6,11 @@ of its gradient, named ``Gradient.<name>`` with priority −(declaration
 index), while the backward pass is still running.  ``step()`` waits for
 every handle, writes the reduced gradients back, then steps the wrapped
 optimizer.  Gradients are handed over as the device tensors they are: no
-staging copy to the host.
+staging copy to the host.  ``compression_params`` (the spelling of the
+reference plugin, e.g. ``{"compressor": "onebit", "scaling": True}``) is
+translated to the byteps_* declare kwargs of every gradient.
+``server_side=True`` (the reference's server-side optimizer) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from byteps_tpu_torch.api import declare_tensor, push_pull_async, synchronize
+from byteps_tpu_torch.compression.registry import translate_compression_params
 
 
 class DistributedOptimizer(torch.optim.Optimizer):
@@ -25,7 +30,13 @@ class DistributedOptimizer(torch.optim.Optimizer):
         optimizer: torch.optim.Optimizer,
         named_parameters: Optional[Iterable[Tuple[str, torch.nn.Parameter]]] = None,
         backward_passes_per_step: int = 1,
+        compression_params: Optional[Dict] = None,
+        server_side: bool = False,
     ) -> None:
+        if server_side:
+            from byteps_tpu_torch.common.config import unported
+
+            raise unported("server_opt", "DistributedOptimizer(server_side=True)")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._inner = optimizer
@@ -49,8 +60,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self._names = {p: n for n, p in named}
         self._order = {p: i for i, (_, p) in enumerate(named)}
         hook = _weak_hook(self)
+        kw = translate_compression_params(compression_params)
         for name, p in named:
-            declare_tensor(f"Gradient.{name}")
+            declare_tensor(f"Gradient.{name}", **kw)
             if p.requires_grad:
                 p.register_post_accumulate_grad_hook(hook)
 

@@ -7,17 +7,29 @@ Run from the repository root, with no arguments:
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the flash-attention kernels from byteps_tpu_torch/ops/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card (BERT-large's
-     attention shape in bf16 and f32, a causal case, a ragged S, each head dim),
-     and time kernel, plain version and the library call;
-  4. agreement of a 2-layer BERT-large-width model on the card (kernels) with the
+  2. build the kernels from byteps_tpu_torch/ops/csrc, one compiler process per
+     source, all started together: flash attention (K1-K3) and the onebit packer
+     (K4) with nvcc, the wire checksum with the host C compiler;
+  3. hold each flash kernel against its plain PyTorch version on the card
+     (BERT-large's attention shape in bf16 and f32, a causal case, a ragged S,
+     each head dim), and time kernel, plain version and the library call;
+  4. hold K4 against its plain version on the card (words bitwise, scale within
+     rtol 1e-6 and bitwise the same across launches) for n from 1 to 1,024,000,
+     on inputs with +-0.0, +-inf, NaNs of both signs and denormals; time it at
+     one full partition (1,024,000 elements);
+  5. agreement of a 2-layer BERT-large-width model on the card (kernels) with the
      same model on the CPU (plain versions) in f32, and in bf16 no further from f32
      than dense attention;
-  5. the main path: BERT-large (seq 512, bf16, remat, flash attention) trained for a
+  6. the main path: BERT-large (seq 512, bf16, remat, flash attention) trained for a
      few steps through init -> broadcast_parameters -> DistributedOptimizer(AdamW),
      with the kernels' launch counts read around it;
-  6. one JSON line listing the kernels, then the contract line
+  7. the distributed path: the same model on one worker whose gradients go
+     through a scheduler and two PS servers, each a `python -m
+     byteps_tpu_torch.server` process, with 1-bit compression (scaling) of every
+     float32 gradient of at least 64 KiB packed on the card by K4; launches,
+     device-to-host bytes and wire bytes are read around it and checked against
+     the engine's partition table;
+  8. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -25,18 +37,29 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+
 # main path: BERT-large at seq 512, batch 32
 BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
+# distributed path: the same model, fewer timed steps (each crosses the servers)
+DIST_STEPS, DIST_WARMUP = 3, 1
+
+# K4: element counts checked against the plain version, and the timed one (a full
+# partition at the default BYTEPS_PARTITION_BYTES)
+ONEBIT_NS = (1, 31, 32, 33, 24576, 32768, 1_024_000, 1_000_003)
+ONEBIT_TIMED_N = 1_024_000
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -85,16 +108,25 @@ def close(name: str, got, want, dtype_name: str) -> float:
 
 
 def phase_build() -> None:
-    from byteps_tpu_torch.ops import _build
-    from byteps_tpu_torch.ops.flash_attention import _lib
+    from byteps_tpu_torch.comm import transport
+    from byteps_tpu_torch.ops import _build, flash_attention, onebit_device
 
+    sources = ("flash_attention", "onebit", "crc32c")
     t0 = time.perf_counter()
-    _lib()
-    print(f"build: flash_attention.cu in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds.get('flash_attention', 0.0):.1f} s)", flush=True)
-    for line in _build.build_log.get("flash_attention", "").splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        for fut in [pool.submit(_build.build, name) for name in sources]:
+            fut.result()
+    flash_attention._lib()
+    onebit_device._lib()
+    if transport.crc32c(b"123456789") != 0xE3069283:
+        fail("the wire checksum helper gives a wrong CRC32C")
+    print(f"build: {', '.join(sources)} in parallel in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s" for n in sources)
+          + ")", flush=True)
+    for name in ("flash_attention", "onebit"):
+        for line in _build.build_log.get(name, "").splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
 
 def _inputs(b, h, s, dh, dtype, seed):
@@ -219,6 +251,106 @@ def check_kernels() -> dict:
     return main
 
 
+def _onebit_input(n: int, seed: int, specials: bool):
+    """float32[n] on the card: normal draws with +-0.0 and denormals mixed in, and
+    with ``specials`` also +-inf and NaNs of both signs (sign bit set and clear)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    vals = [0.0, -0.0, 1e-40, -1e-40, np.float32(1.4e-45), -np.float32(1.4e-45)]
+    if specials:  # first, so that even n = 1 holds a non-finite value
+        nan = np.float32(np.nan)
+        vals = [np.inf, -np.inf, nan, -nan] + vals
+    idx = rng.permutation(n)[: min(n, 4 * len(vals))]
+    x[idx] = np.resize(np.array(vals, dtype=np.float32), idx.size)
+    return torch.from_numpy(x).cuda()
+
+
+def check_onebit() -> float:
+    """K4 against its plain version at every n of ONEBIT_NS: the words bitwise;
+    on finite inputs the scale within rtol 1e-6 and bitwise the same across two
+    launches; with infs and NaNs the scale non-finite in both.  Returns the
+    largest |scale(K4) - scale(plain)|."""
+    import torch
+
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    worst = 0.0
+    for i, n in enumerate(ONEBIT_NS):
+        for specials in (False, True):
+            x = _onebit_input(n, seed=100 + i, specials=specials)
+            got = ob.onebit_payload_device(x, scaling=True)
+            again = ob.onebit_payload_device(x, scaling=True)
+            want = ob._plain_payload(x, scaling=True)
+            torch.cuda.synchronize()
+            if got.numel() != ob.wire_nbytes(n) or not torch.equal(got[4:], want[4:]):
+                fail(f"K4 n={n} specials={specials}: sign words differ from the plain "
+                     f"version ({int((got[4:] != want[4:]).sum())} bytes)")
+            if not torch.equal(got, again):
+                fail(f"K4 n={n}: two launches on the same input differ")
+            # the decoder (plain torch ops) decodes the payload on the card as on
+            # the CPU, bit for bit
+            dec = ob.onebit_decompress_device(*ob.split_payload(got), n)
+            dec_cpu = ob.onebit_decompress_device(*ob.split_payload(got.cpu()), n)
+            if not torch.equal(dec.view(torch.int32).cpu(), dec_cpu.view(torch.int32)):
+                fail(f"onebit decoder n={n}: the card's decode differs from the CPU's")
+            s_got, s_want = float(ob.split_payload(got)[0]), float(ob.split_payload(want)[0])
+            if specials:
+                if math.isfinite(s_got) or math.isfinite(s_want):
+                    fail(f"K4 n={n}: scale over infs and NaNs {s_got} vs plain {s_want}")
+                continue
+            err = abs(s_got - s_want)
+            if not err <= 1e-6 * abs(s_want):
+                fail(f"K4 n={n}: scale {s_got!r} vs plain {s_want!r} beyond rtol 1e-6")
+            worst = max(worst, err)
+        # scaling off: the scale word is 1.0
+        off = ob.onebit_payload_device(_onebit_input(n, seed=7, specials=False), scaling=False)
+        if float(ob.split_payload(off)[0]) != 1.0:
+            fail(f"K4 n={n}: scaling off gives scale {float(ob.split_payload(off)[0])}")
+    print(f"check onebit K4: n in {list(ONEBIT_NS)}, words bitwise equal to the plain "
+          f"version, scale max abs err {worst:.2e} (rtol 1e-6), repeatable bitwise",
+          flush=True)
+    return worst
+
+
+def time_onebit() -> dict:
+    """K4 and its plain version at one full partition (CUDA events, 20 launches
+    after 3 warm-up), against the bytes bound."""
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    n = ONEBIT_TIMED_N
+    x = _onebit_input(n, seed=11, specials=False)
+    ms = time_ms(lambda: ob.onebit_payload_device(x, scaling=True))
+    plain_ms = time_ms(lambda: ob._plain_payload(x, scaling=True))
+    nbytes = 4 * n + ob.wire_nbytes(n)  # read x once, write the payload once
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"time onebit K4 n={n}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
+          f"bound {bound_ms:.5f} ms (bytes), plain version {plain_ms:.4f} ms; no single "
+          f"PyTorch call computes the packing (library: none)", flush=True)
+
+    # what a server does with each such partition on this machine's CPU: decode
+    # the push, encode the merged round for the pull (numpy, one thread)
+    from byteps_tpu_torch.compression.impl import OneBitCompressor
+
+    host = x.cpu().numpy()
+    codec = OneBitCompressor(n, scaling=True)
+    payload = codec.compress(host)
+    host_ms = {}
+    for label, fn in (("compress", lambda: codec.compress(host)),
+                      ("decompress", lambda: codec.decompress(payload, n))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms[label] = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"time onebit host codec n={n} (the servers' numpy codec, host CPU): compress "
+          f"{host_ms['compress']:.3f} ms, decompress {host_ms['decompress']:.3f} ms",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "gb_s": nbytes / ms / 1e6}
+
+
 def _train_small(cfg, sd, tokens, targets, dev):
     """Logits (on the host, f32) and the losses of three AdamW steps of one
     model, through init -> DistributedOptimizer on ``dev``."""
@@ -315,11 +447,13 @@ def profile_step(step, tok, tgt, step_ms: float) -> float:
     if not kernels:
         print("profile: no device time recorded (not measured)", flush=True)
         return loss
-    families = {"flash attention kernels": 0.0, "matmul": 0.0,
-                "optimizer (multi_tensor_apply)": 0.0, "other": 0.0}
+    families = {"flash attention kernels": 0.0, "onebit packer (K4)": 0.0, "matmul": 0.0,
+                "optimizer (multi_tensor_apply)": 0.0, "copies": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         fam = ("flash attention kernels" if "flash_" in name
+               else "onebit packer (K4)" if "onebit_" in name
+               else "copies" if "memcpy" in name
                else "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass"))
                else "optimizer (multi_tensor_apply)" if "multi_tensor_apply" in name
                else "other")
@@ -396,6 +530,191 @@ def train_main_path(card: str) -> dict:
     return counts
 
 
+def _start_ps_processes(env: dict) -> tuple:
+    """A scheduler and two servers of the port, as `python -m
+    byteps_tpu_torch.server` processes; returns (scheduler port, processes)."""
+    procs = []
+    sched = subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
+        env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": "0"},
+        stdout=subprocess.PIPE, text=True,
+    )
+    procs.append(sched)
+    line = sched.stdout.readline().strip()
+    if not line.startswith("BYTEPS_SCHEDULER_PORT="):
+        for p in procs:
+            p.kill()
+        fail(f"the scheduler process did not report its port (got {line!r})")
+    port = line.split("=", 1)[1]
+    for _ in range(2):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
+            env={**env, "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
+            stdout=subprocess.DEVNULL,
+        ))
+    return port, procs
+
+
+def train_distributed(card: str) -> int:
+    """The distributed path: BERT-large as on the main path, one worker (this
+    process) and two server processes behind a scheduler process, onebit with
+    scaling on every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import (
+        Transformer, bert_large, build_train_step, init_params,
+    )
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+           "BYTEPS_FORCE_DISTRIBUTED": "1", "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO}
+    saved = dict(os.environ)
+    port, procs = _start_ps_processes(env)
+    try:
+        os.environ.update({**env, "DMLC_PS_ROOT_PORT": port})
+        t0 = time.perf_counter()
+        bps.init()
+        cfg = bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True,
+                         use_flash=True)
+        model = Transformer(cfg)
+        model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+        bps.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression_params={"compressor": "onebit", "scaling": True},
+        )
+        step = build_train_step(model, opt)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)
+        tok = torch.as_tensor(tokens, device=bps.device()).long()
+        tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
+        print(f"distributed path: setup {time.perf_counter() - t0:.1f} s (scheduler "
+              f"port {port}, 2 server processes)", flush=True)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ob.reset_launches()
+        counters().reset()
+        t0 = time.perf_counter()
+        losses = [float(step(tok, tgt)) for _ in range(DIST_WARMUP)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        # the timed steps, split: forward + backward (the hooks submit each
+        # gradient as backward produces it), then the wait for the last pulls,
+        # then AdamW
+        split = {"forward+backward": 0.0, "wait for pulls": 0.0, "optimizer": 0.0}
+        t0 = time.perf_counter()
+        for _ in range(DIST_STEPS):
+            a = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss(tok, tgt)
+            loss.backward()
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+            opt.synchronize()
+            torch.cuda.synchronize()
+            c = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            d = time.perf_counter()
+            split["forward+backward"] += b - a
+            split["wait for pulls"] += c - b
+            split["optimizer"] += d - c
+            losses.append(float(loss.detach()))
+        dt = time.perf_counter() - t0
+        losses.append(profile_step(step, tok, tgt, dt / DIST_STEPS * 1e3))
+        torch.cuda.synchronize()
+        launches = {**fa.launches, **ob.launches}
+        stats = counters().snapshot()
+        table = get_state().engine.partition_table()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # after the counts are read: the same forward + backward with the
+        # gradient hooks skipping (they accumulate while a step has more
+        # backward passes to go), so the engine stays idle
+        opt.backward_passes_per_step = 2
+        opt.zero_grad(set_to_none=True)
+        a = time.perf_counter()
+        model.loss(tok, tgt).backward()
+        torch.cuda.synchronize()
+        idle_fb = time.perf_counter() - a
+        # and the engine alone: those gradients pushed and pulled under the
+        # optimizer's names and priorities, with no backward running beside
+        a = time.perf_counter()
+        handles = [bps.push_pull_async(p.grad, name=f"Gradient.{n}", priority=-i)
+                   for i, (n, p) in enumerate(model.named_parameters())]
+        for h in handles:
+            bps.synchronize(h)
+        torch.cuda.synchronize()
+        engine_alone = time.perf_counter() - a
+        opt.backward_passes_per_step = 1
+        opt.zero_grad(set_to_none=True)
+        dead = [p.args for p in procs if p.poll() is not None]
+        if dead:
+            fail(f"a PS process exited during the distributed path: {dead}")
+        bps.shutdown()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    n = DIST_WARMUP + DIST_STEPS + 1
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"distributed path: non-finite loss: {losses}")
+    # the gradients' partitions (broadcast_parameters also initialized the
+    # parameters' own keys, before the counts were reset)
+    grads = [r for r in table if r["name"].startswith("Gradient.")]
+    compressed = [r for r in grads if r["wire_nbytes"] is not None]
+    raw = [r for r in grads if r["wire_nbytes"] is None]
+    want_d2h = (sum(r["wire_nbytes"] for r in compressed)
+                + sum(r["length"] * r["itemsize"] for r in raw))
+    raw_bytes = sum(r["length"] * r["itemsize"] for r in grads)
+    if launches["onebit_pack"] != n * len(compressed):
+        fail(f"distributed path: K4 launched {launches['onebit_pack']} times in {n} "
+             f"steps, expected {len(compressed)} compressed partitions a step")
+    want_flash = {"flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
+                  "flash_bwd_dkv": cfg.n_layers * n}
+    if {k: launches[k] for k in want_flash} != want_flash:
+        fail(f"distributed path: flash launches {launches}, expected {want_flash}")
+    if stats.get("d2h_bytes", 0) != n * want_d2h:
+        fail(f"distributed path: {stats.get('d2h_bytes', 0) / n:.0f} bytes a step crossed "
+             f"device to host, expected {want_d2h} (compressed payloads plus raw small "
+             "tensors)")
+    sps = BATCH * DIST_STEPS / dt
+    print(f"distributed path: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, 1 "
+          f"worker + 2 server processes, onebit (scaling) on {len(compressed)} of "
+          f"{len(grads)} gradient partitions: losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"distributed path: {sps:.2f} samples/s ({dt / DIST_STEPS * 1e3:.1f} ms/step over "
+          f"{DIST_STEPS} steps; first step {first_s:.1f} s with the init barriers), peak "
+          f"memory {peak:.2f} GiB, on {card}", flush=True)
+    print("distributed path: step split " + ", ".join(
+        f"{k} {v / DIST_STEPS * 1e3:.1f} ms" for k, v in split.items())
+        + f"; forward+backward with the engine idle {idle_fb * 1e3:.1f} ms; the engine "
+        f"alone (every gradient pushed and pulled, no backward beside it) "
+        f"{engine_alone * 1e3:.1f} ms", flush=True)
+    print(f"distributed path: per step K4 launches {launches['onebit_pack'] // n} "
+          f"(= compressed partitions {len(compressed)}), d2h_bytes {want_d2h} "
+          f"(raw gradient {raw_bytes}, {raw_bytes / want_d2h:.1f}x more), wire_tx_bytes "
+          f"{stats.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
+          f"{stats.get('wire_rx_bytes', 0) // n}", flush=True)
+    return launches["onebit_pack"]
+
+
 def main() -> None:
     import torch
 
@@ -414,8 +733,13 @@ def main() -> None:
     phase_build()
     errs = check_kernels()
     perf = time_kernels(BATCH, 16, SEQ, 64, torch.bfloat16, False)
+    onebit_err = check_onebit()
+    onebit_perf = time_onebit()
     check_model()
     counts = train_main_path(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    onebit_launches = train_distributed(card)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
     replaces = {
@@ -437,7 +761,19 @@ def main() -> None:
             "library_ms": perf["sdpa_fwd"] if name == "flash_fwd" else None,
             "sdpa_bwd_ms": perf["sdpa_bwd"],
             "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
+            "path": "single-worker main path",
         })
+    kernels.append({
+        "name": "onebit_pack", "route": "cuda",
+        "source": "byteps_tpu_torch/ops/csrc/onebit.cu",
+        "replaces": "byteps_tpu/ops/onebit_device.py:38",
+        "launches": onebit_launches, "max_abs_err": onebit_err,
+        "ms": onebit_perf["ms"], "plain_ms": onebit_perf["plain_ms"],
+        "bound_ms": onebit_perf["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call packs sign bits
+        "shape": f"n={ONEBIT_TIMED_N} float32 (one partition)",
+        "path": "distributed path (1 worker, 2 servers, onebit)",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,15 +67,52 @@ def test_init_binds_local_rank_device(monkeypatch):
 
 
 @pytest.mark.parametrize("env", [
-    {"DMLC_NUM_WORKER": "2"},
-    {"BYTEPS_FORCE_DISTRIBUTED": "1"},
+    {"DMLC_NUM_WORKER": "2", "BYTEPS_FUSION_THRESHOLD": "4096"},
+    {"BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_VAN": "shm"},
     {"DMLC_ROLE": "server"},
 ])
 def test_distributed_topology_raises(monkeypatch, env):
+    """A distributed worker that asks for an unported plane raises before it
+    dials anything; init() of a server or scheduler role points at the
+    process entry that runs it."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="ROADMAP.md Queue 1b|python -m byteps_tpu_torch.server"):
         bps.init(device="cpu")
+    assert not port_state.get_state().initialized
+
+
+def test_distributed_init_against_a_fake_cluster(monkeypatch):
+    """BYTEPS_FORCE_DISTRIBUTED=1 with a scheduler and a server of the port
+    in-process: init() registers, the rank and size come from the address
+    book, push_pull goes through the server, shutdown() stops the engine."""
+    import threading
+
+    from byteps_tpu_torch.comm.rendezvous import Scheduler
+    from byteps_tpu_torch.server.server import PSServer
+
+    sched = Scheduler(1, 1, host="127.0.0.1")
+    sched.start()
+    for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(sched.port),
+                 "DMLC_NUM_SERVER": "1", "BYTEPS_FORCE_DISTRIBUTED": "1"}.items():
+        monkeypatch.setenv(k, v)
+    srv = PSServer(port_config.Config.from_env())
+    threading.Thread(target=srv.start, daemon=True).start()
+    try:
+        bps.init(device="cpu")
+        st = port_state.get_state()
+        assert st.engine is not None and st.ps_client is not None
+        assert (bps.rank(), bps.size()) == (0, 1)
+        x = torch.arange(10.0)
+        y = bps.push_pull(x, name="fake.cluster")
+        assert y is not x and torch.equal(y, x)
+        assert srv._keys  # the server holds the tensor's key
+        bps.shutdown()
+        assert port_state.get_state().engine is None
+    finally:
+        srv.stop()
+        sched.stop()
 
 
 def test_api_before_init_raises():
@@ -287,11 +324,16 @@ def test_params_round_trip_exactly(pp_size):
 
 
 def test_import_loads_neither_jax_nor_byteps_tpu():
-    """A fresh interpreter: this process has JAX loaded by conftest."""
+    """A fresh interpreter that imports every module of the port: this
+    process has JAX loaded by conftest."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         import byteps_tpu_torch
-        import byteps_tpu_torch.models.convert, byteps_tpu_torch.optim
+        mods = [m.name for m in pkgutil.walk_packages(byteps_tpu_torch.__path__,
+                                                      "byteps_tpu_torch.")]
+        assert "byteps_tpu_torch.server.server" in mods, mods
+        for name in mods:
+            importlib.import_module(name)
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "flax", "byteps_tpu")
                or m.startswith(("jax.", "optax.", "flax.", "byteps_tpu."))]
@@ -312,3 +354,45 @@ def test_no_source_imports_jax_or_byteps_tpu():
     for path in files:
         with open(path) as f:
             assert not pattern.search(f.read()), path
+
+
+def test_server_processes_import_neither_jax_nor_byteps_tpu(monkeypatch, tmp_path):
+    """``python -m byteps_tpu_torch.server`` as the scheduler and as a
+    server, with this process as the worker: every module the two
+    processes import (``-X importtime`` lists them) is neither JAX nor
+    byteps_tpu, and a push_pull goes through them."""
+    import signal
+
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO}
+    cmd = [sys.executable, "-X", "importtime", "-m", "byteps_tpu_torch.server"]
+    logs = [tmp_path / "scheduler.err", tmp_path / "server.err"]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env={**env, "DMLC_ROLE": "scheduler",
+                                                  "DMLC_PS_ROOT_PORT": "0"},
+                              stdout=subprocess.PIPE, stderr=logs[0].open("w"), text=True)]
+    try:
+        line = procs[0].stdout.readline().strip()
+        assert line.startswith("BYTEPS_SCHEDULER_PORT="), line
+        port = line.split("=", 1)[1]
+        procs.append(subprocess.Popen(
+            cmd, cwd=REPO, env={**env, "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
+            stdout=subprocess.DEVNULL, stderr=logs[1].open("w")))
+        for k, v in {**env, "DMLC_PS_ROOT_PORT": port, "BYTEPS_FORCE_DISTRIBUTED": "1"}.items():
+            monkeypatch.setenv(k, v)
+        bps.init(device="cpu")
+        x = torch.arange(6, dtype=torch.int32)
+        assert torch.equal(bps.push_pull(x, name="via.processes"), x)
+        bps.shutdown()
+    finally:
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for p in procs:
+            p.wait(timeout=30)
+    for p, log in zip(procs, logs):
+        err = log.read_text()
+        imported = [ln.rsplit("|", 1)[1].strip() for ln in err.splitlines()
+                    if ln.startswith("import time:") and "|" in ln]
+        assert "byteps_tpu_torch.server.server" in imported
+        bad = [m for m in imported if m.split(".")[0] in ("jax", "optax", "flax", "byteps_tpu")]
+        assert not bad, bad
+        assert p.returncode in (0, -signal.SIGTERM), err[-2000:]
