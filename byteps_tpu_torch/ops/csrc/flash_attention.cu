@@ -36,9 +36,12 @@
 //     rows that lanes read across are padded (stride dh + 1) so the loops
 //     are free of bank conflicts.  Bound by operations.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -744,6 +747,359 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ===========================================================================
+// bf16, dh = 64: K1 on wgmma, its tiles brought by TMA
+// ===========================================================================
+
+namespace hop {
+
+constexpr int DH = 64;
+constexpr int ROW = DH * 2;            // bytes of a row: one 128-byte swizzle atom
+constexpr int BM = 128;                // query rows per block, 64 per consumer warpgroup
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Rows [row, row + box rows) of head bh into shared memory at dst; rows at
+// or past S arrive as zeros.  Completion is counted on the mbarrier.
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bh), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; tiles are 1024-byte
+// aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define F8(a, i)                                                                       \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),          \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16 pairs, the
+// m16n8k16 A layout per warp), B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int BN>
+struct Fwd {
+  static constexpr uint32_t Q_BYTES = BM * ROW;
+  static constexpr uint32_t KV_BYTES = BN * ROW;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * KV_BYTES + 64;   // 1024: alignment slack
+};
+
+// K1, one block per (bh, 128-row query block): two warpgroups of 128
+// threads, each owning 64 query rows.  In the accumulator layout of
+// wgmma (m64nN, f32) thread t of a warpgroup holds rows r = 16 (t / 32) +
+// (t % 32) / 4 and r + 8, columns 8 j + 2 (t % 4) + {0, 1}: element
+// [4 j + 2 i + c] is row r + 8 i, column 8 j + 2 (t % 4) + c.  A row's
+// values are spread over the 4 lanes of a quad.
+template <int BN>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                float* __restrict__ lse, int S, int causal, float scale_log2) {
+  using L = Fwd<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sq = smem_u32(smem), sk = sq + L::Q_BYTES, sv = sk + L::KV_BYTES;
+  const uint32_t bar_q = sv + L::KV_BYTES, bar_k = bar_q + 8, bar_v = bar_q + 16;
+
+  const int qb = blockIdx.x, bh = blockIdx.y, q0 = qb * BM;
+  const int nk = (S + BN - 1) / BN;
+  const int kend = causal ? min(nk, (q0 + BM - 1) / BN + 1) : nk;   // later tiles fully masked
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_k, 1);
+    mbar_init(bar_v, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, L::Q_BYTES);
+    tma_rows(sq, &tq, bar_q, q0, bh);
+    mbar_expect_tx(bar_k, L::KV_BYTES);
+    tma_rows(sk, &tk, bar_k, 0, bh);
+    mbar_expect_tx(bar_v, L::KV_BYTES);
+    tma_rows(sv, &tv, bar_v, 0, bh);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;   // this thread's rows: r0, r0 + 8
+  const int cq = 2 * (lane % 4);                            // its first column in each group of 8
+  // Q and K: K-major, 8-row groups 1024 bytes apart; a k16 step is 32 bytes.
+  // V: MN-major (dh contiguous), 8-key groups 1024 bytes apart; a k16 step is
+  // 16 keys, 2048 bytes.
+  const uint64_t dq = desc_sw128(sq + wg * 64 * ROW, 16, 1024);
+  const uint64_t dk = desc_sw128(sk, 16, 1024);
+  const uint64_t dv = desc_sw128(sv, 1024, 1024);
+
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units; l per thread
+
+  mbar_wait(bar_q, 0);
+  for (int kb = 0; kb < kend; ++kb) {
+    const uint32_t phase = kb & 1;
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+
+    // S = Q K^T on the tensor cores, into registers
+    mbar_wait(bar_k, phase);
+    wg_fence();
+    fence_regs(s);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+
+    // mask columns past S and, if causal, above the diagonal
+    const int c0 = kb * BN;
+    if (c0 + BN > S || (causal && c0 + BN - 1 > q0 + wg * 64)) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = c0 + 8 * j + cq + c;
+            if (col >= S || (causal && col > r0 + 8 * i)) s[4 * j + 2 * i + c] = -INFINITY;
+          }
+    }
+
+    // online softmax in registers, log2 domain: a row's max over its quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float alpha = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = ex2(fmaf(s[4 * j + 2 * i + c], scale_log2, -m_new));
+          s[4 * j + 2 * i + c] = p;
+          sum += p;
+        }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        acc[4 * j + 2 * i] *= alpha;
+        acc[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+
+    // P in bf16: the accumulator's k16 column slices are wgmma's register A
+    uint32_t p[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V, O staying in registers
+    mbar_wait(bar_v, phase);
+    wg_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, p[kk], dv + kk * (16 * ROW >> 4));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+
+    // both warpgroups are done with this K/V tile: load the next one
+    __syncthreads();
+    if (threadIdx.x == 0 && kb + 1 < kend) {
+      mbar_expect_tx(bar_k, L::KV_BYTES);
+      tma_rows(sk, &tk, bar_k, (kb + 1) * BN, bh);
+      mbar_expect_tx(bar_v, L::KV_BYTES);
+      tma_rows(sv, &tv, bar_v, (kb + 1) * BN, bh);
+    }
+  }
+
+  // O = acc / l (l = 0 -> 1) in bf16, lse = (m + log2 l) ln 2
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = r0 + 8 * i;
+    if (row < S) {
+      const float ll = li == 0.f ? 1.f : li;
+      const float inv = 1.f / ll;
+      bf16* out = o + ((size_t)bh * S + row) * DH + cq;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      if (lane % 4 == 0) lse[(size_t)bh * S + row] = (m[i] + log2f(ll)) * LN2;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver function: it is reached through the
+// runtime's entry-point query, so the library links the runtime alone.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (BH, S, 64) bf16 tensor seen as 3-D (dh, S, BH), boxes of `rows` rows of
+// one head, 128-byte swizzle.  Rows at or past S read as zeros, so a ragged
+// last tile never reaches the next head.
+bool rows_map(CUtensorMap* map, const void* ptr, int S, int bh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {DH, (cuuint64_t)S, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {ROW, (cuuint64_t)S * ROW};
+  const cuuint32_t box[3] = {DH, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
+                       int causal, float scale, int bh, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, BN) || !rows_map(&tv, v, S, bh, BN))
+    return cudaErrorInvalidValue;
+  const size_t smem = Fwd<BN>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<BN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + BM - 1) / BM, bh);
+  flash_fwd_wgmma<BN><<<grid, 256, smem, st>>>(tq, tk, tv, (bf16*)o, (float*)lse, S, causal,
+                                              scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
+
+// ===========================================================================
 // launch
 // ===========================================================================
 
@@ -777,6 +1133,8 @@ cudaError_t fwd(const FwdArgs& a, int dtype, int bh, cudaStream_t st) {
     flash_fwd_f32<DH><<<grid, NTHREAD, smem, st>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
         (float*)a.lse, a.S, a.causal, a.scale);
+  } else if constexpr (DH == 64) {
+    return hop::launch_fwd<128>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale, bh, st);
   } else {
     using L = Tc<DH>;
     const size_t smem = 3 * L::H + L::P + 2 * L::F;

@@ -56,6 +56,9 @@ BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
 
+# K1: sequence lengths at and around the bf16 dh=64 kernel's 128-row tiles
+TILE_EDGE_SEQS = (1, 127, 128, 129, 200, 511)
+
 # K4: element counts checked against the plain version, and the timed one (a full
 # partition at the default BYTEPS_PARTITION_BYTES)
 ONEBIT_NS = (1, 31, 32, 33, 24576, 32768, 1_024_000, 1_000_003)
@@ -123,10 +126,14 @@ def phase_build() -> None:
     print(f"build: {', '.join(sources)} in parallel in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s" for n in sources)
           + ")", flush=True)
+    # registers and spills of each kernel, and any word that wgmma products
+    # were serialized (an accumulator touched mid-product, or spilled)
     for name in ("flash_attention", "onebit"):
         for line in _build.build_log.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "Used", "spill", "wgmma", "serialized")):
                 print(f"  ptxas {name}:", line.strip())
+    if "serialized" in _build.build_log.get("flash_attention", ""):
+        fail("ptxas serialized the wgmma products of a flash attention kernel")
 
 
 def _inputs(b, h, s, dh, dtype, seed):
@@ -180,20 +187,29 @@ def check_case(label, b, h, s, dh, dtype, causal, seed=0) -> dict:
     return err
 
 
+def bounds_flops(b, h, s, dh, causal) -> dict:
+    """Tensor-core operations each kernel's work needs (the visible pairs)."""
+    bh = b * h
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return {"flash_fwd": 4 * bh * pairs * dh, "flash_bwd_dq": 6 * bh * pairs * dh,
+            "flash_bwd_dkv": 8 * bh * pairs * dh}
+
+
 def bounds(b, h, s, dh, dtype_name, causal) -> dict:
     """Least time (ms) for each kernel's work on this card, and what binds it."""
     bh, esize = b * h, {"bfloat16": 2, "float32": 4}[dtype_name]
-    pairs = s * (s + 1) // 2 if causal else s * s
     tile = bh * s * dh * esize
     rows = bh * s * 4
-    work = {  # (flops, bytes): each input read once, each output written once
-        "flash_fwd": (4 * bh * pairs * dh, 4 * tile + rows),
-        "flash_bwd_dq": (6 * bh * pairs * dh, 5 * tile + 2 * rows),
-        "flash_bwd_dkv": (8 * bh * pairs * dh, 6 * tile + 2 * rows),
+    flops = bounds_flops(b, h, s, dh, causal)
+    nbytes = {  # each input read once, each output written once
+        "flash_fwd": 4 * tile + rows,
+        "flash_bwd_dq": 5 * tile + 2 * rows,
+        "flash_bwd_dkv": 6 * tile + 2 * rows,
     }
     out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    for name in flops:
+        flops_n, nbytes_n = flops[name], nbytes[name]
+        t_ops, t_bytes = flops_n / PEAK_FLOPS[dtype_name], nbytes_n / PEAK_BYTES
         out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
     return out
 
@@ -209,9 +225,21 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     scale = dh ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
+    # K1 against SDPA's forward in turns (kernel, SDPA, SDPA, kernel), three
+    # rounds: the median of each
+    k1, sdpa = [], []
+    for _ in range(3):
+        for run in (k1, sdpa, sdpa, k1):
+            run.append(time_ms(
+                (lambda: fa.flash_fwd(q, k, v, causal, scale)) if run is k1 else
+                (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))))
+    sdpa_fwd = float(np.median(sdpa))
+    print(f"time flash_fwd in turns with SDPA's forward: kernel "
+          f"{[round(x, 4) for x in sorted(k1)]} ms, SDPA "
+          f"{[round(x, 4) for x in sorted(sdpa)]} ms", flush=True)
     t = {
         "flash_fwd": (
-            time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+            float(np.median(k1)),
             time_ms(lambda: fa._dense_reference_lse(q, k, v, causal, scale), iters=5),
         ),
         "flash_bwd_dq": (
@@ -223,7 +251,6 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
             time_ms(lambda: fa._plain_bwd_dkv(q, k, v, do, lse, delta, causal, scale), iters=5),
         ),
     }
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
     qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
@@ -234,11 +261,31 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd}
 
 
+def check_repeatable(b, h, s, dh) -> None:
+    """Two K1 launches on the same bf16 inputs give bitwise-equal O and lse."""
+    import torch
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _, _ = _inputs(b, h, s, dh, torch.bfloat16, seed=12)
+    o1, lse1 = fa.flash_fwd(q, k, v, False, dh ** -0.5)
+    o2, lse2 = fa.flash_fwd(q, k, v, False, dh ** -0.5)
+    if not (torch.equal(o1, o2) and torch.equal(lse1, lse2)):
+        fail(f"K1 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
+    print(f"check K1 repeatable: B={b} H={h} S={s} dh={dh} bf16, O and lse bitwise equal "
+          "across two launches", flush=True)
+
+
 def check_kernels() -> dict:
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
+    # K1's bf16 dh=64 kernel works on 128-row tiles: S at and around their edges
+    for i, s in enumerate(TILE_EDGE_SEQS):
+        for causal in (False, True):
+            check_case(f"tile edge bf16 S={s}", 1, 2, s, 64, bf16, causal, seed=20 + 2 * i + causal)
     main = check_case("bert-large bf16", BATCH, 16, SEQ, 64, bf16, False)
+    check_repeatable(BATCH, 16, SEQ, 64)
     check_case("bert-large f32", BATCH, 16, SEQ, 64, f32, False, seed=1)
     check_case("causal bf16", 2, 16, SEQ, 64, bf16, True, seed=2)
     check_case("causal f32", 2, 16, SEQ, 64, f32, True, seed=3)
@@ -747,9 +794,18 @@ def main() -> None:
         "flash_bwd_dq": "byteps_tpu/ops/flash_attention.py:197",
         "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:237",
     }
+    flops = bounds_flops(BATCH, 16, SEQ, 64, False)
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         ms, plain_ms = perf["times"][name]
+        extra = {}
+        if name == "flash_fwd":
+            extra = {
+                "tflops": flops[name] / ms / 1e9, "bound_share": b[name][0] / ms,
+                "design": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
+                          "registers) fed by TMA; bf16 dh=32 and dh=128: WMMA (mma.sync); "
+                          "f32: FMA",
+            }
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byteps_tpu_torch/ops/csrc/flash_attention.cu",
@@ -762,6 +818,7 @@ def main() -> None:
             "sdpa_bwd_ms": perf["sdpa_bwd"],
             "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
             "path": "single-worker main path",
+            **extra,
         })
     kernels.append({
         "name": "onebit_pack", "route": "cuda",

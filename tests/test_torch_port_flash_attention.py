@@ -95,12 +95,15 @@ def test_matches_dense_reference_autograd(causal):
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", [100, 1, 127, 129])
 @pytest.mark.parametrize("causal", [False, True])
-def test_ragged_sequence_matches_byteps_tpu(causal):
-    """S = 100 is not a multiple of any block: byteps_tpu takes its dense
-    path; the port's plain version must agree (its kernels mask the ragged
-    block on the card)."""
-    args = _inputs((1, 2, 100, 32), seed=11)
+def test_ragged_sequence_matches_byteps_tpu(causal, s, dh):
+    """S not a multiple of the block (1, 127, 129 sit at the edges of the
+    bf16 dh=64 kernel's 128-row tiles): byteps_tpu takes its dense path; the
+    port's plain version, which the card holds the kernels to, must agree
+    (the kernels mask the ragged tile on the card)."""
+    args = _inputs((1, 2, s, dh), seed=11)
     want = _jax_value_and_grads(*args, causal, 64)
     got = _port_value_and_grads(*args, causal)
     for name, g, w in zip(("O", "lse", "dQ", "dK", "dV"), got, want):
