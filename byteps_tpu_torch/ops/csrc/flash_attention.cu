@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -770,6 +771,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
@@ -874,171 +879,220 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+constexpr int STAGES = 2;              // K/V tiles in flight
+
 template <int BN>
 struct Fwd {
   static constexpr uint32_t Q_BYTES = BM * ROW;
   static constexpr uint32_t KV_BYTES = BN * ROW;
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * KV_BYTES + 64;   // 1024: alignment slack
+  // Q, then STAGES x (K, V), then the mbarriers; 1024: alignment slack
+  static constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr size_t SMEM = 1024 + BARS + 8 * (2 + 3 * STAGES);
 };
 
-// K1, one block per (bh, 128-row query block): two warpgroups of 128
-// threads, each owning 64 query rows.  In the accumulator layout of
-// wgmma (m64nN, f32) thread t of a warpgroup holds rows r = 16 (t / 32) +
-// (t % 32) / 4 and r + 8, columns 8 j + 2 (t % 4) + {0, 1}: element
-// [4 j + 2 i + c] is row r + 8 i, column 8 j + 2 (t % 4) + c.  A row's
-// values are spread over the 4 lanes of a quad.
+// The (bh, query block) tiles a block works on: one per block, or with a
+// persistent grid every gridDim.x-th.  Within a head the last query block
+// comes first, which under a causal mask is the longest.
+struct Tile {
+  int qb, bh, kend;
+};
+
 template <int BN>
-__global__ void __launch_bounds__(256, 1)
+__device__ __forceinline__ Tile tile_at(int idx, int nq, int S, int causal) {
+  Tile t;
+  t.bh = idx / nq;
+  t.qb = nq - 1 - idx % nq;
+  const int nk = (S + BN - 1) / BN;
+  t.kend = causal ? min(nk, (t.qb * BM + BM - 1) / BN + 1) : nk;   // later tiles fully masked
+  return t;
+}
+
+// K1: three warpgroups.  The first is the producer: one thread issues the
+// TMA copies of Q and of a ring of STAGES K/V tiles; the other two
+// warpgroups are consumers, each owning 64 of a tile's 128 query rows.
+// In the accumulator layout of wgmma (m64nN, f32) thread t of a
+// warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns
+// 8 j + 2 (t % 4) + {0, 1}: element [4 j + 2 i + c] is row r + 8 i, column
+// 8 j + 2 (t % 4) + c.  A row's values are spread over the 4 lanes of a quad.
+//
+// mbarriers: q_full / q_empty (the consumers are done with Q), and per
+// stage k_full, v_full / kv_empty.  Every consumer thread arrives on the
+// empty barriers (count 256).
+template <int BN, int MINB, bool PERSIST>
+__global__ void __launch_bounds__(384, MINB)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                float* __restrict__ lse, int S, int causal, float scale_log2) {
+                float* __restrict__ lse, int S, int bh_count, int causal, float scale_log2) {
   using L = Fwd<BN>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t sq = smem_u32(smem), sk = sq + L::Q_BYTES, sv = sk + L::KV_BYTES;
-  const uint32_t bar_q = sv + L::KV_BYTES, bar_k = bar_q + 8, bar_v = bar_q + 16;
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = sq + L::BARS;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto sk = [&](int st) { return sq + L::Q_BYTES + st * 2 * L::KV_BYTES; };
+  auto sv = [&](int st) { return sk(st) + L::KV_BYTES; };
+  auto k_full = [&](int st) { return bars + 16 + 24 * st; };
+  auto v_full = [&](int st) { return bars + 24 + 24 * st; };
+  auto kv_empty = [&](int st) { return bars + 32 + 24 * st; };
 
-  const int qb = blockIdx.x, bh = blockIdx.y, q0 = qb * BM;
-  const int nk = (S + BN - 1) / BN;
-  const int kend = causal ? min(nk, (q0 + BM - 1) / BN + 1) : nk;   // later tiles fully masked
+  const int nq = (S + BM - 1) / BM, ntiles = nq * bh_count;
+  const int first = PERSIST ? blockIdx.x : blockIdx.y * nq + blockIdx.x;
+  const int step = PERSIST ? gridDim.x : ntiles;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    mbar_init(bar_k, 1);
-    mbar_init(bar_v, 1);
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(kv_empty(st), 256);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_q, L::Q_BYTES);
-    tma_rows(sq, &tq, bar_q, q0, bh);
-    mbar_expect_tx(bar_k, L::KV_BYTES);
-    tma_rows(sk, &tk, bar_k, 0, bh);
-    mbar_expect_tx(bar_v, L::KV_BYTES);
-    tma_rows(sv, &tv, bar_v, 0, bh);
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    int n = 0, used = 0;                   // K/V tiles issued; tiles begun
+    for (int idx = first; idx < ntiles; idx += step, ++used) {
+      const Tile t = tile_at<BN>(idx, nq, S, causal);
+      if (used > 0) mbar_wait(q_empty, (used - 1) & 1);
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      tma_rows(sq, &tq, q_full, t.qb * BM, t.bh);
+      for (int kb = 0; kb < t.kend; ++kb, ++n) {
+        const int st = n % STAGES;
+        if (n >= STAGES) mbar_wait(kv_empty(st), ((n / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), L::KV_BYTES);
+        tma_rows(sk(st), &tk, k_full(st), kb * BN, t.bh);
+        mbar_expect_tx(v_full(st), L::KV_BYTES);
+        tma_rows(sv(st), &tv, v_full(st), kb * BN, t.bh);
+      }
+    }
+    return;
   }
 
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
-  const int r0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;   // this thread's rows: r0, r0 + 8
-  const int cq = 2 * (lane % 4);                            // its first column in each group of 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MINB == 1 ? 240 : 104) : "memory");
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+  const int rw = wg * 64 + (tid / 32) * 16 + lane / 4;   // this thread's rows in a tile: rw, rw + 8
+  const int cq = 2 * (lane % 4);                         // its first column in each group of 8
   // Q and K: K-major, 8-row groups 1024 bytes apart; a k16 step is 32 bytes.
   // V: MN-major (dh contiguous), 8-key groups 1024 bytes apart; a k16 step is
   // 16 keys, 2048 bytes.
   const uint64_t dq = desc_sw128(sq + wg * 64 * ROW, 16, 1024);
-  const uint64_t dk = desc_sw128(sk, 16, 1024);
-  const uint64_t dv = desc_sw128(sv, 1024, 1024);
 
-  float acc[DH / 2];
+  int n = 0, used = 0;
+  for (int idx = first; idx < ntiles; idx += step, ++used) {
+    const Tile t = tile_at<BN>(idx, nq, S, causal);
+    const int q0 = t.qb * BM, r0 = q0 + rw;
+    float acc[DH / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units; l per thread
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units; l per thread
 
-  mbar_wait(bar_q, 0);
-  for (int kb = 0; kb < kend; ++kb) {
-    const uint32_t phase = kb & 1;
-    float s[BN / 2];
+    mbar_wait(q_full, used & 1);
+    for (int kb = 0; kb < t.kend; ++kb, ++n) {
+      const int st = n % STAGES;
+      const uint32_t phase = (n / STAGES) & 1;
+      float s[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
 
-    // S = Q K^T on the tensor cores, into registers
-    mbar_wait(bar_k, phase);
-    wg_fence();
-    fence_regs(s);
+      // S = Q K^T on the tensor cores, into registers
+      const uint64_t dk = desc_sw128(sk(st), 16, 1024);
+      mbar_wait(k_full(st), phase);
+      wg_fence();
+      fence_regs(s);
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      if (kb == t.kend - 1) mbar_arrive(q_empty);   // the producer may load the next Q
 
-    // mask columns past S and, if causal, above the diagonal
-    const int c0 = kb * BN;
-    if (c0 + BN > S || (causal && c0 + BN - 1 > q0 + wg * 64)) {
+      // mask columns past S and, if causal, above the diagonal
+      const int c0 = kb * BN;
+      if (c0 + BN > S || (causal && c0 + BN - 1 > q0 + wg * 64)) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = c0 + 8 * j + cq + c;
+              if (col >= S || (causal && col > r0 + 8 * i)) s[4 * j + 2 * i + c] = -INFINITY;
+            }
+      }
+
+      // online softmax in registers, log2 domain: a row's max over its quad
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx * scale_log2);
+        const float alpha = ex2(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const int col = c0 + 8 * j + cq + c;
-            if (col >= S || (causal && col > r0 + 8 * i)) s[4 * j + 2 * i + c] = -INFINITY;
+            const float p = ex2(fmaf(s[4 * j + 2 * i + c], scale_log2, -m_new));
+            s[4 * j + 2 * i + c] = p;
+            sum += p;
           }
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          acc[4 * j + 2 * i] *= alpha;
+          acc[4 * j + 2 * i + 1] *= alpha;
+        }
+      }
+
+      // P in bf16: the accumulator's k16 column slices are wgmma's register A
+      uint32_t p[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O += P V, O staying in registers; then the stage goes back to the producer
+      const uint64_t dv = desc_sw128(sv(st), 1024, 1024);
+      mbar_wait(v_full(st), phase);
+      wg_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, p[kk], dv + kk * (16 * ROW >> 4));
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+      mbar_arrive(kv_empty(st));
     }
 
-    // online softmax in registers, log2 domain: a row's max over its quad
+    // O = acc / l (l = 0 -> 1) in bf16, lse = (m + log2 l) ln 2
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int row = r0 + 8 * i;
+      if (row < S) {
+        const float ll = li == 0.f ? 1.f : li;
+        const float inv = 1.f / ll;
+        bf16* out = o + ((size_t)t.bh * S + row) * DH + cq;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx * scale_log2);
-      const float alpha = ex2(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float p = ex2(fmaf(s[4 * j + 2 * i + c], scale_log2, -m_new));
-          s[4 * j + 2 * i + c] = p;
-          sum += p;
-        }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        acc[4 * j + 2 * i] *= alpha;
-        acc[4 * j + 2 * i + 1] *= alpha;
+        for (int j = 0; j < DH / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+        if (lane % 4 == 0) lse[(size_t)t.bh * S + row] = (m[i] + log2f(ll)) * LN2;
       }
-    }
-
-    // P in bf16: the accumulator's k16 column slices are wgmma's register A
-    uint32_t p[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-
-    // O += P V, O staying in registers
-    mbar_wait(bar_v, phase);
-    wg_fence();
-    fence_regs(acc);
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, p[kk], dv + kk * (16 * ROW >> 4));
-    wg_commit();
-    wg_wait0();
-    fence_regs(acc);
-
-    // both warpgroups are done with this K/V tile: load the next one
-    __syncthreads();
-    if (threadIdx.x == 0 && kb + 1 < kend) {
-      mbar_expect_tx(bar_k, L::KV_BYTES);
-      tma_rows(sk, &tk, bar_k, (kb + 1) * BN, bh);
-      mbar_expect_tx(bar_v, L::KV_BYTES);
-      tma_rows(sv, &tv, bar_v, (kb + 1) * BN, bh);
-    }
-  }
-
-  // O = acc / l (l = 0 -> 1) in bf16, lse = (m + log2 l) ln 2
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const int row = r0 + 8 * i;
-    if (row < S) {
-      const float ll = li == 0.f ? 1.f : li;
-      const float inv = 1.f / ll;
-      bf16* out = o + ((size_t)bh * S + row) * DH + cq;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-      if (lane % 4 == 0) lse[(size_t)bh * S + row] = (m[i] + log2f(ll)) * LN2;
     }
   }
 }
@@ -1081,19 +1135,31 @@ bool rows_map(CUtensorMap* map, const void* ptr, int S, int bh, int rows) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
+
+template <int BN, int MINB, bool PERSIST>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
                        int causal, float scale, int bh, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, BN) || !rows_map(&tv, v, S, bh, BN))
     return cudaErrorInvalidValue;
+  const auto kernel = flash_fwd_wgmma<BN, MINB, PERSIST>;
   const size_t smem = Fwd<BN>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<BN>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + BM - 1) / BM, bh);
-  flash_fwd_wgmma<BN><<<grid, 256, smem, st>>>(tq, tk, tv, (bf16*)o, (float*)lse, S, causal,
-                                              scale * 1.4426950408889634f);
+  const int nq = (S + BM - 1) / BM;
+  const dim3 grid = PERSIST ? dim3(std::min(nq * bh, MINB * sm_count())) : dim3(nq, bh);
+  kernel<<<grid, 384, smem, st>>>(tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal,
+                                  scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1134,7 +1200,7 @@ cudaError_t fwd(const FwdArgs& a, int dtype, int bh, cudaStream_t st) {
         (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
         (float*)a.lse, a.S, a.causal, a.scale);
   } else if constexpr (DH == 64) {
-    return hop::launch_fwd<128>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale, bh, st);
+    return hop::launch_fwd<128, 1, false>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale, bh, st);
   } else {
     using L = Tc<DH>;
     const size_t smem = 3 * L::H + L::P + 2 * L::F;
