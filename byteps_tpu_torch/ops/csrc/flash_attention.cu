@@ -2,39 +2,72 @@
 // backward kernels (dQ, and dK/dV), with a plain C interface for ctypes.
 //
 // Replaces the Pallas kernels of byteps_tpu/ops/flash_attention.py:
-//   flash_fwd_*     <- _fwd_kernel_factory      (K1)
-//   flash_bwd_dq_*  <- _bwd_dq_kernel_factory   (K2)
-//   flash_bwd_dkv_* <- _bwd_dkv_kernel_factory  (K3)
+//   hop::flash_fwd_wgmma, flash_fwd_* <- _fwd_kernel_factory      (K1)
+//   flash_bwd_dq_*                    <- _bwd_dq_kernel_factory   (K2)
+//   flash_bwd_dkv_*                   <- _bwd_dkv_kernel_factory  (K3)
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are (BH, S, DH) row-major in float or
 // bf16; lse and delta are (BH, S) float.  Softmax statistics, exponentials
-// and every accumulator are f32.
+// and every accumulator are f32.  The sequential grid axis of the Pallas
+// kernels becomes a loop inside a block; rows past S read as zero and
+// their scores are masked, so a ragged last tile runs here and every S
+// takes a kernel; causal tiles that are fully masked are skipped.  No
+// S x S intermediate reaches device memory.
 //
-// Design.  One thread block per (bh, 64-row query block) for the forward
-// and dQ kernels, and per (bh, 64-row key block) for dK/dV.  The
-// sequential grid axis of the Pallas kernels becomes a loop inside the
-// block, over the tiles that are staged in shared memory (rows past S read
-// as zero and their scores are masked, so a ragged last block runs here
-// and every S takes the kernel).  Causal blocks that are fully masked are
-// skipped.  No S x S intermediate reaches device memory: each input is
-// read once per block and each output written once.
+// K1 for bf16 and dh = 64 (the head dim of BERT-large and GPT-2 medium,
+// the training path): hop::flash_fwd_wgmma.  What bounds it: at B = 32,
+// H = 16, S = 512 it must move 135 MB (q, k, v read once, O and lse
+// written once), 0.0404 ms at 3.35 TB/s, and do 34.4 GFLOP, 0.0347 ms at
+// 989 TFLOP/s: bytes bind, by a little, so the memory and the tensor
+// cores both have to be kept busy, and the exponentials (one per score,
+// on the 16-a-clock MUFU units of each SM) take about as long as the
+// products.  The design:
+//   1. S = Q K^T runs as wgmma (m64nBNk16) with both operands K-major in
+//      shared memory.
+//   2. The online softmax stays in the accumulator registers: a row lives
+//      in the 4 lanes of a quad, so its max is two shuffles and its sum is
+//      kept per thread and reduced once at the end; exp2 with scale log2(e)
+//      folded into one FMA; m in log2 units, lse = (m + log2 l) ln 2.
+//   3. O += P V runs as wgmma with A from registers: the S accumulator,
+//      rounded to bf16 pairs, is wgmma's A layout k16 slice by k16 slice;
+//      V is B, MN-major (transposed).  O stays in registers for the whole
+//      K/V loop.  Neither S nor P nor O goes through shared memory.
+//   4. TMA brings Q and K/V tiles under mbarriers with the 128-byte swizzle
+//      (a 64-wide bf16 row is one swizzle atom; the wgmma descriptors use
+//      the same mode), through 3-D tensor maps (dh, S, BH): rows past S
+//      arrive as zeros and never reach the next head.  The maps are encoded
+//      per call, with cuTensorMapEncodeTiled reached through the runtime's
+//      driver entry point (the library links the runtime alone), and passed
+//      as __grid_constant__ parameters.
+//   5. Warp specialisation: a producer warpgroup (one thread issues the
+//      copies) keeps a ring of 3 K/V stages in flight; two consumer
+//      warpgroups own 64 query rows each (128 a tile), and setmaxnreg moves
+//      the producer's registers to them.
+//   6. The fill is hidden two ways at once: a persistent grid of two blocks
+//      per SM, each walking (bh, query block) tiles, with the ring running
+//      on from one tile into the next (the next tile's Q, K and V load
+//      while this tile's last products and epilogue run), and 64-row K/V
+//      tiles so that two blocks' registers fit an SM (80 a thread at
+//      launch, 104 for the consumers).  chip_smoke.py times the kernel's
+//      other layouts beside it (128-row K/V tiles, one block per SM, one
+//      block per tile) and PERF.md keeps the numbers.
+// bf16 K1 for dh = 32 and 128 keeps the WMMA kernel below (flash_fwd_bf16),
+// by a static dispatch on dh: a given dh always takes the same kernel.
 //
-// Two versions of each kernel, chosen by the input type:
-//   bf16 (the training path): the products run on the tensor cores, as
-//     16x16x16 bf16 WMMA tiles (mma.sync) with f32 accumulators; 4 warps,
-//     each owning 16 rows of the block.  Scores go through shared memory
-//     in f32 for the softmax; P and dS are rounded to bf16 for the second
-//     product, as the plain version's bf16 path would not, which is within
-//     the bf16 tolerance.  What bounds them: at S = 512, dh = 64 the work
-//     sits near the H100's ridge point (K1 does ~254 FLOP a byte it must
-//     move, against ~295), so bytes and operations bound it alike; these
-//     kernels stay far from both while their loads are synchronous and
-//     every score tile makes a round trip through shared memory.  wgmma
-//     with TMA loads in flight is the next step.
-//   f32: the products run on the FMA units in f32 (67 TFLOP/s), since
-//     TF32 or bf16 tiles would not hold the f32 tolerance; 8 warps, the
-//     rows that lanes read across are padded (stride dh + 1) so the loops
-//     are free of bank conflicts.  Bound by operations.
+// K2, K3, and K1 for bf16 dh = 32 and 128: the products run on the tensor
+// cores as 16x16x16 bf16 WMMA tiles (mma.sync) with f32 accumulators; one
+// block of 4 warps per (bh, 64-row query block), or key block for dK/dV,
+// each warp owning 16 rows.  Tiles are loaded synchronously; scores go
+// through shared memory in f32 for the softmax; P and dS are rounded to
+// bf16 for the second product, as the plain version's bf16 path would not,
+// which is within the bf16 tolerance.  At S = 512, dh = 64 their work sits
+// near the H100's ridge point; the round trips through shared memory and
+// the synchronous loads keep them far from it.
+//
+// f32 (all three): the products run on the FMA units in f32 (67 TFLOP/s),
+// since TF32 or bf16 tiles would not hold the f32 tolerance; 8 warps, the
+// rows that lanes read across are padded (stride dh + 1) so the loops are
+// free of bank conflicts.  Bound by operations.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -827,7 +860,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),          \
       "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory.
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory;
+// acc = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -841,7 +875,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], as above.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -879,20 +913,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-constexpr int STAGES = 2;              // K/V tiles in flight
+constexpr int STAGES = 3;              // K/V tiles in flight
+constexpr uint32_t Q_BYTES = BM * ROW;
 
-template <int BN>
+// A layout of the kernel: BN key rows per K/V tile and BLOCKS blocks
+// resident on an SM.  K1 runs Fwd<64, 2> on a persistent grid; the others
+// are timed beside it by chip_smoke.py.
+template <int BN_, int BLOCKS_>
 struct Fwd {
-  static constexpr uint32_t Q_BYTES = BM * ROW;
+  static constexpr int BN = BN_, BLOCKS = BLOCKS_;
   static constexpr uint32_t KV_BYTES = BN * ROW;
-  // Q, then STAGES x (K, V), then the mbarriers; 1024: alignment slack
+  // shared memory: Q, then STAGES x (K, V), then the mbarriers; 1024 bytes
+  // of slack to align the tiles
   static constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (2 + 3 * STAGES);
+  // registers: 65,536 / (BLOCKS x 384 threads) a thread at launch, in
+  // steps of 8 (168, or 80 for two blocks); the producer drops to 24 and
+  // the consumers take the rest (240, or 104)
+  static constexpr int LAUNCH_REGS = 65536 / (BLOCKS * 384) / 8 * 8;
+  static constexpr int CONSUMER_REGS = (LAUNCH_REGS * 384 - 24 * 128) / 256 / 8 * 8;
 };
 
-// The (bh, query block) tiles a block works on: one per block, or with a
-// persistent grid every gridDim.x-th.  Within a head the last query block
-// comes first, which under a causal mask is the longest.
+// The (bh, query block) of the idx-th tile, and the K/V tiles it needs.
+// Within a head the last query block comes first: under a causal mask it
+// is the longest.
 struct Tile {
   int qb, bh, kend;
 };
@@ -907,36 +951,41 @@ __device__ __forceinline__ Tile tile_at(int idx, int nq, int S, int causal) {
   return t;
 }
 
-// K1: three warpgroups.  The first is the producer: one thread issues the
-// TMA copies of Q and of a ring of STAGES K/V tiles; the other two
-// warpgroups are consumers, each owning 64 of a tile's 128 query rows.
-// In the accumulator layout of wgmma (m64nN, f32) thread t of a
+// K1.  Each block walks the (bh, 128-row query block) tiles idx =
+// blockIdx.x, + gridDim.x, ...: one tile a block, or with a persistent
+// grid (BLOCKS blocks on each SM) several.  Three warpgroups a block.  The first is the producer: one thread issues
+// the TMA copies of each tile's Q and of a ring of STAGES K/V tiles that
+// runs on from one tile into the next, so the next tile's loads overlap
+// this tile's last products and its epilogue.  The other two are
+// consumers, each owning 64 of a tile's 128 query rows; they take the
+// producer's registers (setmaxnreg).
+//
+// In the accumulator layout of wgmma (m64nBN, f32) thread t of a
 // warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns
 // 8 j + 2 (t % 4) + {0, 1}: element [4 j + 2 i + c] is row r + 8 i, column
 // 8 j + 2 (t % 4) + c.  A row's values are spread over the 4 lanes of a quad.
 //
-// mbarriers: q_full / q_empty (the consumers are done with Q), and per
+// mbarriers: q_full / q_empty (both consumers are done with Q), and per
 // stage k_full, v_full / kv_empty.  Every consumer thread arrives on the
 // empty barriers (count 256).
-template <int BN, int MINB, bool PERSIST>
-__global__ void __launch_bounds__(384, MINB)
+template <class L>
+__global__ void __launch_bounds__(384, L::BLOCKS)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, int S, int bh_count, int causal, float scale_log2) {
-  using L = Fwd<BN>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  constexpr int BN = L::BN;
+  constexpr uint32_t KV_BYTES = L::KV_BYTES;
   const uint32_t bars = sq + L::BARS;
   const uint32_t q_full = bars, q_empty = bars + 8;
-  auto sk = [&](int st) { return sq + L::Q_BYTES + st * 2 * L::KV_BYTES; };
-  auto sv = [&](int st) { return sk(st) + L::KV_BYTES; };
+  auto sk = [&](int st) { return sq + Q_BYTES + st * 2 * KV_BYTES; };
+  auto sv = [&](int st) { return sk(st) + KV_BYTES; };
   auto k_full = [&](int st) { return bars + 16 + 24 * st; };
   auto v_full = [&](int st) { return bars + 24 + 24 * st; };
   auto kv_empty = [&](int st) { return bars + 32 + 24 * st; };
 
   const int nq = (S + BM - 1) / BM, ntiles = nq * bh_count;
-  const int first = PERSIST ? blockIdx.x : blockIdx.y * nq + blockIdx.x;
-  const int step = PERSIST ? gridDim.x : ntiles;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -951,28 +1000,27 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer warpgroup: gives its registers to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x != 0) return;
-    int n = 0, used = 0;                   // K/V tiles issued; tiles begun
-    for (int idx = first; idx < ntiles; idx += step, ++used) {
+    int n = 0, used = 0;                   // K/V tiles issued; query tiles begun
+    for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
       const Tile t = tile_at<BN>(idx, nq, S, causal);
       if (used > 0) mbar_wait(q_empty, (used - 1) & 1);
-      mbar_expect_tx(q_full, L::Q_BYTES);
+      mbar_expect_tx(q_full, Q_BYTES);
       tma_rows(sq, &tq, q_full, t.qb * BM, t.bh);
       for (int kb = 0; kb < t.kend; ++kb, ++n) {
         const int st = n % STAGES;
         if (n >= STAGES) mbar_wait(kv_empty(st), ((n / STAGES) & 1) ^ 1);
-        mbar_expect_tx(k_full(st), L::KV_BYTES);
+        mbar_expect_tx(k_full(st), KV_BYTES);
         tma_rows(sk(st), &tk, k_full(st), kb * BN, t.bh);
-        mbar_expect_tx(v_full(st), L::KV_BYTES);
+        mbar_expect_tx(v_full(st), KV_BYTES);
         tma_rows(sv(st), &tv, v_full(st), kb * BN, t.bh);
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MINB == 1 ? 240 : 104) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
   const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
   const int rw = wg * 64 + (tid / 32) * 16 + lane / 4;   // this thread's rows in a tile: rw, rw + 8
   const int cq = 2 * (lane % 4);                         // its first column in each group of 8
@@ -982,7 +1030,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const uint64_t dq = desc_sw128(sq + wg * 64 * ROW, 16, 1024);
 
   int n = 0, used = 0;
-  for (int idx = first; idx < ntiles; idx += step, ++used) {
+  for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
     const Tile t = tile_at<BN>(idx, nq, S, causal);
     const int q0 = t.qb * BM, r0 = q0 + rw;
     float acc[DH / 2];
@@ -1145,21 +1193,22 @@ int sm_count() {
   return n;
 }
 
-template <int BN, int MINB, bool PERSIST>
+// The tensor maps hold this call's pointers, so they are encoded per call
+// and passed by value.
+template <class L>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
-                       int causal, float scale, int bh, cudaStream_t st) {
+                       int causal, float scale, int bh, bool persistent, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, BN) || !rows_map(&tv, v, S, bh, BN))
+  if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, L::BN) ||
+      !rows_map(&tv, v, S, bh, L::BN))
     return cudaErrorInvalidValue;
-  const auto kernel = flash_fwd_wgmma<BN, MINB, PERSIST>;
-  const size_t smem = Fwd<BN>::SMEM;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<L>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return e;
-  const int nq = (S + BM - 1) / BM;
-  const dim3 grid = PERSIST ? dim3(std::min(nq * bh, MINB * sm_count())) : dim3(nq, bh);
-  kernel<<<grid, 384, smem, st>>>(tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal,
-                                  scale * 1.4426950408889634f);
+  const int tiles = (S + BM - 1) / BM * bh;
+  const int grid = persistent ? std::min(tiles, L::BLOCKS * sm_count()) : tiles;
+  flash_fwd_wgmma<L><<<grid, 384, L::SMEM, st>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1200,7 +1249,8 @@ cudaError_t fwd(const FwdArgs& a, int dtype, int bh, cudaStream_t st) {
         (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
         (float*)a.lse, a.S, a.causal, a.scale);
   } else if constexpr (DH == 64) {
-    return hop::launch_fwd<128, 1, false>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale, bh, st);
+    return hop::launch_fwd<hop::Fwd<64, 2>>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale,
+                                            bh, true, st);
   } else {
     using L = Tc<DH>;
     const size_t smem = 3 * L::H + L::P + 2 * L::F;
@@ -1296,6 +1346,25 @@ int bps_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
                       int dh, int dtype, int causal, float scale, void* stream) {
   BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, s, causal, scale};
   return dispatch<BwdArgs>(bwd_dkv<32>, bwd_dkv<64>, bwd_dkv<128>, a, bh, dh, dtype, stream);
+}
+
+// K1 for bf16, dh = 64 in another layout, for measurement (chip_smoke.py):
+// 0 K1's own (64-row K/V tiles, two blocks per SM, persistent grid);
+// 1 128-row K/V tiles, one block per SM, one block per query tile;
+// 2 as 1 with 64-row K/V tiles; 3 as 1 with a persistent grid;
+// 4 as 0 with one block per query tile.
+int bps_flash_fwd_layout(int layout, const void* q, const void* k, const void* v, void* o,
+                         void* lse, int bh, int s, int causal, float scale, void* stream) {
+  if (bh < 1 || bh > 65535 || s < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (layout) {
+    case 0: return (int)hop::launch_fwd<hop::Fwd<64, 2>>(q, k, v, o, lse, s, causal, scale, bh, true, st);
+    case 1: return (int)hop::launch_fwd<hop::Fwd<128, 1>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
+    case 2: return (int)hop::launch_fwd<hop::Fwd<64, 1>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
+    case 3: return (int)hop::launch_fwd<hop::Fwd<128, 1>>(q, k, v, o, lse, s, causal, scale, bh, true, st);
+    case 4: return (int)hop::launch_fwd<hop::Fwd<64, 2>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -225,6 +225,7 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     scale = dh ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
+    layouts_ms = time_fwd_layouts(q, k, v, causal, scale) if dh == 64 else {}
     # K1 against SDPA's forward in turns (kernel, SDPA, SDPA, kernel), three
     # rounds: the median of each
     k1, sdpa = [], []
@@ -258,7 +259,32 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
         print(f"time {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms", flush=True)
     print(f"time SDPA (library yardstick, never called by the port): forward "
           f"{sdpa_fwd:.4f} ms, backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms", flush=True)
-    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd}
+    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd, "fwd_layouts": layouts_ms}
+
+
+def time_fwd_layouts(q, k, v, causal, scale) -> dict:
+    """K1's bf16 dh=64 kernel in each of its layouts (the first is the one K1
+    runs), each held to the plain version first, then timed in turns: two
+    rounds, forward and back through the layouts; the median of each."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    o_ref, lse_ref = fa._dense_reference_lse(q.float(), k.float(), v.float(), causal, scale)
+    names = [f"{bn}-row K/V tiles, {blocks}/SM, {'persistent' if persistent else 'a block a tile'}"
+             for bn, blocks, persistent in fa.FWD_LAYOUTS]
+    for i, name in enumerate(names):
+        o, lse = fa._flash_fwd_layout(q, k, v, causal, scale, i)
+        close(f"K1 layout {name} O", o, o_ref, "bfloat16")
+        close(f"K1 layout {name} lse", lse, lse_ref, "bfloat16")
+    del o_ref, lse_ref
+    runs = {name: [] for name in names}
+    order = list(enumerate(names))
+    for rnd in order + order[::-1] + order + order[::-1]:
+        i, name = rnd
+        runs[name].append(time_ms(lambda: fa._flash_fwd_layout(q, k, v, causal, scale, i)))
+    out = {name: float(np.median(ts)) for name, ts in runs.items()}
+    print("time K1 layouts (each held to the plain version first): "
+          + "; ".join(f"{name} {ms:.4f} ms" for name, ms in out.items()), flush=True)
+    return out
 
 
 def check_repeatable(b, h, s, dh) -> None:
@@ -803,8 +829,9 @@ def main() -> None:
             extra = {
                 "tflops": flops[name] / ms / 1e9, "bound_share": b[name][0] / ms,
                 "design": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
-                          "registers) fed by TMA; bf16 dh=32 and dh=128: WMMA (mma.sync); "
-                          "f32: FMA",
+                          "registers) fed by TMA, warp-specialized, persistent, 2 blocks "
+                          "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+                "layouts_ms": perf["fwd_layouts"],
             }
         kernels.append({
             "name": name, "route": "cuda",

@@ -155,6 +155,16 @@ def test_non_cuda_device_raises_instead_of_falling_back():
     assert tfa.launches["flash_fwd"] == 0
 
 
+def test_fwd_layouts_take_cuda_tensors_only():
+    """K1's measurement layouts have no plain version: they refuse what is
+    not a CUDA tensor, and the main path's layout is listed first."""
+    assert tfa.FWD_LAYOUTS[0] == (64, 2, True)
+    q = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._flash_fwd_layout(q, q, q, False, 0.125, 0)
+    assert tfa.launches["flash_fwd"] == 0
+
+
 def test_misaligned_view_is_copied_for_the_kernels():
     """The kernels load 16 bytes a thread: a view that starts off that
     alignment reaches them as an aligned copy with the same values."""
