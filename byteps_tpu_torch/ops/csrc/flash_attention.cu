@@ -36,9 +36,9 @@
 //      (a 64-wide bf16 row is one swizzle atom; the wgmma descriptors use
 //      the same mode), through 3-D tensor maps (dh, S, BH): rows past S
 //      arrive as zeros and never reach the next head.  The maps are encoded
-//      per call, with cuTensorMapEncodeTiled reached through the runtime's
-//      driver entry point (the library links the runtime alone), and passed
-//      as __grid_constant__ parameters.
+//      per call, with cuTensorMapEncodeTiled (a libcuda function) looked up
+//      through the runtime, so the library links the runtime alone, and
+//      passed as __grid_constant__ parameters.
 //   5. Warp specialisation: a producer warpgroup (one thread issues the
 //      copies) keeps a ring of 3 K/V stages in flight; two consumer
 //      warpgroups own 64 query rows each (128 a tile), and setmaxnreg moves
@@ -48,9 +48,9 @@
 //      on from one tile into the next (the next tile's Q, K and V load
 //      while this tile's last products and epilogue run), and 64-row K/V
 //      tiles so that two blocks' registers fit an SM (80 a thread at
-//      launch, 104 for the consumers).  chip_smoke.py times the kernel's
-//      other layouts beside it (128-row K/V tiles, one block per SM, one
-//      block per tile) and PERF.md keeps the numbers.
+//      launch, 104 for the consumers).  PERF.md keeps the times of the
+//      layouts this one was chosen over (128-row K/V tiles, one block per
+//      SM, one block per tile).
 // bf16 K1 for dh = 32 and 128 keeps the WMMA kernel below (flash_fwd_bf16),
 // by a static dispatch on dh: a given dh always takes the same kernel.
 //
@@ -520,7 +520,8 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, float* stage,
   __syncwarp();
 }
 
-// K1 on the tensor cores.  O's running sum lives in shared memory (f32),
+// K1 on the tensor cores for bf16 dh = 32 and 128 (dh = 64 takes
+// hop::flash_fwd_wgmma).  O's running sum lives in shared memory (f32),
 // where the online-softmax rescale can reach it row by row.
 template <int DH>
 __global__ void __launch_bounds__(TC_THREADS)
@@ -780,6 +781,11 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DH>(dv + base, Sw, dva, k0 + w0, S, 1.f, lane);
 }
 
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ===========================================================================
 // bf16, dh = 64: K1 on wgmma, its tiles brought by TMA
 // ===========================================================================
@@ -860,22 +866,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),          \
       "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory;
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory;
 // acc = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], as above.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -914,25 +906,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 constexpr int STAGES = 3;              // K/V tiles in flight
+constexpr int BN = 64;                 // key rows per K/V tile
+constexpr int BLOCKS = 2;              // blocks resident on an SM
 constexpr uint32_t Q_BYTES = BM * ROW;
-
-// A layout of the kernel: BN key rows per K/V tile and BLOCKS blocks
-// resident on an SM.  K1 runs Fwd<64, 2> on a persistent grid; the others
-// are timed beside it by chip_smoke.py.
-template <int BN_, int BLOCKS_>
-struct Fwd {
-  static constexpr int BN = BN_, BLOCKS = BLOCKS_;
-  static constexpr uint32_t KV_BYTES = BN * ROW;
-  // shared memory: Q, then STAGES x (K, V), then the mbarriers; 1024 bytes
-  // of slack to align the tiles
-  static constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
-  static constexpr size_t SMEM = 1024 + BARS + 8 * (2 + 3 * STAGES);
-  // registers: 65,536 / (BLOCKS x 384 threads) a thread at launch, in
-  // steps of 8 (168, or 80 for two blocks); the producer drops to 24 and
-  // the consumers take the rest (240, or 104)
-  static constexpr int LAUNCH_REGS = 65536 / (BLOCKS * 384) / 8 * 8;
-  static constexpr int CONSUMER_REGS = (LAUNCH_REGS * 384 - 24 * 128) / 256 / 8 * 8;
-};
+constexpr uint32_t KV_BYTES = BN * ROW;
+// shared memory: Q, then STAGES x (K, V), then the mbarriers; 1024 bytes of
+// slack to align the tiles
+constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
+constexpr size_t SMEM = 1024 + BARS + 8 * (2 + 3 * STAGES);
+// registers: 65,536 / (2 blocks x 384 threads) = 80 a thread at launch; the
+// producer drops to 24 and the consumers take the rest, 104
+constexpr int LAUNCH_REGS = 65536 / (BLOCKS * 384) / 8 * 8;
+constexpr int CONSUMER_REGS = (LAUNCH_REGS * 384 - 24 * 128) / 256 / 8 * 8;
 
 // The (bh, query block) of the idx-th tile, and the K/V tiles it needs.
 // Within a head the last query block comes first: under a causal mask it
@@ -941,7 +926,6 @@ struct Tile {
   int qb, bh, kend;
 };
 
-template <int BN>
 __device__ __forceinline__ Tile tile_at(int idx, int nq, int S, int causal) {
   Tile t;
   t.bh = idx / nq;
@@ -951,14 +935,13 @@ __device__ __forceinline__ Tile tile_at(int idx, int nq, int S, int causal) {
   return t;
 }
 
-// K1.  Each block walks the (bh, 128-row query block) tiles idx =
-// blockIdx.x, + gridDim.x, ...: one tile a block, or with a persistent
-// grid (BLOCKS blocks on each SM) several.  Three warpgroups a block.  The first is the producer: one thread issues
-// the TMA copies of each tile's Q and of a ring of STAGES K/V tiles that
-// runs on from one tile into the next, so the next tile's loads overlap
-// this tile's last products and its epilogue.  The other two are
-// consumers, each owning 64 of a tile's 128 query rows; they take the
-// producer's registers (setmaxnreg).
+// K1.  A persistent grid, BLOCKS blocks on each SM: each block walks the
+// (bh, 128-row query block) tiles idx = blockIdx.x, + gridDim.x, ....
+// Three warpgroups a block.  The first is the producer: one thread issues the TMA copies of each tile's
+// Q and of a ring of STAGES K/V tiles that runs on from one tile into the
+// next, so the next tile's loads overlap this tile's last products and
+// its epilogue.  The other two are consumers, each owning 64 of a tile's
+// 128 query rows; they take the producer's registers (setmaxnreg).
 //
 // In the accumulator layout of wgmma (m64nBN, f32) thread t of a
 // warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns
@@ -968,16 +951,13 @@ __device__ __forceinline__ Tile tile_at(int idx, int nq, int S, int causal) {
 // mbarriers: q_full / q_empty (both consumers are done with Q), and per
 // stage k_full, v_full / kv_empty.  Every consumer thread arrives on the
 // empty barriers (count 256).
-template <class L>
-__global__ void __launch_bounds__(384, L::BLOCKS)
+__global__ void __launch_bounds__(384, BLOCKS)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, int S, int bh_count, int causal, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
-  constexpr int BN = L::BN;
-  constexpr uint32_t KV_BYTES = L::KV_BYTES;
-  const uint32_t bars = sq + L::BARS;
+  const uint32_t bars = sq + BARS;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto sk = [&](int st) { return sq + Q_BYTES + st * 2 * KV_BYTES; };
   auto sv = [&](int st) { return sk(st) + KV_BYTES; };
@@ -1004,7 +984,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     if (threadIdx.x != 0) return;
     int n = 0, used = 0;                   // K/V tiles issued; query tiles begun
     for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
-      const Tile t = tile_at<BN>(idx, nq, S, causal);
+      const Tile t = tile_at(idx, nq, S, causal);
       if (used > 0) mbar_wait(q_empty, (used - 1) & 1);
       mbar_expect_tx(q_full, Q_BYTES);
       tma_rows(sq, &tq, q_full, t.qb * BM, t.bh);
@@ -1020,7 +1000,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
   const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
   const int rw = wg * 64 + (tid / 32) * 16 + lane / 4;   // this thread's rows in a tile: rw, rw + 8
   const int cq = 2 * (lane % 4);                         // its first column in each group of 8
@@ -1031,7 +1011,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   int n = 0, used = 0;
   for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
-    const Tile t = tile_at<BN>(idx, nq, S, causal);
+    const Tile t = tile_at(idx, nq, S, causal);
     const int q0 = t.qb * BM, r0 = q0 + rw;
     float acc[DH / 2];
 #pragma unroll
@@ -1145,7 +1125,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled is a driver function: it is reached through the
+// cuTensorMapEncodeTiled lives in libcuda: it is looked up through the
 // runtime's entry-point query, so the library links the runtime alone.
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
@@ -1195,19 +1175,16 @@ int sm_count() {
 
 // The tensor maps hold this call's pointers, so they are encoded per call
 // and passed by value.
-template <class L>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int S,
-                       int causal, float scale, int bh, bool persistent, cudaStream_t st) {
+                       int causal, float scale, int bh, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, L::BN) ||
-      !rows_map(&tv, v, S, bh, L::BN))
+  if (!rows_map(&tq, q, S, bh, BM) || !rows_map(&tk, k, S, bh, BN) ||
+      !rows_map(&tv, v, S, bh, BN))
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<L>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  const cudaError_t e = set_smem(flash_fwd_wgmma, SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = (S + BM - 1) / BM * bh;
-  const int grid = persistent ? std::min(tiles, L::BLOCKS * sm_count()) : tiles;
-  flash_fwd_wgmma<L><<<grid, 384, L::SMEM, st>>>(
+  flash_fwd_wgmma<<<std::min(tiles, BLOCKS * sm_count()), 384, SMEM, st>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -1232,11 +1209,6 @@ struct BwdArgs {
   float scale;
 };
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // dtype 0: float32 (FMA kernels), 1: bfloat16 (tensor-core kernels).
 template <int DH>
 cudaError_t fwd(const FwdArgs& a, int dtype, int bh, cudaStream_t st) {
@@ -1249,8 +1221,7 @@ cudaError_t fwd(const FwdArgs& a, int dtype, int bh, cudaStream_t st) {
         (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
         (float*)a.lse, a.S, a.causal, a.scale);
   } else if constexpr (DH == 64) {
-    return hop::launch_fwd<hop::Fwd<64, 2>>(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale,
-                                            bh, true, st);
+    return hop::launch_fwd(a.q, a.k, a.v, a.o, a.lse, a.S, a.causal, a.scale, bh, st);
   } else {
     using L = Tc<DH>;
     const size_t smem = 3 * L::H + L::P + 2 * L::F;
@@ -1346,25 +1317,6 @@ int bps_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
                       int dh, int dtype, int causal, float scale, void* stream) {
   BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, s, causal, scale};
   return dispatch<BwdArgs>(bwd_dkv<32>, bwd_dkv<64>, bwd_dkv<128>, a, bh, dh, dtype, stream);
-}
-
-// K1 for bf16, dh = 64 in another layout, for measurement (chip_smoke.py):
-// 0 K1's own (64-row K/V tiles, two blocks per SM, persistent grid);
-// 1 128-row K/V tiles, one block per SM, one block per query tile;
-// 2 as 1 with 64-row K/V tiles; 3 as 1 with a persistent grid;
-// 4 as 0 with one block per query tile.
-int bps_flash_fwd_layout(int layout, const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int s, int causal, float scale, void* stream) {
-  if (bh < 1 || bh > 65535 || s < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (layout) {
-    case 0: return (int)hop::launch_fwd<hop::Fwd<64, 2>>(q, k, v, o, lse, s, causal, scale, bh, true, st);
-    case 1: return (int)hop::launch_fwd<hop::Fwd<128, 1>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
-    case 2: return (int)hop::launch_fwd<hop::Fwd<64, 1>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
-    case 3: return (int)hop::launch_fwd<hop::Fwd<128, 1>>(q, k, v, o, lse, s, causal, scale, bh, true, st);
-    case 4: return (int)hop::launch_fwd<hop::Fwd<64, 2>>(q, k, v, o, lse, s, causal, scale, bh, false, st);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

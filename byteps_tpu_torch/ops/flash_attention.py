@@ -11,12 +11,17 @@ Three kernels in ``csrc/flash_attention.cu`` replace the Pallas kernels of
 - ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel_factory``: the same P,
   accumulated into dK and dV over the query blocks.
 
-Each has two versions in the CUDA source, chosen by the input type: bf16
-inputs (the training path) run their products on the tensor cores (WMMA
-tiles, f32 accumulators); f32 inputs run them on the f32 FMA units, which
-hold the f32 tolerance that TF32 or bf16 tiles would not.  What bounds
-them on the H100, and what the design does about it, is noted at the top
-of the CUDA source; no S×S intermediate reaches device memory.
+bf16 inputs (the training path) run their products on the tensor cores
+with f32 accumulators.  The forward for dh = 64, the head dim of the
+models the port supports, is a kernel built for Hopper: ``wgmma`` fed by
+TMA copies under mbarriers, a producer warpgroup and two consumer
+warpgroups, the scores, probabilities and output kept in registers, on
+a persistent grid of two blocks per SM.  The forward for dh = 32 and 128
+and both backward kernels use WMMA tiles.  f32 inputs run all three on the
+f32 FMA units, which hold the f32 tolerance that TF32 or bf16 tiles would
+not.  What bounds each on the H100, and what the design does about it, is
+noted at the top of the CUDA source; no S×S intermediate reaches device
+memory.
 
 Dispatch is by where the tensors lie: a CPU tensor takes the plain version
 (one (S, S) score matrix, :func:`_dense_reference_lse`, and the matching
@@ -108,9 +113,7 @@ def _lib() -> ctypes.CDLL:
         lib.bps_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
         lib.bps_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [f, p]
         lib.bps_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [f, p]
-        lib.bps_flash_fwd_layout.argtypes = [i] + [p] * 5 + [i] * 3 + [f, p]
-        for fn in (lib.bps_flash_fwd, lib.bps_flash_bwd_dq, lib.bps_flash_bwd_dkv,
-                   lib.bps_flash_fwd_layout):
+        for fn in (lib.bps_flash_fwd, lib.bps_flash_bwd_dq, lib.bps_flash_bwd_dkv):
             fn.restype = i
         _lib_handle = lib
     return _lib_handle
@@ -173,31 +176,6 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         )
     _raise_on(err, "flash_fwd")
     launches["flash_fwd"] += 1
-    return o, lse
-
-
-#: layouts of K1's bf16 dh=64 kernel, (key rows per K/V tile, blocks per SM,
-#: persistent grid): K1 runs the first; chip_smoke.py times the others
-#: beside it
-FWD_LAYOUTS = ((64, 2, True), (128, 1, False), (64, 1, False), (128, 1, True), (64, 2, False))
-
-
-def _flash_fwd_layout(q, k, v, causal: bool, scale: float, layout: int):
-    """K1 on bf16, dh = 64 CUDA tensors in layout ``FWD_LAYOUTS[layout]``,
-    for measurement: the main path never calls it, and it adds no launch."""
-    q, k, v = _check_kernel_inputs(q, k, v)
-    b, h, s, dh = q.shape
-    if q.dtype != torch.bfloat16 or dh != 64 or not 0 <= layout < len(FWD_LAYOUTS):
-        raise ValueError(f"K1's layouts 0..{len(FWD_LAYOUTS) - 1} take bf16, dh = 64")
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.bps_flash_fwd_layout(
-            layout, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b * h, s, int(causal), scale, _stream(),
-        )
-    _raise_on(err, f"flash_fwd layout {FWD_LAYOUTS[layout]}")
     return o, lse
 
 

@@ -9,10 +9,14 @@ Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from byteps_tpu_torch/ops/csrc, one compiler process per
      source, all started together: flash attention (K1-K3) and the onebit packer
-     (K4) with nvcc, the wire checksum with the host C compiler;
+     (K4) with nvcc, the wire checksum with the host C compiler; print what
+     ptxas says of registers, spills and wgmma, and fail if it serialized wgmma;
   3. hold each flash kernel against its plain PyTorch version on the card
      (BERT-large's attention shape in bf16 and f32, a causal case, a ragged S,
-     each head dim), and time kernel, plain version and the library call;
+     each head dim, and for K1's bf16 dh=64 kernel S at and around its
+     128-row tiles, causal and not, and two launches bitwise equal), and time
+     kernel, plain version and the library call (K1 in turns with SDPA's
+     forward);
   4. hold K4 against its plain version on the card (words bitwise, scale within
      rtol 1e-6 and bitwise the same across launches) for n from 1 to 1,024,000,
      on inputs with +-0.0, +-inf, NaNs of both signs and denormals; time it at
@@ -22,7 +26,9 @@ Phases, each fatal on failure:
      than dense attention;
   6. the main path: BERT-large (seq 512, bf16, remat, flash attention) trained for a
      few steps through init -> broadcast_parameters -> DistributedOptimizer(AdamW),
-     with the kernels' launch counts read around it;
+     with the kernels' launch counts read around it; before it, at full depth on
+     the same weights and tokens, the kernels' bf16 logits no further from f32
+     than dense bf16 attention's;
   7. the distributed path: the same model on one worker whose gradients go
      through a scheduler and two PS servers, each a `python -m
      byteps_tpu_torch.server` process, with 1-bit compression (scaling) of every
@@ -225,7 +231,6 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     scale = dh ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
-    layouts_ms = time_fwd_layouts(q, k, v, causal, scale) if dh == 64 else {}
     # K1 against SDPA's forward in turns (kernel, SDPA, SDPA, kernel), three
     # rounds: the median of each
     k1, sdpa = [], []
@@ -259,32 +264,7 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
         print(f"time {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms", flush=True)
     print(f"time SDPA (library yardstick, never called by the port): forward "
           f"{sdpa_fwd:.4f} ms, backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms", flush=True)
-    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd, "fwd_layouts": layouts_ms}
-
-
-def time_fwd_layouts(q, k, v, causal, scale) -> dict:
-    """K1's bf16 dh=64 kernel in each of its layouts (the first is the one K1
-    runs), each held to the plain version first, then timed in turns: two
-    rounds, forward and back through the layouts; the median of each."""
-    from byteps_tpu_torch.ops import flash_attention as fa
-
-    o_ref, lse_ref = fa._dense_reference_lse(q.float(), k.float(), v.float(), causal, scale)
-    names = [f"{bn}-row K/V tiles, {blocks}/SM, {'persistent' if persistent else 'a block a tile'}"
-             for bn, blocks, persistent in fa.FWD_LAYOUTS]
-    for i, name in enumerate(names):
-        o, lse = fa._flash_fwd_layout(q, k, v, causal, scale, i)
-        close(f"K1 layout {name} O", o, o_ref, "bfloat16")
-        close(f"K1 layout {name} lse", lse, lse_ref, "bfloat16")
-    del o_ref, lse_ref
-    runs = {name: [] for name in names}
-    order = list(enumerate(names))
-    for rnd in order + order[::-1] + order + order[::-1]:
-        i, name = rnd
-        runs[name].append(time_ms(lambda: fa._flash_fwd_layout(q, k, v, causal, scale, i)))
-    out = {name: float(np.median(ts)) for name, ts in runs.items()}
-    print("time K1 layouts (each held to the plain version first): "
-          + "; ".join(f"{name} {ms:.4f} ms" for name, ms in out.items()), flush=True)
-    return out
+    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd}
 
 
 def check_repeatable(b, h, s, dh) -> None:
@@ -496,6 +476,45 @@ def check_model() -> None:
           f"dense {dl}", flush=True)
 
 
+def check_full_depth(model, cfg, tok, tgt) -> None:
+    """The first step's loss and logits at full depth, on the main path's
+    weights and tokens before any update, three ways on the card: bf16 through
+    the kernels, bf16 with dense attention, and f32 with dense attention (no
+    TF32).  The kernels' mean abs logit distance from f32 must be no more than
+    1.25 times dense bf16 attention's, as in check_model."""
+    import torch
+
+    from byteps_tpu_torch.models.transformer import Transformer, token_loss
+
+    runs = {}
+    with torch.no_grad():
+        for label, c in (
+            ("f32 dense", dataclasses.replace(cfg, use_flash=False, compute_dtype=torch.float32)),
+            ("bf16 dense", dataclasses.replace(cfg, use_flash=False)),
+            ("bf16 kernels", cfg),
+        ):
+            m = model
+            if c is not cfg:
+                m = Transformer(c, device=tok.device)
+                m.load_state_dict(model.state_dict())
+            logits = m(tok).float()
+            runs[label] = (logits, float(token_loss(logits, tgt)))
+            del m
+    ref = runs["f32 dense"][0]
+    ef = float((runs["bf16 kernels"][0] - ref).abs().mean())
+    ed = float((runs["bf16 dense"][0] - ref).abs().mean())
+    losses = {k: round(v[1], 4) for k, v in runs.items()}
+    del runs, ref
+    if not all(math.isfinite(x) for x in losses.values()):
+        fail(f"full-depth first losses: {losses}")
+    if not ef <= 1.25 * ed:
+        fail(f"full-depth bf16 logits: kernels {ef:.3e} from f32 on average, dense "
+             f"attention {ed:.3e}")
+    print(f"main path: first loss before any update, {cfg.n_layers} layers: {losses}; "
+          f"mean abs logit distance from f32, kernels {ef:.3e}, dense attention {ed:.3e}",
+          flush=True)
+
+
 def profile_step(step, tok, tgt, step_ms: float) -> float:
     """One more step under torch.profiler: device time by kernel family and
     the device's busy share, of the profiled step's wall time and of
@@ -568,6 +587,7 @@ def train_main_path(card: str) -> dict:
     tok = torch.as_tensor(tokens, device=bps.device()).long()
     tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
     print(f"main path: setup {time.perf_counter() - t0:.1f} s", flush=True)
+    check_full_depth(model, cfg, tok, tgt)
 
     # the check models' parameters and optimizer state sit in reference cycles
     # (each gradient hook holds its optimizer): free them before the peak is read
@@ -831,7 +851,6 @@ def main() -> None:
                 "design": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
                           "registers) fed by TMA, warp-specialized, persistent, 2 blocks "
                           "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
-                "layouts_ms": perf["fwd_layouts"],
             }
         kernels.append({
             "name": name, "route": "cuda",

@@ -155,14 +155,16 @@ def test_non_cuda_device_raises_instead_of_falling_back():
     assert tfa.launches["flash_fwd"] == 0
 
 
-def test_fwd_layouts_take_cuda_tensors_only():
-    """K1's measurement layouts have no plain version: they refuse what is
-    not a CUDA tensor, and the main path's layout is listed first."""
-    assert tfa.FWD_LAYOUTS[0] == (64, 2, True)
-    q = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16)
+def test_bf16_head_dim_64_refuses_non_cuda_tensors():
+    """bf16 at dh = 64 (the Hopper forward's inputs) off the CPU and off CUDA
+    raises before any launch, in the forward and in both backward kernels."""
+    q = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        tfa._flash_fwd_layout(q, q, q, False, 0.125, 0)
-    assert tfa.launches["flash_fwd"] == 0
+        tfa.flash_fwd(q, q, q, False, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv(q, q, q, q, lse, lse, False, 0.125)
+    assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_misaligned_view_is_copied_for_the_kernels():
