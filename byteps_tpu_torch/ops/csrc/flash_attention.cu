@@ -846,6 +846,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// A box of consecutive floats from element `at` (a multiple of 4: the box
+// must start 16-byte aligned) of a 1-D map into shared memory at dst;
+// elements past the end arrive as zeros.
+__device__ __forceinline__ void tma_vec(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                        int at) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(at), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -1125,6 +1137,175 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
+// K3 for bf16, dh = 64.  A block owns one (bh, 128-key tile), each of its
+// two consumer warpgroups 64 of the keys; query tiles of 64 rows stream
+// through.  The scores are computed transposed (keys x queries), so that
+// every operand of the two accumulating products is a TMA tile or the
+// registers of the product before:
+//   S^T = K Q^T, dP^T = V dO^T     wgmma, A = K or V rows, B = Q or dO, K-major
+//   P^T = exp2(S^T scale log2 e - lse log2 e), dS^T = P^T (dP^T - delta)
+//   dV += P^T dO, dK += dS^T Q     wgmma, A = P^T or dS^T from registers,
+//                                  B = the same dO or Q tile read MN-major
+constexpr int DKV_KEYS = 128;          // key rows per block
+constexpr int DKV_QROWS = 64;          // query rows per streamed tile
+constexpr uint32_t DKV_KV_BYTES = DKV_KEYS * ROW;
+constexpr uint32_t DKV_Q_BYTES = DKV_QROWS * ROW;
+// lse and delta of a tile: 64 floats from a box that starts up to 3 early
+constexpr int DKV_VEC = DKV_QROWS + 4;
+constexpr uint32_t DKV_VEC_BYTES = DKV_VEC * 4;
+constexpr uint32_t DKV_VEC_AT = (DKV_VEC_BYTES + 127) & ~127u;   // TMA writes 128-aligned
+// a stage: Q, dO, then the tile's lse and delta; stages stay 1024-aligned
+constexpr uint32_t DKV_STAGE_TX = 2 * DKV_Q_BYTES + 2 * DKV_VEC_BYTES;
+constexpr uint32_t DKV_STAGE = (2 * DKV_Q_BYTES + DKV_VEC_AT + DKV_VEC_BYTES + 1023) & ~1023u;
+constexpr uint32_t DKV_BARS = 2 * DKV_KV_BYTES + DKV_STAGE;
+constexpr size_t DKV_SMEM = 1024 + DKV_BARS + 8 * 3;
+
+// mbarriers: kv_full (K and V, once), full / empty (the query stage).
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tlse,
+                    const __grid_constant__ CUtensorMap tdelta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int S, int causal, float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sk = (base + 1023) & ~1023u, sv = sk + DKV_KV_BYTES;
+  const uint32_t sq = sv + DKV_KV_BYTES, sdo = sq + DKV_Q_BYTES;
+  const uint32_t slse = sdo + DKV_Q_BYTES, sdelta = slse + DKV_VEC_AT;
+  const uint32_t bars = sk + DKV_BARS;
+  const uint32_t kv_full = bars, full = bars + 8, empty = bars + 16;
+  const float* lse_s = reinterpret_cast<const float*>(smem_raw + (slse - base));
+  const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sdelta - base));
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * DKV_KEYS;
+  const int nq = (S + DKV_QROWS - 1) / DKV_QROWS;
+  const int qbeg = causal ? k0 / DKV_QROWS : 0;   // earlier query tiles are fully masked
+  const int vo = (bh * S) & 3;                     // lse / delta offset in their boxes
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 1);
+    mbar_init(empty, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * DKV_KV_BYTES);
+    tma_rows(sk, &tk, kv_full, k0, bh);
+    tma_rows(sv, &tv, kv_full, k0, bh);
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int kw = k0 + wg * 64;                             // this warpgroup's first key
+  const int kr = kw + (tid / 32) * 16 + lane / 4;          // this thread's keys: kr, kr + 8
+  const int cq = 2 * (lane % 4);                           // its first column in each group of 8
+  const uint64_t dk_a = desc_sw128(sk + wg * 64 * ROW, 16, 1024);
+  const uint64_t dv_a = desc_sw128(sv + wg * 64 * ROW, 16, 1024);
+  // Q and dO: K-major as B of S^T and dP^T (8-row groups 1024 bytes apart, a
+  // k16 step 32 bytes); MN-major as B of dK and dV (a k16 step is 16 query
+  // rows, 2048 bytes)
+  const uint64_t dq_k = desc_sw128(sq, 16, 1024), ddo_k = desc_sw128(sdo, 16, 1024);
+  const uint64_t dq_mn = desc_sw128(sq, 1024, 1024), ddo_mn = desc_sw128(sdo, 1024, 1024);
+
+  float acc_k[DH / 2], acc_v[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int qt = qbeg, n = 0; qt < nq; ++qt, ++n) {
+    const int q0 = qt * DKV_QROWS;
+    if (threadIdx.x == 0) {
+      if (n > 0) mbar_wait(empty, (n - 1) & 1);
+      mbar_expect_tx(full, DKV_STAGE_TX);
+      tma_rows(sq, &tq, full, q0, bh);
+      tma_rows(sdo, &tdo, full, q0, bh);
+      tma_vec(slse, &tlse, full, bh * S + q0 - vo);
+      tma_vec(sdelta, &tdelta, full, bh * S + q0 - vo);
+    }
+    __syncwarp();
+    mbar_wait(full, n & 1);
+
+    // S^T and dP^T on the tensor cores, into registers
+    float s[DKV_QROWS / 2], dp[DKV_QROWS / 2];
+#pragma unroll
+    for (int i = 0; i < DKV_QROWS / 2; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dk_a + 2 * kk, dq_k + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, dv_a + 2 * kk, ddo_k + 2 * kk, kk);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T in registers; columns past S, keys past S and, if causal,
+    // queries before the key are exactly 0
+    const bool edge =
+        q0 + DKV_QROWS > S || kw + 64 > S || (causal && q0 < kw + 63);
+#pragma unroll
+    for (int j = 0; j < DKV_QROWS / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = q0 + 8 * j + cq + c;
+        const float lc = lse_s[vo + 8 * j + cq + c] * 1.4426950408889634f;
+        const float dc = delta_s[vo + 8 * j + cq + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c, key = kr + 8 * i;
+          float p = ex2(fmaf(s[e], scale_log2, -lc));
+          if (edge && (col >= S || key >= S || (causal && col < key))) p = 0.f;
+          s[e] = p;
+          dp[e] = p * (dp[e] - dc);
+        }
+      }
+    }
+
+    // bf16 pairs: the accumulators' k16 column slices are wgmma's register A
+    uint32_t pa[DKV_QROWS / 16][4], da[DKV_QROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q, both staying in registers
+    wg_fence();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+#pragma unroll
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+      wgmma_rs(acc_v, pa[kk], ddo_mn + kk * (16 * ROW >> 4));
+#pragma unroll
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+      wgmma_rs(acc_k, da[kk], dq_mn + kk * (16 * ROW >> 4));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    mbar_arrive(empty);
+  }
+
+  // dK scale and dV in bf16, for keys < S
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr + 8 * i;
+    if (key >= S) continue;
+    const size_t at = ((size_t)bh * S + key) * DH + cq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+          __floats2bfloat162_rn(acc_k[4 * j + 2 * i] * scale, acc_k[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+          __floats2bfloat162_rn(acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled lives in libcuda: it is looked up through the
 // runtime's entry-point query, so the library links the runtime alone.
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -1163,6 +1344,24 @@ bool rows_map(CUtensorMap* map, const void* ptr, int S, int bh, int rows) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A (BH, S) float tensor seen as one vector of BH * S, boxes of 68 that
+// start 16-byte aligned, so that a head's rows need not be (any S runs):
+// the 64 floats of a query tile sit (bh S) mod 4 into the box.  What a box
+// reads past a head's S belongs to the next head and is masked; past the
+// end it reads as zeros.
+bool vec_map(CUtensorMap* map, const void* ptr, int n) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};   // unused at rank 1
+  const cuuint32_t box[1] = {DKV_VEC};
+  const cuuint32_t step[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 int sm_count() {
   static const int n = [] {
     int dev = 0, count = 0;
@@ -1186,6 +1385,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   const int tiles = (S + BM - 1) / BM * bh;
   flash_fwd_wgmma<<<std::min(tiles, BLOCKS * sm_count()), 384, SMEM, st>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int S,
+                           int causal, float scale, int bh, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  if (!rows_map(&tq, q, S, bh, DKV_QROWS) || !rows_map(&tdo, dout, S, bh, DKV_QROWS) ||
+      !rows_map(&tk, k, S, bh, DKV_KEYS) || !rows_map(&tv, v, S, bh, DKV_KEYS) ||
+      !vec_map(&tl, lse, S * bh) || !vec_map(&td, delta, S * bh))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = set_smem(flash_bwd_dkv_wgmma, DKV_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + DKV_KEYS - 1) / DKV_KEYS, bh);   // a head's key tiles adjacent
+  flash_bwd_dkv_wgmma<<<grid, 256, DKV_SMEM, st>>>(tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv,
+                                                   S, causal, scale,
+                                                   scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1266,6 +1482,9 @@ cudaError_t bwd_dkv(const BwdArgs& a, int dtype, int bh, cudaStream_t st) {
         (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dout,
         (const float*)a.lse, (const float*)a.delta, (float*)a.dk, (float*)a.dv, a.S,
         a.causal, a.scale);
+  } else if constexpr (DH == 64) {
+    return hop::launch_bwd_dkv(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.S, a.causal,
+                               a.scale, bh, st);
   } else {
     using L = Tc<DH>;
     const size_t smem = 4 * L::H + 2 * L::P + 2 * L::F + 2 * BQ * sizeof(float);

@@ -13,10 +13,11 @@ Phases, each fatal on failure:
      ptxas says of registers, spills and wgmma, and fail if it serialized wgmma;
   3. hold each flash kernel against its plain PyTorch version on the card
      (BERT-large's attention shape in bf16 and f32, a causal case, a ragged S,
-     each head dim, and for K1's bf16 dh=64 kernel S at and around its
-     128-row tiles, causal and not, and two launches bitwise equal), and time
-     kernel, plain version and the library call (K1 in turns with SDPA's
-     forward);
+     each head dim, and for the bf16 dh=64 kernels S at and around K1's
+     128-row tiles and K3's 128-key and 64-query tiles, causal and not, and two
+     launches of K1 and of K3 bitwise equal), and time kernel, plain version
+     and the library call (K1 in turns with SDPA's forward, K3 in turns with
+     SDPA's whole backward);
   4. hold K4 against its plain version on the card (words bitwise, scale within
      rtol 1e-6 and bitwise the same across launches) for n from 1 to 1,024,000,
      on inputs with +-0.0, +-inf, NaNs of both signs and denormals; time it at
@@ -62,8 +63,9 @@ BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
 
-# K1: sequence lengths at and around the bf16 dh=64 kernel's 128-row tiles
-TILE_EDGE_SEQS = (1, 127, 128, 129, 200, 511)
+# sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's 128 query
+# rows, K3's 128 keys and 64-row query tiles
+TILE_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 511)
 
 # K4: element counts checked against the plain version, and the timed one (a full
 # partition at the default BYTEPS_PARTITION_BYTES)
@@ -243,6 +245,19 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     print(f"time flash_fwd in turns with SDPA's forward: kernel "
           f"{[round(x, 4) for x in sorted(k1)]} ms, SDPA "
           f"{[round(x, 4) for x in sorted(sdpa)]} ms", flush=True)
+    # K3 against SDPA's whole backward (dQ, dK and dV together) the same way
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    k3, sdpa = [], []
+    for _ in range(3):
+        for run in (k3, sdpa, sdpa, k3):
+            run.append(time_ms(
+                (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)) if run is k3
+                else (lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))))
+    sdpa_bwd = float(np.median(sdpa))
+    print(f"time flash_bwd_dkv in turns with SDPA's backward: kernel "
+          f"{[round(x, 4) for x in sorted(k3)]} ms, SDPA "
+          f"{[round(x, 4) for x in sorted(sdpa)]} ms", flush=True)
     t = {
         "flash_fwd": (
             float(np.median(k1)),
@@ -253,13 +268,10 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
             time_ms(lambda: fa._plain_bwd_dq(q, k, v, do, lse, delta, causal, scale), iters=5),
         ),
         "flash_bwd_dkv": (
-            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)),
+            float(np.median(k3)),
             time_ms(lambda: fa._plain_bwd_dkv(q, k, v, do, lse, delta, causal, scale), iters=5),
         ),
     }
-    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
     for name, (ms, plain_ms) in t.items():
         print(f"time {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms", flush=True)
     print(f"time SDPA (library yardstick, never called by the port): forward "
@@ -268,25 +280,31 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
 
 
 def check_repeatable(b, h, s, dh) -> None:
-    """Two K1 launches on the same bf16 inputs give bitwise-equal O and lse."""
+    """Two launches on the same bf16 inputs give bitwise-equal outputs: K1's O
+    and lse, K3's dK and dV (neither uses atomics)."""
     import torch
 
     from byteps_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, _, _ = _inputs(b, h, s, dh, torch.bfloat16, seed=12)
+    q, k, v, do, dlse = _inputs(b, h, s, dh, torch.bfloat16, seed=12)
     o1, lse1 = fa.flash_fwd(q, k, v, False, dh ** -0.5)
     o2, lse2 = fa.flash_fwd(q, k, v, False, dh ** -0.5)
     if not (torch.equal(o1, o2) and torch.equal(lse1, lse2)):
         fail(f"K1 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
-    print(f"check K1 repeatable: B={b} H={h} S={s} dh={dh} bf16, O and lse bitwise equal "
-          "across two launches", flush=True)
+    delta = (do.float() * o1.float()).sum(-1) - dlse
+    dk1, dv1 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, False, dh ** -0.5)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, False, dh ** -0.5)
+    if not (torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
+        fail(f"K3 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
+    print(f"check K1, K3 repeatable: B={b} H={h} S={s} dh={dh} bf16, O and lse, dK and dV "
+          "bitwise equal across two launches", flush=True)
 
 
 def check_kernels() -> dict:
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # K1's bf16 dh=64 kernel works on 128-row tiles: S at and around their edges
+    # the bf16 dh=64 kernels (K1, K3): S at and around their tiles' edges
     for i, s in enumerate(TILE_EDGE_SEQS):
         for causal in (False, True):
             check_case(f"tile edge bf16 S={s}", 1, 2, s, 64, bf16, causal, seed=20 + 2 * i + causal)
@@ -841,17 +859,22 @@ def main() -> None:
         "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:237",
     }
     flops = bounds_flops(BATCH, 16, SEQ, 64, False)
+    designs = {
+        "flash_fwd": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
+                     "registers) fed by TMA, warp-specialized, persistent, 2 blocks "
+                     "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+        "flash_bwd_dkv": "bf16 dh=64: wgmma (S^T = K Q^T and dP^T = V dO^T from shared "
+                         "memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from "
+                         "registers, Q and dO read K-major and MN-major) fed by TMA, 128 "
+                         "keys a block; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+    }
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         ms, plain_ms = perf["times"][name]
         extra = {}
-        if name == "flash_fwd":
-            extra = {
-                "tflops": flops[name] / ms / 1e9, "bound_share": b[name][0] / ms,
-                "design": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
-                          "registers) fed by TMA, warp-specialized, persistent, 2 blocks "
-                          "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
-            }
+        if name in designs:
+            extra = {"tflops": flops[name] / ms / 1e9, "bound_share": b[name][0] / ms,
+                     "design": designs[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byteps_tpu_torch/ops/csrc/flash_attention.cu",

@@ -8,6 +8,8 @@ and the Pallas kernels rescale online).
 """
 
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -72,12 +74,21 @@ def _port_value_and_grads(q, k, v, do, dlse, causal, fn=None):
     return [x.detach().numpy() for x in (o, lse, *grads)]
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("block", [16, 64])
-def test_matches_byteps_tpu_pallas_interpret(causal, block):
+_PALLAS_CASES = [  # (S, dh, block, causal): dh 32, and dh 64, the head dim of
+    # the bf16 Hopper kernels (K1, K3), at one and two of K3's 64-row query tiles
+    *((128, 32, block, causal) for causal in (False, True) for block in (16, 64)),
+    *((s, 64, 32, causal) for s in (64, 128) for causal in (False, True)),
+]
+
+
+@pytest.mark.parametrize(
+    "s, dh, block, causal", _PALLAS_CASES,
+    ids=[f"{b}-{c}" if dh == 32 else f"dh{dh}-s{s}-{b}-{c}" for s, dh, b, c in _PALLAS_CASES],
+)
+def test_matches_byteps_tpu_pallas_interpret(s, dh, block, causal):
     """O, lse, dQ, dK, dV — with a non-zero lse cotangent — against the
     Pallas kernels in interpret mode."""
-    args = _inputs((1, 2, 128, 32), seed=block + causal)
+    args = _inputs((1, 2, s, dh), seed=block + causal + s + dh - 160)
     want = _jax_value_and_grads(*args, causal, block)
     got = _port_value_and_grads(*args, causal)
     for name, g, w in zip(("O", "lse", "dQ", "dK", "dV"), got, want):
@@ -183,3 +194,14 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_library_exports_exactly_the_three_entry_points():
+    """The library's extern "C" functions are the three the wrappers bind,
+    so no kernel variant ships behind an exported selector."""
+    with open(os.path.join(os.path.dirname(tfa.__file__), "csrc", "flash_attention.cu")) as f:
+        text = f.read()
+    assert text.count('extern "C" {') == 1
+    block = text[text.index('extern "C" {'):]
+    names = re.findall(r"^[A-Za-z_][\w\s*]*?(\w+)\(", block, flags=re.M)
+    assert sorted(names) == ["bps_flash_bwd_dkv", "bps_flash_bwd_dq", "bps_flash_fwd"]
