@@ -1157,11 +1157,21 @@ constexpr uint32_t DKV_VEC_AT = (DKV_VEC_BYTES + 127) & ~127u;   // TMA writes 1
 // a stage: Q, dO, then the tile's lse and delta; stages stay 1024-aligned
 constexpr uint32_t DKV_STAGE_TX = 2 * DKV_Q_BYTES + 2 * DKV_VEC_BYTES;
 constexpr uint32_t DKV_STAGE = (2 * DKV_Q_BYTES + DKV_VEC_AT + DKV_VEC_BYTES + 1023) & ~1023u;
-constexpr uint32_t DKV_BARS = 2 * DKV_KV_BYTES + DKV_STAGE;
-constexpr size_t DKV_SMEM = 1024 + DKV_BARS + 8 * 3;
+constexpr int DKV_STAGES = 2;          // query stages in flight
+constexpr uint32_t DKV_BARS = 2 * DKV_KV_BYTES + DKV_STAGES * DKV_STAGE;
+constexpr size_t DKV_SMEM = 1024 + DKV_BARS + 8 * (1 + 2 * DKV_STAGES);
+// registers: 65,536 / 384 threads = 168 a thread at launch; the producer
+// drops to 24 and the consumers take the rest, 240
+constexpr int DKV_LAUNCH_REGS = 65536 / 384 / 8 * 8;
+constexpr int DKV_CONSUMER_REGS = (DKV_LAUNCH_REGS * 384 - 24 * 128) / 256 / 8 * 8;
 
-// mbarriers: kv_full (K and V, once), full / empty (the query stage).
-__global__ void __launch_bounds__(256, 1)
+// Three warpgroups a block.  The first is the producer: one thread issues
+// the TMA copies of the block's K and V, once, and of a ring of DKV_STAGES
+// query stages (Q, dO, lse, delta).  The other two are consumers, 64 keys
+// each; they take the producer's registers (setmaxnreg).
+// mbarriers: kv_full, and per stage full / empty (count 256: every
+// consumer thread arrives).
+__global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tlse,
@@ -1170,12 +1180,14 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t sk = (base + 1023) & ~1023u, sv = sk + DKV_KV_BYTES;
-  const uint32_t sq = sv + DKV_KV_BYTES, sdo = sq + DKV_Q_BYTES;
-  const uint32_t slse = sdo + DKV_Q_BYTES, sdelta = slse + DKV_VEC_AT;
   const uint32_t bars = sk + DKV_BARS;
-  const uint32_t kv_full = bars, full = bars + 8, empty = bars + 16;
-  const float* lse_s = reinterpret_cast<const float*>(smem_raw + (slse - base));
-  const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sdelta - base));
+  const uint32_t kv_full = bars;
+  auto sq = [&](int st) { return sk + 2 * DKV_KV_BYTES + st * DKV_STAGE; };
+  auto sdo = [&](int st) { return sq(st) + DKV_Q_BYTES; };
+  auto slse = [&](int st) { return sdo(st) + DKV_Q_BYTES; };
+  auto sdelta = [&](int st) { return slse(st) + DKV_VEC_AT; };
+  auto full = [&](int st) { return bars + 8 + 16 * st; };
+  auto empty = [&](int st) { return bars + 16 + 16 * st; };
 
   const int bh = blockIdx.y, k0 = blockIdx.x * DKV_KEYS;
   const int nq = (S + DKV_QROWS - 1) / DKV_QROWS;
@@ -1184,28 +1196,39 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    mbar_init(full, 1);
-    mbar_init(empty, 256);
+    for (int st = 0; st < DKV_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
     mbar_expect_tx(kv_full, 2 * DKV_KV_BYTES);
     tma_rows(sk, &tk, kv_full, k0, bh);
     tma_rows(sv, &tv, kv_full, k0, bh);
+    for (int qt = qbeg, n = 0; qt < nq; ++qt, ++n) {
+      const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
+      if (n >= DKV_STAGES) mbar_wait(empty(st), ((n / DKV_STAGES) & 1) ^ 1);
+      mbar_expect_tx(full(st), DKV_STAGE_TX);
+      tma_rows(sq(st), &tq, full(st), q0, bh);
+      tma_rows(sdo(st), &tdo, full(st), q0, bh);
+      tma_vec(slse(st), &tlse, full(st), bh * S + q0 - vo);
+      tma_vec(sdelta(st), &tdelta, full(st), bh * S + q0 - vo);
+    }
+    return;
   }
 
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DKV_CONSUMER_REGS) : "memory");
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
   const int kw = k0 + wg * 64;                             // this warpgroup's first key
   const int kr = kw + (tid / 32) * 16 + lane / 4;          // this thread's keys: kr, kr + 8
   const int cq = 2 * (lane % 4);                           // its first column in each group of 8
   const uint64_t dk_a = desc_sw128(sk + wg * 64 * ROW, 16, 1024);
   const uint64_t dv_a = desc_sw128(sv + wg * 64 * ROW, 16, 1024);
-  // Q and dO: K-major as B of S^T and dP^T (8-row groups 1024 bytes apart, a
-  // k16 step 32 bytes); MN-major as B of dK and dV (a k16 step is 16 query
-  // rows, 2048 bytes)
-  const uint64_t dq_k = desc_sw128(sq, 16, 1024), ddo_k = desc_sw128(sdo, 16, 1024);
-  const uint64_t dq_mn = desc_sw128(sq, 1024, 1024), ddo_mn = desc_sw128(sdo, 1024, 1024);
 
   float acc_k[DH / 2], acc_v[DH / 2];
 #pragma unroll
@@ -1213,17 +1236,16 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
   mbar_wait(kv_full, 0);
   for (int qt = qbeg, n = 0; qt < nq; ++qt, ++n) {
-    const int q0 = qt * DKV_QROWS;
-    if (threadIdx.x == 0) {
-      if (n > 0) mbar_wait(empty, (n - 1) & 1);
-      mbar_expect_tx(full, DKV_STAGE_TX);
-      tma_rows(sq, &tq, full, q0, bh);
-      tma_rows(sdo, &tdo, full, q0, bh);
-      tma_vec(slse, &tlse, full, bh * S + q0 - vo);
-      tma_vec(sdelta, &tdelta, full, bh * S + q0 - vo);
-    }
-    __syncwarp();
-    mbar_wait(full, n & 1);
+    const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
+    // Q and dO: K-major as B of S^T and dP^T (8-row groups 1024 bytes apart,
+    // a k16 step 32 bytes); MN-major as B of dK and dV (a k16 step is 16
+    // query rows, 2048 bytes)
+    const uint64_t dq_k = desc_sw128(sq(st), 16, 1024), ddo_k = desc_sw128(sdo(st), 16, 1024);
+    const uint64_t dq_mn = desc_sw128(sq(st), 1024, 1024);
+    const uint64_t ddo_mn = desc_sw128(sdo(st), 1024, 1024);
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (slse(st) - base)) + vo;
+    const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sdelta(st) - base)) + vo;
+    mbar_wait(full(st), (n / DKV_STAGES) & 1);
 
     // S^T and dP^T on the tensor cores, into registers
     float s[DKV_QROWS / 2], dp[DKV_QROWS / 2];
@@ -1234,6 +1256,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     fence_regs(dp);
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dk_a + 2 * kk, dq_k + 2 * kk, kk);
+    wg_commit();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, dv_a + 2 * kk, ddo_k + 2 * kk, kk);
     wg_commit();
@@ -1241,37 +1264,46 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     fence_regs(s);
     fence_regs(dp);
 
-    // P^T and dS^T in registers; columns past S, keys past S and, if causal,
-    // queries before the key are exactly 0
-    const bool edge =
-        q0 + DKV_QROWS > S || kw + 64 > S || (causal && q0 < kw + 63);
+    // P^T in registers; columns past S, keys past S and, if causal, queries
+    // before the key are exactly 0 (and so is dS^T there)
+    const bool edge = q0 + DKV_QROWS > S || kw + 64 > S || (causal && q0 < kw + 63);
 #pragma unroll
-    for (int j = 0; j < DKV_QROWS / 8; ++j) {
+    for (int j = 0; j < DKV_QROWS / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = q0 + 8 * j + cq + c;
-        const float lc = lse_s[vo + 8 * j + cq + c] * 1.4426950408889634f;
-        const float dc = delta_s[vo + 8 * j + cq + c];
+        const float lc = lse_s[8 * j + cq + c] * 1.4426950408889634f;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int e = 4 * j + 2 * i + c, key = kr + 8 * i;
-          float p = ex2(fmaf(s[e], scale_log2, -lc));
-          if (edge && (col >= S || key >= S || (causal && col < key))) p = 0.f;
-          s[e] = p;
-          dp[e] = p * (dp[e] - dc);
+          const float p = ex2(fmaf(s[e], scale_log2, -lc));
+          s[e] = edge && (col >= S || key >= S || (causal && col < key)) ? 0.f : p;
         }
       }
-    }
 
     // bf16 pairs: the accumulators' k16 column slices are wgmma's register A
     uint32_t pa[DKV_QROWS / 16][4], da[DKV_QROWS / 16][4];
 #pragma unroll
     for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < DKV_QROWS / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float dc = delta_s[8 * j + cq + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c;
+          dp[e] = s[e] * (dp[e] - dc);
+        }
       }
+#pragma unroll
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
 
     // dV += P^T dO, dK += dS^T Q, both staying in registers
     wg_fence();
@@ -1287,7 +1319,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
     wg_wait0();
     fence_regs(acc_v);
     fence_regs(acc_k);
-    mbar_arrive(empty);
+    mbar_arrive(empty(st));             // the stage goes back to the producer
   }
 
   // dK scale and dV in bf16, for keys < S
@@ -1399,7 +1431,7 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   const cudaError_t e = set_smem(flash_bwd_dkv_wgmma, DKV_SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + DKV_KEYS - 1) / DKV_KEYS, bh);   // a head's key tiles adjacent
-  flash_bwd_dkv_wgmma<<<grid, 256, DKV_SMEM, st>>>(tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv,
+  flash_bwd_dkv_wgmma<<<grid, 384, DKV_SMEM, st>>>(tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv,
                                                    S, causal, scale,
                                                    scale * 1.4426950408889634f);
   return cudaGetLastError();
