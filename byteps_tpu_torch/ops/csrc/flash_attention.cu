@@ -1157,45 +1157,54 @@ constexpr uint32_t DKV_VEC_AT = (DKV_VEC_BYTES + 127) & ~127u;   // TMA writes 1
 // a stage: Q, dO, then the tile's lse and delta; stages stay 1024-aligned
 constexpr uint32_t DKV_STAGE_TX = 2 * DKV_Q_BYTES + 2 * DKV_VEC_BYTES;
 constexpr uint32_t DKV_STAGE = (2 * DKV_Q_BYTES + DKV_VEC_AT + DKV_VEC_BYTES + 1023) & ~1023u;
-constexpr int DKV_STAGES = 2;          // query stages in flight
-constexpr uint32_t DKV_BARS = 2 * DKV_KV_BYTES + DKV_STAGES * DKV_STAGE;
-constexpr size_t DKV_SMEM = 1024 + DKV_BARS + 8 * (1 + 2 * DKV_STAGES);
+constexpr int DKV_STAGES = 3;          // query stages in flight
+// shared memory: two K/V buffers, the stages, then the mbarriers; 1024 bytes
+// of slack to align the tiles
+constexpr uint32_t DKV_BARS = 4 * DKV_KV_BYTES + DKV_STAGES * DKV_STAGE;
+constexpr size_t DKV_SMEM = 1024 + DKV_BARS + 8 * (4 + 2 * DKV_STAGES);
 // registers: 65,536 / 384 threads = 168 a thread at launch; the producer
 // drops to 24 and the consumers take the rest, 240
 constexpr int DKV_LAUNCH_REGS = 65536 / 384 / 8 * 8;
 constexpr int DKV_CONSUMER_REGS = (DKV_LAUNCH_REGS * 384 - 24 * 128) / 256 / 8 * 8;
 
-// Three warpgroups a block.  The first is the producer: one thread issues
-// the TMA copies of the block's K and V, once, and of a ring of DKV_STAGES
-// query stages (Q, dO, lse, delta).  The other two are consumers, 64 keys
-// each; they take the producer's registers (setmaxnreg).
-// mbarriers: kv_full, and per stage full / empty (count 256: every
-// consumer thread arrives).
+// Each block walks the (bh, key tile) tiles idx = blockIdx.x, + gridDim.x,
+// ...; a head's key tiles are adjacent.  Three warpgroups a block.  The
+// first is the producer: one thread issues the TMA copies of each tile's K
+// and V (two buffers) and of a ring of DKV_STAGES query stages (Q, dO, lse,
+// delta) that runs on from one tile into the next, so the next tile's loads
+// overlap this tile's last products and its epilogue.  The other two are
+// consumers, 64 keys each; they take the producer's registers (setmaxnreg).
+// mbarriers: per K/V buffer kv_full / kv_empty, per stage full / empty
+// (the empty ones count 256: every consumer thread arrives).
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tlse,
                     const __grid_constant__ CUtensorMap tdelta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int S, int causal, float scale, float scale_log2) {
+                    bf16* __restrict__ dv, int S, int bh_count, int causal, float scale,
+                    float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  const uint32_t sk = (base + 1023) & ~1023u, sv = sk + DKV_KV_BYTES;
-  const uint32_t bars = sk + DKV_BARS;
-  const uint32_t kv_full = bars;
-  auto sq = [&](int st) { return sk + 2 * DKV_KV_BYTES + st * DKV_STAGE; };
+  const uint32_t s0 = (base + 1023) & ~1023u, bars = s0 + DKV_BARS;
+  auto sk = [&](int b) { return s0 + 2 * b * DKV_KV_BYTES; };
+  auto sv = [&](int b) { return sk(b) + DKV_KV_BYTES; };
+  auto sq = [&](int st) { return s0 + 4 * DKV_KV_BYTES + st * DKV_STAGE; };
   auto sdo = [&](int st) { return sq(st) + DKV_Q_BYTES; };
   auto slse = [&](int st) { return sdo(st) + DKV_Q_BYTES; };
   auto sdelta = [&](int st) { return slse(st) + DKV_VEC_AT; };
-  auto full = [&](int st) { return bars + 8 + 16 * st; };
-  auto empty = [&](int st) { return bars + 16 + 16 * st; };
+  auto kv_full = [&](int b) { return bars + 8 * b; };
+  auto kv_empty = [&](int b) { return bars + 16 + 8 * b; };
+  auto full = [&](int st) { return bars + 32 + 16 * st; };
+  auto empty = [&](int st) { return bars + 40 + 16 * st; };
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * DKV_KEYS;
+  const int nkt = (S + DKV_KEYS - 1) / DKV_KEYS, ntiles = nkt * bh_count;
   const int nq = (S + DKV_QROWS - 1) / DKV_QROWS;
-  const int qbeg = causal ? k0 / DKV_QROWS : 0;   // earlier query tiles are fully masked
-  const int vo = (bh * S) & 3;                     // lse / delta offset in their boxes
 
   if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kv_full(b), 1);
+      mbar_init(kv_empty(b), 256);
+    }
     for (int st = 0; st < DKV_STAGES; ++st) {
       mbar_init(full(st), 1);
       mbar_init(empty(st), 256);
@@ -1207,133 +1216,149 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x != 0) return;
-    mbar_expect_tx(kv_full, 2 * DKV_KV_BYTES);
-    tma_rows(sk, &tk, kv_full, k0, bh);
-    tma_rows(sv, &tv, kv_full, k0, bh);
-    for (int qt = qbeg, n = 0; qt < nq; ++qt, ++n) {
-      const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
-      if (n >= DKV_STAGES) mbar_wait(empty(st), ((n / DKV_STAGES) & 1) ^ 1);
-      mbar_expect_tx(full(st), DKV_STAGE_TX);
-      tma_rows(sq(st), &tq, full(st), q0, bh);
-      tma_rows(sdo(st), &tdo, full(st), q0, bh);
-      tma_vec(slse(st), &tlse, full(st), bh * S + q0 - vo);
-      tma_vec(sdelta(st), &tdelta, full(st), bh * S + q0 - vo);
+    int n = 0, used = 0;                   // query stages issued; key tiles begun
+    for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
+      const int bh = idx / nkt, k0 = idx % nkt * DKV_KEYS, b = used & 1;
+      const int vo = (bh * S) & 3;         // lse / delta offset in their boxes
+      if (used >= 2) mbar_wait(kv_empty(b), ((used >> 1) & 1) ^ 1);
+      mbar_expect_tx(kv_full(b), 2 * DKV_KV_BYTES);
+      tma_rows(sk(b), &tk, kv_full(b), k0, bh);
+      tma_rows(sv(b), &tv, kv_full(b), k0, bh);
+      // earlier query tiles are fully masked under causal
+      for (int qt = causal ? k0 / DKV_QROWS : 0; qt < nq; ++qt, ++n) {
+        const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
+        if (n >= DKV_STAGES) mbar_wait(empty(st), ((n / DKV_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), DKV_STAGE_TX);
+        tma_rows(sq(st), &tq, full(st), q0, bh);
+        tma_rows(sdo(st), &tdo, full(st), q0, bh);
+        tma_vec(slse(st), &tlse, full(st), bh * S + q0 - vo);
+        tma_vec(sdelta(st), &tdelta, full(st), bh * S + q0 - vo);
+      }
     }
     return;
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DKV_CONSUMER_REGS) : "memory");
   const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
-  const int kw = k0 + wg * 64;                             // this warpgroup's first key
-  const int kr = kw + (tid / 32) * 16 + lane / 4;          // this thread's keys: kr, kr + 8
   const int cq = 2 * (lane % 4);                           // its first column in each group of 8
-  const uint64_t dk_a = desc_sw128(sk + wg * 64 * ROW, 16, 1024);
-  const uint64_t dv_a = desc_sw128(sv + wg * 64 * ROW, 16, 1024);
 
-  float acc_k[DH / 2], acc_v[DH / 2];
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  int n = 0, used = 0;
+  for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
+    const int bh = idx / nkt, k0 = idx % nkt * DKV_KEYS, b = used & 1;
+    const int vo = (bh * S) & 3;
+    const int kw = k0 + wg * 64;                             // this warpgroup's first key
+    const int kr = kw + (tid / 32) * 16 + lane / 4;          // this thread's keys: kr, kr + 8
+    const uint64_t dk_a = desc_sw128(sk(b) + wg * 64 * ROW, 16, 1024);
+    const uint64_t dv_a = desc_sw128(sv(b) + wg * 64 * ROW, 16, 1024);
 
-  mbar_wait(kv_full, 0);
-  for (int qt = qbeg, n = 0; qt < nq; ++qt, ++n) {
-    const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
-    // Q and dO: K-major as B of S^T and dP^T (8-row groups 1024 bytes apart,
-    // a k16 step 32 bytes); MN-major as B of dK and dV (a k16 step is 16
-    // query rows, 2048 bytes)
-    const uint64_t dq_k = desc_sw128(sq(st), 16, 1024), ddo_k = desc_sw128(sdo(st), 16, 1024);
-    const uint64_t dq_mn = desc_sw128(sq(st), 1024, 1024);
-    const uint64_t ddo_mn = desc_sw128(sdo(st), 1024, 1024);
-    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (slse(st) - base)) + vo;
-    const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sdelta(st) - base)) + vo;
-    mbar_wait(full(st), (n / DKV_STAGES) & 1);
+    float acc_k[DH / 2], acc_v[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
-    // S^T and dP^T on the tensor cores, into registers
-    float s[DKV_QROWS / 2], dp[DKV_QROWS / 2];
-#pragma unroll
-    for (int i = 0; i < DKV_QROWS / 2; ++i) s[i] = dp[i] = 0.f;
-    wg_fence();
-    fence_regs(s);
-    fence_regs(dp);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dk_a + 2 * kk, dq_k + 2 * kk, kk);
-    wg_commit();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, dv_a + 2 * kk, ddo_k + 2 * kk, kk);
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-    fence_regs(dp);
+    mbar_wait(kv_full(b), (used >> 1) & 1);
+    for (int qt = causal ? k0 / DKV_QROWS : 0; qt < nq; ++qt, ++n) {
+      const int st = n % DKV_STAGES, q0 = qt * DKV_QROWS;
+      // Q and dO: K-major as B of S^T and dP^T (8-row groups 1024 bytes apart,
+      // a k16 step 32 bytes); MN-major as B of dK and dV (a k16 step is 16
+      // query rows, 2048 bytes)
+      const uint64_t dq_k = desc_sw128(sq(st), 16, 1024), ddo_k = desc_sw128(sdo(st), 16, 1024);
+      const uint64_t dq_mn = desc_sw128(sq(st), 1024, 1024);
+      const uint64_t ddo_mn = desc_sw128(sdo(st), 1024, 1024);
+      const float* lse_s = reinterpret_cast<const float*>(smem_raw + (slse(st) - base)) + vo;
+      const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sdelta(st) - base)) + vo;
+      mbar_wait(full(st), (n / DKV_STAGES) & 1);
 
-    // P^T in registers; columns past S, keys past S and, if causal, queries
-    // before the key are exactly 0 (and so is dS^T there)
-    const bool edge = q0 + DKV_QROWS > S || kw + 64 > S || (causal && q0 < kw + 63);
+      // S^T and dP^T on the tensor cores, into registers
+      float s[DKV_QROWS / 2], dp[DKV_QROWS / 2];
 #pragma unroll
-    for (int j = 0; j < DKV_QROWS / 8; ++j)
+      for (int i = 0; i < DKV_QROWS / 2; ++i) s[i] = dp[i] = 0.f;
+      wg_fence();
+      fence_regs(s);
+      fence_regs(dp);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = q0 + 8 * j + cq + c;
-        const float lc = lse_s[8 * j + cq + c] * 1.4426950408889634f;
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dk_a + 2 * kk, dq_k + 2 * kk, kk);
+      wg_commit();
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 4 * j + 2 * i + c, key = kr + 8 * i;
-          const float p = ex2(fmaf(s[e], scale_log2, -lc));
-          s[e] = edge && (col >= S || key >= S || (causal && col < key)) ? 0.f : p;
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, dv_a + 2 * kk, ddo_k + 2 * kk, kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T in registers; columns past S, keys past S and, if causal, queries
+      // before the key are exactly 0 (and so is dS^T there)
+      const bool edge = q0 + DKV_QROWS > S || kw + 64 > S || (causal && q0 < kw + 63);
+#pragma unroll
+      for (int j = 0; j < DKV_QROWS / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = q0 + 8 * j + cq + c;
+          const float lc = lse_s[8 * j + cq + c] * 1.4426950408889634f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c, key = kr + 8 * i;
+            const float p = ex2(fmaf(s[e], scale_log2, -lc));
+            s[e] = edge && (col >= S || key >= S || (causal && col < key)) ? 0.f : p;
+          }
         }
-      }
 
-    // bf16 pairs: the accumulators' k16 column slices are wgmma's register A
-    uint32_t pa[DKV_QROWS / 16][4], da[DKV_QROWS / 16][4];
+      // bf16 pairs: the accumulators' k16 column slices are wgmma's register A
+      uint32_t pa[DKV_QROWS / 16][4], da[DKV_QROWS / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+      for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-    // dS^T = P^T (dP^T - delta)
+      // dS^T = P^T (dP^T - delta)
 #pragma unroll
-    for (int j = 0; j < DKV_QROWS / 8; ++j)
+      for (int j = 0; j < DKV_QROWS / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float dc = delta_s[8 * j + cq + c];
+        for (int c = 0; c < 2; ++c) {
+          const float dc = delta_s[8 * j + cq + c];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 4 * j + 2 * i + c;
-          dp[e] = s[e] * (dp[e] - dc);
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            dp[e] = s[e] * (dp[e] - dc);
+          }
         }
+#pragma unroll
+      for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+
+      // dV += P^T dO, dK += dS^T Q, both staying in registers
+      wg_fence();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+        wgmma_rs(acc_v, pa[kk], ddo_mn + kk * (16 * ROW >> 4));
+#pragma unroll
+      for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+        wgmma_rs(acc_k, da[kk], dq_mn + kk * (16 * ROW >> 4));
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      mbar_arrive(empty(st));             // the stage goes back to the producer
+    }
+    mbar_arrive(kv_empty(b));             // and so do K and V
+
+    // dK scale and dV in bf16, for keys < S
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kr + 8 * i;
+      if (key >= S) continue;
+      const size_t at = ((size_t)bh * S + key) * DH + cq;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+            __floats2bfloat162_rn(acc_k[4 * j + 2 * i] * scale, acc_k[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
       }
-#pragma unroll
-    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
-
-    // dV += P^T dO, dK += dS^T Q, both staying in registers
-    wg_fence();
-    fence_regs(acc_v);
-    fence_regs(acc_k);
-#pragma unroll
-    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
-      wgmma_rs(acc_v, pa[kk], ddo_mn + kk * (16 * ROW >> 4));
-#pragma unroll
-    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
-      wgmma_rs(acc_k, da[kk], dq_mn + kk * (16 * ROW >> 4));
-    wg_commit();
-    wg_wait0();
-    fence_regs(acc_v);
-    fence_regs(acc_k);
-    mbar_arrive(empty(st));             // the stage goes back to the producer
-  }
-
-  // dK scale and dV in bf16, for keys < S
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = kr + 8 * i;
-    if (key >= S) continue;
-    const size_t at = ((size_t)bh * S + key) * DH + cq;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-          __floats2bfloat162_rn(acc_k[4 * j + 2 * i] * scale, acc_k[4 * j + 2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-          __floats2bfloat162_rn(acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -1420,6 +1445,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
+// Non-causal tiles are equal, and a persistent grid of one block per SM
+// walks them; causal tiles are not (a key tile sees the query tiles from
+// its own on), so there each block takes one tile and the hardware's block
+// scheduler balances them.
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int S,
                            int causal, float scale, int bh, cudaStream_t st) {
@@ -1430,10 +1459,10 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
     return cudaErrorInvalidValue;
   const cudaError_t e = set_smem(flash_bwd_dkv_wgmma, DKV_SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + DKV_KEYS - 1) / DKV_KEYS, bh);   // a head's key tiles adjacent
-  flash_bwd_dkv_wgmma<<<grid, 384, DKV_SMEM, st>>>(tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv,
-                                                   S, causal, scale,
-                                                   scale * 1.4426950408889634f);
+  const int tiles = (S + DKV_KEYS - 1) / DKV_KEYS * bh;
+  flash_bwd_dkv_wgmma<<<causal ? tiles : std::min(tiles, sm_count()), 384, DKV_SMEM, st>>>(
+      tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv, S, bh, causal, scale,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
