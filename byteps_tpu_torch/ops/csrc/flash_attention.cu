@@ -2,9 +2,9 @@
 // backward kernels (dQ, and dK/dV), with a plain C interface for ctypes.
 //
 // Replaces the Pallas kernels of byteps_tpu/ops/flash_attention.py:
-//   hop::flash_fwd_wgmma, flash_fwd_* <- _fwd_kernel_factory      (K1)
-//   flash_bwd_dq_*                    <- _bwd_dq_kernel_factory   (K2)
-//   flash_bwd_dkv_*                   <- _bwd_dkv_kernel_factory  (K3)
+//   hop::flash_fwd_wgmma, flash_fwd_*         <- _fwd_kernel_factory      (K1)
+//   flash_bwd_dq_*                            <- _bwd_dq_kernel_factory   (K2)
+//   hop::flash_bwd_dkv_wgmma, flash_bwd_dkv_* <- _bwd_dkv_kernel_factory  (K3)
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are (BH, S, DH) row-major in float or
 // bf16; lse and delta are (BH, S) float.  Softmax statistics, exponentials
@@ -54,15 +54,48 @@
 // bf16 K1 for dh = 32 and 128 keeps the WMMA kernel below (flash_fwd_bf16),
 // by a static dispatch on dh: a given dh always takes the same kernel.
 //
-// K2, K3, and K1 for bf16 dh = 32 and 128: the products run on the tensor
+// K3 for bf16 and dh = 64: hop::flash_bwd_dkv_wgmma.  What bounds it: at
+// B = 32, H = 16, S = 512 it must do 68.7 GFLOP (four products), 0.0695 ms
+// at 989 TFLOP/s, and move 203 MB (q, k, v, dO, lse, delta read once, dK
+// and dV written once), 0.0607 ms at 3.35 TB/s: operations bind, by a
+// little, and the 134M exponentials (one per score, as in K1) take ~0.03
+// ms on the MUFU units.  The design:
+//   1. The scores are computed transposed, S^T = K Q^T and dP^T = V dO^T
+//      (wgmma, both operands K-major in shared memory), so that P^T and
+//      dS^T = P^T (dP^T - delta) come out in the accumulator layout, rows
+//      = keys: rounded to bf16 pairs k16 slice by k16 slice they are
+//      wgmma's register A for dV += P^T dO and dK += dS^T Q, with the same
+//      dO and Q tiles read again as B, MN-major.  Neither P^T nor dS^T goes
+//      through shared memory; dK and dV stay in registers across the query
+//      tiles and are written once, in bf16.
+//   2. A block owns 128 keys, 64 for each of two consumer warpgroups, and
+//      streams 64-row query tiles past them.  A producer warpgroup (one
+//      thread issues) brings K and V once a tile and keeps a ring of 3
+//      (Q, dO, lse, delta) stages in flight; setmaxnreg gives the consumers
+//      240 registers, which their dK, dV, S^T, dP^T (32 f32 each) and the
+//      packed P^T and dS^T need, so one block runs on an SM.
+//   3. lse and delta come by TMA too, through 1-D maps whose boxes start
+//      16-byte aligned (TMA needs that; a head's rows at S = 127 are not),
+//      so every S takes this kernel.
+//   4. Non-causal: a persistent grid of one block per SM walks the (bh, key
+//      tile) tiles with K and V double-buffered and the ring running on from
+//      one tile into the next, which hides each tile's fill.  Causal tiles
+//      are unequal (key tile k sees query tiles from 2k on), so there each
+//      block takes one tile and the block scheduler balances them.
+// A consumer warpgroup's exponentials and dS arithmetic do not overlap its
+// own products, only the other warpgroup's; PERF.md keeps the times of the
+// layouts this one was chosen over.  bf16 K3 for dh = 32 and 128 keeps the
+// WMMA kernel below (flash_bwd_dkv_bf16), by the same static dispatch.
+//
+// K2, and K1 and K3 for bf16 dh = 32 and 128: the products run on the tensor
 // cores as 16x16x16 bf16 WMMA tiles (mma.sync) with f32 accumulators; one
 // block of 4 warps per (bh, 64-row query block), or key block for dK/dV,
 // each warp owning 16 rows.  Tiles are loaded synchronously; scores go
 // through shared memory in f32 for the softmax; P and dS are rounded to
 // bf16 for the second product, as the plain version's bf16 path would not,
-// which is within the bf16 tolerance.  At S = 512, dh = 64 their work sits
+// which is within the bf16 tolerance.  At S = 512, dh = 64 K2's work sits
 // near the H100's ridge point; the round trips through shared memory and
-// the synchronous loads keep them far from it.
+// the synchronous loads keep it far from it.
 //
 // f32 (all three): the products run on the FMA units in f32 (67 TFLOP/s),
 // since TF32 or bf16 tiles would not hold the f32 tolerance; 8 warps, the
@@ -1277,7 +1310,6 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
       fence_regs(dp);
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dk_a + 2 * kk, dq_k + 2 * kk, kk);
-      wg_commit();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, dv_a + 2 * kk, ddo_k + 2 * kk, kk);
       wg_commit();

@@ -865,8 +865,9 @@ def main() -> None:
                      "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
         "flash_bwd_dkv": "bf16 dh=64: wgmma (S^T = K Q^T and dP^T = V dO^T from shared "
                          "memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from "
-                         "registers, Q and dO read K-major and MN-major) fed by TMA, 128 "
-                         "keys a block; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+                         "registers, Q and dO read K-major and MN-major) fed by TMA, "
+                         "warp-specialized, 128 keys a block, 1 block per SM, persistent "
+                         "when non-causal; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
     }
     kernels = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
