@@ -186,7 +186,9 @@ def _row_stats(q, lse, delta):
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (b, h, s) or x.dtype != torch.float32 or x.device != q.device:
             raise ValueError(f"{name} must be ({b}, {h}, {s}) float32 on {q.device}")
-    return lse.contiguous(), delta.contiguous()
+    # the dK/dV kernel reads them through TMA maps, whose base must be
+    # 16-byte aligned
+    return _aligned(lse.contiguous()), _aligned(delta.contiguous())
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):

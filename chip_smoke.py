@@ -13,11 +13,11 @@ Phases, each fatal on failure:
      ptxas says of registers, spills and wgmma, and fail if it serialized wgmma;
   3. hold each flash kernel against its plain PyTorch version on the card
      (BERT-large's attention shape in bf16 and f32, a causal case, a ragged S,
-     each head dim, and for the bf16 dh=64 kernels S at and around K1's
-     128-row tiles and K3's 128-key and 64-query tiles, causal and not, and two
-     launches of K1 and of K3 bitwise equal), and time kernel, plain version
-     and the library call (K1 in turns with SDPA's forward, K3 in turns with
-     SDPA's whole backward);
+     each head dim, and for the bf16 dh=64 kernels S at and around their tile
+     edges: K1's and K2's 128 query rows and 64-key tiles, K3's 128 keys and
+     64-row query tiles; causal and not; two launches of K1, K2 and K3 bitwise
+     equal), and time kernel, plain version and the library call (K1 in turns
+     with SDPA's forward, K2 and K3 each in turns with SDPA's whole backward);
   4. hold K4 against its plain version on the card (words bitwise, scale within
      rtol 1e-6 and bitwise the same across launches) for n from 1 to 1,024,000,
      on inputs with +-0.0, +-inf, NaNs of both signs and denormals; time it at
@@ -63,8 +63,8 @@ BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
 
-# sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's 128 query
-# rows, K3's 128 keys and 64-row query tiles
+# sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's and K2's
+# 128 query rows and 64-key tiles, K3's 128 keys and 64-row query tiles
 TILE_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 511)
 
 # K4: element counts checked against the plain version, and the timed one (a full
@@ -222,6 +222,19 @@ def bounds(b, h, s, dh, dtype_name, causal) -> dict:
     return out
 
 
+def _in_turns(name: str, kernel, library, library_name: str) -> tuple:
+    """A kernel and a library call timed in turns (kernel, library, library,
+    kernel), three rounds: the median of each (ms)."""
+    ks, ls = [], []
+    for _ in range(3):
+        for run in (ks, ls, ls, ks):
+            run.append(time_ms(kernel if run is ks else library))
+    print(f"time {name} in turns with {library_name}: kernel "
+          f"{[round(x, 4) for x in sorted(ks)]} ms, SDPA "
+          f"{[round(x, 4) for x in sorted(ls)]} ms", flush=True)
+    return float(np.median(ks)), float(np.median(ls))
+
+
 def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     """Kernel, plain version and library times (ms) at the main path's shape."""
     import torch
@@ -233,55 +246,46 @@ def time_kernels(b, h, s, dh, dtype, causal) -> dict:
     scale = dh ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
-    # K1 against SDPA's forward in turns (kernel, SDPA, SDPA, kernel), three
-    # rounds: the median of each
-    k1, sdpa = [], []
-    for _ in range(3):
-        for run in (k1, sdpa, sdpa, k1):
-            run.append(time_ms(
-                (lambda: fa.flash_fwd(q, k, v, causal, scale)) if run is k1 else
-                (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))))
-    sdpa_fwd = float(np.median(sdpa))
-    print(f"time flash_fwd in turns with SDPA's forward: kernel "
-          f"{[round(x, 4) for x in sorted(k1)]} ms, SDPA "
-          f"{[round(x, 4) for x in sorted(sdpa)]} ms", flush=True)
-    # K3 against SDPA's whole backward (dQ, dK and dV together) the same way
+    # K1 against SDPA's forward; K2 and K3 each against SDPA's whole backward
+    # (dQ, dK and dV together), since no PyTorch call computes either alone
+    k1, sdpa_fwd = _in_turns(
+        "flash_fwd", lambda: fa.flash_fwd(q, k, v, causal, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), "SDPA's forward")
     qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-    k3, sdpa = [], []
-    for _ in range(3):
-        for run in (k3, sdpa, sdpa, k3):
-            run.append(time_ms(
-                (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)) if run is k3
-                else (lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))))
-    sdpa_bwd = float(np.median(sdpa))
-    print(f"time flash_bwd_dkv in turns with SDPA's backward: kernel "
-          f"{[round(x, 4) for x in sorted(k3)]} ms, SDPA "
-          f"{[round(x, 4) for x in sorted(sdpa)]} ms", flush=True)
+
+    def sdpa_backward():
+        return torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+    k2, sdpa_bwd_k2 = _in_turns(
+        "flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+        sdpa_backward, "SDPA's backward")
+    k3, sdpa_bwd = _in_turns(
+        "flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+        sdpa_backward, "SDPA's backward")
     t = {
         "flash_fwd": (
-            float(np.median(k1)),
-            time_ms(lambda: fa._dense_reference_lse(q, k, v, causal, scale), iters=5),
+            k1, time_ms(lambda: fa._dense_reference_lse(q, k, v, causal, scale), iters=5),
         ),
         "flash_bwd_dq": (
-            time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)),
-            time_ms(lambda: fa._plain_bwd_dq(q, k, v, do, lse, delta, causal, scale), iters=5),
+            k2, time_ms(lambda: fa._plain_bwd_dq(q, k, v, do, lse, delta, causal, scale), iters=5),
         ),
         "flash_bwd_dkv": (
-            float(np.median(k3)),
-            time_ms(lambda: fa._plain_bwd_dkv(q, k, v, do, lse, delta, causal, scale), iters=5),
+            k3, time_ms(lambda: fa._plain_bwd_dkv(q, k, v, do, lse, delta, causal, scale), iters=5),
         ),
     }
     for name, (ms, plain_ms) in t.items():
         print(f"time {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms", flush=True)
     print(f"time SDPA (library yardstick, never called by the port): forward "
-          f"{sdpa_fwd:.4f} ms, backward (dQ, dK, dV together) {sdpa_bwd:.4f} ms", flush=True)
-    return {"times": t, "sdpa_fwd": sdpa_fwd, "sdpa_bwd": sdpa_bwd}
+          f"{sdpa_fwd:.4f} ms, backward (dQ, dK, dV together) {sdpa_bwd_k2:.4f} ms in turns "
+          f"with K2, {sdpa_bwd:.4f} ms in turns with K3", flush=True)
+    return {"times": t, "sdpa_fwd": sdpa_fwd,
+            "sdpa_bwd": {"flash_bwd_dq": sdpa_bwd_k2, "flash_bwd_dkv": sdpa_bwd}}
 
 
 def check_repeatable(b, h, s, dh) -> None:
     """Two launches on the same bf16 inputs give bitwise-equal outputs: K1's O
-    and lse, K3's dK and dV (neither uses atomics)."""
+    and lse, K2's dQ, K3's dK and dV (none uses atomics)."""
     import torch
 
     from byteps_tpu_torch.ops import flash_attention as fa
@@ -292,19 +296,23 @@ def check_repeatable(b, h, s, dh) -> None:
     if not (torch.equal(o1, o2) and torch.equal(lse1, lse2)):
         fail(f"K1 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
     delta = (do.float() * o1.float()).sum(-1) - dlse
+    dq1 = fa.flash_bwd_dq(q, k, v, do, lse1, delta, False, dh ** -0.5)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse1, delta, False, dh ** -0.5)
+    if not torch.equal(dq1, dq2):
+        fail(f"K2 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
     dk1, dv1 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, False, dh ** -0.5)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, False, dh ** -0.5)
     if not (torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
         fail(f"K3 B={b} H={h} S={s} dh={dh}: two launches on the same inputs differ")
-    print(f"check K1, K3 repeatable: B={b} H={h} S={s} dh={dh} bf16, O and lse, dK and dV "
-          "bitwise equal across two launches", flush=True)
+    print(f"check K1, K2, K3 repeatable: B={b} H={h} S={s} dh={dh} bf16, O and lse, dQ, dK "
+          "and dV bitwise equal across two launches", flush=True)
 
 
 def check_kernels() -> dict:
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # the bf16 dh=64 kernels (K1, K3): S at and around their tiles' edges
+    # the bf16 dh=64 kernels (K1, K2, K3): S at and around their tiles' edges
     for i, s in enumerate(TILE_EDGE_SEQS):
         for causal in (False, True):
             check_case(f"tile edge bf16 S={s}", 1, 2, s, 64, bf16, causal, seed=20 + 2 * i + causal)
@@ -863,6 +871,10 @@ def main() -> None:
         "flash_fwd": "bf16 dh=64: wgmma (QK^T from shared memory, PV with P from "
                      "registers) fed by TMA, warp-specialized, persistent, 2 blocks "
                      "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+        "flash_bwd_dq": "bf16 dh=64: wgmma (S = Q K^T and dP = dO V^T from shared memory, "
+                        "dQ += dS K with dS from registers, K read K-major and MN-major) "
+                        "fed by TMA, one stage, thread 0 issues, 128 query rows a block, "
+                        "a block per tile; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
         "flash_bwd_dkv": "bf16 dh=64: wgmma (S^T = K Q^T and dP^T = V dO^T from shared "
                          "memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from "
                          "registers, Q and dO read K-major and MN-major) fed by TMA, "
@@ -885,7 +897,7 @@ def main() -> None:
             # one PyTorch call computes the forward (SDPA); none computes dQ
             # alone or dK/dV alone, so SDPA's whole backward is given beside
             "library_ms": perf["sdpa_fwd"] if name == "flash_fwd" else None,
-            "sdpa_bwd_ms": perf["sdpa_bwd"],
+            **({"sdpa_bwd_ms": perf["sdpa_bwd"][name]} if name in perf["sdpa_bwd"] else {}),
             "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
             "path": "single-worker main path",
             **extra,

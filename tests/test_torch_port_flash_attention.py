@@ -190,6 +190,44 @@ def test_misaligned_view_is_copied_for_the_kernels():
     assert tfa._aligned(y) is y
 
 
+def test_row_stats_are_aligned_for_the_kernels():
+    """lse and Δ that start 4 bytes off a 16-byte boundary reach the kernels
+    as aligned copies with the same values (the dK/dV kernel's TMA maps need
+    an aligned base)."""
+    q = torch.empty((1, 2, 64, 64))
+    base = torch.arange(1 + 2 * 2 * 64, dtype=torch.float32)
+    lse = base[1:1 + 2 * 64].view(1, 2, 64)
+    delta = base[1 + 2 * 64:].view(1, 2, 64)
+    assert lse.data_ptr() % 16 == 4 and delta.data_ptr() % 16 == 4
+    got_lse, got_delta = tfa._row_stats(q, lse, delta)
+    for got, want in ((got_lse, lse), (got_delta, delta)):
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert torch.equal(got, want)
+
+
+_DQ_CASES = [(s, causal) for s in (128, 192) for causal in (False, True)]
+
+
+@pytest.mark.parametrize("s, causal", _DQ_CASES, ids=[f"s{s}-{c}" for s, c in _DQ_CASES])
+def test_bwd_dq_wrapper_matches_byteps_tpu_pallas_interpret(s, causal):
+    """The dQ wrapper on CPU tensors (its plain version) against the dQ of
+    byteps_tpu's Pallas backward in interpret mode, dh = 64, block 64, with a
+    non-zero lse cotangent folded into Δ as both packages do; both take the
+    Pallas forward's O and lse."""
+    q, k, v, do, dlse = _inputs((1, 2, s, 64), seed=s + causal)
+    scale = 64 ** -0.5
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jfa._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
+    want = jfa._flash_backward(jq, jk, jv, o, lse, jdo, causal, scale, 64, 64, True,
+                               dlse=jnp.asarray(dlse))[0]
+    o_t = torch.tensor(np.asarray(o))
+    lse_t = torch.tensor(np.asarray(lse)[..., 0]).view(1, 2, s)
+    delta = (torch.tensor(do) * o_t).sum(-1) - torch.tensor(dlse)
+    got = tfa.flash_bwd_dq(*map(torch.tensor, (q, k, v, do)), lse_t, delta, causal, scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert tfa.launches["flash_bwd_dq"] == 0
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
