@@ -1171,141 +1171,186 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// K2 for bf16, dh = 64.  A block owns one (bh, 128-row query tile), each of
-// its two warpgroups 64 of the rows; 64-row K/V tiles stream through:
+// K2 for bf16, dh = 64.  Each block walks (bh, 128-row query block) tiles
+// idx = blockIdx.x, + gridDim.x, ... (tile_at's order), each of its two
+// consumer warpgroups owning 64 of a tile's rows; 64-row K/V tiles stream
+// through:
 //   S = Q K^T, dP = dO V^T         wgmma, both operands K-major
 //   P = exp2(S scale log2 e - lse log2 e), dS = P (dP - delta), in registers
 //   dQ += dS K                     wgmma, A = dS from registers, B = the same
 //                                  K tile read MN-major
 // lse and delta belong to the thread's own rows (r, r + 8 in the
-// accumulator layout above), so they sit in four registers.  Thread 0 issues
-// the TMA copies.  mbarriers: q_full (Q and dO), kv_full (K and V),
-// kv_empty (every thread arrives, count 256).
-constexpr uint32_t DQ_BARS = 2 * Q_BYTES + 2 * KV_BYTES;
-constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * 3;
+// accumulator layout above), so they sit in four registers.  Three
+// warpgroups a block.  The first is the producer: one thread issues the TMA
+// copies of each tile's Q and dO and of a ring of STAGES K/V tiles that
+// runs on from one tile into the next.  The other two are consumers; they
+// take the producer's registers (setmaxnreg).  mbarriers: q_full / q_empty
+// (both consumers are done with Q and dO), and per stage k_full, v_full /
+// kv_empty; every consumer thread arrives on the empty ones (count 256).
+constexpr uint32_t DQ_BARS = 2 * Q_BYTES + 2 * STAGES * KV_BYTES;
+constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (2 + 3 * STAGES);
+// registers: 65,536 / 384 threads = 168 a thread at launch; the producer
+// drops to 24 and the consumers take the rest, 240, for S, dP, dQ (32 f32
+// each) and the packed dS
+constexpr int DQ_CONSUMER_REGS = (65536 / 384 / 8 * 8 * 384 - 24 * 128) / 256 / 8 * 8;
 
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int S, int causal, float scale, float scale_log2) {
+                   bf16* __restrict__ dq, int S, int bh_count, int causal, float scale,
+                   float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sdo = sq + Q_BYTES, sk = sdo + Q_BYTES, sv = sk + KV_BYTES;
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u, sdo = sq + Q_BYTES;
   const uint32_t bars = sq + DQ_BARS;
-  const uint32_t q_full = bars, kv_full = bars + 8, kv_empty = bars + 16;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto sk = [&](int st) { return sq + 2 * Q_BYTES + st * 2 * KV_BYTES; };
+  auto sv = [&](int st) { return sk(st) + KV_BYTES; };
+  auto k_full = [&](int st) { return bars + 16 + 24 * st; };
+  auto v_full = [&](int st) { return bars + 24 + 24 * st; };
+  auto kv_empty = [&](int st) { return bars + 32 + 24 * st; };
 
-  const Tile t = tile_at(blockIdx.x, (S + BM - 1) / BM, S, causal);
-  const int q0 = t.qb * BM;
+  const int nq = (S + BM - 1) / BM, ntiles = nq * bh_count;
+
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    mbar_init(kv_full, 1);
-    mbar_init(kv_empty, 256);
+    mbar_init(q_empty, 256);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(kv_empty(st), 256);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(q_full, 2 * Q_BYTES);
-    tma_rows(sq, &tq, q_full, q0, t.bh);
-    tma_rows(sdo, &tdo, q_full, q0, t.bh);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    int n = 0, used = 0;                   // K/V tiles issued; query tiles begun
+    for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
+      const Tile t = tile_at(idx, nq, S, causal);
+      if (used > 0) mbar_wait(q_empty, (used - 1) & 1);
+      mbar_expect_tx(q_full, 2 * Q_BYTES);
+      tma_rows(sq, &tq, q_full, t.qb * BM, t.bh);
+      tma_rows(sdo, &tdo, q_full, t.qb * BM, t.bh);
+      for (int kb = 0; kb < t.kend; ++kb, ++n) {
+        const int st = n % STAGES;
+        if (n >= STAGES) mbar_wait(kv_empty(st), ((n / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), KV_BYTES);
+        tma_rows(sk(st), &tk, k_full(st), kb * BN, t.bh);
+        mbar_expect_tx(v_full(st), KV_BYTES);
+        tma_rows(sv(st), &tv, v_full(st), kb * BN, t.bh);
+      }
+    }
+    return;
   }
 
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
-  const int w0 = q0 + wg * 64;                             // this warpgroup's first row
-  const int r0 = w0 + (tid / 32) * 16 + lane / 4;          // this thread's rows: r0, r0 + 8
-  const int cq = 2 * (lane % 4);                           // its first column in each group of 8
-  float lse2[2], dl[2];                                    // lse log2 e and delta of its rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 8 * i;
-    lse2[i] = row < S ? lse[(size_t)t.bh * S + row] * LOG2E : 0.f;
-    dl[i] = row < S ? delta[(size_t)t.bh * S + row] : 0.f;
-  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DQ_CONSUMER_REGS) : "memory");
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+  const int rw = wg * 64 + (tid / 32) * 16 + lane / 4;   // this thread's rows in a tile: rw, rw + 8
+  const int cq = 2 * (lane % 4);                         // its first column in each group of 8
   // Q, dO, and K and V as B of S and dP: K-major, 8-row groups 1024 bytes
   // apart, a k16 step 32 bytes.  K as B of dQ: MN-major (dh contiguous), a
   // k16 step is 16 keys, 2048 bytes.
   const uint64_t dq_a = desc_sw128(sq + wg * 64 * ROW, 16, 1024);
   const uint64_t ddo_a = desc_sw128(sdo + wg * 64 * ROW, 16, 1024);
-  const uint64_t dk = desc_sw128(sk, 16, 1024), dv = desc_sw128(sv, 16, 1024);
-  const uint64_t dk_mn = desc_sw128(sk, 1024, 1024);
 
-  float acc[DH / 2];
+  int n = 0, used = 0;
+  for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
+    const Tile t = tile_at(idx, nq, S, causal);
+    const int w0 = t.qb * BM + wg * 64, r0 = t.qb * BM + rw;
+    float lse2[2], dl[2];                                  // lse log2 e and delta of its rows
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-  mbar_wait(q_full, 0);
-  for (int kb = 0; kb < t.kend; ++kb) {
-    if (threadIdx.x == 0) {
-      if (kb > 0) mbar_wait(kv_empty, (kb - 1) & 1);
-      mbar_expect_tx(kv_full, 2 * KV_BYTES);
-      tma_rows(sk, &tk, kv_full, kb * BN, t.bh);
-      tma_rows(sv, &tv, kv_full, kb * BN, t.bh);
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      lse2[i] = row < S ? lse[(size_t)t.bh * S + row] * LOG2E : 0.f;
+      dl[i] = row < S ? delta[(size_t)t.bh * S + row] : 0.f;
     }
-    // a warpgroup whose rows are all past S or, if causal, all before the
-    // tile's first key skips its products (the other one never does); it
-    // still waits for the tile, so that its arrival on kv_empty counts for
-    // this tile and not a later one
-    mbar_wait(kv_full, kb & 1);
-    const int c0 = kb * BN;
-    if (w0 < S && (!causal || c0 <= w0 + 63)) {
-      float s[BN / 2], dp[BN / 2];
+    float acc[DH / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
-      wg_fence();
-      fence_regs(s);
-      fence_regs(dp);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq_a + 2 * kk, dk + 2 * kk, kk);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, ddo_a + 2 * kk, dv + 2 * kk, kk);
-      wg_commit();
-      wg_wait0();
-      fence_regs(s);
-      fence_regs(dp);
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
 
-      // dS = P (dP - delta) in registers; columns past S, rows past S and, if
-      // causal, columns after the row have P exactly 0 (rows past S arrive as
-      // zeros, and lse = 0 there would give P = 1)
-      const bool edge = c0 + BN > S || w0 + 64 > S || (causal && c0 + BN - 1 > w0);
+    mbar_wait(q_full, used & 1);
+    for (int kb = 0; kb < t.kend; ++kb, ++n) {
+      const int st = n % STAGES;
+      const uint32_t phase = (n / STAGES) & 1;
+      // a warpgroup whose rows are all past S or, if causal, all before the
+      // tile's first key skips its products (the other one never does); it
+      // still waits for K, so that its arrival on kv_empty counts for this
+      // use of the stage and not a later one
+      mbar_wait(k_full(st), phase);
+      const int c0 = kb * BN;
+      if (w0 < S && (!causal || c0 <= w0 + 63)) {
+        float s[BN / 2], dp[BN / 2];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+        for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+        const uint64_t dk = desc_sw128(sk(st), 16, 1024), dv = desc_sw128(sv(st), 16, 1024);
+        // no wait between the products of one commit group: ptxas
+        // serializes wgmma across the divergent loop of a wait
+        mbar_wait(v_full(st), phase);
+        wg_fence();
+        fence_regs(s);
+        fence_regs(dp);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq_a + 2 * kk, dk + 2 * kk, kk);
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * i + c, col = c0 + 8 * j + cq + c, row = r0 + 8 * i;
-            float p = ex2(fmaf(s[e], scale_log2, -lse2[i]));
-            if (edge && (col >= S || row >= S || (causal && col > row))) p = 0.f;
-            dp[e] = p * (dp[e] - dl[i]);
-          }
-      // bf16 pairs: the accumulator's k16 column slices are wgmma's register A
-      uint32_t da[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, ddo_a + 2 * kk, dv + 2 * kk, kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(s);
+        fence_regs(dp);
+        if (kb == t.kend - 1) mbar_arrive(q_empty);   // the producer may load the next Q and dO
 
-      // dQ += dS K, dQ staying in registers
-      wg_fence();
-      fence_regs(acc);
+        // dS = P (dP - delta) in registers; columns past S, rows past S and,
+        // if causal, columns after the row have P exactly 0 (rows past S
+        // arrive as zeros, and lse = 0 there would give P = 1)
+        const bool edge = c0 + BN > S || w0 + 64 > S || (causal && c0 + BN - 1 > w0);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, da[kk], dk_mn + kk * (16 * ROW >> 4));
-      wg_commit();
-      wg_wait0();
-      fence_regs(acc);
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * i + c, col = c0 + 8 * j + cq + c, row = r0 + 8 * i;
+              float p = ex2(fmaf(s[e], scale_log2, -lse2[i]));
+              if (edge && (col >= S || row >= S || (causal && col > row))) p = 0.f;
+              dp[e] = p * (dp[e] - dl[i]);
+            }
+        // bf16 pairs: the accumulator's k16 column slices are wgmma's register A
+        uint32_t da[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+
+        // dQ += dS K, dQ staying in registers
+        const uint64_t dk_mn = desc_sw128(sk(st), 1024, 1024);
+        wg_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, da[kk], dk_mn + kk * (16 * ROW >> 4));
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      } else if (kb == t.kend - 1) {
+        mbar_arrive(q_empty);
+      }
+      mbar_arrive(kv_empty(st));           // the stage goes back to the producer
     }
-    mbar_arrive(kv_empty);
-  }
 
-  // dQ scale in bf16, for rows < S
+    // dQ scale in bf16, for rows < S
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 8 * i;
-    if (row >= S) continue;
-    bf16* out = dq + ((size_t)t.bh * S + row) * DH + cq;
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (row >= S) continue;
+      bf16* out = dq + ((size_t)t.bh * S + row) * DH + cq;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+    }
   }
 }
 
@@ -1626,8 +1671,8 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   const cudaError_t e = set_smem(flash_bwd_dq_wgmma, DQ_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = (S + BM - 1) / BM * bh;
-  flash_bwd_dq_wgmma<<<tiles, 256, DQ_SMEM, st>>>(tq, tk, tv, tdo, (const float*)lse,
-                                                  (const float*)delta, (bf16*)dq, S, causal,
+  flash_bwd_dq_wgmma<<<tiles, 384, DQ_SMEM, st>>>(tq, tk, tv, tdo, (const float*)lse,
+                                                  (const float*)delta, (bf16*)dq, S, bh, causal,
                                                   scale, scale * LOG2E);
   return cudaGetLastError();
 }
