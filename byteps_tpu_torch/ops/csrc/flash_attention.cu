@@ -1661,6 +1661,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
+// Non-causal tiles are equal, and a persistent grid of one block per SM
+// walks them, the K/V ring running on from one tile into the next; causal
+// ones are not (a head's last query block sees every key tile, its first
+// one or two), so there each block takes one tile, the longest of a head
+// first, and the block scheduler balances them (as for K3 below).
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, int S, int causal,
                           float scale, int bh, cudaStream_t st) {
@@ -1671,9 +1676,9 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   const cudaError_t e = set_smem(flash_bwd_dq_wgmma, DQ_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = (S + BM - 1) / BM * bh;
-  flash_bwd_dq_wgmma<<<tiles, 384, DQ_SMEM, st>>>(tq, tk, tv, tdo, (const float*)lse,
-                                                  (const float*)delta, (bf16*)dq, S, bh, causal,
-                                                  scale, scale * LOG2E);
+  flash_bwd_dq_wgmma<<<causal ? tiles : std::min(tiles, sm_count()), 384, DQ_SMEM, st>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, S, bh, causal, scale,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
