@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernels of byteps_tpu/ops/flash_attention.py:
 //   hop::flash_fwd_wgmma, flash_fwd_*         <- _fwd_kernel_factory      (K1)
-//   flash_bwd_dq_*                            <- _bwd_dq_kernel_factory   (K2)
+//   hop::flash_bwd_dq_wgmma, flash_bwd_dq_*   <- _bwd_dq_kernel_factory   (K2)
 //   hop::flash_bwd_dkv_wgmma, flash_bwd_dkv_* <- _bwd_dkv_kernel_factory  (K3)
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are (BH, S, DH) row-major in float or
@@ -54,6 +54,38 @@
 // bf16 K1 for dh = 32 and 128 keeps the WMMA kernel below (flash_fwd_bf16),
 // by a static dispatch on dh: a given dh always takes the same kernel.
 //
+// K2 for bf16 and dh = 64: hop::flash_bwd_dq_wgmma.  What bounds it: at
+// B = 32, H = 16, S = 512 it must do 51.5 GFLOP (three products), 0.0521 ms
+// at 989 TFLOP/s, and move 170 MB (q, k, v, dO, lse, delta read once, dQ
+// written once), 0.0507 ms at 3.35 TB/s: operations bind, by a hair, and
+// the 134M exponentials (one per score, as in K1 and K3) take ~0.03 ms on
+// the MUFU units.  The design:
+//   1. S = Q K^T and dP = dO V^T run as wgmma with both operands K-major in
+//      shared memory, as K1's S does; no transposed scores are needed.  P
+//      and dS = P (dP - delta) stay in registers: rounded to bf16 pairs k16
+//      slice by k16 slice, dS is wgmma's register A for dQ += dS K, with the
+//      same K tile read again as B, MN-major.  dQ stays in registers across
+//      the key tiles and is written once, in bf16.
+//   2. lse and delta are a thread's own two rows in the accumulator layout,
+//      so they come into four registers once a tile: no tensor map, and so
+//      no alignment condition on them.
+//   3. A block owns 128 query rows, 64 for each of two warpgroups, and its
+//      threads need 126 registers (S, dP and dQ, 32 f32 each, and the packed
+//      dS), so two blocks share an SM: one block's exponentials, dS
+//      arithmetic and waits overlap the other's products.  Thread 0 issues
+//      the TMA copies: Q and dO once, and the 64-row K/V tiles into a ring
+//      of 3 stages one tile ahead of the products.  K1's and K3's layout, a
+//      producer warpgroup whose registers go to the consumers (setmaxnreg),
+//      leaves room for one block an SM, and was slower here, persistent or
+//      not (PERF.md keeps the times).
+//   4. A block per (bh, 128-row query block) tile; under a causal mask a
+//      head's longest tile comes first.
+//   5. No atomics (FlashAttention-3 adds dQ inside the dK/dV kernel with
+//      them): each block owns its dQ rows, so two launches give the same
+//      bits.
+// bf16 K2 for dh = 32 and 128 keeps the WMMA kernel below
+// (flash_bwd_dq_bf16), by the same static dispatch.
+//
 // K3 for bf16 and dh = 64: hop::flash_bwd_dkv_wgmma.  What bounds it: at
 // B = 32, H = 16, S = 512 it must do 68.7 GFLOP (four products), 0.0695 ms
 // at 989 TFLOP/s, and move 203 MB (q, k, v, dO, lse, delta read once, dK
@@ -87,15 +119,13 @@
 // layouts this one was chosen over.  bf16 K3 for dh = 32 and 128 keeps the
 // WMMA kernel below (flash_bwd_dkv_bf16), by the same static dispatch.
 //
-// K2, and K1 and K3 for bf16 dh = 32 and 128: the products run on the tensor
+// K1, K2 and K3 for bf16 dh = 32 and 128: the products run on the tensor
 // cores as 16x16x16 bf16 WMMA tiles (mma.sync) with f32 accumulators; one
 // block of 4 warps per (bh, 64-row query block), or key block for dK/dV,
 // each warp owning 16 rows.  Tiles are loaded synchronously; scores go
 // through shared memory in f32 for the softmax; P and dS are rounded to
 // bf16 for the second product, as the plain version's bf16 path would not,
-// which is within the bf16 tolerance.  At S = 512, dh = 64 K2's work sits
-// near the H100's ridge point; the round trips through shared memory and
-// the synchronous loads keep it far from it.
+// which is within the bf16 tolerance.
 //
 // f32 (all three): the products run on the FMA units in f32 (67 TFLOP/s),
 // since TF32 or bf16 tiles would not hold the f32 tolerance; 8 warps, the
@@ -647,7 +677,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K2 on the tensor cores; dQ accumulates in registers across key blocks.
+// K2 on the tensor cores for bf16 dh = 32 and 128 (dh = 64 takes
+// hop::flash_bwd_dq_wgmma); dQ accumulates in registers across key blocks.
 template <int DH>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -1171,186 +1202,157 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// K2 for bf16, dh = 64.  Each block walks (bh, 128-row query block) tiles
-// idx = blockIdx.x, + gridDim.x, ... (tile_at's order), each of its two
-// consumer warpgroups owning 64 of a tile's rows; 64-row K/V tiles stream
-// through:
+// K2 for bf16, dh = 64.  A block owns one (bh, 128-row query tile), each of
+// its two warpgroups 64 of the rows; 64-row K/V tiles stream through:
 //   S = Q K^T, dP = dO V^T         wgmma, both operands K-major
 //   P = exp2(S scale log2 e - lse log2 e), dS = P (dP - delta), in registers
 //   dQ += dS K                     wgmma, A = dS from registers, B = the same
 //                                  K tile read MN-major
 // lse and delta belong to the thread's own rows (r, r + 8 in the
-// accumulator layout above), so they sit in four registers.  Three
-// warpgroups a block.  The first is the producer: one thread issues the TMA
-// copies of each tile's Q and dO and of a ring of STAGES K/V tiles that
-// runs on from one tile into the next.  The other two are consumers; they
-// take the producer's registers (setmaxnreg).  mbarriers: q_full / q_empty
-// (both consumers are done with Q and dO), and per stage k_full, v_full /
-// kv_empty; every consumer thread arrives on the empty ones (count 256).
+// accumulator layout above), so they sit in four registers.  Thread 0
+// issues the TMA copies: Q and dO once, and the K/V tiles into a ring of
+// STAGES stages one tile ahead of the products, so that a tile's load
+// overlaps the tile before it; the stage it refills was freed two tiles
+// back, so the two warpgroups seldom wait for each other.  There is no
+// producer warpgroup: a block's 256 threads fit in 128 registers each, so
+// two blocks share an SM and each one's exponentials and waits overlap the
+// other's products.  mbarriers: q_full (Q and dO), and per stage kv_full
+// (K and V) / kv_empty (every thread arrives, count 256).
 constexpr uint32_t DQ_BARS = 2 * Q_BYTES + 2 * STAGES * KV_BYTES;
-constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (2 + 3 * STAGES);
-// registers: 65,536 / 384 threads = 168 a thread at launch; the producer
-// drops to 24 and the consumers take the rest, 240, for S, dP, dQ (32 f32
-// each) and the packed dS
-constexpr int DQ_CONSUMER_REGS = (65536 / 384 / 8 * 8 * 384 - 24 * 128) / 256 / 8 * 8;
+constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (1 + 2 * STAGES);
 
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(256, 2)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int S, int bh_count, int causal, float scale,
-                   float scale_log2) {
+                   bf16* __restrict__ dq, int S, int causal, float scale, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u, sdo = sq + Q_BYTES;
-  const uint32_t bars = sq + DQ_BARS;
-  const uint32_t q_full = bars, q_empty = bars + 8;
+  const uint32_t bars = sq + DQ_BARS, q_full = bars;
   auto sk = [&](int st) { return sq + 2 * Q_BYTES + st * 2 * KV_BYTES; };
   auto sv = [&](int st) { return sk(st) + KV_BYTES; };
-  auto k_full = [&](int st) { return bars + 16 + 24 * st; };
-  auto v_full = [&](int st) { return bars + 24 + 24 * st; };
-  auto kv_empty = [&](int st) { return bars + 32 + 24 * st; };
+  auto kv_full = [&](int st) { return bars + 8 + 16 * st; };
+  auto kv_empty = [&](int st) { return bars + 16 + 16 * st; };
 
-  const int nq = (S + BM - 1) / BM, ntiles = nq * bh_count;
-
+  const Tile t = tile_at(blockIdx.x, (S + BM - 1) / BM, S, causal);
+  const int q0 = t.qb * BM;
+  const CUtensorMap *mk = &tk, *mv = &tv;
+  // K/V tile n into its stage, once every thread is done with tile n - STAGES
+  auto load_kv = [&](int n) {
+    const int st = n % STAGES;
+    if (n >= STAGES) mbar_wait(kv_empty(st), ((n / STAGES) & 1) ^ 1);
+    mbar_expect_tx(kv_full(st), 2 * KV_BYTES);
+    tma_rows(sk(st), mk, kv_full(st), n * BN, t.bh);
+    tma_rows(sv(st), mv, kv_full(st), n * BN, t.bh);
+  };
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    mbar_init(q_empty, 256);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
+      mbar_init(kv_full(st), 1);
       mbar_init(kv_empty(st), 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x != 0) return;
-    int n = 0, used = 0;                   // K/V tiles issued; query tiles begun
-    for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
-      const Tile t = tile_at(idx, nq, S, causal);
-      if (used > 0) mbar_wait(q_empty, (used - 1) & 1);
-      mbar_expect_tx(q_full, 2 * Q_BYTES);
-      tma_rows(sq, &tq, q_full, t.qb * BM, t.bh);
-      tma_rows(sdo, &tdo, q_full, t.qb * BM, t.bh);
-      for (int kb = 0; kb < t.kend; ++kb, ++n) {
-        const int st = n % STAGES;
-        if (n >= STAGES) mbar_wait(kv_empty(st), ((n / STAGES) & 1) ^ 1);
-        mbar_expect_tx(k_full(st), KV_BYTES);
-        tma_rows(sk(st), &tk, k_full(st), kb * BN, t.bh);
-        mbar_expect_tx(v_full(st), KV_BYTES);
-        tma_rows(sv(st), &tv, v_full(st), kb * BN, t.bh);
-      }
-    }
-    return;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * Q_BYTES);
+    tma_rows(sq, &tq, q_full, q0, t.bh);
+    tma_rows(sdo, &tdo, q_full, q0, t.bh);
+    load_kv(0);
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DQ_CONSUMER_REGS) : "memory");
-  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
-  const int rw = wg * 64 + (tid / 32) * 16 + lane / 4;   // this thread's rows in a tile: rw, rw + 8
-  const int cq = 2 * (lane % 4);                         // its first column in each group of 8
-  // Q, dO, and K and V as B of S and dP: K-major, 8-row groups 1024 bytes
-  // apart, a k16 step 32 bytes.  K as B of dQ: MN-major (dh contiguous), a
-  // k16 step is 16 keys, 2048 bytes.
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int w0 = q0 + wg * 64;                             // this warpgroup's first row
+  const int r0 = w0 + (tid / 32) * 16 + lane / 4;          // this thread's rows: r0, r0 + 8
+  const int cq = 2 * (lane % 4);                           // its first column in each group of 8
+  float lse2[2], dl[2];                                    // lse log2 e and delta of its rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse2[i] = row < S ? lse[(size_t)t.bh * S + row] * LOG2E : 0.f;
+    dl[i] = row < S ? delta[(size_t)t.bh * S + row] : 0.f;
+  }
+  // Q and dO as A, K and V as B of S and dP: K-major, 8-row groups 1024
+  // bytes apart, a k16 step 32 bytes.  K as B of dQ: MN-major (dh
+  // contiguous), a k16 step is 16 keys, 2048 bytes.
   const uint64_t dq_a = desc_sw128(sq + wg * 64 * ROW, 16, 1024);
   const uint64_t ddo_a = desc_sw128(sdo + wg * 64 * ROW, 16, 1024);
 
-  int n = 0, used = 0;
-  for (int idx = blockIdx.x; idx < ntiles; idx += gridDim.x, ++used) {
-    const Tile t = tile_at(idx, nq, S, causal);
-    const int w0 = t.qb * BM + wg * 64, r0 = t.qb * BM + rw;
-    float lse2[2], dl[2];                                  // lse log2 e and delta of its rows
+  float acc[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + 8 * i;
-      lse2[i] = row < S ? lse[(size_t)t.bh * S + row] * LOG2E : 0.f;
-      dl[i] = row < S ? delta[(size_t)t.bh * S + row] : 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  for (int kb = 0; kb < t.kend; ++kb) {
+    if (threadIdx.x == 0 && kb + 1 < t.kend) load_kv(kb + 1);
+    const int st = kb % STAGES;
+    // a warpgroup whose rows are all past S or, if causal, all before the
+    // tile's first key skips its products (the other one never does); it
+    // still waits for the tile, so that its arrival on kv_empty counts for
+    // this use of the stage and not a later one
+    mbar_wait(kv_full(st), (kb / STAGES) & 1);
+    const int c0 = kb * BN;
+    if (w0 < S && (!causal || c0 <= w0 + 63)) {
+      float s[BN / 2], dp[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+      const uint64_t dk = desc_sw128(sk(st), 16, 1024), dv = desc_sw128(sv(st), 16, 1024);
+      wg_fence();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq_a + 2 * kk, dk + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, ddo_a + 2 * kk, dv + 2 * kk, kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // dS = P (dP - delta) in registers; columns past S, rows past S and, if
+      // causal, columns after the row have P exactly 0 (rows past S arrive as
+      // zeros, and lse = 0 there would give P = 1)
+      const bool edge = c0 + BN > S || w0 + 64 > S || (causal && c0 + BN - 1 > w0);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c, col = c0 + 8 * j + cq + c, row = r0 + 8 * i;
+            float p = ex2(fmaf(s[e], scale_log2, -lse2[i]));
+            if (edge && (col >= S || row >= S || (causal && col > row))) p = 0.f;
+            dp[e] = p * (dp[e] - dl[i]);
+          }
+      // bf16 pairs: the accumulator's k16 column slices are wgmma's register A
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+
+      // dQ += dS K, dQ staying in registers
+      const uint64_t dk_mn = desc_sw128(sk(st), 1024, 1024);
+      wg_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, da[kk], dk_mn + kk * (16 * ROW >> 4));
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
     }
-    float acc[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    mbar_arrive(kv_empty(st));
+  }
 
-    mbar_wait(q_full, used & 1);
-    for (int kb = 0; kb < t.kend; ++kb, ++n) {
-      const int st = n % STAGES;
-      const uint32_t phase = (n / STAGES) & 1;
-      // a warpgroup whose rows are all past S or, if causal, all before the
-      // tile's first key skips its products (the other one never does); it
-      // still waits for K, so that its arrival on kv_empty counts for this
-      // use of the stage and not a later one
-      mbar_wait(k_full(st), phase);
-      const int c0 = kb * BN;
-      if (w0 < S && (!causal || c0 <= w0 + 63)) {
-        float s[BN / 2], dp[BN / 2];
+  // dQ scale in bf16, for rows < S
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
-        const uint64_t dk = desc_sw128(sk(st), 16, 1024), dv = desc_sw128(sv(st), 16, 1024);
-        // no wait between the products of one commit group: ptxas
-        // serializes wgmma across the divergent loop of a wait
-        mbar_wait(v_full(st), phase);
-        wg_fence();
-        fence_regs(s);
-        fence_regs(dp);
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= S) continue;
+    bf16* out = dq + ((size_t)t.bh * S + row) * DH + cq;
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, dq_a + 2 * kk, dk + 2 * kk, kk);
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(dp, ddo_a + 2 * kk, dv + 2 * kk, kk);
-        wg_commit();
-        wg_wait0();
-        fence_regs(s);
-        fence_regs(dp);
-        if (kb == t.kend - 1) mbar_arrive(q_empty);   // the producer may load the next Q and dO
-
-        // dS = P (dP - delta) in registers; columns past S, rows past S and,
-        // if causal, columns after the row have P exactly 0 (rows past S
-        // arrive as zeros, and lse = 0 there would give P = 1)
-        const bool edge = c0 + BN > S || w0 + 64 > S || (causal && c0 + BN - 1 > w0);
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int e = 4 * j + 2 * i + c, col = c0 + 8 * j + cq + c, row = r0 + 8 * i;
-              float p = ex2(fmaf(s[e], scale_log2, -lse2[i]));
-              if (edge && (col >= S || row >= S || (causal && col > row))) p = 0.f;
-              dp[e] = p * (dp[e] - dl[i]);
-            }
-        // bf16 pairs: the accumulator's k16 column slices are wgmma's register A
-        uint32_t da[BN / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
-
-        // dQ += dS K, dQ staying in registers
-        const uint64_t dk_mn = desc_sw128(sk(st), 1024, 1024);
-        wg_fence();
-        fence_regs(acc);
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, da[kk], dk_mn + kk * (16 * ROW >> 4));
-        wg_commit();
-        wg_wait0();
-        fence_regs(acc);
-      } else if (kb == t.kend - 1) {
-        mbar_arrive(q_empty);
-      }
-      mbar_arrive(kv_empty(st));           // the stage goes back to the producer
-    }
-
-    // dQ scale in bf16, for rows < S
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + 8 * i;
-      if (row >= S) continue;
-      bf16* out = dq + ((size_t)t.bh * S + row) * DH + cq;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
-    }
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 }
 
@@ -1661,11 +1663,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-// Non-causal tiles are equal, and a persistent grid of one block per SM
-// walks them, the K/V ring running on from one tile into the next; causal
-// ones are not (a head's last query block sees every key tile, its first
-// one or two), so there each block takes one tile, the longest of a head
-// first, and the block scheduler balances them (as for K3 below).
+// A block per tile, two on an SM; under a causal mask a head's longest tile
+// comes first.
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, int S, int causal,
                           float scale, int bh, cudaStream_t st) {
@@ -1676,9 +1675,9 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   const cudaError_t e = set_smem(flash_bwd_dq_wgmma, DQ_SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = (S + BM - 1) / BM * bh;
-  flash_bwd_dq_wgmma<<<causal ? tiles : std::min(tiles, sm_count()), 384, DQ_SMEM, st>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, S, bh, causal, scale,
-      scale * LOG2E);
+  flash_bwd_dq_wgmma<<<tiles, 256, DQ_SMEM, st>>>(tq, tk, tv, tdo, (const float*)lse,
+                                                  (const float*)delta, (bf16*)dq, S, causal,
+                                                  scale, scale * LOG2E);
   return cudaGetLastError();
 }
 

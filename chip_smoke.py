@@ -873,9 +873,9 @@ def main() -> None:
                      "per SM; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
         "flash_bwd_dq": "bf16 dh=64: wgmma (S = Q K^T and dP = dO V^T from shared memory, "
                         "dQ += dS K with dS from registers, K read K-major and MN-major) "
-                        "fed by TMA, warp-specialized (producer warpgroup, ring of 3 K/V "
-                        "stages), 128 query rows a block, 1 block per SM, persistent when "
-                        "non-causal; bf16 dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
+                        "fed by TMA, ring of 3 K/V stages one tile ahead, thread 0 issues, "
+                        "128 query rows a block, 2 blocks per SM, a block per tile; bf16 "
+                        "dh=32 and dh=128: WMMA (mma.sync); f32: FMA",
         "flash_bwd_dkv": "bf16 dh=64: wgmma (S^T = K Q^T and dP^T = V dO^T from shared "
                          "memory, dV += P^T dO and dK += dS^T Q with P^T and dS^T from "
                          "registers, Q and dO read K-major and MN-major) fed by TMA, "
