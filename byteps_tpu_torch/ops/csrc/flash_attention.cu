@@ -1511,7 +1511,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constan
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = q0 + 8 * j + cq + c;
-          const float lc = lse_s[8 * j + cq + c] * 1.4426950408889634f;
+          const float lc = lse_s[8 * j + cq + c] * LOG2E;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int e = 4 * j + 2 * i + c, key = kr + 8 * i;
@@ -1659,7 +1659,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   if (e != cudaSuccess) return e;
   const int tiles = (S + BM - 1) / BM * bh;
   flash_fwd_wgmma<<<std::min(tiles, BLOCKS * sm_count()), 384, SMEM, st>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal, scale * 1.4426950408889634f);
+      tq, tk, tv, (bf16*)o, (float*)lse, S, bh, causal, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1698,7 +1698,7 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   const int tiles = (S + DKV_KEYS - 1) / DKV_KEYS * bh;
   flash_bwd_dkv_wgmma<<<causal ? tiles : std::min(tiles, sm_count()), 384, DKV_SMEM, st>>>(
       tq, tk, tv, tdo, tl, td, (bf16*)dk, (bf16*)dv, S, bh, causal, scale,
-      scale * 1.4426950408889634f);
+      scale * LOG2E);
   return cudaGetLastError();
 }
 

@@ -13,17 +13,19 @@ Three kernels in ``csrc/flash_attention.cu`` replace the Pallas kernels of
 
 bf16 inputs (the training path) run their products on the tensor cores
 with f32 accumulators.  For dh = 64, the head dim of the models the port
-supports, the forward and the dK/dV kernel are built for Hopper: ``wgmma``
-fed by TMA copies under mbarriers, a producer warpgroup and two consumer
-warpgroups, on a persistent grid.  The forward keeps its scores,
-probabilities and output in registers; dK/dV computes the scores
-transposed, so that Pᵀ and dSᵀ stay in registers as the A operand of
-dV += Pᵀ·dO and dK += dSᵀ·Q.  The dQ kernel, and the forward and dK/dV
-for dh = 32 and 128, use WMMA tiles.  f32 inputs run all three on the
-f32 FMA units, which hold the f32 tolerance that TF32 or bf16 tiles would
-not.  What bounds each on the H100, and what the design does about it, is
-noted at the top of the CUDA source; no S×S intermediate reaches device
-memory.
+supports, all three kernels are built for Hopper: ``wgmma`` fed by TMA
+copies under mbarriers.  The forward and dK/dV have a producer warpgroup
+and two consumer warpgroups on a persistent grid; dQ has two warpgroups
+and a ring of K/V tiles that one thread fills, two blocks an SM.  The
+forward keeps its scores, probabilities and output in registers; dQ keeps
+S, dP and dS in registers, dS as the A operand of dQ += dS·K; dK/dV
+computes the scores transposed, so that Pᵀ and dSᵀ stay in registers as
+the A operand of dV += Pᵀ·dO and dK += dSᵀ·Q.  For dh = 32 and 128 the
+three use WMMA tiles.  f32 inputs
+run all three on the f32 FMA units, which hold the f32 tolerance that
+TF32 or bf16 tiles would not.  What bounds each on the H100, and what the
+design does about it, is noted at the top of the CUDA source; no S×S
+intermediate reaches device memory.
 
 Dispatch is by where the tensors lie: a CPU tensor takes the plain version
 (one (S, S) score matrix, :func:`_dense_reference_lse`, and the matching

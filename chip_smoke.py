@@ -834,7 +834,9 @@ def train_distributed(card: str) -> int:
     return launches["onebit_pack"]
 
 
-def main() -> None:
+def main_path_setup() -> str:
+    """The settings every measured run starts from: f32 matmuls in full
+    precision.  Prints and returns the card's name and power limit."""
     import torch
 
     if not torch.cuda.is_available():
@@ -846,6 +848,13 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card, flush=True)
+    return card
+
+
+def main() -> None:
+    import torch
+
+    card = main_path_setup()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}", flush=True)
 

@@ -75,10 +75,12 @@ def _port_value_and_grads(q, k, v, do, dlse, causal, fn=None):
 
 
 # (S, dh, block, causal): dh 32, and dh 64 (the head dim of the bf16 Hopper
-# kernels K1 and K3) at one and two of K3's 64-row query tiles
+# kernels K1-K3) at one and two of K3's 64-row query tiles, and with block 64
+# at one and at one and a half of K2's 128-row query tiles
 _PALLAS_CASES = [
     *((128, 32, block, causal) for causal in (False, True) for block in (16, 64)),
     *((s, 64, 32, causal) for s in (64, 128) for causal in (False, True)),
+    *((s, 64, 64, causal) for s in (128, 192) for causal in (False, True)),
 ]
 
 
@@ -88,7 +90,9 @@ _PALLAS_CASES = [
 )
 def test_matches_byteps_tpu_pallas_interpret(s, dh, block, causal):
     """O, lse, dQ, dK, dV — with a non-zero lse cotangent — against the
-    Pallas kernels in interpret mode."""
+    Pallas kernels in interpret mode; the wrappers' backward on CPU tensors
+    (flash_bwd_dq and flash_bwd_dkv, their plain versions) takes Δ with
+    the cotangent folded in, as _flash_backward does."""
     args = _inputs((1, 2, s, dh), seed=block + causal)
     want = _jax_value_and_grads(*args, causal, block)
     got = _port_value_and_grads(*args, causal)
@@ -203,29 +207,6 @@ def test_row_stats_are_aligned_for_the_kernels():
     for got, want in ((got_lse, lse), (got_delta, delta)):
         assert got.data_ptr() % 16 == 0 and got.is_contiguous()
         assert torch.equal(got, want)
-
-
-_DQ_CASES = [(s, causal) for s in (128, 192) for causal in (False, True)]
-
-
-@pytest.mark.parametrize("s, causal", _DQ_CASES, ids=[f"s{s}-{c}" for s, c in _DQ_CASES])
-def test_bwd_dq_wrapper_matches_byteps_tpu_pallas_interpret(s, causal):
-    """The dQ wrapper on CPU tensors (its plain version) against the dQ of
-    byteps_tpu's Pallas backward in interpret mode, dh = 64, block 64, with a
-    non-zero lse cotangent folded into Δ as both packages do; both take the
-    Pallas forward's O and lse."""
-    q, k, v, do, dlse = _inputs((1, 2, s, 64), seed=s + causal)
-    scale = 64 ** -0.5
-    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
-    o, lse = jfa._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
-    want = jfa._flash_backward(jq, jk, jv, o, lse, jdo, causal, scale, 64, 64, True,
-                               dlse=jnp.asarray(dlse))[0]
-    o_t = torch.tensor(np.asarray(o))
-    lse_t = torch.tensor(np.asarray(lse)[..., 0]).view(1, 2, s)
-    delta = (torch.tensor(do) * o_t).sum(-1) - torch.tensor(dlse)
-    got = tfa.flash_bwd_dq(*map(torch.tensor, (q, k, v, do)), lse_t, delta, causal, scale)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
-    assert tfa.launches["flash_bwd_dq"] == 0
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
