@@ -20,8 +20,13 @@ Phases, each fatal on failure:
      with SDPA's forward, K2 and K3 each in turns with SDPA's whole backward);
   4. hold K4 against its plain version on the card (words bitwise, scale within
      rtol 1e-6 and bitwise the same across launches) for n from 1 to 1,024,000,
-     on inputs with +-0.0, +-inf, NaNs of both signs and denormals; time it at
-     one full partition (1,024,000 elements);
+     n = 1, 2, 3 (mod 4) near a full partition, and views starting 4, 8 and 12
+     bytes past a 16-byte boundary, on inputs with +-0.0, +-inf, NaNs of both
+     signs and denormals; two inputs packed at the same time on two streams,
+     each bitwise its own sequential launch; time it at one full partition
+     (1,024,000 elements): its device time with L2 cold (median of 20, CUDA
+     events around the launch alone, cross-checked with torch.profiler) and
+     the wrapper's back-to-back call time;
   5. agreement of a 2-layer BERT-large-width model on the card (kernels) with the
      same model on the CPU (plain versions) in f32, and in bf16 no further from f32
      than dense attention;
@@ -67,10 +72,18 @@ DIST_STEPS, DIST_WARMUP = 3, 1
 # 128 query rows and 64-key tiles, K3's 128 keys and 64-row query tiles
 TILE_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 511)
 
-# K4: element counts checked against the plain version, and the timed one (a full
-# partition at the default BYTEPS_PARTITION_BYTES)
-ONEBIT_NS = (1, 31, 32, 33, 24576, 32768, 1_024_000, 1_000_003)
+# K4: element counts checked against the plain version (n = 1, 2, 3 mod 4 near a
+# full partition among them), the counts also checked on views that start 4, 8
+# and 12 bytes past a 16-byte boundary, and the timed one (a full partition at
+# the default BYTEPS_PARTITION_BYTES)
+ONEBIT_NS = (1, 31, 32, 33, 1023, 1025, 24576, 32768, 1_023_997, 1_023_998,
+             1_023_999, 1_024_000, 1_000_003)
+ONEBIT_VIEW_NS = (1, 5, 33, 1023, 8195, 1_024_000, 1_000_003)
 ONEBIT_TIMED_N = 1_024_000
+# K4's device time: each timed launch follows a write of this many bytes (the
+# L2 holds 50 MB) and a device-side sleep of this many cycles, long enough for
+# the host to enqueue the events and the launch before the device reaches them
+FLUSH_BYTES, SLEEP_CYCLES = 256 << 20, 1_000_000
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -346,67 +359,199 @@ def _onebit_input(n: int, seed: int, specials: bool):
     return torch.from_numpy(x).cuda()
 
 
-def check_onebit() -> float:
-    """K4 against its plain version at every n of ONEBIT_NS: the words bitwise;
-    on finite inputs the scale within rtol 1e-6 and bitwise the same across two
-    launches; with infs and NaNs the scale non-finite in both.  Returns the
-    largest |scale(K4) - scale(plain)|."""
+def _check_onebit_payload(label: str, x) -> float:
+    """K4 on ``x`` against its plain version: the words bitwise, two launches
+    bitwise equal, the card's decode the CPU's; the scale within rtol 1e-6 on
+    finite inputs, non-finite in both where ``x`` holds infs or NaNs.  Returns
+    |scale(K4) - scale(plain)| (0.0 on non-finite inputs)."""
     import torch
 
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    n = x.numel()
+    specials = not bool(x.isfinite().all())
+    got = ob.onebit_payload_device(x, scaling=True)
+    again = ob.onebit_payload_device(x, scaling=True)
+    want = ob._plain_payload(x, scaling=True)
+    torch.cuda.synchronize()
+    if got.numel() != ob.wire_nbytes(n) or not torch.equal(got[4:], want[4:]):
+        fail(f"K4 {label} specials={specials}: sign words differ from the plain "
+             f"version ({int((got[4:] != want[4:]).sum())} bytes)")
+    if not torch.equal(got, again):
+        fail(f"K4 {label}: two launches on the same input differ")
+    # the decoder (plain torch ops) decodes the payload on the card as on the
+    # CPU, bit for bit
+    dec = ob.onebit_decompress_device(*ob.split_payload(got), n)
+    dec_cpu = ob.onebit_decompress_device(*ob.split_payload(got.cpu()), n)
+    if not torch.equal(dec.view(torch.int32).cpu(), dec_cpu.view(torch.int32)):
+        fail(f"onebit decoder {label}: the card's decode differs from the CPU's")
+    s_got, s_want = float(ob.split_payload(got)[0]), float(ob.split_payload(want)[0])
+    if specials:
+        if math.isfinite(s_got) or math.isfinite(s_want):
+            fail(f"K4 {label}: scale over infs and NaNs {s_got} vs plain {s_want}")
+        return 0.0
+    err = abs(s_got - s_want)
+    if not err <= 1e-6 * abs(s_want):
+        fail(f"K4 {label}: scale {s_got!r} vs plain {s_want!r} beyond rtol 1e-6")
+    return err
+
+
+def _check_onebit_streams() -> None:
+    """Two inputs packed at the same time, one on each of two streams, eight
+    launches each, held back by an event until both streams are full: each
+    payload bitwise the sequential launch's on its own input."""
+    import torch
+
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    xs = [_onebit_input(ONEBIT_TIMED_N, seed=s, specials=False) for s in (21, 22)]
+    want = [ob.onebit_payload_device(x, scaling=True) for x in xs]
+    torch.cuda.synchronize()
+    gate, streams = torch.cuda.Stream(), [torch.cuda.Stream(), torch.cuda.Stream()]
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    opened = torch.cuda.Event()
+    opened.record(gate)
+    outs = [[], []]
+    for s in streams:
+        s.wait_event(opened)
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(ob.onebit_payload_device(xs[i], scaling=True))
+    torch.cuda.synchronize()
+    for i in range(2):
+        if not all(torch.equal(o, want[i]) for o in outs[i]):
+            fail(f"K4 on two streams: input {i} packed beside the other differs from "
+                 "its sequential launch")
+
+
+def check_onebit() -> float:
+    """K4 against its plain version at every n of ONEBIT_NS, and on views of
+    ONEBIT_VIEW_NS elements starting 4, 8 and 12 bytes past a 16-byte boundary;
+    scaling off; two streams at once.  Returns the largest
+    |scale(K4) - scale(plain)|."""
     from byteps_tpu_torch.ops import onebit_device as ob
 
     worst = 0.0
     for i, n in enumerate(ONEBIT_NS):
         for specials in (False, True):
             x = _onebit_input(n, seed=100 + i, specials=specials)
-            got = ob.onebit_payload_device(x, scaling=True)
-            again = ob.onebit_payload_device(x, scaling=True)
-            want = ob._plain_payload(x, scaling=True)
-            torch.cuda.synchronize()
-            if got.numel() != ob.wire_nbytes(n) or not torch.equal(got[4:], want[4:]):
-                fail(f"K4 n={n} specials={specials}: sign words differ from the plain "
-                     f"version ({int((got[4:] != want[4:]).sum())} bytes)")
-            if not torch.equal(got, again):
-                fail(f"K4 n={n}: two launches on the same input differ")
-            # the decoder (plain torch ops) decodes the payload on the card as on
-            # the CPU, bit for bit
-            dec = ob.onebit_decompress_device(*ob.split_payload(got), n)
-            dec_cpu = ob.onebit_decompress_device(*ob.split_payload(got.cpu()), n)
-            if not torch.equal(dec.view(torch.int32).cpu(), dec_cpu.view(torch.int32)):
-                fail(f"onebit decoder n={n}: the card's decode differs from the CPU's")
-            s_got, s_want = float(ob.split_payload(got)[0]), float(ob.split_payload(want)[0])
-            if specials:
-                if math.isfinite(s_got) or math.isfinite(s_want):
-                    fail(f"K4 n={n}: scale over infs and NaNs {s_got} vs plain {s_want}")
-                continue
-            err = abs(s_got - s_want)
-            if not err <= 1e-6 * abs(s_want):
-                fail(f"K4 n={n}: scale {s_got!r} vs plain {s_want!r} beyond rtol 1e-6")
-            worst = max(worst, err)
+            worst = max(worst, _check_onebit_payload(f"n={n}", x))
         # scaling off: the scale word is 1.0
         off = ob.onebit_payload_device(_onebit_input(n, seed=7, specials=False), scaling=False)
         if float(ob.split_payload(off)[0]) != 1.0:
             fail(f"K4 n={n}: scaling off gives scale {float(ob.split_payload(off)[0])}")
-    print(f"check onebit K4: n in {list(ONEBIT_NS)}, words bitwise equal to the plain "
-          f"version, scale max abs err {worst:.2e} (rtol 1e-6), repeatable bitwise",
-          flush=True)
+    for i, n in enumerate(ONEBIT_VIEW_NS):
+        for k in (1, 2, 3):
+            for specials in (False, True):
+                base = _onebit_input(n + 3, seed=300 + 4 * i + k, specials=specials)
+                x = base[k:k + n]
+                if x.data_ptr() % 16 != 4 * k:
+                    fail(f"K4 view test: a view at element {k} starts {x.data_ptr() % 16} "
+                         "bytes past a 16-byte boundary")
+                worst = max(worst, _check_onebit_payload(f"n={n} at +{4 * k} bytes", x))
+    _check_onebit_streams()
+    print(f"check onebit K4: n in {list(ONEBIT_NS)}, and n in {list(ONEBIT_VIEW_NS)} on "
+          "views at +4, +8, +12 bytes: words bitwise equal to the plain version, scale "
+          f"max abs err {worst:.2e} (rtol 1e-6), repeatable bitwise; two streams at once "
+          "bitwise their sequential launches", flush=True)
     return worst
 
 
+def _cold_events_ms(launch, flush, iters: int = 20) -> list:
+    """The device time of ``launch`` with the L2 cold, as the engine finds a
+    gradient: before each launch a write of ``flush`` evicts the L2 and a
+    device-side sleep lets the host enqueue the timed pair; CUDA events around
+    the launch alone.  ``iters`` times (ms, sorted) after one warm-up."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for i in range(iters + 1):
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return sorted(times)
+
+
+def _cold_profiled_ms(launch, flush, match: str, iters: int = 20) -> tuple:
+    """``iters`` launches, each after a write of ``flush``, under torch.profiler:
+    the self device time a launch (ms) of the kernels whose name holds
+    ``match``, and their count a launch; (None, None) where the profiler shows
+    no such device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            launch()
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key
+            and e.self_device_time_total > 0]
+    if not ours:
+        return None, None
+    return (sum(e.self_device_time_total for e in ours) / iters / 1e3,
+            sum(e.count for e in ours) / iters)
+
+
 def time_onebit() -> dict:
-    """K4 and its plain version at one full partition (CUDA events, 20 launches
-    after 3 warm-up), against the bytes bound."""
+    """K4 at one full partition: its device time with L2 cold (``ms``: the
+    median of 20, CUDA events), the profiler's, the wrapper's time back to
+    back (``call_ms``: 20 calls after 3 warm-up, the input staying in L2,
+    paced by the host), and the plain version's, against the bytes bound.
+    Then what holds it there, on the profiler's yardstick with L2 cold: K4 at
+    one element (its fixed cost) and at 4x and 64x the partition (its
+    streaming rate), and PyTorch's own elementwise kernel reading the same
+    input (torch.signbit) at one element and at the partition."""
+    import torch
+
     from byteps_tpu_torch.ops import onebit_device as ob
 
     n = ONEBIT_TIMED_N
     x = _onebit_input(n, seed=11, specials=False)
-    ms = time_ms(lambda: ob.onebit_payload_device(x, scaling=True))
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = _cold_events_ms(lambda: ob.onebit_payload_device(x, scaling=True), flush)
+    ms = float(np.median(times))
+    prof_ms, per_launch = _cold_profiled_ms(
+        lambda: ob.onebit_payload_device(x, scaling=True), flush, "onebit_")
+    call_ms = time_ms(lambda: ob.onebit_payload_device(x, scaling=True))
     plain_ms = time_ms(lambda: ob._plain_payload(x, scaling=True))
     nbytes = 4 * n + ob.wire_nbytes(n)  # read x once, write the payload once
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    print(f"time onebit K4 n={n}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-          f"bound {bound_ms:.5f} ms (bytes), plain version {plain_ms:.4f} ms; no single "
-          f"PyTorch call computes the packing (library: none)", flush=True)
+    print(f"time onebit K4 n={n}: device {ms:.5f} ms with L2 cold (median of "
+          f"{len(times)}: {[round(t, 5) for t in times]}; {nbytes / ms / 1e6:.1f} GB/s, "
+          f"{bound_ms / ms:.3f} of the bound), profiler "
+          + (f"{prof_ms:.5f} ms in {per_launch:g} kernels a call" if prof_ms is not None
+             else "shows no device time (not measured)")
+          + f"; call back to back {call_ms:.5f} ms; bound {bound_ms:.5f} ms (bytes), "
+          f"plain version {plain_ms:.4f} ms; no single PyTorch call computes the packing "
+          "(library: none)", flush=True)
+    floor = {}
+    for m in (1, 4 * n, 64 * n):
+        xm = x[:1] if m == 1 else torch.randn(m, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(m))
+        k_ms = _cold_profiled_ms(lambda: ob.onebit_payload_device(xm, scaling=True), flush,
+                                 "onebit_")[0]
+        floor[f"K4 n={m}"] = k_ms
+    for m, xm in ((1, x[:1]), (n, x)):
+        floor[f"torch.signbit n={m}"] = _cold_profiled_ms(lambda: torch.signbit(xm), flush,
+                                                          "signbit")[0]
+    big = floor[f"K4 n={64 * n}"]
+    print("time onebit K4 what holds it (profiler, L2 cold): " + ", ".join(
+        f"{k} {v:.5f} ms" if v is not None else f"{k} not measured" for k, v in floor.items())
+        + (f"; K4 streams {(4 + 4 / 32) * 64 * n / big / 1e9:.3f} TB/s at n={64 * n}"
+           if big else ""), flush=True)
+    del flush
 
     # what a server does with each such partition on this machine's CPU: decode
     # the push, encode the merged round for the pull (numpy, one thread)
@@ -426,8 +571,8 @@ def time_onebit() -> dict:
     print(f"time onebit host codec n={n} (the servers' numpy codec, host CPU): compress "
           f"{host_ms['compress']:.3f} ms, decompress {host_ms['decompress']:.3f} ms",
           flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "gb_s": nbytes / ms / 1e6}
+    return {"ms": ms, "call_ms": call_ms, "profiler_ms": prof_ms,
+            "kernels_a_call": per_launch, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def _train_small(cfg, sd, tokens, targets, dev):
@@ -920,6 +1065,10 @@ def main() -> None:
         "ms": onebit_perf["ms"], "plain_ms": onebit_perf["plain_ms"],
         "bound_ms": onebit_perf["bound_ms"], "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call packs sign bits
+        "bound_share": onebit_perf["bound_ms"] / onebit_perf["ms"],
+        "timing": "device time with L2 cold, median of 20 launches",
+        "call_ms": onebit_perf["call_ms"], "profiler_ms": onebit_perf["profiler_ms"],
+        "kernels_a_call": onebit_perf["kernels_a_call"],
         "shape": f"n={ONEBIT_TIMED_N} float32 (one partition)",
         "path": "distributed path (1 worker, 2 servers, onebit)",
     })
