@@ -18,13 +18,18 @@
 //   128 contiguous bytes (coalesced).  __ballot_sync of the lanes' sign
 //   bits is the word itself; lane 0 stores it.  Wider (16-byte) loads are
 //   later work.
-// - the scale is folded into the same pass: each thread accumulates |x| in
-//   float64, each block reduces its threads in a fixed tree (warp
-//   shuffles, then shared memory) into one partial, and a second one-block
-//   launch sums the partials in a fixed order and divides by n.  No
-//   atomics, so the scale is bitwise the same from launch to launch (the
-//   servers' sums depend on that), and float64 keeps it within a rounding
-//   of the exact mean.
+// - the scale is folded into the same pass and the same launch: each thread
+//   accumulates |x| in float64, each block reduces its threads in a fixed
+//   tree (warp shuffles, then shared memory) into one partial, and the last
+//   block to finish (it knows by a ticket taken after a __threadfence) sums
+//   the partials in a fixed order and tree, divides by n and writes the
+//   scale.  No float atomics, so the scale is bitwise the same from launch
+//   to launch whichever block comes last (the servers' sums depend on
+//   that), and float64 keeps it within a rounding of the exact mean.
+// - the partials and the ticket live in a workspace the wrapper keeps per
+//   (device, stream), zeroed once; the last block resets the ticket, and
+//   launches on one stream are serialised, so a call allocates nothing but
+//   its payload.
 //
 // Plain C interface for ctypes (ops/_build.py); the wrapper and the plain
 // PyTorch version are in byteps_tpu_torch/ops/onebit_device.py.
@@ -36,7 +41,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlocks = 1024;  // the wrapper's _MAX_BLOCKS
 constexpr unsigned kFull = 0xffffffffu;
+
+// kept per (device, stream) by the wrapper, zeroed once when it is made
+struct Workspace {
+  double partials[kMaxBlocks];  // one per block of a launch
+  unsigned int ticket;          // blocks finished; 0 between launches
+};
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
@@ -56,8 +68,10 @@ __device__ __forceinline__ double block_sum(double v, double* smem) {
 
 __global__ void __launch_bounds__(kThreads)
 onebit_pack_kernel(const float* __restrict__ x, long long n, long long nwords,
-                   uint32_t* __restrict__ words, double* __restrict__ partials) {
+                   int scaling, float* __restrict__ scale,
+                   uint32_t* __restrict__ words, Workspace* __restrict__ ws) {
   __shared__ double smem[kWarps];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const long long first = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const long long stride = (long long)gridDim.x * kWarps;
@@ -71,17 +85,22 @@ onebit_pack_kernel(const float* __restrict__ x, long long n, long long nwords,
     acc += fabs((double)v);
   }
   acc = block_sum(acc, smem);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-onebit_scale_kernel(const double* __restrict__ partials, int nparts, long long n,
-                    int scaling, float* __restrict__ scale) {
-  __shared__ double smem[kWarps];
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < nparts; i += kThreads) acc += partials[i];
+  if (threadIdx.x == 0) {
+    ws->partials[blockIdx.x] = acc;
+    __threadfence();  // the partial is visible to every block before the ticket
+    last = atomicAdd(&ws->ticket, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();  // also: warp 0's reads of smem are done before it is reused
+  if (!last) return;
+  // the last block: every partial is in, summed in a fixed order and tree
+  acc = 0.0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) acc += __ldcg(&ws->partials[i]);
   acc = block_sum(acc, smem);
-  if (threadIdx.x == 0) *scale = scaling ? (float)(acc / (double)n) : 1.0f;
+  if (threadIdx.x == 0) {
+    *scale = scaling ? (float)(acc / (double)n) : 1.0f;
+    ws->ticket = 0u;  // ready for the next launch on this stream
+  }
 }
 
 }  // namespace
@@ -89,21 +108,21 @@ onebit_scale_kernel(const double* __restrict__ partials, int nparts, long long n
 extern "C" {
 
 // Pack n floats at x into the payload at out (4 + 4*ceil(n/32) bytes,
-// 4-byte aligned).  partials: nparts doubles of scratch, one per block of
-// the first launch.  Returns the cudaError_t of the launches (0 = both
-// were accepted); nothing is synchronised.
+// 4-byte aligned) in one launch of nblocks blocks (at most kMaxBlocks).
+// workspace: sizeof(Workspace) bytes, zeroed before the first launch, used
+// by no other stream.  Returns the cudaError_t of the launch (0 = it was
+// accepted); nothing is synchronised.
 int bps_onebit_pack(const void* x, long long n, int scaling, void* out,
-                    void* partials, int nparts, void* stream) {
-  if (n <= 0 || nparts <= 0) return (int)cudaErrorInvalidValue;
+                    void* workspace, int nblocks, void* stream) {
+  if (n <= 0 || nblocks <= 0 || nblocks > kMaxBlocks) return (int)cudaErrorInvalidValue;
   const long long nwords = (n + 31) / 32;
-  cudaStream_t s = (cudaStream_t)stream;
-  onebit_pack_kernel<<<nparts, kThreads, 0, s>>>(
-      (const float*)x, n, nwords, (uint32_t*)((char*)out + 4), (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  onebit_scale_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)partials, nparts, n, scaling, (float*)out);
+  onebit_pack_kernel<<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, n, nwords, scaling, (float*)out,
+      (uint32_t*)((char*)out + 4), (Workspace*)workspace);
   return (int)cudaGetLastError();
 }
+
+// Bytes of the workspace bps_onebit_pack takes.
+long long bps_onebit_workspace_bytes(void) { return (long long)sizeof(Workspace); }
 
 }  // extern "C"

@@ -10,6 +10,11 @@ buffer, so the copy to the host is one copy of exactly
 ``4 + 4*ceil(n/32)`` bytes.  The payload is byte for byte the host codec's
 (``compression/impl.py``) and the reference's.
 
+K4 is one launch a call, and the wrapper allocates only the payload: the
+kernel's scratch (one float64 partial a block and the ticket that tells
+the last block to finish) is a workspace kept per (device, stream),
+zeroed once when it is made (:func:`_workspace`).
+
 Dispatch is by where the tensor lies: a CPU tensor takes the plain
 version, :func:`_plain_payload`; a CUDA tensor launches K4 or raises.
 There is no fallback from one to the other.  Both compute the scale as a
@@ -25,7 +30,7 @@ tests in int32, since torch.uint32 has partial support.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,8 +41,14 @@ from byteps_tpu_torch.ops._build import load_library
 launches = {"onebit_pack": 0}
 
 #: blocks of the packing launch: a fixed function of n, so the partial
-#: sums and their order (and so the scale's bits) depend on n alone
+#: sums and their order (and so the scale's bits) depend on n alone;
+#: _MAX_BLOCKS is the kernel's kMaxBlocks, the partials its workspace holds
 _THREADS, _MAX_BLOCKS = 256, 1024
+
+#: ctypes signature of ``bps_onebit_pack`` (csrc/onebit.cu): x, n, scaling,
+#: out, workspace, nblocks, stream
+_PACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -88,12 +99,28 @@ def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = load_library("onebit")
-        p = ctypes.c_void_p
-        lib.bps_onebit_pack.argtypes = [p, ctypes.c_longlong, ctypes.c_int, p, p,
-                                        ctypes.c_int, p]
+        lib.bps_onebit_pack.argtypes = _PACK_ARGTYPES
         lib.bps_onebit_pack.restype = ctypes.c_int
+        lib.bps_onebit_workspace_bytes.argtypes = []
+        lib.bps_onebit_workspace_bytes.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
+
+
+#: K4's workspace per (device index, stream handle): launches on one stream
+#: run in order, so they can share it; two streams never do
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(device: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
+    """The workspace of K4's launches on ``stream``, made (zeroed, on that
+    stream) at its first launch."""
+    key = (device.index, stream.cuda_stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        nbytes = _lib().bps_onebit_workspace_bytes()
+        ws = _workspaces.setdefault(key, torch.zeros(nbytes, dtype=torch.uint8, device=device))
+    return ws
 
 
 def onebit_payload_device(grad: torch.Tensor, scaling: bool = True) -> torch.Tensor:
@@ -112,12 +139,12 @@ def onebit_payload_device(grad: torch.Tensor, scaling: bool = True) -> torch.Ten
     n = flat.numel()
     if n == 0:
         raise ValueError("onebit packer: empty tensor")
-    nparts = _num_blocks(n)
+    stream = torch.cuda.current_stream(flat.device)
+    ws = _workspace(flat.device, stream)
     out = torch.empty(wire_nbytes(n), dtype=torch.uint8, device=flat.device)
-    partials = torch.empty(nparts, dtype=torch.float64, device=flat.device)
     err = _lib().bps_onebit_pack(
-        flat.data_ptr(), n, int(bool(scaling)), out.data_ptr(),
-        partials.data_ptr(), nparts, torch.cuda.current_stream(flat.device).cuda_stream,
+        flat.data_ptr(), n, int(bool(scaling)), out.data_ptr(), ws.data_ptr(),
+        _num_blocks(n), stream.cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"onebit_pack kernel launch failed: cudaError {err}")
