@@ -14,10 +14,21 @@
 // 4 + 4*ceil(n/32), about 0.03 operations a byte, far below the ~295 a byte
 // where the card stops being memory bound.  The design keeps to one pass
 // over HBM:
-// - one warp per 32-element word: lane l loads x[32w + l], so a warp reads
-//   128 contiguous bytes (coalesced).  __ballot_sync of the lanes' sign
-//   bits is the word itself; lane 0 stores it.  Wider (16-byte) loads are
-//   later work.
+// - 16-byte loads, 128 bytes in flight a lane: a warp packs a chunk of
+//   1024 elements (32 words) at a time, lane l loading the float4s at
+//   elements 128j + 4l for j = 0..7 before it uses any (each j a coalesced
+//   512-byte row).  A lane's four sign bits are a nibble of word 4j + l/8;
+//   three xor-shuffles OR the eight nibbles of a word together, and one more
+//   shuffle hands word l of the chunk to lane l, so the warp stores its 32
+//   words as one coalesced 128-byte row.
+// - any contiguous view: the chunks are cut from x rounded down to 16
+//   bytes, so the float4s stay aligned.  Where x starts s = 1..3 elements
+//   past that boundary, word w is the aligned frame's words w and w + 1
+//   shifted by s (a funnel over the next lane; lane 31 reads the next
+//   chunk's first s elements itself).  Chunks that hold the start of x or
+//   its end (n not a multiple of 4, or of 1024) take the scalar path,
+//   element by element, in the same kernel; elements outside x are never
+//   read and count as +0.0.
 // - the scale is folded into the same pass and the same launch: each thread
 //   accumulates |x| in float64, each block reduces its threads in a fixed
 //   tree (warp shuffles, then shared memory) into one partial, and the last
@@ -41,7 +52,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 1024;  // the wrapper's _MAX_BLOCKS
+constexpr int kChunk = 1024;         // elements a warp packs at a time: 32 words
+constexpr int kVecs = kChunk / 128;  // float4 loads a lane issues at a time
+constexpr int kMaxBlocks = 1024;     // the wrapper's _MAX_BLOCKS
 constexpr unsigned kFull = 0xffffffffu;
 
 // kept per (device, stream) by the wrapper, zeroed once when it is made
@@ -66,23 +79,77 @@ __device__ __forceinline__ double block_sum(double v, double* smem) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t sign_bit(float v) { return __float_as_uint(v) >> 31; }
+
+__device__ __forceinline__ uint32_t sign_nibble(float4 v) {
+  return sign_bit(v.x) | sign_bit(v.y) << 1 | sign_bit(v.z) << 2 | sign_bit(v.w) << 3;
+}
+
+// The four elements of the aligned frame at e, one by one: x[e - s] where
+// s <= e < end, +0.0 elsewhere (a clear bit, adds 0 to the scale).
+__device__ __forceinline__ float4 load_edge(const float* __restrict__ x, long long e,
+                                            int s, long long end) {
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = e + b >= s && e + b < end ? x[e + b - s] : 0.0f;
+  return make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// x: n floats starting s elements (0..3) past a 16-byte boundary.  The
+// aligned frame counts elements from that boundary: element e is x[e - s],
+// and the frame's chunk c holds its elements [1024c, 1024c + 1024).
 __global__ void __launch_bounds__(kThreads)
-onebit_pack_kernel(const float* __restrict__ x, long long n, long long nwords,
+onebit_pack_kernel(const float* __restrict__ x, long long n, int s, long long nwords,
                    int scaling, float* __restrict__ scale,
                    uint32_t* __restrict__ words, Workspace* __restrict__ ws) {
   __shared__ double smem[kWarps];
   __shared__ bool last;
   const int lane = threadIdx.x & 31;
+  const long long end = n + s;  // x's end in the aligned frame
+  const long long nchunks = (end + kChunk - 1) / kChunk;
   const long long first = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const long long stride = (long long)gridDim.x * kWarps;
   double acc = 0.0;
-  // every lane of a warp runs the same iterations: the ballot sees all 32
-  for (long long w = first; w < nwords; w += stride) {
-    const long long i = w * 32 + lane;
-    const float v = i < n ? x[i] : 0.0f;  // +0.0 past n: clear bit, adds 0
-    const unsigned bits = __ballot_sync(kFull, (__float_as_uint(v) >> 31) != 0u);
-    if (lane == 0) words[w] = bits;
-    acc += fabs((double)v);
+  // every lane of a warp runs the same iterations: the shuffles see all 32
+  for (long long c = first; c < nchunks; c += stride) {
+    const long long base = c * kChunk;
+    float4 v[kVecs];
+    if (base >= s && base + kChunk <= end) {
+      const float4* p = reinterpret_cast<const float4*>(x + (base - s)) + lane;
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) v[j] = __ldcs(p + 32 * j);
+    } else {  // the chunk holding x's start or its end
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) v[j] = load_edge(x, base + 128 * j + 4 * lane, s, end);
+    }
+    uint32_t mine = 0;  // the frame's word 32c + lane
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      acc += fabs((double)v[j].x);
+      acc += fabs((double)v[j].y);
+      acc += fabs((double)v[j].z);
+      acc += fabs((double)v[j].w);
+      uint32_t part = sign_nibble(v[j]) << (4 * (lane & 7));
+      part |= __shfl_xor_sync(kFull, part, 1);
+      part |= __shfl_xor_sync(kFull, part, 2);
+      part |= __shfl_xor_sync(kFull, part, 4);
+      // lanes 8q..8q+7 now hold the chunk's word 4j + q
+      const uint32_t word = __shfl_sync(kFull, part, (lane & 3) * 8);
+      if ((lane >> 2) == j) mine = word;
+    }
+    if (s != 0) {  // x's word w: the frame's words w and w + 1, shifted by s
+      uint32_t next = __shfl_down_sync(kFull, mine, 1);
+      if (lane == 31) {  // the frame's word 32c + 32 starts the next chunk
+        next = 0;
+        for (int b = 0; b < s; ++b) {
+          const long long e = base + kChunk + b;
+          if (e < end) next |= sign_bit(x[e - s]) << b;
+        }
+      }
+      mine = mine >> s | next << (32 - s);
+    }
+    const long long w = c * 32 + lane;
+    if (w < nwords) words[w] = mine;
   }
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) {
@@ -107,17 +174,19 @@ onebit_pack_kernel(const float* __restrict__ x, long long n, long long nwords,
 
 extern "C" {
 
-// Pack n floats at x into the payload at out (4 + 4*ceil(n/32) bytes,
-// 4-byte aligned) in one launch of nblocks blocks (at most kMaxBlocks).
+// Pack n floats at x (4-byte aligned) into the payload at out (4 +
+// 4*ceil(n/32) bytes, 4-byte aligned) in one launch of nblocks blocks (at most kMaxBlocks).
 // workspace: sizeof(Workspace) bytes, zeroed before the first launch, used
 // by no other stream.  Returns the cudaError_t of the launch (0 = it was
 // accepted); nothing is synchronised.
 int bps_onebit_pack(const void* x, long long n, int scaling, void* out,
                     void* workspace, int nblocks, void* stream) {
-  if (n <= 0 || nblocks <= 0 || nblocks > kMaxBlocks) return (int)cudaErrorInvalidValue;
-  const long long nwords = (n + 31) / 32;
+  if (n <= 0 || nblocks <= 0 || nblocks > kMaxBlocks || ((uintptr_t)x & 3) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int s = (int)(((uintptr_t)x & 15) / 4);
   onebit_pack_kernel<<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, n, nwords, scaling, (float*)out,
+      (const float*)x, n, s, (n + 31) / 32, scaling, (float*)out,
       (uint32_t*)((char*)out + 4), (Workspace*)workspace);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ buffer, so the copy to the host is one copy of exactly
 ``4 + 4*ceil(n/32)`` bytes.  The payload is byte for byte the host codec's
 (``compression/impl.py``) and the reference's.
 
-K4 is one launch a call, and the wrapper allocates only the payload: the
+K4 is one launch a call, reading x in 16-byte loads (any contiguous
+view: a start that is not 16-byte aligned and a ragged end take a scalar
+path in the same kernel), and the wrapper allocates only the payload: the
 kernel's scratch (one float64 partial a block and the ticket that tells
 the last block to finish) is a workspace kept per (device, stream),
 zeroed once when it is made (:func:`_workspace`).
@@ -40,10 +42,13 @@ from byteps_tpu_torch.ops._build import load_library
 #: where it launches the kernel and nowhere else
 launches = {"onebit_pack": 0}
 
-#: blocks of the packing launch: a fixed function of n, so the partial
-#: sums and their order (and so the scale's bits) depend on n alone;
-#: _MAX_BLOCKS is the kernel's kMaxBlocks, the partials its workspace holds
-_THREADS, _MAX_BLOCKS = 256, 1024
+#: blocks of the packing launch: a fixed function of n, never of the
+#: card, so the partial sums and their order (and so the scale's bits)
+#: depend on n and on x's offset past a 16-byte boundary alone.  A block
+#: packs _BLOCK_ELEMS elements at a time (the kernel's kWarps warps of
+#: kChunk); _MAX_BLOCKS is the kernel's kMaxBlocks, the partials its
+#: workspace holds
+_BLOCK_ELEMS, _MAX_BLOCKS = 8 * 1024, 1024
 
 #: ctypes signature of ``bps_onebit_pack`` (csrc/onebit.cu): x, n, scaling,
 #: out, workspace, nblocks, stream
@@ -61,8 +66,7 @@ def wire_nbytes(n: int) -> int:
 
 
 def _num_blocks(n: int) -> int:
-    warps = _THREADS // 32
-    return max(1, min((((n + 31) // 32) + warps - 1) // warps, _MAX_BLOCKS))
+    return max(1, min(-(-n // _BLOCK_ELEMS), _MAX_BLOCKS))
 
 
 # ---------------------------------------------------------------------------
