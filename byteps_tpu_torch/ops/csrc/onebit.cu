@@ -12,8 +12,11 @@
 //
 // What bounds it on an H100: bytes.  It reads 4n bytes and writes
 // 4 + 4*ceil(n/32), about 0.03 operations a byte, far below the ~295 a byte
-// where the card stops being memory bound.  The design keeps to one pass
-// over HBM:
+// where the card stops being memory bound.  At one partition (n =
+// 1,024,000, 4 MB) latency holds it, not bytes: a cold read of 4 MB takes
+// some 4 us on an H100 whatever the kernel, and the last block's sum adds
+// two round trips to the L2 (PERF.md, K4).  The design keeps to one pass
+// over HBM and one launch:
 // - 16-byte loads, 128 bytes in flight a lane: a warp packs a chunk of
 //   1024 elements (32 words) at a time, lane l loading the float4s at
 //   elements 128j + 4l for j = 0..7 before it uses any (each j a coalesced
@@ -32,11 +35,13 @@
 // - the scale is folded into the same pass and the same launch: each thread
 //   accumulates |x| in float64, each block reduces its threads in a fixed
 //   tree (warp shuffles, then shared memory) into one partial, and the last
-//   block to finish (it knows by a ticket taken after a __threadfence) sums
-//   the partials in a fixed order and tree, divides by n and writes the
-//   scale.  No float atomics, so the scale is bitwise the same from launch
-//   to launch whichever block comes last (the servers' sums depend on
-//   that), and float64 keeps it within a rounding of the exact mean.
+//   block to finish (it knows by a ticket, one acq_rel atomic add) sums the
+//   partials in a fixed order and tree, divides by n and writes the scale.
+//   No float atomics, so the scale is bitwise the same from launch to
+//   launch whichever block comes last (the servers' sums depend on that),
+//   and float64 keeps it within a rounding of the exact mean.  Its bits
+//   depend on n and on x's offset past a 16-byte boundary: the wrapper's
+//   grid is a function of n alone, never of the card.
 // - the partials and the ticket live in a workspace the wrapper keeps per
 //   (device, stream), zeroed once; the last block resets the ticket, and
 //   launches on one stream are serialised, so a call allocates nothing but
@@ -45,6 +50,7 @@
 // Plain C interface for ctypes (ops/_build.py); the wrapper and the plain
 // PyTorch version are in byteps_tpu_torch/ops/onebit_device.py.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,9 +160,10 @@ onebit_pack_kernel(const float* __restrict__ x, long long n, int s, long long nw
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) {
     ws->partials[blockIdx.x] = acc;
-    __threadfence();  // the partial is visible to every block before the ticket
-    last = atomicAdd(&ws->ticket, 1u) == gridDim.x - 1;
-    __threadfence();
+    // release: the partial is visible to every block before the ticket is;
+    // acquire: the last block then sees every partial
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(ws->ticket);
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
   }
   __syncthreads();  // also: warp 0's reads of smem are done before it is reused
   if (!last) return;
