@@ -182,10 +182,10 @@ onebit_pack_kernel(const float* __restrict__ x, long long n, int s, long long nw
 extern "C" {
 
 // Pack n floats at x (4-byte aligned) into the payload at out (4 +
-// 4*ceil(n/32) bytes, 4-byte aligned) in one launch of nblocks blocks (at most kMaxBlocks).
-// workspace: sizeof(Workspace) bytes, zeroed before the first launch, used
-// by no other stream.  Returns the cudaError_t of the launch (0 = it was
-// accepted); nothing is synchronised.
+// 4*ceil(n/32) bytes, 4-byte aligned) in one launch of nblocks blocks (at
+// most kMaxBlocks).  workspace: sizeof(Workspace) bytes, zeroed before the
+// first launch, used by no other stream.  Returns the cudaError_t of the
+// launch (0 = it was accepted); nothing is synchronised.
 int bps_onebit_pack(const void* x, long long n, int scaling, void* out,
                     void* workspace, int nblocks, void* stream) {
   if (n <= 0 || nblocks <= 0 || nblocks > kMaxBlocks || ((uintptr_t)x & 3) != 0) {

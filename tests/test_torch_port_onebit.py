@@ -9,6 +9,11 @@ mean |x| in float32; the port sums in float64, the reference's jnp path in
 float32, so the two may differ in the last places: rtol 1e-6, as
 ``tests/test_ops.py::TestOneBitDevice`` allows."""
 
+import ctypes
+import inspect
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,3 +193,92 @@ def test_device_decoder_negates_any_scale_like_where(s):
     bits = ((words[:, None] >> torch.arange(32, dtype=torch.int32)) & 1).reshape(-1)[:70]
     want = torch.where(bits.bool(), -scale, scale)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _view(x: np.ndarray, kind: str):
+    """A torch view of ``x``'s values, and a contiguous numpy copy of them:
+    ``offset<k>`` starts k elements (4k bytes) into a larger buffer,
+    ``strided`` takes every other element, ``column`` the middle column of an
+    (n, 3) array."""
+    n = x.size
+    if kind.startswith("offset"):
+        k = int(kind[-1])
+        base = np.zeros(n + 3, np.float32)
+        base[k:k + n] = x
+        return torch.from_numpy(base)[k:k + n], x
+    wide = np.zeros((n, 3) if kind == "column" else (n, 2), np.float32)
+    wide[:, 1 if kind == "column" else 0] = x
+    t = torch.from_numpy(wide)
+    view = t[:, 1] if kind == "column" else t.reshape(-1)[::2]
+    return view, x
+
+
+@pytest.mark.parametrize("view", ["offset1", "offset2", "offset3", "strided", "column"])
+@pytest.mark.parametrize("n", [5, 1021, 1022, 1023, 1_023_999])
+def test_plain_version_on_views_matches_pack_jnp_and_the_host_codec(n, view):
+    """The plain version (what K4 is held to on the card) on views the
+    wrapper takes: offsets of 4, 8 and 12 bytes, non-contiguous views, and
+    n = 1, 2, 3 (mod 4), near a full partition too.  Words bytewise, scale
+    within rtol 1e-6 of ``_pack_jnp``'s and the host codec's."""
+    x = _draw(n, seed=40 + n)
+    t, values = _view(x, view)
+    assert t.numel() == n and torch.equal(t, torch.from_numpy(values))
+    if view.startswith("offset"):
+        assert t.is_contiguous() and t.storage_offset() == int(view[-1])
+    else:
+        assert not t.is_contiguous()
+    out = ob.onebit_payload_device(t, scaling=True)
+    assert out.dtype == torch.uint8 and out.numel() == ob.wire_nbytes(n)
+    got = out.numpy().tobytes()
+    scale, words = ref_ob._pack_jnp(jnp.asarray(values), True)
+    jnp_payload = ref_ob.onebit_payload(scale, words)
+    host_payload = RefOneBit(n, scaling=True).compress(values)
+    assert got[4:] == jnp_payload[4:] == host_payload[4:]
+    for want in (jnp_payload, host_payload):
+        np.testing.assert_allclose(_split(got)[0], _split(want)[0], rtol=1e-6)
+
+
+_CU = Path(ob.__file__).parent / "csrc" / "onebit.cu"
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "long long": ctypes.c_longlong, "int": ctypes.c_int}
+
+
+def _source() -> str:
+    """onebit.cu without its comments."""
+    return re.sub(r"//[^\n]*", "", _CU.read_text())
+
+
+def test_kernel_source_is_one_kernel_launched_once_a_call():
+    """K4 is one ``__global__`` kernel and ``bps_onebit_pack`` launches it
+    once: a call is one launch (the scale's sum is the last block's)."""
+    src = _source()
+    assert len(re.findall(r"__global__", src)) == 1
+    assert len(re.findall(r"<<<", src)) == 1
+    body = src[src.index("int bps_onebit_pack("):]
+    assert body.count("<<<") == 1
+
+
+def test_wrapper_argtypes_match_the_c_signature():
+    """The ctypes argtypes the wrapper sets are the C entry point's
+    parameter types, in order: a pointer passed as a 32-bit int would be
+    cut."""
+    sig = re.search(r"int bps_onebit_pack\(([^)]*)\)", _source()).group(1)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    types = [re.match(r"(const void\*|void\*|long long|int)\s*\w+$", p).group(1)
+             for p in params]
+    assert [_CTYPES[t] for t in types] == ob._PACK_ARGTYPES
+
+
+def test_wrapper_allocates_only_the_payload_and_sizes_the_grid_by_n():
+    """One allocation a call, the payload; the workspace is made once per
+    (device, stream).  The grid is a function of n alone (the scale's bits
+    depend on it), matched to the kernel's constants."""
+    wrapper = inspect.getsource(ob.onebit_payload_device)
+    assert len(re.findall(r"torch\.(empty|zeros|ones|full)\w*\(", wrapper)) == 1
+    assert "torch.empty(wire_nbytes(n)" in wrapper
+    src = _source()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kMaxBlocks"] == ob._MAX_BLOCKS
+    assert const["kThreads"] // 32 * const["kChunk"] == ob._BLOCK_ELEMS
+    assert [ob._num_blocks(n) for n in (1, 8192, 8193, 1_024_000, 10**9)] == [
+        1, 1, 2, 125, ob._MAX_BLOCKS]
