@@ -147,6 +147,26 @@ def push_pull(
     return synchronize(push_pull_async(tensor, name, average=average, priority=priority))
 
 
+def push_pull_inplace(
+    tensor: torch.Tensor, name: str, average: bool = True, priority: int = 0
+) -> torch.Tensor:
+    """push_pull written back into ``tensor`` (in its dtype); returns it."""
+    out = push_pull(tensor, name, average=average, priority=priority)
+    if out is not tensor:
+        with torch.no_grad():
+            tensor.copy_(out.view_as(tensor))
+    return tensor
+
+
+def set_compression_lr(lr: float) -> None:
+    """Feed the optimizer's learning rate to every error-feedback chain, on
+    this worker and on the servers (the reference's lr.s file,
+    vanilla_error_feedback.h:44-58).  Nothing to do with one worker."""
+    st = require_state()
+    if st.engine is not None:
+        st.engine.set_compression_lr(lr)
+
+
 def _named_tensors(params: Any) -> Iterable[Tuple[str, torch.Tensor]]:
     if isinstance(params, torch.nn.Module):
         raise TypeError("pass module.state_dict() or module.named_parameters()")
@@ -199,6 +219,27 @@ def broadcast_object(obj: Any, root_rank: int = 0, name: str = "obj") -> Any:
         buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
     out = push_pull(buf, name=f"{name}.data", average=False)
     return pickle.loads(out.numpy().tobytes())
+
+
+def broadcast_optimizer_state(optimizer: torch.optim.Optimizer, root_rank: int = 0) -> None:
+    """Load ``root_rank``'s optimizer state dict on every worker
+    (torch/__init__.py:302-466): pickled by :func:`broadcast_object` with
+    its tensors on the host; ``load_state_dict`` puts them back on each
+    parameter's device."""
+    if require_state().engine is None:
+        return
+    host = _map_tensors(optimizer.state_dict(), lambda t: t.detach().cpu())
+    optimizer.load_state_dict(broadcast_object(host, root_rank=root_rank, name="opt_state"))
+
+
+def _map_tensors(obj: Any, fn) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
 
 
 def push_pull_rowsparse_async(indices: Any, values: Any, name: str, total_rows: int,

@@ -348,6 +348,22 @@ class PSClient:
             f"compressor registration for key {key}",
         )
 
+    def set_compression_lr(self, lr: float) -> None:
+        """Send the learning rate to every server's error-feedback chains:
+        REGISTER_COMPRESSOR with flag bit 0 and a big-endian f64 payload
+        (the wire's replacement for the reference's lr.s file).
+        Fire-and-forget, as the reference sends it: a server whose
+        connection is down is left to the data path to report."""
+        payload = struct.pack("!d", float(lr))
+        for sc in self._servers:
+            seq = sc.alloc_seq(lambda msg: None, lambda reason: None)
+            if seq < 0:
+                continue
+            try:
+                sc.send(Message(Op.REGISTER_COMPRESSOR, seq=seq, payload=payload, flags=1))
+            except OSError:
+                sc.pop(seq)
+
     def push(self, key: int, payload, dtype_id: int, version: int,
              cb: Callable[[], None], on_error: Callable[[str], None],
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL) -> None:

@@ -129,10 +129,9 @@ UNPORTED = {
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
     "native": "the native C++ server and client lanes: ROADMAP.md Queue 1b item P7",
     "van": "the uds, shm and chaos vans: ROADMAP.md Queue 1b item P8",
-    "codec": "codecs other than bare onebit (topk, randomk, dithering): ROADMAP.md Queue 1b item P9",
-    "ef": "error-feedback and momentum chains: ROADMAP.md Queue 1b item P10",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
+    "auto": "adaptive compression (BYTEPS_COMPRESSION_AUTO): ROADMAP.md Queue 1b item P13",
 }
 
 
@@ -157,6 +156,7 @@ _UNPORTED_KNOBS = (
     ("BYTEPS_WIRE_LOSSLESS", "lossless", lambda v: _truthy(v)),
     ("BYTEPS_RPC_RETRIES", "resync", lambda v: int(v) > 0),
     ("BYTEPS_RPC_DEADLINE_S", "resync", lambda v: float(v) > 0),
+    ("BYTEPS_COMPRESSION_AUTO", "auto", lambda v: _truthy(v)),
 )
 
 

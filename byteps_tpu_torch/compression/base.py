@@ -1,12 +1,20 @@
 """Codec interface (compressor.h:53-127): ``compress(f32 array) -> bytes``,
-``decompress(bytes, n) -> f32 array``, and ``sum_into`` for the server's
-decompress-then-sum."""
+``decompress(bytes, n) -> f32 array``, ``sum_into`` for the server's
+decompress-then-sum, and ``update_error`` for the error-feedback
+decorator.
+
+``Compression`` is the plugins' level-1 selector (torch/compression.py):
+``none``, or a cast of float32 gradients to bfloat16 for the wire
+(``fp16`` is kept as a name for API parity and casts to bfloat16, as in
+``byteps_tpu``).  The cast runs on the tensor's device.
+"""
 
 from __future__ import annotations
 
 import abc
 
 import numpy as np
+import torch
 
 
 class Compressor(abc.ABC):
@@ -31,3 +39,37 @@ class Compressor(abc.ABC):
     def wire_nbytes(self) -> int:
         """Exact payload size in bytes."""
         return self.size * 4
+
+    def update_error(self, corrected: np.ndarray, payload: bytes) -> np.ndarray:
+        """e = corrected - decompress(compress(corrected)), the
+        FastUpdateError hook (error_feedback.h:46-90)."""
+        return corrected - self.decompress(payload, corrected.size)
+
+
+class _NoneCompression:
+    def compress(self, tensor: torch.Tensor):
+        return tensor, None
+
+    def decompress(self, tensor: torch.Tensor, ctx):
+        return tensor
+
+
+class _Bf16Compression:
+    """Level 1: float32 goes on the wire as bfloat16 and comes back as
+    float32; other dtypes pass unchanged."""
+
+    def compress(self, tensor: torch.Tensor):
+        if tensor.dtype == torch.float32:
+            return tensor.to(torch.bfloat16), tensor.dtype
+        return tensor, None
+
+    def decompress(self, tensor: torch.Tensor, ctx):
+        return tensor if ctx is None else tensor.to(ctx)
+
+
+class Compression:
+    """Level-1 selectors (``bps.Compression.none`` / ``.fp16``)."""
+
+    none = _NoneCompression()
+    fp16 = _Bf16Compression()  # the name of the reference's API; casts to bfloat16
+    bf16 = _Bf16Compression()

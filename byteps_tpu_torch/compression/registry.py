@@ -12,18 +12,23 @@ compressor_registry.cc:39-56), with the same keys as
     byteps_dithering_partition       0 (linear) | 1 (natural)
     byteps_dithering_normalize       0 (max) | 1 (l2)
 
-The port builds bare onebit chains.  The other codecs and the
-error-feedback and momentum decorators are not ported, and a config that
-asks for one raises ``NotImplementedError``.
+The chain is momentum -> error feedback -> codec; a server's chain skips
+momentum (``server=True``).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from byteps_tpu_torch.common.config import unported
 from byteps_tpu_torch.compression.base import Compressor
-from byteps_tpu_torch.compression.impl import OneBitCompressor
+from byteps_tpu_torch.compression.error_feedback import VanillaErrorFeedback
+from byteps_tpu_torch.compression.impl import (
+    DitheringCompressor,
+    OneBitCompressor,
+    RandomKCompressor,
+    TopKCompressor,
+)
+from byteps_tpu_torch.compression.momentum import NesterovMomentum
 
 
 def _parse_k(kwargs: Dict[str, str], size: int) -> int:
@@ -92,16 +97,15 @@ def parse_codec_config(kwargs: Dict[str, str], size: int) -> Optional[Dict]:
     }
 
 
-def check_supported(cfg: Dict, server: bool = False) -> None:
-    """Raise for a parsed config the port cannot run."""
-    if cfg["ctype"] in ("topk", "randomk", "dithering"):
-        raise unported("codec", f"compressor {cfg['ctype']!r}")
-    if cfg["ctype"] != "onebit":
+def check_supported(cfg: Dict) -> None:
+    """Raise ValueError for a parsed config that names an unknown codec,
+    error feedback or momentum."""
+    if cfg["ctype"] not in ("onebit", "topk", "randomk", "dithering"):
         raise ValueError(f"unknown compressor type {cfg['ctype']!r}")
-    if cfg["ef"]:
-        raise unported("ef", f"error feedback {cfg['ef']!r}")
-    if cfg["momentum"] and not server:
-        raise unported("ef", f"momentum {cfg['momentum']!r}")
+    if cfg["ef"] not in ("", "vanilla"):
+        raise ValueError(f"unknown error-feedback type {cfg['ef']!r}")
+    if cfg["momentum"] not in ("", "nesterov"):
+        raise ValueError(f"unknown momentum type {cfg['momentum']!r}")
 
 
 def create_compressor(
@@ -112,5 +116,30 @@ def create_compressor(
     cfg = parse_codec_config(kwargs, size)
     if cfg is None:
         return None
-    check_supported(cfg, server=server)
-    return OneBitCompressor(size, scaling=cfg["scaling"])
+    check_supported(cfg)
+    ctype = cfg["ctype"]
+    if ctype == "onebit":
+        codec: Compressor = OneBitCompressor(size, scaling=cfg["scaling"])
+    elif ctype == "topk":
+        codec = TopKCompressor(size, cfg["k"])
+    elif ctype == "randomk":
+        codec = RandomKCompressor(size, cfg["k"], seed=cfg["seed"])
+    else:
+        codec = DitheringCompressor(
+            size, k=cfg["k"], partition="natural" if cfg["natural"] else "linear",
+            normalize="l2" if cfg["l2"] else "max", seed=cfg["seed"],
+        )
+    if cfg["ef"]:
+        codec = VanillaErrorFeedback(codec)
+    if cfg["momentum"] and not server:
+        codec = NesterovMomentum(codec, mu=cfg["momentum_mu"])
+    return codec
+
+
+def apply_lr_to_chain(codec: Optional[Compressor], lr: float) -> None:
+    """Feed the learning rate to every error-feedback stage of a chain."""
+    while codec is not None:
+        setter = getattr(codec, "set_lr", None)
+        if setter is not None:
+            setter(lr)
+        codec = getattr(codec, "inner", None)

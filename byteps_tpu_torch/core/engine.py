@@ -24,15 +24,17 @@ Lanes, by input:
   engine's side stream after waiting on that event, so it never reads a
   gradient that backward has not finished writing, and it waits on its
   own copy's event (never on the whole device).
-  - A partition with a device codec (bare onebit) is packed by K4 on the
-    side stream and only its wire payload crosses to pinned host memory;
-    DECOMPRESS moves the pulled payload back (pinned, non_blocking) and
-    decodes it on a second side stream, and ``_finalize`` assembles and
-    averages the result there.
-  - Any other CUDA partition (the raw lane) is copied into pinned memory
-    on the side stream, so its PUSH overlaps the copies of later
-    partitions; the pulls land in a pinned result that ``_finalize``
-    copies back to the device.
+  - A partition with a device codec (bare onebit, topk, dithering) is
+    compressed on the side stream (onebit by K4) and only its wire
+    payload crosses to pinned host memory; DECOMPRESS moves the pulled
+    payload back (pinned, non_blocking) and decodes it on a second side
+    stream, and ``_finalize`` assembles and averages the result there.
+  - Any other CUDA partition is copied into pinned memory on the side
+    stream, so its PUSH overlaps the copies of later partitions; the
+    pulls land in a pinned result that ``_finalize`` copies back to the
+    device.  A host codec chain (randomk, or any chain with error
+    feedback or momentum) compresses that pinned copy in COMPRESS and
+    decodes the pull into the pinned result in DECOMPRESS.
   - A CPU tensor takes the same lane with the kernels' plain versions and
     no copies.
   The result of a CUDA push_pull carries an event; ``synchronize`` makes
@@ -177,6 +179,10 @@ class PipelineEngine:
         #: per CUDA device: (COPYD2H stream, H2D and decode stream)
         self._streams: Dict[torch.device, tuple] = {}
         self._streams_lock = threading.Lock()
+        #: the learning rate of error-feedback chains, and the one the
+        #: servers were last sent (their chains start at 1.0)
+        self._compression_lr = 1.0
+        self._lr_sent_to_servers = 1.0
 
     # --- lifecycle -------------------------------------------------------
 
@@ -304,7 +310,7 @@ class PipelineEngine:
         """Build each partition's codec and ship its config to the owning
         server (operations.cc:396-408): float32 tensors of at least
         BYTEPS_MIN_COMPRESS_BYTES only (global.cc:137)."""
-        from byteps_tpu_torch.compression.registry import create_compressor
+        from byteps_tpu_torch.compression.registry import apply_lr_to_chain, create_compressor
         from byteps_tpu_torch.core.device_codec import device_codec_for
 
         if not any(k in ctx.kwargs for k in ("byteps_compressor_type", "compressor")):
@@ -315,10 +321,31 @@ class PipelineEngine:
             codec = create_compressor(ctx.kwargs, part.length)
             self._ensure_compress_threads()
             self._compressors[part.key] = codec
+            # a chain made after set_compression_lr must still honour it
+            apply_lr_to_chain(codec, self._compression_lr)
             self.client.register_compressor(part.key, ctx.kwargs)
             dc = device_codec_for(ctx.kwargs, part.length)
             if dc is not None:
                 self._device_codecs[part.key] = dc
+        self._maybe_send_lr()
+
+    def set_compression_lr(self, lr: float) -> None:
+        """Feed the learning rate to every error-feedback stage: this
+        worker's chains, and the servers' chains over the wire (the
+        reference's lr.s file, vanilla_error_feedback.h:44-58).  An lr set
+        before any chain exists is applied to chains as they are made and
+        sent with the first registration; an unchanged lr sends nothing."""
+        from byteps_tpu_torch.compression.registry import apply_lr_to_chain
+
+        self._compression_lr = float(lr)
+        for codec in list(self._compressors.values()):
+            apply_lr_to_chain(codec, self._compression_lr)
+        self._maybe_send_lr()
+
+    def _maybe_send_lr(self) -> None:
+        if self._compressors and self._compression_lr != self._lr_sent_to_servers:
+            self.client.set_compression_lr(self._compression_lr)
+            self._lr_sent_to_servers = self._compression_lr
 
     def partition_table(self) -> List[dict]:
         """Every partition this engine initialized: name, key, elements,

@@ -13,7 +13,9 @@ of ``byteps_tpu.server.server.PSServer``.
   repeats a (worker, version) already summed is acked without summing;
 - PULL of round v is answered once the key's published round reaches v,
   raw or codec-compressed as the puller asks (``_KeyState.wire_payload``);
-- REGISTER_COMPRESSOR builds the key's codec from its ``key=value`` config.
+- REGISTER_COMPRESSOR builds the key's codec chain from its ``key=value``
+  config (error feedback included, momentum skipped), or with flag bit 0
+  sets the learning rate of every error-feedback chain.
 
 Sums run in numpy (bfloat16 through torch's CPU kernels, since numpy has
 no bfloat16).  The planes of the reference's server that are not ported
@@ -155,6 +157,9 @@ class PSServer:
         self.node_uid = uuid.uuid4().hex
         #: set when the server stopped for a reason a user must see
         self.error: Optional[str] = None
+        #: the learning rate of error-feedback chains (REGISTER_COMPRESSOR
+        #: with flag bit 0); chains registered later start with it
+        self._ef_lr = 1.0
 
     # --- lifecycle -------------------------------------------------------
 
@@ -275,13 +280,27 @@ class PSServer:
                     self._conns.remove(conn)
 
     def _handle_register_compressor(self, msg: Message, conn, send_lock) -> None:
+        """A key's codec chain from its ``key=value`` config (momentum
+        skipped, compressor_registry.cc:44), or with flag bit 0 the learning
+        rate of every error-feedback chain: a big-endian f64, applied to the
+        chains there are and kept for chains registered later
+        (``byteps_tpu/server/server.py:1829-1845``).  An lr frame of another
+        size is acked and ignored, as the reference's engines do."""
+        from byteps_tpu_torch.compression.registry import apply_lr_to_chain, create_compressor
+
         if msg.flags & 1:
-            # the learning rate of error-feedback chains: the port builds
-            # none, so there is nothing to scale
+            if len(msg.payload) == 8:
+                (self._ef_lr,) = struct.unpack("!d", msg.payload)
+                with self._keys_lock:
+                    states = list(self._keys.values())
+                for ks in states:
+                    with ks.lock:
+                        apply_lr_to_chain(ks.compressor, self._ef_lr)
+                _log(f"error-feedback lr {self._ef_lr!r} applied to the chains of "
+                     f"{sum(ks.compressor is not None for ks in states)} keys; chains "
+                     "registered later start with it")
             send_message(conn, Message(Op.REGISTER_COMPRESSOR, seq=msg.seq), send_lock)
             return
-        from byteps_tpu_torch.compression.registry import create_compressor
-
         kwargs = dict(
             ln.split("=", 1) for ln in msg.payload.decode().splitlines() if "=" in ln
         )
@@ -290,8 +309,9 @@ class PSServer:
             size = ks.store.size if ks.store is not None else 0
             try:
                 ks.compressor = create_compressor(kwargs, size, server=True)
-            except NotImplementedError as e:
+            except ValueError as e:
                 raise UnsupportedFrameError(f"key {msg.key}: {e}") from None
+            apply_lr_to_chain(ks.compressor, self._ef_lr)
         send_message(conn, Message(Op.REGISTER_COMPRESSOR, seq=msg.seq), send_lock)
 
     def _key_state(self, key: int) -> _KeyState:

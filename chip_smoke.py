@@ -41,7 +41,25 @@ Phases, each fatal on failure:
      float32 gradient of at least 64 KiB packed on the card by K4; launches,
      device-to-host bytes and wire bytes are read around it and checked against
      the engine's partition table;
-  8. one JSON line listing the kernels, then the contract line
+  8. the compressed chain: the same model at full depth through a scheduler and
+     two server processes with BytePS's documented compression config (onebit,
+     error feedback, Nesterov momentum, scaling) and its lr set before the first
+     step; error-feedback chains take the host lane, so the whole raw gradient
+     crosses device to host while the wire carries the bare-onebit run's bytes;
+     each server reports the lr it applied, and the first compressed payload is
+     bitwise a CPU replay of the chain;
+  9. the device topk and dithering lanes (2 layers at BERT-large's widths, so the
+     partitions stay full size): only their payloads cross device to host; on
+     the card, topk on tied magnitudes bitwise its CPU plain version and the
+     host codec, dithering decoded bitwise by the host codec and unbiased; each
+     timed at one full partition beside its bytes bound;
+ 10. randomk with error feedback on the host lane (2 layers), its first payload
+     bitwise a CPU replay;
+ 11. DistributedDataParallel and CrossBarrier (2 layers, f32): DDP + AdamW
+     bitwise DistributedOptimizer + AdamW, CrossBarrier(adam) within 1e-6 of
+     torch.optim.Adam, and two backward passes in a row pushing the accumulated
+     gradient, not zeros;
+ 12. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -50,6 +68,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -57,6 +76,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,6 +85,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # main path: BERT-large at seq 512, batch 32
 BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
+N_LAYERS_FULL = 24
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
 
@@ -736,27 +757,18 @@ def train_main_path(card: str) -> dict:
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch.models.convert import params_from_jax
-    from byteps_tpu_torch.models.transformer import (
-        Transformer, bert_large, build_train_step, init_params,
-    )
+    from byteps_tpu_torch.models.transformer import build_train_step
     from byteps_tpu_torch.ops import flash_attention as fa
 
     bps.init()
-    cfg = bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True, use_flash=True)
     t0 = time.perf_counter()
-    model = Transformer(cfg)
-    model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+    cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
     bps.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = bps.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
         named_parameters=model.named_parameters(),
     )
     step = build_train_step(model, opt)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)
-    tok = torch.as_tensor(tokens, device=bps.device()).long()
-    tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
     print(f"main path: setup {time.perf_counter() - t0:.1f} s", flush=True)
     check_full_depth(model, cfg, tok, tgt)
 
@@ -794,9 +806,10 @@ def train_main_path(card: str) -> dict:
     return counts
 
 
-def _start_ps_processes(env: dict) -> tuple:
+def _start_ps_processes(env: dict, log_dir: str) -> tuple:
     """A scheduler and two servers of the port, as `python -m
-    byteps_tpu_torch.server` processes; returns (scheduler port, processes)."""
+    byteps_tpu_torch.server` processes, each server's stderr in a file of
+    ``log_dir``; returns (scheduler port, processes)."""
     procs = []
     sched = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
@@ -810,16 +823,114 @@ def _start_ps_processes(env: dict) -> tuple:
             p.kill()
         fail(f"the scheduler process did not report its port (got {line!r})")
     port = line.split("=", 1)[1]
-    for _ in range(2):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
-            env={**env, "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
-            stdout=subprocess.DEVNULL,
-        ))
+    for i in range(2):
+        with open(os.path.join(log_dir, f"server{i}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
+                env={**env, "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
+                stdout=subprocess.DEVNULL, stderr=log,
+            ))
     return port, procs
 
 
-def train_distributed(card: str) -> int:
+@contextlib.contextmanager
+def _ps_fleet(label: str):
+    """A scheduler and two server processes for one worker (this process),
+    with the worker's environment set while the block runs: a new job, so
+    the tensor registry starts empty (a declaration merges into an earlier
+    one of the same name, and an earlier phase's codec would stay).  Yields
+    the directory that holds the servers' stderr.  Fails if a process died
+    during the block; stops every process after it."""
+    from byteps_tpu_torch.common.registry import reset_registry
+
+    reset_registry()
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+           "BYTEPS_FORCE_DISTRIBUTED": "1", "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO}
+    saved = dict(os.environ)
+    with tempfile.TemporaryDirectory() as log_dir:
+        port, procs = _start_ps_processes(env, log_dir)
+        try:
+            os.environ.update({**env, "DMLC_PS_ROOT_PORT": port})
+            yield log_dir
+            dead = [p.args for p in procs if p.poll() is not None]
+            if dead:
+                fail(f"{label}: a PS process exited: {dead}")
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+#: BERT-large's weights (init_params, seed 0) by depth, made once
+_WEIGHTS: dict = {}
+
+
+def _bert(n_layers: int, batch: int = BATCH, **overrides):
+    """BERT-large (seq SEQ, bf16, remat, flash, unless ``overrides`` say
+    otherwise) at ``n_layers`` on the bound device, with the weights of
+    ``init_params(seed=0)``, and the main path's tokens (numpy seed 0) cut
+    to ``batch``: (cfg, model, tokens, targets)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import Transformer, bert_large, init_params
+
+    cfg = dataclasses.replace(bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True,
+                                         use_flash=True), n_layers=n_layers, **overrides)
+    if n_layers not in _WEIGHTS:
+        _WEIGHTS[n_layers] = params_from_jax(init_params(cfg, seed=0), cfg)
+    model = Transformer(cfg)
+    model.load_state_dict(_WEIGHTS[n_layers])
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)[:batch]
+    tok = torch.as_tensor(tokens, device=bps.device()).long()
+    tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
+    return cfg, model, tok, tgt
+
+
+def _timed_steps(model, opt, tok, tgt, steps: int) -> tuple:
+    """``steps`` train steps, split: forward + backward (the hooks submit
+    each gradient as backward produces it), then the wait for the last
+    pulls, then the optimizer.  Returns (losses, split seconds, seconds)."""
+    import torch
+
+    split = {"forward+backward": 0.0, "wait for pulls": 0.0, "optimizer": 0.0}
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        a = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        opt.synchronize()
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        d = time.perf_counter()
+        split["forward+backward"] += b - a
+        split["wait for pulls"] += c - b
+        split["optimizer"] += d - c
+        losses.append(float(loss.detach()))
+    return losses, split, time.perf_counter() - t0
+
+
+def _split_line(split: dict, steps: int) -> str:
+    return ", ".join(f"{k} {v / steps * 1e3:.1f} ms" for k, v in split.items())
+
+
+def train_distributed(card: str) -> dict:
     """The distributed path: BERT-large as on the main path, one worker (this
     process) and two server processes behind a scheduler process, onebit with
     scaling on every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES."""
@@ -828,26 +939,14 @@ def train_distributed(card: str) -> int:
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.core.state import get_state
     from byteps_tpu_torch.core.telemetry import counters
-    from byteps_tpu_torch.models.convert import params_from_jax
-    from byteps_tpu_torch.models.transformer import (
-        Transformer, bert_large, build_train_step, init_params,
-    )
+    from byteps_tpu_torch.models.transformer import build_train_step
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import onebit_device as ob
 
-    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
-           "BYTEPS_FORCE_DISTRIBUTED": "1", "DMLC_PS_ROOT_URI": "127.0.0.1",
-           "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO}
-    saved = dict(os.environ)
-    port, procs = _start_ps_processes(env)
-    try:
-        os.environ.update({**env, "DMLC_PS_ROOT_PORT": port})
+    with _ps_fleet("distributed path"):
         t0 = time.perf_counter()
         bps.init()
-        cfg = bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True,
-                         use_flash=True)
-        model = Transformer(cfg)
-        model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
         bps.broadcast_parameters(model.state_dict(), root_rank=0)
         opt = bps.DistributedOptimizer(
             torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
@@ -855,12 +954,8 @@ def train_distributed(card: str) -> int:
             compression_params={"compressor": "onebit", "scaling": True},
         )
         step = build_train_step(model, opt)
-        rng = np.random.default_rng(0)
-        tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)
-        tok = torch.as_tensor(tokens, device=bps.device()).long()
-        tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
-        print(f"distributed path: setup {time.perf_counter() - t0:.1f} s (scheduler "
-              f"port {port}, 2 server processes)", flush=True)
+        print(f"distributed path: setup {time.perf_counter() - t0:.1f} s (scheduler and "
+              "2 server processes)", flush=True)
 
         gc.collect()
         torch.cuda.empty_cache()
@@ -872,29 +967,8 @@ def train_distributed(card: str) -> int:
         losses = [float(step(tok, tgt)) for _ in range(DIST_WARMUP)]
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        # the timed steps, split: forward + backward (the hooks submit each
-        # gradient as backward produces it), then the wait for the last pulls,
-        # then AdamW
-        split = {"forward+backward": 0.0, "wait for pulls": 0.0, "optimizer": 0.0}
-        t0 = time.perf_counter()
-        for _ in range(DIST_STEPS):
-            a = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            loss = model.loss(tok, tgt)
-            loss.backward()
-            torch.cuda.synchronize()
-            b = time.perf_counter()
-            opt.synchronize()
-            torch.cuda.synchronize()
-            c = time.perf_counter()
-            opt.step()
-            torch.cuda.synchronize()
-            d = time.perf_counter()
-            split["forward+backward"] += b - a
-            split["wait for pulls"] += c - b
-            split["optimizer"] += d - c
-            losses.append(float(loss.detach()))
-        dt = time.perf_counter() - t0
+        timed, split, dt = _timed_steps(model, opt, tok, tgt, DIST_STEPS)
+        losses += timed
         losses.append(profile_step(step, tok, tgt, dt / DIST_STEPS * 1e3))
         torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
@@ -921,21 +995,8 @@ def train_distributed(card: str) -> int:
         engine_alone = time.perf_counter() - a
         opt.backward_passes_per_step = 1
         opt.zero_grad(set_to_none=True)
-        dead = [p.args for p in procs if p.poll() is not None]
-        if dead:
-            fail(f"a PS process exited during the distributed path: {dead}")
         bps.shutdown()
-    finally:
-        os.environ.clear()
-        os.environ.update(saved)
-        for p in procs:
-            p.terminate()
-        for p in procs:
-            try:
-                p.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+        del model, opt, step
 
     n = DIST_WARMUP + DIST_STEPS + 1
     if not all(math.isfinite(x) for x in losses):
@@ -966,8 +1027,7 @@ def train_distributed(card: str) -> int:
     print(f"distributed path: {sps:.2f} samples/s ({dt / DIST_STEPS * 1e3:.1f} ms/step over "
           f"{DIST_STEPS} steps; first step {first_s:.1f} s with the init barriers), peak "
           f"memory {peak:.2f} GiB, on {card}", flush=True)
-    print("distributed path: step split " + ", ".join(
-        f"{k} {v / DIST_STEPS * 1e3:.1f} ms" for k, v in split.items())
+    print("distributed path: step split " + _split_line(split, DIST_STEPS)
         + f"; forward+backward with the engine idle {idle_fb * 1e3:.1f} ms; the engine "
         f"alone (every gradient pushed and pulled, no backward beside it) "
         f"{engine_alone * 1e3:.1f} ms", flush=True)
@@ -976,7 +1036,491 @@ def train_distributed(card: str) -> int:
           f"(raw gradient {raw_bytes}, {raw_bytes / want_d2h:.1f}x more), wire_tx_bytes "
           f"{stats.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
           f"{stats.get('wire_rx_bytes', 0) // n}", flush=True)
-    return launches["onebit_pack"]
+    return {"onebit_launches": launches["onebit_pack"],
+            "wire_tx_step": stats.get("wire_tx_bytes", 0) // n}
+
+
+#: the compression config BytePS documents, and its learning rate for the
+#: error-feedback residual
+CHAIN_PARAMS = {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov",
+                "scaling": True}
+EF_LR = 1e-4
+CHAIN_WARMUP, CHAIN_STEPS = 1, 2
+#: BERT-large's raw gradient a step (ROADMAP.md, PR 2's count)
+RAW_GRAD_BYTES = 1_461_035_008
+# the device codecs' phases: 2 layers at BERT-large's widths, so the
+# partitions stay full size
+CODEC_LAYERS, CODEC_STEPS = 2, 3
+TOPK_PARAMS = {"compressor": "topk", "k": 0.01}
+DITHER_PARAMS = {"compressor": "dithering", "k": 4, "partition": "natural",
+                 "normalize": "l2"}
+RANDOMK_PARAMS = {"compressor": "randomk", "k": 0.01, "ef": "vanilla", "seed": 42}
+# DDP and CrossBarrier: 2 layers in f32 without remat, a smaller batch
+DDP_BATCH, DDP_STEPS = 8, 3
+
+
+@contextlib.contextmanager
+def _tap_first_compress():
+    """Record the first partition a host codec chain compresses: the
+    tensor's declare kwargs, a copy of the host copy of its gradient, and
+    the payload the worker sent."""
+    import threading
+
+    from byteps_tpu_torch.core import engine
+
+    orig = engine.PipelineEngine._compress_once
+    lock = threading.Lock()
+    seen: dict = {}
+
+    def tap(self, task):
+        with lock:
+            first = not seen and task.compressed is None
+            if first:
+                seen.update(key=task.key, kwargs=dict(task.context.ctx.kwargs),
+                            host=np.array(task.cpubuff, copy=True))
+        orig(self, task)
+        if first:
+            seen["payload"] = bytes(task.compressed)
+
+    engine.PipelineEngine._compress_once = tap
+    try:
+        yield seen
+    finally:
+        engine.PipelineEngine._compress_once = orig
+
+
+def _check_replay(label: str, seen: dict, lr: float) -> None:
+    """The payload the worker sent for its first compressed partition, bit
+    for bit a fresh chain's (first round, residuals zero) on the same host
+    copy, run here on the CPU."""
+    from byteps_tpu_torch.compression.registry import apply_lr_to_chain, create_compressor
+
+    if "payload" not in seen:
+        fail(f"{label}: no partition went through a host codec chain")
+    chain = create_compressor(seen["kwargs"], seen["host"].size)
+    apply_lr_to_chain(chain, lr)
+    replay = chain.compress(seen["host"])
+    if replay != seen["payload"]:
+        fail(f"{label}: the payload sent for key {seen['key']} differs from a CPU replay "
+             f"of the chain ({len(seen['payload'])} vs {len(replay)} bytes)")
+    print(f"{label}: key {seen['key']}'s first payload ({len(replay)} bytes, "
+          f"{seen['host'].size} elements) is bitwise a CPU replay of the chain", flush=True)
+
+
+def _server_lrs(log_dir: str) -> list:
+    """The error-feedback lr each server's log says it applied."""
+    out = []
+    for i in range(2):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            lrs = [float(line.split("error-feedback lr ")[1].split()[0])
+                   for line in f if "error-feedback lr " in line]
+        out.append(lrs)
+    return out
+
+
+def train_compressed_chain(card: str, bare_wire_step: int) -> None:
+    """BytePS's documented compressed training: BERT-large at full depth on
+    this card, one worker and two server processes, onebit + error feedback
+    + Nesterov momentum with scaling on every float32 gradient of at least
+    BYTEPS_MIN_COMPRESS_BYTES, the lr fed to the chains before the first
+    step.  Error-feedback chains take the host lane, so the whole raw
+    gradient crosses to the host and K4 does not run."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    label = "compressed chain"
+    wall = time.perf_counter()
+    with _ps_fleet(label) as log_dir:
+        bps.init()
+        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=EF_LR, weight_decay=1e-4),
+            named_parameters=model.named_parameters(), compression_params=CHAIN_PARAMS,
+        )
+        bps.set_compression_lr(EF_LR)
+        step = build_train_step(model, opt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ob.reset_launches()
+        counters().reset()
+        t0 = time.perf_counter()
+        with _tap_first_compress() as seen:
+            losses = [float(step(tok, tgt)) for _ in range(CHAIN_WARMUP)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        timed, split, dt = _timed_steps(model, opt, tok, tgt, CHAIN_STEPS)
+        losses += timed
+        launches = {**fa.launches, **ob.launches}
+        stats = counters().snapshot()
+        engine = get_state().engine
+        table = engine.partition_table()
+        wire = {k: c.wire_nbytes() for k, c in engine._compressors.items()}
+        worker_lrs = {c.inner.lr for c in engine._compressors.values()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bps.shutdown()
+        del model, opt, step
+        server_lrs = _server_lrs(log_dir)
+
+    n = CHAIN_WARMUP + CHAIN_STEPS
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss: {losses}")
+    grads = [r for r in table if r["name"].startswith("Gradient.")]
+    raw_bytes = sum(r["length"] * r["itemsize"] for r in grads)
+    want_wire = sum(wire.get(r["key"], r["length"] * r["itemsize"]) for r in grads)
+    if raw_bytes != RAW_GRAD_BYTES:
+        fail(f"{label}: the partition table holds {raw_bytes} gradient bytes, not "
+             f"BERT-large's {RAW_GRAD_BYTES}")
+    if stats.get("d2h_bytes", 0) != n * raw_bytes:
+        fail(f"{label}: {stats.get('d2h_bytes', 0) / n:.0f} bytes a step crossed device "
+             f"to host, expected the whole raw gradient, {raw_bytes}")
+    if stats.get("wire_tx_bytes", 0) != n * want_wire or want_wire != bare_wire_step:
+        fail(f"{label}: wire_tx_bytes {stats.get('wire_tx_bytes', 0) / n:.0f} a step, "
+             f"expected {want_wire} from the chains' payload sizes and the bare-onebit "
+             f"run's {bare_wire_step}")
+    if launches["onebit_pack"] != 0:
+        fail(f"{label}: K4 launched {launches['onebit_pack']} times on the host lane")
+    want_flash = {"flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
+                  "flash_bwd_dkv": cfg.n_layers * n}
+    if {k: launches[k] for k in want_flash} != want_flash:
+        fail(f"{label}: flash launches {launches}, expected {want_flash}")
+    if worker_lrs != {EF_LR}:
+        fail(f"{label}: the worker's error-feedback chains hold lr {worker_lrs}")
+    if not all(lrs and set(lrs) == {EF_LR} for lrs in server_lrs):
+        fail(f"{label}: the servers report error-feedback lr {server_lrs}, expected {EF_LR}")
+    _check_replay(label, seen, EF_LR)
+    print(f"{label}: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, {cfg.n_layers} "
+          f"layers, 1 worker + 2 server processes, {CHAIN_PARAMS} with lr {EF_LR} on "
+          f"{len(wire)} of {len(grads)} gradient partitions: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"{label}: {BATCH * CHAIN_STEPS / dt:.2f} samples/s ({dt / CHAIN_STEPS * 1e3:.1f} "
+          f"ms/step over {CHAIN_STEPS} steps; first step {first_s:.1f} s with the init "
+          f"barriers), peak memory {peak:.2f} GiB, on {card}; step split "
+          f"{_split_line(split, CHAIN_STEPS)}", flush=True)
+    print(f"{label}: per step d2h_bytes {raw_bytes} (the raw gradient), wire_tx_bytes "
+          f"{want_wire} (= the bare-onebit run's {bare_wire_step}), wire_rx_bytes "
+          f"{stats.get('wire_rx_bytes', 0) // n}; launches {launches}; servers applied lr "
+          f"{server_lrs}; phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+
+
+def _train_codec(card: str, label: str, params: dict, lr: float = 0.0) -> dict:
+    """CODEC_STEPS steps of BERT-large's widths at CODEC_LAYERS layers
+    through one worker and two server processes with ``params``; returns
+    what was counted: losses, launches, counters, the partition table, the
+    chains' payload sizes, the first compressed partition (tapped), s/step."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    wall = time.perf_counter()
+    with _ps_fleet(label):
+        bps.init()
+        cfg, model, tok, tgt = _bert(CODEC_LAYERS)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(), compression_params=params,
+        )
+        if lr:
+            bps.set_compression_lr(lr)
+        step = build_train_step(model, opt)
+        fa.reset_launches()
+        ob.reset_launches()
+        counters().reset()
+        with _tap_first_compress() as seen:
+            losses = [float(step(tok, tgt))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [float(step(tok, tgt)) for _ in range(CODEC_STEPS - 1)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (CODEC_STEPS - 1)
+        out = {"losses": losses, "launches": {**fa.launches, **ob.launches},
+               "stats": counters().snapshot(), "table": get_state().engine.partition_table(),
+               "wire": {k: c.wire_nbytes() for k, c in get_state().engine._compressors.items()},
+               "seen": seen, "step_s": dt, "n_layers": cfg.n_layers}
+        bps.shutdown()
+        del model, opt, step
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss: {losses}")
+    want_flash = {"flash_fwd": 2 * cfg.n_layers * CODEC_STEPS,
+                  "flash_bwd_dq": cfg.n_layers * CODEC_STEPS,
+                  "flash_bwd_dkv": cfg.n_layers * CODEC_STEPS}
+    if {k: out["launches"][k] for k in want_flash} != want_flash:
+        fail(f"{label}: flash launches {out['launches']}, expected {want_flash}")
+    out["wall_s"] = time.perf_counter() - wall
+    return out
+
+
+def train_device_codecs(card: str) -> None:
+    """Bare topk and bare dithering on the device lane: the codec runs on
+    the card and only its payload crosses to the host (8k bytes a partition
+    for topk, 4 + n for dithering)."""
+    for name, params in (("topk", TOPK_PARAMS), ("dithering", DITHER_PARAMS)):
+        label = f"device {name} lane"
+        out = _train_codec(card, label, params)
+        grads = [r for r in out["table"] if r["name"].startswith("Gradient.")]
+        compressed = [r for r in grads if r["wire_nbytes"] is not None]
+        raw = [r for r in grads if r["wire_nbytes"] is None]
+        if len(compressed) != len(out["wire"]) or not compressed:
+            fail(f"{label}: {len(compressed)} partitions on the device lane of "
+                 f"{len(out['wire'])} compressed")
+        for r in compressed:
+            want = (8 * max(1, int(0.01 * r["length"])) if name == "topk"
+                    else 4 + r["length"])
+            if r["wire_nbytes"] != want:
+                fail(f"{label}: key {r['key']} ({r['length']} elements) has a {r['wire_nbytes']}"
+                     f"-byte payload, expected {want}")
+        want_d2h = (sum(r["wire_nbytes"] for r in compressed)
+                    + sum(r["length"] * r["itemsize"] for r in raw))
+        if out["stats"].get("d2h_bytes", 0) != CODEC_STEPS * want_d2h:
+            fail(f"{label}: {out['stats'].get('d2h_bytes', 0) / CODEC_STEPS:.0f} bytes a step "
+                 f"crossed device to host, expected {want_d2h} (the device payloads plus "
+                 "raw small tensors)")
+        if out["launches"]["onebit_pack"]:
+            fail(f"{label}: K4 launched {out['launches']['onebit_pack']} times")
+        raw_bytes = sum(r["length"] * r["itemsize"] for r in grads)
+        print(f"{label}: BERT-large widths, {out['n_layers']} layers, batch {BATCH}, "
+              f"{params} on {len(compressed)} of {len(grads)} gradient partitions: losses "
+              f"{[round(x, 4) for x in out['losses']]}; {out['step_s'] * 1e3:.1f} ms/step; per "
+              f"step d2h_bytes {want_d2h} (raw gradient {raw_bytes}, "
+              f"{raw_bytes / want_d2h:.1f}x more), wire_tx_bytes "
+              f"{out['stats'].get('wire_tx_bytes', 0) // CODEC_STEPS}; phase wall "
+              f"{out['wall_s']:.1f} s, on {card}", flush=True)
+
+
+def check_device_codecs() -> dict:
+    """The device topk and dithering on the card at one full partition:
+    topk on an input whose magnitudes tie at the k-th place bitwise the
+    CPU plain version's and the host codec's payload; dithering decoded by
+    the host codec bit for bit as on the card, and unbiased (the statistics
+    of tests/test_ops.py:273); then each timed with L2 cold (median of 20,
+    CUDA events) beside its bytes bound, and each adapter's whole compress
+    (codec and the copy to pinned host memory, host clock, median of 20)."""
+    import torch
+
+    from byteps_tpu_torch.compression.impl import DitheringCompressor, TopKCompressor
+    from byteps_tpu_torch.core.device_codec import device_codec_for
+    from byteps_tpu_torch.ops import codecs_device as cd
+
+    n = ONEBIT_TIMED_N
+    k = int(TOPK_PARAMS["k"] * n)
+    rng = np.random.default_rng(5)
+    tied = (rng.choice([-3.0, -2.0, -1.0, -0.0, 0.0, 1.0, 2.0, 3.0], size=n)
+            * 0.25).astype(np.float32)
+    xt = torch.from_numpy(tied).cuda()
+    card_payload = cd.topk_payload_device(xt, k).cpu().numpy().tobytes()
+    if card_payload != cd.topk_payload_device(torch.from_numpy(tied), k).numpy().tobytes():
+        fail("device topk: the card's payload differs from the CPU plain version's on tied "
+             "magnitudes")
+    if card_payload != TopKCompressor(n, k).compress(tied):
+        fail("device topk: the card's payload differs from the host codec's")
+    dec = cd.topk_decompress_device(torch.from_numpy(
+        np.frombuffer(card_payload, np.uint8).copy()).cuda(), n)
+    if not np.array_equal(dec.cpu().numpy(), TopKCompressor(n, k).decompress(card_payload, n)):
+        fail("device topk: the card's decode differs from the host codec's")
+
+    s, natural, l2 = DITHER_PARAMS["k"], True, True
+    x = torch.randn(n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    payload = cd.dithering_payload_device(x, gen, s, natural, l2)
+    host = DitheringCompressor(n, k=s, partition="natural", normalize="l2")
+    if not np.array_equal(cd.dithering_decompress_device(payload, n, s, natural).cpu().numpy(),
+                          host.decompress(payload.cpu().numpy().tobytes(), n)):
+        fail("device dithering: the card's decode differs from the host codec's")
+    levels = payload[4:].view(torch.int8).int()
+    if int(levels.abs().max()) > s:
+        fail(f"device dithering: a level beyond {s}")
+    m, trials = 512, 200
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=m).astype(np.float32)).cuda()
+    acc = torch.zeros(m, dtype=torch.float64, device="cuda")
+    for t in range(trials):
+        p = cd.dithering_payload_device(g, torch.Generator(device="cuda").manual_seed(t), 4)
+        acc += cd.dithering_decompress_device(p, m, 4).double()
+    se = float(g.abs().max()) / 4 / math.sqrt(trials)
+    worst = float((acc / trials - g.double()).abs().max())
+    if not worst <= 6 * se:
+        fail(f"device dithering: mean of {trials} draws {worst:.3e} from the input, beyond "
+             f"6 standard errors ({6 * se:.3e})")
+    print(f"check device codecs n={n}: topk (k={k}) on tied magnitudes bitwise the CPU plain "
+          "version's and the host codec's payload; dithering (natural, l2, 4 levels) decoded "
+          f"bitwise by the host codec; unbiased: mean of {trials} draws within {worst:.3e} "
+          f"(bound {6 * se:.3e})", flush=True)
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    cases = (
+        ("topk", lambda: cd.topk_payload_device(x, k), 4 * n + 8 * k,
+         device_codec_for({"byteps_compressor_type": "topk", "byteps_compressor_k": "0.01"}, n)),
+        ("dithering", lambda: cd.dithering_payload_device(x, gen, s, natural, l2), 5 * n + 4,
+         device_codec_for({"byteps_compressor_type": "dithering", "byteps_compressor_k": "4",
+                           "byteps_dithering_partition": "1",
+                           "byteps_dithering_normalize": "1"}, n)),
+    )
+    for name, launch, nbytes, adapter in cases:
+        ms = float(np.median(_cold_events_ms(launch, flush)))
+        calls = []
+        for i in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adapter.compress(x)
+            if i:
+                calls.append((time.perf_counter() - t0) * 1e3)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        out[name] = {"ms": ms, "compress_ms": float(np.median(calls)), "bound_ms": bound_ms}
+        print(f"time device {name} n={n}: device {ms:.5f} ms with L2 cold (median of 20, "
+              f"events), bound {bound_ms:.5f} ms (bytes: {nbytes}), {bound_ms / ms:.3f} of it; "
+              f"the adapter's compress (codec + copy to pinned host memory) "
+              f"{out[name]['compress_ms']:.4f} ms (host clock, median of 20)", flush=True)
+    del flush
+    return out
+
+
+def train_randomk_ef(card: str) -> None:
+    """randomk with error feedback on the host lane, 2 layers: finite losses,
+    and the first payload bitwise a CPU replay of the chain."""
+    label = "randomk + EF host lane"
+    out = _train_codec(card, label, RANDOMK_PARAMS, lr=EF_LR)
+    grads = [r for r in out["table"] if r["name"].startswith("Gradient.")]
+    raw_bytes = sum(r["length"] * r["itemsize"] for r in grads)
+    if out["stats"].get("d2h_bytes", 0) != CODEC_STEPS * raw_bytes:
+        fail(f"{label}: {out['stats'].get('d2h_bytes', 0) / CODEC_STEPS:.0f} bytes a step "
+             f"crossed device to host, expected the raw gradient, {raw_bytes}")
+    _check_replay(label, out["seen"], EF_LR)
+    print(f"{label}: {RANDOMK_PARAMS} with lr {EF_LR} on {len(out['wire'])} of {len(grads)} "
+          f"gradient partitions, {out['n_layers']} layers: losses "
+          f"{[round(x, 4) for x in out['losses']]}; {out['step_s'] * 1e3:.1f} ms/step; per "
+          f"step wire_tx_bytes {out['stats'].get('wire_tx_bytes', 0) // CODEC_STEPS}; phase "
+          f"wall {out['wall_s']:.1f} s, on {card}", flush=True)
+
+
+def _max_diff(a, b) -> float:
+    """The largest abs difference between two models' parameters."""
+    import torch
+
+    with torch.no_grad():
+        return max(float((x - y).abs().max()) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def check_ddp_cross_barrier(card: str) -> None:
+    """DistributedDataParallel and CrossBarrier on the card, through one
+    worker and two server processes, raw: 2 layers at BERT-large's widths in
+    f32 without remat.  DDP + AdamW leaves the parameters bitwise those of
+    DistributedOptimizer + AdamW after DDP_STEPS steps (one worker averages
+    by 1); CrossBarrier(adam) matches torch.optim.Adam, stepping a copy of
+    its parameters, within atol 1e-6 after DDP_STEPS steps;
+    two backward passes in a row push the second gradient (the first plus
+    the second, as autograd accumulated them), not zeros."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import cross_barrier as cb_mod
+    from byteps_tpu_torch.models.transformer import build_train_step, token_loss
+
+    label = "DDP and CrossBarrier"
+    wall = time.perf_counter()
+
+    def model():
+        _, m, tok, tgt = _bert(CODEC_LAYERS, batch=DDP_BATCH, compute_dtype=torch.float32,
+                               remat=False)
+        return m, tok, tgt
+
+    with _ps_fleet(label):
+        bps.init()
+        m1, tok, tgt = model()
+        ddp = bps.parallel.DistributedDataParallel(m1)
+        o1 = torch.optim.AdamW(m1.parameters(), lr=1e-4, weight_decay=1e-4)
+        for _ in range(DDP_STEPS):
+            o1.zero_grad(set_to_none=True)
+            token_loss(ddp(tok), tgt).backward()
+            ddp.grad_sync()
+            o1.step()
+        m2, _, _ = model()
+        o2 = bps.DistributedOptimizer(
+            torch.optim.AdamW(m2.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=m2.named_parameters())
+        step = build_train_step(m2, o2)
+        for _ in range(DDP_STEPS):
+            step(tok, tgt)
+        torch.cuda.synchronize()
+        diff = _max_diff(m1, m2)
+        if diff != 0.0:
+            fail(f"{label}: DDP + AdamW and DistributedOptimizer + AdamW differ after "
+                 f"{DDP_STEPS} steps, max abs {diff:.3e}")
+        buckets = len(ddp._buckets)
+        del ddp, o1, m1, o2, m2, step
+
+        # torch's Adam steps a copy of CrossBarrier's parameters as each
+        # forward left them, so both optimizers see the same gradients: Adam
+        # divides by sqrt(v), and a gradient near 0 that differs in the last
+        # place between two runs would move a parameter by up to lr
+        m3, _, _ = model()
+        cb = bps.CrossBarrier(m3, opt_name="adam", lr=1e-4)
+        m4, _, _ = model()
+        o4 = torch.optim.Adam(m4.parameters(), lr=1e-4)
+        for _ in range(DDP_STEPS):
+            m3.loss(tok, tgt).backward()
+            with torch.no_grad():
+                for a, b in zip(m3.parameters(), m4.parameters()):
+                    b.copy_(a)
+            o4.zero_grad(set_to_none=True)
+            m4.loss(tok, tgt).backward()
+            o4.step()
+        cb.step()
+        torch.cuda.synchronize()
+        cb_diff = _max_diff(m3, m4)
+        if not cb_diff <= 1e-6:
+            fail(f"{label}: CrossBarrier(adam) and torch.optim.Adam differ by {cb_diff:.3e} "
+                 f"after {DDP_STEPS} steps (atol 1e-6)")
+        del cb, m3, m4, o4
+
+        m5, _, _ = model()
+        params = list(m5.parameters())
+        g = torch.autograd.grad(m5.loss(tok, tgt), params)
+        names = {f"CrossBarrier.{cb_mod.CrossBarrier._instances}.{n}": i
+                 for i, (n, _) in enumerate(m5.named_parameters())}
+        cb5 = bps.CrossBarrier(m5, opt_name="sgd", lr=1e-4)
+        pushed, orig = [], cb_mod.push_pull_async
+        cb_mod.push_pull_async = lambda t, **kw: (pushed.append((kw["name"], t)),
+                                                  orig(t, **kw))[1]
+        try:
+            losses = [m5.loss(tok, tgt) for _ in range(2)]
+            losses[0].backward()
+            losses[1].backward()
+            cb5.step()
+        finally:
+            cb_mod.push_pull_async = orig
+        torch.cuda.synchronize()
+        second = pushed[len(params):]
+        if len(second) != len(params):
+            fail(f"{label}: {len(pushed)} pushes in two backward passes of {len(params)} "
+                 "parameters")
+        worst = 0.0
+        for name, t in second:
+            want = 2 * g[names[name]]
+            if not bool(t.abs().max() > 0):
+                fail(f"{label}: the second backward pushed zeros for {name}")
+            worst = max(worst, float(((t - want).abs() - 1e-6 * want.abs()).max()))
+        if not worst <= 1e-7:
+            fail(f"{label}: the second backward's pushes are not the accumulated gradient "
+                 f"(worst {worst:.3e} beyond rtol 1e-6, atol 1e-7)")
+        bps.shutdown()
+    print(f"{label}: 2 layers at BERT-large's widths, f32, batch {DDP_BATCH}, 1 worker + 2 "
+          f"server processes, raw: DDP ({buckets} buckets) + AdamW bitwise "
+          f"DistributedOptimizer + AdamW after {DDP_STEPS} steps; CrossBarrier(adam) within "
+          f"{cb_diff:.3e} of torch.optim.Adam; two backward passes in a row pushed the "
+          f"accumulated gradient, not zeros; phase wall {time.perf_counter() - wall:.1f} s, on "
+          f"{card}", flush=True)
 
 
 def main_path_setup() -> str:
@@ -1012,7 +1556,18 @@ def main() -> None:
     counts = train_main_path(card)
     gc.collect()
     torch.cuda.empty_cache()
-    onebit_launches = train_distributed(card)
+    dist = train_distributed(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_compressed_chain(card, dist["wire_tx_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_device_codecs(card)
+    check_device_codecs()
+    print(f"device codec phases: wall {time.perf_counter() - t0:.1f} s", flush=True)
+    train_randomk_ef(card)
+    check_ddp_cross_barrier(card)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
     replaces = {
@@ -1061,7 +1616,7 @@ def main() -> None:
         "name": "onebit_pack", "route": "cuda",
         "source": "byteps_tpu_torch/ops/csrc/onebit.cu",
         "replaces": "byteps_tpu/ops/onebit_device.py:38",
-        "launches": onebit_launches, "max_abs_err": onebit_err,
+        "launches": dist["onebit_launches"], "max_abs_err": onebit_err,
         "ms": onebit_perf["ms"], "plain_ms": onebit_perf["plain_ms"],
         "bound_ms": onebit_perf["bound_ms"], "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call packs sign bits

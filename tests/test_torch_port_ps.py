@@ -438,7 +438,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
     "BYTEPS_SERVER_NATIVE=1", "BYTEPS_NATIVE_CLIENT=1", "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
     "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_RPC_RETRIES=3",
-    "BYTEPS_RPC_DEADLINE_S=5",
+    "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_COMPRESSION_AUTO=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
     """At init() of a distributed worker, before it dials anything, and at
@@ -454,11 +454,6 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"byteps_compressor_type": "topk", "byteps_compressor_k": "0.1"},
-    {"byteps_compressor_type": "randomk"},
-    {"byteps_compressor_type": "dithering"},
-    {"byteps_compressor_type": "onebit", "byteps_ef_type": "vanilla"},
-    {"byteps_compressor_type": "onebit", "byteps_momentum_type": "nesterov"},
     {"byteps_server_opt": "sgd"},
 ])
 def test_unported_codecs_and_the_server_optimizer_raise_at_declare(kwargs):
