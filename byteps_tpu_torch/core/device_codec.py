@@ -98,6 +98,7 @@ class _DeviceDithering:
         self.l2 = l2
         self._seed = seed or 0x5EED
         self._round = 0
+        self._gen: Optional[torch.Generator] = None
 
     def wire_nbytes(self) -> int:
         """Exact wire payload size: the f32 norm plus one i8 level an
@@ -107,11 +108,12 @@ class _DeviceDithering:
     def compress(self, dev_flat: torch.Tensor) -> np.ndarray:
         # a fresh stream every round: stochastic rounding must not reuse
         # draws across steps (the host codec's stream is per call too)
-        gen = torch.Generator(device=dev_flat.device)
-        gen.manual_seed(((self._seed << 32) + self._round) & 0xFFFFFFFFFFFFFFFF)
+        if self._gen is None or self._gen.device != dev_flat.device:
+            self._gen = torch.Generator(device=dev_flat.device)
+        self._gen.manual_seed(((self._seed << 32) + self._round) & 0xFFFFFFFFFFFFFFFF)
         self._round += 1
         return _to_host(cd.dithering_payload_device(
-            dev_flat, gen, s=self.s, natural=self.natural, l2=self.l2))
+            dev_flat, self._gen, s=self.s, natural=self.natural, l2=self.l2))
 
     def decompress(self, payload, n: int, device: torch.device) -> torch.Tensor:
         return cd.dithering_decompress_device(_to_device(payload, device), n,

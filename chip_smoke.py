@@ -480,18 +480,19 @@ def check_onebit() -> float:
     return worst
 
 
-def _cold_events_ms(launch, flush, iters: int = 20) -> list:
+def _cold_events_ms(launch, flush, iters: int = 20, sleep_cycles: int = SLEEP_CYCLES) -> list:
     """The device time of ``launch`` with the L2 cold, as the engine finds a
     gradient: before each launch a write of ``flush`` evicts the L2 and a
-    device-side sleep lets the host enqueue the timed pair; CUDA events around
-    the launch alone.  ``iters`` times (ms, sorted) after one warm-up."""
+    device-side sleep of ``sleep_cycles`` lets the host enqueue the timed
+    pair (and every kernel ``launch`` makes); CUDA events around the launch
+    alone.  ``iters`` times (ms, sorted) after one warm-up."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for i in range(iters + 1):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         launch()
         end.record()
@@ -1158,6 +1159,8 @@ def train_compressed_chain(card: str, bare_wire_step: int) -> None:
         first_s = time.perf_counter() - t0
         timed, split, dt = _timed_steps(model, opt, tok, tgt, CHAIN_STEPS)
         losses += timed
+        losses.append(profile_step(step, tok, tgt, dt / CHAIN_STEPS * 1e3))
+        torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
         engine = get_state().engine
@@ -1169,7 +1172,7 @@ def train_compressed_chain(card: str, bare_wire_step: int) -> None:
         del model, opt, step
         server_lrs = _server_lrs(log_dir)
 
-    n = CHAIN_WARMUP + CHAIN_STEPS
+    n = CHAIN_WARMUP + CHAIN_STEPS + 1
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss: {losses}")
     grads = [r for r in table if r["name"].startswith("Gradient.")]
@@ -1299,14 +1302,15 @@ def train_device_codecs(card: str) -> None:
               f"{out['wall_s']:.1f} s, on {card}", flush=True)
 
 
-def check_device_codecs() -> dict:
+def check_device_codecs() -> None:
     """The device topk and dithering on the card at one full partition:
     topk on an input whose magnitudes tie at the k-th place bitwise the
     CPU plain version's and the host codec's payload; dithering decoded by
     the host codec bit for bit as on the card, and unbiased (the statistics
     of tests/test_ops.py:273); then each timed with L2 cold (median of 20,
     CUDA events) beside its bytes bound, and each adapter's whole compress
-    (codec and the copy to pinned host memory, host clock, median of 20)."""
+    (codec and the copy to pinned host memory, host clock, median of 20);
+    and the servers' host codecs at that partition."""
     import torch
 
     from byteps_tpu_torch.compression.impl import DitheringCompressor, TopKCompressor
@@ -1358,32 +1362,64 @@ def check_device_codecs() -> dict:
           f"(bound {6 * se:.3e})", flush=True)
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    out = {}
-    cases = (
-        ("topk", lambda: cd.topk_payload_device(x, k), 4 * n + 8 * k,
-         device_codec_for({"byteps_compressor_type": "topk", "byteps_compressor_k": "0.01"}, n)),
-        ("dithering", lambda: cd.dithering_payload_device(x, gen, s, natural, l2), 5 * n + 4,
-         device_codec_for({"byteps_compressor_type": "dithering", "byteps_compressor_k": "4",
-                           "byteps_dithering_partition": "1",
-                           "byteps_dithering_normalize": "1"}, n)),
-    )
-    for name, launch, nbytes, adapter in cases:
-        ms = float(np.median(_cold_events_ms(launch, flush)))
-        calls = []
-        for i in range(21):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            adapter.compress(x)
-            if i:
-                calls.append((time.perf_counter() - t0) * 1e3)
-        bound_ms = nbytes / PEAK_BYTES * 1e3
-        out[name] = {"ms": ms, "compress_ms": float(np.median(calls)), "bound_ms": bound_ms}
-        print(f"time device {name} n={n}: device {ms:.5f} ms with L2 cold (median of 20, "
-              f"events), bound {bound_ms:.5f} ms (bytes: {nbytes}), {bound_ms / ms:.3f} of it; "
-              f"the adapter's compress (codec + copy to pinned host memory) "
-              f"{out[name]['compress_ms']:.4f} ms (host clock, median of 20)", flush=True)
+    # the full partition the path runs, and four times it
+    for m in (n, 4 * n):
+        xm = x if m == n else torch.randn(m, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(m))
+        km = int(TOPK_PARAMS["k"] * m)
+        cases = (
+            ("topk", lambda: cd.topk_payload_device(xm, km), 4 * m + 8 * km,
+             device_codec_for({"byteps_compressor_type": "topk",
+                               "byteps_compressor_k": "0.01"}, m)),
+            ("dithering", lambda: cd.dithering_payload_device(xm, gen, s, natural, l2), 5 * m + 4,
+             device_codec_for({"byteps_compressor_type": "dithering", "byteps_compressor_k": "4",
+                               "byteps_dithering_partition": "1",
+                               "byteps_dithering_normalize": "1"}, m)),
+        )
+        for name, launch, nbytes, adapter in cases:
+            # tens of launches a call: a sleep long enough for a slow host to
+            # enqueue them all, so the events time the device, not the enqueue
+            ms = float(np.median(_cold_events_ms(launch, flush,
+                                                 sleep_cycles=20 * SLEEP_CYCLES)))
+            calls = []
+            for i in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                adapter.compress(xm)
+                if i:
+                    calls.append((time.perf_counter() - t0) * 1e3)
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            print(f"time device {name} n={m}: device {ms:.5f} ms with L2 cold (median of 20, "
+                  f"events), bound {bound_ms:.5f} ms (bytes: {nbytes}), {bound_ms / ms:.3f} of "
+                  f"it; the adapter's compress (codec + copy to pinned host memory) "
+                  f"{float(np.median(calls)):.4f} ms (host clock, median of 20)",
+                  flush=True)
     del flush
-    return out
+
+    # what a server does with each such partition on this machine's CPU:
+    # decode a push, encode the merged round for the pull (numpy, one
+    # thread, median of 3)
+    from byteps_tpu_torch.compression.registry import (
+        create_compressor, translate_compression_params,
+    )
+
+    host = x.cpu().numpy()
+    for name, params in (("topk", TOPK_PARAMS), ("randomk", RANDOMK_PARAMS),
+                         ("dithering", DITHER_PARAMS)):
+        codec = create_compressor(translate_compression_params(
+            {k: v for k, v in params.items() if k != "ef"}), n, server=True)
+        payload = codec.compress(host)
+        times = {}
+        for label, fn in (("compress", lambda: codec.compress(host)),
+                          ("decompress", lambda: codec.decompress(payload, n))):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            times[label] = float(np.median(runs))
+        print(f"time {name} host codec n={n} (the servers' numpy codec, host CPU): compress "
+              f"{times['compress']:.2f} ms, decompress {times['decompress']:.2f} ms", flush=True)
 
 
 def train_randomk_ef(card: str) -> None:

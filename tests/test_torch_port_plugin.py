@@ -139,7 +139,7 @@ def test_ddp_buckets_names_and_parameters_equal_the_reference(monkeypatch, bucke
     for a, b in zip(port, ref):
         assert torch.equal(a, b)
     # the average of the two workers' gradients, as one process computes it
-    model, grads = _mlp(), []
+    model = _mlp()
     opt = torch.optim.AdamW(model.parameters(), lr=1e-2)
     for (x0, y0), (x1, y1) in zip(_batches(0), _batches(1)):
         opt.zero_grad()
