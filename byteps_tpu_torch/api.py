@@ -8,6 +8,16 @@ partitions the tensor, pushes it to the servers and pulls back the sum,
 averaged over the workers when ``average``.  The result lies on the input's
 device; for a CUDA tensor, :func:`synchronize` makes the caller's current
 stream wait for it.
+
+With a local group (a global mesh: one process per GPU under the launcher
+with ``BYTEPS_LOCAL_SIZE > 1``) ``push_pull`` is host-level, BytePS's own
+topology: an all-reduce in the local group, the local root's PS
+push_pull of that sum across hosts, and a broadcast from the root, which
+:func:`synchronize` runs; ``average`` divides by ``local_size() × size()``.
+Every local rank must then start and synchronize its push_pulls in the
+same order, as the hooks of ``DistributedOptimizer`` and
+``DistributedDataParallel`` do.  ``rank()`` and ``size()`` are the host's
+worker rank and the number of hosts, as in ``byteps_tpu``.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Any, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
 
+from byteps_tpu_torch.comm.mesh import get_global_mesh
 from byteps_tpu_torch.common.config import get_config
 from byteps_tpu_torch.common.registry import get_registry
 from byteps_tpu_torch.core.state import get_state, init_state, require_state, shutdown_state
@@ -57,8 +68,12 @@ def device() -> torch.device:
 
 
 def rank() -> int:
-    """The worker's rank: the scheduler's in distributed mode."""
-    client = get_state().ps_client
+    """The worker's rank: the scheduler's in distributed mode; with a local
+    group, the host's."""
+    st = get_state()
+    if st.host is not None:
+        return st.host[0]
+    client = st.ps_client
     if client is not None and client.rank is not None:
         return client.rank
     cfg = get_config()
@@ -66,8 +81,12 @@ def rank() -> int:
 
 
 def size() -> int:
-    """The number of workers: the scheduler's book in distributed mode."""
-    client = get_state().ps_client
+    """The number of workers (hosts): the scheduler's book in distributed
+    mode."""
+    st = get_state()
+    if st.host is not None:
+        return st.host[1]
+    client = st.ps_client
     if client is not None:
         return client.num_workers
     return get_config().num_worker
@@ -109,7 +128,39 @@ def push_pull_async(
     version: int = 0,
 ) -> int:
     """Start a cross-worker push_pull; returns a pollable handle whose
-    result :func:`synchronize` returns (same shape, dtype and device)."""
+    result :func:`synchronize` returns (same shape, dtype and device).
+    With a local group: the all-reduce in the group now, the root's PS
+    push_pull of the sum, and the broadcast from the root in
+    :func:`synchronize` (a handle of a local rank other than the root
+    polls done once the group's sum is in)."""
+    st = require_state()
+    mesh = get_global_mesh()
+    if mesh is None:
+        return ps_push_pull_async(tensor, name, average, priority, version)
+    from byteps_tpu_torch.comm import collectives
+
+    local = tensor if tensor.device.type == mesh.device.type else tensor.to(mesh.device)
+    summed = collectives.push_pull(local, average=False, mesh=mesh)  # level 1
+    if mesh.rank == 0:
+        handle = ps_push_pull_async(summed, name, False, priority, version)  # level 2
+    else:
+        get_registry().declare(name)
+        handle = st.handles.allocate()
+        st.handles.mark_done(handle, summed)
+    st.host_level[handle] = (mesh, average, tensor.device)
+    return handle
+
+
+def ps_push_pull_async(
+    tensor: torch.Tensor,
+    name: str,
+    average: bool = True,
+    priority: int = 0,
+    version: int = 0,
+) -> int:
+    """push_pull across workers through the PS plane alone, the identity
+    with one worker: the inter-host level, which ``push_pull_async`` and
+    ``parallel.HybridDataParallel`` run on the local root."""
     st = require_state()
     get_registry().declare(name)
     handle = st.handles.allocate()
@@ -130,12 +181,22 @@ def synchronize(handle: int) -> torch.Tensor:
     device is returned once the caller's current stream waits for it."""
     from byteps_tpu_torch.core.engine import DeviceResult
 
-    out = require_state().handles.wait_and_clear(handle)
+    st = require_state()
+    out = st.handles.wait_and_clear(handle)
     if isinstance(out, DeviceResult):
         stream = torch.cuda.current_stream(out.tensor.device)
         stream.wait_event(out.event)
         out.tensor.record_stream(stream)
         out = out.tensor
+    host_level = st.host_level.pop(handle, None)
+    if host_level is not None:
+        from byteps_tpu_torch.comm import collectives
+
+        mesh, average, device = host_level
+        out = collectives.broadcast(out, root=0, mesh=mesh)  # level 3
+        if average and out.is_floating_point():
+            out = out / (mesh.size * size())
+        out = out.to(device)
     return out
 
 
@@ -167,6 +228,18 @@ def set_compression_lr(lr: float) -> None:
         st.engine.set_compression_lr(lr)
 
 
+def _one_worker(st) -> bool:
+    """No PS plane and no local group: this process holds every value."""
+    return st.engine is None and get_global_mesh() is None
+
+
+def _is_root(root_rank: int) -> bool:
+    """The process whose values a broadcast sends: worker ``root_rank``,
+    and on that host local rank 0."""
+    mesh = get_global_mesh()
+    return rank() == root_rank and (mesh is None or mesh.rank == 0)
+
+
 def _named_tensors(params: Any) -> Iterable[Tuple[str, torch.Tensor]]:
     if isinstance(params, torch.nn.Module):
         raise TypeError("pass module.state_dict() or module.named_parameters()")
@@ -189,9 +262,9 @@ def broadcast_parameters(params: Any, root_rank: int = 0) -> Any:
     (torch/__init__.py:268-299).  All pushes start before the first wait."""
     st = require_state()
     items = _named_tensors(params)
-    if st.engine is None:
+    if _one_worker(st):
         return params
-    root = rank() == root_rank
+    root = _is_root(root_rank)
     handles = []
     for name, t in items:
         src = t.detach() if root else torch.zeros_like(t)
@@ -208,10 +281,9 @@ def broadcast_object(obj: Any, root_rank: int = 0, name: str = "obj") -> Any:
     zeros."""
     import pickle
 
-    st = require_state()
-    if st.engine is None:
+    if _one_worker(require_state()):
         return obj
-    payload = pickle.dumps(obj) if rank() == root_rank else b""
+    payload = pickle.dumps(obj) if _is_root(root_rank) else b""
     total = int(push_pull(torch.tensor([len(payload)], dtype=torch.int64),
                           name=f"{name}.len", average=False)[0])
     buf = torch.zeros(total, dtype=torch.uint8)
@@ -226,7 +298,7 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer, root_rank: int =
     (torch/__init__.py:302-466): pickled by :func:`broadcast_object` with
     its tensors on the host; ``load_state_dict`` puts them back on each
     parameter's device."""
-    if require_state().engine is None:
+    if _one_worker(require_state()):
         return
     host = _map_tensors(optimizer.state_dict(), lambda t: t.detach().cpu())
     optimizer.load_state_dict(broadcast_object(host, root_rank=root_rank, name="opt_state"))

@@ -12,6 +12,11 @@ import os
 from typing import Optional
 
 
+#: the environment variable that carries the host's local group rendezvous
+#: (a torch.distributed init method), set by the launcher for each worker
+LOCAL_INIT_METHOD = "BYTEPS_LOCAL_INIT_METHOD"
+
+
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
@@ -117,8 +122,8 @@ def clear_config() -> None:
     _config = None
 
 
-#: planes of byteps_tpu's PS path this port does not carry yet, each with
-#: the ROADMAP.md item that brings it.  Selecting one raises rather than
+#: planes of byteps_tpu this port does not carry yet (the PS path's, and
+#: model parallelism), each with the ROADMAP.md item that brings it.  Selecting one raises rather than
 #: run a different job than the one asked for.
 UNPORTED = {
     "fusion": "small-tensor fusion (Op.FUSED): ROADMAP.md Queue 1b item P1",
@@ -132,6 +137,7 @@ UNPORTED = {
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
     "auto": "adaptive compression (BYTEPS_COMPRESSION_AUTO): ROADMAP.md Queue 1b item P13",
+    "model_parallel": "model parallelism (mesh axes other than dp): ROADMAP.md Queue 1 item 9",
 }
 
 

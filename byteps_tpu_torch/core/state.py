@@ -3,21 +3,33 @@ the handle table and, in distributed mode, the PS client and the pipeline
 engine (global.cc:105-403).
 
 ``init_state()`` binds ``cuda:<local_rank>`` unless the caller names a
-device.  A distributed topology (more than one worker, or
-``BYTEPS_FORCE_DISTRIBUTED=1``) registers with the scheduler at
-``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, connects to the servers and starts
-the engine; ``shutdown_state()`` stops both.  The server and scheduler
-roles run as their own processes (``python -m byteps_tpu_torch.server``).
+device.  With ``BYTEPS_LOCAL_SIZE > 1`` and the group's rendezvous in
+``BYTEPS_LOCAL_INIT_METHOD`` (one process per GPU, as
+``byteps_tpu_torch.launcher.launch`` starts them) it brings up the host's
+process group (``comm.mesh``) and makes it the global mesh.  A distributed topology (more
+than one worker, or ``BYTEPS_FORCE_DISTRIBUTED=1``) registers with the
+scheduler at ``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, connects to the
+servers and starts the engine, on local rank 0 alone: one PS worker per
+host, as in ``byteps_tpu``, and the root tells the other local ranks the
+host's worker rank and the number of hosts.  ``shutdown_state()`` stops
+all of it.  The server and scheduler roles run as their own processes
+(``python -m byteps_tpu_torch.server``).
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
-from byteps_tpu_torch.common.config import Config, check_unported_env, reset_config
+from byteps_tpu_torch.common.config import (
+    LOCAL_INIT_METHOD,
+    Config,
+    check_unported_env,
+    reset_config,
+)
 from byteps_tpu_torch.core.handle_manager import HandleManager
 
 
@@ -28,6 +40,12 @@ class RuntimeState:
         self.handles = HandleManager()
         self.ps_client = None  # comm.ps_client.PSClient (distributed mode)
         self.engine = None  # core.engine.PipelineEngine (distributed mode)
+        self.mesh = None  # comm.mesh.Mesh: the host's process group, local size > 1
+        #: (worker rank, number of workers) of this host, from local rank 0
+        self.host: Optional[Tuple[int, int]] = None
+        #: handle -> (mesh, average, device) of each host-level push_pull
+        #: whose broadcast from the local root is still to come
+        self.host_level: dict = {}
         self.initialized = False
         self._lock = threading.Lock()
 
@@ -63,19 +81,65 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 "server and scheduler roles with `python -m byteps_tpu_torch.server`"
             )
         st.device = _bind_device(cfg, device)
-        if cfg.is_distributed:
-            check_unported_env()
-            from byteps_tpu_torch.comm.ps_client import PSClient
-            from byteps_tpu_torch.core.engine import PipelineEngine
+        try:
+            if cfg.local_size > 1 and os.environ.get(LOCAL_INIT_METHOD):
+                from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
 
-            client = PSClient(cfg)
-            client.connect()
-            st.ps_client = client
-            st.engine = PipelineEngine(cfg, client)
-            st.engine.start()
+                st.mesh = build_mesh(device=st.device)
+                set_global_mesh(st.mesh)
+            if cfg.is_distributed and cfg.local_rank == 0:
+                check_unported_env()
+                from byteps_tpu_torch.comm.ps_client import PSClient
+                from byteps_tpu_torch.core.engine import PipelineEngine
+
+                client = PSClient(cfg)
+                client.connect()
+                st.ps_client = client
+                st.engine = PipelineEngine(cfg, client)
+                st.engine.start()
+            if st.mesh is not None:
+                st.host = _host_identity(cfg, st)
+        except BaseException:
+            _stop(st)
+            raise
         st.config = cfg
         st.initialized = True
         return st
+
+
+def _host_identity(cfg: Config, st: RuntimeState) -> Tuple[int, int]:
+    """The host's worker rank and the number of workers (hosts), as local
+    rank 0 knows them (the scheduler's book in distributed mode), on every
+    local rank."""
+    from byteps_tpu_torch.comm import collectives
+
+    client = st.ps_client
+    if client is not None:
+        mine = (client.rank, client.num_workers)
+    else:
+        mine = (cfg.global_rank if cfg.global_rank is not None else cfg.worker_id,
+                cfg.num_worker)
+    ident = collectives.broadcast(torch.tensor(mine, dtype=torch.int64, device=st.device),
+                                  root=0, mesh=st.mesh)
+    return int(ident[0]), int(ident[1])
+
+
+def _stop(st: RuntimeState) -> None:
+    if st.engine is not None:
+        st.engine.stop()
+        st.engine = None
+    if st.ps_client is not None:
+        st.ps_client.close()
+        st.ps_client = None
+    if st.mesh is not None:
+        from byteps_tpu_torch.comm.mesh import get_global_mesh, set_global_mesh
+
+        if get_global_mesh() is st.mesh:
+            set_global_mesh(None)
+        st.mesh.destroy()
+        st.mesh = None
+    st.host = None
+    st.host_level.clear()
 
 
 def shutdown_state() -> None:
@@ -83,12 +147,7 @@ def shutdown_state() -> None:
     with st._lock:
         if not st.initialized:
             return
-        if st.engine is not None:
-            st.engine.stop()
-            st.engine = None
-        if st.ps_client is not None:
-            st.ps_client.close()
-            st.ps_client = None
+        _stop(st)
         st.handles.clear()
         st.initialized = False
 

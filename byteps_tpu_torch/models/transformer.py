@@ -254,12 +254,14 @@ class TransformerLayer(nn.Module):
 
 
 def validate_mesh(axis_sizes: Optional[Mapping[str, int]]) -> None:
-    """The port runs dp = pp = sp = tp = 1; any larger axis raises."""
+    """Data parallelism (dp) lives outside the model: each process of the
+    host's group holds all of it (``comm.mesh``, ``parallel.hybrid``).  The
+    port runs pp = sp = tp = 1; any larger model axis raises."""
     for axis, n in (axis_sizes or {}).items():
-        if n != 1:
+        if n != 1 and axis != "dp":
             raise NotImplementedError(
                 f"mesh axis {axis}={n}: model parallelism is a later slice "
-                "of the port (ROADMAP.md Queue 1 items 7 and 9)"
+                "of the port (ROADMAP.md Queue 1 item 9)"
             )
 
 

@@ -21,16 +21,25 @@ Two levels of compression, as in the reference plugin:
 
 ``server_side=True`` (the reference's server-side optimizer) is not ported
 and raises.
+
+The step builders of ``byteps_tpu.optim`` run over the host's process
+group (``comm.mesh``, NCCL on the card), each process on its own part of
+the batch: :func:`allreduce_gradients`, :func:`build_data_parallel_step`
+(with ``accumulate_steps`` and the int8 ring, ``grad_quant_bits=8``) and
+:func:`build_zero1_step`.  The reference's ``donate`` (buffer donation to
+XLA) has no meaning for eager torch and is dropped.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from byteps_tpu_torch.api import declare_tensor, push_pull_async, synchronize
+from byteps_tpu_torch.comm import collectives
+from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
 from byteps_tpu_torch.compression.base import Compression
 from byteps_tpu_torch.compression.registry import translate_compression_params
 
@@ -132,3 +141,164 @@ def weak_hook(owner: object, method: str, *args) -> Callable[[torch.nn.Parameter
             getattr(alive, method)(p, *args)
 
     return hook
+
+
+# --- step builders over the host's process group ---------------------------
+
+
+def allreduce_gradients(parameters: Iterable[torch.Tensor], average: bool = True,
+                        mesh: Optional[Mesh] = None) -> None:
+    """All-reduce every ``.grad`` of ``parameters`` in place over the host's
+    group, averaged when ``average`` (``byteps_tpu.optim.allreduce_gradients``,
+    there an optax transform)."""
+    mesh = mesh or require_mesh()
+    for p in parameters:
+        if p.grad is not None:
+            p.grad.copy_(collectives.push_pull(p.grad, average=average, mesh=mesh))
+
+
+def _grads(params: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+
+
+def _set_grads(params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+
+
+def _mean_loss(loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return collectives.push_pull(loss.detach(), average=True, mesh=mesh)
+
+
+def build_data_parallel_step(
+    loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor],
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh: Optional[Mesh] = None,
+    accumulate_steps: int = 1,
+    grad_quant_bits: Optional[int] = None,
+) -> Callable[[Any], torch.Tensor]:
+    """DistributedDataParallel as a step builder
+    (``byteps_tpu.optim.build_data_parallel_step``): returns
+    ``step(batch) -> loss``, which runs ``loss_fn(model, batch)`` on this
+    process's part of the batch, averages the gradients over the host's
+    group, steps ``optimizer`` (built over ``model``'s parameters) and
+    returns the loss averaged over the group.
+
+    ``accumulate_steps = k`` follows ``optax.MultiSteps``: the gradients
+    accumulate locally as a running mean for k calls, and only the k-th
+    all-reduces and steps the optimizer, with the MEAN of the k
+    micro-gradients.
+
+    ``grad_quant_bits=8``: every gradient, raveled in parameter order into
+    one f32 vector, rides the int8 ring (``ops.quantized_allreduce``); the
+    loss stays dense.  It does not combine with ``accumulate_steps > 1``."""
+    if grad_quant_bits is not None and grad_quant_bits != 8:
+        raise ValueError("grad_quant_bits: only 8 (int8) is supported")
+    if grad_quant_bits and accumulate_steps > 1:
+        raise ValueError("grad_quant_bits cannot combine with accumulate_steps>1")
+    if accumulate_steps < 1:
+        raise ValueError("accumulate_steps must be >= 1")
+    mesh = mesh or require_mesh()
+    params = [p for p in model.parameters() if p.requires_grad]
+    acc: List[torch.Tensor] = []
+    mini = 0
+
+    def reduce(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        if grad_quant_bits != 8:
+            return collectives.push_pull_tree(grads, average=True, mesh=mesh)
+        from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
+
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+        mean = quantized_psum(flat, mesh=mesh) / mesh.size
+        out, off = [], 0
+        for g in grads:
+            out.append(mean[off: off + g.numel()].reshape(g.shape).to(g.dtype))
+            off += g.numel()
+        return out
+
+    def step(batch: Any) -> torch.Tensor:
+        nonlocal acc, mini
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        grads = _grads(params)
+        if accumulate_steps > 1:
+            # optax.MultiSteps' running mean: acc + (g - acc) / (n + 1)
+            acc = grads if mini == 0 else [a + (g - a) / (mini + 1) for a, g in zip(acc, grads)]
+            mini += 1
+            if mini < accumulate_steps:
+                optimizer.zero_grad(set_to_none=True)
+                return _mean_loss(loss, mesh)
+            grads, acc, mini = acc, [], 0
+        _set_grads(params, reduce(grads))
+        optimizer.step()
+        return _mean_loss(loss, mesh)
+
+    return step
+
+
+def build_zero1_step(
+    loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor],
+    model: torch.nn.Module,
+    make_optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+    mesh: Optional[Mesh] = None,
+) -> Tuple[Callable[[], torch.optim.Optimizer], Callable[[Any], torch.Tensor]]:
+    """ZeRO-1 data parallelism (``byteps_tpu.optim.build_zero1_step``): the
+    optimizer state is sharded over the host's group.
+
+    The parameters, flattened to f32 and padded to a multiple of the group
+    size n, are cut into n shards.  ``init_fn()`` builds this rank's
+    optimizer, ``make_optimizer([shard])``, over its REAL parameter shard
+    (a flat f32 leaf tensor), so its state is 1/n of the whole, and returns
+    it.  ``step(batch) -> loss``: backward on this process's part of the
+    batch, the flattened f32 gradient reduce-scattered and divided by n,
+    the shard stepped, the updated shards all-gathered back into the
+    model's parameters (each in its dtype); the loss averaged over the
+    group.
+
+        init_fn, step = build_zero1_step(loss_fn, model,
+                                         lambda ps: torch.optim.Adam(ps, lr=1e-3))
+        opt = init_fn()
+        loss = step(batch)
+    """
+    mesh = mesh or require_mesh()
+    n = mesh.size
+    params = [p for p in model.parameters() if p.requires_grad]
+    total = sum(p.numel() for p in params)
+    shard_size = (total + (-total) % n) // n
+    own = slice(mesh.rank * shard_size, (mesh.rank + 1) * shard_size)
+    held: Dict[str, Any] = {}
+
+    def flatten(tensors: List[torch.Tensor]) -> torch.Tensor:
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+        return torch.cat([flat, flat.new_zeros(n * shard_size - total)])
+
+    def init_fn() -> torch.optim.Optimizer:
+        shard = flatten(params)[own].clone().requires_grad_()
+        held["shard"], held["opt"] = shard, make_optimizer([shard])
+        return held["opt"]
+
+    def step(batch: Any) -> torch.Tensor:
+        if "opt" not in held:
+            raise RuntimeError("build_zero1_step: call init_fn() before step()")
+        shard, opt = held["shard"], held["opt"]
+        for p in params:
+            p.grad = None
+        loss = loss_fn(model, batch)
+        loss.backward()
+        g_shard = collectives.reduce_scatter(flatten(_grads(params)), average=True, mesh=mesh)
+        with torch.no_grad():
+            shard.copy_(flatten(params)[own])
+        shard.grad = g_shard
+        opt.step()
+        flat = collectives.all_gather(shard.detach(), mesh=mesh)
+        with torch.no_grad():
+            off = 0
+            for p in params:
+                p.copy_(flat[off: off + p.numel()].view_as(p))
+                off += p.numel()
+                p.grad = None
+        return _mean_loss(loss, mesh)
+
+    return init_fn, step

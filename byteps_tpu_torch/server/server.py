@@ -59,6 +59,7 @@ from byteps_tpu_torch.comm.transport import (
     send_message,
 )
 from byteps_tpu_torch.comm.van import get_van
+from byteps_tpu_torch.core.telemetry import Counters
 
 
 def _log(msg: str) -> None:
@@ -160,6 +161,9 @@ class PSServer:
         #: the learning rate of error-feedback chains (REGISTER_COMPRESSOR
         #: with flag bit 0); chains registered later start with it
         self._ef_lr = 1.0
+        #: ``pushes_summed`` (worker pushes merged into a round) and
+        #: ``rounds_published``, logged when the process stops
+        self.stats = Counters()
 
     # --- lifecycle -------------------------------------------------------
 
@@ -431,6 +435,7 @@ class PSServer:
                     else:
                         _sum_into(ks.accum[: len(arr)], arr, ks.dtype_id)  # SUM_RECV
                 ks.recv_count += 1
+                self.stats.bump("pushes_summed")
                 if wid and msg.version > 0:
                     ks.push_seen[wid] = msg.version
                 if ks.recv_count >= self.num_workers:
@@ -446,6 +451,7 @@ class PSServer:
         buffers."""
         ks.store, ks.accum = ks.accum, ks.store
         ks.store_version += 1
+        self.stats.bump("rounds_published")
         ks.recv_count = 0
         flush, keep = [], []
         for p in ks.pending_pulls:
@@ -489,6 +495,11 @@ def _serve_until_signaled(node) -> None:
 
     def _graceful(_signum, _frame):
         node.stop()
+        stats = getattr(node, "stats", None)
+        if stats is not None:
+            counts = stats.snapshot()
+            _log(f"rank {node.rank} summed {counts.get('pushes_summed', 0)} pushes into "
+                 f"{counts.get('rounds_published', 0)} rounds")
         done.set()
 
     for sig in (signal.SIGTERM, signal.SIGINT):

@@ -59,8 +59,29 @@ Phases, each fatal on failure:
      bitwise DistributedOptimizer + AdamW, CrossBarrier(adam) within 1e-6 of
      torch.optim.Adam, and two backward passes in a row pushing the accumulated
      gradient, not zeros;
- 12. one JSON line listing the kernels, then the contract line
+ 12. the hybrid path: a scheduler, two servers and two hosts, each `python -m
+     byteps_tpu_torch.launcher.launch` at BYTEPS_LOCAL_SIZE=1 on this card
+     (DMLC_NUM_WORKER=2, each host a one-rank NCCL group: NCCL takes one rank
+     of a group per GPU), each host running `chip_smoke.py --hybrid-host`:
+     the one-rank collectives bitwise their inputs; 2 layers in f32 through
+     HybridDataParallel (SGD, 4 sequences a host), the hosts bitwise equal to
+     each other and to one process averaging the two halves' gradients, and
+     within atol 1e-5 + rtol 1e-4 of one process on the combined batch;
+     BERT-large at full depth, 16 sequences a host, through
+     DistributedOptimizer(AdamW) with bare onebit: the global batch's loss
+     falling, the hosts' parameters bitwise equal, bytes against the
+     partition table, K1-K4 launched, and two pushes summed into every server
+     round;
+ 13. the int8 ring's quantize and dequantize on one full partition: bitwise
+     their CPU run, timed with L2 cold beside their bytes bounds;
+ 14. the step builders (build_data_parallel_step, build_zero1_step,
+     accumulate_steps=2, grad_quant_bits=8) at one rank of an NCCL group, 2
+     layers, f32: within 1e-6 of DistributedOptimizer at one worker;
+ 15. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
+
+`python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host, which the
+launcher runs; it is not run by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -708,13 +729,14 @@ def check_full_depth(model, cfg, tok, tgt) -> None:
           flush=True)
 
 
-def profile_step(step, tok, tgt, step_ms: float) -> float:
+def profile_step(step, tok, tgt, step_ms: float) -> tuple:
     """One more step under torch.profiler: device time by kernel family and
     the device's busy share, of the profiled step's wall time and of
     ``step_ms``, the mean step time without the profiler.  Only the device's
     own events are summed (kernels, copies): a CPU operator's row carries
     the device time of the kernels it launched, and a user annotation
-    (``Optimizer.step#...``) spans kernels; either would count them twice."""
+    (``Optimizer.step#...``) spans kernels; either would count them twice.
+    Returns (the step's loss, device busy ms or None where not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -731,7 +753,7 @@ def profile_step(step, tok, tgt, step_ms: float) -> float:
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         print("profile: no device time recorded (not measured)", flush=True)
-        return loss
+        return loss, None
     families = {"flash attention kernels": 0.0, "onebit packer (K4)": 0.0, "matmul": 0.0,
                 "optimizer (multi_tensor_apply)": 0.0, "copies": 0.0, "other": 0.0}
     for e in kernels:
@@ -751,7 +773,7 @@ def profile_step(step, tok, tgt, step_ms: float) -> float:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
-    return loss
+    return loss, total_ms
 
 
 def train_main_path(card: str) -> dict:
@@ -786,7 +808,7 @@ def train_main_path(card: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     losses += [float(x) for x in timed]
-    losses.append(profile_step(step, tok, tgt, dt / STEPS * 1e3))
+    losses.append(profile_step(step, tok, tgt, dt / STEPS * 1e3)[0])
     counts = dict(fa.launches)
     bps.shutdown()
 
@@ -970,7 +992,7 @@ def train_distributed(card: str) -> dict:
         first_s = time.perf_counter() - t0
         timed, split, dt = _timed_steps(model, opt, tok, tgt, DIST_STEPS)
         losses += timed
-        losses.append(profile_step(step, tok, tgt, dt / DIST_STEPS * 1e3))
+        losses.append(profile_step(step, tok, tgt, dt / DIST_STEPS * 1e3)[0])
         torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
@@ -1159,7 +1181,7 @@ def train_compressed_chain(card: str, bare_wire_step: int) -> None:
         first_s = time.perf_counter() - t0
         timed, split, dt = _timed_steps(model, opt, tok, tgt, CHAIN_STEPS)
         losses += timed
-        losses.append(profile_step(step, tok, tgt, dt / CHAIN_STEPS * 1e3))
+        losses.append(profile_step(step, tok, tgt, dt / CHAIN_STEPS * 1e3)[0])
         torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
@@ -1559,6 +1581,494 @@ def check_ddp_cross_barrier(card: str) -> None:
           f"{card}", flush=True)
 
 
+# the hybrid path: two hosts (launchers) of one process each on this card,
+# DMLC_NUM_WORKER=2 behind a scheduler and two servers
+HYBRID_HOSTS = 2
+HYBRID_BATCH = BATCH // HYBRID_HOSTS  # per host: 16, the main path's 32 together
+# six timed steps: with two workers the servers re-sign the sum of two 1-bit
+# payloads, and the global loss of the first five steps does not fall yet
+# (10.8149 to 10.8204 in this script's first runs of the phase)
+HYBRID_WARMUP, HYBRID_STEPS = 1, 6
+# the 2-layer equivalence: f32, SGD, 4 sequences a host, 3 steps.  Bitwise one
+# process that averages the two halves' gradients as the servers do, and
+# within atol 1e-5 + rtol 1e-4 of one process on the combined batch of 8: the
+# same f32 sums split in two and averaged differ in the last places, and the
+# embeddings (layer-normed at init from values ~0.02) grow such a difference
+# ~30x a step at lr 1e-3 (9.7e-6 after three steps on the card), ~10x at 3e-4,
+# while the parameters move ~2e-4
+EQ_LAYERS, EQ_BATCH, EQ_STEPS, EQ_LR = 2, 4, 3, 3e-4
+EQ_ATOL, EQ_RTOL = 1e-5, 1e-4
+#: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
+#: and the bytes one worker moves a step, from the distributed path's table
+DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
+# the step builders at one rank: 2 layers, f32, batch 8 (two micro-batches of
+# 4 for accumulate_steps=2), 3 optimizer steps, within 1e-6 of
+# DistributedOptimizer at one worker
+BUILDER_STEPS, BUILDER_ATOL = 3, 1e-6
+
+
+def _param_digest(model) -> str:
+    """sha256 over every parameter's bytes, in order: equal digests are
+    bitwise equal parameters."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    with torch.no_grad():
+        for p in model.parameters():
+            h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _check_one_rank_nccl(mesh) -> list:
+    """Each collective of the host's one-rank NCCL group leaves its input
+    bitwise as it was: this checks NCCL's bring-up and the wiring, not a
+    reduction."""
+    import torch
+
+    from byteps_tpu_torch.comm import collectives as coll
+
+    x = torch.randn(4099, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    rows = x[:4096].reshape(64, 64)
+    runs = {
+        "all_reduce": (coll.push_pull(x, average=False), x),
+        "all_reduce (scatter_gather: reduce_scatter_tensor + all_gather_into_tensor)":
+            (coll.push_pull(x, average=False, mode="scatter_gather"), x),
+        "reduce_scatter_tensor": (coll.reduce_scatter(rows, average=False), rows),
+        "all_gather_into_tensor": (coll.all_gather(rows), rows),
+        "broadcast": (coll.broadcast(x), x),
+    }
+    torch.cuda.synchronize()
+    bad = [k for k, (got, want) in runs.items()
+           if got.device.type != "cuda" or not torch.equal(got, want)]
+    if bad:
+        fail(f"hybrid: one-rank NCCL collectives changed their input: {bad}")
+    return list(runs)
+
+
+def hybrid_host(work: str) -> None:
+    """One host of the hybrid phase, run by the port's launcher at
+    BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --hybrid-host <dir>``): a one-rank
+    NCCL group on the card made the global mesh, so every push_pull is
+    host-level (the group's all-reduce, the PS across the two hosts, the
+    broadcast); then the 2-layer equivalence through HybridDataParallel and
+    BERT-large at full depth through DistributedOptimizer(AdamW) with bare
+    onebit.  Writes what it measured to <dir>/host<h>.json."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+    from byteps_tpu_torch.parallel import HybridDataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    t0 = time.perf_counter()
+    bps.init()
+    mesh = build_mesh(f"dp:{bps.local_size()}")
+    set_global_mesh(mesh)
+    out = {"host": host, "rank": bps.rank(), "size": bps.size(), "mesh": repr(mesh),
+           "device": str(bps.device()), "init_s": time.perf_counter() - t0,
+           "nccl_checks": _check_one_rank_nccl(mesh)}
+
+    # the 2-layer equivalence, f32
+    fa.reset_launches()
+    _, model, tok, tgt = _bert(EQ_LAYERS, batch=HYBRID_HOSTS * EQ_BATCH,
+                               compute_dtype=torch.float32, remat=False)
+    rows = slice(host * EQ_BATCH, (host + 1) * EQ_BATCH)
+    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=EQ_LR), mesh=mesh)
+    out["eq_losses"] = [hdp.step((tok[rows], tgt[rows]), lambda m, b: m.loss(*b))
+                        for _ in range(EQ_STEPS)]
+    torch.cuda.synchronize()
+    out["eq_digest"] = _param_digest(model)
+    out["eq_launches"] = dict(fa.launches)
+    if host == 0:
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   os.path.join(work, "eq_params.pt"))
+    del hdp, model
+
+    # BERT-large at full depth, this host's 16 of the main path's 32 sequences
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+    rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
+    tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+    bps.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression_params={"compressor": "onebit", "scaling": True},
+    )
+    step = build_train_step(model, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ob.reset_launches()
+    counters().reset()
+    t0 = time.perf_counter()
+    losses = [float(step(tok, tgt)) for _ in range(HYBRID_WARMUP)]
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    timed, split, dt = _timed_steps(model, opt, tok, tgt, HYBRID_STEPS)
+    losses += timed
+    loss, busy_ms = profile_step(step, tok, tgt, dt / HYBRID_STEPS * 1e3)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    table = get_state().engine.partition_table()
+    grads = [r for r in table if r["name"].startswith("Gradient.")]
+    compressed = [r for r in grads if r["wire_nbytes"] is not None]
+    out.update(
+        losses=losses, step_s=dt / HYBRID_STEPS,
+        split_ms={k: v / HYBRID_STEPS * 1e3 for k, v in split.items()},
+        busy_ms=busy_ms, launches={**fa.launches, **ob.launches},
+        counters=counters().snapshot(), steps=HYBRID_WARMUP + HYBRID_STEPS + 1,
+        compressed_parts=len(compressed),
+        want_d2h=(sum(r["wire_nbytes"] for r in compressed)
+                  + sum(r["length"] * r["itemsize"] for r in grads
+                        if r["wire_nbytes"] is None)),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        digest=_param_digest(model), n_layers=cfg.n_layers,
+    )
+    bps.shutdown()
+    set_global_mesh(None)
+    mesh.destroy()
+    with open(os.path.join(work, f"host{host}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _server_pushes(log_dir: str) -> list:
+    """Each server's (pushes summed, rounds published), from the line a
+    server logs when it stops."""
+    import re
+
+    found = []
+    for i in range(2):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            m = re.findall(r"summed (\d+) pushes into (\d+) rounds", f.read())
+        found.append(tuple(int(v) for v in m[-1]) if m else None)
+    return found
+
+
+def _stop_processes(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def train_hybrid(card: str) -> dict:
+    """The hybrid path: a scheduler and two servers of the port, and two
+    hosts, each `python -m byteps_tpu_torch.launcher.launch` at
+    BYTEPS_LOCAL_SIZE=1 on this card (NCCL refuses two ranks of one group on
+    one GPU, so each host's group is one process), DMLC_NUM_WORKER=2: the
+    port's first run with two workers, real sums on the servers.  Checks the
+    hosts' one-rank NCCL collectives, the 2-layer equivalence with one
+    process on the combined batch, and BERT-large at full depth: falling
+    losses, both hosts' parameters bitwise equal, bytes against the
+    partition table, K1-K4 launched, two pushes summed into every round."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.transformer import build_train_step
+
+    label = "hybrid"
+    wall = time.perf_counter()
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker"}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    results = []
+    with tempfile.TemporaryDirectory() as work:
+        port, procs = _start_ps_processes(env, work)
+        hosts = []
+        try:
+            for h in range(HYBRID_HOSTS):
+                with open(os.path.join(work, f"host{h}.log"), "w") as log:
+                    hosts.append(subprocess.Popen(
+                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                         sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                         "--hybrid-host", work],
+                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
+                                       "DMLC_WORKER_ID": str(h)},
+                        stdout=log, stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + 420
+            while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
+                if any(p.poll() not in (None, 0) for p in hosts):
+                    break
+                time.sleep(0.5)
+            rcs = [p.poll() for p in hosts]
+        finally:
+            _stop_processes(hosts)
+            _stop_processes(procs)
+        logs = {}
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"host{h}.log")) as f:
+                logs[h] = f.read()
+        if rcs != [0] * HYBRID_HOSTS:
+            for h, text in logs.items():
+                print(f"--- hybrid host {h} (exit {rcs[h]}):\n{text[-6000:]}", file=sys.stderr)
+            fail(f"{label}: the hosts exited {rcs}")
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"host{h}.json")) as f:
+                results.append(json.load(f))
+        pushes = _server_pushes(work)
+        eq_params = torch.load(os.path.join(work, "eq_params.pt"))
+    for h, text in logs.items():
+        for line in text.splitlines():
+            if line.startswith("profile: step wall"):
+                print(f"{label} host {h} {line}", flush=True)
+
+    # one process on the combined batch, no PS: the equivalence's reference
+    bps.init()
+    _, model, tok, tgt = _bert(EQ_LAYERS, batch=HYBRID_HOSTS * EQ_BATCH,
+                               compute_dtype=torch.float32, remat=False)
+    step = build_train_step(model, torch.optim.SGD(model.parameters(), lr=EQ_LR))
+    eq_ref = [float(step(tok, tgt)) for _ in range(EQ_STEPS)]
+    worst, moved = 0.0, 0.0
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            got = eq_params[k].to(v.device)
+            worst = max(worst, float(((got - v).abs() - EQ_RTOL * v.abs()).max()))
+            moved = max(moved, float((v - _WEIGHTS[EQ_LAYERS][k].to(v.device)).abs().max()))
+    del model, step
+    # one process averaging the two hosts' halves, the servers' sum then the
+    # engine's division: the hybrid's arithmetic, to the bit
+    _, halves, _, _ = _bert(EQ_LAYERS, batch=HYBRID_HOSTS * EQ_BATCH,
+                            compute_dtype=torch.float32, remat=False)
+    opt = torch.optim.SGD(halves.parameters(), lr=EQ_LR)
+    for _ in range(EQ_STEPS):
+        grads = []
+        for h in range(HYBRID_HOSTS):
+            opt.zero_grad(set_to_none=True)
+            rows = slice(h * EQ_BATCH, (h + 1) * EQ_BATCH)
+            halves.loss(tok[rows], tgt[rows]).backward()
+            grads.append([p.grad for p in halves.parameters()])
+        for p, g0, g1 in zip(halves.parameters(), *grads):
+            p.grad = (g0 + g1) / HYBRID_HOSTS
+        opt.step()
+    halves_digest = _param_digest(halves)
+    bps.shutdown()
+    del halves, opt, grads
+
+    a, b = results
+    n = a["steps"]
+    want_flash = {"flash_fwd": 2 * N_LAYERS_FULL * n, "flash_bwd_dq": N_LAYERS_FULL * n,
+                  "flash_bwd_dkv": N_LAYERS_FULL * n}
+    # the loss of the global batch: the hosts' losses are over their halves
+    mean = [sum(v) / HYBRID_HOSTS for v in zip(*(r["losses"] for r in results))]
+    print(f"{label}: 2 hosts, each `python -m byteps_tpu_torch.launcher.launch` at "
+          f"BYTEPS_LOCAL_SIZE=1 on {a['device']} ({a['mesh']}), DMLC_NUM_WORKER=2, 2 server "
+          f"processes; host ranks {[r['rank'] for r in results]}; one-rank NCCL "
+          f"{', '.join(a['nccl_checks'])} each bitwise its input (a check of NCCL's bring-up "
+          f"and wiring, not of a reduction)", flush=True)
+    print(f"{label}: {EQ_LAYERS} layers at BERT-large's widths, f32, SGD lr {EQ_LR}, "
+          f"{EQ_BATCH} sequences a host, {EQ_STEPS} steps through HybridDataParallel: the "
+          f"hosts' parameters bitwise equal {a['eq_digest'] == b['eq_digest']}, and bitwise one "
+          f"process averaging the two halves' gradients {a['eq_digest'] == halves_digest}; "
+          f"worst |hybrid - "
+          f"one process on the combined batch of {HYBRID_HOSTS * EQ_BATCH}| beyond rtol "
+          f"{EQ_RTOL}: {worst:.3e} (atol {EQ_ATOL}; the parameters moved up to {moved:.3e}); "
+          f"losses host 0 {[round(x, 5) for x in a['eq_losses']]}, one process "
+          f"{[round(x, 5) for x in eq_ref]}", flush=True)
+    for r in results:
+        sps = HYBRID_HOSTS * HYBRID_BATCH / r["step_s"]
+        busy = ("not measured" if r["busy_ms"] is None else
+                f"{r['busy_ms']:.1f} ms ({100 * r['busy_ms'] / (r['step_s'] * 1e3):.1f}% of the "
+                "step)")
+        print(f"{label} host {r['host']}: BERT-large {r['n_layers']} layers seq {SEQ} bf16 remat "
+              f"flash, batch {HYBRID_BATCH} a host ({HYBRID_HOSTS * HYBRID_BATCH} together), "
+              f"DistributedOptimizer(AdamW) + bare onebit (scaling): losses "
+              f"{[round(x, 4) for x in r['losses']]}; {sps:.2f} global samples/s "
+              f"({r['step_s'] * 1e3:.1f} ms/step over {HYBRID_STEPS} steps; first step "
+              f"{r['first_s']:.1f} s); split "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in r["split_ms"].items())
+              + f"; device busy {busy}; peak memory {r['peak_gib']:.2f} GiB; init "
+              f"{r['init_s']:.1f} s; on {card}", flush=True)
+        c = r["counters"]
+        print(f"{label} host {r['host']}: per step K4 launches "
+              f"{r['launches']['onebit_pack'] / n:g} (compressed partitions "
+              f"{r['compressed_parts']}), flash "
+              f"{ {k: r['launches'][k] / n for k in want_flash} }, d2h_bytes "
+              f"{c.get('d2h_bytes', 0) / n:.0f}, wire_tx_bytes "
+              f"{c.get('wire_tx_bytes', 0) / n:.0f}, wire_rx_bytes "
+              f"{c.get('wire_rx_bytes', 0) / n:.0f} (partition table {r['want_d2h']})",
+              flush=True)
+    print(f"{label}: the global batch's loss (the hosts' mean) {[round(x, 4) for x in mean]}; "
+          f"servers' (pushes summed, rounds) {pushes}; the hosts' full-depth parameters "
+          f"bitwise equal {a['digest'] == b['digest']}; phase wall "
+          f"{time.perf_counter() - wall:.1f} s", flush=True)
+
+    bad = []
+    if {r["rank"] for r in results} != {0, 1} or {r["size"] for r in results} != {2}:
+        bad.append(f"the hosts' ranks and sizes {[(r['rank'], r['size']) for r in results]}")
+    if not worst <= EQ_ATOL:
+        bad.append(f"{EQ_LAYERS} layers through HybridDataParallel differ from one process on "
+                   f"the combined batch by {worst:.3e} beyond atol {EQ_ATOL} + rtol {EQ_RTOL}")
+    if a["eq_digest"] != b["eq_digest"] or a["digest"] != b["digest"]:
+        bad.append("the two hosts' parameters differ")
+    if a["eq_digest"] != halves_digest:
+        bad.append(f"{EQ_LAYERS} layers through HybridDataParallel are not bitwise one process "
+                   "averaging the two halves' gradients")
+    if not (all(math.isfinite(x) for r in results for x in r["losses"]) and mean[-1] < mean[0]):
+        bad.append(f"the global batch's losses not finite and falling: {mean}")
+    for r in results:
+        h, c = r["host"], r["counters"]
+        if r["compressed_parts"] != DIST_COMPRESSED_PARTS or r["want_d2h"] != DIST_D2H_STEP:
+            bad.append(f"host {h}'s partition table: {r['compressed_parts']} compressed "
+                       f"partitions, {r['want_d2h']} bytes a step, expected "
+                       f"{DIST_COMPRESSED_PARTS} and {DIST_D2H_STEP}")
+        bad += [f"host {h} {k} {c.get(k, 0) / n:.0f} a step, expected {DIST_D2H_STEP}"
+                for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
+                if c.get(k, 0) != n * DIST_D2H_STEP]
+        if r["launches"]["onebit_pack"] != n * DIST_COMPRESSED_PARTS:
+            bad.append(f"host {h} launched K4 {r['launches']['onebit_pack']} times in {n} "
+                       f"steps, expected {DIST_COMPRESSED_PARTS} a step")
+        if {k: r["launches"][k] for k in want_flash} != want_flash:
+            bad.append(f"host {h} flash launches {r['launches']}, expected {want_flash}")
+        if r["eq_launches"] != {k: EQ_LAYERS * EQ_STEPS for k in want_flash}:
+            bad.append(f"host {h} {EQ_LAYERS}-layer flash launches {r['eq_launches']}")
+    if not all(p and p[0] == HYBRID_HOSTS * p[1] and p[1] > 0 for p in pushes):
+        bad.append(f"the servers' (pushes summed, rounds): {pushes}, expected "
+                   f"{HYBRID_HOSTS} pushes a round")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return {"launches_a_step": {k: v // n for k, v in a["launches"].items()}}
+
+
+def check_int8_ring_ops() -> None:
+    """The int8 ring's quantize and dequantize (plain torch ops, as the
+    reference leaves them to XLA) on one full partition on the card: bitwise
+    their CPU run, and timed with L2 cold as K4 is, beside their bytes
+    bounds, so that a later slice knows whether one needs a kernel."""
+    import torch
+
+    from byteps_tpu_torch.ops.quantized_allreduce import dequantize, quantize
+
+    n = ONEBIT_TIMED_N
+    x = _onebit_input(n, seed=13, specials=False)
+    q, s = quantize(x)
+    deq = dequantize(q, s)
+    qc, sc = quantize(x.cpu())
+    differ = {"int8 words": int((q.cpu() != qc).sum()), "scales": int((s.cpu() != sc).sum()),
+              "dequantized": int((deq.cpu() != dequantize(qc, sc)).sum())}
+    if any(differ.values()):
+        fail(f"int8 ring ops: quantize / dequantize on the card differ from their CPU run in "
+             f"{differ} elements")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = {"quantize": _cold_events_ms(lambda: quantize(x), flush),
+             "dequantize": _cold_events_ms(lambda: dequantize(q, s), flush)}
+    del flush
+    scales = 4 * n // 256
+    nbytes = {"quantize": 4 * n + n + scales, "dequantize": n + scales + 4 * n}
+    print(f"int8 ring ops n={n} float32, block 256 (plain torch ops): bitwise their CPU run; "
+          + "; ".join(f"{k} {float(np.median(v)):.5f} ms with L2 cold (median of {len(v)}), "
+                      f"bound {nbytes[k] / PEAK_BYTES * 1e3:.5f} ms (bytes, {nbytes[k]}), "
+                      f"{nbytes[k] / PEAK_BYTES * 1e3 / float(np.median(v)):.3f} of it"
+                      for k, v in times.items()), flush=True)
+
+
+def check_step_builders(card: str) -> None:
+    """build_data_parallel_step, build_zero1_step, accumulate_steps=2 and
+    the int8 ring at one rank of an NCCL group on the card, 2 layers at
+    BERT-large's widths in f32: each leaves the parameters within 1e-6 of
+    DistributedOptimizer at one worker (AdamW, without foreach, for the
+    first two and the ring; SGD on half of each micro-batch's loss with
+    backward_passes_per_step=2 for the accumulation, whose mean it is)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.mesh import build_mesh
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.optim import build_data_parallel_step, build_zero1_step
+
+    label = "step builders"
+    wall = time.perf_counter()
+
+    def adamw(ps):
+        return torch.optim.AdamW(ps, lr=1e-4, weight_decay=1e-4, foreach=False)
+
+    def model():
+        _, m, tok, tgt = _bert(EQ_LAYERS, batch=2 * EQ_BATCH, compute_dtype=torch.float32,
+                               remat=False)
+        return m, tok, tgt
+
+    def loss_fn(m, batch):
+        return m.loss(*batch)
+
+    bps.init()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = build_mesh("dp:1", init_method="file://" + os.path.join(tmp, "store"),
+                          rank=0, size=1)
+        try:
+            ref, tok, tgt = model()
+            step = build_train_step(ref, bps.DistributedOptimizer(
+                adamw(ref.parameters()), named_parameters=ref.named_parameters()))
+            for _ in range(BUILDER_STEPS):
+                step(tok, tgt)
+            diffs = {}
+            for name, kw in (("build_data_parallel_step", {}),
+                             ("build_data_parallel_step(grad_quant_bits=8)",
+                              {"grad_quant_bits": 8})):
+                m, _, _ = model()
+                dp = build_data_parallel_step(loss_fn, m, adamw(m.parameters()), mesh=mesh, **kw)
+                for _ in range(BUILDER_STEPS):
+                    dp((tok, tgt))
+                diffs[name] = _max_diff(ref, m)
+                del m, dp
+            m, _, _ = model()
+            init_fn, z1 = build_zero1_step(loss_fn, m, adamw, mesh=mesh)
+            init_fn()
+            for _ in range(BUILDER_STEPS):
+                z1((tok, tgt))
+            diffs["build_zero1_step"] = _max_diff(ref, m)
+            del m, z1, init_fn, ref, step
+
+            ref, _, _ = model()
+            opt = bps.DistributedOptimizer(torch.optim.SGD(ref.parameters(), lr=EQ_LR),
+                                           named_parameters=ref.named_parameters(),
+                                           backward_passes_per_step=2)
+            m, _, _ = model()
+            acc = build_data_parallel_step(loss_fn, m, torch.optim.SGD(m.parameters(), lr=EQ_LR),
+                                           mesh=mesh, accumulate_steps=2)
+            halves = [slice(0, EQ_BATCH), slice(EQ_BATCH, 2 * EQ_BATCH)]
+            for _ in range(BUILDER_STEPS):
+                opt.zero_grad(set_to_none=True)
+                for rows in halves:
+                    (ref.loss(tok[rows], tgt[rows]) / 2).backward()
+                    opt.step()
+                    acc((tok[rows], tgt[rows]))
+            diffs["build_data_parallel_step(accumulate_steps=2)"] = _max_diff(ref, m)
+            moved = max(float((p.detach() - _WEIGHTS[EQ_LAYERS][k].to(p.device)).abs().max())
+                        for k, p in m.named_parameters())
+            del ref, opt, m, acc
+        finally:
+            mesh.destroy()
+    bps.shutdown()
+    bad = {k: v for k, v in diffs.items() if not v <= BUILDER_ATOL}
+    if bad:
+        fail(f"{label}: parameters beyond {BUILDER_ATOL} of DistributedOptimizer at one "
+             f"worker: {bad}")
+    print(f"{label}: one rank of an NCCL group on the card, {EQ_LAYERS} layers at "
+          f"BERT-large's widths, f32, batch {2 * EQ_BATCH}, {BUILDER_STEPS} optimizer steps; max "
+          f"abs difference from DistributedOptimizer at one worker: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+          + f" (atol {BUILDER_ATOL}; the accumulated run moved the parameters up to "
+          f"{moved:.3e}); phase wall {time.perf_counter() - wall:.1f} s, on {card}", flush=True)
+
+
 def main_path_setup() -> str:
     """The settings every measured run starts from: f32 matmuls in full
     precision.  Prints and returns the card's name and power limit."""
@@ -1604,6 +2114,11 @@ def main() -> None:
     print(f"device codec phases: wall {time.perf_counter() - t0:.1f} s", flush=True)
     train_randomk_ef(card)
     check_ddp_cross_barrier(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = train_hybrid(card)
+    check_int8_ring_ops()
+    check_step_builders(card)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
     replaces = {
@@ -1646,6 +2161,7 @@ def main() -> None:
             **({"sdpa_bwd_ms": perf["sdpa_bwd"][name]} if name in perf["sdpa_bwd"] else {}),
             "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
             "path": "single-worker main path",
+            "hybrid_launches_a_step_per_host": hybrid["launches_a_step"][name],
             **extra,
         })
     kernels.append({
@@ -1662,6 +2178,7 @@ def main() -> None:
         "kernels_a_call": onebit_perf["kernels_a_call"],
         "shape": f"n={ONEBIT_TIMED_N} float32 (one partition)",
         "path": "distributed path (1 worker, 2 servers, onebit)",
+        "hybrid_launches_a_step_per_host": hybrid["launches_a_step"]["onebit_pack"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1670,4 +2187,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--hybrid-host"]:
+        hybrid_host(sys.argv[2])  # one host of the hybrid phase, under the launcher
+    else:
+        main()

@@ -1,0 +1,278 @@
+"""Worker processes of the port's multi-process CPU tests.
+
+``python tests/torch_port_ranks.py <case> <out_dir>`` runs one local rank:
+``BYTEPS_LOCAL_RANK``, ``BYTEPS_LOCAL_SIZE`` and
+``BYTEPS_LOCAL_INIT_METHOD`` say which (``spawn_group`` sets them, as the
+launcher does).  It brings up the port on the CPU (a gloo group), runs the
+case and pickles what the case returns to
+``<out_dir>/<case>.<host>.<local rank>.pkl``, where ``<host>`` is
+``BYTEPS_GLOBAL_RANK`` (0 when unset).  The test modules import this file
+for the inputs and models the processes use, so both sides make them the
+same way.  It imports torch, numpy and the port only.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# --- inputs ---------------------------------------------------------------
+
+#: ragged shapes for push_pull (neither divides by 2 or 4 members)
+RAGGED = {"vec7": (7,), "mat3x5": (3, 5)}
+TREE_DICT = {"a": (5,), "b": (2, 3)}
+TREE_LIST = [(4,), (1, 2)]
+#: the int8 ring's cases: (label, shape, block)
+RING = [("flat5000", (5000,), 256), ("mat37x7", (37, 7), 64)]
+
+
+def member_inputs(seed: int, n: int, shape) -> np.ndarray:
+    """Every member's input, (n, *shape) float32 from one seed: member i
+    takes row i, the reference's shard_map takes the whole."""
+    return np.random.default_rng(seed).normal(size=(n, *shape)).astype(np.float32)
+
+
+# the MLP of tests/test_hybrid_topology.py, dp only: tanh(x @ w1) @ w2
+D, H, B, STEPS, LR = 8, 16, 8, 4, 0.2
+
+
+def mlp_params() -> Dict[str, np.ndarray]:
+    r = np.random.default_rng(7)
+    return {
+        "w1": r.normal(0, 0.3, (D, H)).astype(np.float32),
+        "w2": r.normal(0, 0.3, (H, D)).astype(np.float32),
+    }
+
+
+def mlp_data(worker: int):
+    r = np.random.default_rng(100 + worker)
+    x = r.normal(size=(STEPS, B, D)).astype(np.float32)
+    y = r.normal(size=(STEPS, B, D)).astype(np.float32)
+    return x, y
+
+
+class MLP(torch.nn.Module):
+    def __init__(self, params: Dict[str, np.ndarray]) -> None:
+        super().__init__()
+        for k in sorted(params):  # the reference ravels a dict in key order
+            self.register_parameter(k, torch.nn.Parameter(torch.from_numpy(params[k].copy())))
+
+
+def mlp_loss(model: MLP, batch) -> torch.Tensor:
+    x, y = batch
+    return ((torch.tanh(x @ model.w1) @ model.w2 - y) ** 2).mean()
+
+
+# the step builders: group of 4, the global batch of each step split in 4
+BUILDER_N, BUILDER_STEPS, BUILDER_LR = 4, 3, 0.05
+#: (label, optimizer, build_data_parallel_step kwargs)
+BUILDER_CASES = [
+    ("sgd", "sgd", {}),
+    ("adam", "adam", {}),
+    ("sgd_accumulate2", "sgd", {"accumulate_steps": 2}),
+    ("adam_accumulate2", "adam", {"accumulate_steps": 2}),
+    ("sgd_int8", "sgd", {"grad_quant_bits": 8}),
+]
+ZERO1_CASES = ["sgd", "adam"]
+
+
+def builder_data():
+    """(steps, global batch, D) inputs and targets of the step builders."""
+    r = np.random.default_rng(31)
+    x = r.normal(size=(BUILDER_STEPS, 4 * BUILDER_N, D)).astype(np.float32)
+    y = r.normal(size=(BUILDER_STEPS, 4 * BUILDER_N, D)).astype(np.float32)
+    return x, y
+
+
+def torch_optimizer(kind: str, params) -> torch.optim.Optimizer:
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=BUILDER_LR)
+    return torch.optim.Adam(params, lr=BUILDER_LR, foreach=False)
+
+
+# --- cases, one per process group -----------------------------------------
+
+
+def case_collectives() -> dict:
+    """The collectives and the int8 ring on every member's seeded input,
+    and the host-level push_pull of a group on one host."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import collectives as C
+    from byteps_tpu_torch.comm.mesh import require_mesh
+    from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
+
+    bps.init(device="cpu")
+    mesh = require_mesh()
+    r, n = mesh.rank, mesh.size
+    out = {}
+    for i, (label, shape) in enumerate(RAGGED.items()):
+        x = torch.from_numpy(member_inputs(10 + i, n, shape)[r])
+        for mode in ("psum", "scatter_gather"):
+            for average in (True, False):
+                out[("push_pull", label, mode, average)] = C.push_pull(
+                    x, average=average, mode=mode).numpy()
+    x = torch.from_numpy(member_inputs(20, n, (3 * n, 2))[r])
+    for average in (True, False):
+        out[("reduce_scatter", average)] = C.reduce_scatter(x, average=average).numpy()
+    out["all_gather"] = C.all_gather(torch.from_numpy(member_inputs(21, n, (3, 2))[r])).numpy()
+    x = torch.from_numpy(member_inputs(22, n, (6,))[r])
+    for root in (0, n - 1):
+        out[("broadcast", root)] = C.broadcast(x, root=root).numpy()
+    tree = {k: torch.from_numpy(member_inputs(23 + i, n, s)[r])
+            for i, (k, s) in enumerate(TREE_DICT.items())}
+    out["tree_dict"] = {k: v.numpy() for k, v in C.push_pull_tree(tree).items()}
+    tree = [torch.from_numpy(member_inputs(25 + i, n, s)[r]) for i, s in enumerate(TREE_LIST)]
+    out["tree_list"] = [v.numpy() for v in C.push_pull_tree(tree, average=False)]
+    for i, (label, shape, block) in enumerate(RING):
+        x = torch.from_numpy(member_inputs(30 + i, n, shape)[r])
+        out[("ring", label)] = quantized_psum(x, axis_size=n, block=block).numpy()
+    out["ring_zero"] = quantized_psum(torch.zeros(512)).numpy()
+    try:
+        quantized_psum(torch.ones(256), axis_size=n + 1)
+    except ValueError as e:
+        out["ring_mismatch"] = str(e)
+    x = torch.from_numpy(member_inputs(40, n, (11,))[r])
+    out["host_level"] = bps.push_pull(x, name="host.level").numpy()
+    out["host_level_sum"] = bps.push_pull(x, name="host.level.sum", average=False).numpy()
+    out["identity"] = (bps.rank(), bps.size(), bps.local_rank(), bps.local_size())
+    bps.shutdown()
+    return out
+
+
+def case_hybrid() -> dict:
+    """One host of the hybrid run: HybridDataParallel on the MLP, its part
+    of the host's batch; then the host-level push_pull and
+    broadcast_parameters across the hosts."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.parallel import HybridDataParallel
+
+    bps.init(device="cpu")
+    host, r, n = int(os.environ["BYTEPS_GLOBAL_RANK"]), bps.local_rank(), bps.local_size()
+    model = MLP(mlp_params())
+    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=LR))
+    x, y = mlp_data(host)
+    rows = slice(r * B // n, (r + 1) * B // n)
+    batch = (torch.from_numpy(x[0][rows]), torch.from_numpy(y[0][rows]))
+    losses = [hdp.step(batch, mlp_loss) for _ in range(STEPS)]
+    out = {"losses": losses, "params": {k: v.detach().numpy().copy()
+                                        for k, v in model.named_parameters()}}
+    me = host * n + r
+    v = torch.from_numpy(member_inputs(50, 2 * n, (11,))[me])
+    out["host_level"] = bps.push_pull(v, name="hybrid.host.level").numpy()
+    out["identity"] = (bps.rank(), bps.size(), bps.local_rank(), bps.local_size())
+    own = {"w": torch.full((3,), float(me))}
+    bps.broadcast_parameters(own, root_rank=0)
+    out["broadcast"] = (me, own["w"].numpy())
+    bps.shutdown()
+    return out
+
+
+def case_builders() -> dict:
+    """The step builders at group size BUILDER_N, each rank on its rows of
+    every step's global batch; ZeRO-1's state size; allreduce_gradients."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.optim import (allreduce_gradients, build_data_parallel_step,
+                                        build_zero1_step)
+
+    bps.init(device="cpu")
+    r, n = bps.local_rank(), bps.local_size()
+    x, y = builder_data()
+    per = x.shape[1] // n
+    batches = [(torch.from_numpy(x[s][r * per:(r + 1) * per]),
+                torch.from_numpy(y[s][r * per:(r + 1) * per])) for s in range(BUILDER_STEPS)]
+
+    def params(model):
+        return {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
+
+    out = {}
+    for label, kind, kw in BUILDER_CASES:
+        model = MLP(mlp_params())
+        step = build_data_parallel_step(mlp_loss, model, torch_optimizer(kind, model.parameters()),
+                                        **kw)
+        losses = [float(step(b)) for b in batches]
+        out[("dp", label)] = (params(model), losses)
+    for kind in ZERO1_CASES:
+        model = MLP(mlp_params())
+        init_fn, step = build_zero1_step(mlp_loss, model,
+                                         lambda ps, kind=kind: torch_optimizer(kind, ps))
+        opt = init_fn()
+        losses = [float(step(b)) for b in batches]
+        state = [t.numel() for s in opt.state.values() for t in s.values()
+                 if torch.is_tensor(t) and t.dim() > 0]
+        out[("zero1", kind)] = (params(model), losses, state)
+    model = MLP(mlp_params())
+    for i, p in enumerate(model.parameters()):
+        p.grad = torch.from_numpy(member_inputs(60 + i, n, tuple(p.shape))[r])
+    allreduce_gradients(model.parameters())
+    out["allreduce_gradients"] = [p.grad.numpy().copy() for p in model.parameters()]
+    bps.shutdown()
+    return out
+
+
+CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders}
+
+
+# --- the test side --------------------------------------------------------
+
+
+def spawn_group(case: str, n: int, out_dir: str, env: Dict[str, str] = None,
+                host: int = 0) -> List[subprocess.Popen]:
+    """Start the ``n`` local ranks of one host running ``case``, its group's
+    rendezvous a file under ``out_dir``."""
+    base = {**os.environ, **(env or {}), "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
+            "BYTEPS_LOCAL_SIZE": str(n), "BYTEPS_GLOBAL_RANK": str(host),
+            "BYTEPS_LOCAL_INIT_METHOD": "file://" + os.path.join(out_dir, f"{case}.{host}.store")}
+    procs = []
+    for r in range(n):
+        log = open(os.path.join(out_dir, f"{case}.{host}.{r}.log"), "w")
+        with log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), case, out_dir],
+                env={**base, "BYTEPS_LOCAL_RANK": str(r)}, cwd=REPO,
+                stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def collect(procs: List[subprocess.Popen], case: str, n: int, out_dir: str,
+            host: int = 0, timeout: float = 120) -> List[dict]:
+    """Wait for a group's processes and load what each rank returned;
+    raises with the logs when one failed."""
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"{case}.{host}.{r}")
+        if p.returncode != 0:
+            with open(path + ".log") as f:
+                raise RuntimeError(f"{case} host {host} rank {r} exited {p.returncode}:\n"
+                                   + f.read()[-4000:])
+        with open(path + ".pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def main(case: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    result = CASES[case]()
+    host = os.environ.get("BYTEPS_GLOBAL_RANK") or "0"
+    path = os.path.join(out_dir, f"{case}.{host}.{os.environ['BYTEPS_LOCAL_RANK']}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(result, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])
