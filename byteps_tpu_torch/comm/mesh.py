@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -38,18 +38,12 @@ class Mesh:
     """The host's process group: ``size`` processes, this one ``rank``,
     bound to ``device``, talking over ``backend``."""
 
-    axis_names = (DP_AXIS,)
-
     def __init__(self, rank: int, size: int, device: torch.device, backend: str) -> None:
         self.rank = rank
         self.size = size
         self.device = device
         self.backend = backend
         self.group = dist.group.WORLD
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {DP_AXIS: self.size}
 
     def destroy(self) -> None:
         """Tear the process group down (the rendezvous cannot be reused)."""
@@ -85,20 +79,17 @@ def build_mesh(
     spec: str = "",
     device: Union[str, torch.device, None] = None,
     init_method: Optional[str] = None,
-    rank: Optional[int] = None,
-    size: Optional[int] = None,
 ) -> Mesh:
     """Bring up the host's process group and return it as a Mesh.
 
-    ``rank`` and ``size`` default to ``BYTEPS_LOCAL_RANK`` and
-    ``BYTEPS_LOCAL_SIZE``, ``init_method`` to ``BYTEPS_LOCAL_INIT_METHOD``,
-    ``device`` to the one ``init()`` bound (else ``cuda:<local rank>``).
-    Raises when the spec names another axis than dp or another size than
-    the group's, and when the group does not come up: a one-element
-    all-reduce over it must give the group's size."""
+    The rank and size are ``BYTEPS_LOCAL_RANK`` and ``BYTEPS_LOCAL_SIZE``;
+    ``init_method`` defaults to ``BYTEPS_LOCAL_INIT_METHOD``, ``device`` to
+    the one ``init()`` bound (else ``cuda:<local rank>``).  Raises when the
+    spec names another axis than dp or another size than the group's, and
+    when the group does not come up: a one-element all-reduce over it must
+    give the group's size."""
     cfg = get_config()
-    rank = cfg.local_rank if rank is None else rank
-    size = cfg.local_size if size is None else size
+    rank, size = cfg.local_rank, cfg.local_size
     axes = parse_mesh_spec(spec)
     other = [name for name, _ in axes if name != DP_AXIS]
     if other:

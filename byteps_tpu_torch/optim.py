@@ -161,11 +161,6 @@ def _grads(params: List[torch.Tensor]) -> List[torch.Tensor]:
     return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
 
 
-def _set_grads(params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-
-
 def _mean_loss(loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return collectives.push_pull(loss.detach(), average=True, mesh=mesh)
 
@@ -231,7 +226,8 @@ def build_data_parallel_step(
                 optimizer.zero_grad(set_to_none=True)
                 return _mean_loss(loss, mesh)
             grads, acc, mini = acc, [], 0
-        _set_grads(params, reduce(grads))
+        for p, g in zip(params, reduce(grads)):
+            p.grad = g
         optimizer.step()
         return _mean_loss(loss, mesh)
 

@@ -856,6 +856,18 @@ def _start_ps_processes(env: dict, log_dir: str) -> tuple:
     return port, procs
 
 
+def _stop_processes(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
 @contextlib.contextmanager
 def _ps_fleet(label: str):
     """A scheduler and two server processes for one worker (this process),
@@ -882,14 +894,7 @@ def _ps_fleet(label: str):
         finally:
             os.environ.clear()
             os.environ.update(saved)
-            for p in procs:
-                p.terminate()
-            for p in procs:
-                try:
-                    p.wait(timeout=10)
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    p.wait()
+            _stop_processes(procs)
 
 
 #: BERT-large's weights (init_params, seed 0) by depth, made once
@@ -1757,18 +1762,6 @@ def _server_pushes(log_dir: str) -> list:
     return found
 
 
-def _stop_processes(procs) -> None:
-    for p in procs:
-        if p.poll() is None:
-            p.terminate()
-    for p in procs:
-        try:
-            p.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-
-
 def train_hybrid(card: str) -> dict:
     """The hybrid path: a scheduler and two servers of the port, and two
     hosts, each `python -m byteps_tpu_torch.launcher.launch` at
@@ -2010,8 +2003,7 @@ def check_step_builders(card: str) -> None:
 
     bps.init()
     with tempfile.TemporaryDirectory() as tmp:
-        mesh = build_mesh("dp:1", init_method="file://" + os.path.join(tmp, "store"),
-                          rank=0, size=1)
+        mesh = build_mesh("dp:1", init_method="file://" + os.path.join(tmp, "store"))
         try:
             ref, tok, tgt = model()
             step = build_train_step(ref, bps.DistributedOptimizer(

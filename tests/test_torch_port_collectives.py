@@ -181,3 +181,31 @@ def test_a_cuda_tensor_never_goes_through_gloo():
         pcoll.push_pull(on_card, mesh=gloo)
     with pytest.raises(ValueError, match="a cpu tensor on the host's nccl group"):
         pcoll.broadcast(torch.ones(2), mesh=nccl)
+
+
+@pytest.mark.parametrize("spec,error,match", [
+    ("dp:2,tp:2", NotImplementedError, "ROADMAP.md Queue 1 item 9"),
+    ("sp:1", NotImplementedError, "ROADMAP.md Queue 1 item 9"),
+    ("dp:4", ValueError, "does not match the host's 2 processes"),
+    ("", RuntimeError, "no rendezvous"),
+])
+def test_build_mesh_refuses_what_it_cannot_build(monkeypatch, spec, error, match):
+    """Only a dp axis of the host's size is ported; without a rendezvous
+    the group cannot come up.  Each raises before any process group."""
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.comm import mesh as pmesh
+    from byteps_tpu_torch.common import config as pconfig
+
+    monkeypatch.setenv("BYTEPS_LOCAL_SIZE", "2")
+    monkeypatch.delenv("BYTEPS_LOCAL_INIT_METHOD", raising=False)
+    pconfig.clear_config()
+    try:
+        with pytest.raises(error, match=match):
+            pmesh.build_mesh(spec, device="cpu")
+    finally:
+        pconfig.clear_config()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no local group"):
+        pmesh.dp_size()
+    assert pmesh.dp_size(PortMesh(1, 4, torch.device("cpu"), "gloo")) == 4

@@ -221,3 +221,28 @@ def test_builders_raise_the_reference_value_errors():
             build_data_parallel_step(ranks.mlp_loss, model, opt, **kw)
         with pytest.raises(ValueError, match=match):
             ref_dp_step(lambda p, b: 0.0, optax.sgd(0.1), **kw)
+
+
+def test_hybrid_refuses_sharded_param_specs():
+    """A partition spec that shards a parameter is tensor parallelism
+    (Queue 1 item 9), and a hybrid needs a mesh."""
+    from byteps_tpu_torch.comm.mesh import Mesh as PortMesh
+    from byteps_tpu_torch.parallel import HybridDataParallel
+
+    model = ranks.MLP(ranks.mlp_params())
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    one = PortMesh(0, 1, torch.device("cpu"), "gloo")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+        HybridDataParallel(model, opt, mesh=one, param_specs={"w1": (None, "tp")})
+    with pytest.raises(RuntimeError, match="no mesh"):
+        HybridDataParallel(model, opt)
+
+
+def test_the_model_takes_any_dp_size_and_no_model_axis():
+    """dp lives outside the model (each process holds all of it); the model
+    axes still raise."""
+    from byteps_tpu_torch.models import transformer as tt
+
+    tt.validate_mesh({"dp": 4, "tp": 1})
+    with pytest.raises(NotImplementedError, match="pp=2.*Queue 1 item 9"):
+        tt.validate_mesh({"dp": 4, "pp": 2})
