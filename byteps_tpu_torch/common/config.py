@@ -123,8 +123,9 @@ def clear_config() -> None:
 
 
 #: planes of byteps_tpu this port does not carry yet (the PS path's, and
-#: model parallelism), each with the ROADMAP.md item that brings it.  Selecting one raises rather than
-#: run a different job than the one asked for.
+#: model parallelism), each with the ROADMAP.md item that brings it.
+#: Selecting one raises rather than run a different job than the one asked
+#: for.
 UNPORTED = {
     "fusion": "small-tensor fusion (Op.FUSED): ROADMAP.md Queue 1b item P1",
     "resync": "journal replay and RESYNC healing, RPC deadlines and retries: ROADMAP.md Queue 1b item P2",

@@ -6,14 +6,14 @@ engine (global.cc:105-403).
 device.  With ``BYTEPS_LOCAL_SIZE > 1`` and the group's rendezvous in
 ``BYTEPS_LOCAL_INIT_METHOD`` (one process per GPU, as
 ``byteps_tpu_torch.launcher.launch`` starts them) it brings up the host's
-process group (``comm.mesh``) and makes it the global mesh.  A distributed topology (more
-than one worker, or ``BYTEPS_FORCE_DISTRIBUTED=1``) registers with the
-scheduler at ``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, connects to the
-servers and starts the engine, on local rank 0 alone: one PS worker per
-host, as in ``byteps_tpu``, and the root tells the other local ranks the
-host's worker rank and the number of hosts.  ``shutdown_state()`` stops
-all of it.  The server and scheduler roles run as their own processes
-(``python -m byteps_tpu_torch.server``).
+process group (``comm.mesh``) and makes it the global mesh.  A distributed
+topology (more than one worker, or ``BYTEPS_FORCE_DISTRIBUTED=1``)
+registers with the scheduler at ``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``,
+connects to the servers and starts the engine, on local rank 0 alone: one
+PS worker per host, as in ``byteps_tpu``, and the root tells the other
+local ranks the host's worker rank and the number of hosts.
+``shutdown_state()`` stops all of it.  The server and scheduler roles run
+as their own processes (``python -m byteps_tpu_torch.server``).
 """
 
 from __future__ import annotations
@@ -81,6 +81,8 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 "server and scheduler roles with `python -m byteps_tpu_torch.server`"
             )
         st.device = _bind_device(cfg, device)
+        if cfg.is_distributed:
+            check_unported_env()
         try:
             if cfg.local_size > 1 and os.environ.get(LOCAL_INIT_METHOD):
                 from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
@@ -88,7 +90,6 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 st.mesh = build_mesh(device=st.device)
                 set_global_mesh(st.mesh)
             if cfg.is_distributed and cfg.local_rank == 0:
-                check_unported_env()
                 from byteps_tpu_torch.comm.ps_client import PSClient
                 from byteps_tpu_torch.core.engine import PipelineEngine
 

@@ -266,6 +266,8 @@ def _server_command() -> List[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # a SIGTERM unwinds through run_workers' finally, which stops the workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "--":
         argv = argv[1:]
@@ -296,6 +298,4 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 if __name__ == "__main__":
-    # a SIGTERM unwinds through run_workers' finally, which stops the workers
-    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
     raise SystemExit(main())

@@ -42,6 +42,7 @@ from byteps_tpu_torch.comm import collectives
 from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
 from byteps_tpu_torch.compression.base import Compression
 from byteps_tpu_torch.compression.registry import translate_compression_params
+from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
 
 
 class DistributedOptimizer(torch.optim.Optimizer):
@@ -202,8 +203,6 @@ def build_data_parallel_step(
     def reduce(grads: List[torch.Tensor]) -> List[torch.Tensor]:
         if grad_quant_bits != 8:
             return collectives.push_pull_tree(grads, average=True, mesh=mesh)
-        from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
-
         flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
         mean = quantized_psum(flat, mesh=mesh) / mesh.size
         out, off = [], 0
