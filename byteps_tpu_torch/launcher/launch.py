@@ -151,7 +151,7 @@ def allocate_cpu(
 def discover_local_size(env: Optional[Dict[str, str]] = None) -> int:
     """The number of worker processes on this host: ``BYTEPS_LOCAL_SIZE``
     when set; else the devices ``CUDA_VISIBLE_DEVICES`` (then
-    ``NVIDIA_VISIBLE_DEVICES``) lists, where ``all`` defers to the driver;
+    ``NVIDIA_VISIBLE_DEVICES``) lists, where ``all`` means every GPU torch sees;
     else ``torch.cuda.device_count()``.  Raises when that finds no GPU."""
     env = env if env is not None else dict(os.environ)
     if env.get("BYTEPS_LOCAL_SIZE"):

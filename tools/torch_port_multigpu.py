@@ -29,7 +29,6 @@ the PS plane: the group is one host's.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import subprocess
@@ -89,7 +88,8 @@ def rank_main(out_dir: str) -> None:
         got = got.detach().cpu().numpy()
         err = float(np.abs(got - want).max()) if got.size else 0.0
         out["errors"][name] = err
-        ok = np.array_equal(got, want) if exact else np.allclose(got, want, rtol=1e-6, atol=1e-6)
+        ok = (np.array_equal(got, want) if exact
+              else np.allclose(got, want, rtol=1e-6, atol=1e-6))
         if not ok:
             out["failed"].append(f"{name}: max abs err {err:.3e}")
 
@@ -101,7 +101,8 @@ def rank_main(out_dir: str) -> None:
             check(f"push_pull {shape} {mode} sum", C.push_pull(x, average=False, mode=mode),
                   xs.sum(0))
     xs = _inputs(20, n, (3 * n, 2))
-    check("reduce_scatter", C.reduce_scatter(mine(20, (3 * n, 2))), xs.mean(0)[3 * r:3 * r + 3])
+    check("reduce_scatter", C.reduce_scatter(mine(20, (3 * n, 2))),
+          xs.mean(0)[3 * r:3 * r + 3])
     check("all_gather", C.all_gather(mine(21, (3, 2))),
           _inputs(21, n, (3, 2)).reshape(3 * n, 2), exact=True)
     check("broadcast", C.broadcast(mine(22, (6,)), root=n - 1), _inputs(22, n, (6,))[n - 1],
@@ -149,11 +150,8 @@ def rank_main(out_dir: str) -> None:
         step((tok[rows], tgt[rows]))
     results["build_zero1_step"] = m
     for name, m in results.items():
-        h = hashlib.sha256()
-        for p in m.parameters():
-            h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        digest = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8).to(dev)
-        every = C.all_gather(digest[None])
+        digest = torch.frombuffer(bytearray.fromhex(cs._param_digest(m)), dtype=torch.uint8)
+        every = C.all_gather(digest.to(dev)[None])
         if not all(torch.equal(every[i], every[0]) for i in range(n)):
             out["failed"].append(f"{name}: the replicas differ")
     if r == 0:
@@ -174,7 +172,8 @@ def rank_main(out_dir: str) -> None:
     torch.cuda.empty_cache()
 
     # the gradient's all-reduce over NVLink, dense and on the int8 ring
-    g = torch.randn(GRAD_ELEMENTS, device=dev, generator=torch.Generator(device=dev).manual_seed(r))
+    g = torch.randn(GRAD_ELEMENTS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(r))
     out["allreduce_ms"] = _events_ms(lambda: C.push_pull(g, average=False))
     out["int8_ring_ms"] = _events_ms(lambda: quantized_psum(g))
     bps.shutdown()
