@@ -9,8 +9,8 @@ averaged over the workers when ``average``.  The result lies on the input's
 device; for a CUDA tensor, :func:`synchronize` makes the caller's current
 stream wait for it.
 
-With a local group (a global mesh: one process per GPU under the launcher
-with ``BYTEPS_LOCAL_SIZE > 1``) ``push_pull`` is host-level, BytePS's own
+With a local group (a global mesh: ``init()`` under the launcher, which
+starts one process per GPU) ``push_pull`` is host-level, BytePS's own
 topology: an all-reduce in the local group, the local root's PS
 push_pull of that sum across hosts, and a broadcast from the root, which
 :func:`synchronize` runs; ``average`` divides by ``local_size() × size()``.
@@ -133,16 +133,23 @@ def push_pull_async(
     push_pull of the sum, and the broadcast from the root in
     :func:`synchronize` (a handle of a local rank other than the root
     polls done once the group's sum is in)."""
+    return host_push_pull_async(tensor, name, average, priority, version, get_global_mesh())
+
+
+def host_push_pull_async(tensor: torch.Tensor, name: str, average: bool, priority: int,
+                         version: int, mesh) -> int:
+    """:func:`push_pull_async` over the local group ``mesh`` (None: this
+    process alone), the one implementation of the three levels, which
+    ``parallel.HybridDataParallel`` runs on its mesh too."""
     st = require_state()
-    mesh = get_global_mesh()
     if mesh is None:
-        return ps_push_pull_async(tensor, name, average, priority, version)
+        return _ps_push_pull_async(st, tensor, name, average, priority, version)
     from byteps_tpu_torch.comm import collectives
 
     local = tensor if tensor.device.type == mesh.device.type else tensor.to(mesh.device)
     summed = collectives.push_pull(local, average=False, mesh=mesh)  # level 1
     if mesh.rank == 0:
-        handle = ps_push_pull_async(summed, name, False, priority, version)  # level 2
+        handle = _ps_push_pull_async(st, summed, name, False, priority, version)  # level 2
     else:
         get_registry().declare(name)
         handle = st.handles.allocate()
@@ -151,17 +158,10 @@ def push_pull_async(
     return handle
 
 
-def ps_push_pull_async(
-    tensor: torch.Tensor,
-    name: str,
-    average: bool = True,
-    priority: int = 0,
-    version: int = 0,
-) -> int:
+def _ps_push_pull_async(st, tensor: torch.Tensor, name: str, average: bool, priority: int,
+                        version: int) -> int:
     """push_pull across workers through the PS plane alone, the identity
-    with one worker: the inter-host level, which ``push_pull_async`` and
-    ``parallel.HybridDataParallel`` run on the local root."""
-    st = require_state()
+    with one worker."""
     get_registry().declare(name)
     handle = st.handles.allocate()
     if st.engine is None:

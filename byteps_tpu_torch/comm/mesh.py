@@ -141,8 +141,8 @@ def require_mesh() -> Mesh:
     m = get_global_mesh()
     if m is None:
         raise RuntimeError(
-            "byteps_tpu_torch has no local group: init() under the launcher with "
-            "BYTEPS_LOCAL_SIZE > 1 brings one up, or pass mesh=build_mesh(...)"
+            "byteps_tpu_torch has no local group: init() under the launcher "
+            "brings one up, or pass mesh=build_mesh(...)"
         )
     return m
 

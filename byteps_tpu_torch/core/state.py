@@ -3,15 +3,17 @@ the handle table and, in distributed mode, the PS client and the pipeline
 engine (global.cc:105-403).
 
 ``init_state()`` binds ``cuda:<local_rank>`` unless the caller names a
-device.  With ``BYTEPS_LOCAL_SIZE > 1`` and the group's rendezvous in
-``BYTEPS_LOCAL_INIT_METHOD`` (one process per GPU, as
-``byteps_tpu_torch.launcher.launch`` starts them) it brings up the host's
-process group (``comm.mesh``) and makes it the global mesh.  A distributed
-topology (more than one worker, or ``BYTEPS_FORCE_DISTRIBUTED=1``)
-registers with the scheduler at ``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``,
-connects to the servers and starts the engine, on local rank 0 alone: one
-PS worker per host, as in ``byteps_tpu``, and the root tells the other
-local ranks the host's worker rank and the number of hosts.
+device.  With the group's rendezvous in ``BYTEPS_LOCAL_INIT_METHOD``, as
+``byteps_tpu_torch.launcher.launch`` sets it for each process it starts
+(one per GPU), it brings up the host's process group (``comm.mesh``), at
+any size, and makes it the global mesh.  A distributed topology (more
+than one worker, or ``BYTEPS_FORCE_DISTRIBUTED=1``) registers with the
+scheduler at ``DMLC_PS_ROOT_URI:DMLC_PS_ROOT_PORT``, connects to the
+servers and starts the engine, on the group's rank 0 alone: one PS worker
+per host, as in ``byteps_tpu``, and the root tells the other local ranks
+the host's worker rank and the number of hosts.  A distributed process at
+``BYTEPS_LOCAL_SIZE > 1`` without the rendezvous raises: it could neither
+join the PS nor reach its host's root.
 ``shutdown_state()`` stops all of it.  The server and scheduler roles run
 as their own processes (``python -m byteps_tpu_torch.server``).
 """
@@ -40,7 +42,7 @@ class RuntimeState:
         self.handles = HandleManager()
         self.ps_client = None  # comm.ps_client.PSClient (distributed mode)
         self.engine = None  # core.engine.PipelineEngine (distributed mode)
-        self.mesh = None  # comm.mesh.Mesh: the host's process group, local size > 1
+        self.mesh = None  # comm.mesh.Mesh: the host's process group, under the launcher
         #: (worker rank, number of workers) of this host, from local rank 0
         self.host: Optional[Tuple[int, int]] = None
         #: handle -> (mesh, average, device) of each host-level push_pull
@@ -81,15 +83,22 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 "server and scheduler roles with `python -m byteps_tpu_torch.server`"
             )
         st.device = _bind_device(cfg, device)
+        local_group = bool(os.environ.get(LOCAL_INIT_METHOD))
         if cfg.is_distributed:
             check_unported_env()
+            if cfg.local_size > 1 and not local_group:
+                raise RuntimeError(
+                    f"BYTEPS_LOCAL_SIZE={cfg.local_size} on a distributed worker needs the "
+                    f"host's process group: run under `python -m "
+                    f"byteps_tpu_torch.launcher.launch`, or set {LOCAL_INIT_METHOD}"
+                )
         try:
-            if cfg.local_size > 1 and os.environ.get(LOCAL_INIT_METHOD):
+            if local_group:
                 from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
 
                 st.mesh = build_mesh(device=st.device)
                 set_global_mesh(st.mesh)
-            if cfg.is_distributed and cfg.local_rank == 0:
+            if cfg.is_distributed and (st.mesh is None or st.mesh.rank == 0):
                 from byteps_tpu_torch.comm.ps_client import PSClient
                 from byteps_tpu_torch.core.engine import PipelineEngine
 

@@ -244,18 +244,20 @@ def run_workers(cmd: List[str], env: Dict[str, str], local_size: int) -> int:
                 return 0
             time.sleep(0.05)
     finally:
-        _stop(procs)
+        stop_processes(procs)
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _stop(procs: List[subprocess.Popen]) -> None:
+def stop_processes(procs: List[subprocess.Popen], timeout: float = 10.0) -> None:
+    """Terminate every process still running, wait up to ``timeout``
+    seconds for each, then kill what is left."""
     for p in procs:
         if p.poll() is None:
             p.terminate()
     for p in procs:
         try:
-            p.wait(timeout=10)
+            p.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
@@ -292,7 +294,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         try:
             return run_workers(argv, dict(env, DMLC_ROLE="worker"), local_size)
         finally:
-            _stop([server])
+            stop_processes([server])
 
     return run_workers(argv, env, local_size)
 

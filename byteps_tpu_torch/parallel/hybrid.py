@@ -7,13 +7,17 @@ and only the machine-level result crosses the network through the PS
 push/pull plane.  One step:
 
 - level 1: every local rank runs forward and backward on its part of the
-  batch; the host's group averages every gradient (one all-reduce of one
-  flattened bucket) and the loss;
-- level 2: the local root pushes each averaged gradient through the PS
-  plane (``ps_push_pull_async``, priority = −declaration index, so the
-  front layers go first) and pulls back the average over hosts;
-- level 3: the root broadcasts the result to the group, and every local
-  rank applies the same update with its own optimizer.
+  batch; the host's group sums every gradient (an all-reduce) and
+  averages the loss;
+- level 2: the local root pushes each summed gradient through the PS plane
+  (priority = −declaration index, so the front layers go first) and pulls
+  back the sum over hosts;
+- level 3: the root broadcasts the result to the group, which divides it by
+  the number of processes of all hosts, and every local rank applies the
+  same update with its own optimizer.
+
+The three levels are the host-level ``push_pull`` of ``api``
+(``host_push_pull_async`` and ``synchronize``) on this object's mesh.
 
     hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=0.1))
     for batch in loader:
@@ -26,7 +30,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 
-from byteps_tpu_torch.api import declare_tensor, ps_push_pull_async, synchronize
+from byteps_tpu_torch.api import declare_tensor, host_push_pull_async, synchronize
 from byteps_tpu_torch.comm import collectives
 from byteps_tpu_torch.comm.mesh import Mesh, get_global_mesh
 from byteps_tpu_torch.common.config import unported
@@ -59,8 +63,8 @@ class HybridDataParallel:
     ) -> None:
         self.mesh = mesh or get_global_mesh()
         if self.mesh is None:
-            raise RuntimeError("no mesh: init() under the launcher with BYTEPS_LOCAL_SIZE "
-                               "> 1, or pass mesh=build_mesh(...)")
+            raise RuntimeError("no mesh: init() under the launcher, or pass "
+                               "mesh=build_mesh(...)")
         sharded = sorted(n for n, spec in (param_specs or {}).items()
                          if any(ax is not None for ax in spec))
         if sharded:
@@ -82,16 +86,12 @@ class HybridDataParallel:
         loss = loss_fn(self.model, batch)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._params]
-        # level 1: the host's mean
         loss = collectives.push_pull(loss.detach(), average=True, mesh=self.mesh)
-        grads = collectives.push_pull_tree(grads, average=True, mesh=self.mesh)
-        # level 2: the root's hop across hosts, front layers first
-        if self.mesh.rank == 0:
-            handles = [ps_push_pull_async(g, name=name, average=True, priority=-i)
-                       for i, (g, name) in enumerate(zip(grads, self._names))]
-            grads = [synchronize(h) for h in handles]
-        # level 3: the root's result on every local rank, then the update
-        for p, g in zip(self._params, grads):
-            p.grad = collectives.broadcast(g, root=0, mesh=self.mesh)
+        # the three levels, front layers first across hosts
+        handles = [host_push_pull_async(g, name, average=True, priority=-i, version=0,
+                                        mesh=self.mesh)
+                   for i, (g, name) in enumerate(zip(grads, self._names))]
+        for p, h in zip(self._params, handles):
+            p.grad = synchronize(h)
         self.optimizer.step()
         return float(loss)

@@ -62,16 +62,18 @@ Phases, each fatal on failure:
  12. the hybrid path: a scheduler, two servers and two hosts, each `python -m
      byteps_tpu_torch.launcher.launch` at BYTEPS_LOCAL_SIZE=1 on this card
      (DMLC_NUM_WORKER=2, each host a one-rank NCCL group: NCCL takes one rank
-     of a group per GPU), each host running `chip_smoke.py --hybrid-host`:
-     the one-rank collectives bitwise their inputs; 2 layers in f32 through
+     of a group per GPU), each host running `chip_smoke.py --hybrid-host`,
+     whose init() brings the group up from the launcher's rendezvous: the
+     one-rank collectives bitwise their inputs; 2 layers in f32 through
      HybridDataParallel (SGD, 4 sequences a host), the hosts bitwise equal to
      each other and to one process averaging the two halves' gradients, and
      within atol 1e-5 + rtol 1e-4 of one process on the combined batch;
      BERT-large at full depth, 16 sequences a host, through
      DistributedOptimizer(AdamW) with bare onebit: the global batch's loss
      falling, the hosts' parameters bitwise equal, bytes against the
-     partition table, K1-K4 launched, and two pushes summed into every server
-     round;
+     partition table, K1-K4 launched, two pushes summed into every server
+     round, and every round of one partition's pull bitwise a CPU replay of
+     the servers' decode, sum and re-sign of the two hosts' pushes;
  13. the int8 ring's quantize and dequantize on one full partition: bitwise
      their CPU run, timed with L2 cold beside their bytes bounds;
  14. the step builders (build_data_parallel_step, build_zero1_step,
@@ -95,6 +97,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -857,15 +860,11 @@ def _start_ps_processes(env: dict, log_dir: str) -> tuple:
 
 
 def _stop_processes(procs) -> None:
-    for p in procs:
-        if p.poll() is None:
-            p.terminate()
-    for p in procs:
-        try:
-            p.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
+    """The launcher's stop, with 30 s a process: a server logs its summed
+    pushes and rounds (``_server_pushes``) as it stops."""
+    from byteps_tpu_torch.launcher.launch import stop_processes
+
+    stop_processes(procs, timeout=30)
 
 
 @contextlib.contextmanager
@@ -1591,8 +1590,10 @@ def check_ddp_cross_barrier(card: str) -> None:
 HYBRID_HOSTS = 2
 HYBRID_BATCH = BATCH // HYBRID_HOSTS  # per host: 16, the main path's 32 together
 # six timed steps: with two workers the servers re-sign the sum of two 1-bit
-# payloads, and the global loss of the first five steps does not fall yet
-# (10.8149 to 10.8204 on an NVIDIA H100 80GB HBM3, 700 W)
+# payloads, so each partition's pull carries the signs of the host whose scale
+# is the larger (checked bitwise on one partition: _check_server_rounds), and
+# the global loss of the first five steps did not fall yet (10.8149 to 10.8204
+# on an NVIDIA H100 80GB HBM3, 700 W)
 HYBRID_WARMUP, HYBRID_STEPS = 1, 6
 # the 2-layer equivalence: f32, SGD, 4 sequences a host, 3 steps.  Bitwise one
 # process that averages the two halves' gradients as the servers do, and
@@ -1653,18 +1654,64 @@ def _check_one_rank_nccl(mesh) -> list:
     return list(runs)
 
 
+@contextlib.contextmanager
+def _tap_onebit_rounds(client):
+    """Record what this worker's PS client sends and receives for its
+    compressed (onebit) partitions: the scale of every push, by key in
+    round order, and for the first key pushed, the whole payload of every
+    push and of every pull.  The engine's stage threads hold their stage
+    functions from its start, so the tap wraps the client's calls."""
+    import threading
+
+    from byteps_tpu_torch.common.types import RequestType
+
+    push, pull = client.push, client.pull
+    lock = threading.Lock()
+    seen: dict = {"key": None, "scales": {}, "pushed": [], "pulled": []}
+
+    def tap_push(key, payload, *args, **kwargs):
+        if kwargs.get("request_type") == RequestType.COMPRESSED_PUSH_PULL:
+            buf = bytes(memoryview(payload).cast("B"))
+            with lock:
+                if seen["key"] is None:
+                    seen["key"] = key
+                seen["scales"].setdefault(key, []).append(
+                    float(np.frombuffer(buf[:4], np.float32)[0]))
+                if key == seen["key"]:
+                    seen["pushed"].append(buf)
+        return push(key, payload, *args, **kwargs)
+
+    def tap_pull(key, version, on_pull, *args, **kwargs):
+        if key == seen["key"]:
+            def on_pull_tapped(payload):
+                with lock:
+                    seen["pulled"].append(bytes(payload))
+                on_pull(payload)
+            return pull(key, version, on_pull_tapped, *args, **kwargs)
+        return pull(key, version, on_pull, *args, **kwargs)
+
+    client.push, client.pull = tap_push, tap_pull
+    try:
+        yield seen
+    finally:
+        client.push, client.pull = push, pull
+
+
 def hybrid_host(work: str) -> None:
     """One host of the hybrid phase, run by the port's launcher at
-    BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --hybrid-host <dir>``): a one-rank
-    NCCL group on the card made the global mesh, so every push_pull is
+    BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --hybrid-host <dir>``): init()
+    brings up a one-rank NCCL group on the card from the launcher's
+    rendezvous and makes it the global mesh, so every push_pull is
     host-level (the group's all-reduce, the PS across the two hosts, the
     broadcast); then the 2-layer equivalence through HybridDataParallel and
     BERT-large at full depth through DistributedOptimizer(AdamW) with bare
-    onebit.  Writes what it measured to <dir>/host<h>.json."""
+    onebit.  Writes what it measured to <dir>/host<h>.json and its onebit
+    rounds (``_tap_onebit_rounds``) to <dir>/host<h>.rounds.pkl."""
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
+    from byteps_tpu_torch.comm.mesh import get_global_mesh
+    from byteps_tpu_torch.common.registry import get_registry
     from byteps_tpu_torch.core.state import get_state
     from byteps_tpu_torch.core.telemetry import counters
     from byteps_tpu_torch.models.transformer import build_train_step
@@ -1677,8 +1724,10 @@ def hybrid_host(work: str) -> None:
     host = int(os.environ["DMLC_WORKER_ID"])
     t0 = time.perf_counter()
     bps.init()
-    mesh = build_mesh(f"dp:{bps.local_size()}")
-    set_global_mesh(mesh)
+    mesh = get_global_mesh()
+    if mesh is None or mesh.backend != "nccl" or mesh.size != bps.local_size():
+        fail(f"hybrid host {host}: init() under the launcher brought up {mesh!r}, expected "
+             f"the host's NCCL group of {bps.local_size()}")
     out = {"host": host, "rank": bps.rank(), "size": bps.size(), "mesh": repr(mesh),
            "device": str(bps.device()), "init_s": time.perf_counter() - t0,
            "nccl_checks": _check_one_rank_nccl(mesh)}
@@ -1688,7 +1737,7 @@ def hybrid_host(work: str) -> None:
     _, model, tok, tgt = _bert(EQ_LAYERS, batch=HYBRID_HOSTS * EQ_BATCH,
                                compute_dtype=torch.float32, remat=False)
     rows = slice(host * EQ_BATCH, (host + 1) * EQ_BATCH)
-    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=EQ_LR), mesh=mesh)
+    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=EQ_LR))
     out["eq_losses"] = [hdp.step((tok[rows], tgt[rows]), lambda m, b: m.loss(*b))
                         for _ in range(EQ_STEPS)]
     torch.cuda.synchronize()
@@ -1718,16 +1767,19 @@ def hybrid_host(work: str) -> None:
     fa.reset_launches()
     ob.reset_launches()
     counters().reset()
-    t0 = time.perf_counter()
-    losses = [float(step(tok, tgt)) for _ in range(HYBRID_WARMUP)]
-    torch.cuda.synchronize()
-    out["first_s"] = time.perf_counter() - t0
-    timed, split, dt = _timed_steps(model, opt, tok, tgt, HYBRID_STEPS)
-    losses += timed
-    loss, busy_ms = profile_step(step, tok, tgt, dt / HYBRID_STEPS * 1e3)
-    losses.append(loss)
-    torch.cuda.synchronize()
+    with _tap_onebit_rounds(get_state().ps_client) as rounds:
+        t0 = time.perf_counter()
+        losses = [float(step(tok, tgt)) for _ in range(HYBRID_WARMUP)]
+        torch.cuda.synchronize()
+        out["first_s"] = time.perf_counter() - t0
+        timed, split, dt = _timed_steps(model, opt, tok, tgt, HYBRID_STEPS)
+        losses += timed
+        loss, busy_ms = profile_step(step, tok, tgt, dt / HYBRID_STEPS * 1e3)
+        losses.append(loss)
+        torch.cuda.synchronize()
     table = get_state().engine.partition_table()
+    tapped = next(r for r in table if r["key"] == rounds["key"])
+    rounds.update(length=tapped["length"], kwargs=dict(get_registry().get(tapped["name"]).kwargs))
     grads = [r for r in table if r["name"].startswith("Gradient.")]
     compressed = [r for r in grads if r["wire_nbytes"] is not None]
     out.update(
@@ -1743,8 +1795,8 @@ def hybrid_host(work: str) -> None:
         digest=_param_digest(model), n_layers=cfg.n_layers,
     )
     bps.shutdown()
-    set_global_mesh(None)
-    mesh.destroy()
+    with open(os.path.join(work, f"host{host}.rounds.pkl"), "wb") as f:
+        pickle.dump(rounds, f)
     with open(os.path.join(work, f"host{host}.json"), "w") as f:
         json.dump(out, f)
 
@@ -1760,6 +1812,44 @@ def _server_pushes(log_dir: str) -> list:
             m = re.findall(r"summed (\d+) pushes into (\d+) rounds", f.read())
         found.append(tuple(int(v) for v in m[-1]) if m else None)
     return found
+
+
+def _check_server_rounds(label: str, taps: list) -> list:
+    """The servers' arithmetic on two hosts' 1-bit pushes: every round of
+    the first partition each host tapped, pulled bitwise as a CPU replay of
+    the server's codec (decode the first push, add the second, re-sign the
+    sum), and its pulled signs bitwise those of the host whose scale was
+    the larger.  Returns, a round, the share of all onebit partitions in
+    which host 0's scale was the larger: whose signs the pulls carried."""
+    from byteps_tpu_torch.compression.registry import create_compressor
+
+    a, b = taps
+    if a["key"] is None or a["key"] != b["key"] or a["scales"].keys() != b["scales"].keys():
+        fail(f"{label}: the hosts tapped different onebit partitions")
+    n, rounds = a["length"], len(a["pushed"])
+    if not rounds or {len(t[k]) for t in taps for k in ("pushed", "pulled")} != {rounds}:
+        fail(f"{label}: key {a['key']}'s rounds: pushed {len(a['pushed'])}, "
+             f"{len(b['pushed'])}, pulled {len(a['pulled'])}, {len(b['pulled'])}")
+    codec = create_compressor(a["kwargs"], n, server=True)
+    for i in range(rounds):
+        acc = np.array(codec.decompress(a["pushed"][i], n), dtype=np.float32)
+        codec.sum_into(b["pushed"][i], acc)
+        replay = bytes(codec.compress(acc))
+        if not replay == a["pulled"][i] == b["pulled"][i]:
+            fail(f"{label}: round {i} of key {a['key']}: the pulled payload is not a CPU "
+                 "replay of decode, sum and re-sign of the two pushes")
+        lead = a if a["scales"][a["key"]][i] > b["scales"][a["key"]][i] else b
+        if replay[4:] != lead["pushed"][i][4:]:
+            fail(f"{label}: round {i} of key {a['key']}: the pulled signs are not the "
+                 "larger-scale host's")
+    s0 = np.array([a["scales"][k] for k in sorted(a["scales"])])
+    s1 = np.array([b["scales"][k] for k in sorted(b["scales"])])
+    if s0.shape != s1.shape:
+        fail(f"{label}: the hosts pushed {s0.shape} and {s1.shape} onebit partitions x rounds")
+    print(f"{label}: key {a['key']} ({n} elements), {rounds} rounds: each pull bitwise a CPU "
+          f"replay of the servers' decode, sum and re-sign of the two hosts' pushes, and "
+          f"bitwise the signs of the host with the larger scale", flush=True)
+    return [float(v) for v in (s0 > s1).mean(axis=0)]
 
 
 def train_hybrid(card: str) -> dict:
@@ -1819,6 +1909,11 @@ def train_hybrid(card: str) -> dict:
                 results.append(json.load(f))
         pushes = _server_pushes(work)
         eq_params = torch.load(os.path.join(work, "eq_params.pt"))
+        taps = []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"host{h}.rounds.pkl"), "rb") as f:
+                taps.append(pickle.load(f))
+    led = _check_server_rounds(label, taps)
     for h, text in logs.items():
         for line in text.splitlines():
             if line.startswith("profile: step wall"):
@@ -1899,6 +1994,9 @@ def train_hybrid(card: str) -> dict:
               f"{c.get('wire_tx_bytes', 0) / n:.0f}, wire_rx_bytes "
               f"{c.get('wire_rx_bytes', 0) / n:.0f} (partition table {r['want_d2h']})",
               flush=True)
+    print(f"{label}: share of the {len(taps[0]['scales'])} onebit partitions whose pull "
+          f"carried host 0's signs (its scale the larger), a step: "
+          f"{[round(x, 4) for x in led]}", flush=True)
     print(f"{label}: the global batch's loss (the hosts' mean) {[round(x, 4) for x in mean]}; "
           f"servers' (pushes summed, rounds) {pushes}; the hosts' full-depth parameters "
           f"bitwise equal {a['digest'] == b['digest']}; phase wall "

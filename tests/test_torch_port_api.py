@@ -66,6 +66,43 @@ def test_init_binds_local_rank_device(monkeypatch):
     assert bps.device() == torch.device("cuda", 3)
 
 
+@pytest.mark.parametrize("local_rank", ["0", "1"])
+def test_distributed_worker_without_the_local_rendezvous_raises(monkeypatch, local_rank):
+    """A distributed process at local size > 1 needs its host's group: only
+    the group's root joins the PS, and the others reach the PS through it.
+    Without the launcher's rendezvous init() raises, naming the launcher,
+    before it dials anything."""
+    monkeypatch.setenv("DMLC_NUM_WORKER", "2")
+    monkeypatch.setenv("BYTEPS_LOCAL_SIZE", "2")
+    monkeypatch.setenv("BYTEPS_LOCAL_RANK", local_rank)
+    monkeypatch.delenv("BYTEPS_LOCAL_INIT_METHOD", raising=False)
+    with pytest.raises(RuntimeError, match="python -m byteps_tpu_torch.launcher.launch"):
+        bps.init(device="cpu")
+    assert not port_state.get_state().initialized
+
+
+def test_init_brings_up_the_group_from_the_rendezvous_at_local_size_one(monkeypatch, tmp_path):
+    """Under the launcher at BYTEPS_LOCAL_SIZE=1, init() brings up the
+    host's one-rank group from BYTEPS_LOCAL_INIT_METHOD and makes it the
+    global mesh; push_pull goes through its three levels and gives the
+    input's values; shutdown() tears the group down."""
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.comm.mesh import get_global_mesh
+
+    monkeypatch.setenv("BYTEPS_LOCAL_INIT_METHOD", "file://" + str(tmp_path / "store"))
+    bps.init(device="cpu")
+    mesh = get_global_mesh()
+    assert (mesh.rank, mesh.size, mesh.backend) == (0, 1, "gloo") and dist.is_initialized()
+    assert port_state.get_state().mesh is mesh
+    assert (bps.rank(), bps.size(), bps.local_rank(), bps.local_size()) == (0, 1, 0, 1)
+    x = torch.linspace(-1.0, 2.0, 7)
+    assert torch.equal(bps.push_pull(x, name="one.rank"), x)
+    assert torch.equal(bps.push_pull(x, name="one.rank.sum", average=False), x)
+    bps.shutdown()
+    assert get_global_mesh() is None and not dist.is_initialized()
+
+
 @pytest.mark.parametrize("env", [
     {"DMLC_NUM_WORKER": "2", "BYTEPS_FUSION_THRESHOLD": "4096"},
     {"BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_VAN": "shm"},
