@@ -31,6 +31,7 @@ import torch
 from byteps_tpu_torch.comm.mesh import get_global_mesh
 from byteps_tpu_torch.common.config import get_config
 from byteps_tpu_torch.common.registry import get_registry
+from byteps_tpu_torch.common.types import divide
 from byteps_tpu_torch.core.state import get_state, init_state, require_state, shutdown_state
 
 
@@ -195,7 +196,7 @@ def synchronize(handle: int) -> torch.Tensor:
         mesh, average, device = host_level
         out = collectives.broadcast(out, root=0, mesh=mesh)  # level 3
         if average and out.is_floating_point():
-            out = out / (mesh.size * size())
+            out = divide(out, mesh.size * size())
         out = out.to(device)
     return out
 

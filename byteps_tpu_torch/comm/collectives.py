@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
+from byteps_tpu_torch.common.types import divide
 
 
 def _group(x: torch.Tensor, mesh: Optional[Mesh]) -> Mesh:
@@ -64,7 +65,7 @@ def push_pull(
         dist.all_reduce(red, group=mesh.group)
     else:
         raise ValueError(f"push_pull mode {mode!r}: 'psum' or 'scatter_gather'")
-    return red / n if average else red
+    return divide(red, n) if average else red
 
 
 def reduce_scatter(x: torch.Tensor, average: bool = True,
@@ -79,7 +80,7 @@ def reduce_scatter(x: torch.Tensor, average: bool = True,
                          f"by the group's {n} members")
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.detach().contiguous(), group=mesh.group)
-    return out / n if average else out
+    return divide(out, n) if average else out
 
 
 def all_gather(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:

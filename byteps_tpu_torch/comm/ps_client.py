@@ -14,16 +14,27 @@ request pending on it (``on_error``), and a reply that arrives with a flag
 or op the port does not serve fails its request with the reason.  The
 reference's per-RPC deadlines, retries, journal replay, resync healing,
 ownership chases and fused frames are not ported (ROADMAP.md Queue 1b).
+
+Under ``BYTEPS_NATIVE_CLIENT=1`` each server's connection is
+:class:`_NativeServerConn`: framing, the CRC32C, the seq demux and the
+payload receive (into the caller's sink for a pull) run on the C++ lanes
+of ``native/csrc/ps_client.cc`` with no interpreter lock, and Python
+drains their completions in batches.  Each push's and pull's round trip,
+send to reply, is observed as ``rpc_round_trip_seconds{server}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import random
 import struct
 import sys
 import threading
+import time
 from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from byteps_tpu_torch.common.config import UNPORTED, Config
 from byteps_tpu_torch.common.hashing import assign_server
@@ -41,6 +52,7 @@ from byteps_tpu_torch.comm.transport import (
     recv_message,
     send_message,
 )
+from byteps_tpu_torch.core.telemetry import metrics
 
 #: pull callbacks receive this instead of bytes when the reply landed in
 #: the caller's sink
@@ -100,6 +112,172 @@ class _ServerConn:
 
     def send(self, msg: Message) -> None:
         send_message(self.sock, msg, self.send_lock)
+
+    def close(self) -> None:
+        close_socket(self.sock)
+        if self.thread is not None:
+            self.thread.join(timeout=5.0)
+
+
+class _NativeServerConn:
+    """One server over the C++ lanes (``native/csrc/ps_client.cc``), with
+    :class:`_ServerConn`'s surface.  A pull's reply lands in its sink on a
+    lane thread; completions queue in C++ and ring a doorbell when the
+    queue goes non-empty, and the doorbell drains them in one batch
+    (``bpsc_drain``).  ``alloc_seq`` registers the callbacks under
+    ``cb_lock`` in the same critical section as the native alloc, and the
+    drain pops under it, so no completion can miss its callbacks.  Raises
+    (never falls back to the Python lanes) when the library is missing."""
+
+    def __init__(self, host: str, port: int, label: str) -> None:
+        from byteps_tpu_torch.native import (
+            BPSC_CALLBACK,
+            DRAIN_REC_DTYPE,
+            get_lib,
+            native_client_histograms,
+        )
+
+        self._lib = get_lib()
+        self.label = label
+        self.cb_lock = threading.Lock()
+        #: seq -> (on_reply, on_error, sink and its ctypes export)
+        self.callbacks: Dict[int, tuple] = {}
+        self.dead = False
+        h = self._lib.bpsc_create(host.encode(), port, 0, 1)
+        if h < 0:
+            raise ConnectionError(f"native client could not connect to {host}:{port}")
+        self._h: Optional[int] = h
+        self._drain_lock = threading.Lock()
+        self._recs = np.zeros(512, dtype=DRAIN_REC_DTYPE)
+        self._arena = np.zeros(1 << 20, dtype=np.uint8)
+        self._hist_provider = lambda: native_client_histograms(h)
+        metrics().register_hist_provider(self._hist_provider)
+        # the trampoline must outlive the lanes that call it
+        self._c_cb = BPSC_CALLBACK(self._on_doorbell)
+        self._lib.bpsc_set_cb(h, self._c_cb, None)
+
+    def alloc_seq(self, on_reply, on_error, sink=None) -> int:
+        ptr, length, keep = None, 0, None
+        if sink is not None:
+            keep = (ctypes.c_ubyte * len(sink)).from_buffer(sink)
+            ptr, length = ctypes.addressof(keep), len(sink)
+        with self.cb_lock:
+            if not self.dead and self._h is not None:
+                seq = self._lib.bpsc_alloc_seq(self._h, ptr, length)
+                if seq >= 0:
+                    self.callbacks[seq] = (on_reply, on_error, sink, keep)
+                    return seq
+        on_error(f"server {self.label} connection is down")
+        return -1
+
+    def pop(self, seq: int) -> Optional[tuple]:
+        with self.cb_lock:
+            entry = self.callbacks.pop(seq, None)
+        return entry[:2] if entry is not None else None
+
+    def peek_sink(self, seq: int) -> Optional[memoryview]:
+        with self.cb_lock:
+            entry = self.callbacks.get(seq)
+        return entry[2] if entry is not None else None
+
+    def mark_dead(self) -> List[tuple]:
+        with self.cb_lock:
+            self.dead = True
+            cbs = [e[:2] for e in self.callbacks.values()]
+            self.callbacks.clear()
+            return cbs
+
+    def send(self, msg: Message) -> None:
+        payload = msg.payload
+        n = memoryview(payload).nbytes if payload is not None else 0
+        # a pointer to the caller's bytes, kept alive through the
+        # (synchronous) native send
+        arr = np.frombuffer(payload, dtype=np.uint8) if n else None
+        with self.cb_lock:
+            h = self._h
+        if h is None:
+            raise ConnectionError(f"server {self.label} connection is closed")
+        rc = self._lib.bpsc_send(h, int(msg.op), msg.seq, msg.key, msg.cmd, msg.version,
+                                 msg.flags, arr.ctypes.data if n else None, n)
+        if rc != 0:
+            raise ConnectionError(f"server {self.label} connection lost (native send)")
+
+    def close(self) -> None:
+        # fold the lanes' final histograms in while the handle resolves
+        metrics().absorb_hist_provider(self._hist_provider)
+        with self.cb_lock:
+            h, self._h = self._h, None
+        if h is not None:
+            # joins the lanes; pending requests come back as op = -1
+            self._lib.bpsc_close(h)
+        for _, on_error in self.mark_dead():
+            on_error(f"server {self.label} connection closed")
+
+    # --- completions -----------------------------------------------------
+
+    def _on_doorbell(self, _ctx, op, status, flags, seq, key, cmd, version,
+                     payload, length, zero_copied) -> None:
+        """op = -2: the completion queue went non-empty, drain it.  Any
+        other op is one record of ``bpsc_close``'s final flush."""
+        try:
+            if op != -2:
+                body = (ctypes.string_at(payload, length)
+                        if op >= 0 and not zero_copied and length else b"")
+                self._dispatch(op, status, flags, seq, key, cmd, version,
+                               body, zero_copied)
+                return
+            with self._drain_lock:
+                while self._drain_once():
+                    pass
+        except Exception:  # noqa: BLE001 - never unwind into a C thread
+            # the doorbell rings only on empty -> non-empty: a failed drain
+            # would strand every later completion, so fail them all now
+            for _, on_error in self.mark_dead():
+                on_error(f"server {self.label}: the native completion drain failed")
+
+    def _drain_once(self) -> bool:
+        n = self._lib.bpsc_drain(self._h, self._recs.ctypes.data, len(self._recs),
+                                 self._arena.ctypes.data, self._arena.nbytes)
+        if n == 0:
+            return False
+        if n < 0:  # the first payload does not fit the arena: grow it
+            self._arena = np.zeros(max(-int(n), 2 * self._arena.nbytes), dtype=np.uint8)
+            return True
+        r = self._recs[:n]
+        cols = [r[f].tolist() for f in ("op", "status", "flags", "seq", "key", "cmd",
+                                        "version", "off", "len", "zc")]
+        for op, status, flags, seq, key, cmd, version, off, ln, zc in zip(*cols):
+            body = self._arena[off: off + ln].tobytes() if ln and not zc else b""
+            try:
+                self._dispatch(op, status, flags, seq, key, cmd, version, body, zc)
+            except Exception:  # noqa: BLE001 - the rest of the batch still goes
+                pass
+        return True
+
+    def _dispatch(self, op, status, flags, seq, key, cmd, version, body, zc) -> None:
+        """One completion: op >= 0 a reply; -1 the connection died with the
+        request pending; -3 a reply that failed its CRC32C (the lanes
+        dropped it: the reference retries, the port has no retries)."""
+        with self.cb_lock:
+            if op == -1:
+                self.dead = True
+            entry = self.callbacks.pop(seq, None)
+        if entry is None:
+            return
+        on_reply, on_error = entry[:2]
+        if op == -1:
+            on_error(f"server {self.label} connection lost")
+        elif op == -3:
+            name = Op(cmd).name if cmd in Op._value2member_map_ else str(cmd)
+            on_error(f"{name} reply from server {self.label} failed its CRC32C: the "
+                     f"reference would retry, the port has no retries ({UNPORTED['resync']})")
+        elif op in UNPORTED_OPS:
+            on_error(f"server {self.label} answered with {Op(op).name}: not ported "
+                     f"yet, {UNPORTED[UNPORTED_OPS[op]]}")
+        else:
+            on_reply(Message(Op(op), key=key, payload=ZERO_COPIED if zc else body,
+                             seq=seq, cmd=cmd, version=version, status=status,
+                             flags=flags))
 
 
 class PSClient:
@@ -167,10 +345,7 @@ class PSClient:
     def close(self) -> None:
         self._stop.set()
         for sc in self._servers:
-            close_socket(sc.sock)
-        for sc in self._servers:
-            if sc.thread is not None:
-                sc.thread.join(timeout=5.0)
+            sc.close()
         close_socket(self._sched)
         self._servers = []
 
@@ -218,7 +393,9 @@ class PSClient:
 
     # --- connections -----------------------------------------------------
 
-    def _new_conn(self, host: str, port: int, label: str) -> _ServerConn:
+    def _new_conn(self, host: str, port: int, label: str):
+        if self.cfg.native_client:
+            return _NativeServerConn(host, port, label)
         sc = _ServerConn(host, port, label)
         sc.thread = threading.Thread(target=self._recv_loop, args=(sc,),
                                      name=f"bps-recv-{label}", daemon=True)
@@ -293,8 +470,19 @@ class PSClient:
     # --- requests --------------------------------------------------------
 
     def _request(self, key: int, make_msg: Callable[[int], Message],
-                 on_reply, on_error, sink=None) -> None:
-        sc = self._servers[self.server_for(key)]
+                 on_reply, on_error, sink=None, timed: bool = False) -> None:
+        """Send one request; ``timed`` (the data plane's pushes and pulls)
+        observes its round trip as ``rpc_round_trip_seconds{server}``."""
+        sid = self.server_for(key)
+        sc = self._servers[sid]
+        if timed:
+            labels, t_sent, deliver = {"server": str(sid)}, time.monotonic(), on_reply
+
+            def on_reply(msg: Message) -> None:
+                metrics().observe("rpc_round_trip_seconds", time.monotonic() - t_sent,
+                                  labels=labels)
+                deliver(msg)
+
         seq = sc.alloc_seq(on_reply, on_error, sink=sink)
         if seq < 0:
             return
@@ -374,7 +562,7 @@ class PSClient:
             key,
             lambda seq: Message(Op.PUSH, key=key, seq=seq, payload=payload,
                                 cmd=cmd, version=version, flags=flags),
-            lambda msg: cb(), on_error,
+            lambda msg: cb(), on_error, timed=True,
         )
 
     def pull(self, key: int, version: int, cb: Callable, on_error: Callable[[str], None],
@@ -387,5 +575,5 @@ class PSClient:
         self._request(
             key,
             lambda seq: Message(Op.PULL, key=key, seq=seq, cmd=cmd, version=version),
-            lambda msg: cb(msg.payload), on_error, sink=sink,
+            lambda msg: cb(msg.payload), on_error, sink=sink, timed=True,
         )

@@ -59,6 +59,10 @@ class Config:
     server_engine_threads: int = 4  # BYTEPS_SERVER_ENGINE_THREAD
     #: small-tensor fusion; > 0 is not ported (raises at init)
     fusion_threshold: int = 0  # BYTEPS_FUSION_THRESHOLD
+    #: the worker's data lanes in C++ (native/csrc/ps_client.cc)
+    native_client: bool = False  # BYTEPS_NATIVE_CLIENT
+    #: a server's data plane in C++ (native/csrc/ps_server.cc)
+    server_native: bool = False  # BYTEPS_SERVER_NATIVE
 
     @property
     def is_distributed(self) -> bool:
@@ -96,6 +100,8 @@ class Config:
             mixed_mode_bound=_env_int("BYTEPS_MIXED_MODE_BOUND", 101),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
             fusion_threshold=max(0, _env_int("BYTEPS_FUSION_THRESHOLD", 0)),
+            native_client=_env_bool("BYTEPS_NATIVE_CLIENT"),
+            server_native=_env_bool("BYTEPS_SERVER_NATIVE"),
         )
 
 
@@ -133,7 +139,6 @@ UNPORTED = {
     "async": "the async / bounded-staleness profile: ROADMAP.md Queue 1b item P4",
     "server_opt": "the server-side optimizer: ROADMAP.md Queue 1b item P5",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
-    "native": "the native C++ server and client lanes: ROADMAP.md Queue 1b item P7",
     "van": "the uds, shm and chaos vans: ROADMAP.md Queue 1b item P8",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
@@ -157,8 +162,6 @@ _UNPORTED_KNOBS = (
     ("BYTEPS_ASYNC", "async", lambda v: _truthy(v)),
     ("BYTEPS_ENABLE_ASYNC", "async", lambda v: _truthy(v)),
     ("BYTEPS_SERVER_OPT", "server_opt", lambda v: _truthy(v)),
-    ("BYTEPS_SERVER_NATIVE", "native", lambda v: _truthy(v)),
-    ("BYTEPS_NATIVE_CLIENT", "native", lambda v: _truthy(v)),
     ("BYTEPS_VAN", "van", lambda v: v != "tcp"),
     ("BYTEPS_WIRE_LOSSLESS", "lossless", lambda v: _truthy(v)),
     ("BYTEPS_RPC_RETRIES", "resync", lambda v: int(v) > 0),

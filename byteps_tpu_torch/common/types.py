@@ -78,6 +78,15 @@ def is_floating(dt: DataType) -> bool:
     )
 
 
+def divide(t: torch.Tensor, n) -> torch.Tensor:
+    """``t / n`` rounded as a true division on every device.  The divisor is
+    a tensor of ``t``'s dtype on ``t``'s device: PyTorch's CUDA kernel
+    multiplies by the reciprocal of a Python scalar (or of a CPU 0-d
+    tensor), which rounds otherwise than the reference's division once
+    ``n`` is not a power of two."""
+    return t / torch.full_like(t, n)
+
+
 class QueueType(enum.IntEnum):
     """Host pipeline stages, numbered as the reference's (common.h:88-102);
     the port's engine runs COPYD2H, COMPRESS, PUSH, PULL, DECOMPRESS and
@@ -150,6 +159,8 @@ class TensorTableEntry:
     context: Any = None
     #: once-guard: a task may be failed from two racing paths
     failed: bool = False
+    #: time.monotonic() when the task entered its current stage's queue
+    enqueued_at: float = 0.0
 
 
 class StatusType(enum.IntEnum):

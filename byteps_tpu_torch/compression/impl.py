@@ -14,14 +14,34 @@ does (the codec the reference's servers run): with sums that are exact in
 float64 the two agree bit for bit.  ``np.packbits(..., bitorder="little")``
 lays the sign bits out exactly as the reference's words.  topk, randomk
 and dithering follow the reference's numpy paths operation for operation.
+
+``compress`` and ``decompress`` call the port's own copy of
+``compressor.cc`` (``byteps_tpu_torch.native``) where the reference's
+codecs call theirs: onebit both ways, topk and randomk compress,
+dithering both ways; they need no interpreter lock.  The numpy bodies
+are the plain versions (``compress_plain``, ``decompress_plain``) the
+tests hold the native entries to.  The native onebit scale sums |x| in
+float64 over OpenMP threads, so it may differ from the plain one by an
+ulp of float32 (ROADMAP.md Queue 3); the words are bitwise.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
 from byteps_tpu_torch.compression.base import Compressor
 from byteps_tpu_torch.compression.rng import XorShift128Plus, seed_pair_from
+from byteps_tpu_torch.native import get_lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _f32(grad: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
 
 #: bit i of byte b, for every byte value: (256, 8) bool
 _BYTE_BITS = ((np.arange(256)[:, None] >> np.arange(8)) & 1).astype(bool)
@@ -45,14 +65,26 @@ class OneBitCompressor(Compressor):
         return 4 + 4 * ((self.size + 31) // 32)
 
     def compress(self, grad: np.ndarray) -> bytes:
-        grad = np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
+        grad = _f32(grad)
+        out = np.empty(4 + 4 * ((grad.size + 31) // 32), dtype=np.uint8)
+        ln = get_lib().bps_onebit_compress(_ptr(grad), grad.size, _ptr(out), int(self.scaling))
+        return out[:ln].tobytes()
+
+    def decompress(self, payload: bytes, n: int) -> np.ndarray:
+        buf = np.frombuffer(payload, dtype=np.uint8)
+        out = np.empty(n, dtype=np.float32)
+        get_lib().bps_onebit_decompress(_ptr(buf), n, _ptr(out))
+        return out
+
+    def compress_plain(self, grad: np.ndarray) -> bytes:
+        grad = _f32(grad)
         n = grad.size
         bits = np.zeros(32 * ((n + 31) // 32), dtype=bool)
         np.signbit(grad, out=bits[:n])
         words = np.packbits(bits, bitorder="little")
         return onebit_scale(grad, self.scaling).tobytes() + words.tobytes()
 
-    def decompress(self, payload: bytes, n: int) -> np.ndarray:
+    def decompress_plain(self, payload: bytes, n: int) -> np.ndarray:
         """-scale where the bit is set, else scale: one gather of 8 values
         per payload byte from a 256-row table (4x faster than unpacking
         the bits first, on the servers' hot path)."""
@@ -86,7 +118,14 @@ class TopKCompressor(Compressor):
         return 8 * self.k
 
     def compress(self, grad: np.ndarray) -> bytes:
-        grad = np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
+        grad = _f32(grad)
+        k = min(self.k, grad.size)
+        out = np.empty(8 * k, dtype=np.uint8)
+        ln = get_lib().bps_topk_compress(_ptr(grad), grad.size, k, _ptr(out))
+        return out[:ln].tobytes()
+
+    def compress_plain(self, grad: np.ndarray) -> bytes:
+        grad = _f32(grad)
         k = min(self.k, grad.size)
         idx = np.argsort(-np.abs(grad), kind="stable")[:k]
         idx.sort()
@@ -116,7 +155,14 @@ class RandomKCompressor(Compressor):
     wire_nbytes = TopKCompressor.wire_nbytes
 
     def compress(self, grad: np.ndarray) -> bytes:
-        grad = np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
+        grad = _f32(grad)
+        n, k = grad.size, min(self.k, grad.size)
+        out = np.empty(8 * k, dtype=np.uint8)
+        ln = get_lib().bps_randomk_compress(_ptr(grad), n, k, self.s0, self.s1, _ptr(out))
+        return out[:ln].tobytes()
+
+    def compress_plain(self, grad: np.ndarray) -> bytes:
+        grad = _f32(grad)
         n, k = grad.size, min(self.k, grad.size)
         rng = XorShift128Plus(self.s0, self.s1)
         idx = (rng.fill(k) % np.uint64(n)).astype(np.int32)
@@ -144,7 +190,21 @@ class DitheringCompressor(Compressor):
         return 4 + self.size
 
     def compress(self, grad: np.ndarray) -> bytes:
-        grad = np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
+        grad = _f32(grad)
+        out = np.empty(4 + grad.size, dtype=np.uint8)
+        ln = get_lib().bps_dithering_compress(
+            _ptr(grad), grad.size, self.s, int(self.natural), int(self.l2),
+            self.s0, self.s1, _ptr(out))
+        return out[:ln].tobytes()
+
+    def decompress(self, payload: bytes, n: int) -> np.ndarray:
+        buf = np.frombuffer(payload, dtype=np.uint8)
+        out = np.empty(n, dtype=np.float32)
+        get_lib().bps_dithering_decompress(_ptr(buf), n, self.s, int(self.natural), _ptr(out))
+        return out
+
+    def compress_plain(self, grad: np.ndarray) -> bytes:
+        grad = _f32(grad)
         n = grad.size
         g64 = grad.astype(np.float64)
         norm = (float(np.sqrt((g64 ** 2).sum())) if self.l2
@@ -176,7 +236,7 @@ class DitheringCompressor(Compressor):
         levels = np.where(np.signbit(grad), -level, level).astype(np.int8)
         return np.float32(norm).tobytes() + levels.tobytes()
 
-    def decompress(self, payload: bytes, n: int) -> np.ndarray:
+    def decompress_plain(self, payload: bytes, n: int) -> np.ndarray:
         """sign(level) * magnitude * norm, in float64 rounded once to
         float32: the magnitude is 2^(|level| - s) (0 for level 0) when
         natural, else |level| / s."""

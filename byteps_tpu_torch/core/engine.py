@@ -44,7 +44,8 @@ Lanes, by input:
 
 Not ported (ROADMAP.md Queue 1b): fusion, journal and resync healing,
 row-sparse, the async and server-optimizer profiles, adaptive compression,
-the tuner, tracing spans and the flight recorder.
+the tuner, tracing spans and the flight recorder.  Each stage's dwell is
+observed as ``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
+import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -66,12 +68,13 @@ from byteps_tpu_torch.common.types import (
     RequestType,
     Status,
     TensorTableEntry,
+    divide,
     is_floating,
     to_datatype,
 )
 from byteps_tpu_torch.core.ready_table import ReadyTable
 from byteps_tpu_torch.core.scheduler import ScheduledQueue
-from byteps_tpu_torch.core.telemetry import counters
+from byteps_tpu_torch.core.telemetry import counters, metrics
 
 
 class DeviceResult(NamedTuple):
@@ -365,6 +368,10 @@ class PipelineEngine:
         """Advance a task to its next stage, or finish its partition."""
         finished = task.queue_list.pop(0)
         job: _Job = task.context
+        if task.enqueued_at:
+            # the finished stage's dwell, enqueue to done
+            metrics().observe("stage_dwell_seconds", time.monotonic() - task.enqueued_at,
+                              labels={"stage": finished.name})
         self.queues[finished].report_finish(task)
         if task.queue_list:
             self.queues[task.queue_list[0]].add_task(task)
@@ -408,9 +415,9 @@ class PipelineEngine:
         if job.failed:
             return
         n = self.client.num_workers
-        divide = job.average and is_floating(job.dtype_id)
+        average = job.average and is_floating(job.dtype_id)
         if not job.is_torch:
-            out = job.result / n if divide else job.result
+            out = job.result / n if average else job.result
             get_state().handles.mark_done(job.handle, out.reshape(job.shape))
             return
         cuda = job.device.type == "cuda"
@@ -421,8 +428,8 @@ class PipelineEngine:
                 out = parts[0] if len(parts) == 1 else torch.cat(parts)
             else:
                 out = job.result_t.to(job.device, non_blocking=True)
-            if divide:
-                out = out / n
+            if average:
+                out = divide(out, n)
             out = out.reshape(job.shape)
             if cuda:
                 done = torch.cuda.Event()

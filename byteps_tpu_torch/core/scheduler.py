@@ -49,6 +49,9 @@ class ScheduledQueue:
         self._tasks: List[TensorTableEntry] = []
 
     def add_task(self, task: TensorTableEntry) -> None:
+        # the stage's dwell (stage_dwell_seconds) counts from here, so the
+        # wait in the queue is part of it
+        task.enqueued_at = time.monotonic()
         with self._cv:
             if self.discipline == "fifo":
                 self._tasks.append(task)

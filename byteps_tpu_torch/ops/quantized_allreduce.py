@@ -28,14 +28,13 @@ import torch
 import torch.distributed as dist
 
 from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
+from byteps_tpu_torch.common.types import divide
 
 
 def quantize(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32[n], n a multiple of ``block`` -> (int8[n], f32 scales[n / block])."""
     amax = x.reshape(-1, block).abs().amax(dim=1, keepdim=True)
-    # a tensor divisor: PyTorch's CUDA kernel multiplies by the reciprocal of
-    # a Python scalar one, which rounds otherwise than the reference's division
-    scale = amax / torch.full_like(amax, 127.0)
+    scale = divide(amax, 127.0)
     safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(x.reshape(-1, block) / safe), -127, 127).to(torch.int8)
     return q.reshape(-1), scale.reshape(-1)

@@ -40,6 +40,7 @@ import torch
 from byteps_tpu_torch.api import declare_tensor, push_pull_async, synchronize
 from byteps_tpu_torch.comm import collectives
 from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
+from byteps_tpu_torch.common.types import divide
 from byteps_tpu_torch.compression.base import Compression
 from byteps_tpu_torch.compression.registry import translate_compression_params
 from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
@@ -204,7 +205,7 @@ def build_data_parallel_step(
         if grad_quant_bits != 8:
             return collectives.push_pull_tree(grads, average=True, mesh=mesh)
         flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-        mean = quantized_psum(flat, mesh=mesh) / mesh.size
+        mean = divide(quantized_psum(flat, mesh=mesh), mesh.size)
         out, off = [], 0
         for g in grads:
             out.append(mean[off: off + g.numel()].reshape(g.shape).to(g.dtype))
@@ -219,7 +220,7 @@ def build_data_parallel_step(
         grads = _grads(params)
         if accumulate_steps > 1:
             # optax.MultiSteps' running mean: acc + (g - acc) / (n + 1)
-            acc = grads if mini == 0 else [a + (g - a) / (mini + 1) for a, g in zip(acc, grads)]
+            acc = grads if mini == 0 else [a + divide(g - a, mini + 1) for a, g in zip(acc, grads)]
             mini += 1
             if mini < accumulate_steps:
                 optimizer.zero_grad(set_to_none=True)

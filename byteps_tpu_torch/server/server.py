@@ -17,8 +17,13 @@ of ``byteps_tpu.server.server.PSServer``.
   config (error feedback included, momentum skipped), or with flag bit 0
   sets the learning rate of every error-feedback chain.
 
-Sums run in numpy (bfloat16 through torch's CPU kernels, since numpy has
-no bfloat16).  The planes of the reference's server that are not ported
+Sums and codecs run in the port's C++ (``native.cpu_reducer``,
+``compression/impl.py``), as the reference's Python server's do.
+Each push's sum is observed as ``server_sum_seconds`` and the publish of
+the round it closed as ``server_publish_seconds``; a server process logs
+its pushes, rounds and those histograms when it stops
+(:func:`stop_report`).  ``BYTEPS_SERVER_NATIVE=1`` serves the data plane
+in C++ instead (``server/native.py``).  The planes of the reference's server that are not ported
 (fusion, resync, migration, async and bounded staleness, the server-side
 optimizer, row-sparse, multi-tenant QoS, lossless frames) are refused
 loudly: the request's connection is closed, or its INIT is answered with a
@@ -33,10 +38,10 @@ import socket
 import struct
 import sys
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from byteps_tpu_torch.common.config import UNPORTED, Config, check_unported_env
 from byteps_tpu_torch.common.registry import JOB_SHIFT
@@ -59,20 +64,15 @@ from byteps_tpu_torch.comm.transport import (
     send_message,
 )
 from byteps_tpu_torch.comm.van import get_van
-from byteps_tpu_torch.core.telemetry import Counters
+from byteps_tpu_torch.core.telemetry import Counters, _state_percentile, metrics
+from byteps_tpu_torch.native import cpu_reducer
+
+#: the histograms a server's stop report summarizes
+SERVER_HISTOGRAMS = ("server_sum_seconds", "server_publish_seconds")
 
 
 def _log(msg: str) -> None:
     print(f"byteps_tpu_torch server: {msg}", file=sys.stderr, flush=True)
-
-
-def _sum_into(dst: np.ndarray, src: np.ndarray, dtype_id: int) -> None:
-    """dst += src, elementwise in the wire dtype."""
-    if dtype_id == DataType.BFLOAT16:
-        d = torch.from_numpy(dst).view(torch.bfloat16)
-        d += torch.from_numpy(np.ascontiguousarray(src)).view(torch.bfloat16)
-        return
-    np.add(dst, src, out=dst)
 
 
 class _KeyState:
@@ -182,6 +182,16 @@ class PSServer:
         t = threading.Thread(target=target, args=args, name=name, daemon=True)
         t.start()
         self._threads.append(t)
+
+    def pushes_and_rounds(self) -> tuple:
+        counts = self.stats.snapshot()
+        return counts.get("pushes_summed", 0), counts.get("rounds_published", 0)
+
+    def histograms(self) -> Dict[str, dict]:
+        """The summed pushes' and published rounds' histograms, from the
+        process's registry."""
+        hists = metrics().snapshot()["histograms"]
+        return {name: hists[name] for name in SERVER_HISTOGRAMS if name in hists}
 
     def stop(self) -> None:
         self._stop.set()
@@ -407,6 +417,8 @@ class PSServer:
                 continue
 
     def _handle_push(self, msg: Message, conn, send_lock) -> None:
+        t_start = time.time()
+        published = 0.0
         rtype, dtype_id = decode_command_type(msg.cmd)
         if rtype == RequestType.ROW_SPARSE_PUSH_PULL:
             raise NotImplementedError(f"row-sparse push: {UNPORTED['rowsparse']}")
@@ -433,13 +445,19 @@ class PSServer:
                     if ks.recv_count == 0:
                         ks.accum[: len(arr)] = arr  # COPY_FIRST
                     else:
-                        _sum_into(ks.accum[: len(arr)], arr, ks.dtype_id)  # SUM_RECV
+                        cpu_reducer.sum_into(ks.accum, arr, ks.dtype_id)  # SUM_RECV
                 ks.recv_count += 1
                 self.stats.bump("pushes_summed")
                 if wid and msg.version > 0:
                     ks.push_seen[wid] = msg.version
                 if ks.recv_count >= self.num_workers:
+                    p0 = time.time()
                     flush = self._publish_round_locked(ks)
+                    published = time.time() - p0
+        # the push's sum, less the publish of the round it closed
+        metrics().observe("server_sum_seconds", max(0.0, time.time() - t_start - published))
+        if published:
+            metrics().observe("server_publish_seconds", published)
         send_message(conn, Message(Op.PUSH, key=msg.key, seq=msg.seq,
                                    version=msg.version), send_lock)
         self._flush_pulls(msg.key, flush)
@@ -489,17 +507,49 @@ class PSServer:
                                    seq=msg.seq, version=ver), send_lock)
 
 
+def summarize_histograms(recs_by_name: Dict[str, list]) -> Dict[str, dict]:
+    """Provider records (``core/telemetry.py``) merged over their labels,
+    one summary per name: count, sum, p50, p99."""
+    out = {}
+    for name, recs in recs_by_name.items():
+        if not recs:
+            continue
+        bounds = tuple(recs[0]["le"])
+        counts = [0] * (len(bounds) + 1)
+        vsum, count = 0.0, 0
+        for r in recs:
+            counts = [a + int(b) for a, b in zip(counts, r["b"])]
+            vsum += float(r["sum"])
+            count += int(r["count"])
+        out[name] = {"count": count, "sum": vsum,
+                     "p50": _state_percentile(bounds, counts, 0.50),
+                     "p99": _state_percentile(bounds, counts, 0.99)}
+    return out
+
+
+def stop_report(node) -> List[str]:
+    """A stopped server's two log lines: the pushes it summed into rounds,
+    and each histogram's count, sum, p50 and p99 (seconds)."""
+    pushes, rounds = node.pushes_and_rounds()
+    hists = node.histograms()
+    return [
+        f"rank {node.rank} summed {pushes} pushes into {rounds} rounds",
+        f"rank {node.rank} histograms " + ("; ".join(
+            f"{name} count={h['count']} sum={h['sum']:.6f} p50={h['p50']:.6g} "
+            f"p99={h['p99']:.6g}" for name, h in hists.items()) or "none"),
+    ]
+
+
 def _serve_until_signaled(node) -> None:
-    """Park the main thread until SIGTERM or SIGINT, then stop the node."""
+    """Park the main thread until SIGTERM or SIGINT, then stop the node (a
+    server logs its :func:`stop_report`)."""
     done = threading.Event()
 
     def _graceful(_signum, _frame):
         node.stop()
-        stats = getattr(node, "stats", None)
-        if stats is not None:
-            counts = stats.snapshot()
-            _log(f"rank {node.rank} summed {counts.get('pushes_summed', 0)} pushes into "
-                 f"{counts.get('rounds_published', 0)} rounds")
+        if hasattr(node, "pushes_and_rounds"):
+            for line in stop_report(node):
+                _log(line)
         done.set()
 
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -520,7 +570,12 @@ def run_server() -> None:
         # launcher reads it here
         print(f"BYTEPS_SCHEDULER_PORT={node.port}", flush=True)
     elif cfg.role == "server":
-        node = PSServer(cfg, host=cfg.node_host or "127.0.0.1")
+        if cfg.server_native:
+            from byteps_tpu_torch.server.native import NativePSServer
+
+            node = NativePSServer(cfg, host=cfg.node_host or "127.0.0.1")
+        else:
+            node = PSServer(cfg, host=cfg.node_host or "127.0.0.1")
         node.start()
     else:
         raise SystemExit(f"run_server: unsupported role {cfg.role!r}")

@@ -9,7 +9,8 @@ Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from byteps_tpu_torch/ops/csrc, one compiler process per
      source, all started together: flash attention (K1-K3) and the onebit packer
-     (K4) with nvcc, the wire checksum with the host C compiler; print what
+     (K4) with nvcc, the wire checksum with the host C compiler, and the native
+     lanes and host codecs (byteps_tpu_torch/native/csrc) with g++; print what
      ptxas says of registers, spills and wgmma, and fail if it serialized wgmma;
   3. hold each flash kernel against its plain PyTorch version on the card
      (BERT-large's attention shape in bf16 and f32, a causal case, a ragged S,
@@ -27,7 +28,9 @@ Phases, each fatal on failure:
      (1,024,000 elements): its device time with L2 cold (median of 20, CUDA
      events around the launch alone, cross-checked with torch.profiler) and
      the wrapper's back-to-back call time;
-  5. agreement of a 2-layer BERT-large-width model on the card (kernels) with the
+  5. F1: common.types.divide and the engine's average over 3 workers equal the
+     CPU's division bitwise on the card (over 3, 6 and 7; float32 and bfloat16);
+     agreement of a 2-layer BERT-large-width model on the card (kernels) with the
      same model on the CPU (plain versions) in f32, and in bf16 no further from f32
      than dense attention;
   6. the main path: BERT-large (seq 512, bf16, remat, flash attention) trained for a
@@ -39,8 +42,17 @@ Phases, each fatal on failure:
      through a scheduler and two PS servers, each a `python -m
      byteps_tpu_torch.server` process, with 1-bit compression (scaling) of every
      float32 gradient of at least 64 KiB packed on the card by K4; launches,
-     device-to-host bytes and wire bytes are read around it and checked against
-     the engine's partition table;
+     device-to-host and wire bytes are read around it and checked against the
+     engine's partition table, and every round of one onebit partition against
+     a CPU replay of the servers' codec; the step is split (forward and
+     backward, the wait for pulls, AdamW; forward and backward with the engine
+     idle; the engine alone) and, by the engine's stage timers, by stage
+     (stage_dwell_seconds), with the worker's round trips and the servers'
+     sum and publish histograms (from their stop reports);
+     then the same on the native lanes: the servers' data plane in C++
+     (BYTEPS_SERVER_NATIVE=1) and the worker's client lanes
+     (BYTEPS_NATIVE_CLIENT=1), 6 timed steps, and each half alone for 3, the
+     first step's loss bitwise the Python lanes';
   8. the compressed chain: the same model at full depth through a scheduler and
      two server processes with BytePS's documented compression config (onebit,
      error feedback, Nesterov momentum, scaling) and its lr set before the first
@@ -112,6 +124,11 @@ BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 N_LAYERS_FULL = 24
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
+# the distributed path on the native lanes (both halves C++), and each half alone
+NATIVE_STEPS, NATIVE_HALF_STEPS = 6, 3
+#: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
+#: and the bytes one worker moves a step, from the distributed path's table
+DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
 
 # sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's and K2's
 # 128 query rows and 64-key tiles, K3's 128 keys and 64-row query tiles
@@ -177,20 +194,25 @@ def close(name: str, got, want, dtype_name: str) -> float:
 
 
 def phase_build() -> None:
+    from byteps_tpu_torch import native
     from byteps_tpu_torch.comm import transport
     from byteps_tpu_torch.ops import _build, flash_attention, onebit_device
 
     sources = ("flash_attention", "onebit", "crc32c")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        for fut in [pool.submit(_build.build, name) for name in sources]:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        futs = [pool.submit(_build.build, name) for name in sources]
+        # the native lanes and host codecs: g++, one process per source
+        futs.append(pool.submit(native.get_lib))
+        for fut in futs:
             fut.result()
     flash_attention._lib()
     onebit_device._lib()
     if transport.crc32c(b"123456789") != 0xE3069283:
         fail("the wire checksum helper gives a wrong CRC32C")
-    print(f"build: {', '.join(sources)} in parallel in {time.perf_counter() - t0:.1f} s ("
-          + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s" for n in sources)
+    names = (*sources, "byteps_native")
+    print(f"build: {', '.join(names)} in parallel in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s" for n in names)
           + ")", flush=True)
     # registers and spills of each kernel, and any word that wgmma products
     # were serialized (an accumulator touched mid-product, or spilled)
@@ -600,7 +622,8 @@ def time_onebit() -> dict:
     del flush
 
     # what a server does with each such partition on this machine's CPU: decode
-    # the push, encode the merged round for the pull (numpy, one thread)
+    # the push, encode the merged round for the pull (the C++ entries, OpenMP;
+    # their numpy plain versions beside)
     from byteps_tpu_torch.compression.impl import OneBitCompressor
 
     host = x.cpu().numpy()
@@ -608,15 +631,16 @@ def time_onebit() -> dict:
     payload = codec.compress(host)
     host_ms = {}
     for label, fn in (("compress", lambda: codec.compress(host)),
-                      ("decompress", lambda: codec.decompress(payload, n))):
+                      ("decompress", lambda: codec.decompress(payload, n)),
+                      ("numpy compress", lambda: codec.compress_plain(host)),
+                      ("numpy decompress", lambda: codec.decompress_plain(payload, n))):
         fn()
         t0 = time.perf_counter()
         for _ in range(20):
             fn()
         host_ms[label] = (time.perf_counter() - t0) / 20 * 1e3
-    print(f"time onebit host codec n={n} (the servers' numpy codec, host CPU): compress "
-          f"{host_ms['compress']:.3f} ms, decompress {host_ms['decompress']:.3f} ms",
-          flush=True)
+    print(f"time onebit host codec n={n} (host CPU, mean of 20): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in host_ms.items()), flush=True)
     return {"ms": ms, "call_ms": call_ms, "profiler_ms": prof_ms,
             "kernels_a_call": per_launch, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
@@ -832,10 +856,11 @@ def train_main_path(card: str) -> dict:
     return counts
 
 
-def _start_ps_processes(env: dict, log_dir: str) -> tuple:
+def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None) -> tuple:
     """A scheduler and two servers of the port, as `python -m
-    byteps_tpu_torch.server` processes, each server's stderr in a file of
-    ``log_dir``; returns (scheduler port, processes)."""
+    byteps_tpu_torch.server` processes (the servers with ``server_env``
+    added), each server's stderr in a file of ``log_dir``; returns
+    (scheduler port, processes)."""
     procs = []
     sched = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
@@ -853,7 +878,8 @@ def _start_ps_processes(env: dict, log_dir: str) -> tuple:
         with open(os.path.join(log_dir, f"server{i}.log"), "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
-                env={**env, "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
+                env={**env, **(server_env or {}), "DMLC_ROLE": "server",
+                     "DMLC_PS_ROOT_PORT": port},
                 stdout=subprocess.DEVNULL, stderr=log,
             ))
     return port, procs
@@ -861,20 +887,24 @@ def _start_ps_processes(env: dict, log_dir: str) -> tuple:
 
 def _stop_processes(procs) -> None:
     """The launcher's stop, with 30 s a process: a server logs its summed
-    pushes and rounds (``_server_pushes``) as it stops."""
+    pushes and rounds and its histograms (``_server_report``) as it stops."""
     from byteps_tpu_torch.launcher.launch import stop_processes
 
     stop_processes(procs, timeout=30)
 
 
 @contextlib.contextmanager
-def _ps_fleet(label: str):
-    """A scheduler and two server processes for one worker (this process),
-    with the worker's environment set while the block runs: a new job, so
-    the tensor registry starts empty (a declaration merges into an earlier
-    one of the same name, and an earlier phase's codec would stay).  Yields
-    the directory that holds the servers' stderr.  Fails if a process died
-    during the block; stops every process after it."""
+def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None):
+    """A scheduler and two server processes (with ``server_env``) for one
+    worker (this process, with ``worker_env``), the worker's environment
+    set while the block runs: a new job, so the tensor registry starts
+    empty (a declaration merges into an earlier one of the same name, and
+    an earlier phase's codec would stay).  Yields the fleet: ``log_dir``
+    holds the servers' stderr while the block runs, and ``report`` the
+    servers' stop reports (``_server_report``) after it.  Fails if a
+    process died during the block; stops every process after it."""
+    import types
+
     from byteps_tpu_torch.common.registry import reset_registry
 
     reset_registry()
@@ -883,10 +913,11 @@ def _ps_fleet(label: str):
            "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO}
     saved = dict(os.environ)
     with tempfile.TemporaryDirectory() as log_dir:
-        port, procs = _start_ps_processes(env, log_dir)
+        fleet = types.SimpleNamespace(log_dir=log_dir, report=None)
+        port, procs = _start_ps_processes(env, log_dir, server_env)
         try:
-            os.environ.update({**env, "DMLC_PS_ROOT_PORT": port})
-            yield log_dir
+            os.environ.update({**env, **(worker_env or {}), "DMLC_PS_ROOT_PORT": port})
+            yield fleet
             dead = [p.args for p in procs if p.poll() is not None]
             if dead:
                 fail(f"{label}: a PS process exited: {dead}")
@@ -894,6 +925,7 @@ def _ps_fleet(label: str):
             os.environ.clear()
             os.environ.update(saved)
             _stop_processes(procs)
+            fleet.report = _server_report(log_dir)
 
 
 #: BERT-large's weights (init_params, seed 0) by depth, made once
@@ -957,20 +989,68 @@ def _split_line(split: dict, steps: int) -> str:
     return ", ".join(f"{k} {v / steps * 1e3:.1f} ms" for k, v in split.items())
 
 
-def train_distributed(card: str) -> dict:
-    """The distributed path: BERT-large as on the main path, one worker (this
-    process) and two server processes behind a scheduler process, onebit with
-    scaling on every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES."""
+def _hist_lines(hists: dict, steps: int) -> list:
+    """One line per histogram of a metrics snapshot (the worker's stage
+    dwell and round trips): observations and seconds a step, p50, p99."""
+    return [f"{name}: {h['count'] / steps:.1f} a step, {h['sum'] / steps * 1e3:.1f} ms a "
+            f"step, p50 {h['p50'] * 1e3:.3f} ms, p99 {h['p99'] * 1e3:.3f} ms"
+            for name, h in sorted(hists.items())]
+
+
+def _server_report(log_dir: str) -> list:
+    """Each server's (pushes summed, rounds published, {histogram: (count,
+    sum s, p50 s, p99 s)}), from the two lines a server logs when it stops
+    (None for a server that logged none)."""
+    import re
+
+    found = []
+    for i in range(2):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            text = f.read()
+        m = re.findall(r"summed (\d+) pushes into (\d+) rounds", text)
+        hists = {name: tuple(float(v) for v in vals) for name, *vals in re.findall(
+            r"(\w+_seconds) count=(\d+) sum=([\d.e+-]+) p50=([\d.e+-]+) p99=([\d.e+-]+)",
+            text)}
+        found.append((*(int(v) for v in m[-1]), hists) if m else None)
+    return found
+
+
+def _server_lines(report: list) -> list:
+    return [f"server {i}: summed {r[0]} pushes into {r[1]} rounds; "
+            + "; ".join(f"{name} count {int(c)}, sum {s * 1e3:.1f} ms, p50 {p50 * 1e3:.3f} ms, "
+                        f"p99 {p99 * 1e3:.3f} ms" for name, (c, s, p50, p99) in r[2].items())
+            for i, r in enumerate(report) if r is not None]
+
+
+def _run_distributed(card: str, label: str, steps: int, server_native: bool = False,
+                     client_native: bool = False) -> dict:
+    """BERT-large as on the main path through one worker (this process) and
+    two server processes behind a scheduler process, onebit with scaling on
+    every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES; the
+    servers' data plane in C++ when ``server_native``
+    (BYTEPS_SERVER_NATIVE=1), the worker's lanes when ``client_native``
+    (BYTEPS_NATIVE_CLIENT=1).  One warm-up step, ``steps`` timed and one
+    profiled; then the same forward and backward with the engine idle, and
+    the engine alone.  Fails unless the losses are finite, K4 and flash
+    launch as the partition table and the depth say, d2h, wire_tx and
+    wire_rx bytes equal the table's, and every round of one onebit
+    partition is a CPU replay of the servers' codec.  Prints the step and
+    its split, the worker's stage dwell and round trips over the timed
+    steps, the device's busy share, the servers' report, the bytes and the
+    launches; returns what it measured."""
     import torch
 
     import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.registry import get_registry
     from byteps_tpu_torch.core.state import get_state
-    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.core.telemetry import counters, metrics
     from byteps_tpu_torch.models.transformer import build_train_step
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import onebit_device as ob
 
-    with _ps_fleet("distributed path"):
+    wall = time.perf_counter()
+    with _ps_fleet(label, {"BYTEPS_SERVER_NATIVE": "1"} if server_native else None,
+                   {"BYTEPS_NATIVE_CLIENT": "1"} if client_native else None) as fleet:
         t0 = time.perf_counter()
         bps.init()
         cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
@@ -981,8 +1061,9 @@ def train_distributed(card: str) -> dict:
             compression_params={"compressor": "onebit", "scaling": True},
         )
         step = build_train_step(model, opt)
-        print(f"distributed path: setup {time.perf_counter() - t0:.1f} s (scheduler and "
-              "2 server processes)", flush=True)
+        setup_s = time.perf_counter() - t0
+        client = get_state().ps_client
+        lanes = sorted({type(sc).__name__ for sc in client._servers})
 
         gc.collect()
         torch.cuda.empty_cache()
@@ -990,17 +1071,24 @@ def train_distributed(card: str) -> dict:
         fa.reset_launches()
         ob.reset_launches()
         counters().reset()
-        t0 = time.perf_counter()
-        losses = [float(step(tok, tgt)) for _ in range(DIST_WARMUP)]
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        timed, split, dt = _timed_steps(model, opt, tok, tgt, DIST_STEPS)
-        losses += timed
-        losses.append(profile_step(step, tok, tgt, dt / DIST_STEPS * 1e3)[0])
-        torch.cuda.synchronize()
+        with _tap_onebit_rounds(client) as tap:
+            t0 = time.perf_counter()
+            losses = [float(step(tok, tgt)) for _ in range(DIST_WARMUP)]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            metrics().reset()
+            timed, split, dt = _timed_steps(model, opt, tok, tgt, steps)
+            hists = metrics().snapshot()["histograms"]
+            losses += timed
+            loss, busy_ms = profile_step(step, tok, tgt, dt / steps * 1e3)
+            losses.append(loss)
+            torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
         table = get_state().engine.partition_table()
+        tapped = next(r for r in table if r["key"] == tap["key"])
+        tap.update(length=tapped["length"],
+                   kwargs=dict(get_registry().get(tapped["name"]).kwargs))
         peak = torch.cuda.max_memory_allocated() / 2**30
         # after the counts are read: the same forward + backward with the
         # gradient hooks skipping (they accumulate while a step has more
@@ -1025,46 +1113,144 @@ def train_distributed(card: str) -> dict:
         bps.shutdown()
         del model, opt, step
 
-    n = DIST_WARMUP + DIST_STEPS + 1
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"distributed path: non-finite loss: {losses}")
+    n = DIST_WARMUP + steps + 1
     # the gradients' partitions (broadcast_parameters also initialized the
     # parameters' own keys, before the counts were reset)
     grads = [r for r in table if r["name"].startswith("Gradient.")]
     compressed = [r for r in grads if r["wire_nbytes"] is not None]
-    raw = [r for r in grads if r["wire_nbytes"] is None]
     want_d2h = (sum(r["wire_nbytes"] for r in compressed)
-                + sum(r["length"] * r["itemsize"] for r in raw))
+                + sum(r["length"] * r["itemsize"] for r in grads if r["wire_nbytes"] is None))
     raw_bytes = sum(r["length"] * r["itemsize"] for r in grads)
-    if launches["onebit_pack"] != n * len(compressed):
-        fail(f"distributed path: K4 launched {launches['onebit_pack']} times in {n} "
-             f"steps, expected {len(compressed)} compressed partitions a step")
     want_flash = {"flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
                   "flash_bwd_dkv": cfg.n_layers * n}
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss: {losses}")
+    if len(compressed) != DIST_COMPRESSED_PARTS or want_d2h != DIST_D2H_STEP:
+        bad.append(f"the partition table: {len(compressed)} compressed partitions, "
+                   f"{want_d2h} bytes a step, expected {DIST_COMPRESSED_PARTS} and "
+                   f"{DIST_D2H_STEP}")
+    if launches["onebit_pack"] != n * len(compressed):
+        bad.append(f"K4 launched {launches['onebit_pack']} times in {n} steps, expected "
+                   f"{len(compressed)} compressed partitions a step")
     if {k: launches[k] for k in want_flash} != want_flash:
-        fail(f"distributed path: flash launches {launches}, expected {want_flash}")
-    if stats.get("d2h_bytes", 0) != n * want_d2h:
-        fail(f"distributed path: {stats.get('d2h_bytes', 0) / n:.0f} bytes a step crossed "
-             f"device to host, expected {want_d2h} (compressed payloads plus raw small "
-             "tensors)")
-    sps = BATCH * DIST_STEPS / dt
-    print(f"distributed path: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, 1 "
-          f"worker + 2 server processes, onebit (scaling) on {len(compressed)} of "
-          f"{len(grads)} gradient partitions: losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"distributed path: {sps:.2f} samples/s ({dt / DIST_STEPS * 1e3:.1f} ms/step over "
-          f"{DIST_STEPS} steps; first step {first_s:.1f} s with the init barriers), peak "
-          f"memory {peak:.2f} GiB, on {card}", flush=True)
-    print("distributed path: step split " + _split_line(split, DIST_STEPS)
-        + f"; forward+backward with the engine idle {idle_fb * 1e3:.1f} ms; the engine "
-        f"alone (every gradient pushed and pulled, no backward beside it) "
-        f"{engine_alone * 1e3:.1f} ms", flush=True)
-    print(f"distributed path: per step K4 launches {launches['onebit_pack'] // n} "
-          f"(= compressed partitions {len(compressed)}), d2h_bytes {want_d2h} "
-          f"(raw gradient {raw_bytes}, {raw_bytes / want_d2h:.1f}x more), wire_tx_bytes "
-          f"{stats.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
-          f"{stats.get('wire_rx_bytes', 0) // n}", flush=True)
-    return {"onebit_launches": launches["onebit_pack"],
-            "wire_tx_step": stats.get("wire_tx_bytes", 0) // n}
+        bad.append(f"flash launches {launches}, expected {want_flash}")
+    bad += [f"{k} {stats.get(k, 0) / n:.0f} a step, expected {want_d2h} (the partition "
+            "table's compressed payloads plus raw small tensors)"
+            for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
+            if stats.get(k, 0) != n * want_d2h]
+    if lanes != ["_NativeServerConn" if client_native else "_ServerConn"]:
+        bad.append(f"the worker's connections are {lanes}")
+    if any(r is None for r in fleet.report):
+        bad.append(f"a server logged no stop report: {fleet.report}")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    _check_server_rounds(label, [tap])
+
+    sps = BATCH * steps / dt
+    split["engine alone"] = engine_alone * steps
+    split["forward+backward, engine idle"] = idle_fb * steps
+    busy = ("device busy not measured" if busy_ms is None else
+            f"device busy {busy_ms:.1f} ms a step ({100 * busy_ms / (dt / steps * 1e3):.1f}%)")
+    print(f"{label}: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, 1 worker "
+          f"({', '.join(lanes)}) + 2 server processes "
+          f"({'C++' if server_native else 'Python'} data plane), onebit (scaling) on "
+          f"{len(compressed)} of {len(grads)} gradient partitions: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"{label}: {sps:.2f} samples/s ({dt / steps * 1e3:.1f} ms/step over {steps} steps; "
+          f"first step {first_s:.1f} s with the init barriers; setup {setup_s:.1f} s), {busy}, "
+          f"peak memory {peak:.2f} GiB, on {card}", flush=True)
+    print(f"{label}: step split {_split_line(split, steps)}", flush=True)
+    for line in _hist_lines(hists, steps) + _server_lines(fleet.report):
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: per step K4 launches {launches['onebit_pack'] // n} (= compressed "
+          f"partitions {len(compressed)}), flash { {k: v // n for k, v in want_flash.items()} }, "
+          f"d2h_bytes {want_d2h} (raw gradient {raw_bytes}, {raw_bytes / want_d2h:.1f}x "
+          f"more), wire_tx_bytes {stats.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
+          f"{stats.get('wire_rx_bytes', 0) // n}; phase wall {time.perf_counter() - wall:.1f} s",
+          flush=True)
+    return {"losses": losses, "onebit_launches": launches["onebit_pack"],
+            "wire_tx_step": stats.get("wire_tx_bytes", 0) // n, "step_ms": dt / steps * 1e3}
+
+
+def train_distributed(card: str) -> dict:
+    """The distributed path on the Python lanes: the servers' data plane
+    and the worker's client in Python."""
+    return _run_distributed(card, "distributed path", DIST_STEPS)
+
+
+def train_distributed_native(card: str, python_first_loss: float) -> None:
+    """The distributed path on the native lanes: both servers' data plane
+    in C++ (BYTEPS_SERVER_NATIVE=1) and the worker's client lanes
+    (BYTEPS_NATIVE_CLIENT=1), 6 timed steps; then each half alone, 3
+    timed steps each: the C++ servers with the Python client, the Python
+    servers with the native client.  The first step's loss (same weights,
+    same tokens, no update yet) must be bitwise the Python-lane run's."""
+    runs = {}
+    for label, steps, server, client in (
+            ("native lanes", NATIVE_STEPS, True, True),
+            ("native server, Python client", NATIVE_HALF_STEPS, True, False),
+            ("Python server, native client", NATIVE_HALF_STEPS, False, True)):
+        gc.collect()
+        runs[label] = _run_distributed(card, label, steps, server_native=server,
+                                       client_native=client)
+    bad = {label: r["losses"][0] for label, r in runs.items()
+           if r["losses"][0] != python_first_loss}
+    if bad:
+        fail(f"native lanes: first-step losses {bad} differ from the Python lanes' "
+             f"{python_first_loss!r}")
+    print("native lanes: first-step loss bitwise the Python lanes' "
+          f"({python_first_loss!r}) in all three runs; ms a step: "
+          + ", ".join(f"{label} {r['step_ms']:.1f}" for label, r in runs.items()), flush=True)
+
+
+def check_f1_division() -> None:
+    """ROADMAP Queue 3 F1, on the card: ``common.types.divide`` and the
+    engine's average (``_finalize`` with 3 workers) equal the CPU's true
+    division bitwise, over 3, 6 and 7, for float32 and bfloat16; a Python
+    scalar divisor on the card (a multiply by the reciprocal) is counted
+    beside, not required to differ."""
+    import types
+
+    import torch
+
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.types import divide, to_datatype
+    from byteps_tpu_torch.core.engine import PipelineEngine, _Job
+    from byteps_tpu_torch.core.state import get_state
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    engine = PipelineEngine(Config(), types.SimpleNamespace(num_workers=3))
+    rng = np.random.default_rng(11)
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x_cpu = torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32)).to(dtype)
+        x = x_cpu.cuda()
+        for n in (3, 6, 7):
+            want = x_cpu / n
+            got = divide(x, n).cpu()
+            scalar = (x / n).cpu()
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"F1: divide() of {dtype} by {n} on the card is not the CPU's division")
+            lines.append(f"{str(dtype)[6:]} / {n}: {int((scalar != want).sum())} of "
+                         f"{want.numel()} differ with a Python-scalar divisor")
+        # the engine's average over 3 workers, on its device lane
+        handle = get_state().handles.allocate()
+        job = _Job("f1", types.SimpleNamespace(partitions=[None], version=1), x.reshape(-1),
+                   int(to_datatype(dtype)), True, handle, tuple(x.shape), True, x.device, None)
+        job.device_parts = {0: x.reshape(-1)}
+        torch.cuda.synchronize()
+        engine._finalize(job)
+        res = get_state().handles.wait_and_clear(handle)
+        res.event.synchronize()
+        if not torch.equal(bits(res.tensor.cpu()), bits(x_cpu / 3)):
+            fail(f"F1: the engine's average of {dtype} over 3 workers on the card is not "
+                 "the CPU's division")
+    print("F1: divide() over 3, 6, 7 and the engine's average over 3 workers equal the "
+          "CPU's division bitwise for float32 and bfloat16 on the card; "
+          + "; ".join(lines), flush=True)
 
 
 #: the compression config BytePS documents, and its learning rate for the
@@ -1163,7 +1349,7 @@ def train_compressed_chain(card: str, bare_wire_step: int) -> None:
 
     label = "compressed chain"
     wall = time.perf_counter()
-    with _ps_fleet(label) as log_dir:
+    with _ps_fleet(label) as fleet:
         bps.init()
         cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
         opt = bps.DistributedOptimizer(
@@ -1196,7 +1382,7 @@ def train_compressed_chain(card: str, bare_wire_step: int) -> None:
         peak = torch.cuda.max_memory_allocated() / 2**30
         bps.shutdown()
         del model, opt, step
-        server_lrs = _server_lrs(log_dir)
+        server_lrs = _server_lrs(fleet.log_dir)
 
     n = CHAIN_WARMUP + CHAIN_STEPS + 1
     if not all(math.isfinite(x) for x in losses):
@@ -1436,16 +1622,21 @@ def check_device_codecs() -> None:
             {k: v for k, v in params.items() if k != "ef"}), n, server=True)
         payload = codec.compress(host)
         times = {}
+        # the C++ entries where the codec has them, and the numpy plain versions
         for label, fn in (("compress", lambda: codec.compress(host)),
-                          ("decompress", lambda: codec.decompress(payload, n))):
+                          ("decompress", lambda: codec.decompress(payload, n)),
+                          ("numpy compress", lambda: codec.compress_plain(host)),
+                          ("numpy decompress",
+                           lambda: getattr(codec, "decompress_plain", codec.decompress)(
+                               payload, n))):
             runs = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 fn()
                 runs.append((time.perf_counter() - t0) * 1e3)
             times[label] = float(np.median(runs))
-        print(f"time {name} host codec n={n} (the servers' numpy codec, host CPU): compress "
-              f"{times['compress']:.2f} ms, decompress {times['decompress']:.2f} ms", flush=True)
+        print(f"time {name} host codec n={n} (host CPU, median of 3): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()), flush=True)
 
 
 def train_randomk_ef(card: str) -> None:
@@ -1604,9 +1795,6 @@ HYBRID_WARMUP, HYBRID_STEPS = 1, 6
 # while the parameters move ~2e-4
 EQ_LAYERS, EQ_BATCH, EQ_STEPS, EQ_LR = 2, 4, 3, 3e-4
 EQ_ATOL, EQ_RTOL = 1e-5, 1e-4
-#: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
-#: and the bytes one worker moves a step, from the distributed path's table
-DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
 # the step builders at one rank: 2 layers, f32, batch 8 (two micro-batches of
 # 4 for accumulate_steps=2), 3 optimizer steps, within 1e-6 of
 # DistributedOptimizer at one worker
@@ -1697,6 +1885,32 @@ def _tap_onebit_rounds(client):
         client.push, client.pull = push, pull
 
 
+@contextlib.contextmanager
+def _tap_blocking_requests(client):
+    """Count and time the PS client's blocking requests (each partition's
+    init barrier and its codec registration): {name: [calls, seconds]}."""
+    seen = {"init_tensor": [0, 0.0], "register_compressor": [0, 0.0]}
+    orig = {name: getattr(client, name) for name in seen}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*args, **kwargs)
+            finally:
+                seen[name][0] += 1
+                seen[name][1] += time.perf_counter() - t0
+        return call
+
+    for name in seen:
+        setattr(client, name, timed(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in orig.items():
+            setattr(client, name, fn)
+
+
 def hybrid_host(work: str) -> None:
     """One host of the hybrid phase, run by the port's launcher at
     BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --hybrid-host <dir>``): init()
@@ -1713,7 +1927,7 @@ def hybrid_host(work: str) -> None:
     from byteps_tpu_torch.comm.mesh import get_global_mesh
     from byteps_tpu_torch.common.registry import get_registry
     from byteps_tpu_torch.core.state import get_state
-    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.core.telemetry import counters, metrics
     from byteps_tpu_torch.models.transformer import build_train_step
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import onebit_device as ob
@@ -1767,12 +1981,18 @@ def hybrid_host(work: str) -> None:
     fa.reset_launches()
     ob.reset_launches()
     counters().reset()
-    with _tap_onebit_rounds(get_state().ps_client) as rounds:
+    metrics().reset()
+    client = get_state().ps_client
+    with _tap_onebit_rounds(client) as rounds, _tap_blocking_requests(client) as blocking:
         t0 = time.perf_counter()
         losses = [float(step(tok, tgt)) for _ in range(HYBRID_WARMUP)]
         torch.cuda.synchronize()
         out["first_s"] = time.perf_counter() - t0
+        out["first_hists"] = metrics().snapshot()["histograms"]
+        out["first_blocking"] = dict(blocking)
+        metrics().reset()
         timed, split, dt = _timed_steps(model, opt, tok, tgt, HYBRID_STEPS)
+        out["hists"] = metrics().snapshot()["histograms"]
         losses += timed
         loss, busy_ms = profile_step(step, tok, tgt, dt / HYBRID_STEPS * 1e3)
         losses.append(loss)
@@ -1801,54 +2021,49 @@ def hybrid_host(work: str) -> None:
         json.dump(out, f)
 
 
-def _server_pushes(log_dir: str) -> list:
-    """Each server's (pushes summed, rounds published), from the line a
-    server logs when it stops."""
-    import re
-
-    found = []
-    for i in range(2):
-        with open(os.path.join(log_dir, f"server{i}.log")) as f:
-            m = re.findall(r"summed (\d+) pushes into (\d+) rounds", f.read())
-        found.append(tuple(int(v) for v in m[-1]) if m else None)
-    return found
-
-
 def _check_server_rounds(label: str, taps: list) -> list:
-    """The servers' arithmetic on two hosts' 1-bit pushes: every round of
-    the first partition each host tapped, pulled bitwise as a CPU replay of
-    the server's codec (decode the first push, add the second, re-sign the
-    sum), and its pulled signs bitwise those of the host whose scale was
-    the larger.  Returns, a round, the share of all onebit partitions in
-    which host 0's scale was the larger: whose signs the pulls carried."""
+    """The servers' arithmetic on the workers' 1-bit pushes: every round of
+    the first partition the workers tapped, pulled bitwise as a CPU replay
+    of the server's codec (decode the first push, add the others, re-sign
+    the sum); with two workers, its pulled signs bitwise those of the one
+    whose scale was the larger.  Returns, a round, the share of all onebit
+    partitions in which worker 0's scale was the larger: whose signs the
+    pulls carried (two workers; empty for one)."""
     from byteps_tpu_torch.compression.registry import create_compressor
 
-    a, b = taps
-    if a["key"] is None or a["key"] != b["key"] or a["scales"].keys() != b["scales"].keys():
-        fail(f"{label}: the hosts tapped different onebit partitions")
+    a = taps[0]
+    if a["key"] is None or any(t["key"] != a["key"] or t["scales"].keys() != a["scales"].keys()
+                               for t in taps):
+        fail(f"{label}: the workers tapped different onebit partitions")
     n, rounds = a["length"], len(a["pushed"])
     if not rounds or {len(t[k]) for t in taps for k in ("pushed", "pulled")} != {rounds}:
-        fail(f"{label}: key {a['key']}'s rounds: pushed {len(a['pushed'])}, "
-             f"{len(b['pushed'])}, pulled {len(a['pulled'])}, {len(b['pulled'])}")
+        fail(f"{label}: key {a['key']}'s rounds: pushed and pulled "
+             f"{[(len(t['pushed']), len(t['pulled'])) for t in taps]}")
     codec = create_compressor(a["kwargs"], n, server=True)
     for i in range(rounds):
         acc = np.array(codec.decompress(a["pushed"][i], n), dtype=np.float32)
-        codec.sum_into(b["pushed"][i], acc)
+        for t in taps[1:]:
+            codec.sum_into(t["pushed"][i], acc)
         replay = bytes(codec.compress(acc))
-        if not replay == a["pulled"][i] == b["pulled"][i]:
+        if any(replay != t["pulled"][i] for t in taps):
             fail(f"{label}: round {i} of key {a['key']}: the pulled payload is not a CPU "
-                 "replay of decode, sum and re-sign of the two pushes")
-        lead = a if a["scales"][a["key"]][i] > b["scales"][a["key"]][i] else b
-        if replay[4:] != lead["pushed"][i][4:]:
-            fail(f"{label}: round {i} of key {a['key']}: the pulled signs are not the "
-                 "larger-scale host's")
-    s0 = np.array([a["scales"][k] for k in sorted(a["scales"])])
-    s1 = np.array([b["scales"][k] for k in sorted(b["scales"])])
-    if s0.shape != s1.shape:
-        fail(f"{label}: the hosts pushed {s0.shape} and {s1.shape} onebit partitions x rounds")
+                 "replay of the servers' decode, sum and re-sign of the pushes")
+        if len(taps) == 2:
+            b = taps[1]
+            lead = a if a["scales"][a["key"]][i] > b["scales"][a["key"]][i] else b
+            if replay[4:] != lead["pushed"][i][4:]:
+                fail(f"{label}: round {i} of key {a['key']}: the pulled signs are not the "
+                     "larger-scale worker's")
     print(f"{label}: key {a['key']} ({n} elements), {rounds} rounds: each pull bitwise a CPU "
-          f"replay of the servers' decode, sum and re-sign of the two hosts' pushes, and "
-          f"bitwise the signs of the host with the larger scale", flush=True)
+          f"replay of the servers' decode, sum and re-sign of the {len(taps)} workers' pushes"
+          + (", and bitwise the signs of the worker with the larger scale"
+             if len(taps) == 2 else ""), flush=True)
+    if len(taps) != 2:
+        return []
+    s0 = np.array([a["scales"][k] for k in sorted(a["scales"])])
+    s1 = np.array([taps[1]["scales"][k] for k in sorted(taps[1]["scales"])])
+    if s0.shape != s1.shape:
+        fail(f"{label}: the workers pushed {s0.shape} and {s1.shape} onebit partitions x rounds")
     return [float(v) for v in (s0 > s1).mean(axis=0)]
 
 
@@ -1907,7 +2122,7 @@ def train_hybrid(card: str) -> dict:
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"host{h}.json")) as f:
                 results.append(json.load(f))
-        pushes = _server_pushes(work)
+        pushes = _server_report(work)
         eq_params = torch.load(os.path.join(work, "eq_params.pt"))
         taps = []
         for h in range(HYBRID_HOSTS):
@@ -1997,9 +2212,21 @@ def train_hybrid(card: str) -> dict:
     print(f"{label}: share of the {len(taps[0]['scales'])} onebit partitions whose pull "
           f"carried host 0's signs (its scale the larger), a step: "
           f"{[round(x, 4) for x in led]}", flush=True)
+    for r in results:
+        blocking = ", ".join(f"{k} {c} calls {t:.2f} s"
+                             for k, (c, t) in r["first_blocking"].items())
+        print(f"{label} host {r['host']}: first step {r['first_s']:.2f} s, of which the blocking "
+              f"requests on the training thread: {blocking}; its stage dwell and round trips:",
+              flush=True)
+        for line in _hist_lines(r["first_hists"], 1):
+            print(f"{label} host {r['host']} first step: {line}", flush=True)
+        for line in _hist_lines(r["hists"], HYBRID_STEPS):
+            print(f"{label} host {r['host']} timed steps: {line}", flush=True)
+    for line in _server_lines(pushes):
+        print(f"{label}: {line}", flush=True)
     print(f"{label}: the global batch's loss (the hosts' mean) {[round(x, 4) for x in mean]}; "
-          f"servers' (pushes summed, rounds) {pushes}; the hosts' full-depth parameters "
-          f"bitwise equal {a['digest'] == b['digest']}; phase wall "
+          f"servers' (pushes summed, rounds) {[p and p[:2] for p in pushes]}; the hosts' "
+          f"full-depth parameters bitwise equal {a['digest'] == b['digest']}; phase wall "
           f"{time.perf_counter() - wall:.1f} s", flush=True)
 
     bad = []
@@ -2188,11 +2415,15 @@ def main() -> None:
     perf = time_kernels(BATCH, 16, SEQ, 64, torch.bfloat16, False)
     onebit_err = check_onebit()
     onebit_perf = time_onebit()
+    check_f1_division()
     check_model()
     counts = train_main_path(card)
     gc.collect()
     torch.cuda.empty_cache()
     dist = train_distributed(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_distributed_native(card, dist["losses"][0])
     gc.collect()
     torch.cuda.empty_cache()
     train_compressed_chain(card, dist["wire_tx_step"])

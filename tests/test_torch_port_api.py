@@ -361,19 +361,35 @@ def test_params_round_trip_exactly(pp_size):
 
 
 def test_import_loads_neither_jax_nor_byteps_tpu():
-    """A fresh interpreter that imports every module of the port: this
-    process has JAX loaded by conftest."""
+    """A fresh interpreter that imports every module of the port, loads
+    its native library and runs a host codec: no module of JAX or
+    byteps_tpu is imported, and no file under byteps_tpu/ is opened or
+    loaded (this process has JAX loaded by conftest)."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys
+        opened = []
+        sys.addaudithook(lambda ev, args: opened.append(str(args[0]))
+                         if ev in ("open", "ctypes.dlopen") and args and args[0] else None)
+        import numpy as np
         import byteps_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(byteps_tpu_torch.__path__,
                                                       "byteps_tpu_torch.")]
         assert "byteps_tpu_torch.server.server" in mods, mods
+        assert "byteps_tpu_torch.server.native" in mods, mods
         for name in mods:
             importlib.import_module(name)
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "flax", "byteps_tpu")
                or m.startswith(("jax.", "optax.", "flax.", "byteps_tpu."))]
+        assert not bad, bad
+        from byteps_tpu_torch.compression.impl import OneBitCompressor
+        from byteps_tpu_torch.native import get_lib
+        get_lib()
+        OneBitCompressor(100).compress(np.ones(100, np.float32))
+        ref = os.path.join(os.getcwd(), "byteps_tpu") + os.sep
+        with open("/proc/self/maps") as f:
+            opened += [ln.split()[-1] for ln in f if len(ln.split()) >= 6]
+        bad = [p for p in opened if os.path.abspath(p).startswith(ref)]
         assert not bad, bad
     """)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

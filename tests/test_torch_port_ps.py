@@ -435,7 +435,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 
 @pytest.mark.parametrize("knob", [
     "BYTEPS_FUSION_THRESHOLD=4096", "BYTEPS_ASYNC=1", "BYTEPS_ENABLE_ASYNC=1",
-    "BYTEPS_SERVER_NATIVE=1", "BYTEPS_NATIVE_CLIENT=1", "BYTEPS_VAN=shm",
+    "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
     "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_RPC_RETRIES=3",
     "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_COMPRESSION_AUTO=1",
