@@ -104,16 +104,26 @@ def local_size() -> int:
 def declare_tensor(name: str, **kwargs: Any) -> int:
     """Declare a named tensor ahead of communication; returns its stable
     declared key.  Dict kwargs are canonicalized to JSON strings.  A codec
-    config the port cannot run raises here, not at the first push."""
+    config the port cannot run, or an unknown server-side rule, raises
+    here, not at the first push.
+
+    Profiles of the tensor's keys, over the process-wide knobs:
+    ``byteps_async`` ("1"/"0") and ``byteps_staleness`` (the bounded
+    staleness of its pulls, -1 unbounded); ``byteps_server_opt``
+    ("sgd", "momentum", "adam", or an off spelling) and
+    ``byteps_server_opt_hp`` (its hyperparameters, a dict or JSON): the
+    servers run the rule, so the tensor's push_pull takes gradients and
+    returns parameters (its first round, the seed, the parameters
+    themselves)."""
     from byteps_tpu_torch.compression.registry import check_supported, parse_codec_config
+    from byteps_tpu_torch.server.update_rules import RULE_NAMES, rule_name
 
     cfg = parse_codec_config(kwargs, 1)
     if cfg is not None:
         check_supported(cfg)
-    if kwargs.get("byteps_server_opt") not in (None, "", "0", "false", "off"):
-        from byteps_tpu_torch.common.config import unported
-
-        raise unported("server_opt", f"byteps_server_opt={kwargs['byteps_server_opt']}")
+    rule = rule_name(kwargs.get("byteps_server_opt") or "")
+    if rule is not None and rule not in RULE_NAMES:
+        raise ValueError(f"unknown server update rule {rule!r} (have {RULE_NAMES})")
     ctx = get_registry().declare(name, **{
         k: (json.dumps(v, sort_keys=True) if isinstance(v, dict) else str(v))
         for k, v in kwargs.items()

@@ -11,9 +11,16 @@ into with no copy (ZPull into the caller's buffer).
 
 Failure handling is the plain form: a connection that dies fails every
 request pending on it (``on_error``), and a reply that arrives with a flag
-or op the port does not serve fails its request with the reason.  The
-reference's per-RPC deadlines, retries, journal replay, resync healing,
-ownership chases and fused frames are not ported (ROADMAP.md Queue 1b).
+or op the port does not serve, or with another op than its request's,
+fails its request with the reason.  The reference's per-RPC deadlines,
+retries, journal replay, resync healing and ownership chases are not
+ported (ROADMAP.md Queue 1b).
+
+``init_tensor`` carries the INIT profile extension: an async key with its
+staleness bound, and a server-side update rule with its hyperparameters;
+a server that refuses the profile (the C++ engine refuses both) makes it
+raise with the reason.  ``push_fused`` sends small partitions of one
+server as one Op.FUSED frame and hands back the decoded multi-key reply.
 
 Under ``BYTEPS_NATIVE_CLIENT=1`` each server's connection is
 :class:`_NativeServerConn`: framing, the CRC32C, the seq demux and the
@@ -41,18 +48,25 @@ from byteps_tpu_torch.common.hashing import assign_server
 from byteps_tpu_torch.common.types import RequestType, get_command_type
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, GROUP_WORKERS, RESIZE_SEQ
 from byteps_tpu_torch.comm.transport import (
+    PROFILE_ASYNC,
+    PROFILE_SERVER_OPT,
     UNPORTED_OPS,
     Message,
     Op,
     close_socket,
     connect,
+    decode_fused_reply,
+    encode_fused_push,
+    encode_init,
+    encode_server_opt_block,
     frame_checksum,
     recv_header_ex,
     recv_into,
     recv_message,
     send_message,
 )
-from byteps_tpu_torch.core.telemetry import metrics
+from byteps_tpu_torch.core.telemetry import counters, metrics
+from byteps_tpu_torch.server.update_rules import canonical_hp
 
 #: pull callbacks receive this instead of bytes when the reply landed in
 #: the caller's sink
@@ -475,19 +489,25 @@ class PSClient:
         observes its round trip as ``rpc_round_trip_seconds{server}``."""
         sid = self.server_for(key)
         sc = self._servers[sid]
-        if timed:
-            labels, t_sent, deliver = {"server": str(sid)}, time.monotonic(), on_reply
+        sent_op, t_sent = None, 0.0  # set before the send
 
-            def on_reply(msg: Message) -> None:
+        def checked(msg: Message) -> None:
+            if msg.op != sent_op:
+                on_error(f"server {sc.label} answered a {sent_op.name} request with "
+                         f"{msg.op.name}")
+                return
+            if timed:
                 metrics().observe("rpc_round_trip_seconds", time.monotonic() - t_sent,
-                                  labels=labels)
-                deliver(msg)
+                                  labels={"server": str(sid)})
+            on_reply(msg)
 
-        seq = sc.alloc_seq(on_reply, on_error, sink=sink)
+        seq = sc.alloc_seq(checked, on_error, sink=sink)
         if seq < 0:
             return
+        msg = make_msg(seq)
+        sent_op, t_sent = msg.op, time.monotonic()
         try:
-            sc.send(make_msg(seq))
+            sc.send(msg)
         except OSError as e:
             if sc.pop(seq) is not None:
                 on_error(f"server {sc.label} send failed: {e!r}")
@@ -508,12 +528,24 @@ class PSClient:
             raise box[0]
         return box[0]
 
-    def init_tensor(self, key: int, num_elements: int, dtype_id: int) -> None:
+    def init_tensor(self, key: int, num_elements: int, dtype_id: int,
+                    async_profile: bool = False, staleness: int = -1,
+                    server_opt: Optional[str] = None,
+                    server_opt_hp: Optional[dict] = None) -> None:
         """Blocking init push: the server allocates the key, and the reply
         is the cross-worker barrier for it (operations.cc:283-414).
-        Payload: u64 elements + u32 dtype, network order."""
+        Payload: u64 elements + u32 dtype, network order; an async key
+        (``async_profile``, pulls within ``staleness`` rounds of the slowest
+        worker, -1 unbounded) or a key with a server-side update rule
+        (``server_opt`` and its hyperparameters) adds the profile
+        extension.  A server that refuses the INIT makes it raise with the
+        reason."""
         token = self._init_token(key)
-        payload = struct.pack("!QI", num_elements, dtype_id)
+        profile = (PROFILE_ASYNC if async_profile else 0) | (
+            PROFILE_SERVER_OPT if server_opt else 0)
+        block = (encode_server_opt_block(server_opt, canonical_hp(server_opt_hp or {}))
+                 if server_opt else b"")
+        payload = encode_init(num_elements, dtype_id, profile, staleness, block)
         resp = self._blocking_request(
             key,
             lambda seq: Message(Op.INIT, key=key, seq=seq, flags=self._worker_flag(),
@@ -521,9 +553,16 @@ class PSClient:
             f"init of key {key}",
         )
         if resp.status != 0:
-            raise RuntimeError(
-                f"server refused init for key {key} (status {resp.status})"
-            )
+            if server_opt:
+                why = (f"the server-side optimizer (rule {server_opt!r}) needs "
+                       "Python-engine servers, a known rule and a floating tensor "
+                       "(the server's log says which failed)")
+            elif async_profile:
+                why = "a per-key async profile needs Python-engine servers"
+            else:
+                why = "the server refused the init"
+            raise RuntimeError(f"server refused init for key {key} (status "
+                               f"{resp.status}): {why}")
 
     def register_compressor(self, key: int, kwargs: Dict[str, str]) -> None:
         """Ship the codec config to the key's server: newline-separated
@@ -563,6 +602,33 @@ class PSClient:
             lambda seq: Message(Op.PUSH, key=key, seq=seq, payload=payload,
                                 cmd=cmd, version=version, flags=flags),
             lambda msg: cb(), on_error, timed=True,
+        )
+
+    def push_fused(self, members: List[tuple], cb: Callable[[list], None],
+                   on_error: Callable[[str], None]) -> None:
+        """One fused push and pull of small partitions of one server
+        (Op.FUSED): ``members`` is ``[(key, cmd, version, payload), ...]``,
+        routed by the first key, and ``cb`` gets the decoded reply
+        ``[(key, version, payload), ...]``.  The frame carries the worker
+        flag, so the server runs each member through its replay ledger."""
+        frame = encode_fused_push(members)
+        route_key = members[0][0]
+        flags = self._worker_flag()
+
+        def deliver(msg: Message) -> None:
+            try:
+                reply = decode_fused_reply(msg.payload)
+            except (ValueError, struct.error) as e:
+                counters().bump("fused_reply_malformed")
+                on_error(f"fused reply of key {route_key}: {e}")
+                return
+            cb(reply)
+
+        self._request(
+            route_key,
+            lambda seq: Message(Op.FUSED, key=route_key, seq=seq, payload=frame,
+                                cmd=len(members), flags=flags),
+            deliver, on_error, timed=True,
         )
 
     def pull(self, key: int, version: int, cb: Callable, on_error: Callable[[str], None],

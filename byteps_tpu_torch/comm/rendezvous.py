@@ -69,10 +69,7 @@ class Scheduler:
 
     def stop(self) -> None:
         self._stop.set()
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        close_socket(self._sock)  # shutdown wakes the accept loop
         with self._lock:
             conns = list(self._conns)
         for conn in conns:

@@ -77,7 +77,6 @@ class Op(enum.IntEnum):
 #: ops the port receives but does not serve: a frame of one of them fails
 #: the request it belongs to
 UNPORTED_OPS = {
-    Op.FUSED: "fusion",
     Op.RESYNC_QUERY: "resync",
     Op.RESYNC_STATE: "resync",
     Op.MIGRATE_STATE: "elastic",
@@ -99,8 +98,8 @@ class ChecksumError(ValueError):
 
 class UnsupportedFrameError(ValueError):
     """A received frame needs a plane the port does not carry (a lossless
-    container, or a fused/resync/migration op).  Raised after the frame
-    was consumed."""
+    container, or a resync/migration op).  Raised after the frame was
+    consumed."""
 
 
 #: ops that carry a checksum under BYTEPS_WIRE_CHECKSUM=1: the data plane
@@ -330,6 +329,150 @@ def _sendmsg_all(sock: socket.socket, bufs: list) -> None:
             bufs.pop(0)
         if bufs and sent:
             bufs[0] = bufs[0][sent:]
+
+
+# --- multi-key fusion frames (Op.FUSED) ------------------------------------
+#
+# Request body (network byte order):
+#     u32 count
+#     count x [u64 key, u32 cmd, u32 version, u64 length, length bytes]
+#     optional trailer: count x u64 member span ids (sent by a traced
+#     reference worker; the port sends none and reads past it)
+# Reply body:
+#     u32 count
+#     count x [u64 key, u32 version, u64 length, length bytes]
+#
+# The outer header carries the first member's key (the route), the frame's
+# seq, the worker flag, and the member count in ``cmd``; each member keeps
+# its own key, Cantor-encoded cmd and round version, so the server runs
+# every member through the per-(worker, key) exactly-once ledger.
+
+_FUSED_MEMBER_FMT = "!QIIQ"
+_FUSED_MEMBER_SIZE = struct.calcsize(_FUSED_MEMBER_FMT)
+_FUSED_REPLY_FMT = "!QIQ"
+_FUSED_REPLY_SIZE = struct.calcsize(_FUSED_REPLY_FMT)
+
+
+def encode_fused_push(members) -> bytes:
+    """``[(key, cmd, version, payload), ...]`` as one frame body."""
+    parts = [struct.pack("!I", len(members))]
+    for key, cmd, version, payload in members:
+        parts.append(struct.pack(_FUSED_MEMBER_FMT, key, cmd, version,
+                                 memoryview(payload).nbytes))
+        parts.append(payload if isinstance(payload, bytes) else bytes(payload))
+    return b"".join(parts)
+
+
+def _walk_fused_members(body: bytes) -> tuple:
+    """(members, offset after the last member); ValueError when the body
+    is shorter than its members say."""
+    if len(body) < 4:
+        raise ValueError("fused frame truncated")
+    (count,) = struct.unpack_from("!I", body, 0)
+    off = 4
+    members = []
+    for _ in range(count):
+        if off + _FUSED_MEMBER_SIZE > len(body):
+            raise ValueError("fused frame truncated")
+        key, cmd, version, length = struct.unpack_from(_FUSED_MEMBER_FMT, body, off)
+        off += _FUSED_MEMBER_SIZE
+        if off + length > len(body):
+            raise ValueError("fused frame truncated")
+        members.append((key, cmd, version, body[off: off + length]))
+        off += length
+    return members, off
+
+
+def decode_fused_push(body: bytes) -> list:
+    """Inverse of :func:`encode_fused_push`: [(key, cmd, version, bytes)];
+    a span trailer is ignored."""
+    return _walk_fused_members(body)[0]
+
+
+def encode_fused_reply(members) -> bytes:
+    """``[(key, version, payload), ...]`` as one reply body."""
+    parts = [struct.pack("!I", len(members))]
+    for key, version, payload in members:
+        parts.append(struct.pack(_FUSED_REPLY_FMT, key, version, len(payload)))
+        parts.append(payload)
+    return b"".join(parts)
+
+
+def decode_fused_reply(body: bytes) -> list:
+    """Inverse of :func:`encode_fused_reply`: [(key, version, bytes)];
+    ValueError when truncated."""
+    if len(body) < 4:
+        raise ValueError("fused reply truncated")
+    (count,) = struct.unpack_from("!I", body, 0)
+    off = 4
+    members = []
+    for _ in range(count):
+        if off + _FUSED_REPLY_SIZE > len(body):
+            raise ValueError("fused reply truncated")
+        key, version, length = struct.unpack_from(_FUSED_REPLY_FMT, body, off)
+        off += _FUSED_REPLY_SIZE
+        if off + length > len(body):
+            raise ValueError("fused reply truncated")
+        members.append((key, version, body[off: off + length]))
+        off += length
+    return members
+
+
+# --- the INIT profile extension -------------------------------------------
+#
+# A sync key's INIT body is u64 elements + u32 dtype (12 bytes).  A profile
+# appends ``!Bi``: a profile byte (bit 0 async, bit 1 server-side optimizer)
+# and the staleness bound; with bit 1 a rule block follows at offset 17:
+# ``!H`` name length, the name, ``!I`` hyperparameter length, canonical
+# JSON.  An engine without the plane refuses the INIT with status 1.
+
+PROFILE_ASYNC = 1
+PROFILE_SERVER_OPT = 2
+_PROFILE_FMT = "!Bi"
+PROFILE_OFFSET = 12
+RULE_BLOCK_OFFSET = PROFILE_OFFSET + struct.calcsize(_PROFILE_FMT)
+
+
+def encode_init(num_elements: int, dtype_id: int, profile: int = 0,
+                staleness: int = -1, rule_block: bytes = b"") -> bytes:
+    """An INIT body: the 12-byte sync form when ``profile`` is 0."""
+    payload = struct.pack("!QI", num_elements, dtype_id)
+    if profile:
+        payload += struct.pack(_PROFILE_FMT, profile, int(staleness)) + rule_block
+    return payload
+
+
+def decode_init_profile(payload: bytes) -> Tuple[int, int]:
+    """(profile byte, staleness bound) of an INIT body; (0, -1) for the
+    12-byte sync form."""
+    if len(payload) < RULE_BLOCK_OFFSET:
+        return 0, -1
+    return struct.unpack_from(_PROFILE_FMT, payload, PROFILE_OFFSET)
+
+
+def encode_server_opt_block(rule: str, hp_json: str) -> bytes:
+    """The rule block after the profile extension."""
+    nb = str(rule).encode("utf-8")
+    hb = hp_json.encode("utf-8")
+    return struct.pack("!H", len(nb)) + nb + struct.pack("!I", len(hb)) + hb
+
+
+def decode_server_opt_block(payload: bytes, off: int) -> Tuple[str, bytes]:
+    """Inverse of :func:`encode_server_opt_block`: (rule name, raw
+    hyperparameter JSON); ValueError when truncated."""
+    if off + 2 > len(payload):
+        raise ValueError("server-opt block truncated (name length)")
+    (nlen,) = struct.unpack_from("!H", payload, off)
+    off += 2
+    if off + nlen + 4 > len(payload):
+        raise ValueError("server-opt block truncated (name)")
+    name = payload[off: off + nlen].decode("utf-8")
+    off += nlen
+    (hlen,) = struct.unpack_from("!I", payload, off)
+    off += 4
+    if off + hlen > len(payload):
+        raise ValueError("server-opt block truncated (hyperparams)")
+    return name, payload[off: off + hlen]
 
 
 def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:

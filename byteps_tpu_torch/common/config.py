@@ -22,11 +22,16 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v not in (None, "") else default
 
 
+def truthy(v: str) -> bool:
+    """A knob's value read as a flag: anything but an off spelling."""
+    return v.lower() not in ("0", "false", "no", "off")
+
+
 def _env_bool(name: str, default: bool = False) -> bool:
     v = os.environ.get(name)
     if v in (None, ""):
         return default
-    return v.lower() not in ("0", "false", "no", "off")
+    return truthy(v)
 
 
 @dataclasses.dataclass
@@ -57,8 +62,28 @@ class Config:
     enable_mixed_mode: bool = False  # BYTEPS_ENABLE_MIXED_MODE
     mixed_mode_bound: int = 101  # BYTEPS_MIXED_MODE_BOUND
     server_engine_threads: int = 4  # BYTEPS_SERVER_ENGINE_THREAD
-    #: small-tensor fusion; > 0 is not ported (raises at init)
+    #: small-tensor fusion: a partition whose wire bytes are at or below the
+    #: threshold takes the FUSE stage, packed with same-server neighbours
+    #: into one Op.FUSED frame; 0 turns fusion off
     fusion_threshold: int = 0  # BYTEPS_FUSION_THRESHOLD
+    #: a server's fusion buffer flushes when it holds this many bytes
+    fusion_bytes: int = 262144  # BYTEPS_FUSION_BYTES
+    #: or when its oldest member has waited this long
+    fusion_cycle_ms: float = 2.0  # BYTEPS_FUSION_CYCLE_MS
+    #: a server applies every push at once to a cumulative store and
+    #: serves pulls from it, with no round barrier (server-wide async)
+    enable_async: bool = False  # BYTEPS_ENABLE_ASYNC
+    #: this worker's keys are declared async at INIT (per key; the
+    #: ``byteps_async`` declare kwarg overrides it)
+    async_mode: bool = False  # BYTEPS_ASYNC
+    #: bounded staleness of async keys: a pull of round v waits until every
+    #: worker's applied push is at least v - bound; -1 = unbounded
+    staleness_bound: int = -1  # BYTEPS_STALENESS_BOUND
+    #: the server-side optimizer of every float tensor ("sgd", "momentum",
+    #: "adam"; "" = off): workers push gradients and pull parameters
+    server_opt: str = ""  # BYTEPS_SERVER_OPT
+    #: its hyperparameters as JSON, e.g. '{"lr": 0.01}'
+    server_opt_hp: str = ""  # BYTEPS_SERVER_OPT_HP
     #: the worker's data lanes in C++ (native/csrc/ps_client.cc)
     native_client: bool = False  # BYTEPS_NATIVE_CLIENT
     #: a server's data plane in C++ (native/csrc/ps_server.cc)
@@ -100,6 +125,13 @@ class Config:
             mixed_mode_bound=_env_int("BYTEPS_MIXED_MODE_BOUND", 101),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
             fusion_threshold=max(0, _env_int("BYTEPS_FUSION_THRESHOLD", 0)),
+            fusion_bytes=max(1, _env_int("BYTEPS_FUSION_BYTES", 262144)),
+            fusion_cycle_ms=max(0.0, float(os.environ.get("BYTEPS_FUSION_CYCLE_MS", "2") or "2")),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            async_mode=_env_bool("BYTEPS_ASYNC"),
+            staleness_bound=max(-1, _env_int("BYTEPS_STALENESS_BOUND", -1)),
+            server_opt=(os.environ.get("BYTEPS_SERVER_OPT") or "").strip().lower(),
+            server_opt_hp=os.environ.get("BYTEPS_SERVER_OPT_HP") or "",
             native_client=_env_bool("BYTEPS_NATIVE_CLIENT"),
             server_native=_env_bool("BYTEPS_SERVER_NATIVE"),
         )
@@ -133,11 +165,8 @@ def clear_config() -> None:
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "fusion": "small-tensor fusion (Op.FUSED): ROADMAP.md Queue 1b item P1",
     "resync": "journal replay and RESYNC healing, RPC deadlines and retries: ROADMAP.md Queue 1b item P2",
     "elastic": "elastic membership and key migration: ROADMAP.md Queue 1b item P3",
-    "async": "the async / bounded-staleness profile: ROADMAP.md Queue 1b item P4",
-    "server_opt": "the server-side optimizer: ROADMAP.md Queue 1b item P5",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
     "van": "the uds, shm and chaos vans: ROADMAP.md Queue 1b item P8",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
@@ -155,23 +184,15 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_FUSION_THRESHOLD", "fusion", lambda v: int(v) > 0),
-    ("BYTEPS_ELASTIC_RESHARD", "elastic", lambda v: _truthy(v)),
+    ("BYTEPS_ELASTIC_RESHARD", "elastic", truthy),
     ("BYTEPS_DEAD_NODE_TIMEOUT_S", "elastic", lambda v: float(v) > 0),
-    ("BYTEPS_AUTOTUNE", "elastic", lambda v: _truthy(v)),
-    ("BYTEPS_ASYNC", "async", lambda v: _truthy(v)),
-    ("BYTEPS_ENABLE_ASYNC", "async", lambda v: _truthy(v)),
-    ("BYTEPS_SERVER_OPT", "server_opt", lambda v: _truthy(v)),
+    ("BYTEPS_AUTOTUNE", "elastic", truthy),
     ("BYTEPS_VAN", "van", lambda v: v != "tcp"),
-    ("BYTEPS_WIRE_LOSSLESS", "lossless", lambda v: _truthy(v)),
+    ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),
     ("BYTEPS_RPC_RETRIES", "resync", lambda v: int(v) > 0),
     ("BYTEPS_RPC_DEADLINE_S", "resync", lambda v: float(v) > 0),
-    ("BYTEPS_COMPRESSION_AUTO", "auto", lambda v: _truthy(v)),
+    ("BYTEPS_COMPRESSION_AUTO", "auto", truthy),
 )
-
-
-def _truthy(v: str) -> bool:
-    return v.lower() not in ("0", "false", "no", "off")
 
 
 def check_unported_env() -> None:

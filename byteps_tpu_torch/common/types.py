@@ -90,7 +90,8 @@ def divide(t: torch.Tensor, n) -> torch.Tensor:
 class QueueType(enum.IntEnum):
     """Host pipeline stages, numbered as the reference's (common.h:88-102);
     the port's engine runs COPYD2H, COMPRESS, PUSH, PULL, DECOMPRESS and
-    COPYH2D."""
+    COPYH2D, and FUSE (``byteps_tpu``'s addition): a small partition takes
+    FUSE in place of PUSH and leaves in one multi-key Op.FUSED frame."""
 
     COORDINATE_REDUCE = 0
     REDUCE = 1
@@ -161,6 +162,14 @@ class TensorTableEntry:
     failed: bool = False
     #: time.monotonic() when the task entered its current stage's queue
     enqueued_at: float = 0.0
+    #: a fused member's slot of the fused reply, which PULL delivers
+    #: locally instead of pulling
+    fused_reply: Optional[bytes] = None
+    #: a fusion pack's group task: its members passed their round gates
+    #: at the FUSE queue, so the PUSH queue does not gate the group
+    gate_exempt: bool = False
+    #: a FUSE-routed task that has not reached the fusion buffer yet
+    fuse_staged: bool = False
 
 
 class StatusType(enum.IntEnum):

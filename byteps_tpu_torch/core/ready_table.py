@@ -1,7 +1,8 @@
 """Key-count rendezvous table (ready_table.cc:24-44).  The engine uses it
 as the per-key round gate: ``counts[key]`` is the highest round allowed to
 leave the PUSH queue, so a later round of a key never overtakes an earlier
-one."""
+one.  The FUSE queue shares the table: a small partition passes the same
+gate where it leaves for the fusion buffer."""
 
 from __future__ import annotations
 

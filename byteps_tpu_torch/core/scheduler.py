@@ -7,7 +7,11 @@ scheduled_queue.cc):
   by ``BYTEPS_SCHEDULING_CREDIT``, returned by :meth:`report_finish`;
 - optional version gate: a task may leave only when its round is at or
   below its key's allowance in the ready table, so a later round of a key
-  never overtakes an earlier one.
+  never overtakes an earlier one.  A fusion pack's group task is exempt
+  (``gate_exempt``): its members passed their own gates at the FUSE queue,
+  and gating the group under its first member's key would stall the
+  others.  The group still competes on priority (it carries its members'
+  highest) and still spends credit.
 
 The per-tenant weighted fair queuing of ``byteps_tpu.core.scheduler`` is
 not ported: one process is one job.
@@ -62,7 +66,7 @@ class ScheduledQueue:
     def _eligible(self, task: TensorTableEntry) -> bool:
         if self.credit_enabled and task.length * _CREDIT_ITEMSIZE > self._credits:
             return False
-        if self._ready_table is not None:
+        if self._ready_table is not None and not task.gate_exempt:
             return task.version <= self._ready_table.get_count(task.key)
         return True
 
@@ -94,3 +98,8 @@ class ScheduledQueue:
         """Wake waiters: the ready table changed."""
         with self._cv:
             self._cv.notify_all()
+
+    def pending(self) -> int:
+        """Tasks waiting in the queue."""
+        with self._cv:
+            return len(self._tasks)

@@ -6,7 +6,12 @@ Counters (:func:`counters`):
 - ``d2h_bytes``: bytes that crossed device -> host in COPYD2H (for a
   device-compressed partition, its wire payload only);
 - ``wire_tx_bytes`` / ``wire_rx_bytes``: payload bytes pushed to and
-  pulled from the servers.
+  pulled from the servers (a fused frame counts its members' payloads);
+- fusion: ``fused_frames``, ``fused_keys``, ``fusion_flush_full`` /
+  ``_idle`` / ``_cycle`` (why a pack left its buffer), ``fused_fallback``
+  (packs sent again as per-key RPCs), ``fused_reply_malformed``;
+- the server-side optimizer: ``server_opt_updates`` (rules applied by a
+  Python server), ``server_opt_reject`` (INITs it refused).
 
 Histograms (:func:`metrics`), fixed buckets with percentile snapshots,
 the reference's names and bounds:
@@ -17,11 +22,16 @@ the reference's names and bounds:
   reply (``comm/ps_client.py``);
 - ``server_sum_seconds`` / ``server_publish_seconds``: a push's sum, and
   the publish of the round it closed (``server/server.py``);
+- ``fused_pack_keys`` (members a flushed pack) and
+  ``fused_flush_age_seconds`` (its oldest member's wait);
 - the C++ lanes' ``native_*`` families, read through the histogram
   provider seam (``native/__init__.py``).
 
-Prometheus exposition, gauges, the heartbeat deltas and the flight
-recorder's hooks are not ported (ROADMAP.md Queue 1 item 10).
+Gauges (:meth:`MetricsRegistry.gauge_set`): ``fusion_threshold_bytes``,
+the fusion threshold the worker's engine runs.
+
+Prometheus exposition, the heartbeat deltas and the flight recorder's
+hooks are not ported (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -176,8 +186,14 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._hists: Dict[Tuple[str, tuple], Histogram] = {}
+        self._gauges: Dict[Tuple[str, tuple], float] = {}
         #: id(fn) -> (fn, baseline {(name, labels): (counts, sum, count)})
         self._hist_providers: Dict[int, tuple] = {}
+
+    def gauge_set(self, name: str, value: float,
+                  labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            self._gauges[(name, _label_key(labels))] = float(value)
 
     def histogram(self, name: str, labels: Optional[Dict[str, str]] = None,
                   buckets: Tuple[float, ...] = LATENCY_BUCKETS) -> Histogram:
@@ -248,7 +264,11 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """{"histograms": {name{labels}: {"count", "sum", "p50", "p90",
-        "p99"}}}, local and provider histograms together."""
+        "p99"}}, "gauges": {name{labels}: value}}, local and provider
+        histograms together."""
+        with self._lock:
+            gauges = {name + _render_labels(lkey): v
+                      for (name, lkey), v in self._gauges.items()}
         out = {}
         for (name, lkey), (bounds, counts, vsum, count) in self._hist_states().items():
             out[name + _render_labels(lkey)] = {
@@ -258,7 +278,7 @@ class MetricsRegistry:
                 "p90": _state_percentile(bounds, counts, 0.90),
                 "p99": _state_percentile(bounds, counts, 0.99),
             }
-        return {"histograms": out}
+        return {"histograms": out, "gauges": gauges}
 
     def reset(self) -> None:
         """Drop local histograms; re-baseline providers (their sources are

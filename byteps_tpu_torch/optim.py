@@ -19,8 +19,13 @@ Two levels of compression, as in the reference plugin:
   gradient: onebit, topk, randomk or dithering, with or without error
   feedback and Nesterov momentum.
 
-``server_side=True`` (the reference's server-side optimizer) is not ported
-and raises.
+``server_side=True`` moves the optimizer to the servers
+(``byteps_tpu.optim.DistributedOptimizer.server_step``, in torch idiom): each
+gradient is declared with ``server_rule`` ("sgd", "momentum", "adam") and
+``server_hp``, the worker holds no optimizer state (``optimizer`` may be
+None, and is not stepped), the first ``step()`` seeds the servers with the
+initial parameters, and each ``step()`` pushes ``p.grad`` and copies the
+parameters the servers computed into ``p``.
 
 The step builders of ``byteps_tpu.optim`` run over the host's process
 group (``comm.mesh``, NCCL on the card), each process on its own part of
@@ -39,7 +44,7 @@ import torch
 
 from byteps_tpu_torch.api import declare_tensor, push_pull_async, synchronize
 from byteps_tpu_torch.comm import collectives
-from byteps_tpu_torch.comm.mesh import Mesh, require_mesh
+from byteps_tpu_torch.comm.mesh import Mesh, get_global_mesh, require_mesh
 from byteps_tpu_torch.common.types import divide
 from byteps_tpu_torch.compression.base import Compression
 from byteps_tpu_torch.compression.registry import translate_compression_params
@@ -49,29 +54,42 @@ from byteps_tpu_torch.ops.quantized_allreduce import quantized_psum
 class DistributedOptimizer(torch.optim.Optimizer):
     def __init__(
         self,
-        optimizer: torch.optim.Optimizer,
+        optimizer: Optional[torch.optim.Optimizer],
         named_parameters: Optional[Iterable[Tuple[str, torch.nn.Parameter]]] = None,
         compression: Any = Compression.none,
         backward_passes_per_step: int = 1,
         compression_params: Optional[Dict] = None,
         server_side: bool = False,
+        server_rule: str = "sgd",
+        server_hp: Optional[Dict] = None,
     ) -> None:
-        if server_side:
-            from byteps_tpu_torch.common.config import unported
-
-            raise unported("server_opt", "DistributedOptimizer(server_side=True)")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
-        self._inner = optimizer
-        self.param_groups = optimizer.param_groups
-        self.defaults = optimizer.defaults
-        self.state = optimizer.state
+        self.server_side = bool(server_side)
+        if self.server_side:
+            if compression is not Compression.none or compression_params:
+                raise ValueError("server_side=True pushes raw gradients and pulls "
+                                 "parameters: no compression")
+            if optimizer is None and named_parameters is None:
+                raise ValueError("server_side=True without an optimizer needs "
+                                 "named_parameters")
+            mesh = get_global_mesh()
+            if mesh is not None and mesh.size > 1:
+                # the group's all-reduce would sum the seed parameters
+                raise ValueError("server_side=True runs one process a host: a local "
+                                 f"group of {mesh.size} would sum its seed parameters")
+        elif optimizer is None:
+            raise TypeError("DistributedOptimizer needs an optimizer unless "
+                            "server_side=True (the servers run the rule then)")
+        self._inner = None if self.server_side else optimizer
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
         self._compression = compression
         self._handles: Dict[torch.nn.Parameter, int] = {}
         #: level-1 context of each in-flight gradient (its dtype before the cast)
         self._ctx: Dict[torch.nn.Parameter, Any] = {}
+        #: server_side: the first step seeds the servers with the parameters
+        self._seeded = False
 
         if named_parameters is not None:
             named = list(named_parameters)
@@ -83,10 +101,21 @@ class DistributedOptimizer(torch.optim.Optimizer):
             ]
         if len(named) != len({n for n, _ in named}):
             raise ValueError("named_parameters contains duplicate names")
+        if self._inner is not None:
+            self.param_groups = optimizer.param_groups
+            self.defaults = optimizer.defaults
+            self.state = optimizer.state
+        else:
+            # no local optimizer state: the servers hold the rule's slots
+            self.param_groups = [{"params": [p for _, p in named]}]
+            self.defaults = {}
+            self.state = {}
         self._names = {p: n for n, p in named}
         self._order = {p: i for i, (_, p) in enumerate(named)}
         hook = weak_hook(self, "_hook")
         kw = translate_compression_params(compression_params)
+        if self.server_side:
+            kw = {"byteps_server_opt": server_rule, "byteps_server_opt_hp": dict(server_hp or {})}
         for name, p in named:
             declare_tensor(f"Gradient.{name}", **kw)
             if p.requires_grad:
@@ -95,38 +124,78 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def _hook(self, p: torch.nn.Parameter) -> None:
         if self._passes + 1 < self.backward_passes_per_step:
             return  # accumulate locally; communicate on the last pass
+        if self.server_side and not self._seeded:
+            return  # the seed round goes first, in step()
         if p in self._handles or p.grad is None:
             return
-        grad, self._ctx[p] = self._compression.compress(p.grad)
+        self._push(p, p.grad)
+
+    def _push(self, p: torch.nn.Parameter, tensor: torch.Tensor) -> None:
+        t, self._ctx[p] = self._compression.compress(tensor)
         self._handles[p] = push_pull_async(
-            grad, name=f"Gradient.{self._names[p]}", average=True,
+            t, name=f"Gradient.{self._names[p]}", average=not self.server_side,
             priority=-self._order[p],
         )
 
     def synchronize(self) -> None:
-        """Wait for every in-flight gradient reduction and write it back."""
+        """Wait for every in-flight push_pull and write it back: the reduced
+        gradient into ``p.grad``, or with ``server_side`` the servers'
+        parameters into ``p``."""
         for p, handle in list(self._handles.items()):
             out = self._compression.decompress(synchronize(handle), self._ctx.pop(p))
-            if out is not p.grad:
-                p.grad.copy_(out.view_as(p.grad))
+            dst = p if self.server_side else p.grad
+            if out is not dst:
+                with torch.no_grad():
+                    dst.copy_(out.view_as(dst))
         self._handles.clear()
+
+    def _server_step(self) -> None:
+        """The seed round (the first time), then every gradient not pushed
+        by its hook, and the pulled parameters into ``p``."""
+        params = sorted(self._names, key=self._order.get)
+        if not self._seeded:
+            self._seeded = True
+            for p in params:
+                self._push(p, p.detach())
+            self.synchronize()
+        for p in params:
+            if p not in self._handles and p.grad is not None:
+                self._push(p, p.grad)
+        self.synchronize()
 
     def step(self, closure=None):
         self._passes += 1
         if self._passes < self.backward_passes_per_step:
             return None  # still accumulating: no communication, no step
         self._passes = 0
+        if self.server_side:
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            self._server_step()
+            return loss
         self.synchronize()
         return self._inner.step(closure)
 
     def zero_grad(self, set_to_none: bool = True):
-        return self._inner.zero_grad(set_to_none=set_to_none)
+        if self._inner is not None:
+            return self._inner.zero_grad(set_to_none=set_to_none)
+        for p in self._names:
+            if p.grad is not None:
+                if set_to_none:
+                    p.grad = None
+                else:
+                    p.grad.zero_()
+        return None
 
     def state_dict(self):
-        return self._inner.state_dict()
+        return self._inner.state_dict() if self._inner is not None else {}
 
     def load_state_dict(self, state_dict):
-        return self._inner.load_state_dict(state_dict)
+        if self._inner is not None:
+            return self._inner.load_state_dict(state_dict)
+        return None
 
 
 def weak_hook(owner: object, method: str, *args) -> Callable[[torch.nn.Parameter], None]:

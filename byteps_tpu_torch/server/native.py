@@ -11,6 +11,14 @@ barrier and follows the scheduler's control messages, with
 a resize book is refused and stops it (elastic membership is not ported).
 The engine's counters and histograms reach ``core/telemetry.py`` through
 the registry's provider seam.  Selected by ``BYTEPS_SERVER_NATIVE=1``.
+
+The engine serves fused frames (Op.FUSED) and, under
+``BYTEPS_ENABLE_ASYNC=1``, runs every key async (a cumulative store, pulls
+answered from it at once).  It refuses an INIT with a per-key async or a
+server-side optimizer profile with status 1 and counts it
+(``native_async_reject``, ``native_server_opt_reject``); the worker raises
+with the reason (``comm/ps_client.py``), and nothing falls back to the
+Python engine.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ class NativePSServer:
         self._lib = get_lib()
         self.cfg = cfg
         self.host = host
-        self.port = self._lib.bps_native_server_start(0, cfg.num_worker, 0)
+        self.port = self._lib.bps_native_server_start(0, cfg.num_worker,
+                                                      int(cfg.enable_async))
         if self.port < 0:
             raise RuntimeError("bps_native_server_start failed")
         self._id = self.port

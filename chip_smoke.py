@@ -91,11 +91,33 @@ Phases, each fatal on failure:
  14. the step builders (build_data_parallel_step, build_zero1_step,
      accumulate_steps=2, grad_quant_bits=8) at one rank of an NCCL group, 2
      layers, f32: within 1e-6 of DistributedOptimizer at one worker;
- 15. one JSON line listing the kernels, then the contract line
+ 15. small-tensor fusion (after phase 7): BERT-large at full depth through
+     one worker and two servers with bare onebit, on the Python lanes and
+     on the native lanes, each unfused and fused
+     (BYTEPS_FUSION_THRESHOLD=131072: every partition fits) in turns: the
+     parameters bitwise the unfused run's, K4 at 495 launches a step, the
+     warm-up step's onebit payloads bitwise, the same bytes; fused frames
+     a step, keys a frame, the stage split with FUSE's dwell, and the step
+     beside the unfused one;
+ 16. the server-side optimizer: DistributedOptimizer(None,
+     server_side=True, server_rule="adam") at full depth through two
+     Python servers, every round of six tensors' partitions bitwise a CPU
+     replay of update_rules.Adam, falling losses, no optimizer state on
+     the worker; against native servers the worker raises at its first
+     INIT;
+ 17. async: server-wide (BYTEPS_ENABLE_ASYNC=1) on Python and on native
+     servers, one worker with local AdamW pushing weight deltas: every
+     pulled store the sum of its deltas, the parameters bitwise AdamW with
+     the store's rounding done on the card and within ASYNC_ATOL of bare
+     AdamW; per key at staleness bound 1 on two launcher hosts, one of
+     them lagging two rounds behind in two steps: finite losses, pulls
+     parked by the servers, no pull answered beyond the bound;
+ 18. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
-`python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host, which the
-launcher runs; it is not run by hand.
+`python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host and
+`--async-host <dir>` phase 17's, which the launcher runs; they are not run
+by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -994,29 +1016,41 @@ def _hist_lines(hists: dict, steps: int) -> list:
     dwell and round trips): observations and seconds a step, p50, p99."""
     return [f"{name}: {h['count'] / steps:.1f} a step, {h['sum'] / steps * 1e3:.1f} ms a "
             f"step, p50 {h['p50'] * 1e3:.3f} ms, p99 {h['p99'] * 1e3:.3f} ms"
+            if "_seconds" in name else
+            f"{name}: {h['count'] / steps:.1f} a step, mean {h['sum'] / max(1, h['count']):.2f}, "
+            f"p50 {h['p50']:g}, p99 {h['p99']:g}"
             for name, h in sorted(hists.items())]
 
 
 def _server_report(log_dir: str) -> list:
     """Each server's (pushes summed, rounds published, {histogram: (count,
-    sum s, p50 s, p99 s)}), from the two lines a server logs when it stops
-    (None for a server that logged none)."""
+    sum s, p50 s, p99 s)}, async pulls parked, server-side updates applied;
+    the last two None from a C++ engine), from the two lines a server logs
+    when it stops (None for a server that logged none)."""
     import re
 
     found = []
     for i in range(2):
         with open(os.path.join(log_dir, f"server{i}.log")) as f:
             text = f.read()
-        m = re.findall(r"summed (\d+) pushes into (\d+) rounds", text)
+        m = re.findall(r"summed (\d+) pushes into (\d+) rounds(?:, parked (\d+) async pulls, "
+                       r"applied (\d+) server-side updates)?", text)
         hists = {name: tuple(float(v) for v in vals) for name, *vals in re.findall(
             r"(\w+_seconds) count=(\d+) sum=([\d.e+-]+) p50=([\d.e+-]+) p99=([\d.e+-]+)",
             text)}
-        found.append((*(int(v) for v in m[-1]), hists) if m else None)
+        if m:
+            pushes, rounds, parked, updates = m[-1]
+            found.append((int(pushes), int(rounds), hists, int(parked) if parked else None,
+                          int(updates) if updates else None))
+        else:
+            found.append(None)
     return found
 
 
 def _server_lines(report: list) -> list:
-    return [f"server {i}: summed {r[0]} pushes into {r[1]} rounds; "
+    return [f"server {i}: summed {r[0]} pushes into {r[1]} rounds"
+            + ("" if r[3] is None else f", parked {r[3]} async pulls, applied {r[4]} "
+               "server-side updates") + "; "
             + "; ".join(f"{name} count {int(c)}, sum {s * 1e3:.1f} ms, p50 {p50 * 1e3:.3f} ms, "
                         f"p99 {p99 * 1e3:.3f} ms" for name, (c, s, p50, p99) in r[2].items())
             for i, r in enumerate(report) if r is not None]
@@ -1090,6 +1124,7 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
         tap.update(length=tapped["length"],
                    kwargs=dict(get_registry().get(tapped["name"]).kwargs))
         peak = torch.cuda.max_memory_allocated() / 2**30
+        state_bytes = _state_bytes(opt)
         # after the counts are read: the same forward + backward with the
         # gradient hooks skipping (they accumulate while a step has more
         # backward passes to go), so the engine stays idle
@@ -1170,7 +1205,8 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
           f"{stats.get('wire_rx_bytes', 0) // n}; phase wall {time.perf_counter() - wall:.1f} s",
           flush=True)
     return {"losses": losses, "onebit_launches": launches["onebit_pack"],
-            "wire_tx_step": stats.get("wire_tx_bytes", 0) // n, "step_ms": dt / steps * 1e3}
+            "wire_tx_step": stats.get("wire_tx_bytes", 0) // n, "step_ms": dt / steps * 1e3,
+            "state_bytes": state_bytes}
 
 
 def train_distributed(card: str) -> dict:
@@ -2067,6 +2103,42 @@ def _check_server_rounds(label: str, taps: list) -> list:
     return [float(v) for v in (s0 > s1).mean(axis=0)]
 
 
+def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float) -> dict:
+    """A scheduler and two servers (their logs in ``work``), and
+    HYBRID_HOSTS hosts, each `python -m byteps_tpu_torch.launcher.launch`
+    running `chip_smoke.py <flag> <work>` as worker DMLC_WORKER_ID=h; waits
+    for the hosts (at most ``timeout`` s), stops every process, and fails
+    unless every host exited 0.  Returns each host's output."""
+    port, procs = _start_ps_processes(env, work)
+    hosts = []
+    try:
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"host{h}.log"), "w") as log:
+                hosts.append(subprocess.Popen(
+                    [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                     sys.executable, os.path.join(REPO, "chip_smoke.py"), flag, work],
+                    cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
+                    stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in hosts):
+                break
+            time.sleep(0.5)
+        rcs = [p.poll() for p in hosts]
+    finally:
+        _stop_processes(hosts)
+        _stop_processes(procs)
+    logs = {}
+    for h in range(HYBRID_HOSTS):
+        with open(os.path.join(work, f"host{h}.log")) as f:
+            logs[h] = f.read()
+    if rcs != [0] * HYBRID_HOSTS:
+        for h, text in logs.items():
+            print(f"--- {label} host {h} (exit {rcs[h]}):\n{text[-6000:]}", file=sys.stderr)
+        fail(f"{label}: the hosts exited {rcs}")
+    return logs
+
+
 def train_hybrid(card: str) -> dict:
     """The hybrid path: a scheduler and two servers of the port, and two
     hosts, each `python -m byteps_tpu_torch.launcher.launch` at
@@ -2090,35 +2162,7 @@ def train_hybrid(card: str) -> dict:
     env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
     results = []
     with tempfile.TemporaryDirectory() as work:
-        port, procs = _start_ps_processes(env, work)
-        hosts = []
-        try:
-            for h in range(HYBRID_HOSTS):
-                with open(os.path.join(work, f"host{h}.log"), "w") as log:
-                    hosts.append(subprocess.Popen(
-                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
-                         sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                         "--hybrid-host", work],
-                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
-                                       "DMLC_WORKER_ID": str(h)},
-                        stdout=log, stderr=subprocess.STDOUT))
-            deadline = time.monotonic() + 420
-            while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
-                if any(p.poll() not in (None, 0) for p in hosts):
-                    break
-                time.sleep(0.5)
-            rcs = [p.poll() for p in hosts]
-        finally:
-            _stop_processes(hosts)
-            _stop_processes(procs)
-        logs = {}
-        for h in range(HYBRID_HOSTS):
-            with open(os.path.join(work, f"host{h}.log")) as f:
-                logs[h] = f.read()
-        if rcs != [0] * HYBRID_HOSTS:
-            for h, text in logs.items():
-                print(f"--- hybrid host {h} (exit {rcs[h]}):\n{text[-6000:]}", file=sys.stderr)
-            fail(f"{label}: the hosts exited {rcs}")
+        logs = _run_hosts(label, env, "--hybrid-host", work, timeout=420)
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"host{h}.json")) as f:
                 results.append(json.load(f))
@@ -2264,6 +2308,672 @@ def train_hybrid(card: str) -> dict:
     if bad:
         fail(f"{label}: " + "; ".join(bad))
     return {"launches_a_step": {k: v // n for k, v in a["launches"].items()}}
+
+
+# --- small-tensor fusion, the server-side optimizer, async ------------------
+
+#: fusion: every onebit payload of BERT-large's partitions (at most 128,004
+#: bytes) and every raw partition below BYTEPS_MIN_COMPRESS_BYTES fits, so all
+#: 641 gradient partitions fuse; fusion_bytes at its default (262,144)
+FUSION_THRESHOLD = 131072
+FUSION_STEPS = 3
+#: the server-side optimizer: Adam on the servers, a seed round and 3 steps
+SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
+#: the tensors whose every pulled partition is held against a CPU replay of
+#: the servers' Adam: the word embedding, layer 0's Q, K and V weights, and
+#: the final LayerNorm
+SERVER_OPT_TAPPED = ("embed", "layers.0.wq", "layers.0.wk", "layers.0.wv", "ln_f_s", "ln_f_b")
+#: async: local AdamW (lr 1e-4, weight decay 1e-4) and the weight-delta loop
+#: of byteps_tpu/tensorflow/__init__.py:219-230 over push_pull(average=False)
+ASYNC_STEPS, ASYNC_LR = 4, 1e-4
+#: the server-wide async run against bare AdamW on the card: one worker's store
+#: is the sum of its deltas, prev + (cur - prev), which rounds to cur except
+#: where the two differ by more than a factor of 2 (parameters near zero).
+#: Bitwise it is AdamW with that rounding done on the card; against bare
+#: AdamW, a last-place difference changes the next bf16 forward and so the
+#: gradients, and an AdamW update is at most ~lr an element (|m^ / sqrt(v^)|
+#: <= 1 at step 1), so the two trajectories part by at most ~2 lr a step
+ASYNC_ATOL = 2 * ASYNC_LR * ASYNC_STEPS
+#: the per-key profile on two launcher hosts: bounded staleness 1, 6 steps
+ASYNC_HOST_STEPS, ASYNC_BOUND = 6, 1
+#: host 1 sleeps ASYNC_LAG_S before its pushes of these training steps, so
+#: host 0 runs two rounds ahead of it and its next pulls must park
+ASYNC_LAG_STEPS, ASYNC_LAG_S = (1, 3), 8.0
+
+
+def _state_bytes(opt) -> int:
+    """Bytes of the tensors an optimizer holds as its state."""
+    import torch
+
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor))
+
+
+@contextlib.contextmanager
+def _tap_compressed_payloads(client):
+    """A digest of every compressed payload this worker's PS client sends,
+    by (key, version): plain pushes and fused frames' members alike."""
+    import hashlib
+
+    from byteps_tpu_torch.common.types import RequestType, decode_command_type
+
+    push, push_fused = client.push, client.push_fused
+    seen: dict = {}
+
+    def digest(payload) -> str:
+        return hashlib.blake2b(memoryview(payload).cast("B"), digest_size=16).hexdigest()
+
+    def tap_push(key, payload, dtype_id, version, *args, **kwargs):
+        if kwargs.get("request_type") == RequestType.COMPRESSED_PUSH_PULL:
+            seen[key, version] = digest(payload)
+        return push(key, payload, dtype_id, version, *args, **kwargs)
+
+    def tap_push_fused(members, *args, **kwargs):
+        for key, cmd, version, payload in members:
+            if decode_command_type(cmd)[0] == RequestType.COMPRESSED_PUSH_PULL:
+                seen[key, version] = digest(payload)
+        return push_fused(members, *args, **kwargs)
+
+    client.push, client.push_fused = tap_push, tap_push_fused
+    try:
+        yield seen
+    finally:
+        client.push, client.push_fused = push, push_fused
+
+
+def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
+    """One worker and two server processes, BERT-large through
+    DistributedOptimizer(AdamW) with bare onebit (scaling), as the
+    distributed path: one warm-up step (its compressed payloads tapped) and
+    FUSION_STEPS timed, with BYTEPS_FUSION_THRESHOLD=FUSION_THRESHOLD when
+    ``fused``; on the native lanes (C++ servers and client) when ``native``.
+    Returns what it measured; the caller compares it with the other runs."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters, metrics
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    wall = time.perf_counter()
+    worker_env = {"BYTEPS_FUSION_THRESHOLD": str(FUSION_THRESHOLD if fused else 0)}
+    if native:
+        worker_env["BYTEPS_NATIVE_CLIENT"] = "1"
+    with _ps_fleet(label, {"BYTEPS_SERVER_NATIVE": "1"} if native else None,
+                   worker_env) as fleet:
+        bps.init()
+        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression_params={"compressor": "onebit", "scaling": True},
+        )
+        step = build_train_step(model, opt)
+        engine = get_state().engine
+        with _tap_compressed_payloads(get_state().ps_client) as payloads:
+            losses = [float(step(tok, tgt))]
+            torch.cuda.synchronize()
+        gc.collect()
+        fa.reset_launches()
+        ob.reset_launches()
+        counters().reset()
+        metrics().reset()
+        timed, split, dt = _timed_steps(model, opt, tok, tgt, FUSION_STEPS)
+        launches = {**fa.launches, **ob.launches}
+        stats = counters().snapshot()
+        hists = metrics().snapshot()["histograms"]
+        losses += timed
+        table = engine.partition_table()
+        digest = _param_digest(model)
+        bps.shutdown()
+        del model, opt, step
+    grads = [r for r in table if r["name"].startswith("Gradient.")]
+    compressed = [r for r in grads if r["wire_nbytes"] is not None]
+    fits = [r for r in grads if (r["wire_nbytes"] if r["wire_nbytes"] is not None
+                                 else r["length"] * r["itemsize"]) <= FUSION_THRESHOLD]
+    out = {"label": label, "fused": fused, "native": native, "losses": losses,
+           "step_ms": dt / FUSION_STEPS * 1e3, "split": split, "launches": launches,
+           "stats": stats, "hists": hists, "digest": digest, "payloads": payloads,
+           "compressed": len(compressed), "partitions": len(grads), "fits": len(fits),
+           "report": fleet.report, "wall": time.perf_counter() - wall}
+    return out
+
+
+def train_fusion(card: str) -> dict:
+    """Small-tensor fusion on the distributed path: BERT-large through one
+    worker and two servers with bare onebit, on the Python lanes and on the
+    native lanes, each unfused and fused (BYTEPS_FUSION_THRESHOLD=131072) in
+    turns from the same weights and tokens.  Holds, on each lane: the
+    parameters after the timed steps bitwise the unfused run's (one worker:
+    the servers' sum is a copy), K4 at 495 launches a step, every compressed
+    payload of the warm-up step bitwise the unfused run's of the same
+    partition and round, d2h_bytes (and the wire bytes) equal to the
+    unfused run's, every partition in a fused frame.  Prints the fused frames
+    a step and keys a frame, the bytes, the stage split with FUSE's dwell,
+    and ms a step and samples/s beside the unfused run's.  Returns the
+    kernels' launches a step of the fused Python-lane run."""
+    label = "fusion"
+    runs = []
+    for native in (False, True):
+        lane = "native lanes" if native else "Python lanes"
+        for fused in (False, True):
+            gc.collect()
+            runs.append(_fusion_run(card, f"{label}, {lane}, {'fused' if fused else 'unfused'}",
+                                    fused, native))
+    bad = []
+    n = FUSION_STEPS
+    for r in runs:
+        s, ln = r["stats"], r["launches"]
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"{r['label']}: non-finite loss {r['losses']}")
+        if r["compressed"] != DIST_COMPRESSED_PARTS or ln["onebit_pack"] != n * DIST_COMPRESSED_PARTS:
+            bad.append(f"{r['label']}: K4 launched {ln['onebit_pack']} times in {n} steps, "
+                       f"expected {DIST_COMPRESSED_PARTS} a step")
+        if {k: ln[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} != {
+                "flash_fwd": 2 * N_LAYERS_FULL * n, "flash_bwd_dq": N_LAYERS_FULL * n,
+                "flash_bwd_dkv": N_LAYERS_FULL * n}:
+            bad.append(f"{r['label']}: flash launches {ln}")
+        bad += [f"{r['label']}: {k} {s.get(k, 0) / n:.0f} a step, expected {DIST_D2H_STEP}"
+                for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
+                if s.get(k, 0) != n * DIST_D2H_STEP]
+        want_keys = n * r["partitions"] if r["fused"] else 0
+        if s.get("fused_keys", 0) != want_keys or (r["fused"] and r["fits"] != r["partitions"]):
+            bad.append(f"{r['label']}: {s.get('fused_keys', 0)} fused keys in {n} steps, "
+                       f"expected {want_keys} ({r['fits']} of {r['partitions']} partitions "
+                       "fit the threshold)")
+        if r["report"] is None or any(x is None for x in r["report"]):
+            bad.append(f"{r['label']}: a server logged no stop report")
+    for plain, fused in zip(runs[0::2], runs[1::2]):
+        if fused["digest"] != plain["digest"]:
+            bad.append(f"{fused['label']}: the parameters after {n} steps are not bitwise "
+                       "the unfused run's")
+        if len(plain["payloads"]) != DIST_COMPRESSED_PARTS or fused["payloads"] != plain["payloads"]:
+            diff = [k for k in plain["payloads"] if fused["payloads"].get(k) != plain["payloads"][k]]
+            bad.append(f"{fused['label']}: {len(fused['payloads'])} tapped onebit payloads, "
+                       f"{len(diff)} of the unfused run's {len(plain['payloads'])} differ")
+    for r in runs:
+        s = r["stats"]
+        frames = s.get("fused_frames", 0) / n
+        print(f"{r['label']}: {BATCH * n / (r['step_ms'] * n / 1e3):.2f} samples/s "
+              f"({r['step_ms']:.1f} ms/step over {n} steps); losses "
+              f"{[round(x, 4) for x in r['losses']]}; fused frames {frames:.1f} a step, "
+              f"{s.get('fused_keys', 0) / max(1, s.get('fused_frames', 0)):.1f} keys a frame "
+              f"(flushes: full {s.get('fusion_flush_full', 0) / n:.1f}, idle "
+              f"{s.get('fusion_flush_idle', 0) / n:.1f}, cycle "
+              f"{s.get('fusion_flush_cycle', 0) / n:.1f} a step; fallbacks "
+              f"{s.get('fused_fallback', 0)}); d2h_bytes {s.get('d2h_bytes', 0) // n}, "
+              f"wire_tx_bytes {s.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
+              f"{s.get('wire_rx_bytes', 0) // n} a step; K4 "
+              f"{r['launches']['onebit_pack'] // n} a step; step split "
+              f"{_split_line(r['split'], n)}; phase wall {r['wall']:.1f} s", flush=True)
+        for line in _hist_lines(r["hists"], n) + _server_lines(r["report"] or []):
+            print(f"{r['label']}: {line}", flush=True)
+    for plain, fused in zip(runs[0::2], runs[1::2]):
+        print(f"{fused['label']}: {fused['step_ms']:.1f} ms a step against the unfused "
+              f"{plain['step_ms']:.1f} ({fused['step_ms'] / plain['step_ms']:.3f}x), parameters "
+              f"bitwise {fused['digest'] == plain['digest']}, the warm-up step's "
+              f"{len(plain['payloads'])} onebit payloads bitwise "
+              f"{fused['payloads'] == plain['payloads']}; on {card}", flush=True)
+    print(f"{label}: the four runs' parameters bitwise equal "
+          f"{len({r['digest'] for r in runs}) == 1}", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return {k: v // n for k, v in runs[1]["launches"].items()}
+
+
+@contextlib.contextmanager
+def _tap_tensor_rounds(client, engine, names):
+    """Every payload the PS client pushes and pulls for the partitions of
+    the tensors ``names``, by key, in round order (a pull that landed in
+    its sink is read from there)."""
+    from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
+
+    push, pull = client.push, client.pull
+    seen: dict = {}
+
+    def wanted(key) -> bool:
+        return engine._table.get(key, (None,))[0] in names
+
+    def tap_push(key, payload, *args, **kwargs):
+        if wanted(key):
+            seen.setdefault(key, {"pushed": [], "pulled": []})["pushed"].append(
+                bytes(memoryview(payload).cast("B")))
+        return push(key, payload, *args, **kwargs)
+
+    def tap_pull(key, version, cb, *args, **kwargs):
+        if not wanted(key):
+            return pull(key, version, cb, *args, **kwargs)
+        sink = kwargs.get("sink")
+
+        def cb_tapped(payload):
+            seen.setdefault(key, {"pushed": [], "pulled": []})["pulled"].append(
+                bytes(sink) if payload is ZERO_COPIED else bytes(payload))
+            cb(payload)
+        return pull(key, version, cb_tapped, *args, **kwargs)
+
+    client.push, client.pull = tap_push, tap_pull
+    try:
+        yield seen
+    finally:
+        client.push, client.pull = push, pull
+
+
+def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
+    """The server-side optimizer: BERT-large through one worker and two
+    Python-engine servers with DistributedOptimizer(None, server_side=True,
+    server_rule="adam", server_hp={"lr": 1e-4}) on raw f32 gradients: the
+    first step seeds the servers with the parameters, then every step pushes
+    gradients and copies the servers' parameters in.  Holds every pulled
+    partition of the word embedding, layer 0's Q, K and V weights and the
+    final LayerNorm, in every round, bitwise a CPU replay of the port's
+    update_rules.Adam on the tapped gradients; finite, falling losses; no
+    optimizer state on the worker.  Then the same worker against native
+    servers must raise at its first INIT with their refusal.  Prints ms a
+    step, bytes each way, the servers' apply time (their publish histogram)
+    and the worker's optimizer-state bytes beside DistributedOptimizer(AdamW)'s
+    (``adamw_state_bytes``, from the distributed path).  Returns the
+    kernels' launches a step."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+    from byteps_tpu_torch.server import update_rules
+
+    label = "server optimizer"
+    wall = time.perf_counter()
+    tapped = {f"Gradient.{n}" for n in SERVER_OPT_TAPPED}
+    with _ps_fleet(label) as fleet:
+        bps.init()
+        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = bps.DistributedOptimizer(None, named_parameters=model.named_parameters(),
+                                       server_side=True, server_rule=SERVER_OPT_RULE,
+                                       server_hp=SERVER_OPT_HP)
+        step = build_train_step(model, opt)
+        engine = get_state().engine
+        fa.reset_launches()
+        ob.reset_launches()
+        with _tap_tensor_rounds(get_state().ps_client, engine, tapped) as rounds:
+            t0 = time.perf_counter()
+            losses = [float(step(tok, tgt))]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counters().reset()
+            t0 = time.perf_counter()
+            losses += [float(step(tok, tgt)) for _ in range(SERVER_OPT_STEPS - 1)]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {**fa.launches, **ob.launches}
+        stats = counters().snapshot()
+        state_bytes = _state_bytes(opt)
+        bps.shutdown()
+        del model, opt, step
+
+    bad = []
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        bad.append(f"losses not finite and falling: {losses}")
+    if state_bytes != 0:
+        bad.append(f"the worker holds {state_bytes} bytes of optimizer state")
+    # raw f32 gradients: K4 packs nothing
+    if launches != {"flash_fwd": 2 * cfg.n_layers * SERVER_OPT_STEPS,
+                    "flash_bwd_dq": cfg.n_layers * SERVER_OPT_STEPS,
+                    "flash_bwd_dkv": cfg.n_layers * SERVER_OPT_STEPS, "onebit_pack": 0}:
+        bad.append(f"kernel launches {launches}")
+    names = {engine._table[k][0] for k in rounds}
+    if names != tapped:
+        bad.append(f"tapped {sorted(names)}, expected {sorted(tapped)}")
+    checked = 0
+    for key, rec in sorted(rounds.items()):
+        pushed, pulled = rec["pushed"], rec["pulled"]
+        if len(pushed) != SERVER_OPT_STEPS + 1 or len(pulled) != SERVER_OPT_STEPS + 1:
+            bad.append(f"key {key}: {len(pushed)} pushes and {len(pulled)} pulls, expected "
+                       f"the seed and {SERVER_OPT_STEPS} rounds")
+            continue
+        # the seed round: the servers adopt the parameters as they are
+        store = np.frombuffer(pushed[0], np.float32).copy()
+        rule = update_rules.make_rule(SERVER_OPT_RULE, {"average": True, **SERVER_OPT_HP},
+                                      store.size, np.float32)
+        if pulled[0] != pushed[0]:
+            bad.append(f"key {key}: the seed round's pull is not the pushed parameters")
+        for t in range(1, SERVER_OPT_STEPS + 1):
+            rule.apply(store, np.frombuffer(pushed[t], np.float32), 1, t)
+            if store.tobytes() != pulled[t]:
+                bad.append(f"key {key}: round {t}'s pull is not the replay of Adam")
+                break
+            checked += 1
+    print(f"{label}: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, 1 worker + 2 "
+          f"Python-engine server processes, DistributedOptimizer(None, server_side=True, "
+          f"server_rule={SERVER_OPT_RULE!r}, server_hp={SERVER_OPT_HP}) on raw f32 gradients: "
+          f"losses {[round(x, 4) for x in losses]}; {dt / (SERVER_OPT_STEPS - 1) * 1e3:.1f} "
+          f"ms a step over {SERVER_OPT_STEPS - 1} steps ({BATCH * (SERVER_OPT_STEPS - 1) / dt:.2f}"
+          f" samples/s; the first, with the init barriers and the seed round, {first_s:.1f} s); "
+          f"wire_tx_bytes {stats.get('wire_tx_bytes', 0) // (SERVER_OPT_STEPS - 1)}, "
+          f"wire_rx_bytes {stats.get('wire_rx_bytes', 0) // (SERVER_OPT_STEPS - 1)} a step; "
+          f"on {card}", flush=True)
+    for line in _server_lines(fleet.report or []):
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: {len(rounds)} partitions of {len(tapped)} tensors, {checked} of their "
+          f"rounds after the seed bitwise a CPU replay of update_rules.Adam; the worker's "
+          f"optimizer state {state_bytes} bytes against {adamw_state_bytes} for "
+          f"DistributedOptimizer(AdamW) on the distributed path", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+
+    # the C++ engine has no update rule: it refuses the profile, and the
+    # worker raises with the reason at the first INIT
+    with _ps_fleet(f"{label}, native servers", {"BYTEPS_SERVER_NATIVE": "1"}) as fleet:
+        bps.init()
+        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = bps.DistributedOptimizer(None, named_parameters=model.named_parameters(),
+                                       server_side=True, server_rule=SERVER_OPT_RULE,
+                                       server_hp=SERVER_OPT_HP)
+        try:
+            build_train_step(model, opt)(tok, tgt)
+        except RuntimeError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+        bps.shutdown()
+        del model, opt
+    if refusal is None or "server-side optimizer" not in refusal:
+        fail(f"{label}: against native servers the worker did not raise with their "
+             f"refusal (got {refusal!r})")
+    print(f"{label}: against native servers the worker raised at its first INIT: "
+          f"{refusal}; phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    return {k: v // SERVER_OPT_STEPS for k, v in launches.items()}
+
+
+def _async_delta_step(model, prev: dict, check_store: bool) -> int:
+    """The async weight-delta loop (byteps_tpu/tensorflow/__init__.py:219-230,
+    with the root's store seeded by its parameters: ``prev`` starts at zeros
+    on the root, at the parameters elsewhere): push each parameter's change
+    since the store it last adopted with push_pull(average=False), adopt
+    the pulled store.  With ``check_store`` (one worker) returns how many
+    elements of the pulled stores differ from prev + delta, the sum of this
+    worker's deltas, else 0."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    handles = []
+    for i, (name, p) in enumerate(model.named_parameters()):
+        delta = p.detach() - prev[name]
+        handles.append((name, p, delta, bps.push_pull_async(
+            delta, name=f"AsyncParam.{name}", average=False, priority=-i)))
+    differ = 0
+    with torch.no_grad():
+        for name, p, delta, h in handles:
+            new = bps.synchronize(h)
+            if check_store:
+                differ += int((new != prev[name] + delta).sum())
+            p.copy_(new)
+            prev[name] = new
+    return differ
+
+
+def _async_prev(model, root: bool) -> dict:
+    import torch
+
+    return {n: (torch.zeros_like(p) if root else p.detach().clone())
+            for n, p in model.named_parameters()}
+
+
+def _async_one_worker(card: str, label: str, native: bool) -> dict:
+    """Server-wide async (BYTEPS_ENABLE_ASYNC=1 on the worker and both
+    servers): BERT-large with local AdamW and the delta loop, ASYNC_STEPS
+    steps.  Returns losses, ms a step, the parameters, and the elements of
+    the pulled stores that were not prev + delta."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    env = {"BYTEPS_ENABLE_ASYNC": "1"}
+    server_env = {**env, **({"BYTEPS_SERVER_NATIVE": "1"} if native else {})}
+    with _ps_fleet(label, server_env, env) as fleet:
+        bps.init()
+        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
+        prev = _async_prev(model, root=True)
+        fa.reset_launches()
+        ob.reset_launches()
+        losses, differ = [], 0
+        t0 = time.perf_counter()
+        for _ in range(ASYNC_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss(tok, tgt)
+            loss.backward()
+            opt.step()
+            differ += _async_delta_step(model, prev, check_store=True)
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {**fa.launches, **ob.launches}
+        params = [p.detach().clone() for p in model.parameters()]
+        bps.shutdown()
+        del model, opt, prev
+    return {"losses": losses, "step_ms": dt / ASYNC_STEPS * 1e3, "params": params,
+            "differ": differ, "launches": launches, "report": fleet.report}
+
+
+def async_host(work: str) -> None:
+    """One host of the per-key async phase, run by the port's launcher at
+    BYTEPS_LOCAL_SIZE=1 with BYTEPS_ASYNC=1 and BYTEPS_STALENESS_BOUND=1
+    (``chip_smoke.py --async-host <dir>``): BERT-large at full depth on its
+    half of the batch with local AdamW and the delta loop for
+    ASYNC_HOST_STEPS steps, host 1 sleeping ASYNC_LAG_S before its pushes of
+    the steps ASYNC_LAG_STEPS.  Two seed rounds come first (the root's
+    parameters, a barrier, zero deltas), after which both hosts hold the
+    root's parameters.  Records, for every pull of the training steps, its
+    round and the store version the server answered with (the pushes of
+    both hosts it had applied); writes <dir>/async<h>.json."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.transport import Op
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    host = int(os.environ["DMLC_WORKER_ID"])
+    bps.init()
+    _, model, tok, tgt = _bert(N_LAYERS_FULL)
+    rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
+    tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+    opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
+    prev = _async_prev(model, root=host == 0)
+    client = get_state().ps_client
+    # the seed: the root pushes its parameters, the other host zeros; once
+    # both pushes are in (the barrier), a round of zero deltas hands every
+    # host the whole store, before a pull could see a store without the seed
+    _async_delta_step(model, prev, check_store=False)
+    client.barrier()
+    _async_delta_step(model, prev, check_store=False)
+    seeded = _param_digest(model)
+    pulls: list = []
+    request = client._request
+
+    def tapped(key, make_msg, on_reply, on_error, sink=None, timed=False):
+        probe = make_msg(0)
+        if probe.op == Op.PULL:
+            version, deliver = probe.version, on_reply
+
+            def on_reply(msg):
+                pulls.append((version, msg.version))
+                deliver(msg)
+        return request(key, make_msg, on_reply, on_error, sink=sink, timed=timed)
+
+    client._request = tapped
+    fa.reset_launches()
+    ob.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(ASYNC_HOST_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt)
+        loss.backward()
+        opt.step()
+        if host == 1 and i in ASYNC_LAG_STEPS:
+            torch.cuda.synchronize()
+            time.sleep(ASYNC_LAG_S)  # host 0 runs ahead until the bound parks it
+        _async_delta_step(model, prev, check_store=False)
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**fa.launches, **ob.launches}
+    client._request = request
+    bps.shutdown()
+    # a pull of round v comes after this host's v pushes of the key, so the
+    # store's version less v is what the other host had applied
+    other = [rv - v for v, rv in pulls]
+    out = {"host": host, "losses": losses, "step_s": dt / ASYNC_HOST_STEPS, "seeded": seeded,
+           "launches": launches,
+           "pulls": len(pulls),
+           "over_bound": sum(o < v - ASYNC_BOUND for (v, _), o in zip(pulls, other)),
+           "behind": sum(o < v for (v, _), o in zip(pulls, other)),
+           "ahead": sum(o > v for (v, _), o in zip(pulls, other))}
+    with open(os.path.join(work, f"async{host}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def train_async(card: str) -> dict:
+    """Async on the distributed path.  Server-wide (BYTEPS_ENABLE_ASYNC=1),
+    once with Python-engine servers and once with native ones: one worker
+    with local AdamW pushes its weight deltas and adopts the pulled store,
+    held bitwise to prev + delta at every pull and within ASYNC_ATOL of bare
+    AdamW on the card after ASYNC_STEPS steps.  Per key with bounded
+    staleness (BYTEPS_ASYNC=1, BYTEPS_STALENESS_BOUND=1) on two launcher
+    hosts of one process each through two Python servers, the same loop for
+    ASYNC_HOST_STEPS steps with host 1 lagging two rounds behind in some:
+    finite losses on both hosts, pulls parked by the servers, and no pull
+    answered with a store more than one round ahead of the other host's
+    applied pushes.  Prints the servers' parked pulls.  Returns the
+    kernels' launches a step of the server-wide run on Python servers."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    label = "async"
+    wall = time.perf_counter()
+    # bare AdamW on the card, the same weights, tokens and steps; and AdamW
+    # with the store's rounding (p = prev + (p - prev)) done on the card
+    bare, bare_losses = {}, {}
+    for emulated in (False, True):
+        bps.init()
+        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
+        prev = [torch.zeros_like(p) for p in model.parameters()]
+        bare_losses[emulated] = []
+        for _ in range(ASYNC_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss(tok, tgt)
+            loss.backward()
+            opt.step()
+            if emulated:
+                with torch.no_grad():
+                    for p, q in zip(model.parameters(), prev):
+                        p.copy_(q + (p - q))
+                        q.copy_(p)
+            bare_losses[emulated].append(float(loss.detach()))
+        bare[emulated] = [p.detach().clone() for p in model.parameters()]
+        bps.shutdown()
+        del model, opt, prev
+        gc.collect()
+    # a step of BERT-large at full depth; raw deltas, so K4 packs nothing
+    want_step = {"flash_fwd": 2 * N_LAYERS_FULL, "flash_bwd_dq": N_LAYERS_FULL,
+                 "flash_bwd_dkv": N_LAYERS_FULL, "onebit_pack": 0}
+    bad, a_step = [], None
+    for native in (False, True):
+        engine = "native" if native else "Python"
+        run = _async_one_worker(card, f"{label}, server-wide, {engine} servers", native)
+        worst = max(float((a - b).abs().max()) for a, b in zip(run["params"], bare[False]))
+        same = sum(int((a == b).sum()) for a, b in zip(run["params"], bare[False]))
+        total = sum(a.numel() for a in bare[False])
+        exact = all(torch.equal(a, b) for a, b in zip(run["params"], bare[True]))
+        print(f"{label}, server-wide, {engine} servers: BERT-large, batch {BATCH}, 1 worker + 2 "
+              f"server processes, BYTEPS_ENABLE_ASYNC=1, local AdamW (lr {ASYNC_LR}) and the "
+              f"weight-delta loop: losses {[round(x, 4) for x in run['losses']]} (bare AdamW "
+              f"{[round(x, 4) for x in bare_losses[False]]}, with the store's rounding "
+              f"{[round(x, 4) for x in bare_losses[True]]}); {run['step_ms']:.1f} ms a step; "
+              f"pulled store elements not prev + delta: {run['differ']}; parameters after "
+              f"{ASYNC_STEPS} steps bitwise AdamW with the store's rounding {exact}; max "
+              f"|async - bare AdamW| {worst:.3e} (held to {ASYNC_ATOL:.1e}), {same} of {total} "
+              f"elements bitwise; on {card}", flush=True)
+        for line in _server_lines(run["report"] or []):
+            print(f"{label}, server-wide, {engine} servers: {line}", flush=True)
+        if not all(math.isfinite(x) for x in run["losses"]):
+            bad.append(f"{engine} servers: non-finite loss {run['losses']}")
+        if run["differ"]:
+            bad.append(f"{engine} servers: {run['differ']} pulled elements are not the sum "
+                       "of the worker's deltas")
+        if not exact:
+            bad.append(f"{engine} servers: the parameters are not bitwise AdamW with the "
+                       "store's rounding")
+        if run["launches"] != {k: v * ASYNC_STEPS for k, v in want_step.items()}:
+            bad.append(f"{engine} servers: kernel launches {run['launches']} in "
+                       f"{ASYNC_STEPS} steps, expected {want_step} a step")
+        if a_step is None:
+            a_step = {k: v // ASYNC_STEPS for k, v in run["launches"].items()}
+        if not worst <= ASYNC_ATOL:
+            bad.append(f"{engine} servers: parameters {worst:.3e} from bare AdamW, beyond "
+                       f"{ASYNC_ATOL:.1e}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # per key, bounded staleness 1, two hosts
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", "BYTEPS_ASYNC": "1",
+           "BYTEPS_STALENESS_BOUND": str(ASYNC_BOUND)}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    with tempfile.TemporaryDirectory() as work:
+        logs = _run_hosts(f"{label}, per key", env, "--async-host", work, timeout=420)
+        results = []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"async{h}.json")) as f:
+                results.append(json.load(f))
+        report = _server_report(work)
+    del logs
+    for r in results:
+        print(f"{label}, per key, host {r['host']}: BYTEPS_ASYNC=1 BYTEPS_STALENESS_BOUND="
+              f"{ASYNC_BOUND}, BERT-large, batch {HYBRID_BATCH} a host, local AdamW and the "
+              f"delta loop: losses {[round(x, 4) for x in r['losses']]}; "
+              f"{r['step_s'] * 1e3:.1f} ms a step (host 1 sleeps {ASYNC_LAG_S} s before its "
+              f"pushes of steps {ASYNC_LAG_STEPS}); {r['pulls']} pulls, answered while the other "
+              f"host had applied fewer of the key's pushes {r['behind']}, more {r['ahead']}, "
+              f"beyond the bound {r['over_bound']}; on {card}", flush=True)
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"per key, host {r['host']}: non-finite loss {r['losses']}")
+        if r["over_bound"] or not r["pulls"]:
+            bad.append(f"per key, host {r['host']}: {r['over_bound']} of {r['pulls']} pulls "
+                       f"answered beyond the staleness bound {ASYNC_BOUND}")
+        if r["launches"] != {k: v * ASYNC_HOST_STEPS for k, v in want_step.items()}:
+            bad.append(f"per key, host {r['host']}: kernel launches {r['launches']}")
+    for line in _server_lines(report):
+        print(f"{label}, per key: {line}", flush=True)
+    if results[0]["seeded"] != results[1]["seeded"]:
+        bad.append("per key: the hosts' parameters after the seed rounds differ")
+    if any(x is None for x in report):
+        bad.append(f"per key: a server logged no stop report: {report}")
+    else:
+        # host 1's lag must have made the bound hold pulls back, else the
+        # check above could not tell a server that ignores the bound
+        parked = sum(r[3] or 0 for r in report)
+        print(f"{label}, per key: the servers parked {parked} pulls while host 1 lagged",
+              flush=True)
+        if not parked:
+            bad.append("per key: no pull was parked although host 1 lagged two rounds")
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return a_step
 
 
 def check_int8_ring_ops() -> None:
@@ -2426,6 +3136,15 @@ def main() -> None:
     train_distributed_native(card, dist["losses"][0])
     gc.collect()
     torch.cuda.empty_cache()
+    planes = {"fusion": train_fusion(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes["async"] = train_async(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_compressed_chain(card, dist["wire_tx_step"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2483,6 +3202,7 @@ def main() -> None:
             "shape": f"B={BATCH} H=16 S={SEQ} dh=64 bf16 non-causal",
             "path": "single-worker main path",
             "hybrid_launches_a_step_per_host": hybrid["launches_a_step"][name],
+            "plane_launches_a_step": {k: v[name] for k, v in planes.items()},
             **extra,
         })
     kernels.append({
@@ -2500,6 +3220,7 @@ def main() -> None:
         "shape": f"n={ONEBIT_TIMED_N} float32 (one partition)",
         "path": "distributed path (1 worker, 2 servers, onebit)",
         "hybrid_launches_a_step_per_host": hybrid["launches_a_step"]["onebit_pack"],
+        "plane_launches_a_step": {k: v["onebit_pack"] for k, v in planes.items()},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2510,5 +3231,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--hybrid-host"]:
         hybrid_host(sys.argv[2])  # one host of the hybrid phase, under the launcher
+    elif sys.argv[1:2] == ["--async-host"]:
+        async_host(sys.argv[2])  # one host of the per-key async phase
     else:
         main()

@@ -104,7 +104,7 @@ def test_init_brings_up_the_group_from_the_rendezvous_at_local_size_one(monkeypa
 
 
 @pytest.mark.parametrize("env", [
-    {"DMLC_NUM_WORKER": "2", "BYTEPS_FUSION_THRESHOLD": "4096"},
+    {"DMLC_NUM_WORKER": "2", "BYTEPS_WIRE_LOSSLESS": "1"},
     {"BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_VAN": "shm"},
     {"DMLC_ROLE": "server"},
 ])

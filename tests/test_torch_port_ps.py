@@ -434,7 +434,6 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 
 
 @pytest.mark.parametrize("knob", [
-    "BYTEPS_FUSION_THRESHOLD=4096", "BYTEPS_ASYNC=1", "BYTEPS_ENABLE_ASYNC=1",
     "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
     "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_RPC_RETRIES=3",
@@ -453,19 +452,8 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
         PortServer(PortConfig.from_env())
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"byteps_server_opt": "sgd"},
-])
-def test_unported_codecs_and_the_server_optimizer_raise_at_declare(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1b"):
-        pbps.declare_tensor("t", **kwargs)
-
-
 def test_unported_entry_points_raise():
     pbps.init(device="cpu")
-    p = torch.nn.Parameter(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="server-side optimizer"):
-        pbps.DistributedOptimizer(torch.optim.SGD([p], lr=1.0), server_side=True)
     with pytest.raises(NotImplementedError, match="row-sparse"):
         pbps.push_pull_rowsparse(np.array([0]), np.ones((1, 2), np.float32), "e", 4)
 
@@ -489,7 +477,8 @@ def _fake_server(reply_op):
 @pytest.mark.parametrize("op", ["FUSED", "RESYNC_STATE", "MIGRATE_STATE", "WRONG_OWNER"])
 def test_a_reply_of_an_unported_plane_fails_its_request(op):
     """The PS client fails the request (never drops it) when a server
-    answers with a fused, resync or migration frame."""
+    answers with a resync or migration frame, or a push with a fused
+    frame (fusion is ported: the reply's op is not the request's)."""
     client = PSClient(PortConfig(num_server=1))
     client.num_servers = 1
     client._servers.append(client._new_conn("127.0.0.1", _fake_server(ptr.Op[op]), "0"))
@@ -497,7 +486,8 @@ def test_a_reply_of_an_unported_plane_fails_its_request(op):
     client.push(5, b"\0" * 8, int(ptypes.DataType.FLOAT32), 1, cb=done.set,
                 on_error=lambda reason: (errors.append(reason), done.set()))
     assert done.wait(10)
-    assert errors and "not ported" in errors[0] and op in errors[0]
+    why = "answered a PUSH request with FUSED" if op == "FUSED" else "not ported"
+    assert errors and why in errors[0] and op in errors[0]
     client._stop.set()
     for sc in client._servers:
         ptr.close_socket(sc.sock)
@@ -506,7 +496,7 @@ def test_a_reply_of_an_unported_plane_fails_its_request(op):
 def test_the_port_server_drops_a_connection_that_sends_an_unported_op(monkeypatch):
     with _cluster(monkeypatch, "port", servers=1) as nodes:
         sock = ptr.connect("127.0.0.1", nodes[0].port)
-        ptr.send_message(sock, ptr.Message(ptr.Op.FUSED, key=1, payload=b"xx"))
+        ptr.send_message(sock, ptr.Message(ptr.Op.RESYNC_QUERY, key=1, payload=b"xx"))
         sock.settimeout(10)
         assert sock.recv(1) == b""  # closed, with no reply
         sock.close()
