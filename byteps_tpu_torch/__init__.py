@@ -8,6 +8,7 @@ with the same Horovod-style surface as ``byteps_tpu``:
     declare_tensor / push_pull / push_pull_async / push_pull_inplace / poll /
     synchronize
     DistributedOptimizer / Compression / set_compression_lr
+    get_robustness_counters
     broadcast_parameters / broadcast_optimizer_state / broadcast_object
     parallel.DistributedDataParallel / CrossBarrier
 
@@ -28,6 +29,7 @@ from byteps_tpu_torch.api import (
     broadcast_parameters,
     declare_tensor,
     device,
+    get_robustness_counters,
     init,
     local_rank,
     local_size,
@@ -69,6 +71,7 @@ __all__ = [
     "device",
     "get_config",
     "get_registry",
+    "get_robustness_counters",
     "init",
     "local_rank",
     "local_size",

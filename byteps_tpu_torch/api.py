@@ -18,12 +18,21 @@ Every local rank must then start and synchronize its push_pulls in the
 same order, as the hooks of ``DistributedOptimizer`` and
 ``DistributedDataParallel`` do.  ``rank()`` and ``size()`` are the host's
 worker rank and the number of hosts, as in ``byteps_tpu``.
+
+When the data plane degrades past its retries and its in-place heal
+(docs/robustness.md), :func:`synchronize` raises
+:class:`~byteps_tpu_torch.common.types.DegradedError`; with a local group
+the root tells every local rank, so all of them raise.  With
+``BYTEPS_DEGRADED_STEP_RETRIES`` > 0 the synchronous :func:`push_pull`
+heals the step in place first (``PipelineEngine.heal_degraded``), and
+failing that submits it again through the init barrier.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
@@ -31,7 +40,7 @@ import torch
 from byteps_tpu_torch.comm.mesh import get_global_mesh
 from byteps_tpu_torch.common.config import get_config
 from byteps_tpu_torch.common.registry import get_registry
-from byteps_tpu_torch.common.types import divide
+from byteps_tpu_torch.common.types import DegradedError, divide
 from byteps_tpu_torch.core.state import get_state, init_state, require_state, shutdown_state
 
 
@@ -159,13 +168,22 @@ def host_push_pull_async(tensor: torch.Tensor, name: str, average: bool, priorit
 
     local = tensor if tensor.device.type == mesh.device.type else tensor.to(mesh.device)
     summed = collectives.push_pull(local, average=False, mesh=mesh)  # level 1
+    handle = None
     if mesh.rank == 0:
-        handle = _ps_push_pull_async(st, summed, name, False, priority, version)  # level 2
+        try:
+            handle = _ps_push_pull_async(st, summed, name, False, priority, version)  # level 2
+        except ConnectionError as e:
+            # the init barrier could not reach a server: the other local
+            # ranks learn it in synchronize, as of a degraded push_pull
+            from byteps_tpu_torch.common.types import Status
+
+            handle = st.handles.allocate()
+            st.handles.mark_done(handle, None, Status.Degraded(f"{name}: {e}"))
     else:
         get_registry().declare(name)
         handle = st.handles.allocate()
         st.handles.mark_done(handle, summed)
-    st.host_level[handle] = (mesh, average, tensor.device)
+    st.host_level[handle] = (mesh, average, tensor.device, summed)
     return handle
 
 
@@ -187,36 +205,123 @@ def poll(handle: int) -> bool:
     return require_state().handles.poll(handle)
 
 
-def synchronize(handle: int) -> torch.Tensor:
-    """Wait for a push_pull and return its result.  A result on a CUDA
-    device is returned once the caller's current stream waits for it."""
+def _wait(st, handle: int) -> torch.Tensor:
     from byteps_tpu_torch.core.engine import DeviceResult
 
-    st = require_state()
     out = st.handles.wait_and_clear(handle)
     if isinstance(out, DeviceResult):
         stream = torch.cuda.current_stream(out.tensor.device)
         stream.wait_event(out.event)
         out.tensor.record_stream(stream)
         out = out.tensor
-    host_level = st.host_level.pop(handle, None)
-    if host_level is not None:
-        from byteps_tpu_torch.comm import collectives
-
-        mesh, average, device = host_level
-        out = collectives.broadcast(out, root=0, mesh=mesh)  # level 3
-        if average and out.is_floating_point():
-            out = divide(out, mesh.size * size())
-        out = out.to(device)
     return out
+
+
+def synchronize(handle: int) -> torch.Tensor:
+    """Wait for a push_pull and return its result.  A result on a CUDA
+    device is returned once the caller's current stream waits for it.
+    With a local group, the root's broadcast of its result carries
+    whether its PS push_pull came back: if not, every rank raises
+    (DegradedError when the root's did)."""
+    st = require_state()
+    host_level = st.host_level.pop(handle, None)
+    if host_level is None:
+        return _wait(st, handle)
+    try:
+        out, err = _wait(st, handle), None
+    except Exception as e:  # noqa: BLE001 - the group learns it first
+        out, err = None, e
+    code = 0 if err is None else 1 if isinstance(err, DegradedError) else 2
+    code, out = _host_broadcast(out, code, host_level)
+    if code:
+        if err is None:
+            err = (DegradedError if code == 1 else RuntimeError)(
+                "push_pull failed: the local root's PS push_pull failed")
+        err.host_level = host_level  # what a degraded-step heal needs
+        raise err
+    return _host_finish(out, host_level)
+
+
+def _host_broadcast(out: Optional[torch.Tensor], code: int,
+                    host_level: tuple) -> Tuple[int, torch.Tensor]:
+    """Level 3: the root's result (its group's sum when it has none) and
+    its status ``code`` in one broadcast, the code in a byte after the
+    result's; the root's code and every rank's copy of the result."""
+    import torch.distributed as dist
+
+    mesh, _, _, summed = host_level
+    src = (out if out is not None else summed).detach().contiguous()
+    buf = torch.empty(src.numel() * src.element_size() + 1, dtype=torch.uint8,
+                      device=mesh.device)
+    if mesh.rank == 0:
+        buf[:-1].copy_(src.reshape(-1).view(torch.uint8))
+        buf[-1] = code
+    dist.broadcast(buf, src=0, group=mesh.group)
+    if mesh.rank:
+        code = int(buf[-1])  # the other ranks must know before they return
+    return code, buf[:-1].view(src.dtype).reshape(src.shape)
+
+
+def _host_finish(out: torch.Tensor, host_level: tuple) -> torch.Tensor:
+    """The broadcast result averaged over the group and every host, on
+    the caller's device."""
+    mesh, average, device, _ = host_level
+    if average and out.is_floating_point():
+        out = divide(out, mesh.size * size())
+    return out.to(device)
 
 
 def push_pull(
     tensor: torch.Tensor, name: str, average: bool = True, priority: int = 0
 ) -> torch.Tensor:
     """Synchronous push_pull (sum over workers, averaged when ``average``).
-    ``name`` is the cross-process aggregation key."""
-    return synchronize(push_pull_async(tensor, name, average=average, priority=priority))
+    ``name`` is the cross-process aggregation key.
+
+    With ``BYTEPS_DEGRADED_STEP_RETRIES=N`` > 0, a step that failed
+    degraded is healed in place (the engine resyncs the servers, replays
+    the journaled pushes they lost and pulls the round: the fault-free
+    result, with no init barrier), or else submitted again, up to N times
+    with backoff; the abandoned round was never published and a replayed
+    push is deduped, so a resubmission sums once.  Default 0: the error
+    goes to the caller."""
+    retries = get_config().degraded_step_retries
+    if retries <= 0:
+        return synchronize(push_pull_async(tensor, name, average=average, priority=priority))
+    from byteps_tpu_torch.comm.retry import Backoff
+
+    bo = Backoff(base=0.25, cap=2.0)
+    for attempt in range(retries + 1):
+        try:
+            return synchronize(push_pull_async(tensor, name, average=average,
+                                               priority=priority))
+        except (DegradedError, ConnectionError) as e:
+            # ConnectionError: the submit's init barrier met a dead server
+            if attempt >= retries:
+                raise
+            if isinstance(e, DegradedError):
+                healed = _heal_degraded(e, tensor, name, average)
+                if healed is not None:
+                    return healed
+            time.sleep(bo.next_delay())
+    raise AssertionError("unreachable")
+
+
+def _heal_degraded(err: DegradedError, tensor: torch.Tensor, name: str,
+                   average: bool) -> Optional[torch.Tensor]:
+    """The engine's in-place heal of a degraded step; with a local group
+    the root heals its PS push_pull of the group's sum and tells the other
+    ranks whether it did, and the healed sum is broadcast as in
+    :func:`synchronize`.  None when it could not heal."""
+    st = require_state()
+    host_level = getattr(err, "host_level", None)
+    if host_level is None:
+        return st.engine.heal_degraded(name, tensor, average) if st.engine else None
+    mesh, _, _, summed = host_level
+    out = None
+    if mesh.rank == 0 and st.engine is not None:
+        out = st.engine.heal_degraded(name, summed, False)
+    code, out = _host_broadcast(out, int(mesh.rank == 0 and out is None), host_level)
+    return None if code else _host_finish(out, host_level)
 
 
 def push_pull_inplace(
@@ -228,6 +333,18 @@ def push_pull_inplace(
         with torch.no_grad():
             tensor.copy_(out.view_as(tensor))
     return tensor
+
+
+def get_robustness_counters() -> dict:
+    """The data plane's degradation counters, flat totals of this process:
+    retries, deadline expiries, revived connections, deduped pushes, the
+    heal's attempts, replayed rounds and give-ups, injected chaos faults
+    (docs/robustness.md "Observability").  Per server:
+    ``core.telemetry.counters().snapshot_labeled()``.  Usable before
+    :func:`init`."""
+    from byteps_tpu_torch.core.telemetry import counters
+
+    return counters().snapshot()
 
 
 def set_compression_lr(lr: float) -> None:

@@ -9,31 +9,63 @@ one receive loop per server hands every reply to its callback.  A pull may
 pass a ``sink``, a caller-owned buffer the reply's payload is received
 into with no copy (ZPull into the caller's buffer).
 
-Failure handling is the plain form: a connection that dies fails every
-request pending on it (``on_error``), and a reply that arrives with a flag
-or op the port does not serve, or with another op than its request's,
-fails its request with the reason.  The reference's per-RPC deadlines,
-retries, journal replay, resync healing and ownership chases are not
-ported (ROADMAP.md Queue 1b).
+The data plane heals itself (docs/robustness.md):
+
+- every request (init, compressor registration, push, fused push, pull)
+  is sent again after a connection failure, up to ``BYTEPS_RPC_RETRIES``
+  times, with full-jitter backoff (``comm/retry.py``); a retry first
+  revives its server's connection if it died (a fresh dial to the same
+  address; the server's state is per key, so a revived link resumes);
+- ``BYTEPS_RPC_DEADLINE_S`` arms a deadline on each attempt: a server
+  that neither answers nor closes is taken for hung, and its connection
+  is torn down, which fails every request pending on it into the retry
+  path.  Teardown before a retry also keeps a late reply out of a retried
+  pull's sink.  The init barrier is exempt (its ack waits for every peer)
+  and has ``BYTEPS_INIT_DEADLINE_S``.  One thread times the deadlines and
+  the retries' backoff; a small pool runs the resends;
+- once a request's job is abandoned (``abort_check``), its pending
+  retries stop: a resend after the re-init barrier cleared the server's
+  ledger would sum that worker twice;
+- when the retries run out, the in-place heal runs once: re-dial the
+  server, ask it which of this worker's rounds it absorbed
+  (Op.RESYNC_QUERY), replay the journaled rounds above them
+  (``comm/journal.py``) through the ordinary push path, and give the
+  request one fresh attempt.  Fused frames skip it: their failure falls
+  back to per-key requests, which carry their own.
+
+A reply that fails its CRC32C is dropped, its request left pending for
+the deadline to send again; ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them give
+the connection up.  A reply with a flag or op the port does not serve, or
+with another op than its request's, fails its request at once, with the
+reason and no retry.
 
 ``init_tensor`` carries the INIT profile extension: an async key with its
 staleness bound, and a server-side update rule with its hyperparameters;
 a server that refuses the profile (the C++ engine refuses both) makes it
-raise with the reason.  ``push_fused`` sends small partitions of one
-server as one Op.FUSED frame and hands back the decoded multi-key reply.
+raise with the reason.  Its ``version`` is the init-idempotency token, the
+same over one init's retries, so a server whose barrier already released
+acks a retry from its record.  ``push_fused`` sends small partitions of
+one server as one Op.FUSED frame and hands back the decoded multi-key
+reply.
 
 Under ``BYTEPS_NATIVE_CLIENT=1`` each server's connection is
 :class:`_NativeServerConn`: framing, the CRC32C, the seq demux and the
 payload receive (into the caller's sink for a pull) run on the C++ lanes
 of ``native/csrc/ps_client.cc`` with no interpreter lock, and Python
-drains their completions in batches.  Each push's and pull's round trip,
-send to reply, is observed as ``rpc_round_trip_seconds{server}``.
+drains their completions in batches.  The C++ lanes would bypass the
+chaos van's fault layer, so a ``chaos+`` address refuses the native
+client (the port never falls back to the Python lanes).  Each push's and
+pull's round trip, send to reply, is observed as
+``rpc_round_trip_seconds{server}``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import heapq
+import itertools
 import json
+import queue
 import random
 import struct
 import sys
@@ -46,18 +78,23 @@ import numpy as np
 from byteps_tpu_torch.common.config import UNPORTED, Config
 from byteps_tpu_torch.common.hashing import assign_server
 from byteps_tpu_torch.common.types import RequestType, get_command_type
+from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, GROUP_WORKERS, RESIZE_SEQ
+from byteps_tpu_torch.comm.retry import Backoff
 from byteps_tpu_torch.comm.transport import (
     PROFILE_ASYNC,
     PROFILE_SERVER_OPT,
     UNPORTED_OPS,
     Message,
     Op,
+    checksum_conn_limit,
     close_socket,
     connect,
     decode_fused_reply,
+    decode_resync_state,
     encode_fused_push,
     encode_init,
+    encode_resync_query,
     encode_server_opt_block,
     frame_checksum,
     recv_header_ex,
@@ -74,15 +111,20 @@ ZERO_COPIED = object()
 
 
 class RequestFailed(ConnectionError):
-    """A request whose reply could not be used: the connection died, or
-    the reply needs a plane the port does not carry."""
+    """A request whose reply could not be used: its retries ran out, or the
+    reply needs a plane the port does not carry."""
+
+
+class _Refusal(str):
+    """The reason of an attempt that must not be retried: the server
+    answered, with a frame the port cannot use."""
 
 
 class _ServerConn:
     """One server: its socket, send lock and the pending requests."""
 
-    def __init__(self, host: str, port: int, label: str) -> None:
-        self.sock = connect(host, port)
+    def __init__(self, host: str, port: int, label: str, dial_timeout: float = 30.0) -> None:
+        self.sock = connect(host, port, timeout=dial_timeout)
         self.send_lock = threading.Lock()
         self.label = label
         self.cb_lock = threading.Lock()
@@ -92,6 +134,8 @@ class _ServerConn:
         self.next_seq = 0
         self.dead = False
         self.thread: Optional[threading.Thread] = None
+        #: replies dropped on a CRC32C mismatch
+        self.checksum_fails = 0
 
     def alloc_seq(self, on_reply, on_error, sink=None) -> int:
         """Register a request's callbacks; -1 (after ``on_error``) when the
@@ -127,9 +171,14 @@ class _ServerConn:
     def send(self, msg: Message) -> None:
         send_message(self.sock, msg, self.send_lock)
 
-    def close(self) -> None:
+    def close_all(self) -> None:
+        """Tear the connection down; the receive loop then fails every
+        pending request.  Never blocks."""
         close_socket(self.sock)
-        if self.thread is not None:
+
+    def close(self) -> None:
+        self.close_all()
+        if self.thread is not None and self.thread is not threading.current_thread():
             self.thread.join(timeout=5.0)
 
 
@@ -157,6 +206,10 @@ class _NativeServerConn:
         #: seq -> (on_reply, on_error, sink and its ctypes export)
         self.callbacks: Dict[int, tuple] = {}
         self.dead = False
+        #: replies the lanes dropped on a CRC32C mismatch; the lanes give
+        #: the connection up at the same limit
+        self.checksum_fails = 0
+        self._ck_limit = checksum_conn_limit()
         h = self._lib.bpsc_create(host.encode(), port, 0, 1)
         if h < 0:
             raise ConnectionError(f"native client could not connect to {host}:{port}")
@@ -227,6 +280,8 @@ class _NativeServerConn:
         for _, on_error in self.mark_dead():
             on_error(f"server {self.label} connection closed")
 
+    close_all = close
+
     # --- completions -----------------------------------------------------
 
     def _on_doorbell(self, _ctx, op, status, flags, seq, key, cmd, version,
@@ -270,8 +325,17 @@ class _NativeServerConn:
 
     def _dispatch(self, op, status, flags, seq, key, cmd, version, body, zc) -> None:
         """One completion: op >= 0 a reply; -1 the connection died with the
-        request pending; -3 a reply that failed its CRC32C (the lanes
-        dropped it: the reference retries, the port has no retries)."""
+        request pending; -3 the lanes dropped a reply that failed its
+        CRC32C (its op in ``cmd``): the attempt fails at once into the
+        retry path.  The lanes keep the request's entry until the
+        connection closes, and no second reply can match it."""
+        if op == -3:
+            name = Op(cmd).name if cmd in Op._value2member_map_ else str(cmd)
+            counters().bump("wire_checksum_fail", labels={
+                "side": "client", "op": name, "server": self.label})
+            self.checksum_fails += 1
+            if self._ck_limit and self.checksum_fails == self._ck_limit:
+                counters().bump("wire_checksum_conn_drop")
         with self.cb_lock:
             if op == -1:
                 self.dead = True
@@ -282,12 +346,10 @@ class _NativeServerConn:
         if op == -1:
             on_error(f"server {self.label} connection lost")
         elif op == -3:
-            name = Op(cmd).name if cmd in Op._value2member_map_ else str(cmd)
-            on_error(f"{name} reply from server {self.label} failed its CRC32C: the "
-                     f"reference would retry, the port has no retries ({UNPORTED['resync']})")
+            on_error(f"{name} reply from server {self.label} failed its CRC32C")
         elif op in UNPORTED_OPS:
-            on_error(f"server {self.label} answered with {Op(op).name}: not ported "
-                     f"yet, {UNPORTED[UNPORTED_OPS[op]]}")
+            on_error(_Refusal(f"server {self.label} answered with {Op(op).name}: not "
+                              f"ported yet, {UNPORTED[UNPORTED_OPS[op]]}"))
         else:
             on_reply(Message(Op(op), key=key, payload=ZERO_COPIED if zc else body,
                              seq=seq, cmd=cmd, version=version, status=status,
@@ -309,13 +371,37 @@ class PSClient:
         self._sched_cb_lock = threading.Lock()
         self._sched_seq = 0
         self._sched_dead = False
-        self._servers: List[_ServerConn] = []
+        self._servers: list = []
+        #: (host, port) of each server, what a revival dials
+        self._server_addrs: List[tuple] = []
+        #: serializes the swap of a revived connection
+        self._rebuild_lock = threading.Lock()
         self._stop = threading.Event()
         # init-idempotency tokens (INIT ``version``): a per-key sequence
         # under a per-client random salt, as the reference mints them
         self._init_seq_lock = threading.Lock()
         self._init_seqs: Dict[int, int] = {}
         self._init_salt = random.SystemRandom().getrandbits(16)
+        # deadlines and the retry timer wheel: token -> (conn, expiry,
+        # server label) of each attempt in flight, and a heap of (due,
+        # tiebreak, fn) resends, both timed by one thread that starts at
+        # the first use; due resends run on a small pool of threads (a
+        # resend may block in a dial, and only the timing thread's
+        # teardown of a hung connection can unblock it)
+        self._rpc_tokens = itertools.count()
+        self._outstanding: Dict[int, tuple] = {}
+        self._outstanding_lock = threading.Lock()
+        self._scan_cv = threading.Condition(self._outstanding_lock)
+        self._timers: list = []
+        self._deadline_thread: Optional[threading.Thread] = None
+        self._retry_q: "queue.Queue" = queue.Queue()
+        self._retry_threads: List[threading.Thread] = []
+        self._retry_pool_cap = 4
+        # the in-place heal, serialized per server: give-ups against one
+        # server while a heal runs ride it (the generation tells them)
+        self._heal_meta_lock = threading.Lock()
+        self._heal_locks: Dict[str, threading.Lock] = {}
+        self._heal_gen: Dict[str, int] = {}
 
     # --- rendezvous ------------------------------------------------------
 
@@ -343,6 +429,7 @@ class PSClient:
         self.num_workers = self._book_num_workers(book)
         self.num_servers = book["num_servers"]
         for i, (host, port) in enumerate(book["servers"]):
+            self._server_addrs.append((host, port))
             self._servers.append(self._new_conn(host, port, str(i)))
         threading.Thread(target=self._sched_recv_loop, name="bps-sched-recv",
                          daemon=True).start()
@@ -358,10 +445,13 @@ class PSClient:
 
     def close(self) -> None:
         self._stop.set()
-        for sc in self._servers:
+        with self._scan_cv:
+            self._scan_cv.notify_all()
+        with self._rebuild_lock:
+            servers, self._servers = self._servers, []
+        for sc in servers:
             sc.close()
         close_socket(self._sched)
-        self._servers = []
 
     def _sched_recv_loop(self) -> None:
         try:
@@ -407,21 +497,30 @@ class PSClient:
 
     # --- connections -----------------------------------------------------
 
-    def _new_conn(self, host: str, port: int, label: str):
+    def _new_conn(self, host: str, port: int, label: str, dial_timeout: float = 30.0):
         if self.cfg.native_client:
+            if host.startswith(CHAOS_PREFIX):
+                raise RuntimeError(
+                    f"BYTEPS_NATIVE_CLIENT=1 cannot dial the chaos address {host!r}: the "
+                    "C++ lanes would bypass the chaos van's fault layer, and the port "
+                    "never falls back to its Python lanes (ROADMAP.md Queue 3); unset "
+                    "one of BYTEPS_NATIVE_CLIENT and the servers' BYTEPS_VAN=chaos:tcp")
             return _NativeServerConn(host, port, label)
-        sc = _ServerConn(host, port, label)
+        sc = _ServerConn(host, port, label, dial_timeout)
         sc.thread = threading.Thread(target=self._recv_loop, args=(sc,),
                                      name=f"bps-recv-{label}", daemon=True)
         sc.thread.start()
         return sc
 
     def _recv_loop(self, sc: _ServerConn) -> None:
+        ck_limit = checksum_conn_limit()
         try:
             while not self._stop.is_set():
                 try:
                     (op, status, flags, seq, key, cmd, version, length,
                      trace, crc, lossless) = recv_header_ex(sc.sock)
+                    # the callback stays registered until the payload is
+                    # in: a connection dying mid-payload still fails it
                     sink = sc.peek_sink(seq)
                     zero_copied = (not lossless and sink is not None
                                    and length == len(sink))
@@ -434,22 +533,35 @@ class PSClient:
                             recv_into(sc.sock, memoryview(payload))
                 except (ConnectionError, OSError, ValueError):
                     return
+                if crc is not None and frame_checksum(
+                    trace, sink if zero_copied else payload
+                ) != crc:
+                    # the attempt fails at once into the retry path, with
+                    # or without a deadline armed (a sink holding garbage
+                    # is overwritten by the retried reply before the
+                    # caller wakes); a connection that keeps corrupting
+                    # goes
+                    sc.checksum_fails += 1
+                    counters().bump("wire_checksum_fail", labels={
+                        "side": "client", "op": op.name, "server": sc.label})
+                    if ck_limit and sc.checksum_fails >= ck_limit:
+                        counters().bump("wire_checksum_conn_drop")
+                        return
+                    entry = sc.pop(seq)
+                    if entry is not None:
+                        entry[1](f"{op.name} reply from server {sc.label} failed "
+                                 "its CRC32C")
+                    continue
                 entry = sc.pop(seq)
                 if entry is None:
                     continue
                 on_reply, on_error = entry
-                if crc is not None and frame_checksum(
-                    trace, sink if zero_copied else payload
-                ) != crc:
-                    on_error(f"{op.name} reply from server {sc.label} failed its "
-                             "CRC32C: the reference would retry, the port has "
-                             f"no retries ({UNPORTED['resync']})")
-                elif lossless:
-                    on_error(f"{op.name} reply carries a lossless container: "
-                             f"not ported yet, {UNPORTED['lossless']}")
+                if lossless:
+                    on_error(_Refusal(f"{op.name} reply carries a lossless container: "
+                                      f"not ported yet, {UNPORTED['lossless']}"))
                 elif op in UNPORTED_OPS:
-                    on_error(f"server {sc.label} answered with {op.name}: "
-                             f"not ported yet, {UNPORTED[UNPORTED_OPS[op]]}")
+                    on_error(_Refusal(f"server {sc.label} answered with {op.name}: "
+                                      f"not ported yet, {UNPORTED[UNPORTED_OPS[op]]}"))
                 else:
                     on_reply(Message(op, key=key, payload=payload, seq=seq,
                                      cmd=cmd, version=version, status=status,
@@ -469,6 +581,54 @@ class PSClient:
             num_workers=self.num_workers,
         )
 
+    def _sid(self, key: int) -> str:
+        """The key's server as a counter label ("?" when it has none)."""
+        try:
+            return str(self.server_for(key))
+        except (ValueError, ZeroDivisionError, IndexError):
+            return "?"
+
+    def _conn_for(self, key: int, revive: bool = False):
+        """The key's server connection; with ``revive`` (a retry) a dead
+        one is dialed again first."""
+        servers = self._servers
+        if not servers:
+            raise ConnectionError("no server connections")
+        idx = self.server_for(key)
+        sc = servers[idx]
+        if revive and sc.dead:
+            sc = self._revive_conn(idx, sc)
+        return sc
+
+    def _revive_conn(self, idx: int, dead_sc):
+        """Replace a dead connection with a fresh dial to the same address.
+        The dial runs outside the lock (a black-holed server must not hold
+        up other revivals); a revival that lost the race is closed."""
+        with self._rebuild_lock:
+            if self._stop.is_set():
+                raise ConnectionError("client closed")
+            cur = self._servers[idx]
+            if cur is not dead_sc and not cur.dead:
+                return cur  # another retry revived the slot already
+            host, port = self._server_addrs[idx]
+        # with deadlines armed, a dial that black-holes must not hold a
+        # resend thread for the van's whole timeout
+        dial_timeout = (min(30.0, max(2.0, 4 * self.cfg.rpc_deadline_s))
+                        if self.cfg.rpc_deadline_s > 0 else 30.0)
+        fresh = self._new_conn(host, port, str(idx), dial_timeout)
+        with self._rebuild_lock:
+            cur = self._servers[idx] if self._servers else None
+            if self._stop.is_set() or cur is None:
+                fresh.close_all()
+                raise ConnectionError("client closed during a revival")
+            if cur is not dead_sc and not cur.dead:
+                fresh.close_all()
+                return cur
+            self._servers[idx] = fresh
+        counters().bump("conn_revive", labels={"server": str(idx)})
+        cur.close_all()
+        return fresh
+
     def _worker_flag(self) -> int:
         """rank + 1 in the header's flags byte: the server dedupes a
         replayed push on (worker, key, version); 0 = anonymous."""
@@ -481,52 +641,406 @@ class PSClient:
             self._init_seqs[key] = seq
         return (self._init_salt << 16) | (seq & 0xFFFF)
 
+    # --- deadlines and the retry timer wheel -----------------------------
+
+    def _ensure_scanner_locked(self) -> None:
+        """Start, or wake, the timing thread.  Caller holds
+        ``_outstanding_lock``."""
+        if self._deadline_thread is None:
+            self._deadline_thread = threading.Thread(
+                target=self._deadline_loop, name="bps-rpc-deadline", daemon=True)
+            self._deadline_thread.start()
+        else:
+            self._scan_cv.notify()
+
+    def _deadline_arm(self, sc, sid: str) -> Optional[int]:
+        """Register an attempt in flight; its token, or None with the
+        deadline off."""
+        if self.cfg.rpc_deadline_s <= 0:
+            return None
+        token = next(self._rpc_tokens)
+        with self._outstanding_lock:
+            self._outstanding[token] = (sc, time.monotonic() + self.cfg.rpc_deadline_s, sid)
+            self._ensure_scanner_locked()
+        return token
+
+    def _deadline_clear(self, token: Optional[int]) -> None:
+        if token is None:
+            return
+        with self._outstanding_lock:
+            self._outstanding.pop(token, None)
+
+    def _timer_after(self, delay: float, fn) -> None:
+        """Run ``fn`` on the resend pool after ``delay`` seconds; at once
+        after close(), so that its stop check fails it instead of leaving
+        it parked."""
+        with self._outstanding_lock:
+            if not self._stop.is_set():
+                heapq.heappush(self._timers,
+                               (time.monotonic() + delay, next(self._rpc_tokens), fn))
+                self._ensure_scanner_locked()
+                return
+        fn()
+
+    def _dispatch_retry(self, fn) -> None:
+        """Queue ``fn`` on the resend pool, growing it (up to its cap) while
+        work waits, so a resend blocked in a dial does not hold up another
+        server's."""
+        self._retry_q.put(fn)
+        threads = self._retry_threads
+        if not threads or (self._retry_q.qsize() > 0 and len(threads) < self._retry_pool_cap):
+            t = threading.Thread(target=self._retry_loop,
+                                 name=f"bps-rpc-retry-{len(threads)}", daemon=True)
+            threads.append(t)
+            t.start()
+
+    def _retry_loop(self) -> None:
+        while True:
+            try:
+                fn = self._retry_q.get(timeout=0.5)
+            except queue.Empty:
+                if self._stop.is_set():
+                    return
+                continue
+            try:
+                fn()  # after close() too: its stop check fails it
+            except Exception:  # noqa: BLE001 - the pool must survive
+                pass
+
+    def _deadline_loop(self) -> None:
+        """Tear down the connection of every attempt past its deadline (its
+        server is hung: a dead one would have closed), which fails all its
+        pending requests into the retry path; hand due resends to the
+        pool.  Sleeps until the next resend or the next scan tick."""
+        tick = (max(0.01, min(0.25, self.cfg.rpc_deadline_s / 4))
+                if self.cfg.rpc_deadline_s > 0 else 0.25)
+        try:
+            while True:
+                due, doomed = [], []
+                with self._outstanding_lock:
+                    if self._stop.is_set():
+                        return
+                    now = time.monotonic()
+                    while self._timers and self._timers[0][0] <= now:
+                        due.append(heapq.heappop(self._timers)[2])
+                    for t in [t for t, (_, at, _) in self._outstanding.items() if at <= now]:
+                        sc, _, sid = self._outstanding.pop(t)
+                        doomed.append((sc, sid))
+                    if not due and not doomed:
+                        timeout = self._timers[0][0] - now if self._timers else None
+                        if self._outstanding:
+                            timeout = tick if timeout is None else min(timeout, tick)
+                        self._scan_cv.wait(timeout)
+                        continue
+                for _, sid in doomed:
+                    counters().bump("rpc_deadline_expired", labels={"server": sid})
+                for sc in {id(s): s for s, _ in doomed}.values():
+                    try:
+                        sc.close_all()
+                    except Exception:  # noqa: BLE001
+                        pass
+                for fn in due:
+                    self._dispatch_retry(fn)
+        finally:
+            # every parked resend still resolves (its stop check fails it)
+            with self._outstanding_lock:
+                leftovers = [fn for _, _, fn in self._timers]
+                self._timers.clear()
+            for fn in leftovers:
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001
+                    pass
+
     # --- requests --------------------------------------------------------
 
-    def _request(self, key: int, make_msg: Callable[[int], Message],
-                 on_reply, on_error, sink=None, timed: bool = False) -> None:
-        """Send one request; ``timed`` (the data plane's pushes and pulls)
-        observes its round trip as ``rpc_round_trip_seconds{server}``."""
-        sid = self.server_for(key)
-        sc = self._servers[sid]
-        sent_op, t_sent = None, 0.0  # set before the send
+    def _async_rpc(self, key: int, make_msg: Callable[[int], Message],
+                   deliver: Callable[[Message], None], on_error: Callable[[str], None],
+                   sink=None, abort_check: Optional[Callable[[], bool]] = None,
+                   heal: bool = True) -> None:
+        """Send one request with deadline, retries and revival.
+        ``make_msg(seq)`` builds each attempt's frame; ``deliver(msg)``
+        fires once on success, ``on_error(reason)`` once when the retries
+        (and with ``heal`` the in-place heal) are spent, when the server
+        answered with a frame the port cannot use, or when ``abort_check()``
+        says the caller abandoned the request.  Each attempt's round trip
+        is observed as ``rpc_round_trip_seconds{server}``."""
+        state = {"attempt": 0, "healed": False, "done": False}
+        backoff = Backoff(base=self.cfg.rpc_backoff_s, cap=2.0)
+        sid = self._sid(key)
 
-        def checked(msg: Message) -> None:
-            if msg.op != sent_op:
-                on_error(f"server {sc.label} answered a {sent_op.name} request with "
-                         f"{msg.op.name}")
+        def terminal(reason: str) -> None:
+            if not state["done"]:
+                state["done"] = True
+                on_error(reason)
+
+        def aborted() -> bool:
+            if abort_check is not None and abort_check():
+                terminal(f"server {sid}: the request's job was abandoned")
+                return True
+            return False
+
+        def give_up(reason: str) -> None:
+            counters().bump("rpc_giveup", labels={"server": sid})
+            terminal(reason)
+
+        def fail(reason: str) -> None:
+            # the retries are spent: once, try the in-place heal (off this
+            # thread, which may be a receive loop; the heal dials and
+            # blocks on recovery requests)
+            if (heal and not state["healed"] and not self._stop.is_set()
+                    and self.cfg.resync_deadline_s > 0):
+                state["healed"] = True
+
+                def heal_and_resend() -> None:
+                    if aborted():
+                        return
+                    if self._heal_in_place(key, sid):
+                        state["attempt"] = 0
+                        send_attempt()
+                    else:
+                        give_up(f"{reason}; the in-place heal failed")
+
+                self._dispatch_retry(heal_and_resend)
                 return
-            if timed:
-                metrics().observe("rpc_round_trip_seconds", time.monotonic() - t_sent,
-                                  labels={"server": str(sid)})
-            on_reply(msg)
+            give_up(reason)
 
-        seq = sc.alloc_seq(checked, on_error, sink=sink)
-        if seq < 0:
-            return
-        msg = make_msg(seq)
-        sent_op, t_sent = msg.op, time.monotonic()
-        try:
-            sc.send(msg)
-        except OSError as e:
-            if sc.pop(seq) is not None:
-                on_error(f"server {sc.label} send failed: {e!r}")
+        def retry_later(reason: str) -> None:
+            if aborted():
+                return
+            if self._stop.is_set() or state["attempt"] >= self.cfg.rpc_retries:
+                fail(reason)
+                return
+            state["attempt"] += 1
+            counters().bump("rpc_retry", labels={"server": sid})
+            self._timer_after(backoff.next_delay(), send_attempt)
 
-    def _blocking_request(self, key: int, make_msg, what: str) -> Message:
-        """Send and wait for the reply, or for the connection to die (the
-        reference's per-RPC deadlines are not ported)."""
+        def send_attempt() -> None:
+            if aborted():
+                return
+            if self._stop.is_set():
+                fail(f"server {sid}: the client closed")
+                return
+            try:
+                sc = self._conn_for(key, revive=state["attempt"] > 0)
+            except (ConnectionError, OSError) as e:
+                retry_later(f"server {sid}: {e}")
+                return
+            token = [None]
+            sent = [None, 0.0]  # op, time
+
+            def on_reply(msg: Message) -> None:
+                self._deadline_clear(token[0])
+                if aborted():
+                    return
+                if msg.op != sent[0]:
+                    terminal(f"server {sc.label} answered a {sent[0].name} request with "
+                             f"{msg.op.name}")
+                    return
+                metrics().observe("rpc_round_trip_seconds", time.monotonic() - sent[1],
+                                  labels={"server": sid})
+                state["done"] = True
+                deliver(msg)
+
+            def on_attempt_error(reason: str) -> None:
+                self._deadline_clear(token[0])
+                if isinstance(reason, _Refusal):
+                    terminal(reason)
+                else:
+                    retry_later(reason)
+
+            # armed before the alloc: a dead connection's alloc fails the
+            # attempt at once, and must find the token
+            token[0] = self._deadline_arm(sc, sid)
+            seq = sc.alloc_seq(on_reply, on_attempt_error, sink=sink)
+            if seq < 0:
+                return
+            msg = make_msg(seq)
+            sent[0], sent[1] = msg.op, time.monotonic()
+            try:
+                sc.send(msg)
+                counters().bump("wire_rpc")
+            except (ConnectionError, OSError) as e:
+                # died between the alloc and the send: the retry is ours
+                # unless the receive loop's drain took the callback first
+                if sc.pop(seq) is not None:
+                    self._deadline_clear(token[0])
+                    retry_later(f"server {sc.label} send failed: {e!r}")
+
+        send_attempt()
+
+    def _blocking_request(self, sc, make_msg, what: str, timeout: Optional[float] = None,
+                          expect: Optional[Op] = None) -> Message:
+        """One request on ``sc``, waiting for its reply (of op ``expect``,
+        by default the request's).  ConnectionError when the connection is
+        or goes down, or ``timeout`` passes (then the connection is torn
+        down, as the deadline thread does); :class:`RequestFailed` when
+        the server answered with a frame the port cannot use."""
         done = threading.Event()
         box: list = []
 
         def on_error(reason: str) -> None:
-            box.append(RequestFailed(f"{what}: {reason}"))
+            box.append(reason)
             done.set()
 
-        self._request(key, make_msg, lambda m: (box.append(m), done.set()), on_error)
-        done.wait()
-        if isinstance(box[0], Exception):
-            raise box[0]
-        return box[0]
+        seq = sc.alloc_seq(lambda m: (box.append(m), done.set()), on_error)
+        msg = None
+        if seq >= 0:
+            msg = make_msg(seq)
+            try:
+                sc.send(msg)
+            except OSError as e:
+                sc.pop(seq)
+                raise ConnectionError(f"{what}: send failed: {e!r}") from None
+        if not done.wait(timeout):
+            counters().bump("rpc_deadline_expired")
+            sc.close_all()
+            done.wait(5.0)
+        reply = box[0] if box else f"server {sc.label}: no reply"
+        if not isinstance(reply, Message):
+            if isinstance(reply, _Refusal):
+                raise RequestFailed(f"{what}: {reply}")
+            raise ConnectionError(f"{what}: {reply}")
+        want = expect if expect is not None else msg.op
+        if reply.op != want:
+            raise RequestFailed(f"{what}: server {sc.label} answered a {msg.op.name} "
+                                f"request with {reply.op.name}")
+        return reply
+
+    def _blocking_request_retrying(self, key: int, make_msg, what: str,
+                                   use_deadline: bool = True) -> Message:
+        """A blocking request (init, compressor registration) with retries,
+        revival and the RPC deadline; ``use_deadline=False`` takes
+        ``BYTEPS_INIT_DEADLINE_S`` instead, for the init barrier, whose ack
+        waits for every peer worker.  Safe to send again: the server keys
+        init waiters by worker and overwrites a codec chain."""
+        backoff = Backoff(base=self.cfg.rpc_backoff_s, cap=2.0)
+        deadline = ((self.cfg.rpc_deadline_s if use_deadline else self.cfg.init_deadline_s)
+                    or None)
+        sid = self._sid(key)
+        last: Optional[BaseException] = None
+        for attempt in range(self.cfg.rpc_retries + 1):
+            if attempt:
+                counters().bump("rpc_retry", labels={"server": sid})
+                if self._stop.wait(backoff.next_delay()):
+                    break
+            try:
+                sc = self._conn_for(key, revive=attempt > 0)
+                return self._blocking_request(sc, make_msg, what, deadline)
+            except RequestFailed:
+                raise
+            except (ConnectionError, OSError) as e:
+                last = e
+        counters().bump("rpc_giveup", labels={"server": sid})
+        raise RequestFailed(f"{what}: {last or 'the client closed'}")
+
+    # --- the in-place heal -----------------------------------------------
+
+    def resync_in_place(self, key: int) -> bool:
+        """Resync ``key``'s server and replay the journaled rounds it lacks;
+        True when its ledger now holds every round this worker sent."""
+        try:
+            sid = str(self.server_for(key))
+        except (ValueError, ZeroDivisionError, IndexError):
+            return False
+        return self._heal_in_place(key, sid)
+
+    def _heal_in_place(self, key: int, sid: str) -> bool:
+        """One heal of server ``sid``, serialized per server and bounded by
+        ``BYTEPS_RESYNC_DEADLINE_S``; a give-up that waited while another
+        heal of the server succeeded rides it.  Counted as
+        ``resync_attempt``, ``resync_replayed_rounds`` and
+        ``resync_giveup`` (flat and per server)."""
+        if self.cfg.resync_deadline_s <= 0 or self._stop.is_set() or not self._worker_flag():
+            # an anonymous worker has no slot in the server's ledger
+            return False
+        with self._heal_meta_lock:
+            lock = self._heal_locks.setdefault(sid, threading.Lock())
+            entry_gen = self._heal_gen.get(sid, 0)
+        with lock:
+            with self._heal_meta_lock:
+                if self._heal_gen.get(sid, 0) != entry_gen:
+                    return True
+            counters().bump("resync_attempt", labels={"server": sid})
+            try:
+                ok = self._run_resync(key, sid)
+            except Exception:  # noqa: BLE001 - a heal never raises
+                ok = False
+            if ok:
+                with self._heal_meta_lock:
+                    self._heal_gen[sid] = entry_gen + 1
+            else:
+                counters().bump("resync_giveup", labels={"server": sid})
+        return ok
+
+    def _run_resync(self, route_key: int, sid: str) -> bool:
+        """The heal: (1) dial the server again (one that cannot be dialed
+        is down, which a heal cannot mend); (2) Op.RESYNC_QUERY for every
+        key this worker journals towards it, the triggering one included:
+        per key, ``seen``, the newest of this worker's pushes its ledger
+        summed; (3) replay, oldest first, the journaled rounds above
+        ``seen`` as ordinary pushes (fused members as plain pushes)."""
+        from byteps_tpu_torch.comm.journal import get_journal
+
+        deadline_at = time.monotonic() + self.cfg.resync_deadline_s
+        j = get_journal()
+        wid = self._worker_flag()
+        keys = sorted({route_key} | {k for k in (j.keys() if j else [])
+                                     if self._sid(k) == sid})
+        backoff = Backoff(base=max(0.01, self.cfg.rpc_backoff_s), cap=1.0)
+
+        def recovery_rpc(k: int, make_msg, what: str, expect: Optional[Op] = None):
+            """One blocking request, sent again within the heal's budget;
+            None once the budget or the server is gone."""
+            while True:
+                remaining = deadline_at - time.monotonic()
+                if remaining <= 0 or self._stop.is_set():
+                    return None
+                per_try = (min(remaining, max(0.2, self.cfg.rpc_deadline_s))
+                           if self.cfg.rpc_deadline_s > 0 else remaining)
+                try:
+                    sc = self._conn_for(k, revive=True)
+                except (ConnectionError, OSError):
+                    return None  # not dialable: not a one-sided fault
+                try:
+                    return self._blocking_request(sc, make_msg, what, per_try, expect)
+                except RequestFailed:
+                    return None
+                except ConnectionError:
+                    # frames still lost: back off, dial again
+                    if self._stop.wait(min(backoff.next_delay(),
+                                           max(0.0, deadline_at - time.monotonic()))):
+                        return None
+
+        resp = recovery_rpc(
+            route_key,
+            lambda seq: Message(Op.RESYNC_QUERY, key=route_key, seq=seq, flags=wid,
+                                payload=encode_resync_query(wid, keys)),
+            "resync query", Op.RESYNC_STATE)
+        if resp is None or resp.status != 0:
+            return False
+        state = decode_resync_state(resp.payload)
+        for k in keys:
+            info = state.get(k)
+            if info is None:
+                if j is not None and j.entries_after(k, 0):
+                    # journaled pushes of a key the server no longer holds:
+                    # its store was lost, only the init barrier rebuilds it
+                    return False
+                continue
+            for e in (j.entries_after(k, int(info.get("seen", 0))) if j else []):
+                ack = recovery_rpc(
+                    k,
+                    lambda seq, _k=k, _e=e: Message(
+                        Op.PUSH, key=_k, seq=seq, cmd=_e.cmd, version=_e.version,
+                        flags=wid, payload=_e.payload),
+                    f"resync replay of key {k}")
+                if ack is None or ack.status != 0:
+                    return False
+                counters().bump("resync_replayed_rounds", labels={"server": sid})
+        return True
+
+    # --- the data plane --------------------------------------------------
 
     def init_tensor(self, key: int, num_elements: int, dtype_id: int,
                     async_profile: bool = False, staleness: int = -1,
@@ -539,18 +1053,19 @@ class PSClient:
         worker, -1 unbounded) or a key with a server-side update rule
         (``server_opt`` and its hyperparameters) adds the profile
         extension.  A server that refuses the INIT makes it raise with the
-        reason."""
+        reason.  Retried without the RPC deadline (``BYTEPS_INIT_DEADLINE_S``
+        instead), under one idempotency token."""
         token = self._init_token(key)
         profile = (PROFILE_ASYNC if async_profile else 0) | (
             PROFILE_SERVER_OPT if server_opt else 0)
         block = (encode_server_opt_block(server_opt, canonical_hp(server_opt_hp or {}))
                  if server_opt else b"")
         payload = encode_init(num_elements, dtype_id, profile, staleness, block)
-        resp = self._blocking_request(
+        resp = self._blocking_request_retrying(
             key,
             lambda seq: Message(Op.INIT, key=key, seq=seq, flags=self._worker_flag(),
                                 version=token, payload=payload),
-            f"init of key {key}",
+            f"init of key {key}", use_deadline=False,
         )
         if resp.status != 0:
             if server_opt:
@@ -568,7 +1083,7 @@ class PSClient:
         """Ship the codec config to the key's server: newline-separated
         ``key=value`` text (operations.cc:396-408)."""
         payload = "\n".join(f"{k}={v}" for k, v in sorted(kwargs.items())).encode()
-        self._blocking_request(
+        self._blocking_request_retrying(
             key,
             lambda seq: Message(Op.REGISTER_COMPRESSOR, key=key, seq=seq,
                                 payload=payload),
@@ -582,7 +1097,7 @@ class PSClient:
         Fire-and-forget, as the reference sends it: a server whose
         connection is down is left to the data path to report."""
         payload = struct.pack("!d", float(lr))
-        for sc in self._servers:
+        for sc in list(self._servers):
             seq = sc.alloc_seq(lambda msg: None, lambda reason: None)
             if seq < 0:
                 continue
@@ -593,24 +1108,29 @@ class PSClient:
 
     def push(self, key: int, payload, dtype_id: int, version: int,
              cb: Callable[[], None], on_error: Callable[[str], None],
-             request_type: RequestType = RequestType.DEFAULT_PUSH_PULL) -> None:
-        """Asynchronous push; ``cb`` fires on the server's ack (ZPush)."""
+             request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
+             abort_check: Optional[Callable[[], bool]] = None) -> None:
+        """Asynchronous push; ``cb`` fires on the server's ack (ZPush).  A
+        resend of a push the server summed already is acked without a sum
+        (the worker flag and version key its replay ledger)."""
         cmd = get_command_type(request_type, dtype_id)
         flags = self._worker_flag()
-        self._request(
+        self._async_rpc(
             key,
             lambda seq: Message(Op.PUSH, key=key, seq=seq, payload=payload,
                                 cmd=cmd, version=version, flags=flags),
-            lambda msg: cb(), on_error, timed=True,
+            lambda msg: cb(), on_error, abort_check=abort_check,
         )
 
     def push_fused(self, members: List[tuple], cb: Callable[[list], None],
-                   on_error: Callable[[str], None]) -> None:
+                   on_error: Callable[[str], None],
+                   abort_check: Optional[Callable[[], bool]] = None) -> None:
         """One fused push and pull of small partitions of one server
         (Op.FUSED): ``members`` is ``[(key, cmd, version, payload), ...]``,
         routed by the first key, and ``cb`` gets the decoded reply
         ``[(key, version, payload), ...]``.  The frame carries the worker
-        flag, so the server runs each member through its replay ledger."""
+        flag, so the server runs each member through its replay ledger.
+        No in-place heal: a failed frame falls back to per-key requests."""
         frame = encode_fused_push(members)
         route_key = members[0][0]
         flags = self._worker_flag()
@@ -624,22 +1144,25 @@ class PSClient:
                 return
             cb(reply)
 
-        self._request(
+        self._async_rpc(
             route_key,
             lambda seq: Message(Op.FUSED, key=route_key, seq=seq, payload=frame,
                                 cmd=len(members), flags=flags),
-            deliver, on_error, timed=True,
+            deliver, on_error, abort_check=abort_check, heal=False,
         )
 
     def pull(self, key: int, version: int, cb: Callable, on_error: Callable[[str], None],
              dtype_id: int = 0,
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
-             sink: Optional[memoryview] = None) -> None:
+             sink: Optional[memoryview] = None,
+             abort_check: Optional[Callable[[], bool]] = None) -> None:
         """Asynchronous pull of round ``version``; ``cb`` gets the payload,
-        or :data:`ZERO_COPIED` when it landed in ``sink`` (ZPull)."""
+        or :data:`ZERO_COPIED` when it landed in ``sink`` (ZPull).  Read
+        only, so retried freely: a retry follows the teardown of the
+        attempt's connection, so no late reply writes into the sink."""
         cmd = get_command_type(request_type, dtype_id)
-        self._request(
+        self._async_rpc(
             key,
             lambda seq: Message(Op.PULL, key=key, seq=seq, cmd=cmd, version=version),
-            lambda msg: cb(msg.payload), on_error, sink=sink, timed=True,
+            lambda msg: cb(msg.payload), on_error, sink=sink, abort_check=abort_check,
         )

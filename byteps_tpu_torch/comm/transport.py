@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import enum
+import json
 import os
 import socket
 import struct
@@ -67,9 +68,10 @@ class Op(enum.IntEnum):
     PING = 20
     SHUTDOWN = 21
     QUERY = 22
-    # recovery and resharding planes (not served by the port)
+    # the recovery plane
     RESYNC_QUERY = 23
     RESYNC_STATE = 24
+    # the resharding plane (not served by the port)
     MIGRATE_STATE = 25
     WRONG_OWNER = 26
 
@@ -77,8 +79,6 @@ class Op(enum.IntEnum):
 #: ops the port receives but does not serve: a frame of one of them fails
 #: the request it belongs to
 UNPORTED_OPS = {
-    Op.RESYNC_QUERY: "resync",
-    Op.RESYNC_STATE: "resync",
     Op.MIGRATE_STATE: "elastic",
     Op.WRONG_OWNER: "elastic",
 }
@@ -98,7 +98,7 @@ class ChecksumError(ValueError):
 
 class UnsupportedFrameError(ValueError):
     """A received frame needs a plane the port does not carry (a lossless
-    container, or a resync/migration op).  Raised after the frame was
+    container, or a migration op).  Raised after the frame was
     consumed."""
 
 
@@ -113,6 +113,18 @@ def wire_checksum_enabled() -> bool:
     return os.environ.get("BYTEPS_WIRE_CHECKSUM", "").lower() not in (
         "", "0", "false", "no", "off",
     )
+
+
+def checksum_conn_limit() -> int:
+    """Checksum mismatches one connection may carry before its receiver
+    tears it down (``BYTEPS_CHECKSUM_CONN_LIMIT``, default 8; 0 = never;
+    a negative or unreadable value is the default)."""
+    v = os.environ.get("BYTEPS_CHECKSUM_CONN_LIMIT", "")
+    try:
+        n = int(v) if v else 8
+    except ValueError:
+        return 8
+    return n if n >= 0 else 8
 
 
 _CRC32C_POLY = 0x82F63B78
@@ -473,6 +485,43 @@ def decode_server_opt_block(payload: bytes, off: int) -> Tuple[str, bytes]:
     if off + hlen > len(payload):
         raise ValueError("server-opt block truncated (hyperparams)")
     return name, payload[off: off + hlen]
+
+
+# --- the recovery plane (Op.RESYNC_QUERY / Op.RESYNC_STATE) ----------------
+#
+# JSON bodies.  Query: {"worker": <flags byte>, "keys": [<key>, ...]} (no
+# keys: every key the server holds).  State: {"keys": {"<key>":
+# {"store_version": v, "seen": s, "recv_count": c, "init": true}}}, where
+# "seen" is the newest version of that worker's pushes the server's replay
+# ledger absorbed.  Both server engines answer it (the C++ one from its own
+# ledger, ps_server.cc).
+
+
+def encode_resync_query(worker_flag: int, keys) -> bytes:
+    """The body of an Op.RESYNC_QUERY frame."""
+    return json.dumps({"worker": int(worker_flag), "keys": [int(k) for k in keys]}).encode()
+
+
+def decode_resync_query(payload: bytes) -> Tuple[int, list]:
+    """(worker flag, [key, ...]); ValueError on a malformed body."""
+    raw = json.loads(payload.decode())
+    if not isinstance(raw, dict):
+        raise ValueError("resync query body must be a JSON object")
+    return int(raw.get("worker", 0)), [int(k) for k in raw.get("keys", [])]
+
+
+def encode_resync_state(states: dict) -> bytes:
+    """The body of an Op.RESYNC_STATE reply: ``states`` maps key ->
+    {"store_version", "seen", "recv_count", "init"}."""
+    return json.dumps({"keys": {str(k): v for k, v in states.items()}}).encode()
+
+
+def decode_resync_state(payload: bytes) -> dict:
+    """Inverse of :func:`encode_resync_state`: {key: info}."""
+    raw = json.loads(payload.decode())
+    if not isinstance(raw, dict) or not isinstance(raw.get("keys", {}), dict):
+        raise ValueError("resync state body must be a JSON object")
+    return {int(k): v for k, v in raw.get("keys", {}).items()}
 
 
 def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:

@@ -1,6 +1,7 @@
-"""Transport vans of the PS plane.  The port carries the TCP van; the
-uds, shm and chaos vans of ``byteps_tpu.comm.van`` are not ported, and an
-address or a ``BYTEPS_VAN`` that needs one raises."""
+"""Transport vans of the PS plane: the TCP van, and the chaos van around
+it (``BYTEPS_VAN=chaos:tcp``, ``comm/chaos.py``).  The uds and shm vans of
+``byteps_tpu.comm.van`` are not ported, and an address or a ``BYTEPS_VAN``
+that needs one raises."""
 
 from __future__ import annotations
 
@@ -9,8 +10,10 @@ import socket
 import time
 from typing import Tuple
 
+from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
+
 #: address prefixes of the unported vans (``byteps_tpu.comm.van``)
-_UNPORTED_PREFIXES = ("unix://", "shm://", "chaos+")
+_UNPORTED_PREFIXES = ("unix://", "shm://", "shm+unix://")
 
 
 class TcpVan:
@@ -45,20 +48,34 @@ class TcpVan:
 _TCP = TcpVan()
 
 
-def get_van(name: str = "") -> TcpVan:
-    """Server-side van selection (``BYTEPS_VAN``, default tcp)."""
+def get_van(name: str = ""):
+    """Server-side van selection (``BYTEPS_VAN``, default tcp):
+    ``chaos:tcp`` wraps the TCP van in the fault layer."""
     name = name or os.environ.get("BYTEPS_VAN") or "tcp"
-    if name != "tcp":
-        from byteps_tpu_torch.common.config import unported
+    if name == "tcp":
+        return _TCP
+    if name == "chaos:tcp":
+        from byteps_tpu_torch.comm.chaos import ChaosVan
 
-        raise unported("van", f"BYTEPS_VAN={name}")
-    return _TCP
+        return ChaosVan(_TCP)
+    from byteps_tpu_torch.common.config import unported
+
+    raise unported("van", f"BYTEPS_VAN={name}")
 
 
-def van_for_address(host: str) -> TcpVan:
+def strip_chaos(host: str) -> str:
+    """The inner address of a possibly ``chaos+`` one."""
+    return host[len(CHAOS_PREFIX):] if host.startswith(CHAOS_PREFIX) else host
+
+
+def van_for_address(host: str):
     """Client-side dispatch: the scheme is encoded in the address."""
-    if host.startswith(_UNPORTED_PREFIXES):
+    if strip_chaos(host).startswith(_UNPORTED_PREFIXES):
         from byteps_tpu_torch.common.config import unported
 
         raise unported("van", f"server address {host!r}")
+    if host.startswith(CHAOS_PREFIX):
+        from byteps_tpu_torch.comm.chaos import ChaosVan
+
+        return ChaosVan(_TCP)
     return _TCP

@@ -22,6 +22,11 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v not in (None, "") else default
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v not in (None, "") else default
+
+
 def truthy(v: str) -> bool:
     """A knob's value read as a flag: anything but an off spelling."""
     return v.lower() not in ("0", "false", "no", "off")
@@ -89,6 +94,31 @@ class Config:
     #: a server's data plane in C++ (native/csrc/ps_server.cc)
     server_native: bool = False  # BYTEPS_SERVER_NATIVE
 
+    # --- per-RPC deadlines and retries (docs/robustness.md) ---
+    #: attempts after the first before a push, pull or init gives up
+    rpc_retries: int = 2  # BYTEPS_RPC_RETRIES; 0 fails fast
+    #: a server that neither answers nor closes the connection within this
+    #: window is taken for hung: the connection is torn down and the
+    #: request sent again; 0 turns the deadline off
+    rpc_deadline_s: float = 0.0  # BYTEPS_RPC_DEADLINE_S
+    #: the backoff's base between attempts (full jitter, capped at 2 s)
+    rpc_backoff_s: float = 0.1  # BYTEPS_RPC_BACKOFF_S
+    #: the init barrier's own deadline (its ack waits for every peer
+    #: worker, so the RPC deadline does not cover it); 0 = none
+    init_deadline_s: float = 0.0  # BYTEPS_INIT_DEADLINE_S
+    #: a synchronous push_pull that failed degraded is healed in place, or
+    #: submitted again, this many times before the error surfaces
+    degraded_step_retries: int = 0  # BYTEPS_DEGRADED_STEP_RETRIES
+
+    # --- the round journal and the in-place heal ---
+    #: rounds of sent push payloads the journal keeps per key; 0 = none
+    journal_rounds: int = 2  # BYTEPS_JOURNAL_ROUNDS
+    #: the journal's byte cap over all keys; the oldest rounds go first
+    journal_bytes: int = 64 << 20  # BYTEPS_JOURNAL_BYTES
+    #: the wall-clock budget of one heal (resync query and replay); 0
+    #: turns the in-place heal off
+    resync_deadline_s: float = 5.0  # BYTEPS_RESYNC_DEADLINE_S
+
     @property
     def is_distributed(self) -> bool:
         """More than one worker, or the single-worker fake-cluster
@@ -134,6 +164,14 @@ class Config:
             server_opt_hp=os.environ.get("BYTEPS_SERVER_OPT_HP") or "",
             native_client=_env_bool("BYTEPS_NATIVE_CLIENT"),
             server_native=_env_bool("BYTEPS_SERVER_NATIVE"),
+            rpc_retries=max(0, _env_int("BYTEPS_RPC_RETRIES", 2)),
+            rpc_deadline_s=_env_float("BYTEPS_RPC_DEADLINE_S", 0.0),
+            rpc_backoff_s=_env_float("BYTEPS_RPC_BACKOFF_S", 0.1),
+            init_deadline_s=_env_float("BYTEPS_INIT_DEADLINE_S", 0.0),
+            degraded_step_retries=max(0, _env_int("BYTEPS_DEGRADED_STEP_RETRIES", 0)),
+            journal_rounds=max(0, _env_int("BYTEPS_JOURNAL_ROUNDS", 2)),
+            journal_bytes=max(1, _env_int("BYTEPS_JOURNAL_BYTES", 64 << 20)),
+            resync_deadline_s=_env_float("BYTEPS_RESYNC_DEADLINE_S", 5.0),
         )
 
 
@@ -165,10 +203,9 @@ def clear_config() -> None:
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "resync": "journal replay and RESYNC healing, RPC deadlines and retries: ROADMAP.md Queue 1b item P2",
     "elastic": "elastic membership and key migration: ROADMAP.md Queue 1b item P3",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
-    "van": "the uds, shm and chaos vans: ROADMAP.md Queue 1b item P8",
+    "van": "the uds and shm vans (and the chaos van around them): ROADMAP.md Queue 1b item P8",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
     "auto": "adaptive compression (BYTEPS_COMPRESSION_AUTO): ROADMAP.md Queue 1b item P13",
@@ -187,10 +224,9 @@ _UNPORTED_KNOBS = (
     ("BYTEPS_ELASTIC_RESHARD", "elastic", truthy),
     ("BYTEPS_DEAD_NODE_TIMEOUT_S", "elastic", lambda v: float(v) > 0),
     ("BYTEPS_AUTOTUNE", "elastic", truthy),
-    ("BYTEPS_VAN", "van", lambda v: v != "tcp"),
+    ("BYTEPS_VAN", "van", lambda v: v not in ("tcp", "chaos:tcp")),
     ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),
-    ("BYTEPS_RPC_RETRIES", "resync", lambda v: int(v) > 0),
-    ("BYTEPS_RPC_DEADLINE_S", "resync", lambda v: float(v) > 0),
+    ("BYTEPS_CHAOS_SCHED", "elastic", truthy),
     ("BYTEPS_COMPRESSION_AUTO", "auto", truthy),
 )
 

@@ -65,10 +65,20 @@ Lanes, by input:
   (the reference's device branch divides every dtype, engine.py:1228-1229;
   its host branch has the guard).
 
-Not ported (ROADMAP.md Queue 1b): journal and resync healing, row-sparse,
-adaptive compression, the tuner (and its adoption of a tuned fusion
-threshold), tracing spans and the flight recorder.  Each stage's dwell is
-observed as ``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
+The recovery plane (docs/robustness.md "healing flow"): every push is
+journaled before it leaves (``comm/journal.py``; a fused pack's members
+one by one), so that the PS client's in-place heal can replay the rounds
+a live server lost; a key's entries go when its init barrier runs again.
+A job that fails on the data plane surfaces ``DegradedError`` (counted as
+``degraded_jobs``), stops its other requests' retries (the abort fence),
+and marks its tensor for a forced init barrier on its next submit;
+:meth:`PipelineEngine.heal_degraded` heals it in place instead where it
+can.
+
+Not ported (ROADMAP.md Queue 1b): row-sparse, adaptive compression, the
+tuner (and its adoption of a tuned fusion threshold), tracing spans and
+the flight recorder.  Each stage's dwell is observed as
+``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ import torch
 from byteps_tpu_torch.common.config import Config, truthy
 from byteps_tpu_torch.common.partition import partition_tensor
 from byteps_tpu_torch.common.registry import get_registry
+from byteps_tpu_torch.comm.journal import configure_journal
 from byteps_tpu_torch.common.types import (
     DataType,
     QueueType,
@@ -332,6 +343,11 @@ class PipelineEngine:
         #: servers were last sent (their chains start at 1.0)
         self._compression_lr = 1.0
         self._lr_sent_to_servers = 1.0
+        #: the round journal of this engine's generation
+        self._journal = configure_journal(cfg.journal_rounds, cfg.journal_bytes)
+        #: tensors whose last job failed degraded: their next submit runs
+        #: the init barrier again, unless heal_degraded mends them first
+        self._reinit_names: set = set()
 
     # --- lifecycle -------------------------------------------------------
 
@@ -459,9 +475,16 @@ class PipelineEngine:
                     f"{sum(p.length for p in ctx.partitions)} elements, got "
                     f"{n_elements} (use a distinct name per tensor)"
                 )
-            if not ctx.initialized or ctx.engine_epoch != self._epoch:
+            if (not ctx.initialized or ctx.engine_epoch != self._epoch
+                    or ctx.name in self._reinit_names):
                 if not ctx.partitions:
                     partition_tensor(ctx, n_elements, itemsize, self.cfg.partition_bytes)
+                if self._journal is not None:
+                    # the barrier restarts the keys' round numbering: no
+                    # entry of the old numbering may replay into the new
+                    for part in ctx.partitions:
+                        self._journal.clear_key(part.key)
+                again = ctx.initialized and ctx.engine_epoch == self._epoch
                 profile = {}
                 is_async, staleness = self._async_profile(ctx)
                 if is_async:
@@ -473,10 +496,18 @@ class PipelineEngine:
                 for part in ctx.partitions:
                     self.client.init_tensor(part.key, part.length, dtype_id, **profile)
                     self._table[part.key] = (ctx.name, part.length, itemsize)
-                self._maybe_setup_compression(ctx, dtype_id, n_elements * itemsize)
+                if again:
+                    # a forced re-init under this engine: the servers' chains
+                    # are registered again, the worker's keep their state
+                    self._reship_compressors(ctx)
+                    for part in ctx.partitions:
+                        self._seeded.discard(part.key)
+                else:
+                    self._maybe_setup_compression(ctx, dtype_id, n_elements * itemsize)
                 ctx.version = 0
                 ctx.initialized = True
                 ctx.engine_epoch = self._epoch
+                self._reinit_names.discard(ctx.name)
             ctx.version += 1
             for part in ctx.partitions:
                 if part.key not in self._seeded:
@@ -505,6 +536,19 @@ class PipelineEngine:
             if dc is not None:
                 self._device_codecs[part.key] = dc
         self._maybe_send_lr()
+
+    def _reship_compressors(self, ctx) -> None:
+        """Register each partition's codec config with its server again
+        (after a forced re-init); a new server chain starts at lr 1, so the
+        current lr goes out again."""
+        shipped = False
+        for part in ctx.partitions:
+            if part.key in self._compressors:
+                self.client.register_compressor(part.key, ctx.kwargs)
+                shipped = True
+        if shipped:
+            self._lr_sent_to_servers = 1.0
+            self._maybe_send_lr()
 
     def _async_profile(self, ctx) -> tuple:
         """(async?, staleness bound) of a tensor's keys: the
@@ -586,8 +630,11 @@ class PipelineEngine:
     def _fail_task(self, task: TensorTableEntry, stage: QueueType, reason: str,
                    degraded: bool = False) -> None:
         """Fail a task once: return its credit, re-arm its key's gate, and
-        surface the error on the handle (DegradedError for a lost
-        connection)."""
+        surface the error on the handle.  ``degraded`` (the data plane gave
+        up): DegradedError, and the tensor's next submit runs its init
+        barrier again, since the abandoned round left the worker's and the
+        server's round numbers apart.  The job's ``failed`` flag is the
+        abort fence of its other tasks' retries."""
         from byteps_tpu_torch.core.state import get_state
 
         job = task.context
@@ -616,6 +663,9 @@ class PipelineEngine:
         self.queues[QueueType.PUSH].notify()
         self.queues[QueueType.FUSE].notify()
         if first:
+            if degraded:
+                counters().bump("degraded_jobs")
+                self._reinit_names.add(job.name)  # no lock: a receive loop may run this
             status = (Status.Degraded if degraded else Status.Aborted)(
                 f"{stage.name}: {reason}")
             get_state().handles.mark_done(job.handle, None, status)
@@ -649,6 +699,87 @@ class PipelineEngine:
                 done.record(stream)
                 out = DeviceResult(out, done)
         get_state().handles.mark_done(job.handle, out)
+
+    # --- the recovery plane ---------------------------------------------
+
+    def heal_degraded(self, name: str, tensor: Any, average: bool) -> Any:
+        """Mend in place a tensor whose last job failed degraded while the
+        fleet stayed as it was: resync every server that owns one of its
+        partitions (replaying the journaled pushes it never absorbed, which
+        completes the abandoned round with its original payloads), then
+        pull the round and return what the job would have returned, on the
+        tensor's device; its next submit goes on with the round numbers
+        as they are, with no init barrier and no peer waiting on it.
+
+        None where that cannot work: the tensor is not marked, it has a
+        codec (its pull needs the codec pipeline), a server cannot resync,
+        or the round's pull does not come back in time.  The caller then
+        submits the step again through the init barrier."""
+        from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
+
+        try:
+            ctx = get_registry().get(name)
+        except KeyError:
+            return None
+        with self._init_lock:
+            if (name not in self._reinit_names or not ctx.initialized
+                    or ctx.engine_epoch != self._epoch or not ctx.partitions):
+                return None
+        if any(p.key in self._compressors or p.key in self._device_codecs
+               for p in ctx.partitions):
+            return None
+        if self._server_opt_profile(ctx)[0]:
+            average = False  # the pull is the parameters the rule computed
+        is_torch = isinstance(tensor, torch.Tensor)
+        total = sum(p.length for p in ctx.partitions)
+        if (tensor.numel() if is_torch else int(np.size(tensor))) != total:
+            return None
+        if is_torch:
+            result_t = torch.empty(total, dtype=tensor.dtype)
+            result = _np_view(result_t)
+        else:
+            result = np.empty(total, dtype=np.asarray(tensor).dtype)
+        dtype_id = int(to_datatype(tensor.dtype if is_torch else result.dtype))
+        # 1. resync each owning server: its replay completes the round
+        route_keys: Dict[int, int] = {}
+        for p in ctx.partitions:
+            route_keys.setdefault(self.client.server_for(p.key), p.key)
+        for key in route_keys.values():
+            if not self.client.resync_in_place(key):
+                return None
+        # 2. pull the round, every partition at once, then wait
+        timeout = max(10.0, self.cfg.resync_deadline_s
+                      + (self.cfg.rpc_deadline_s or 1.0) * (self.cfg.rpc_retries + 1))
+        pending = []
+        for p in ctx.partitions:
+            done, box = threading.Event(), {}
+            sink = memoryview(result).cast("B")[p.offset * result.itemsize:
+                                                 (p.offset + p.length) * result.itemsize]
+
+            def on_pull(payload, _box=box, _done=done) -> None:
+                _box["payload"] = payload
+                _done.set()
+
+            self.client.pull(p.key, ctx.version, on_pull,
+                             on_error=lambda reason, _done=done: _done.set(),
+                             dtype_id=dtype_id, sink=sink)
+            pending.append((p, done, box))
+        deadline = time.monotonic() + timeout
+        for p, done, box in pending:
+            if not done.wait(max(0.0, deadline - time.monotonic())) or "payload" not in box:
+                return None
+            if box["payload"] is not ZERO_COPIED:
+                arr = np.frombuffer(box["payload"], dtype=result.dtype)
+                result[p.offset: p.offset + p.length] = arr[: p.length]
+        self._reinit_names.discard(name)
+        n = self.client.num_workers
+        if not is_torch:
+            out = result / n if average and is_floating(dtype_id) else result
+            return out.reshape(np.shape(tensor))
+        out = result_t.to(tensor.device)
+        if average and is_floating(dtype_id):
+            out = divide(out, n)
+        return out.reshape(tensor.shape)
 
     # --- stage bodies ----------------------------------------------------
 
@@ -736,6 +867,11 @@ class PipelineEngine:
         counters().bump("fused_frames")
         counters().bump("fused_keys", len(members))
         counters().bump("wire_tx_bytes", sum(memoryview(p).nbytes for *_, p in wire))
+        if self._journal is not None:
+            # each member on its own: a heal replays them as plain pushes,
+            # which the server sums through the same replay ledger
+            for key, cmd, version, payload in wire:
+                self._journal.record(key, version, cmd, payload, fused=True)
 
         def deliver(replies: list) -> None:
             if not finish_group():
@@ -754,7 +890,8 @@ class PipelineEngine:
             if finish_group():
                 self._unfuse_members(group, reason)
 
-        self.client.push_fused(wire, cb=deliver, on_error=on_error)
+        self.client.push_fused(wire, cb=deliver, on_error=on_error,
+                               abort_check=lambda: all(m.context.failed for m, _ in members))
 
     def _unfuse_members(self, group: _FusionGroup, reason: str) -> None:
         """A pack whose frame failed: each live member goes back to the PUSH
@@ -782,12 +919,16 @@ class PipelineEngine:
         else:
             payload, rtype = task.cpubuff.data.cast("B"), RequestType.DEFAULT_PUSH_PULL
         counters().bump("wire_tx_bytes", memoryview(payload).nbytes)
+        if self._journal is not None:
+            # before the send, so a give-up of this very push can replay it
+            self._journal.record(task.key, task.version,
+                                 get_command_type(rtype, job.dtype_id), payload)
         self.client.push(
             task.key, payload, job.dtype_id, task.version,
             cb=lambda: self._proceed(task),
             on_error=lambda reason: self._fail_task(task, QueueType.PUSH, reason,
                                                     degraded=True),
-            request_type=rtype,
+            request_type=rtype, abort_check=lambda: job.failed,
         )
 
     def _pull_once(self, task: TensorTableEntry) -> None:
@@ -833,7 +974,7 @@ class PipelineEngine:
             dtype_id=job.dtype_id,
             request_type=(RequestType.COMPRESSED_PUSH_PULL if compressed
                           else RequestType.DEFAULT_PUSH_PULL),
-            sink=sink,
+            sink=sink, abort_check=lambda: job.failed,
         )
 
     def _decompress_once(self, task: TensorTableEntry) -> None:

@@ -11,7 +11,20 @@ Counters (:func:`counters`):
   ``_idle`` / ``_cycle`` (why a pack left its buffer), ``fused_fallback``
   (packs sent again as per-key RPCs), ``fused_reply_malformed``;
 - the server-side optimizer: ``server_opt_updates`` (rules applied by a
-  Python server), ``server_opt_reject`` (INITs it refused).
+  Python server), ``server_opt_reject`` (INITs it refused);
+- the self-healing data plane (``api.get_robustness_counters()``), flat
+  and, where the reference labels them, per server (``{server}``):
+  ``rpc_retry``, ``rpc_deadline_expired``, ``rpc_giveup``,
+  ``conn_revive``, ``resync_attempt``, ``resync_replayed_rounds``,
+  ``resync_giveup`` (worker); ``push_dedup`` and ``init_replay_ack``
+  (a Python server: a replayed push acked without a sum, a replayed INIT
+  acked from its barrier's token record); ``degraded_jobs`` (engine jobs
+  failed with DegradedError); ``wire_rpc`` (data-plane frames sent,
+  retries included); ``wire_checksum_fail{side,op}`` and
+  ``wire_checksum_conn_drop`` (frames dropped on a CRC32C mismatch, and
+  connections given up after ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them); the
+  chaos van's ``chaos_drop``, ``chaos_delay``, ``chaos_disconnect``,
+  ``chaos_truncate``, ``chaos_corrupt``, ``chaos_payload_corrupt``.
 
 Histograms (:func:`metrics`), fixed buckets with percentile snapshots,
 the reference's names and bounds:
@@ -24,6 +37,7 @@ the reference's names and bounds:
   the publish of the round it closed (``server/server.py``);
 - ``fused_pack_keys`` (members a flushed pack) and
   ``fused_flush_age_seconds`` (its oldest member's wait);
+- ``retry_backoff_seconds``: each backoff delay (``comm/retry.py``);
 - the C++ lanes' ``native_*`` families, read through the histogram
   provider seam (``native/__init__.py``).
 
@@ -42,25 +56,43 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 
 class Counters:
+    """Named monotonic counters.  ``bump(name, n, labels={"server": "1"})``
+    also counts under that label set; the flat total includes it."""
+
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
+        #: name -> {label key: count}
+        self._labeled: Dict[str, Dict[tuple, int]] = {}
 
-    def bump(self, name: str, n: int = 1) -> None:
+    def bump(self, name: str, n: int = 1,
+             labels: Optional[Dict[str, str]] = None) -> None:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
+            if labels:
+                per = self._labeled.setdefault(name, {})
+                key = _label_key(labels)
+                per[key] = per.get(key, 0) + n
 
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
 
     def snapshot(self) -> Dict[str, int]:
+        """The flat totals."""
         with self._lock:
             return dict(self._counts)
+
+    def snapshot_labeled(self) -> Dict[str, Dict[str, int]]:
+        """name -> {rendered labels (``{server="1"}``): count}."""
+        with self._lock:
+            return {name: {_render_labels(k): v for k, v in per.items()}
+                    for name, per in self._labeled.items()}
 
     def reset(self) -> None:
         with self._lock:
             self._counts.clear()
+            self._labeled.clear()
 
 
 _counters = Counters()

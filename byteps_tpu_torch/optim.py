@@ -90,6 +90,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self._ctx: Dict[torch.nn.Parameter, Any] = {}
         #: server_side: the first step seeds the servers with the parameters
         self._seeded = False
+        #: server_side: parameters synchronize() pulled since the last step,
+        #: whose gradients step() must not push again
+        self._synced: set = set()
 
         if named_parameters is not None:
             named = list(named_parameters)
@@ -147,21 +150,27 @@ class DistributedOptimizer(torch.optim.Optimizer):
             if out is not dst:
                 with torch.no_grad():
                     dst.copy_(out.view_as(dst))
+        if self.server_side:
+            self._synced.update(self._handles)
         self._handles.clear()
 
     def _server_step(self) -> None:
         """The seed round (the first time), then every gradient not pushed
-        by its hook, and the pulled parameters into ``p``."""
+        by its hook, and the pulled parameters into ``p``.  A gradient
+        whose parameters a call of :meth:`synchronize` already pulled is
+        not pushed again."""
         params = sorted(self._names, key=self._order.get)
         if not self._seeded:
             self._seeded = True
             for p in params:
                 self._push(p, p.detach())
             self.synchronize()
+            self._synced.clear()
         for p in params:
-            if p not in self._handles and p.grad is not None:
+            if p not in self._handles and p not in self._synced and p.grad is not None:
                 self._push(p, p.grad)
         self.synchronize()
+        self._synced.clear()
 
     def step(self, closure=None):
         self._passes += 1

@@ -19,15 +19,24 @@ server-side optimizer profile with status 1 and counts it
 (``native_async_reject``, ``native_server_opt_reject``); the worker raises
 with the reason (``comm/ps_client.py``), and nothing falls back to the
 Python engine.
+
+The engine answers Op.RESYNC_QUERY from its own replay ledger
+(``native_resync_query``) and acks a replayed INIT from its barrier's
+token record (``native_init_replay_ack``), so a worker heals in place
+against it as against the Python engine.  Under ``BYTEPS_VAN=chaos:tcp``
+it publishes a ``chaos+`` address: the workers fault their own side, the
+engine's replies stay clean.
 """
 
 from __future__ import annotations
 
+import os
 import socket
 import threading
 from typing import Dict, List, Optional
 
 from byteps_tpu_torch.common.config import Config, check_unported_env
+from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.transport import close_socket
 from byteps_tpu_torch.core.telemetry import metrics
 from byteps_tpu_torch.server.server import PSServer, summarize_histograms
@@ -45,7 +54,11 @@ class NativePSServer:
         check_unported_env()
         self._lib = get_lib()
         self.cfg = cfg
-        self.host = host
+        # under BYTEPS_VAN=chaos:tcp the engine's listener stays plain and
+        # the published address carries the chaos prefix, so the workers
+        # that dial it wrap their side in the fault layer
+        self.host = (CHAOS_PREFIX + host if os.environ.get("BYTEPS_VAN") == "chaos:tcp"
+                     else host)
         self.port = self._lib.bps_native_server_start(0, cfg.num_worker,
                                                       int(cfg.enable_async))
         if self.port < 0:
@@ -63,7 +76,7 @@ class NativePSServer:
         sid = self._id
         self._hist_provider = lambda: native_server_histograms(sid)
         metrics().register_hist_provider(self._hist_provider)
-        #: (pushes, rounds, histograms) frozen when the engine stops
+        #: (pushes, rounds, histograms, counters) frozen when the engine stops
         self._final: Optional[tuple] = None
 
     # the control plane of the Python server: these touch only the state
@@ -109,6 +122,10 @@ class NativePSServer:
         rounds = sum(c // max(1, self.num_workers) for c in per_key)
         return pushes, rounds, hists
 
+    def final_counters(self) -> Dict[str, int]:
+        """The engine's ``native_*`` counters, frozen when it stopped."""
+        return self._final[3] if self._final is not None else self.native_counters()
+
     def pushes_and_rounds(self) -> tuple:
         return (self._final or self._read_stats())[:2]
 
@@ -123,7 +140,7 @@ class NativePSServer:
             if self._stopped:
                 return
             self._stopped = True
-            self._final = self._read_stats()
+            self._final = (*self._read_stats(), self.native_counters())
             metrics().absorb_hist_provider(self._hist_provider)
             self._lib.bps_native_server_stop(self._id)
         close_socket(self._sched_conn)

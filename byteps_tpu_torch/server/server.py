@@ -28,7 +28,17 @@ of ``byteps_tpu.server.server.PSServer``.
   round is published (``_FusedReply``);
 - REGISTER_COMPRESSOR builds the key's codec chain from its ``key=value``
   config (error feedback included, momentum skipped), or with flag bit 0
-  sets the learning rate of every error-feedback chain.
+  sets the learning rate of every error-feedback chain;
+- RESYNC_QUERY (the recovery plane) is answered from the replay ledger:
+  per key, the store's version, the newest version of the asking
+  worker's pushes summed (``seen``), the round's pushes so far, so that a
+  worker that gave up on this server replays exactly the rounds it lost.
+  A replayed INIT whose barrier already released (its ack was lost) is
+  acked from the barrier's token record (``init_replay_ack``); a replayed
+  push is acked without a sum (``push_dedup``).  A frame that fails its
+  CRC32C is dropped without a reply (``wire_checksum_fail``), so the
+  worker's deadline sends it again; ``BYTEPS_CHECKSUM_CONN_LIMIT`` of
+  them close the connection.
 
 Sums and codecs run in the port's C++ (``native.cpu_reducer``,
 ``compression/impl.py``), as the reference's Python server's do.
@@ -37,8 +47,8 @@ the round it closed as ``server_publish_seconds``; a server process logs
 its pushes, rounds, parked pulls and those histograms when it stops
 (:func:`stop_report`).  ``BYTEPS_SERVER_NATIVE=1`` serves the data plane
 in C++ instead (``server/native.py``).  The planes of the reference's
-server that are not ported (resync, migration, row-sparse, multi-tenant
-job namespaces, lossless frames) are refused loudly: the request's
+server that are not ported (migration, row-sparse, multi-tenant job
+namespaces, lossless frames) are refused loudly: the request's
 connection is closed, or its INIT is answered with a non-zero status, and
 the reason goes to stderr.
 """
@@ -78,8 +88,10 @@ from byteps_tpu_torch.comm.transport import (
     connect,
     decode_fused_push,
     decode_init_profile,
+    decode_resync_query,
     decode_server_opt_block,
     encode_fused_reply,
+    encode_resync_state,
     recv_message,
     send_message,
 )
@@ -99,7 +111,8 @@ def _log(msg: str) -> None:
 class _KeyState:
     __slots__ = (
         "store", "accum", "dtype_id", "recv_count", "store_version",
-        "pending_pulls", "fused_waiters", "init_waiters", "push_seen", "compressor",
+        "pending_pulls", "fused_waiters", "init_waiters", "init_done", "push_seen",
+        "compressor",
         "pull_payload", "pull_version", "raw_payload", "raw_version",
         "async_mode", "staleness", "opt_rule", "opt_step", "opt_seeded", "lock",
     )
@@ -115,8 +128,10 @@ class _KeyState:
         #: parked halves of fused frames: (version, _FusedReply, slot,
         #: wants_compressed), filled when their round publishes
         self.fused_waiters: List[tuple] = []
-        #: (worker_flag, conn, send_lock, seq)
+        #: (worker_flag, conn, send_lock, seq, init token)
         self.init_waiters: List[tuple] = []
+        #: worker flag -> the init token of the last barrier it completed
+        self.init_done: Dict[int, int] = {}
         #: worker flag -> newest summed push version (exactly-once sums)
         self.push_seen: Dict[int, int] = {}
         self.compressor = None
@@ -343,8 +358,18 @@ class PSServer:
         send_lock = threading.Lock()
         try:
             while not self._stop.is_set():
-                msg = recv_message(conn)
-                if msg.op in (Op.PUSH, Op.PULL, Op.INIT, Op.FUSED):
+                try:
+                    msg = recv_message(conn)
+                except ChecksumError as e:
+                    # the connection goes, which fails the worker's pending
+                    # requests into its retry path at once: a request
+                    # dropped unanswered would wait for a deadline the
+                    # worker may not arm
+                    counters().bump("wire_checksum_fail", labels={
+                        "side": "server", "op": getattr(e.op, "name", str(e.op))})
+                    counters().bump("wire_checksum_conn_drop")
+                    raise
+                if msg.op in (Op.PUSH, Op.PULL, Op.INIT, Op.FUSED, Op.RESYNC_QUERY):
                     self._enqueue(msg, conn, send_lock)
                 elif msg.op == Op.REGISTER_COMPRESSOR:
                     self._handle_register_compressor(msg, conn, send_lock)
@@ -360,9 +385,6 @@ class PSServer:
                 else:
                     raise UnsupportedFrameError(f"unexpected {msg.op.name} request")
         except (ChecksumError, UnsupportedFrameError) as e:
-            # the reference drops a corrupt frame and lets the worker's
-            # retry heal it; the port's workers do not retry, so the
-            # connection goes, and with it the worker's pending requests
             _log(f"closing a worker connection: {e}")
         except (ConnectionError, OSError):
             pass
@@ -425,7 +447,7 @@ class PSServer:
     # --- engine plane ----------------------------------------------------
 
     _HANDLERS = {Op.INIT: "_handle_init", Op.PUSH: "_handle_push", Op.PULL: "_handle_pull",
-                 Op.FUSED: "_handle_fused"}
+                 Op.FUSED: "_handle_fused", Op.RESYNC_QUERY: "_handle_resync"}
 
     def _engine_loop(self, q: _EngineQueue) -> None:
         while not self._stop.is_set():
@@ -489,29 +511,44 @@ class PSServer:
                 except ValueError as e:
                     self._reject_server_opt(msg, conn, send_lock, e)
                     return
-            wid = msg.flags
-            entry = (wid, conn, send_lock, msg.seq)
-            # a replayed INIT of one worker replaces its waiter
-            for i, w in enumerate(ks.init_waiters):
-                if wid and w[0] == wid:
-                    ks.init_waiters[i] = entry
-                    break
-            else:
-                ks.init_waiters.append(entry)
-            if len(ks.init_waiters) < self.num_workers:
-                return
-            waiters, ks.init_waiters = ks.init_waiters, []
-            # a completed barrier restarts the key's rounds: every worker
-            # re-inits and counts versions from 1 again (store contents and
-            # an unchanged rule's state stay)
-            ks.store_version = 0
-            ks.recv_count = 0
-            ks.pending_pulls = []
-            ks.fused_waiters = []
-            ks.push_seen = {}
-            ks.pull_payload = ks.raw_payload = None
-            ks.pull_version = ks.raw_version = -1
-        for _, wconn, wlock, wseq in waiters:
+            wid, token = msg.flags, msg.version
+            waiters = None
+            replay_ack = bool(wid and token and ks.init_done.get(wid) == token)
+            if not replay_ack:
+                entry = (wid, conn, send_lock, msg.seq, token)
+                # a replayed INIT of one worker replaces its waiter
+                for i, w in enumerate(ks.init_waiters):
+                    if wid and w[0] == wid:
+                        ks.init_waiters[i] = entry
+                        break
+                else:
+                    ks.init_waiters.append(entry)
+                if len(ks.init_waiters) >= self.num_workers:
+                    waiters, ks.init_waiters = ks.init_waiters, []
+                    # each waiter's token: its INIT retried after this
+                    # release is acked from the record; an older
+                    # generation's tokens go
+                    ks.init_done = {w[0]: w[4] for w in waiters if w[0] and w[4]}
+                    # a completed barrier restarts the key's rounds: every
+                    # worker re-inits and counts versions from 1 again
+                    # (store contents and an unchanged rule's state stay)
+                    ks.store_version = 0
+                    ks.recv_count = 0
+                    ks.pending_pulls = []
+                    ks.fused_waiters = []
+                    ks.push_seen = {}
+                    ks.pull_payload = ks.raw_payload = None
+                    ks.pull_version = ks.raw_version = -1
+        if replay_ack:
+            # the barrier released and this worker's ack was lost: its
+            # peers will not init the key again, so the token record acks
+            # the retry instead of parking it
+            counters().bump("init_replay_ack")
+            send_message(conn, Message(Op.INIT, key=msg.key, seq=msg.seq), send_lock)
+            return
+        if waiters is None:
+            return
+        for _, wconn, wlock, wseq, _ in waiters:
             try:
                 send_message(wconn, Message(Op.INIT, key=msg.key, seq=wseq), wlock)
             except (ConnectionError, OSError):
@@ -610,6 +647,7 @@ class PSServer:
         publishing the round it closed.  Caller holds ``ks.lock``."""
         wid = msg.flags
         if wid and msg.version > 0 and msg.version <= ks.push_seen.get(wid, 0):
+            counters().bump("push_dedup")
             return 0.0  # a replay of a push already summed: ack only
         self._sum_push_locked(ks, msg, compressed, arr)
         if self._async_ks(ks):
@@ -744,6 +782,31 @@ class PSServer:
             except (ConnectionError, OSError):
                 continue
 
+    def _handle_resync(self, msg: Message, conn, send_lock) -> None:
+        """Op.RESYNC_QUERY: per key asked (every key when none), the store's
+        version, the newest version of the asking worker's pushes the
+        replay ledger holds (``seen``), the round's pushes so far.  A read:
+        the worker's replayed pushes take the ordinary PUSH path.  A body
+        that does not decode drops the connection (the engine loop)."""
+        wid, keys = decode_resync_query(msg.payload)
+        if not keys:
+            with self._keys_lock:
+                keys = list(self._keys)
+        out = {}
+        for key in keys:
+            with self._keys_lock:
+                ks = self._keys.get(key)
+            if ks is None:
+                continue
+            with ks.lock:
+                if ks.store is None:
+                    continue
+                out[key] = {"store_version": ks.store_version,
+                            "seen": ks.push_seen.get(wid, 0) if wid else 0,
+                            "recv_count": ks.recv_count, "init": True}
+        send_message(conn, Message(Op.RESYNC_STATE, key=msg.key, seq=msg.seq,
+                                   payload=encode_resync_state(out)), send_lock)
+
     def _handle_pull(self, msg: Message, conn, send_lock) -> None:
         rtype, _ = decode_command_type(msg.cmd)
         if rtype == RequestType.ROW_SPARSE_PUSH_PULL:
@@ -789,10 +852,20 @@ def summarize_histograms(recs_by_name: Dict[str, list]) -> Dict[str, dict]:
     return out
 
 
+#: the recovery plane's counters a server's stop report carries: a Python
+#: server's (its process's), and the C++ engine's own
+RECOVERY_COUNTERS = ("push_dedup", "init_replay_ack", "wire_checksum_fail",
+                     "wire_checksum_conn_drop", "chaos_drop", "chaos_delay",
+                     "chaos_disconnect", "chaos_truncate", "chaos_corrupt",
+                     "chaos_payload_corrupt", "native_push_dedup", "native_init_replay_ack",
+                     "native_resync_query", "native_checksum_fail")
+
+
 def stop_report(node) -> List[str]:
-    """A stopped server's two log lines: the pushes it summed into rounds
+    """A stopped server's three log lines: the pushes it summed into rounds
     (the Python engine adds the async pulls it parked and the update rules
-    it applied), and each histogram's count, sum, p50 and p99 (seconds)."""
+    it applied), each histogram's count, sum, p50 and p99 (seconds), and
+    its recovery counters that are not 0."""
     pushes, rounds = node.pushes_and_rounds()
     hists = node.histograms()
     extra = ""
@@ -800,11 +873,17 @@ def stop_report(node) -> List[str]:
         counts = node.stats.snapshot()
         extra = (f", parked {counts.get('pulls_parked', 0)} async pulls, applied "
                  f"{counts.get('server_opt_updates', 0)} server-side updates")
+        recovery = counters().snapshot()
+    else:
+        recovery = node.final_counters()
     return [
         f"rank {node.rank} summed {pushes} pushes into {rounds} rounds{extra}",
         f"rank {node.rank} histograms " + ("; ".join(
             f"{name} count={h['count']} sum={h['sum']:.6f} p50={h['p50']:.6g} "
             f"p99={h['p99']:.6g}" for name, h in hists.items()) or "none"),
+        f"rank {node.rank} recovery " + (" ".join(
+            f"{name}={recovery[name]}" for name in RECOVERY_COUNTERS
+            if recovery.get(name)) or "none"),
     ]
 
 
@@ -844,6 +923,9 @@ def run_server() -> None:
             node = NativePSServer(cfg, host=cfg.node_host or "127.0.0.1")
         else:
             node = PSServer(cfg, host=cfg.node_host or "127.0.0.1")
+        # the port the kernel chose, for a launcher that targets one server
+        # (the chaos van's BYTEPS_CHAOS_TARGET_PORT)
+        print(f"BYTEPS_SERVER_PORT={node.port}", flush=True)
         node.start()
     else:
         raise SystemExit(f"run_server: unsupported role {cfg.role!r}")

@@ -91,11 +91,12 @@ Phases, each fatal on failure:
  14. the step builders (build_data_parallel_step, build_zero1_step,
      accumulate_steps=2, grad_quant_bits=8) at one rank of an NCCL group, 2
      layers, f32: within 1e-6 of DistributedOptimizer at one worker;
- 15. small-tensor fusion (after phase 7): BERT-large at full depth through
-     one worker and two servers with bare onebit, on the Python lanes and
-     on the native lanes, each unfused and fused
+ 15. small-tensor fusion (after phase 7; 12 layers, widths kept): BERT-large
+     through one worker and two servers with bare onebit, on the Python
+     lanes and on the native lanes, each unfused and fused
      (BYTEPS_FUSION_THRESHOLD=131072: every partition fits) in turns: the
-     parameters bitwise the unfused run's, K4 at 495 launches a step, the
+     parameters bitwise the unfused run's, K4 once a compressed partition a
+     step, the
      warm-up step's onebit payloads bitwise, the same bytes; fused frames
      a step, keys a frame, the stage split with FUSE's dwell, and the step
      beside the unfused one;
@@ -103,21 +104,36 @@ Phases, each fatal on failure:
      server_side=True, server_rule="adam") at full depth through two
      Python servers, every round of six tensors' partitions bitwise a CPU
      replay of update_rules.Adam, falling losses, no optimizer state on
-     the worker; against native servers the worker raises at its first
-     INIT;
- 17. async: server-wide (BYTEPS_ENABLE_ASYNC=1) on Python and on native
-     servers, one worker with local AdamW pushing weight deltas: every
+     the worker; the round journal's copy of these raw f32 pushes, steps
+     in turns with it on and off; against native servers the worker raises
+     at its first INIT;
+ 17. async (6 layers, widths kept): server-wide (BYTEPS_ENABLE_ASYNC=1) on
+     Python and on native servers, one worker with local AdamW pushing weight
+     deltas: every
      pulled store the sum of its deltas, the parameters bitwise AdamW with
      the store's rounding done on the card and within ASYNC_ATOL of bare
      AdamW; per key at staleness bound 1 on two launcher hosts, one of
      them lagging two rounds behind in two steps: finite losses, pulls
      parked by the servers, no pull answered beyond the bound;
- 18. one JSON line listing the kernels, then the contract line
+ 18. faults (after phase 7, whose run it is held to): the distributed path on
+     the Python lanes under BYTEPS_VAN=chaos:tcp, every fault kind (drop,
+     delay, disconnect, truncate, corrupt, payload flip) at 0.001 a frame on
+     the worker's frames and the servers' replies, the RPC deadline at 1 s:
+     losses and parameters bitwise the fault-free run's, every kind fired,
+     retries, revivals and the servers' dedupes counted, no step degraded;
+     phase 7 also times steps in turns with the round journal on and off,
+     and the journal's copy a step;
+ 19. the one-sided heal (6 layers, widths kept): two launcher hosts through
+     two Python servers, host 1 losing every push to one server in one step
+     until its single retry gives up: its client heals in place (RESYNC, the
+     journaled rounds replayed), no step degrades, no init barrier runs, and
+     both hosts are bitwise their fault-free runs and each other;
+ 20. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
-`python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host and
-`--async-host <dir>` phase 17's, which the launcher runs; they are not run
-by hand.
+`python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
+`--async-host <dir>` phase 17's and `--heal-host <dir>` phase 19's, which
+the launcher runs; they are not run by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -146,8 +162,9 @@ BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 N_LAYERS_FULL = 24
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
-# the distributed path on the native lanes (both halves C++), and each half alone
-NATIVE_STEPS, NATIVE_HALF_STEPS = 6, 3
+# the distributed path on the native lanes (both halves C++), and each half
+# alone (6 and 3 timed steps before the self-healing plane's phases joined)
+NATIVE_STEPS, NATIVE_HALF_STEPS = 3, 2
 #: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
 #: and the bytes one worker moves a step, from the distributed path's table
 DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
@@ -878,11 +895,13 @@ def train_main_path(card: str) -> dict:
     return counts
 
 
-def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None) -> tuple:
+def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
+                        server_ports: list = None) -> tuple:
     """A scheduler and two servers of the port, as `python -m
     byteps_tpu_torch.server` processes (the servers with ``server_env``
     added), each server's stderr in a file of ``log_dir``; returns
-    (scheduler port, processes)."""
+    (scheduler port, processes), and the servers' ports in ``server_ports``
+    when given (each server prints its port before it registers)."""
     procs = []
     sched = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
@@ -902,8 +921,16 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None) -> tup
                 [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
                 env={**env, **(server_env or {}), "DMLC_ROLE": "server",
                      "DMLC_PS_ROOT_PORT": port},
-                stdout=subprocess.DEVNULL, stderr=log,
+                stdout=subprocess.PIPE, stderr=log, text=True,
             ))
+    for i, proc in enumerate(procs[1:]):
+        line = proc.stdout.readline().strip()
+        if not line.startswith("BYTEPS_SERVER_PORT="):
+            for p in procs:
+                p.kill()
+            fail(f"server {i} did not report its port (got {line!r})")
+        if server_ports is not None:
+            server_ports.append(int(line.split("=", 1)[1]))
     return port, procs
 
 
@@ -935,8 +962,8 @@ def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None):
            "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO}
     saved = dict(os.environ)
     with tempfile.TemporaryDirectory() as log_dir:
-        fleet = types.SimpleNamespace(log_dir=log_dir, report=None)
-        port, procs = _start_ps_processes(env, log_dir, server_env)
+        fleet = types.SimpleNamespace(log_dir=log_dir, report=None, server_ports=[])
+        port, procs = _start_ps_processes(env, log_dir, server_env, fleet.server_ports)
         try:
             os.environ.update({**env, **(worker_env or {}), "DMLC_PS_ROOT_PORT": port})
             yield fleet
@@ -1024,9 +1051,10 @@ def _hist_lines(hists: dict, steps: int) -> list:
 
 def _server_report(log_dir: str) -> list:
     """Each server's (pushes summed, rounds published, {histogram: (count,
-    sum s, p50 s, p99 s)}, async pulls parked, server-side updates applied;
-    the last two None from a C++ engine), from the two lines a server logs
-    when it stops (None for a server that logged none)."""
+    sum s, p50 s, p99 s)}, async pulls parked, server-side updates applied
+    (these two None from a C++ engine), {recovery counter: count}), from
+    the lines a server logs when it stops (None for a server that logged
+    none)."""
     import re
 
     found = []
@@ -1038,10 +1066,12 @@ def _server_report(log_dir: str) -> list:
         hists = {name: tuple(float(v) for v in vals) for name, *vals in re.findall(
             r"(\w+_seconds) count=(\d+) sum=([\d.e+-]+) p50=([\d.e+-]+) p99=([\d.e+-]+)",
             text)}
+        rec = re.findall(r"recovery (.*)", text)
+        recovery = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", rec[-1])} if rec else {}
         if m:
             pushes, rounds, parked, updates = m[-1]
             found.append((int(pushes), int(rounds), hists, int(parked) if parked else None,
-                          int(updates) if updates else None))
+                          int(updates) if updates else None, recovery))
         else:
             found.append(None)
     return found
@@ -1050,14 +1080,17 @@ def _server_report(log_dir: str) -> list:
 def _server_lines(report: list) -> list:
     return [f"server {i}: summed {r[0]} pushes into {r[1]} rounds"
             + ("" if r[3] is None else f", parked {r[3]} async pulls, applied {r[4]} "
-               "server-side updates") + "; "
+               "server-side updates")
+            + ("; recovery " + " ".join(f"{k}={v}" for k, v in r[5].items()) if r[5] else "")
+            + "; "
             + "; ".join(f"{name} count {int(c)}, sum {s * 1e3:.1f} ms, p50 {p50 * 1e3:.3f} ms, "
                         f"p99 {p99 * 1e3:.3f} ms" for name, (c, s, p50, p99) in r[2].items())
             for i, r in enumerate(report) if r is not None]
 
 
 def _run_distributed(card: str, label: str, steps: int, server_native: bool = False,
-                     client_native: bool = False) -> dict:
+                     client_native: bool = False, server_env: dict = None,
+                     worker_env: dict = None, journal_ab: bool = False) -> dict:
     """BERT-large as on the main path through one worker (this process) and
     two server processes behind a scheduler process, onebit with scaling on
     every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES; the
@@ -1071,7 +1104,11 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
     partition is a CPU replay of the servers' codec.  Prints the step and
     its split, the worker's stage dwell and round trips over the timed
     steps, the device's busy share, the servers' report, the bytes and the
-    launches; returns what it measured."""
+    launches; returns what it measured, the parameters' digest after the
+    steps among it.  ``server_env`` and ``worker_env`` are added to the
+    servers' and the worker's environment.  With ``journal_ab``, after the
+    counts are read, steps in turns with the round journal on and off
+    (JOURNAL_AB) and the journal's copy time and bytes a step."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -1083,8 +1120,10 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
     from byteps_tpu_torch.ops import onebit_device as ob
 
     wall = time.perf_counter()
-    with _ps_fleet(label, {"BYTEPS_SERVER_NATIVE": "1"} if server_native else None,
-                   {"BYTEPS_NATIVE_CLIENT": "1"} if client_native else None) as fleet:
+    with _ps_fleet(label, {**({"BYTEPS_SERVER_NATIVE": "1"} if server_native else {}),
+                           **(server_env or {})},
+                   {**({"BYTEPS_NATIVE_CLIENT": "1"} if client_native else {}),
+                    **(worker_env or {})}) as fleet:
         t0 = time.perf_counter()
         bps.init()
         cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
@@ -1119,12 +1158,14 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
             torch.cuda.synchronize()
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
+        digest = _param_digest(model)
         table = get_state().engine.partition_table()
         tapped = next(r for r in table if r["key"] == tap["key"])
         tap.update(length=tapped["length"],
                    kwargs=dict(get_registry().get(tapped["name"]).kwargs))
         peak = torch.cuda.max_memory_allocated() / 2**30
         state_bytes = _state_bytes(opt)
+        ab = _journal_ab(get_state().engine, model, opt, tok, tgt) if journal_ab else None
         # after the counts are read: the same forward + backward with the
         # gradient hooks skipping (they accumulate while a step has more
         # backward passes to go), so the engine stays idle
@@ -1204,15 +1245,121 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
           f"more), wire_tx_bytes {stats.get('wire_tx_bytes', 0) // n}, wire_rx_bytes "
           f"{stats.get('wire_rx_bytes', 0) // n}; phase wall {time.perf_counter() - wall:.1f} s",
           flush=True)
+    if ab is not None:
+        print(f"{label}: the round journal (BYTEPS_JOURNAL_ROUNDS=2, the default) records "
+              f"{ab['records']} pushes, {ab['bytes']} bytes a step, copying them in "
+              f"{ab['copy_ms']:.2f} ms a step ({ab['stats']['rounds']} rounds, "
+              f"{ab['stats']['bytes']} bytes held under the cap of {ab['cap']}, "
+              f"{ab['stats']['evicted']} evicted); steps in turns, on "
+              f"{[round(x, 1) for x in ab['ms']['on']]} ms, off "
+              f"{[round(x, 1) for x in ab['ms']['off']]} ms; on {card}", flush=True)
     return {"losses": losses, "onebit_launches": launches["onebit_pack"],
             "wire_tx_step": stats.get("wire_tx_bytes", 0) // n, "step_ms": dt / steps * 1e3,
-            "state_bytes": state_bytes}
+            "state_bytes": state_bytes, "digest": digest, "counters": stats, "steps": n,
+            "report": fleet.report, "split": {k: v / steps * 1e3 for k, v in split.items()},
+            "launches": launches, "journal_ab": ab}
+
+
+#: the journal's steps in turns
+JOURNAL_AB = ("on", "off", "off", "on")
+
+
+def _journal_ab(engine, model, opt, tok, tgt) -> dict:
+    """One step at a time with the engine's round journal on and off, in
+    turns (JOURNAL_AB), each timed as ``_timed_steps`` times a step; the
+    journal's records, bytes and the time its copies took, a step on."""
+    j = engine._journal
+    record = j.record
+    spent = {"s": 0.0, "bytes": 0, "n": 0}
+
+    def timed(key, version, cmd, payload, fused=False):
+        t0 = time.perf_counter()
+        record(key, version, cmd, payload, fused)
+        spent["s"] += time.perf_counter() - t0
+        spent["bytes"] += memoryview(payload).nbytes
+        spent["n"] += 1
+
+    j.record = timed
+    ms: dict = {"on": [], "off": []}
+    try:
+        for mode in JOURNAL_AB:
+            engine._journal = j if mode == "on" else None
+            ms[mode].append(_timed_steps(model, opt, tok, tgt, 1)[2] * 1e3)
+    finally:
+        engine._journal = j
+        del j.record
+    on = len(ms["on"])
+    return {"ms": ms, "copy_ms": spent["s"] * 1e3 / on, "bytes": spent["bytes"] // on,
+            "records": spent["n"] // on, "stats": j.stats(), "cap": j.max_bytes}
 
 
 def train_distributed(card: str) -> dict:
     """The distributed path on the Python lanes: the servers' data plane
-    and the worker's client in Python."""
-    return _run_distributed(card, "distributed path", DIST_STEPS)
+    and the worker's client in Python; then the round journal's cost, in
+    turns (``_journal_ab``)."""
+    return _run_distributed(card, "distributed path", DIST_STEPS, journal_ab=True)
+
+
+#: phase (a): every fault kind at about one frame in a thousand, both ways
+#: over the wire, the deadline at 1 s
+CHAOS_FAULTS = {"BYTEPS_VAN": "chaos:tcp", "BYTEPS_CHAOS_SEED": "13",
+                "BYTEPS_CHAOS_DROP": "0.001", "BYTEPS_CHAOS_DISCONNECT": "0.001",
+                "BYTEPS_CHAOS_TRUNCATE": "0.001", "BYTEPS_CHAOS_CORRUPT": "0.001",
+                "BYTEPS_CHAOS_PAYLOAD_CORRUPT": "0.001", "BYTEPS_CHAOS_DELAY": "0.001",
+                "BYTEPS_CHAOS_DELAY_MS": "20"}
+CHAOS_HEAL = {"BYTEPS_RPC_DEADLINE_S": "1", "BYTEPS_INIT_DEADLINE_S": "1",
+              "BYTEPS_RPC_RETRIES": "4", "BYTEPS_RPC_BACKOFF_S": "0.05"}
+CHAOS_KINDS = ("drop", "delay", "disconnect", "truncate", "corrupt", "payload_corrupt")
+
+
+def train_chaos(card: str, dist: dict) -> dict:
+    """Phase (a): the distributed path (Python lanes, bare onebit, the same
+    steps, weights and tokens) under the chaos van, every fault kind on
+    the worker's frames and on the servers' replies, with the RPC deadline
+    at 1 s.  The losses and the parameters after the steps must be bitwise
+    the fault-free run's (``dist``); every fault kind must have fired, and
+    retries, revivals and the servers' dedupes of resent pushes.  Prints
+    the faults and heals a step and the step beside the fault-free one.
+    Returns the kernels' launches a step."""
+    label = "faults"
+    wall = time.perf_counter()
+    run = _run_distributed(card, label, DIST_STEPS, server_env=CHAOS_FAULTS,
+                           worker_env={**CHAOS_FAULTS, **CHAOS_HEAL})
+    n, c = run["steps"], run["counters"]
+    servers = {k: sum(r[5].get(k, 0) for r in run["report"] if r) for k in
+               (*(f"chaos_{k}" for k in CHAOS_KINDS), "push_dedup", "init_replay_ack",
+                "wire_checksum_fail")}
+    fired = {k: c.get(f"chaos_{k}", 0) + servers[f"chaos_{k}"] for k in CHAOS_KINDS}
+    heals = {k: c.get(k, 0) for k in ("rpc_retry", "rpc_deadline_expired", "conn_revive",
+                                      "wire_checksum_fail", "resync_attempt",
+                                      "resync_replayed_rounds", "rpc_giveup",
+                                      "degraded_jobs", "wire_rpc")}
+    print(f"{label}: faults over the phase's {n} steps (the worker's and the servers' "
+          f"injections) {fired}, a step {({k: round(v / n, 2) for k, v in fired.items()})}; "
+          f"the worker's heals {heals}; the servers' dedupes and checksum drops "
+          f"{ {k: servers[k] for k in ('push_dedup', 'init_replay_ack', 'wire_checksum_fail')} }",
+          flush=True)
+    print(f"{label}: {run['step_ms']:.1f} ms a step under faults against {dist['step_ms']:.1f} "
+          f"fault-free; split {', '.join(f'{k} {v:.1f} ms' for k, v in run['split'].items())}; "
+          f"phase wall {time.perf_counter() - wall:.1f} s; on {card}", flush=True)
+    bad = []
+    if run["losses"] != dist["losses"]:
+        bad.append(f"losses {run['losses']} are not the fault-free run's {dist['losses']}")
+    if run["digest"] != dist["digest"]:
+        bad.append("the parameters after the steps are not bitwise the fault-free run's")
+    if not all(fired.values()):
+        bad.append(f"a fault kind never fired: {fired}")
+    for k in ("rpc_retry", "conn_revive"):
+        if not heals[k]:
+            bad.append(f"{k} never fired")
+    if not servers["push_dedup"]:
+        bad.append("the servers deduped no resent push")
+    if heals["degraded_jobs"] or heals["rpc_giveup"]:
+        bad.append(f"a step degraded: {heals}")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    print(f"{label}: losses and parameters bitwise the fault-free run's", flush=True)
+    return {k: v // n for k, v in run["launches"].items()}
 
 
 def train_distributed_native(card: str, python_first_loss: float) -> None:
@@ -2103,13 +2250,16 @@ def _check_server_rounds(label: str, taps: list) -> list:
     return [float(v) for v in (s0 > s1).mean(axis=0)]
 
 
-def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float) -> dict:
-    """A scheduler and two servers (their logs in ``work``), and
-    HYBRID_HOSTS hosts, each `python -m byteps_tpu_torch.launcher.launch`
-    running `chip_smoke.py <flag> <work>` as worker DMLC_WORKER_ID=h; waits
-    for the hosts (at most ``timeout`` s), stops every process, and fails
-    unless every host exited 0.  Returns each host's output."""
-    port, procs = _start_ps_processes(env, work)
+def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
+               server_env: dict = None, host_env=None) -> dict:
+    """A scheduler and two servers (their logs in ``work``; the servers with
+    ``server_env``), and HYBRID_HOSTS hosts, each `python -m
+    byteps_tpu_torch.launcher.launch` running `chip_smoke.py <flag> <work>`
+    as worker DMLC_WORKER_ID=h, with ``host_env(h, server ports)`` added;
+    waits for the hosts (at most ``timeout`` s), stops every process, and
+    fails unless every host exited 0.  Returns each host's output."""
+    server_ports: list = []
+    port, procs = _start_ps_processes(env, work, server_env, server_ports)
     hosts = []
     try:
         for h in range(HYBRID_HOSTS):
@@ -2117,7 +2267,8 @@ def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float) -> d
                 hosts.append(subprocess.Popen(
                     [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                      sys.executable, os.path.join(REPO, "chip_smoke.py"), flag, work],
-                    cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
+                    cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
+                                   **(host_env(h, server_ports) if host_env else {})},
                     stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
@@ -2316,7 +2467,9 @@ def train_hybrid(card: str) -> dict:
 #: bytes) and every raw partition below BYTEPS_MIN_COMPRESS_BYTES fits, so all
 #: 641 gradient partitions fuse; fusion_bytes at its default (262,144)
 FUSION_THRESHOLD = 131072
-FUSION_STEPS = 3
+#: 2 timed steps a run at 12 layers (3 at 24 before the self-healing plane's
+#: phases joined), to keep the script under 75% of its time limit
+FUSION_STEPS, FUSION_LAYERS = 2, 12
 #: the server-side optimizer: Adam on the servers, a seed round and 3 steps
 SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
 #: the tensors whose every pulled partition is held against a CPU replay of
@@ -2326,6 +2479,9 @@ SERVER_OPT_TAPPED = ("embed", "layers.0.wq", "layers.0.wk", "layers.0.wv", "ln_f
 #: async: local AdamW (lr 1e-4, weight decay 1e-4) and the weight-delta loop
 #: of byteps_tpu/tensorflow/__init__.py:219-230 over push_pull(average=False)
 ASYNC_STEPS, ASYNC_LR = 4, 1e-4
+#: the async phase's depth: cut from 24 so that the script, with the
+#: self-healing phases, stays within three quarters of its time limit
+ASYNC_LAYERS = 6
 #: the server-wide async run against bare AdamW on the card: one worker's store
 #: is the sum of its deltas, prev + (cur - prev), which rounds to cur except
 #: where the two differ by more than a factor of 2 (parameters near zero).
@@ -2337,8 +2493,8 @@ ASYNC_ATOL = 2 * ASYNC_LR * ASYNC_STEPS
 #: the per-key profile on two launcher hosts: bounded staleness 1, 6 steps
 ASYNC_HOST_STEPS, ASYNC_BOUND = 6, 1
 #: host 1 sleeps ASYNC_LAG_S before its pushes of these training steps, so
-#: host 0 runs two rounds ahead of it and its next pulls must park
-ASYNC_LAG_STEPS, ASYNC_LAG_S = (1, 3), 8.0
+#: host 0 runs rounds ahead of it and its next pulls must park
+ASYNC_LAG_STEPS, ASYNC_LAG_S = (1, 3), 4.0
 
 
 def _state_bytes(opt) -> int:
@@ -2404,7 +2560,7 @@ def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
     with _ps_fleet(label, {"BYTEPS_SERVER_NATIVE": "1"} if native else None,
                    worker_env) as fleet:
         bps.init()
-        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        cfg, model, tok, tgt = _bert(FUSION_LAYERS)
         opt = bps.DistributedOptimizer(
             torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
             named_parameters=model.named_parameters(),
@@ -2433,10 +2589,13 @@ def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
     compressed = [r for r in grads if r["wire_nbytes"] is not None]
     fits = [r for r in grads if (r["wire_nbytes"] if r["wire_nbytes"] is not None
                                  else r["length"] * r["itemsize"]) <= FUSION_THRESHOLD]
+    want_d2h = (sum(r["wire_nbytes"] for r in compressed)
+                + sum(r["length"] * r["itemsize"] for r in grads if r["wire_nbytes"] is None))
     out = {"label": label, "fused": fused, "native": native, "losses": losses,
            "step_ms": dt / FUSION_STEPS * 1e3, "split": split, "launches": launches,
            "stats": stats, "hists": hists, "digest": digest, "payloads": payloads,
            "compressed": len(compressed), "partitions": len(grads), "fits": len(fits),
+           "want_d2h": want_d2h,
            "report": fleet.report, "wall": time.perf_counter() - wall}
     return out
 
@@ -2445,12 +2604,13 @@ def train_fusion(card: str) -> dict:
     """Small-tensor fusion on the distributed path: BERT-large through one
     worker and two servers with bare onebit, on the Python lanes and on the
     native lanes, each unfused and fused (BYTEPS_FUSION_THRESHOLD=131072) in
-    turns from the same weights and tokens.  Holds, on each lane: the
-    parameters after the timed steps bitwise the unfused run's (one worker:
-    the servers' sum is a copy), K4 at 495 launches a step, every compressed
+    turns from the same weights and tokens, FUSION_LAYERS deep.  Holds, on
+    each lane: the parameters after the timed steps bitwise the unfused
+    run's (one worker: the servers' sum is a copy), K4 at one launch a
+    compressed partition a step, every compressed
     payload of the warm-up step bitwise the unfused run's of the same
     partition and round, d2h_bytes (and the wire bytes) equal to the
-    unfused run's, every partition in a fused frame.  Prints the fused frames
+    partition table's, every partition in a fused frame.  Prints the fused frames
     a step and keys a frame, the bytes, the stage split with FUSE's dwell,
     and ms a step and samples/s beside the unfused run's.  Returns the
     kernels' launches a step of the fused Python-lane run."""
@@ -2468,16 +2628,19 @@ def train_fusion(card: str) -> dict:
         s, ln = r["stats"], r["launches"]
         if not all(math.isfinite(x) for x in r["losses"]):
             bad.append(f"{r['label']}: non-finite loss {r['losses']}")
-        if r["compressed"] != DIST_COMPRESSED_PARTS or ln["onebit_pack"] != n * DIST_COMPRESSED_PARTS:
+        if ((r["compressed"], r["want_d2h"]) != (runs[0]["compressed"], runs[0]["want_d2h"])
+                or ln["onebit_pack"] != n * r["compressed"]):
             bad.append(f"{r['label']}: K4 launched {ln['onebit_pack']} times in {n} steps, "
-                       f"expected {DIST_COMPRESSED_PARTS} a step")
+                       f"expected {r['compressed']} a step, as many as the unfused Python "
+                       f"run's compressed partitions ({runs[0]['compressed']})")
         if {k: ln[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} != {
-                "flash_fwd": 2 * N_LAYERS_FULL * n, "flash_bwd_dq": N_LAYERS_FULL * n,
-                "flash_bwd_dkv": N_LAYERS_FULL * n}:
+                "flash_fwd": 2 * FUSION_LAYERS * n, "flash_bwd_dq": FUSION_LAYERS * n,
+                "flash_bwd_dkv": FUSION_LAYERS * n}:
             bad.append(f"{r['label']}: flash launches {ln}")
-        bad += [f"{r['label']}: {k} {s.get(k, 0) / n:.0f} a step, expected {DIST_D2H_STEP}"
+        bad += [f"{r['label']}: {k} {s.get(k, 0) / n:.0f} a step, expected {r['want_d2h']} "
+                "(the partition table)"
                 for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
-                if s.get(k, 0) != n * DIST_D2H_STEP]
+                if s.get(k, 0) != n * r["want_d2h"]]
         want_keys = n * r["partitions"] if r["fused"] else 0
         if s.get("fused_keys", 0) != want_keys or (r["fused"] and r["fits"] != r["partitions"]):
             bad.append(f"{r['label']}: {s.get('fused_keys', 0)} fused keys in {n} steps, "
@@ -2489,7 +2652,7 @@ def train_fusion(card: str) -> dict:
         if fused["digest"] != plain["digest"]:
             bad.append(f"{fused['label']}: the parameters after {n} steps are not bitwise "
                        "the unfused run's")
-        if len(plain["payloads"]) != DIST_COMPRESSED_PARTS or fused["payloads"] != plain["payloads"]:
+        if len(plain["payloads"]) != plain["compressed"] or fused["payloads"] != plain["payloads"]:
             diff = [k for k in plain["payloads"] if fused["payloads"].get(k) != plain["payloads"][k]]
             bad.append(f"{fused['label']}: {len(fused['payloads'])} tapped onebit payloads, "
                        f"{len(diff)} of the unfused run's {len(plain['payloads'])} differ")
@@ -2569,8 +2732,10 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
     partition of the word embedding, layer 0's Q, K and V weights and the
     final LayerNorm, in every round, bitwise a CPU replay of the port's
     update_rules.Adam on the tapped gradients; finite, falling losses; no
-    optimizer state on the worker.  Then the same worker against native
-    servers must raise at its first INIT with their refusal.  Prints ms a
+    optimizer state on the worker.  Then the round journal's cost on these
+    raw f32 pushes, steps in turns with it on and off (JOURNAL_AB).  Then
+    the same worker against native servers must raise at its first INIT
+    with their refusal.  Prints ms a
     step, bytes each way, the servers' apply time (their publish histogram)
     and the worker's optimizer-state bytes beside DistributedOptimizer(AdamW)'s
     (``adamw_state_bytes``, from the distributed path).  Returns the
@@ -2611,6 +2776,9 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
         launches = {**fa.launches, **ob.launches}
         stats = counters().snapshot()
         state_bytes = _state_bytes(opt)
+        # the journal on raw f32 pushes, past its cap: after the tapped
+        # rounds, which the replay holds to their count
+        ab = _journal_ab(engine, model, opt, tok, tgt)
         bps.shutdown()
         del model, opt, step
 
@@ -2657,6 +2825,13 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
           f"on {card}", flush=True)
     for line in _server_lines(fleet.report or []):
         print(f"{label}: {line}", flush=True)
+    print(f"{label}: the round journal (BYTEPS_JOURNAL_ROUNDS=2, the default) records "
+          f"{ab['records']} raw f32 pushes, {ab['bytes']} bytes a step, copying them in "
+          f"{ab['copy_ms']:.2f} ms a step ({ab['stats']['rounds']} rounds, "
+          f"{ab['stats']['bytes']} bytes held under the cap of {ab['cap']}, "
+          f"{ab['stats']['evicted']} evicted); steps in turns, on "
+          f"{[round(x, 1) for x in ab['ms']['on']]} ms, off "
+          f"{[round(x, 1) for x in ab['ms']['off']]} ms; on {card}", flush=True)
     print(f"{label}: {len(rounds)} partitions of {len(tapped)} tensors, {checked} of their "
           f"rounds after the seed bitwise a CPU replay of update_rules.Adam; the worker's "
           f"optimizer state {state_bytes} bytes against {adamw_state_bytes} for "
@@ -2738,7 +2913,7 @@ def _async_one_worker(card: str, label: str, native: bool) -> dict:
     server_env = {**env, **({"BYTEPS_SERVER_NATIVE": "1"} if native else {})}
     with _ps_fleet(label, server_env, env) as fleet:
         bps.init()
-        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        _, model, tok, tgt = _bert(ASYNC_LAYERS)
         opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
         prev = _async_prev(model, root=True)
         fa.reset_launches()
@@ -2765,7 +2940,7 @@ def _async_one_worker(card: str, label: str, native: bool) -> dict:
 def async_host(work: str) -> None:
     """One host of the per-key async phase, run by the port's launcher at
     BYTEPS_LOCAL_SIZE=1 with BYTEPS_ASYNC=1 and BYTEPS_STALENESS_BOUND=1
-    (``chip_smoke.py --async-host <dir>``): BERT-large at full depth on its
+    (``chip_smoke.py --async-host <dir>``): BERT-large at ASYNC_LAYERS on its
     half of the batch with local AdamW and the delta loop for
     ASYNC_HOST_STEPS steps, host 1 sleeping ASYNC_LAG_S before its pushes of
     the steps ASYNC_LAG_STEPS.  Two seed rounds come first (the root's
@@ -2783,7 +2958,7 @@ def async_host(work: str) -> None:
 
     host = int(os.environ["DMLC_WORKER_ID"])
     bps.init()
-    _, model, tok, tgt = _bert(N_LAYERS_FULL)
+    _, model, tok, tgt = _bert(ASYNC_LAYERS)
     rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
     tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
     opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
@@ -2797,19 +2972,19 @@ def async_host(work: str) -> None:
     _async_delta_step(model, prev, check_store=False)
     seeded = _param_digest(model)
     pulls: list = []
-    request = client._request
+    request = client._async_rpc
 
-    def tapped(key, make_msg, on_reply, on_error, sink=None, timed=False):
+    def tapped(key, make_msg, deliver, on_error, **kwargs):
         probe = make_msg(0)
         if probe.op == Op.PULL:
-            version, deliver = probe.version, on_reply
+            version, inner = probe.version, deliver
 
-            def on_reply(msg):
+            def deliver(msg):
                 pulls.append((version, msg.version))
-                deliver(msg)
-        return request(key, make_msg, on_reply, on_error, sink=sink, timed=timed)
+                inner(msg)
+        return request(key, make_msg, deliver, on_error, **kwargs)
 
-    client._request = tapped
+    client._async_rpc = tapped
     fa.reset_launches()
     ob.reset_launches()
     losses = []
@@ -2827,7 +3002,7 @@ def async_host(work: str) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {**fa.launches, **ob.launches}
-    client._request = request
+    client._async_rpc = request
     bps.shutdown()
     # a pull of round v comes after this host's v pushes of the key, so the
     # store's version less v is what the other host had applied
@@ -2866,7 +3041,7 @@ def train_async(card: str) -> dict:
     bare, bare_losses = {}, {}
     for emulated in (False, True):
         bps.init()
-        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        _, model, tok, tgt = _bert(ASYNC_LAYERS)
         opt = torch.optim.AdamW(model.parameters(), lr=ASYNC_LR, weight_decay=1e-4)
         prev = [torch.zeros_like(p) for p in model.parameters()]
         bare_losses[emulated] = []
@@ -2885,9 +3060,9 @@ def train_async(card: str) -> dict:
         bps.shutdown()
         del model, opt, prev
         gc.collect()
-    # a step of BERT-large at full depth; raw deltas, so K4 packs nothing
-    want_step = {"flash_fwd": 2 * N_LAYERS_FULL, "flash_bwd_dq": N_LAYERS_FULL,
-                 "flash_bwd_dkv": N_LAYERS_FULL, "onebit_pack": 0}
+    # a step of BERT-large at ASYNC_LAYERS; raw deltas, so K4 packs nothing
+    want_step = {"flash_fwd": 2 * ASYNC_LAYERS, "flash_bwd_dq": ASYNC_LAYERS,
+                 "flash_bwd_dkv": ASYNC_LAYERS, "onebit_pack": 0}
     bad, a_step = [], None
     for native in (False, True):
         engine = "native" if native else "Python"
@@ -2974,6 +3149,179 @@ def train_async(card: str) -> dict:
     if bad:
         fail(f"{label}: " + "; ".join(bad))
     return a_step
+
+
+#: phase (b): three steps, host 1's pushes to server 0 lost in the second;
+#: its depth cut from 24 so that the script stays within three quarters of
+#: its time limit (phase (a) is the full-depth run under faults)
+HEAL_STEPS, HEAL_FAULT_STEP, HEAL_LAYERS = 3, 1, 6
+
+
+def heal_host(work: str) -> None:
+    """One host of phase (b), run by the port's launcher at
+    BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --heal-host <dir>``): BERT-large
+    at HEAL_LAYERS on its 16 sequences through DistributedOptimizer(AdamW)
+    with bare onebit, HEAL_STEPS steps from the same weights twice in one
+    process (the second model and optimizer reuse the tensor names, so the
+    rounds go on): fault-free, then with faults.  Host 1 dials with the
+    chaos van dropping every push to server 0 (BYTEPS_CHAOS_OPS=push,
+    BYTEPS_CHAOS_TARGET_PORT) under a fault budget of 0; in the faulted
+    step it opens the budget and its 1 s RPC deadline (its config's other
+    steps have none, so pulls parked on host 0 never expire), and closes
+    the budget as soon as a heal starts.  With BYTEPS_RPC_RETRIES=1 the
+    pushes give up and heal in place.  Writes <dir>/heal<h>.json."""
+    import threading
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import chaos
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    bps.init()
+    cfg = get_config()
+    deadline = cfg.rpc_deadline_s
+    cfg.rpc_deadline_s = 0.0
+    client, engine = get_state().ps_client, get_state().engine
+    out = {"host": host}
+    for run in ("clean", "faults"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model, tok, tgt = _bert(HEAL_LAYERS)
+        rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
+        tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+        bps.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression_params={"compressor": "onebit", "scaling": True},
+        )
+        step = build_train_step(model, opt)
+        fa.reset_launches()
+        ob.reset_launches()
+        counters().reset()
+        losses, ms = [], []
+        with _tap_blocking_requests(client) as blocking:
+            for i in range(HEAL_STEPS):
+                armed = run == "faults" and host == 1 and i == HEAL_FAULT_STEP
+                done = threading.Event()
+                if armed:
+                    cfg.rpc_deadline_s = deadline
+                    chaos.reset_fault_budget(1 << 30)
+
+                    def close_on_heal() -> None:
+                        while not done.is_set():
+                            if counters().get("resync_attempt"):
+                                chaos.reset_fault_budget(0)
+                                return
+                            time.sleep(0.002)
+
+                    threading.Thread(target=close_on_heal, daemon=True).start()
+                t0 = time.perf_counter()
+                losses.append(float(step(tok, tgt)))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                done.set()
+                if armed:
+                    chaos.reset_fault_budget(0)
+                    cfg.rpc_deadline_s = 0.0
+        compressed = sum(r["name"].startswith("Gradient.") and r["wire_nbytes"] is not None
+                         for r in engine.partition_table())
+        out[run] = {"losses": losses, "ms": ms, "digest": _param_digest(model),
+                    "compressed_parts": compressed,
+                    "counters": counters().snapshot(),
+                    "labeled": counters().snapshot_labeled(),
+                    "launches": {**fa.launches, **ob.launches}, "blocking": dict(blocking),
+                    "reinit": sorted(engine._reinit_names)}
+        del model, opt, step
+    bps.shutdown()
+    with open(os.path.join(work, f"heal{host}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def train_heal(card: str) -> dict:
+    """Phase (b): the one-sided heal.  A scheduler, two Python servers
+    under the chaos van (no faults of their own) and two launcher hosts of
+    one process each (``heal_host``), bare onebit, HEAL_LAYERS deep.  Host 1's
+    pushes to server 0 die in one step until its retries give up
+    (BYTEPS_RPC_RETRIES=1): its client heals in place (RESYNC_QUERY, the
+    journaled rounds replayed, a fresh attempt).  Fails unless the heal
+    ran and replayed rounds, no step degraded, no init barrier ran in the
+    faulted run, and every host's losses and parameters are bitwise its
+    fault-free run's and the other host's.  Returns host 1's launches a
+    step in the faulted run."""
+    label = "one-sided heal"
+    wall = time.perf_counter()
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker"}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+
+    def host_env(h: int, ports: list) -> dict:
+        if h != 1:
+            return {}
+        return {"BYTEPS_CHAOS_DROP": "1.0", "BYTEPS_CHAOS_OPS": "push",
+                "BYTEPS_CHAOS_TARGET_PORT": str(ports[0]), "BYTEPS_CHAOS_FAULT_BUDGET": "0",
+                "BYTEPS_RPC_RETRIES": "1", "BYTEPS_RPC_DEADLINE_S": "1",
+                "BYTEPS_RPC_BACKOFF_S": "0.05"}
+
+    with tempfile.TemporaryDirectory() as work:
+        _run_hosts(label, env, "--heal-host", work, timeout=420,
+                   server_env={"BYTEPS_VAN": "chaos:tcp"}, host_env=host_env)
+        results = []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"heal{h}.json")) as f:
+                results.append(json.load(f))
+        report = _server_report(work)
+    bad = []
+    for r in results:
+        clean, faults = r["clean"], r["faults"]
+        c = faults["counters"]
+        print(f"{label}, host {r['host']}: losses fault-free {[round(x, 4) for x in clean['losses']]}, "
+              f"with faults {[round(x, 4) for x in faults['losses']]}; ms a step fault-free "
+              f"{[round(x, 1) for x in clean['ms']]}, with faults "
+              f"{[round(x, 1) for x in faults['ms']]}; counters "
+              f"{ {k: c.get(k, 0) for k in ('chaos_drop', 'rpc_deadline_expired', 'rpc_retry', 'conn_revive', 'resync_attempt', 'resync_replayed_rounds', 'resync_giveup', 'rpc_giveup', 'degraded_jobs')} }, "
+              f"per server {r['faults']['labeled'].get('resync_attempt', {})}; init barriers "
+              f"and codec registrations in the faulted run {faults['blocking']}; on {card}",
+              flush=True)
+        if faults["losses"] != clean["losses"] or faults["digest"] != clean["digest"]:
+            bad.append(f"host {r['host']}: losses or parameters with faults are not bitwise "
+                       "the fault-free run's")
+        if c.get("degraded_jobs") or c.get("rpc_giveup") or faults["reinit"]:
+            bad.append(f"host {r['host']}: a step degraded ({c}, {faults['reinit']})")
+        if any(v[0] for v in faults["blocking"].values()):
+            bad.append(f"host {r['host']}: init barriers ran in the faulted run: "
+                       f"{faults['blocking']}")
+        want = {"flash_fwd": 2 * HEAL_LAYERS * HEAL_STEPS,
+                "flash_bwd_dq": HEAL_LAYERS * HEAL_STEPS,
+                "flash_bwd_dkv": HEAL_LAYERS * HEAL_STEPS,
+                "onebit_pack": faults["compressed_parts"] * HEAL_STEPS}
+        if faults["launches"] != want:
+            bad.append(f"host {r['host']}: launches {faults['launches']}, expected {want}")
+    h1 = results[1]["faults"]["counters"]
+    if not (h1.get("resync_attempt") and h1.get("resync_replayed_rounds")
+            and h1.get("chaos_drop")):
+        bad.append(f"host 1 did not give up and heal in place: {h1}")
+    if results[0]["faults"]["digest"] != results[1]["faults"]["digest"]:
+        bad.append("the hosts' parameters differ")
+    for line in _server_lines(report):
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    print(f"{label}: host 1 gave up on the server it targeted and healed in place ("
+          f"{h1['resync_attempt']} resyncs, {h1['resync_replayed_rounds']} rounds replayed); "
+          "both hosts bitwise their fault-free runs and each other", flush=True)
+    return {k: v // HEAL_STEPS for k, v in results[1]["faults"]["launches"].items()}
 
 
 def check_int8_ring_ops() -> None:
@@ -3136,7 +3484,13 @@ def main() -> None:
     train_distributed_native(card, dist["losses"][0])
     gc.collect()
     torch.cuda.empty_cache()
-    planes = {"fusion": train_fusion(card)}
+    planes = {"chaos": train_chaos(card, dist)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes["heal"] = train_heal(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes["fusion"] = train_fusion(card)
     gc.collect()
     torch.cuda.empty_cache()
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
@@ -3233,5 +3587,7 @@ if __name__ == "__main__":
         hybrid_host(sys.argv[2])  # one host of the hybrid phase, under the launcher
     elif sys.argv[1:2] == ["--async-host"]:
         async_host(sys.argv[2])  # one host of the per-key async phase
+    elif sys.argv[1:2] == ["--heal-host"]:
+        heal_host(sys.argv[2])  # one host of the one-sided heal
     else:
         main()

@@ -297,7 +297,7 @@ def test_a_failed_frame_falls_back_to_unfused_pushes(monkeypatch):
         assert torch.equal(pbps.push_pull(x0, name="fb.a", average=False), x0)
         client = port_state.get_state().ps_client
         monkeypatch.setattr(client, "push_fused",
-                            lambda members, cb, on_error: on_error("the frame was lost"))
+                            lambda members, cb, on_error, **_: on_error("the frame was lost"))
         counters().reset()
         out = pbps.push_pull(x0 * 5, name="fb.a", average=False)
         assert torch.equal(out, x0 * 5)

@@ -115,10 +115,13 @@ def _launch(cmd, env, timeout=60):
 
 def test_launcher_runs_one_process_per_local_rank():
     """At BYTEPS_LOCAL_SIZE=2 each child sees its own local rank, the local
-    size and one rendezvous shared by the host's processes."""
-    code = ("import os; print('CHILD', os.environ['BYTEPS_LOCAL_RANK'], "
-            "os.environ['BYTEPS_LOCAL_SIZE'], os.environ['BYTEPS_LOCAL_INIT_METHOD'], "
-            "os.environ['DMLC_ROLE'])")
+    size and one rendezvous shared by the host's processes.  Each child
+    writes its line in one write call: the children share the launcher's
+    stdout, and with PYTHONUNBUFFERED=1 a print of several arguments is
+    several writes, which two children can interleave."""
+    code = ("import os; e = os.environ; os.write(1, ' '.join(['CHILD', "
+            "e['BYTEPS_LOCAL_RANK'], e['BYTEPS_LOCAL_SIZE'], "
+            "e['BYTEPS_LOCAL_INIT_METHOD'], e['DMLC_ROLE']]).encode() + b'\\n')")
     out = _launch([sys.executable, "-c", code], {"DMLC_ROLE": "worker", "BYTEPS_LOCAL_SIZE": "2"})
     assert out.returncode == 0, out.stderr
     lines = sorted(ln.split() for ln in out.stdout.splitlines() if ln.startswith("CHILD"))

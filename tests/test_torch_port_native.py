@@ -18,7 +18,8 @@ by g++ from byteps_tpu_torch/native/csrc) against byteps_tpu's.
   its sum.
 - Without a compiler the native knobs raise; nothing serves or trains on
   the Python lanes instead.  The native knobs no longer raise as unported
-  planes; the uds, shm and chaos vans still do.
+  planes; the uds and shm vans still do, and the chaos van around tcp
+  makes a native server publish a ``chaos+`` address.
 - Server processes under BYTEPS_SERVER_NATIVE=1 and a worker under
   BYTEPS_NATIVE_CLIENT=1 map no file of byteps_tpu/.
 """
@@ -108,9 +109,10 @@ _GOLDEN = {"bps_wire_golden": "python_golden_frames",
 @pytest.mark.parametrize("shim", sorted(_GOLDEN))
 def test_golden_frames_equal_the_reference_library_and_the_ports_framing(monkeypatch, shim):
     """The C++ encoder's fixture stream, from the port's library and from
-    the reference's, and the same stream framed by the port's transport
-    (the fused and resync bodies are the reference's encoders': those
-    planes are not ported)."""
+    the reference's, and the same stream framed by the port's transport,
+    its fused reply and resync state bodies by the port's encoders (a
+    fused push with a member-span trailer, which the port never sends, by
+    the reference's)."""
     frames = []
     for lib in (native.get_lib(), _ref_lib()):
         buf = (ctypes.c_uint8 * 16384)()
@@ -121,6 +123,8 @@ def test_golden_frames_equal_the_reference_library_and_the_ports_framing(monkeyp
         frames.append(bytes(buf[:n]))
     monkeypatch.setattr(twg, "Message", ptr.Message)
     monkeypatch.setattr(twg, "Op", ptr.Op)
+    monkeypatch.setattr(twg, "encode_fused_reply", ptr.encode_fused_reply)
+    monkeypatch.setattr(twg, "encode_resync_state", ptr.encode_resync_state)
     python = getattr(twg, _GOLDEN[shim])()
     assert frames[0] == frames[1] == python
 
@@ -459,12 +463,22 @@ def test_the_native_knobs_are_ported_and_the_vans_are_not(monkeypatch):
     port_config.check_unported_env()
     cfg = PortConfig.from_env()
     assert cfg.native_client and cfg.server_native
-    for van in ("uds", "shm", "chaos:tcp"):
+    for van in ("uds", "shm", "chaos:uds", "chaos:shm"):
         monkeypatch.setenv("BYTEPS_VAN", van)
         with pytest.raises(NotImplementedError, match="Queue 1b item P8"):
             port_config.check_unported_env()
         with pytest.raises(NotImplementedError, match="Queue 1b item P8"):
             NativePSServer(PortConfig.from_env())
+    # the chaos van around tcp is ported: the C++ engine's listener stays
+    # plain and its published address carries the prefix, as the
+    # reference's does, so the workers fault their own side
+    monkeypatch.setenv("BYTEPS_VAN", "chaos:tcp")
+    port_config.check_unported_env()
+    srv = NativePSServer(PortConfig.from_env())
+    try:
+        assert srv.host == "chaos+127.0.0.1"
+    finally:
+        srv.stop()
 
 
 def _mapped_repo_files(pid: int) -> set:

@@ -67,11 +67,10 @@ GOLDEN_SHA256 = "29ef1635893fd36ae7520635c170429cca14e201d34710f955ed0fb6950de14
 
 
 def _golden_frames(tr) -> bytes:
-    """The fixture stream of tests/test_wire_golden.py, framed by ``tr``.
-    The FUSED and RESYNC_STATE bodies are the reference's encoders' (those
-    planes are not ported); their frames are the port's."""
-    fused = rtr.encode_fused_reply([(101, 1, b"wxyz"), (202, 2, b"")])
-    state = rtr.encode_resync_state({
+    """The fixture stream of tests/test_wire_golden.py, framed by ``tr``
+    and its FUSED and RESYNC_STATE bodies by ``tr``'s encoders."""
+    fused = tr.encode_fused_reply([(101, 1, b"wxyz"), (202, 2, b"")])
+    state = tr.encode_resync_state({
         5: {"store_version": 4, "seen": 3, "recv_count": 1, "init": True},
         9: {"store_version": 0, "seen": 0, "recv_count": 0, "init": True},
     })
@@ -435,9 +434,10 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 
 @pytest.mark.parametrize("knob", [
     "BYTEPS_VAN=shm",
-    "BYTEPS_VAN=uds", "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
-    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_RPC_RETRIES=3",
-    "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_COMPRESSION_AUTO=1",
+    "BYTEPS_VAN=uds", "BYTEPS_VAN=chaos:uds", "BYTEPS_VAN=chaos:shm",
+    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
+    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_CHAOS_SCHED=1",
+    "BYTEPS_COMPRESSION_AUTO=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
     """At init() of a distributed worker, before it dials anything, and at
@@ -450,6 +450,27 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
     assert not port_state.get_state().initialized
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1b"):
         PortServer(PortConfig.from_env())
+
+
+@pytest.mark.parametrize("knob", [
+    "BYTEPS_RPC_RETRIES=3", "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_VAN=chaos:tcp",
+])
+def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
+    """The knobs that raised before the recovery plane was ported: the
+    config reads them as the reference does, and a worker trains through
+    a fleet that runs with them (the chaos van at its defaults injects
+    nothing)."""
+    name, value = knob.split("=")
+    with _cluster(monkeypatch, "port", servers=1, **{name: value}) as nodes:
+        cfg = PortConfig.from_env()
+        ref = RefConfig.from_env()
+        assert (cfg.rpc_retries, cfg.rpc_deadline_s) == (ref.rpc_retries, ref.rpc_deadline_s)
+        if name == "BYTEPS_VAN":
+            assert nodes[0].host.startswith("chaos+")
+        pbps.init(device="cpu")
+        x = torch.arange(64, dtype=torch.float32)
+        assert torch.equal(pbps.push_pull(x, name=f"knob.{name}", average=False), x)
+        pbps.shutdown()
 
 
 def test_unported_entry_points_raise():
@@ -476,9 +497,10 @@ def _fake_server(reply_op):
 
 @pytest.mark.parametrize("op", ["FUSED", "RESYNC_STATE", "MIGRATE_STATE", "WRONG_OWNER"])
 def test_a_reply_of_an_unported_plane_fails_its_request(op):
-    """The PS client fails the request (never drops it) when a server
-    answers with a resync or migration frame, or a push with a fused
-    frame (fusion is ported: the reply's op is not the request's)."""
+    """The PS client fails the request at once, with no retry (never drops
+    it), when a server answers with a migration frame, or a push with a
+    fused or a resync frame (those planes are ported: the reply's op is
+    not the request's)."""
     client = PSClient(PortConfig(num_server=1))
     client.num_servers = 1
     client._servers.append(client._new_conn("127.0.0.1", _fake_server(ptr.Op[op]), "0"))
@@ -486,7 +508,8 @@ def test_a_reply_of_an_unported_plane_fails_its_request(op):
     client.push(5, b"\0" * 8, int(ptypes.DataType.FLOAT32), 1, cb=done.set,
                 on_error=lambda reason: (errors.append(reason), done.set()))
     assert done.wait(10)
-    why = "answered a PUSH request with FUSED" if op == "FUSED" else "not ported"
+    why = (f"answered a PUSH request with {op}" if op in ("FUSED", "RESYNC_STATE")
+           else "not ported")
     assert errors and why in errors[0] and op in errors[0]
     client._stop.set()
     for sc in client._servers:

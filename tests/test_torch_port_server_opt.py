@@ -480,6 +480,34 @@ def test_distributed_optimizer_server_side_equals_the_references_server_step(mon
             assert mine[k].tobytes() == theirs[k].tobytes()
 
 
+def test_synchronize_then_step_applies_each_gradient_once(monkeypatch):
+    """Backward pushes each gradient from its hook; ``synchronize()`` then
+    ``step()`` pulls the servers' parameters once, as ``step()`` alone
+    does: after three steps the two parameters are bitwise equal, and the
+    servers applied one update a step to each."""
+    rng = np.random.default_rng(5)
+    init = rng.standard_normal(64).astype(np.float32)
+    grads = [rng.standard_normal(64).astype(np.float32) for _ in range(3)]
+    with _fleet(monkeypatch, "port") as server:
+        pbps.init(device="cpu")
+        params = {k: torch.nn.Parameter(torch.from_numpy(init.copy())) for k in ("a", "b")}
+        opts = {k: pbps.DistributedOptimizer(None, named_parameters=[(f"w.{k}", p)],
+                                             server_side=True, server_rule="adam",
+                                             server_hp={"lr": 0.1})
+                for k, p in params.items()}
+        for g in grads:
+            for k, p in params.items():
+                opts[k].zero_grad()
+                (p * torch.from_numpy(g)).sum().backward()
+                if k == "b":
+                    opts[k].synchronize()
+                opts[k].step()
+        updates = server.stats.snapshot().get("server_opt_updates", 0)
+        pbps.shutdown()
+    assert params["a"].detach().numpy().tobytes() == params["b"].detach().numpy().tobytes()
+    assert updates == 2 * len(grads)
+
+
 def test_server_side_arguments_are_checked():
     p = torch.nn.Parameter(torch.ones(2))
     with pytest.raises(TypeError, match="needs an optimizer"):

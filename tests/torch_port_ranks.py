@@ -217,7 +217,64 @@ def case_builders() -> dict:
     return out
 
 
-CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders}
+#: the host-level degraded case: one host of two local ranks, its root's
+#: pushes dropped by the chaos van (one partition a tensor)
+DEGRADED_N = 300
+
+
+def case_degraded() -> dict:
+    """One host (two local ranks, one PS worker) whose root's PS pushes are
+    lost: with the in-place heal off, the root's push_pull degrades and
+    every local rank raises DegradedError, none waits in the broadcast;
+    the next push_pull goes through the init barrier again.  Then with
+    degraded-step retries and the client's heal failing once, the
+    api-level heal mends the step on the root and every rank gets the
+    fault-free result."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import chaos
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.types import DegradedError
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+
+    bps.init(device="cpu")
+    r = bps.local_rank()
+    x = torch.from_numpy(member_inputs(60, 2, (DEGRADED_N,))[r])
+    out = {"clean": bps.push_pull(x, name="deg.a").numpy()}
+    if r == 0:
+        chaos.reset_fault_budget(2)  # the push and its one retry
+    try:
+        bps.push_pull(x + 1, name="deg.a")
+        out["raised"] = None
+    except DegradedError as e:
+        out["raised"] = str(e)
+    out["after"] = bps.push_pull(x + 1, name="deg.a").numpy()
+    cfg = get_config()
+    cfg.degraded_step_retries, cfg.resync_deadline_s = 2, 5.0
+    if r == 0:
+        client = get_state().ps_client
+        real, calls = client._heal_in_place, []
+
+        def fails_once(key, sid):
+            calls.append(key)
+            return len(calls) > 1 and real(key, sid)
+
+        client._heal_in_place = fails_once
+        chaos.reset_fault_budget(2)
+        counters().reset()
+    out["healed"] = bps.push_pull(x + 2, name="deg.a").numpy()
+    out["counters"] = counters().snapshot()
+    out["reinit"] = (sorted(get_state().engine._reinit_names)
+                     if get_state().engine is not None else None)
+    # the root's shutdown (its PS client's resend pool) outlasts the other
+    # rank's: a gloo group torn down that far apart may abort at exit
+    torch.distributed.barrier(group=get_state().mesh.group)
+    bps.shutdown()
+    return out
+
+
+CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
+         "degraded": case_degraded}
 
 
 # --- the test side --------------------------------------------------------
