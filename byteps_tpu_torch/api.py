@@ -56,20 +56,36 @@ def shutdown() -> None:
 
 
 def suspend() -> None:
-    """Elastic suspend: tear down but keep tensor declarations, so a later
-    :func:`resume` re-assigns identical keys."""
-    shutdown_state()
+    """Elastic suspend: tear down the engine and the PS client, but keep the
+    tensor declarations, the node uid and the host's group, so that a later
+    :func:`resume` re-assigns identical keys and rejoins the live cluster as
+    the same member (docs/elasticity.md).  Under the launcher every local
+    rank suspends and resumes; only the root is a PS member."""
+    shutdown_state(keep_mesh=True)
 
 
-def resume(num_workers: Optional[int] = None, global_rank: Optional[int] = None) -> None:
-    """Elastic resume: rewrite the topology env, replay tensor declarations
-    in their original order, and re-initialize on the same device."""
+def resume(num_workers: Optional[int] = None, num_servers: Optional[int] = None,
+           global_rank: Optional[int] = None) -> None:
+    """Elastic resume: rewrite the topology env (``DMLC_NUM_WORKER``,
+    ``DMLC_NUM_SERVER``, ``BYTEPS_GLOBAL_RANK``), replay tensor declarations
+    in their original order, and re-initialize on the same device.  Against
+    a live scheduler the worker rejoins by its uid: a changed worker or
+    server count resizes the job (a server scale-up returns once the new
+    server registered), and the scheduler releases the rejoin's barrier at
+    once.  Each key runs its init barrier again on first use."""
     if num_workers is not None:
         os.environ["DMLC_NUM_WORKER"] = str(num_workers)
+    if num_servers is not None:
+        os.environ["DMLC_NUM_SERVER"] = str(num_servers)
     if global_rank is not None:
         os.environ["BYTEPS_GLOBAL_RANK"] = str(global_rank)
-    get_registry().redeclare_all()
-    init_state(get_state().device)
+    st = get_state()
+    st.resuming = True
+    try:
+        get_registry().redeclare_all()
+        init_state(st.device)
+    finally:
+        st.resuming = False
 
 
 def device() -> torch.device:
@@ -339,9 +355,13 @@ def get_robustness_counters() -> dict:
     """The data plane's degradation counters, flat totals of this process:
     retries, deadline expiries, revived connections, deduped pushes, the
     heal's attempts, replayed rounds and give-ups, injected chaos faults
-    (docs/robustness.md "Observability").  Per server:
-    ``core.telemetry.counters().snapshot_labeled()``.  Usable before
-    :func:`init`."""
+    (docs/robustness.md "Observability"), and the membership plane's
+    ``worker_evicted``, ``server_evicted``, ``sched_stale_book``,
+    ``sched_reconnect`` and ``sched_rejoin``; a counter that never counted
+    is absent, as in ``byteps_tpu``.  Per server:
+    ``core.telemetry.counters().snapshot_labeled()``; the gauge
+    ``control_plane_degraded`` is in ``core.telemetry.metrics().snapshot()``.
+    Usable before :func:`init`."""
     from byteps_tpu_torch.core.telemetry import counters
 
     return counters().snapshot()

@@ -45,8 +45,15 @@ A connection's schedule is ``random.Random((seed << 20) ^ index)``, the
 index a process-wide count of chaos connections, so a fixed seed and a
 fixed order of connects replay the same faults; frames that are not
 targeted use no roll.  Every injected fault bumps a ``chaos_*`` counter.
-The scheduler's link is not faulted (``BYTEPS_CHAOS_SCHED`` belongs to
-control-plane recovery, ROADMAP.md Queue 1b item P3).
+
+The scheduler's link: with ``BYTEPS_CHAOS_SCHED=1`` under a chaos van,
+the control plane is faulted too.  A node's dial of the scheduler is
+wrapped (:func:`wrap_control`) and so are the connections the scheduler
+accepts, so ``BYTEPS_CHAOS_TARGET_PORT=<scheduler port>`` and the op names
+``REGISTER``, ``PING``, ``ADDRBOOK`` and ``BARRIER`` in
+``BYTEPS_CHAOS_OPS`` fault the scheduler link alone.  Control connections
+draw their index from a stream of their own (from 2^16), so turning the
+flag on shifts no data-plane schedule.
 """
 
 from __future__ import annotations
@@ -65,6 +72,9 @@ CHAOS_PREFIX = "chaos+"
 #: process-wide connection index: (seed, index) keys a socket's schedule
 _conn_counter = itertools.count()
 _conn_counter_lock = threading.Lock()
+#: the control plane's own index stream, disjoint from the data plane's
+_CTRL_ORIGIN = 1 << 16
+_ctrl_conn_counter = itertools.count(_CTRL_ORIGIN)
 
 
 def _next_conn_index() -> int:
@@ -72,13 +82,37 @@ def _next_conn_index() -> int:
         return next(_conn_counter)
 
 
+def _next_ctrl_conn_index() -> int:
+    with _conn_counter_lock:
+        return next(_ctrl_conn_counter)
+
+
 def reset_conn_indices() -> None:
-    """Start the connection index at 0 again.  A seeded schedule depends on
-    how many chaos connections the process opened before, so a test that
-    needs a fixed schedule calls this first; a live job never does."""
-    global _conn_counter
+    """Start both connection index streams again at their origins.  A
+    seeded schedule depends on how many chaos connections the process
+    opened before, so a test that needs a fixed schedule calls this first;
+    a live job never does."""
+    global _conn_counter, _ctrl_conn_counter
     with _conn_counter_lock:
         _conn_counter = itertools.count()
+        _ctrl_conn_counter = itertools.count(_CTRL_ORIGIN)
+
+
+def control_chaos_enabled() -> bool:
+    """A chaos van is selected and ``BYTEPS_CHAOS_SCHED`` is on."""
+    from byteps_tpu_torch.common.config import truthy
+
+    return (os.environ.get("BYTEPS_VAN", "").startswith("chaos:")
+            and truthy(os.environ.get("BYTEPS_CHAOS_SCHED", "0") or "0"))
+
+
+def wrap_control(sock, peer_port: int):
+    """A node's socket to the scheduler, in the fault layer when
+    :func:`control_chaos_enabled`, else as it is."""
+    if not control_chaos_enabled():
+        return sock
+    return ChaosSocket(sock, ChaosParams.from_env(), _next_ctrl_conn_index(),
+                       peer_port=peer_port)
 
 
 def _parse_op(tok: str) -> int:

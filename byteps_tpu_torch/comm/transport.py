@@ -79,8 +79,8 @@ class Op(enum.IntEnum):
 #: ops the port receives but does not serve: a frame of one of them fails
 #: the request it belongs to
 UNPORTED_OPS = {
-    Op.MIGRATE_STATE: "elastic",
-    Op.WRONG_OWNER: "elastic",
+    Op.MIGRATE_STATE: "reshard",
+    Op.WRONG_OWNER: "reshard",
 }
 
 
@@ -529,6 +529,22 @@ def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:
     from byteps_tpu_torch.comm.van import van_for_address
 
     return van_for_address(host).connect(host, port, timeout=timeout)
+
+
+def connect_control(host: str, port: int, timeout: float = 30.0) -> socket.socket:
+    """Dial the scheduler.  With ``BYTEPS_CHAOS_SCHED=1`` under the chaos
+    van the link is wrapped in the fault layer (``comm/chaos.py``
+    :func:`~byteps_tpu_torch.comm.chaos.wrap_control`)."""
+    from byteps_tpu_torch.comm.chaos import wrap_control
+
+    return wrap_control(connect(host, port, timeout=timeout), port)
+
+
+def decode_liveness(payload: bytes) -> dict:
+    """An Op.QUERY reply, {role: {rank: heartbeat age in seconds}}, with
+    the ranks JSON made strings turned back into ints."""
+    raw = json.loads(payload.decode())
+    return {role: {int(r): age for r, age in d.items()} for role, d in raw.items()}
 
 
 def close_socket(sock: Optional[socket.socket]) -> None:

@@ -17,6 +17,16 @@ from typing import Optional
 LOCAL_INIT_METHOD = "BYTEPS_LOCAL_INIT_METHOD"
 
 
+def resolve_node_uid(explicit: Optional[str] = None) -> str:
+    """A node's identity for the scheduler to match its rejoin by: the
+    value the runtime state keeps across suspend/resume, else
+    ``BYTEPS_NODE_UID`` (set by an operator; it outlives a process
+    restart), else a fresh uuid."""
+    import uuid
+
+    return explicit or os.environ.get("BYTEPS_NODE_UID") or uuid.uuid4().hex
+
+
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
@@ -94,6 +104,21 @@ class Config:
     #: a server's data plane in C++ (native/csrc/ps_server.cc)
     server_native: bool = False  # BYTEPS_SERVER_NATIVE
 
+    # --- membership: heartbeats, eviction, scheduler recovery ---
+    #: seconds between a node's heartbeats to the scheduler; 0 = none
+    heartbeat_interval: float = 5.0  # BYTEPS_HEARTBEAT_INTERVAL
+    #: the scheduler evicts a node whose heartbeat is older than this; 0 =
+    #: no eviction (ages stay visible through Op.QUERY)
+    dead_node_timeout_s: float = 0.0  # BYTEPS_DEAD_NODE_TIMEOUT_S
+    #: redials of a lost scheduler link before the control plane is given
+    #: up for good (the data plane goes on with the last book); 0 = none
+    sched_reconnect_retries: int = 20  # BYTEPS_SCHED_RECONNECT_RETRIES
+    #: the backoff's base between redials (full jitter, capped at 10 s)
+    sched_reconnect_backoff_s: float = 0.5  # BYTEPS_SCHED_RECONNECT_BACKOFF_S
+    #: how long a restarted scheduler waits for every reported rank to
+    #: register again before it adopts the partial population
+    sched_rejoin_window_s: float = 15.0  # BYTEPS_SCHED_REJOIN_WINDOW_S
+
     # --- per-RPC deadlines and retries (docs/robustness.md) ---
     #: attempts after the first before a push, pull or init gives up
     rpc_retries: int = 2  # BYTEPS_RPC_RETRIES; 0 fails fast
@@ -164,6 +189,11 @@ class Config:
             server_opt_hp=os.environ.get("BYTEPS_SERVER_OPT_HP") or "",
             native_client=_env_bool("BYTEPS_NATIVE_CLIENT"),
             server_native=_env_bool("BYTEPS_SERVER_NATIVE"),
+            heartbeat_interval=_env_float("BYTEPS_HEARTBEAT_INTERVAL", 5.0),
+            dead_node_timeout_s=_env_float("BYTEPS_DEAD_NODE_TIMEOUT_S", 0.0),
+            sched_reconnect_retries=max(0, _env_int("BYTEPS_SCHED_RECONNECT_RETRIES", 20)),
+            sched_reconnect_backoff_s=_env_float("BYTEPS_SCHED_RECONNECT_BACKOFF_S", 0.5),
+            sched_rejoin_window_s=_env_float("BYTEPS_SCHED_REJOIN_WINDOW_S", 15.0),
             rpc_retries=max(0, _env_int("BYTEPS_RPC_RETRIES", 2)),
             rpc_deadline_s=_env_float("BYTEPS_RPC_DEADLINE_S", 0.0),
             rpc_backoff_s=_env_float("BYTEPS_RPC_BACKOFF_S", 0.1),
@@ -203,7 +233,9 @@ def clear_config() -> None:
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "elastic": "elastic membership and key migration: ROADMAP.md Queue 1b item P3",
+    "reshard": "online resharding (key migration between servers): ROADMAP.md Queue 1b "
+               "item P3b",
+    "autotune": "the autotuner (BYTEPS_AUTOTUNE): ROADMAP.md Queue 1b item P3c",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
     "van": "the uds and shm vans (and the chaos van around them): ROADMAP.md Queue 1b item P8",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
@@ -221,12 +253,10 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_ELASTIC_RESHARD", "elastic", truthy),
-    ("BYTEPS_DEAD_NODE_TIMEOUT_S", "elastic", lambda v: float(v) > 0),
-    ("BYTEPS_AUTOTUNE", "elastic", truthy),
+    ("BYTEPS_ELASTIC_RESHARD", "reshard", truthy),
+    ("BYTEPS_AUTOTUNE", "autotune", truthy),
     ("BYTEPS_VAN", "van", lambda v: v not in ("tcp", "chaos:tcp")),
     ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),
-    ("BYTEPS_CHAOS_SCHED", "elastic", truthy),
     ("BYTEPS_COMPRESSION_AUTO", "auto", truthy),
 )
 

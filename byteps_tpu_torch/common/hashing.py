@@ -94,7 +94,7 @@ def assign_server(
     if fn == "ring":
         from byteps_tpu_torch.common.config import unported
 
-        raise unported("elastic", "BYTEPS_KEY_HASH_FN=ring")
+        raise unported("reshard", "BYTEPS_KEY_HASH_FN=ring")
     if fn not in _HASH_FNS:
         raise ValueError(
             f"unsupported BYTEPS_KEY_HASH_FN {fn!r}; "

@@ -45,6 +45,9 @@ class TensorContext:
     #: engine instance that last ran the init barrier: the registry
     #: outlives shutdown()/init() cycles, the servers' stores do not
     engine_epoch: int = -1
+    #: the client's server generation under which the init barrier ran: a
+    #: resize re-homes keys onto servers that never saw them
+    server_generation: int = 0
 
     @property
     def base_key(self) -> int:

@@ -113,6 +113,11 @@ from byteps_tpu_torch.core.telemetry import COUNT_BUCKETS, counters, metrics
 from byteps_tpu_torch.server.update_rules import parse_hp, rule_name
 
 
+#: per CUDA device: (COPYD2H stream, H2D and decode stream), for every engine
+_STREAMS: Dict[torch.device, tuple] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
 class DeviceResult(NamedTuple):
     """A push_pull result on a CUDA device, valid once ``event`` fired."""
 
@@ -336,9 +341,6 @@ class PipelineEngine:
         #: key -> (tensor name, elements, bytes per element) of every
         #: partition this engine initialized
         self._table: Dict[int, tuple] = {}
-        #: per CUDA device: (COPYD2H stream, H2D and decode stream)
-        self._streams: Dict[torch.device, tuple] = {}
-        self._streams_lock = threading.Lock()
         #: the learning rate of error-feedback chains, and the one the
         #: servers were last sent (their chains start at 1.0)
         self._compression_lr = 1.0
@@ -392,15 +394,17 @@ class PipelineEngine:
                 self._fail_task(task, q.queue_type, repr(e),
                                 degraded=isinstance(e, (ConnectionError, OSError)))
 
-    def streams(self, device: torch.device) -> tuple:
+    @staticmethod
+    def streams(device: torch.device) -> tuple:
         """(COPYD2H stream, H2D/decode stream) of a CUDA device: one pair
-        per device for the engine's life, so every partition of a tensor
-        is decoded on the stream its result is assembled on."""
-        with self._streams_lock:
-            st = self._streams.get(device)
+        per device for the process's life, so every partition of a tensor
+        is decoded on the stream its result is assembled on, and an engine
+        after a suspend/resume reuses the pair (and K4's workspace, kept
+        per stream) instead of growing device memory."""
+        with _STREAMS_LOCK:
+            st = _STREAMS.get(device)
             if st is None:
-                st = self._streams[device] = (torch.cuda.Stream(device),
-                                              torch.cuda.Stream(device))
+                st = _STREAMS[device] = (torch.cuda.Stream(device), torch.cuda.Stream(device))
             return st
 
     # --- submission ------------------------------------------------------
@@ -466,8 +470,13 @@ class PipelineEngine:
         return (self.STAGES_FUSED if small else self.STAGES), small
 
     def _prepare_round(self, ctx, dtype_id: int, n_elements: int, itemsize: int) -> None:
-        """Run (or, under a new engine, re-run) the init barrier of every
-        partition, then advance the tensor's round and seed the gate."""
+        """Run the init barrier of every partition, then advance the
+        tensor's round and seed the gate.  It runs again under a new engine
+        (the servers' stores are new), after the client's
+        ``server_generation`` changed (a resize re-homed the keys: their
+        new owners start empty, the codec configs are sent to them again,
+        and the journal of the old numbering is cleared), and after a job
+        of the tensor failed degraded."""
         with self._init_lock:
             if ctx.partitions and sum(p.length for p in ctx.partitions) != n_elements:
                 raise ValueError(
@@ -475,8 +484,9 @@ class PipelineEngine:
                     f"{sum(p.length for p in ctx.partitions)} elements, got "
                     f"{n_elements} (use a distinct name per tensor)"
                 )
+            gen = self.client.server_generation
             if (not ctx.initialized or ctx.engine_epoch != self._epoch
-                    or ctx.name in self._reinit_names):
+                    or ctx.server_generation != gen or ctx.name in self._reinit_names):
                 if not ctx.partitions:
                     partition_tensor(ctx, n_elements, itemsize, self.cfg.partition_bytes)
                 if self._journal is not None:
@@ -507,6 +517,7 @@ class PipelineEngine:
                 ctx.version = 0
                 ctx.initialized = True
                 ctx.engine_epoch = self._epoch
+                ctx.server_generation = gen
                 self._reinit_names.discard(ctx.name)
             ctx.version += 1
             for part in ctx.partitions:
@@ -858,6 +869,14 @@ class PipelineEngine:
                 group.done = True
             self.queues[QueueType.PUSH].report_finish(group_task)
             return True
+
+        # the pack was grouped by server at FUSE time; a resize since may
+        # have re-homed members apart, and one frame cannot reach two
+        # servers: they go unfused, each routed on its own
+        if len({self.client.server_for(m.key) for m, _ in members}) > 1:
+            if finish_group():
+                self._unfuse_members(group, "the server set was resized under the pack")
+            return
 
         wire = [(m.key,
                  get_command_type(RequestType.COMPRESSED_PUSH_PULL if m.compressed is not None

@@ -14,7 +14,9 @@ per host, as in ``byteps_tpu``, and the root tells the other local ranks
 the host's worker rank and the number of hosts.  A distributed process at
 ``BYTEPS_LOCAL_SIZE > 1`` without the rendezvous raises: it could neither
 join the PS nor reach its host's root.
-``shutdown_state()`` stops all of it.  The server and scheduler roles run
+``shutdown_state()`` stops all of it; the worker's node uid stays, so
+that a resume rejoins as the same member, and a suspend keeps the host's
+group.  The server and scheduler roles run
 as their own processes (``python -m byteps_tpu_torch.server``).
 """
 
@@ -31,6 +33,7 @@ from byteps_tpu_torch.common.config import (
     Config,
     check_unported_env,
     reset_config,
+    resolve_node_uid,
 )
 from byteps_tpu_torch.core.handle_manager import HandleManager
 
@@ -49,6 +52,13 @@ class RuntimeState:
         #: whose broadcast from the local root is still to come
         self.host_level: dict = {}
         self.initialized = False
+        #: set while resume() re-initializes
+        self.resuming = False
+        #: the PS worker's identity, kept across suspend()/resume() so that
+        #: the scheduler matches the rejoin to this worker's old registration
+        #: (resolved at the first distributed init: ``BYTEPS_NODE_UID`` or a
+        #: fresh uuid)
+        self.node_uid: Optional[str] = None
         self._lock = threading.Lock()
 
 
@@ -93,7 +103,7 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                     f"byteps_tpu_torch.launcher.launch`, or set {LOCAL_INIT_METHOD}"
                 )
         try:
-            if local_group:
+            if local_group and st.mesh is None:  # a suspend keeps the host's group
                 from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
 
                 st.mesh = build_mesh(device=st.device)
@@ -102,7 +112,9 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 from byteps_tpu_torch.comm.ps_client import PSClient
                 from byteps_tpu_torch.core.engine import PipelineEngine
 
-                client = PSClient(cfg)
+                if st.node_uid is None:
+                    st.node_uid = resolve_node_uid()
+                client = PSClient(cfg, node_uid=st.node_uid)
                 client.connect()
                 st.ps_client = client
                 st.engine = PipelineEngine(cfg, client)
@@ -134,14 +146,14 @@ def _host_identity(cfg: Config, st: RuntimeState) -> Tuple[int, int]:
     return int(ident[0]), int(ident[1])
 
 
-def _stop(st: RuntimeState) -> None:
+def _stop(st: RuntimeState, keep_mesh: bool = False) -> None:
     if st.engine is not None:
         st.engine.stop()
         st.engine = None
     if st.ps_client is not None:
         st.ps_client.close()
         st.ps_client = None
-    if st.mesh is not None:
+    if st.mesh is not None and not keep_mesh:
         from byteps_tpu_torch.comm.mesh import get_global_mesh, set_global_mesh
 
         if get_global_mesh() is st.mesh:
@@ -152,12 +164,18 @@ def _stop(st: RuntimeState) -> None:
     st.host_level.clear()
 
 
-def shutdown_state() -> None:
+def shutdown_state(keep_mesh: bool = False) -> None:
+    """Stop everything; with ``keep_mesh`` (a suspend) the host's process
+    group stays up for the resume: only the PS worker leaves the job, and a
+    group rebuilt at the same rendezvous would meet its old generation's
+    records."""
     st = _state
     with st._lock:
         if not st.initialized:
+            if not keep_mesh and st.mesh is not None:
+                _stop(st)  # a shutdown after a suspend
             return
-        _stop(st)
+        _stop(st, keep_mesh)
         st.handles.clear()
         st.initialized = False
 

@@ -24,7 +24,12 @@ Counters (:func:`counters`):
   ``wire_checksum_conn_drop`` (frames dropped on a CRC32C mismatch, and
   connections given up after ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them); the
   chaos van's ``chaos_drop``, ``chaos_delay``, ``chaos_disconnect``,
-  ``chaos_truncate``, ``chaos_corrupt``, ``chaos_payload_corrupt``.
+  ``chaos_truncate``, ``chaos_corrupt``, ``chaos_payload_corrupt``;
+- membership (:data:`MEMBERSHIP_COUNTERS`): ``worker_evicted`` and
+  ``server_evicted`` (the cumulative evictions the scheduler's books
+  report), ``sched_stale_book`` (books refused as from an older scheduler
+  incarnation), ``sched_reconnect`` (redials of a lost scheduler link)
+  and ``sched_rejoin`` (rejoins that succeeded).
 
 Histograms (:func:`metrics`), fixed buckets with percentile snapshots,
 the reference's names and bounds:
@@ -42,7 +47,9 @@ the reference's names and bounds:
   provider seam (``native/__init__.py``).
 
 Gauges (:meth:`MetricsRegistry.gauge_set`): ``fusion_threshold_bytes``,
-the fusion threshold the worker's engine runs.
+the fusion threshold the worker's engine runs; ``control_plane_degraded``,
+1 while a node's scheduler link is down (it trains on its last book),
+else 0.
 
 Prometheus exposition, the heartbeat deltas and the flight recorder's
 hooks are not ported (ROADMAP.md Queue 1 item 10).
@@ -74,6 +81,13 @@ class Counters:
                 key = _label_key(labels)
                 per[key] = per.get(key, 0) + n
 
+    def set_floor(self, name: str, value: int) -> None:
+        """Raise a counter to ``value`` if it is below: a cumulative total
+        read from broadcasts, which may come again."""
+        with self._lock:
+            if self._counts.get(name, 0) < value:
+                self._counts[name] = value
+
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
@@ -96,6 +110,10 @@ class Counters:
 
 
 _counters = Counters()
+
+#: the membership plane's counters (``api.get_robustness_counters()``)
+MEMBERSHIP_COUNTERS = ("worker_evicted", "server_evicted", "sched_stale_book",
+                       "sched_reconnect", "sched_rejoin")
 
 
 def counters() -> Counters:

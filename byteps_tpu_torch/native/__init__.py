@@ -97,6 +97,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # ps_server.cc
         "bps_native_server_start": ([c.c_int32, c.c_int32, c.c_int32], c.c_int32),
         "bps_native_server_set_num_workers": ([c.c_int32, c.c_int32], None),
+        "bps_native_server_set_live_workers": ([c.c_int32, c.POINTER(c.c_uint8),
+                                                c.c_int32], None),
         "bps_native_server_stop": ([c.c_int32], None),
         "bps_native_server_counters": ([c.c_int32, c.POINTER(c.c_uint64), c.c_int32],
                                        c.c_int32),

@@ -6,9 +6,11 @@ framing, the CRC32C, KV rounds, the codecs and the sums, on its own
 threads with no interpreter lock (``BYTEPS_SERVER_STRIPES`` reducer lanes,
 read from the environment).  This wrapper does what the Python server's
 control plane does: it registers with the scheduler, passes the bring-up
-barrier and follows the scheduler's control messages, with
-``PSServer``'s own methods borrowed unbound.  SHUTDOWN stops the engine;
-a resize book is refused and stops it (elastic membership is not ported).
+barrier, heartbeats, follows the scheduler's books and rejoins a restarted
+scheduler, with ``PSServer``'s own methods borrowed unbound.  A resize or
+eviction book sets the engine's worker count and its zombie fence
+(``bps_native_server_set_num_workers``,
+``bps_native_server_set_live_workers``); SHUTDOWN stops the engine.
 The engine's counters and histograms reach ``core/telemetry.py`` through
 the registry's provider seam.  Selected by ``BYTEPS_SERVER_NATIVE=1``.
 
@@ -30,12 +32,13 @@ engine's replies stay clean.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import socket
 import threading
 from typing import Dict, List, Optional
 
-from byteps_tpu_torch.common.config import Config, check_unported_env
+from byteps_tpu_torch.common.config import Config, check_unported_env, resolve_node_uid
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.transport import close_socket
 from byteps_tpu_torch.core.telemetry import metrics
@@ -47,8 +50,6 @@ NATIVE_HISTOGRAMS = ("native_server_sum_seconds", "native_server_publish_seconds
 
 class NativePSServer:
     def __init__(self, cfg: Config, host: str = "127.0.0.1") -> None:
-        import uuid
-
         from byteps_tpu_torch.native import get_lib, native_server_histograms
 
         check_unported_env()
@@ -66,8 +67,12 @@ class NativePSServer:
         self._id = self.port
         self.rank: Optional[int] = None
         self.num_workers = cfg.num_worker
-        self.node_uid = uuid.uuid4().hex
-        self.error: Optional[str] = None
+        self.node_uid = resolve_node_uid()
+        self._live_worker_flags: Optional[set] = None
+        self.sched_incarnation = 0
+        self.membership_epoch = 0
+        self._map_epoch = 0
+        self._sched_shutdown = False
         self._stop = threading.Event()
         self._stop_lock = threading.Lock()
         self._stopped = False
@@ -81,11 +86,33 @@ class NativePSServer:
 
     # the control plane of the Python server: these touch only the state
     # both classes carry (cfg, host, port, uid, rank, num_workers, the
-    # scheduler connection, the stop event and the thread list)
+    # scheduler connection and the membership fields, the stop event and
+    # the thread list)
     _register_with_scheduler = PSServer._register_with_scheduler
-    _control_loop = PSServer._control_loop
-    _fail_stop = PSServer._fail_stop
+    _sched_register_once = PSServer._sched_register_once
+    _fence_book = PSServer._fence_book
+    _note_book = PSServer._note_book
+    _handle_control = PSServer._handle_control
+    _control_plane_loop = PSServer._control_plane_loop
+    _sched_reconnect = PSServer._sched_reconnect
     _spawn = PSServer._spawn
+
+    def update_num_workers(self, n: int) -> None:
+        """A resized worker count, in the engine (which completes the rounds
+        that now hold enough pushes)."""
+        self.num_workers = n
+        self._lib.bps_native_server_set_num_workers(self._id, n)
+
+    def _adopt_worker_ranks(self, book: dict) -> None:
+        """The zombie fence from a book, in the engine (a book with no rank
+        list turns it off)."""
+        PSServer._adopt_worker_ranks(self, book)  # type: ignore[arg-type]
+        flags = self._live_worker_flags
+        if flags is None:
+            self._lib.bps_native_server_set_live_workers(self._id, None, -1)
+            return
+        arr = (ctypes.c_uint8 * max(1, len(flags)))(*sorted(flags))
+        self._lib.bps_native_server_set_live_workers(self._id, arr, len(flags))
 
     def start(self, register: bool = True) -> None:
         if register:

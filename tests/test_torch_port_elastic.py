@@ -1,0 +1,376 @@
+"""Elastic membership of the port against byteps_tpu's: suspend/resume
+against a live cluster, rejoin by node uid, dead-slot adoption, worker and
+server resizes with traffic, the engine's re-init after a server-set
+change, heartbeat eviction, the zombie fence and the rebuild's ordering
+(the cases of ``tests/test_elastic.py``; the server resize, the eviction of
+a crashed server, the mixed fleets and the launcher host are in
+``test_torch_port_elastic_fleets.py``).  Every case runs on each package
+("port", "ref") with the same numpy-seeded inputs and expects the same
+exact results: sums of float32 values that are exact in any order."""
+
+import socket
+import threading
+import time
+
+import numpy as np
+import pytest
+
+import torch_port_kits as kits
+from byteps_tpu_torch.common import registry as port_registry
+
+PKGS = ["port", "ref"]
+
+
+@pytest.fixture(autouse=True)
+def _reset(monkeypatch):
+    yield from kits.reset_runtime(monkeypatch)
+
+
+@pytest.fixture(params=PKGS)
+def live(request, monkeypatch):
+    """A live cluster of one worker slot and one server, of one package."""
+    k = kits.kit(request.param)
+    sched = k.Scheduler(num_workers=1, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 1, 1)
+    srv = kits.start_server(k)
+    yield k
+    srv.stop()
+    sched.stop()
+
+
+# --- suspend/resume against a live cluster --------------------------------
+
+
+def test_suspend_resume_continues_traffic(live):
+    k = live
+    x = kits.vals(1, 32, 2)
+    kits.init(k)
+    keys = {n: k.api.declare_tensor(n) for n in ("g0", "g1", "g2")}
+    out = k.api.push_pull(kits.tensor(k, x[0]), name="g0", average=False)
+    np.testing.assert_array_equal(np.asarray(out), x[0])
+    k.api.suspend()
+    k.api.resume(num_workers=1)  # a rejoin: its barrier must release at once
+    assert {n: k.api.declare_tensor(n) for n in keys} == keys
+    out = k.api.push_pull(kits.tensor(k, x[1]), name="g0", average=False)
+    np.testing.assert_array_equal(np.asarray(out), x[1])
+    k.api.shutdown()
+
+
+def test_double_resume(live):
+    k = live
+    xs = kits.vals(2, 8, 3)
+    kits.init(k)
+    k.api.push_pull(kits.tensor(k, xs[0]), name="t", average=False)
+    for x in xs[1:]:
+        k.api.suspend()
+        k.api.resume(num_workers=1)
+        np.testing.assert_array_equal(
+            np.asarray(k.api.push_pull(kits.tensor(k, x), name="t", average=False)), x)
+    k.api.shutdown()
+
+
+def test_liveness_reflects_rejoin(live):
+    k = live
+    kits.init(k)
+    k.api.suspend()
+    k.api.resume(num_workers=1)
+    live_ages = k.state.get_state().ps_client.query_cluster()
+    assert live_ages["worker"][0] < 5.0  # a fresh stamp from the new connection
+    k.api.shutdown()
+
+
+def test_node_uid_survives_suspend(monkeypatch):
+    """The port's runtime state keeps the uid it registered with across
+    suspend/resume, as byteps_tpu's does; BYTEPS_NODE_UID names it."""
+    k = kits.kit("port")
+    sched = k.Scheduler(1, 1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 1, 1, BYTEPS_NODE_UID="uid-from-env")
+    srv = kits.start_server(k)
+    try:
+        kits.init(k)
+        uid = k.state.get_state().ps_client.node_uid
+        k.api.suspend()
+        k.api.resume(num_workers=1)
+        assert uid == k.state.get_state().ps_client.node_uid == "uid-from-env"
+        k.api.shutdown()
+    finally:
+        srv.stop()
+        sched.stop()
+
+
+# --- rejoin identity --------------------------------------------------------
+
+
+def _two_workers(k, uids=("w0", "w1")):
+    cfg = k.Config.from_env()
+    ws = [k.PSClient(cfg, node_uid=u) for u in uids]
+    kits.in_threads(*[w.connect for w in ws])
+    return ws
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_rejoin_matches_by_node_uid_not_address(monkeypatch, pkg):
+    k = kits.kit(pkg)
+    sched = k.Scheduler(num_workers=2, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 2, 1)
+    srv = kits.start_server(k)
+    try:
+        w0, w1 = _two_workers(k, ("uid-w0", "uid-w1"))
+        ranks = {w0.node_uid: w0.rank, w1.node_uid: w1.rank}
+        assert sorted(ranks.values()) == [0, 1]
+        w1.close()
+        w1b = k.PSClient(k.Config.from_env(), node_uid="uid-w1")
+        w1b.connect()
+        assert w1b.rank == ranks["uid-w1"] and w1b.is_recovery
+        assert set(w1b.query_cluster()["worker"]) == {0, 1}
+        w0.close()
+        w0b = k.PSClient(k.Config.from_env(), node_uid="uid-w0")
+        w0b.connect()
+        assert w0b.rank == ranks["uid-w0"]
+        w0b.close()
+        w1b.close()
+    finally:
+        srv.stop()
+        sched.stop()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_dead_slot_adoption_broadcasts_epoch_to_survivors(monkeypatch, pkg):
+    k = kits.kit(pkg)
+    sched = k.Scheduler(num_workers=2, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 2, 1)
+    srv = kits.start_server(k)
+    try:
+        w0, w1 = _two_workers(k, ("adopt-w0", "adopt-w1"))
+        before = w0.membership_epoch
+        w1.close()
+        time.sleep(0.3)
+        w_new = k.PSClient(k.Config.from_env())  # a fresh uid adopts w1's slot
+        w_new.connect()
+        assert w_new.is_recovery
+        for _ in range(100):
+            if w0.membership_epoch > before:
+                break
+            time.sleep(0.05)
+        assert w0.membership_epoch > before == 0
+        assert sched.epoch == w0.membership_epoch
+        w0.close()
+        w_new.close()
+    finally:
+        srv.stop()
+        sched.stop()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_unknown_uid_restart_adopts_dead_slot(monkeypatch, pkg):
+    k = kits.kit(pkg)
+    sched = k.Scheduler(num_workers=2, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 2, 1)
+    srv = kits.start_server(k)
+    try:
+        w0, w1 = _two_workers(k, ("alpha", "beta"))
+        beta = w1.rank
+        w1.close()
+        time.sleep(0.3)
+        w_new = k.PSClient(k.Config.from_env())
+        kits.in_threads(w_new.connect, timeout=10)
+        assert w_new.rank == beta and w_new.is_recovery
+        w0.close()
+        w_new.close()
+    finally:
+        srv.stop()
+        sched.stop()
+
+
+# --- resizes with traffic ----------------------------------------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_worker_scale_down_then_up(monkeypatch, pkg):
+    k = kits.kit(pkg)
+    kits.worker_resize(monkeypatch, k, k, [k, k])
+
+
+# --- the engine after a server-set change ----------------------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_submit_reinits_after_generation_bump(pkg):
+    """The engine re-runs a key's init barrier when the client's
+    server_generation changed, and only then."""
+    k = kits.kit(pkg)
+    if pkg == "port":
+        from byteps_tpu_torch.common.registry import get_registry
+    else:
+        from byteps_tpu.common.registry import get_registry
+
+    class StubClient:
+        server_generation = 0
+        num_workers = 1
+
+        def __init__(self):
+            self.inits = []
+
+        def init_tensor(self, key, n, dt, **kw):
+            self.inits.append(key)
+
+    get_registry().clear() if pkg == "ref" else port_registry.reset_registry()
+    client = StubClient()
+    eng = k.PipelineEngine(k.Config.from_env(), client)  # never started
+    x = np.ones(8, np.float32)
+    eng.submit("g.resize", x, average=False, priority=0, version=0, handle=1)
+    first = list(client.inits)
+    assert first
+    eng.submit("g.resize", x, average=False, priority=0, version=0, handle=2)
+    assert client.inits == first
+    client.server_generation = 1
+    eng.submit("g.resize", x, average=False, priority=0, version=0, handle=3)
+    assert client.inits == first * 2
+    get_registry().clear() if pkg == "ref" else port_registry.reset_registry()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_a_pack_split_by_a_resize_goes_unfused(pkg):
+    """A fused pack whose members a resize re-homed to different servers is
+    sent unfused, each member on its own, as byteps_tpu's engine does."""
+    k = kits.kit(pkg)
+    if pkg == "port":
+        from byteps_tpu_torch.common.types import QueueType, TensorTableEntry
+        from byteps_tpu_torch.core.engine import _FusionGroup
+    else:
+        from byteps_tpu.common.types import QueueType, TensorTableEntry
+        from byteps_tpu.core.engine import _FusionGroup
+
+    class Split:
+        server_generation, num_workers = 0, 1
+
+        @staticmethod
+        def server_for(key):
+            return key % 2  # the pack's two members now home apart
+
+    eng = k.PipelineEngine(k.Config.from_env(), Split())
+    calls = []
+    eng._unfuse_members = lambda group, reason: calls.append(reason)
+    members = [(TensorTableEntry(tensor_name="t", key=key, queue_list=[QueueType.FUSE]), b"")
+               for key in (2, 3)]
+    group = _FusionGroup(members)
+    eng._push_group(TensorTableEntry(tensor_name="<fused>", key=2,
+                                     queue_list=[QueueType.PUSH], context=group), group)
+    assert len(calls) == 1 and group.done
+
+
+# --- involuntary failure and eviction ---------------------------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_dead_waiter_scrubbed_so_survivors_pair_up(monkeypatch, pkg):
+    k = kits.kit(pkg)
+    monkeypatch.setenv("BYTEPS_HEARTBEAT_INTERVAL", "0.1")
+    monkeypatch.setenv("BYTEPS_DEAD_NODE_TIMEOUT_S", "0.6")
+    sched = k.Scheduler(num_workers=3, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 3, 1)
+    srv = kits.start_server(k)
+    try:
+        cfg = k.Config.from_env()
+        ws = [k.PSClient(cfg, node_uid=f"bs-w{i}") for i in range(3)]
+        kits.in_threads(*[w.connect for w in ws])
+
+        def doomed():
+            try:
+                ws[2].barrier(k.GROUP_WORKERS)
+            except ConnectionError:
+                pass
+
+        threading.Thread(target=doomed, daemon=True).start()
+        time.sleep(0.3)  # its waiter is parked at the scheduler
+        ws[2].close()
+        assert kits.wait(lambda: sched.eviction_totals["worker"] == 1)
+        kits.in_threads(*[lambda w=w: w.barrier(k.GROUP_WORKERS) for w in ws[:2]], timeout=10)
+        for w in ws[:2]:
+            w.close()
+    finally:
+        srv.stop()
+        sched.stop()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_push_from_evicted_rank_rejected_and_replay_after_failed_sum_resummed(pkg):
+    k = kits.kit(pkg)
+    srv = k.PSServer.__new__(k.PSServer)
+    srv._live_worker_flags = {1}  # only rank 0 is live
+    ks = k.KeyState()
+    ks.store = np.zeros(4, np.float32)
+    zombie = k.tr.Message(k.tr.Op.PUSH, key=1, version=3, flags=2)
+    with ks.lock:
+        with pytest.raises(RuntimeError, match="evicted"):
+            srv._is_replayed_push_locked(ks, zombie)
+    live_push = k.tr.Message(k.tr.Op.PUSH, key=1, version=3, flags=1)
+    with ks.lock:
+        assert not srv._is_replayed_push_locked(ks, live_push)
+        assert not srv._is_replayed_push_locked(ks, live_push)  # not recorded before the sum
+        srv._record_push_locked(ks, live_push)
+        assert srv._is_replayed_push_locked(ks, live_push)
+    srv._live_worker_flags = None  # no book with ranks: the fence is off
+    with ks.lock:
+        assert not srv._is_replayed_push_locked(ks, zombie)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_adopt_worker_ranks_from_book(pkg):
+    k = kits.kit(pkg)
+    srv = k.PSServer.__new__(k.PSServer)
+    srv._adopt_worker_ranks({"worker_ranks": [0, 2]})
+    assert srv._live_worker_flags == {1, 3}
+    srv._adopt_worker_ranks({})
+    assert srv._live_worker_flags is None
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_rollback_book_cancels_pending_rebuild_retry(monkeypatch, pkg):
+    """A rebuild that failed schedules a retry; a newer book that matches
+    the live set (a rollback) must cancel it."""
+    monkeypatch.setenv("BYTEPS_CONNECT_RETRY_S", "0.05")
+    k = kits.kit(pkg)
+    pc = k.PSClient(k.Config.from_env())
+    pc._server_addrs = [("127.0.0.1", 1)]
+    pc.num_servers = 1
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()  # reserved and closed: the first rebuild cannot dial it
+    pc._book_token = 1
+    pc._rebuild_servers(1, [("127.0.0.1", port)], 1, 0.3)
+    assert pc._applied_token == 0 and pc._server_addrs == [("127.0.0.1", 1)]
+    lsock = socket.socket()
+    lsock.bind(("127.0.0.1", port))
+    lsock.listen(4)
+    try:
+        pc._book_token = 2
+        pc._rebuild_servers(1, [("127.0.0.1", 1)], 2)
+        assert pc._applied_token == 2 and pc.server_generation == 0
+        time.sleep(0.8)  # past the retry
+        assert pc._applied_token == 2 and pc._server_addrs == [("127.0.0.1", 1)]
+        assert pc.server_generation == 0
+    finally:
+        pc._stop.set()
+        lsock.close()
+
+
+# --- what is still not ported ------------------------------------------------
+
+
+@pytest.mark.parametrize("knob,item", [("BYTEPS_ELASTIC_RESHARD", "P3b"),
+                                       ("BYTEPS_AUTOTUNE", "P3c")])
+def test_resharding_and_the_autotuner_still_raise(monkeypatch, knob, item):
+    import byteps_tpu_torch as pbps
+
+    monkeypatch.setenv(knob, "1")
+    monkeypatch.setenv("BYTEPS_FORCE_DISTRIBUTED", "1")
+    with pytest.raises(NotImplementedError, match=f"Queue 1b item {item}"):
+        pbps.init(device="cpu")

@@ -435,8 +435,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 @pytest.mark.parametrize("knob", [
     "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_VAN=chaos:uds", "BYTEPS_VAN=chaos:shm",
-    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1",
-    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_AUTOTUNE=1", "BYTEPS_CHAOS_SCHED=1",
+    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1", "BYTEPS_AUTOTUNE=1",
     "BYTEPS_COMPRESSION_AUTO=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
@@ -454,17 +453,27 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
 
 @pytest.mark.parametrize("knob", [
     "BYTEPS_RPC_RETRIES=3", "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_VAN=chaos:tcp",
+    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_CHAOS_SCHED=1",
 ])
 def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
-    """The knobs that raised before the recovery plane was ported: the
-    config reads them as the reference does, and a worker trains through
-    a fleet that runs with them (the chaos van at its defaults injects
-    nothing)."""
+    """The knobs that raised before the recovery plane and the membership
+    plane were ported: the config reads them as the reference does, and a
+    worker trains through a fleet that runs with them (the chaos van at
+    its defaults injects nothing; the eviction timeout outlasts the test;
+    the scheduler-link flag without a chaos van faults nothing)."""
+    from byteps_tpu.comm import chaos as ref_chaos
+    from byteps_tpu_torch.comm import chaos as port_chaos
+
     name, value = knob.split("=")
     with _cluster(monkeypatch, "port", servers=1, **{name: value}) as nodes:
         cfg = PortConfig.from_env()
         ref = RefConfig.from_env()
         assert (cfg.rpc_retries, cfg.rpc_deadline_s) == (ref.rpc_retries, ref.rpc_deadline_s)
+        assert ((cfg.heartbeat_interval, cfg.dead_node_timeout_s, cfg.sched_reconnect_retries,
+                 cfg.sched_reconnect_backoff_s, cfg.sched_rejoin_window_s)
+                == (ref.heartbeat_interval, ref.dead_node_timeout_s, ref.sched_reconnect_retries,
+                    ref.sched_reconnect_backoff_s, ref.sched_rejoin_window_s))
+        assert port_chaos.control_chaos_enabled() == ref_chaos.control_chaos_enabled()
         if name == "BYTEPS_VAN":
             assert nodes[0].host.startswith("chaos+")
         pbps.init(device="cpu")

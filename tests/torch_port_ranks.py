@@ -273,8 +273,38 @@ def case_degraded() -> dict:
     return out
 
 
+#: the host-level elastic case: one host of two local ranks against a live
+#: cluster of one worker slot
+ELASTIC_N = 300
+
+
+def case_elastic() -> dict:
+    """One host (two local ranks, one PS worker) suspends and resumes as a
+    whole: every rank calls suspend() and resume(), only the root
+    re-registers (a rejoin by its uid, its barrier released at once), the
+    declared keys stay, and the host-level push_pull goes on."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+
+    bps.init(device="cpu")
+    r = bps.local_rank()
+    x = torch.from_numpy(member_inputs(70, 2, (ELASTIC_N,))[r])
+    keys_before = {n: bps.declare_tensor(n) for n in ("el.a", "el.b")}
+    outs = [bps.push_pull(x, name="el.a", average=False).numpy()]
+    bps.suspend()
+    bps.resume(num_workers=1)
+    keys_after = {n: bps.declare_tensor(n) for n in ("el.a", "el.b")}
+    outs.append(bps.push_pull(x, name="el.a", average=False).numpy())
+    outs.append(bps.push_pull(x, name="el.b", average=False).numpy())
+    out = {"keys_before": keys_before, "keys_after": keys_after, "outs": outs,
+           "size": bps.size()}
+    torch.distributed.barrier(group=get_state().mesh.group)
+    bps.shutdown()
+    return out
+
+
 CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
-         "degraded": case_degraded}
+         "degraded": case_degraded, "elastic": case_elastic}
 
 
 # --- the test side --------------------------------------------------------
