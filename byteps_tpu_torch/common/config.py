@@ -17,14 +17,14 @@ from typing import Optional
 LOCAL_INIT_METHOD = "BYTEPS_LOCAL_INIT_METHOD"
 
 
-def resolve_node_uid(explicit: Optional[str] = None) -> str:
-    """A node's identity for the scheduler to match its rejoin by: the
-    value the runtime state keeps across suspend/resume, else
+def resolve_node_uid() -> str:
+    """A node's identity for the scheduler to match its rejoin by:
     ``BYTEPS_NODE_UID`` (set by an operator; it outlives a process
-    restart), else a fresh uuid."""
+    restart), else a fresh uuid.  A worker's runtime state keeps it across
+    suspend/resume."""
     import uuid
 
-    return explicit or os.environ.get("BYTEPS_NODE_UID") or uuid.uuid4().hex
+    return os.environ.get("BYTEPS_NODE_UID") or uuid.uuid4().hex
 
 
 def _env_int(name: str, default: int) -> int:

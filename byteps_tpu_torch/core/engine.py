@@ -393,6 +393,9 @@ class PipelineEngine:
             except Exception as e:  # noqa: BLE001 - surfaced on the handle
                 self._fail_task(task, q.queue_type, repr(e),
                                 degraded=isinstance(e, (ConnectionError, OSError)))
+            # an idle stage must not keep its last task's buffers (pinned
+            # staging, the job's result) alive until its next poll
+            del task
 
     @staticmethod
     def streams(device: torch.device) -> tuple:
@@ -722,9 +725,10 @@ class PipelineEngine:
         tensor's device; its next submit goes on with the round numbers
         as they are, with no init barrier and no peer waiting on it.
 
-        None where that cannot work: the tensor is not marked, it has a
-        codec (its pull needs the codec pipeline), a server cannot resync,
-        or the round's pull does not come back in time.  The caller then
+        None where that cannot work: the tensor is not marked, the server
+        set changed since its init barrier, it has a codec (its pull needs
+        the codec pipeline), a server cannot resync, or the round's pull
+        does not come back in time.  The caller then
         submits the step again through the init barrier."""
         from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
 
@@ -734,7 +738,8 @@ class PipelineEngine:
             return None
         with self._init_lock:
             if (name not in self._reinit_names or not ctx.initialized
-                    or ctx.engine_epoch != self._epoch or not ctx.partitions):
+                    or ctx.engine_epoch != self._epoch or not ctx.partitions
+                    or ctx.server_generation != self.client.server_generation):
                 return None
         if any(p.key in self._compressors or p.key in self._device_codecs
                for p in ctx.partitions):

@@ -25,7 +25,7 @@ Counters (:func:`counters`):
   connections given up after ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them); the
   chaos van's ``chaos_drop``, ``chaos_delay``, ``chaos_disconnect``,
   ``chaos_truncate``, ``chaos_corrupt``, ``chaos_payload_corrupt``;
-- membership (:data:`MEMBERSHIP_COUNTERS`): ``worker_evicted`` and
+- membership: ``worker_evicted`` and
   ``server_evicted`` (the cumulative evictions the scheduler's books
   report), ``sched_stale_book`` (books refused as from an older scheduler
   incarnation), ``sched_reconnect`` (redials of a lost scheduler link)
@@ -110,10 +110,6 @@ class Counters:
 
 
 _counters = Counters()
-
-#: the membership plane's counters (``api.get_robustness_counters()``)
-MEMBERSHIP_COUNTERS = ("worker_evicted", "server_evicted", "sched_stale_book",
-                       "sched_reconnect", "sched_rejoin")
 
 
 def counters() -> Counters:

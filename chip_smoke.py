@@ -91,7 +91,7 @@ Phases, each fatal on failure:
  14. the step builders (build_data_parallel_step, build_zero1_step,
      accumulate_steps=2, grad_quant_bits=8) at one rank of an NCCL group, 2
      layers, f32: within 1e-6 of DistributedOptimizer at one worker;
- 15. small-tensor fusion (after phase 7; 12 layers, widths kept): BERT-large
+ 15. small-tensor fusion (after phase 7; 6 layers, widths kept): BERT-large
      through one worker and two servers with bare onebit, on the Python
      lanes and on the native lanes, each unfused and fused
      (BYTEPS_FUSION_THRESHOLD=131072: every partition fits) in turns: the
@@ -101,7 +101,7 @@ Phases, each fatal on failure:
      a step, keys a frame, the stage split with FUSE's dwell, and the step
      beside the unfused one;
  16. the server-side optimizer: DistributedOptimizer(None,
-     server_side=True, server_rule="adam") at full depth through two
+     server_side=True, server_rule="adam") at 12 layers through two
      Python servers, every round of six tensors' partitions bitwise a CPU
      replay of update_rules.Adam, falling losses, no optimizer state on
      the worker; the round journal's copy of these raw f32 pushes, steps
@@ -128,12 +128,24 @@ Phases, each fatal on failure:
      until its single retry gives up: its client heals in place (RESYNC, the
      journaled rounds replayed), no step degrades, no init barrier runs, and
      both hosts are bitwise their fault-free runs and each other;
- 20. one JSON line listing the kernels, then the contract line
+ 20. elastic membership, phase (c) (6 layers, widths kept): a scheduler,
+     two Python servers (a third waiting) and two launcher hosts with a
+     probe key summed exactly at every step: both hosts; host 1 suspended
+     and host 0 alone; both again, host 1's keys unchanged and its device
+     and pinned memory not grown across the suspend; three servers (keys
+     re-homed, the init barriers run again) and back to two (the dropped
+     server exits on SHUTDOWN); the scheduler killed and restarted between
+     two steps, bitwise the same steps without it, every node reconnected
+     and rejoined above its last epoch with no eviction; host 1 killed and
+     host 0's next step completed once it was evicted; each stage's ms,
+     launches, d2h bytes and time to recover printed;
+ 21. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
-`--async-host <dir>` phase 17's and `--heal-host <dir>` phase 19's, which
-the launcher runs; they are not run by hand.
+`--async-host <dir>` phase 17's, `--heal-host <dir>` phase 19's and
+`--elastic-host <dir>` phase 20's, which the launcher runs; they are not run
+by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -2467,11 +2479,15 @@ def train_hybrid(card: str) -> dict:
 #: bytes) and every raw partition below BYTEPS_MIN_COMPRESS_BYTES fits, so all
 #: 641 gradient partitions fuse; fusion_bytes at its default (262,144)
 FUSION_THRESHOLD = 131072
-#: 2 timed steps a run at 12 layers (3 at 24 before the self-healing plane's
-#: phases joined), to keep the script under 75% of its time limit
-FUSION_STEPS, FUSION_LAYERS = 2, 12
+#: 2 timed steps a run at 6 layers (12 before the elastic phase joined, 3
+#: steps at 24 before the self-healing plane's phases), to keep the script
+#: under 75% of its time limit
+FUSION_STEPS, FUSION_LAYERS = 2, 6
 #: the server-side optimizer: Adam on the servers, a seed round and 3 steps
 SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
+#: its depth: 12 layers since the elastic phase joined (24 before), to keep
+#: the script under 75% of its time limit
+SERVER_OPT_LAYERS = 12
 #: the tensors whose every pulled partition is held against a CPU replay of
 #: the servers' Adam: the word embedding, layer 0's Q, K and V weights, and
 #: the final LayerNorm
@@ -2724,8 +2740,9 @@ def _tap_tensor_rounds(client, engine, names):
 
 
 def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
-    """The server-side optimizer: BERT-large through one worker and two
-    Python-engine servers with DistributedOptimizer(None, server_side=True,
+    """The server-side optimizer: BERT-large, SERVER_OPT_LAYERS deep, through
+    one worker and two Python-engine servers with
+    DistributedOptimizer(None, server_side=True,
     server_rule="adam", server_hp={"lr": 1e-4}) on raw f32 gradients: the
     first step seeds the servers with the parameters, then every step pushes
     gradients and copies the servers' parameters in.  Holds every pulled
@@ -2755,7 +2772,7 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
     tapped = {f"Gradient.{n}" for n in SERVER_OPT_TAPPED}
     with _ps_fleet(label) as fleet:
         bps.init()
-        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        cfg, model, tok, tgt = _bert(SERVER_OPT_LAYERS)
         opt = bps.DistributedOptimizer(None, named_parameters=model.named_parameters(),
                                        server_side=True, server_rule=SERVER_OPT_RULE,
                                        server_hp=SERVER_OPT_HP)
@@ -2835,7 +2852,7 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
     print(f"{label}: {len(rounds)} partitions of {len(tapped)} tensors, {checked} of their "
           f"rounds after the seed bitwise a CPU replay of update_rules.Adam; the worker's "
           f"optimizer state {state_bytes} bytes against {adamw_state_bytes} for "
-          f"DistributedOptimizer(AdamW) on the distributed path", flush=True)
+          f"DistributedOptimizer(AdamW) on the distributed path (24 layers)", flush=True)
     if bad:
         fail(f"{label}: " + "; ".join(bad))
 
@@ -2843,7 +2860,7 @@ def train_server_opt(card: str, adamw_state_bytes: int) -> dict:
     # worker raises with the reason at the first INIT
     with _ps_fleet(f"{label}, native servers", {"BYTEPS_SERVER_NATIVE": "1"}) as fleet:
         bps.init()
-        _, model, tok, tgt = _bert(N_LAYERS_FULL)
+        _, model, tok, tgt = _bert(SERVER_OPT_LAYERS)
         opt = bps.DistributedOptimizer(None, named_parameters=model.named_parameters(),
                                        server_side=True, server_rule=SERVER_OPT_RULE,
                                        server_hp=SERVER_OPT_HP)
@@ -3324,6 +3341,432 @@ def train_heal(card: str) -> dict:
     return {k: v // HEAL_STEPS for k, v in results[1]["faults"]["launches"].items()}
 
 
+#: phase (c), elastic membership: depth, steps a stage, the probe key's size
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_PROBE_N = 6, 2, 1024
+#: the membership knobs of its fleet (eviction after 2 s without a beat)
+ELASTIC_ENV = {"BYTEPS_HEARTBEAT_INTERVAL": "0.5", "BYTEPS_DEAD_NODE_TIMEOUT_S": "2",
+               "BYTEPS_SCHED_RECONNECT_BACKOFF_S": "0.1", "BYTEPS_SCHED_RECONNECT_RETRIES": "60"}
+
+
+def _mark(work: str, name: str, value=None) -> None:
+    """A phase (c) cue between the driver and the hosts: a JSON file in
+    ``work``, renamed into place so that a reader never sees it half
+    written."""
+    path = os.path.join(work, f"{name}.mark")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"t": time.time(), "value": value}, f)
+    os.replace(path + ".tmp", path)
+
+
+def _await_mark(work: str, name: str, timeout: float = 300.0) -> dict:
+    path = os.path.join(work, f"{name}.mark")
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            fail(f"elastic: no cue {name!r} in {timeout:.0f} s")
+        time.sleep(0.02)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _memory() -> dict:
+    """Device bytes allocated, and pinned host bytes the caching host
+    allocator holds allocated (its stats, where this torch has them), once
+    the engine's stage threads and the device are idle (a stage polls its
+    queue every 0.2 s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(0.5)
+    gc.collect()
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    return {"device": torch.cuda.memory_allocated(),
+            "pinned": stats.get("allocated_bytes.current", stats.get("allocated_bytes", None))}
+
+
+def elastic_host(work: str) -> None:
+    """One host of phase (c), run by the port's launcher at
+    BYTEPS_LOCAL_SIZE=1 (``chip_smoke.py --elastic-host <dir>``):
+    BERT-large at ELASTIC_LAYERS on its 16 sequences through
+    DistributedOptimizer(AdamW) with bare onebit, and a probe key
+    (``elastic.probe``, ELASTIC_PROBE_N float32 set to rank + 1, summed).
+    ELASTIC_STEPS steps at each stage: (1) both hosts; (2) host 1 suspends,
+    host 0 resumes at one worker and trains alone; (3) host 0 resumes at two
+    workers, then host 1 resumes; (4) host 0 resumes at three servers (its
+    book parks until the driver's third server registers), host 1 follows
+    the book live; (5) host 1 resumes at two servers, host 0 follows, the
+    third server stops; (6) the same steps twice from one state, the second
+    time with the scheduler killed and restarted between them; (7) host 1
+    kills itself, host 0's next step completes once the scheduler evicted
+    it.  The cues go through ``work`` (``_mark``); each host writes
+    <dir>/elastic<h>.json (host 1 before it dies)."""
+    import copy
+    import signal
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.registry import get_registry
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    out = {"host": host, "stages": {}}
+    path = os.path.join(work, f"elastic{host}.json")
+
+    def save() -> None:
+        with open(path, "w") as f:
+            json.dump(out, f)
+
+    bps.init()
+    _, model, tok, tgt = _bert(ELASTIC_LAYERS)
+    rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
+    tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+    bps.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression_params={"compressor": "onebit", "scaling": True},
+    )
+    step = build_train_step(model, opt)
+    probe_name = "elastic.probe"
+    bps.declare_tensor(probe_name)
+
+    def client():
+        return get_state().ps_client
+
+    def keys() -> dict:
+        reg = get_registry()
+        return {n: reg.get(n).declared_key for n in reg._order}
+
+    def train(label: str, steps: int = ELASTIC_STEPS, t_from: float = None,
+              before_step=None) -> dict:
+        """``steps`` steps; each step's loss, ms, probe value, launches and
+        d2h bytes, and the seconds from ``t_from`` (time.time()) to the end
+        of the first step, with the blocking requests in that step."""
+        rec = {"losses": [], "ms": [], "probe": [], "launches": [], "d2h": [], "t_end": []}
+        for i in range(steps):
+            if before_step is not None:
+                before_step(i)
+            fa.reset_launches()
+            ob.reset_launches()
+            d2h0 = counters().get("d2h_bytes")
+            with _tap_blocking_requests(client()) as blocking:
+                t0 = time.perf_counter()
+                loss = step(tok, tgt)
+                probe = torch.full((ELASTIC_PROBE_N,), float(bps.rank() + 1),
+                                   device=bps.device())
+                pulled = bps.push_pull(probe, name=probe_name, average=False)
+                rec["losses"].append(float(loss))
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["t_end"].append(time.time())
+            vals = torch.unique(pulled).cpu().tolist()
+            rec["probe"].append(vals[0] if len(vals) == 1 else vals)
+            rec["launches"].append({**fa.launches, **ob.launches})
+            rec["d2h"].append(counters().get("d2h_bytes") - d2h0)
+            if i == 0 and t_from is not None:
+                rec["recover_s"] = time.time() - t_from
+                rec["recover_blocking"] = dict(blocking)
+        rec.update(rank=bps.rank(), size=bps.size(),
+                   generation=client().server_generation, epoch=client().membership_epoch,
+                   num_servers=client().num_servers,
+                   compressed_parts=sum(r["name"].startswith("Gradient.")
+                                        and r["wire_nbytes"] is not None
+                                        for r in get_state().engine.partition_table()))
+        out["stages"][label] = rec
+        save()
+        return rec
+
+    def resume(**kw) -> float:
+        t = time.time()
+        bps.resume(**kw)
+        return t
+
+    train("1 both")
+    # (2) host 1 suspends; host 0 resumes alone
+    if host == 1:
+        out["keys_before"] = keys()
+        out["mem_before_suspend"] = _memory()
+        bps.suspend()
+        _mark(work, "h1-suspended")
+    else:
+        _await_mark(work, "h1-suspended")
+        bps.suspend()
+        train("2 alone", t_from=resume(num_workers=1))
+        # (3) host 0 resumes at two workers first, so that it keeps rank 0
+        bps.suspend()
+        t = resume(num_workers=2)
+        _mark(work, "h0-back")
+    if host == 1:
+        _await_mark(work, "h0-back")
+        t = resume(num_workers=2)
+        out["mem_after_resume"] = _memory()
+        out["keys_after"] = keys()
+    train("3 both again", t_from=t)
+    if host == 1:
+        out["mem_after_steps"] = _memory()
+    # (4) three servers: host 0 resumes, host 1 follows the book live
+    homes = {r["key"]: client().server_for(r["key"]) for r in get_state().engine.partition_table()}
+    gen = client().server_generation
+    if host == 0:
+        bps.suspend()
+        _mark(work, "want-server3")
+        t = resume(num_servers=3)
+    else:
+        t = None
+        deadline = time.monotonic() + 120
+        while client().server_generation == gen and time.monotonic() < deadline:
+            time.sleep(0.02)
+    rec = train("4 three servers", t_from=t)
+    rec["keys_moved"] = sum(client().server_for(k) != s for k, s in homes.items())
+    rec["keys"] = len(homes)
+    # (5) back to two servers: host 1 resumes, host 0 follows the book live
+    gen = client().server_generation
+    if host == 1:
+        bps.suspend()
+        t = resume(num_servers=2)
+    else:
+        t = None
+        deadline = time.monotonic() + 120
+        while client().server_generation == gen and time.monotonic() < deadline:
+            time.sleep(0.02)
+    train("5 two servers", t_from=t)
+    # (6) the same steps twice from one state: without, then with the
+    # scheduler killed and restarted between its two steps
+    state = (copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict()))
+    clean = train("6 clean")
+    out["stages"]["6 clean"]["digest"] = _param_digest(model)
+    model.load_state_dict(state[0])
+    opt.load_state_dict(state[1])
+    epoch0, inc0 = client().membership_epoch, client().sched_incarnation
+    restart = {}
+
+    def kill_between(i: int) -> None:
+        if i == 1:
+            if host == 0:
+                _mark(work, "kill-sched")
+            restart.update(_await_mark(work, "sched-restarted"))
+
+    crash = train("6 scheduler restart", before_step=kill_between)
+    crash["digest"] = _param_digest(model)
+    deadline = time.monotonic() + 60
+    while counters().get("sched_rejoin") < 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    crash.update(restart_to_step_end_s=crash["t_end"][1] - restart["t"],
+                 epoch_before=epoch0, epoch_after=client().membership_epoch,
+                 incarnation_newer=client().sched_incarnation > inc0,
+                 counters={k: counters().get(k) for k in (
+                     "sched_reconnect", "sched_rejoin", "sched_stale_book",
+                     "worker_evicted", "server_evicted")},
+                 clean_losses=clean["losses"], clean_digest=out["stages"]["6 clean"]["digest"])
+    save()
+    # (7) host 1 dies; host 0 goes on once the scheduler evicted it
+    if host == 1:
+        _mark(work, "h1-dying")
+        os.kill(os.getpid(), signal.SIGKILL)
+    _await_mark(work, "h1-dying")
+    t = time.time()
+    rec = train("7 after host 1 died", steps=1, t_from=t)
+    deadline = time.monotonic() + 10
+    while counters().get("worker_evicted") < 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    rec["worker_evicted"] = counters().get("worker_evicted")
+    save()
+    bps.shutdown()
+
+
+def train_elastic(card: str) -> dict:
+    """Phase (c): elastic membership.  A scheduler, two Python servers and a
+    third waiting to be started, and two launcher hosts of one process each
+    (``elastic_host``); the driver starts the third server on host 0's cue,
+    and kills the scheduler (SIGKILL) on another and restarts it on the
+    same port.  Fails unless every probe pull is exactly the sum over the
+    members of its step, host 1's keys are the same after its resume, the
+    device and pinned memory did not grow across its suspend, the keys
+    re-homed at three servers and the generation moved, the third server
+    exited on SHUTDOWN, the steps through the scheduler's restart are
+    bitwise the steps without it (losses and parameters), every node
+    reconnected and rejoined with no eviction and a newer epoch, and host
+    0's step after host 1's death completed with the eviction counted.
+    Returns host 0's launches a step at the first stage."""
+    import signal
+
+    label = "elastic"
+    wall = time.perf_counter()
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ELASTIC_ENV,
+           # a host resumed at one worker stays a PS worker
+           "BYTEPS_FORCE_DISTRIBUTED": "1"}
+    bad = []
+    with tempfile.TemporaryDirectory() as work:
+        port, procs = _start_ps_processes(env, work)
+
+        def waiting(role: str, go: str, **popen_kw) -> subprocess.Popen:
+            """A node of ``role`` with its imports done, started when ``go``
+            exists: the third server registers at once when host 0's
+            resize asks for it, the scheduler's successor binds the port
+            at once when its predecessor died."""
+            return subprocess.Popen(
+                [sys.executable, "-c",
+                 "import os, sys, time\n"
+                 "from byteps_tpu_torch.server.server import run_server\n"
+                 "while not os.path.exists(sys.argv[1]):\n    time.sleep(0.02)\n"
+                 "run_server()\n", go],
+                cwd=REPO, env={**env, "DMLC_ROLE": role, "DMLC_PS_ROOT_PORT": port},
+                **popen_kw)
+
+        go_server, go_sched = os.path.join(work, "server2.go"), os.path.join(work, "sched.go")
+        with open(os.path.join(work, "server2.log"), "w") as log:
+            spare = waiting("server", go_server, stdout=subprocess.DEVNULL, stderr=log)
+        restarted = waiting("scheduler", go_sched, stdout=subprocess.PIPE, text=True)
+        hosts = []
+        try:
+            for h in range(HYBRID_HOSTS):
+                with open(os.path.join(work, f"host{h}.log"), "w") as log:
+                    hosts.append(subprocess.Popen(
+                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                         sys.executable, os.path.join(REPO, "chip_smoke.py"), "--elastic-host",
+                         work],
+                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
+                        stdout=log, stderr=subprocess.STDOUT))
+
+            def watch(name: str) -> dict:
+                path = os.path.join(work, f"{name}.mark")
+                deadline = time.monotonic() + 420
+                while not os.path.exists(path):
+                    if any(p.poll() not in (None, 0) for p in hosts[:1]) or \
+                            time.monotonic() > deadline:
+                        return None
+                    time.sleep(0.02)
+                return _await_mark(work, name, 1)
+
+            if watch("want-server3") is not None:
+                time.sleep(0.5)  # host 0's REGISTER lands first
+                open(go_server, "w").close()
+            if watch("kill-sched") is not None:
+                t_kill = time.time()
+                procs[0].send_signal(signal.SIGKILL)
+                procs[0].wait(30)
+                open(go_sched, "w").close()
+                line = restarted.stdout.readline().strip()
+                if line != f"BYTEPS_SCHEDULER_PORT={port}":
+                    bad.append(f"the restarted scheduler reported {line!r}")
+                _mark(work, "sched-restarted")
+                print(f"{label}: the scheduler was killed and restarted on port {port} in "
+                      f"{time.time() - t_kill:.2f} s", flush=True)
+            deadline = time.monotonic() + 420
+            while hosts[0].poll() is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+            rcs = [p.poll() for p in hosts]
+            spare_rc = spare.poll()
+        finally:
+            _stop_processes(hosts)
+            _stop_processes(procs + [spare, restarted])
+        logs = {}
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"host{h}.log")) as f:
+                logs[h] = f.read()
+        if rcs[0] != 0 or rcs[1] in (None, 0):
+            for h, text in logs.items():
+                print(f"--- {label} host {h} (exit {rcs[h]}):\n{text[-6000:]}", file=sys.stderr)
+            fail(f"{label}: the hosts exited {rcs} (host 0 must end with 0, host 1 killed)")
+        results = []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"elastic{h}.json")) as f:
+                results.append(json.load(f))
+        report = _server_report(work)
+        with open(os.path.join(work, "server2.log")) as f:
+            spare_log = f.read()
+    # what each stage's probe must read: the sum of rank + 1 over its members
+    want_probe = {"1 both": 3, "2 alone": 1, "3 both again": 3, "4 three servers": 3,
+                  "5 two servers": 3, "6 clean": 3, "6 scheduler restart": 3,
+                  "7 after host 1 died": 1}
+    want_launch = {"flash_fwd": 2 * ELASTIC_LAYERS, "flash_bwd_dq": ELASTIC_LAYERS,
+                   "flash_bwd_dkv": ELASTIC_LAYERS}
+    for r in results:
+        for name, rec in r["stages"].items():
+            k4 = sorted({ln["onebit_pack"] for ln in rec["launches"]})
+            print(f"{label}, host {r['host']}, stage {name}: rank {rec['rank']} of {rec['size']}, "
+                  f"{rec['num_servers']} servers, generation {rec['generation']}, epoch "
+                  f"{rec['epoch']}; ms a step {[round(x, 1) for x in rec['ms']]}; losses "
+                  f"{[round(x, 4) for x in rec['losses']]}; probe {rec['probe']}; launches a "
+                  f"step K1-K3 {[[ln[k] for k in want_launch] for ln in rec['launches']]}, "
+                  f"K4 {k4}; d2h bytes a step {rec['d2h']}"
+                  + (f"; recovery {rec['recover_s']:.3f} s, of which init barriers "
+                     f"{rec['recover_blocking']['init_tensor'][1]:.3f} s "
+                     f"({rec['recover_blocking']['init_tensor'][0]} calls) and codec "
+                     f"registrations {rec['recover_blocking']['register_compressor'][1]:.3f} s "
+                     f"({rec['recover_blocking']['register_compressor'][0]} calls)"
+                     if rec.get("recover_s") is not None else "")
+                  + (f"; {rec['keys_moved']} of {rec['keys']} keys re-homed"
+                     if "keys_moved" in rec else "") + f"; on {card}", flush=True)
+            if any(p != want_probe[name] for p in rec["probe"]):
+                bad.append(f"host {r['host']} stage {name}: probe {rec['probe']}, want "
+                           f"{want_probe[name]}")
+            for ln in rec["launches"]:
+                if ({k: ln[k] for k in want_launch} != want_launch
+                        or ln["onebit_pack"] != rec["compressed_parts"]):
+                    bad.append(f"host {r['host']} stage {name}: launches {ln}, "
+                               f"{rec['compressed_parts']} compressed partitions")
+    h0, h1 = results
+    if h1.get("keys_before") != h1.get("keys_after"):
+        bad.append("host 1's keys changed across its suspend")
+    mem = (h1["mem_before_suspend"], h1["mem_after_resume"], h1["mem_after_steps"])
+    print(f"{label}: host 1 device bytes allocated before suspend {mem[0]['device']}, after "
+          f"resume {mem[1]['device']}, after its next steps {mem[2]['device']}; pinned host "
+          f"bytes {mem[0]['pinned']}, {mem[1]['pinned']}, {mem[2]['pinned']}", flush=True)
+    for kind in ("device", "pinned"):
+        if mem[0][kind] is not None and max(mem[1][kind], mem[2][kind]) > mem[0][kind]:
+            bad.append(f"host 1's {kind} memory grew across the suspend: {mem}")
+    for r in results:
+        three = r["stages"]["4 three servers"]
+        if three["num_servers"] != 3 or not three["keys_moved"]:
+            bad.append(f"host {r['host']}: no keys re-homed at three servers ({three})")
+    if h1["stages"]["4 three servers"]["generation"] < 1 or \
+            h0["stages"]["5 two servers"]["generation"] < 1:
+        bad.append("a live host did not bump its server generation")
+    if spare_rc != 0 or "rank 2 summed" not in spare_log:
+        bad.append(f"the third server did not exit on SHUTDOWN (exit {spare_rc})")
+    for r in results:
+        c = r["stages"]["6 scheduler restart"]
+        print(f"{label}, host {r['host']}: through the scheduler's restart losses "
+              f"{c['losses']} (without it {c['clean_losses']}), digests equal "
+              f"{c['digest'] == c['clean_digest']}; from the restart to the end of the step "
+              f"after it {c['restart_to_step_end_s']:.3f} s; epoch {c['epoch_before']} -> "
+              f"{c['epoch_after']}; counters {c['counters']}", flush=True)
+        if c["losses"] != c["clean_losses"] or c["digest"] != c["clean_digest"]:
+            bad.append(f"host {r['host']}: the steps through the restart are not bitwise")
+        if c["counters"]["sched_reconnect"] < 1 or c["counters"]["sched_rejoin"] < 1:
+            bad.append(f"host {r['host']} did not reconnect and rejoin: {c['counters']}")
+        if c["counters"]["worker_evicted"] or c["counters"]["server_evicted"]:
+            bad.append(f"host {r['host']}: an eviction at the restart: {c['counters']}")
+        if not c["epoch_after"] > c["epoch_before"] or not c["incarnation_newer"]:
+            bad.append(f"host {r['host']}: the first book was not fenced above the last")
+    for i, rep in enumerate(report):
+        rc = rep[5] if rep else {}
+        if rc.get("sched_reconnect", 0) < 1 or rc.get("sched_rejoin", 0) < 1:
+            bad.append(f"server {i} did not reconnect and rejoin: {rc}")
+    last = h0["stages"]["7 after host 1 died"]
+    print(f"{label}: host 0's step after host 1 died took {last['ms'][0]:.1f} ms, "
+          f"worker_evicted {last['worker_evicted']}", flush=True)
+    if last["worker_evicted"] != 1:
+        bad.append(f"host 1's eviction was not counted: {last['worker_evicted']}")
+    for line in _server_lines(report):
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    first = h0["stages"]["1 both"]["launches"][0]
+    return {k: first[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "onebit_pack")}
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -3490,6 +3933,9 @@ def main() -> None:
     planes["heal"] = train_heal(card)
     gc.collect()
     torch.cuda.empty_cache()
+    planes["elastic"] = train_elastic(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     planes["fusion"] = train_fusion(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3589,5 +4035,7 @@ if __name__ == "__main__":
         async_host(sys.argv[2])  # one host of the per-key async phase
     elif sys.argv[1:2] == ["--heal-host"]:
         heal_host(sys.argv[2])  # one host of the one-sided heal
+    elif sys.argv[1:2] == ["--elastic-host"]:
+        elastic_host(sys.argv[2])  # one host of phase (c), elastic membership
     else:
         main()
