@@ -3587,8 +3587,9 @@ def train_elastic(card: str) -> dict:
     (``elastic_host``); the driver starts the third server on host 0's cue,
     and kills the scheduler (SIGKILL) on another and restarts it on the
     same port.  Fails unless every probe pull is exactly the sum over the
-    members of its step, host 1's keys are the same after its resume, the
-    device and pinned memory did not grow across its suspend, the keys
+    members of its step, host 1's keys are the same after its resume, its
+    device and pinned memory right after the resume are no more than
+    before its suspend, the keys
     re-homed at three servers and the generation moved, the third server
     exited on SHUTDOWN, the steps through the scheduler's restart are
     bitwise the steps without it (losses and parameters), every node
@@ -3722,8 +3723,12 @@ def train_elastic(card: str) -> dict:
     print(f"{label}: host 1 device bytes allocated before suspend {mem[0]['device']}, after "
           f"resume {mem[1]['device']}, after its next steps {mem[2]['device']}; pinned host "
           f"bytes {mem[0]['pinned']}, {mem[1]['pinned']}, {mem[2]['pinned']}", flush=True)
+    # after the resume, against before the suspend: what the suspend left
+    # behind (the old engine's streams, workspaces, staging, results); the
+    # step ends after it are printed, but the buffers in flight at a step's
+    # end differ by a few MB from stage to stage
     for kind in ("device", "pinned"):
-        if mem[0][kind] is not None and max(mem[1][kind], mem[2][kind]) > mem[0][kind]:
+        if mem[0][kind] is not None and mem[1][kind] > mem[0][kind]:
             bad.append(f"host 1's {kind} memory grew across the suspend: {mem}")
     for r in results:
         three = r["stages"]["4 three servers"]
