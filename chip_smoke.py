@@ -3349,7 +3349,7 @@ ELASTIC_ENV = {"BYTEPS_HEARTBEAT_INTERVAL": "0.5", "BYTEPS_DEAD_NODE_TIMEOUT_S":
 
 
 def _mark(work: str, name: str, value=None) -> None:
-    """A phase (c) cue between the driver and the hosts: a JSON file in
+    """A phase (c) cue between the main process and the hosts: a JSON file in
     ``work``, renamed into place so that a reader never sees it half
     written."""
     path = os.path.join(work, f"{name}.mark")
@@ -3393,7 +3393,7 @@ def elastic_host(work: str) -> None:
     ELASTIC_STEPS steps at each stage: (1) both hosts; (2) host 1 suspends,
     host 0 resumes at one worker and trains alone; (3) host 0 resumes at two
     workers, then host 1 resumes; (4) host 0 resumes at three servers (its
-    book parks until the driver's third server registers), host 1 follows
+    book parks until the main process's third server registers), host 1 follows
     the book live; (5) host 1 resumes at two servers, host 0 follows, the
     third server stops; (6) the same steps twice from one state, the second
     time with the scheduler killed and restarted between them; (7) host 1
@@ -3584,7 +3584,7 @@ def elastic_host(work: str) -> None:
 def train_elastic(card: str) -> dict:
     """Phase (c): elastic membership.  A scheduler, two Python servers and a
     third waiting to be started, and two launcher hosts of one process each
-    (``elastic_host``); the driver starts the third server on host 0's cue,
+    (``elastic_host``); this process starts the third server on host 0's cue,
     and kills the scheduler (SIGKILL) on another and restarts it on the
     same port.  Fails unless every probe pull is exactly the sum over the
     members of its step, host 1's keys are the same after its resume, its

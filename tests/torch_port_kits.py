@@ -1,5 +1,5 @@
 """The PS control plane of either package behind one surface, for the
-membership tests (``test_torch_port_elastic.py``,
+membership tests (``test_torch_port_elastic*.py``,
 ``test_torch_port_sched_recovery.py``): each case runs once on the port
 and once on ``byteps_tpu`` with the same inputs, made from a numpy seed,
 and holds both to the same exact results."""
