@@ -50,7 +50,6 @@ autotuner's book sections are not sent (P3c).
 from __future__ import annotations
 
 import json
-import os
 import socket
 import sys
 import threading
