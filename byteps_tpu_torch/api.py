@@ -79,13 +79,8 @@ def resume(num_workers: Optional[int] = None, num_servers: Optional[int] = None,
         os.environ["DMLC_NUM_SERVER"] = str(num_servers)
     if global_rank is not None:
         os.environ["BYTEPS_GLOBAL_RANK"] = str(global_rank)
-    st = get_state()
-    st.resuming = True
-    try:
-        get_registry().redeclare_all()
-        init_state(st.device)
-    finally:
-        st.resuming = False
+    get_registry().redeclare_all()
+    init_state(get_state().device)
 
 
 def device() -> torch.device:

@@ -31,8 +31,9 @@ eviction" and "Control-plane recovery"):
   last message is older than that: the population shrinks, the barriers
   the dead node would have joined are scrubbed of its waiters and
   released when full, its connection is closed, and the books carry the
-  cumulative ``evictions``.  A worker whose book is parked (it cannot
-  heartbeat yet) is not evicted for its silence;
+  cumulative ``evictions``.  A worker whose book is parked on a server
+  scale-up cannot beat and is evicted alike once the timeout passes, so
+  the new server must register within it;
 - the scheduler restarts without state.  Each instance stamps its books
   with an incarnation id (nodes refuse an older one).  A restarted one
   rebuilds its table from the survivors' re-REGISTERs, which carry uid,
@@ -261,11 +262,8 @@ class Scheduler:
         with self._lock:
             if not self._addrbook_sent:
                 return  # nobody heartbeats before its book
-            parked = {id(p[0]) for p in self._parked_regs}
             for role in ("worker", "server"):
                 for n in self._nodes[role]:
-                    if id(n.conn) in parked:
-                        continue  # blocked on its book, so it cannot beat
                     if now - self._last_seen.get((role, n.rank), now) > self.dead_node_timeout:
                         doomed.append((role, n))
             if not doomed:

@@ -52,8 +52,6 @@ class RuntimeState:
         #: whose broadcast from the local root is still to come
         self.host_level: dict = {}
         self.initialized = False
-        #: set while resume() re-initializes
-        self.resuming = False
         #: the PS worker's identity, kept across suspend()/resume() so that
         #: the scheduler matches the rejoin to this worker's old registration
         #: (resolved at the first distributed init: ``BYTEPS_NODE_UID`` or a

@@ -163,6 +163,7 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3369,19 +3370,54 @@ def _await_mark(work: str, name: str, timeout: float = 300.0) -> dict:
         return json.load(f)
 
 
-def _memory() -> dict:
-    """Device bytes allocated, and pinned host bytes the caching host
-    allocator holds allocated (its stats, where this torch has them), once
-    the engine's stage threads and the device are idle (a stage polls its
-    queue every 0.2 s)."""
+def _memory(settle: float = 0.5) -> dict:
+    """What this process's live tensors hold, once the device is idle and,
+    after ``settle`` s, the engine's stage threads too (a stage polls its
+    queue every 0.2 s): the device bytes they requested (free of the
+    caching allocator's block rounding, which moves ``memory_allocated``
+    by up to a block from run to run; that is given beside it), the
+    pinned host bytes in use, and the live threads.  The device allocator
+    counts a freed block whose stream was recorded as requested until an
+    allocation finds that stream's event done: a one-byte allocation
+    makes it look.  The host allocator's stats count its free cache as
+    allocated, and in torch 2.11 its ``active_bytes`` never falls: the
+    cache is emptied first (the allocator looks at its events and returns
+    every free block), so that what stays allocated is in use; the next
+    step pins its staging anew."""
     import torch
 
     torch.cuda.synchronize()
-    time.sleep(0.5)
+    time.sleep(settle)
     gc.collect()
-    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
-    return {"device": torch.cuda.memory_allocated(),
-            "pinned": stats.get("allocated_bytes.current", stats.get("allocated_bytes", None))}
+    torch.empty(1, dtype=torch.uint8, device="cuda")
+    if not hasattr(torch._C, "_host_emptyCache"):
+        fail("elastic: this torch cannot empty its pinned host cache")
+    torch._C._host_emptyCache()
+    dev = torch.cuda.memory_stats()
+    host = torch.cuda.host_memory_stats()
+    if "requested_bytes.all.current" not in dev or "allocated_bytes.current" not in host:
+        fail("elastic: this torch reports no requested device bytes or no pinned "
+             f"bytes ({sorted(dev)[:8]}, {sorted(host)})")
+    return {"device": dev["requested_bytes.all.current"],
+            "allocated": torch.cuda.memory_allocated(),
+            "pinned": host["allocated_bytes.current"],
+            "threads": threading.active_count()}
+
+
+def _pinned_probe() -> dict:
+    """The pinned reading's own check: a 1 MiB pinned block filled from the
+    device by a non_blocking copy (so that the allocator records the copy's
+    stream on it, as on the engine's staging) shows in the reading while it
+    lives and leaves it once freed."""
+    import torch
+
+    base = _memory(0)
+    src = torch.ones(1 << 20, dtype=torch.uint8, device="cuda")
+    host = torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)
+    host.copy_(src, non_blocking=True)
+    live = _memory(0)
+    del host, src
+    return {"base": base["pinned"], "live": live["pinned"], "freed": _memory(0)["pinned"]}
 
 
 def elastic_host(work: str) -> None:
@@ -3445,11 +3481,14 @@ def elastic_host(work: str) -> None:
         return {n: reg.get(n).declared_key for n in reg._order}
 
     def train(label: str, steps: int = ELASTIC_STEPS, t_from: float = None,
-              before_step=None) -> dict:
+              before_step=None, mem: bool = False) -> dict:
         """``steps`` steps; each step's loss, ms, probe value, launches and
         d2h bytes, and the seconds from ``t_from`` (time.time()) to the end
-        of the first step, with the blocking requests in that step."""
-        rec = {"losses": [], "ms": [], "probe": [], "launches": [], "d2h": [], "t_end": []}
+        of the first step, with the blocking requests in that step; with
+        ``mem``, the memory after each step (``_memory``, outside the
+        step's time)."""
+        rec = {"losses": [], "ms": [], "probe": [], "launches": [], "d2h": [], "t_end": [],
+               "mem": []}
         for i in range(steps):
             if before_step is not None:
                 before_step(i)
@@ -3473,6 +3512,9 @@ def elastic_host(work: str) -> None:
             if i == 0 and t_from is not None:
                 rec["recover_s"] = time.time() - t_from
                 rec["recover_blocking"] = dict(blocking)
+            if mem:
+                del pulled, probe, loss
+                rec["mem"].append(_memory())
         rec.update(rank=bps.rank(), size=bps.size(),
                    generation=client().server_generation, epoch=client().membership_epoch,
                    num_servers=client().num_servers,
@@ -3488,12 +3530,17 @@ def elastic_host(work: str) -> None:
         bps.resume(**kw)
         return t
 
-    train("1 both")
+    if host == 1:
+        out["pinned_probe"] = _pinned_probe()
+    # both hosts read their memory after each step of stages 1 and 3: the
+    # readings with no suspend between them are the control of host 1's
+    # readings across its suspend
+    train("1 both", mem=True)
     # (2) host 1 suspends; host 0 resumes alone
     if host == 1:
         out["keys_before"] = keys()
-        out["mem_before_suspend"] = _memory()
         bps.suspend()
+        out["mem_after_suspend"] = _memory(0)
         _mark(work, "h1-suspended")
     else:
         _await_mark(work, "h1-suspended")
@@ -3506,11 +3553,9 @@ def elastic_host(work: str) -> None:
     if host == 1:
         _await_mark(work, "h0-back")
         t = resume(num_workers=2)
-        out["mem_after_resume"] = _memory()
+        out["mem_after_resume"] = _memory(0)
         out["keys_after"] = keys()
-    train("3 both again", t_from=t)
-    if host == 1:
-        out["mem_after_steps"] = _memory()
+    train("3 both again", t_from=t, mem=True)
     # (4) three servers: host 0 resumes, host 1 follows the book live
     homes = {r["key"]: client().server_for(r["key"]) for r in get_state().engine.partition_table()}
     gen = client().server_generation
@@ -3587,9 +3632,12 @@ def train_elastic(card: str) -> dict:
     (``elastic_host``); this process starts the third server on host 0's cue,
     and kills the scheduler (SIGKILL) on another and restarts it on the
     same port.  Fails unless every probe pull is exactly the sum over the
-    members of its step, host 1's keys are the same after its resume, its
-    device and pinned memory right after the resume are no more than
-    before its suspend, the keys
+    members of its step, host 1's keys are the same after its resume, the
+    most device and pinned memory its step ends after the resume held (or
+    it held right after the resume) exceed the most its step ends before
+    the suspend held by no more than two step ends with no suspend
+    between them grew, its threads at those step ends are as many, a
+    1 MiB pinned probe shows in the pinned reading while it lives, the keys
     re-homed at three servers and the generation moved, the third server
     exited on SHUTDOWN, the steps through the scheduler's restart are
     bitwise the steps without it (losses and parameters), every node
@@ -3719,17 +3767,37 @@ def train_elastic(card: str) -> dict:
     h0, h1 = results
     if h1.get("keys_before") != h1.get("keys_after"):
         bad.append("host 1's keys changed across its suspend")
-    mem = (h1["mem_before_suspend"], h1["mem_after_resume"], h1["mem_after_steps"])
-    print(f"{label}: host 1 device bytes allocated before suspend {mem[0]['device']}, after "
-          f"resume {mem[1]['device']}, after its next steps {mem[2]['device']}; pinned host "
-          f"bytes {mem[0]['pinned']}, {mem[1]['pinned']}, {mem[2]['pinned']}", flush=True)
-    # after the resume, against before the suspend: what the suspend left
-    # behind (the old engine's streams, workspaces, staging, results); the
-    # step ends after it are printed, but the buffers in flight at a step's
-    # end differ by a few MB from stage to stage
-    for kind in ("device", "pinned"):
-        if mem[0][kind] is not None and mem[1][kind] > mem[0][kind]:
-            bad.append(f"host 1's {kind} memory grew across the suspend: {mem}")
+    # memory across host 1's suspend: the most its step ends after the
+    # resume held against the most they held before the suspend, within
+    # the growth seen between step ends that no suspend separates (each
+    # host's two steps of stages 1 and 3)
+    kinds = ("device", "pinned")
+    before, after = h1["stages"]["1 both"]["mem"], h1["stages"]["3 both again"]["mem"]
+    spread = {kind: max(max(0, r["stages"][st]["mem"][1][kind] - r["stages"][st]["mem"][0][kind])
+                        for r in results for st in ("1 both", "3 both again"))
+              for kind in kinds}
+    for kind in kinds + ("allocated", "threads"):
+        print(f"{label}: host 1 {kind} at the step ends before its suspend "
+              f"{[m[kind] for m in before]}, right after it {h1['mem_after_suspend'][kind]}, "
+              f"right after the resume {h1['mem_after_resume'][kind]}, at the step ends after "
+              f"it {[m[kind] for m in after]}; host 0 at the same step ends "
+              f"{[m[kind] for m in h0['stages']['1 both']['mem']]}, "
+              f"{[m[kind] for m in h0['stages']['3 both again']['mem']]}", flush=True)
+    probe = h1["pinned_probe"]
+    print(f"{label}: the pinned reading with a 1 MiB pinned block: before {probe['base']}, "
+          f"while it lives {probe['live']}, once freed {probe['freed']}; the growth between "
+          f"step ends no suspend separates {spread}", flush=True)
+    if probe["live"] - probe["base"] != 1 << 20 or probe["freed"] != probe["base"]:
+        bad.append(f"the pinned reading does not follow a live 1 MiB block: {probe}")
+    if after[-1]["threads"] != before[-1]["threads"]:
+        bad.append(f"host 1 runs {after[-1]['threads']} threads at a step end after its "
+                   f"resume, {before[-1]['threads']} before its suspend")
+    for kind in kinds:
+        most = max(m[kind] for m in before)
+        grew = max(max(m[kind] for m in after), h1["mem_after_resume"][kind]) - most
+        if grew > spread[kind]:
+            bad.append(f"host 1's {kind} memory grew across the suspend by {grew}, more than "
+                       f"the {spread[kind]} two step ends with no suspend between them grew")
     for r in results:
         three = r["stages"]["4 three servers"]
         if three["num_servers"] != 3 or not three["keys_moved"]:

@@ -421,50 +421,6 @@ def test_fresh_first_boot_never_arms_the_window(pkg):
 # --- the books, field for field ----------------------------------------------------
 
 
-class _Node:
-    """A raw control connection that keeps every book it receives and,
-    while ``beating``, heartbeats."""
-
-    def __init__(self, k, port: int, payload: dict) -> None:
-        self.k = k
-        self.sock = socket.create_connection(("127.0.0.1", port), timeout=5)
-        self.books: list = []
-        self.beating = True
-        self.lock = threading.Lock()
-        self.send(k.tr.Message(k.tr.Op.REGISTER, payload=json.dumps(payload).encode()))
-        threading.Thread(target=self._read, daemon=True).start()
-        threading.Thread(target=self._beat, daemon=True).start()
-
-    def send(self, msg) -> None:
-        self.k.tr.send_message(self.sock, msg, self.lock)
-
-    def _read(self) -> None:
-        try:
-            while True:
-                msg = self.k.tr.recv_message(self.sock)
-                if msg.op == self.k.tr.Op.ADDRBOOK:
-                    book = kits.book_of(msg)
-                    book.pop("sched_incarnation", None)
-                    book["servers"] = len(book["servers"])  # addresses aside
-                    self.books.append((msg.seq == self.k.RESIZE_SEQ, book))
-                elif msg.op == self.k.tr.Op.SHUTDOWN:
-                    self.books.append(("SHUTDOWN", None))
-        except (ConnectionError, OSError, ValueError):
-            return
-
-    def _beat(self) -> None:
-        while self.beating:
-            try:
-                self.send(self.k.tr.Message(self.k.tr.Op.PING))
-            except OSError:
-                return
-            time.sleep(0.05)
-
-    def close(self) -> None:
-        self.beating = False
-        self.k.tr.close_socket(self.sock)
-
-
 def _scripted_books(pkg: str) -> dict:
     """Three registers, a resize by a live worker, the eviction of the
     server, a restart with the survivors' rejoin: every book each node
@@ -478,10 +434,10 @@ def _scripted_books(pkg: str) -> dict:
     sched.start()
     got = {}
     try:
-        s0 = _Node(k, sched.port, srv_payload)
-        w0 = _Node(k, sched.port, w("w0"))
+        s0 = kits.RawNode(k, sched.port, srv_payload)
+        w0 = kits.RawNode(k, sched.port, w("w0"))
         time.sleep(0.2)
-        w1 = _Node(k, sched.port, w("w1"))
+        w1 = kits.RawNode(k, sched.port, w("w1"))
         assert _wait(lambda: s0.books and w0.books and w1.books, 5)
         w1.close()  # w1 leaves; w0 resizes the job to one worker
         time.sleep(0.2)
@@ -503,10 +459,10 @@ def _scripted_books(pkg: str) -> dict:
         sched = k.Scheduler(1, 1, host="127.0.0.1", port=port, incarnation=2, rejoin_window=5)
         sched.start()
         last = w0.books[-1][1]
-        w0b = _Node(k, port, w("w0", num_workers=1, num_servers=1, last_rank=0,
+        w0b = kits.RawNode(k, port, w("w0", num_workers=1, num_servers=1, last_rank=0,
                                epoch=last["epoch"], map_epoch=last["map_epoch"],
                                reconnect=True))
-        s0b = _Node(k, port, {**srv_payload, "last_rank": 0, "epoch": last["epoch"],
+        s0b = kits.RawNode(k, port, {**srv_payload, "last_rank": 0, "epoch": last["epoch"],
                               "map_epoch": last["map_epoch"], "reconnect": True})
         assert _wait(lambda: w0b.books and s0b.books, 5)
         got = {"s0": s0.books, "w0": w0.books, "w1": w1.books, "w0b": w0b.books,

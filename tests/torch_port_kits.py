@@ -223,3 +223,50 @@ def worker_resize(monkeypatch, sched_kit, server_kit, worker_kits, native: bool 
     finally:
         srv.stop()
         sched.stop()
+
+
+class RawNode:
+    """A raw control connection that REGISTERs with ``payload``, keeps
+    every book it receives (addresses and the incarnation aside, so that
+    two packages' books compare), sets ``ended`` when the scheduler closes
+    it and, while ``beating``, heartbeats."""
+
+    def __init__(self, k, port: int, payload: dict, beat: bool = True) -> None:
+        self.k = k
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=5)
+        self.books: list = []
+        self.beating = beat
+        self.ended = threading.Event()
+        self.lock = threading.Lock()
+        self.send(k.tr.Message(k.tr.Op.REGISTER, payload=json.dumps(payload).encode()))
+        threading.Thread(target=self._read, daemon=True).start()
+        threading.Thread(target=self._beat, daemon=True).start()
+
+    def send(self, msg) -> None:
+        self.k.tr.send_message(self.sock, msg, self.lock)
+
+    def _read(self) -> None:
+        try:
+            while True:
+                msg = self.k.tr.recv_message(self.sock)
+                if msg.op == self.k.tr.Op.ADDRBOOK:
+                    book = book_of(msg)
+                    book.pop("sched_incarnation", None)
+                    book["servers"] = len(book["servers"])
+                    self.books.append((msg.seq == self.k.RESIZE_SEQ, book))
+                elif msg.op == self.k.tr.Op.SHUTDOWN:
+                    self.books.append(("SHUTDOWN", None))
+        except (ConnectionError, OSError, ValueError):
+            self.ended.set()
+
+    def _beat(self) -> None:
+        while self.beating:
+            try:
+                self.send(self.k.tr.Message(self.k.tr.Op.PING))
+            except OSError:
+                return
+            time.sleep(0.05)
+
+    def close(self) -> None:
+        self.beating = False
+        self.k.tr.close_socket(self.sock)
