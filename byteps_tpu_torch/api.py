@@ -72,13 +72,21 @@ def resume(num_workers: Optional[int] = None, num_servers: Optional[int] = None,
     a live scheduler the worker rejoins by its uid: a changed worker or
     server count resizes the job (a server scale-up returns once the new
     server registered), and the scheduler releases the rejoin's barrier at
-    once.  Each key runs its init barrier again on first use."""
+    once.  Each key runs its init barrier again on first use.
+
+    Under ``BYTEPS_ELASTIC_RESHARD=1`` a worker that was not suspended
+    resizes the job live instead (``PSClient.request_resize``): the servers
+    migrate the re-homed keys, and no init barrier runs again."""
     if num_workers is not None:
         os.environ["DMLC_NUM_WORKER"] = str(num_workers)
     if num_servers is not None:
         os.environ["DMLC_NUM_SERVER"] = str(num_servers)
     if global_rank is not None:
         os.environ["BYTEPS_GLOBAL_RANK"] = str(global_rank)
+    st = get_state()
+    if st.initialized and st.ps_client is not None and st.ps_client.reshard:
+        st.ps_client.request_resize(num_workers=num_workers, num_servers=num_servers)
+        return
     get_registry().redeclare_all()
     init_state(get_state().device)
 

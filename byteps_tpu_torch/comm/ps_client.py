@@ -49,9 +49,20 @@ The data plane heals itself (docs/robustness.md):
 
 A reply that fails its CRC32C is dropped, its request left pending for
 the deadline to send again; ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them give
-the connection up.  A reply with a flag or op the port does not serve, or
-with another op than its request's, fails its request at once, with the
-reason and no retry.
+the connection up.  A reply with a flag the port does not serve, or with
+another op than its request's (WRONG_OWNER aside), fails its request at
+once, with the reason and no retry.
+
+Online resharding (``BYTEPS_ELASTIC_RESHARD=1``, docs/robustness.md
+"migration flow"): the books' ownership map (``common.hashing.
+OwnershipMap``, from ``server_ranks`` and ``map_epoch``) routes each key,
+installed with the book's connections as one snapshot.  A resize keeps
+``server_generation`` (the servers migrate every re-homed key's state, so
+no init barrier runs again); a WRONG_OWNER reply waits, bounded, for the
+book of its map epoch and the request goes to the new owner, whose
+migrated ledger dedupes what the old owner summed (at most ``_max_chases``
+chases, which spend no retry; a fused frame fails instead, into the
+engine's unfused fallback).
 
 ``init_tensor`` carries the INIT profile extension: an async key with its
 staleness bound, and a server-side update rule with its hyperparameters;
@@ -90,7 +101,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from byteps_tpu_torch.common.config import UNPORTED, Config
-from byteps_tpu_torch.common.hashing import assign_server
+from byteps_tpu_torch.common.hashing import OwnershipMap, assign_server
 from byteps_tpu_torch.common.types import RequestType, get_command_type
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, GROUP_WORKERS, RESIZE_SEQ
@@ -98,7 +109,6 @@ from byteps_tpu_torch.comm.retry import Backoff
 from byteps_tpu_torch.comm.transport import (
     PROFILE_ASYNC,
     PROFILE_SERVER_OPT,
-    UNPORTED_OPS,
     Message,
     Op,
     checksum_conn_limit,
@@ -361,9 +371,6 @@ class _NativeServerConn:
             on_error(f"server {self.label} connection lost")
         elif op == -3:
             on_error(f"{name} reply from server {self.label} failed its CRC32C")
-        elif op in UNPORTED_OPS:
-            on_error(_Refusal(f"server {self.label} answered with {Op(op).name}: not "
-                              f"ported yet, {UNPORTED[UNPORTED_OPS[op]]}"))
         else:
             on_reply(Message(Op(op), key=key, payload=ZERO_COPIED if zc else body,
                              seq=seq, cmd=cmd, version=version, status=status,
@@ -439,6 +446,19 @@ class PSClient:
         self._heal_meta_lock = threading.Lock()
         self._heal_locks: Dict[str, threading.Lock] = {}
         self._heal_gen: Dict[str, int] = {}
+        # online resharding (docs/robustness.md "migration flow"): the
+        # books' ownership map routes, swapped with the connection list as
+        # one snapshot; a WRONG_OWNER reply waits (bounded) for the book of
+        # its map epoch, and the request is routed and sent again
+        self.reshard = cfg.elastic_reshard
+        #: the newest ownership map epoch adopted; _map_cv wakes chases
+        self.map_epoch = 0
+        self._map_cv = threading.Condition()
+        self._ownership: Optional[OwnershipMap] = None
+        #: (server connections, their ranks, the ownership map)
+        self._routing: tuple = ([], [], None)
+        #: WRONG_OWNER chases of one request before it fails
+        self._max_chases = 8
 
     # --- rendezvous ------------------------------------------------------
 
@@ -472,6 +492,8 @@ class PSClient:
         for i, (host, port) in enumerate(book["servers"]):
             self._server_addrs.append((host, port))
             self._servers.append(self._new_conn(host, port, str(i)))
+        self._install_routing(self._servers, book.get("server_ranks"),
+                              self._ownership_from_book(book))
         threading.Thread(target=self._sched_recv_loop, name="bps-sched-recv",
                          daemon=True).start()
         if self.cfg.heartbeat_interval > 0:
@@ -491,10 +513,11 @@ class PSClient:
         """A later book's worker count.  Under mixed hashing the count is an
         input of ``server_for``: a change re-homes keys with the server set
         unchanged, so it bumps ``server_generation`` too (after the count,
-        so that a re-init goes to the new owner)."""
+        so that a re-init goes to the new owner).  Not when an ownership
+        map routes: the map, not the hash, places the keys then."""
         n = self._book_num_workers(book)
-        moved = n != self.num_workers and (self.cfg.enable_mixed_mode
-                                           or self.cfg.key_hash_fn == "mixed")
+        moved = (n != self.num_workers and self._ownership is None
+                 and (self.cfg.enable_mixed_mode or self.cfg.key_hash_fn == "mixed"))
         self.num_workers = n
         if moved:
             with self._gen_lock:
@@ -535,6 +558,34 @@ class PSClient:
         for role, name in (("worker", "worker_evicted"), ("server", "server_evicted")):
             if ev.get(role):
                 counters().set_floor(name, int(ev[role]))
+
+    def _ownership_from_book(self, book: Optional[dict]) -> Optional[OwnershipMap]:
+        """The book's ownership map; None with resharding off, or for a book
+        that carries none."""
+        if not self.reshard or not book:
+            return None
+        ranks, epoch = book.get("server_ranks"), book.get("map_epoch")
+        if not ranks or epoch is None:
+            return None
+        return OwnershipMap(ranks, epoch=int(epoch), vnodes=self.cfg.ring_vnodes,
+                            overrides=book.get("ring_overrides"))
+
+    def _install_routing(self, servers, ranks, omap: Optional[OwnershipMap]) -> None:
+        """Swap the (connections, ranks, map) snapshot as one reference, and
+        wake the chases waiting for the map epoch it carries."""
+        self._routing = (servers, list(ranks or []), omap)
+        with self._map_cv:
+            self._ownership = omap
+            if omap is not None and omap.epoch > self.map_epoch:
+                self.map_epoch = omap.epoch
+            self._map_cv.notify_all()
+
+    def _wait_map_epoch(self, epoch: int, timeout: float) -> bool:
+        """Wait until the adopted map epoch reaches ``epoch`` (a redirect's),
+        or ``timeout``: a chase before its book would route as before."""
+        with self._map_cv:
+            return self._map_cv.wait_for(
+                lambda: self.map_epoch >= epoch or self._stop.is_set(), timeout)
 
     def _sched_request(self, msg: Message, timeout: Optional[float] = None) -> Message:
         """A scheduler request and its reply (matched by seq).
@@ -587,7 +638,8 @@ class PSClient:
         with self._sched_cb_lock:
             self._book_token += 1
             token = self._book_token
-        self._rebuild_servers(book["num_servers"], [tuple(a) for a in book["servers"]], token)
+        self._rebuild_servers(book["num_servers"], [tuple(a) for a in book["servers"]], token,
+                              book=book)
         return book
 
     def barrier(self, group: int = GROUP_WORKERS) -> None:
@@ -663,7 +715,7 @@ class PSClient:
                     threading.Thread(
                         target=self._rebuild_servers,
                         args=(book["num_servers"], [tuple(a) for a in book["servers"]], token),
-                        name="bps-rebuild", daemon=True).start()
+                        kwargs={"book": book}, name="bps-rebuild", daemon=True).start()
                     continue
                 with self._sched_cb_lock:
                     entry = self._sched_cbs.pop(msg.seq, None)
@@ -788,7 +840,8 @@ class PSClient:
         close_socket(old)
         threading.Thread(target=self._sched_recv_loop, name="bps-sched-recv",
                          daemon=True).start()
-        self._rebuild_servers(book["num_servers"], [tuple(a) for a in book["servers"]], token)
+        self._rebuild_servers(book["num_servers"], [tuple(a) for a in book["servers"]], token,
+                              book=book)
         with self._sched_cb_lock:
             alive = not self._sched_dead
             if alive:
@@ -797,12 +850,15 @@ class PSClient:
             metrics().gauge_set("control_plane_degraded", 0)
 
     def _rebuild_servers(self, num_servers: int, new_addrs: List[tuple],
-                         token: int = 1 << 62, retry_delay: float = 2.0) -> None:
-        """Adopt a book's server set: dial the new set, swap it in, bump
-        ``server_generation`` (keys re-home, and the engine re-runs their
-        init barriers), then close the old connections (their pending
-        requests fail into the retry path).  Serialized; a book that
-        arrived before the applied one is skipped by its token, and a book
+                         token: int = 1 << 62, retry_delay: float = 2.0,
+                         book: Optional[dict] = None) -> None:
+        """Adopt a book's server set: dial the new set, swap it in with the
+        book's ownership map, then close the old connections (their pending
+        requests fail into the retry path).  With no map, bump
+        ``server_generation`` (keys re-home onto empty stores, and the
+        engine re-runs their init barriers); under a map the servers
+        migrate each key's state, so the rounds go on with no re-init.
+        Serialized; a book that arrived before the applied one is skipped by its token, and a book
         that matches the live set is marked applied with no churn (so a
         rollback cancels an older book's pending retry).  A set that cannot
         be dialed keeps the old one and is tried again after
@@ -812,6 +868,10 @@ class PSClient:
                 return
             if new_addrs == self._server_addrs:
                 self.num_servers = num_servers
+                omap = self._ownership_from_book(book)
+                if omap is not None:
+                    # the same addresses may carry other ranks
+                    self._install_routing(self._servers, book.get("server_ranks"), omap)
                 self._applied_token = token
                 return
             fresh: list = []
@@ -835,7 +895,7 @@ class PSClient:
                         def retry() -> None:
                             if not self._stop.wait(retry_delay):
                                 self._rebuild_servers(num_servers, new_addrs, token,
-                                                      min(retry_delay * 2, 30.0))
+                                                      min(retry_delay * 2, 30.0), book)
 
                         threading.Thread(target=retry, name="bps-rebuild-retry",
                                          daemon=True).start()
@@ -848,8 +908,11 @@ class PSClient:
             old, self._servers = self._servers, fresh
             self._server_addrs = list(new_addrs)
             self.num_servers = num_servers
-            with self._gen_lock:
-                self.server_generation += 1
+            omap = self._ownership_from_book(book)
+            self._install_routing(fresh, (book or {}).get("server_ranks"), omap)
+            if omap is None:
+                with self._gen_lock:
+                    self.server_generation += 1
             self._applied_token = token
         for sc in old:
             sc.close_all()
@@ -918,9 +981,6 @@ class PSClient:
                 if lossless:
                     on_error(_Refusal(f"{op.name} reply carries a lossless container: "
                                       f"not ported yet, {UNPORTED['lossless']}"))
-                elif op in UNPORTED_OPS:
-                    on_error(_Refusal(f"server {sc.label} answered with {op.name}: "
-                                      f"not ported yet, {UNPORTED[UNPORTED_OPS[op]]}"))
                 else:
                     on_reply(Message(op, key=key, payload=payload, seq=seq,
                                      cmd=cmd, version=version, status=status,
@@ -931,13 +991,38 @@ class PSClient:
                 on_error(f"server {sc.label} connection lost")
 
     def server_for(self, key: int) -> int:
-        """The key's owning server rank (the hash over the server count)."""
+        """The key's owning server rank: the ownership map's owner under
+        resharding, else the hash over the server count."""
+        omap = self._ownership
+        if omap is not None:
+            return omap.owner(key)
+        return self._hash_index(key, self.num_servers)
+
+    def _await_redirect(self, key: int, epoch: int, n: int, redirected_by) -> bool:
+        """Before the ``n``-th chase of ``key``: wait (bounded) for the book
+        of the redirect's map ``epoch``, then back off while the map still
+        routes to the server that redirected (the key is on its way between
+        servers).  False once the client closed."""
+        self._wait_map_epoch(epoch, timeout=min(2.0, 0.25 * n))
+        if self._route_rank(key) == redirected_by:
+            return not self._stop.wait(min(2.0, 0.05 * 2 ** n))
+        return not self._stop.is_set()
+
+    def _route_rank(self, key: int) -> Optional[int]:
+        """The rank ``key`` routes to now (None without a book)."""
+        try:
+            return self.server_for(key)
+        except (ValueError, ZeroDivisionError):
+            return None
+
+    def _hash_index(self, key: int, num_servers: int) -> int:
         return assign_server(
-            key, self.num_servers, fn=self.cfg.key_hash_fn,
+            key, num_servers, fn=self.cfg.key_hash_fn,
             coef=self.cfg.built_in_hash_coef,
             mixed_mode=self.cfg.enable_mixed_mode,
             mixed_bound=self.cfg.mixed_mode_bound,
             num_workers=self.num_workers,
+            ring_vnodes=self.cfg.ring_vnodes,
         )
 
     def _sid(self, key: int) -> str:
@@ -953,7 +1038,17 @@ class PSClient:
         servers = self._servers
         if not servers:
             raise ConnectionError("no server connections")
-        idx = self.server_for(key)
+        # the map routes only with the list it was installed with (they
+        # swap together); mid-swap the hash routes, and a redirect corrects
+        routing = self._routing
+        ranks, omap = (routing[1], routing[2]) if routing[0] is servers else ([], None)
+        if omap is not None and len(ranks) == len(servers):
+            owner = omap.owner(key)
+            if owner not in ranks:
+                raise ConnectionError(f"owner rank {owner} is not in the current book")
+            idx = ranks.index(owner)
+        else:
+            idx = self._hash_index(key, self.num_servers)
         if idx >= len(servers):
             raise ConnectionError("the server set is being rebuilt")
         sc = servers[idx]
@@ -1120,15 +1215,20 @@ class PSClient:
     def _async_rpc(self, key: int, make_msg: Callable[[int], Message],
                    deliver: Callable[[Message], None], on_error: Callable[[str], None],
                    sink=None, abort_check: Optional[Callable[[], bool]] = None,
-                   heal: bool = True) -> None:
+                   heal: bool = True, chase: bool = True) -> None:
         """Send one request with deadline, retries and revival.
         ``make_msg(seq)`` builds each attempt's frame; ``deliver(msg)``
         fires once on success, ``on_error(reason)`` once when the retries
         (and with ``heal`` the in-place heal) are spent, when the server
         answered with a frame the port cannot use, or when ``abort_check()``
-        says the caller abandoned the request.  Each attempt's round trip
+        says the caller abandoned the request.  A WRONG_OWNER reply (the
+        key migrated) is chased: the request waits for the book of the
+        redirect's map epoch off the receiving thread, and is routed and
+        sent again, without spending a retry, at most ``_max_chases``
+        times; with ``chase`` off (a fused frame, whose members the new
+        map may split) it fails the request.  Each attempt's round trip
         is observed as ``rpc_round_trip_seconds{server}``."""
-        state = {"attempt": 0, "healed": False, "done": False}
+        state = {"attempt": 0, "healed": False, "done": False, "chases": 0, "rank": None}
         backoff = Backoff(base=self.cfg.rpc_backoff_s, cap=2.0)
         sid = self._sid(key)
 
@@ -1178,6 +1278,30 @@ class PSClient:
             counters().bump("rpc_retry", labels={"server": sid})
             self._timer_after(backoff.next_delay(), send_attempt)
 
+        def chase_redirect(msg: Message) -> None:
+            # the server holds a newer ownership map: the key migrated, and
+            # its new owner's migrated ledger dedupes whatever the old one
+            # summed already
+            counters().bump("wrong_owner_redirect", labels={"server": sid})
+            if aborted():
+                return
+            state["chases"] += 1
+            if not chase or self._stop.is_set() or state["chases"] > self._max_chases:
+                give_up(f"server {sid} answered WRONG_OWNER (map epoch {msg.version}); "
+                        + ("a fused frame does not chase" if not chase
+                           else f"{state['chases'] - 1} chases"))
+                return
+            target, n, redirected_by = msg.version, state["chases"], state["rank"]
+
+            def rechase() -> None:
+                if not aborted() and self._await_redirect(key, target, n, redirected_by):
+                    send_attempt()
+
+            # off the receiving thread: the book that ends the wait comes
+            # through the scheduler link, and a native drain thread must
+            # not block
+            self._dispatch_retry(rechase)
+
         def send_attempt() -> None:
             if aborted():
                 return
@@ -1189,12 +1313,16 @@ class PSClient:
             except (ConnectionError, OSError) as e:
                 retry_later(f"server {sid}: {e}")
                 return
+            state["rank"] = self._route_rank(key)
             token = [None]
             sent = [None, 0.0]  # op, time
 
             def on_reply(msg: Message) -> None:
                 self._deadline_clear(token[0])
                 if aborted():
+                    return
+                if msg.op == Op.WRONG_OWNER:
+                    chase_redirect(msg)
                     return
                 if msg.op != sent[0]:
                     terminal(f"server {sc.label} answered a {sent[0].name} request with "
@@ -1235,8 +1363,8 @@ class PSClient:
     def _blocking_request(self, sc, make_msg, what: str, timeout: Optional[float] = None,
                           expect: Optional[Op] = None) -> Message:
         """One request on ``sc``, waiting for its reply (of op ``expect``,
-        by default the request's).  ConnectionError when the connection is
-        or goes down, or ``timeout`` passes (then the connection is torn
+        by default the request's, or a WRONG_OWNER redirect).
+        ConnectionError when the connection is or goes down, or ``timeout`` passes (then the connection is torn
         down, as the deadline thread does); :class:`RequestFailed` when
         the server answered with a frame the port cannot use."""
         done = threading.Event()
@@ -1265,7 +1393,7 @@ class PSClient:
                 raise RequestFailed(f"{what}: {reply}")
             raise ConnectionError(f"{what}: {reply}")
         want = expect if expect is not None else msg.op
-        if reply.op != want:
+        if reply.op not in (want, Op.WRONG_OWNER):
             raise RequestFailed(f"{what}: server {sc.label} answered a {msg.op.name} "
                                 f"request with {reply.op.name}")
         return reply
@@ -1273,27 +1401,42 @@ class PSClient:
     def _blocking_request_retrying(self, key: int, make_msg, what: str,
                                    use_deadline: bool = True) -> Message:
         """A blocking request (init, compressor registration) with retries,
-        revival and the RPC deadline; ``use_deadline=False`` takes
-        ``BYTEPS_INIT_DEADLINE_S`` instead, for the init barrier, whose ack
-        waits for every peer worker.  Safe to send again: the server keys
-        init waiters by worker and overwrites a codec chain."""
+        revival, the RPC deadline and the WRONG_OWNER chase;
+        ``use_deadline=False`` takes ``BYTEPS_INIT_DEADLINE_S`` instead, for
+        the init barrier, whose ack waits for every peer worker.  Safe to
+        send again: the server keys init waiters by worker and overwrites a
+        codec chain."""
         backoff = Backoff(base=self.cfg.rpc_backoff_s, cap=2.0)
         deadline = ((self.cfg.rpc_deadline_s if use_deadline else self.cfg.init_deadline_s)
                     or None)
         sid = self._sid(key)
         last: Optional[BaseException] = None
-        for attempt in range(self.cfg.rpc_retries + 1):
-            if attempt:
-                counters().bump("rpc_retry", labels={"server": sid})
-                if self._stop.wait(backoff.next_delay()):
-                    break
+        attempt = chases = 0
+        while attempt <= self.cfg.rpc_retries:
+            rank = self._route_rank(key)
             try:
                 sc = self._conn_for(key, revive=attempt > 0)
-                return self._blocking_request(sc, make_msg, what, deadline)
+                resp = self._blocking_request(sc, make_msg, what, deadline)
             except RequestFailed:
                 raise
             except (ConnectionError, OSError) as e:
                 last = e
+                attempt += 1
+                if attempt <= self.cfg.rpc_retries:
+                    counters().bump("rpc_retry", labels={"server": sid})
+                    if self._stop.wait(backoff.next_delay()):
+                        break
+                continue
+            if resp.op != Op.WRONG_OWNER:
+                return resp
+            # the key migrated: a chase spends no retry, and is capped
+            counters().bump("wrong_owner_redirect", labels={"server": sid})
+            chases += 1
+            if chases > self._max_chases:
+                last = ConnectionError(f"{chases - 1} WRONG_OWNER chases")
+                break
+            if not self._await_redirect(key, resp.version, chases, rank):
+                break
         counters().bump("rpc_giveup", labels={"server": sid})
         raise RequestFailed(f"{what}: {last or 'the client closed'}")
 
@@ -1355,10 +1498,12 @@ class PSClient:
         def recovery_rpc(k: int, make_msg, what: str, expect: Optional[Op] = None):
             """One blocking request, sent again within the heal's budget;
             None once the budget or the server is gone."""
+            chases = 0
             while True:
                 remaining = deadline_at - time.monotonic()
                 if remaining <= 0 or self._stop.is_set():
                     return None
+                rank = self._route_rank(k)
                 per_try = (min(remaining, max(0.2, self.cfg.rpc_deadline_s))
                            if self.cfg.rpc_deadline_s > 0 else remaining)
                 try:
@@ -1366,7 +1511,7 @@ class PSClient:
                 except (ConnectionError, OSError):
                     return None  # not dialable: not a one-sided fault
                 try:
-                    return self._blocking_request(sc, make_msg, what, per_try, expect)
+                    resp = self._blocking_request(sc, make_msg, what, per_try, expect)
                 except RequestFailed:
                     return None
                 except ConnectionError:
@@ -1374,6 +1519,15 @@ class PSClient:
                     if self._stop.wait(min(backoff.next_delay(),
                                            max(0.0, deadline_at - time.monotonic()))):
                         return None
+                    continue
+                if resp.op != Op.WRONG_OWNER:
+                    return resp
+                # the key migrated: the replay goes to its new owner, whose
+                # migrated ledger says what it absorbed
+                counters().bump("wrong_owner_redirect", labels={"server": sid})
+                chases += 1
+                if not self._await_redirect(k, resp.version, chases, rank):
+                    return None
 
         resp = recovery_rpc(
             route_key,
@@ -1511,7 +1665,7 @@ class PSClient:
             route_key,
             lambda seq: Message(Op.FUSED, key=route_key, seq=seq, payload=frame,
                                 cmd=len(members), flags=flags),
-            deliver, on_error, abort_check=abort_check, heal=False,
+            deliver, on_error, abort_check=abort_check, heal=False, chase=False,
         )
 
     def pull(self, key: int, version: int, cb: Callable, on_error: Callable[[str], None],

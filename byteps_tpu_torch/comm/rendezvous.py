@@ -43,9 +43,16 @@ eviction" and "Control-plane recovery"):
   long it waits for every reported rank before adopting the partial
   population (a first boot never arms the window).
 
-``map_epoch`` is carried and fenced as the reference does; it holds no
-ownership map (online resharding is ROADMAP.md Queue 1b item P3b), and the
-autotuner's book sections are not sent (P3c).
+Online resharding (``BYTEPS_ELASTIC_RESHARD=1``, docs/robustness.md
+"migration flow"): ``map_epoch`` is bumped only when the server set
+changes, and with ``server_ranks`` it names the ownership map (a
+consistent-hash ring over those ranks, ``common.hashing.OwnershipMap``)
+that every receiver builds from its book.  A scale-down then queues each
+dropped server for a drain book (the settled topology, its own rank
+excluded, ``"drain": true``), sent after the map-epoch bump, instead of a
+SHUTDOWN: the server ships every key to its new owner and stops itself.
+The autotuner's book sections (``tuning``, ``ring_overrides``) are not
+sent (ROADMAP.md Queue 1b item P3c).
 """
 
 from __future__ import annotations
@@ -101,7 +108,7 @@ class Scheduler:
                  dead_node_timeout: Optional[float] = None,
                  incarnation: Optional[int] = None,
                  rejoin_window: Optional[float] = None) -> None:
-        from byteps_tpu_torch.common.config import _env_float
+        from byteps_tpu_torch.common.config import _env_bool, _env_float
 
         self.num_workers = num_workers
         self.num_servers = num_servers
@@ -129,6 +136,12 @@ class Scheduler:
         #: the epoch of the server set (bumped when it changes)
         self.map_epoch = 0
         self._map_sig: Optional[tuple] = None
+        #: the resharding policy: a scale-down drains the dropped servers
+        #: (they ship their keys out and stop) instead of stopping them cold
+        self.reshard = _env_bool("BYTEPS_ELASTIC_RESHARD")
+        #: dropped servers awaiting their drain book, sent after the
+        #: map-epoch bump in _complete_recovery
+        self._pending_drains: List[_Node] = []
         #: cumulative evictions per role, carried in every book
         self.eviction_totals: Dict[str, int] = {"worker": 0, "server": 0}
         from byteps_tpu_torch.comm.chaos import ChaosParams, control_chaos_enabled
@@ -303,6 +316,10 @@ class Scheduler:
             return False
         self._map_sig = sig
         self.map_epoch += 1
+        from byteps_tpu_torch.core.telemetry import metrics
+
+        # the ownership map's version, beside the servers' owned-key gauges
+        metrics().gauge_set("cluster_map_epoch", self.map_epoch)
         return True
 
     def _scrub_barrier_waiters_locked(self, dead_conn) -> None:
@@ -384,6 +401,9 @@ class Scheduler:
                     self._nodes["server"] = keep
                     for n in dropped:
                         self._conn_ids.pop(n.conn, None)
+                        if self.reshard:
+                            self._pending_drains.append(n)
+                            continue
                         try:
                             send_message(n.conn, Message(Op.SHUTDOWN, seq=RESIZE_SEQ),
                                          n.send_lock)
@@ -544,8 +564,14 @@ class Scheduler:
                     if node.conn not in exclude:
                         self._send_addrbook_to(node.conn, node.send_lock, r, node.rank,
                                                RESIZE_SEQ)
+        # each dropped server drains against the settled topology
+        drains, self._pending_drains = self._pending_drains, []
+        for n in drains:
+            self._send_addrbook_to(n.conn, n.send_lock, "server", n.rank, RESIZE_SEQ,
+                                   drain=True)
 
-    def _send_addrbook_to(self, conn, send_lock, role, rank, seq, recovery=False) -> None:
+    def _send_addrbook_to(self, conn, send_lock, role, rank, seq, recovery=False,
+                          drain=False) -> None:
         servers = sorted(self._nodes["server"], key=lambda n: n.rank)
         book = {
             "role": role,
@@ -565,6 +591,15 @@ class Scheduler:
             "sched_incarnation": self.incarnation,
             "jobs": self._jobs_map_locked(),
         }
+        if drain:
+            # this server is off the rank list: it ships every key it
+            # holds to the book's owners, then stops
+            book["drain"] = True
+        elif self._pending_drains:
+            # the ranks leaving by a drain (alive, shipping their keys):
+            # their keys' new owners park requests until the state lands,
+            # where a rank that left by eviction has nothing to ship
+            book["draining"] = sorted(n.rank for n in self._pending_drains)
         try:
             send_message(conn, Message(Op.ADDRBOOK, payload=json.dumps(book).encode(),
                                        seq=seq), send_lock)

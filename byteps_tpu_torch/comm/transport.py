@@ -71,17 +71,11 @@ class Op(enum.IntEnum):
     # the recovery plane
     RESYNC_QUERY = 23
     RESYNC_STATE = 24
-    # the resharding plane (not served by the port)
+    # the resharding plane: an old owner ships one key's state to its new
+    # owner; a server answers a request for a key it no longer owns with a
+    # redirect whose header version is the new map epoch
     MIGRATE_STATE = 25
     WRONG_OWNER = 26
-
-
-#: ops the port receives but does not serve: a frame of one of them fails
-#: the request it belongs to
-UNPORTED_OPS = {
-    Op.MIGRATE_STATE: "reshard",
-    Op.WRONG_OWNER: "reshard",
-}
 
 
 class ChecksumError(ValueError):
@@ -98,8 +92,7 @@ class ChecksumError(ValueError):
 
 class UnsupportedFrameError(ValueError):
     """A received frame needs a plane the port does not carry (a lossless
-    container, or a migration op).  Raised after the frame was
-    consumed."""
+    container).  Raised after the frame was consumed."""
 
 
 #: ops that carry a checksum under BYTEPS_WIRE_CHECKSUM=1: the data plane
@@ -522,6 +515,68 @@ def decode_resync_state(payload: bytes) -> dict:
     if not isinstance(raw, dict) or not isinstance(raw.get("keys", {}), dict):
         raise ValueError("resync state body must be a JSON object")
     return {int(k): v for k, v in raw.get("keys", {}).items()}
+
+
+# --- the resharding plane (Op.MIGRATE_STATE / Op.WRONG_OWNER) -------------
+#
+# MIGRATE_STATE body: u32 JSON length, the JSON metadata (key, map epoch,
+# dtype, round state, the exactly-once ledger ``push_seen``, the init-token
+# record ``init_done``, the profile and the server-side optimizer's rule,
+# step and slot layout), then the raw store, the raw accumulator and the
+# optimizer's raw slots.  The receiver acks with an empty MIGRATE_STATE
+# reply (nonzero status: refused).  WRONG_OWNER body: JSON {"owner": rank,
+# "epoch": map_epoch}; the header ``version`` carries the epoch too.
+
+
+def encode_migrate_state(meta: dict, store: bytes = b"", accum: bytes = b"") -> bytes:
+    """The body of an Op.MIGRATE_STATE frame; ``meta`` already carries
+    ``store_nbytes``/``accum_nbytes`` matching the raw tails."""
+    head = json.dumps(meta).encode()
+    return struct.pack("!I", len(head)) + head + store + accum
+
+
+def decode_migrate_state(payload: bytes) -> Tuple[dict, bytes, bytes]:
+    """Inverse of :func:`encode_migrate_state`: (meta, store, accum);
+    ValueError on a malformed or truncated body."""
+    if len(payload) < 4:
+        raise ValueError("migrate frame too short")
+    (hlen,) = struct.unpack_from("!I", payload, 0)
+    if 4 + hlen > len(payload):
+        raise ValueError("migrate frame truncated (header)")
+    meta = json.loads(payload[4: 4 + hlen].decode())
+    if not isinstance(meta, dict):
+        raise ValueError("migrate metadata must be a JSON object")
+    off = 4 + hlen
+    sn = int(meta.get("store_nbytes", 0))
+    an = int(meta.get("accum_nbytes", 0))
+    if sn < 0 or an < 0 or off + sn + an > len(payload):
+        raise ValueError("migrate frame truncated (payload)")
+    return meta, payload[off: off + sn], payload[off + sn: off + sn + an]
+
+
+def decode_migrate_extra(payload: bytes, meta: dict) -> bytes:
+    """The raw tail behind store and accumulator in a MIGRATE_STATE body:
+    the optimizer's slot bytes (``meta["opt_slot_nbytes"]`` splits it)."""
+    (hlen,) = struct.unpack_from("!I", payload, 0)
+    off = 4 + hlen + int(meta.get("store_nbytes", 0)) + int(meta.get("accum_nbytes", 0))
+    return payload[off:]
+
+
+def encode_wrong_owner(epoch: int, owner: int) -> bytes:
+    """The body of an Op.WRONG_OWNER reply."""
+    return json.dumps({"owner": int(owner), "epoch": int(epoch)}).encode()
+
+
+def decode_wrong_owner(payload: bytes) -> Tuple[int, int]:
+    """(map_epoch, owner_rank); an empty or unreadable body gives (0, -1)
+    (the header ``version`` is the authoritative epoch)."""
+    try:
+        raw = json.loads(payload.decode()) if payload else {}
+    except (ValueError, UnicodeDecodeError):
+        raw = {}
+    if not isinstance(raw, dict):
+        raw = {}
+    return int(raw.get("epoch", 0)), int(raw.get("owner", -1))
 
 
 def connect(host: str, port: int, timeout: float = 30.0) -> socket.socket:

@@ -144,6 +144,19 @@ class Config:
     #: turns the in-place heal off
     resync_deadline_s: float = 5.0  # BYTEPS_RESYNC_DEADLINE_S
 
+    # --- online resharding (docs/robustness.md "migration flow") ---
+    #: ownership is an epoch-stamped consistent-hash ring: on a server-set
+    #: change the old owners ship each re-homed key's state to its new
+    #: owner over Op.MIGRATE_STATE and stale requests chase Op.WRONG_OWNER,
+    #: with no re-init barrier; off, a resize re-homes keys by the hash
+    #: fns and the engine re-runs every init barrier
+    elastic_reshard: bool = False  # BYTEPS_ELASTIC_RESHARD
+    #: virtual points per server rank on the ring (also fn="ring")
+    ring_vnodes: int = 64  # BYTEPS_RING_VNODES
+    #: how long a new owner parks requests for a key whose migration is
+    #: inbound before it drops them back to the caller's retry path
+    migrate_deadline_s: float = 10.0  # BYTEPS_MIGRATE_DEADLINE_S
+
     @property
     def is_distributed(self) -> bool:
         """More than one worker, or the single-worker fake-cluster
@@ -202,6 +215,9 @@ class Config:
             journal_rounds=max(0, _env_int("BYTEPS_JOURNAL_ROUNDS", 2)),
             journal_bytes=max(1, _env_int("BYTEPS_JOURNAL_BYTES", 64 << 20)),
             resync_deadline_s=_env_float("BYTEPS_RESYNC_DEADLINE_S", 5.0),
+            elastic_reshard=_env_bool("BYTEPS_ELASTIC_RESHARD"),
+            ring_vnodes=max(1, _env_int("BYTEPS_RING_VNODES", 64)),
+            migrate_deadline_s=_env_float("BYTEPS_MIGRATE_DEADLINE_S", 10.0),
         )
 
 
@@ -233,8 +249,6 @@ def clear_config() -> None:
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "reshard": "online resharding (key migration between servers): ROADMAP.md Queue 1b "
-               "item P3b",
     "autotune": "the autotuner (BYTEPS_AUTOTUNE): ROADMAP.md Queue 1b item P3c",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
     "van": "the uds and shm vans (and the chaos van around them): ROADMAP.md Queue 1b item P8",
@@ -253,7 +267,6 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_ELASTIC_RESHARD", "reshard", truthy),
     ("BYTEPS_AUTOTUNE", "autotune", truthy),
     ("BYTEPS_VAN", "van", lambda v: v not in ("tcp", "chaos:tcp")),
     ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),

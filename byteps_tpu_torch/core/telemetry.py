@@ -29,7 +29,13 @@ Counters (:func:`counters`):
   ``server_evicted`` (the cumulative evictions the scheduler's books
   report), ``sched_stale_book`` (books refused as from an older scheduler
   incarnation), ``sched_reconnect`` (redials of a lost scheduler link)
-  and ``sched_rejoin`` (rejoins that succeeded).
+  and ``sched_rejoin`` (rejoins that succeeded);
+- online resharding: ``migration_keys_moved`` / ``_received`` (keys a
+  server shipped out and installed), ``migration_failed`` (shipments
+  that did not land), ``wrong_owner_served`` (stale requests a Python
+  server redirected), ``wrong_owner_redirect{server}`` (redirects a
+  worker chased), ``native_wrong_owner`` (the C++ server's, read from
+  its counters).
 
 Histograms (:func:`metrics`), fixed buckets with percentile snapshots,
 the reference's names and bounds:
@@ -43,13 +49,17 @@ the reference's names and bounds:
 - ``fused_pack_keys`` (members a flushed pack) and
   ``fused_flush_age_seconds`` (its oldest member's wait);
 - ``retry_backoff_seconds``: each backoff delay (``comm/retry.py``);
+- ``migration_key_seconds``: one key's shipment, snapshot to the new
+  owner's ack (``server/server.py``);
 - the C++ lanes' ``native_*`` families, read through the histogram
   provider seam (``native/__init__.py``).
 
 Gauges (:meth:`MetricsRegistry.gauge_set`): ``fusion_threshold_bytes``,
 the fusion threshold the worker's engine runs; ``control_plane_degraded``,
 1 while a node's scheduler link is down (it trains on its last book),
-else 0.
+else 0; ``server_owned_keys{rank}`` and ``server_map_epoch{rank}``, the
+keys a server holds and the ownership map it adopted;
+``cluster_map_epoch``, the scheduler's map epoch.
 
 Prometheus exposition, the heartbeat deltas and the flight recorder's
 hooks are not ported (ROADMAP.md Queue 1 item 10).

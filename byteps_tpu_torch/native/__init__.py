@@ -99,11 +99,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bps_native_server_set_num_workers": ([c.c_int32, c.c_int32], None),
         "bps_native_server_set_live_workers": ([c.c_int32, c.POINTER(c.c_uint8),
                                                 c.c_int32], None),
+        "bps_native_server_set_ownership": ([c.c_int32, c.c_int32, c.c_uint32, c.c_int32,
+                                             c.POINTER(c.c_uint64),
+                                             c.POINTER(c.c_int32)], None),
         "bps_native_server_stop": ([c.c_int32], None),
         "bps_native_server_counters": ([c.c_int32, c.POINTER(c.c_uint64), c.c_int32],
                                        c.c_int32),
         "bps_native_server_metrics_json": ([c.c_int32, c.c_void_p, c.c_uint64], c.c_int64),
         "bps_wire_key_stripe": ([c.c_uint64, c.c_int32], c.c_int32),
+        "bps_wire_ring_hash": ([c.c_uint64], c.c_uint64),
         "bps_wire_golden": ([c.c_void_p, c.c_uint64], c.c_int64),
         "bps_wire_golden_compressed": ([c.c_void_p, c.c_uint64], c.c_int64),
         "bps_wire_golden_checksum": ([c.c_void_p, c.c_uint64], c.c_int64),
@@ -187,6 +191,23 @@ def native_client_histograms(handle: int) -> list:
 def key_stripe(key: int, n_stripes: int) -> int:
     """The reducer lane a key is pinned to (wire.h ``key_stripe``)."""
     return int(get_lib().bps_wire_key_stripe(key, n_stripes))
+
+
+def ring_key_hash(key: int) -> int:
+    """A key's ring coordinate as the C++ engine computes it (wire.h
+    ``ring_key_hash``); ``common.hashing.ring_key_hash`` is its twin."""
+    return int(get_lib().bps_wire_ring_hash(key))
+
+
+def set_server_ownership(server_id: int, my_rank: int, epoch: int, points) -> None:
+    """Hand a native server an ownership map: the ring's sorted
+    ``(point hash, rank)`` pairs, this server's rank and the map epoch its
+    WRONG_OWNER redirects carry.  No points turns the check off."""
+    n = len(points)
+    hashes = (ctypes.c_uint64 * max(1, n))(*[h for h, _ in points])
+    ranks = (ctypes.c_int32 * max(1, n))(*[r for _, r in points])
+    get_lib().bps_native_server_set_ownership(server_id, int(my_rank), int(epoch) & 0xFFFFFFFF,
+                                             n, hashes, ranks)
 
 
 def _ptr(a: np.ndarray):

@@ -22,6 +22,13 @@ server-side optimizer profile with status 1 and counts it
 with the reason (``comm/ps_client.py``), and nothing falls back to the
 Python engine.
 
+Under ``BYTEPS_ELASTIC_RESHARD=1`` each book's ring goes into the engine
+(``bps_native_server_set_ownership``), which then answers WRONG_OWNER for
+a key the map homes elsewhere (``native_wrong_owner``).  The engine cannot
+export or import key state, so it neither ships nor receives a
+migration, and it refuses a drain book loudly: the server stays up, off
+the book and still authoritative for what it holds.
+
 The engine answers Op.RESYNC_QUERY from its own replay ledger
 (``native_resync_query``) and acks a replayed INIT from its barrier's
 token record (``native_init_replay_ack``), so a worker heals in place
@@ -35,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import os
 import socket
+import sys
 import threading
 from typing import Dict, List, Optional
 
@@ -73,6 +81,8 @@ class NativePSServer:
         self.membership_epoch = 0
         self._map_epoch = 0
         self._sched_shutdown = False
+        #: a drain book came, and was refused
+        self.drain_refused = False
         self._stop = threading.Event()
         self._stop_lock = threading.Lock()
         self._stopped = False
@@ -96,6 +106,29 @@ class NativePSServer:
     _control_plane_loop = PSServer._control_plane_loop
     _sched_reconnect = PSServer._sched_reconnect
     _spawn = PSServer._spawn
+
+    def _adopt_book(self, book: dict) -> None:
+        """Hand a book's ownership map to the engine: the ring's sorted
+        (point, rank) pairs, this server's rank and the map epoch.  A drain
+        book is refused (stopping would lose every key held)."""
+        if not self.cfg.elastic_reshard or self.rank is None:
+            return
+        epoch, ranks = book.get("map_epoch"), book.get("server_ranks")
+        if epoch is None or not ranks:
+            return
+        if book.get("drain"):
+            print(f"byteps_tpu_torch server: native server rank {self.rank} received a "
+                  "drain book but the C++ engine cannot migrate state: staying up to keep "
+                  "it (run Python-engine servers with BYTEPS_ELASTIC_RESHARD)",
+                  file=sys.stderr, flush=True)
+            self.drain_refused = True
+            return
+        from byteps_tpu_torch.common.hashing import HashRing
+        from byteps_tpu_torch.native import set_server_ownership
+
+        set_server_ownership(self._id, int(self.rank), int(epoch),
+                             HashRing(ranks, vnodes=self.cfg.ring_vnodes).points())
+        self._map_epoch = max(self._map_epoch, int(epoch))
 
     def update_num_workers(self, n: int) -> None:
         """A resized worker count, in the engine (which completes the rounds

@@ -49,6 +49,20 @@ SHUTDOWN from a scale-down stops it; books of an older scheduler
 incarnation are refused; a lost scheduler link is redialed with bounded
 backoff while the data plane serves on.
 
+Online resharding (``BYTEPS_ELASTIC_RESHARD=1``, docs/robustness.md
+"migration flow"): each book's ``server_ranks`` and ``map_epoch`` name an
+ownership map (``common.hashing.OwnershipMap``).  On a newer one the
+server ships each key the map homes elsewhere to its new owner over
+Op.MIGRATE_STATE: the store, the accumulator, the replay ledger, the init
+tokens, the codec config, the async profile and the update rule with its
+step and slots, snapshotted in the same ``ks.lock`` section as the key's
+tombstone.  A request for a shipped key, or for a key the map homes
+elsewhere that the server never held, is answered Op.WRONG_OWNER with the
+new map epoch (a fused frame once, as a whole); a request for a key whose
+state is on its way here parks until it lands
+(``BYTEPS_MIGRATE_DEADLINE_S``).  A drain book (a scale-down) ships every
+key, and the server then stops by itself.
+
 Sums and codecs run in the port's C++ (``native.cpu_reducer``,
 ``compression/impl.py``), as the reference's Python server's do.
 Each push's sum is observed as ``server_sum_seconds`` and the publish of
@@ -56,8 +70,8 @@ the round it closed as ``server_publish_seconds``; a server process logs
 its pushes, rounds, parked pulls and those histograms when it stops
 (:func:`stop_report`).  ``BYTEPS_SERVER_NATIVE=1`` serves the data plane
 in C++ instead (``server/native.py``).  The planes of the reference's
-server that are not ported (migration, row-sparse, multi-tenant job
-namespaces, lossless frames) are refused loudly: the request's
+server that are not ported (row-sparse, multi-tenant job namespaces,
+lossless frames) are refused loudly: the request's
 connection is closed, or its INIT is answered with a non-zero status, and
 the reason goes to stderr.
 """
@@ -81,30 +95,36 @@ from byteps_tpu_torch.common.config import (
     check_unported_env,
     resolve_node_uid,
 )
+from byteps_tpu_torch.common.hashing import OwnershipMap
 from byteps_tpu_torch.common.registry import JOB_SHIFT
 from byteps_tpu_torch.common.types import (
     DataType,
     RequestType,
     decode_command_type,
     storage_numpy_dtype,
+    to_datatype,
 )
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, RESIZE_SEQ, Scheduler
 from byteps_tpu_torch.comm.transport import (
     PROFILE_ASYNC,
     PROFILE_SERVER_OPT,
     RULE_BLOCK_OFFSET,
-    UNPORTED_OPS,
     ChecksumError,
     Message,
     Op,
     UnsupportedFrameError,
     close_socket,
+    connect,
     decode_fused_push,
     decode_init_profile,
+    decode_migrate_extra,
+    decode_migrate_state,
     decode_resync_query,
     decode_server_opt_block,
     encode_fused_reply,
+    encode_migrate_state,
     encode_resync_state,
+    encode_wrong_owner,
     recv_message,
     send_message,
 )
@@ -125,9 +145,10 @@ class _KeyState:
     __slots__ = (
         "store", "accum", "dtype_id", "recv_count", "store_version",
         "pending_pulls", "fused_waiters", "init_waiters", "init_done", "push_seen",
-        "compressor",
+        "compressor", "compressor_kwargs",
         "pull_payload", "pull_version", "raw_payload", "raw_version",
-        "async_mode", "staleness", "opt_rule", "opt_step", "opt_seeded", "lock",
+        "async_mode", "staleness", "opt_rule", "opt_step", "opt_seeded",
+        "migrated_to", "migrate_epoch", "lock",
     )
 
     def __init__(self) -> None:
@@ -148,6 +169,9 @@ class _KeyState:
         #: worker flag -> newest summed push version (exactly-once sums)
         self.push_seen: Dict[int, int] = {}
         self.compressor = None
+        #: the codec config the chain was built from (it ships with a
+        #: migration, and the new owner builds the chain again)
+        self.compressor_kwargs: Dict[str, str] = {}
         self.pull_payload: Optional[bytes] = None
         self.pull_version = -1
         self.raw_payload: Optional[bytes] = None
@@ -162,6 +186,11 @@ class _KeyState:
         self.opt_rule: Optional[update_rules.UpdateRule] = None
         self.opt_step = 0
         self.opt_seeded: set = set()
+        #: the resharding tombstone: the rank this key's state was shipped
+        #: to (None: it lives here), and the map epoch of the last
+        #: migration in either direction, which WRONG_OWNER carries
+        self.migrated_to: Optional[int] = None
+        self.migrate_epoch = 0
         self.lock = threading.Lock()
 
     def wire_payload(self, compressed: bool, async_mode: bool = False) -> bytes:
@@ -196,7 +225,7 @@ class _FusedReply:
     sendable, as one frame on the request's seq."""
 
     __slots__ = ("conn", "send_lock", "seq", "route_key", "keys", "slots",
-                 "versions", "remaining", "lock")
+                 "versions", "remaining", "aborted", "lock")
 
     def __init__(self, conn, send_lock, seq: int, route_key: int, keys: List[int]) -> None:
         self.conn = conn
@@ -207,18 +236,30 @@ class _FusedReply:
         self.slots: List[Optional[bytes]] = [None] * len(keys)
         self.versions = [0] * len(keys)
         self.remaining = len(keys)
+        #: the frame was answered out of band (WRONG_OWNER, or parked on a
+        #: migration): no later publish may answer its seq again
+        self.aborted = False
         self.lock = threading.Lock()
 
     def fill(self, slot: int, payload: bytes, version: int) -> bool:
         """Record one member's payload; True once, when it completed the
         frame."""
         with self.lock:
-            if self.slots[slot] is not None:
+            if self.aborted or self.slots[slot] is not None:
                 return False
             self.slots[slot] = payload
             self.versions[slot] = version
             self.remaining -= 1
             return self.remaining == 0
+
+    def abort(self) -> bool:
+        """Mark the frame answered out of band; True once, for the caller
+        that then sends the out-of-band reply on its seq."""
+        with self.lock:
+            if self.aborted or self.remaining == 0:
+                return False
+            self.aborted = True
+            return True
 
     def send(self) -> None:
         body = encode_fused_reply(list(zip(self.keys, self.versions, self.slots)))
@@ -279,6 +320,22 @@ class PSServer:
         #: ``pushes_summed`` (worker pushes merged into a round) and
         #: ``rounds_published``, logged when the process stops
         self.stats = Counters()
+        # --- online resharding (docs/robustness.md "migration flow") ---
+        #: ownership is the books' epoch-stamped ring over server ranks:
+        #: on a newer map this server ships each re-homed key to its new
+        #: owner, answers stale requests with WRONG_OWNER, and parks the
+        #: requests of a key whose migration is inbound
+        self.reshard = cfg.elastic_reshard
+        self._ownership: Optional[OwnershipMap] = None
+        self._prev_ownership: Optional[OwnershipMap] = None
+        self._own_lock = threading.Lock()
+        self._peer_addrs: Dict[int, tuple] = {}
+        #: ranks the last book says leave by a drain (they ship their keys)
+        self._draining: set = set()
+        #: key -> parked (time, msg, conn, send_lock)
+        self._awaiting: Dict[int, List[tuple]] = {}
+        self._awaiting_lock = threading.Lock()
+        self._awaiting_sweeper: Optional[threading.Thread] = None
 
     # --- lifecycle -------------------------------------------------------
 
@@ -362,6 +419,7 @@ class PSServer:
             # barriers as a resize book does
             self.update_num_workers(book["num_workers"])
         self._adopt_worker_ranks(book)
+        self._adopt_book(book)
         self._note_book(book)
         return conn
 
@@ -405,6 +463,8 @@ class PSServer:
             self._note_book(book)
             self.update_num_workers(book["num_workers"])
             self._adopt_worker_ranks(book)
+            # last: a drain's wave, and its stop, see the settled count
+            self._adopt_book(book)
             return
         if msg.op == Op.SHUTDOWN:
             self._sched_shutdown = True  # a deliberate exit, not a lost link
@@ -491,6 +551,409 @@ class PSServer:
                     flush = self._publish_round_locked(ks)
             self._flush_pulls(key, flush)
 
+    # --- online resharding (docs/robustness.md "migration flow") ---------
+
+    def _adopt_book(self, book: dict) -> None:
+        """Adopt a book's ownership map.  A newer map epoch starts a
+        migration wave: each key this server holds that the new map homes
+        on another rank is shipped there.  A drain book leaves this
+        server's rank out, so its wave ships every key, and then the
+        server stops."""
+        if not self.reshard or self.rank is None:
+            return
+        epoch, ranks = book.get("map_epoch"), book.get("server_ranks")
+        if epoch is None or not ranks:
+            return
+        drain = bool(book.get("drain"))
+        servers = [tuple(a) for a in (book.get("servers") or [])]
+        with self._own_lock:
+            cur = self._ownership
+            if cur is not None and int(epoch) <= cur.epoch and not drain:
+                return  # an older or repeated book
+            new_map = OwnershipMap(ranks, epoch=int(epoch), vnodes=self.cfg.ring_vnodes,
+                                   overrides=book.get("ring_overrides"))
+            self._prev_ownership, self._ownership = cur, new_map
+            self._map_epoch = max(self._map_epoch, new_map.epoch)
+            self._peer_addrs = {int(r): servers[i] for i, r in enumerate(ranks)
+                                if i < len(servers)}
+            self._draining = {int(r) for r in book.get("draining") or ()}
+        self._update_owned_gauge()
+        # the wave dials peers and ships payloads: off the control thread
+        self._spawn(self._migrate_wave, (new_map, drain), "ps-migrate")
+
+    def _migrate_wave(self, new_map: OwnershipMap, drain: bool) -> None:
+        """Ship every re-homed key to its new owner, one key at a time over
+        one connection per destination.  A key is served as usual up to
+        the instant of its snapshot and redirected after it.  A shipment
+        that fails is tried again with backoff (on a scale-up the new
+        owner may not accept yet); a scale-up wave gives up when a newer
+        map supersedes it, a drain retries until the store is empty and
+        only then stops the server: stopping with keys unshipped would
+        lose them, so a server that cannot drain stays up, off the book
+        and still authoritative."""
+        t0 = time.monotonic()
+        total_moved = total_bytes = 0
+        failed = 0
+        for attempt in range(120 if drain else 40):
+            conns: Dict[int, socket.socket] = {}
+            moved = failed = 0
+            try:
+                with self._keys_lock:
+                    keys = sorted(self._keys)
+                for key in keys:
+                    if self._stop.is_set():
+                        return
+                    if self._ownership is not new_map and not drain:
+                        return  # superseded: the newer map's wave owns it
+                    with self._keys_lock:
+                        ks = self._keys.get(key)
+                    if ks is None:
+                        continue
+                    owner = (self._ownership or new_map).owner(key)
+                    if owner == self.rank:
+                        continue
+                    nbytes = self._migrate_key(key, ks, owner, new_map.epoch, conns)
+                    if nbytes is False:
+                        failed += 1
+                    elif nbytes is not None:
+                        moved += 1
+                        total_bytes += nbytes
+            finally:
+                for sock in conns.values():
+                    close_socket(sock)
+            total_moved += moved
+            self._update_owned_gauge()
+            if failed:
+                _log(f"rank {self.rank} migration wave (map epoch {new_map.epoch}): "
+                     f"{failed} keys not shipped yet, trying again")
+            if not failed:
+                break
+            if self._stop.wait(min(2.0, 0.25 * (attempt + 1))):
+                return
+        wall = time.monotonic() - t0
+        if total_moved or drain:
+            _log(f"rank {self.rank} migration wave (map epoch {new_map.epoch}"
+                 f"{', drain' if drain else ''}): shipped {total_moved} keys, {total_bytes} "
+                 f"bytes in {wall * 1e3:.1f} ms")
+        if drain and not self._stop.is_set():
+            if failed:
+                _log(f"rank {self.rank}: drain incomplete ({failed} keys not shipped); "
+                     "staying up to keep their state")
+                return
+            _log(f"rank {self.rank} drained ({total_moved} keys, {total_bytes} bytes "
+                 "shipped): stopping")
+            self._sched_shutdown = True  # a deliberate exit, not a lost link
+            self.stop()
+
+    def _migrate_key(self, key: int, ks: _KeyState, owner: int, epoch: int,
+                     conns: Dict[int, socket.socket]):
+        """Ship one key's state to ``owner``: the bytes shipped, False when
+        the shipment failed (this server stays authoritative), None when
+        there was nothing to ship.  The snapshot and the tombstone are
+        taken in one ``ks.lock`` section, so that every push lands before
+        the snapshot (and ships in it) or is redirected after it."""
+        addr = self._peer_addrs.get(owner)
+        with ks.lock:
+            if ks.migrated_to is not None:
+                return None  # shipped by an earlier wave
+            pend, ks.pending_pulls = ks.pending_pulls, []
+            fusedw, ks.fused_waiters = ks.fused_waiters, []
+            initw, ks.init_waiters = ks.init_waiters, []
+            if ks.store is None:
+                # nothing to ship (no init barrier completed here): the
+                # parked waiters chase to the new owner and init there
+                self._redirect_waiters(key, epoch, owner, pend, fusedw, initw)
+                return None
+            if addr is None:
+                ks.pending_pulls, ks.fused_waiters, ks.init_waiters = pend, fusedw, initw
+                counters().bump("migration_failed")
+                return False
+            dt = DataType(ks.dtype_id)
+            meta = {
+                "key": int(key),
+                "epoch": int(epoch),
+                "dtype": "bfloat16" if dt == DataType.BFLOAT16 else str(ks.store.dtype),
+                "store_version": int(ks.store_version),
+                "recv_count": int(ks.recv_count),
+                "push_seen": {str(w): int(v) for w, v in ks.push_seen.items()},
+                "init_done": {str(w): int(v) for w, v in ks.init_done.items()},
+                "compressor_kwargs": dict(ks.compressor_kwargs),
+                "async_mode": bool(ks.async_mode),
+                "staleness": int(ks.staleness),
+            }
+            store_b = ks.store.tobytes()
+            accum_b = ks.accum.tobytes() if ks.recv_count else b""
+            meta["store_nbytes"], meta["accum_nbytes"] = len(store_b), len(accum_b)
+            extra_b = b""
+            if ks.opt_rule is not None:
+                # the update rule's state moves with the store, its slots
+                # as raw tails behind the accumulator
+                blobs = ks.opt_rule.slot_bytes()
+                meta.update(opt_rule=ks.opt_rule.name, opt_hp=dict(ks.opt_rule.hp),
+                            opt_step=int(ks.opt_step),
+                            opt_seeded=sorted(int(w) for w in ks.opt_seeded),
+                            opt_slot_nbytes=[len(b) for b in blobs])
+                extra_b = b"".join(blobs)
+            # from here on a request is redirected: nothing can change the
+            # state already serialized
+            ks.migrated_to = owner
+            ks.migrate_epoch = epoch
+        self._redirect_waiters(key, epoch, owner, pend, fusedw, initw)
+        body = encode_migrate_state(meta, store_b, accum_b) + extra_b
+        t0 = time.monotonic()
+        ok = False
+        try:
+            sock = conns.get(owner)
+            if sock is None:
+                sock = connect(addr[0], addr[1], timeout=self.cfg.migrate_deadline_s)
+                sock.settimeout(max(1.0, self.cfg.migrate_deadline_s))
+                conns[owner] = sock
+            send_message(sock, Message(Op.MIGRATE_STATE, key=key, version=epoch,
+                                       payload=body))
+            resp = recv_message(sock)
+            # status 3: the key is live there already (an earlier shipment
+            # landed and its ack was lost): it is home, drop this copy
+            ok = resp.op == Op.MIGRATE_STATE and resp.status in (0, 3)
+        except (ConnectionError, OSError, ValueError, struct.error) as e:
+            _log(f"rank {self.rank}: shipping key {key} to rank {owner} failed: {e!r}")
+            close_socket(conns.pop(owner, None))
+        if not ok:
+            # this server stays authoritative; a later attempt ships it
+            with ks.lock:
+                ks.migrated_to = None
+            counters().bump("migration_failed")
+            return False
+        with ks.lock:
+            # keep the tombstone, free the bulk
+            ks.store = ks.accum = None
+            ks.push_seen, ks.init_done = {}, {}
+            ks.pull_payload = ks.raw_payload = None
+            ks.pull_version = ks.raw_version = -1
+            ks.compressor = None
+            ks.clear_rule()
+        counters().bump("migration_keys_moved")
+        metrics().observe("migration_key_seconds", time.monotonic() - t0)
+        return len(body)
+
+    @staticmethod
+    def _redirect_waiters(key: int, epoch: int, owner: int, pending_pulls=(),
+                          fused_waiters=(), init_waiters=()) -> None:
+        """Answer the parked requests of a migrating key with WRONG_OWNER:
+        their workers chase to the new owner rather than wait on state that
+        just left."""
+        payload = encode_wrong_owner(epoch, owner)
+        targets = [(c, lk, sq) for _v, c, lk, sq, _w in pending_pulls]
+        seen: set = set()
+        for _v, reply, _slot, _w in fused_waiters:
+            if id(reply) not in seen:
+                seen.add(id(reply))
+                if reply.abort():
+                    targets.append((reply.conn, reply.send_lock, reply.seq))
+        targets += [(c, lk, sq) for _wid, c, lk, sq, _tok in init_waiters]
+        for conn, lock, seq in targets:
+            try:
+                send_message(conn, Message(Op.WRONG_OWNER, key=key, seq=seq, version=epoch,
+                                           payload=payload), lock)
+            except (ConnectionError, OSError):
+                continue
+
+    def _redirect_locked(self, key: int, ks: Optional[_KeyState]):
+        """(epoch, owner) when a request for ``key`` must be redirected,
+        else None; caller holds ``ks.lock``.  A key this server still holds
+        is served even when the new map homes it elsewhere (its shipment
+        carries those sums); a shipped key, and a key this server never
+        held that the map homes elsewhere (a stale worker's), redirect.  A
+        shipped key that a newer map homes here again (a drain sends it
+        back) does not: its requests park until it lands."""
+        if not self.reshard:
+            return None
+        omap = self._ownership
+        if ks is not None and ks.migrated_to is not None:
+            if (omap is not None and omap.epoch > ks.migrate_epoch
+                    and omap.owner(key) == self.rank):
+                return None  # a newer map homes it here again: it is on its way back
+            return (ks.migrate_epoch, ks.migrated_to)
+        if omap is None or self.rank is None:
+            return None
+        owner = omap.owner(key)
+        if owner == self.rank or (ks is not None and ks.store is not None):
+            return None
+        return (omap.epoch, owner)
+
+    def _send_wrong_owner(self, conn, send_lock, msg: Message, redirect) -> None:
+        epoch, owner = redirect
+        counters().bump("wrong_owner_served")
+        send_message(conn, Message(Op.WRONG_OWNER, key=msg.key, seq=msg.seq, version=epoch,
+                                   payload=encode_wrong_owner(epoch, owner)), send_lock)
+
+    def _redirect_or_park_locked(self, key: int, ks: _KeyState, msg: Message, conn,
+                                 send_lock) -> bool:
+        """A push's or pull's gate, under ``ks.lock``: True when the request
+        was answered WRONG_OWNER or parked on an inbound migration."""
+        redirect = self._redirect_locked(key, ks)
+        if redirect is not None:
+            self._send_wrong_owner(conn, send_lock, msg, redirect)
+            return True
+        if ks.store is None and self._should_park(key):
+            self._park_awaiting(key, msg, conn, send_lock)
+            return True
+        return False
+
+    def _should_park(self, key: int) -> bool:
+        """A request for a key this server does not hold parks when the map
+        homes the key here and its previous owner is alive, so that its
+        state is on the way; not when that owner left the map (nothing will
+        come, and the worker's re-init path rebuilds the key), unless the
+        book says it leaves by a drain, shipping its keys."""
+        if not self.reshard or self.rank is None:
+            return False
+        omap = self._ownership
+        if omap is None or omap.owner(key) != self.rank:
+            return False
+        prev = self._prev_ownership
+        if prev is not None:
+            old = prev.owner(key)
+            if old != self.rank and old not in omap.ranks and old not in self._draining:
+                return False
+        return True
+
+    def _park_awaiting(self, key: int, msg: Message, conn, send_lock) -> None:
+        """Hold a request until its key's migration lands (taken again by
+        :meth:`_handle_migrate`), or ``BYTEPS_MIGRATE_DEADLINE_S`` passes
+        (the sweep closes its connection, into the worker's retry path)."""
+        with self._awaiting_lock:
+            self._awaiting.setdefault(key, []).append((time.monotonic(), msg, conn, send_lock))
+            if self._awaiting_sweeper is None:
+                self._awaiting_sweeper = threading.Thread(
+                    target=self._awaiting_sweep_loop, name="ps-migrate-park", daemon=True)
+                self._awaiting_sweeper.start()
+
+    def _awaiting_sweep_loop(self) -> None:
+        while not self._stop.wait(0.25):
+            cutoff = time.monotonic() - max(0.5, self.cfg.migrate_deadline_s)
+            doomed: List[tuple] = []
+            with self._awaiting_lock:
+                for key in list(self._awaiting):
+                    keep = []
+                    for entry in self._awaiting[key]:
+                        (doomed if entry[0] < cutoff else keep).append(entry)
+                    if keep:
+                        self._awaiting[key] = keep
+                    else:
+                        del self._awaiting[key]
+            for _t, _msg, conn, _lock in doomed:
+                close_socket(conn)
+
+    def _handle_migrate(self, msg: Message, conn, send_lock) -> None:
+        """Op.MIGRATE_STATE: install one key's state from its old owner, ack
+        it and take again the requests parked on the key.  The ack's
+        status: 0 installed; 1 resharding is off here; 2 the sender's map
+        is older than this server's and the key is homed elsewhere (the
+        sender's next wave ships it right); 3 the key is live here already
+        (a duplicate whose first ack was lost, or a stale copy): it is
+        home.  A shipment of an older migration epoch than the key's last
+        acks without touching newer state."""
+        if not self.reshard:
+            send_message(conn, Message(Op.MIGRATE_STATE, key=msg.key, seq=msg.seq, status=1),
+                         send_lock)
+            return
+        try:
+            meta, store_b, accum_b = decode_migrate_state(msg.payload)
+            key = int(meta["key"])
+            epoch = int(meta.get("epoch", msg.version))
+            dtype_id = int(to_datatype(str(meta["dtype"])))
+            extra_b = decode_migrate_extra(msg.payload, meta) if meta.get("opt_rule") else b""
+        except (KeyError, ValueError, TypeError, UnicodeDecodeError, struct.error):
+            close_socket(conn)  # a malformed control frame
+            return
+        omap = self._ownership
+        if (omap is not None and self.rank is not None and omap.epoch > epoch
+                and omap.owner(key) != self.rank):
+            send_message(conn, Message(Op.MIGRATE_STATE, key=key, seq=msg.seq, status=2),
+                         send_lock)
+            return
+        ks = self._key_state(key)
+        with ks.lock:
+            home = ks.store is not None and ks.migrated_to is None
+            if not home:
+                self._install_migrated_locked(ks, epoch, dtype_id, meta, store_b, accum_b,
+                                              extra_b)
+        if home:
+            send_message(conn, Message(Op.MIGRATE_STATE, key=key, seq=msg.seq, status=3),
+                         send_lock)
+            return
+        counters().bump("migration_keys_received")
+        send_message(conn, Message(Op.MIGRATE_STATE, key=key, seq=msg.seq), send_lock)
+        with self._awaiting_lock:
+            parked = self._awaiting.pop(key, [])
+        for _t, m, c, lk in parked:
+            self._enqueue(m, c, lk)
+        self._update_owned_gauge()
+
+    def _install_migrated_locked(self, ks: _KeyState, epoch: int, dtype_id: int, meta: dict,
+                                 store_b: bytes, accum_b: bytes, extra_b: bytes) -> None:
+        """Install a shipped key state; caller holds ``ks.lock``."""
+        from byteps_tpu_torch.compression.registry import apply_lr_to_chain, create_compressor
+
+        prev_epoch = ks.migrate_epoch
+        if epoch < prev_epoch:
+            return  # a straggler of an older migration
+        ks.migrated_to = None
+        ks.migrate_epoch = epoch
+        store_version = int(meta.get("store_version", 0))
+        if not (ks.store is None or epoch > prev_epoch or store_version >= ks.store_version):
+            return
+        dt = storage_numpy_dtype(DataType(dtype_id))
+        ks.dtype_id = dtype_id
+        ks.store = np.frombuffer(store_b, dtype=dt).copy()
+        ks.accum = (np.frombuffer(accum_b, dtype=dt).copy() if accum_b
+                    else np.zeros_like(ks.store))
+        ks.store_version = store_version
+        ks.recv_count = int(meta.get("recv_count", 0))
+        ks.push_seen = {int(w): int(v) for w, v in (meta.get("push_seen") or {}).items()}
+        ks.init_done = {int(w): int(v) for w, v in (meta.get("init_done") or {}).items()}
+        ks.compressor_kwargs = {str(k): str(v)
+                                for k, v in (meta.get("compressor_kwargs") or {}).items()}
+        if meta.get("async_mode"):
+            ks.async_mode = True
+            ks.staleness = max(-1, int(meta.get("staleness", -1)))
+        ks.clear_rule()
+        if meta.get("opt_rule"):
+            # the rule again, its slots from the raw tail: the trajectory
+            # goes on bitwise here
+            rule = update_rules.make_rule(meta["opt_rule"], meta.get("opt_hp") or {},
+                                          ks.store.size, ks.store.dtype)
+            blobs, off = [], 0
+            for nb in meta.get("opt_slot_nbytes") or ():
+                blobs.append(extra_b[off: off + int(nb)])
+                off += int(nb)
+            rule.load_slot_bytes(blobs)
+            ks.opt_rule = rule
+            ks.opt_step = int(meta.get("opt_step", 0))
+            ks.opt_seeded = {int(w) for w in (meta.get("opt_seeded") or ())}
+        ks.compressor = None
+        if ks.compressor_kwargs:
+            ks.compressor = create_compressor(ks.compressor_kwargs, ks.store.size, server=True)
+            apply_lr_to_chain(ks.compressor, self._ef_lr)
+        ks.pull_payload = ks.raw_payload = None
+        ks.pull_version = ks.raw_version = -1
+
+    def owned_keys(self) -> int:
+        """The keys this server holds (not shipped away)."""
+        with self._keys_lock:
+            states = list(self._keys.values())
+        return sum(1 for ks in states if ks.store is not None and ks.migrated_to is None)
+
+    def _update_owned_gauge(self) -> None:
+        """``server_owned_keys{rank}`` and ``server_map_epoch{rank}``."""
+        if not self.reshard or self.rank is None:
+            return
+        labels = {"rank": str(self.rank)}
+        metrics().gauge_set("server_owned_keys", self.owned_keys(), labels=labels)
+        omap = self._ownership
+        if omap is not None:
+            metrics().gauge_set("server_map_epoch", omap.epoch, labels=labels)
+
     # --- serve plane -----------------------------------------------------
 
     def _accept_loop(self) -> None:
@@ -523,15 +986,14 @@ class PSServer:
                     self._enqueue(msg, conn, send_lock)
                 elif msg.op == Op.REGISTER_COMPRESSOR:
                     self._handle_register_compressor(msg, conn, send_lock)
+                elif msg.op == Op.MIGRATE_STATE:
+                    # a peer ships one key's state, and blocks on the ack
+                    self._handle_migrate(msg, conn, send_lock)
                 elif msg.op == Op.PING:
                     send_message(conn, Message(Op.PING, seq=msg.seq), send_lock)
                 elif msg.op == Op.SHUTDOWN:
                     send_message(conn, Message(Op.SHUTDOWN, seq=msg.seq), send_lock)
                     return
-                elif msg.op in UNPORTED_OPS:
-                    raise UnsupportedFrameError(
-                        f"{msg.op.name} request: {UNPORTED[UNPORTED_OPS[msg.op]]}"
-                    )
                 else:
                     raise UnsupportedFrameError(f"unexpected {msg.op.name} request")
         except (ChecksumError, UnsupportedFrameError) as e:
@@ -576,6 +1038,7 @@ class PSServer:
                 ks.compressor = create_compressor(kwargs, size, server=True)
             except ValueError as e:
                 raise UnsupportedFrameError(f"key {msg.key}: {e}") from None
+            ks.compressor_kwargs = kwargs
             apply_lr_to_chain(ks.compressor, self._ef_lr)
         send_message(conn, Message(Op.REGISTER_COMPRESSOR, seq=msg.seq), send_lock)
 
@@ -641,10 +1104,22 @@ class PSServer:
                 self._reject_server_opt(msg, conn, send_lock, e)
                 return
         ks = self._key_state(msg.key)
+        created = False
         with ks.lock:
+            # atomic with the wave's snapshot and tombstone: a key homed
+            # elsewhere is never created here
+            redirect = self._redirect_locked(msg.key, ks)
+            if redirect is not None:
+                self._send_wrong_owner(conn, send_lock, msg, redirect)
+                return
+            if ks.store is None and ks.migrated_to is not None and self._should_park(msg.key):
+                # the key's state is on its way back here
+                self._park_awaiting(msg.key, msg, conn, send_lock)
+                return
             ks.async_mode = bool(profile & PROFILE_ASYNC)
             ks.staleness = max(-1, int(staleness)) if ks.async_mode else -1
             if ks.store is None:
+                created = True
                 dt = storage_numpy_dtype(DataType(dtype_id))
                 ks.dtype_id = dtype_id
                 ks.store = np.zeros(n, dtype=dt)
@@ -681,6 +1156,8 @@ class PSServer:
             counters().bump("init_replay_ack")
             send_message(conn, Message(Op.INIT, key=msg.key, seq=msg.seq), send_lock)
             return
+        if created:
+            self._update_owned_gauge()
         if waiters:
             self._release_init_waiters(msg.key, waiters)
 
@@ -866,6 +1343,8 @@ class PSServer:
         ks = self._key_state(msg.key)
         flush: List = []
         with ks.lock:
+            if self._redirect_or_park_locked(msg.key, ks, msg, conn, send_lock):
+                return
             compressed, arr = self._push_args(ks, msg)
             published = self._apply_push_locked(ks, msg, compressed, arr, flush)
         self._observe_push(t_start, published)
@@ -890,6 +1369,19 @@ class PSServer:
             ks = self._key_state(key)
             flush: List = []
             with ks.lock:
+                redirect = self._redirect_locked(key, ks)
+                park = redirect is None and ks.store is None and self._should_park(key)
+                if redirect is not None or park:
+                    # the frame is answered once, as a whole: the members
+                    # summed so far are in the replay ledger, which their
+                    # per-key resends (the worker's unfused fallback, or
+                    # this frame parked and taken again) meet as replays
+                    if reply.abort():
+                        if redirect is not None:
+                            self._send_wrong_owner(conn, send_lock, msg, redirect)
+                        else:
+                            self._park_awaiting(key, msg, conn, send_lock)
+                    return
                 compressed, arr = self._push_args(ks, sub)
                 published = self._apply_push_locked(ks, sub, compressed, arr, flush)
                 is_async = self._async_ks(ks)
@@ -994,6 +1486,8 @@ class PSServer:
         wants = rtype == RequestType.COMPRESSED_PUSH_PULL
         ks = self._key_state(msg.key)
         with ks.lock:
+            if self._redirect_or_park_locked(msg.key, ks, msg, conn, send_lock):
+                return
             if ks.store is None:
                 raise RuntimeError(f"pull for uninitialized key {msg.key}")
             if wants and ks.compressor is None:
@@ -1034,7 +1528,9 @@ def summarize_histograms(recs_by_name: Dict[str, list]) -> Dict[str, dict]:
 
 #: the recovery plane's counters a server's stop report carries: a Python
 #: server's (its process's), and the C++ engine's own
-RECOVERY_COUNTERS = ("push_dedup", "init_replay_ack", "wire_checksum_fail",
+RECOVERY_COUNTERS = ("push_dedup", "init_replay_ack", "migration_keys_moved",
+                     "migration_keys_received", "migration_failed", "wrong_owner_served",
+                     "native_wrong_owner", "wire_checksum_fail",
                      "wire_checksum_conn_drop", "chaos_drop", "chaos_delay",
                      "chaos_disconnect", "chaos_truncate", "chaos_corrupt",
                      "chaos_payload_corrupt", "native_push_dedup", "native_init_replay_ack",

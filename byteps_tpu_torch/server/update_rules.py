@@ -79,11 +79,30 @@ class UpdateRule:
     def _update(self, params: np.ndarray, grad: np.ndarray, t: int) -> None:
         raise NotImplementedError
 
-    # -- state -------------------------------------------------------------
+    # -- state: what rides MIGRATE_STATE behind the accumulator ------------
 
     def slots(self) -> List[np.ndarray]:
         """Optimizer state arrays, fixed order, store dtype."""
         return []
+
+    def slot_bytes(self) -> List[bytes]:
+        return [s.tobytes() for s in self.slots()]
+
+    def load_slot_bytes(self, blobs: List[bytes]) -> None:
+        slots = self.slots()
+        if len(blobs) != len(slots):
+            raise ValueError(
+                f"rule {self.name}: expected {len(slots)} slot blobs, "
+                f"got {len(blobs)}"
+            )
+        for slot, blob in zip(slots, blobs):
+            arr = np.frombuffer(blob, dtype=self.dtype)
+            if arr.size != slot.size:
+                raise ValueError(
+                    f"rule {self.name}: slot size mismatch "
+                    f"({arr.size} != {slot.size})"
+                )
+            slot[:] = arr
 
     def state_nbytes(self) -> int:
         return sum(s.nbytes for s in self.slots())

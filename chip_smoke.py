@@ -80,7 +80,7 @@ Phases, each fatal on failure:
      HybridDataParallel (SGD, 4 sequences a host), the hosts bitwise equal to
      each other and to one process averaging the two halves' gradients, and
      within atol 1e-5 + rtol 1e-4 of one process on the combined batch;
-     BERT-large at full depth, 16 sequences a host, through
+     BERT-large at 6 layers (widths kept), 16 sequences a host, through
      DistributedOptimizer(AdamW) with bare onebit: the global batch's loss
      falling, the hosts' parameters bitwise equal, bytes against the
      partition table, K1-K4 launched, two pushes summed into every server
@@ -91,7 +91,7 @@ Phases, each fatal on failure:
  14. the step builders (build_data_parallel_step, build_zero1_step,
      accumulate_steps=2, grad_quant_bits=8) at one rank of an NCCL group, 2
      layers, f32: within 1e-6 of DistributedOptimizer at one worker;
- 15. small-tensor fusion (after phase 7; 6 layers, widths kept): BERT-large
+ 15. small-tensor fusion (after phase 7; 2 layers, widths kept): BERT-large
      through one worker and two servers with bare onebit, on the Python
      lanes and on the native lanes, each unfused and fused
      (BYTEPS_FUSION_THRESHOLD=131072: every partition fits) in turns: the
@@ -101,13 +101,13 @@ Phases, each fatal on failure:
      a step, keys a frame, the stage split with FUSE's dwell, and the step
      beside the unfused one;
  16. the server-side optimizer: DistributedOptimizer(None,
-     server_side=True, server_rule="adam") at 12 layers through two
+     server_side=True, server_rule="adam") at 6 layers through two
      Python servers, every round of six tensors' partitions bitwise a CPU
      replay of update_rules.Adam, falling losses, no optimizer state on
      the worker; the round journal's copy of these raw f32 pushes, steps
      in turns with it on and off; against native servers the worker raises
      at its first INIT;
- 17. async (6 layers, widths kept): server-wide (BYTEPS_ENABLE_ASYNC=1) on
+ 17. async (2 layers, widths kept): server-wide (BYTEPS_ENABLE_ASYNC=1) on
      Python and on native servers, one worker with local AdamW pushing weight
      deltas: every
      pulled store the sum of its deltas, the parameters bitwise AdamW with
@@ -123,12 +123,12 @@ Phases, each fatal on failure:
      retries, revivals and the servers' dedupes counted, no step degraded;
      phase 7 also times steps in turns with the round journal on and off,
      and the journal's copy a step;
- 19. the one-sided heal (6 layers, widths kept): two launcher hosts through
+ 19. the one-sided heal (2 layers, widths kept): two launcher hosts through
      two Python servers, host 1 losing every push to one server in one step
      until its single retry gives up: its client heals in place (RESYNC, the
      journaled rounds replayed), no step degrades, no init barrier runs, and
      both hosts are bitwise their fault-free runs and each other;
- 20. elastic membership, phase (c) (6 layers, widths kept): a scheduler,
+ 20. elastic membership, phase (c) (2 layers, widths kept): a scheduler,
      two Python servers (a third waiting) and two launcher hosts with a
      probe key summed exactly at every step: both hosts; host 1 suspended
      and host 0 alone; both again, host 1's keys unchanged and its device
@@ -139,7 +139,20 @@ Phases, each fatal on failure:
      and rejoined above its last epoch with no eviction; host 1 killed and
      host 0's next step completed once it was evicted; each stage's ms,
      launches, d2h bytes and time to recover printed;
- 21. one JSON line listing the kernels, then the contract line
+ 21. online resharding, phase (d) (6 layers, widths kept): a scheduler, two
+     Python servers and a third started on demand, all with
+     BYTEPS_ELASTIC_RESHARD=1, one worker: 2 steps at two servers, a
+     scale-up to three asked from a second thread once the step's first
+     partitions were pushed, 2 steps at three, a drain back to two (the
+     third server ships its keys and exits 0 by itself), 2 steps; with bare
+     onebit, and with DistributedOptimizer(None, server_side=True,
+     server_rule="adam") on raw f32: losses and parameters bitwise a fleet
+     that never resizes, no re-init (server_generation 0), the keys the
+     servers shipped each way equal to the keys whose ring owner differs
+     between the two rank sets, no optimizer state on the worker; each
+     wave's wall ms, keys and bytes, and the steps' ms beside the
+     no-resize run's;
+ 22. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
@@ -915,27 +928,32 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
     added), each server's stderr in a file of ``log_dir``; returns
     (scheduler port, processes), and the servers' ports in ``server_ports``
     when given (each server prints its port before it registers)."""
-    procs = []
-    sched = subprocess.Popen(
+    import socket
+
+    # the three start at once, the scheduler on a port picked here: each
+    # spends seconds importing, and a server dials until the scheduler
+    # listens (BYTEPS_CONNECT_RETRY_S)
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = str(probe.getsockname()[1])
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
-        env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": "0"},
+        env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
         stdout=subprocess.PIPE, text=True,
-    )
-    procs.append(sched)
-    line = sched.stdout.readline().strip()
-    if not line.startswith("BYTEPS_SCHEDULER_PORT="):
-        for p in procs:
-            p.kill()
-        fail(f"the scheduler process did not report its port (got {line!r})")
-    port = line.split("=", 1)[1]
+    )]
     for i in range(2):
         with open(os.path.join(log_dir, f"server{i}.log"), "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
-                env={**env, **(server_env or {}), "DMLC_ROLE": "server",
-                     "DMLC_PS_ROOT_PORT": port},
+                env={"BYTEPS_CONNECT_RETRY_S": "60", **env, **(server_env or {}),
+                     "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
                 stdout=subprocess.PIPE, stderr=log, text=True,
             ))
+    line = procs[0].stdout.readline().strip()
+    if line != f"BYTEPS_SCHEDULER_PORT={port}":
+        for p in procs:
+            p.kill()
+        fail(f"the scheduler process did not report port {port} (got {line!r})")
     for i, proc in enumerate(procs[1:]):
         line = proc.stdout.readline().strip()
         if not line.startswith("BYTEPS_SERVER_PORT="):
@@ -1062,16 +1080,16 @@ def _hist_lines(hists: dict, steps: int) -> list:
             for name, h in sorted(hists.items())]
 
 
-def _server_report(log_dir: str) -> list:
+def _server_report(log_dir: str, servers: int = 2) -> list:
     """Each server's (pushes summed, rounds published, {histogram: (count,
     sum s, p50 s, p99 s)}, async pulls parked, server-side updates applied
     (these two None from a C++ engine), {recovery counter: count}), from
     the lines a server logs when it stops (None for a server that logged
-    none)."""
+    none), for ``servers`` logs ``server<i>.log``."""
     import re
 
     found = []
-    for i in range(2):
+    for i in range(servers):
         with open(os.path.join(log_dir, f"server{i}.log")) as f:
             text = f.read()
         m = re.findall(r"summed (\d+) pushes into (\d+) rounds(?:, parked (\d+) async pulls, "
@@ -1982,6 +2000,10 @@ HYBRID_BATCH = BATCH // HYBRID_HOSTS  # per host: 16, the main path's 32 togethe
 # the global loss of the first five steps did not fall yet (10.8149 to 10.8204
 # on an NVIDIA H100 80GB HBM3, 700 W)
 HYBRID_WARMUP, HYBRID_STEPS = 1, 6
+#: the hybrid's BERT-large depth, cut from 24 with online resharding's phase,
+#: to keep the script under 75% of its time limit; its partition table
+#: (bare onebit): compressed partitions, and bytes a worker moves a step
+HYBRID_LAYERS, HYBRID_COMPRESSED_PARTS, HYBRID_D2H_STEP = 6, 171, 17_547_948
 # the 2-layer equivalence: f32, SGD, 4 sequences a host, 3 steps.  Bitwise one
 # process that averages the two halves' gradients as the servers do, and
 # within atol 1e-5 + rtol 1e-4 of one process on the combined batch of 8: the
@@ -2114,8 +2136,8 @@ def hybrid_host(work: str) -> None:
     rendezvous and makes it the global mesh, so every push_pull is
     host-level (the group's all-reduce, the PS across the two hosts, the
     broadcast); then the 2-layer equivalence through HybridDataParallel and
-    BERT-large at full depth through DistributedOptimizer(AdamW) with bare
-    onebit.  Writes what it measured to <dir>/host<h>.json and its onebit
+    BERT-large at HYBRID_LAYERS through DistributedOptimizer(AdamW) with
+    bare onebit.  Writes what it measured to <dir>/host<h>.json and its onebit
     rounds (``_tap_onebit_rounds``) to <dir>/host<h>.rounds.pkl."""
     import torch
 
@@ -2158,10 +2180,10 @@ def hybrid_host(work: str) -> None:
                    os.path.join(work, "eq_params.pt"))
     del hdp, model
 
-    # BERT-large at full depth, this host's 16 of the main path's 32 sequences
+    # BERT-large at HYBRID_LAYERS, this host's 16 of the main path's 32 sequences
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+    cfg, model, tok, tgt = _bert(HYBRID_LAYERS)
     rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
     tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
     bps.broadcast_parameters(model.state_dict(), root_rank=0)
@@ -2310,7 +2332,7 @@ def train_hybrid(card: str) -> dict:
     one GPU, so each host's group is one process), DMLC_NUM_WORKER=2: the
     port's first run with two workers, real sums on the servers.  Checks the
     hosts' one-rank NCCL collectives, the 2-layer equivalence with one
-    process on the combined batch, and BERT-large at full depth: falling
+    process on the combined batch, and BERT-large at HYBRID_LAYERS: falling
     losses, both hosts' parameters bitwise equal, bytes against the
     partition table, K1-K4 launched, two pushes summed into every round."""
     import torch
@@ -2376,8 +2398,8 @@ def train_hybrid(card: str) -> dict:
 
     a, b = results
     n = a["steps"]
-    want_flash = {"flash_fwd": 2 * N_LAYERS_FULL * n, "flash_bwd_dq": N_LAYERS_FULL * n,
-                  "flash_bwd_dkv": N_LAYERS_FULL * n}
+    want_flash = {"flash_fwd": 2 * HYBRID_LAYERS * n, "flash_bwd_dq": HYBRID_LAYERS * n,
+                  "flash_bwd_dkv": HYBRID_LAYERS * n}
     # the loss of the global batch: the hosts' losses are over their halves
     mean = [sum(v) / HYBRID_HOSTS for v in zip(*(r["losses"] for r in results))]
     print(f"{label}: 2 hosts, each `python -m byteps_tpu_torch.launcher.launch` at "
@@ -2434,7 +2456,7 @@ def train_hybrid(card: str) -> dict:
         print(f"{label}: {line}", flush=True)
     print(f"{label}: the global batch's loss (the hosts' mean) {[round(x, 4) for x in mean]}; "
           f"servers' (pushes summed, rounds) {[p and p[:2] for p in pushes]}; the hosts' "
-          f"full-depth parameters bitwise equal {a['digest'] == b['digest']}; phase wall "
+          f"{HYBRID_LAYERS}-layer parameters bitwise equal {a['digest'] == b['digest']}; phase wall "
           f"{time.perf_counter() - wall:.1f} s", flush=True)
 
     bad = []
@@ -2452,16 +2474,17 @@ def train_hybrid(card: str) -> dict:
         bad.append(f"the global batch's losses not finite and falling: {mean}")
     for r in results:
         h, c = r["host"], r["counters"]
-        if r["compressed_parts"] != DIST_COMPRESSED_PARTS or r["want_d2h"] != DIST_D2H_STEP:
+        if (r["compressed_parts"] != HYBRID_COMPRESSED_PARTS
+                or r["want_d2h"] != HYBRID_D2H_STEP):
             bad.append(f"host {h}'s partition table: {r['compressed_parts']} compressed "
                        f"partitions, {r['want_d2h']} bytes a step, expected "
-                       f"{DIST_COMPRESSED_PARTS} and {DIST_D2H_STEP}")
-        bad += [f"host {h} {k} {c.get(k, 0) / n:.0f} a step, expected {DIST_D2H_STEP}"
+                       f"{HYBRID_COMPRESSED_PARTS} and {HYBRID_D2H_STEP}")
+        bad += [f"host {h} {k} {c.get(k, 0) / n:.0f} a step, expected {HYBRID_D2H_STEP}"
                 for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
-                if c.get(k, 0) != n * DIST_D2H_STEP]
-        if r["launches"]["onebit_pack"] != n * DIST_COMPRESSED_PARTS:
+                if c.get(k, 0) != n * HYBRID_D2H_STEP]
+        if r["launches"]["onebit_pack"] != n * HYBRID_COMPRESSED_PARTS:
             bad.append(f"host {h} launched K4 {r['launches']['onebit_pack']} times in {n} "
-                       f"steps, expected {DIST_COMPRESSED_PARTS} a step")
+                       f"steps, expected {HYBRID_COMPRESSED_PARTS} a step")
         if {k: r["launches"][k] for k in want_flash} != want_flash:
             bad.append(f"host {h} flash launches {r['launches']}, expected {want_flash}")
         if r["eq_launches"] != {k: EQ_LAYERS * EQ_STEPS for k in want_flash}:
@@ -2480,15 +2503,15 @@ def train_hybrid(card: str) -> dict:
 #: bytes) and every raw partition below BYTEPS_MIN_COMPRESS_BYTES fits, so all
 #: 641 gradient partitions fuse; fusion_bytes at its default (262,144)
 FUSION_THRESHOLD = 131072
-#: 2 timed steps a run at 6 layers (12 before the elastic phase joined, 3
-#: steps at 24 before the self-healing plane's phases), to keep the script
-#: under 75% of its time limit
-FUSION_STEPS, FUSION_LAYERS = 2, 6
+#: 2 timed steps a run at 2 layers (6 before the resharding phase joined, 12
+#: before the elastic one, 3 steps at 24 before the self-healing plane's
+#: phases), to keep the script under 75% of its time limit
+FUSION_STEPS, FUSION_LAYERS = 2, 2
 #: the server-side optimizer: Adam on the servers, a seed round and 3 steps
 SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
-#: its depth: 12 layers since the elastic phase joined (24 before), to keep
-#: the script under 75% of its time limit
-SERVER_OPT_LAYERS = 12
+#: its depth: 6 layers since the resharding phase joined (12 before, 24
+#: before the elastic one), to keep the script under 75% of its time limit
+SERVER_OPT_LAYERS = 6
 #: the tensors whose every pulled partition is held against a CPU replay of
 #: the servers' Adam: the word embedding, layer 0's Q, K and V weights, and
 #: the final LayerNorm
@@ -2497,8 +2520,9 @@ SERVER_OPT_TAPPED = ("embed", "layers.0.wq", "layers.0.wk", "layers.0.wv", "ln_f
 #: of byteps_tpu/tensorflow/__init__.py:219-230 over push_pull(average=False)
 ASYNC_STEPS, ASYNC_LR = 4, 1e-4
 #: the async phase's depth: cut from 24 so that the script, with the
-#: self-healing phases, stays within three quarters of its time limit
-ASYNC_LAYERS = 6
+#: self-healing phases (to 6) and the resharding phase (to 2), stays within
+#: three quarters of its time limit
+ASYNC_LAYERS = 2
 #: the server-wide async run against bare AdamW on the card: one worker's store
 #: is the sum of its deltas, prev + (cur - prev), which rounds to cur except
 #: where the two differ by more than a factor of 2 (parameters near zero).
@@ -3172,7 +3196,7 @@ def train_async(card: str) -> dict:
 #: phase (b): three steps, host 1's pushes to server 0 lost in the second;
 #: its depth cut from 24 so that the script stays within three quarters of
 #: its time limit (phase (a) is the full-depth run under faults)
-HEAL_STEPS, HEAL_FAULT_STEP, HEAL_LAYERS = 3, 1, 6
+HEAL_STEPS, HEAL_FAULT_STEP, HEAL_LAYERS = 3, 1, 2
 
 
 def heal_host(work: str) -> None:
@@ -3343,7 +3367,7 @@ def train_heal(card: str) -> dict:
 
 
 #: phase (c), elastic membership: depth, steps a stage, the probe key's size
-ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_PROBE_N = 6, 2, 1024
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_PROBE_N = 2, 2, 1024
 #: the membership knobs of its fleet (eviction after 2 s without a beat)
 ELASTIC_ENV = {"BYTEPS_HEARTBEAT_INTERVAL": "0.5", "BYTEPS_DEAD_NODE_TIMEOUT_S": "2",
                "BYTEPS_SCHED_RECONNECT_BACKOFF_S": "0.1", "BYTEPS_SCHED_RECONNECT_RETRIES": "60"}
@@ -3840,6 +3864,260 @@ def train_elastic(card: str) -> dict:
     return {k: first[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "onebit_pack")}
 
 
+#: phase (d), online resharding: depth, steps at each of its three stages
+#: (two servers, three, two again), and the server-side Adam's settings
+RESHARD_LAYERS, RESHARD_STAGE_STEPS = 6, 2
+RESHARD_HP = {"lr": 1e-4}
+
+
+def _waiting_server(env: dict, go: str, log) -> subprocess.Popen:
+    """A server process that imports, prints "ready", and starts when the
+    file ``go`` exists (its scheduler's port in it): it registers at once
+    when a resize asks for it."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import os, sys, time\n"
+         "from byteps_tpu_torch.server.server import run_server\n"
+         "print('ready', flush=True)\n"
+         "while not os.path.exists(sys.argv[1]):\n    time.sleep(0.02)\n"
+         "with open(sys.argv[1]) as f:\n    os.environ['DMLC_PS_ROOT_PORT'] = f.read()\n"
+         "run_server()\n", go],
+        cwd=REPO, env={**env, "DMLC_ROLE": "server", "DMLC_NUM_SERVER": "3"},
+        stdout=subprocess.PIPE, stderr=log, text=True)
+
+
+def _waves(log_dir: str) -> list:
+    """The migration waves the servers logged: (server log, server rank, map
+    epoch, drain, keys, bytes, wall ms)."""
+    import re
+
+    out = []
+    for i in range(3):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            for rank, epoch, drain, keys, nbytes, ms in re.findall(
+                    r"rank (\d+) migration wave \(map epoch (\d+)(, drain)?\): shipped "
+                    r"(\d+) keys, (\d+) bytes in ([\d.]+) ms", f.read()):
+                out.append((i, int(rank), int(epoch), bool(drain), int(keys), int(nbytes),
+                            float(ms)))
+    return out
+
+
+def _reshard_run(label: str, server_side: bool, resize: bool) -> dict:
+    """One run of phase (d): BERT-large at RESHARD_LAYERS through one worker
+    and a scheduler and two Python servers, every node with
+    BYTEPS_ELASTIC_RESHARD=1 and CRC32C on, 3 * RESHARD_STAGE_STEPS steps;
+    bare onebit with local AdamW, or with ``server_side`` Adam on the
+    servers over raw f32.  With ``resize``, a third server waits: once the
+    first partitions of the first step at the second stage were pushed, a
+    second thread asks for three servers (``bps.resume(num_servers=3)``,
+    which resizes the live worker) and the third server starts; before the
+    third stage the worker asks for two, and the third server drains and
+    exits.  Returns the losses, the parameters' digest, each step's ms, the
+    kernels' launches, the keys and their expected moves, the worker's
+    counters, the servers' reports and waves."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.hashing import HashRing
+    from byteps_tpu_torch.common.registry import reset_registry
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    reset_registry()
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+           "BYTEPS_FORCE_DISTRIBUTED": "1", "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "BYTEPS_WIRE_CHECKSUM": "1", "BYTEPS_ELASTIC_RESHARD": "1", "PYTHONPATH": REPO}
+    saved = dict(os.environ)
+    out = {"ms": [], "resize_s": {}}
+    with tempfile.TemporaryDirectory() as log_dir:
+        go = os.path.join(log_dir, "server2.go")
+        spare = []
+        if resize:
+            # it imports beside the fleet, and is ready before the steps
+            with open(os.path.join(log_dir, "server2.log"), "w") as log:
+                spare.append(_waiting_server(env, go, log))
+        port, procs = _start_ps_processes(env, log_dir)
+        procs += spare
+        try:
+            if resize and procs[3].stdout.readline().strip() != "ready":
+                fail(f"{label}: the third server did not start")
+            os.environ.update({**env, "DMLC_PS_ROOT_PORT": port})
+            bps.init()
+            cfg, model, tok, tgt = _bert(RESHARD_LAYERS)
+            if server_side:
+                opt = bps.DistributedOptimizer(None, named_parameters=model.named_parameters(),
+                                               server_side=True, server_rule="adam",
+                                               server_hp=RESHARD_HP)
+            else:
+                bps.broadcast_parameters(model.state_dict(), root_rank=0)
+                opt = bps.DistributedOptimizer(
+                    torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+                    named_parameters=model.named_parameters(),
+                    compression_params={"compressor": "onebit", "scaling": True})
+            step = build_train_step(model, opt)
+            client = get_state().ps_client
+            fa.reset_launches()
+            ob.reset_launches()
+            counters().reset()
+            losses = []
+            for i in range(3 * RESHARD_STAGE_STEPS):
+                scale_up = None
+                if resize and i == RESHARD_STAGE_STEPS:
+                    rpc0 = counters().get("wire_rpc")
+
+                    def ask() -> None:
+                        # once the step's first partitions went out
+                        while counters().get("wire_rpc") < rpc0 + 8:
+                            time.sleep(0.001)
+                        t0 = time.perf_counter()
+                        asker = threading.Thread(target=bps.resume, kwargs={"num_servers": 3})
+                        asker.start()
+                        time.sleep(0.5)  # the worker's REGISTER lands first
+                        with open(go + ".tmp", "w") as f:
+                            f.write(port)
+                        os.replace(go + ".tmp", go)
+                        t_go = time.perf_counter()
+                        asker.join(120)
+                        out["resize_s"]["up"] = time.perf_counter() - t0
+                        out["resize_s"]["up_after_go"] = time.perf_counter() - t_go
+                        out["up_alive"] = asker.is_alive()
+
+                    scale_up = threading.Thread(target=ask)
+                    scale_up.start()
+                if resize and i == 2 * RESHARD_STAGE_STEPS:
+                    t0 = time.perf_counter()
+                    bps.resume(num_servers=2)
+                    out["resize_s"]["drain"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                losses.append(float(step(tok, tgt)))
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                if scale_up is not None:
+                    scale_up.join(180)
+                    out["servers_at_three"] = len(client._servers)
+            out["launches"] = {**fa.launches, **ob.launches}
+            out["stats"] = counters().snapshot()
+            out["generation"] = client.server_generation
+            out["map_epoch"] = client.map_epoch
+            out["digest"] = _param_digest(model)
+            out["state_bytes"] = _state_bytes(opt)
+            keys = [r["key"] for r in get_state().engine.partition_table()]
+            two, three = HashRing([0, 1]), HashRing([0, 1, 2])
+            out["keys"] = len(keys)
+            out["rehomed"] = sum(two.owner(k) != three.owner(k) for k in keys)
+            out["compressed_parts"] = sum(r["wire_nbytes"] is not None
+                                          for r in get_state().engine.partition_table()
+                                          if r["name"].startswith("Gradient."))
+            bps.shutdown()
+            del model, opt, step
+            if resize:
+                deadline = time.monotonic() + 60
+                while procs[3].poll() is None and time.monotonic() < deadline:
+                    time.sleep(0.1)
+                out["spare_rc"] = procs[3].poll()
+            out["dead"] = [p.args for p in procs[:3] if p.poll() is not None]
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+            _stop_processes(procs)
+        out["report"] = _server_report(log_dir, 3 if resize else 2)
+        out["waves"] = _waves(log_dir) if resize else []
+    out["losses"] = losses
+    out["n_layers"] = cfg.n_layers
+    return out
+
+
+def train_reshard(card: str) -> dict:
+    """Phase (d): online resharding.  For bare onebit, then for the
+    server-side Adam on raw f32: a run on a fleet that never resizes and a
+    run through a scale-up to three servers (overlapping a step's rounds)
+    and a drain back to two (``_reshard_run``).  Fails unless the resized
+    run's losses and parameters are bitwise the other's, the worker's
+    ``server_generation`` stayed 0, it routed to three servers in the
+    middle stage, the two old servers shipped as many keys as the ring
+    re-homes from {0, 1} to {0, 1, 2} and the third shipped them all back,
+    the third server exited 0 by itself, no server died, K1-K4 launched
+    as the depth and the partition table say, and the server-side run left
+    no optimizer state on the worker.  Prints each wave's wall ms, keys and
+    bytes, the steps' ms beside the no-resize run's and the worker's
+    redirects.  Returns the onebit stage's launches a step."""
+    label = "reshard"
+    wall = time.perf_counter()
+    bad = []
+    per_step = None
+    for stage, server_side in (("bare onebit", False), ("server-side Adam, raw f32", True)):
+        still = _reshard_run(f"{label} {stage}", server_side, resize=False)
+        moved = _reshard_run(f"{label} {stage}", server_side, resize=True)
+        n = 3 * RESHARD_STAGE_STEPS
+        k4 = 0 if server_side else moved["compressed_parts"]
+        want = {"flash_fwd": 2 * moved["n_layers"] * n, "flash_bwd_dq": moved["n_layers"] * n,
+                "flash_bwd_dkv": moved["n_layers"] * n, "onebit_pack": k4 * n}
+        waves = moved["waves"]
+        up = sum(w[4] for w in waves if not w[3] and w[1] < 2)
+        back = sum(w[4] for w in waves if w[3] and w[1] == 2)
+        reported = [(r or (0, 0, {}, None, None, {}))[5].get("migration_keys_moved", 0)
+                    for r in moved["report"]]
+        print(f"{label}, {stage}: BERT-large at {moved['n_layers']} layers, seq {SEQ} bf16 "
+              f"remat flash, batch {BATCH}, 1 worker, 2 Python servers and a third on "
+              f"demand, BYTEPS_ELASTIC_RESHARD=1, CRC32C: losses {moved['losses']} (no resize "
+              f"{still['losses']}); ms a step {[round(x, 1) for x in moved['ms']]} (no resize "
+              f"{[round(x, 1) for x in still['ms']]}); the scale-up asked for "
+              f"{moved['resize_s'].get('up', float('nan')):.3f} s (of which "
+              f"{moved['resize_s'].get('up_after_go', float('nan')):.3f} s after the third "
+              f"server was let start), the drain "
+              f"{moved['resize_s'].get('drain', float('nan')):.3f} s; on {card}", flush=True)
+        for _log, rank, epoch, drain, keys, nbytes, ms in waves:
+            print(f"{label}, {stage}: server rank {rank} wave (map epoch {epoch}"
+                  f"{', drain' if drain else ''}): {keys} keys, {nbytes} bytes in {ms:.1f} ms",
+                  flush=True)
+        stats = moved["stats"]
+        print(f"{label}, {stage}: {moved['keys']} keys, {moved['rehomed']} re-homed by the "
+              f"ring from {{0, 1}} to {{0, 1, 2}}; shipped up {up}, back {back}; servers' "
+              f"migration_keys_moved {reported}; server_generation {moved['generation']}, map "
+              f"epoch {moved['map_epoch']}; the worker's wrong_owner_redirect "
+              f"{stats.get('wrong_owner_redirect', 0)}, rpc_retry {stats.get('rpc_retry', 0)}, "
+              f"rpc_giveup {stats.get('rpc_giveup', 0)}; launches {moved['launches']}; the "
+              f"third server exited {moved['spare_rc']}; the worker's optimizer state "
+              f"{moved['state_bytes']} bytes", flush=True)
+        for line in _server_lines(moved["report"]):
+            print(f"{label}, {stage}: {line}", flush=True)
+        if moved["losses"] != still["losses"] or moved["digest"] != still["digest"]:
+            bad.append(f"{stage}: the resized run is not bitwise the run that never resized")
+        if moved["generation"] != 0 or still["generation"] != 0:
+            bad.append(f"{stage}: server_generation {moved['generation']}, "
+                       f"{still['generation']} (a re-init)")
+        if moved.get("servers_at_three") != 3 or moved.get("up_alive"):
+            bad.append(f"{stage}: the worker did not route to three servers in the middle "
+                       f"stage ({moved.get('servers_at_three')})")
+        if not moved["rehomed"] or up != moved["rehomed"] or back != moved["rehomed"]:
+            bad.append(f"{stage}: shipped {up} keys up and {back} back, the ring re-homes "
+                       f"{moved['rehomed']}")
+        if reported != [sum(w[4] for w in waves if w[0] == i) for i in range(3)]:
+            bad.append(f"{stage}: the servers counted {reported} keys moved, their waves "
+                       f"{waves}")
+        if moved["spare_rc"] != 0:
+            bad.append(f"{stage}: the drained server exited {moved['spare_rc']}, not 0 by "
+                       "itself")
+        if moved["dead"] or still["dead"]:
+            bad.append(f"{stage}: a PS process died: {moved['dead'] or still['dead']}")
+        for run in (still, moved):
+            if run["launches"] != want:
+                bad.append(f"{stage}: launches {run['launches']}, expected {want}")
+        if server_side and (moved["state_bytes"] or still["state_bytes"]):
+            bad.append(f"{stage}: the worker holds optimizer state")
+        if not all(math.isfinite(x) for x in moved["losses"]):
+            bad.append(f"{stage}: non-finite losses {moved['losses']}")
+        if per_step is None:
+            per_step = {k: v // n for k, v in moved["launches"].items()}
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return per_step
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -3984,54 +4262,60 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}", flush=True)
 
+    walls = {}
+    last = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        # each phase's wall seconds, for the summary before the kernels line
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+        gc.collect()
+        torch.cuda.empty_cache()
+
     phase_build()
     errs = check_kernels()
     perf = time_kernels(BATCH, 16, SEQ, 64, torch.bfloat16, False)
+    mark("build, flash checks and times")
     onebit_err = check_onebit()
     onebit_perf = time_onebit()
     check_f1_division()
     check_model()
+    mark("onebit, F1, model")
     counts = train_main_path(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("main path")
     dist = train_distributed(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("distributed")
     train_distributed_native(card, dist["losses"][0])
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("native lanes")
     planes = {"chaos": train_chaos(card, dist)}
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("faults (a)")
     planes["heal"] = train_heal(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("heal (b)")
     planes["elastic"] = train_elastic(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("elastic (c)")
+    planes["reshard"] = train_reshard(card)
+    mark("reshard (d)")
     planes["fusion"] = train_fusion(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("fusion")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("server optimizer")
     planes["async"] = train_async(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("async")
     train_compressed_chain(card, dist["wire_tx_step"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    mark("compressed chain")
     train_device_codecs(card)
     check_device_codecs()
-    print(f"device codec phases: wall {time.perf_counter() - t0:.1f} s", flush=True)
+    mark("device codecs")
     train_randomk_ef(card)
     check_ddp_cross_barrier(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("randomk, DDP, CrossBarrier")
     hybrid = train_hybrid(card)
+    mark("hybrid")
     check_int8_ring_ops()
     check_step_builders(card)
+    mark("int8 ops, step builders")
+    print(f"phase walls (s): {json.dumps(walls)}; total {sum(walls.values()):.1f} s", flush=True)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
     replaces = {

@@ -368,9 +368,34 @@ def test_rollback_book_cancels_pending_rebuild_retry(monkeypatch, pkg):
 @pytest.mark.parametrize("knob,item", [("BYTEPS_ELASTIC_RESHARD", "P3b"),
                                        ("BYTEPS_AUTOTUNE", "P3c")])
 def test_resharding_and_the_autotuner_still_raise(monkeypatch, knob, item):
+    """The autotuner (P3c) still raises at init; resharding (P3b) is
+    ported: its knobs read as the reference's, and a worker's init against
+    a live fleet adopts the books' ownership map."""
     import byteps_tpu_torch as pbps
+    from byteps_tpu.common.config import Config as RefConfig
+    from byteps_tpu_torch.common.config import Config as PortConfig
 
     monkeypatch.setenv(knob, "1")
     monkeypatch.setenv("BYTEPS_FORCE_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match=f"Queue 1b item {item}"):
+    if item == "P3c":
+        with pytest.raises(NotImplementedError, match=f"Queue 1b item {item}"):
+            pbps.init(device="cpu")
+        return
+    k = kits.kit("port")
+    sched = k.Scheduler(num_workers=1, num_servers=1, host="127.0.0.1")
+    sched.start()
+    kits.env(monkeypatch, sched, 1, 1, BYTEPS_RING_VNODES="16",
+             BYTEPS_MIGRATE_DEADLINE_S="3")
+    cfg, ref = PortConfig.from_env(), RefConfig.from_env()
+    assert ((cfg.elastic_reshard, cfg.ring_vnodes, cfg.migrate_deadline_s)
+            == (ref.elastic_reshard, ref.ring_vnodes, ref.migrate_deadline_s) == (True, 16, 3.0))
+    srv = kits.start_server(k)
+    try:
         pbps.init(device="cpu")
+        client = k.state.get_state().ps_client
+        assert client.map_epoch == sched.map_epoch == 1
+        assert client._ownership.ranks == (0,) and client._ownership.ring.vnodes == 16
+        pbps.shutdown()
+    finally:
+        srv.stop()
+        sched.stop()

@@ -435,7 +435,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 @pytest.mark.parametrize("knob", [
     "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_VAN=chaos:uds", "BYTEPS_VAN=chaos:shm",
-    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_ELASTIC_RESHARD=1", "BYTEPS_AUTOTUNE=1",
+    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_AUTOTUNE=1",
     "BYTEPS_COMPRESSION_AUTO=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
@@ -453,14 +453,15 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
 
 @pytest.mark.parametrize("knob", [
     "BYTEPS_RPC_RETRIES=3", "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_VAN=chaos:tcp",
-    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_CHAOS_SCHED=1",
+    "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_CHAOS_SCHED=1", "BYTEPS_ELASTIC_RESHARD=1",
 ])
 def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
-    """The knobs that raised before the recovery plane and the membership
-    plane were ported: the config reads them as the reference does, and a
-    worker trains through a fleet that runs with them (the chaos van at
-    its defaults injects nothing; the eviction timeout outlasts the test;
-    the scheduler-link flag without a chaos van faults nothing)."""
+    """The knobs that raised before the recovery, membership and
+    resharding planes were ported: the config reads them as the reference
+    does, and a worker trains through a fleet that runs with them (the
+    chaos van at its defaults injects nothing; the eviction timeout
+    outlasts the test; the scheduler-link flag without a chaos van faults
+    nothing; under resharding the books' ownership map routes)."""
     from byteps_tpu.comm import chaos as ref_chaos
     from byteps_tpu_torch.comm import chaos as port_chaos
 
@@ -473,12 +474,16 @@ def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
                  cfg.sched_reconnect_backoff_s, cfg.sched_rejoin_window_s)
                 == (ref.heartbeat_interval, ref.dead_node_timeout_s, ref.sched_reconnect_retries,
                     ref.sched_reconnect_backoff_s, ref.sched_rejoin_window_s))
+        assert ((cfg.elastic_reshard, cfg.ring_vnodes, cfg.migrate_deadline_s)
+                == (ref.elastic_reshard, ref.ring_vnodes, ref.migrate_deadline_s))
         assert port_chaos.control_chaos_enabled() == ref_chaos.control_chaos_enabled()
         if name == "BYTEPS_VAN":
             assert nodes[0].host.startswith("chaos+")
         pbps.init(device="cpu")
         x = torch.arange(64, dtype=torch.float32)
         assert torch.equal(pbps.push_pull(x, name=f"knob.{name}", average=False), x)
+        client = port_state.get_state().ps_client
+        assert (client._ownership is not None) == (name == "BYTEPS_ELASTIC_RESHARD")
         pbps.shutdown()
 
 
@@ -489,14 +494,18 @@ def test_unported_entry_points_raise():
 
 
 def _fake_server(reply_op):
-    """A listener that answers the first request on it with ``reply_op``."""
+    """A listener that answers every request on its first connection with
+    ``reply_op``, until the client closes it."""
     srv, port = ptr.listen("127.0.0.1", 0)
 
     def serve():
         conn, _ = srv.accept()
-        msg = ptr.recv_message(conn)
-        ptr.send_message(conn, ptr.Message(reply_op, key=msg.key, seq=msg.seq))
-        conn.recv(1)  # hold the connection until the client closes it
+        try:
+            while True:
+                msg = ptr.recv_message(conn)
+                ptr.send_message(conn, ptr.Message(reply_op, key=msg.key, seq=msg.seq))
+        except (ConnectionError, OSError):
+            pass
         conn.close()
         srv.close()
 
@@ -506,10 +515,12 @@ def _fake_server(reply_op):
 
 @pytest.mark.parametrize("op", ["FUSED", "RESYNC_STATE", "MIGRATE_STATE", "WRONG_OWNER"])
 def test_a_reply_of_an_unported_plane_fails_its_request(op):
-    """The PS client fails the request at once, with no retry (never drops
-    it), when a server answers with a migration frame, or a push with a
-    fused or a resync frame (those planes are ported: the reply's op is
-    not the request's)."""
+    """The PS client fails the request, with no retry (never drops it),
+    when a server answers a push with a fused, a resync or a migration
+    frame (those planes are ported: the reply's op is not the request's),
+    and once its chases are spent when the server keeps answering
+    WRONG_OWNER (the key's redirect, chased at most ``_max_chases``
+    times)."""
     client = PSClient(PortConfig(num_server=1))
     client.num_servers = 1
     client._servers.append(client._new_conn("127.0.0.1", _fake_server(ptr.Op[op]), "0"))
@@ -517,8 +528,8 @@ def test_a_reply_of_an_unported_plane_fails_its_request(op):
     client.push(5, b"\0" * 8, int(ptypes.DataType.FLOAT32), 1, cb=done.set,
                 on_error=lambda reason: (errors.append(reason), done.set()))
     assert done.wait(10)
-    why = (f"answered a PUSH request with {op}" if op in ("FUSED", "RESYNC_STATE")
-           else "not ported")
+    why = (f"answered a PUSH request with {op}" if op != "WRONG_OWNER"
+           else f"answered WRONG_OWNER (map epoch 0); {client._max_chases} chases")
     assert errors and why in errors[0] and op in errors[0]
     client._stop.set()
     for sc in client._servers:
