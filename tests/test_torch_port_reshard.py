@@ -189,6 +189,9 @@ def test_migration_moves_state_redirects_and_dedupes(old, new):
         assert st.store_version == 2 and st.push_seen.get(1) == 2
         assert st.init_done.get(1) == 77
         np.testing.assert_array_equal(st.store, g2)
+        # the old owner frees its copy only once it has read the new
+        # owner's ack, which may come after the landing
+        assert kits.wait(lambda: a._keys[key].store is None), "the old copy was never freed"
         assert a._keys[key].migrated_to == 1 and a._keys[key].store is None
         reply = push(w, key, 3, g1, seq=9)
         assert reply.op == ptr.Op.WRONG_OWNER and reply.version == 2
@@ -416,6 +419,7 @@ def test_adam_state_migrates_and_the_trajectory_stays_bitwise(old, new):
         a._adopt_book(book(2, [0, 1], servers))
         assert kits.wait(lambda: landed(b, key))
         st = b._keys[key]
+        assert kits.wait(lambda: a._keys[key].opt_rule is None), "the old rule was never freed"
         assert st.opt_step == 3 and a._keys[key].opt_rule is None
         wb = dial(b)
         for ver in (4, 5):
