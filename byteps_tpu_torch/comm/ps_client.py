@@ -459,6 +459,11 @@ class PSClient:
         self._routing: tuple = ([], [], None)
         #: WRONG_OWNER chases of one request before it fails
         self._max_chases = 8
+        #: called with no argument when a book grows the server set or
+        #: moves the ownership map, after the new connections are in place
+        #: and before the map routes (the engine sends the error-feedback
+        #: lr again: a server that joined since never got it)
+        self._server_set_listeners: List[Callable[[], None]] = []
 
     # --- rendezvous ------------------------------------------------------
 
@@ -870,6 +875,8 @@ class PSClient:
                 self.num_servers = num_servers
                 omap = self._ownership_from_book(book)
                 if omap is not None:
+                    if omap.epoch > self.map_epoch:
+                        self._notify_server_set()
                     # the same addresses may carry other ranks
                     self._install_routing(self._servers, book.get("server_ranks"), omap)
                 self._applied_token = token
@@ -905,10 +912,13 @@ class PSClient:
                 for sc in fresh:
                     sc.close_all()
                 return
+            grew = len(fresh) > len(self._servers)
             old, self._servers = self._servers, fresh
             self._server_addrs = list(new_addrs)
             self.num_servers = num_servers
             omap = self._ownership_from_book(book)
+            if grew or (omap is not None and omap.epoch > self.map_epoch):
+                self._notify_server_set()
             self._install_routing(fresh, (book or {}).get("server_ranks"), omap)
             if omap is None:
                 with self._gen_lock:
@@ -916,6 +926,19 @@ class PSClient:
             self._applied_token = token
         for sc in old:
             sc.close_all()
+
+    def add_server_set_listener(self, cb: Callable[[], None]) -> None:
+        self._server_set_listeners.append(cb)
+
+    def _notify_server_set(self) -> None:
+        """Run the server-set listeners; one that fails is logged and the
+        book is adopted all the same."""
+        for cb in tuple(self._server_set_listeners):
+            try:
+                cb()
+            except Exception as e:  # noqa: BLE001
+                print(f"byteps_tpu_torch: a server-set listener failed: {e!r}",
+                      file=sys.stderr, flush=True)
 
     # --- connections -----------------------------------------------------
 

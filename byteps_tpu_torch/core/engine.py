@@ -350,6 +350,9 @@ class PipelineEngine:
         #: tensors whose last job failed degraded: their next submit runs
         #: the init barrier again, unless heal_degraded mends them first
         self._reinit_names: set = set()
+        add = getattr(ps_client, "add_server_set_listener", None)
+        if add is not None:
+            add(self._resend_lr)
 
     # --- lifecycle -------------------------------------------------------
 
@@ -599,6 +602,18 @@ class PipelineEngine:
         for codec in list(self._compressors.values()):
             apply_lr_to_chain(codec, self._compression_lr)
         self._maybe_send_lr()
+
+    def _resend_lr(self) -> None:
+        """A book grew the server set or moved keys: send the current lr
+        to every server again, as after a forced re-init.  Under resharding
+        no re-init runs, and a server that joined after
+        ``set_compression_lr`` would build a migrated chain at lr 1.0
+        (both packages' servers apply a late lr frame to the chains they
+        hold and keep it for later ones).  A deliberate divergence from
+        ``byteps_tpu``, whose worker sends the lr only when it changes."""
+        if self._compressors:
+            self._lr_sent_to_servers = 1.0
+            self._maybe_send_lr()
 
     def _maybe_send_lr(self) -> None:
         if self._compressors and self._compression_lr != self._lr_sent_to_servers:

@@ -141,6 +141,18 @@ def _log(msg: str) -> None:
     print(f"byteps_tpu_torch server: {msg}", file=sys.stderr, flush=True)
 
 
+def _ef_stage(codec):
+    """The error-feedback stage of a server chain (momentum is skipped
+    there, so it is the chain's head when present), or None."""
+    from byteps_tpu_torch.compression.error_feedback import VanillaErrorFeedback
+
+    while codec is not None:
+        if isinstance(codec, VanillaErrorFeedback):
+            return codec
+        codec = getattr(codec, "inner", None)
+    return None
+
+
 class _KeyState:
     __slots__ = (
         "store", "accum", "dtype_id", "recv_count", "store_version",
@@ -694,6 +706,16 @@ class PSServer:
                             opt_seeded=sorted(int(w) for w in ks.opt_seeded),
                             opt_slot_nbytes=[len(b) for b in blobs])
                 extra_b = b"".join(blobs)
+            ef = _ef_stage(ks.compressor)
+            if ef is not None and ef.error is not None:
+                # the server chain's error-feedback residual, behind the
+                # rule's slots: the next compressed pull at the new owner
+                # corrects by it as this server's would.  byteps_tpu's
+                # install reads its slots from the tail's front and never
+                # this field, so its chains restart at zero
+                err_b = np.ascontiguousarray(ef.error, dtype=np.float32).tobytes()
+                meta["ef_error_nbytes"] = len(err_b)
+                extra_b += err_b
             # from here on a request is redirected: nothing can change the
             # state already serialized
             ks.migrated_to = owner
@@ -862,7 +884,8 @@ class PSServer:
             key = int(meta["key"])
             epoch = int(meta.get("epoch", msg.version))
             dtype_id = int(to_datatype(str(meta["dtype"])))
-            extra_b = decode_migrate_extra(msg.payload, meta) if meta.get("opt_rule") else b""
+            extra_b = (decode_migrate_extra(msg.payload, meta)
+                       if meta.get("opt_rule") or meta.get("ef_error_nbytes") else b"")
         except (KeyError, ValueError, TypeError, UnicodeDecodeError, struct.error):
             close_socket(conn)  # a malformed control frame
             return
@@ -935,6 +958,11 @@ class PSServer:
         if ks.compressor_kwargs:
             ks.compressor = create_compressor(ks.compressor_kwargs, ks.store.size, server=True)
             apply_lr_to_chain(ks.compressor, self._ef_lr)
+            ef = _ef_stage(ks.compressor)
+            nb = int(meta.get("ef_error_nbytes") or 0)
+            if ef is not None and nb == ks.store.size * 4:
+                off = sum(int(b) for b in meta.get("opt_slot_nbytes") or ())
+                ef.error = np.frombuffer(extra_b[off: off + nb], dtype=np.float32).copy()
         ks.pull_payload = ks.raw_payload = None
         ks.pull_version = ks.raw_version = -1
 
