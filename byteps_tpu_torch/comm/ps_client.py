@@ -82,6 +82,18 @@ chaos van's fault layer, so a ``chaos+`` address refuses the native
 client (the port never falls back to the Python lanes).  Each push's and
 pull's round trip, send to reply, is observed as
 ``rpc_round_trip_seconds{server}``.
+
+Each heartbeat carries this process's metric delta and its flight ledger
+tail (``fr``) to the scheduler's aggregate; the first beat to a new
+scheduler incarnation carries the whole history.  A book's ``tuning``
+section (the autotuner's decisions) is adopted when its tuning epoch is
+newer than the one applied, and handed to the listeners
+(:meth:`PSClient.add_tuning_listener`: the engine); a new scheduler
+incarnation re-arms that fence at -1, and a book without a section after
+one with it hands the listeners an empty one (a successor with no tuner:
+launch values again).  A rejoin REGISTER reports the last section adopted
+and the ring overrides last seen, so that a restarted scheduler's tuner
+takes them up.
 """
 
 from __future__ import annotations
@@ -464,6 +476,13 @@ class PSClient:
         #: and before the map routes (the engine sends the error-feedback
         #: lr again: a server that joined since never got it)
         self._server_set_listeners: List[Callable[[], None]] = []
+        #: the fleet tuning adopted (a book's ``tuning`` section, None with
+        #: no tuner), its epoch, and its consumers
+        self.tuning: Optional[dict] = None
+        self._tuning_epoch = 0
+        self._tuning_listeners: List[Callable[[dict], None]] = []
+        #: the newest book's placement overrides, reported on a rejoin
+        self._seen_ring_overrides: Dict[str, int] = {}
 
     # --- rendezvous ------------------------------------------------------
 
@@ -547,6 +566,11 @@ class PSClient:
         if inc and self.sched_incarnation and inc < self.sched_incarnation:
             counters().bump("sched_stale_book")
             return False
+        if inc > self.sched_incarnation and self.sched_incarnation:
+            # a successor numbers its tuning from its own start: the
+            # monotone fence re-arms (-1, so that its epoch-0 section too
+            # is adopted)
+            self._tuning_epoch = -1
         self.sched_incarnation = max(self.sched_incarnation, inc)
         return True
 
@@ -559,10 +583,64 @@ class PSClient:
         me = book.get("map_epoch")
         if me is not None and int(me) >= self._seen_map_epoch:
             self._seen_map_epoch = int(me)
+            self._seen_ring_overrides = dict(book.get("ring_overrides") or {})
         ev = book.get("evictions") or {}
         for role, name in (("worker", "worker_evicted"), ("server", "server_evicted")):
             if ev.get(role):
                 counters().set_floor(name, int(ev[role]))
+        self._adopt_tuning(book)
+
+    def _adopt_tuning(self, book: dict) -> None:
+        """Adopt a book's ``tuning`` section if its epoch is newer than the
+        applied one (a repeated or stale book never rolls a decision
+        back), and hand it to the listeners; a book without one, after a
+        section, hands them ``{}`` once.  Runs on the scheduler link's
+        thread, never on a server connection's."""
+        t = book.get("tuning")
+        if not isinstance(t, dict):
+            if self.tuning is not None:
+                self.tuning = None
+                self._tuning_epoch = 0
+                self._call_tuning_listeners({})
+            return
+        try:
+            epoch = int(t.get("epoch", 0) or 0)
+        except (TypeError, ValueError):
+            return
+        if self.tuning is not None and epoch <= self._tuning_epoch:
+            return
+        self._tuning_epoch = epoch
+        self.tuning = dict(t)
+        self._call_tuning_listeners(self.tuning)
+
+    def _call_tuning_listeners(self, section: dict) -> None:
+        for cb in tuple(self._tuning_listeners):
+            try:
+                cb(section)
+            except Exception as e:  # noqa: BLE001 - a listener must not stop a book
+                print(f"byteps_tpu_torch: a tuning listener failed: {e!r}",
+                      file=sys.stderr, flush=True)
+
+    def add_tuning_listener(self, cb: Callable[[dict], None]) -> None:
+        """Register a consumer of the fleet tuning; it gets the current
+        section at once (the first book came before the engine)."""
+        self._tuning_listeners.append(cb)
+        if self.tuning is not None:
+            try:
+                cb(self.tuning)
+            except Exception as e:  # noqa: BLE001
+                print(f"byteps_tpu_torch: a tuning listener failed: {e!r}",
+                      file=sys.stderr, flush=True)
+
+    def _tuning_report(self) -> Optional[dict]:
+        """The tuning this node last adopted, with the ring overrides it
+        last saw: what a rejoin REGISTER reports.  None with no tuner."""
+        if self.tuning is None:
+            return None
+        rep = dict(self.tuning)
+        if self._seen_ring_overrides:
+            rep["ring_overrides"] = dict(self._seen_ring_overrides)
+        return rep
 
     def _ownership_from_book(self, book: Optional[dict]) -> Optional[OwnershipMap]:
         """The book's ownership map; None with resharding off, or for a book
@@ -679,17 +757,37 @@ class PSClient:
         return decode_liveness(self._sched_request(Message(Op.QUERY)).payload)
 
     def _heartbeat_loop(self, interval: float) -> None:
-        """A PING every ``interval`` s.  A beat lost with the link, or
+        """A PING every ``interval`` s, with the metric delta and the flight
+        ledger tail.  A beat lost with the link, or
         dropped on a healthy one (its reply waits at most 4 intervals),
         costs one beat; while the reconnect machine owns the link the loop
         keeps ticking."""
+        from byteps_tpu_torch.core.flightrec import get_process_recorder
+
+        beat_incarnation = None
         while not self._stop.wait(interval):
             with self._sched_cb_lock:
                 if self._sched_dead:
                     continue
+            inc = self.sched_incarnation
+            if inc != beat_incarnation:
+                # a new scheduler's aggregate starts empty: ship it all
+                metrics().reship_for(inc)
+                beat_incarnation = inc
+            delta = metrics().delta_snapshot()
+            rec = get_process_recorder()
+            if rec is not None and rec.enabled:
+                tail = rec.ledger_tail()
+                if tail:
+                    delta["fr"] = tail
             try:
-                self._sched_request(Message(Op.PING), timeout=max(2.0, 4 * interval))
+                self._sched_request(Message(Op.PING, payload=json.dumps(delta).encode()
+                                            if delta else b""),
+                                    timeout=max(2.0, 4 * interval))
             except (ConnectionError, OSError):
+                # the next beat carries it (a beat whose request landed
+                # but timed out counts twice: delivery is at least once)
+                metrics().requeue_delta(delta)
                 continue
 
     def _sched_recv_loop(self) -> None:
@@ -813,6 +911,8 @@ class PSClient:
                 "last_rank": self.rank, "epoch": self.membership_epoch,
                 "map_epoch": self._seen_map_epoch, "reconnect": True,
                 "job": self.cfg.job_id, "job_priority": 1, "job_quota_mbps": 0.0,
+                # a restarted scheduler's tuner takes up what the fleet runs
+                **({"tuning": rep} if (rep := self._tuning_report()) is not None else {}),
             }).encode()
             send_message(sock, Message(Op.REGISTER, payload=payload))
             resp = recv_message(sock)

@@ -11,6 +11,12 @@ package adopt it.  Persistent connections then serve BARRIER (released when
 the group is full), PING, QUERY (heartbeat ages, :meth:`Scheduler.liveness`)
 and SHUTDOWN.  Control payloads are JSON, never pickle.
 
+A heartbeat may carry the node's metric delta (``core/telemetry.py``):
+the scheduler folds it into ``metrics_agg``, its cluster aggregate, under
+``{role, rank}`` labels; the delta's ``fr`` field (the node's flight
+ledger tail) goes to ``flight``, the cluster step matrix
+(``core/flightrec.py``), and a server's ``hot`` report to the tuner.
+
 Membership (docs/elasticity.md; docs/robustness.md, "Liveness policy and
 eviction" and "Control-plane recovery"):
 
@@ -51,8 +57,23 @@ that every receiver builds from its book.  A scale-down then queues each
 dropped server for a drain book (the settled topology, its own rank
 excluded, ``"drain": true``), sent after the map-epoch bump, instead of a
 SHUTDOWN: the server ships every key to its new owner and stops itself.
-The autotuner's book sections (``tuning``, ``ring_overrides``) are not
-sent (ROADMAP.md Queue 1b item P3c).
+
+A heartbeat may carry the node's metric delta (``core/telemetry.py``):
+the scheduler folds it into ``metrics_agg``, its cluster aggregate, under
+``{role, rank}`` labels; the delta's ``fr`` field (the node's flight
+ledger tail) goes to ``flight``, the cluster step matrix
+(``core/flightrec.py``), and a server's ``hot`` report to the tuner.
+
+The autotuner (``BYTEPS_AUTOTUNE``, ``core/autotune.py``): a thread sweeps
+every ``BYTEPS_AUTOTUNE_INTERVAL_S`` over a view of the aggregate, the
+step matrix and the hot reports (:meth:`Scheduler._tuner_view`).  A sweep
+that changed something sends every node a RESIZE_SEQ book, after bumping
+``map_epoch`` when it moved a key (the servers then migrate it).  Every
+book carries the ``tuning`` section and any ``ring_overrides``.  A
+restarted scheduler adopts the newest tuning its rejoining nodes report
+before its first books, so a live decision is confirmed, not reverted.
+With the tuner off, the books and the heartbeat replies are what they
+were before the tuner existed.
 """
 
 from __future__ import annotations
@@ -167,12 +188,140 @@ class Scheduler:
         #: (conn, send_lock, role, rank, seq)
         self._parked_regs: List[tuple] = []
         self._pending_broadcast = False
+        from byteps_tpu_torch.core.autotune import AutoTuner, tuner_enabled
+        from byteps_tpu_torch.core.flightrec import ClusterFlight
+        from byteps_tpu_torch.core.telemetry import MetricsRegistry
+
+        #: the cluster aggregate of the nodes' heartbeat deltas
+        self.metrics_agg = MetricsRegistry()
+        self.metrics_agg.gauge_fn("cluster_map_epoch", lambda: self.map_epoch)
+        #: the cluster step matrix of the nodes' flight ledger tails
+        self.flight = ClusterFlight()
+        self.flight.attach(self.metrics_agg)
+        #: the autotuner (BYTEPS_AUTOTUNE), None when off
+        self.tuner: Optional[AutoTuner] = None
+        if tuner_enabled():
+            self.tuner = AutoTuner(registry=self.metrics_agg, reshard=self.reshard)
+            self.metrics_agg.gauge_fn("cluster_tuning_epoch", lambda: self.tuner.state.epoch)
 
     def start(self) -> None:
         threading.Thread(target=self._accept_loop, name="sched-accept", daemon=True).start()
         if self.dead_node_timeout > 0:
             threading.Thread(target=self._monitor_loop, name="sched-liveness",
                              daemon=True).start()
+        if self.tuner is not None:
+            threading.Thread(target=self._tuner_loop, name="sched-autotune",
+                             daemon=True).start()
+
+    # --- the autotuner ---------------------------------------------------
+
+    def _tuner_loop(self) -> None:
+        while not self._stop.wait(self.tuner.cfg.interval_s):
+            try:
+                self._tuner_sweep_once()
+            except Exception as e:  # noqa: BLE001 - the loop must live
+                _log(f"autotune sweep error: {e!r}")
+
+    def _tuner_view(self) -> dict:
+        """One sweep's input: each server's load and hottest keys (the hot
+        reports since the last sweep), each worker's last step and the
+        workers' stage dwell (the step matrix), the fusion counters and
+        the fleet's fusion threshold (the aggregate), and per codec the
+        workers that turned it off on their own."""
+        loads, hot_keys, owned = self.tuner.drain_hot()
+        steps: Dict[str, float] = {}
+        dwell: Dict[str, float] = {}
+        for who, recs in self.flight.matrix().items():
+            if not who.startswith("worker"):
+                continue
+            for r in reversed(recs):
+                if r.get("k") == "step" and r.get("dur"):
+                    steps[who] = float(r["dur"])
+                    break
+            for r in recs:
+                for stage, nv in (r.get("st") or {}).items():
+                    try:
+                        dwell[stage] = dwell.get(stage, 0.0) + float(nv[1])
+                    except (TypeError, ValueError, IndexError):
+                        continue
+        flat = self.metrics_agg.counters.snapshot()
+        labeled = self.metrics_agg.counters.labeled_raw()
+
+        def votes(name: str) -> Dict[str, int]:
+            by_codec: Dict[str, set] = {}
+            for lkey, v in (labeled.get(name) or {}).items():
+                ld = dict(lkey)
+                codec = ld.get("codec")
+                if v > 0 and codec and ld.get("role", "worker") == "worker":
+                    by_codec.setdefault(codec, set()).add(ld.get("rank", "?"))
+            return {c: len(rs) for c, rs in by_codec.items()}
+
+        with self.metrics_agg._lock:
+            gauges = dict(self.metrics_agg._gauges)
+        thr = max([float(v) for (name, _lk), v in gauges.items()
+                   if name == "fusion_threshold_bytes"] or [0.0])
+        with self._lock:
+            ranks = [n.rank for n in self._nodes["server"]]
+            nw = len(self._nodes["worker"])
+        return {
+            "server_ranks": ranks,
+            "num_workers": nw,
+            "steps": steps,
+            "server_load": loads,
+            "hot_keys": hot_keys,
+            "owned": owned,
+            "fusion": {"threshold": thr, "wire_rpc": flat.get("wire_rpc", 0),
+                       "fused_frames": flat.get("fused_frames", 0),
+                       "fused_keys": flat.get("fused_keys", 0), "dwell": dwell},
+            "codec_votes": votes("compression_auto_off"),
+            "codec_lossless_votes": votes("compression_auto_lossless"),
+        }
+
+    def _tuner_sweep_once(self) -> dict:
+        """One sweep; a change goes out in RESIZE_SEQ books (once the first
+        books went out: before, they carry it)."""
+        res = self.tuner.sweep(self._tuner_view())
+        if not res["changed"]:
+            return res
+        with self._lock:
+            if res["map_changed"]:
+                # the placement moved: the map epoch moves with it, so the
+                # servers migrate and stale requests chase
+                self.map_epoch += 1
+            if self._addrbook_sent:
+                for r in ("worker", "server"):
+                    for node in self._nodes[r]:
+                        self._send_addrbook_to(node.conn, node.send_lock, r, node.rank,
+                                               RESIZE_SEQ)
+        return res
+
+    def _merge_metric_delta(self, conn, payload: bytes) -> None:
+        """Fold a heartbeat's metric delta into the aggregate under the
+        sender's {role, rank}; its flight tail goes to the step matrix and
+        a server's hot report to the tuner (dropped with the tuner off).
+        A malformed payload is dropped."""
+        try:
+            delta = json.loads(payload.decode())
+        except (ValueError, UnicodeDecodeError):
+            return
+        if not isinstance(delta, dict):
+            return
+        with self._lock:
+            ident = self._conn_ids.get(conn)
+        labels = {"role": ident[0], "rank": str(ident[1])} if ident else None
+        tail = delta.pop("fr", None)
+        if tail and ident:
+            try:
+                self.flight.merge(ident[0], ident[1], tail)
+            except Exception as e:  # noqa: BLE001
+                _log(f"flight tail merge failed: {e!r}")
+        hot = delta.pop("hot", None)
+        if hot and ident and ident[0] == "server" and self.tuner is not None:
+            self.tuner.note_hot(ident[1], hot)
+        try:
+            self.metrics_agg.merge_delta(delta, labels=labels)
+        except Exception as e:  # noqa: BLE001
+            _log(f"metric delta merge failed: {e!r}")
 
     def stop(self) -> None:
         self._stop.set()
@@ -219,8 +368,8 @@ class Scheduler:
                 elif msg.op == Op.BARRIER:
                     self._handle_barrier(conn, send_lock, msg)
                 elif msg.op == Op.PING:
-                    # a heartbeat may carry metric deltas: the cluster
-                    # aggregate is not ported, so they are read no further
+                    if msg.payload:
+                        self._merge_metric_delta(conn, msg.payload)
                     send_message(conn, Message(Op.PING, seq=msg.seq), send_lock)
                 elif msg.op == Op.QUERY:
                     send_message(conn, Message(
@@ -305,8 +454,10 @@ class Scheduler:
             for waiters in self._barriers.values():
                 waiters[:] = [w for w in waiters if id(w[0]) not in doomed_conns]
             self._release_satisfied_barriers_locked()
-        for _, n in doomed:
+        for role, n in doomed:
             close_socket(n.conn)  # a hung node's reader learns it was expelled
+            # its frozen last step must not feed the straggler median
+            self.flight.forget(role, n.rank)
 
     def _bump_map_epoch_locked(self) -> bool:
         """Advance ``map_epoch`` iff the server set (sorted rank, host,
@@ -372,6 +523,12 @@ class Scheduler:
             if rejoiner:
                 self._rejoin_reports += 1
                 self._arm_rejoin_grace_locked()
+                if (self.tuner is not None and not self._addrbook_sent
+                        and info.get("tuning")):
+                    # a successor confirms the fleet's live decisions
+                    # (newest report wins); a live scheduler's own state
+                    # is newer than any report
+                    self.tuner.adopt_rejoin_report(info["tuning"])
                 if not self._addrbook_sent and role == "worker" and not job:
                     # the job may have been resized since this scheduler's
                     # environment was written: the survivors know
@@ -591,6 +748,9 @@ class Scheduler:
             "sched_incarnation": self.incarnation,
             "jobs": self._jobs_map_locked(),
         }
+        if self.tuner is not None:
+            # the tuning section, and the overrides of this book's ranks
+            book.update(self.tuner.book_extras(book["server_ranks"]))
         if drain:
             # this server is off the rank list: it ships every key it
             # holds to the book's owners, then stops

@@ -99,6 +99,13 @@ class Config:
     server_opt: str = ""  # BYTEPS_SERVER_OPT
     #: its hyperparameters as JSON, e.g. '{"lr": 0.01}'
     server_opt_hp: str = ""  # BYTEPS_SERVER_OPT_HP
+    #: adaptive compression: a key whose codec's wire ratio (compressed
+    #: over raw bytes) is at or above the cutoff stops compressing, its
+    #: rounds push raw (servers serve raw and compressed on one key)
+    compression_auto: bool = False  # BYTEPS_COMPRESSION_AUTO
+    compression_auto_ratio: float = 0.9  # BYTEPS_COMPRESSION_AUTO_RATIO
+    #: rounds a data-dependent codec is observed before its verdict
+    compression_auto_rounds: int = 3  # BYTEPS_COMPRESSION_AUTO_ROUNDS
     #: the worker's data lanes in C++ (native/csrc/ps_client.cc)
     native_client: bool = False  # BYTEPS_NATIVE_CLIENT
     #: a server's data plane in C++ (native/csrc/ps_server.cc)
@@ -200,6 +207,9 @@ class Config:
             staleness_bound=max(-1, _env_int("BYTEPS_STALENESS_BOUND", -1)),
             server_opt=(os.environ.get("BYTEPS_SERVER_OPT") or "").strip().lower(),
             server_opt_hp=os.environ.get("BYTEPS_SERVER_OPT_HP") or "",
+            compression_auto=_env_bool("BYTEPS_COMPRESSION_AUTO"),
+            compression_auto_ratio=_env_float("BYTEPS_COMPRESSION_AUTO_RATIO", 0.9),
+            compression_auto_rounds=max(1, _env_int("BYTEPS_COMPRESSION_AUTO_ROUNDS", 3)),
             native_client=_env_bool("BYTEPS_NATIVE_CLIENT"),
             server_native=_env_bool("BYTEPS_SERVER_NATIVE"),
             heartbeat_interval=_env_float("BYTEPS_HEARTBEAT_INTERVAL", 5.0),
@@ -249,12 +259,12 @@ def clear_config() -> None:
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "autotune": "the autotuner (BYTEPS_AUTOTUNE): ROADMAP.md Queue 1b item P3c",
     "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
     "van": "the uds and shm vans (and the chaos van around them): ROADMAP.md Queue 1b item P8",
     "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
-    "auto": "adaptive compression (BYTEPS_COMPRESSION_AUTO): ROADMAP.md Queue 1b item P13",
+    "flight_upload": "the flight recorder's bundle upload (BYTEPS_FLIGHT_UPLOAD): "
+                     "ROADMAP.md Queue 1 item 10",
     "model_parallel": "model parallelism (mesh axes other than dp): ROADMAP.md Queue 1 item 9",
 }
 
@@ -267,10 +277,9 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_AUTOTUNE", "autotune", truthy),
     ("BYTEPS_VAN", "van", lambda v: v not in ("tcp", "chaos:tcp")),
     ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),
-    ("BYTEPS_COMPRESSION_AUTO", "auto", truthy),
+    ("BYTEPS_FLIGHT_UPLOAD", "flight_upload", truthy),
 )
 
 

@@ -170,6 +170,9 @@ class TensorTableEntry:
     gate_exempt: bool = False
     #: a FUSE-routed task that has not reached the fusion buffer yet
     fuse_staged: bool = False
+    #: a raw partition of a device-lane job: the host tensor its pull
+    #: lands in, moved to the device in COPYH2D
+    raw_out: Any = None
 
 
 class StatusType(enum.IntEnum):

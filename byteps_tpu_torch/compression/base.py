@@ -20,6 +20,12 @@ import torch
 class Compressor(abc.ABC):
     """A codec over one partition's flat float32 values."""
 
+    #: True when :meth:`wire_nbytes` is exact for every payload the codec
+    #: emits (a size-deterministic wire), not a bound: adaptive
+    #: compression then decides a key at registration.  Every shipped
+    #: codec sets it; a custom codec keeping the default size does not.
+    wire_static = False
+
     def __init__(self, size: int) -> None:
         self.size = size  # element count of the uncompressed partition
 
@@ -37,7 +43,8 @@ class Compressor(abc.ABC):
         acc += self.decompress(payload, acc.size)
 
     def wire_nbytes(self) -> int:
-        """Exact payload size in bytes."""
+        """Payload size in bytes: exact where ``wire_static``, else the
+        uncompressed size (no savings assumed)."""
         return self.size * 4
 
     def update_error(self, corrected: np.ndarray, payload: bytes) -> np.ndarray:

@@ -46,3 +46,8 @@ class VanillaErrorFeedback(Compressor):
 
     def wire_nbytes(self) -> int:
         return self.inner.wire_nbytes()
+
+    @property
+    def wire_static(self) -> bool:
+        """The wrapped codec's: the decorator does not change the wire."""
+        return self.inner.wire_static

@@ -61,6 +61,8 @@ class OneBitCompressor(Compressor):
         super().__init__(size)
         self.scaling = scaling
 
+    wire_static = True  # [f32 scale][packed sign words]
+
     def wire_nbytes(self) -> int:
         return 4 + 4 * ((self.size + 31) // 32)
 
@@ -114,6 +116,8 @@ class TopKCompressor(Compressor):
         super().__init__(size)
         self.k = max(1, min(int(k), size))
 
+    wire_static = True  # exactly k (index, value) pairs
+
     def wire_nbytes(self) -> int:
         return 8 * self.k
 
@@ -153,6 +157,7 @@ class RandomKCompressor(Compressor):
         self.s0, self.s1 = seed_pair_from(seed)
 
     wire_nbytes = TopKCompressor.wire_nbytes
+    wire_static = True
 
     def compress(self, grad: np.ndarray) -> bytes:
         grad = _f32(grad)
@@ -185,6 +190,8 @@ class DitheringCompressor(Compressor):
         self.natural = partition in ("natural", "1", 1)
         self.l2 = normalize in ("l2", "L2", "1", 1)
         self.s0, self.s1 = seed_pair_from(seed)
+
+    wire_static = True  # [f32 norm][i8 level x n]
 
     def wire_nbytes(self) -> int:
         return 4 + self.size

@@ -57,6 +57,9 @@ def _to_device(payload, device: torch.device) -> torch.Tensor:
 
 
 class _DeviceOneBit:
+    #: its wire_nbytes() is exact and equals its host twin's
+    wire_static = True
+
     def __init__(self, size: int, scaling: bool) -> None:
         self.size = size
         self.scaling = scaling
@@ -75,6 +78,9 @@ class _DeviceOneBit:
 
 
 class _DeviceTopK:
+    #: its wire_nbytes() is exact and equals its host twin's
+    wire_static = True
+
     def __init__(self, size: int, k: int) -> None:
         self.size = size
         self.k = max(1, min(int(k), size))
@@ -91,6 +97,9 @@ class _DeviceTopK:
 
 
 class _DeviceDithering:
+    #: its wire_nbytes() is exact and equals its host twin's
+    wire_static = True
+
     def __init__(self, size: int, s: int, natural: bool, l2: bool, seed: int) -> None:
         self.size = size
         self.s = s

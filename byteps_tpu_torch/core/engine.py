@@ -75,16 +75,38 @@ and marks its tensor for a forced init barrier on its next submit;
 :meth:`PipelineEngine.heal_degraded` heals it in place instead where it
 can.
 
-Not ported (ROADMAP.md Queue 1b): row-sparse, adaptive compression, the
-tuner (and its adoption of a tuned fusion threshold), tracing spans and
-the flight recorder.  Each stage's dwell is observed as
-``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
+Adaptive compression (``BYTEPS_COMPRESSION_AUTO``): a partition whose
+codec's wire ratio (wire over raw bytes) is at or above
+``BYTEPS_COMPRESSION_AUTO_RATIO`` joins ``_compression_auto_off`` and its
+later rounds push raw; the codec stays registered on its server, which
+serves raw and compressed rounds of one key alike.  Every shipped codec
+has a size-deterministic wire (``wire_static``), so the verdict is taken
+at registration; a data-dependent chain is judged on its first
+``BYTEPS_COMPRESSION_AUTO_ROUNDS`` compressions.  An off partition pushes
+raw on both lanes: in a device-lane job it is copied raw to the host and
+its pull moved back in COPYH2D, while the job's other partitions stay on
+the device lane (ROADMAP.md Queue 3, the ninth divergence: byteps_tpu's
+device lane does not read the off set and keeps compressing).
+
+The fleet's tuning (``core/autotune.py``), handed over by the PS client
+from the books (:meth:`PipelineEngine._apply_tuning`): its fusion
+threshold is adopted live (never turning fusion on from 0, and a section
+without it restores the launch value), and its ``codec_off`` turns every
+partition of the named codecs raw, a rollback turning back exactly those.
+``codec_lossless`` is ignored: lossless frames are not ported (P11).  The
+flight recorder gets one record a step: a step opens with the first
+push_pull after a quiet spell and closes when the last one completes.
+
+Row-sparse and tracing spans are not ported (ROADMAP.md Queue 1).  Each
+stage's dwell is observed as ``stage_dwell_seconds{stage}``
+(``core/telemetry.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import sys
 import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
@@ -109,8 +131,12 @@ from byteps_tpu_torch.common.types import (
 )
 from byteps_tpu_torch.core.ready_table import ReadyTable
 from byteps_tpu_torch.core.scheduler import ScheduledQueue
-from byteps_tpu_torch.core.telemetry import COUNT_BUCKETS, counters, metrics
+from byteps_tpu_torch.core.telemetry import COUNT_BUCKETS, RATIO_BUCKETS, counters, metrics
 from byteps_tpu_torch.server.update_rules import parse_hp, rule_name
+
+
+def _log(msg: str) -> None:
+    print(f"byteps_tpu_torch: {msg}", file=sys.stderr, flush=True)
 
 
 #: per CUDA device: (COPYD2H stream, H2D and decode stream), for every engine
@@ -138,7 +164,7 @@ class _Job:
     __slots__ = (
         "name", "ctx", "flat", "result", "result_t", "dtype_id", "average",
         "handle", "pending", "shape", "is_torch", "device", "ready",
-        "version", "device_parts", "failed", "lock",
+        "version", "device_parts", "failed", "step_counted", "lock",
     )
 
     def __init__(self, name, ctx, flat, dtype_id, average, handle, shape,
@@ -162,6 +188,8 @@ class _Job:
         #: device-codec jobs: offset -> decoded partition on the device
         self.device_parts: Optional[Dict[int, torch.Tensor]] = None
         self.failed = False
+        #: the job left the step window (completed or failed), once
+        self.step_counted = False
         self.lock = threading.Lock()
 
 
@@ -300,7 +328,7 @@ class PipelineEngine:
     #: engine re-runs its init barrier
     _epoch_counter = itertools.count()
 
-    def __init__(self, cfg: Config, ps_client) -> None:
+    def __init__(self, cfg: Config, ps_client, flightrec=None) -> None:
         self.cfg = cfg
         self.client = ps_client
         self._epoch = next(PipelineEngine._epoch_counter)
@@ -353,6 +381,27 @@ class PipelineEngine:
         add = getattr(ps_client, "add_server_set_listener", None)
         if add is not None:
             add(self._resend_lr)
+        # --- adaptive compression and the fleet's tuning ---
+        #: keys whose rounds push raw (a verdict, or a fleet codec_off)
+        self._compression_auto_off: set = set()
+        #: key -> [rounds, wire bytes, raw bytes] until a probe's verdict,
+        #: None once decided
+        self._auto_stats: Dict[int, Any] = {}
+        #: key -> its codec's type name (what codec_off names)
+        self._codec_names: Dict[int, str] = {}
+        #: codec name -> the keys a fleet codec_off turned raw here
+        self._fleet_codec_off: Dict[str, set] = {}
+        self._tuning_lock = threading.Lock()
+        self._fuse_enabled = cfg.fusion_threshold > 0
+        self._launch_fusion_threshold = cfg.fusion_threshold
+        # --- the step window of the flight recorder ---
+        self._flight = flightrec
+        self._step_lock = threading.Lock()
+        self._step_open = 0
+        self._step_t0 = 0.0
+        add = getattr(ps_client, "add_tuning_listener", None)
+        if add is not None:
+            add(self._apply_tuning)
 
     # --- lifecycle -------------------------------------------------------
 
@@ -385,6 +434,125 @@ class PipelineEngine:
         for t in self._threads:
             t.join(timeout=2.0)
         self._threads = []
+
+    # --- adaptive compression and the fleet's tuning ----------------------
+
+    def _apply_tuning(self, t: dict) -> None:
+        """Adopt a fleet tuning section (the PS client calls it with each
+        newer one, and with ``{}`` when the books stop carrying one).  The
+        fusion threshold is one int each submit reads; the codec flips
+        move keys in and out of the off set under the tuning lock."""
+        ft = t.get("fusion_threshold")
+        if ft is None:
+            ft = self._launch_fusion_threshold  # untouched: the launch value
+        if self._fuse_enabled:
+            # never on from 0: with no FUSE stage at start there is no
+            # thread to serve it
+            try:
+                ft = int(ft)
+            except (TypeError, ValueError):
+                ft = 0
+            if ft > 0 and ft != self.cfg.fusion_threshold:
+                _log(f"autotune: fleet fusion threshold {self.cfg.fusion_threshold} -> "
+                     f"{ft} bytes")
+                self.cfg.fusion_threshold = ft
+                metrics().gauge_set("fusion_threshold_bytes", ft)
+        off = {str(n) for n in (t.get("codec_off") or ())}
+        with self._tuning_lock:
+            for name in sorted(off - set(self._fleet_codec_off)):
+                keys = {k for k, n in self._codec_names.items()
+                        if n == name and k not in self._compression_auto_off}
+                self._fleet_codec_off[name] = keys
+                self._compression_auto_off.update(keys)
+                if keys:
+                    counters().bump("tune_codec_off", len(keys), labels={"codec": name})
+                _log(f"autotune: fleet codec consensus disabled {name!r} ({len(keys)} "
+                     "local keys push raw)")
+            for name in sorted(set(self._fleet_codec_off) - off):
+                # the keys the fleet turned raw compress again; a key this
+                # worker judged raw on its own stays raw
+                keys = self._fleet_codec_off.pop(name)
+                self._compression_auto_off.difference_update(keys)
+                _log(f"autotune: fleet codec decision on {name!r} rolled back ({len(keys)} "
+                     "keys compress again)")
+
+    def _auto_static_verdict(self, key: int, codec) -> None:
+        """The verdict of a size-deterministic codec at registration: its
+        exact wire ratio decides the key before any round."""
+        ratio = codec.wire_nbytes() / max(1, codec.size * 4)
+        metrics().observe("compression_ratio", ratio, buckets=RATIO_BUCKETS)
+        self._auto_stats[key] = None
+        if ratio < self.cfg.compression_auto_ratio:
+            return
+        self._compression_auto_off.add(key)
+        counters().bump("compression_auto_off",
+                        labels={"codec": self._codec_names.get(key, "?")})
+        _log(f"compression auto-disabled for key {key} at registration: static wire "
+             f"ratio {ratio:.3f} >= {self.cfg.compression_auto_ratio:.3f}; its rounds "
+             "push raw")
+
+    def _note_compression(self, key: int, raw_nbytes: int, comp_nbytes: int) -> None:
+        """One host compression's outcome (``wire_bytes_saved``,
+        ``compression_ratio``) and, for a key not yet judged, the probe:
+        after ``BYTEPS_COMPRESSION_AUTO_ROUNDS`` compressions a mean ratio
+        at or above the cutoff turns it raw.  Runs on the key's COMPRESS
+        stripe, so a key's stats never race."""
+        if comp_nbytes < raw_nbytes:
+            counters().bump("wire_bytes_saved", raw_nbytes - comp_nbytes)
+        metrics().observe("compression_ratio", comp_nbytes / max(1, raw_nbytes),
+                          buckets=RATIO_BUCKETS)
+        if not self.cfg.compression_auto or key in self._compression_auto_off:
+            return
+        st = self._auto_stats.get(key, False)
+        if st is None:
+            return  # judged: it keeps its codec
+        if st is False:
+            st = self._auto_stats[key] = [0, 0, 0]
+        st[0] += 1
+        st[1] += comp_nbytes
+        st[2] += raw_nbytes
+        if st[0] < self.cfg.compression_auto_rounds:
+            return
+        ratio = st[1] / max(1, st[2])
+        if ratio < self.cfg.compression_auto_ratio:
+            self._auto_stats[key] = None
+            return
+        self._auto_stats.pop(key, None)
+        self._compression_auto_off.add(key)
+        counters().bump("compression_auto_off",
+                        labels={"codec": self._codec_names.get(key, "?")})
+        _log(f"compression auto-disabled for key {key}: observed wire ratio {ratio:.3f} >= "
+             f"{self.cfg.compression_auto_ratio:.3f} over {st[0]} rounds; later rounds "
+             "push raw")
+
+    def auto_off_keys(self) -> set:
+        """The keys whose rounds push raw now."""
+        with self._tuning_lock:
+            return set(self._compression_auto_off)
+
+    # --- the flight recorder's step window --------------------------------
+
+    def _step_begin(self) -> None:
+        with self._step_lock:
+            if self._step_open == 0:
+                self._step_t0 = time.monotonic()
+            self._step_open += 1
+
+    def _step_end(self, job: _Job) -> None:
+        """A job left the pipeline, completed or failed (once a job): the
+        last one out closes the step and stamps its record."""
+        with job.lock:
+            if job.step_counted:
+                return
+            job.step_counted = True
+        with self._step_lock:
+            if self._step_open <= 0:
+                return
+            self._step_open -= 1
+            done = self._step_open == 0
+            dur = time.monotonic() - self._step_t0
+        if done and self._flight is not None and self._flight.enabled:
+            self._flight.record_step(dur)
 
     def _loop(self, q: ScheduledQueue, fn) -> None:
         while not self._stop.is_set():
@@ -451,6 +619,7 @@ class PipelineEngine:
             job.result = _np_view(job.result_t)
         else:
             job.result = np.empty(flat.shape, dtype=flat.dtype)
+        self._step_begin()
         for part in ctx.partitions:
             stages, small = self._stages(part, job, itemsize)
             if small:
@@ -465,10 +634,14 @@ class PipelineEngine:
     def _stages(self, part, job: _Job, itemsize: int) -> tuple:
         """(stage list, fused?) of a partition: a compressed one is gauged
         against the fusion threshold by its codec's wire bytes, a raw one
-        by its own."""
+        (a key in the off set too, on either lane) by its own."""
         limit = self.cfg.fusion_threshold
-        codec = (self._device_codecs[part.key] if job.device_parts is not None
-                 else self._compressors.get(part.key))
+        if part.key in self._compression_auto_off:
+            codec = None
+        elif job.device_parts is not None:
+            codec = self._device_codecs[part.key]
+        else:
+            codec = self._compressors.get(part.key)
         if codec is not None:
             small = bool(limit) and codec.wire_nbytes() <= limit
             return (self.STAGES_COMPRESSED_FUSED if small else self.STAGES_COMPRESSED), small
@@ -542,12 +715,22 @@ class PipelineEngine:
             return
         if dtype_id != DataType.FLOAT32 or nbytes < self.cfg.min_compress_bytes:
             return
+        ctype = str(ctx.kwargs.get("byteps_compressor_type") or ctx.kwargs.get("compressor")
+                    or "?")
         for part in ctx.partitions:
             codec = create_compressor(ctx.kwargs, part.length)
             self._ensure_compress_threads()
             self._compressors[part.key] = codec
+            self._codec_names[part.key] = ctype
+            with self._tuning_lock:
+                if ctype in self._fleet_codec_off:
+                    # the fleet turned this codec off before the key came
+                    self._fleet_codec_off[ctype].add(part.key)
+                    self._compression_auto_off.add(part.key)
             # a chain made after set_compression_lr must still honour it
             apply_lr_to_chain(codec, self._compression_lr)
+            if self.cfg.compression_auto and codec.wire_static:
+                self._auto_static_verdict(part.key, codec)
             self.client.register_compressor(part.key, ctx.kwargs)
             dc = device_codec_for(ctx.kwargs, part.length)
             if dc is not None:
@@ -692,6 +875,7 @@ class PipelineEngine:
         self.queues[QueueType.PUSH].notify()
         self.queues[QueueType.FUSE].notify()
         if first:
+            self._step_end(job)
             if degraded:
                 counters().bump("degraded_jobs")
                 self._reinit_names.add(job.name)  # no lock: a receive loop may run this
@@ -706,6 +890,7 @@ class PipelineEngine:
 
         if job.failed:
             return
+        self._step_end(job)
         n = self.client.num_workers
         average = job.average and is_floating(job.dtype_id)
         if not job.is_torch:
@@ -819,10 +1004,12 @@ class PipelineEngine:
         device codec its wire payload, reach host memory."""
         job: _Job = task.context
         sl = job.flat[task.offset: task.offset + task.length]
+        # a device-lane job's partition in the off set is copied raw
+        on_device = job.device_parts is not None and QueueType.COMPRESS in task.queue_list
         if not job.is_torch:
             task.cpubuff = sl
         elif job.device.type == "cpu":
-            if job.device_parts is not None:
+            if on_device:
                 task.compressed = self._device_codecs[task.key].compress(sl)
             else:
                 task.cpubuff = _np_view(sl)
@@ -830,7 +1017,7 @@ class PipelineEngine:
             d2h = self.streams(job.device)[0]
             with torch.cuda.stream(d2h):
                 d2h.wait_event(job.ready)
-                if job.device_parts is not None:
+                if on_device:
                     task.compressed = self._device_codecs[task.key].compress(sl)
                     counters().bump("d2h_bytes", len(task.compressed))
                 else:
@@ -848,6 +1035,7 @@ class PipelineEngine:
         for a partition the device already packed."""
         if task.compressed is None:
             task.compressed = self._compressors[task.key].compress(task.cpubuff)
+            self._note_compression(task.key, task.cpubuff.nbytes, len(task.compressed))
         self._proceed(task)
 
     def _unstage_small(self, task: TensorTableEntry) -> None:
@@ -982,15 +1170,14 @@ class PipelineEngine:
             if compressed:
                 task.compressed = payload
             else:
-                arr = np.frombuffer(payload, dtype=job.result.dtype)
-                job.result[task.offset: task.offset + task.length] = arr[: task.length]
+                dst = self._raw_dst(task, job)
+                dst[:] = np.frombuffer(payload, dtype=dst.dtype)[: task.length]
             self._proceed(task)
             return
-        sink = None
+        sink = dst = None
         if not compressed:
-            itemsize = job.result.itemsize
-            sink = memoryview(job.result).cast("B")[
-                task.offset * itemsize: (task.offset + task.length) * itemsize]
+            dst = self._raw_dst(task, job)
+            sink = memoryview(dst).cast("B")
 
         def on_pull(payload) -> None:
             from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
@@ -1002,8 +1189,7 @@ class PipelineEngine:
                 if compressed:
                     task.compressed = payload
                 else:
-                    arr = np.frombuffer(payload, dtype=job.result.dtype)
-                    job.result[task.offset: task.offset + task.length] = arr[: task.length]
+                    dst[:] = np.frombuffer(payload, dtype=dst.dtype)[: task.length]
             self._proceed(task)
 
         self.client.pull(
@@ -1015,6 +1201,18 @@ class PipelineEngine:
                           else RequestType.DEFAULT_PUSH_PULL),
             sink=sink, abort_check=lambda: job.failed,
         )
+
+    @staticmethod
+    def _raw_dst(task: TensorTableEntry, job: _Job) -> np.ndarray:
+        """Where a raw pull lands: the job's host result, or for a raw
+        partition of a device-lane job a host tensor of its own
+        (``task.raw_out``, pinned for CUDA) that COPYH2D moves over."""
+        if job.device_parts is None:
+            return job.result[task.offset: task.offset + task.length]
+        if task.raw_out is None:
+            task.raw_out = torch.empty(task.length, dtype=job.flat.dtype,
+                                       pin_memory=job.device.type == "cuda")
+        return _np_view(task.raw_out)
 
     def _decompress_once(self, task: TensorTableEntry) -> None:
         """DECOMPRESS (core_loops.cc:620-648): device-codec partitions are
@@ -1037,7 +1235,18 @@ class PipelineEngine:
 
     def _copy_h2d_once(self, task: TensorTableEntry) -> None:
         """COPYH2D (core_loops.cc:650-753): the copy back to the device
-        happens once per tensor in ``_finalize``; the stage keeps the
-        reference's pipeline shape."""
+        happens once per tensor in ``_finalize``, but for a raw partition
+        of a device-lane job, which goes over here on the stream the job
+        is assembled on."""
+        job: _Job = task.context
+        if job.device_parts is not None and task.raw_out is not None:
+            host, task.raw_out = task.raw_out, None
+            if job.device.type == "cuda":
+                with torch.cuda.stream(self.streams(job.device)[1]):
+                    part = host.to(job.device, non_blocking=True)
+            else:
+                part = host
+            with job.lock:
+                job.device_parts[task.offset] = part
         self._proceed(task)
 

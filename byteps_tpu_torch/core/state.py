@@ -45,6 +45,8 @@ class RuntimeState:
         self.handles = HandleManager()
         self.ps_client = None  # comm.ps_client.PSClient (distributed mode)
         self.engine = None  # core.engine.PipelineEngine (distributed mode)
+        #: core.flightrec.FlightRecorder the engine stamps once a step
+        self.flightrec = None
         self.mesh = None  # comm.mesh.Mesh: the host's process group, under the launcher
         #: (worker rank, number of workers) of this host, from local rank 0
         self.host: Optional[Tuple[int, int]] = None
@@ -112,10 +114,21 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
 
                 if st.node_uid is None:
                     st.node_uid = resolve_node_uid()
+                from byteps_tpu_torch.core.flightrec import ensure_process_recorder
+
                 client = PSClient(cfg, node_uid=st.node_uid)
                 client.connect()
                 st.ps_client = client
-                st.engine = PipelineEngine(cfg, client)
+
+                def flight_context(c=client, job=cfg.job_id) -> dict:
+                    # the epochs and incarnation each step ran under
+                    return {"epoch": c.membership_epoch,
+                            "map_epoch": max(c.map_epoch, c._seen_map_epoch),
+                            "incarnation": c.sched_incarnation,
+                            "degraded": 0 if c._sched_up.is_set() else 1, "job": job}
+
+                st.flightrec = ensure_process_recorder(context_fn=flight_context)
+                st.engine = PipelineEngine(cfg, client, flightrec=st.flightrec)
                 st.engine.start()
             if st.mesh is not None:
                 st.host = _host_identity(cfg, st)
@@ -151,6 +164,13 @@ def _stop(st: RuntimeState, keep_mesh: bool = False) -> None:
     if st.ps_client is not None:
         st.ps_client.close()
         st.ps_client = None
+    if st.flightrec is not None:
+        # its context holds the closed client: the next init makes its own
+        from byteps_tpu_torch.core.flightrec import get_process_recorder, set_process_recorder
+
+        if get_process_recorder() is st.flightrec:
+            set_process_recorder(None)
+        st.flightrec = None
     if st.mesh is not None and not keep_mesh:
         from byteps_tpu_torch.comm.mesh import get_global_mesh, set_global_mesh
 

@@ -54,20 +54,37 @@ the reference's names and bounds:
 - the C++ lanes' ``native_*`` families, read through the histogram
   provider seam (``native/__init__.py``).
 
-Gauges (:meth:`MetricsRegistry.gauge_set`): ``fusion_threshold_bytes``,
-the fusion threshold the worker's engine runs; ``control_plane_degraded``,
-1 while a node's scheduler link is down (it trains on its last book),
-else 0; ``server_owned_keys{rank}`` and ``server_map_epoch{rank}``, the
-keys a server holds and the ownership map it adopted;
-``cluster_map_epoch``, the scheduler's map epoch.
+Gauges (:meth:`MetricsRegistry.gauge_set`, or sampled at read time with
+:meth:`MetricsRegistry.gauge_fn`): ``fusion_threshold_bytes``, the fusion
+threshold the worker's engine runs; ``control_plane_degraded``, 1 while a
+node's scheduler link is down (it trains on its last book), else 0;
+``server_owned_keys{rank}`` and ``server_map_epoch{rank}``, the keys a
+server holds and the ownership map it adopted; ``node_step_seconds``, a
+worker's last step (``core/flightrec.py``); on the scheduler's aggregate,
+``cluster_map_epoch``, ``cluster_tuning_epoch`` and
+``cluster_straggler_rank`` (-1: none).
 
-Prometheus exposition, the heartbeat deltas and the flight recorder's
-hooks are not ported (ROADMAP.md Queue 1 item 10).
+Adaptive compression and the autotuner (``core/autotune.py``):
+``compression_ratio`` (histogram over :data:`RATIO_BUCKETS`, one
+observation per compression and per static verdict),
+``wire_bytes_saved`` (raw minus wire bytes of each compression),
+``compression_auto_off{codec}`` (keys a worker's verdict turned raw),
+``tune_codec_off{codec}`` (keys a fleet decision turned raw), and on the
+aggregate ``tune_action{rule}`` / ``tune_rollback{rule}``.
+
+The heartbeat deltas: :meth:`MetricsRegistry.delta_snapshot` is what
+changed since the last beat (counters flat and labeled, histogram
+buckets, gauges that changed or went), :meth:`~MetricsRegistry.reship_for`
+makes the first beat to a new scheduler incarnation carry the whole
+history, and the scheduler folds each delta into its aggregate with
+:meth:`~MetricsRegistry.merge_delta` under ``{role, rank}`` labels.  The
+Prometheus exposition is not ported (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import threading
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -83,9 +100,12 @@ class Counters:
         self._labeled: Dict[str, Dict[tuple, int]] = {}
 
     def bump(self, name: str, n: int = 1,
-             labels: Optional[Dict[str, str]] = None) -> None:
+             labels: Optional[Dict[str, str]] = None, flat: bool = True) -> None:
+        """``flat=False`` counts under the labels only (an aggregate whose
+        flat total already carried the bump)."""
         with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + n
+            if flat:
+                self._counts[name] = self._counts.get(name, 0) + n
             if labels:
                 per = self._labeled.setdefault(name, {})
                 key = _label_key(labels)
@@ -112,6 +132,11 @@ class Counters:
         with self._lock:
             return {name: {_render_labels(k): v for k, v in per.items()}
                     for name, per in self._labeled.items()}
+
+    def labeled_raw(self) -> Dict[str, Dict[tuple, int]]:
+        """name -> {label key (sorted (name, value) pairs): count}."""
+        with self._lock:
+            return {name: dict(per) for name, per in self._labeled.items()}
 
     def reset(self) -> None:
         with self._lock:
@@ -239,17 +264,56 @@ class MetricsRegistry:
     lanes' histograms), merged into every snapshot above the baseline
     taken at :meth:`reset`."""
 
-    def __init__(self) -> None:
+    def __init__(self, counter_store: Optional[Counters] = None) -> None:
+        #: the counters its deltas read and its merges bump
+        self.counters = counter_store if counter_store is not None else Counters()
         self._lock = threading.Lock()
         self._hists: Dict[Tuple[str, tuple], Histogram] = {}
         self._gauges: Dict[Tuple[str, tuple], float] = {}
+        self._gauge_fns: Dict[Tuple[str, tuple], Callable[[], float]] = {}
         #: id(fn) -> (fn, baseline {(name, labels): (counts, sum, count)})
         self._hist_providers: Dict[int, tuple] = {}
+        # the heartbeat deltas' baselines: what was shipped so far.  In an
+        # in-process fleet several beat loops share this registry; the
+        # lock ships each increment once
+        self._delta_lock = threading.Lock()
+        self._requeued: List[dict] = []
+        self._shipped_counts: Dict[str, int] = {}
+        self._shipped_labeled: Dict[str, Dict[tuple, int]] = {}
+        self._shipped_hists: Dict[Tuple[str, tuple], Tuple[List[int], float, int]] = {}
+        self._shipped_gauges: Dict[Tuple[str, tuple], float] = {}
+        #: the consumer of the last reship_for (a scheduler incarnation)
+        self._reship_token = None
 
     def gauge_set(self, name: str, value: float,
                   labels: Optional[Dict[str, str]] = None) -> None:
         with self._lock:
             self._gauges[(name, _label_key(labels))] = float(value)
+
+    def gauge_fn(self, name: str, fn: Callable[[], float],
+                 labels: Optional[Dict[str, str]] = None) -> None:
+        """A gauge whose value is ``fn()`` at read time."""
+        with self._lock:
+            self._gauge_fns[(name, _label_key(labels))] = fn
+
+    def gauge_remove(self, name: str, labels: Optional[Dict[str, str]] = None) -> None:
+        key = (name, _label_key(labels))
+        with self._lock:
+            self._gauges.pop(key, None)
+            self._gauge_fns.pop(key, None)
+
+    def _gauge_values(self) -> Dict[Tuple[str, tuple], float]:
+        """Set gauges and sampled ones; a gauge function that fails is
+        left out."""
+        with self._lock:
+            cur = dict(self._gauges)
+            fns = dict(self._gauge_fns)
+        for key, fn in fns.items():
+            try:
+                cur[key] = float(fn())
+            except Exception:  # noqa: BLE001 - a broken gauge is not a broken read
+                continue
+        return cur
 
     def histogram(self, name: str, labels: Optional[Dict[str, str]] = None,
                   buckets: Tuple[float, ...] = LATENCY_BUCKETS) -> Histogram:
@@ -322,9 +386,8 @@ class MetricsRegistry:
         """{"histograms": {name{labels}: {"count", "sum", "p50", "p90",
         "p99"}}, "gauges": {name{labels}: value}}, local and provider
         histograms together."""
-        with self._lock:
-            gauges = {name + _render_labels(lkey): v
-                      for (name, lkey), v in self._gauges.items()}
+        gauges = {name + _render_labels(lkey): v
+                  for (name, lkey), v in self._gauge_values().items()}
         out = {}
         for (name, lkey), (bounds, counts, vsum, count) in self._hist_states().items():
             out[name + _render_labels(lkey)] = {
@@ -337,8 +400,16 @@ class MetricsRegistry:
         return {"histograms": out, "gauges": gauges}
 
     def reset(self) -> None:
-        """Drop local histograms; re-baseline providers (their sources are
-        never cleared), so their counts start again from zero."""
+        """Drop local histograms and the delta baselines; re-baseline
+        providers (their sources are never cleared), so their counts start
+        again from zero."""
+        with self._delta_lock:
+            self._requeued.clear()
+            self._shipped_counts.clear()
+            self._shipped_labeled.clear()
+            self._shipped_hists.clear()
+            self._shipped_gauges = {}
+            self._reship_token = None
         with self._lock:
             self._hists.clear()
             providers = list(self._hist_providers.items())
@@ -351,6 +422,153 @@ class MetricsRegistry:
             for pid, fn, base in rebased:
                 if pid in self._hist_providers:
                     self._hist_providers[pid] = (fn, base)
+
+
+    # --- the heartbeat deltas ----------------------------------------------
+
+    def delta_snapshot(self) -> dict:
+        """What changed since the previous call, the payload a heartbeat
+        carries: ``c`` flat counter increments, ``lc`` labeled ones (keyed
+        by the JSON of their label pairs), ``h`` histogram bucket
+        increments, ``g`` gauges that changed or appeared (current values)
+        and ``gr`` gauges that went.  Empty when nothing changed."""
+        with self._delta_lock:
+            return self._delta_snapshot_locked()
+
+    def _delta_snapshot_locked(self) -> dict:
+        out: dict = {}
+        flat = self.counters.snapshot()
+        labeled = self.counters.labeled_raw()
+        c_delta = {name: v - self._shipped_counts.get(name, 0) for name, v in flat.items()
+                   if v != self._shipped_counts.get(name, 0)}
+        if c_delta:
+            out["c"] = c_delta
+        lc_delta: Dict[str, Dict[str, int]] = {}
+        for name, per in labeled.items():
+            shipped = self._shipped_labeled.get(name, {})
+            for lkey, v in per.items():
+                d = v - shipped.get(lkey, 0)
+                if d:
+                    lc_delta.setdefault(name, {})[json.dumps(lkey)] = d
+        if lc_delta:
+            out["lc"] = lc_delta
+        h_delta = []
+        for (name, lkey), (bounds, raw, vsum, count) in self._hist_states().items():
+            prev = self._shipped_hists.get((name, lkey), ([0] * len(raw), 0.0, 0))
+            d_counts = [a - b for a, b in zip(raw, prev[0])]
+            d_count = count - prev[2]
+            if d_count < 0 or any(d < 0 for d in d_counts):
+                # a provider is being absorbed: the totals went back for a
+                # moment; keep the baseline and ship nothing this beat
+                continue
+            if d_count > 0:
+                h_delta.append({"name": name, "l": [list(kv) for kv in lkey],
+                                "le": list(bounds), "b": d_counts, "s": vsum - prev[1],
+                                "n": d_count})
+            self._shipped_hists[(name, lkey)] = (raw, vsum, count)
+        if h_delta:
+            out["h"] = h_delta
+        cur = self._gauge_values()
+        g_delta = [{"n": name, "l": [list(kv) for kv in lkey], "v": v}
+                   for (name, lkey), v in cur.items()
+                   if self._shipped_gauges.get((name, lkey)) != v]
+        if g_delta:
+            out["g"] = g_delta
+        gone = [{"n": name, "l": [list(kv) for kv in lkey]}
+                for (name, lkey) in self._shipped_gauges if (name, lkey) not in cur]
+        if gone:
+            out["gr"] = gone
+        self._shipped_gauges = cur
+        self._shipped_counts = flat
+        self._shipped_labeled = labeled
+        # a delta whose beat failed rides this one
+        requeued, self._requeued = self._requeued, []
+        for old in requeued:
+            for name, d in (old.get("c") or {}).items():
+                out.setdefault("c", {})
+                out["c"][name] = out["c"].get(name, 0) + int(d)
+            for name, per in (old.get("lc") or {}).items():
+                dst = out.setdefault("lc", {}).setdefault(name, {})
+                for lkey_json, d in per.items():
+                    dst[lkey_json] = dst.get(lkey_json, 0) + int(d)
+            if old.get("h"):
+                out.setdefault("h", []).extend(old["h"])
+            # gauges are current values: a requeued record goes first, and
+            # is dropped where this beat carries the opposite kind
+            fresh = {field: {(r.get("n"), tuple(map(tuple, r.get("l") or ())))
+                             for r in out.get(field) or ()}
+                     for field in ("g", "gr")}
+            for field, opposite in (("g", "gr"), ("gr", "g")):
+                keep = [r for r in old.get(field) or ()
+                        if (r.get("n"), tuple(map(tuple, r.get("l") or ())))
+                        not in fresh[opposite]]
+                if keep:
+                    out[field] = keep + list(out.get(field, []))
+        return out
+
+    def reship_for(self, token) -> bool:
+        """Re-arm the baselines so that the next :meth:`delta_snapshot`
+        ships the whole history: the first beat to a new consumer (a
+        scheduler incarnation, whose aggregate starts empty).  Once per
+        ``token``, since several beat loops may share this registry and a
+        second rebase would ship the history twice.  True when it
+        rebased."""
+        with self._delta_lock:
+            if token == self._reship_token:
+                return False
+            self._reship_token = token
+            self._requeued.clear()
+            self._shipped_counts.clear()
+            self._shipped_labeled.clear()
+            self._shipped_hists.clear()
+            self._shipped_gauges = {}
+            return True
+
+    def requeue_delta(self, delta: dict) -> None:
+        """Give back a delta whose beat failed: the next one carries it."""
+        if delta:
+            with self._delta_lock:
+                self._requeued.append(delta)
+
+    def merge_delta(self, delta: dict, labels: Optional[Dict[str, str]] = None) -> None:
+        """Fold one node's delta into this (the scheduler's aggregate)
+        registry: counters under the node's ``labels`` beside the flat
+        total, histograms flat, gauges under the node's labels.  A
+        malformed record is dropped."""
+        for name, d in (delta.get("c") or {}).items():
+            self.counters.bump(str(name), int(d), labels=labels)
+        for name, per in (delta.get("lc") or {}).items():
+            for lkey_json, d in per.items():
+                try:
+                    node_labels = dict(tuple(kv) for kv in json.loads(lkey_json))
+                except (ValueError, TypeError):
+                    node_labels = {}
+                if labels:
+                    node_labels.update(labels)
+                # the flat total came with "c" already
+                self.counters.bump(str(name), int(d), labels=node_labels, flat=False)
+        for rec in delta.get("h") or ():
+            try:
+                bounds = tuple(float(b) for b in rec["le"])
+                node_labels = dict(tuple(kv) for kv in rec.get("l") or ())
+                self.histogram(str(rec["name"]), labels=node_labels or None,
+                               buckets=bounds).merge_counts(
+                    [int(c) for c in rec["b"]], float(rec["s"]), int(rec["n"]))
+            except (KeyError, ValueError, TypeError):
+                continue
+        for field in ("g", "gr"):
+            for rec in delta.get(field) or ():
+                try:
+                    node_labels = dict(tuple(kv) for kv in rec.get("l") or ())
+                    if labels:
+                        node_labels.update(labels)
+                    if field == "g":
+                        self.gauge_set(str(rec["n"]), float(rec["v"]),
+                                       labels=node_labels or None)
+                    else:
+                        self.gauge_remove(str(rec["n"]), labels=node_labels or None)
+                except (KeyError, ValueError, TypeError):
+                    continue
 
 
 def _call(fn) -> list:
@@ -396,7 +614,7 @@ def _apply_baseline(st: list, base) -> bool:
     return st[3] > 0
 
 
-_metrics = MetricsRegistry()
+_metrics = MetricsRegistry(_counters)
 
 
 def metrics() -> MetricsRegistry:

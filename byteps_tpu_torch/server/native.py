@@ -50,7 +50,7 @@ from byteps_tpu_torch.common.config import Config, check_unported_env, resolve_n
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.transport import close_socket
 from byteps_tpu_torch.core.telemetry import metrics
-from byteps_tpu_torch.server.server import PSServer, summarize_histograms
+from byteps_tpu_torch.server.server import PSServer, init_tuning_state, summarize_histograms
 
 #: the engine's histograms a stop report summarizes (merged over keys)
 NATIVE_HISTOGRAMS = ("native_server_sum_seconds", "native_server_publish_seconds")
@@ -93,6 +93,11 @@ class NativePSServer:
         metrics().register_hist_provider(self._hist_provider)
         #: (pushes, rounds, histograms, counters) frozen when the engine stops
         self._final: Optional[tuple] = None
+        init_tuning_state(self)
+        self._warned_overrides = False
+        from byteps_tpu_torch.core.flightrec import ensure_process_recorder
+
+        ensure_process_recorder(context_fn=self._flight_context)
 
     # the control plane of the Python server: these touch only the state
     # both classes carry (cfg, host, port, uid, rank, num_workers, the
@@ -106,6 +111,10 @@ class NativePSServer:
     _control_plane_loop = PSServer._control_plane_loop
     _sched_reconnect = PSServer._sched_reconnect
     _spawn = PSServer._spawn
+    _flight_context = PSServer._flight_context
+    # the tuning section is noted (and reported on a rejoin); with no
+    # _hot_report the borrowed loop sends no hot report
+    _adopt_tuning = PSServer._adopt_tuning
 
     def _adopt_book(self, book: dict) -> None:
         """Hand a book's ownership map to the engine: the ring's sorted
@@ -123,6 +132,14 @@ class NativePSServer:
                   file=sys.stderr, flush=True)
             self.drain_refused = True
             return
+        if book.get("ring_overrides") and not self._warned_overrides:
+            # the C++ ownership check is the ring alone: an override would
+            # need state the engine cannot ship or take, and a tuned fleet
+            # never makes this server a rebalance end (it sends no report)
+            self._warned_overrides = True
+            print(f"byteps_tpu_torch server: native server rank {self.rank}: the book's "
+                  "ring_overrides (autotune rebalance) are not honoured by the C++ engine; "
+                  "run Python-engine servers for the rebalance", file=sys.stderr, flush=True)
         from byteps_tpu_torch.common.hashing import HashRing
         from byteps_tpu_torch.native import set_server_ownership
 
@@ -195,7 +212,10 @@ class NativePSServer:
     def stop(self) -> None:
         """Stop the engine (once): its histograms are folded into the
         registry and its totals frozen for the stop report first."""
+        from byteps_tpu_torch.core.flightrec import release_process_recorder
+
         self._stop.set()
+        release_process_recorder(self._flight_context)
         with self._stop_lock:
             if self._stopped:
                 return

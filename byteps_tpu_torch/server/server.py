@@ -47,7 +47,12 @@ holds enough arrivals completes at once) and its zombie fence (a push from
 a worker rank the book does not list is refused, its connection dropped);
 SHUTDOWN from a scale-down stops it; books of an older scheduler
 incarnation are refused; a lost scheduler link is redialed with bounded
-backoff while the data plane serves on.
+backoff while the data plane serves on.  Each heartbeat carries the
+process's metric delta and its flight ledger tail (``core/flightrec.py``:
+a server stamps one record a beat), and, once a book carried a ``tuning``
+section, the hot-key report the autotuner's rebalance reads
+(:meth:`PSServer._hot_report`: the request bytes of each key since the
+last beat, counted on enqueue); a book without the section disarms it.
 
 Online resharding (``BYTEPS_ELASTIC_RESHARD=1``, docs/robustness.md
 "migration flow"): each book's ``server_ranks`` and ``map_epoch`` name an
@@ -141,6 +146,16 @@ def _log(msg: str) -> None:
     print(f"byteps_tpu_torch server: {msg}", file=sys.stderr, flush=True)
 
 
+def init_tuning_state(srv) -> None:
+    """The tuning fields a server's control plane keeps (the C++ engine's
+    wrapper borrows that plane): the newest tuning section and overrides
+    seen, reported on a rejoin, and whether the hot report is armed."""
+    srv._seen_tuning: Optional[dict] = None
+    srv._seen_tuning_epoch = 0
+    srv._seen_ring_overrides: Dict[str, int] = {}
+    srv._tuning_on = False
+
+
 def _ef_stage(codec):
     """The error-feedback stage of a server chain (momentum is skipped
     there, so it is the chain's head when present), or None."""
@@ -160,7 +175,7 @@ class _KeyState:
         "compressor", "compressor_kwargs",
         "pull_payload", "pull_version", "raw_payload", "raw_version",
         "async_mode", "staleness", "opt_rule", "opt_step", "opt_seeded",
-        "migrated_to", "migrate_epoch", "lock",
+        "migrated_to", "migrate_epoch", "req_bytes", "lock",
     )
 
     def __init__(self) -> None:
@@ -203,6 +218,8 @@ class _KeyState:
         #: migration in either direction, which WRONG_OWNER carries
         self.migrated_to: Optional[int] = None
         self.migrate_epoch = 0
+        #: request bytes enqueued for the key: the hot-key report's load
+        self.req_bytes = 0
         self.lock = threading.Lock()
 
     def wire_payload(self, compressed: bool, async_mode: bool = False) -> bytes:
@@ -348,6 +365,18 @@ class PSServer:
         self._awaiting: Dict[int, List[tuple]] = {}
         self._awaiting_lock = threading.Lock()
         self._awaiting_sweeper: Optional[threading.Thread] = None
+        init_tuning_state(self)
+        #: the hot report's baseline: key -> request bytes at the last beat
+        self._hot_last: Dict[int, int] = {}
+        from byteps_tpu_torch.core.flightrec import ensure_process_recorder
+
+        ensure_process_recorder(context_fn=self._flight_context)
+
+    def _flight_context(self) -> dict:
+        """The control context stamped into each flight record."""
+        deg = metrics()._gauges.get(("control_plane_degraded", ()), 0)
+        return {"epoch": self.membership_epoch, "map_epoch": self._map_epoch,
+                "incarnation": self.sched_incarnation, "degraded": int(deg)}
 
     # --- lifecycle -------------------------------------------------------
 
@@ -378,7 +407,11 @@ class PSServer:
         return {name: hists[name] for name in SERVER_HISTOGRAMS if name in hists}
 
     def stop(self) -> None:
+        from byteps_tpu_torch.core.flightrec import release_process_recorder
+
         self._stop.set()
+        # the recorder goes iff this server made it (not a worker's)
+        release_process_recorder(self._flight_context)
         close_socket(self._sock)  # shutdown wakes the accept loop
         with self._conns_lock:
             conns = list(self._conns)
@@ -409,6 +442,12 @@ class PSServer:
             if not initial:
                 payload.update({"last_rank": self.rank, "epoch": self.membership_epoch,
                                 "map_epoch": self._map_epoch, "reconnect": True})
+                # the tuning and overrides last seen, for a successor's tuner
+                rep = dict(self._seen_tuning or {})
+                if self._seen_ring_overrides:
+                    rep["ring_overrides"] = dict(self._seen_ring_overrides)
+                if rep:
+                    payload["tuning"] = rep
             send_message(conn, Message(Op.REGISTER, payload=json.dumps(payload).encode()))
             resp = recv_message(conn)
             if resp.status != 0:
@@ -455,6 +494,46 @@ class PSServer:
         me = book.get("map_epoch")
         if me is not None and int(me) >= self._map_epoch:
             self._map_epoch = int(me)
+            self._seen_ring_overrides = dict(book.get("ring_overrides") or {})
+        t = book.get("tuning")
+        if isinstance(t, dict):
+            try:
+                te = int(t.get("epoch", 0) or 0)
+            except (TypeError, ValueError):
+                te = 0
+            if te >= self._seen_tuning_epoch:
+                self._seen_tuning_epoch = te
+                self._seen_tuning = dict(t)
+        self._adopt_tuning(book)
+
+    def _adopt_tuning(self, book: dict) -> None:
+        """A book with a ``tuning`` section arms the hot report (its
+        baseline taken now, so that the first report holds only traffic
+        seen under the tuner); a book without one disarms it."""
+        on = isinstance(book.get("tuning"), dict)
+        if on and not self._tuning_on and hasattr(self, "_keys_lock"):
+            with self._keys_lock:
+                self._hot_last = {k: ks.req_bytes for k, ks in self._keys.items()}
+        self._tuning_on = on
+
+    def _hot_report(self) -> Optional[dict]:
+        """The autotuner's input for this beat: the request bytes of each
+        key since the last beat (the 8 hottest, and the total) and the
+        keys held here.  Control thread only; redirected traffic counts,
+        it is load served."""
+        if not self._tuning_on:
+            return None
+        with self._keys_lock:
+            cur = {k: ks.req_bytes for k, ks in self._keys.items()}
+            owned = sum(1 for ks in self._keys.values()
+                        if ks.store is not None and ks.migrated_to is None)
+        last, self._hot_last = self._hot_last, cur
+        if not cur:
+            return None
+        deltas = {k: v - last.get(k, 0) for k, v in cur.items() if v - last.get(k, 0) > 0}
+        top = sorted(deltas.items(), key=lambda kv: -kv[1])[:8]
+        return {"total": int(sum(deltas.values())),
+                "keys": [[int(k), int(v)] for k, v in top], "owned": int(owned)}
 
     def _adopt_worker_ranks(self, book: dict) -> None:
         """The zombie fence from a book's live worker ranks; a book with no
@@ -490,19 +569,45 @@ class PSServer:
         goes to :meth:`_sched_reconnect`; the data plane serves on."""
         import select
 
+        from byteps_tpu_torch.core.flightrec import get_process_recorder
+
         hb = self.cfg.heartbeat_interval
+        beat_incarnation = None
         while not self._stop.is_set():
             next_beat = time.monotonic() + hb if hb > 0 else None
+            delta: dict = {}
             try:
                 while not self._stop.is_set():
                     now = time.monotonic()
                     if next_beat is not None and now >= next_beat:
-                        send_message(conn, Message(Op.PING))
+                        if self.sched_incarnation != beat_incarnation:
+                            # a new scheduler's aggregate starts empty
+                            metrics().reship_for(self.sched_incarnation)
+                            beat_incarnation = self.sched_incarnation
+                        # a server has no steps: a beat is its record
+                        rec = get_process_recorder()
+                        if rec is not None and rec.enabled:
+                            rec.record_step()
+                        delta = metrics().delta_snapshot()
+                        if rec is not None and rec.enabled:
+                            tail = rec.ledger_tail()
+                            if tail:
+                                delta["fr"] = tail
+                        # the C++ engine's wrapper has no key table and
+                        # sends no hot report: never a rebalance end
+                        hot_fn = getattr(self, "_hot_report", None)
+                        hot = hot_fn() if hot_fn is not None else None
+                        if hot:
+                            delta["hot"] = hot
+                        send_message(conn, Message(
+                            Op.PING, payload=json.dumps(delta).encode() if delta else b""))
+                        delta = {}
                         next_beat = now + hb
                     readable, _, _ = select.select([conn], [], [], 0.3)
                     if readable:
                         self._handle_control(conn, recv_message(conn))
             except (ConnectionError, OSError, ValueError):
+                metrics().requeue_delta(delta)  # a beat that did not leave
                 if self._stop.is_set() or self._sched_shutdown:
                     return
                 conn = self._sched_reconnect()
@@ -1078,6 +1183,7 @@ class PSServer:
             return ks
 
     def _enqueue(self, msg: Message, conn, send_lock) -> None:
+        self._key_state(msg.key).req_bytes += len(msg.payload)  # the hot report's load
         with self._tid_lock:
             tid = self._tid_cache.get(msg.key)
             if tid is None:

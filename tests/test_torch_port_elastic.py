@@ -368,9 +368,11 @@ def test_rollback_book_cancels_pending_rebuild_retry(monkeypatch, pkg):
 @pytest.mark.parametrize("knob,item", [("BYTEPS_ELASTIC_RESHARD", "P3b"),
                                        ("BYTEPS_AUTOTUNE", "P3c")])
 def test_resharding_and_the_autotuner_still_raise(monkeypatch, knob, item):
-    """The autotuner (P3c) still raises at init; resharding (P3b) is
-    ported: its knobs read as the reference's, and a worker's init against
-    a live fleet adopts the books' ownership map."""
+    """Both are ported now (the name is kept from when they raised):
+    resharding's knobs read as the reference's, and a worker's init
+    against a live fleet adopts the books' ownership map; with the
+    autotuner's knob the port's scheduler hosts a tuner whose section the
+    worker adopts at init."""
     import byteps_tpu_torch as pbps
     from byteps_tpu.common.config import Config as RefConfig
     from byteps_tpu_torch.common.config import Config as PortConfig
@@ -378,8 +380,19 @@ def test_resharding_and_the_autotuner_still_raise(monkeypatch, knob, item):
     monkeypatch.setenv(knob, "1")
     monkeypatch.setenv("BYTEPS_FORCE_DISTRIBUTED", "1")
     if item == "P3c":
-        with pytest.raises(NotImplementedError, match=f"Queue 1b item {item}"):
+        k = kits.kit("port")
+        sched = k.Scheduler(num_workers=1, num_servers=1, host="127.0.0.1")
+        sched.start()
+        kits.env(monkeypatch, sched, 1, 1)
+        srv = kits.start_server(k)
+        try:
+            assert sched.tuner is not None
             pbps.init(device="cpu")
+            assert k.state.get_state().ps_client.tuning == {"epoch": 0}
+            pbps.shutdown()
+        finally:
+            srv.stop()
+            sched.stop()
         return
     k = kits.kit("port")
     sched = k.Scheduler(num_workers=1, num_servers=1, host="127.0.0.1")

@@ -435,8 +435,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
 @pytest.mark.parametrize("knob", [
     "BYTEPS_VAN=shm",
     "BYTEPS_VAN=uds", "BYTEPS_VAN=chaos:uds", "BYTEPS_VAN=chaos:shm",
-    "BYTEPS_WIRE_LOSSLESS=1", "BYTEPS_AUTOTUNE=1",
-    "BYTEPS_COMPRESSION_AUTO=1",
+    "BYTEPS_WIRE_LOSSLESS=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
     """At init() of a distributed worker, before it dials anything, and at
@@ -454,14 +453,17 @@ def test_unported_environment_planes_raise(monkeypatch, knob):
 @pytest.mark.parametrize("knob", [
     "BYTEPS_RPC_RETRIES=3", "BYTEPS_RPC_DEADLINE_S=5", "BYTEPS_VAN=chaos:tcp",
     "BYTEPS_DEAD_NODE_TIMEOUT_S=5", "BYTEPS_CHAOS_SCHED=1", "BYTEPS_ELASTIC_RESHARD=1",
+    "BYTEPS_AUTOTUNE=1", "BYTEPS_COMPRESSION_AUTO=1",
 ])
 def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
-    """The knobs that raised before the recovery, membership and
-    resharding planes were ported: the config reads them as the reference
-    does, and a worker trains through a fleet that runs with them (the
-    chaos van at its defaults injects nothing; the eviction timeout
-    outlasts the test; the scheduler-link flag without a chaos van faults
-    nothing; under resharding the books' ownership map routes)."""
+    """The knobs that raised before the recovery, membership, resharding,
+    autotuner and adaptive-compression planes were ported: the config
+    reads them as the reference does, and a worker trains through a fleet
+    that runs with them (the chaos van at its defaults injects nothing;
+    the eviction timeout outlasts the test; the scheduler-link flag
+    without a chaos van faults nothing; under resharding the books'
+    ownership map routes; under the autotuner the books carry its tuning
+    section)."""
     from byteps_tpu.comm import chaos as ref_chaos
     from byteps_tpu_torch.comm import chaos as port_chaos
 
@@ -477,6 +479,9 @@ def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
         assert ((cfg.elastic_reshard, cfg.ring_vnodes, cfg.migrate_deadline_s)
                 == (ref.elastic_reshard, ref.ring_vnodes, ref.migrate_deadline_s))
         assert port_chaos.control_chaos_enabled() == ref_chaos.control_chaos_enabled()
+        assert ((cfg.compression_auto, cfg.compression_auto_ratio, cfg.compression_auto_rounds)
+                == (ref.compression_auto, ref.compression_auto_ratio,
+                    ref.compression_auto_rounds))
         if name == "BYTEPS_VAN":
             assert nodes[0].host.startswith("chaos+")
         pbps.init(device="cpu")
@@ -484,6 +489,7 @@ def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
         assert torch.equal(pbps.push_pull(x, name=f"knob.{name}", average=False), x)
         client = port_state.get_state().ps_client
         assert (client._ownership is not None) == (name == "BYTEPS_ELASTIC_RESHARD")
+        assert (client.tuning == {"epoch": 0}) == (name == "BYTEPS_AUTOTUNE")
         pbps.shutdown()
 
 

@@ -3,8 +3,8 @@ fencing, the epochs a restarted scheduler fences above, a crash and
 restart with the data plane bitwise through it, barriers across a restart
 and a reconnect, the heartbeat through a hiccup, faults on the scheduler
 link, and the rejoin grace window (the cases of
-``tests/test_sched_recovery.py``, but the autotuner's and the metrics
-aggregate's).  Every case runs on each package with the same inputs and
+``tests/test_sched_recovery.py``; the tuner's successor is in
+``test_torch_port_autotune_fleet.py``).  Every case runs on each package with the same inputs and
 expects the same exact results.  The books a port scheduler sends after a
 scripted sequence (three registers, a resize, an eviction, a restart) equal
 a byteps_tpu scheduler's field for field, addresses and incarnation ids
