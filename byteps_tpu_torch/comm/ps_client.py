@@ -613,8 +613,8 @@ class PSClient:
         self.tuning = dict(t)
         self._call_tuning_listeners(self.tuning)
 
-    def _call_tuning_listeners(self, section: dict) -> None:
-        for cb in tuple(self._tuning_listeners):
+    def _call_tuning_listeners(self, section: dict, listeners=None) -> None:
+        for cb in tuple(self._tuning_listeners if listeners is None else listeners):
             try:
                 cb(section)
             except Exception as e:  # noqa: BLE001 - a listener must not stop a book
@@ -626,11 +626,7 @@ class PSClient:
         section at once (the first book came before the engine)."""
         self._tuning_listeners.append(cb)
         if self.tuning is not None:
-            try:
-                cb(self.tuning)
-            except Exception as e:  # noqa: BLE001
-                print(f"byteps_tpu_torch: a tuning listener failed: {e!r}",
-                      file=sys.stderr, flush=True)
+            self._call_tuning_listeners(self.tuning, [cb])
 
     def _tuning_report(self) -> Optional[dict]:
         """The tuning this node last adopted, with the ring overrides it

@@ -27,7 +27,11 @@ Under ``BYTEPS_ELASTIC_RESHARD=1`` each book's ring goes into the engine
 a key the map homes elsewhere (``native_wrong_owner``).  The engine cannot
 export or import key state, so it neither ships nor receives a
 migration, and it refuses a drain book loudly: the server stays up, off
-the book and still authoritative for what it holds.
+the book and still authoritative for what it holds.  For the same reason
+it is never a rebalance end of the autotuner: its heartbeats carry the
+metric deltas and the flight tail but no hot report, and a book's
+``ring_overrides`` are noted (and reported on a rejoin) but the engine's
+ownership check stays the ring's, with a warning.
 
 The engine answers Op.RESYNC_QUERY from its own replay ledger
 (``native_resync_query``) and acks a replayed INIT from its barrier's

@@ -169,6 +169,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -922,12 +923,14 @@ def train_main_path(card: str) -> dict:
 
 
 def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
-                        server_ports: list = None) -> tuple:
+                        server_ports: list = None, sched_args: list = None) -> tuple:
     """A scheduler and two servers of the port, as `python -m
     byteps_tpu_torch.server` processes (the servers with ``server_env``
-    added), each server's stderr in a file of ``log_dir``; returns
-    (scheduler port, processes), and the servers' ports in ``server_ports``
-    when given (each server prints its port before it registers)."""
+    added; the scheduler with the interpreter arguments ``sched_args``
+    instead, when given), each server's stderr in a file of ``log_dir``;
+    returns (scheduler port, processes), and the servers' ports in
+    ``server_ports`` when given (each server prints its port before it
+    registers)."""
     import socket
 
     # the three start at once, the scheduler on a port picked here: each
@@ -937,7 +940,7 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
         probe.bind(("127.0.0.1", 0))
         port = str(probe.getsockname()[1])
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
+        [sys.executable, *(sched_args or ["-m", "byteps_tpu_torch.server"])], cwd=REPO,
         env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
         stdout=subprocess.PIPE, text=True,
     )]
@@ -4118,6 +4121,596 @@ def train_reshard(card: str) -> dict:
     return per_step
 
 
+#: phase (e), the control plane: the codec, each stage's depth, batch and
+#: steps (stage 2: two hosts of CONTROL_BATCH sequences each, steps before
+#: the scheduler's restart, then after it), and how long the hosts wait
+#: after both decisions landed, past the canaries' window (3 sweeps of
+#: 0.2 s), before they train on
+CONTROL_PARAMS = {"compressor": "topk", "k": 12000}
+CONTROL_K = 12000
+CONTROL_LAYERS_1, CONTROL_STEPS_1 = 6, 3
+CONTROL_LAYERS_2, CONTROL_BATCH, CONTROL_STEPS_2, CONTROL_STEPS_3 = 2, 16, 6, 2
+CONTROL_SETTLE_S = 3.0
+CONTROL_ENV = {
+    "BYTEPS_COMPRESSION_AUTO": "1", "BYTEPS_FUSION_THRESHOLD": str(FUSION_THRESHOLD),
+    "BYTEPS_ELASTIC_RESHARD": "1", "BYTEPS_AUTOTUNE": "1", "BYTEPS_AUTOTUNE_INTERVAL_S": "0.2",
+    "BYTEPS_AUTOTUNE_CANARY_SWEEPS": "3", "BYTEPS_HEARTBEAT_INTERVAL": "0.2",
+    # only the scripted decisions: no rebalance from the servers' real load
+    # (its streak would need the hot server at 1e9 times its peers' median)
+    "BYTEPS_AUTOTUNE_FACTOR": "1e9",
+}
+
+#: the scheduler of phase (e)'s stage 2: it starts when its ``go`` file
+#: exists (argv[1], "" for at once), sweeps its tuner only once
+#: ``tuner_go`` exists (argv[2]: a forced move then finds the keys it moves
+#: already live), and appends each sweep's ms and its actions and rollbacks
+#: to argv[3]
+CONTROL_SCHED = (
+    "import os, sys, time\n"
+    "from byteps_tpu_torch.comm import rendezvous as rv\n"
+    "go, tuner_go, log = sys.argv[1:4]\n"
+    "while go and not os.path.exists(go):\n"
+    "    time.sleep(0.02)\n"
+    "sweep, loop = rv.Scheduler._tuner_sweep_once, rv.Scheduler._tuner_loop\n"
+    "def timed(self):\n"
+    "    t0 = time.perf_counter()\n"
+    "    res = sweep(self)\n"
+    "    with open(log, 'a') as f:\n"
+    "        f.write('%.3f %d %d\\n' % ((time.perf_counter() - t0) * 1e3,\n"
+    "                                 len(res['actions']), len(res['rollbacks'])))\n"
+    "    return res\n"
+    "def deferred(self):\n"
+    "    while not os.path.exists(tuner_go):\n"
+    "        if self._stop.wait(0.05):\n"
+    "            return\n"
+    "    loop(self)\n"
+    "rv.Scheduler._tuner_sweep_once, rv.Scheduler._tuner_loop = timed, deferred\n"
+    "from byteps_tpu_torch.server.server import run_server\n"
+    "run_server()\n")
+
+
+@contextlib.contextmanager
+def _tap_control_rounds(client, keep):
+    """What this worker's PS client sends and gets back, by (key, version):
+    ``kinds`` "c" for a compressed push, "r" for a raw one; and for the
+    (key, version) that ``keep`` accepts, the bytes of the push and of the
+    pull (a fused member's slot of the reply, a raw pull from its sink)."""
+    import threading
+
+    from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
+    from byteps_tpu_torch.common.types import RequestType, decode_command_type
+
+    push, push_fused, pull = client.push, client.push_fused, client.pull
+    lock = threading.Lock()
+    seen: dict = {"kinds": {}, "push": {}, "pull": {}}
+
+    def note(key, version, compressed, payload) -> None:
+        with lock:
+            seen["kinds"][key, version] = "c" if compressed else "r"
+            if keep(key, version):
+                seen["push"][key, version] = bytes(memoryview(payload).cast("B"))
+
+    def tap_push(key, payload, dtype_id, version, *args, **kwargs):
+        note(key, version, kwargs.get("request_type") == RequestType.COMPRESSED_PUSH_PULL,
+             payload)
+        return push(key, payload, dtype_id, version, *args, **kwargs)
+
+    def tap_push_fused(members, cb, *args, **kwargs):
+        versions = {}
+        for key, cmd, version, payload in members:
+            note(key, version, decode_command_type(cmd)[0] == RequestType.COMPRESSED_PUSH_PULL,
+                 payload)
+            versions[key] = version
+
+        def cb_tapped(replies):
+            with lock:
+                for key, _, payload in replies:
+                    if keep(key, versions.get(key)):
+                        seen["pull"][key, versions[key]] = bytes(payload)
+            cb(replies)
+        return push_fused(members, cb_tapped, *args, **kwargs)
+
+    def tap_pull(key, version, cb, *args, **kwargs):
+        if not keep(key, version):
+            return pull(key, version, cb, *args, **kwargs)
+        sink = kwargs.get("sink")
+
+        def cb_tapped(payload):
+            got = bytes(sink) if payload is ZERO_COPIED else bytes(payload)
+            with lock:
+                seen["pull"][key, version] = got
+            cb(payload)
+        return pull(key, version, cb_tapped, *args, **kwargs)
+
+    client.push, client.push_fused, client.pull = tap_push, tap_push_fused, tap_pull
+    try:
+        yield seen
+    finally:
+        client.push, client.push_fused, client.pull = push, push_fused, pull
+
+
+def _control_partitions() -> list:
+    """Every declared gradient's partitions: (name, key, offset, length,
+    compressed?, off?) with compressed? for a float32 tensor of at least
+    BYTEPS_MIN_COMPRESS_BYTES (64 KiB) and off? where topk's wire (8 bytes
+    a kept element, k at most the partition) is at least 0.9 of the raw."""
+    from byteps_tpu_torch.common.registry import get_registry
+
+    reg = get_registry()
+    out = []
+    for name in reg._order:
+        ctx = reg.get(name)
+        n = sum(p.length for p in ctx.partitions)
+        compressed = name.startswith("Gradient.") and n * 4 >= 65536
+        for p in ctx.partitions:
+            off = compressed and 8 * min(CONTROL_K, p.length) >= 0.9 * 4 * p.length
+            out.append((name, p.key, p.offset, p.length, compressed, off))
+    return out
+
+
+def _topk_decode(payload: bytes, n: int) -> np.ndarray:
+    from byteps_tpu_torch.compression.impl import TopKCompressor
+
+    return TopKCompressor(n, CONTROL_K).decompress(payload, n)
+
+
+def _control_stage1(card: str) -> dict:
+    """Stage 1 of phase (e): adaptive compression.  One worker through two
+    server processes, BYTEPS_COMPRESSION_AUTO on, topk with k = 12000 at
+    4,096,000-byte partitions.  Fails unless the engine's off set is the
+    one the declared tensors give, every off partition pushed raw and every
+    other compressed one topk's payload in every round, the last round's
+    pulls are the decoded pushes (one worker: the sum of one) and the
+    gradients the optimizer took, and the losses are finite and fall."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    label = "control (e) stage 1"
+    bad = []
+    with _ps_fleet(label, worker_env={"BYTEPS_COMPRESSION_AUTO": "1"}):
+        bps.init()
+        cfg, model, tok, tgt = _bert(CONTROL_LAYERS_1)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(), compression_params=CONTROL_PARAMS)
+        eng, client = get_state().engine, get_state().ps_client
+        fa.reset_launches()
+        ob.reset_launches()
+        with _tap_control_rounds(client, lambda key, v: v == CONTROL_STEPS_1) as seen:
+            losses, split, secs = _timed_steps(model, opt, tok, tgt, CONTROL_STEPS_1)
+        launches = {**fa.launches, **ob.launches}
+        parts = _control_partitions()
+        off_got = eng.auto_off_keys()
+        codec_keys = set(eng._compressors)
+        params = dict(model.named_parameters())
+        grads = {name: params[name[len("Gradient."):]].grad.detach().reshape(-1).float().cpu()
+                 .numpy() for name, *_ in parts if name.startswith("Gradient.")}
+        bps.shutdown()
+        del model, opt
+    want_off = {key for _, key, _, _, _, off in parts if off}
+    want_codec = {key for _, key, _, _, comp, _ in parts if comp}
+    print(f"{label}: off set {len(off_got)} partitions, expected {len(want_off)}, of "
+          f"{len(want_codec)} topk partitions; steps ms {[round(secs / len(losses) * 1e3, 1)]} "
+          f"({_split_line(split, len(losses))}); losses {[round(x, 4) for x in losses]}; "
+          f"launches {launches}; on {card}", flush=True)
+    if off_got != want_off or codec_keys != want_codec:
+        bad.append(f"off set {sorted(off_got)} (codec keys {len(codec_keys)}), expected "
+                   f"{sorted(want_off)} ({len(want_codec)})")
+    rounds = {}
+    for (key, v), kind in seen["kinds"].items():
+        rounds.setdefault(key, {})[v] = kind
+    for name, key, offset, length, comp, off in parts:
+        want = "c" if comp and not off else "r"
+        kinds = rounds.get(key, {})
+        if sorted(kinds) != list(range(1, CONTROL_STEPS_1 + 1)) or set(kinds.values()) != {want}:
+            bad.append(f"key {key} ({name}, {length}): pushes {kinds}, want {want} a round")
+            continue
+        if not name.startswith("Gradient."):
+            continue
+        pushed = seen["push"].get((key, CONTROL_STEPS_1))
+        pulled = seen["pull"].get((key, CONTROL_STEPS_1))
+        grad = grads[name][offset: offset + length]
+        if pushed is None or pulled is None:
+            bad.append(f"key {key}: the last round was not tapped")
+        elif want == "r":
+            if not (pushed == pulled == grad.tobytes()):
+                bad.append(f"key {key}: raw push, pull and gradient differ")
+        elif len(pushed) != 8 * min(CONTROL_K, length) or not (
+                _topk_decode(pulled, length).tobytes() == _topk_decode(pushed, length).tobytes()
+                == grad.tobytes()):
+            bad.append(f"key {key}: the pull is not the decoded push the optimizer took")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        bad.append(f"losses {losses}")
+    want_flash = {"flash_fwd": 2 * cfg.n_layers * CONTROL_STEPS_1,
+                  "flash_bwd_dq": cfg.n_layers * CONTROL_STEPS_1,
+                  "flash_bwd_dkv": cfg.n_layers * CONTROL_STEPS_1}
+    if {k: launches[k] for k in want_flash} != want_flash or launches["onebit_pack"]:
+        bad.append(f"launches {launches}, want {want_flash} and no K4")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad[:12]))
+    return {"off": len(off_got), "codec": len(codec_keys), "losses": losses,
+            "step_ms": secs / len(losses) * 1e3,
+            "launches_a_step": {k: v // CONTROL_STEPS_1 for k, v in launches.items()}}
+
+
+def control_host(work: str) -> None:
+    """One host of phase (e)'s stage 2, under the port's launcher
+    (``chip_smoke.py --control-host <dir>``): BERT-large at
+    CONTROL_LAYERS_2 on its CONTROL_BATCH sequences through
+    DistributedOptimizer(AdamW) with topk and adaptive compression.  It
+    trains a step, waits at a cue until its engine adopted the forced move
+    (the key routes to its new owner under a newer map) and the fleet's
+    codec_off of topk, and CONTROL_SETTLE_S more; trains to step
+    CONTROL_STEPS_2; waits for the scheduler's restart; and trains
+    CONTROL_STEPS_3 steps more.  Writes <dir>/control<h>.json (per step:
+    loss, ms, parameter digest, launches, map epoch, the moved key's owner;
+    the kinds of every push; the books after the restart; counters) and
+    <dir>/control<h>.npz (the sampled keys' pushes and pulls)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    key, target = int(os.environ["CONTROL_MOVE_KEY"]), int(os.environ["CONTROL_MOVE_RANK"])
+    sample = {key, int(os.environ["CONTROL_OFF_KEY"])}
+    bps.init()
+    _, model, tok, tgt = _bert(CONTROL_LAYERS_2)
+    rows = slice(host * CONTROL_BATCH, (host + 1) * CONTROL_BATCH)
+    tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+    # both hosts load init_params(seed=0): no broadcast, so that the
+    # gradients are the first tensors declared and their keys the ones
+    # _control_keys computed for the forced move
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), compression_params=CONTROL_PARAMS)
+    step = build_train_step(model, opt)
+    eng, client = get_state().engine, get_state().ps_client
+    books: list = []
+    note = client._note_membership
+
+    def tap_note(book: dict) -> None:
+        books.append({"inc": book.get("sched_incarnation"), "map_epoch": book.get("map_epoch"),
+                      "tuning": book.get("tuning"), "ring_overrides": book.get("ring_overrides")})
+        note(book)
+
+    client._note_membership = tap_note
+    out = {"host": host, "steps": []}
+
+    def train(n: int) -> None:
+        for _ in range(n):
+            fa.reset_launches()
+            ob.reset_launches()
+            t0 = time.perf_counter()
+            loss = float(step(tok, tgt))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            omap = client._routing[2]
+            out["steps"].append({"loss": loss, "ms": ms, "digest": _param_digest(model),
+                                 "launches": {**fa.launches, **ob.launches},
+                                 "map_epoch": client.map_epoch,
+                                 "owner": omap.owner(key) if omap is not None else None,
+                                 "tuning_epoch": client._tuning_epoch})
+
+    def wait_for(cond, what: str, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"control (e) host {host}: {what} never came")
+            time.sleep(0.05)
+
+    with _tap_control_rounds(client, lambda k, v: k in sample) as seen:
+        train(1)
+        epoch1 = client.map_epoch
+        _mark(work, f"step1-host{host}")
+        wait_for(lambda: (client.map_epoch > epoch1 and client._routing[2].owner(key) == target
+                          and "topk" in eng._fleet_codec_off), "the forced move and topk's flip")
+        time.sleep(CONTROL_SETTLE_S)
+        _mark(work, f"tuned-host{host}", client._tuning_epoch)
+        other = _await_mark(work, f"tuned-host{1 - host}", 120)["value"]
+        wait_for(lambda: client._tuning_epoch >= other, "the other host's tuning epoch")
+        train(CONTROL_STEPS_2 - 1)
+        before = {"tuning": client.tuning, "overrides": dict(client._seen_ring_overrides),
+                  "inc": client.sched_incarnation, "books": len(books)}
+        _mark(work, f"step{CONTROL_STEPS_2}-host{host}")
+        _await_mark(work, "sched-restarted", 120)
+        wait_for(lambda: client.sched_incarnation > before["inc"] and not client._sched_dead
+                 and client.tuning is not None, "the successor's books", 60)
+        train(CONTROL_STEPS_3)
+        out["kinds"] = [[k, v, kind] for (k, v), kind in seen["kinds"].items()]
+        blobs = {f"{kind}_{k}_{v}": np.frombuffer(b, np.uint8)
+                 for kind in ("push", "pull") for (k, v), b in seen[kind].items()}
+    out.update(before=before, after_books=books[before["books"]:],
+               after={"tuning": client.tuning, "overrides": dict(client._seen_ring_overrides)},
+               codec_keys={str(k): int(c.size) for k, c in eng._compressors.items()},
+               fleet_off={n: sorted(ks) for n, ks in eng._fleet_codec_off.items()},
+               auto_off=sorted(eng.auto_off_keys()),
+               counters=counters().snapshot_labeled(), epoch1=epoch1, tuned=other)
+    np.savez(os.path.join(work, f"control{host}.npz"), **blobs)
+    with open(os.path.join(work, f"control{host}.json"), "w") as f:
+        json.dump(out, f)
+    bps.shutdown()
+
+
+def _control_keys(n_layers: int) -> tuple:
+    """Stage 2's forced move and its sampled off partition, from the
+    declared tensors of the model at ``n_layers``: the largest compressed
+    partition that stays topk (the highest key among equals), the rank of
+    the two servers that does not own it, and the smallest off one."""
+    from byteps_tpu_torch.common.hashing import HashRing
+    from byteps_tpu_torch.common.partition import partition_tensor
+    from byteps_tpu_torch.common.registry import get_registry, reset_registry
+    from byteps_tpu_torch.compression.registry import translate_compression_params
+    from byteps_tpu_torch.models.transformer import Transformer, bert_large
+
+    cfg = dataclasses.replace(bert_large(max_seq=SEQ), n_layers=n_layers)
+    model = Transformer(cfg, device="meta")
+    reset_registry()
+    kw = translate_compression_params(CONTROL_PARAMS)
+    for name, p in model.named_parameters():
+        ctx = get_registry().declare(f"Gradient.{name}", **kw)
+        partition_tensor(ctx, p.numel(), 4, 4096000)
+    parts = _control_partitions()
+    reset_registry()
+    keep = [(length, key) for _, key, _, length, comp, off in parts if comp and not off]
+    key = max(keep)[1]
+    off = min((length, key) for _, key, _, length, _, o in parts if o)[1]
+    return key, 1 - HashRing([0, 1]).owner(key), off
+
+
+def _control_stage2(card: str) -> dict:
+    """Stage 2 of phase (e): the tuner, with two launcher hosts of one
+    process each (``control_host``), a scheduler and two Python servers.
+    The tuner sweeps once both hosts trained a step: a forced move of
+    ``_control_keys``' key to the server that does not own it, then
+    codec_consensus on the hosts' topk verdicts.  After step
+    CONTROL_STEPS_2 the scheduler is killed (SIGKILL) and restarted with no
+    forced action.  Fails unless the hosts' parameters are bitwise equal
+    after every step, the move raised the map epoch by one and was shipped
+    by a migration wave, the key's rounds went on at its new owner, every
+    topk key not already off was flipped (``tune_codec_off``) and pushed
+    raw from the round after the flip, every sampled pull is the sum of the
+    two hosts' decoded pushes, the successor's first books carried the
+    same tuning section and overrides, no wave after the restart shipped a
+    key, and a decision bundle was written for each action."""
+    import signal
+
+    from byteps_tpu_torch.compression.impl import TopKCompressor
+
+    label = "control (e) stage 2"
+    key, target, off_key = _control_keys(CONTROL_LAYERS_2)
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **CONTROL_ENV,
+           "CONTROL_MOVE_KEY": str(key), "CONTROL_MOVE_RANK": str(target),
+           "CONTROL_OFF_KEY": str(off_key)}
+    bad = []
+    with tempfile.TemporaryDirectory() as work:
+        bundles = os.path.join(work, "bundles")
+        env["BYTEPS_FLIGHT_DIR"] = bundles
+        tuner_go, sched_go = os.path.join(work, "tuner.go"), os.path.join(work, "sched2.go")
+        sweeps = os.path.join(work, "sweeps.log")
+        port, procs = _start_ps_processes(
+            {**env, "BYTEPS_AUTOTUNE_FORCE": f"move={key}:{target}"}, work,
+            sched_args=["-c", CONTROL_SCHED, "", tuner_go, sweeps])
+        # the successor: imported already, it binds the port once its go
+        # file exists, with no forced action, its tuner sweeping at once
+        successor = subprocess.Popen(
+            [sys.executable, "-c", CONTROL_SCHED, sched_go, sched_go, sweeps], cwd=REPO,
+            env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
+            stdout=subprocess.PIPE, text=True)
+        hosts = []
+        try:
+            for h in range(HYBRID_HOSTS):
+                with open(os.path.join(work, f"host{h}.log"), "w") as log:
+                    hosts.append(subprocess.Popen(
+                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                         sys.executable, os.path.join(REPO, "chip_smoke.py"), "--control-host",
+                         work],
+                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
+                        stdout=log, stderr=subprocess.STDOUT))
+
+            def cue(name: str) -> bool:
+                deadline = time.monotonic() + 300
+                while not all(os.path.exists(os.path.join(work, f"{name}-host{h}.mark"))
+                              for h in range(HYBRID_HOSTS)):
+                    if any(p.poll() is not None for p in hosts) or time.monotonic() > deadline:
+                        return False
+                    time.sleep(0.02)
+                return True
+
+            if cue("step1"):
+                open(tuner_go, "w").close()
+            if cue(f"step{CONTROL_STEPS_2}"):
+                t_kill = time.time()
+                procs[0].send_signal(signal.SIGKILL)
+                procs[0].wait(30)
+                open(sched_go, "w").close()
+                line = successor.stdout.readline().strip()
+                if line != f"BYTEPS_SCHEDULER_PORT={port}":
+                    bad.append(f"the successor reported {line!r}")
+                _mark(work, "sched-restarted")
+                print(f"{label}: the scheduler was killed and its successor listened in "
+                      f"{time.time() - t_kill:.2f} s", flush=True)
+            deadline = time.monotonic() + 300
+            while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
+                if any(p.poll() not in (None, 0) for p in hosts):
+                    break
+                time.sleep(0.2)
+            rcs = [p.poll() for p in hosts]
+        finally:
+            _stop_processes(hosts)
+            _stop_processes(procs + [successor])
+        if rcs != [0] * HYBRID_HOSTS:
+            for h in range(HYBRID_HOSTS):
+                with open(os.path.join(work, f"host{h}.log")) as f:
+                    print(f"--- {label} host {h} (exit {rcs[h]}):\n{f.read()[-6000:]}",
+                          file=sys.stderr)
+            fail(f"{label}: the hosts exited {rcs}")
+        res, blobs = [], []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"control{h}.json")) as f:
+                res.append(json.load(f))
+            blobs.append(dict(np.load(os.path.join(work, f"control{h}.npz"))))
+        waves = _waves_of(work, 2)
+        with open(sweeps) as f:
+            sweep_rows = [line.split() for line in f if line.strip()]
+        decisions = []
+        for path in sorted(glob.glob(os.path.join(bundles, "*", "decision.json"))):
+            with open(path) as f:
+                decisions.append((os.path.basename(os.path.dirname(path)), json.load(f)))
+    # --- what it printed and what must hold ---
+    ms = [round(float(r[0]), 3) for r in sweep_rows]
+    print(f"{label}: {len(ms)} sweeps, ms each p50 {np.median(ms):.3f}, max {max(ms):.3f}; "
+          f"{sum(int(r[1]) for r in sweep_rows)} actions, "
+          f"{sum(int(r[2]) for r in sweep_rows)} rollbacks", flush=True)
+    for name, d in decisions:
+        act = d.get("action") or {}
+        print(f"{label}: {d['kind']} {d['rule']} (tuning epoch {d['tuning_epoch']}, sweep "
+              f"{d['sweep']}): set {act.get('set')}, evidence {act.get('evidence')}, baseline "
+              f"step {d.get('baseline_step_s')} s"
+              + (f", after {d['post_step_s']} s" if d["kind"] == "rollback" else ""), flush=True)
+    # the scripted two, and whatever the fusion walk did on the real traffic
+    rules = sorted(d["rule"] for _, d in decisions if d["kind"] == "action")
+    n_actions = sum(int(r[1]) + int(r[2]) for r in sweep_rows)
+    if not {"codec_consensus", "hot_key_rebalance"} <= set(rules) or \
+            len(decisions) != n_actions:
+        bad.append(f"decision bundles for {rules} ({len(decisions)}), the sweeps counted "
+                   f"{n_actions} actions and rollbacks")
+    rolled = sorted(d["rule"] for _, d in decisions if d["kind"] == "rollback")
+    print(f"{label}: decisions that stood "
+          f"{sorted(set(rules) - set(rolled))}, rolled back {rolled}", flush=True)
+    h0, h1 = res
+    for r in res:
+        print(f"{label}, host {r['host']}: steps ms {[round(s['ms'], 1) for s in r['steps']]}; "
+              f"losses {[round(s['loss'], 4) for s in r['steps']]}; map epochs "
+              f"{[s['map_epoch'] for s in r['steps']]}; the moved key's owner "
+              f"{[s['owner'] for s in r['steps']]}; K1-K4 a step "
+              f"{[[s['launches'][k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'onebit_pack')] for s in r['steps']]}"
+              f"; off set {len(r['auto_off'])} of {len(r['codec_keys'])} topk partitions "
+              f"(fleet {{'topk': {len(r['fleet_off'].get('topk', []))}}}); on {card}", flush=True)
+    n_steps = CONTROL_STEPS_2 + CONTROL_STEPS_3
+    for i in range(n_steps):
+        if h0["steps"][i]["digest"] != h1["steps"][i]["digest"]:
+            bad.append(f"the hosts' parameters differ after step {i + 1}")
+    if not all(math.isfinite(s["loss"]) for r in res for s in r["steps"]):
+        bad.append("a non-finite loss")
+    want_launch = {"flash_fwd": 2 * CONTROL_LAYERS_2, "flash_bwd_dq": CONTROL_LAYERS_2,
+                   "flash_bwd_dkv": CONTROL_LAYERS_2, "onebit_pack": 0}
+    for r in res:
+        for i, s in enumerate(r["steps"]):
+            if s["launches"] != want_launch:
+                bad.append(f"host {r['host']} step {i + 1}: launches {s['launches']}")
+        # the move: one map epoch up, the key at its new owner from step 2 on
+        if r["steps"][1]["map_epoch"] != r["epoch1"] + 1 or \
+                any(s["owner"] != target for s in r["steps"][1:]):
+            bad.append(f"host {r['host']}: map epochs {[s['map_epoch'] for s in r['steps']]}, "
+                       f"owners {[s['owner'] for s in r['steps']]} (epoch at step 1 "
+                       f"{r['epoch1']}, target {target})")
+        codec = {int(k) for k in r["codec_keys"]}
+        static_off = set(r["auto_off"]) - set(r["fleet_off"].get("topk", []))
+        flipped = set(r["fleet_off"].get("topk", []))
+        n_flip = r["counters"].get("tune_codec_off", {}).get('{codec="topk"}', 0)
+        if flipped != codec - static_off or n_flip != len(flipped):
+            bad.append(f"host {r['host']}: {len(flipped)} keys flipped, tune_codec_off "
+                       f"{n_flip}, want {len(codec - static_off)}")
+        kinds = {(k, v): kind for k, v, kind in r["kinds"]}
+        for (k, v), kind in kinds.items():
+            want = "r" if (k not in codec or k in static_off or v >= 2) else "c"
+            if kind != want:
+                bad.append(f"host {r['host']}: key {k} round {v} pushed {kind}, want {want}")
+                break
+        if r["after_books"][:1] and (
+                r["after_books"][0]["tuning"] != r["before"]["tuning"]
+                or (r["after_books"][0]["ring_overrides"] or {}) != r["before"]["overrides"]):
+            bad.append(f"host {r['host']}: the successor's first book {r['after_books'][0]}, "
+                       f"before the restart {r['before']}")
+        later = r["after"]
+        if not r["after_books"] or later["overrides"] != r["before"]["overrides"] or \
+                (later["tuning"] or {}).get("codec_off") != r["before"]["tuning"].get("codec_off"):
+            bad.append(f"host {r['host']}: tuning after the restart {later}")
+        print(f"{label}, host {r['host']}: tuning before the restart {r['before']['tuning']}, "
+              f"overrides {r['before']['overrides']}; the successor's first book "
+              f"{r['after_books'][:1]}", flush=True)
+    # every sampled pull: the sum of the two hosts' decoded pushes, and
+    # for a compressed round the servers' topk of that sum
+    checked = 0
+    for name in blobs[0]:
+        if not name.startswith("push_"):
+            continue
+        _, k, v = name.split("_")
+        pull = f"pull_{k}_{v}"
+        n = int(h0["codec_keys"].get(k, 0)) or len(blobs[0][name]) // 4
+        if name not in blobs[1] or pull not in blobs[0] or pull not in blobs[1]:
+            bad.append(f"key {k} round {v}: not tapped on both hosts")
+            continue
+        pushes = [b[name].tobytes() for b in blobs]
+        compressed = len(pushes[0]) != 4 * n
+        dec = [(_topk_decode(p, n) if compressed else np.frombuffer(p, np.float32))
+               for p in pushes]
+        total = dec[0] + dec[1]
+        want = TopKCompressor(n, CONTROL_K).compress(total) if compressed else total.tobytes()
+        got = [b[pull].tobytes() for b in blobs]
+        if not (got[0] == got[1] == want):
+            bad.append(f"key {k} round {v}: the pull is not the sum of the decoded pushes")
+        checked += 1
+    moved_waves = [w for w in waves if w[3] > 0]
+    last_epoch = max(r["steps"][CONTROL_STEPS_2 - 1]["map_epoch"] for r in res)
+    after = [w for w in waves if w[2] > last_epoch]
+    for w in moved_waves:
+        print(f"{label}: server {w[0]} (rank {w[1]}) migration wave at map epoch {w[2]}: "
+              f"{w[3]} keys, {w[4]} bytes in {w[5]:.1f} ms", flush=True)
+    if not any(w[2] == h0["epoch1"] + 1 and w[3] >= 1 for w in moved_waves):
+        bad.append(f"no wave shipped the moved key at map epoch {h0['epoch1'] + 1}: {waves}")
+    if any(w[3] for w in after):
+        bad.append(f"keys migrated after the restart: {after}")
+    print(f"{label}: {checked} sampled pulls checked; waves after the restart {after}",
+          flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad[:12]))
+    first = h0["steps"][0]["launches"]
+    return {"launches_a_step": first, "sweeps": len(ms), "rolled": rolled,
+            "step_ms": [s["ms"] for s in h0["steps"]]}
+
+
+def _waves_of(log_dir: str, servers: int) -> list:
+    """The migration waves ``servers`` servers logged: (server, rank, map
+    epoch, keys, bytes, wall ms)."""
+    import re
+
+    out = []
+    for i in range(servers):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            for rank, epoch, _drain, keys, nbytes, wall in re.findall(
+                    r"rank (\d+) migration wave \(map epoch (\d+)(, drain)?\): shipped "
+                    r"(\d+) keys, (\d+) bytes in ([\d.]+) ms", f.read()):
+                out.append((i, int(rank), int(epoch), int(keys), int(nbytes), float(wall)))
+    return out
+
+
+def train_control(card: str) -> dict:
+    """Phase (e), the closed-loop control plane: adaptive compression on one
+    worker (``_control_stage1``), then the autotuner across two hosts and a
+    scheduler restart (``_control_stage2``).  Returns stage 2's launches a
+    step (host 0, step 1)."""
+    wall = time.perf_counter()
+    one = _control_stage1(card)
+    two = _control_stage2(card)
+    print(f"control (e): phase wall {time.perf_counter() - wall:.1f} s; stage 1 launches a "
+          f"step {one['launches_a_step']}", flush=True)
+    return two["launches_a_step"]
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -4296,6 +4889,8 @@ def main() -> None:
     mark("elastic (c)")
     planes["reshard"] = train_reshard(card)
     mark("reshard (d)")
+    planes["control"] = train_control(card)
+    mark("control plane (e)")
     planes["fusion"] = train_fusion(card)
     mark("fusion")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
@@ -4394,5 +4989,7 @@ if __name__ == "__main__":
         heal_host(sys.argv[2])  # one host of the one-sided heal
     elif sys.argv[1:2] == ["--elastic-host"]:
         elastic_host(sys.argv[2])  # one host of phase (c), elastic membership
+    elif sys.argv[1:2] == ["--control-host"]:
+        control_host(sys.argv[2])  # one host of phase (e), the control plane
     else:
         main()
