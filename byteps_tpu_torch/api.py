@@ -467,14 +467,50 @@ def _map_tensors(obj: Any, fn) -> Any:
 
 def push_pull_rowsparse_async(indices: Any, values: Any, name: str, total_rows: int,
                               average: bool = True, priority: int = 0) -> int:
-    """Row-sparse push_pull (``byteps_tpu.api.push_pull_rowsparse_async``):
-    not ported yet."""
-    from byteps_tpu_torch.common.config import unported
+    """Start a row-sparse push_pull (RequestType::kRowSparsePushPull,
+    common.h:267-271): push the ``values`` rows, shape ``(n, row_len)``, at
+    ``indices`` of a ``(total_rows, row_len)`` tensor; the servers
+    scatter-sum every worker's rows into a dense store (duplicate indices
+    accumulate, rows no worker pushed are 0), and :func:`synchronize`
+    returns the same rows of the round's sum, ``(n, row_len)`` float32 on
+    the values' device (numpy for numpy), averaged over the workers when
+    ``average``: the embedding-gradient path.  Indices and values may lie
+    on a CUDA device; only the rows and indices cross to the host.  With
+    one worker the rows are scatter-added and gathered in place.  A local
+    group of more than one process raises: the reference runs one process
+    a host, and has no such path (ROADMAP.md Queue 3)."""
+    from byteps_tpu_torch.common.partition import validate_rowsparse
 
-    raise unported("rowsparse", f"push_pull_rowsparse of {name!r}")
+    st = require_state()
+    mesh = get_global_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"push_pull_rowsparse of {name!r} at local size {mesh.size}: row-sparse "
+            "push_pull runs one process a host (the reference's topology); run the "
+            "embedding's rows through the local root, or push them dense")
+    get_registry().declare(name)
+    handle = st.handles.allocate()
+    if st.engine is None:
+        idx, vals = validate_rowsparse(indices, values, total_rows)
+        if isinstance(vals, torch.Tensor):
+            dense = torch.zeros(total_rows, vals.shape[1], dtype=vals.dtype,
+                                device=vals.device)
+            dense.index_add_(0, idx.to(vals.device), vals)
+        else:
+            import numpy as np
+
+            dense = np.zeros((total_rows, vals.shape[1]), dtype=vals.dtype)
+            np.add.at(dense, idx, vals)
+        st.handles.mark_done(handle, dense[idx])
+        return handle
+    st.engine.submit_rowsparse(name=name, indices=indices, values=values,
+                               total_rows=total_rows, average=average,
+                               priority=priority, handle=handle)
+    return handle
 
 
 def push_pull_rowsparse(indices: Any, values: Any, name: str, total_rows: int,
                         average: bool = True, priority: int = 0) -> Any:
+    """Synchronous :func:`push_pull_rowsparse_async`."""
     return synchronize(push_pull_rowsparse_async(
         indices, values, name, total_rows, average=average, priority=priority))

@@ -1,7 +1,8 @@
 """The chaos van: seeded fault injection on the PS data plane, with the
 schedule of ``byteps_tpu.comm.chaos`` frame for frame.
 
-``BYTEPS_VAN=chaos:tcp`` wraps the TCP van.  The server's listener wraps
+``BYTEPS_VAN=chaos:<inner>`` wraps the tcp, uds or shm van (``comm/van.py``).
+The server's listener wraps
 the connections it accepts and publishes a ``chaos+`` address, so the
 workers that dial it wrap theirs too: faults hit both directions.  Each
 frame is one ``sendall``/``sendmsg`` call of ``transport.py``, so a fault
@@ -300,6 +301,10 @@ class ChaosSocket:
     def recv_into(self, buf, nbytes: int = 0) -> int:
         return self._sock.recv_into(buf, nbytes)
 
+    @property
+    def family(self):
+        return getattr(self._sock, "family", None)
+
     def settimeout(self, t) -> None:
         self._sock.settimeout(t)
 
@@ -350,7 +355,7 @@ class ChaosListener:
 
 
 class ChaosVan:
-    """The chaos layer around an inner van (the TCP van)."""
+    """The chaos layer around an inner van (tcp, uds or shm)."""
 
     def __init__(self, inner) -> None:
         self.inner = inner

@@ -49,9 +49,9 @@ The data plane heals itself (docs/robustness.md):
 
 A reply that fails its CRC32C is dropped, its request left pending for
 the deadline to send again; ``BYTEPS_CHECKSUM_CONN_LIMIT`` of them give
-the connection up.  A reply with a flag the port does not serve, or with
-another op than its request's (WRONG_OWNER aside), fails its request at
-once, with the reason and no retry.
+the connection up.  A reply with another op than its request's
+(WRONG_OWNER aside) fails its request at once, with the reason and no
+retry.
 
 Online resharding (``BYTEPS_ELASTIC_RESHARD=1``, docs/robustness.md
 "migration flow"): the books' ownership map (``common.hashing.
@@ -77,9 +77,21 @@ Under ``BYTEPS_NATIVE_CLIENT=1`` each server's connection is
 :class:`_NativeServerConn`: framing, the CRC32C, the seq demux and the
 payload receive (into the caller's sink for a pull) run on the C++ lanes
 of ``native/csrc/ps_client.cc`` with no interpreter lock, and Python
-drains their completions in batches.  The C++ lanes would bypass the
-chaos van's fault layer, so a ``chaos+`` address refuses the native
-client (the port never falls back to the Python lanes).  Each push's and
+drains their completions in batches.  The lanes dial tcp and ``unix://``
+addresses.  They would bypass the chaos van's fault layer, and they do not
+speak the shm van's rings, so a ``chaos+`` or ``shm+unix://`` address
+refuses the native client (the port never falls back to the Python lanes;
+the reference's client takes them quietly there).
+
+A server's address carries its van (``comm/van.py``): tcp, ``unix://``
+(uds) or ``shm+unix://`` (shm), each possibly under ``chaos+``.  A reply
+that carries a lossless container is decoded after its CRC32C passed, on
+either lane; one that does not decode counts ``wire_lossless_fail`` and
+fails its attempt into the retry path, as a CRC32C mismatch does.  A push
+may ask for the container (``lossless=True``: the lossless arm of
+adaptive compression); the native lanes send it raw, as the reference's
+do.  A row-sparse pull's request carries the header and indices of the
+rows it gathers (``pull(..., payload=...)``).  Each push's and
 pull's round trip, send to reply, is observed as
 ``rpc_round_trip_seconds{server}``.
 
@@ -112,10 +124,12 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from byteps_tpu_torch.common.config import UNPORTED, Config
+from byteps_tpu_torch.common.config import Config
 from byteps_tpu_torch.common.hashing import OwnershipMap, assign_server
 from byteps_tpu_torch.common.types import RequestType, get_command_type
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
+from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX
+from byteps_tpu_torch.compression.lossless import LosslessError, decompress_frame
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, GROUP_WORKERS, RESIZE_SEQ
 from byteps_tpu_torch.comm.retry import Backoff
 from byteps_tpu_torch.comm.transport import (
@@ -147,13 +161,8 @@ ZERO_COPIED = object()
 
 
 class RequestFailed(ConnectionError):
-    """A request whose reply could not be used: its retries ran out, or the
-    reply needs a plane the port does not carry."""
-
-
-class _Refusal(str):
-    """The reason of an attempt that must not be retried: the server
-    answered, with a frame the port cannot use."""
+    """A request whose reply could not be used: the server answered it
+    with another op than the request's."""
 
 
 class _ServerConn:
@@ -246,7 +255,9 @@ class _NativeServerConn:
         #: the connection up at the same limit
         self.checksum_fails = 0
         self._ck_limit = checksum_conn_limit()
-        h = self._lib.bpsc_create(host.encode(), port, 0, 1)
+        kind = 1 if host.startswith(UNIX_PREFIX) else 0
+        addr = host[len(UNIX_PREFIX):] if kind else host
+        h = self._lib.bpsc_create(addr.encode(), port, kind, 1)
         if h < 0:
             raise ConnectionError(f"native client could not connect to {host}:{port}")
         self._h: Optional[int] = h
@@ -366,9 +377,11 @@ class _NativeServerConn:
         retry path.  The lanes keep the request's entry until the
         connection closes, and no second reply can match it."""
         if op == -3:
+            # the lanes dropped a reply that failed its CRC32C (status 0)
+            # or whose lossless container did not decode (status 1)
             name = Op(cmd).name if cmd in Op._value2member_map_ else str(cmd)
-            counters().bump("wire_checksum_fail", labels={
-                "side": "client", "op": name, "server": self.label})
+            counters().bump("wire_lossless_fail" if status == 1 else "wire_checksum_fail",
+                            labels={"side": "client", "op": name, "server": self.label})
             self.checksum_fails += 1
             if self._ck_limit and self.checksum_fails == self._ck_limit:
                 counters().bump("wire_checksum_conn_drop")
@@ -382,7 +395,8 @@ class _NativeServerConn:
         if op == -1:
             on_error(f"server {self.label} connection lost")
         elif op == -3:
-            on_error(f"{name} reply from server {self.label} failed its CRC32C")
+            on_error(f"{name} reply from server {self.label} failed its "
+                     + ("lossless decode" if status == 1 else "CRC32C"))
         else:
             on_reply(Message(Op(op), key=key, payload=ZERO_COPIED if zc else body,
                              seq=seq, cmd=cmd, version=version, status=status,
@@ -1045,7 +1059,13 @@ class PSClient:
                     f"BYTEPS_NATIVE_CLIENT=1 cannot dial the chaos address {host!r}: the "
                     "C++ lanes would bypass the chaos van's fault layer, and the port "
                     "never falls back to its Python lanes (ROADMAP.md Queue 3); unset "
-                    "one of BYTEPS_NATIVE_CLIENT and the servers' BYTEPS_VAN=chaos:tcp")
+                    "one of BYTEPS_NATIVE_CLIENT and the servers' BYTEPS_VAN=chaos:*")
+            if host.startswith(SHM_PREFIX):
+                raise RuntimeError(
+                    f"BYTEPS_NATIVE_CLIENT=1 cannot dial the shm address {host!r}: the "
+                    "C++ lanes speak tcp and uds, not the shm rings, and the port never "
+                    "falls back to its Python lanes (ROADMAP.md Queue 3); unset one of "
+                    "BYTEPS_NATIVE_CLIENT and the servers' BYTEPS_VAN=shm")
             return _NativeServerConn(host, port, label)
         sc = _ServerConn(host, port, label, dial_timeout)
         sc.thread = threading.Thread(target=self._recv_loop, args=(sc,),
@@ -1074,36 +1094,39 @@ class PSClient:
                             recv_into(sc.sock, memoryview(payload))
                 except (ConnectionError, OSError, ValueError):
                     return
+                bad = None
                 if crc is not None and frame_checksum(
                     trace, sink if zero_copied else payload
                 ) != crc:
+                    bad = ("wire_checksum_fail", "its CRC32C")
+                elif lossless:
+                    # the container is decoded once its CRC32C passed
+                    try:
+                        payload = decompress_frame(payload, op=op)
+                    except LosslessError:
+                        bad = ("wire_lossless_fail", "its lossless decode")
+                if bad is not None:
                     # the attempt fails at once into the retry path, with
                     # or without a deadline armed (a sink holding garbage
                     # is overwritten by the retried reply before the
                     # caller wakes); a connection that keeps corrupting
                     # goes
                     sc.checksum_fails += 1
-                    counters().bump("wire_checksum_fail", labels={
+                    counters().bump(bad[0], labels={
                         "side": "client", "op": op.name, "server": sc.label})
                     if ck_limit and sc.checksum_fails >= ck_limit:
                         counters().bump("wire_checksum_conn_drop")
                         return
                     entry = sc.pop(seq)
                     if entry is not None:
-                        entry[1](f"{op.name} reply from server {sc.label} failed "
-                                 "its CRC32C")
+                        entry[1](f"{op.name} reply from server {sc.label} failed {bad[1]}")
                     continue
                 entry = sc.pop(seq)
                 if entry is None:
                     continue
-                on_reply, on_error = entry
-                if lossless:
-                    on_error(_Refusal(f"{op.name} reply carries a lossless container: "
-                                      f"not ported yet, {UNPORTED['lossless']}"))
-                else:
-                    on_reply(Message(op, key=key, payload=payload, seq=seq,
-                                     cmd=cmd, version=version, status=status,
-                                     flags=flags))
+                on_reply, _ = entry
+                on_reply(Message(op, key=key, payload=payload, seq=seq, cmd=cmd,
+                                 version=version, status=status, flags=flags))
         finally:
             close_socket(sc.sock)
             for _, on_error in sc.mark_dead():
@@ -1454,10 +1477,7 @@ class PSClient:
 
             def on_attempt_error(reason: str) -> None:
                 self._deadline_clear(token[0])
-                if isinstance(reason, _Refusal):
-                    terminal(reason)
-                else:
-                    retry_later(reason)
+                retry_later(reason)
 
             # armed before the alloc: a dead connection's alloc fails the
             # attempt at once, and must find the token
@@ -1508,8 +1528,6 @@ class PSClient:
             done.wait(5.0)
         reply = box[0] if box else f"server {sc.label}: no reply"
         if not isinstance(reply, Message):
-            if isinstance(reply, _Refusal):
-                raise RequestFailed(f"{what}: {reply}")
             raise ConnectionError(f"{what}: {reply}")
         want = expect if expect is not None else msg.op
         if reply.op not in (want, Op.WRONG_OWNER):
@@ -1745,16 +1763,18 @@ class PSClient:
     def push(self, key: int, payload, dtype_id: int, version: int,
              cb: Callable[[], None], on_error: Callable[[str], None],
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
-             abort_check: Optional[Callable[[], bool]] = None) -> None:
+             abort_check: Optional[Callable[[], bool]] = None,
+             lossless: Optional[bool] = None) -> None:
         """Asynchronous push; ``cb`` fires on the server's ack (ZPush).  A
         resend of a push the server summed already is acked without a sum
-        (the worker flag and version key its replay ledger)."""
+        (the worker flag and version key its replay ledger).  ``lossless``
+        asks for the payload's lossless container (the Python lanes)."""
         cmd = get_command_type(request_type, dtype_id)
         flags = self._worker_flag()
         self._async_rpc(
             key,
             lambda seq: Message(Op.PUSH, key=key, seq=seq, payload=payload,
-                                cmd=cmd, version=version, flags=flags),
+                                cmd=cmd, version=version, flags=flags, lossless=lossless),
             lambda msg: cb(), on_error, abort_check=abort_check,
         )
 
@@ -1791,14 +1811,17 @@ class PSClient:
              dtype_id: int = 0,
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
              sink: Optional[memoryview] = None,
-             abort_check: Optional[Callable[[], bool]] = None) -> None:
+             abort_check: Optional[Callable[[], bool]] = None,
+             payload: bytes = b"") -> None:
         """Asynchronous pull of round ``version``; ``cb`` gets the payload,
         or :data:`ZERO_COPIED` when it landed in ``sink`` (ZPull).  Read
         only, so retried freely: a retry follows the teardown of the
-        attempt's connection, so no late reply writes into the sink."""
+        attempt's connection, so no late reply writes into the sink.  A
+        row-sparse pull's ``payload`` names its rows."""
         cmd = get_command_type(request_type, dtype_id)
         self._async_rpc(
             key,
-            lambda seq: Message(Op.PULL, key=key, seq=seq, cmd=cmd, version=version),
+            lambda seq: Message(Op.PULL, key=key, seq=seq, cmd=cmd, version=version,
+                                payload=payload),
             lambda msg: cb(msg.payload), on_error, sink=sink, abort_check=abort_check,
         )

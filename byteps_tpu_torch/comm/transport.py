@@ -20,9 +20,17 @@ payload).  Stamping is per process (``BYTEPS_WIRE_CHECKSUM=1``, data-plane
 ops only); any receiver verifies a stamped frame.  The CRC runs in the
 port's own C helper (``ops/csrc/crc32c.c``, built at first use); the
 table loop :func:`crc32c_plain` is its plain version, which the tests hold
-it to.  ``LOSSLESS_FLAG`` frames are decoded by no receiver of the port:
-:func:`recv_message` raises :class:`UnsupportedFrameError` after consuming
-the frame.
+it to.
+
+A ``LOSSLESS_FLAG`` frame's payload is a lossless container
+(``compression/lossless.py``); its ``length`` and CRC32C cover the
+container, so integrity is checked before the decoder runs.  Under
+``BYTEPS_WIRE_LOSSLESS=1`` RESYNC_STATE and MIGRATE_STATE bodies are sent
+so when the container comes out smaller; ``Message(lossless=True)`` asks
+for it on any op (the lossless arm of adaptive compression).  Every
+receiver decodes a flagged frame after reading it whole, and a container
+that does not decode raises ``LosslessError`` then, so the stream stays
+framed.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from byteps_tpu_torch.compression.lossless import LosslessError  # noqa: F401 - re-exported
+
 MAGIC = 0xB5
 HEADER_FMT = "!BBBBIQIIQ"
 HEADER_SIZE = struct.calcsize(HEADER_FMT)
@@ -51,6 +61,9 @@ _CHECKSUM_FMT = "!I"
 CHECKSUM_SIZE = struct.calcsize(_CHECKSUM_FMT)
 
 LOSSLESS_FLAG = 0x20
+#: ops whose payloads travel lossless under BYTEPS_WIRE_LOSSLESS=1:
+#: RESYNC_STATE and MIGRATE_STATE (wire.h lossless_op)
+_LOSSLESS_OPS = frozenset({24, 25})
 
 
 class Op(enum.IntEnum):
@@ -91,8 +104,8 @@ class ChecksumError(ValueError):
 
 
 class UnsupportedFrameError(ValueError):
-    """A received frame needs a plane the port does not carry (a lossless
-    container).  Raised after the frame was consumed."""
+    """A received request the port's server does not serve (an op it does
+    not expect, a codec it cannot build)."""
 
 
 #: ops that carry a checksum under BYTEPS_WIRE_CHECKSUM=1: the data plane
@@ -104,6 +117,15 @@ def wire_checksum_enabled() -> bool:
     """Stamp outgoing data-plane frames with CRC32C?  Read on every call;
     verification does not depend on it."""
     return os.environ.get("BYTEPS_WIRE_CHECKSUM", "").lower() not in (
+        "", "0", "false", "no", "off",
+    )
+
+
+def wire_lossless_enabled() -> bool:
+    """Send RESYNC_STATE and MIGRATE_STATE bodies lossless
+    (``BYTEPS_WIRE_LOSSLESS``, default off)?  Read on every call; decoding
+    does not depend on it."""
+    return os.environ.get("BYTEPS_WIRE_LOSSLESS", "").lower() not in (
         "", "0", "false", "no", "off",
     )
 
@@ -179,7 +201,7 @@ def frame_checksum(trace: Optional[Tuple[int, int]], payload) -> int:
 class Message:
     __slots__ = (
         "op", "status", "flags", "seq", "key", "cmd", "version", "payload",
-        "trace", "checksum",
+        "trace", "checksum", "lossless", "_lossless_applied",
     )
 
     def __init__(
@@ -194,6 +216,7 @@ class Message:
         flags: int = 0,
         trace: Optional[Tuple[int, int]] = None,
         checksum: Optional[bool] = None,
+        lossless: Optional[bool] = None,
     ) -> None:
         self.op = op
         self.status = status
@@ -208,13 +231,43 @@ class Message:
         #: stamp the CRC32C block?  None follows BYTEPS_WIRE_CHECKSUM for
         #: data-plane ops; True/False force it
         self.checksum = checksum
+        #: send the payload as a lossless container?  None follows
+        #: BYTEPS_WIRE_LOSSLESS for RESYNC_STATE and MIGRATE_STATE; True
+        #: tries it on any op; the flag goes out only when the container
+        #: is smaller
+        self.lossless = lossless
+        #: None until the transform ran: it runs once, across resends
+        self._lossless_applied: Optional[bool] = None
 
     def _stamp_checksum(self) -> bool:
         if self.checksum is None:
             return int(self.op) in _CHECKSUM_OPS and wire_checksum_enabled()
         return bool(self.checksum)
 
+    def _stamp_lossless(self) -> bool:
+        """Swap the payload for its container when asked and smaller (once;
+        before the header is packed, since ``length`` and the CRC32C cover
+        the bytes that ship)."""
+        if self._lossless_applied is not None:
+            return self._lossless_applied
+        lz = self.lossless
+        if lz is None:
+            lz = int(self.op) in _LOSSLESS_OPS and wire_lossless_enabled()
+        applied = False
+        if lz:
+            from byteps_tpu_torch.compression.lossless import MIN_BYTES, compress_frame
+
+            n = memoryview(self.payload).nbytes
+            if n >= MIN_BYTES:
+                comp = compress_frame(self.payload)
+                if len(comp) < n:
+                    self.payload = comp
+                    applied = True
+        self._lossless_applied = applied
+        return applied
+
     def encode_header(self) -> bytes:
+        lz = self._stamp_lossless()
         ck = self._stamp_checksum()
         hdr = struct.pack(
             HEADER_FMT,
@@ -222,7 +275,8 @@ class Message:
             int(self.op),
             self.status
             | (TRACE_FLAG if self.trace is not None else 0)
-            | (CHECKSUM_FLAG if ck else 0),
+            | (CHECKSUM_FLAG if ck else 0)
+            | (LOSSLESS_FLAG if lz else 0),
             self.flags,
             self.seq,
             self.key,
@@ -293,18 +347,18 @@ def verify_checksum(crc: Optional[int], trace, payload, op=None) -> None:
 
 
 def recv_message(sock: socket.socket) -> Message:
-    """Receive one frame and verify its checksum.  A lossless container
-    raises :class:`UnsupportedFrameError`, after the frame is consumed."""
+    """Receive one frame, verify its checksum, then decode a lossless
+    container.  ``ChecksumError`` and ``LosslessError`` are raised after
+    the frame was consumed."""
     op, status, flags, seq, key, cmd, version, length, trace, crc, lossless = (
         recv_header_ex(sock)
     )
     payload = _recv_exact(sock, length) if length else b""
     verify_checksum(crc, trace, payload, op=op)
     if lossless:
-        raise UnsupportedFrameError(
-            f"{op.name} frame carries a lossless container: not ported yet, "
-            "ROADMAP.md Queue 1b item P11"
-        )
+        from byteps_tpu_torch.compression.lossless import decompress_frame
+
+        payload = decompress_frame(payload, op=op)
     return Message(
         op, key=key, payload=payload, seq=seq, cmd=cmd, version=version,
         status=status, flags=flags, trace=trace,
@@ -314,8 +368,9 @@ def recv_message(sock: socket.socket) -> Message:
 def send_message(sock: socket.socket, msg: Message,
                  lock: Optional[threading.Lock] = None) -> None:
     """Send one frame: header and payload in one scatter-gather call, with
-    no copy of the payload."""
-    hdr = msg.encode_header()
+    no copy of the payload (a van connection without ``sendmsg``, the shm
+    van's, takes them in two writes)."""
+    hdr = msg.encode_header()  # may swap the payload for its container
     bufs = [memoryview(hdr)]
     if memoryview(msg.payload).nbytes:
         bufs.append(memoryview(msg.payload).cast("B"))
@@ -327,6 +382,10 @@ def send_message(sock: socket.socket, msg: Message,
 
 
 def _sendmsg_all(sock: socket.socket, bufs: list) -> None:
+    if not hasattr(sock, "sendmsg"):
+        for b in bufs:
+            sock.sendall(b)
+        return
     while bufs:
         sent = sock.sendmsg(bufs)
         while bufs and sent >= len(bufs[0]):

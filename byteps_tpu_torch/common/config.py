@@ -110,6 +110,12 @@ class Config:
     native_client: bool = False  # BYTEPS_NATIVE_CLIENT
     #: a server's data plane in C++ (native/csrc/ps_server.cc)
     server_native: bool = False  # BYTEPS_SERVER_NATIVE
+    # The vans and the wire read their knobs from the environment when
+    # they act, as the reference's do: BYTEPS_VAN (tcp | uds | shm, or
+    # chaos:<one of them>; read when a server is made), BYTEPS_SOCKET_PATH
+    # (the temp directory), BYTEPS_SHM_RING_BYTES (512 KiB),
+    # BYTEPS_CONNECT_RETRY_S (2), BYTEPS_WIRE_LOSSLESS (off) and
+    # BYTEPS_LOSSLESS_ENTROPY (6.0 bits a byte).
 
     # --- membership: heartbeats, eviction, scheduler recovery ---
     #: seconds between a node's heartbeats to the scheduler; 0 = none
@@ -254,14 +260,12 @@ def clear_config() -> None:
     _config = None
 
 
-#: planes of byteps_tpu this port does not carry yet (the PS path's, and
-#: model parallelism), each with the ROADMAP.md item that brings it.
+#: planes of byteps_tpu this port does not carry yet (job namespaces, the
+#: flight recorder's upload, model parallelism), each with the ROADMAP.md
+#: item that brings it.
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "rowsparse": "row-sparse push_pull: ROADMAP.md Queue 1b item P6",
-    "van": "the uds and shm vans (and the chaos van around them): ROADMAP.md Queue 1b item P8",
-    "lossless": "lossless wire frames: ROADMAP.md Queue 1b item P11",
     "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
     "flight_upload": "the flight recorder's bundle upload (BYTEPS_FLIGHT_UPLOAD): "
                      "ROADMAP.md Queue 1 item 10",
@@ -277,8 +281,6 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_VAN", "van", lambda v: v not in ("tcp", "chaos:tcp")),
-    ("BYTEPS_WIRE_LOSSLESS", "lossless", truthy),
     ("BYTEPS_FLIGHT_UPLOAD", "flight_upload", truthy),
 )
 

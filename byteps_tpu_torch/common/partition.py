@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+
 from byteps_tpu_torch.common.registry import MAX_PARTS_PER_TENSOR, TensorContext
 from byteps_tpu_torch.common.types import Partition
 
@@ -50,3 +52,41 @@ def partition_tensor(
     ]
     ctx.partitions = parts
     return parts
+
+
+def check_rowsparse_shapes(idx_shape: tuple, vals_shape: tuple) -> None:
+    """The shape check of :func:`validate_rowsparse` alone (no read of the
+    indices, so no stall on a device)."""
+    if len(idx_shape) != 1 or len(vals_shape) != 2 or vals_shape[0] != idx_shape[0]:
+        raise ValueError(
+            f"rowsparse wants indices (n,), values (n, row_len); got "
+            f"{tuple(idx_shape)} / {tuple(vals_shape)}"
+        )
+
+
+def validate_rowsparse(indices, values, total_rows: int):
+    """The checks of a row-sparse push_pull, with the reference's errors
+    and messages: ``indices`` of shape (n,), ``values`` (n, row_len), every
+    index in [0, total_rows).  numpy in, numpy out: (int64 indices,
+    float32 rows), contiguous.  Torch tensors stay tensors on their device
+    (int64, float32); on a CUDA device the range check reads the minimum
+    and maximum in one transfer, the call's one stall."""
+    import torch
+
+    if isinstance(indices, torch.Tensor):
+        idx = indices.detach().to(torch.int64).contiguous()
+        vals = torch.as_tensor(values).detach().to(torch.float32).contiguous()
+        idx_shape, vals_shape = tuple(idx.shape), tuple(vals.shape)
+    else:
+        idx = np.ascontiguousarray(np.asarray(indices, dtype=np.int64))
+        vals = np.ascontiguousarray(np.asarray(values, dtype=np.float32))
+        idx_shape, vals_shape = idx.shape, vals.shape
+    check_rowsparse_shapes(idx_shape, vals_shape)
+    if idx_shape[0]:
+        if isinstance(idx, torch.Tensor):
+            lo, hi = (int(v) for v in torch.stack(torch.aminmax(idx)).tolist())
+        else:
+            lo, hi = int(idx.min()), int(idx.max())
+        if lo < 0 or hi >= total_rows:
+            raise ValueError(f"rowsparse indices out of range [0, {total_rows})")
+    return idx, vals

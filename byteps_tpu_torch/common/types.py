@@ -1,7 +1,9 @@
 """Core value types: operation status, the degraded-step error, the wire
 dtype ids (the same numbers as ``byteps_tpu.common.types.DataType``) for
 torch and numpy dtypes, the pipeline stages, the request flavours and
-their Cantor-paired command ids, and the engine's per-partition task."""
+their Cantor-paired command ids, and the engine's per-partition task.
+torch is imported on first use, so that a server or scheduler process,
+which never holds a tensor, starts without it."""
 
 from __future__ import annotations
 
@@ -10,7 +12,6 @@ import enum
 from typing import Any, Optional
 
 import numpy as np
-import torch
 
 
 class DataType(enum.IntEnum):
@@ -26,15 +27,16 @@ class DataType(enum.IntEnum):
     BFLOAT16 = 7
 
 
+#: torch dtype name -> wire type
 _TORCH_TO_DT = {
-    torch.float32: DataType.FLOAT32,
-    torch.float64: DataType.FLOAT64,
-    torch.float16: DataType.FLOAT16,
-    torch.uint8: DataType.UINT8,
-    torch.int32: DataType.INT32,
-    torch.int8: DataType.INT8,
-    torch.int64: DataType.INT64,
-    torch.bfloat16: DataType.BFLOAT16,
+    "torch.float32": DataType.FLOAT32,
+    "torch.float64": DataType.FLOAT64,
+    "torch.float16": DataType.FLOAT16,
+    "torch.uint8": DataType.UINT8,
+    "torch.int32": DataType.INT32,
+    "torch.int8": DataType.INT8,
+    "torch.int64": DataType.INT64,
+    "torch.bfloat16": DataType.BFLOAT16,
 }
 
 
@@ -57,8 +59,8 @@ _DT_TO_NP[DataType.BFLOAT16] = np.dtype(np.uint16)
 def to_datatype(dtype: Any) -> DataType:
     """Map a torch or numpy dtype to the wire ``DataType``."""
     try:
-        if isinstance(dtype, torch.dtype):
-            return _TORCH_TO_DT[dtype]
+        if type(dtype).__module__ == "torch" and type(dtype).__name__ == "dtype":
+            return _TORCH_TO_DT[str(dtype)]
         if str(dtype) == "bfloat16":
             return DataType.BFLOAT16
         return _NP_TO_DT[np.dtype(dtype)]
@@ -84,6 +86,8 @@ def divide(t: torch.Tensor, n) -> torch.Tensor:
     multiplies by the reciprocal of a Python scalar (or of a CPU 0-d
     tensor), which rounds otherwise than the reference's division once
     ``n`` is not a power of two."""
+    import torch
+
     return t / torch.full_like(t, n)
 
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 import abc
 
 import numpy as np
-import torch
 
 
 class Compressor(abc.ABC):
@@ -66,6 +65,8 @@ class _Bf16Compression:
     float32; other dtypes pass unchanged."""
 
     def compress(self, tensor: torch.Tensor):
+        import torch
+
         if tensor.dtype == torch.float32:
             return tensor.to(torch.bfloat16), tensor.dtype
         return tensor, None

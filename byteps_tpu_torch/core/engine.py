@@ -93,19 +93,37 @@ from the books (:meth:`PipelineEngine._apply_tuning`): its fusion
 threshold is adopted live (never turning fusion on from 0, and a section
 without it restores the launch value), and its ``codec_off`` turns every
 partition of the named codecs raw, a rollback turning back exactly those.
-``codec_lossless`` is ignored: lossless frames are not ported (P11).  The
-flight recorder gets one record a step: a step opens with the first
+The flight recorder gets one record a step: a step opens with the first
 push_pull after a quiet spell and closes when the last one completes.
 
-Row-sparse and tracing spans are not ported (ROADMAP.md Queue 1).  Each
-stage's dwell is observed as ``stage_dwell_seconds{stage}``
-(``core/telemetry.py``).
+The lossless arm of adaptive compression (``BYTEPS_WIRE_LOSSLESS=1``): a
+partition in the off set has its first raw push probed once
+(:meth:`PipelineEngine._lossless_probe`): at or under
+``BYTEPS_LOSSLESS_ENTROPY`` bits a byte, and a trial container at least
+10% smaller, that push and every later one go out as lossless containers
+(``transport.LOSSLESS_FLAG``), and it votes ``compression_auto_lossless``.
+A fleet's ``codec_lossless`` puts the off partitions of the named codecs
+there too, a rollback taking exactly those out.  The probe reads the raw
+bytes an off partition pushes on either lane (the device lane copies them
+to the host: the ninth divergence, above).
+
+Row-sparse push_pull (:meth:`PipelineEngine.submit_rowsparse`,
+``RequestType.ROW_SPARSE_PUSH_PULL``): one partition covering the dense
+``total_rows x row_len`` tensor, whose task has the PUSH and PULL stages
+alone.  The rows come to the host at submit (a CUDA pair by one copy on
+the side stream into the pinned push payload, and one wait), the result
+goes back to the device when it is delivered.  It never fuses and never
+compresses.
+
+Tracing spans are not ported (ROADMAP.md Queue 1).  Each stage's dwell is
+observed as ``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import struct
 import sys
 import threading
 import time
@@ -115,11 +133,16 @@ import numpy as np
 import torch
 
 from byteps_tpu_torch.common.config import Config, truthy
-from byteps_tpu_torch.common.partition import partition_tensor
+from byteps_tpu_torch.common.partition import (
+    check_rowsparse_shapes,
+    partition_tensor,
+    validate_rowsparse,
+)
 from byteps_tpu_torch.common.registry import get_registry
 from byteps_tpu_torch.comm.journal import configure_journal
 from byteps_tpu_torch.common.types import (
     DataType,
+    Partition,
     QueueType,
     RequestType,
     Status,
@@ -164,7 +187,7 @@ class _Job:
     __slots__ = (
         "name", "ctx", "flat", "result", "result_t", "dtype_id", "average",
         "handle", "pending", "shape", "is_torch", "device", "ready",
-        "version", "device_parts", "failed", "step_counted", "lock",
+        "version", "device_parts", "failed", "step_counted", "rowsparse", "lock",
     )
 
     def __init__(self, name, ctx, flat, dtype_id, average, handle, shape,
@@ -190,6 +213,8 @@ class _Job:
         self.failed = False
         #: the job left the step window (completed or failed), once
         self.step_counted = False
+        #: a row-sparse job's (push payload, pull request)
+        self.rowsparse: Optional[tuple] = None
         self.lock = threading.Lock()
 
 
@@ -391,6 +416,12 @@ class PipelineEngine:
         self._codec_names: Dict[int, str] = {}
         #: codec name -> the keys a fleet codec_off turned raw here
         self._fleet_codec_off: Dict[str, set] = {}
+        #: the lossless arm: off keys whose raw pushes go out as lossless
+        #: containers, the keys probed once, and codec name -> the keys a
+        #: fleet codec_lossless put in
+        self._lossless_keys: set = set()
+        self._lossless_probed: set = set()
+        self._fleet_codec_lossless: Dict[str, set] = {}
         self._tuning_lock = threading.Lock()
         self._fuse_enabled = cfg.fusion_threshold > 0
         self._launch_fusion_threshold = cfg.fusion_threshold
@@ -475,6 +506,64 @@ class PipelineEngine:
                 self._compression_auto_off.difference_update(keys)
                 _log(f"autotune: fleet codec decision on {name!r} rolled back ({len(keys)} "
                      "keys compress again)")
+            # the lossless arm: the named codecs' raw-pushing keys ship the
+            # container; a worker with BYTEPS_WIRE_LOSSLESS off ignores it
+            from byteps_tpu_torch.comm.transport import wire_lossless_enabled
+
+            lz = ({str(n) for n in (t.get("codec_lossless") or ())}
+                  if wire_lossless_enabled() else set())
+            for name in sorted(lz - set(self._fleet_codec_lossless)):
+                keys = {k for k, n in self._codec_names.items()
+                        if n == name and k in self._compression_auto_off
+                        and k not in self._lossless_keys}
+                self._fleet_codec_lossless[name] = keys
+                self._lossless_keys.update(keys)
+                if keys:
+                    counters().bump("tune_codec_lossless", len(keys), labels={"codec": name})
+                _log(f"autotune: fleet lossless arm on {name!r} ({len(keys)} local raw keys "
+                     "ship the lossless frame)")
+            for name in sorted(set(self._fleet_codec_lossless) - lz):
+                # exactly the fleet's keys drop it; a probe's verdict stays
+                keys = self._fleet_codec_lossless.pop(name)
+                self._lossless_keys.difference_update(keys)
+                _log(f"autotune: fleet lossless arm on {name!r} rolled back ({len(keys)} "
+                     "keys push plain raw again)")
+
+    def _lossless_probe(self, key: int, payload) -> None:
+        """The lossless arm's probe of an off key's first raw push (once a
+        key and engine; only under BYTEPS_WIRE_LOSSLESS): when its first 64
+        KiB read at or under the entropy cutoff and their trial container
+        is at least 10% smaller, the key's pushes from this one on ship the
+        container and it votes ``compression_auto_lossless{codec}``."""
+        self._lossless_probed.add(key)
+        from byteps_tpu_torch.comm.transport import wire_lossless_enabled
+
+        if not wire_lossless_enabled():
+            return
+        from byteps_tpu_torch.compression.lossless import (
+            MIN_BYTES,
+            byte_entropy,
+            compress_frame,
+            lossless_entropy_cutoff,
+        )
+
+        raw = bytes(memoryview(payload).cast("B")[:65536])
+        if len(raw) < MIN_BYTES:
+            return
+        ent = byte_entropy(raw)
+        metrics().gauge_set("lossless_probe_entropy", ent, labels={"key": str(key)})
+        if ent > lossless_entropy_cutoff():
+            return
+        comp = compress_frame(raw)
+        if len(comp) * 10 > len(raw) * 9:
+            return  # the entropy looked low but the LZ pass won nothing
+        with self._tuning_lock:
+            self._lossless_keys.add(key)
+        counters().bump("compression_auto_lossless",
+                        labels={"codec": self._codec_names.get(key, "?")})
+        _log(f"lossless arm enabled for key {key}: raw push entropy {ent:.2f} bits/byte, "
+             f"trial container {len(raw) / max(1, len(comp)):.2f}x; its pushes ship the wire "
+             "lossless frame")
 
     def _auto_static_verdict(self, key: int, codec) -> None:
         """The verdict of a size-deterministic codec at registration: its
@@ -631,6 +720,83 @@ class PipelineEngine:
                 queue_list=list(stages), context=job, fuse_staged=small,
             ))
 
+    def submit_rowsparse(self, name: str, indices: Any, values: Any, total_rows: int,
+                         average: bool, priority: int, handle: int) -> None:
+        """Row-sparse push_pull (RequestType::kRowSparsePushPull,
+        common.h:267-271): push the ``values`` rows at ``indices`` of a
+        ``(total_rows, row_len)`` tensor, which the server scatter-sums into
+        its dense store, and pull the same rows of the round's sum.  One
+        key; the task has the PUSH and PULL stages alone.  The push payload
+        is ``!II`` (rows, row length), the indices as big-endian u32 and the
+        float32 rows; the pull request its first two parts."""
+        idx, vals, payload = self._rowsparse_to_host(indices, values, total_rows)
+        nrows, row_len = vals.shape
+        ctx = get_registry().declare(name)
+        if self._server_opt_profile(ctx)[0]:
+            # the server would update against a partial accumulator
+            raise ValueError(f"tensor {name!r}: the server-side optimizer profile does not "
+                             "support row-sparse push_pull (dense only)")
+        self._prepare_round(ctx, int(DataType.FLOAT32), total_rows * row_len, 4, one_part=True)
+        payload[:8] = np.frombuffer(struct.pack("!II", nrows, row_len), np.uint8)
+        payload[8: 8 + 4 * nrows].view(">u4")[:] = idx
+        is_torch = isinstance(values, torch.Tensor)
+        device = values.device if is_torch else None
+        job = _Job(name, ctx, None, int(DataType.FLOAT32), average, handle,
+                   (nrows, row_len), is_torch, device, None)
+        job.rowsparse = (payload, payload[: 8 + 4 * nrows].tobytes())
+        if is_torch:
+            job.result_t = torch.empty(nrows * row_len, dtype=torch.float32,
+                                       pin_memory=device.type == "cuda")
+            job.result = job.result_t.numpy()
+        else:
+            job.result = np.empty(nrows * row_len, dtype=np.float32)
+        self._step_begin()
+        part = ctx.partitions[0]
+        self.queues[QueueType.PUSH].add_task(TensorTableEntry(
+            tensor_name=name, key=part.key, priority=priority, version=ctx.version,
+            offset=0, length=part.length, queue_list=[QueueType.PUSH, QueueType.PULL],
+            context=job))
+
+    def _rowsparse_to_host(self, indices: Any, values: Any, total_rows: int) -> tuple:
+        """(int64 indices, float32 rows, push payload) of a row-sparse call,
+        validated, on the host.  The payload is a uint8 buffer with room for
+        the header and the indices, its tail the rows: a CUDA call's rows
+        are copied there (pinned) on the side stream after the caller's
+        stream, with its indices, and waited for once."""
+        if isinstance(values, torch.Tensor) and values.device.type == "cuda":
+            dev = values.device
+            rows = values.detach()
+            idx_d = torch.as_tensor(indices).detach()
+            check_rowsparse_shapes(tuple(idx_d.shape), tuple(rows.shape))
+            n, r = rows.shape
+            payload_t = torch.empty(8 + 4 * n + 4 * n * r, dtype=torch.uint8, pin_memory=True)
+            idx_h = torch.empty(idx_d.shape, dtype=torch.int64, pin_memory=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            d2h = self.streams(dev)[0]
+            with torch.cuda.stream(d2h):
+                d2h.wait_event(ready)
+                idx_h.copy_(idx_d, non_blocking=True)
+                payload_t[8 + 4 * n:].view(torch.float32).view(n, r).copy_(
+                    rows, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(d2h)
+            done.synchronize()
+            counters().bump("d2h_bytes", 4 * n * r + idx_h.numel() * 8)
+            payload = payload_t.numpy()
+            idx, vals = validate_rowsparse(idx_h.numpy(), payload[8 + 4 * n:].view(np.float32)
+                                           .reshape(n, r), total_rows)
+            return idx, vals, payload
+        if isinstance(indices, torch.Tensor):
+            indices = indices.detach().cpu().to(torch.int64).numpy()
+        if isinstance(values, torch.Tensor):
+            values = values.detach().to(torch.float32).numpy()
+        idx, vals = validate_rowsparse(indices, values, total_rows)
+        n = idx.shape[0]
+        payload = np.empty(8 + 4 * n + vals.nbytes, dtype=np.uint8)
+        payload[8 + 4 * n:] = vals.reshape(-1).view(np.uint8)
+        return idx, vals, payload
+
     def _stages(self, part, job: _Job, itemsize: int) -> tuple:
         """(stage list, fused?) of a partition: a compressed one is gauged
         against the fusion threshold by its codec's wire bytes, a raw one
@@ -648,7 +814,8 @@ class PipelineEngine:
         small = bool(limit) and part.length * itemsize <= limit
         return (self.STAGES_FUSED if small else self.STAGES), small
 
-    def _prepare_round(self, ctx, dtype_id: int, n_elements: int, itemsize: int) -> None:
+    def _prepare_round(self, ctx, dtype_id: int, n_elements: int, itemsize: int,
+                       one_part: bool = False) -> None:
         """Run the init barrier of every partition, then advance the
         tensor's round and seed the gate.  It runs again under a new engine
         (the servers' stores are new), after the client's
@@ -666,7 +833,12 @@ class PipelineEngine:
             gen = self.client.server_generation
             if (not ctx.initialized or ctx.engine_epoch != self._epoch
                     or ctx.server_generation != gen or ctx.name in self._reinit_names):
-                if not ctx.partitions:
+                if ctx.partitions:
+                    pass
+                elif one_part:  # a row-sparse tensor: one key, never cut
+                    ctx.partitions = [Partition(key=ctx.key_for_part(0), offset=0,
+                                                length=n_elements)]
+                else:
                     partition_tensor(ctx, n_elements, itemsize, self.cfg.partition_bytes)
                 if self._journal is not None:
                     # the barrier restarts the keys' round numbering: no
@@ -1141,10 +1313,19 @@ class PipelineEngine:
         if isinstance(job, _FusionGroup):
             self._push_group(task, job)
             return
-        if task.compressed is not None:
+        if job.rowsparse is not None:
+            payload, rtype = job.rowsparse[0].data, RequestType.ROW_SPARSE_PUSH_PULL
+        elif task.compressed is not None:
             payload, rtype = task.compressed, RequestType.COMPRESSED_PUSH_PULL
         else:
             payload, rtype = task.cpubuff.data.cast("B"), RequestType.DEFAULT_PUSH_PULL
+            if (self.cfg.compression_auto and task.key in self._compression_auto_off
+                    and task.key not in self._lossless_probed):
+                self._lossless_probe(task.key, payload)
+        # the lossless arm: a raw push of a key the probe or the fleet put
+        # there ships its container; wire_tx_bytes counts the raw bytes
+        lossless = (rtype == RequestType.DEFAULT_PUSH_PULL and task.key in self._lossless_keys
+                    ) or None
         counters().bump("wire_tx_bytes", memoryview(payload).nbytes)
         if self._journal is not None:
             # before the send, so a give-up of this very push can replay it
@@ -1155,14 +1336,16 @@ class PipelineEngine:
             cb=lambda: self._proceed(task),
             on_error=lambda reason: self._fail_task(task, QueueType.PUSH, reason,
                                                     degraded=True),
-            request_type=rtype, abort_check=lambda: job.failed,
+            request_type=rtype, abort_check=lambda: job.failed, lossless=lossless,
         )
 
     def _pull_once(self, task: TensorTableEntry) -> None:
         """ZPull (core_loops.cc:584-618): a raw pull lands in the result
-        buffer with no copy; a compressed one goes on to DECOMPRESS."""
+        buffer with no copy; a compressed one goes on to DECOMPRESS; a
+        row-sparse one sends the rows it gathers."""
         job: _Job = task.context
-        compressed = task.queue_list[1] == QueueType.DECOMPRESS
+        compressed = (job.rowsparse is None
+                      and task.queue_list[1] == QueueType.DECOMPRESS)
         if task.fused_reply is not None:
             # a fused member: the frame's reply carried this round already
             payload, task.fused_reply = task.fused_reply, None
@@ -1192,14 +1375,18 @@ class PipelineEngine:
                     dst[:] = np.frombuffer(payload, dtype=dst.dtype)[: task.length]
             self._proceed(task)
 
+        if job.rowsparse is not None:
+            rtype = RequestType.ROW_SPARSE_PUSH_PULL
+        else:
+            rtype = (RequestType.COMPRESSED_PUSH_PULL if compressed
+                     else RequestType.DEFAULT_PUSH_PULL)
         self.client.pull(
             task.key, task.version, on_pull,
             on_error=lambda reason: self._fail_task(task, QueueType.PULL, reason,
                                                     degraded=True),
-            dtype_id=job.dtype_id,
-            request_type=(RequestType.COMPRESSED_PUSH_PULL if compressed
-                          else RequestType.DEFAULT_PUSH_PULL),
-            sink=sink, abort_check=lambda: job.failed,
+            dtype_id=job.dtype_id, request_type=rtype, sink=sink,
+            abort_check=lambda: job.failed,
+            payload=job.rowsparse[1] if job.rowsparse is not None else b"",
         )
 
     @staticmethod

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's native C++ lanes: the CPU reducer and the
 host codecs (``csrc/reducer.cc``, ``csrc/compressor.cc``), the PS server's
 data plane (``csrc/ps_server.cc``) and the worker's client lanes
-(``csrc/ps_client.cc``), over the wire of ``csrc/wire.h``.
+(``csrc/ps_client.cc``), over the wire of ``csrc/wire.h`` (its lossless
+container too: ``compression/lossless.py``).
 
 The library is built from ``csrc/`` by ``g++`` at the first
 :func:`get_lib` call (``ops/_build.py``: one compiler process per source,
@@ -96,6 +97,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                       c.c_void_p], c.c_int32),
         # ps_server.cc
         "bps_native_server_start": ([c.c_int32, c.c_int32, c.c_int32], c.c_int32),
+        # (socket path, workers, async, shm): the uds and shm vans
+        "bps_native_server_start_unix": ([c.c_char_p, c.c_int32, c.c_int32, c.c_int32],
+                                         c.c_int32),
         "bps_native_server_set_num_workers": ([c.c_int32, c.c_int32], None),
         "bps_native_server_set_live_workers": ([c.c_int32, c.POINTER(c.c_uint8),
                                                 c.c_int32], None),
@@ -111,6 +115,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bps_wire_golden": ([c.c_void_p, c.c_uint64], c.c_int64),
         "bps_wire_golden_compressed": ([c.c_void_p, c.c_uint64], c.c_int64),
         "bps_wire_golden_checksum": ([c.c_void_p, c.c_uint64], c.c_int64),
+        # wire.h's lossless container (compression/lossless.py)
+        "bps_wire_lossless_compress": ([c.c_void_p, c.c_uint64, c.c_void_p, c.c_uint64],
+                                       c.c_int64),
+        "bps_wire_lossless_decompress": ([c.c_void_p, c.c_uint64, c.c_void_p, c.c_uint64],
+                                         c.c_int64),
         # ps_client.cc
         "bpsc_create": ([c.c_char_p, c.c_int32, c.c_int32, c.c_int32], c.c_int64),
         "bpsc_set_cb": ([c.c_int64, BPSC_CALLBACK, c.c_void_p], None),

@@ -1,5 +1,5 @@
 """The C++ data plane behind the port's control shell
-(``byteps_tpu.server.server.NativePSServer``, reduced to tcp).
+(``byteps_tpu.server.server.NativePSServer``).
 
 The engine of ``native/csrc/ps_server.cc`` owns the worker-facing socket:
 framing, the CRC32C, KV rounds, the codecs and the sums, on its own
@@ -36,9 +36,13 @@ ownership check stays the ring's, with a warning.
 The engine answers Op.RESYNC_QUERY from its own replay ledger
 (``native_resync_query``) and acks a replayed INIT from its barrier's
 token record (``native_init_replay_ack``), so a worker heals in place
-against it as against the Python engine.  Under ``BYTEPS_VAN=chaos:tcp``
-it publishes a ``chaos+`` address: the workers fault their own side, the
-engine's replies stay clean.
+against it as against the Python engine.  ``BYTEPS_VAN=uds|shm`` starts
+the engine on a Unix socket (``bps_native_server_start_unix``; with shm
+its connections move payloads through the rings of ``comm/shm_ring.py``)
+and publishes a ``unix://`` or ``shm+unix://`` address.  Under
+``BYTEPS_VAN=chaos:<van>`` it publishes a ``chaos+`` address: the workers
+fault their own side, the engine's replies stay clean.  The engine
+scatter-sums row-sparse pushes, and decodes lossless frames, in C++.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from typing import Dict, List, Optional
 from byteps_tpu_torch.common.config import Config, check_unported_env, resolve_node_uid
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.transport import close_socket
+from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX, check_shm_arch, new_socket_path
 from byteps_tpu_torch.core.telemetry import metrics
 from byteps_tpu_torch.server.server import PSServer, init_tuning_state, summarize_histograms
 
@@ -67,16 +72,32 @@ class NativePSServer:
         check_unported_env()
         self._lib = get_lib()
         self.cfg = cfg
-        # under BYTEPS_VAN=chaos:tcp the engine's listener stays plain and
-        # the published address carries the chaos prefix, so the workers
-        # that dial it wrap their side in the fault layer
-        self.host = (CHAOS_PREFIX + host if os.environ.get("BYTEPS_VAN") == "chaos:tcp"
-                     else host)
-        self.port = self._lib.bps_native_server_start(0, cfg.num_worker,
-                                                      int(cfg.enable_async))
-        if self.port < 0:
-            raise RuntimeError("bps_native_server_start failed")
-        self._id = self.port
+        # under BYTEPS_VAN=chaos:<van> the engine's listener stays plain
+        # and the published address carries the chaos prefix, so the
+        # workers that dial it wrap their side in the fault layer
+        van = os.environ.get("BYTEPS_VAN") or "tcp"
+        chaos = van.startswith("chaos:")
+        if chaos:
+            van = van[len("chaos:"):]
+        if van not in ("tcp", "uds", "shm"):
+            raise ValueError(f"BYTEPS_VAN={van!r}: the native engine speaks tcp | uds | "
+                             "shm (or chaos:<one of them>)")
+        if van == "tcp":
+            self.host = host
+            self.port = self._id = self._lib.bps_native_server_start(
+                0, cfg.num_worker, int(cfg.enable_async))
+        else:
+            if van == "shm":
+                check_shm_arch()
+            path = new_socket_path("native")
+            self._id = self._lib.bps_native_server_start_unix(
+                path.encode(), cfg.num_worker, int(cfg.enable_async), int(van == "shm"))
+            self.host = (SHM_PREFIX if van == "shm" else UNIX_PREFIX) + path
+            self.port = 0
+        if self._id < 0:
+            raise RuntimeError(f"bps_native_server_start failed (van {van})")
+        if chaos:
+            self.host = CHAOS_PREFIX + self.host
         self.rank: Optional[int] = None
         self.num_workers = cfg.num_worker
         self.node_uid = resolve_node_uid()

@@ -74,11 +74,21 @@ Each push's sum is observed as ``server_sum_seconds`` and the publish of
 the round it closed as ``server_publish_seconds``; a server process logs
 its pushes, rounds, parked pulls and those histograms when it stops
 (:func:`stop_report`).  ``BYTEPS_SERVER_NATIVE=1`` serves the data plane
-in C++ instead (``server/native.py``).  The planes of the reference's
-server that are not ported (row-sparse, multi-tenant job namespaces,
-lossless frames) are refused loudly: the request's
-connection is closed, or its INIT is answered with a non-zero status, and
-the reason goes to stderr.
+in C++ instead (``server/native.py``).
+
+The worker-facing listener rides the van ``BYTEPS_VAN`` selects (tcp, uds,
+shm, or the chaos van around one; ``comm/van.py``), and the address the
+server publishes carries the scheme.  A row-sparse push
+(``RequestType.ROW_SPARSE_PUSH_PULL``: ``!II`` rows and row length,
+big-endian u32 indices, the rows) scatter-sums its rows into the key's
+dense store, duplicate indices accumulating and the rows no worker pushed
+reset each round; a row-sparse pull (the same header and indices) gathers
+those rows once the round is out.  Under ``BYTEPS_WIRE_LOSSLESS=1`` the
+RESYNC_STATE and MIGRATE_STATE bodies go out as lossless containers, and
+any flagged frame is decoded on receipt.  The plane of the reference's
+server that is not ported (multi-tenant job namespaces) is refused
+loudly: its INIT is answered with a non-zero status, and the reason goes
+to stderr.
 """
 
 from __future__ import annotations
@@ -115,6 +125,7 @@ from byteps_tpu_torch.comm.transport import (
     PROFILE_SERVER_OPT,
     RULE_BLOCK_OFFSET,
     ChecksumError,
+    LosslessError,
     Message,
     Op,
     UnsupportedFrameError,
@@ -133,7 +144,7 @@ from byteps_tpu_torch.comm.transport import (
     recv_message,
     send_message,
 )
-from byteps_tpu_torch.comm.van import get_van
+from byteps_tpu_torch.comm.van import get_van, unlink_published
 from byteps_tpu_torch.core.telemetry import Counters, _state_percentile, counters, metrics
 from byteps_tpu_torch.native import cpu_reducer
 from byteps_tpu_torch.server import update_rules
@@ -184,7 +195,9 @@ class _KeyState:
         self.dtype_id = 0
         self.recv_count = 0
         self.store_version = 0
-        #: parked pulls: (version, conn, send_lock, seq, wants_compressed)
+        #: parked pulls: (version, conn, send_lock, seq, wants), ``wants``
+        #: the compressed flag of a dense pull or a row-sparse pull's
+        #: request body (bytes)
         self.pending_pulls: List[tuple] = []
         #: parked halves of fused frames: (version, _FusedReply, slot,
         #: wants_compressed), filled when their round publishes
@@ -413,6 +426,7 @@ class PSServer:
         # the recorder goes iff this server made it (not a worker's)
         release_process_recorder(self._flight_context)
         close_socket(self._sock)  # shutdown wakes the accept loop
+        unlink_published(self.host)
         with self._conns_lock:
             conns = list(self._conns)
         for conn in conns:
@@ -1095,7 +1109,8 @@ class PSServer:
                 conn, _ = self._sock.accept()
             except OSError:
                 return
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            if conn.family == socket.AF_INET:
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._conns_lock:
                 self._conns.append(conn)
             self._spawn(self._serve_conn, (conn,), "ps-serve")
@@ -1106,12 +1121,14 @@ class PSServer:
             while not self._stop.is_set():
                 try:
                     msg = recv_message(conn)
-                except ChecksumError as e:
+                except (ChecksumError, LosslessError) as e:
                     # the connection goes, which fails the worker's pending
                     # requests into its retry path at once: a request
                     # dropped unanswered would wait for a deadline the
                     # worker may not arm
-                    counters().bump("wire_checksum_fail", labels={
+                    name = ("wire_lossless_fail" if isinstance(e, LosslessError)
+                            else "wire_checksum_fail")
+                    counters().bump(name, labels={
                         "side": "server", "op": getattr(e.op, "name", str(e.op))})
                     counters().bump("wire_checksum_conn_drop")
                     raise
@@ -1129,7 +1146,7 @@ class PSServer:
                     return
                 else:
                     raise UnsupportedFrameError(f"unexpected {msg.op.name} request")
-        except (ChecksumError, UnsupportedFrameError) as e:
+        except (ChecksumError, LosslessError, UnsupportedFrameError) as e:
             _log(f"closing a worker connection: {e}")
         except (ConnectionError, OSError):
             pass
@@ -1456,7 +1473,7 @@ class PSServer:
         """(compressed, raw array or None) of a push to ``ks``."""
         rtype, dtype_id = decode_command_type(msg.cmd)
         if rtype == RequestType.ROW_SPARSE_PUSH_PULL:
-            raise NotImplementedError(f"row-sparse push: {UNPORTED['rowsparse']}")
+            raise RuntimeError("row-sparse members cannot fuse")
         if ks.store is None:
             raise RuntimeError(f"push for uninitialized key {msg.key}")
         compressed = rtype == RequestType.COMPRESSED_PUSH_PULL
@@ -1465,6 +1482,67 @@ class PSServer:
                                "no registered compressor")
         return compressed, None if compressed else np.frombuffer(msg.payload,
                                                                  dtype=ks.store.dtype)
+
+    @staticmethod
+    def _parse_rowsparse(ks: _KeyState, payload: bytes, with_values: bool) -> tuple:
+        """(row length, total rows, int64 indices, rows or None) of a
+        row-sparse body: ``!II`` (rows, row length), the rows' big-endian
+        u32 indices and, in a push, the rows in the key's dtype.  Raises
+        when the row length does not divide the store or an index is out
+        of range."""
+        nrows, row_len = struct.unpack_from("!II", payload, 0)
+        if row_len == 0 or ks.store.size % row_len:
+            raise RuntimeError(f"rowsparse row_len {row_len} does not divide store size "
+                               f"{ks.store.size}")
+        total_rows = ks.store.size // row_len
+        idx = np.frombuffer(payload, dtype=">u4", count=nrows, offset=8).astype(np.int64)
+        if nrows and int(idx.max()) >= total_rows:
+            raise RuntimeError(f"rowsparse index {int(idx.max())} >= {total_rows} rows")
+        vals = None
+        if with_values:
+            vals = np.frombuffer(payload, dtype=ks.store.dtype, count=nrows * row_len,
+                                 offset=8 + 4 * nrows).reshape(nrows, row_len)
+        return row_len, total_rows, idx, vals
+
+    def _sum_rowsparse_locked(self, ks: _KeyState, msg: Message, flush: List) -> float:
+        """A row-sparse push under ``ks.lock``: its rows scatter-summed into
+        the round's accumulator (the round's first push zeroes it, so the
+        rows no worker pushed are 0), or into an async key's store;
+        duplicate indices accumulate.  Returns the seconds spent
+        publishing the round it closed."""
+        if ks.store is None:
+            raise RuntimeError(f"push for uninitialized key {msg.key}")
+        row_len, total_rows, idx, vals = self._parse_rowsparse(ks, msg.payload, True)
+        if self._is_replayed_push_locked(ks, msg):
+            return 0.0  # the original push's rows landed: ack only
+        if self._async_ks(ks):
+            np.add.at(ks.store.reshape(total_rows, row_len), idx, vals)
+            ks.store_version += 1
+            self._record_push_locked(ks, msg)
+            self.stats.bump("pushes_summed")
+            flush.extend(self._drain_waiters_locked(
+                ks, lambda v: self._staleness_ready_locked(ks, v), async_mode=True))
+            return 0.0
+        if ks.recv_count == 0:
+            ks.accum[:] = 0
+        np.add.at(ks.accum.reshape(total_rows, row_len), idx, vals)
+        ks.recv_count += 1
+        self._record_push_locked(ks, msg)
+        self.stats.bump("pushes_summed")
+        if ks.recv_count < self.num_workers:
+            return 0.0
+        p0 = time.time()
+        flush.extend(self._publish_round_locked(ks))
+        return time.time() - p0
+
+    def _wire_reply(self, ks: _KeyState, wants, async_mode: bool) -> bytes:
+        """What a pull receives: a row-sparse pull (``wants`` its request
+        body) the rows it names, gathered from the store; a dense one the
+        store in the format it asked for."""
+        if isinstance(wants, (bytes, bytearray)):
+            row_len, total_rows, idx, _ = self._parse_rowsparse(ks, wants, False)
+            return ks.store.reshape(total_rows, row_len)[idx].tobytes()
+        return ks.wire_payload(wants, async_mode)
 
     def _observe_push(self, t_start: float, published: float) -> None:
         # the push's sum, less the publish of the round it closed
@@ -1475,12 +1553,16 @@ class PSServer:
     def _handle_push(self, msg: Message, conn, send_lock) -> None:
         t_start = time.time()
         ks = self._key_state(msg.key)
+        rowsparse = decode_command_type(msg.cmd)[0] == RequestType.ROW_SPARSE_PUSH_PULL
         flush: List = []
         with ks.lock:
             if self._redirect_or_park_locked(msg.key, ks, msg, conn, send_lock):
                 return
-            compressed, arr = self._push_args(ks, msg)
-            published = self._apply_push_locked(ks, msg, compressed, arr, flush)
+            if rowsparse:
+                published = self._sum_rowsparse_locked(ks, msg, flush)
+            else:
+                compressed, arr = self._push_args(ks, msg)
+                published = self._apply_push_locked(ks, msg, compressed, arr, flush)
         self._observe_push(t_start, published)
         send_message(conn, Message(Op.PUSH, key=msg.key, seq=msg.seq,
                                    version=msg.version), send_lock)
@@ -1561,7 +1643,7 @@ class PSServer:
         for entry in ks.pending_pulls:
             version, pconn, plock, pseq, wants = entry
             if ready(version):
-                flush.append((pconn, plock, pseq, ks.wire_payload(wants, async_mode),
+                flush.append((pconn, plock, pseq, self._wire_reply(ks, wants, async_mode),
                               ks.store_version))
             else:
                 keep.append(entry)
@@ -1615,16 +1697,15 @@ class PSServer:
 
     def _handle_pull(self, msg: Message, conn, send_lock) -> None:
         rtype, _ = decode_command_type(msg.cmd)
-        if rtype == RequestType.ROW_SPARSE_PUSH_PULL:
-            raise NotImplementedError(f"row-sparse pull: {UNPORTED['rowsparse']}")
-        wants = rtype == RequestType.COMPRESSED_PUSH_PULL
+        wants = (bytes(msg.payload) if rtype == RequestType.ROW_SPARSE_PUSH_PULL
+                 else rtype == RequestType.COMPRESSED_PUSH_PULL)
         ks = self._key_state(msg.key)
         with ks.lock:
             if self._redirect_or_park_locked(msg.key, ks, msg, conn, send_lock):
                 return
             if ks.store is None:
                 raise RuntimeError(f"pull for uninitialized key {msg.key}")
-            if wants and ks.compressor is None:
+            if wants is True and ks.compressor is None:
                 raise RuntimeError(f"compressed pull for key {msg.key}, which has "
                                    "no registered compressor")
             is_async = self._async_ks(ks)
@@ -1634,7 +1715,7 @@ class PSServer:
                 if is_async:
                     self.stats.bump("pulls_parked")
                 return
-            payload = ks.wire_payload(wants, is_async)
+            payload = self._wire_reply(ks, wants, is_async)
             ver = ks.store_version
         send_message(conn, Message(Op.PULL, key=msg.key, payload=payload,
                                    seq=msg.seq, version=ver), send_lock)

@@ -51,7 +51,7 @@ Phases, each fatal on failure:
      sum and publish histograms (from their stop reports);
      then the same on the native lanes: the servers' data plane in C++
      (BYTEPS_SERVER_NATIVE=1) and the worker's client lanes
-     (BYTEPS_NATIVE_CLIENT=1), 6 timed steps, and each half alone for 3, the
+     (BYTEPS_NATIVE_CLIENT=1), 3 timed steps, and each half alone for 1, the
      first step's loss bitwise the Python lanes';
   8. the compressed chain: the same model at full depth through a scheduler and
      two server processes with BytePS's documented compression config (onebit,
@@ -80,7 +80,7 @@ Phases, each fatal on failure:
      HybridDataParallel (SGD, 4 sequences a host), the hosts bitwise equal to
      each other and to one process averaging the two halves' gradients, and
      within atol 1e-5 + rtol 1e-4 of one process on the combined batch;
-     BERT-large at 6 layers (widths kept), 16 sequences a host, through
+     BERT-large at 2 layers (widths kept), 16 sequences a host, through
      DistributedOptimizer(AdamW) with bare onebit: the global batch's loss
      falling, the hosts' parameters bitwise equal, bytes against the
      partition table, K1-K4 launched, two pushes summed into every server
@@ -152,13 +152,32 @@ Phases, each fatal on failure:
      between the two rank sets, no optimizer state on the worker; each
      wave's wall ms, keys and bytes, and the steps' ms beside the
      no-resize run's;
- 22. one JSON line listing the kernels, then the contract line
+ 22. the control plane, phase (e): adaptive compression and the autotuner
+     (``train_control``);
+ 23. the rest of the data plane, phase (f) (after phase 15, whose unfused
+     Python-lane run on tcp is its baseline; 2 layers, widths kept).
+     (f1) the uds and shm vans: that run on Python servers over shm, on C++
+     servers over uds with the native client, and on C++ servers over shm
+     with the Python lanes: losses and parameters bitwise tcp's, K1-K4 and
+     wire bytes as on tcp, no socket or ring file left, the step and the
+     round trips beside tcp's; the host's machine name printed (the shm van
+     refuses any but x86-64).  (f2) row-sparse push_pull and lossless
+     frames: two launcher hosts of 16 sequences through two Python servers
+     under BYTEPS_COMPRESSION_AUTO=1 and BYTEPS_WIRE_LOSSLESS=1, the
+     embedding's gradient pushed each step dense (a topk of k = 0.5, off
+     from registration, its raw pushes probed and sent as lossless
+     containers) and row-sparse at the host's tokens: the rows bitwise the
+     dense result's, the hosts bitwise, every dense partition probed under
+     the entropy cutoff and every dense push flagged; rows, payload bytes
+     and the container's bytes against raw printed;
+ 24. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
-`--async-host <dir>` phase 17's, `--heal-host <dir>` phase 19's and
-`--elastic-host <dir>` phase 20's, which the launcher runs; they are not run
-by hand.
+`--async-host <dir>` phase 17's, `--heal-host <dir>` phase 19's,
+`--elastic-host <dir>` phase 20's, `--control-host <dir>` phase 22's and
+`--rowsparse-host <dir>` phase 23's, which the launcher runs; they are not
+run by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -168,6 +187,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import glob
 import json
@@ -190,8 +210,9 @@ N_LAYERS_FULL = 24
 # distributed path: the same model, fewer timed steps (each crosses the servers)
 DIST_STEPS, DIST_WARMUP = 3, 1
 # the distributed path on the native lanes (both halves C++), and each half
-# alone (6 and 3 timed steps before the self-healing plane's phases joined)
-NATIVE_STEPS, NATIVE_HALF_STEPS = 3, 2
+# alone (6 and 3 timed steps before the self-healing plane's phases joined;
+# the halves at 1 from 2 since the data plane's phase (f) joined)
+NATIVE_STEPS, NATIVE_HALF_STEPS = 3, 1
 #: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
 #: and the bytes one worker moves a step, from the distributed path's table
 DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
@@ -216,6 +237,9 @@ FLUSH_BYTES, SLEEP_CYCLES = 256 << 20, 1_000_000
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+
+# the longest a phase may run (the native lanes took 141.7 s on a slow host)
+PHASE_STALL_S = 400
 
 # tolerances, |kernel - plain| <= atol + rtol * |plain|, elementwise:
 #  f32: the same f32 arithmetic summed in another order over S <= 512 terms
@@ -1997,16 +2021,18 @@ def check_ddp_cross_barrier(card: str) -> None:
 # DMLC_NUM_WORKER=2 behind a scheduler and two servers
 HYBRID_HOSTS = 2
 HYBRID_BATCH = BATCH // HYBRID_HOSTS  # per host: 16, the main path's 32 together
-# six timed steps: with two workers the servers re-sign the sum of two 1-bit
-# payloads, so each partition's pull carries the signs of the host whose scale
-# is the larger (checked bitwise on one partition: _check_server_rounds), and
-# the global loss of the first five steps did not fall yet (10.8149 to 10.8204
-# on an NVIDIA H100 80GB HBM3, 700 W)
-HYBRID_WARMUP, HYBRID_STEPS = 1, 6
-#: the hybrid's BERT-large depth, cut from 24 with online resharding's phase,
-#: to keep the script under 75% of its time limit; its partition table
-#: (bare onebit): compressed partitions, and bytes a worker moves a step
-HYBRID_LAYERS, HYBRID_COMPRESSED_PARTS, HYBRID_D2H_STEP = 6, 171, 17_547_948
+# two timed steps (six, and 8 steps in all, before the data plane's phase (f)
+# joined): with two workers the servers re-sign the sum of two 1-bit
+# payloads, so each partition's pull carries the signs of the host whose
+# scale is the larger (checked bitwise on one partition:
+# _check_server_rounds); two hosts at 2 layers on bare onebit fell from
+# 10.84 to 10.49 in 3 steps in phase (b) (NVIDIA H100 80GB HBM3, 700 W)
+HYBRID_WARMUP, HYBRID_STEPS = 1, 2
+#: the hybrid's BERT-large depth, cut from 24 with online resharding's phase
+#: and from 6 with the data plane's, to keep the script under 75% of its
+#: time limit; its partition table (bare onebit): compressed partitions, and
+#: bytes a worker moves a step (the fusion phase's at 2 layers)
+HYBRID_LAYERS, HYBRID_COMPRESSED_PARTS, HYBRID_D2H_STEP = 2, 99, 11_108_748
 # the 2-layer equivalence: f32, SGD, 4 sequences a host, 3 steps.  Bitwise one
 # process that averages the two halves' gradients as the servers do, and
 # within atol 1e-5 + rtol 1e-4 of one process on the combined batch of 8: the
@@ -2510,6 +2536,9 @@ FUSION_THRESHOLD = 131072
 #: before the elastic one, 3 steps at 24 before the self-healing plane's
 #: phases), to keep the script under 75% of its time limit
 FUSION_STEPS, FUSION_LAYERS = 2, 2
+#: the fusion phase's unfused tcp run on the Python lanes, which phase (f1)
+#: holds its vans to
+_FUSION_BASE: dict = {}
 #: the server-side optimizer: Adam on the servers, a seed round and 3 steps
 SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
 #: its depth: 6 layers since the resharding phase joined (12 before, 24
@@ -2581,13 +2610,18 @@ def _tap_compressed_payloads(client):
         client.push, client.push_fused = push, push_fused
 
 
-def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
+def _fusion_run(card: str, label: str, fused: bool, native: bool, van: str = "tcp",
+                native_client: bool = None) -> dict:
     """One worker and two server processes, BERT-large through
     DistributedOptimizer(AdamW) with bare onebit (scaling), as the
     distributed path: one warm-up step (its compressed payloads tapped) and
     FUSION_STEPS timed, with BYTEPS_FUSION_THRESHOLD=FUSION_THRESHOLD when
-    ``fused``; on the native lanes (C++ servers and client) when ``native``.
-    Returns what it measured; the caller compares it with the other runs."""
+    ``fused``; the servers' data plane in C++ when ``native``, and the
+    worker's lanes when ``native_client`` (default: ``native``); the
+    servers on the van ``van`` (their socket files in a directory of
+    their own, which the run holds to be empty once the fleet stopped,
+    with no ring file of this process left in /dev/shm).  Returns what it
+    measured; the caller compares it with the other runs."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -2599,10 +2633,14 @@ def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
 
     wall = time.perf_counter()
     worker_env = {"BYTEPS_FUSION_THRESHOLD": str(FUSION_THRESHOLD if fused else 0)}
-    if native:
+    if native if native_client is None else native_client:
         worker_env["BYTEPS_NATIVE_CLIENT"] = "1"
-    with _ps_fleet(label, {"BYTEPS_SERVER_NATIVE": "1"} if native else None,
-                   worker_env) as fleet:
+    server_env = {"BYTEPS_SERVER_NATIVE": "1"} if native else {}
+    sock_dir = None
+    if van != "tcp":
+        sock_dir = _socket_dir()
+        server_env.update(BYTEPS_VAN=van, BYTEPS_SOCKET_PATH=sock_dir)
+    with _ps_fleet(label, server_env, worker_env) as fleet:
         bps.init()
         cfg, model, tok, tgt = _bert(FUSION_LAYERS)
         opt = bps.DistributedOptimizer(
@@ -2627,8 +2665,10 @@ def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
         losses += timed
         table = engine.partition_table()
         digest = _param_digest(model)
+        servers = [addr for addr, _ in get_state().ps_client._server_addrs]
         bps.shutdown()
         del model, opt, step
+    leftovers = _leftovers(sock_dir) if sock_dir is not None else []
     grads = [r for r in table if r["name"].startswith("Gradient.")]
     compressed = [r for r in grads if r["wire_nbytes"] is not None]
     fits = [r for r in grads if (r["wire_nbytes"] if r["wire_nbytes"] is not None
@@ -2639,7 +2679,7 @@ def _fusion_run(card: str, label: str, fused: bool, native: bool) -> dict:
            "step_ms": dt / FUSION_STEPS * 1e3, "split": split, "launches": launches,
            "stats": stats, "hists": hists, "digest": digest, "payloads": payloads,
            "compressed": len(compressed), "partitions": len(grads), "fits": len(fits),
-           "want_d2h": want_d2h,
+           "want_d2h": want_d2h, "van": van, "servers": servers, "leftovers": leftovers,
            "report": fleet.report, "wall": time.perf_counter() - wall}
     return out
 
@@ -2660,6 +2700,7 @@ def train_fusion(card: str) -> dict:
     kernels' launches a step of the fused Python-lane run."""
     label = "fusion"
     runs = []
+    _FUSION_BASE.clear()
     for native in (False, True):
         lane = "native lanes" if native else "Python lanes"
         for fused in (False, True):
@@ -2727,6 +2768,7 @@ def train_fusion(card: str) -> dict:
           f"{len({r['digest'] for r in runs}) == 1}", flush=True)
     if bad:
         fail(f"{label}: " + "; ".join(bad))
+    _FUSION_BASE["tcp"] = runs[0]  # phase (f1)'s baseline
     return {k: v // n for k, v in runs[1]["launches"].items()}
 
 
@@ -4711,6 +4753,289 @@ def train_control(card: str) -> dict:
     return two["launches_a_step"]
 
 
+# --- phase (f): the rest of the data plane ----------------------------------
+
+#: (f1): the fusion phase's unfused configuration on three fleets: (name,
+#: van, C++ servers, native client)
+VAN_FLEETS = (("shm, Python servers, Python lanes", "shm", False, False),
+              ("uds, C++ servers, native client", "uds", True, True),
+              ("shm, C++ servers, Python lanes", "shm", True, False))
+#: (f2): BERT-large at 2 layers on two launcher hosts of HYBRID_BATCH
+#: sequences each, 3 steps; the embedding's gradient goes out twice a step:
+#: dense under a topk of k = 0.5 (its wire as large as the raw bytes, so
+#: adaptive compression turns it off at registration and the lossless arm
+#: probes its raw pushes) and row-sparse at the host's tokens
+ROWSPARSE_LAYERS, ROWSPARSE_STEPS = 2, 3
+ROWSPARSE_PARAMS = {"compressor": "topk", "k": 0.5}
+ROWSPARSE_ENV = {"BYTEPS_COMPRESSION_AUTO": "1", "BYTEPS_WIRE_LOSSLESS": "1"}
+
+
+def _socket_dir() -> str:
+    """A fresh directory for a fleet's socket files: under the temp
+    directory, or under /dev/shm (where the shm van's rings live) when a
+    socket's path there would pass AF_UNIX's 107 bytes."""
+    d = tempfile.mkdtemp(prefix="bps")
+    if len(d) > 64:
+        os.rmdir(d)
+        d = tempfile.mkdtemp(prefix="bps", dir="/dev/shm")
+    return d
+
+
+def _leftovers(sock_dir: str) -> list:
+    """The socket files left in ``sock_dir`` and the ring files of this
+    process left in /dev/shm (a ring's name carries its maker's pid);
+    removes ``sock_dir`` once it is empty."""
+    left = [os.path.join(sock_dir, f) for f in os.listdir(sock_dir)]
+    left += glob.glob(f"/dev/shm/byteps_ring_*_{os.getpid()}_*")
+    if not os.listdir(sock_dir):
+        os.rmdir(sock_dir)
+    return left
+
+
+def _round_trips(hists: dict) -> str:
+    """The worker's rpc_round_trip_seconds, p50 and p99 a server."""
+    return ", ".join(f"server {name.split('=')[1].strip(chr(34) + '}')} p50 "
+                     f"{h['p50'] * 1e3:.3f} ms p99 {h['p99'] * 1e3:.3f} ms"
+                     for name, h in sorted(hists.items())
+                     if name.startswith("rpc_round_trip_seconds{"))
+
+
+def train_vans(card: str) -> dict:
+    """Phase (f1), the uds and shm vans: the fusion phase's unfused run
+    (BERT-large at FUSION_LAYERS, bare onebit with scaling, CRC32C, one
+    worker and two server processes) on each of VAN_FLEETS.  Holds each to
+    the fusion phase's tcp run on the Python lanes: the losses and the
+    parameters after the timed steps bitwise, K4 and K1-K3 at its launches a
+    step, wire_tx_bytes equal; each server published its van's address,
+    and no socket file nor ring file is left once the fleet stopped.
+    Prints each fleet's ms a step and round trips beside tcp's.  Returns
+    the kernels' launches a step of the first fleet."""
+    import platform
+
+    label = "vans (f1)"
+    print(f"{label}: host {platform.machine()} (the shm van refuses a host that is "
+          "not x86-64)", flush=True)
+    wall = time.perf_counter()
+    base = _FUSION_BASE.get("tcp")
+    if base is None:  # the phase alone: its own tcp run
+        base = _fusion_run(card, f"{label}, tcp, Python servers, Python lanes", False, False)
+    runs = []
+    for name, van, native, client in VAN_FLEETS:
+        gc.collect()
+        runs.append(_fusion_run(card, f"{label}, {name}", False, native, van, client))
+    n = FUSION_STEPS
+    want = {"flash_fwd": 2 * FUSION_LAYERS, "flash_bwd_dq": FUSION_LAYERS,
+            "flash_bwd_dkv": FUSION_LAYERS, "onebit_pack": base["compressed"]}
+    bad = []
+    for r, (name, van, native, client) in zip(runs, VAN_FLEETS):
+        per = {k: v / n for k, v in r["launches"].items()}
+        scheme = {"uds": "unix://", "shm": "shm+unix://"}[van]
+        if r["losses"] != base["losses"]:
+            bad.append(f"{name}: losses {r['losses']} are not bitwise tcp's {base['losses']}")
+        if r["digest"] != base["digest"]:
+            bad.append(f"{name}: the parameters after {n} steps are not bitwise tcp's")
+        if per != want:
+            bad.append(f"{name}: launches a step {per}, expected {want}")
+        if r["stats"].get("wire_tx_bytes", 0) != base["stats"].get("wire_tx_bytes", 0):
+            bad.append(f"{name}: wire_tx_bytes {r['stats'].get('wire_tx_bytes', 0) // n} a "
+                       f"step, tcp's {base['stats'].get('wire_tx_bytes', 0) // n}")
+        if len(r["servers"]) != 2 or not all(h.startswith(scheme) for h in r["servers"]):
+            bad.append(f"{name}: the servers published {r['servers']}")
+        if r["leftovers"]:
+            bad.append(f"{name}: left behind {r['leftovers']}")
+        if r["report"] is None or any(x is None for x in r["report"]):
+            bad.append(f"{name}: a server logged no stop report")
+    for r in [base] + runs:
+        s = r["stats"]
+        print(f"{r['label']}: {r['step_ms']:.1f} ms a step over {n} steps (tcp "
+              f"{base['step_ms']:.1f}); losses {[round(x, 4) for x in r['losses']]}; "
+              f"wire_tx_bytes {s.get('wire_tx_bytes', 0) // n} a step; K4 "
+              f"{r['launches']['onebit_pack'] // n} a step; round trips "
+              f"{_round_trips(r['hists'])}; step split {_split_line(r['split'], n)}; "
+              f"phase wall {r['wall']:.1f} s; on {card}", flush=True)
+        for line in _hist_lines(r["hists"], n) + _server_lines(r["report"] or []):
+            print(f"{r['label']}: {line}", flush=True)
+    print(f"{label}: losses and parameters bitwise tcp's on every van "
+          f"{all(r['losses'] == base['losses'] and r['digest'] == base['digest'] for r in runs)}"
+          f"; nothing left behind {not any(r['leftovers'] for r in runs)}; phase wall "
+          f"{time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return {k: v // n for k, v in runs[0]["launches"].items()}
+
+
+def rowsparse_host(work: str) -> None:
+    """One host of phase (f2), under the port's launcher (``chip_smoke.py
+    --rowsparse-host <dir>``): BERT-large at ROWSPARSE_LAYERS on its
+    HYBRID_BATCH sequences through DistributedOptimizer(AdamW) over every
+    parameter but the word embedding, whose gradient each step goes out
+    (a) dense, as ``embed.dense`` under ROWSPARSE_PARAMS, and (b) row-sparse
+    at the host's tokens, as ``embed.rows``; the embedding's gradient then
+    takes (a)'s result.  Taps the PS client's sends (each push's lossless
+    flag and on-wire bytes).  Writes <dir>/rowsparse<h>.json."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.ps_client import _ServerConn
+    from byteps_tpu_torch.comm.transport import Op
+    from byteps_tpu_torch.common.registry import get_registry
+    from byteps_tpu_torch.compression.registry import translate_compression_params
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters, metrics
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    bps.init()
+    cfg, model, tok, tgt = _bert(ROWSPARSE_LAYERS)
+    rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
+    tok, tgt = tok[rows].contiguous(), tgt[rows].contiguous()
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=[(n, p) for n, p in model.named_parameters() if n != "embed"])
+    bps.declare_tensor("embed.dense", **translate_compression_params(ROWSPARSE_PARAMS))
+    sent: list = []
+    send = _ServerConn.send
+
+    def tap_send(sc, msg) -> None:
+        send(sc, msg)  # the payload is the container once it went lossless
+        if msg.op == Op.PUSH:
+            sent.append((int(msg.key), int(msg.version), bool(msg._lossless_applied),
+                         memoryview(msg.payload).nbytes))
+
+    _ServerConn.send = tap_send
+    uniq = torch.unique(tok.reshape(-1))
+    steps = []
+    for _ in range(ROWSPARSE_STEPS):
+        fa.reset_launches()
+        ob.reset_launches()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(tok, tgt)
+        loss.backward()
+        g = model.embed.grad
+        t1 = time.perf_counter()
+        dense = bps.push_pull(g, name="embed.dense")
+        t2 = time.perf_counter()
+        sparse = bps.push_pull_rowsparse(uniq, g[uniq], name="embed.rows",
+                                         total_rows=cfg.vocab_size)
+        t3 = time.perf_counter()
+        same = bool(torch.equal(dense[uniq].view(torch.int32), sparse.view(torch.int32)))
+        model.embed.grad = dense
+        opt.step()
+        torch.cuda.synchronize()
+        steps.append({"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+                      "dense_ms": (t2 - t1) * 1e3, "rows_ms": (t3 - t2) * 1e3,
+                      "same": same, "launches": {**fa.launches, **ob.launches}})
+    _ServerConn.send = send
+    reg = get_registry()
+    dense_keys = [p.key for p in reg.get("embed.dense").partitions]
+    rows_key = reg.get("embed.rows").partitions[0].key
+    eng = get_state().engine
+    gauges = metrics().snapshot()["gauges"]
+    out = {"host": host, "steps": steps, "rows": int(uniq.numel()),
+           "total_rows": cfg.vocab_size, "row_len": cfg.d_model,
+           "raw": model.embed.numel() * model.embed.element_size(),
+           "digest": _param_digest(model), "dense_keys": dense_keys, "rows_key": rows_key,
+           "sent": sent, "lossless_keys": sorted(eng._lossless_keys),
+           "auto_off": sorted(eng.auto_off_keys()),
+           "entropy": {str(k): gauges.get(f'lossless_probe_entropy{{key="{k}"}}')
+                       for k in dense_keys},
+           "counters": counters().snapshot_labeled()}
+    with open(os.path.join(work, f"rowsparse{host}.json"), "w") as f:
+        json.dump(out, f)
+    bps.shutdown()
+
+
+def train_rowsparse(card: str) -> dict:
+    """Phase (f2), row-sparse push_pull and the lossless arm: a scheduler
+    and two Python servers on tcp with CRC32C, and two launcher hosts
+    (``rowsparse_host``) under BYTEPS_COMPRESSION_AUTO=1 and
+    BYTEPS_WIRE_LOSSLESS=1.  Holds: every step on each host, the
+    row-sparse rows bitwise the dense result at the host's rows; the
+    hosts' parameters bitwise equal after the last step; each partition of
+    the dense push in the off set, probed at or under the entropy cutoff,
+    and every one of its pushes flagged lossless; K1-K3 at their launches a
+    step.  Prints the rows, the row-sparse payload bytes and the dense
+    push's raw and on-wire bytes, a host and a step.  Returns the kernels'
+    launches a step of host 0."""
+    from byteps_tpu_torch.compression.lossless import lossless_entropy_cutoff
+
+    label = "row-sparse (f2)"
+    wall = time.perf_counter()
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ROWSPARSE_ENV}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    with tempfile.TemporaryDirectory() as work:
+        _run_hosts(label, env, "--rowsparse-host", work, timeout=300)
+        results = []
+        for h in range(HYBRID_HOSTS):
+            with open(os.path.join(work, f"rowsparse{h}.json")) as f:
+                results.append(json.load(f))
+        report = _server_report(work)
+    cutoff = lossless_entropy_cutoff()
+    want = {"flash_fwd": 2 * ROWSPARSE_LAYERS, "flash_bwd_dq": ROWSPARSE_LAYERS,
+            "flash_bwd_dkv": ROWSPARSE_LAYERS, "onebit_pack": 0}
+    bad = []
+    for r in results:
+        h, keys = r["host"], set(r["dense_keys"])
+        for i, st in enumerate(r["steps"]):
+            if not st["same"]:
+                bad.append(f"host {h} step {i + 1}: the row-sparse rows are not bitwise the "
+                           "dense result's")
+            if st["launches"] != want:
+                bad.append(f"host {h} step {i + 1}: launches {st['launches']}, expected {want}")
+        if set(r["auto_off"]) & keys != keys or set(r["lossless_keys"]) & keys != keys:
+            bad.append(f"host {h}: of {len(keys)} dense partitions, {len(keys & set(r['auto_off']))}"
+                       f" are off and {len(keys & set(r['lossless_keys']))} lossless")
+        ent = r["entropy"]
+        if any(e is None or e > cutoff for e in ent.values()):
+            bad.append(f"host {h}: probe entropies {ent} (cutoff {cutoff})")
+        dense_sent = [s for s in r["sent"] if s[0] in keys]
+        if len(dense_sent) < len(keys) * ROWSPARSE_STEPS or not all(s[2] for s in dense_sent):
+            bad.append(f"host {h}: {sum(s[2] for s in dense_sent)} of {len(dense_sent)} dense "
+                       "pushes carried LOSSLESS_FLAG")
+        r["wire"] = {}
+        for key, ver, _, nbytes in dense_sent:
+            r["wire"][ver] = r["wire"].get(ver, 0) + nbytes
+    if results[0]["digest"] != results[1]["digest"]:
+        bad.append("the hosts' parameters after the last step are not bitwise equal")
+    if any(x is None for x in report):
+        bad.append(f"a server logged no stop report: {report}")
+    for r in results:
+        n, raw = r["rows"], r["raw"]
+        rs_bytes = 8 + 4 * n + 4 * r["row_len"] * n
+        print(f"{label} host {r['host']}: {n} of {r['total_rows']} rows touched by its "
+              f"{HYBRID_BATCH}x{SEQ} tokens; row-sparse payload {rs_bytes} bytes a "
+              f"step against the dense {raw} ({raw / rs_bytes:.2f}x); the dense "
+              f"push on the wire {[r['wire'][v] for v in sorted(r['wire'])]} bytes a step "
+              f"({[round(r['wire'][v] / raw, 4) for v in sorted(r['wire'])]} of raw); probe "
+              f"entropy {min(r['entropy'].values()):.3f}-{max(r['entropy'].values()):.3f} "
+              f"bits a byte over {len(r['entropy'])} partitions; losses "
+              f"{[round(s['loss'], 4) for s in r['steps']]}; ms a step "
+              f"{[round(s['ms'], 1) for s in r['steps']]} (dense push_pull "
+              f"{[round(s['dense_ms'], 1) for s in r['steps']]}, row-sparse "
+              f"{[round(s['rows_ms'], 1) for s in r['steps']]}); rows bitwise "
+              f"{all(s['same'] for s in r['steps'])}; on {card}", flush=True)
+    for line in _server_lines(report):
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: hosts' parameters bitwise equal "
+          f"{results[0]['digest'] == results[1]['digest']}; phase wall "
+          f"{time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return results[0]["steps"][-1]["launches"]
+
+
+def train_data_plane(card: str) -> dict:
+    """Phase (f): the vans (f1), then row-sparse and the lossless arm (f2).
+    Returns each stage's kernel launches a step."""
+    return {"vans": train_vans(card), "rowsparse": train_rowsparse(card)}
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -4857,12 +5182,17 @@ def main() -> None:
 
     walls = {}
     last = [time.perf_counter()]
+    # a phase that runs past PHASE_STALL_S is hung: every thread's stack goes
+    # to stderr and the script exits non-zero, rather than spend the rest
+    # of its time limit waiting
+    faulthandler.dump_traceback_later(PHASE_STALL_S, exit=True)
 
     def mark(name: str) -> None:
         # each phase's wall seconds, for the summary before the kernels line
         now = time.perf_counter()
         walls[name] = round(now - last[0], 1)
         last[0] = now
+        faulthandler.dump_traceback_later(PHASE_STALL_S, exit=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4893,6 +5223,8 @@ def main() -> None:
     mark("control plane (e)")
     planes["fusion"] = train_fusion(card)
     mark("fusion")
+    planes.update(train_data_plane(card))
+    mark("data plane (f)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)
@@ -4910,6 +5242,7 @@ def main() -> None:
     check_int8_ring_ops()
     check_step_builders(card)
     mark("int8 ops, step builders")
+    faulthandler.cancel_dump_traceback_later()
     print(f"phase walls (s): {json.dumps(walls)}; total {sum(walls.values()):.1f} s", flush=True)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
@@ -4991,5 +5324,7 @@ if __name__ == "__main__":
         elastic_host(sys.argv[2])  # one host of phase (c), elastic membership
     elif sys.argv[1:2] == ["--control-host"]:
         control_host(sys.argv[2])  # one host of phase (e), the control plane
+    elif sys.argv[1:2] == ["--rowsparse-host"]:
+        rowsparse_host(sys.argv[2])  # one host of phase (f2), row-sparse
     else:
         main()

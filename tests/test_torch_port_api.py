@@ -104,20 +104,45 @@ def test_init_brings_up_the_group_from_the_rendezvous_at_local_size_one(monkeypa
 
 
 @pytest.mark.parametrize("env", [
-    {"DMLC_NUM_WORKER": "2", "BYTEPS_WIRE_LOSSLESS": "1"},
+    {"BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_WIRE_LOSSLESS": "1"},
     {"BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_VAN": "shm"},
     {"DMLC_ROLE": "server"},
 ])
 def test_distributed_topology_raises(monkeypatch, env):
-    """A distributed worker that asks for an unported plane raises before it
-    dials anything; init() of a server or scheduler role points at the
-    process entry that runs it."""
+    """init() of a server or scheduler role raises, pointing at the process
+    entry that runs it.  A distributed worker with lossless frames or the
+    shm van (planes that raised before they were ported) inits against a
+    fleet of the port on that van and pushes through it."""
+    import tempfile
+    import threading
+
+    from byteps_tpu_torch.comm.rendezvous import Scheduler
+    from byteps_tpu_torch.server.server import PSServer
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises((NotImplementedError, ValueError),
-                       match="ROADMAP.md Queue 1b|python -m byteps_tpu_torch.server"):
+    if env.get("DMLC_ROLE") == "server":
+        with pytest.raises(ValueError, match="python -m byteps_tpu_torch.server"):
+            bps.init(device="cpu")
+        assert not port_state.get_state().initialized
+        return
+    monkeypatch.setenv("BYTEPS_SOCKET_PATH", tempfile.mkdtemp(dir="/tmp"))
+    sched = Scheduler(1, 1, host="127.0.0.1")
+    sched.start()
+    for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(sched.port),
+                 "DMLC_NUM_SERVER": "1"}.items():
+        monkeypatch.setenv(k, v)
+    srv = PSServer(port_config.Config.from_env())
+    threading.Thread(target=srv.start, daemon=True).start()
+    try:
         bps.init(device="cpu")
-    assert not port_state.get_state().initialized
+        x = torch.linspace(-1.0, 2.0, 4096)
+        assert torch.equal(bps.push_pull(x, name="topology.grad"), x)
+        bps.shutdown()
+    finally:
+        srv.stop()
+        sched.stop()
+    assert srv.host.startswith("shm+unix://") == (env.get("BYTEPS_VAN") == "shm")
 
 
 def test_distributed_init_against_a_fake_cluster(monkeypatch):
@@ -391,6 +416,33 @@ def test_import_loads_neither_jax_nor_byteps_tpu():
             opened += [ln.split()[-1] for ln in f if len(ln.split()) >= 6]
         bad = [p for p in opened if os.path.abspath(p).startswith(ref)]
         assert not bad, bad
+    """)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("entry", ["byteps_tpu_torch.server.__main__",
+                                   "byteps_tpu_torch.launcher.launch",
+                                   "byteps_tpu_torch.server.native"])
+def test_a_server_or_launcher_process_starts_without_torch(entry):
+    """The package's names load on first use: the server and scheduler
+    entry, the C++ server's wrapper and the launcher import no torch, so
+    each fleet's processes start without its import; the public names
+    still resolve, and an unknown one raises AttributeError."""
+    code = textwrap.dedent(f"""
+        import sys
+        import {entry}
+        assert "torch" not in sys.modules, "{entry} imported torch"
+        import byteps_tpu_torch as bps
+        assert "torch" not in sys.modules
+        assert callable(bps.push_pull) and bps.parallel.DistributedDataParallel
+        assert "torch" in sys.modules
+        try:
+            bps.no_such_name
+        except AttributeError:
+            pass
+        else:
+            raise AssertionError("an unknown name resolved")
+        assert sorted(set(bps.__all__) - set(dir(bps))) == []
     """)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

@@ -560,15 +560,29 @@ def test_a_fleet_codec_off_and_its_rollback_touch_only_the_fleets_keys():
     assert counters().snapshot_labeled()["tune_codec_off"]['{codec="topk"}'] >= 1
 
 
-def test_the_port_ignores_codec_lossless():
-    """Lossless frames are not ported (P11): the section's codec_lossless
-    changes nothing, as the reference's engine ignores it with
-    ``BYTEPS_WIRE_LOSSLESS`` off."""
-    eng = _engine("port")
-    eng._codec_names = {1: "topk"}
-    eng._compression_auto_off.add(1)
-    eng._apply_tuning({"epoch": 1, "codec_lossless": ["topk"]})
-    assert eng._compression_auto_off == {1} and not hasattr(eng, "_lossless_keys")
+def test_the_port_ignores_codec_lossless(monkeypatch):
+    """With ``BYTEPS_WIRE_LOSSLESS`` off both engines ignore a section's
+    codec_lossless; with it on both put exactly the named codec's off keys
+    in the lossless arm, and a rollback takes exactly those out (a key
+    the probe put there stays)."""
+    got = {}
+    for pkg in PKGS:
+        row = []
+        for switch in ("0", "1"):
+            monkeypatch.setenv("BYTEPS_WIRE_LOSSLESS", switch)
+            eng = _engine(pkg)
+            eng._codec_names = {1: "topk", 2: "topk", 3: "topk", 4: "onebit"}
+            eng._compression_auto_off.update({1, 2, 4})
+            eng._lossless_keys.add(2)  # a probe's verdict
+            eng._apply_tuning({"epoch": 1, "codec_lossless": ["topk"]})
+            adopted = (set(eng._lossless_keys), dict(eng._fleet_codec_lossless))
+            eng._apply_tuning({"epoch": 2})
+            row.append((adopted, set(eng._lossless_keys), set(eng._compression_auto_off)))
+        got[pkg] = row
+    assert got["port"] == got["ref"] == [
+        (({2}, {}), {2}, {1, 2, 4}),
+        (({1, 2}, {"topk": {1}}), {2}, {1, 2, 4}),
+    ]
 
 
 # --- the server's hot report ----------------------------------------------

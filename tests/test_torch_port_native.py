@@ -18,8 +18,9 @@ by g++ from byteps_tpu_torch/native/csrc) against byteps_tpu's.
   its sum.
 - Without a compiler the native knobs raise; nothing serves or trains on
   the Python lanes instead.  The native knobs no longer raise as unported
-  planes; the uds and shm vans still do, and the chaos van around tcp
-  makes a native server publish a ``chaos+`` address.
+  planes; under the uds and shm vans a native server listens on a Unix
+  socket and publishes its van's address, and the chaos van around any of
+  them makes it publish a ``chaos+`` address.
 - Server processes under BYTEPS_SERVER_NATIVE=1 and a worker under
   BYTEPS_NATIVE_CLIENT=1 map no file of byteps_tpu/.
 """
@@ -463,12 +464,23 @@ def test_the_native_knobs_are_ported_and_the_vans_are_not(monkeypatch):
     port_config.check_unported_env()
     cfg = PortConfig.from_env()
     assert cfg.native_client and cfg.server_native
-    for van in ("uds", "shm", "chaos:uds", "chaos:shm"):
+    import tempfile
+
+    monkeypatch.setenv("BYTEPS_SOCKET_PATH", tempfile.mkdtemp(dir="/tmp"))
+    # the vans were refused before they were ported: now the engine starts
+    # on a Unix socket, publishes its van's address and removes the
+    # socket file when it stops
+    for van, scheme in (("uds", "unix://"), ("shm", "shm+unix://"),
+                        ("chaos:uds", "chaos+unix://"), ("chaos:shm", "chaos+shm+unix://")):
         monkeypatch.setenv("BYTEPS_VAN", van)
-        with pytest.raises(NotImplementedError, match="Queue 1b item P8"):
-            port_config.check_unported_env()
-        with pytest.raises(NotImplementedError, match="Queue 1b item P8"):
-            NativePSServer(PortConfig.from_env())
+        port_config.check_unported_env()
+        srv = NativePSServer(PortConfig.from_env())
+        path = srv.host[len(scheme):]
+        try:
+            assert srv.host.startswith(scheme) and srv.port == 0 and os.path.exists(path)
+        finally:
+            srv.stop()
+        assert not os.path.exists(path)
     # the chaos van around tcp is ported: the C++ engine's listener stays
     # plain and its published address carries the prefix, as the
     # reference's does, so the workers fault their own side

@@ -3,7 +3,8 @@ CRC32C), the key->server map and the partitioner, and whole fleets mixing
 the two packages.  The same seeded pushes from {port worker, byteps_tpu
 worker} x {port server, byteps_tpu PSServer, byteps_tpu NativePSServer}
 give the same pulls bit for bit; a tiny model trains through port and
-reference servers to the same losses; every unported plane raises.
+reference servers to the same losses; the planes that raised before they
+were ported (the uds and shm vans, lossless frames, row-sparse) work.
 
 Every listener binds port 0.  Onebit inputs are +-2^-k, so each scale
 (a mean of |x|) is exact whatever the order or width of its sum, and the
@@ -127,13 +128,20 @@ def test_crc32c_matches_the_reference_chained(n):
 
 
 def test_received_frames_the_port_does_not_serve_fail_loudly():
-    """A lossless container raises after the frame is consumed, so the
-    stream stays framed; a corrupt checksum raises ChecksumError."""
+    """A lossless container is decoded on receipt; one that does not decode
+    raises LosslessError after the frame is consumed, so the stream stays
+    framed; a corrupt checksum raises ChecksumError."""
     a, b = socket.socketpair()
     try:
-        ptr.send_message(a, ptr.Message(ptr.Op.PULL, payload=b"xyz", status=ptr.LOSSLESS_FLAG))
+        body = b"lossless " * 40
+        ptr.send_message(a, ptr.Message(ptr.Op.PULL, payload=body, lossless=True))
+        bad = bytearray(ptr.Message(ptr.Op.PULL, payload=body, lossless=True).encode())
+        bad[ptr.HEADER_SIZE + 4] ^= 0xFF  # the container's version byte
+        a.sendall(bytes(bad))
         ptr.send_message(a, ptr.Message(ptr.Op.PUSH, key=5, payload=b"ok", checksum=True))
-        with pytest.raises(ptr.UnsupportedFrameError, match="lossless"):
+        got = ptr.recv_message(b)
+        assert got.payload == body and got.status == 0
+        with pytest.raises(ptr.LosslessError, match="unknown container version"):
             ptr.recv_message(b)
         assert ptr.recv_message(b).payload == b"ok"
         frame = bytearray(ptr.Message(ptr.Op.PUSH, payload=b"abcd", checksum=True).encode())
@@ -429,7 +437,7 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
     assert port[2] < port[0]
 
 
-# --- planes that are not ported ---------------------------------------------
+# --- planes that raised before they were ported -----------------------------
 
 
 @pytest.mark.parametrize("knob", [
@@ -438,16 +446,24 @@ def test_tiny_model_trains_the_same_through_port_and_reference_servers(monkeypat
     "BYTEPS_WIRE_LOSSLESS=1",
 ])
 def test_unported_environment_planes_raise(monkeypatch, knob):
-    """At init() of a distributed worker, before it dials anything, and at
-    the construction of a port server."""
+    """These knobs raised at init() and at a port server's construction
+    before the vans and lossless frames were ported: now a port server
+    publishes its van's address and a worker's pushes come back bitwise
+    through it (a 4 MB tensor, which wraps a 512 KiB shm ring)."""
+    import tempfile
+
     name, value = knob.split("=")
-    monkeypatch.setenv(name, value)
-    monkeypatch.setenv("BYTEPS_FORCE_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1b"):
+    monkeypatch.setenv("BYTEPS_SOCKET_PATH", tempfile.mkdtemp(dir="/tmp"))
+    port_config.check_unported_env()
+    scheme = {"shm": "shm+unix://", "uds": "unix://"}.get(value.split(":")[-1], "")
+    with _cluster(monkeypatch, "port", servers=1, **{name: value}) as nodes:
+        assert nodes[0].host.startswith(("chaos+" if "chaos" in value else "") + scheme)
         pbps.init(device="cpu")
-    assert not port_state.get_state().initialized
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1b"):
-        PortServer(PortConfig.from_env())
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(1 << 20)
+                             .astype(np.float32))
+        for _ in range(2):
+            assert torch.equal(pbps.push_pull(x, name=f"knob.{value}", average=False), x)
+        pbps.shutdown()
 
 
 @pytest.mark.parametrize("knob", [
@@ -494,9 +510,16 @@ def test_the_rpc_knobs_and_the_chaos_van_are_ported(monkeypatch, knob):
 
 
 def test_unported_entry_points_raise():
+    """Row-sparse push_pull raised before it was ported: with one worker it
+    scatter-adds and gathers as the reference does, duplicates summed."""
+    idx = np.array([0, 3, 0])
+    vals = np.arange(6, dtype=np.float32).reshape(3, 2)
     pbps.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="row-sparse"):
-        pbps.push_pull_rowsparse(np.array([0]), np.ones((1, 2), np.float32), "e", 4)
+    jbps.init()
+    want = jbps.push_pull_rowsparse(idx, vals, "e", 4)
+    np.testing.assert_array_equal(pbps.push_pull_rowsparse(idx, vals, "e", 4), want)
+    out = pbps.push_pull_rowsparse(torch.from_numpy(idx), torch.from_numpy(vals), "e", 4)
+    assert isinstance(out, torch.Tensor) and np.array_equal(out.numpy(), want)
 
 
 def _fake_server(reply_op):

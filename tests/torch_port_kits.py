@@ -6,8 +6,12 @@ and holds both to the same exact results."""
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
+import os
 import socket
+import tempfile
 import threading
 import time
 import types
@@ -270,3 +274,45 @@ class RawNode:
     def close(self) -> None:
         self.beating = False
         self.k.tr.close_socket(self.sock)
+
+
+@contextlib.contextmanager
+def fleet(monkeypatch, server: str, workers: int = 1, servers: int = 2, **extra):
+    """A scheduler and ``servers`` servers in-process, yielded as the server
+    list: ``server`` is "port", "port-native", "ref" or "ref-native" (the
+    scheduler is of the servers' package).  Every socket file goes under a
+    fresh short directory (``BYTEPS_SOCKET_PATH``: an AF_UNIX path has at
+    most 107 bytes); when the fleet stops, :func:`assert_no_leftovers`
+    holds it to leaving neither a socket file nor a ring behind."""
+    pkg, native = server.split("-")[0], server.endswith("-native")
+    k = kit(pkg)
+    sock_dir = tempfile.mkdtemp(dir="/tmp", prefix="bps")
+    monkeypatch.setenv("BYTEPS_SOCKET_PATH", sock_dir)
+    sched = k.Scheduler(num_workers=workers, num_servers=servers, host="127.0.0.1")
+    sched.start()
+    env(monkeypatch, sched, workers, servers, **extra)
+    nodes = []
+    try:
+        for _ in range(servers):
+            if native and pkg == "port":
+                from byteps_tpu_torch.server.native import NativePSServer
+            elif native:
+                from byteps_tpu.server.server import NativePSServer
+            node = (NativePSServer if native else k.PSServer)(k.Config.from_env())
+            nodes.append(node)
+            threading.Thread(target=node.start, daemon=True).start()
+        yield nodes
+    finally:
+        for node in nodes:
+            node.stop()
+        sched.stop()
+    assert_no_leftovers(sock_dir)
+
+
+def assert_no_leftovers(sock_dir: str) -> None:
+    """No socket file left in ``sock_dir``, and no ring file of this
+    process in /dev/shm."""
+    assert wait(lambda: not os.listdir(sock_dir), 5.0), os.listdir(sock_dir)
+    rings = lambda: glob.glob(f"/dev/shm/byteps_ring_*_{os.getpid()}_*")  # noqa: E731
+    assert wait(lambda: not rings(), 5.0), rings()
+    os.rmdir(sock_dir)
