@@ -79,6 +79,23 @@ def test_the_codec_is_bitwise_the_reference(name):
     assert pl.byte_entropy(data, limit=0) == rl.byte_entropy(data, limit=0)
 
 
+def _reference_fixtures() -> list:
+    import test_lossless
+
+    return test_lossless._cases()
+
+
+@pytest.mark.parametrize("name,data", _reference_fixtures(),
+                         ids=[n for n, _ in _reference_fixtures()])
+def test_the_reference_fixtures_compress_bitwise(name, data):
+    """``tests/test_lossless.py``'s own fixtures: the same containers from
+    the port's C++ and plain version as from the reference, each
+    decoding back."""
+    blob = rl.compress_frame(data)
+    assert pl.compress_frame(data) == pl.compress_frame_plain(data) == blob
+    assert pl.decompress_frame(blob) == data
+
+
 def test_the_constants_and_the_cutoff_are_the_reference(monkeypatch):
     for name in ("MAGIC", "VERSION", "METHOD_STORE", "METHOD_LZ", "HEADER_SIZE", "MIN_BYTES"):
         assert getattr(pl, name) == getattr(rl, name)

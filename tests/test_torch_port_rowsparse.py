@@ -237,7 +237,8 @@ def _rs_body(idx, vals=None) -> bytes:
 @pytest.mark.parametrize("pkg", ["port", "ref"])
 def test_a_replayed_push_is_summed_once_and_rows_reset(pkg):
     """A resent push (same worker, same round) is acked and not summed
-    again; the next round starts with every row at zero."""
+    again; the next round starts with every row at zero; a RESYNC_QUERY
+    reports the key's rounds and the worker's last push."""
     import test_torch_port_reshard as rs
 
     srv = rs.wire_server(pkg, reshard=False)
@@ -261,6 +262,12 @@ def test_a_replayed_push_is_summed_once_and_rows_reset(pkg):
         rows = np.frombuffer(ptr.recv_message(w).payload, np.float32).reshape(3, WIDTH)
         np.testing.assert_array_equal(rows[:, 0], [0.0, 0.0, 1.5])
         assert srv._keys[1 << 16].push_seen == {1: 2}
+        # the recovery plane reads a row-sparse key as any other
+        ptr.send_message(w, ptr.Message(ptr.Op.RESYNC_QUERY, seq=6, payload=(
+            ptr.encode_resync_query(1, [1 << 16]))))
+        state = ptr.decode_resync_state(ptr.recv_message(w).payload)
+        assert state == {1 << 16: {"store_version": 2, "seen": 2, "recv_count": 0,
+                                   "init": True}}
     finally:
         ptr.close_socket(w)
         srv.stop()
