@@ -1800,7 +1800,12 @@ def _serve_until_signaled(node) -> None:
 
 
 def run_server() -> None:
-    """Process entry: become the scheduler or a server per DMLC_ROLE."""
+    """Process entry: become the scheduler or a server per DMLC_ROLE.  A
+    SIGUSR1 dumps every thread's stack to stderr (a launcher's view of a
+    stalled node)."""
+    import faulthandler
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     cfg = Config.from_env()
     check_unported_env()
     if cfg.role == "scheduler":

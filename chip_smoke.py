@@ -194,6 +194,7 @@ import json
 import math
 import os
 import pickle
+import signal
 import subprocess
 import sys
 import tempfile
@@ -963,19 +964,20 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
     with socket.socket() as probe:
         probe.bind(("127.0.0.1", 0))
         port = str(probe.getsockname()[1])
-    procs = [subprocess.Popen(
+    procs = [_track(subprocess.Popen(
         [sys.executable, *(sched_args or ["-m", "byteps_tpu_torch.server"])], cwd=REPO,
         env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
         stdout=subprocess.PIPE, text=True,
-    )]
+    ), "scheduler", node=True)]
     for i in range(2):
-        with open(os.path.join(log_dir, f"server{i}.log"), "w") as log:
-            procs.append(subprocess.Popen(
+        path = os.path.join(log_dir, f"server{i}.log")
+        with open(path, "w") as log:
+            procs.append(_track(subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
                 env={"BYTEPS_CONNECT_RETRY_S": "60", **env, **(server_env or {}),
                      "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
                 stdout=subprocess.PIPE, stderr=log, text=True,
-            ))
+            ), f"server {i}", path, node=True))
     line = procs[0].stdout.readline().strip()
     if line != f"BYTEPS_SCHEDULER_PORT={port}":
         for p in procs:
@@ -992,12 +994,96 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
     return port, procs
 
 
+#: the fleet processes now running: Popen -> (name, the file its stderr
+#: goes to or None when it is this script's, whether it is a server or a
+#: scheduler, which dump their threads' stacks on SIGUSR1)
+_FLEET: dict = {}
+
+
+def _track(proc, name: str, log: str = None, node: bool = False):
+    """Register a fleet process, so that a phase that fails or stalls prints
+    its log's tail (``_fleet_tails``); returns ``proc``."""
+    _FLEET[proc] = (name, log, node)
+    return proc
+
+
+def _fleet_tails(why: str, procs=None, nbytes: int = 6000) -> None:
+    """The tail of each tracked process's log (of ``procs`` when given) on
+    stderr: what a failed or stalled phase's servers said."""
+    for proc, (name, log, _node) in list(_FLEET.items()):
+        if procs is not None and proc not in procs:
+            continue
+        head = f"--- {why}: {name} (pid {proc.pid}, exit {proc.poll()})"
+        if log is None:
+            print(f"{head}: its stderr is this script's", file=sys.stderr, flush=True)
+            continue
+        try:
+            with open(log, errors="replace") as f:
+                text = f.read()[-nbytes:]
+        except OSError as e:
+            text = f"(unreadable: {e})"
+        print(f"{head}, the tail of {os.path.basename(log)}:\n{text}", file=sys.stderr,
+              flush=True)
+
+
 def _stop_processes(procs) -> None:
     """The launcher's stop, with 30 s a process: a server logs its summed
-    pushes and rounds and its histograms (``_server_report``) as it stops."""
+    pushes and rounds and its histograms (``_server_report``) as it stops.
+    Called while an exception propagates (a phase raised or failed), it
+    prints each stopped process's log tail first, while the phase's
+    temporary directory still holds the logs."""
     from byteps_tpu_torch.launcher.launch import stop_processes
 
+    failing = sys.exc_info()[0] is not None
     stop_processes(procs, timeout=30)
+    if failing:
+        _fleet_tails("a phase failed", procs)
+    for p in procs:
+        _FLEET.pop(p, None)
+
+
+def _stall() -> None:
+    """A phase ran past PHASE_STALL_S: this process's stacks, each live
+    server's and scheduler's (SIGUSR1, into its log or this stderr), and
+    every fleet log's tail go to stderr; the fleet is killed, and the
+    script exits 1."""
+    print(f"chip_smoke: FAIL: a phase ran past {PHASE_STALL_S} s; the stacks follow",
+          file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(all_threads=True)
+    for proc, (_name, _log, node) in list(_FLEET.items()):
+        if node and proc.poll() is None:
+            proc.send_signal(signal.SIGUSR1)
+    time.sleep(3)
+    _fleet_tails("a phase stalled")
+    for proc in list(_FLEET):
+        if proc.poll() is None:
+            proc.kill()
+    sys.stderr.flush()
+    os._exit(1)
+
+
+class _Watchdog:
+    """Calls ``_stall`` once a phase has run PHASE_STALL_S; ``arm`` starts a
+    phase's clock.  A C-level dump 60 s later backs it up, for a stall
+    that holds the interpreter lock."""
+
+    def __init__(self) -> None:
+        self._deadline = None
+        threading.Thread(target=self._loop, name="chip-smoke-watchdog", daemon=True).start()
+
+    def arm(self) -> None:
+        self._deadline = time.monotonic() + PHASE_STALL_S
+        faulthandler.dump_traceback_later(PHASE_STALL_S + 60, exit=True)
+
+    def cancel(self) -> None:
+        self._deadline = None
+        faulthandler.cancel_dump_traceback_later()
+
+    def _loop(self) -> None:
+        while True:
+            time.sleep(1)
+            if self._deadline is not None and time.monotonic() > self._deadline:
+                _stall()
 
 
 @contextlib.contextmanager
@@ -2327,13 +2413,14 @@ def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
     hosts = []
     try:
         for h in range(HYBRID_HOSTS):
-            with open(os.path.join(work, f"host{h}.log"), "w") as log:
-                hosts.append(subprocess.Popen(
+            path = os.path.join(work, f"host{h}.log")
+            with open(path, "w") as log:
+                hosts.append(_track(subprocess.Popen(
                     [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                      sys.executable, os.path.join(REPO, "chip_smoke.py"), flag, work],
                     cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
                                    **(host_env(h, server_ports) if host_env else {})},
-                    stdout=log, stderr=subprocess.STDOUT))
+                    stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
             if any(p.poll() not in (None, 0) for p in hosts):
@@ -3506,7 +3593,6 @@ def elastic_host(work: str) -> None:
     it.  The cues go through ``work`` (``_mark``); each host writes
     <dir>/elastic<h>.json (host 1 before it dies)."""
     import copy
-    import signal
 
     import torch
 
@@ -3713,7 +3799,6 @@ def train_elastic(card: str) -> dict:
     reconnected and rejoined with no eviction and a newer epoch, and host
     0's step after host 1's death completed with the eviction counted.
     Returns host 0's launches a step at the first stage."""
-    import signal
 
     label = "elastic"
     wall = time.perf_counter()
@@ -3726,34 +3811,37 @@ def train_elastic(card: str) -> dict:
     with tempfile.TemporaryDirectory() as work:
         port, procs = _start_ps_processes(env, work)
 
-        def waiting(role: str, go: str, **popen_kw) -> subprocess.Popen:
+        def waiting(role: str, go: str, log: str = None, **popen_kw) -> subprocess.Popen:
             """A node of ``role`` with its imports done, started when ``go``
             exists: the third server registers at once when host 0's
             resize asks for it, the scheduler's successor binds the port
             at once when its predecessor died."""
-            return subprocess.Popen(
+            return _track(subprocess.Popen(
                 [sys.executable, "-c",
                  "import os, sys, time\n"
                  "from byteps_tpu_torch.server.server import run_server\n"
                  "while not os.path.exists(sys.argv[1]):\n    time.sleep(0.02)\n"
                  "run_server()\n", go],
                 cwd=REPO, env={**env, "DMLC_ROLE": role, "DMLC_PS_ROOT_PORT": port},
-                **popen_kw)
+                **popen_kw), f"waiting {role}", log, node=True)
 
         go_server, go_sched = os.path.join(work, "server2.go"), os.path.join(work, "sched.go")
-        with open(os.path.join(work, "server2.log"), "w") as log:
-            spare = waiting("server", go_server, stdout=subprocess.DEVNULL, stderr=log)
+        spare_log = os.path.join(work, "server2.log")
+        with open(spare_log, "w") as log:
+            spare = waiting("server", go_server, spare_log, stdout=subprocess.DEVNULL,
+                            stderr=log)
         restarted = waiting("scheduler", go_sched, stdout=subprocess.PIPE, text=True)
         hosts = []
         try:
             for h in range(HYBRID_HOSTS):
-                with open(os.path.join(work, f"host{h}.log"), "w") as log:
-                    hosts.append(subprocess.Popen(
+                path = os.path.join(work, f"host{h}.log")
+                with open(path, "w") as log:
+                    hosts.append(_track(subprocess.Popen(
                         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                          sys.executable, os.path.join(REPO, "chip_smoke.py"), "--elastic-host",
                          work],
                         cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
-                        stdout=log, stderr=subprocess.STDOUT))
+                        stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
 
             def watch(name: str) -> dict:
                 path = os.path.join(work, f"{name}.mark")
@@ -3919,7 +4007,7 @@ def _waiting_server(env: dict, go: str, log) -> subprocess.Popen:
     """A server process that imports, prints "ready", and starts when the
     file ``go`` exists (its scheduler's port in it): it registers at once
     when a resize asks for it."""
-    return subprocess.Popen(
+    return _track(subprocess.Popen(
         [sys.executable, "-c",
          "import os, sys, time\n"
          "from byteps_tpu_torch.server.server import run_server\n"
@@ -3928,7 +4016,7 @@ def _waiting_server(env: dict, go: str, log) -> subprocess.Popen:
          "with open(sys.argv[1]) as f:\n    os.environ['DMLC_PS_ROOT_PORT'] = f.read()\n"
          "run_server()\n", go],
         cwd=REPO, env={**env, "DMLC_ROLE": "server", "DMLC_NUM_SERVER": "3"},
-        stdout=subprocess.PIPE, stderr=log, text=True)
+        stdout=subprocess.PIPE, stderr=log, text=True), "waiting server", log.name, node=True)
 
 
 def _waves(log_dir: str) -> list:
@@ -4525,7 +4613,6 @@ def _control_stage2(card: str) -> dict:
     two hosts' decoded pushes, the successor's first books carried the
     same tuning section and overrides, no wave after the restart shipped a
     key, and a decision bundle was written for each action."""
-    import signal
 
     from byteps_tpu_torch.compression.impl import TopKCompressor
 
@@ -4547,20 +4634,21 @@ def _control_stage2(card: str) -> dict:
             sched_args=["-c", CONTROL_SCHED, "", tuner_go, sweeps])
         # the successor: imported already, it binds the port once its go
         # file exists, with no forced action, its tuner sweeping at once
-        successor = subprocess.Popen(
+        successor = _track(subprocess.Popen(
             [sys.executable, "-c", CONTROL_SCHED, sched_go, sched_go, sweeps], cwd=REPO,
             env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
-            stdout=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, text=True), "successor scheduler", node=True)
         hosts = []
         try:
             for h in range(HYBRID_HOSTS):
-                with open(os.path.join(work, f"host{h}.log"), "w") as log:
-                    hosts.append(subprocess.Popen(
+                path = os.path.join(work, f"host{h}.log")
+                with open(path, "w") as log:
+                    hosts.append(_track(subprocess.Popen(
                         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                          sys.executable, os.path.join(REPO, "chip_smoke.py"), "--control-host",
                          work],
                         cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
-                        stdout=log, stderr=subprocess.STDOUT))
+                        stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
 
             def cue(name: str) -> bool:
                 deadline = time.monotonic() + 300
@@ -5182,17 +5270,19 @@ def main() -> None:
 
     walls = {}
     last = [time.perf_counter()]
-    # a phase that runs past PHASE_STALL_S is hung: every thread's stack goes
-    # to stderr and the script exits non-zero, rather than spend the rest
-    # of its time limit waiting
-    faulthandler.dump_traceback_later(PHASE_STALL_S, exit=True)
+    # a phase that runs past PHASE_STALL_S is hung: every thread's stack, the
+    # servers' and schedulers' stacks and the fleet's logs go to stderr, and
+    # the script exits non-zero, rather than spend the rest of its time
+    # limit waiting
+    watchdog = _Watchdog()
+    watchdog.arm()
 
     def mark(name: str) -> None:
         # each phase's wall seconds, for the summary before the kernels line
         now = time.perf_counter()
         walls[name] = round(now - last[0], 1)
         last[0] = now
-        faulthandler.dump_traceback_later(PHASE_STALL_S, exit=True)
+        watchdog.arm()
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5242,7 +5332,7 @@ def main() -> None:
     check_int8_ring_ops()
     check_step_builders(card)
     mark("int8 ops, step builders")
-    faulthandler.cancel_dump_traceback_later()
+    watchdog.cancel()
     print(f"phase walls (s): {json.dumps(walls)}; total {sum(walls.values()):.1f} s", flush=True)
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
