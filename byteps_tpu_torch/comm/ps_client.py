@@ -126,7 +126,7 @@ import numpy as np
 
 from byteps_tpu_torch.common.config import Config
 from byteps_tpu_torch.common.hashing import OwnershipMap, assign_server
-from byteps_tpu_torch.common.types import RequestType, get_command_type
+from byteps_tpu_torch.common.types import RequestType, get_command_type, job_of_key
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX
 from byteps_tpu_torch.compression.lossless import LosslessError, decompress_frame
@@ -152,7 +152,7 @@ from byteps_tpu_torch.comm.transport import (
     recv_message,
     send_message,
 )
-from byteps_tpu_torch.core.telemetry import counters, metrics
+from byteps_tpu_torch.core.telemetry import counters, job_labels, metrics
 from byteps_tpu_torch.server.update_rules import canonical_hp
 
 #: pull callbacks receive this instead of bytes when the reply landed in
@@ -512,7 +512,7 @@ class PSClient:
             "role": "worker", "host": "", "port": 0, "uid": self.node_uid,
             "num_workers": self.cfg.num_worker,
             "num_servers": self.cfg.num_server,
-            "job": self.cfg.job_id, "job_priority": 1, "job_quota_mbps": 0.0,
+            **self._job_fields(),
         }).encode()))
         resp = recv_message(self._sched)
         if resp.status != 0:
@@ -538,6 +538,12 @@ class PSClient:
             threading.Thread(target=self._heartbeat_loop, args=(self.cfg.heartbeat_interval,),
                              name="bps-heartbeat", daemon=True).start()
         self.barrier(GROUP_ALL)
+
+    def _job_fields(self) -> dict:
+        """The job and its declared share, in a REGISTER: the scheduler
+        builds the books' job map from them (weights and quotas)."""
+        return {"job": self.cfg.job_id, "job_priority": self.cfg.job_priority,
+                "job_quota_mbps": self.cfg.job_quota_mbps}
 
     def _book_num_workers(self, book: dict) -> int:
         """The worker count this worker averages over: its job's workers
@@ -920,7 +926,7 @@ class PSClient:
                 "num_workers": self.num_workers, "num_servers": self.num_servers,
                 "last_rank": self.rank, "epoch": self.membership_epoch,
                 "map_epoch": self._seen_map_epoch, "reconnect": True,
-                "job": self.cfg.job_id, "job_priority": 1, "job_quota_mbps": 0.0,
+                **self._job_fields(),
                 # a restarted scheduler's tuner takes up what the fleet runs
                 **({"tuning": rep} if (rep := self._tuning_report()) is not None else {}),
             }).encode()
@@ -1369,7 +1375,8 @@ class PSClient:
         sent again, without spending a retry, at most ``_max_chases``
         times; with ``chase`` off (a fused frame, whose members the new
         map may split) it fails the request.  Each attempt's round trip
-        is observed as ``rpc_round_trip_seconds{server}``."""
+        is observed as ``rpc_round_trip_seconds{server}`` (``{server,job}``
+        for a tenant)."""
         state = {"attempt": 0, "healed": False, "done": False, "chases": 0, "rank": None}
         backoff = Backoff(base=self.cfg.rpc_backoff_s, cap=2.0)
         sid = self._sid(key)
@@ -1470,8 +1477,9 @@ class PSClient:
                     terminal(f"server {sc.label} answered a {sent[0].name} request with "
                              f"{msg.op.name}")
                     return
+                # per server, and per job for a tenant (job 0 keeps its series)
                 metrics().observe("rpc_round_trip_seconds", time.monotonic() - sent[1],
-                                  labels={"server": sid})
+                                  labels={"server": sid, **(job_labels(self.cfg.job_id) or {})})
                 state["done"] = True
                 deliver(msg)
 
@@ -1728,6 +1736,9 @@ class PSClient:
                        "(the server's log says which failed)")
             elif async_profile:
                 why = "a per-key async profile needs Python-engine servers"
+            elif job_of_key(key):
+                why = (f"job {job_of_key(key)} keys need Python-engine servers (multi-tenant "
+                       "namespaces are rejected by the C++ engine) — see docs/async.md")
             else:
                 why = "the server refused the init"
             raise RuntimeError(f"server refused init for key {key} (status "

@@ -61,6 +61,15 @@ class Config:
     global_rank: Optional[int] = None  # BYTEPS_GLOBAL_RANK
     force_distributed: bool = False  # BYTEPS_FORCE_DISTRIBUTED
     job_id: int = 0  # BYTEPS_JOB_ID: key namespace of declared tensors
+    #: the job's weighted share of the stage queues and of a shared fleet's
+    #: engine queues (WFQ; higher = more service under contention)
+    job_priority: int = 1  # BYTEPS_JOB_PRIORITY, >= 1
+    #: the servers' admission quota for the job's request bytes, megabytes
+    #: a second over the fleet (0 = none): excess requests are deferred
+    job_quota_mbps: float = 0.0  # BYTEPS_JOB_QUOTA_MBPS
+    #: the job's in-flight byte budget in each stage queue (0 = only the
+    #: global BYTEPS_SCHEDULING_CREDIT)
+    job_credit_bytes: int = 0  # BYTEPS_JOB_CREDIT_BYTES
 
     # --- the PS plane ---
     num_server: int = 0  # DMLC_NUM_SERVER
@@ -191,6 +200,9 @@ class Config:
             ),
             force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
             job_id=min((1 << 16) - 1, max(0, _env_int("BYTEPS_JOB_ID", 0))),
+            job_priority=max(1, _env_int("BYTEPS_JOB_PRIORITY", 1)),
+            job_quota_mbps=max(0.0, float(os.environ.get("BYTEPS_JOB_QUOTA_MBPS", "0") or "0")),
+            job_credit_bytes=max(0, _env_int("BYTEPS_JOB_CREDIT_BYTES", 0)),
             num_server=_env_int("DMLC_NUM_SERVER", 0),
             ps_root_uri=os.environ.get("DMLC_PS_ROOT_URI") or "127.0.0.1",
             ps_root_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
@@ -260,15 +272,16 @@ def clear_config() -> None:
     _config = None
 
 
-#: planes of byteps_tpu this port does not carry yet (job namespaces, the
-#: flight recorder's upload, model parallelism), each with the ROADMAP.md
-#: item that brings it.
+#: planes of byteps_tpu this port does not carry yet (the flight
+#: recorder's upload and trigger rules, model parallelism), each with the
+#: ROADMAP.md item that brings it.
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
-    "tenancy": "multi-tenant job namespaces on the port's server: ROADMAP.md Queue 1b item P12",
     "flight_upload": "the flight recorder's bundle upload (BYTEPS_FLIGHT_UPLOAD): "
                      "ROADMAP.md Queue 1 item 10",
+    "slo_trigger": "the flight recorder's slo_breach trigger rule (BYTEPS_JOB_SLO_S), with "
+                   "its bundles: ROADMAP.md Queue 1 item 10",
     "model_parallel": "model parallelism (mesh axes other than dp): ROADMAP.md Queue 1 item 9",
 }
 
@@ -282,6 +295,7 @@ def unported(plane: str, what: str) -> NotImplementedError:
 #: it selected by this value)
 _UNPORTED_KNOBS = (
     ("BYTEPS_FLIGHT_UPLOAD", "flight_upload", truthy),
+    ("BYTEPS_JOB_SLO_S", "slo_trigger", lambda v: float(v) > 0),
 )
 
 

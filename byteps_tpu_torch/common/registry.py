@@ -14,12 +14,9 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional
 
-from byteps_tpu_torch.common.types import Partition
+from byteps_tpu_torch.common.types import JOB_SHIFT, MAX_JOB_ID, Partition
 
 MAX_PARTS_PER_TENSOR = 1 << 16
-#: bit position of the job id inside a wire key
-JOB_SHIFT = 48
-MAX_JOB_ID = (1 << 16) - 1
 
 
 def job_key(job: int, key: int) -> int:

@@ -144,6 +144,17 @@ class Partition:
     length: int
 
 
+#: bit position of the job id inside a wire key: [job 16][declared key
+#: 32][partition 16], job 0 the single-tenant namespace
+JOB_SHIFT = 48
+MAX_JOB_ID = (1 << 16) - 1
+
+
+def job_of_key(key: int) -> int:
+    """The job a wire key is namespaced under (0: the default)."""
+    return (key >> JOB_SHIFT) & MAX_JOB_ID
+
+
 @dataclasses.dataclass
 class TensorTableEntry:
     """One in-flight partition of a push_pull (common.h:221-264): the unit
@@ -177,6 +188,13 @@ class TensorTableEntry:
     #: a raw partition of a device-lane job: the host tensor its pull
     #: lands in, moved to the device in COPYH2D
     raw_out: Any = None
+    #: the job the key is namespaced under (its top 16 bits, unless given):
+    #: the stage queues' weighted fair queuing and per-job credits key on it
+    job: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.job is None:
+            self.job = job_of_key(self.key)
 
 
 class StatusType(enum.IntEnum):

@@ -153,8 +153,14 @@ from byteps_tpu_torch.common.types import (
     to_datatype,
 )
 from byteps_tpu_torch.core.ready_table import ReadyTable
-from byteps_tpu_torch.core.scheduler import ScheduledQueue
-from byteps_tpu_torch.core.telemetry import COUNT_BUCKETS, RATIO_BUCKETS, counters, metrics
+from byteps_tpu_torch.core.scheduler import ScheduledQueue, set_job_weight
+from byteps_tpu_torch.core.telemetry import (
+    COUNT_BUCKETS,
+    RATIO_BUCKETS,
+    counters,
+    job_labels,
+    metrics,
+)
 from byteps_tpu_torch.server.update_rules import parse_hp, rule_name
 
 
@@ -254,11 +260,13 @@ class _Fuser:
     def __init__(self, engine: "PipelineEngine") -> None:
         self._engine = engine
         self._cv = threading.Condition()
-        self._bufs: Dict[int, _FusionBuffer] = {}
+        #: (destination server, job) -> its pack: one frame never mixes
+        #: jobs, since a pack competes, spends credit and is metered as one
+        self._bufs: Dict[tuple, _FusionBuffer] = {}
         self._cycle_thread: Optional[threading.Thread] = None
 
     def add(self, task: TensorTableEntry, payload) -> None:
-        sid = self._engine.client.server_for(task.key)
+        sid = (self._engine.client.server_for(task.key), task.job)
         full = None
         with self._cv:
             buf = self._bufs.get(sid)
@@ -363,17 +371,22 @@ class PipelineEngine:
         self._seeded: set = set()
         disc = cfg.scheduling
         pool = max(1, cfg.threadpool_size)
+        # the process's job registers its weighted share of the stage
+        # queues, and its in-flight byte budget when it has one (with one
+        # job in a process the lanes change no order)
+        set_job_weight(cfg.job_id, max(1, cfg.job_priority))
+        job_credits = {cfg.job_id: cfg.job_credit_bytes} if cfg.job_credit_bytes > 0 else None
         self.queues: Dict[QueueType, Any] = {
             QueueType.COPYD2H: ScheduledQueue(QueueType.COPYD2H, discipline=disc),
             QueueType.COMPRESS: _StripedStage(QueueType.COMPRESS, pool),
             QueueType.PUSH: ScheduledQueue(
                 QueueType.PUSH, credit_bytes=cfg.scheduling_credit,
-                ready_table=self._push_ready, discipline=disc,
+                ready_table=self._push_ready, discipline=disc, job_credits=job_credits,
             ),
             # FUSE shares PUSH's round gate: a small partition passes it
             # where it leaves for the fusion buffer
             QueueType.FUSE: ScheduledQueue(QueueType.FUSE, ready_table=self._push_ready,
-                                           discipline=disc),
+                                           discipline=disc, job_credits=job_credits),
             QueueType.PULL: ScheduledQueue(QueueType.PULL, discipline=disc),
             QueueType.DECOMPRESS: _StripedStage(QueueType.DECOMPRESS, pool),
             QueueType.COPYH2D: ScheduledQueue(QueueType.COPYH2D, discipline=disc),
@@ -640,7 +653,15 @@ class PipelineEngine:
             self._step_open -= 1
             done = self._step_open == 0
             dur = time.monotonic() - self._step_t0
-        if done and self._flight is not None and self._flight.enabled:
+        if not done:
+            return
+        labels = job_labels(self.cfg.job_id)
+        if labels:
+            # the job's step times: the cluster aggregate's per-job p99
+            # and the live value (job 0 mints no series)
+            metrics().observe("job_step_seconds", dur, labels=labels)
+            metrics().gauge_set("job_step_last_seconds", dur, labels=labels)
+        if self._flight is not None and self._flight.enabled:
             self._flight.record_step(dur)
 
     def _loop(self, q: ScheduledQueue, fn) -> None:
@@ -1265,7 +1286,8 @@ class PipelineEngine:
                 for m, payload in members]
         counters().bump("fused_frames")
         counters().bump("fused_keys", len(members))
-        counters().bump("wire_tx_bytes", sum(memoryview(p).nbytes for *_, p in wire))
+        counters().bump("wire_tx_bytes", sum(memoryview(p).nbytes for *_, p in wire),
+                        labels=job_labels(group_task.job))
         if self._journal is not None:
             # each member on its own: a heal replays them as plain pushes,
             # which the server sums through the same replay ledger
@@ -1326,7 +1348,7 @@ class PipelineEngine:
         # there ships its container; wire_tx_bytes counts the raw bytes
         lossless = (rtype == RequestType.DEFAULT_PUSH_PULL and task.key in self._lossless_keys
                     ) or None
-        counters().bump("wire_tx_bytes", memoryview(payload).nbytes)
+        counters().bump("wire_tx_bytes", memoryview(payload).nbytes, labels=job_labels(task.job))
         if self._journal is not None:
             # before the send, so a give-up of this very push can replay it
             self._journal.record(task.key, task.version,
@@ -1349,7 +1371,7 @@ class PipelineEngine:
         if task.fused_reply is not None:
             # a fused member: the frame's reply carried this round already
             payload, task.fused_reply = task.fused_reply, None
-            counters().bump("wire_rx_bytes", len(payload))
+            counters().bump("wire_rx_bytes", len(payload), labels=job_labels(task.job))
             if compressed:
                 task.compressed = payload
             else:
@@ -1366,9 +1388,9 @@ class PipelineEngine:
             from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
 
             if payload is ZERO_COPIED:
-                counters().bump("wire_rx_bytes", len(sink))
+                counters().bump("wire_rx_bytes", len(sink), labels=job_labels(task.job))
             else:
-                counters().bump("wire_rx_bytes", len(payload))
+                counters().bump("wire_rx_bytes", len(payload), labels=job_labels(task.job))
                 if compressed:
                     task.compressed = payload
                 else:

@@ -19,9 +19,11 @@ matrix (``byteps_tpu.core.flightrec``).
   (``cluster_straggler_rank``).  The autotuner reads the matrix: its
   canary's median step and the fusion walk's dwell.
 
-The node-side trigger rules, the diagnostic bundles and their upload
-(``BYTEPS_FLIGHT_UPLOAD``, which raises) are not ported (ROADMAP.md
-Queue 1 item 10).
+Each record carries the job its node trains (``BYTEPS_JOB_ID``; a
+server's, 0), so that the ledger and the matrix slice by job.  The
+node-side trigger rules (``slo_breach`` among them: ``BYTEPS_JOB_SLO_S``
+raises), the diagnostic bundles and their upload (``BYTEPS_FLIGHT_UPLOAD``,
+which raises) are not ported (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -72,6 +72,16 @@ observation per compression and per static verdict),
 ``tune_codec_off{codec}`` (keys a fleet decision turned raw), and on the
 aggregate ``tune_action{rule}`` / ``tune_rollback{rule}``.
 
+Jobs (docs/async.md; :func:`job_labels`, so that job 0 mints no series):
+a tenant worker's ``wire_tx_bytes{job}`` / ``wire_rx_bytes{job}``,
+``rpc_round_trip_seconds{server,job}``, ``job_step_seconds{job}`` and the
+gauge ``job_step_last_seconds{job}``; a Python server's
+``server_job_requests{job}`` and ``server_job_bytes{job}`` (the tenant's
+enqueued requests and their payload bytes), ``job_quota_deferred{job}``
+(requests its admission quota held back) and the gauge
+``server_job_quota_mbps{job}`` (the quota this server meters, removed with
+the quota).
+
 The heartbeat deltas: :meth:`MetricsRegistry.delta_snapshot` is what
 changed since the last beat (counters flat and labeled, histogram
 buckets, gauges that changed or went), :meth:`~MetricsRegistry.reship_for`
@@ -149,6 +159,12 @@ _counters = Counters()
 
 def counters() -> Counters:
     return _counters
+
+
+def job_labels(job: int) -> Optional[Dict[str, str]]:
+    """``{"job": "<id>"}`` for a tenant's series; None for job 0, the
+    default namespace, whose series keep their labels as they were."""
+    return {"job": str(job)} if job else None
 
 
 # latency buckets (seconds), 100 us to 100 s; native/csrc/hist.h keeps the

@@ -18,9 +18,13 @@ The engine serves fused frames (Op.FUSED) and, under
 ``BYTEPS_ENABLE_ASYNC=1``, runs every key async (a cumulative store, pulls
 answered from it at once).  It refuses an INIT with a per-key async or a
 server-side optimizer profile with status 1 and counts it
-(``native_async_reject``, ``native_server_opt_reject``); the worker raises
-with the reason (``comm/ps_client.py``), and nothing falls back to the
-Python engine.
+(``native_async_reject``, ``native_server_opt_reject``), and answers any
+request for a key with job bits (a tenant's namespace, docs/async.md) with
+a status-1 echo (``native_job_reject``); the worker raises with the reason
+(``comm/ps_client.py``), and nothing falls back to the Python engine.  The
+books' ``jobs`` map is adopted all the same, for observability: the
+quotas' ``server_job_quota_mbps{job}`` gauges and the stop report's job
+lines.
 
 Under ``BYTEPS_ELASTIC_RESHARD=1`` each book's ring goes into the engine
 (``bps_native_server_set_ownership``), which then answers WRONG_OWNER for
@@ -113,6 +117,12 @@ class NativePSServer:
         self._stopped = False
         self._threads: List[threading.Thread] = []
         self._sched_conn: Optional[socket.socket] = None
+        # the books' job map, adopted for observability only (the engine
+        # refuses job keys)
+        self._job_workers: Dict[int, set] = {}
+        self._job_qos: Dict[int, dict] = {}
+        self._job_quota: Dict[int, object] = {}
+        self._qos_active = False
         sid = self._id
         self._hist_provider = lambda: native_server_histograms(sid)
         metrics().register_hist_provider(self._hist_provider)
@@ -137,6 +147,7 @@ class NativePSServer:
     _sched_reconnect = PSServer._sched_reconnect
     _spawn = PSServer._spawn
     _flight_context = PSServer._flight_context
+    _adopt_jobs = PSServer._adopt_jobs
     # the tuning section is noted (and reported on a rejoin); with no
     # _hot_report the borrowed loop sends no hot report
     _adopt_tuning = PSServer._adopt_tuning

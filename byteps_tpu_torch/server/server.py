@@ -85,14 +85,27 @@ dense store, duplicate indices accumulating and the rows no worker pushed
 reset each round; a row-sparse pull (the same header and indices) gathers
 those rows once the round is out.  Under ``BYTEPS_WIRE_LOSSLESS=1`` the
 RESYNC_STATE and MIGRATE_STATE bodies go out as lossless containers, and
-any flagged frame is decoded on receipt.  The plane of the reference's
-server that is not ported (multi-tenant job namespaces) is refused
-loudly: its INIT is answered with a non-zero status, and the reason goes
-to stderr.
+any flagged frame is decoded on receipt.
+
+Jobs (docs/async.md): a key's top 16 bits name the job it belongs to, so
+two jobs that declare the same names hold disjoint state here.  Each book's
+``jobs`` map gives every job its worker ranks, its priority and its quota
+(:meth:`PSServer._adopt_jobs`); a key's rounds, init barrier, async
+staleness gate and update rule then complete against its job's workers,
+not the fleet's.  Once some job declares a priority above 1 or a quota,
+the engine queues serve the jobs by weighted fair queuing (bytes served
+over the job's priority), each job's requests pass its admission quota
+(``_QuotaBucket``: a request past the rate is deferred, never dropped;
+INITs never wait), and the engine threads hand their replies to one
+writer thread per connection (``_ConnWriter``), so that a slow tenant's
+socket blocks only its own replies.  With no declaration the queues, the
+replies and the frames are what they were for a single job, and job 0
+mints no job-labelled series.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import signal
 import socket
@@ -104,18 +117,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from byteps_tpu_torch.common.config import (
-    UNPORTED,
-    Config,
-    check_unported_env,
-    resolve_node_uid,
-)
+from byteps_tpu_torch.common.config import Config, check_unported_env, resolve_node_uid
 from byteps_tpu_torch.common.hashing import OwnershipMap
-from byteps_tpu_torch.common.registry import JOB_SHIFT
 from byteps_tpu_torch.common.types import (
     DataType,
     RequestType,
     decode_command_type,
+    job_of_key,
     storage_numpy_dtype,
     to_datatype,
 )
@@ -186,10 +194,10 @@ class _KeyState:
         "compressor", "compressor_kwargs",
         "pull_payload", "pull_version", "raw_payload", "raw_version",
         "async_mode", "staleness", "opt_rule", "opt_step", "opt_seeded",
-        "migrated_to", "migrate_epoch", "req_bytes", "lock",
+        "migrated_to", "migrate_epoch", "req_bytes", "job", "lock",
     )
 
-    def __init__(self) -> None:
+    def __init__(self, job: int = 0) -> None:
         self.store: Optional[np.ndarray] = None
         self.accum: Optional[np.ndarray] = None
         self.dtype_id = 0
@@ -233,6 +241,9 @@ class _KeyState:
         self.migrate_epoch = 0
         #: request bytes enqueued for the key: the hot-key report's load
         self.req_bytes = 0
+        #: the job the key is namespaced under: its rounds complete against
+        #: that job's workers
+        self.job = job
         self.lock = threading.Lock()
 
     def wire_payload(self, compressed: bool, async_mode: bool = False) -> bytes:
@@ -310,21 +321,130 @@ class _FusedReply:
 
 
 class _EngineQueue:
-    """FIFO of one engine thread."""
+    """The queue of one engine thread: a FIFO lane per job, served by
+    weighted fair queuing.  Each lane's virtual time is the payload bytes
+    it was served over its job's weight (``weight_fn``, the books'
+    priority), and a get serves the lane with the lowest; a lane that
+    goes idle and comes back joins at the floor of the live ones.  With
+    one job (every request put as job 0 while no job declared QoS) it is
+    the plain FIFO."""
 
-    def __init__(self) -> None:
+    def __init__(self, weight_fn=None) -> None:
+        self._weight_fn = weight_fn or (lambda job: 1.0)
         self._cv = threading.Condition()
-        self._items: List[tuple] = []
+        #: job -> [FIFO of (item, cost), virtual time]
+        self._lanes: Dict[int, list] = {}
+        self._size = 0
 
-    def put(self, item: tuple) -> None:
+    def _weight(self, job: int) -> float:
+        try:
+            return max(0.001, float(self._weight_fn(job)))
+        except Exception:  # noqa: BLE001 - a weight lookup must not stall the queue
+            return 1.0
+
+    def put(self, item, job: int = 0, cost: int = 1) -> None:
         with self._cv:
-            self._items.append(item)
+            lane = self._lanes.get(job)
+            if lane is None:
+                lane = self._lanes[job] = [collections.deque(), 0.0]
+            if not lane[0]:
+                active = [ln[1] / self._weight(j) for j, ln in self._lanes.items() if ln[0]]
+                if active:
+                    lane[1] = max(lane[1], min(active) * self._weight(job))
+            lane[0].append((item, max(1, cost)))
+            self._size += 1
             self._cv.notify()
 
     def get(self, timeout: float):
         with self._cv:
-            self._cv.wait_for(lambda: self._items, timeout)
-            return self._items.pop(0) if self._items else None
+            self._cv.wait_for(lambda: self._size > 0, timeout)
+            if self._size == 0:
+                return None
+            job = min((j for j, ln in self._lanes.items() if ln[0]),
+                      key=lambda j: self._lanes[j][1] / self._weight(j))
+            lane = self._lanes[job]
+            item, cost = lane[0].popleft()
+            lane[1] += cost
+            self._size -= 1
+            return item
+
+
+class _ConnWriter:
+    """One connection's reply writer, under QoS: the engine threads queue
+    send closures here instead of blocking in ``sendall`` on a slow
+    tenant's socket, which would hold every other job's requests behind
+    it.  Past ``max_bytes`` of queued replies ``submit`` blocks (the
+    engine thread then waits on this one connection, as without a
+    writer).  The thread ends after ``idle_s`` without replies, or when a
+    send fails (the backlog goes: the worker's retry path owns recovery);
+    :meth:`PSServer._reply_writer` replaces a dead writer."""
+
+    __slots__ = ("_q", "_cv", "_bytes", "max_bytes", "idle_s", "dead")
+
+    def __init__(self, max_bytes: int = 16 << 20, idle_s: float = 5.0) -> None:
+        self._q: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._bytes = 0
+        self.max_bytes = max_bytes
+        self.idle_s = idle_s
+        self.dead = False
+        threading.Thread(target=self._loop, name="ps-reply-writer", daemon=True).start()
+
+    def submit(self, fn, nbytes: int) -> bool:
+        """Queue one send; False when the writer is dead."""
+        with self._cv:
+            while not self.dead and self._bytes >= self.max_bytes:
+                self._cv.wait(0.1)
+            if self.dead:
+                return False
+            self._q.append((fn, nbytes))
+            self._bytes += nbytes
+            self._cv.notify_all()
+            return True
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._q:
+                    if not self._cv.wait(self.idle_s) and not self._q:
+                        self.dead = True
+                        return
+                fn, nbytes = self._q.popleft()
+            try:
+                fn()
+            except (ConnectionError, OSError):
+                with self._cv:
+                    self.dead = True
+                    self._q.clear()
+                    self._bytes = 0
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                self._bytes -= nbytes
+                self._cv.notify_all()
+
+
+class _QuotaBucket:
+    """A job's admission meter (``BYTEPS_JOB_QUOTA_MBPS``, megabytes a
+    second on this server): a virtual wire over request payload bytes.
+    ``reserve(n)`` returns how long the request must wait before it is
+    served; idle credit is capped at one burst window."""
+
+    __slots__ = ("rate", "burst_s", "_free_at", "lock")
+
+    def __init__(self, mbps: float, burst_s: float = 0.25) -> None:
+        self.rate = max(1.0, mbps * 1e6)  # bytes a second
+        self.burst_s = burst_s
+        self._free_at = 0.0
+        self.lock = threading.Lock()
+
+    def reserve(self, nbytes: int) -> float:
+        with self.lock:
+            now = time.monotonic()
+            self._free_at = max(self._free_at, now - self.burst_s)
+            admit_at = self._free_at
+            self._free_at += nbytes / self.rate
+            return max(0.0, admit_at - now)
 
 
 class PSServer:
@@ -336,7 +456,19 @@ class PSServer:
         self._keys_lock = threading.Lock()
         self._stop = threading.Event()
         nthreads = max(1, cfg.server_engine_threads)
-        self._queues = [_EngineQueue() for _ in range(nthreads)]
+        # --- jobs (docs/async.md) ---
+        #: job -> its worker flags (rank + 1), and its priority and quota,
+        #: from the newest book's ``jobs`` map
+        self._job_workers: Dict[int, set] = {}
+        self._job_qos: Dict[int, dict] = {}
+        #: job -> its admission meter (jobs with a quota)
+        self._job_quota: Dict[int, _QuotaBucket] = {}
+        #: some job declared a priority above 1 or a quota: the engine
+        #: queues weigh jobs, and replies go through per-connection writers
+        self._qos_active = False
+        self._writers: Dict[int, _ConnWriter] = {}
+        self._writers_lock = threading.Lock()
+        self._queues = [_EngineQueue(weight_fn=self._job_weight) for _ in range(nthreads)]
         self._tid_cache: Dict[int, int] = {}
         self._tid_load = [0] * nthreads
         self._tid_lock = threading.Lock()
@@ -477,6 +609,7 @@ class PSServer:
             close_socket(self._sched_conn)
         self._sched_conn = conn
         self.rank = book["rank"]
+        self._adopt_jobs(book)  # before any round completes against it
         if initial:
             self.num_workers = book["num_workers"]
         else:
@@ -566,6 +699,7 @@ class PSServer:
             if not self._fence_book(book):
                 return
             self._note_book(book)
+            self._adopt_jobs(book)  # the jobs' workers first: the rounds read them
             self.update_num_workers(book["num_workers"])
             self._adopt_worker_ranks(book)
             # last: a drain's wave, and its stop, see the settled count
@@ -678,9 +812,88 @@ class PSServer:
                     flush = self._drain_waiters_locked(
                         ks, lambda v, _ks=ks: self._staleness_ready_locked(_ks, v),
                         async_mode=True)
-                elif 0 < self.num_workers <= ks.recv_count:
+                elif 0 < self._workers_for_ks(ks) <= ks.recv_count:
                     flush = self._publish_round_locked(ks)
             self._flush_pulls(key, flush)
+
+    # --- jobs (docs/async.md) ---------------------------------------------
+
+    def _adopt_jobs(self, book: dict) -> None:
+        """Adopt a book's ``jobs`` map: each job's worker flags size its
+        keys' rounds and barriers, its priority weighs the engine queues,
+        and its quota (megabytes a second on this server) arms its
+        admission meter; a changed quota gets a new meter, a dropped one
+        takes its gauge along.  A book without the map changes nothing."""
+        jobs = book.get("jobs")
+        if not isinstance(jobs, dict):
+            return
+        workers: Dict[int, set] = {}
+        qos: Dict[int, dict] = {}
+        for raw_job, info in jobs.items():
+            try:
+                job = int(raw_job)
+            except (TypeError, ValueError):
+                continue
+            flags = {r + 1 for r in (info.get("workers") or []) if 0 <= r < 255}
+            if flags:
+                workers[job] = flags
+            qos[job] = {"priority": max(1, int(info.get("priority", 1) or 1)),
+                        "quota_mbps": max(0.0, float(info.get("quota_mbps", 0) or 0))}
+        self._job_workers = workers
+        self._job_qos = qos
+        # the lanes and writers engage only once a job declared QoS: with
+        # none, the order is the single job's
+        self._qos_active = any(q["priority"] > 1 or q["quota_mbps"] > 0 for q in qos.values())
+        quota: Dict[int, _QuotaBucket] = {}
+        for job, q in qos.items():
+            mbps = q["quota_mbps"]
+            if mbps <= 0:
+                continue
+            old = self._job_quota.get(job)
+            quota[job] = (old if old is not None and abs(old.rate - mbps * 1e6) < 1.0
+                          else _QuotaBucket(mbps))
+            metrics().gauge_set("server_job_quota_mbps", mbps, labels={"job": str(job)})
+        for job in self._job_quota:
+            if job not in quota:
+                metrics().gauge_remove("server_job_quota_mbps", labels={"job": str(job)})
+        self._job_quota = quota
+
+    def _job_weight(self, job: int) -> float:
+        """A job's weight in the engine queues (its priority; 1 unknown)."""
+        q = self._job_qos.get(job)
+        return float(q["priority"]) if q else 1.0
+
+    def _workers_for_ks(self, ks: _KeyState) -> int:
+        """The workers a key's rounds and init barrier complete against:
+        its job's, when the book's map lists them, else the fleet's."""
+        flags = self._job_workers.get(ks.job)
+        return len(flags) if flags else self.num_workers
+
+    def _reply_writer(self, conn) -> _ConnWriter:
+        """The connection's reply writer, made (or replaced, once dead)
+        here; dead writers are swept on the way."""
+        with self._writers_lock:
+            w = self._writers.get(id(conn))
+            if w is None or w.dead:
+                for k in [k for k, ww in self._writers.items() if ww.dead]:
+                    del self._writers[k]
+                w = self._writers[id(conn)] = _ConnWriter()
+            return w
+
+    def _submit_reply(self, conn, fn, nbytes: int) -> None:
+        """Queue a send on the connection's writer; once more on a fresh
+        writer when the first died between lookup and submit."""
+        if not self._reply_writer(conn).submit(fn, nbytes):
+            self._reply_writer(conn).submit(fn, nbytes)
+
+    def _send_reply(self, conn, msg: Message, send_lock) -> None:
+        """An engine thread's reply: through the connection's writer under
+        QoS, inline (as for a single job) otherwise."""
+        if not self._qos_active:
+            send_message(conn, msg, send_lock)
+            return
+        self._submit_reply(conn, lambda: send_message(conn, msg, send_lock),
+                           len(msg.payload) + 64)
 
     # --- online resharding (docs/robustness.md "migration flow") ---------
 
@@ -1029,7 +1242,8 @@ class PSServer:
         with self._awaiting_lock:
             parked = self._awaiting.pop(key, [])
         for _t, m, c, lk in parked:
-            self._enqueue(m, c, lk)
+            # metered on arrival: the park does not charge the job twice
+            self._enqueue(m, c, lk, metered=True)
         self._update_owned_gauge()
 
     def _install_migrated_locked(self, ks: _KeyState, epoch: int, dtype_id: int, meta: dict,
@@ -1196,17 +1410,38 @@ class PSServer:
         with self._keys_lock:
             ks = self._keys.get(key)
             if ks is None:
-                ks = self._keys[key] = _KeyState()
+                ks = self._keys[key] = _KeyState(job_of_key(key))
             return ks
 
-    def _enqueue(self, msg: Message, conn, send_lock) -> None:
-        self._key_state(msg.key).req_bytes += len(msg.payload)  # the hot report's load
+    def _enqueue(self, msg: Message, conn, send_lock, metered: bool = False) -> None:
+        """Queue a request on its key's engine thread.  A tenant's request
+        is counted (``server_job_requests{job}``, ``server_job_bytes{job}``)
+        and, past its job's quota, deferred on this connection's serve
+        thread first (``job_quota_deferred{job}``): backpressure, as a
+        slower link would give, and never a drop.  An INIT never waits;
+        ``metered`` requests (taken again from a migration park) were
+        counted on arrival."""
+        ks = self._key_state(msg.key)
+        ks.req_bytes += len(msg.payload)  # the hot report's load
+        job = ks.job
+        if job and not metered:
+            labels = {"job": str(job)}
+            counters().bump("server_job_requests", labels=labels)
+            counters().bump("server_job_bytes", len(msg.payload), labels=labels)
+            bucket = self._job_quota.get(job)
+            if bucket is not None and msg.op != Op.INIT:
+                delay = bucket.reserve(len(msg.payload))
+                if delay > 0:
+                    counters().bump("job_quota_deferred", labels=labels)
+                    if self._stop.wait(delay):
+                        return
         with self._tid_lock:
             tid = self._tid_cache.get(msg.key)
             if tid is None:
                 tid = self._tid_cache[msg.key] = int(np.argmin(self._tid_load))
             self._tid_load[tid] += len(msg.payload)
-        self._queues[tid].put((msg, conn, send_lock))
+        self._queues[tid].put((msg, conn, send_lock), job=job if self._qos_active else 0,
+                              cost=len(msg.payload))
 
     # --- engine plane ----------------------------------------------------
 
@@ -1236,17 +1471,11 @@ class PSServer:
         staleness bound, and a server-side update rule.  Every INIT sets
         the key's profile, so a re-init without the extension returns it to
         summing.  A rule this server cannot run (unknown, a non-floating
-        store, a malformed block) and a key with job bits (a tenant
-        namespace, not ported) are refused with status 1."""
+        store, a malformed block) is refused with status 1.  The barrier
+        holds the INITs of the key's job's workers."""
         n, dtype_id = struct.unpack_from("!QI", msg.payload, 0)
         profile, staleness = decode_init_profile(msg.payload)
         rule = None
-        if msg.key >> JOB_SHIFT:
-            why = "a job-namespaced key (" + UNPORTED["tenancy"] + ")"
-            _log(f"refusing INIT of key {msg.key}: {why}")
-            send_message(conn, Message(Op.INIT, key=msg.key, seq=msg.seq, status=1),
-                         send_lock)
-            return
         if profile & PROFILE_SERVER_OPT:
             try:
                 name, hp_raw = decode_server_opt_block(msg.payload, RULE_BLOCK_OFFSET)
@@ -1313,10 +1542,10 @@ class PSServer:
             self._release_init_waiters(msg.key, waiters)
 
     def _complete_init_barrier_locked(self, ks: _KeyState) -> Optional[List[tuple]]:
-        """When the key's init barrier holds every worker's INIT, consume it
-        and restart the key's rounds; the waiters to release, or None.
-        Caller holds ``ks.lock``."""
-        if not 0 < self.num_workers <= len(ks.init_waiters):
+        """When the key's init barrier holds the INIT of each of its job's
+        workers, consume it and restart the key's rounds; the waiters to
+        release, or None.  Caller holds ``ks.lock``."""
+        if not 0 < self._workers_for_ks(ks) <= len(ks.init_waiters):
             return None
         waiters, ks.init_waiters = ks.init_waiters, []
         # each waiter's token: its INIT retried after this release is acked
@@ -1362,7 +1591,11 @@ class PSServer:
 
     def _min_applied_locked(self, ks: _KeyState) -> int:
         """The slowest worker's newest applied push version of an async key
-        (a worker that never pushed counts 0).  Caller holds ``ks.lock``."""
+        (a worker that never pushed counts 0): of the key's job's workers
+        when the book lists them.  Caller holds ``ks.lock``."""
+        flags = self._job_workers.get(ks.job)
+        if flags:
+            return min(ks.push_seen.get(w, 0) for w in flags)
         n = self.num_workers
         if n <= 0:
             return 0
@@ -1463,7 +1696,7 @@ class PSServer:
             flush.extend(self._drain_waiters_locked(
                 ks, lambda v: self._staleness_ready_locked(ks, v), async_mode=True))
             return 0.0
-        if ks.recv_count < self.num_workers:
+        if ks.recv_count < self._workers_for_ks(ks):
             return 0.0
         p0 = time.time()
         flush.extend(self._publish_round_locked(ks))
@@ -1529,7 +1762,7 @@ class PSServer:
         ks.recv_count += 1
         self._record_push_locked(ks, msg)
         self.stats.bump("pushes_summed")
-        if ks.recv_count < self.num_workers:
+        if ks.recv_count < self._workers_for_ks(ks):
             return 0.0
         p0 = time.time()
         flush.extend(self._publish_round_locked(ks))
@@ -1564,8 +1797,8 @@ class PSServer:
                 compressed, arr = self._push_args(ks, msg)
                 published = self._apply_push_locked(ks, msg, compressed, arr, flush)
         self._observe_push(t_start, published)
-        send_message(conn, Message(Op.PUSH, key=msg.key, seq=msg.seq,
-                                   version=msg.version), send_lock)
+        self._send_reply(conn, Message(Op.PUSH, key=msg.key, seq=msg.seq,
+                                       version=msg.version), send_lock)
         self._flush_pulls(msg.key, flush)
 
     def _handle_fused(self, msg: Message, conn, send_lock) -> None:
@@ -1621,7 +1854,7 @@ class PSServer:
         payloads are built under it, before a next round can swap the
         buffers."""
         if ks.opt_rule is not None and ks.opt_step > 0:
-            ks.opt_rule.apply(ks.store, ks.accum, self.num_workers, ks.opt_step)
+            ks.opt_rule.apply(ks.store, ks.accum, self._workers_for_ks(ks), ks.opt_step)
             self._count_update()
         else:
             ks.store, ks.accum = ks.accum, ks.store
@@ -1659,14 +1892,21 @@ class PSServer:
         return flush
 
     def _flush_pulls(self, key: int, flush: List) -> None:
+        """Answer the released pulls and completed fused frames; a dead
+        puller does not hold up the rest.  Under QoS each reply goes
+        through its connection's writer."""
         for entry in flush:
             try:
                 if isinstance(entry, _FusedReply):
-                    entry.send()
+                    if self._qos_active:
+                        self._submit_reply(entry.conn, entry.send,
+                                           sum(len(s) for s in entry.slots if s) + 64)
+                    else:
+                        entry.send()
                     continue
                 pconn, plock, pseq, payload, ver = entry
-                send_message(pconn, Message(Op.PULL, key=key, payload=payload,
-                                            seq=pseq, version=ver), plock)
+                self._send_reply(pconn, Message(Op.PULL, key=key, payload=payload,
+                                                seq=pseq, version=ver), plock)
             except (ConnectionError, OSError):
                 continue
 
@@ -1717,8 +1957,8 @@ class PSServer:
                 return
             payload = self._wire_reply(ks, wants, is_async)
             ver = ks.store_version
-        send_message(conn, Message(Op.PULL, key=msg.key, payload=payload,
-                                   seq=msg.seq, version=ver), send_lock)
+        self._send_reply(conn, Message(Op.PULL, key=msg.key, payload=payload,
+                                       seq=msg.seq, version=ver), send_lock)
 
 
 def summarize_histograms(recs_by_name: Dict[str, list]) -> Dict[str, dict]:
@@ -1753,11 +1993,34 @@ RECOVERY_COUNTERS = ("push_dedup", "init_replay_ack", "migration_keys_moved",
                      "sched_rejoin", "sched_stale_book")
 
 
+#: a Python server's per-job series its stop report carries
+JOB_COUNTERS = ("server_job_requests", "server_job_bytes", "job_quota_deferred")
+
+
+def job_series(node) -> Dict[str, Dict[str, float]]:
+    """``{job: {series: value}}``: the process's job-labelled counters of
+    :data:`JOB_COUNTERS` and the ``server_job_quota_mbps`` gauges the
+    node's books set (the C++ engine's wrapper adopts the books' job map
+    too, though its engine refuses job keys)."""
+    out: Dict[str, Dict[str, float]] = {}
+    raw = counters().labeled_raw()
+    for name in JOB_COUNTERS:
+        for key, v in raw.get(name, {}).items():
+            job = dict(key).get("job")
+            if job is not None:
+                out.setdefault(job, {})[name] = v
+    for job, q in sorted(getattr(node, "_job_qos", {}).items()):
+        if job and q["quota_mbps"] > 0:
+            out.setdefault(str(job), {})["server_job_quota_mbps"] = q["quota_mbps"]
+    return out
+
+
 def stop_report(node) -> List[str]:
-    """A stopped server's three log lines: the pushes it summed into rounds
+    """A stopped server's log lines: the pushes it summed into rounds
     (the Python engine adds the async pulls it parked and the update rules
-    it applied), each histogram's count, sum, p50 and p99 (seconds), and
-    its recovery counters that are not 0."""
+    it applied), each histogram's count, sum, p50 and p99 (seconds), its
+    recovery counters that are not 0, and, when a job other than 0 was
+    seen, a line of each job's series (``rank R job J name=value ...``)."""
     pushes, rounds = node.pushes_and_rounds()
     hists = node.histograms()
     extra = ""
@@ -1776,7 +2039,8 @@ def stop_report(node) -> List[str]:
         f"rank {node.rank} recovery " + (" ".join(
             f"{name}={recovery[name]}" for name in RECOVERY_COUNTERS
             if recovery.get(name)) or "none"),
-    ]
+    ] + [f"rank {node.rank} job {job} " + " ".join(f"{k}={v!r}" for k, v in sorted(vals.items()))
+         for job, vals in sorted(job_series(node).items(), key=lambda kv: int(kv[0]))]
 
 
 def _serve_until_signaled(node) -> None:

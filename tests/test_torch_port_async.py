@@ -12,7 +12,7 @@
   on the port's and byteps_tpu's servers and the port's C++ engine; one
   worker's weight-delta loop trains like the bare optimizer.
 
-Keys carry no job bits: job namespaces are not ported."""
+Keys carry no job bits here (job namespaces: ``test_torch_port_tenancy.py``)."""
 
 import contextlib
 import struct
