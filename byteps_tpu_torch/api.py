@@ -97,14 +97,15 @@ def device() -> torch.device:
 
 
 def rank() -> int:
-    """The worker's rank: the scheduler's in distributed mode; with a local
-    group, the host's."""
+    """The worker's rank: the scheduler's in distributed mode (a tenant's,
+    within its job: ``PSClient.job_rank``); with a local group, the
+    host's."""
     st = get_state()
     if st.host is not None:
         return st.host[0]
     client = st.ps_client
     if client is not None and client.rank is not None:
-        return client.rank
+        return client.job_rank()
     cfg = get_config()
     return cfg.global_rank if cfg.global_rank is not None else cfg.worker_id
 

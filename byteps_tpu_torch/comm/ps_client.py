@@ -411,6 +411,9 @@ class PSClient:
         self.node_uid = node_uid or uuid.uuid4().hex
         self.rank: Optional[int] = None
         self.num_workers = cfg.num_worker
+        #: the newest book's job map ({job: {"workers", "priority",
+        #: "quota_mbps"[, "quota_mbps_total"]}})
+        self.jobs: Dict[str, dict] = {}
         self.num_servers = cfg.num_server
         #: the last book was a recovery book (a rejoin)
         self.is_recovery = False
@@ -547,11 +550,25 @@ class PSClient:
 
     def _book_num_workers(self, book: dict) -> int:
         """The worker count this worker averages over: its job's workers
-        when the book carries a job map, else the fleet's."""
-        mine = (book.get("jobs") or {}).get(str(self.cfg.job_id))
+        when the book carries a job map, else the fleet's.  Keeps the map
+        (``jobs``)."""
+        self.jobs = dict(book.get("jobs") or {})
+        mine = self.jobs.get(str(self.cfg.job_id))
         if mine and mine.get("workers"):
             return len(mine["workers"])
         return book["num_workers"]
+
+    def job_rank(self) -> Optional[int]:
+        """This worker's rank within its job: for a tenant (a job other
+        than 0) its place among the job's ranks in the book, so that a
+        job's ranks run from 0 to its size whatever the fleet's are (a
+        broadcast from root 0 has a root in every job); job 0's is the
+        scheduler's rank."""
+        mine = self.jobs.get(str(self.cfg.job_id)) or {}
+        ranks = sorted(int(r) for r in mine.get("workers") or ())
+        if self.cfg.job_id and self.rank in ranks:
+            return ranks.index(self.rank)
+        return self.rank
 
     def _adopt_worker_count(self, book: dict) -> None:
         """A later book's worker count.  Under mixed hashing the count is an

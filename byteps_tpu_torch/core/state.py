@@ -148,7 +148,7 @@ def _host_identity(cfg: Config, st: RuntimeState) -> Tuple[int, int]:
 
     client = st.ps_client
     if client is not None:
-        mine = (client.rank, client.num_workers)
+        mine = (client.job_rank(), client.num_workers)
     else:
         mine = (cfg.global_rank if cfg.global_rank is not None else cfg.worker_id,
                 cfg.num_worker)

@@ -1125,6 +1125,27 @@ def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None):
 _WEIGHTS: dict = {}
 
 
+def _bert_cfg(n_layers: int, **overrides):
+    """BERT-large's config at ``n_layers`` (seq SEQ, bf16, remat, flash,
+    unless ``overrides`` say otherwise)."""
+    import torch
+
+    from byteps_tpu_torch.models.transformer import bert_large
+
+    return dataclasses.replace(bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True,
+                                          use_flash=True), n_layers=n_layers, **overrides)
+
+
+def _bert_weights(cfg) -> dict:
+    """The weights of ``init_params(cfg, seed=0)``, made once a depth."""
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import init_params
+
+    if cfg.n_layers not in _WEIGHTS:
+        _WEIGHTS[cfg.n_layers] = params_from_jax(init_params(cfg, seed=0), cfg)
+    return _WEIGHTS[cfg.n_layers]
+
+
 def _bert(n_layers: int, batch: int = BATCH, **overrides):
     """BERT-large (seq SEQ, bf16, remat, flash, unless ``overrides`` say
     otherwise) at ``n_layers`` on the bound device, with the weights of
@@ -1133,15 +1154,11 @@ def _bert(n_layers: int, batch: int = BATCH, **overrides):
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch.models.convert import params_from_jax
-    from byteps_tpu_torch.models.transformer import Transformer, bert_large, init_params
+    from byteps_tpu_torch.models.transformer import Transformer
 
-    cfg = dataclasses.replace(bert_large(max_seq=SEQ, compute_dtype=torch.bfloat16, remat=True,
-                                         use_flash=True), n_layers=n_layers, **overrides)
-    if n_layers not in _WEIGHTS:
-        _WEIGHTS[n_layers] = params_from_jax(init_params(cfg, seed=0), cfg)
+    cfg = _bert_cfg(n_layers, **overrides)
     model = Transformer(cfg)
-    model.load_state_dict(_WEIGHTS[n_layers])
+    model.load_state_dict(_bert_weights(cfg))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int32)[:batch]
     tok = torch.as_tensor(tokens, device=bps.device()).long()
@@ -5124,6 +5141,355 @@ def train_data_plane(card: str) -> dict:
     return {"vans": train_vans(card), "rowsparse": train_rowsparse(card)}
 
 
+#: phase (g), job namespaces: BERT-large's depth, each host's sequences and
+#: steps; job 1 (the latency job: two hosts, priority 4) and job 2 (the
+#: bulk job: one host, under a quota in the shared run), each host's numpy
+#: seed of its tokens
+TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 6, 16, 4
+TENANCY_JOB1_PRIORITY = 4
+TENANCY_SEEDS = {"job1.h0": 101, "job1.h1": 102, "job2.h0": 202}
+
+
+def _merged_round_trips(hist_states: dict) -> dict:
+    """rpc_round_trip_seconds over every server (and job): count, p50, p99."""
+    from byteps_tpu_torch.core.telemetry import _state_percentile
+
+    bounds, counts, total = None, None, 0
+    for (name, _labels), (b, c, _s, n) in hist_states.items():
+        if name != "rpc_round_trip_seconds":
+            continue
+        bounds = b
+        counts = list(c) if counts is None else [x + y for x, y in zip(counts, c)]
+        total += n
+    if counts is None:
+        return {"count": 0, "p50": float("nan"), "p99": float("nan")}
+    return {"count": total, "p50": _state_percentile(bounds, counts, 0.50),
+            "p99": _state_percentile(bounds, counts, 0.99)}
+
+
+def tenant_host(work: str) -> None:
+    """One host of phase (g), under the port's launcher (``chip_smoke.py
+    --tenant-host <dir>``).  It imports torch and brings up CUDA, then
+    waits for <dir>/go.json, whose entry for ``TENANT_NAME`` is more
+    environment (the shared run's quota), and trains: BERT-large at
+    TENANCY_LAYERS with the weights the driver saved (``TENANT_WEIGHTS``,
+    ``init_params(seed=0)``: every host starts from the same parameters,
+    so none are broadcast) on TENANCY_BATCH sequences of its own numpy
+    seed (TENANCY_SEEDS), bare onebit with scaling under AdamW,
+    TENANCY_STEPS steps; its job and share come from ``BYTEPS_JOB_*``.
+    Taps its INITs' payload bytes.  Writes <dir>/<TENANT_RUN>-<name>.json:
+    losses, ms, wire bytes and launches a step, the parameters' digest, the
+    book's job map, its ranks, its job-labelled wire bytes, its round
+    trips, and the seconds since the phase began (``TENANT_T0``) at which
+    it entered, was ready, was let go, came up, built the model, trained
+    and shut down."""
+    marks = {"entered": time.time()}
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.ps_client import _ServerConn
+    from byteps_tpu_torch.comm.transport import Op
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters, metrics
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run, name = os.environ["TENANT_RUN"], os.environ["TENANT_NAME"]
+    # before the go: CUDA's context and the matmul libraries, and what the
+    # first optimizer and its first step import (torch._dynamo and the
+    # foreach ops' modules: 8.5-9.4 s on the card's host when three hosts
+    # did it after their go)
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    warm = torch.ones(8, 8, device=dev, requires_grad=True)
+    warm.matmul(warm).sum().backward()
+    torch.optim.AdamW([warm], lr=1e-4, weight_decay=1e-4).step()
+    float(warm.sum())
+    marks["ready"] = time.time()
+    go = os.path.join(work, "go.json")
+    deadline = time.monotonic() + PHASE_STALL_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            sys.exit(f"{run} {name}: no go file after {PHASE_STALL_S} s")
+        time.sleep(0.05)
+    with open(go) as f:
+        os.environ.update(json.load(f).get(name, {}))
+    marks["go"] = time.time()
+    inits = [0, 0]
+    send = _ServerConn.send
+
+    def tap_send(sc, msg) -> None:
+        if msg.op == Op.INIT:
+            inits[0] += 1
+            inits[1] += memoryview(msg.payload).nbytes
+        send(sc, msg)
+
+    _ServerConn.send = tap_send
+    _WEIGHTS[TENANCY_LAYERS] = torch.load(os.environ["TENANT_WEIGHTS"])
+    bps.init()
+    marks["init"] = time.time()
+    cfg, model, _, _ = _bert(TENANCY_LAYERS, batch=TENANCY_BATCH)
+    marks["bert"] = time.time()
+    tokens = np.random.default_rng(TENANCY_SEEDS[name]).integers(
+        0, cfg.vocab_size, size=(TENANCY_BATCH, SEQ)).astype(np.int32)
+    tok = torch.as_tensor(tokens, device=bps.device()).long()
+    tgt = torch.as_tensor(np.roll(tokens, -1, axis=1), device=bps.device()).long()
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression_params={"compressor": "onebit", "scaling": True})
+    marks["optimizer"] = time.time()
+    step = build_train_step(model, opt)
+    client = get_state().ps_client
+    marks["model"] = time.time()
+    steps = []
+    for _ in range(TENANCY_STEPS):
+        fa.reset_launches()
+        ob.reset_launches()
+        tx0 = counters().get("wire_tx_bytes")
+        t0 = time.perf_counter()
+        loss = float(step(tok, tgt))
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                      "tx": counters().get("wire_tx_bytes") - tx0,
+                      "launches": {**fa.launches, **ob.launches}})
+        marks.setdefault("step1", time.time())
+    _ServerConn.send = send
+    marks["trained"] = time.time()
+    job = str(get_state().config.job_id)
+    tx_job = sum(v for key, v in counters().labeled_raw().get("wire_tx_bytes", {}).items()
+                 if dict(key).get("job") == job)
+    out = {"run": run, "name": name, "job": int(job), "steps": steps,
+           "digest": _param_digest(model), "jobs": client.jobs, "rank": client.rank,
+           "job_rank": bps.rank(), "size": bps.size(), "num_workers": client.num_workers,
+           "wire_tx_total": counters().get("wire_tx_bytes"), "wire_tx_job": tx_job,
+           "inits": inits[0], "init_bytes": inits[1],
+           "compressed_parts": sum(r["wire_nbytes"] is not None
+                                   for r in get_state().engine.partition_table()
+                                   if r["name"].startswith("Gradient.")),
+           "round_trips": _merged_round_trips(metrics()._hist_states())}
+    bps.shutdown()
+    marks["shutdown"] = time.time()
+    t0 = float(os.environ["TENANT_T0"])
+    out["marks"] = {k: round(v - t0, 2) for k, v in marks.items()}
+    with open(os.path.join(work, f"{run}-{name}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _server_jobs(log_dir: str, servers: int = 2) -> list:
+    """Each server's job lines from its stop report: {job: {series: value}}."""
+    import re
+
+    found = []
+    for i in range(servers):
+        with open(os.path.join(log_dir, f"server{i}.log")) as f:
+            text = f.read()
+        jobs: dict = {}
+        for job, rest in re.findall(r"rank \d+ job (\d+) (.*)", text):
+            jobs[job] = {k: float(v) for k, v in re.findall(r"(\w+)=([\d.e+-]+)", rest)}
+        found.append(jobs)
+    return found
+
+
+def _tenant_start(work: str, run: str, hosts: list, fleet_workers: int, t0: float) -> dict:
+    """Start one run of phase (g): a scheduler for ``fleet_workers``
+    workers, two Python servers with CRC32C (logs in <work>/<run>), and a
+    launcher host (``tenant_host``) for each (name, environment) of
+    ``hosts``, which comes up and waits for the run's go file."""
+    run_dir = os.path.join(work, run)
+    os.makedirs(run_dir)
+    env = {**os.environ, "DMLC_NUM_WORKER": str(fleet_workers), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", "BYTEPS_FORCE_DISTRIBUTED": "1",
+           "TENANT_RUN": run, "TENANT_T0": repr(t0),
+           "TENANT_WEIGHTS": os.path.join(work, "weights.pt")}
+    for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
+        env.pop(k, None)
+    port, procs = _start_ps_processes(env, run_dir)
+    launched = []
+    for h, (name, extra) in enumerate(hosts):
+        path = os.path.join(run_dir, f"host{h}.log")
+        with open(path, "w") as log:
+            launched.append(_track(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--tenant-host", run_dir],
+                cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
+                               "TENANT_NAME": name, **extra},
+                stdout=log, stderr=subprocess.STDOUT), f"{run} {name}", path))
+    return {"run": run, "dir": run_dir, "hosts": hosts, "fleet": procs, "launched": launched}
+
+
+def _tenant_go(label: str, r: dict, go: dict, timeout: float = 240) -> dict:
+    """Let run ``r``'s hosts train (<dir>/go.json holds ``go``: {name:
+    environment}), wait for them, stop its fleet and fail unless every host
+    exited 0; returns {name: host result}, with the servers' reports and
+    job lines under "servers" and the run's seconds from its go under
+    "wall"."""
+    t_go = time.time()
+    with open(os.path.join(r["dir"], "go.json.tmp"), "w") as f:
+        json.dump(go, f)
+    os.replace(os.path.join(r["dir"], "go.json.tmp"), os.path.join(r["dir"], "go.json"))
+    hosts = r["launched"]
+    try:
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in hosts):
+                break
+            time.sleep(0.2)
+        rcs = [p.poll() for p in hosts]
+    finally:
+        _stop_processes(hosts)
+        _stop_processes(r["fleet"])
+    if rcs != [0] * len(hosts):
+        for h, (name, _) in enumerate(r["hosts"]):
+            with open(os.path.join(r["dir"], f"host{h}.log")) as f:
+                print(f"--- {label} {r['run']} {name} (exit {rcs[h]}):\n{f.read()[-6000:]}",
+                      file=sys.stderr)
+        fail(f"{label} {r['run']}: the hosts exited {rcs}")
+    out = {}
+    for name, _ in r["hosts"]:
+        with open(os.path.join(r["dir"], f"{r['run']}-{name}.json")) as f:
+            out[name] = json.load(f)
+    out["servers"] = {"report": _server_report(r["dir"]), "jobs": _server_jobs(r["dir"])}
+    out["wall"] = time.time() - t_go
+    return out
+
+
+def train_tenancy(card: str) -> dict:
+    """Phase (g), job namespaces: two jobs that declare the same tensor
+    names.  Every run's fleet and hosts start at once and come up (torch,
+    CUDA); then the runs train one after another, each alone on the card.
+    (g1) each job alone, as job 0, on a fleet of its own: job 2 (one
+    host), then job 1 (two hosts).  (g2) both on one fleet of three
+    workers: job 1 as BYTEPS_JOB_ID=1 with priority 4, job 2 as
+    BYTEPS_JOB_ID=2 under a quota of half its solo push rate (its solo
+    wire bytes a step over its solo seconds a step, over 2).  Fails unless
+    each job's losses and parameters in (g2) are bitwise its (g1) run's;
+    a worker's book maps job 1 to two ranks at priority 4 and job 2 to one
+    with its quota, halved over the two servers; both servers deferred
+    job 2 (``job_quota_deferred``), never job 1, and meter half its quota;
+    the servers' ``server_job_bytes`` of each job is its workers'
+    job-labelled wire bytes and INIT payloads; and every tenant worker
+    launched K1-K4 each step as the depth and its partitions say.  Prints
+    each job's ms a step and round trips, solo and shared.  Returns job 2's
+    shared launches a step."""
+    label = "tenancy (g)"
+    wall = time.perf_counter()
+    j1 = {"DMLC_NUM_WORKER": "2"}
+    j2 = {"DMLC_NUM_WORKER": "1"}
+    bad = []
+    j1s = {**j1, "BYTEPS_JOB_ID": "1", "BYTEPS_JOB_PRIORITY": str(TENANCY_JOB1_PRIORITY)}
+    started = []
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            # every run's processes come up at once (torch, CUDA); then the
+            # runs train one after another, each alone on the card
+            t0 = time.time()
+            started = [_tenant_start(work, "solo2", [("job2.h0", j2)], 1, t0),
+                       _tenant_start(work, "solo1", [("job1.h0", j1), ("job1.h1", j1)], 2, t0),
+                       _tenant_start(work, "shared", [("job1.h0", j1s), ("job1.h1", j1s),
+                                                      ("job2.h0", {**j2, "BYTEPS_JOB_ID": "2"})],
+                                     3, t0)]
+            import torch
+
+            torch.save(_bert_weights(_bert_cfg(TENANCY_LAYERS)), os.path.join(work, "weights.pt"))
+            solo = _tenant_go(label, started[0], {})
+            walls = {"solo2": solo.pop("wall")}
+            solo.update(_tenant_go(label, started[1], {}))
+            walls["solo1"] = solo.pop("wall")
+            s2 = solo["job2.h0"]["steps"][1:]
+            rate = sum(s["tx"] for s in s2) / (sum(s["ms"] for s in s2) / 1e3)
+            quota = rate / 2 / 1e6
+            shared = _tenant_go(label, started[2],
+                                {"job2.h0": {"BYTEPS_JOB_QUOTA_MBPS": repr(quota)}})
+            walls["shared"] = shared.pop("wall")
+        finally:
+            for r in started:
+                _stop_processes([p for p in r["launched"] + r["fleet"] if p in _FLEET])
+    names = list(TENANCY_SEEDS)
+    for name in names:
+        a, b = solo[name], shared[name]
+        if [s["loss"] for s in a["steps"]] != [s["loss"] for s in b["steps"]]:
+            bad.append(f"{name}: the shared run's losses are not bitwise its solo run's")
+        if a["digest"] != b["digest"]:
+            bad.append(f"{name}: the shared run's parameters are not bitwise its solo run's")
+        for run, r in (("solo", a), ("shared", b)):
+            k4 = r["compressed_parts"]
+            want = {"flash_fwd": 2 * TENANCY_LAYERS, "flash_bwd_dq": TENANCY_LAYERS,
+                    "flash_bwd_dkv": TENANCY_LAYERS, "onebit_pack": k4}
+            off = [i + 1 for i, s in enumerate(r["steps"]) if s["launches"] != want]
+            if off:
+                bad.append(f"{name} {run} steps {off}: launches "
+                           f"{r['steps'][off[0] - 1]['launches']}, expected {want}")
+            if not all(math.isfinite(s["loss"]) for s in r["steps"]):
+                bad.append(f"{name} {run}: non-finite losses")
+    if solo["job1.h0"]["digest"] != solo["job1.h1"]["digest"]:
+        bad.append("job 1's hosts' parameters differ after the solo run")
+    jobs = shared["job2.h0"]["jobs"]
+    j1m, j2m = jobs.get("1", {}), jobs.get("2", {})
+    if len(j1m.get("workers", ())) != 2 or j1m.get("priority") != TENANCY_JOB1_PRIORITY:
+        bad.append(f"the book's job 1: {j1m}")
+    if (len(j2m.get("workers", ())) != 1 or j2m.get("quota_mbps_total") != quota
+            or j2m.get("quota_mbps") != quota / 2):
+        bad.append(f"the book's job 2: {j2m} (quota {quota!r})")
+    if sorted(shared[n]["job_rank"] for n in ("job1.h0", "job1.h1")) != [0, 1] or \
+            shared["job2.h0"]["job_rank"] != 0:
+        bad.append("the jobs' ranks within the job are not 0..size-1")
+    sj = shared["servers"]["jobs"]
+    for i, jl in enumerate(sj):
+        if jl.get("2", {}).get("job_quota_deferred", 0) <= 0:
+            bad.append(f"server {i} deferred no request of job 2: {jl}")
+        if jl.get("1", {}).get("job_quota_deferred"):
+            bad.append(f"server {i} deferred job 1: {jl}")
+        if jl.get("2", {}).get("server_job_quota_mbps") != quota / 2:
+            bad.append(f"server {i} meters job 2 at {jl.get('2', {}).get('server_job_quota_mbps')}"
+                       f", not {quota / 2!r}")
+    by_job = {}
+    for job, hosts_of in (("1", ("job1.h0", "job1.h1")), ("2", ("job2.h0",))):
+        served = sum(int(jl.get(job, {}).get("server_job_bytes", 0)) for jl in sj)
+        sent = sum(shared[n]["wire_tx_job"] + shared[n]["init_bytes"] for n in hosts_of)
+        by_job[job] = (served, sent)
+        if served != sent:
+            bad.append(f"job {job}: the servers counted {served} bytes, its workers sent "
+                       f"{sent} (wire_tx_bytes{{job}} and INIT payloads)")
+    if any(r is None for r in shared["servers"]["report"]):
+        bad.append(f"a server logged no stop report: {shared['servers']['report']}")
+
+    def ms(r):
+        return sum(s["ms"] for s in r["steps"][1:]) / (len(r["steps"]) - 1)
+
+    for name in names:
+        a, b = solo[name], shared[name]
+        print(f"{label} {name}: BERT-large at {TENANCY_LAYERS} layers, seq {SEQ} bf16 remat "
+              f"flash, {TENANCY_BATCH} sequences, bare onebit, CRC32C; losses "
+              f"{[s['loss'] for s in b['steps']]} (bitwise solo "
+              f"{[s['loss'] for s in a['steps']] == [s['loss'] for s in b['steps']]}, "
+              f"parameters {a['digest'] == b['digest']}); ms a step after the first: solo "
+              f"{ms(a):.1f} {[round(s['ms'], 1) for s in a['steps']]}, shared {ms(b):.1f} "
+              f"{[round(s['ms'], 1) for s in b['steps']]}; wire bytes a step "
+              f"{b['steps'][-1]['tx']}; rpc_round_trip_seconds p50/p99 solo "
+              f"{a['round_trips']['p50'] * 1e3:.3f}/{a['round_trips']['p99'] * 1e3:.3f} ms, "
+              f"shared {b['round_trips']['p50'] * 1e3:.3f}/{b['round_trips']['p99'] * 1e3:.3f} "
+              f"ms; fleet rank {b['rank']}, job rank {b['job_rank']}, size {b['size']}; "
+              f"launches a step {b['steps'][-1]['launches']}; on {card}", flush=True)
+    print(f"{label}: each run's wall s from its go: {walls}; the hosts' marks (s from the "
+          f"phase's start): " + "; ".join(
+              f"{run} {n} {r[n]['marks']}" for run, r in (("solo", solo), ("shared", shared))
+              for n in names), flush=True)
+    print(f"{label}: job 2's solo push rate {rate / 1e6:.3f} MB/s, quota {quota:.3f} MB/s "
+          f"({quota / 2:.3f} a server); the book's jobs {json.dumps(jobs, sort_keys=True)}; "
+          f"the servers' job lines {sj}; server_job_bytes against the workers' bytes "
+          f"{by_job}", flush=True)
+    for line in _server_lines(shared["servers"]["report"]):
+        print(f"{label} shared: {line}", flush=True)
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return shared["job2.h0"]["steps"][-1]["launches"]
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -5315,6 +5681,8 @@ def main() -> None:
     mark("fusion")
     planes.update(train_data_plane(card))
     mark("data plane (f)")
+    planes["tenancy"] = train_tenancy(card)
+    mark("tenancy (g)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)
@@ -5416,5 +5784,7 @@ if __name__ == "__main__":
         control_host(sys.argv[2])  # one host of phase (e), the control plane
     elif sys.argv[1:2] == ["--rowsparse-host"]:
         rowsparse_host(sys.argv[2])  # one host of phase (f2), row-sparse
+    elif sys.argv[1:2] == ["--tenant-host"]:
+        tenant_host(sys.argv[2])  # one host of phase (g), job namespaces
     else:
         main()

@@ -159,6 +159,10 @@ def test_two_jobs_of_one_key_round_over_their_own_workers(monkeypatch, server, j
         kits.in_threads(a.connect, b.connect, c.connect)
         try:
             assert [x.num_workers for x in (a, b, c)] == [2, 2, 1]
+            # ranks within the job (the thirteenth divergence)
+            assert c.job_rank() == 0 and sorted({a.rank, b.rank, c.rank}) == [0, 1, 2]
+            if job1 == "port":
+                assert sorted([a.job_rank(), b.job_rank()]) == [0, 1]
             k1, k2 = job_key(1, 5 << 16), job_key(2, 5 << 16)
             kits.in_threads(lambda: kits.init_key([a, b], k1), lambda: kits.init_key([c], k2))
             for v in (1, 2, 3):
@@ -180,8 +184,8 @@ def test_a_tenant_through_the_engine_beside_another_job(monkeypatch):
     """Job 2 runs the port's engine (``BYTEPS_JOB_ID=2``, priority 3, a
     quota) on a fleet of three workers; job 1's two PSClient workers push
     the same names' keys.  Job 2 averages over itself, its wire bytes and
-    round trips carry its label, the servers' ``server_job_bytes{job="2"}``
-    is its pushes' bytes and 12 bytes an INIT, it mints
+    round trips carry its label, its rank is 0 within its job, the servers'
+    ``server_job_bytes{job="2"}`` is its pushes' bytes and 12 bytes an INIT, it mints
     ``job_step_seconds{job="2"}`` and its flight records carry job 2."""
     import torch
 
@@ -207,7 +211,13 @@ def test_a_tenant_through_the_engine_beside_another_job(monkeypatch):
         kits.in_threads(a.connect, b.connect, lambda: bps.init(device="cpu"))
         try:
             client = state.get_state().ps_client
-            assert client.num_workers == 1
+            assert client.num_workers == 1 and bps.size() == 1
+            # its rank within job 2, whatever its fleet rank (the
+            # thirteenth divergence: byteps_tpu's rank() reads
+            # DMLC_WORKER_ID), so a broadcast from root 0 has its root
+            assert bps.rank() == 0 and client.rank in (0, 1, 2)
+            p = torch.arange(8, dtype=torch.float32)
+            assert torch.equal(bps.broadcast_parameters({"p": p.clone()})["p"], p)
             assert kits.wait(lambda: all(n._job_qos.get(2, {}).get("quota_mbps") == 20.0
                                          for n in nodes))
             assert all(n._qos_active and n._job_weight(2) == 3.0 for n in nodes)
@@ -230,8 +240,8 @@ def test_a_tenant_through_the_engine_beside_another_job(monkeypatch):
             b.close()
             flightrec.set_process_recorder(None)
     tx = job_count("wire_tx_bytes", "2") - before["wire_tx_bytes"]
-    assert tx == 2 * 3000 * 4
-    assert job_count("server_job_bytes", "2") - before["server_job_bytes"] == tx + 12
+    assert tx == 8 * 4 + 2 * 3000 * 4  # the broadcast, then two rounds
+    assert job_count("server_job_bytes", "2") - before["server_job_bytes"] == tx + 2 * 12
     hists = metrics().snapshot()["histograms"]
     assert any(n.startswith("job_step_seconds") and 'job="2"' in n for n in hists), list(hists)
     assert any(n.startswith("rpc_round_trip_seconds") and 'job="2"' in n for n in hists)
