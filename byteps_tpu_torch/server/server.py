@@ -823,7 +823,13 @@ class PSServer:
         keys' rounds and barriers, its priority weighs the engine queues,
         and its quota (megabytes a second on this server) arms its
         admission meter; a changed quota gets a new meter, a dropped one
-        takes its gauge along.  A book without the map changes nothing."""
+        takes its gauge along.  A book without the map changes nothing.
+        A map of job 0 alone (a single-tenant fleet) leaves the rounds on
+        the book's worker count and the queues and replies as they were,
+        as before jobs were ported: under elastic membership that count
+        may differ from the live ranks the map lists (the reference's
+        server takes the map's, ROADMAP.md Queue 3, the fourteenth
+        divergence)."""
         jobs = book.get("jobs")
         if not isinstance(jobs, dict):
             return
@@ -839,11 +845,13 @@ class PSServer:
                 workers[job] = flags
             qos[job] = {"priority": max(1, int(info.get("priority", 1) or 1)),
                         "quota_mbps": max(0.0, float(info.get("quota_mbps", 0) or 0))}
-        self._job_workers = workers
+        tenants = any(qos)  # a job other than 0
+        self._job_workers = workers if tenants else {}
         self._job_qos = qos
-        # the lanes and writers engage only once a job declared QoS: with
-        # none, the order is the single job's
-        self._qos_active = any(q["priority"] > 1 or q["quota_mbps"] > 0 for q in qos.values())
+        # the lanes and writers engage only once a tenant's fleet declared
+        # QoS: with none, the order is the single job's
+        self._qos_active = tenants and any(q["priority"] > 1 or q["quota_mbps"] > 0
+                                           for q in qos.values())
         quota: Dict[int, _QuotaBucket] = {}
         for job, q in qos.items():
             mbps = q["quota_mbps"]

@@ -1042,17 +1042,31 @@ def _stop_processes(procs) -> None:
         _FLEET.pop(p, None)
 
 
+def _children(pid: int) -> list:
+    """The pids of a process's children (a launcher's workers)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+
+
 def _stall() -> None:
     """A phase ran past PHASE_STALL_S: this process's stacks, each live
-    server's and scheduler's (SIGUSR1, into its log or this stderr), and
-    every fleet log's tail go to stderr; the fleet is killed, and the
-    script exits 1."""
+    server's and scheduler's and each launcher host's workers' (SIGUSR1,
+    into its log or this stderr), and every fleet log's tail go to stderr;
+    the fleet is killed, and the script exits 1."""
     print(f"chip_smoke: FAIL: a phase ran past {PHASE_STALL_S} s; the stacks follow",
           file=sys.stderr, flush=True)
     faulthandler.dump_traceback(all_threads=True)
     for proc, (_name, _log, node) in list(_FLEET.items()):
-        if node and proc.poll() is None:
-            proc.send_signal(signal.SIGUSR1)
+        if proc.poll() is not None:
+            continue
+        for pid in [proc.pid] if node else _children(proc.pid):
+            try:
+                os.kill(pid, signal.SIGUSR1)
+            except OSError:
+                pass
     time.sleep(3)
     _fleet_tails("a phase stalled")
     for proc in list(_FLEET):
@@ -3835,7 +3849,8 @@ def train_elastic(card: str) -> dict:
             at once when its predecessor died."""
             return _track(subprocess.Popen(
                 [sys.executable, "-c",
-                 "import os, sys, time\n"
+                 "import faulthandler, os, signal, sys, time\n"
+                 "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
                  "from byteps_tpu_torch.server.server import run_server\n"
                  "while not os.path.exists(sys.argv[1]):\n    time.sleep(0.02)\n"
                  "run_server()\n", go],
@@ -4026,7 +4041,8 @@ def _waiting_server(env: dict, go: str, log) -> subprocess.Popen:
     when a resize asks for it."""
     return _track(subprocess.Popen(
         [sys.executable, "-c",
-         "import os, sys, time\n"
+         "import faulthandler, os, signal, sys, time\n"
+         "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
          "from byteps_tpu_torch.server.server import run_server\n"
          "print('ready', flush=True)\n"
          "while not os.path.exists(sys.argv[1]):\n    time.sleep(0.02)\n"
@@ -4293,7 +4309,8 @@ CONTROL_ENV = {
 #: already live), and appends each sweep's ms and its actions and rollbacks
 #: to argv[3]
 CONTROL_SCHED = (
-    "import os, sys, time\n"
+    "import faulthandler, os, signal, sys, time\n"
+    "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
     "from byteps_tpu_torch.comm import rendezvous as rv\n"
     "go, tuner_go, log = sys.argv[1:4]\n"
     "while go and not os.path.exists(go):\n"
@@ -5772,6 +5789,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] != [] and sys.argv[1].endswith("-host"):
+        # a host under a launcher: a stalled phase asks for its stacks
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
     if sys.argv[1:2] == ["--hybrid-host"]:
         hybrid_host(sys.argv[2])  # one host of the hybrid phase, under the launcher
     elif sys.argv[1:2] == ["--async-host"]:

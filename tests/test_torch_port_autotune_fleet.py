@@ -261,6 +261,14 @@ def test_codec_consensus_flips_a_port_and_a_reference_worker_together(monkeypatc
     from byteps_tpu.core.state import get_state as ref_state
     from byteps_tpu_torch.core.state import get_state as port_state
 
+    # the votes are the processes' registries: an earlier test in this
+    # process (another file's, under xdist) may have left a verdict of
+    # another codec there, which the first heartbeat to this scheduler
+    # would ship as votes
+    for tel in ("byteps_tpu.core.telemetry", "byteps_tpu_torch.core.telemetry"):
+        mod = __import__(tel, fromlist=["counters"])
+        mod.counters().reset()
+        mod.metrics().reset()
     k, sched, servers = _fleet(monkeypatch, workers=2, server_beats=False,
                                BYTEPS_COMPRESSION_AUTO="1", BYTEPS_PARTITION_BYTES="4096",
                                BYTEPS_MIN_COMPRESS_BYTES="0")

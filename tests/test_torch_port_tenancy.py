@@ -728,3 +728,39 @@ def test_a_fusion_pack_never_mixes_jobs():
         stop.set()
     assert sorted((t.job, len(t.context.members)) for t in added) == [(0, 1), (1, 2), (2, 1)]
     assert all({m.job for m, _ in t.context.members} == {t.job} for t in added)
+
+
+@pytest.mark.parametrize("jobs, port_n, ref_n", [
+    ({"0": {"workers": [0], "priority": 1, "quota_mbps": 0}}, 2, 1),
+    ({"0": {"workers": [0], "priority": 1, "quota_mbps": 0},
+      "3": {"workers": [1], "priority": 1, "quota_mbps": 0}}, 1, 1),
+])
+def test_a_single_tenant_book_keeps_the_fleets_worker_count(jobs, port_n, ref_n):
+    """The fourteenth divergence: with job 0 alone in the map (a single-
+    tenant fleet) the port's rounds complete against the book's worker
+    count, as before jobs were ported (under elastic membership the map
+    lists only the live ranks); byteps_tpu's take the map's.  With a
+    tenant in the map both packages size job 0 by its own workers."""
+    key = 4 << 16
+    sizes = []
+    for pkg in PKGS:
+        k = _kpkg(pkg)
+        srv = k.srv.PSServer(k.Config(num_worker=2, num_server=1))
+        try:
+            srv._adopt_jobs({"jobs": jobs})
+            sizes.append(srv._workers_for_ks(srv._key_state(key)))
+        finally:
+            srv.stop()
+    assert sizes == [port_n, ref_n]
+    if port_n == 2:
+        # a job-0 round on the port's server still waits for two pushes
+        w = _Wire("port", 2, jobs, [1])
+        try:
+            assert not w.srv._qos_active and not w.srv._job_workers
+            w.send(1, "INIT", key, version=101, payload=struct.pack("!QI", 4, F32))
+            ks = w.srv._key_state(key)
+            assert kits.wait(lambda: len(ks.init_waiters) == 1)
+            time.sleep(0.2)
+            assert len(ks.init_waiters) == 1  # the barrier waits for the second
+        finally:
+            w.close()
