@@ -5234,13 +5234,12 @@ def tenant_host(work: str) -> None:
     with open(go) as f:
         os.environ.update(json.load(f).get(name, {}))
     marks["go"] = time.time()
-    inits = [0, 0]
+    init_bytes = [0]
     send = _ServerConn.send
 
     def tap_send(sc, msg) -> None:
         if msg.op == Op.INIT:
-            inits[0] += 1
-            inits[1] += memoryview(msg.payload).nbytes
+            init_bytes[0] += memoryview(msg.payload).nbytes
         send(sc, msg)
 
     _ServerConn.send = tap_send
@@ -5280,9 +5279,8 @@ def tenant_host(work: str) -> None:
                  if dict(key).get("job") == job)
     out = {"run": run, "name": name, "job": int(job), "steps": steps,
            "digest": _param_digest(model), "jobs": client.jobs, "rank": client.rank,
-           "job_rank": bps.rank(), "size": bps.size(), "num_workers": client.num_workers,
-           "wire_tx_total": counters().get("wire_tx_bytes"), "wire_tx_job": tx_job,
-           "inits": inits[0], "init_bytes": inits[1],
+           "job_rank": bps.rank(), "size": bps.size(), "wire_tx_job": tx_job,
+           "init_bytes": init_bytes[0],
            "compressed_parts": sum(r["wire_nbytes"] is not None
                                    for r in get_state().engine.partition_table()
                                    if r["name"].startswith("Gradient.")),
