@@ -177,17 +177,18 @@ def push_pull_async(
 
 
 def host_push_pull_async(tensor: torch.Tensor, name: str, average: bool, priority: int,
-                         version: int, mesh) -> int:
+                         version: int, mesh, reduced: bool = False) -> int:
     """:func:`push_pull_async` over the local group ``mesh`` (None: this
     process alone), the one implementation of the three levels, which
-    ``parallel.HybridDataParallel`` runs on its mesh too."""
+    ``parallel.HybridDataParallel`` runs on its mesh too.  ``reduced``:
+    ``tensor`` is the group's sum already (level 1 done)."""
     st = require_state()
     if mesh is None:
         return _ps_push_pull_async(st, tensor, name, average, priority, version)
     from byteps_tpu_torch.comm import collectives
 
     local = tensor if tensor.device.type == mesh.device.type else tensor.to(mesh.device)
-    summed = collectives.push_pull(local, average=False, mesh=mesh)  # level 1
+    summed = local if reduced else collectives.push_pull(local, average=False, mesh=mesh)
     handle = None
     if mesh.rank == 0:
         try:
@@ -267,7 +268,7 @@ def _host_broadcast(out: Optional[torch.Tensor], code: int,
     """Level 3: the root's result (its group's sum when it has none) and
     its status ``code`` in one broadcast, the code in a byte after the
     result's; the root's code and every rank's copy of the result."""
-    import torch.distributed as dist
+    from byteps_tpu_torch.comm import collectives
 
     mesh, _, _, summed = host_level
     src = (out if out is not None else summed).detach().contiguous()
@@ -276,7 +277,7 @@ def _host_broadcast(out: Optional[torch.Tensor], code: int,
     if mesh.rank == 0:
         buf[:-1].copy_(src.reshape(-1).view(torch.uint8))
         buf[-1] = code
-    dist.broadcast(buf, src=0, group=mesh.group)
+    buf = collectives.broadcast(buf, root=0, mesh=mesh)
     if mesh.rank:
         code = int(buf[-1])  # the other ranks must know before they return
     return code, buf[:-1].view(src.dtype).reshape(src.shape)

@@ -58,6 +58,9 @@ class Config:
     worker_id: int = 0  # DMLC_WORKER_ID
     local_rank: int = 0  # BYTEPS_LOCAL_RANK
     local_size: int = 1  # BYTEPS_LOCAL_SIZE
+    #: how the host's group moves CUDA tensors: "" = NCCL, "staged" = gloo
+    #: through pinned host buffers, which lets several ranks share one card
+    mesh_transport: str = ""  # BYTEPS_MESH_TRANSPORT
     global_rank: Optional[int] = None  # BYTEPS_GLOBAL_RANK
     force_distributed: bool = False  # BYTEPS_FORCE_DISTRIBUTED
     job_id: int = 0  # BYTEPS_JOB_ID: key namespace of declared tensors
@@ -193,6 +196,7 @@ class Config:
             worker_id=_env_int("DMLC_WORKER_ID", 0),
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
+            mesh_transport=os.environ.get("BYTEPS_MESH_TRANSPORT", ""),
             global_rank=(
                 int(os.environ["BYTEPS_GLOBAL_RANK"])
                 if os.environ.get("BYTEPS_GLOBAL_RANK")
@@ -273,8 +277,8 @@ def clear_config() -> None:
 
 
 #: planes of byteps_tpu this port does not carry yet (the flight
-#: recorder's upload and trigger rules, model parallelism), each with the
-#: ROADMAP.md item that brings it.
+#: recorder's upload and trigger rules, mixture-of-experts layers and
+#: generation), each with the ROADMAP.md item that brings it.
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
@@ -282,7 +286,9 @@ UNPORTED = {
                      "ROADMAP.md Queue 1 item 10",
     "slo_trigger": "the flight recorder's slo_breach trigger rule (BYTEPS_JOB_SLO_S), with "
                    "its bundles: ROADMAP.md Queue 1 item 10",
-    "model_parallel": "model parallelism (mesh axes other than dp): ROADMAP.md Queue 1 item 9",
+    "moe_generation": "mixture-of-experts layers (expert parallelism on the sp axis) and "
+                      "generation (build_generate, build_generate_cached): the next slice, "
+                      "ROADMAP.md Queue 1 item 9 (its MoE and generation half)",
 }
 
 

@@ -5,20 +5,38 @@ The JAX package keeps a flat dict of numpy/JAX arrays; layer parameters
 are stacked with leading dims ``(pp, layers_per_stage)``.  The port keeps
 one module per layer: ``layers.<i>.<name>``, with the global layer index
 ``i = stage * layers_per_stage + j``.  Values are copied exactly.
+
+On a mesh each rank holds its shards (``models.transformer``):
+:func:`shard_params_from_jax` cuts a rank's state dict out of the global
+arrays, the slices the reference's ``shard_params`` places on the
+matching device, and :func:`params_to_jax` with a mesh gathers the shards
+back into the global layout on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from byteps_tpu_torch.comm import collectives
+from byteps_tpu_torch.comm.mesh import Mesh
 from byteps_tpu_torch.models.transformer import (
     TransformerConfig,
     is_layer_param,
+    local_spec,
     param_shapes,
+    validate_mesh,
 )
+
+
+def _check_names(np_params: Mapping[str, np.ndarray], shapes: Mapping) -> None:
+    if set(np_params) != set(shapes):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(shapes) - set(np_params))}, "
+            f"unexpected {sorted(set(np_params) - set(shapes))}"
+        )
 
 
 def params_from_jax(
@@ -26,11 +44,7 @@ def params_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """JAX-layout arrays → the port's state dict (CPU float32 tensors)."""
     shapes = param_shapes(cfg)
-    if set(np_params) != set(shapes):
-        raise ValueError(
-            f"parameter names differ: missing {sorted(set(shapes) - set(np_params))}, "
-            f"unexpected {sorted(set(np_params) - set(shapes))}"
-        )
+    _check_names(np_params, shapes)
     sd: Dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
         arr = np.asarray(np_params[name], dtype=np.float32)
@@ -43,24 +57,78 @@ def params_from_jax(
     return sd
 
 
+def _tp_slice(arr: np.ndarray, spec, tp: int, t: int) -> np.ndarray:
+    """Rank ``t`` of ``tp``'s block of ``arr`` along its tp-sharded dim."""
+    for dim, ax in enumerate(spec):
+        if ax == "tp":
+            n = arr.shape[dim] // tp
+            arr = np.take(arr, range(t * n, (t + 1) * n), axis=dim)
+    return arr
+
+
+def shard_params_from_jax(
+    np_params: Mapping[str, np.ndarray], cfg: TransformerConfig, mesh: Mesh
+) -> Dict[str, torch.Tensor]:
+    """This rank's state dict on ``mesh``: its pp stage's layers (global
+    indices) and its tp blocks of every tp-sharded parameter."""
+    validate_mesh(cfg, mesh)
+    shapes = param_shapes(cfg)
+    _check_names(np_params, shapes)
+    pp, stage = mesh.axis_size("pp"), mesh.axis_index("pp")
+    tp, t = mesh.axis_size("tp"), mesh.axis_index("tp")
+    lps = cfg.n_layers // pp
+    sd: Dict[str, torch.Tensor] = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(np_params[name], dtype=np.float32)
+        spec = local_spec(cfg, name)
+        if is_layer_param(name):
+            arr = arr.reshape((cfg.n_layers,) + shape)
+            for j in range(lps):
+                i = stage * lps + j
+                sd[f"layers.{i}.{name}"] = torch.from_numpy(
+                    np.ascontiguousarray(_tp_slice(arr[i], spec, tp, t)))
+        else:
+            sd[name] = torch.from_numpy(
+                np.ascontiguousarray(_tp_slice(arr.reshape(shape), spec, tp, t)))
+    return sd
+
+
 def params_to_jax(
-    state_dict: Mapping[str, torch.Tensor], cfg: TransformerConfig, pp_size: int = 1
+    state_dict: Mapping[str, torch.Tensor], cfg: TransformerConfig, pp_size: int = 1,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
-    """The port's state dict → JAX-layout float32 numpy arrays."""
+    """The port's state dict → JAX-layout float32 numpy arrays.  With a
+    ``mesh``, ``state_dict`` is this rank's shards: every rank of the mesh
+    calls this, and each gets the gathered global arrays (stacked over
+    ``pp_size`` stages)."""
     if cfg.n_layers % pp_size:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp {pp_size}")
     lps = cfg.n_layers // pp_size
 
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.detach().to("cpu", torch.float32).numpy()
+    def host(t: torch.Tensor) -> np.ndarray:  # a copy, never a view of a live parameter
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def whole(t: torch.Tensor, name: str) -> torch.Tensor:
+        if mesh is None:
+            return t
+        for dim, ax in enumerate(local_spec(cfg, name)):
+            if ax == "tp":
+                t = collectives.all_gather_axis(t.detach().contiguous(), "tp", dim, mesh)
+        return t
 
     out: Dict[str, np.ndarray] = {}
     for name, shape in param_shapes(cfg).items():
-        if is_layer_param(name):
-            stacked = np.stack(
-                [host(state_dict[f"layers.{i}.{name}"]) for i in range(cfg.n_layers)]
-            )
-            out[name] = stacked.reshape((pp_size, lps) + shape)
+        if not is_layer_param(name):
+            out[name] = host(whole(state_dict[name], name))
+            continue
+        if mesh is None:
+            stacked = torch.stack([state_dict[f"layers.{i}.{name}"].detach()
+                                   for i in range(cfg.n_layers)])
         else:
-            out[name] = host(state_dict[name])
+            mpp = mesh.axis_size("pp")
+            first = mesh.axis_index("pp") * (cfg.n_layers // mpp)
+            mine = torch.stack([whole(state_dict[f"layers.{first + j}.{name}"], name)
+                                for j in range(cfg.n_layers // mpp)])
+            stacked = collectives.all_gather_axis(mine.contiguous(), "pp", 0, mesh)
+        out[name] = host(stacked).reshape((pp_size, lps) + shape)
     return out

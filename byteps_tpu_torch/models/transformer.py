@@ -1,16 +1,41 @@
-"""Flagship transformer family (BERT-large, GPT-2 medium) on one device.
+"""Flagship transformer family (BERT-large, GPT-2 medium), over one device
+or a (dp, pp, sp, tp) mesh.
 
-The port of ``byteps_tpu.models.transformer`` for dp = pp = sp = tp = 1:
-the same configs, the same numpy parameter draws (:func:`init_params`),
-the same layer math and the same loss, as an ``nn.Module`` plus a train
-step function.  Parameters live in float32; activations are cast to
-``compute_dtype`` where the JAX code casts them (``.astype(cdt)``), so the
-residual stream runs in compute dtype after the embedding.  With
-``use_flash`` the attention is the port's flash attention (CUDA kernels on
-the card); otherwise the dense single-device attention.
+The port of ``byteps_tpu.models.transformer``: the same configs, the same
+numpy parameter draws (:func:`init_params`), the same layer math and the
+same loss, as an ``nn.Module`` plus a train step function.  Parameters
+live in float32; activations are cast to ``compute_dtype`` where the JAX
+code casts them (``.astype(cdt)``), so the residual stream runs in compute
+dtype after the embedding.  With ``use_flash`` the attention is the port's
+flash attention (CUDA kernels on the card); otherwise the dense attention.
 
-Model parallelism (pp/sp/tp/ep), mixture-of-experts layers and the
-generation helpers are later slices of the port and raise here.
+Over a mesh (``comm.mesh.Mesh``, e.g. ``parallel.mesh_utils.
+make_training_mesh``) each rank's module holds only its shards, as the
+reference's ``shard_map`` hands each device its blocks (:func:`param_specs`):
+
+- tp: Megatron tensor parallelism.  wq/wk/wv (and their biases) are
+  sharded on heads, w1/b1 on columns, wo/w2 on rows; an activation
+  replicated over tp meets the sharded weights through
+  ``collectives.psum_grad`` ("f") and the row-parallel products are
+  summed by ``collectives.psum`` ("g");
+- sp: the sequence is sharded; attention is the ring (dense, or flash
+  hops with ``use_flash``) or Ulysses (``seq_parallel_impl``), learned
+  positions are offset by the sp index and rope uses absolute positions;
+- pp: the layers are split into stages; GPipe over ``microbatches``
+  (default pp), each stage sending its activations on to the next
+  (``collectives.send_next`` / ``recv_prev``), with no bubble ticks;
+- dp: the batch is sharded.
+
+The loss is the reference's ``_local_loss``: targets below 0 ignored, the
+last stage's sum and count summed over pp, dp and sp.  After backward the
+train step sums each gradient over dp, sp and pp as
+:func:`grad_sync_axes` lists them: the reference's VMA-checked AD does
+that implicitly.  tp is left to the f/g pair (each tp rank already holds
+the whole gradient of what it replicates).  With every axis at 1 no
+collective runs and the model is the one-device model.
+
+Mixture-of-experts layers and the generation helpers are the next slice
+and raise.
 """
 
 from __future__ import annotations
@@ -23,10 +48,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from byteps_tpu_torch.comm import collectives
+from byteps_tpu_torch.comm.mesh import Mesh, as_axis_sizes
+from byteps_tpu_torch.common.config import unported
 from byteps_tpu_torch.ops.flash_attention import flash_attention
-from byteps_tpu_torch.parallel.ring_attention import ring_attention
+from byteps_tpu_torch.parallel.ring_attention import ring_attention, ring_flash_attention
+from byteps_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,16 +72,25 @@ class TransformerConfig:
     causal: bool = False  # BERT-style bidirectional by default
     moe: bool = False
     compute_dtype: torch.dtype = torch.float32
+    microbatches: int = 0  # GPipe microbatches; 0 = the pipeline's stage count
     # recompute each layer in the backward pass (activation checkpointing)
     remat: bool = True
     # attention through the flash-attention kernels instead of the dense
-    # (S, S) score matrix
+    # (S, S) score matrix; at sp > 1, flash hops in the ring
     use_flash: bool = False
+    # sequence parallelism at sp > 1: "ring" (any head count) or "ulysses"
+    # (all-to-all; the tp-local heads must divide by sp)
+    seq_parallel_impl: str = "ring"
     attn_bias: bool = False
     pos_emb: str = "learned"  # "learned" absolute table or "rope"
     rope_theta: float = 10000.0
 
     def __post_init__(self):
+        if self.seq_parallel_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"unknown seq_parallel_impl {self.seq_parallel_impl!r}; "
+                "expected 'ring' or 'ulysses'"
+            )
         if self.n_kv_heads is not None and self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"n_heads {self.n_heads} not divisible by n_kv_heads "
@@ -99,34 +137,72 @@ def tiny_test(**kw) -> TransformerConfig:
 
 def _require_dense(cfg: TransformerConfig) -> None:
     if cfg.moe:
-        raise NotImplementedError(
-            "mixture-of-experts layers are a later slice of the port "
-            "(ROADMAP.md Queue 1 item 9)"
-        )
+        raise unported("moe_generation", "moe=True")
 
 
 # ---------------------------------------------------------------------------
-# parameters
+# parameters: the reference's layout table
 # ---------------------------------------------------------------------------
+
+#: every axis of the mesh: the gradient of a parameter used whole on every
+#: rank is summed over all of them (tp by the f/g pair, the rest after backward)
+_ALL = ("dp", "pp", "sp", "tp")
+
+
+def _layouts(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple, Tuple[str, ...]]]:
+    """name → (per-layer or global shape, partition spec of the stacked
+    global array, gradient-sync axes), the reference's table: a spec is a
+    tuple of mesh axis names or None per dimension (trailing ones left
+    out), layer parameters stacked with leading dims (pp, layers_per_stage)."""
+    _require_dense(cfg)
+    D, H, dh, F_, KV = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff, cfg.kv_heads
+    table = {"embed": ((cfg.vocab_size, D), (), _ALL)}
+    if cfg.pos_emb == "learned":
+        table["pos"] = ((cfg.max_seq, D), (), _ALL)
+    table.update({
+        "ln_f_s": ((D,), (), _ALL),
+        "ln_f_b": ((D,), (), _ALL),
+        "head": ((D, cfg.vocab_size), (), _ALL),
+        "ln1_s": ((D,), ("pp",), ("dp", "sp", "tp")),
+        "ln1_b": ((D,), ("pp",), ("dp", "sp", "tp")),
+        "ln2_s": ((D,), ("pp",), ("dp", "sp", "tp")),
+        "ln2_b": ((D,), ("pp",), ("dp", "sp", "tp")),
+        "wq": ((D, H, dh), ("pp", None, None, "tp", None), ("dp", "sp")),
+        "wk": ((D, KV, dh), ("pp", None, None, "tp", None), ("dp", "sp")),
+        "wv": ((D, KV, dh), ("pp", None, None, "tp", None), ("dp", "sp")),
+        "wo": ((H, dh, D), ("pp", None, "tp", None, None), ("dp", "sp")),
+    })
+    if cfg.attn_bias:
+        table.update({
+            "wq_b": ((H, dh), ("pp", None, "tp", None), ("dp", "sp")),
+            "wk_b": ((KV, dh), ("pp", None, "tp", None), ("dp", "sp")),
+            "wv_b": ((KV, dh), ("pp", None, "tp", None), ("dp", "sp")),
+            # added after the tp psum, like b2
+            "wo_b": ((D,), ("pp",), ("dp", "sp", "tp")),
+        })
+    table.update({
+        "w1": ((D, F_), ("pp", None, None, "tp"), ("dp", "sp")),
+        "b1": ((F_,), ("pp", None, "tp"), ("dp", "sp")),
+        "w2": ((F_, D), ("pp", None, "tp", None), ("dp", "sp")),
+        "b2": ((D,), ("pp",), ("dp", "sp", "tp")),
+    })
+    return table
 
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """name → per-layer (or global) shape, in the JAX package's order: the
     order :func:`init_params` draws in."""
-    _require_dense(cfg)
-    D, H, dh, F_, KV = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff, cfg.kv_heads
-    shapes: Dict[str, Tuple[int, ...]] = {"embed": (cfg.vocab_size, D)}
-    if cfg.pos_emb == "learned":
-        shapes["pos"] = (cfg.max_seq, D)
-    shapes.update({
-        "ln_f_s": (D,), "ln_f_b": (D,), "head": (D, cfg.vocab_size),
-        "ln1_s": (D,), "ln1_b": (D,), "ln2_s": (D,), "ln2_b": (D,),
-        "wq": (D, H, dh), "wk": (D, KV, dh), "wv": (D, KV, dh), "wo": (H, dh, D),
-    })
-    if cfg.attn_bias:
-        shapes.update({"wq_b": (H, dh), "wk_b": (KV, dh), "wv_b": (KV, dh), "wo_b": (D,)})
-    shapes.update({"w1": (D, F_), "b1": (F_,), "w2": (F_, D), "b2": (D,)})
-    return shapes
+    return {k: shape for k, (shape, _, _) in _layouts(cfg).items()}
+
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, Tuple]:
+    """name → the partition spec of the global (stacked) array."""
+    return {k: spec for k, (_, spec, _) in _layouts(cfg).items()}
+
+
+def grad_sync_axes(cfg: TransformerConfig) -> Dict[str, Tuple[str, ...]]:
+    """name → the axes its gradient is summed over (tp by the f/g pair)."""
+    return {k: axes for k, (_, _, axes) in _layouts(cfg).items()}
 
 
 _LAYER_PARAMS_PREFIXES = ("ln1_", "ln2_", "wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2")
@@ -134,6 +210,24 @@ _LAYER_PARAMS_PREFIXES = ("ln1_", "ln2_", "wq", "wk", "wv", "wo", "w1", "b1", "w
 
 def is_layer_param(name: str) -> bool:
     return name.startswith(_LAYER_PARAMS_PREFIXES)
+
+
+def local_spec(cfg: TransformerConfig, name: str) -> Tuple:
+    """The partition of one layer's (or a global) parameter over the mesh,
+    one entry per dimension of :func:`param_shapes`' shape: the stacked
+    spec without its (pp, layers_per_stage) dims."""
+    shape, spec, _ = _layouts(cfg)[name]
+    if is_layer_param(name):
+        spec = spec[2:]
+    return tuple(spec) + (None,) * (len(shape) - len(spec))
+
+
+def local_shapes(cfg: TransformerConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """name → the shape a rank of a mesh with ``tp`` tensor-parallel ranks
+    holds."""
+    return {name: tuple(n // tp if ax == "tp" else n
+                        for n, ax in zip(shape, local_spec(cfg, name)))
+            for name, shape in param_shapes(cfg).items()}
 
 
 def init_params(
@@ -208,61 +302,100 @@ def _repeat_kv(k, v, n_q_heads: int):
     return k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
 
 
-def _attn_out(cfg: TransformerConfig, attn, lp, x):
+def _f(x, mesh: Optional[Mesh]):
+    """Megatron's f: an activation replicated over tp meets tp-sharded
+    weights (the identity without a tp axis)."""
+    return x if mesh is None else collectives.psum_grad(x, "tp", mesh)
+
+
+def _g(x, mesh: Optional[Mesh]):
+    """Megatron's g: the row-parallel combine over tp."""
+    return x if mesh is None else collectives.psum(x, "tp", mesh)
+
+
+def _attn_out(cfg: TransformerConfig, attn, lp, x, mesh: Optional[Mesh] = None):
     cdt = cfg.compute_dtype
     o = torch.einsum("bhsk,hkd->bsd", attn, lp.wo.to(cdt))
+    o = _g(o, mesh)
     if cfg.attn_bias:
         o = o + lp.wo_b.to(cdt)
     return x + o.to(x.dtype)
 
 
-def _dense_mlp(cfg: TransformerConfig, x, lp):
+def _dense_mlp(cfg: TransformerConfig, x, lp, mesh: Optional[Mesh] = None):
     cdt = cfg.compute_dtype
-    g = _ln(x, lp.ln2_s, lp.ln2_b).to(cdt)
+    g = _f(_ln(x, lp.ln2_s, lp.ln2_b).to(cdt), mesh)
     hmid = F.gelu(
         torch.einsum("bsd,df->bsf", g, lp.w1.to(cdt)) + lp.b1.to(cdt),
         approximate="tanh",  # jax.nn.gelu's default
     )
-    y = torch.einsum("bsf,fd->bsd", hmid, lp.w2.to(cdt)) + lp.b2.to(cdt)
+    y = _g(torch.einsum("bsf,fd->bsd", hmid, lp.w2.to(cdt)), mesh)
+    y = y + lp.b2.to(cdt)
     return x + y.to(x.dtype)
 
 
+def _attention(cfg: TransformerConfig, q, k, v, mesh: Optional[Mesh]):
+    """The reference's choice in ``layer_fn``."""
+    sp = mesh.axis_size("sp") if mesh is not None else 1
+    if sp == 1 and cfg.use_flash:
+        return flash_attention(q, k, v, causal=cfg.causal)
+    if sp > 1 and cfg.seq_parallel_impl == "ulysses":
+        return ulysses_attention(q, k, v, "sp", sp, causal=cfg.causal, mesh=mesh)
+    if sp > 1 and cfg.use_flash:
+        return ring_flash_attention(q, k, v, "sp", sp, causal=cfg.causal, mesh=mesh)
+    return ring_attention(q, k, v, axis_name="sp" if sp > 1 else None, axis_size=sp,
+                          causal=cfg.causal, mesh=mesh)
+
+
 class TransformerLayer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 mesh: Optional[Mesh] = None) -> None:
         super().__init__()
         self.cfg = cfg
-        for name, shape in param_shapes(cfg).items():
+        self.mesh = mesh
+        tp = mesh.axis_size("tp") if mesh is not None else 1
+        for name, shape in local_shapes(cfg, tp).items():
             if is_layer_param(name):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(shape, device=device))
                 )
 
     def forward(self, x):
-        cfg = self.cfg
-        h = _ln(x, self.ln1_s, self.ln1_b).to(cfg.compute_dtype)
-        positions = (
-            torch.arange(x.shape[1], device=x.device) if cfg.pos_emb == "rope" else None
-        )
+        cfg, mesh = self.cfg, self.mesh
+        h = _f(_ln(x, self.ln1_s, self.ln1_b).to(cfg.compute_dtype), mesh)
+        positions = None
+        if cfg.pos_emb == "rope":
+            off = mesh.axis_index("sp") * x.shape[1] if mesh is not None else 0
+            positions = off + torch.arange(x.shape[1], device=x.device)
         q, k, v = _qkv_proj(cfg, h, self, positions)
         k, v = _repeat_kv(k, v, q.shape[1])
-        if cfg.use_flash:
-            attn = flash_attention(q, k, v, causal=cfg.causal)
-        else:
-            attn = ring_attention(q, k, v, axis_name=None, causal=cfg.causal)
-        x = _attn_out(cfg, attn, self, x)
-        return _dense_mlp(cfg, x, self)
+        attn = _attention(cfg, q, k, v, mesh)
+        x = _attn_out(cfg, attn, self, x, mesh)
+        return _dense_mlp(cfg, x, self, mesh)
 
 
-def validate_mesh(axis_sizes: Optional[Mapping[str, int]]) -> None:
-    """Data parallelism (dp) lives outside the model: each process of the
-    host's group holds all of it (``comm.mesh``, ``parallel.hybrid``).  The
-    port runs pp = sp = tp = 1; any larger model axis raises."""
-    for axis, n in (axis_sizes or {}).items():
-        if n != 1 and axis != "dp":
-            raise NotImplementedError(
-                f"mesh axis {axis}={n}: model parallelism is a later slice "
-                "of the port (ROADMAP.md Queue 1 item 9)"
-            )
+def validate_mesh(cfg: TransformerConfig, mesh: Union[Mesh, Mapping[str, int], None]) -> None:
+    """Config × mesh checks, the reference's messages: wq is tp-sharded on
+    the query heads, wk/wv on the KV heads, w1 on d_ff; the layers split
+    into pp stages.  ``mesh`` may be a mapping of axis sizes."""
+    sizes = as_axis_sizes(mesh)
+    tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
+    if cfg.n_heads % tp:
+        raise ValueError(
+            f"n_heads {cfg.n_heads} not divisible by tp={tp}: wq is "
+            "tp-sharded on the head dim"
+        )
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"n_kv_heads {cfg.kv_heads} not divisible by tp={tp}: wk/wv "
+            "are tp-sharded on the KV-head dim — use more KV heads or a "
+            "smaller tp axis (GQA groups cannot span tp shards)"
+        )
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by tp={tp}: w1 is tp-sharded "
+                         "on its columns")
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp {pp}")
 
 
 def _default_device() -> torch.device:
@@ -272,69 +405,211 @@ def _default_device() -> torch.device:
     return st.device if st.initialized else torch.device("cuda")
 
 
+class _StageLayers(nn.ModuleList):
+    """A later pipeline stage's layers, named by their global index (the
+    state dict's ``layers.<i>`` is the model's layer i on every stage)."""
+
+    def __init__(self, layers, offset: int) -> None:
+        super().__init__()
+        for j, layer in enumerate(layers):
+            self.add_module(str(offset + j), layer)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+
 class Transformer(nn.Module):
-    """The model on one device.  Parameters are allocated, not drawn:
-    load them with ``model.load_state_dict(params_from_jax(init_params(cfg,
-    seed), cfg))``.  ``device`` defaults to the one ``init()`` bound, else
-    CUDA."""
+    """The model, or with ``mesh`` this rank's shards of it.  Parameters
+    are allocated, not drawn: load them with ``model.load_state_dict(
+    params_from_jax(init_params(cfg, seed), cfg))`` (on a mesh,
+    ``shard_params_from_jax``).  ``device`` defaults to the one ``init()``
+    bound, else CUDA."""
 
     def __init__(
         self,
         cfg: TransformerConfig,
         device: Union[str, torch.device, None] = None,
-        axis_sizes: Optional[Mapping[str, int]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         super().__init__()
-        validate_mesh(axis_sizes)
+        validate_mesh(cfg, mesh)
         device = torch.device(device) if device is not None else _default_device()
         self.cfg = cfg
-        for name, shape in param_shapes(cfg).items():
+        # a mesh of one rank runs no collective: the one-device model
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        tp = self.axis_size("tp")
+        for name, shape in local_shapes(cfg, tp).items():
             if not is_layer_param(name):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(shape, device=device))
                 )
-        self.layers = nn.ModuleList(
-            TransformerLayer(cfg, device) for _ in range(cfg.n_layers)
-        )
+        lps = cfg.n_layers // self.axis_size("pp")
+        offset = self.axis_index("pp") * lps
+        layers = [TransformerLayer(cfg, device, self.mesh) for _ in range(lps)]
+        self.layers = nn.ModuleList(layers) if offset == 0 else _StageLayers(layers, offset)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int → logits (B, S, V) in compute dtype."""
+    def axis_size(self, axis: str) -> int:
+        return self.mesh.axis_size(axis) if self.mesh is not None else 1
+
+    def axis_index(self, axis: str) -> int:
+        return self.mesh.axis_index(axis) if self.mesh is not None else 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.axis_index("pp") == self.axis_size("pp") - 1
+
+    def _stage(self, x):
+        for layer in self.layers:
+            if self.cfg.remat and torch.is_grad_enabled():
+                if self.mesh is None:
+                    x = checkpoint(layer, x, use_reentrant=False)
+                else:
+                    # recompute the whole layer, every collective in it: a
+                    # recompute that stops once it has what this rank saved
+                    # skips the exchanges a causal ring's skipped hops feed,
+                    # and its peers would wait for them
+                    with set_checkpoint_early_stop(False):
+                        x = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x)
+        return x
+
+    def _embed(self, tokens):
         cfg = self.cfg
         x = self.embed[tokens]
         if cfg.pos_emb == "learned":
-            x = x + self.pos[: tokens.shape[1]]
-        x = x.to(cfg.compute_dtype)
-        for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, use_reentrant=False)
+            off = self.axis_index("sp") * tokens.shape[1]
+            x = x + self.pos[off: off + tokens.shape[1]]
+        return x.to(cfg.compute_dtype)
+
+    def _pipeline(self, tokens):
+        """GPipe: (the last stage's final activations or None, the zero
+        scalar whose backward receives the next stage's cotangents)."""
+        cfg, mesh = self.cfg, self.mesh
+        pp, stage = self.axis_size("pp"), self.axis_index("pp")
+        b, s = tokens.shape
+        m = cfg.microbatches or pp
+        if b % m:
+            raise ValueError(f"local batch {b} not divisible by {m} microbatches")
+        if pp == 1:
+            return self._stage(self._embed(tokens)), None
+        xs = self._embed(tokens).chunk(m) if stage == 0 else None
+        like = torch.empty((b // m, s, cfg.d_model), dtype=cfg.compute_dtype,
+                           device=tokens.device)
+        outs, sent = [], []
+        for i in range(m):
+            x = xs[i] if stage == 0 else collectives.recv_prev(like, "pp", mesh)
+            y = self._stage(x)
+            if stage < pp - 1:
+                sent.append(collectives.send_next(y, "pp", mesh))
             else:
-                x = layer(x)
+                outs.append(y)
+        return (torch.cat(outs) if outs else None), (sum(sent) if sent else None)
+
+    def _logits(self, x):
+        cfg = self.cfg
         h = _ln(x, self.ln_f_s, self.ln_f_b).to(cfg.compute_dtype)
         return torch.einsum("bsd,dv->bsv", h, self.head.to(cfg.compute_dtype))
 
-    def loss(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return token_loss(self(tokens), targets)
+    def forward(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        """tokens (B, S) int (this rank's block on a mesh) → logits (B, S,
+        V) in compute dtype; None on a pipeline stage other than the last."""
+        x, _ = self._pipeline(tokens)
+        return self._logits(x) if x is not None else None
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             over: Tuple[str, ...] = ("pp", "dp", "sp")) -> torch.Tensor:
+        """The mean token loss over the batch blocks of the axes ``over``
+        (default: the whole global batch; ``("pp", "sp")`` is one dp
+        replica's, what ``HybridDataParallel`` averages over dp)."""
+        if self.mesh is None:
+            return token_loss(self(tokens), targets)
+        x, sent = self._pipeline(tokens)
+        if x is not None:
+            local = torch.stack(_token_loss_terms(self._logits(x), targets))
+        else:
+            local = torch.zeros(2, device=tokens.device)
+        for ax in over:
+            local = collectives.psum(local, ax, self.mesh)
+        loss = local[0] / local[1]
+        return loss if sent is None else loss + sent
+
+    def param_specs(self) -> Dict[str, Tuple]:
+        """Parameter name → its partition over the mesh, one entry per dim."""
+        return {name: local_spec(self.cfg, name.rsplit(".", 1)[-1])
+                for name, _ in self.named_parameters()}
+
+    def grad_sync_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Parameter name → :func:`grad_sync_axes`' entry for it."""
+        table = grad_sync_axes(self.cfg)
+        return {name: table[name.rsplit(".", 1)[-1]] for name, _ in self.named_parameters()}
+
+    def sync_grads(self) -> None:
+        """Sum each gradient over the axes :func:`grad_sync_axes` lists
+        for it, tp left out (the f/g pair's), one flattened all-reduce per
+        set of axes and axis.  A parameter this stage did not use (the
+        embedding past stage 0, the head before the last) adds zeros."""
+        if self.mesh is not None:
+            collectives.sync_grads(dict(self.named_parameters()), self.grad_sync_axes(),
+                                   self.mesh)
+
+
+def _token_loss_terms(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of the token cross-entropies, count of the targets ≥ 0), f32."""
+    valid = (targets >= 0).float()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.clamp(min=0).long()[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
 
 
 def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in float32.  Every position with a target
     below 0 is ignored (masked-LM and padding)."""
-    valid = (targets >= 0).float()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.clamp(min=0).long()[..., None])[..., 0]
-    return ((logz - gold) * valid).sum() / valid.sum()
+    total, count = _token_loss_terms(logits, targets)
+    return total / count
+
+
+def shard_batch(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's block of a global (B, S) batch: rows over dp, the
+    sequence over sp (the reference's ``P("dp", "sp")``)."""
+    if mesh is None:
+        return x
+    dp, sp = mesh.axis_size("dp"), mesh.axis_size("sp")
+    b, s = x.shape[0] // dp, x.shape[1] // sp
+    i, j = mesh.axis_index("dp"), mesh.axis_index("sp")
+    return x[i * b:(i + 1) * b, j * s:(j + 1) * s]
+
+
+def build_forward(model: Transformer) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``forward(tokens) → logits`` without autograd, the last pipeline
+    stage's logits on every rank."""
+
+    def forward(tokens: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            logits = model(tokens)
+            if model.axis_size("pp") == 1:
+                return logits
+            if logits is None:
+                cfg = model.cfg
+                logits = torch.zeros((*tokens.shape, cfg.vocab_size), dtype=cfg.compute_dtype,
+                                     device=tokens.device)
+            return collectives.all_reduce_axis(logits, "pp", model.mesh)
+
+    return forward
 
 
 def build_train_step(
     model: Transformer, optimizer: torch.optim.Optimizer
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """One train step: ``step(tokens, targets) → loss`` (detached)."""
+    """One train step: ``step(tokens, targets) → loss`` (detached), on this
+    rank's shards with this rank's block of the batch."""
 
     def step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = model.loss(tokens, targets)
         loss.backward()
+        model.sync_grads()
         optimizer.step()
         return loss.detach()
 
@@ -342,9 +617,8 @@ def build_train_step(
 
 
 def build_generate(cfg: TransformerConfig, *args, **kwargs):
-    raise NotImplementedError(
-        "generation is a later slice of the port (ROADMAP.md Queue 1 item 9)"
-    )
+    raise unported("moe_generation", "build_generate")
 
 
-build_generate_cached = build_generate
+def build_generate_cached(cfg: TransformerConfig, *args, **kwargs):
+    raise unported("moe_generation", "build_generate_cached")

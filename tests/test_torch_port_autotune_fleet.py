@@ -166,8 +166,11 @@ def _moved(k) -> int:
 
 def test_a_forced_move_lands_with_pulls_bitwise(monkeypatch):
     key = _key_on(0)
+    # the test sweeps by hand once every key's INIT has answered: a forced
+    # move fires on the first sweep, and a sweep of the scheduler's own loop
+    # could come before the INITs, when no server holds the key yet
     k, sched, servers = _fleet(monkeypatch, BYTEPS_AUTOTUNE_FORCE=f"move={key}:1",
-                               BYTEPS_RPC_RETRIES="4")
+                               BYTEPS_RPC_RETRIES="4", BYTEPS_AUTOTUNE_INTERVAL_S="3600")
     pc = k.PSClient(k.Config.from_env())
     keys = [key, _key_on(0, skip=1), _key_on(1)]
     xs = {kk: kits.vals(60 + i, 256, 12) for i, kk in enumerate(keys)}
@@ -176,6 +179,7 @@ def test_a_forced_move_lands_with_pulls_bitwise(monkeypatch):
         pc.connect()
         for kk in keys:
             pc.init_tensor(kk, 256, 0)
+        sched._tuner_sweep_once()
         ver = 0
         while ver < 10 and not (sched.tuner.state.overrides and _moved(k) > moved0):
             ver += 1

@@ -184,14 +184,18 @@ def test_a_cuda_tensor_never_goes_through_gloo():
 
 
 @pytest.mark.parametrize("spec,error,match", [
-    ("dp:2,tp:2", NotImplementedError, "ROADMAP.md Queue 1 item 9"),
-    ("sp:1", NotImplementedError, "ROADMAP.md Queue 1 item 9"),
+    # model axes lay the group out (they reach the rendezvous); expert
+    # parallelism is the next slice
+    ("dp:1,tp:2", RuntimeError, "no rendezvous"),
+    ("sp:2", RuntimeError, "no rendezvous"),
+    ("dp:1,ep:2", NotImplementedError, "mixture-of-experts.*next slice"),
     ("dp:4", ValueError, "does not match the host's 2 processes"),
     ("", RuntimeError, "no rendezvous"),
 ])
 def test_build_mesh_refuses_what_it_cannot_build(monkeypatch, spec, error, match):
-    """Only a dp axis of the host's size is ported; without a rendezvous
-    the group cannot come up.  Each raises before any process group."""
+    """Any product of dp, pp, sp and tp that is the host's size lays the
+    group out; an ep axis is the next slice; without a rendezvous the group
+    cannot come up.  Each raises before any process group."""
     import torch.distributed as dist
 
     from byteps_tpu_torch.comm import mesh as pmesh

@@ -224,25 +224,31 @@ def test_builders_raise_the_reference_value_errors():
 
 
 def test_hybrid_refuses_sharded_param_specs():
-    """A partition spec that shards a parameter is tensor parallelism
-    (Queue 1 item 9), and a hybrid needs a mesh."""
+    """A hybrid shards parameters over tp (tests/test_torch_port_model_
+    parallel_hybrid.py trains it); a spec over sp is expert parallelism,
+    the next slice; over dp or pp it is no hybrid's; and a hybrid needs a
+    mesh."""
     from byteps_tpu_torch.comm.mesh import Mesh as PortMesh
     from byteps_tpu_torch.parallel import HybridDataParallel
 
     model = ranks.MLP(ranks.mlp_params())
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     one = PortMesh(0, 1, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        HybridDataParallel(model, opt, mesh=one, param_specs={"w1": (None, "tp")})
+    with pytest.raises(NotImplementedError, match="expert parallelism.*next slice"):
+        HybridDataParallel(model, opt, mesh=one, param_specs={"w1": (None, "sp")})
+    with pytest.raises(ValueError, match="shards parameters over tp only"):
+        HybridDataParallel(model, opt, mesh=one, param_specs={"w1": ("pp", None)})
     with pytest.raises(RuntimeError, match="no mesh"):
         HybridDataParallel(model, opt)
 
 
 def test_the_model_takes_any_dp_size_and_no_model_axis():
-    """dp lives outside the model (each process holds all of it); the model
-    axes still raise."""
+    """dp shards the batch; the model axes shard the model (the layouts a
+    mesh can take, tests/test_torch_port_model_parallel*.py); mixture-of-
+    experts layers are the next slice."""
     from byteps_tpu_torch.models import transformer as tt
 
-    tt.validate_mesh({"dp": 4, "tp": 1})
-    with pytest.raises(NotImplementedError, match="pp=2.*Queue 1 item 9"):
-        tt.validate_mesh({"dp": 4, "pp": 2})
+    tt.validate_mesh(tt.tiny_test(), {"dp": 4, "tp": 1})
+    tt.validate_mesh(tt.tiny_test(), {"dp": 4, "pp": 2, "sp": 2, "tp": 2})
+    with pytest.raises(NotImplementedError, match="mixture-of-experts.*next slice"):
+        tt.Transformer(tt.tiny_test(moe=True), device="meta")

@@ -303,8 +303,208 @@ def case_elastic() -> dict:
     return out
 
 
+# --- model parallelism ----------------------------------------------------
+
+#: the attention cases: q/k/v (B, H, S, dh) and the sp sizes
+ATTN_SHAPE, ATTN_SP = (2, 2, 16, 8), (2, 4)
+#: tiny_test trained for MP_STEPS SGD steps at each mesh: (label, axis
+#: sizes, config kwargs)
+MP_LR, MP_STEPS, MP_BATCH, MP_SEED = 0.1, 3, 4, 0
+MP_TRAIN = [
+    ("tp2", {"tp": 2}, {}),
+    ("pp2", {"pp": 2}, {"microbatches": 2}),
+    ("sp2_ring", {"sp": 2}, {"causal": True}),
+    ("sp2_ring_flash", {"sp": 2}, {"causal": True, "use_flash": True, "pos_emb": "rope"}),
+    ("sp2_ulysses", {"sp": 2}, {"causal": True, "seq_parallel_impl": "ulysses"}),
+    ("pp2_tp2", {"pp": 2, "tp": 2}, {"causal": True, "attn_bias": True}),
+    ("dp2_sp2", {"dp": 2, "sp": 2}, {"use_flash": True}),
+]
+
+
+def attn_inputs(seed: int):
+    """q, k, v and the output cotangent w of the attention cases."""
+    r = np.random.default_rng(seed)
+    return [r.normal(size=ATTN_SHAPE).astype(np.float32) for _ in range(4)]
+
+
+def mp_data(vocab: int, seq: int):
+    """(tokens, targets) of the training cases: next-token targets, a few
+    ignored (< 0)."""
+    r = np.random.default_rng(MP_SEED)
+    tokens = r.integers(0, vocab, size=(MP_BATCH, seq)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1).astype(np.int32)
+    targets[:, -1] = -1
+    targets[0, 3] = -1
+    return tokens, targets
+
+
+def case_mp_attention() -> dict:
+    """Ring attention (dense and flash hops) at every sp of ATTN_SP, causal
+    and not, and Ulysses at sp 2: each rank's block of O and of dQ, dK, dV
+    for the loss sum(O * w)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+    from byteps_tpu_torch.parallel.ring_attention import ring_attention, ring_flash_attention
+    from byteps_tpu_torch.parallel.ulysses import ulysses_attention
+
+    bps.init(device="cpu")
+    n = bps.local_size()
+    out = {}
+    fns = {"ring": ring_attention, "ring_flash": ring_flash_attention,
+           "ulysses": ulysses_attention}
+    for sp in ATTN_SP:
+        mesh = make_training_mesh(axis_sizes={"dp": n // sp, "sp": sp})
+        j, s = mesh.axis_index("sp"), ATTN_SHAPE[2] // sp
+        for causal in (True, False):
+            for impl, fn in fns.items():
+                if impl == "ulysses" and sp != 2:
+                    continue
+                q, k, v, w = (torch.from_numpy(a[:, :, j * s:(j + 1) * s].copy())
+                              for a in attn_inputs(3))
+                for t in (q, k, v):
+                    t.requires_grad_(True)
+                o = fn(q, k, v, "sp", sp, causal=causal, mesh=mesh)
+                (o * w).sum().backward()
+                out[(impl, sp, causal)] = (j, o.detach().numpy(), q.grad.numpy(),
+                                           k.grad.numpy(), v.grad.numpy())
+    bps.shutdown()
+    return out
+
+
+def wait_for(path: str, timeout: float = 150.0):
+    """Load the pickle the test process writes to ``path`` (atomically)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def case_mp_train() -> dict:
+    """Each MP_TRAIN mesh ``MP_LABELS`` names (comma-separated), trained
+    for MP_STEPS SGD steps, each step taken from the reference's
+    parameters of that step (``<MP_REF_DIR>/ref.<label>.pkl``, global
+    arrays): tiny_test's loss is chaotic enough in f32 that two exact
+    trajectories part by more than rounding after a step or two, so each
+    step starts where the reference's did.  Per step: the loss, every
+    gradient shard, and the parameters after the step gathered into the
+    reference's layout; build_forward's logits at the first step's
+    parameters; and the rank's coordinates."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import transformer as tt
+    from byteps_tpu_torch.models.convert import params_to_jax, shard_params_from_jax
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    bps.init(device="cpu")
+    labels = os.environ["MP_LABELS"].split(",")
+    out = {}
+    for label, axes, kw in MP_TRAIN:
+        if label not in labels:
+            continue
+        mesh = make_training_mesh(axis_sizes=axes)
+        cfg = tt.tiny_test(**kw)
+        pp = mesh.axis_size("pp")
+        model = tt.Transformer(cfg, device="cpu", mesh=mesh)
+        step = tt.build_train_step(model, torch.optim.SGD(model.parameters(), lr=MP_LR))
+        tokens, targets = (tt.shard_batch(torch.from_numpy(a), mesh)
+                           for a in mp_data(cfg.vocab_size, cfg.max_seq))
+        ref_params = wait_for(os.path.join(os.environ["MP_REF_DIR"], f"ref.{label}.pkl"))
+        losses, grads, after = [], [], []
+        for k in range(MP_STEPS):
+            model.load_state_dict(shard_params_from_jax(ref_params[k], cfg, mesh))
+            if k == 0:
+                logits = tt.build_forward(model)(tokens.long()).numpy()
+            losses.append(float(step(tokens.long(), targets)))
+            grads.append({n: p.grad.numpy().copy() for n, p in model.named_parameters()})
+            after.append(params_to_jax(model.state_dict(), cfg, pp_size=pp, mesh=mesh))
+        coords = {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")}
+        out[label] = {"losses": losses, "grads": grads, "after": after, "coords": coords,
+                      "logits": logits}
+    bps.shutdown()
+    return out
+
+
+#: the sharded hybrid: each host a {dp:2, tp:2} mesh, the MLP's w1 split
+#: on columns and w2 on rows (tests/test_hybrid_topology.py's specs)
+MP_HYBRID_AXES = {"dp": 2, "tp": 2}
+MP_HYBRID_SPECS = {"w1": (None, "tp"), "w2": ("tp", None)}
+
+
+def case_mp_hybrid() -> dict:
+    """One host of the sharded hybrid: HybridDataParallel on the MLP's tp
+    shards, this rank's dp rows of the host's batch, the row-parallel
+    product summed over tp.  The keys it declared, every pull the root's
+    PS hop brought back (whole), the losses and the final shards."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import collectives as C
+    from byteps_tpu_torch.parallel import HybridDataParallel
+    from byteps_tpu_torch.parallel import hybrid as hybrid_mod
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    bps.init(device="cpu")
+    host = int(os.environ["BYTEPS_GLOBAL_RANK"])
+    mesh = make_training_mesh(axis_sizes=MP_HYBRID_AXES)
+    t, tp = mesh.axis_index("tp"), mesh.axis_size("tp")
+    full = mlp_params()
+    cols = slice(t * H // tp, (t + 1) * H // tp)
+    model = MLP({"w1": full["w1"][:, cols], "w2": full["w2"][cols, :]})
+
+    def loss_fn(m, batch):
+        x, y = batch
+        return ((C.psum(torch.tanh(x @ m.w1) @ m.w2, "tp", mesh) - y) ** 2).mean()
+
+    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=LR), mesh=mesh,
+                             param_specs=MP_HYBRID_SPECS)
+    pulls = []
+    real = hybrid_mod.synchronize
+
+    def tap(handle):
+        out = real(handle)
+        pulls.append(out.numpy().copy())
+        return out
+
+    hybrid_mod.synchronize = tap
+    x, y = mlp_data(host)
+    d, dp = mesh.axis_index("dp"), mesh.axis_size("dp")
+    rows = slice(d * B // dp, (d + 1) * B // dp)
+    batch = (torch.from_numpy(x[0][rows]), torch.from_numpy(y[0][rows]))
+    losses = [hdp.step(batch, loss_fn) for _ in range(STEPS)]
+    out = {"keys": hdp.keys, "pulls": pulls, "losses": losses, "coords": (d, t),
+           "params": {k: v.detach().numpy().copy() for k, v in model.named_parameters()}}
+    torch.distributed.barrier()
+    bps.shutdown()
+    return out
+
+
+def case_cuda_clash() -> dict:
+    """Two ranks that name one CUDA device, no staged transport: build_mesh
+    raises before any process group comes up.  Then the same two ranks
+    build a CPU mesh from the spec "dp=1,tp=2" (a rendezvous of its own)
+    and sum their ranks over tp."""
+    from byteps_tpu_torch.comm import collectives
+    from byteps_tpu_torch.comm.mesh import build_mesh
+
+    out = {"raised": None}
+    try:
+        build_mesh(device="cuda:0")
+    except ValueError as e:
+        out = {"raised": str(e), "initialized": torch.distributed.is_initialized()}
+    mesh = build_mesh("dp=1,tp=2", device="cpu",
+                      init_method=os.environ["BYTEPS_LOCAL_INIT_METHOD"] + ".cpu")
+    out["built"] = (mesh.shape, mesh.axis_index("tp"), float(collectives.psum(
+        torch.tensor(float(mesh.rank + 1)), "tp", mesh)))
+    mesh.destroy()
+    return out
+
+
 CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
-         "degraded": case_degraded, "elastic": case_elastic}
+         "degraded": case_degraded, "elastic": case_elastic,
+         "mp_attention": case_mp_attention, "mp_train": case_mp_train,
+         "mp_hybrid": case_mp_hybrid, "cuda_clash": case_cuda_clash}
 
 
 # --- the test side --------------------------------------------------------
