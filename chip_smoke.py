@@ -170,13 +170,27 @@ Phases, each fatal on failure:
      dense result's, the hosts bitwise, every dense partition probed under
      the entropy cutoff and every dense push flagged; rows, payload bytes
      and the container's bytes against raw printed;
- 24. one JSON line listing the kernels, then the contract line
+ 24. model parallelism, phase (h) (after phase (g); ``train_model_parallel``):
+     K1-K3 at the phase's shapes against their plain versions, then one
+     launcher host of four ranks on this card over the staged transport
+     (BYTEPS_MESH_TRANSPORT=staged), a scheduler and two Python servers:
+     BERT-large at 4 layers on {pp:2, tp:2} (4 microbatches), GPT-2 medium
+     at 2 layers on {sp:2, tp:2} (the ring of flash hops, and Ulysses),
+     BERT-large at 2 layers on {dp:2, tp:2} through HybridDataParallel and
+     the servers, each rank holding its shards of init_params(seed=0):
+     every run's losses within 2e-2 of one process of the same model on
+     the card, one f32 step of the first two at 2 layers within atol 1e-6
+     + rtol 1e-5 per parameter gathered, K1-K3 launched a step on every
+     rank as its coordinates say, the hybrid's keys the model's names at
+     full shapes and its pulls bitwise the host's sum;
+ 25. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
 `--async-host <dir>` phase 17's, `--heal-host <dir>` phase 19's,
-`--elastic-host <dir>` phase 20's, `--control-host <dir>` phase 22's and
-`--rowsparse-host <dir>` phase 23's, which the launcher runs; they are not
+`--elastic-host <dir>` phase 20's, `--control-host <dir>` phase 22's,
+`--rowsparse-host <dir>` phase 23's, `--tenant-host <dir>` phase (g)'s and
+`--mp-host <dir>` phase 24's ranks, which the launcher runs; they are not
 run by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -5505,6 +5519,403 @@ def train_tenancy(card: str) -> dict:
     return shared["job2.h0"]["steps"][-1]["launches"]
 
 
+# --- phase (h): model parallelism -------------------------------------------
+
+#: phase (h)'s host: four ranks of one launcher on the one card, a gloo group
+#: over the staged transport (NCCL refuses two ranks of one group on one
+#: device); its local rank 0 is the one worker of a scheduler and two
+#: Python servers, which (h4)'s hybrid pushes through
+MP_RANKS, MP_STEPS, MP_BATCH = 4, 3, 4
+MP_DEVICE, MP_TRANSPORT = "cuda", "staged"
+#: the device each rank binds: every rank on the one card (on one GPU a rank,
+#: tools/torch_port_model_parallel.py leaves it to the launcher: "")
+MP_HOST_DEVICE = "cuda:0"
+#: each bf16 run's losses against one process of the same model, weights and
+#: tokens on the card (AdamW lr 1e-4): relative, bf16 sums in other orders
+MP_LOSS_RTOL = 2e-2
+#: the f32 runs: one SGD step at MP_F32_LR (at BERT-large's widths a larger
+#: step grows the embeddings' last-place differences), each parameter
+#: gathered within atol + rtol * |one process's|
+MP_F32_LR, MP_F32_RTOL, MP_F32_ATOL = 3e-4, 1e-5, 1e-6
+#: (run, model, depth, mesh axes, config overrides, through HybridDataParallel)
+MP_RUNS = (
+    ("h1", "bert", 4, {"pp": 2, "tp": 2}, {"microbatches": 4}, False),
+    ("h2", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ring"}, False),
+    ("h3", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ulysses"}, False),
+    ("h4", "bert", 2, {"dp": 2, "tp": 2}, {}, True),
+    ("h1 f32", "bert", 2, {"pp": 2, "tp": 2}, {"microbatches": 4, "dtype": "float32"}, False),
+    ("h2 f32", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ring",
+                                               "dtype": "float32"}, False),
+)
+
+
+def _mp_cfg(model: str, layers: int, overrides: dict):
+    """BERT-large (seq 512) or GPT-2 medium (seq 1024, its published
+    context) at ``layers``: remat, flash, bf16 unless ``overrides`` say
+    float32."""
+    import torch
+
+    from byteps_tpu_torch.models.transformer import bert_large, gpt2_medium
+
+    kw = dict(overrides)
+    dtype = getattr(torch, kw.pop("dtype", "bfloat16"))
+    make, seq = (bert_large, SEQ) if model == "bert" else (gpt2_medium, 1024)
+    return dataclasses.replace(make(max_seq=seq, compute_dtype=dtype, remat=True,
+                                    use_flash=True, **kw), n_layers=layers)
+
+
+def _mp_tokens(cfg) -> tuple:
+    """MP_BATCH sequences of numpy seed 0 and their next-token targets (the
+    causal model's last position ignored)."""
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MP_BATCH, cfg.max_seq)).astype(np.int64)
+    targets = np.roll(tokens, -1, axis=1)
+    if cfg.causal:
+        targets[:, -1] = -1
+    return tokens, targets
+
+
+def _mp_dir(work: str, what: str) -> str:
+    return os.path.join(work, what.replace(" ", "-"))
+
+
+def _mp_save(path: str, arrays: dict) -> None:
+    os.makedirs(path)
+    for name, arr in arrays.items():
+        np.save(os.path.join(path, f"{name}.npy"), arr)
+
+
+def _mp_load(path: str) -> dict:
+    return {f[:-4]: np.load(os.path.join(path, f), mmap_mode="r") for f in os.listdir(path)}
+
+
+def _mp_want(run: tuple, coords: dict) -> dict:
+    """K1-K3 launches a step on the rank at ``coords``: each attention call
+    launches K1 once forward and once when its checkpointed layer
+    recomputes, and K2 and K3 once in backward.  A layer makes one call a
+    microbatch with sp at 1 and under Ulysses; a causal ring one a hop the
+    rank does not skip, one more for each upstream rank (sp index + 1)."""
+    _, model, layers, axes, overrides, _ = run
+    pp = axes.get("pp", 1)
+    calls = layers // pp * (overrides.get("microbatches") or pp)
+    if axes.get("sp", 1) > 1 and overrides.get("seq_parallel_impl") == "ring":
+        calls = layers * (coords["sp"] + 1)
+    return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+
+
+def _mp_one_process(run: tuple, work: str) -> dict:
+    """The run's model, weights and tokens in this process alone on the
+    card: its losses and ms a step (the f32 runs: one SGD step, its
+    parameters saved for the hosts to compare), and (h4) the hybrid's keys
+    and shapes for this model."""
+    import torch
+
+    from byteps_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from byteps_tpu_torch.models.transformer import Transformer, build_train_step
+    from byteps_tpu_torch.parallel.hybrid import tree_path
+
+    name, model_name, layers, _, overrides, hybrid = run
+    cfg = _mp_cfg(model_name, layers, overrides)
+    model = Transformer(cfg, device=MP_DEVICE)
+    model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, f"w {model_name} {layers}")),
+                                          cfg))
+    tokens, targets = _mp_tokens(cfg)
+    tok, tgt = (torch.as_tensor(a, device=MP_DEVICE) for a in (tokens, targets))
+    f32 = cfg.compute_dtype == torch.float32
+    opt = (torch.optim.SGD(model.parameters(), lr=MP_F32_LR) if f32 else
+           torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = build_train_step(model, opt)
+    losses, ms = [], []
+    for _ in range(1 if f32 else MP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tok, tgt)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "ms": ms}
+    if f32:
+        _mp_save(_mp_dir(work, f"ref {name}"), params_to_jax(model.state_dict(), cfg))
+    if hybrid:
+        out["keys"] = [[f"Hybrid.0{tree_path(n)}", list(p.shape)]
+                       for n, p in model.named_parameters()]
+    return out
+
+
+def _mp_host_run(run: tuple, work: str) -> dict:
+    """One run of phase (h) on this rank: the mesh, this rank's shards of
+    the weights and its block of the tokens, MP_STEPS steps (f32: one),
+    each step's loss, ms and K1-K3 launches.  (h4) trains through
+    HybridDataParallel, each pull checked on the way: bitwise the host's
+    pushed sum over the group (one worker), averaged.  The f32 runs gather
+    the parameters after their step and compare them on rank 0 with the
+    one-process step's."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.convert import params_to_jax, shard_params_from_jax
+    from byteps_tpu_torch.models.transformer import Transformer, build_train_step, shard_batch
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.parallel import hybrid as hybrid_mod
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    name, model_name, layers, axes, overrides, hybrid = run
+    cfg = _mp_cfg(model_name, layers, overrides)
+    mesh = make_training_mesh(axis_sizes=axes)
+    dev = bps.device()
+    model = Transformer(cfg, device=dev, mesh=mesh)
+    model.load_state_dict(shard_params_from_jax(
+        _mp_load(_mp_dir(work, f"w {model_name} {layers}")), cfg, mesh))
+    tok, tgt = (shard_batch(torch.as_tensor(a), mesh).to(dev) for a in _mp_tokens(cfg))
+    f32 = cfg.compute_dtype == torch.float32
+    opt = (torch.optim.SGD(model.parameters(), lr=MP_F32_LR) if f32 else
+           torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    out = {"coords": {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")},
+           "transport": mesh.transport, "steps": []}
+    if hybrid:
+        hdp = hybrid_mod.HybridDataParallel(
+            model, opt, mesh=mesh, param_specs=model.param_specs(),
+            grad_sync_axes=model.grad_sync_axes())
+        out["keys"] = [[k, list(s)] for k, s in hdp.keys]
+        pushed, bad_pulls = {}, []
+        push, sync = hybrid_mod.host_push_pull_async, hybrid_mod.synchronize
+
+        def tap_push(g, key, *args, **kw):
+            h = push(g, key, *args, **kw)
+            pushed[h] = (key, g)
+            return h
+
+        def tap_sync(h):
+            got = sync(h)
+            key, g = pushed.pop(h)
+            if not torch.equal(got * mesh.axis_size("dp") * bps.size(), g):
+                bad_pulls.append(key)
+            return got
+
+        hybrid_mod.host_push_pull_async, hybrid_mod.synchronize = tap_push, tap_sync
+
+        def step(t, y):
+            return hdp.step((t, y), lambda m, b: m.loss(*b, over=("pp", "sp")))
+    else:
+        step = build_train_step(model, opt)
+    try:
+        for _ in range(1 if f32 else MP_STEPS):
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(tok, tgt))
+            torch.cuda.synchronize()
+            out["steps"].append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                                 "launches": dict(fa.launches)})
+    finally:
+        if hybrid:
+            hybrid_mod.host_push_pull_async, hybrid_mod.synchronize = push, sync
+    if hybrid:
+        out["bad_pulls"] = bad_pulls
+    if f32:
+        got = params_to_jax(model.state_dict(), cfg, pp_size=mesh.axis_size("pp"), mesh=mesh)
+        if bps.local_rank() == 0:
+            want = _mp_load(_mp_dir(work, f"ref {name}"))
+            errs = {}
+            for k, w in want.items():
+                d = np.abs(got[k].reshape(w.shape) - w)  # (pp, lps) stacked as (1, layers)
+                errs[k] = [float(d.max()), float((d - MP_F32_RTOL * np.abs(w)).max())]
+            out["f32"] = errs
+    return out
+
+
+def mp_host(work: str) -> None:
+    """One rank of phase (h)'s host, under the port's launcher
+    (``chip_smoke.py --mp-host <dir>``, BYTEPS_LOCAL_SIZE=4,
+    BYTEPS_MESH_TRANSPORT=staged): imports torch, brings up CUDA and what
+    the first optimizer step imports, then init() on the card (the staged
+    group; rank 0 joins the PS), waits for <dir>/go, and runs MP_RUNS in
+    turn, writing <dir>/<run>.<rank>.json after each."""
+    marks = {"entered": time.time()}
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warm = torch.ones(8, 8, device=MP_DEVICE, requires_grad=True)
+    warm.matmul(warm).sum().backward()
+    torch.optim.AdamW([warm], lr=1e-4, weight_decay=1e-4).step()
+    torch.optim.SGD([warm], lr=1e-4).step()
+    float(warm.sum())
+    bps.init(device=os.environ["MP_HOST_DEVICE"] or None)
+    rank = bps.local_rank()
+    marks["ready"] = time.time()
+    go = os.path.join(work, "go")
+    deadline = time.monotonic() + PHASE_STALL_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            sys.exit(f"model parallel rank {rank}: no go file after {PHASE_STALL_S} s")
+        time.sleep(0.05)
+    marks["go"] = time.time()
+    for run in MP_RUNS:
+        out = _mp_host_run(run, work)
+        marks[run[0]] = time.time()
+        out["marks"] = {k: round(v - marks["entered"], 2) for k, v in marks.items()}
+        path = os.path.join(work, f"{_mp_dir('', run[0])}.{rank}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    from byteps_tpu_torch.core.state import get_state
+
+    torch.distributed.barrier(group=get_state().mesh.group)
+    bps.shutdown()
+
+
+def check_mp_kernel_shapes() -> None:
+    """K1-K3 at the shapes phase (h) gives them, against their plain
+    versions: tp-local heads of BERT-large (8 at S 512), a ring hop of
+    GPT-2 medium at sp 2 (S 512 a rank: its own block causal, an upstream
+    one full), and Ulysses's full sequence on 4 heads (S 1024, causal)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    check_case("(h) tp heads bf16", 1, 8, SEQ, 64, bf16, False, seed=40)
+    check_case("(h) ring hop diagonal bf16", MP_BATCH, 8, 512, 64, bf16, True, seed=41)
+    check_case("(h) ring hop full bf16", MP_BATCH, 8, 512, 64, bf16, False, seed=42)
+    check_case("(h) ulysses bf16", MP_BATCH, 4, 1024, 64, bf16, True, seed=43)
+    check_case("(h) ring hop f32", MP_BATCH, 8, 512, 64, torch.float32, True, seed=44)
+
+
+def train_model_parallel(card: str) -> dict:
+    """Phase (h), model parallelism: a scheduler, two Python servers and
+    one launcher host of MP_RANKS ranks on this card over the staged
+    transport, started together and warmed up while this process draws the
+    weights (``init_params(seed=0)``) and runs every run alone in one
+    process on the card.  Then the host trains, each run in turn, its
+    ranks holding the shards ``shard_params_from_jax`` cuts: (h1)
+    BERT-large at 4 layers on {pp:2, tp:2}, 4 microbatches; (h2) GPT-2
+    medium at 2 layers on {sp:2, tp:2}, the ring of flash hops; (h3) the
+    same on Ulysses; (h4) BERT-large at 2 layers on {dp:2, tp:2} through
+    HybridDataParallel and the PS; and one f32 SGD step of (h1) and (h2) at
+    2 layers.  Fails unless every bf16 run's losses are within
+    MP_LOSS_RTOL of one process's on every rank, every f32 parameter
+    gathered within atol MP_F32_ATOL + rtol MP_F32_RTOL of one process's,
+    every rank launched K1-K3 a step as its coordinates say, (h4)'s keys
+    are the one-process model's names at full shapes and every pull is
+    bitwise the host's pushed sum.  Prints the launches of every rank, the
+    step ms and the transport.  Returns {run: [rank 0's launches a step,
+    ...]}."""
+    import torch
+
+    from byteps_tpu_torch.models.transformer import init_params
+
+    label = "model parallel (h)"
+    wall = time.perf_counter()
+    check_mp_kernel_shapes()
+    bad = []
+    with tempfile.TemporaryDirectory() as work:
+        env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+               "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
+               "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": str(MP_RANKS),
+               "BYTEPS_MESH_TRANSPORT": MP_TRANSPORT}
+        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
+            env.pop(k, None)
+        port, fleet = _start_ps_processes(env, work)
+        path = os.path.join(work, "host.log")
+        with open(path, "w") as log:
+            host = _track(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-host", work],
+                cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
+                               "MP_HOST_DEVICE": MP_HOST_DEVICE}, stdout=log,
+                stderr=subprocess.STDOUT), "model parallel host", path)
+        try:
+            t0 = time.perf_counter()
+            for model_name, layers in (("bert", 4), ("bert", 2), ("gpt2", 2)):
+                cfg = _mp_cfg(model_name, layers, {})
+                _mp_save(_mp_dir(work, f"w {model_name} {layers}"), init_params(cfg, seed=0))
+            weights_s = time.perf_counter() - t0
+            one = {run[0]: _mp_one_process(run, work) for run in MP_RUNS}
+            torch.cuda.empty_cache()
+            refs_s = time.perf_counter() - t0 - weights_s
+            t_go = time.perf_counter()
+            open(os.path.join(work, "go"), "w").close()
+            deadline = time.monotonic() + PHASE_STALL_S
+            while host.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+            rc = host.poll()
+            host_s = time.perf_counter() - t_go
+        finally:
+            _stop_processes([host] + fleet)
+        if rc != 0:
+            with open(path) as f:
+                print(f"--- {label} host (exit {rc}):\n{f.read()[-8000:]}", file=sys.stderr)
+            fail(f"{label}: the host exited {rc}")
+        res = {}
+        for run in MP_RUNS:
+            res[run[0]] = []
+            for r in range(MP_RANKS):
+                with open(os.path.join(work, f"{_mp_dir('', run[0])}.{r}.json")) as f:
+                    res[run[0]].append(json.load(f))
+    launches = {}
+    for run in MP_RUNS:
+        name, model_name, layers, axes, overrides, hybrid = run
+        want_losses = one[name]["losses"]
+        ranks = res[name]
+        f32 = overrides.get("dtype") == "float32"
+        for r, rr in enumerate(ranks):
+            losses = [s["loss"] for s in rr["steps"]]
+            if rr["transport"] != (MP_TRANSPORT or ("nccl" if MP_DEVICE == "cuda" else "gloo")):
+                bad.append(f"{name} rank {r}: transport {rr['transport']}")
+            if not all(math.isfinite(x) for x in losses):
+                bad.append(f"{name} rank {r}: non-finite losses {losses}")
+            if not f32 and not np.allclose(losses, want_losses, rtol=MP_LOSS_RTOL, atol=0):
+                bad.append(f"{name} rank {r}: losses {losses}, one process {want_losses}")
+            want = _mp_want(run, rr["coords"])
+            off = [i + 1 for i, s in enumerate(rr["steps"]) if s["launches"] != want]
+            if off:
+                bad.append(f"{name} rank {r} {rr['coords']} steps {off}: launches "
+                           f"{rr['steps'][off[0] - 1]['launches']}, expected {want}")
+        launches[name] = [[s["launches"] for s in rr["steps"]] for rr in ranks]
+        if f32:
+            errs = ranks[0]["f32"]
+            over = {k: e for k, e in errs.items() if e[1] > MP_F32_ATOL}
+            if over:
+                bad.append(f"{name}: parameters beyond atol {MP_F32_ATOL} + rtol "
+                           f"{MP_F32_RTOL}: {over}")
+            worst = max(errs.items(), key=lambda kv: kv[1][0])
+            print(f"{label} {name}: one SGD step (lr {MP_F32_LR}) at {layers} layers, f32, on "
+                  f"{axes}: loss {ranks[0]['steps'][0]['loss']!r}, one process "
+                  f"{want_losses[0]!r}; each parameter gathered against one process's: max "
+                  f"abs err {worst[1][0]:.3e} ({worst[0]}), all within atol {MP_F32_ATOL} + "
+                  f"rtol {MP_F32_RTOL}: {not over}", flush=True)
+            continue
+        if hybrid:
+            for r, rr in enumerate(ranks):
+                if rr["keys"] != one[name]["keys"]:
+                    bad.append(f"{name} rank {r}: keys {rr['keys'][:3]}..., one process's "
+                               f"{one[name]['keys'][:3]}...")
+                if rr["bad_pulls"]:
+                    bad.append(f"{name} rank {r}: pulls not the host's sum: {rr['bad_pulls']}")
+        ms = [[round(s["ms"], 1) for s in rr["steps"]] for rr in ranks]
+        print(f"{label} {name}: {'BERT-large' if model_name == 'bert' else 'GPT-2 medium'} at "
+              f"{layers} layers, seq {_mp_cfg(model_name, layers, overrides).max_seq}, bf16, "
+              f"remat, flash, {MP_BATCH} sequences, {overrides} on {axes}"
+              f"{' through HybridDataParallel and 2 servers' if hybrid else ''}, transport "
+              f"{ranks[0]['transport']}: losses rank 0 {[s['loss'] for s in ranks[0]['steps']]}"
+              f", one process {want_losses}; ms a step per rank {ms}, one process "
+              f"{[round(x, 1) for x in one[name]['ms']]}; K1-K3 launches a step per rank "
+              f"{[rr['steps'][-1]['launches'] for rr in ranks]} at coordinates "
+              f"{[rr['coords'] for rr in ranks]}"
+              f"{'; keys ' + str(len(ranks[0]['keys'])) + ' at full shapes, pulls bitwise' if hybrid else ''}"
+              f"; on {card}", flush=True)
+    print(f"{label}: weights drawn and saved {weights_s:.1f} s, one-process runs {refs_s:.1f} "
+          f"s, the host's runs {host_s:.1f} s; the ranks' marks (s) "
+          f"{[rr['marks'] for rr in res[MP_RUNS[-1][0]]]}; phase wall "
+          f"{time.perf_counter() - wall:.1f} s", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return {run[0]: [launches[run[0]][r][-1] for r in range(MP_RANKS)] for run in MP_RUNS
+            if run[4].get("dtype") != "float32"}
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -5698,6 +6109,8 @@ def main() -> None:
     mark("data plane (f)")
     planes["tenancy"] = train_tenancy(card)
     mark("tenancy (g)")
+    model_parallel = train_model_parallel(card)
+    mark("model parallel (h)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)
@@ -5761,6 +6174,8 @@ def main() -> None:
             "path": "single-worker main path",
             "hybrid_launches_a_step_per_host": hybrid["launches_a_step"][name],
             "plane_launches_a_step": {k: v[name] for k, v in planes.items()},
+            "model_parallel_launches_a_step_per_rank": {
+                run: [r[name] for r in ranks] for run, ranks in model_parallel.items()},
             **extra,
         })
     kernels.append({
@@ -5804,5 +6219,7 @@ if __name__ == "__main__":
         rowsparse_host(sys.argv[2])  # one host of phase (f2), row-sparse
     elif sys.argv[1:2] == ["--tenant-host"]:
         tenant_host(sys.argv[2])  # one host of phase (g), job namespaces
+    elif sys.argv[1:2] == ["--mp-host"]:
+        mp_host(sys.argv[2])  # one rank of phase (h)'s host, model parallelism
     else:
         main()
