@@ -51,8 +51,9 @@ Phases, each fatal on failure:
      sum and publish histograms (from their stop reports);
      then the same on the native lanes: the servers' data plane in C++
      (BYTEPS_SERVER_NATIVE=1) and the worker's client lanes
-     (BYTEPS_NATIVE_CLIENT=1), 3 timed steps, and each half alone for 1, the
-     first step's loss bitwise the Python lanes';
+     (BYTEPS_NATIVE_CLIENT=1), 2 timed steps, the first step's loss bitwise
+     the Python lanes', and each half alone for 1 at 2 layers, its first
+     loss bitwise the same model's forward without the PS;
   8. the compressed chain: the same model at full depth through a scheduler and
      two server processes with BytePS's documented compression config (onebit,
      error feedback, Nesterov momentum, scaling) and its lr set before the first
@@ -226,11 +227,15 @@ N_LAYERS_FULL = 24
 DIST_STEPS, DIST_WARMUP = 3, 1
 # the distributed path on the native lanes (both halves C++), and each half
 # alone (6 and 3 timed steps before the self-healing plane's phases joined;
-# the halves at 1 from 2 since the data plane's phase (f) joined)
-NATIVE_STEPS, NATIVE_HALF_STEPS = 3, 1
+# the halves at 1 from 2 since the data plane's phase (f) joined; the whole
+# at 2 from 3, the halves at NATIVE_HALF_LAYERS from 24, since the model
+# parallelism's expert and generation phase (i) joined)
+NATIVE_STEPS, NATIVE_HALF_STEPS, NATIVE_HALF_LAYERS = 2, 1, 2
 #: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
 #: and the bytes one worker moves a step, from the distributed path's table
 DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
+#: the same at each depth the distributed path runs (2: HYBRID_LAYERS')
+DIST_TABLES = {N_LAYERS_FULL: (DIST_COMPRESSED_PARTS, DIST_D2H_STEP), 2: (99, 11_108_748)}
 
 # sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's and K2's
 # 128 query rows and 64-key tiles, K3's 128 keys and 64-row query tiles
@@ -1279,8 +1284,9 @@ def _server_lines(report: list) -> list:
 
 def _run_distributed(card: str, label: str, steps: int, server_native: bool = False,
                      client_native: bool = False, server_env: dict = None,
-                     worker_env: dict = None, journal_ab: bool = False) -> dict:
-    """BERT-large as on the main path through one worker (this process) and
+                     worker_env: dict = None, journal_ab: bool = False,
+                     layers: int = N_LAYERS_FULL) -> dict:
+    """BERT-large as on the main path (at ``layers``) through one worker (this process) and
     two server processes behind a scheduler process, onebit with scaling on
     every float32 gradient of at least BYTEPS_MIN_COMPRESS_BYTES; the
     servers' data plane in C++ when ``server_native``
@@ -1315,7 +1321,7 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
                     **(worker_env or {})}) as fleet:
         t0 = time.perf_counter()
         bps.init()
-        cfg, model, tok, tgt = _bert(N_LAYERS_FULL)
+        cfg, model, tok, tgt = _bert(layers)
         bps.broadcast_parameters(model.state_dict(), root_rank=0)
         opt = bps.DistributedOptimizer(
             torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
@@ -1391,10 +1397,10 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
     bad = []
     if not all(math.isfinite(x) for x in losses):
         bad.append(f"non-finite loss: {losses}")
-    if len(compressed) != DIST_COMPRESSED_PARTS or want_d2h != DIST_D2H_STEP:
+    want_parts, want_step = DIST_TABLES[layers]
+    if len(compressed) != want_parts or want_d2h != want_step:
         bad.append(f"the partition table: {len(compressed)} compressed partitions, "
-                   f"{want_d2h} bytes a step, expected {DIST_COMPRESSED_PARTS} and "
-                   f"{DIST_D2H_STEP}")
+                   f"{want_d2h} bytes a step, expected {want_parts} and {want_step}")
     if launches["onebit_pack"] != n * len(compressed):
         bad.append(f"K4 launched {launches['onebit_pack']} times in {n} steps, expected "
                    f"{len(compressed)} compressed partitions a step")
@@ -1417,7 +1423,8 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
     split["forward+backward, engine idle"] = idle_fb * steps
     busy = ("device busy not measured" if busy_ms is None else
             f"device busy {busy_ms:.1f} ms a step ({100 * busy_ms / (dt / steps * 1e3):.1f}%)")
-    print(f"{label}: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}, 1 worker "
+    print(f"{label}: BERT-large at {layers} layers, seq {SEQ} bf16 remat flash, batch "
+          f"{BATCH}, 1 worker "
           f"({', '.join(lanes)}) + 2 server processes "
           f"({'C++' if server_native else 'Python'} data plane), onebit (scaling) on "
           f"{len(compressed)} of {len(grads)} gradient partitions: losses "
@@ -1554,25 +1561,42 @@ def train_chaos(card: str, dist: dict) -> dict:
 def train_distributed_native(card: str, python_first_loss: float) -> None:
     """The distributed path on the native lanes: both servers' data plane
     in C++ (BYTEPS_SERVER_NATIVE=1) and the worker's client lanes
-    (BYTEPS_NATIVE_CLIENT=1), 6 timed steps; then each half alone, 3
-    timed steps each: the C++ servers with the Python client, the Python
-    servers with the native client.  The first step's loss (same weights,
-    same tokens, no update yet) must be bitwise the Python-lane run's."""
+    (BYTEPS_NATIVE_CLIENT=1), NATIVE_STEPS timed steps at full depth; then
+    each half alone, NATIVE_HALF_STEPS timed steps at NATIVE_HALF_LAYERS:
+    the C++ servers with the Python client, the Python servers with the
+    native client.  The first step's loss (same weights, same tokens, no
+    update yet) must be bitwise the Python-lane run's at full depth, and at
+    NATIVE_HALF_LAYERS bitwise the loss of the same model's forward in
+    this process without the PS."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    bps.init()
+    _, model, tok, tgt = _bert(NATIVE_HALF_LAYERS)
+    half_first = float(model.loss(tok, tgt).detach())
+    bps.shutdown()
+    del model
     runs = {}
-    for label, steps, server, client in (
-            ("native lanes", NATIVE_STEPS, True, True),
-            ("native server, Python client", NATIVE_HALF_STEPS, True, False),
-            ("Python server, native client", NATIVE_HALF_STEPS, False, True)):
+    for label, steps, server, client, layers in (
+            ("native lanes", NATIVE_STEPS, True, True, N_LAYERS_FULL),
+            ("native server, Python client", NATIVE_HALF_STEPS, True, False, NATIVE_HALF_LAYERS),
+            ("Python server, native client", NATIVE_HALF_STEPS, False, True, NATIVE_HALF_LAYERS)):
         gc.collect()
+        torch.cuda.empty_cache()
         runs[label] = _run_distributed(card, label, steps, server_native=server,
-                                       client_native=client)
+                                       client_native=client, layers=layers)
+        runs[label]["want_first"] = (python_first_loss if layers == N_LAYERS_FULL
+                                     else half_first)
     bad = {label: r["losses"][0] for label, r in runs.items()
-           if r["losses"][0] != python_first_loss}
+           if r["losses"][0] != r["want_first"]}
     if bad:
         fail(f"native lanes: first-step losses {bad} differ from the Python lanes' "
-             f"{python_first_loss!r}")
-    print("native lanes: first-step loss bitwise the Python lanes' "
-          f"({python_first_loss!r}) in all three runs; ms a step: "
+             f"{python_first_loss!r} (24 layers) or the forward's {half_first!r} "
+             f"({NATIVE_HALF_LAYERS} layers)")
+    print(f"native lanes: first-step loss bitwise the Python lanes' ({python_first_loss!r}) "
+          f"at {N_LAYERS_FULL} layers, and at {NATIVE_HALF_LAYERS} layers the halves' bitwise "
+          f"the forward's without the PS ({half_first!r}); ms a step: "
           + ", ".join(f"{label} {r['step_ms']:.1f}" for label, r in runs.items()), flush=True)
 
 
@@ -2682,7 +2706,7 @@ SERVER_OPT_LAYERS = 6
 SERVER_OPT_TAPPED = ("embed", "layers.0.wq", "layers.0.wk", "layers.0.wv", "ln_f_s", "ln_f_b")
 #: async: local AdamW (lr 1e-4, weight decay 1e-4) and the weight-delta loop
 #: of byteps_tpu/tensorflow/__init__.py:219-230 over push_pull(average=False)
-ASYNC_STEPS, ASYNC_LR = 4, 1e-4
+ASYNC_STEPS, ASYNC_LR = 3, 1e-4
 #: the async phase's depth: cut from 24 so that the script, with the
 #: self-healing phases (to 6) and the resharding phase (to 2), stays within
 #: three quarters of its time limit
@@ -2695,8 +2719,8 @@ ASYNC_LAYERS = 2
 #: gradients, and an AdamW update is at most ~lr an element (|m^ / sqrt(v^)|
 #: <= 1 at step 1), so the two trajectories part by at most ~2 lr a step
 ASYNC_ATOL = 2 * ASYNC_LR * ASYNC_STEPS
-#: the per-key profile on two launcher hosts: bounded staleness 1, 6 steps
-ASYNC_HOST_STEPS, ASYNC_BOUND = 6, 1
+#: the per-key profile on two launcher hosts: bounded staleness 1, 4 steps
+ASYNC_HOST_STEPS, ASYNC_BOUND = 4, 1
 #: host 1 sleeps ASYNC_LAG_S before its pushes of these training steps, so
 #: host 0 runs rounds ahead of it and its next pulls must park
 ASYNC_LAG_STEPS, ASYNC_LAG_S = (1, 3), 4.0
@@ -4305,7 +4329,7 @@ def train_reshard(card: str) -> dict:
 #: 0.2 s), before they train on
 CONTROL_PARAMS = {"compressor": "topk", "k": 12000}
 CONTROL_K = 12000
-CONTROL_LAYERS_1, CONTROL_STEPS_1 = 6, 3
+CONTROL_LAYERS_1, CONTROL_STEPS_1 = 2, 3
 CONTROL_LAYERS_2, CONTROL_BATCH, CONTROL_STEPS_2, CONTROL_STEPS_3 = 2, 16, 6, 2
 CONTROL_SETTLE_S = 3.0
 CONTROL_ENV = {
@@ -5176,7 +5200,7 @@ def train_data_plane(card: str) -> dict:
 #: steps; job 1 (the latency job: two hosts, priority 4) and job 2 (the
 #: bulk job: one host, under a quota in the shared run), each host's numpy
 #: seed of its tokens
-TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 6, 16, 4
+TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 2, 16, 4
 TENANCY_JOB1_PRIORITY = 4
 TENANCY_SEEDS = {"job1.h0": 101, "job1.h1": 102, "job2.h0": 202}
 
