@@ -24,7 +24,7 @@ The group's rendezvous comes from ``BYTEPS_LOCAL_INIT_METHOD`` (a
 ``torch.distributed`` init method, ``file://...`` or ``tcp://...``), its
 rank and size from ``BYTEPS_LOCAL_RANK`` and ``BYTEPS_LOCAL_SIZE``; the
 launcher sets all three.  Mesh specs name the reference's axes:
-``"dp:2,tp:2"`` or ``"dp=1,pp=2,sp=1,tp=2"``.
+``"dp:2,tp:2"`` or ``"dp=1,pp=2,sp=1,tp=2"``, and an expert axis ``ep``.
 """
 
 from __future__ import annotations
@@ -39,11 +39,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from byteps_tpu_torch.common.config import LOCAL_INIT_METHOD, get_config, unported
+from byteps_tpu_torch.common.config import LOCAL_INIT_METHOD, get_config
 
 DP_AXIS = "dp"
 #: the training mesh's axes, in the reference's order
 AXES = ("dp", "pp", "sp", "tp")
+#: the axes a mesh spec may name: the training mesh's and the expert axis
+#: (the reference's transformer routes its experts over sp; an ep axis is
+#: for models of the caller's that shard experts on an axis of their own)
+SPEC_AXES = AXES + ("ep",)
 TRANSPORTS = ("", "staged")
 
 _lock = threading.Lock()
@@ -180,11 +184,9 @@ def _check_devices(store, rank: int, size: int, device: torch.device, transport:
 def _axes_of(spec: str, size: int) -> Dict[str, int]:
     axes = parse_mesh_spec(spec) or [(DP_AXIS, size)]
     names = [name for name, _ in axes]
-    if "ep" in names:  # the reference's experts ride the sp axis
-        raise unported("moe_generation", f"mesh spec {spec!r} (axis ep)")
-    bad = [name for name in names if name not in AXES]
+    bad = [name for name in names if name not in SPEC_AXES]
     if bad or len(set(names)) != len(names):
-        raise ValueError(f"mesh spec {spec!r}: axes must be distinct names of {AXES}")
+        raise ValueError(f"mesh spec {spec!r}: axes must be distinct names of {SPEC_AXES}")
     if math.prod(n for _, n in axes) != size:
         raise ValueError(f"mesh spec {spec!r} does not match the host's {size} processes")
     return dict(axes)

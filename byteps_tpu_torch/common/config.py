@@ -277,8 +277,8 @@ def clear_config() -> None:
 
 
 #: planes of byteps_tpu this port does not carry yet (the flight
-#: recorder's upload and trigger rules, mixture-of-experts layers and
-#: generation), each with the ROADMAP.md item that brings it.
+#: recorder's upload and trigger rules), each with the ROADMAP.md item that
+#: brings it.
 #: Selecting one raises rather than run a different job than the one asked
 #: for.
 UNPORTED = {
@@ -286,9 +286,6 @@ UNPORTED = {
                      "ROADMAP.md Queue 1 item 10",
     "slo_trigger": "the flight recorder's slo_breach trigger rule (BYTEPS_JOB_SLO_S), with "
                    "its bundles: ROADMAP.md Queue 1 item 10",
-    "moe_generation": "mixture-of-experts layers (expert parallelism on the sp axis) and "
-                      "generation (build_generate, build_generate_cached): the next slice, "
-                      "ROADMAP.md Queue 1 item 9 (its MoE and generation half)",
 }
 
 

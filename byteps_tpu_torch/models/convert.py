@@ -6,7 +6,8 @@ are stacked with leading dims ``(pp, layers_per_stage)``.  The port keeps
 one module per layer: ``layers.<i>.<name>``, with the global layer index
 ``i = stage * layers_per_stage + j``.  Values are copied exactly.
 
-On a mesh each rank holds its shards (``models.transformer``):
+On a mesh each rank holds its shards (``models.transformer``: blocks over
+tp, and the experts of an expert layer over sp):
 :func:`shard_params_from_jax` cuts a rank's state dict out of the global
 arrays, the slices the reference's ``shard_params`` places on the
 matching device, and :func:`params_to_jax` with a mesh gathers the shards
@@ -57,25 +58,25 @@ def params_from_jax(
     return sd
 
 
-def _tp_slice(arr: np.ndarray, spec, tp: int, t: int) -> np.ndarray:
-    """Rank ``t`` of ``tp``'s block of ``arr`` along its tp-sharded dim."""
+def _block(arr: np.ndarray, spec, mesh: Mesh) -> np.ndarray:
+    """This rank's block of ``arr`` along each dim ``spec`` shards over a
+    mesh axis."""
     for dim, ax in enumerate(spec):
-        if ax == "tp":
-            n = arr.shape[dim] // tp
-            arr = np.take(arr, range(t * n, (t + 1) * n), axis=dim)
-    return arr
+        if ax is not None:
+            n, i = arr.shape[dim] // mesh.axis_size(ax), mesh.axis_index(ax)
+            arr = np.take(arr, range(i * n, (i + 1) * n), axis=dim)
+    return np.ascontiguousarray(arr)
 
 
 def shard_params_from_jax(
     np_params: Mapping[str, np.ndarray], cfg: TransformerConfig, mesh: Mesh
 ) -> Dict[str, torch.Tensor]:
     """This rank's state dict on ``mesh``: its pp stage's layers (global
-    indices) and its tp blocks of every tp-sharded parameter."""
+    indices) and its blocks of every parameter sharded over tp or sp."""
     validate_mesh(cfg, mesh)
     shapes = param_shapes(cfg)
     _check_names(np_params, shapes)
     pp, stage = mesh.axis_size("pp"), mesh.axis_index("pp")
-    tp, t = mesh.axis_size("tp"), mesh.axis_index("tp")
     lps = cfg.n_layers // pp
     sd: Dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
@@ -85,11 +86,9 @@ def shard_params_from_jax(
             arr = arr.reshape((cfg.n_layers,) + shape)
             for j in range(lps):
                 i = stage * lps + j
-                sd[f"layers.{i}.{name}"] = torch.from_numpy(
-                    np.ascontiguousarray(_tp_slice(arr[i], spec, tp, t)))
+                sd[f"layers.{i}.{name}"] = torch.from_numpy(_block(arr[i], spec, mesh))
         else:
-            sd[name] = torch.from_numpy(
-                np.ascontiguousarray(_tp_slice(arr.reshape(shape), spec, tp, t)))
+            sd[name] = torch.from_numpy(_block(arr.reshape(shape), spec, mesh))
     return sd
 
 
@@ -112,8 +111,8 @@ def params_to_jax(
         if mesh is None:
             return t
         for dim, ax in enumerate(local_spec(cfg, name)):
-            if ax == "tp":
-                t = collectives.all_gather_axis(t.detach().contiguous(), "tp", dim, mesh)
+            if ax is not None:
+                t = collectives.all_gather_axis(t.detach().contiguous(), ax, dim, mesh)
         return t
 
     out: Dict[str, np.ndarray] = {}

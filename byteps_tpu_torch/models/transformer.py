@@ -24,7 +24,13 @@ reference's ``shard_map`` hands each device its blocks (:func:`param_specs`):
 - pp: the layers are split into stages; GPipe over ``microbatches``
   (default pp), each stage sending its activations on to the next
   (``collectives.send_next`` / ``recv_prev``), with no bubble ticks;
-- dp: the batch is sharded.
+- dp: the batch is sharded;
+- experts (``moe``): a layer's MLP is ``parallel.moe.moe_mlp``, its
+  experts sharded over sp (each sp rank holds ``n_experts / sp``) and the
+  tokens routed to them by a tiled all-to-all over sp; the router is
+  replicated.  The load-balancing term of each layer and microbatch is
+  summed over the mesh (pp, dp and sp, as the reference's) and added
+  times ``moe_aux_coef``.
 
 The loss is the reference's ``_local_loss``: targets below 0 ignored, the
 last stage's sum and count summed over pp, dp and sp.  After backward the
@@ -34,8 +40,9 @@ that implicitly.  tp is left to the f/g pair (each tp rank already holds
 the whole gradient of what it replicates).  With every axis at 1 no
 collective runs and the model is the one-device model.
 
-Mixture-of-experts layers and the generation helpers are the next slice
-and raise.
+Generation: :func:`build_generate` recomputes the forward on the fixed
+``max_seq`` window for every new token; :func:`build_generate_cached`
+keeps each layer's K/V (kv heads only) and decodes a token at a time.
 """
 
 from __future__ import annotations
@@ -52,8 +59,8 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from byteps_tpu_torch.comm import collectives
 from byteps_tpu_torch.comm.mesh import Mesh, as_axis_sizes
-from byteps_tpu_torch.common.config import unported
 from byteps_tpu_torch.ops.flash_attention import flash_attention
+from byteps_tpu_torch.parallel.moe import moe_aux_loss, moe_mlp
 from byteps_tpu_torch.parallel.ring_attention import ring_attention, ring_flash_attention
 from byteps_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -71,6 +78,15 @@ class TransformerConfig:
     max_seq: int = 512
     causal: bool = False  # BERT-style bidirectional by default
     moe: bool = False
+    n_experts: int = 8
+    # experts per token: 2 = GShard (gates renormalized), 1 = Switch
+    moe_top_k: int = 2
+    capacity_factor: float = 2.0
+    # the capacity factor of generation's prefill; None = no drops (cf =
+    # n_experts, capacity = the token count), so a prompt's output does not
+    # depend on the mesh
+    prefill_capacity_factor: Optional[float] = None
+    moe_aux_coef: float = 0.01
     compute_dtype: torch.dtype = torch.float32
     microbatches: int = 0  # GPipe microbatches; 0 = the pipeline's stage count
     # recompute each layer in the backward pass (activation checkpointing)
@@ -135,11 +151,6 @@ def tiny_test(**kw) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
-def _require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe:
-        raise unported("moe_generation", "moe=True")
-
-
 # ---------------------------------------------------------------------------
 # parameters: the reference's layout table
 # ---------------------------------------------------------------------------
@@ -154,7 +165,6 @@ def _layouts(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple, 
     global array, gradient-sync axes), the reference's table: a spec is a
     tuple of mesh axis names or None per dimension (trailing ones left
     out), layer parameters stacked with leading dims (pp, layers_per_stage)."""
-    _require_dense(cfg)
     D, H, dh, F_, KV = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff, cfg.kv_heads
     table = {"embed": ((cfg.vocab_size, D), (), _ALL)}
     if cfg.pos_emb == "learned":
@@ -180,12 +190,24 @@ def _layouts(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple, 
             # added after the tp psum, like b2
             "wo_b": ((D,), ("pp",), ("dp", "sp", "tp")),
         })
-    table.update({
-        "w1": ((D, F_), ("pp", None, None, "tp"), ("dp", "sp")),
-        "b1": ((F_,), ("pp", None, "tp"), ("dp", "sp")),
-        "w2": ((F_, D), ("pp", None, "tp", None), ("dp", "sp")),
-        "b2": ((D,), ("pp",), ("dp", "sp", "tp")),
-    })
+    E = cfg.n_experts
+    if cfg.moe:
+        # the experts are sharded over sp; each tp rank routes the same
+        # (tp-replicated) tokens, so their gradients sum over dp only
+        table.update({
+            "router": ((D, E), ("pp",), ("dp", "sp", "tp")),
+            "ew1": ((E, D, F_), ("pp", None, "sp", None, None), ("dp", "tp")),
+            "eb1": ((E, F_), ("pp", None, "sp", None), ("dp", "tp")),
+            "ew2": ((E, F_, D), ("pp", None, "sp", None, None), ("dp", "tp")),
+            "eb2": ((E, D), ("pp", None, "sp", None), ("dp", "tp")),
+        })
+    else:
+        table.update({
+            "w1": ((D, F_), ("pp", None, None, "tp"), ("dp", "sp")),
+            "b1": ((F_,), ("pp", None, "tp"), ("dp", "sp")),
+            "w2": ((F_, D), ("pp", None, "tp", None), ("dp", "sp")),
+            "b2": ((D,), ("pp",), ("dp", "sp", "tp")),
+        })
     return table
 
 
@@ -205,7 +227,8 @@ def grad_sync_axes(cfg: TransformerConfig) -> Dict[str, Tuple[str, ...]]:
     return {k: axes for k, (_, _, axes) in _layouts(cfg).items()}
 
 
-_LAYER_PARAMS_PREFIXES = ("ln1_", "ln2_", "wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2")
+_LAYER_PARAMS_PREFIXES = ("ln1_", "ln2_", "wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2",
+                          "router", "ew1", "eb1", "ew2", "eb2")
 
 
 def is_layer_param(name: str) -> bool:
@@ -222,10 +245,11 @@ def local_spec(cfg: TransformerConfig, name: str) -> Tuple:
     return tuple(spec) + (None,) * (len(shape) - len(spec))
 
 
-def local_shapes(cfg: TransformerConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
-    """name → the shape a rank of a mesh with ``tp`` tensor-parallel ranks
-    holds."""
-    return {name: tuple(n // tp if ax == "tp" else n
+def local_shapes(cfg: TransformerConfig, tp: int = 1, sp: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """name → the shape a rank of a mesh with ``tp`` tensor-parallel and
+    ``sp`` sequence-parallel ranks holds."""
+    sizes = {"tp": tp, "sp": sp}
+    return {name: tuple(n // sizes[ax] if ax else n
                         for n, ax in zip(shape, local_spec(cfg, name)))
             for name, shape in param_shapes(cfg).items()}
 
@@ -246,7 +270,7 @@ def init_params(
         std = 0.02 if name in ("embed", "pos") else 1.0 / math.sqrt(fan_in)
         if name.endswith("_s"):  # layernorm scales
             arr = np.ones(full, dtype=np.float32)
-        elif name.endswith("_b") or name.startswith("b"):
+        elif name.endswith("_b") or name.startswith("b") or name.startswith("eb"):
             arr = np.zeros(full, dtype=np.float32)
         else:
             arr = rng.normal(0.0, std, size=full).astype(np.float32)
@@ -334,6 +358,22 @@ def _dense_mlp(cfg: TransformerConfig, x, lp, mesh: Optional[Mesh] = None):
     return x + y.to(x.dtype)
 
 
+def _moe_block(cfg: TransformerConfig, x, lp, mesh: Optional[Mesh], capacity_factor: float):
+    """ln2 → routed expert MLP → residual; returns (new residual stream,
+    the router's input g, which the aux loss takes).  The tokens are
+    replicated over tp and route the same on every tp rank: no f/g pair."""
+    cdt = cfg.compute_dtype
+    sp = mesh.axis_size("sp") if mesh is not None else 1
+    g = _ln(x, lp.ln2_s, lp.ln2_b).to(cdt)
+    b, s, d = g.shape
+    y = moe_mlp(
+        g.reshape(b * s, d), lp.router.to(cdt), lp.ew1.to(cdt), lp.eb1.to(cdt),
+        lp.ew2.to(cdt), lp.eb2.to(cdt), axis_name="sp" if sp > 1 else None, axis_size=sp,
+        capacity_factor=capacity_factor, top_k=cfg.moe_top_k, mesh=mesh,
+    ).reshape(b, s, d)
+    return x + y.to(x.dtype), g
+
+
 def _attention(cfg: TransformerConfig, q, k, v, mesh: Optional[Mesh]):
     """The reference's choice in ``layer_fn``."""
     sp = mesh.axis_size("sp") if mesh is not None else 1
@@ -353,14 +393,16 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
-        tp = mesh.axis_size("tp") if mesh is not None else 1
-        for name, shape in local_shapes(cfg, tp).items():
+        sizes = {ax: mesh.axis_size(ax) if mesh is not None else 1 for ax in ("tp", "sp")}
+        for name, shape in local_shapes(cfg, **sizes).items():
             if is_layer_param(name):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(shape, device=device))
                 )
 
     def forward(self, x):
+        """(B, S, D) → (the layer's output, its load-balancing term: a
+        compute-dtype scalar with ``moe``, else None)."""
         cfg, mesh = self.cfg, self.mesh
         h = _f(_ln(x, self.ln1_s, self.ln1_b).to(cfg.compute_dtype), mesh)
         positions = None
@@ -371,13 +413,19 @@ class TransformerLayer(nn.Module):
         k, v = _repeat_kv(k, v, q.shape[1])
         attn = _attention(cfg, q, k, v, mesh)
         x = _attn_out(cfg, attn, self, x, mesh)
-        return _dense_mlp(cfg, x, self, mesh)
+        if not cfg.moe:
+            return _dense_mlp(cfg, x, self, mesh), None
+        x, g = _moe_block(cfg, x, self, mesh, cfg.capacity_factor)
+        sp = mesh.axis_size("sp") if mesh is not None else 1
+        aux = moe_aux_loss(g.reshape(-1, g.shape[-1]), self.router.to(cfg.compute_dtype), sp,
+                           self.ew1.shape[0])
+        return x, aux
 
 
 def validate_mesh(cfg: TransformerConfig, mesh: Union[Mesh, Mapping[str, int], None]) -> None:
     """Config × mesh checks, the reference's messages: wq is tp-sharded on
     the query heads, wk/wv on the KV heads, w1 on d_ff; the layers split
-    into pp stages.  ``mesh`` may be a mapping of axis sizes."""
+    into pp stages; the experts split over sp.  ``mesh`` may be a mapping of axis sizes."""
     sizes = as_axis_sizes(mesh)
     tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
     if cfg.n_heads % tp:
@@ -391,11 +439,15 @@ def validate_mesh(cfg: TransformerConfig, mesh: Union[Mesh, Mapping[str, int], N
             "are tp-sharded on the KV-head dim — use more KV heads or a "
             "smaller tp axis (GQA groups cannot span tp shards)"
         )
-    if cfg.d_ff % tp:
+    if not cfg.moe and cfg.d_ff % tp:
         raise ValueError(f"d_ff {cfg.d_ff} not divisible by tp={tp}: w1 is tp-sharded "
                          "on its columns")
     if cfg.n_layers % pp:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp {pp}")
+    sp = sizes.get("sp", 1)
+    if cfg.moe and cfg.n_experts % sp:
+        raise ValueError(f"n_experts {cfg.n_experts} not divisible by sp={sp}: the experts "
+                         "are sharded over the sp axis")
 
 
 def _default_device() -> torch.device:
@@ -437,8 +489,7 @@ class Transformer(nn.Module):
         self.cfg = cfg
         # a mesh of one rank runs no collective: the one-device model
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        tp = self.axis_size("tp")
-        for name, shape in local_shapes(cfg, tp).items():
+        for name, shape in local_shapes(cfg, self.axis_size("tp"), self.axis_size("sp")).items():
             if not is_layer_param(name):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(shape, device=device))
@@ -459,20 +510,25 @@ class Transformer(nn.Module):
         return self.axis_index("pp") == self.axis_size("pp") - 1
 
     def _stage(self, x):
+        """This stage's layers on x: (output, the sum of their load-balancing
+        terms, None without ``moe``)."""
+        aux = None
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
                 if self.mesh is None:
-                    x = checkpoint(layer, x, use_reentrant=False)
+                    x, a = checkpoint(layer, x, use_reentrant=False)
                 else:
                     # recompute the whole layer, every collective in it: a
                     # recompute that stops once it has what this rank saved
                     # skips the exchanges a causal ring's skipped hops feed,
                     # and its peers would wait for them
                     with set_checkpoint_early_stop(False):
-                        x = checkpoint(layer, x, use_reentrant=False)
+                        x, a = checkpoint(layer, x, use_reentrant=False)
             else:
-                x = layer(x)
-        return x
+                x, a = layer(x)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
     def _embed(self, tokens):
         cfg = self.cfg
@@ -484,27 +540,34 @@ class Transformer(nn.Module):
 
     def _pipeline(self, tokens):
         """GPipe: (the last stage's final activations or None, the zero
-        scalar whose backward receives the next stage's cotangents)."""
+        scalar whose backward receives the next stage's cotangents, the
+        stage's load-balancing terms summed over its layers and the
+        microbatches, None without ``moe``)."""
         cfg, mesh = self.cfg, self.mesh
         pp, stage = self.axis_size("pp"), self.axis_index("pp")
         b, s = tokens.shape
         m = cfg.microbatches or pp
         if b % m:
             raise ValueError(f"local batch {b} not divisible by {m} microbatches")
-        if pp == 1:
-            return self._stage(self._embed(tokens)), None
+        if pp == 1 and not (cfg.moe and m > 1):
+            y, aux = self._stage(self._embed(tokens))
+            return y, None, aux
         xs = self._embed(tokens).chunk(m) if stage == 0 else None
         like = torch.empty((b // m, s, cfg.d_model), dtype=cfg.compute_dtype,
                            device=tokens.device)
-        outs, sent = [], []
+        outs, sent, aux = [], [], None
         for i in range(m):
+            # an expert layer routes each microbatch alone, as the reference
+            # does: the capacity and the queue order depend on the token set
             x = xs[i] if stage == 0 else collectives.recv_prev(like, "pp", mesh)
-            y = self._stage(x)
+            y, a = self._stage(x)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if stage < pp - 1:
                 sent.append(collectives.send_next(y, "pp", mesh))
             else:
                 outs.append(y)
-        return (torch.cat(outs) if outs else None), (sum(sent) if sent else None)
+        return (torch.cat(outs) if outs else None), (sum(sent) if sent else None), aux
 
     def _logits(self, x):
         cfg = self.cfg
@@ -514,24 +577,33 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
         """tokens (B, S) int (this rank's block on a mesh) → logits (B, S,
         V) in compute dtype; None on a pipeline stage other than the last."""
-        x, _ = self._pipeline(tokens)
+        x, _, _ = self._pipeline(tokens)
         return self._logits(x) if x is not None else None
 
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
              over: Tuple[str, ...] = ("pp", "dp", "sp")) -> torch.Tensor:
         """The mean token loss over the batch blocks of the axes ``over``
         (default: the whole global batch; ``("pp", "sp")`` is one dp
-        replica's, what ``HybridDataParallel`` averages over dp)."""
+        replica's, what ``HybridDataParallel`` averages over dp).  With
+        ``moe``, plus ``moe_aux_coef`` times the load-balancing terms of
+        every layer and microbatch summed over ``over`` (a sum, as the
+        reference's, not a mean)."""
+        x, sent, aux = self._pipeline(tokens)
         if self.mesh is None:
-            return token_loss(self(tokens), targets)
-        x, sent = self._pipeline(tokens)
-        if x is not None:
-            local = torch.stack(_token_loss_terms(self._logits(x), targets))
+            loss = token_loss(self._logits(x), targets)
         else:
-            local = torch.zeros(2, device=tokens.device)
-        for ax in over:
-            local = collectives.psum(local, ax, self.mesh)
-        loss = local[0] / local[1]
+            if x is not None:
+                local = torch.stack(_token_loss_terms(self._logits(x), targets))
+            else:
+                local = torch.zeros(2, device=tokens.device)
+            for ax in over:
+                local = collectives.psum(local, ax, self.mesh)
+            loss = local[0] / local[1]
+        if aux is not None:
+            if self.mesh is not None:
+                for ax in over:
+                    aux = collectives.psum(aux, ax, self.mesh)
+            loss = loss + self.cfg.moe_aux_coef * aux.float()
         return loss if sent is None else loss + sent
 
     def param_specs(self) -> Dict[str, Tuple]:
@@ -616,9 +688,183 @@ def build_train_step(
     return step
 
 
-def build_generate(cfg: TransformerConfig, *args, **kwargs):
-    raise unported("moe_generation", "build_generate")
+def _check_prompt(model: Transformer, prompt, n_new: int) -> np.ndarray:
+    """The reference's argument checks; the prompt as int64 numpy."""
+    prompt = np.asarray(prompt).astype(np.int64)
+    b, s0 = prompt.shape
+    if s0 + n_new > model.cfg.max_seq:
+        raise ValueError(f"{s0}+{n_new} exceeds max_seq {model.cfg.max_seq}")
+    dp = model.axis_size("dp")
+    if b % dp:
+        raise ValueError(f"batch {b} not divisible by dp={dp}")
+    return prompt
 
 
-def build_generate_cached(cfg: TransformerConfig, *args, **kwargs):
-    raise unported("moe_generation", "build_generate_cached")
+def _require_causal(model: Transformer) -> None:
+    if not model.cfg.causal:
+        raise ValueError("generation requires a causal config")
+
+
+def _all_rows(model: Transformer, rows: torch.Tensor) -> torch.Tensor:
+    """This dp shard's rows → the global batch's, in the input's order."""
+    if model.mesh is None:
+        return rows
+    return collectives.all_gather_axis(rows.contiguous(), "dp", 0, model.mesh)
+
+
+def build_generate(model: Transformer) -> Callable[..., np.ndarray]:
+    """Greedy decoding by recompute: ``generate(prompt, n_new) → (B,
+    s0+n_new)`` int64 numpy, the same on every rank.  Each new token runs
+    the forward on the fixed ``max_seq`` window (causal masking makes the
+    right padding inert), the whole (B, max_seq) buffer sharded over dp and
+    sp as the training batch is.  Every rank of the mesh calls it with the
+    whole prompt.  Requires a causal config."""
+    _require_causal(model)
+    cfg, mesh = model.cfg, model.mesh
+
+    def predictions(buf: torch.Tensor) -> torch.Tensor:
+        """(B, max_seq): the argmax of the logits at every position."""
+        logits = model(shard_batch(buf, mesh))
+        if mesh is None:
+            return logits.argmax(-1)
+        pred = (logits.argmax(-1) if logits is not None else
+                torch.zeros(shard_batch(buf, mesh).shape, dtype=torch.long, device=buf.device))
+        pred = collectives.all_reduce_axis(pred, "pp", mesh)  # the last stage's
+        pred = collectives.all_gather_axis(pred.contiguous(), "sp", 1, mesh)
+        return _all_rows(model, pred)
+
+    def generate(prompt, n_new: int) -> np.ndarray:
+        prompt = _check_prompt(model, prompt, n_new)
+        b, s0 = prompt.shape
+        buf = torch.zeros((b, cfg.max_seq), dtype=torch.long, device=model.embed.device)
+        buf[:, :s0] = torch.as_tensor(prompt)
+        with torch.no_grad():
+            for i in range(s0, s0 + n_new):
+                buf[:, i] = predictions(buf)[:, i - 1]
+        return buf[:, :s0 + n_new].cpu().numpy()
+
+    return generate
+
+
+def _sample_seed(seed: int, shard: int, step: int) -> int:
+    """The seed of a sampled step's generator: one stream per seed, dp
+    shard and step."""
+    return ((int(seed) * 1_000_003 + shard) * 1_000_003 + step) % (1 << 63)
+
+
+def build_generate_cached(model: Transformer) -> Callable[..., np.ndarray]:
+    """KV-cached decoding: ``generate(prompt, n_new, temperature=0.0,
+    top_k=0, seed=0) → (B, s0+n_new)`` int64 numpy on every rank, for
+    equal-length prompts.  Every rank of the mesh calls it with the whole
+    prompt and decodes its dp shard's rows.
+
+    Prefill writes the prompt's K/V in one batched pass; each later step
+    embeds one token, attends over the cache (masked to the positions
+    written so far, plain torch ops as the reference's einsums), appends
+    its K/V and picks the next token.  The caches hold kv heads only (the
+    GQA memory win), tp-local heads on a tp mesh, this stage's layers on a
+    pp mesh.  pp runs as turns: the stage whose turn it is runs its layers
+    and sends the activations on, and the last stage's output goes to all.
+    sp keeps the tokens replicated; expert layers dispatch them over sp.
+    Expert layers run at no-drop capacity (cf = n_experts) unless
+    ``prefill_capacity_factor`` bounds the prefill.
+
+    ``temperature == 0`` decodes greedily; above 0 it samples, truncated
+    to the ``top_k`` most likely tokens when ``top_k > 0``, from a
+    ``torch.Generator`` seeded per ``seed``, dp shard and step: the same
+    tokens for the same seed on the same device, not the reference's
+    threefry draws.  Requires a causal config."""
+    _require_causal(model)
+    cfg, mesh = model.cfg, model.mesh
+    cdt, s_max = cfg.compute_dtype, cfg.max_seq
+    pp, stage = model.axis_size("pp"), model.axis_index("pp")
+
+    def cached_layer(lp, x, kc, vc, offset: int, cf: float):
+        """x (B, s, D) at positions [offset, offset+s); kc, vc (B, KV, S_max,
+        dh) updated in place."""
+        s = x.shape[1]
+        h = _ln(x, lp.ln1_s, lp.ln1_b).to(cdt)
+        positions = offset + torch.arange(s, device=x.device)
+        q, k, v = _qkv_proj(cfg, h, lp, positions)
+        kc[:, :, offset:offset + s] = k.to(kc.dtype)
+        vc[:, :, offset:offset + s] = v.to(vc.dtype)
+        b, hq, hkv = q.shape[0], q.shape[1], kc.shape[1]
+        qg = q.reshape(b, hkv, hq // hkv, s, cfg.d_head)
+        scores = torch.einsum("bgrsk,bgtk->bgrst", qg, kc.to(cdt))
+        scores = scores / torch.tensor(math.sqrt(cfg.d_head), dtype=cdt, device=x.device)
+        # query i (position offset+i) sees the cache up to offset+i
+        mask = (torch.arange(s_max, device=x.device)[None, :] <= positions[:, None])
+        scores = scores.masked_fill(~mask, -1e30)
+        attn = torch.softmax(scores.float(), dim=-1).to(cdt)
+        ctx = torch.einsum("bgrst,bgtk->bgrsk", attn, vc.to(cdt)).reshape(b, hq, s, cfg.d_head)
+        x = _attn_out(cfg, ctx, lp, x, mesh)
+        if cfg.moe:
+            return _moe_block(cfg, x, lp, mesh, cf)[0]
+        return _dense_mlp(cfg, x, lp, mesh)
+
+    def full_stack(x, caches, offset: int, cf: float):
+        for turn in range(pp):
+            if stage == turn:
+                for lp, (kc, vc) in zip(model.layers, caches):
+                    x = cached_layer(lp, x, kc, vc, offset, cf)
+            if turn < pp - 1:
+                got = collectives.ppermute(x, "pp", [(turn, turn + 1)], mesh)
+                if stage == turn + 1:
+                    x = got
+        if pp > 1:  # the last stage's output on every stage
+            x = collectives.all_reduce_axis(x if stage == pp - 1 else torch.zeros_like(x),
+                                            "pp", mesh)
+        return x
+
+    def embed(tokens, positions):
+        x = model.embed[tokens]
+        if cfg.pos_emb == "learned":
+            x = x + model.pos[positions]
+        return x.to(cdt)
+
+    def generate(prompt, n_new: int, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0) -> np.ndarray:
+        prompt = _check_prompt(model, prompt, n_new)
+        if top_k > cfg.vocab_size:
+            raise ValueError(f"top_k={top_k} exceeds vocab_size {cfg.vocab_size}")
+        b, s0 = prompt.shape
+        dp, shard = model.axis_size("dp"), model.axis_index("dp")
+        dev = model.embed.device
+        rows = b // dp
+        tokens = torch.as_tensor(prompt[shard * rows:(shard + 1) * rows], device=dev)
+        kv_local, dh = model.layers[0].wk.shape[1], cfg.d_head
+        caches = [(torch.zeros((rows, kv_local, s_max, dh), dtype=cdt, device=dev),
+                   torch.zeros((rows, kv_local, s_max, dh), dtype=cdt, device=dev))
+                  for _ in model.layers]
+        generate.cache_shapes = [tuple(kc.shape) for kc, _ in caches]
+        sampling = temperature > 0.0
+
+        def pick(logits, step: int):
+            if not sampling:
+                return logits.argmax(-1)
+            scaled = logits.float() / torch.tensor(max(float(temperature), 1e-9),
+                                                   device=logits.device)
+            if top_k > 0:
+                kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+                scaled = torch.where(scaled >= kth, scaled, torch.full_like(scaled, -1e30))
+            gen = torch.Generator(device=logits.device)
+            gen.manual_seed(_sample_seed(seed, shard, step))
+            u = torch.rand(scaled.shape, generator=gen, device=logits.device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+            return (scaled + gumbel).argmax(-1)  # Gumbel-max: a categorical draw
+
+        prefill_cf = (float(cfg.n_experts) if cfg.prefill_capacity_factor is None
+                      else cfg.prefill_capacity_factor)
+        with torch.no_grad():
+            x = full_stack(embed(tokens, torch.arange(s0, device=dev)), caches, 0, prefill_cf)
+            out = [pick(model._logits(x)[:, -1], 0)]
+            for j in range(1, n_new):  # consume token j at position s0+j-1
+                pos = s0 + j - 1
+                x = embed(out[-1][:, None], torch.tensor([pos], device=dev))
+                x = full_stack(x, caches, pos, float(cfg.n_experts))
+                out.append(pick(model._logits(x)[:, -1], j))
+            new = _all_rows(model, torch.stack(out, dim=1)) if n_new else \
+                torch.zeros((b, 0), dtype=torch.long, device=dev)
+        return np.concatenate([prompt, new.cpu().numpy()], axis=1)
+
+    return generate

@@ -20,10 +20,10 @@ The three levels are the host-level ``push_pull`` of ``api``
 (``host_push_pull_async`` and ``synchronize``) on this object's mesh.
 
 On a mesh with model axes (tensor parallelism: ``param_specs`` shards a
-parameter over tp), the local reduce runs over the mesh's dp axis (and
-the axes ``grad_sync_axes`` lists for a parameter, tp left to the
-model's f/g pair), each sharded gradient is gathered over its sharded
-axes, and the host's root pushes and pulls it whole: one key per
+parameter over tp; expert parallelism: a transformer's experts over sp),
+the local reduce runs over the mesh's dp axis (and the axes
+``grad_sync_axes`` lists for a parameter, tp left to the model's f/g
+pair), each sharded gradient is gathered over its sharded axes, and the host's root pushes and pulls it whole: one key per
 parameter, at the parameter's full shape, as the reference's keys are.
 The root broadcasts the pulls to the host's ranks, and each keeps its
 shard.  So one fleet serves hybrids of both packages, sharded or not.
@@ -42,7 +42,6 @@ import torch
 from byteps_tpu_torch.api import declare_tensor, host_push_pull_async, synchronize
 from byteps_tpu_torch.comm import collectives
 from byteps_tpu_torch.comm.mesh import DP_AXIS, Mesh, get_global_mesh, model_axes
-from byteps_tpu_torch.common.config import unported
 
 
 def tree_path(name: str) -> str:
@@ -68,8 +67,8 @@ class HybridDataParallel:
 
     ``param_specs`` maps a parameter name to its partition spec, a tuple
     of mesh axis names or None per dimension, as the reference's
-    PartitionSpecs: a tp entry shards the dimension over the mesh's tp
-    axis.  ``grad_sync_axes`` maps a name to the axes its gradient sums
+    PartitionSpecs: a tp (sp) entry shards the dimension over the mesh's
+    tp (sp) axis.  ``grad_sync_axes`` maps a name to the axes its gradient sums
     over (default dp; a transformer's ``model.grad_sync_axes()``).
     ``loss_fn`` returns the loss of this rank's dp replica; the hybrid
     averages over the replicas and the hosts."""
@@ -91,13 +90,10 @@ class HybridDataParallel:
                                "mesh=build_mesh(...)")
         specs = {n: tuple(spec) for n, spec in (param_specs or {}).items()}
         for name, spec in specs.items():
-            bad = [ax for ax in spec if ax is not None and ax != "tp"]
-            if "sp" in bad:  # the reference shards only MoE experts over sp
-                raise unported("moe_generation", f"param_specs of {name!r} shard it over "
-                               f"sp (expert parallelism)")
+            bad = [ax for ax in spec if ax is not None and ax not in ("tp", "sp")]
             if bad:
                 raise ValueError(f"param_specs of {name!r}: {spec} shards over {bad}; a "
-                                 f"hybrid shards parameters over tp only")
+                                 f"hybrid shards parameters over tp and sp only")
         if self.mesh.axis_size("pp") > 1:
             raise ValueError("a hybrid runs one pipeline stage per rank's model: its mesh "
                              "takes dp, sp and tp axes (build_train_step runs pp)")
@@ -120,8 +116,7 @@ class HybridDataParallel:
             declare_tensor(name)
 
     def _full_shape(self, p: torch.Tensor, spec: Tuple) -> Tuple[int, ...]:
-        tp = self.mesh.axis_size("tp")
-        return tuple(n * tp if ax == "tp" else n
+        return tuple(n * self.mesh.axis_size(ax) if ax else n
                      for n, ax in zip(p.shape, spec + (None,) * (p.dim() - len(spec))))
 
     def step(self, batch: Any, loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor]) -> float:

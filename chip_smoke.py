@@ -184,7 +184,25 @@ Phases, each fatal on failure:
      + rtol 1e-5 per parameter gathered, K1-K3 launched a step on every
      rank as its coordinates say, the hybrid's keys the model's names at
      full shapes and its pulls bitwise the host's sum;
- 25. one JSON line listing the kernels, then the contract line
+ 25. mixture-of-experts and generation, phase (i) (on phase (h)'s host;
+     ``_moe_generation``), GPT-2 medium's widths, experts at the
+     reference's defaults (8, top-2, capacity factor 2.0, aux 0.01): K1-K3
+     at the phase's shapes against their plain versions; (i1) 4 layers in
+     one process, 3 AdamW steps on 8 sequences: losses finite and falling,
+     the drops per layer and step, K1-K3 as depth and remat say, and one
+     f32 step at 2 layers per parameter against the CPU's; (i2) 2 layers on
+     {sp:2, tp:2}, 4 experts a rank: at no-drop capacity without the aux
+     term within 2e-2 of one process (and one f32 step per parameter), at
+     the defaults finite and falling; (i3) the no-drop model on {dp:2,
+     sp:2} through HybridDataParallel and the servers, the experts pushed
+     whole, every pull bitwise the host's sum; (i4) dense at 24 layers, 8
+     prompts of 128, 64 new greedy by recompute (K1) and by the KV cache:
+     tokens a second, K1's launches, at 2 layers f32 the builders' tokens
+     equal on the card and to the CPU's, bf16 prefill logits within the
+     model check's rule of f32; (i5) the f32 expert model's cached decode
+     on {sp:2, tp:2} and {pp:2, tp:2} equal to one process's; (i6)
+     ``byteps_tpu_torch.dryrun.dryrun_multichip(4)`` on the host's ranks;
+ 26. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
@@ -5574,25 +5592,27 @@ MP_RUNS = (
 
 
 def _mp_cfg(model: str, layers: int, overrides: dict):
-    """BERT-large (seq 512) or GPT-2 medium (seq 1024, its published
-    context) at ``layers``: remat, flash, bf16 unless ``overrides`` say
-    float32."""
+    """BERT-large (seq 512), GPT-2 medium (seq 1024, its published
+    context) or ("moe") GPT-2 medium with expert layers at the reference's
+    defaults (8 experts, top-2, capacity factor 2.0, aux 0.01) at
+    ``layers``: remat, flash, bf16 unless ``overrides`` say float32
+    (``batch`` in ``overrides`` is the run's, not the config's)."""
     import torch
 
     from byteps_tpu_torch.models.transformer import bert_large, gpt2_medium
 
-    kw = dict(overrides)
-    dtype = getattr(torch, kw.pop("dtype", "bfloat16"))
+    kw = {"remat": True, "use_flash": True, "moe": model == "moe"}
+    kw.update((k, v) for k, v in overrides.items() if k != "batch")
+    kw["compute_dtype"] = getattr(torch, kw.pop("dtype", "bfloat16"))
     make, seq = (bert_large, SEQ) if model == "bert" else (gpt2_medium, 1024)
-    return dataclasses.replace(make(max_seq=seq, compute_dtype=dtype, remat=True,
-                                    use_flash=True, **kw), n_layers=layers)
+    return dataclasses.replace(make(max_seq=seq, **kw), n_layers=layers)
 
 
-def _mp_tokens(cfg) -> tuple:
-    """MP_BATCH sequences of numpy seed 0 and their next-token targets (the
+def _mp_tokens(cfg, batch: int = MP_BATCH) -> tuple:
+    """``batch`` sequences of numpy seed 0 and their next-token targets (the
     causal model's last position ignored)."""
     tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(MP_BATCH, cfg.max_seq)).astype(np.int64)
+        0, cfg.vocab_size, size=(batch, cfg.max_seq)).astype(np.int64)
     targets = np.roll(tokens, -1, axis=1)
     if cfg.causal:
         targets[:, -1] = -1
@@ -5622,7 +5642,7 @@ def _mp_want(run: tuple, coords: dict) -> dict:
     _, model, layers, axes, overrides, _ = run
     pp = axes.get("pp", 1)
     calls = layers // pp * (overrides.get("microbatches") or pp)
-    if axes.get("sp", 1) > 1 and overrides.get("seq_parallel_impl") == "ring":
+    if axes.get("sp", 1) > 1 and _mp_cfg(model, layers, overrides).seq_parallel_impl == "ring":
         calls = layers * (coords["sp"] + 1)
     return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
 
@@ -5643,7 +5663,7 @@ def _mp_one_process(run: tuple, work: str) -> dict:
     model = Transformer(cfg, device=MP_DEVICE)
     model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, f"w {model_name} {layers}")),
                                           cfg))
-    tokens, targets = _mp_tokens(cfg)
+    tokens, targets = _mp_tokens(cfg, overrides.get("batch", MP_BATCH))
     tok, tgt = (torch.as_tensor(a, device=MP_DEVICE) for a in (tokens, targets))
     f32 = cfg.compute_dtype == torch.float32
     opt = (torch.optim.SGD(model.parameters(), lr=MP_F32_LR) if f32 else
@@ -5660,8 +5680,7 @@ def _mp_one_process(run: tuple, work: str) -> dict:
     if f32:
         _mp_save(_mp_dir(work, f"ref {name}"), params_to_jax(model.state_dict(), cfg))
     if hybrid:
-        out["keys"] = [[f"Hybrid.0{tree_path(n)}", list(p.shape)]
-                       for n, p in model.named_parameters()]
+        out["keys"] = [[tree_path(n), list(p.shape)] for n, p in model.named_parameters()]
     return out
 
 
@@ -5680,6 +5699,7 @@ def _mp_host_run(run: tuple, work: str) -> dict:
     from byteps_tpu_torch.models.transformer import Transformer, build_train_step, shard_batch
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.parallel import hybrid as hybrid_mod
+    from byteps_tpu_torch.parallel import moe
     from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
 
     name, model_name, layers, axes, overrides, hybrid = run
@@ -5689,7 +5709,8 @@ def _mp_host_run(run: tuple, work: str) -> dict:
     model = Transformer(cfg, device=dev, mesh=mesh)
     model.load_state_dict(shard_params_from_jax(
         _mp_load(_mp_dir(work, f"w {model_name} {layers}")), cfg, mesh))
-    tok, tgt = (shard_batch(torch.as_tensor(a), mesh).to(dev) for a in _mp_tokens(cfg))
+    tok, tgt = (shard_batch(torch.as_tensor(a), mesh).to(dev)
+                for a in _mp_tokens(cfg, overrides.get("batch", MP_BATCH)))
     f32 = cfg.compute_dtype == torch.float32
     opt = (torch.optim.SGD(model.parameters(), lr=MP_F32_LR) if f32 else
            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
@@ -5721,15 +5742,20 @@ def _mp_host_run(run: tuple, work: str) -> dict:
             return hdp.step((t, y), lambda m, b: m.loss(*b, over=("pp", "sp")))
     else:
         step = build_train_step(model, opt)
+    # an expert layer's forward adds its drops, and so does its recompute
+    # in backward: the first (local layers x microbatches) are the forward's
+    forwards = layers // mesh.axis_size("pp") * (cfg.microbatches or mesh.axis_size("pp"))
     try:
         for _ in range(1 if f32 else MP_STEPS):
             fa.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss = float(step(tok, tgt))
+            with moe.count_drops() as drops:
+                loss = float(step(tok, tgt))
             torch.cuda.synchronize()
             out["steps"].append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
-                                 "launches": dict(fa.launches)})
+                                 "launches": dict(fa.launches),
+                                 "drops": [int(d) for d in drops[:forwards]]})
     finally:
         if hybrid:
             hybrid_mod.host_push_pull_async, hybrid_mod.synchronize = push, sync
@@ -5753,7 +5779,9 @@ def mp_host(work: str) -> None:
     BYTEPS_MESH_TRANSPORT=staged): imports torch, brings up CUDA and what
     the first optimizer step imports, then init() on the card (the staged
     group; rank 0 joins the PS), waits for <dir>/go, and runs MP_RUNS in
-    turn, writing <dir>/<run>.<rank>.json after each."""
+    turn, writing <dir>/<run>.<rank>.json after each.  Then phase (i)'s
+    runs, MOE_HOST_RUNS, once <dir>/go-i exists (none if <dir>/no-i does),
+    each writing its file the same way."""
     marks = {"entered": time.time()}
     import torch
 
@@ -5776,16 +5804,30 @@ def mp_host(work: str) -> None:
             sys.exit(f"model parallel rank {rank}: no go file after {PHASE_STALL_S} s")
         time.sleep(0.05)
     marks["go"] = time.time()
-    for run in MP_RUNS:
-        out = _mp_host_run(run, work)
-        marks[run[0]] = time.time()
+
+    def write(name: str, out: dict) -> None:
+        marks[name] = time.time()
         out["marks"] = {k: round(v - marks["entered"], 2) for k, v in marks.items()}
-        path = os.path.join(work, f"{_mp_dir('', run[0])}.{rank}.json")
+        path = os.path.join(work, f"{_mp_dir('', name)}.{rank}.json")
         with open(path + ".tmp", "w") as f:
             json.dump(out, f)
         os.replace(path + ".tmp", path)
         gc.collect()
         torch.cuda.empty_cache()
+
+    for run in MP_RUNS:
+        write(run[0], _mp_host_run(run, work))
+    deadline = time.monotonic() + PHASE_STALL_S
+    while not os.path.exists(os.path.join(work, "go-i")):
+        if os.path.exists(os.path.join(work, "no-i")):
+            break
+        if time.monotonic() > deadline:
+            sys.exit(f"model parallel rank {rank}: no go-i file after {PHASE_STALL_S} s")
+        time.sleep(0.05)
+    else:
+        marks["go-i"] = time.time()
+        for run in MOE_HOST_RUNS:
+            write(run[0], _moe_host_run(run, work))
     from byteps_tpu_torch.core.state import get_state
 
     torch.distributed.barrier(group=get_state().mesh.group)
@@ -5807,81 +5849,358 @@ def check_mp_kernel_shapes() -> None:
     check_case("(h) ring hop f32", MP_BATCH, 8, 512, 64, torch.float32, True, seed=44)
 
 
-def train_model_parallel(card: str) -> dict:
-    """Phase (h), model parallelism: a scheduler, two Python servers and
-    one launcher host of MP_RANKS ranks on this card over the staged
-    transport, started together and warmed up while this process draws the
-    weights (``init_params(seed=0)``) and runs every run alone in one
-    process on the card.  Then the host trains, each run in turn, its
-    ranks holding the shards ``shard_params_from_jax`` cuts: (h1)
-    BERT-large at 4 layers on {pp:2, tp:2}, 4 microbatches; (h2) GPT-2
-    medium at 2 layers on {sp:2, tp:2}, the ring of flash hops; (h3) the
-    same on Ulysses; (h4) BERT-large at 2 layers on {dp:2, tp:2} through
-    HybridDataParallel and the PS; and one f32 SGD step of (h1) and (h2) at
-    2 layers.  Fails unless every bf16 run's losses are within
-    MP_LOSS_RTOL of one process's on every rank, every f32 parameter
-    gathered within atol MP_F32_ATOL + rtol MP_F32_RTOL of one process's,
-    every rank launched K1-K3 a step as its coordinates say, (h4)'s keys
-    are the one-process model's names at full shapes and every pull is
-    bitwise the host's pushed sum.  Prints the launches of every rank, the
-    step ms and the transport.  Returns {run: [rank 0's launches a step,
-    ...]}."""
+# --- phase (i): mixture-of-experts and generation ------------------------------
+
+#: phase (i)'s weights, drawn by two processes beside phase (h): GPT-2 medium
+#: with expert layers at 4 and 2 layers, and dense at 24 (the dense 2-layer
+#: weights are phase (h)'s)
+MOE_WEIGHTS = ([("moe", 4), ("moe", 2)], [("gpt2", 24)])
+#: (i1)'s depth, (i2)-(i5)'s, and the sequences of every training run (the
+#: first MOE_F32_CPU_ROWS of them for (i1)'s f32 step against the CPU: the
+#: CPU takes seconds a sequence at GPT-2 medium's widths)
+MOE_LAYERS, MOE_MESH_LAYERS, MOE_BATCH, MOE_F32_CPU_ROWS = 4, 2, 8, 1
+#: the no-drop capacity of top-2 over 8 experts (cf = E / k: capacity = the
+#: token count) without the aux term: the loss no longer depends on the mesh
+MOE_NODROP = {"batch": MOE_BATCH, "capacity_factor": 4.0, "moe_aux_coef": 0.0}
+#: generation: prompts (the first GEN_PROMPT_LEN tokens of the training
+#: sequences), new tokens greedy, and the new tokens of (i5)'s decode
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, MOE_DECODE_NEW = 8, 128, 64, 16
+#: phase (i)'s runs on phase (h)'s host: (run, model, depth, mesh axes,
+#: config overrides, mode: False trains, True trains through
+#: HybridDataParallel, "decode" decodes with the KV cache, "dryrun" runs
+#: byteps_tpu_torch.dryrun.dryrun_multichip on the host's ranks)
+MOE_HOST_RUNS = (
+    ("i2", "moe", MOE_MESH_LAYERS, {"sp": 2, "tp": 2}, MOE_NODROP, False),
+    ("i2 default", "moe", MOE_MESH_LAYERS, {"sp": 2, "tp": 2}, {"batch": MOE_BATCH}, False),
+    ("i3", "moe", MOE_MESH_LAYERS, {"dp": 2, "sp": 2}, MOE_NODROP, True),
+    ("i2 f32", "moe", MOE_MESH_LAYERS, {"sp": 2, "tp": 2}, {**MOE_NODROP, "dtype": "float32"},
+     False),
+    ("i5 sp2 tp2", "moe", MOE_MESH_LAYERS, {"sp": 2, "tp": 2}, {"dtype": "float32"}, "decode"),
+    ("i5 pp2 tp2", "moe", MOE_MESH_LAYERS, {"pp": 2, "tp": 2}, {"dtype": "float32"}, "decode"),
+    ("i6", "", 0, {}, {}, "dryrun"),
+)
+#: runs whose loss depends on the mesh (each rank routes its own tokens at
+#: a capacity of its own token count, and the aux term is a sum over the
+#: mesh, as the reference's): held to finite and falling losses only
+MP_MESH_DEPENDENT = {"i2 default"}
+
+
+def _gen_prompt(cfg) -> np.ndarray:
+    return _mp_tokens(cfg, GEN_PROMPTS)[0][:, :GEN_PROMPT_LEN]
+
+
+def _moe_host_run(run: tuple, work: str) -> dict:
+    """One run of phase (i) on this rank of the host (``mp_host``)."""
     import torch
 
-    from byteps_tpu_torch.models.transformer import init_params
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.convert import shard_params_from_jax
+    from byteps_tpu_torch.models.transformer import Transformer, build_generate_cached
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
 
-    label = "model parallel (h)"
-    wall = time.perf_counter()
-    check_mp_kernel_shapes()
+    name, model_name, layers, axes, overrides, mode = run
+    if mode == "dryrun":
+        from byteps_tpu_torch import dryrun
+
+        t0 = time.perf_counter()
+        lines = dryrun.dryrun_multichip(MP_RANKS)
+        return {"lines": lines, "s": time.perf_counter() - t0}
+    if mode != "decode":
+        return _mp_host_run(run, work)
+    cfg = _mp_cfg(model_name, layers, overrides)
+    mesh = make_training_mesh(axis_sizes=axes)
+    model = Transformer(cfg, device=bps.device(), mesh=mesh)
+    model.load_state_dict(shard_params_from_jax(
+        _mp_load(_mp_dir(work, f"w {model_name} {layers}")), cfg, mesh))
+    gen = build_generate_cached(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = gen(_gen_prompt(cfg), MOE_DECODE_NEW)
+    torch.cuda.synchronize()
+    return {"tokens": tokens.tolist(), "s": time.perf_counter() - t0,
+            "coords": {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")},
+            "cache_shapes": gen.cache_shapes}
+
+
+def check_moe_kernel_shapes() -> None:
+    """K1-K3 at the shapes phase (i) gives them, against their plain
+    versions: GPT-2 medium's 16 heads at S 1024 causal on MOE_BATCH
+    sequences (one process: (i1) and (i4)'s recompute), and a causal
+    ring's diagonal and full hops on MOE_BATCH sequences of 512 with 8
+    tp-local heads ((i2))."""
+    import torch
+
+    bf16 = torch.bfloat16
+    check_case("(i) one process bf16", MOE_BATCH, 16, 1024, 64, bf16, True, seed=50)
+    check_case("(i) ring hop diagonal bf16", MOE_BATCH, 8, 512, 64, bf16, True, seed=51)
+    check_case("(i) ring hop full bf16", MOE_BATCH, 8, 512, 64, bf16, False, seed=52)
+
+
+def _moe_one_process(card: str, work: str) -> tuple:
+    """(i1): GPT-2 medium with expert layers at MOE_LAYERS alone on the
+    card, bf16, AdamW (lr 1e-4), MP_STEPS steps on MOE_BATCH sequences:
+    each step's loss, ms, K1-K3 launches and the assignments dropped per
+    layer.  Then the f32 model at MOE_MESH_LAYERS on the card, one SGD step
+    (MP_F32_LR) on MOE_F32_CPU_ROWS sequences, its parameters returned for
+    the CPU's step.  Returns (the failures, the result)."""
+    import torch
+
+    from byteps_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from byteps_tpu_torch.models.transformer import Transformer, build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.parallel import moe
+
+    cfg = _mp_cfg("moe", MOE_LAYERS, {})
+    model = Transformer(cfg, device=MP_DEVICE)
+    model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, f"w moe {MOE_LAYERS}")), cfg))
+    tok, tgt = (torch.as_tensor(a, device=MP_DEVICE) for a in _mp_tokens(cfg, MOE_BATCH))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    steps = []
+    for _ in range(MP_STEPS):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        with moe.count_drops() as drops:  # the forward's; the recompute adds its own
+            loss = model.loss(tok, tgt)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        steps.append({"loss": float(loss.detach()), "ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": dict(fa.launches), "drops": [int(d) for d in drops]})
+    del model, opt
+    torch.cuda.empty_cache()
+    want = {"flash_fwd": 2 * MOE_LAYERS, "flash_bwd_dq": MOE_LAYERS,
+            "flash_bwd_dkv": MOE_LAYERS}
+    losses = [s["loss"] for s in steps]
     bad = []
-    with tempfile.TemporaryDirectory() as work:
-        env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
-               "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
-               "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": str(MP_RANKS),
-               "BYTEPS_MESH_TRANSPORT": MP_TRANSPORT}
-        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
-            env.pop(k, None)
-        port, fleet = _start_ps_processes(env, work)
-        path = os.path.join(work, "host.log")
-        with open(path, "w") as log:
-            host = _track(subprocess.Popen(
-                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
-                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-host", work],
-                cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
-                               "MP_HOST_DEVICE": MP_HOST_DEVICE}, stdout=log,
-                stderr=subprocess.STDOUT), "model parallel host", path)
-        try:
-            t0 = time.perf_counter()
-            for model_name, layers in (("bert", 4), ("bert", 2), ("gpt2", 2)):
-                cfg = _mp_cfg(model_name, layers, {})
-                _mp_save(_mp_dir(work, f"w {model_name} {layers}"), init_params(cfg, seed=0))
-            weights_s = time.perf_counter() - t0
-            one = {run[0]: _mp_one_process(run, work) for run in MP_RUNS}
-            torch.cuda.empty_cache()
-            refs_s = time.perf_counter() - t0 - weights_s
-            t_go = time.perf_counter()
-            open(os.path.join(work, "go"), "w").close()
-            deadline = time.monotonic() + PHASE_STALL_S
-            while host.poll() is None and time.monotonic() < deadline:
-                time.sleep(0.2)
-            rc = host.poll()
-            host_s = time.perf_counter() - t_go
-        finally:
-            _stop_processes([host] + fleet)
-        if rc != 0:
-            with open(path) as f:
-                print(f"--- {label} host (exit {rc}):\n{f.read()[-8000:]}", file=sys.stderr)
-            fail(f"{label}: the host exited {rc}")
-        res = {}
-        for run in MP_RUNS:
-            res[run[0]] = []
-            for r in range(MP_RANKS):
-                with open(os.path.join(work, f"{_mp_dir('', run[0])}.{r}.json")) as f:
-                    res[run[0]].append(json.load(f))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        bad.append(f"i1: losses {losses} not finite and falling")
+    off = [i + 1 for i, s in enumerate(steps) if s["launches"] != want]
+    if off:
+        bad.append(f"i1 steps {off}: launches {steps[off[0] - 1]['launches']}, expected {want}")
+    f32 = _mp_cfg("moe", MOE_MESH_LAYERS, {"dtype": "float32"})
+    sd = params_from_jax(_mp_load(_mp_dir(work, f"w moe {MOE_MESH_LAYERS}")), f32)
+    tokens, targets = (a[:MOE_F32_CPU_ROWS] for a in _mp_tokens(f32, MOE_BATCH))
+    after = {}
+    for dev in (MP_DEVICE, "cpu"):
+        model = Transformer(f32, device=dev)
+        model.load_state_dict(sd)
+        step = build_train_step(model, torch.optim.SGD(model.parameters(), lr=MP_F32_LR))
+        loss = float(step(torch.as_tensor(tokens, device=dev), torch.as_tensor(targets,
+                                                                                device=dev)))
+        after[dev] = (loss, params_to_jax(model.state_dict(), f32))
+        del model, step
+    errs = {k: [float(np.abs(after[MP_DEVICE][1][k] - w).max()),
+                float((np.abs(after[MP_DEVICE][1][k] - w) - MP_F32_RTOL * np.abs(w)).max())]
+            for k, w in after["cpu"][1].items()}
+    over = {k: e for k, e in errs.items() if e[1] > MP_F32_ATOL}
+    if over:
+        bad.append(f"i1 f32: parameters beyond atol {MP_F32_ATOL} + rtol {MP_F32_RTOL} of the "
+                   f"CPU's: {over}")
+    worst = max(errs.items(), key=lambda kv: kv[1][0])
+    print(f"moe and generation (i) i1: GPT-2 medium with 8 experts (top-2, capacity factor "
+          f"2.0, aux 0.01) at {MOE_LAYERS} layers, seq {cfg.max_seq}, bf16, remat, flash, {MOE_BATCH} "
+          f"sequences, AdamW, one process: losses {losses}; ms a step "
+          f"{[round(s['ms'], 1) for s in steps]}; assignments dropped per layer a step (of "
+          f"{2 * MOE_BATCH * cfg.max_seq}) {[s['drops'] for s in steps]}; K1-K3 launches a "
+          f"step {steps[-1]['launches']} (want {want}); f32 at {MOE_MESH_LAYERS} layers, one "
+          f"SGD step (lr {MP_F32_LR}) on {MOE_F32_CPU_ROWS} sequence: loss card "
+          f"{after[MP_DEVICE][0]!r}, CPU {after['cpu'][0]!r}; each parameter against the "
+          f"CPU's: max abs err {worst[1][0]:.3e} ({worst[0]}), all within atol {MP_F32_ATOL} "
+          f"+ rtol {MP_F32_RTOL}: {not over}; on {card}", flush=True)
+    return bad, {"steps": steps, "launches": steps[-1]["launches"]}
+
+
+def _generate_timed(gen, prompt, n_new: int) -> tuple:
+    """(tokens, seconds, K1-K3 launches) of one generation call."""
+    import torch
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = gen(prompt, n_new)
+    torch.cuda.synchronize()
+    return tokens, time.perf_counter() - t0, dict(fa.launches)
+
+
+def _generation_one_process(card: str, work: str) -> tuple:
+    """(i4): GPT-2 medium, dense, at 24 layers alone on the card, bf16,
+    flash: GEN_PROMPTS prompts of GEN_PROMPT_LEN tokens, GEN_NEW new
+    tokens greedy by recompute (``build_generate``: K1 causal on the
+    max_seq window, once a layer a token) and with the KV cache
+    (``build_generate_cached``: no kernel), each after a warm-up call of 2
+    tokens, tokens a second and K1's launches.  At 2 layers in f32 the two
+    builders' tokens on the card and the cached builder's on the CPU are
+    equal; in bf16 the prefill logits (flash) are no further from the
+    card's f32 logits, on average, than 1.25 times the dense attention's
+    bf16 logits are (the model check's rule); the share of bf16 tokens
+    equal to f32's is printed.  Returns (the failures, the result)."""
+    import torch
+
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import (Transformer, build_forward,
+                                                     build_generate, build_generate_cached)
+
+    bad, out = [], {}
+    cfg = _mp_cfg("gpt2", 24, {})
+    prompt = _gen_prompt(cfg)
+    model = Transformer(cfg, device=MP_DEVICE)
+    model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, "w gpt2 24")), cfg))
+    tokens = {}
+    for name, build in (("recompute", build_generate), ("cached", build_generate_cached)):
+        gen = build(model)
+        gen(prompt, 2)
+        tokens[name], s, launches = _generate_timed(gen, prompt, GEN_NEW)
+        want = {"flash_fwd": GEN_NEW * cfg.n_layers if name == "recompute" else 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if {k: launches.get(k, 0) for k in want} != want:
+            bad.append(f"i4 {name}: launches {launches}, expected {want}")
+        out[name] = {"tokens_per_s": GEN_PROMPTS * GEN_NEW / s, "s": s, "launches": launches}
+    agree = float((tokens["recompute"] == tokens["cached"])[:, GEN_PROMPT_LEN:].mean())
+    del model
+    torch.cuda.empty_cache()
+
+    sd = params_from_jax(_mp_load(_mp_dir(work, "w gpt2 2")), _mp_cfg("gpt2", 2, {}))
+    runs = {}
+    for label, overrides, dev in (("f32", {"dtype": "float32"}, MP_DEVICE),
+                                  ("f32 cpu", {"dtype": "float32"}, "cpu"),
+                                  ("bf16", {}, MP_DEVICE),
+                                  ("bf16 dense", {"use_flash": False}, MP_DEVICE)):
+        small = Transformer(_mp_cfg("gpt2", 2, overrides), device=dev)
+        small.load_state_dict(sd)
+        x = torch.as_tensor(prompt, device=dev)
+        runs[label] = {"logits": build_forward(small)(x).float().cpu(),
+                       "cached": build_generate_cached(small)(prompt, GEN_NEW)}
+        if label == "f32":
+            runs[label]["recompute"] = build_generate(small)(prompt, GEN_NEW)
+        del small
+    f32 = runs["f32"]
+    if not (np.array_equal(f32["recompute"], f32["cached"])
+            and np.array_equal(f32["cached"], runs["f32 cpu"]["cached"])):
+        bad.append("i4 f32: the builders' tokens on the card and the CPU's differ")
+    ef = float((runs["bf16"]["logits"] - f32["logits"]).abs().mean())
+    ed = float((runs["bf16 dense"]["logits"] - f32["logits"]).abs().mean())
+    if not ef <= 1.25 * ed:
+        bad.append(f"i4 bf16 prefill logits: flash {ef:.3e} from f32 on average, dense "
+                   f"attention {ed:.3e}")
+    same = float((runs["bf16"]["cached"] == f32["cached"])[:, GEN_PROMPT_LEN:].mean())
+    print(f"moe and generation (i) i4: GPT-2 medium at 24 layers, bf16, flash, "
+          f"{GEN_PROMPTS} prompts of {GEN_PROMPT_LEN} tokens, {GEN_NEW} new greedy: recompute "
+          f"(max_seq window {cfg.max_seq}) {out['recompute']['tokens_per_s']:.1f} tokens/s "
+          f"({out['recompute']['s']:.3f} s), K1 launches {out['recompute']['launches']}; KV "
+          f"cache {out['cached']['tokens_per_s']:.1f} tokens/s ({out['cached']['s']:.3f} s), "
+          f"launches {out['cached']['launches']}; new tokens equal between the two "
+          f"{agree:.3f}; at 2 layers f32: the builders on the card and the CPU's cached "
+          f"tokens equal {'i4 f32' not in ' '.join(bad)}; bf16 prefill logits mean abs from "
+          f"f32 {ef:.3e} (dense attention {ed:.3e}); bf16 greedy tokens equal to f32's "
+          f"{same:.3f}; on {card}", flush=True)
+    out.update(agree=agree, bf16_same=same)
+    return bad, out
+
+
+def _moe_generation(card: str, work: str, host, path: str, draws: list,
+                    one_process: bool) -> dict:
+    """Phase (i), mixture-of-experts and generation, on phase (h)'s host
+    (``train_model_parallel`` runs it; its ranks wait for <work>/go-i).
+    K1-K3 at the phase's shapes against their plain versions; the
+    one-process references of the host's runs on the card; then, with the
+    host's runs going on, (i1) (``_moe_one_process``) when
+    ``one_process``.  The host: (i2) GPT-2 medium with 8 experts at 2
+    layers on {sp:2, tp:2}, 4 experts a rank, at no-drop capacity without
+    the aux term (losses within MP_LOSS_RTOL of one process's) and at the
+    defaults (finite, falling; each rank's drops printed), (i3) the
+    no-drop model on {dp:2, sp:2} through HybridDataParallel and the two
+    servers (the experts pushed whole, every pull bitwise the host's sum),
+    one f32 step of (i2) within atol MP_F32_ATOL + rtol MP_F32_RTOL per
+    parameter, (i5) the f32 model's cached decode on {sp:2, tp:2} and
+    {pp:2, tp:2} (tokens equal one process's), (i6) ``dryrun_multichip``
+    on the four ranks.  After the host, (i4) (``_generation_one_process``)
+    alone on the card when ``one_process``.  Fails on any failure.
+    Returns {"i1": K1-K3 a step, "i2": each rank's, "i4": K1 a call}."""
+    import torch
+
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.transformer import Transformer, build_generate_cached
+
+    label = "moe and generation (i)"
+    wall = time.perf_counter()
+    check_moe_kernel_shapes()
+    t0 = time.perf_counter()
+    for proc in draws:
+        if proc.wait(timeout=PHASE_STALL_S) != 0:
+            fail(f"{label}: drawing the weights exited {proc.returncode}")
+    draws_s = time.perf_counter() - t0
+    train = [run for run in MOE_HOST_RUNS if run[5] in (False, True)]
+    one = {run[0]: _mp_one_process(run, work) for run in train
+           if run[0] not in MP_MESH_DEPENDENT}
+    torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0 - draws_s
+    t_go = time.perf_counter()
+    open(os.path.join(work, "go-i"), "w").close()
+    bad, result = [], {}
+    if one_process:
+        b, result["i1"] = _moe_one_process(card, work)
+        bad += b
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = _mp_await(label, host, path, work, MOE_HOST_RUNS)
+    host_s = time.perf_counter() - t_go
+    b, launches = _mp_check(label, train, one, res, card)
+    bad += b
+    result["i2"] = [launches["i2"][r][-1] for r in range(MP_RANKS)]
+    # (i5): the host's decodes against one process's on the card
+    cfg = _mp_cfg("moe", MOE_MESH_LAYERS, {"dtype": "float32"})
+    single = Transformer(cfg, device=MP_DEVICE)
+    single.load_state_dict(params_from_jax(
+        _mp_load(_mp_dir(work, f"w moe {MOE_MESH_LAYERS}")), cfg))
+    want = build_generate_cached(single)(_gen_prompt(cfg), MOE_DECODE_NEW)
+    del single
+    torch.cuda.empty_cache()
+    for run in MOE_HOST_RUNS:
+        if run[5] != "decode":
+            continue
+        ranks = res[run[0]]
+        same = [np.array_equal(np.asarray(rr["tokens"]), want) for rr in ranks]
+        if not all(same):
+            bad.append(f"{run[0]}: tokens equal to one process's per rank {same}")
+        print(f"{label} {run[0]}: GPT-2 medium with 8 experts at {MOE_MESH_LAYERS} layers, "
+              f"f32, KV-cached decode of {GEN_PROMPTS} prompts of {GEN_PROMPT_LEN} tokens, "
+              f"{MOE_DECODE_NEW} new, on {run[3]}: tokens equal to one process's per rank "
+              f"{same}; cache shapes per rank {[rr['cache_shapes'][0] for rr in ranks]} "
+              f"({len(ranks[0]['cache_shapes'])} layers a rank); s per rank "
+              f"{[round(rr['s'], 2) for rr in ranks]}", flush=True)
+    lines = res["i6"][0]["lines"]
+    if len(lines) != 2 or any(rr["lines"] != lines for rr in res["i6"]):
+        bad.append(f"i6: summary lines {[rr['lines'] for rr in res['i6']]}")
+    for line in lines:
+        print(f"{label} i6: dryrun_multichip OK: {line}", flush=True)
+    print(f"{label} i6: dryrun_multichip({MP_RANKS}) on the host's ranks, s per rank "
+          f"{[round(rr['s'], 2) for rr in res['i6']]}", flush=True)
+    if one_process:
+        gc.collect()
+        b, result["i4"] = _generation_one_process(card, work)
+        bad += b
+    print(f"{label}: weights drawn beside phase (h), waited {draws_s:.1f} s; one-process "
+          f"references {refs_s:.1f} s; the host's runs {host_s:.1f} s; the ranks' marks (s) "
+          f"{[rr['marks'] for rr in res['i6']]}; phase wall {time.perf_counter() - wall:.1f} s",
+          flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return result
+
+
+def _mp_check(label: str, runs: tuple, one: dict, res: dict, card: str) -> tuple:
+    """The checks of a host's training runs against one process's (see
+    ``train_model_parallel``); prints each run's line.  Returns (the
+    failures, {run: every rank's launches a step})."""
+    bad = []
     launches = {}
-    for run in MP_RUNS:
+    for run in runs:
         name, model_name, layers, axes, overrides, hybrid = run
-        want_losses = one[name]["losses"]
+        want_losses = one[name]["losses"] if name in one else None
         ranks = res[name]
         f32 = overrides.get("dtype") == "float32"
         for r, rr in enumerate(ranks):
@@ -5890,7 +6209,10 @@ def train_model_parallel(card: str) -> dict:
                 bad.append(f"{name} rank {r}: transport {rr['transport']}")
             if not all(math.isfinite(x) for x in losses):
                 bad.append(f"{name} rank {r}: non-finite losses {losses}")
-            if not f32 and not np.allclose(losses, want_losses, rtol=MP_LOSS_RTOL, atol=0):
+            if name in MP_MESH_DEPENDENT:
+                if not losses[-1] < losses[0]:
+                    bad.append(f"{name} rank {r}: losses {losses} do not fall")
+            elif not f32 and not np.allclose(losses, want_losses, rtol=MP_LOSS_RTOL, atol=0):
                 bad.append(f"{name} rank {r}: losses {losses}, one process {want_losses}")
             want = _mp_want(run, rr["coords"])
             off = [i + 1 for i, s in enumerate(rr["steps"]) if s["launches"] != want]
@@ -5913,31 +6235,145 @@ def train_model_parallel(card: str) -> dict:
             continue
         if hybrid:
             for r, rr in enumerate(ranks):
-                if rr["keys"] != one[name]["keys"]:
+                # the hybrid's keys less their "Hybrid.<instance>" prefix
+                if [[k[k.index("["):], shape] for k, shape in rr["keys"]] != one[name]["keys"]:
                     bad.append(f"{name} rank {r}: keys {rr['keys'][:3]}..., one process's "
                                f"{one[name]['keys'][:3]}...")
                 if rr["bad_pulls"]:
                     bad.append(f"{name} rank {r}: pulls not the host's sum: {rr['bad_pulls']}")
         ms = [[round(s["ms"], 1) for s in rr["steps"]] for rr in ranks]
-        print(f"{label} {name}: {'BERT-large' if model_name == 'bert' else 'GPT-2 medium'} at "
+        models = {"bert": "BERT-large", "gpt2": "GPT-2 medium",
+                  "moe": "GPT-2 medium with 8 experts (top-2)"}
+        drops = ("" if model_name != "moe" else
+                 f"; assignments dropped per layer a step (of top_k x the rank's tokens) per "
+                 f"rank {[[s['drops'] for s in rr['steps']] for rr in ranks]}")
+        print(f"{label} {name}: {models[model_name]} at "
               f"{layers} layers, seq {_mp_cfg(model_name, layers, overrides).max_seq}, bf16, "
-              f"remat, flash, {MP_BATCH} sequences, {overrides} on {axes}"
+              f"remat, flash, {overrides.get('batch', MP_BATCH)} sequences, {overrides} on {axes}"
               f"{' through HybridDataParallel and 2 servers' if hybrid else ''}, transport "
               f"{ranks[0]['transport']}: losses rank 0 {[s['loss'] for s in ranks[0]['steps']]}"
               f", one process {want_losses}; ms a step per rank {ms}, one process "
-              f"{[round(x, 1) for x in one[name]['ms']]}; K1-K3 launches a step per rank "
+              f"{[round(x, 1) for x in one.get(name, {'ms': []})['ms']]}; K1-K3 launches a "
+              f"step per rank "
               f"{[rr['steps'][-1]['launches'] for rr in ranks]} at coordinates "
               f"{[rr['coords'] for rr in ranks]}"
               f"{'; keys ' + str(len(ranks[0]['keys'])) + ' at full shapes, pulls bitwise' if hybrid else ''}"
-              f"; on {card}", flush=True)
-    print(f"{label}: weights drawn and saved {weights_s:.1f} s, one-process runs {refs_s:.1f} "
-          f"s, the host's runs {host_s:.1f} s; the ranks' marks (s) "
-          f"{[rr['marks'] for rr in res[MP_RUNS[-1][0]]]}; phase wall "
-          f"{time.perf_counter() - wall:.1f} s", flush=True)
-    if bad:
-        fail(f"{label}: " + "; ".join(bad))
-    return {run[0]: [launches[run[0]][r][-1] for r in range(MP_RANKS)] for run in MP_RUNS
-            if run[4].get("dtype") != "float32"}
+              f"{drops}; on {card}", flush=True)
+    return bad, launches
+
+
+def _mp_draw(work: str, specs: list) -> None:
+    """Draw ``init_params(cfg, seed=0)`` of each (model, layers) of
+    ``specs`` and save it under ``work`` (``python -c`` in a process of its
+    own, beside phase (h))."""
+    from byteps_tpu_torch.models.transformer import init_params
+
+    for model_name, layers in specs:
+        path = _mp_dir(work, f"w {model_name} {layers}")
+        _mp_save(path + ".part", init_params(_mp_cfg(model_name, layers, {}), seed=0))
+        os.replace(path + ".part", path)
+
+
+def train_model_parallel(card: str, after_h=None, one_process_i: bool = True) -> dict:
+    """Phase (h), model parallelism, then phase (i) on the same host: a
+    scheduler, two Python servers and one launcher host of MP_RANKS ranks
+    on this card over the staged transport, started together and warmed
+    up while this process draws the weights (``init_params(seed=0)``; two
+    processes draw phase (i)'s meanwhile) and runs every run alone in one
+    process on the card.  Then the host trains, each run in turn, its
+    ranks holding the shards ``shard_params_from_jax`` cuts: (h1)
+    BERT-large at 4 layers on {pp:2, tp:2}, 4 microbatches; (h2) GPT-2
+    medium at 2 layers on {sp:2, tp:2}, the ring of flash hops; (h3) the
+    same on Ulysses; (h4) BERT-large at 2 layers on {dp:2, tp:2} through
+    HybridDataParallel and the PS; and one f32 SGD step of (h1) and (h2) at
+    2 layers.  Fails unless every bf16 run's losses are within
+    MP_LOSS_RTOL of one process's on every rank, every f32 parameter
+    gathered within atol MP_F32_ATOL + rtol MP_F32_RTOL of one process's,
+    every rank launched K1-K3 a step as its coordinates say, (h4)'s keys
+    are the one-process model's names at full shapes and every pull is
+    bitwise the host's pushed sum.  Prints the launches of every rank, the
+    step ms and the transport.  Calls ``after_h`` once (h) passed, then
+    runs phase (i) (``_moe_generation``; without its one-process parts
+    (i1) and (i4) unless ``one_process_i``).  Returns {"h": {run: [each
+    rank's launches a step]}, "i": phase (i)'s}."""
+    import torch
+
+    from byteps_tpu_torch.models.transformer import init_params
+
+    label = "model parallel (h)"
+    wall = time.perf_counter()
+    check_mp_kernel_shapes()
+    with tempfile.TemporaryDirectory() as work:
+        env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+               "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
+               "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": str(MP_RANKS),
+               "BYTEPS_MESH_TRANSPORT": MP_TRANSPORT}
+        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
+            env.pop(k, None)
+        port, fleet = _start_ps_processes(env, work)
+        path = os.path.join(work, "host.log")
+        with open(path, "w") as log:
+            host = _track(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-host", work],
+                cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
+                               "MP_HOST_DEVICE": MP_HOST_DEVICE}, stdout=log,
+                stderr=subprocess.STDOUT), "model parallel host", path)
+        draws = [_track(subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as cs; cs._mp_draw({work!r}, {specs!r})"],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {specs}")
+            for specs in MOE_WEIGHTS if one_process_i or specs != MOE_WEIGHTS[-1]]
+        try:
+            t0 = time.perf_counter()
+            for model_name, layers in (("bert", 4), ("bert", 2), ("gpt2", 2)):
+                cfg = _mp_cfg(model_name, layers, {})
+                _mp_save(_mp_dir(work, f"w {model_name} {layers}"), init_params(cfg, seed=0))
+            weights_s = time.perf_counter() - t0
+            one = {run[0]: _mp_one_process(run, work) for run in MP_RUNS}
+            torch.cuda.empty_cache()
+            refs_s = time.perf_counter() - t0 - weights_s
+            t_go = time.perf_counter()
+            open(os.path.join(work, "go"), "w").close()
+            res = _mp_await(label, host, path, work, MP_RUNS)
+            host_s = time.perf_counter() - t_go
+            bad, launches = _mp_check(label, MP_RUNS, one, res, card)
+            print(f"{label}: weights drawn and saved {weights_s:.1f} s, one-process runs "
+                  f"{refs_s:.1f} s, the host's runs {host_s:.1f} s; the ranks' marks (s) "
+                  f"{[rr['marks'] for rr in res[MP_RUNS[-1][0]]]}; phase wall "
+                  f"{time.perf_counter() - wall:.1f} s", flush=True)
+            if bad:
+                open(os.path.join(work, "no-i"), "w").close()
+                fail(f"{label}: " + "; ".join(bad))
+            if after_h is not None:
+                after_h()
+            moe_i = _moe_generation(card, work, host, path, draws, one_process_i)
+        finally:
+            _stop_processes([host] + fleet + draws)
+    return {"h": {run[0]: [launches[run[0]][r][-1] for r in range(MP_RANKS)] for run in MP_RUNS
+                  if run[4].get("dtype") != "float32"}, "i": moe_i}
+
+
+def _mp_await(label: str, host, path: str, work: str, runs: tuple) -> dict:
+    """Wait until every rank wrote the result of every run of ``runs`` (or
+    the host exited, or PHASE_STALL_S passed); fails unless all did.
+    Returns {run: [each rank's result]}."""
+    names = [os.path.join(work, f"{_mp_dir('', run[0])}.{r}.json")
+             for run in runs for r in range(MP_RANKS)]
+    deadline = time.monotonic() + PHASE_STALL_S
+    while not all(os.path.exists(n) for n in names):
+        rc = host.poll()
+        if rc is not None or time.monotonic() > deadline:
+            with open(path) as f:
+                print(f"--- {label} host (exit {rc}):\n{f.read()[-8000:]}", file=sys.stderr)
+            fail(f"{label}: the host exited {rc} before its results")
+        time.sleep(0.2)
+    res = {}
+    for run in runs:
+        res[run[0]] = []
+        for r in range(MP_RANKS):
+            with open(os.path.join(work, f"{_mp_dir('', run[0])}.{r}.json")) as f:
+                res[run[0]].append(json.load(f))
+    return res
 
 
 def check_int8_ring_ops() -> None:
@@ -6133,8 +6569,8 @@ def main() -> None:
     mark("data plane (f)")
     planes["tenancy"] = train_tenancy(card)
     mark("tenancy (g)")
-    model_parallel = train_model_parallel(card)
-    mark("model parallel (h)")
+    model_parallel = train_model_parallel(card, after_h=lambda: mark("model parallel (h)"))
+    mark("moe and generation (i)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)
@@ -6199,7 +6635,13 @@ def main() -> None:
             "hybrid_launches_a_step_per_host": hybrid["launches_a_step"][name],
             "plane_launches_a_step": {k: v[name] for k, v in planes.items()},
             "model_parallel_launches_a_step_per_rank": {
-                run: [r[name] for r in ranks] for run, ranks in model_parallel.items()},
+                run: [r[name] for r in ranks] for run, ranks in model_parallel["h"].items()},
+            "moe_generation_launches": {
+                "i1 a step": model_parallel["i"]["i1"]["launches"][name],
+                "i2 a step per rank": [r[name] for r in model_parallel["i"]["i2"]],
+                "i4 a generate call": {k: v["launches"].get(name, 0)
+                                       for k, v in model_parallel["i"]["i4"].items()
+                                       if k in ("recompute", "cached")}},
             **extra,
         })
     kernels.append({

@@ -184,18 +184,18 @@ def test_a_cuda_tensor_never_goes_through_gloo():
 
 
 @pytest.mark.parametrize("spec,error,match", [
-    # model axes lay the group out (they reach the rendezvous); expert
-    # parallelism is the next slice
+    # model axes and an expert axis lay the group out (they reach the
+    # rendezvous)
     ("dp:1,tp:2", RuntimeError, "no rendezvous"),
     ("sp:2", RuntimeError, "no rendezvous"),
-    ("dp:1,ep:2", NotImplementedError, "mixture-of-experts.*next slice"),
+    ("dp:1,ep:2", RuntimeError, "no rendezvous"),
     ("dp:4", ValueError, "does not match the host's 2 processes"),
     ("", RuntimeError, "no rendezvous"),
 ])
 def test_build_mesh_refuses_what_it_cannot_build(monkeypatch, spec, error, match):
-    """Any product of dp, pp, sp and tp that is the host's size lays the
-    group out; an ep axis is the next slice; without a rendezvous the group
-    cannot come up.  Each raises before any process group."""
+    """Any product of dp, pp, sp, tp and ep that is the host's size lays
+    the group out; without a rendezvous the group cannot come up.  Each
+    raises before any process group."""
     import torch.distributed as dist
 
     from byteps_tpu_torch.comm import mesh as pmesh

@@ -225,18 +225,18 @@ def test_builders_raise_the_reference_value_errors():
 
 def test_hybrid_refuses_sharded_param_specs():
     """A hybrid shards parameters over tp (tests/test_torch_port_model_
-    parallel_hybrid.py trains it); a spec over sp is expert parallelism,
-    the next slice; over dp or pp it is no hybrid's; and a hybrid needs a
-    mesh."""
+    parallel_hybrid.py trains it) and sp (a transformer's experts:
+    tests/test_torch_port_model_parallel_moe_tp.py); over dp or pp it is
+    no hybrid's; and a hybrid needs a mesh."""
     from byteps_tpu_torch.comm.mesh import Mesh as PortMesh
     from byteps_tpu_torch.parallel import HybridDataParallel
 
     model = ranks.MLP(ranks.mlp_params())
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     one = PortMesh(0, 1, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match="expert parallelism.*next slice"):
-        HybridDataParallel(model, opt, mesh=one, param_specs={"w1": (None, "sp")})
-    with pytest.raises(ValueError, match="shards parameters over tp only"):
+    hdp = HybridDataParallel(model, opt, mesh=one, param_specs={"w1": (None, "sp")})
+    assert [shape for _, shape in hdp.keys] == [(ranks.D, ranks.H), (ranks.H, ranks.D)]
+    with pytest.raises(ValueError, match="shards parameters over tp and sp only"):
         HybridDataParallel(model, opt, mesh=one, param_specs={"w1": ("pp", None)})
     with pytest.raises(RuntimeError, match="no mesh"):
         HybridDataParallel(model, opt)
@@ -244,11 +244,14 @@ def test_hybrid_refuses_sharded_param_specs():
 
 def test_the_model_takes_any_dp_size_and_no_model_axis():
     """dp shards the batch; the model axes shard the model (the layouts a
-    mesh can take, tests/test_torch_port_model_parallel*.py); mixture-of-
-    experts layers are the next slice."""
+    mesh can take, tests/test_torch_port_model_parallel*.py), the experts
+    of an expert layer over sp, which must divide their count."""
     from byteps_tpu_torch.models import transformer as tt
 
     tt.validate_mesh(tt.tiny_test(), {"dp": 4, "tp": 1})
     tt.validate_mesh(tt.tiny_test(), {"dp": 4, "pp": 2, "sp": 2, "tp": 2})
-    with pytest.raises(NotImplementedError, match="mixture-of-experts.*next slice"):
-        tt.Transformer(tt.tiny_test(moe=True), device="meta")
+    tt.validate_mesh(tt.tiny_test(moe=True), {"dp": 2, "sp": 4})
+    with pytest.raises(ValueError, match="n_experts 8 not divisible by sp=3"):
+        tt.validate_mesh(tt.tiny_test(moe=True), {"sp": 3})
+    model = tt.Transformer(tt.tiny_test(moe=True), device="meta")
+    assert tuple(model.layers[0].ew1.shape) == (8, 16, 32)

@@ -106,7 +106,7 @@ def test_ulysses_refuses_heads_that_do_not_divide():
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(attn_bias=True, n_kv_heads=2),
-                                dict(pos_emb="rope")])
+                                dict(pos_emb="rope"), dict(moe=True, n_experts=4)])
 def test_layout_table_is_the_reference(kw):
     """param_specs and grad_sync_axes name the reference's parameters with
     its specs and sync axes; a module's specs drop the stacked (pp, layers)
@@ -168,6 +168,7 @@ def test_a_spec_with_model_axes_builds_the_group(groups):
 
 @pytest.mark.parametrize("spec,axes", [
     ("dp:2,tp:2", {"dp": 2, "tp": 2}),
+    ("dp:2,ep:2", {"dp": 2, "ep": 2}),
     ("dp=1,pp=2,sp=1,tp=2", {"dp": 1, "pp": 2, "sp": 1, "tp": 2}),
     ("", {"dp": 4}),
 ])

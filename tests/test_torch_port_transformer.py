@@ -51,6 +51,8 @@ VARIANTS = {
     "flash-bias": dict(use_flash=True, attn_bias=True),
     "causal-dense-bias-gqa": dict(causal=True, attn_bias=True, n_kv_heads=2,
                                   remat=False),
+    # expert layers, top-2 with remat (more: tests/test_torch_port_moe.py)
+    "moe-causal-top2": dict(moe=True, n_experts=4, causal=True),
 }
 
 
@@ -106,7 +108,9 @@ def test_logits_loss_and_grads_match_byteps_tpu(variant):
     tokens, targets = _data(jcfg)
     jparams = jt.shard_params(np_params, jcfg, mesh)
 
-    want_logits = np.asarray(jt.build_forward(jcfg, mesh)(jparams, jnp.asarray(tokens)))[0]
+    # (microbatches, rows a microbatch, S, V): the rows in the input's order
+    want_logits = np.asarray(jt.build_forward(jcfg, mesh)(jparams, jnp.asarray(tokens)))
+    want_logits = want_logits.reshape(-1, *want_logits.shape[2:])
     want_loss, want_grads = _jax_loss_and_grads(jcfg, mesh, jparams, tokens, targets)
 
     model = _port_model(tcfg, np_params)
@@ -262,16 +266,20 @@ def test_trap_bf16_casts_follow_the_jax_code():
 
 
 def test_unported_features_raise():
-    """Mixture-of-experts layers and generation are the next slice (model
-    parallelism's dense half runs: tests/test_torch_port_model_parallel*.py)."""
-    with pytest.raises(NotImplementedError, match="mixture-of-experts.*next slice"):
-        tt.Transformer(tt.tiny_test(moe=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tt.param_specs(tt.tiny_test(moe=True))
-    with pytest.raises(NotImplementedError, match="generation"):
-        tt.build_generate(tt.tiny_test(causal=True))
-    with pytest.raises(NotImplementedError, match="generation"):
-        tt.build_generate_cached(tt.tiny_test(causal=True))
+    """Only the flight recorder's upload and slo trigger stay unported:
+    mixture-of-experts layers, both generation builders and their specs
+    now build and run (tests/test_torch_port_moe.py, _generate.py)."""
+    assert set(port_config.UNPORTED) == {"flight_upload", "slo_trigger"}
+    for plane in port_config.UNPORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            raise port_config.unported(plane, plane)
+    cfg = tt.tiny_test(moe=True, causal=True)
+    model = tt.Transformer(cfg, device="cpu")
+    assert {"router", "ew1", "eb1", "ew2", "eb2"} <= set(tt.param_specs(cfg))
+    model.load_state_dict(params_from_jax(tt.init_params(cfg, seed=0), cfg))
+    prompt = np.array([[1, 2, 3], [4, 5, 6]])
+    for build in (tt.build_generate, tt.build_generate_cached):
+        assert build(model)(prompt, 2).shape == (2, 5)
 
 
 def test_config_validation_matches_reference():

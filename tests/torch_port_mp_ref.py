@@ -16,6 +16,11 @@ gradient of the step; the parameters after a step within the update of
 such a gradient difference (rtol 1e-5, atol 1e-4 * lr times the largest
 gradient).
 
+A case of ``torch_port_ranks.MP_HYBRID_TRAIN`` trains through the port's
+HybridDataParallel, and its reference is byteps_tpu's hybrid's level 1:
+the gradient of a dp replica's loss (:func:`replica_loss`) summed over dp
+by shard_map's AD and divided by dp, the loss averaged over dp.
+
 The reference runs without remat: recomputing a layer changes no value,
 and the port's ranks run with it (each case's config), so their
 checkpointed layers recompute every collective in backward.
@@ -28,6 +33,7 @@ import pickle
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import torch_port_ranks as ranks
@@ -88,7 +94,11 @@ def reference(label):
     tokens, targets = (jnp.asarray(a) for a in ranks.mp_data(cfg.vocab_size, cfg.max_seq))
 
     def loss_and_grad(p, t, y):
-        return jax.value_and_grad(lambda q: jt._local_loss(cfg, mesh, q, t, y))(p)
+        if label not in ranks.MP_HYBRID_TRAIN:
+            return jax.value_and_grad(lambda q: jt._local_loss(cfg, mesh, q, t, y))(p)
+        # byteps_tpu.parallel.hybrid's level 1 on a dp replica's loss
+        loss, g = jax.value_and_grad(lambda q: replica_loss(cfg, mesh, q, t, y))(p)
+        return lax.pmean(loss, "dp"), jax.tree.map(lambda a: a / sizes["dp"], g)
 
     fn = jax.jit(jax.shard_map(loss_and_grad, mesh=mesh,
                                in_specs=(specs, P("dp", "sp"), P("dp", "sp")),
@@ -110,6 +120,26 @@ def reference(label):
     return losses, grads, before, logits
 
 
+def replica_loss(cfg, mesh, params, tokens, targets):
+    """``jt._local_loss`` of one dp replica: its sums (and the MoE aux
+    term) over pp and sp only, the loss a hybrid's loss_fn returns."""
+    pp = mesh.shape.get("pp", 1)
+    logits, aux = jt._local_forward(cfg, mesh, params, tokens)
+    tgt = targets.reshape(logits.shape[0], -1, targets.shape[-1])
+    valid = (tgt >= 0).astype(jnp.float32)
+    lg = logits.astype(jnp.float32)
+    gold = jnp.take_along_axis(lg, jnp.maximum(tgt, 0)[..., None], axis=-1)[..., 0]
+    is_last = lax.axis_index("pp") == pp - 1
+    total = jnp.where(is_last, jnp.sum((jax.nn.logsumexp(lg, axis=-1) - gold) * valid), 0.0)
+    count = jnp.where(is_last, jnp.sum(valid), 0.0)
+    for ax in ("pp", "sp"):
+        total, count, aux = (lax.psum(v, ax) for v in (total, count, aux))
+    loss = total / count
+    if cfg.moe:
+        loss = loss + cfg.moe_aux_coef * aux.astype(jnp.float32)
+    return loss
+
+
 def shard_of(global_arrays, name, coords, cfg_kw):
     """The block of the reference's global array that the port's parameter
     ``name`` (``layers.<i>.<p>`` or a global name) holds at ``coords``."""
@@ -122,9 +152,9 @@ def shard_of(global_arrays, name, coords, cfg_kw):
     if tt.is_layer_param(base):
         arr = arr.reshape((cfg.n_layers,) + shape)[int(name.split(".")[1])]
     for dim, ax in enumerate(tt.local_spec(cfg, base)):
-        if ax == "tp":
-            n = arr.shape[dim] // coords["tp_size"]
-            arr = np.take(arr, range(coords["tp"] * n, (coords["tp"] + 1) * n), axis=dim)
+        if ax is not None:
+            n = arr.shape[dim] // coords[f"{ax}_size"]
+            arr = np.take(arr, range(coords[ax] * n, (coords[ax] + 1) * n), axis=dim)
     return arr
 
 
@@ -136,7 +166,7 @@ def check(label, port_ranks, ref):
     for res in port_ranks:
         got = res[label]
         np.testing.assert_allclose(got["losses"], want_losses, rtol=LOSS_RTOL)
-        coords = dict(got["coords"], tp_size=axes.get("tp", 1))
+        coords = dict(got["coords"], tp_size=axes.get("tp", 1), sp_size=axes.get("sp", 1))
         b, s = (want_logits.shape[i] // axes.get(ax, 1) for i, ax in enumerate(("dp", "sp")))
         block = want_logits[coords["dp"] * b:(coords["dp"] + 1) * b,
                             coords["sp"] * s:(coords["sp"] + 1) * s]

@@ -318,7 +318,17 @@ MP_TRAIN = [
     ("sp2_ulysses", {"sp": 2}, {"causal": True, "seq_parallel_impl": "ulysses"}),
     ("pp2_tp2", {"pp": 2, "tp": 2}, {"causal": True, "attn_bias": True}),
     ("dp2_sp2", {"dp": 2, "sp": 2}, {"use_flash": True}),
+    # expert layers: the experts over sp (4 a rank of 8), the aux term
+    # summed over the mesh and, at pp 2, over the microbatches
+    ("moe_sp2", {"sp": 2}, {"moe": True, "causal": True}),
+    ("moe_pp2", {"pp": 2}, {"moe": True, "microbatches": 2, "moe_top_k": 1}),
+    ("moe_sp2_tp2", {"sp": 2, "tp": 2}, {"moe": True, "n_kv_heads": 2, "use_flash": True}),
+    ("moe_dp2_sp2_hybrid", {"dp": 2, "sp": 2}, {"moe": True, "causal": True}),
 ]
+#: the MP_TRAIN cases that train through HybridDataParallel (one host, no
+#: PS: its hop is the identity at one worker), each rank's loss that of its
+#: dp replica, averaged over dp as the reference's hybrid averages it
+MP_HYBRID_TRAIN = {"moe_dp2_sp2_hybrid"}
 
 
 def attn_inputs(seed: int):
@@ -409,7 +419,17 @@ def case_mp_train() -> dict:
         cfg = tt.tiny_test(**kw)
         pp = mesh.axis_size("pp")
         model = tt.Transformer(cfg, device="cpu", mesh=mesh)
-        step = tt.build_train_step(model, torch.optim.SGD(model.parameters(), lr=MP_LR))
+        opt = torch.optim.SGD(model.parameters(), lr=MP_LR)
+        if label in MP_HYBRID_TRAIN:
+            from byteps_tpu_torch.parallel import HybridDataParallel
+
+            hdp = HybridDataParallel(model, opt, mesh=mesh, param_specs=model.param_specs(),
+                                     grad_sync_axes=model.grad_sync_axes())
+
+            def step(t, y):
+                return hdp.step((t, y), lambda m, b: m.loss(*b, over=("pp", "sp")))
+        else:
+            step = tt.build_train_step(model, opt)
         tokens, targets = (tt.shard_batch(torch.from_numpy(a), mesh)
                            for a in mp_data(cfg.vocab_size, cfg.max_seq))
         ref_params = wait_for(os.path.join(os.environ["MP_REF_DIR"], f"ref.{label}.pkl"))
@@ -424,6 +444,112 @@ def case_mp_train() -> dict:
         coords = {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")}
         out[label] = {"losses": losses, "grads": grads, "after": after, "coords": coords,
                       "logits": logits}
+    bps.shutdown()
+    return out
+
+
+#: cached (and recompute) decoding on meshes: (label, axis sizes, causal
+#: tiny_test kwargs), the prompt and the new tokens of the reference's tests
+MP_GENERATE = [
+    ("gen_pp2", {"pp": 2}, {"microbatches": 2}),
+    ("gen_sp2_moe", {"sp": 2}, {"moe": True, "n_experts": 4}),
+    ("gen_dp2_tp2_gqa", {"dp": 2, "tp": 2}, {"n_kv_heads": 2, "microbatches": 2}),
+]
+GEN_PROMPT = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9], [3, 1, 2]], np.int64)
+GEN_NEW, GEN_SEED = 5, 3
+
+
+def case_mp_generate() -> dict:
+    """Each MP_GENERATE mesh whose group size is this group's: the shards
+    of ``init_params(seed=GEN_SEED)``, greedy tokens of both builders, the
+    cached builder's cache shapes, and two sampled decodes of four copies
+    of one prompt (the same seed twice)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import transformer as tt
+    from byteps_tpu_torch.models.convert import shard_params_from_jax
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    bps.init(device="cpu")
+    out = {}
+    for label, axes, kw in MP_GENERATE:
+        if int(np.prod(list(axes.values()))) != bps.local_size():
+            continue
+        mesh = make_training_mesh(axis_sizes=axes)
+        cfg = tt.tiny_test(causal=True, **kw)
+        model = tt.Transformer(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(shard_params_from_jax(
+            tt.init_params(cfg, seed=GEN_SEED, pp_size=mesh.axis_size("pp")), cfg, mesh))
+        cached = tt.build_generate_cached(model)
+        same = np.repeat(GEN_PROMPT[:1], 4, axis=0)
+        out[label] = {
+            "cached": cached(GEN_PROMPT, GEN_NEW),
+            "recompute": tt.build_generate(model)(GEN_PROMPT, GEN_NEW),
+            "cache_shapes": cached.cache_shapes,
+            "sampled": [cached(same, 8, temperature=3.0, seed=7) for _ in range(2)],
+            "coords": {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")},
+        }
+    bps.shutdown()
+    return out
+
+
+#: the expert-parallel layer alone: (label, top_k, capacity factor), on
+#: T tokens a rank, D wide, F hidden, E experts in all
+MOE_EP_CASES = [("top1", 1, 2.0), ("top2", 2, 2.0), ("top2_drops", 2, 0.5)]
+MOE_EP_T, MOE_EP_D, MOE_EP_F, MOE_EP_E = 12, 6, 10, 4
+
+
+def moe_ep_inputs(seed: int = 9):
+    """x (sp·T, D), router (D, E), w1, b1, w2, b2 over all E experts, and
+    the output cotangent (sp·T, D), for sp = 2."""
+    r = np.random.default_rng(seed)
+    t, d, f, e = 2 * MOE_EP_T, MOE_EP_D, MOE_EP_F, MOE_EP_E
+    return [r.normal(size=s).astype(np.float32) * c for s, c in (
+        ((t, d), 1.0), ((d, e), 1.0), ((e, d, f), 0.3), ((e, f), 0.1), ((e, f, d), 0.3),
+        ((e, d), 0.1), ((t, d), 1.0))]
+
+
+def case_moe_ep() -> dict:
+    """moe_mlp with its experts over an sp axis of this group's ranks:
+    each rank's tokens and experts, the output and the gradients of the
+    loss sum(y * w) (the router's summed over sp, as the reference's
+    replicated router's is), and the drops."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import collectives as C
+    from byteps_tpu_torch.parallel import moe
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    bps.init(device="cpu")
+    mesh = make_training_mesh(axis_sizes={"sp": bps.local_size()})
+    j, n = mesh.axis_index("sp"), mesh.axis_size("sp")
+    x, router, w1, b1, w2, b2, w = moe_ep_inputs()
+    tok, exp = slice(j * MOE_EP_T, (j + 1) * MOE_EP_T), slice(j * MOE_EP_E // n,
+                                                                (j + 1) * MOE_EP_E // n)
+    out = {}
+    for label, k, cf in MOE_EP_CASES:
+        ts = [torch.tensor(a, requires_grad=True)
+              for a in (x[tok], router, w1[exp], b1[exp], w2[exp], b2[exp])]
+        with moe.count_drops() as drops:
+            y = moe.moe_mlp(*ts, axis_name="sp", axis_size=n, capacity_factor=cf, top_k=k,
+                            mesh=mesh)
+        (y * torch.from_numpy(w[tok])).sum().backward()
+        grads = [t.grad for t in ts]
+        grads[1] = C.all_reduce_axis(grads[1], "sp", mesh)
+        out[label] = {"y": y.detach().numpy(), "grads": [g.numpy() for g in grads],
+                      "drops": int(drops[0]), "rank": j}
+    bps.shutdown()
+    return out
+
+
+def case_dryrun() -> dict:
+    """``byteps_tpu_torch.dryrun.dryrun_multichip`` at this group's size,
+    then each of its meshes again for the loss and the decoded tokens."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import dryrun
+
+    bps.init(device="cpu")
+    n = bps.local_size()
+    out = {"lines": dryrun.dryrun_multichip(n),
+           "runs": [dryrun.dryrun_one_mesh(sizes)[1] for sizes in dryrun.mesh_configs(n)]}
     bps.shutdown()
     return out
 
@@ -504,6 +630,8 @@ def case_cuda_clash() -> dict:
 CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
          "degraded": case_degraded, "elastic": case_elastic,
          "mp_attention": case_mp_attention, "mp_train": case_mp_train,
+         "mp_generate": case_mp_generate, "dryrun": case_dryrun,
+         "moe_ep": case_moe_ep,
          "mp_hybrid": case_mp_hybrid, "cuda_clash": case_cuda_clash}
 
 
