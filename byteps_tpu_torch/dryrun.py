@@ -28,8 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-#: the mesh axes, each dry-run mesh names every one
-AXES = ("dp", "pp", "sp", "tp")
+from byteps_tpu_torch.comm.mesh import AXES
 
 
 def entry(device: Optional[str] = None):

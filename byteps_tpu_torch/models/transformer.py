@@ -190,10 +190,10 @@ def _layouts(cfg: TransformerConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple, 
             # added after the tp psum, like b2
             "wo_b": ((D,), ("pp",), ("dp", "sp", "tp")),
         })
-    E = cfg.n_experts
     if cfg.moe:
         # the experts are sharded over sp; each tp rank routes the same
         # (tp-replicated) tokens, so their gradients sum over dp only
+        E = cfg.n_experts
         table.update({
             "router": ((D, E), ("pp",), ("dp", "sp", "tp")),
             "ew1": ((E, D, F_), ("pp", None, "sp", None, None), ("dp", "tp")),

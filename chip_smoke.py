@@ -6000,8 +6000,8 @@ def _moe_one_process(card: str, work: str) -> tuple:
                    f"CPU's: {over}")
     worst = max(errs.items(), key=lambda kv: kv[1][0])
     print(f"moe and generation (i) i1: GPT-2 medium with 8 experts (top-2, capacity factor "
-          f"2.0, aux 0.01) at {MOE_LAYERS} layers, seq {cfg.max_seq}, bf16, remat, flash, {MOE_BATCH} "
-          f"sequences, AdamW, one process: losses {losses}; ms a step "
+          f"2.0, aux 0.01) at {MOE_LAYERS} layers, seq {cfg.max_seq}, bf16, remat, flash, "
+          f"{MOE_BATCH} sequences, AdamW, one process: losses {losses}; ms a step "
           f"{[round(s['ms'], 1) for s in steps]}; assignments dropped per layer a step (of "
           f"{2 * MOE_BATCH * cfg.max_seq}) {[s['drops'] for s in steps]}; K1-K3 launches a "
           f"step {steps[-1]['launches']} (want {want}); f32 at {MOE_MESH_LAYERS} layers, one "
