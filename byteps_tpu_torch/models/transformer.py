@@ -574,21 +574,16 @@ class Transformer(nn.Module):
         h = _ln(x, self.ln_f_s, self.ln_f_b).to(cfg.compute_dtype)
         return torch.einsum("bsd,dv->bsv", h, self.head.to(cfg.compute_dtype))
 
-    def forward(self, tokens: torch.Tensor) -> Optional[torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, targets: Optional[torch.Tensor] = None,
+                over: Tuple[str, ...] = ("pp", "dp", "sp")) -> Optional[torch.Tensor]:
         """tokens (B, S) int (this rank's block on a mesh) → logits (B, S,
-        V) in compute dtype; None on a pipeline stage other than the last."""
-        x, _, _ = self._pipeline(tokens)
-        return self._logits(x) if x is not None else None
-
-    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
-             over: Tuple[str, ...] = ("pp", "dp", "sp")) -> torch.Tensor:
-        """The mean token loss over the batch blocks of the axes ``over``
-        (default: the whole global batch; ``("pp", "sp")`` is one dp
-        replica's, what ``HybridDataParallel`` averages over dp).  With
-        ``moe``, plus ``moe_aux_coef`` times the load-balancing terms of
-        every layer and microbatch summed over ``over`` (a sum, as the
-        reference's, not a mean)."""
+        V) in compute dtype; None on a pipeline stage other than the last.
+        With ``targets``, :meth:`loss` instead: both run through the
+        module's call, so its forward pre-hooks (``CrossBarrier``'s wait
+        for the updates of the embedding and the head) fire first."""
         x, sent, aux = self._pipeline(tokens)
+        if targets is None:
+            return self._logits(x) if x is not None else None
         if self.mesh is None:
             loss = token_loss(self._logits(x), targets)
         else:
@@ -605,6 +600,16 @@ class Transformer(nn.Module):
                     aux = collectives.psum(aux, ax, self.mesh)
             loss = loss + self.cfg.moe_aux_coef * aux.float()
         return loss if sent is None else loss + sent
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             over: Tuple[str, ...] = ("pp", "dp", "sp")) -> torch.Tensor:
+        """The mean token loss over the batch blocks of the axes ``over``
+        (default: the whole global batch; ``("pp", "sp")`` is one dp
+        replica's, what ``HybridDataParallel`` averages over dp).  With
+        ``moe``, plus ``moe_aux_coef`` times the load-balancing terms of
+        every layer and microbatch summed over ``over`` (a sum, as the
+        reference's, not a mean)."""
+        return self(tokens, targets, over)
 
     def param_specs(self) -> Dict[str, Tuple]:
         """Parameter name → its partition over the mesh, one entry per dim."""

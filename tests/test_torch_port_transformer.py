@@ -235,6 +235,27 @@ def test_trap_remat_recomputes_each_layer_in_backward(remat, monkeypatch):
     assert len(calls) == cfg.n_layers * (2 if remat else 1)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(moe=True, n_experts=4)])
+def test_trap_the_loss_runs_through_the_modules_call(kw):
+    """model.loss goes through the module's __call__, as model(tokens)
+    does: CrossBarrier's forward pre-hook on the model waits there for the
+    embedding's and the head's pending updates before they are read."""
+    cfg = tt.tiny_test(**kw)
+    model = _port_model(cfg, tt.init_params(cfg))
+    calls = []
+    model.register_forward_pre_hook(lambda module, args: calls.append(args[0].shape))
+    tokens, targets = _data(cfg)
+    tok, tgt = torch.as_tensor(tokens).long(), torch.as_tensor(targets)
+    loss = model.loss(tok, tgt)
+    model(tok)
+    assert calls == [tok.shape, tok.shape]  # once for the loss, once for the logits
+    want = tt.token_loss(model(tok), tgt)
+    if cfg.moe:  # plus the load-balancing terms, positive
+        assert float(loss) > float(want)
+    else:
+        assert float(loss) == float(want)
+
+
 def test_trap_bf16_casts_follow_the_jax_code():
     """The residual stream is in compute dtype after the embedding, logits
     are in compute dtype, parameters and their gradients stay f32; and the
