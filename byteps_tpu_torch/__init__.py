@@ -8,7 +8,7 @@ with the same Horovod-style surface as ``byteps_tpu``:
     declare_tensor / push_pull / push_pull_async / push_pull_inplace / poll /
     synchronize / push_pull_rowsparse / push_pull_rowsparse_async
     DistributedOptimizer / Compression / set_compression_lr
-    get_robustness_counters
+    get_robustness_counters / get_metrics / get_metrics_text / get_pushpull_speed
     broadcast_parameters / broadcast_optimizer_state / broadcast_object
     parallel.DistributedDataParallel / CrossBarrier
 
@@ -19,7 +19,9 @@ servers (``python -m byteps_tpu_torch.server``) over the tcp, uds or shm
 van, optionally compressed: onebit, topk or dithering on the card, or any
 codec with error feedback and Nesterov momentum on the host, with lossless
 wire frames for what stays raw.  An embedding's gradient may go row-sparse
-(``push_pull_rowsparse``).  The flagship transformer is in
+(``push_pull_rowsparse``).  Tracing, the Prometheus endpoint, the flight
+recorder's bundles and ``byteps_tpu_torch.profiler`` make the
+observability plane (docs/observability.md).  The flagship transformer is in
 ``byteps_tpu_torch.models.transformer``; its attention runs on the
 hand-written CUDA kernels in ``byteps_tpu_torch.ops``.  The package
 imports torch and numpy, never JAX or ``byteps_tpu``.  Its names load on
@@ -35,7 +37,8 @@ __version__ = "0.1.0"
 _EXPORTS = {
     **{name: "byteps_tpu_torch.api" for name in (
         "broadcast_object", "broadcast_optimizer_state", "broadcast_parameters",
-        "declare_tensor", "device", "get_robustness_counters", "init", "local_rank",
+        "declare_tensor", "device", "get_metrics", "get_metrics_text",
+        "get_pushpull_speed", "get_robustness_counters", "init", "local_rank",
         "local_size", "poll", "push_pull", "push_pull_async", "push_pull_inplace",
         "push_pull_rowsparse", "push_pull_rowsparse_async", "rank", "resume",
         "set_compression_lr", "shutdown", "size", "suspend", "synchronize")},
@@ -78,6 +81,9 @@ __all__ = [
     "declare_tensor",
     "device",
     "get_config",
+    "get_metrics",
+    "get_metrics_text",
+    "get_pushpull_speed",
     "get_registry",
     "get_robustness_counters",
     "init",

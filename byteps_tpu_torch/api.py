@@ -372,6 +372,31 @@ def get_robustness_counters() -> dict:
     return counters().snapshot()
 
 
+def get_metrics() -> dict:
+    """The process registry's snapshot: flat and labeled counters, gauges,
+    and the histograms' count, sum, p50, p90 and p99 (round trips, stage
+    dwell, the servers' sum and publish; docs/observability.md).  Usable
+    before :func:`init`."""
+    from byteps_tpu_torch.core.telemetry import metrics
+
+    return metrics().snapshot()
+
+
+def get_metrics_text() -> str:
+    """The Prometheus text this process serves on ``BYTEPS_METRICS_PORT``,
+    without the endpoint."""
+    from byteps_tpu_torch.core.telemetry import metrics
+
+    return metrics().render_prometheus()
+
+
+def get_pushpull_speed() -> float:
+    """The push/pull MB/s over the last 10 s (``BYTEPS_TELEMETRY_ON``; 0
+    when off or idle)."""
+    st = require_state()
+    return st.telemetry.mbps() if st.telemetry else 0.0
+
+
 def set_compression_lr(lr: float) -> None:
     """Feed the optimizer's learning rate to every error-feedback chain, on
     this worker and on the servers (the reference's lr.s file,

@@ -45,7 +45,11 @@ Targeting, for a one-sided fault:
 A connection's schedule is ``random.Random((seed << 20) ^ index)``, the
 index a process-wide count of chaos connections, so a fixed seed and a
 fixed order of connects replay the same faults; frames that are not
-targeted use no roll.  Every injected fault bumps a ``chaos_*`` counter.
+targeted use no roll.  Every injected fault bumps a ``chaos_*`` counter
+and, with a process tracer on, is an instant on the ``chaos`` track that
+carries the faulted frame's trace and span ids and ``injected: true``
+(:func:`_tag_span`), so that a rehearsed fault reads apart from an
+organic one on the merged timeline.
 
 The scheduler's link: with ``BYTEPS_CHAOS_SCHED=1`` under a chaos van,
 the control plane is faulted too.  A node's dial of the scheduler is
@@ -63,6 +67,7 @@ import itertools
 import os
 import random
 import socket
+import struct
 import threading
 import time
 from dataclasses import dataclass
@@ -196,6 +201,22 @@ def _budget_allows() -> bool:
         return True
 
 
+
+def _tag_span(name: str, frame: bytes) -> None:
+    """An injected fault as an instant on the process tracer, on the span
+    of the frame it hit (the frame's trace block, when it has one)."""
+    from byteps_tpu_torch.core.tracing import get_process_tracer
+
+    tracer = get_process_tracer()
+    if tracer is None or not tracer.enabled:
+        return
+    args = {"fault": name, "injected": True}
+    if len(frame) >= 48 and frame[2] & 0x80:  # the status byte's TRACE_FLAG
+        trace_id, span_id = struct.unpack_from("!QQ", frame, 32)
+        args["trace"] = format(trace_id, "x")
+        args["span"] = format(span_id, "x")
+    tracer.record_instant("chaos", name, args)
+
 class ChaosSocket:
     """A socket proxy that injects send-side faults a frame at a time.
     ``sendmsg`` joins header and payload so that a fault takes a whole
@@ -210,10 +231,11 @@ class ChaosSocket:
         self._targeted = not params.target_port or peer_port == params.target_port
 
     @staticmethod
-    def _bump(name: str) -> None:
+    def _bump(name: str, frame: bytes = b"") -> None:
         from byteps_tpu_torch.core.telemetry import counters
 
         counters().bump(name)
+        _tag_span(name, frame)
 
     def _die(self, reason: str) -> None:
         try:
@@ -235,21 +257,21 @@ class ChaosSocket:
                 if not _budget_allows():
                     self._sock.sendall(data)
                     return
-                self._bump("chaos_drop")
+                self._bump("chaos_drop", data)
                 return
             roll -= p.drop
             if roll < p.disconnect:
                 if not _budget_allows():
                     self._sock.sendall(data)
                     return
-                self._bump("chaos_disconnect")
+                self._bump("chaos_disconnect", data)
                 self._die("disconnect")
             roll -= p.disconnect
             if roll < p.truncate:
                 if not _budget_allows():
                     self._sock.sendall(data)
                     return
-                self._bump("chaos_truncate")
+                self._bump("chaos_truncate", data)
                 k = self._rng.randrange(0, max(1, len(data)))
                 try:
                     self._sock.sendall(data[:k])
@@ -261,7 +283,7 @@ class ChaosSocket:
                 if not _budget_allows():
                     self._sock.sendall(data)
                     return
-                self._bump("chaos_corrupt")
+                self._bump("chaos_corrupt", data)
                 mangled = bytearray(data)
                 if mangled:
                     mangled[0] ^= 0xFF  # the magic: the peer's framing rejects it
@@ -274,14 +296,14 @@ class ChaosSocket:
                 if len(data) <= 32 or not _budget_allows():
                     self._sock.sendall(data)
                     return
-                self._bump("chaos_payload_corrupt")
+                self._bump("chaos_payload_corrupt", data)
                 mangled = bytearray(data)
                 idx = self._rng.randrange(32, len(mangled))
                 mangled[idx] ^= 1 << self._rng.randrange(8)
                 self._sock.sendall(bytes(mangled))
                 return
             if p.delay > 0 and self._rng.random() < p.delay and _budget_allows():
-                self._bump("chaos_delay")
+                self._bump("chaos_delay", data)
                 time.sleep(self._rng.random() * p.delay_ms / 1e3)
             self._sock.sendall(data)
 

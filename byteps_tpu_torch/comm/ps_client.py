@@ -153,6 +153,7 @@ from byteps_tpu_torch.comm.transport import (
     send_message,
 )
 from byteps_tpu_torch.core.telemetry import counters, job_labels, metrics
+from byteps_tpu_torch.core.tracing import get_process_tracer, new_trace_id, span_args
 from byteps_tpu_torch.server.update_rules import canonical_hp
 
 #: pull callbacks receive this instead of bytes when the reply landed in
@@ -311,8 +312,11 @@ class _NativeServerConn:
             h = self._h
         if h is None:
             raise ConnectionError(f"server {self.label} connection is closed")
-        rc = self._lib.bpsc_send(h, int(msg.op), msg.seq, msg.key, msg.cmd, msg.version,
-                                 msg.flags, arr.ctypes.data if n else None, n)
+        ptr = arr.ctypes.data if n else None
+        # the trace block as the Python transport writes it, so the server's
+        # children join the worker's spans on either client; (0, 0) is none
+        rc = self._lib.bpsc_send2(h, int(msg.op), msg.seq, msg.key, msg.cmd, msg.version,
+                                  msg.flags, ptr, n, *(msg.trace or (0, 0)))
         if rc != 0:
             raise ConnectionError(f"server {self.label} connection lost (native send)")
 
@@ -809,10 +813,16 @@ class PSClient:
                 beat_incarnation = inc
             delta = metrics().delta_snapshot()
             rec = get_process_recorder()
+            ups = None
             if rec is not None and rec.enabled:
                 tail = rec.ledger_tail()
                 if tail:
                     delta["fr"] = tail
+                # bundles for the scheduler's flight directory
+                # (BYTEPS_FLIGHT_UPLOAD), taken: a failed beat gives them back
+                ups = rec.take_uploads()
+                if ups:
+                    delta["fb"] = ups
             try:
                 self._sched_request(Message(Op.PING, payload=json.dumps(delta).encode()
                                             if delta else b""),
@@ -821,6 +831,8 @@ class PSClient:
                 # the next beat carries it (a beat whose request landed
                 # but timed out counts twice: delivery is at least once)
                 metrics().requeue_delta(delta)
+                if ups:
+                    rec.requeue_uploads(ups)
                 continue
 
     def _sched_recv_loop(self) -> None:
@@ -1618,20 +1630,28 @@ class PSClient:
         ``BYTEPS_RESYNC_DEADLINE_S``; a give-up that waited while another
         heal of the server succeeded rides it.  Counted as
         ``resync_attempt``, ``resync_replayed_rounds`` and
-        ``resync_giveup`` (flat and per server)."""
+        ``resync_giveup`` (flat and per server).  With a tracer on, the heal
+        is a ``RESYNC`` span on the process's timeline, and its frames carry
+        the span, so the server's ``resync`` child joins it."""
         if self.cfg.resync_deadline_s <= 0 or self._stop.is_set() or not self._worker_flag():
             # an anonymous worker has no slot in the server's ledger
             return False
         with self._heal_meta_lock:
             lock = self._heal_locks.setdefault(sid, threading.Lock())
             entry_gen = self._heal_gen.get(sid, 0)
+        tracer = get_process_tracer()
+        trace = None
+        if tracer is not None and tracer.enabled and tracer.spans_enabled:
+            trace = (new_trace_id(), new_trace_id())
+        t0 = time.time()
         with lock:
             with self._heal_meta_lock:
                 if self._heal_gen.get(sid, 0) != entry_gen:
                     return True
             counters().bump("resync_attempt", labels={"server": sid})
+            ok, replayed = False, 0
             try:
-                ok = self._run_resync(key, sid)
+                ok, replayed = self._run_resync(key, sid, trace)
             except Exception:  # noqa: BLE001 - a heal never raises
                 ok = False
             if ok:
@@ -1639,15 +1659,20 @@ class PSClient:
                     self._heal_gen[sid] = entry_gen + 1
             else:
                 counters().bump("resync_giveup", labels={"server": sid})
+        if trace is not None:
+            tracer.record_span("resync", "RESYNC", t0, time.time() - t0,
+                               span_args(trace[0], trace[1], server=sid, replayed=replayed,
+                                         healed=ok))
         return ok
 
-    def _run_resync(self, route_key: int, sid: str) -> bool:
+    def _run_resync(self, route_key: int, sid: str, trace=None) -> tuple:
         """The heal: (1) dial the server again (one that cannot be dialed
         is down, which a heal cannot mend); (2) Op.RESYNC_QUERY for every
         key this worker journals towards it, the triggering one included:
         per key, ``seen``, the newest of this worker's pushes its ledger
         summed; (3) replay, oldest first, the journaled rounds above
-        ``seen`` as ordinary pushes (fused members as plain pushes)."""
+        ``seen`` as ordinary pushes (fused members as plain pushes).
+        (healed?, rounds replayed); its frames carry ``trace``."""
         from byteps_tpu_torch.comm.journal import get_journal
 
         deadline_at = time.monotonic() + self.cfg.resync_deadline_s
@@ -1694,10 +1719,11 @@ class PSClient:
         resp = recovery_rpc(
             route_key,
             lambda seq: Message(Op.RESYNC_QUERY, key=route_key, seq=seq, flags=wid,
-                                payload=encode_resync_query(wid, keys)),
+                                payload=encode_resync_query(wid, keys), trace=trace),
             "resync query", Op.RESYNC_STATE)
         if resp is None or resp.status != 0:
-            return False
+            return False, 0
+        replayed = 0
         state = decode_resync_state(resp.payload)
         for k in keys:
             info = state.get(k)
@@ -1705,23 +1731,25 @@ class PSClient:
                 if j is not None and j.entries_after(k, 0):
                     # journaled pushes of a key the server no longer holds:
                     # its store was lost, only the init barrier rebuilds it
-                    return False
+                    return False, replayed
                 continue
             for e in (j.entries_after(k, int(info.get("seen", 0))) if j else []):
                 ack = recovery_rpc(
                     k,
                     lambda seq, _k=k, _e=e: Message(
                         Op.PUSH, key=_k, seq=seq, cmd=_e.cmd, version=_e.version,
-                        flags=wid, payload=_e.payload),
+                        flags=wid, payload=_e.payload, trace=trace),
                     f"resync replay of key {k}")
                 if ack is None or ack.status != 0:
-                    return False
+                    return False, replayed
                 counters().bump("resync_replayed_rounds", labels={"server": sid})
-        return True
+                replayed += 1
+        return True, replayed
 
     # --- the data plane --------------------------------------------------
 
     def init_tensor(self, key: int, num_elements: int, dtype_id: int,
+                    trace: Optional[tuple] = None,
                     async_profile: bool = False, staleness: int = -1,
                     server_opt: Optional[str] = None,
                     server_opt_hp: Optional[dict] = None) -> None:
@@ -1733,7 +1761,7 @@ class PSClient:
         (``server_opt`` and its hyperparameters) adds the profile
         extension.  A server that refuses the INIT makes it raise with the
         reason.  Retried without the RPC deadline (``BYTEPS_INIT_DEADLINE_S``
-        instead), under one idempotency token."""
+        instead), under one idempotency token, and one ``trace`` span."""
         token = self._init_token(key)
         profile = (PROFILE_ASYNC if async_profile else 0) | (
             PROFILE_SERVER_OPT if server_opt else 0)
@@ -1743,7 +1771,7 @@ class PSClient:
         resp = self._blocking_request_retrying(
             key,
             lambda seq: Message(Op.INIT, key=key, seq=seq, flags=self._worker_flag(),
-                                version=token, payload=payload),
+                                version=token, payload=payload, trace=trace),
             f"init of key {key}", use_deadline=False,
         )
         if resp.status != 0:
@@ -1792,30 +1820,37 @@ class PSClient:
              cb: Callable[[], None], on_error: Callable[[str], None],
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
              abort_check: Optional[Callable[[], bool]] = None,
-             lossless: Optional[bool] = None) -> None:
+             lossless: Optional[bool] = None, trace: Optional[tuple] = None) -> None:
         """Asynchronous push; ``cb`` fires on the server's ack (ZPush).  A
         resend of a push the server summed already is acked without a sum
         (the worker flag and version key its replay ledger).  ``lossless``
-        asks for the payload's lossless container (the Python lanes)."""
+        asks for the payload's lossless container (the Python lanes).
+        Every attempt carries the one ``trace`` (trace id, span id)."""
         cmd = get_command_type(request_type, dtype_id)
         flags = self._worker_flag()
         self._async_rpc(
             key,
             lambda seq: Message(Op.PUSH, key=key, seq=seq, payload=payload,
-                                cmd=cmd, version=version, flags=flags, lossless=lossless),
+                                cmd=cmd, version=version, flags=flags, lossless=lossless,
+                                trace=trace),
             lambda msg: cb(), on_error, abort_check=abort_check,
         )
 
     def push_fused(self, members: List[tuple], cb: Callable[[list], None],
                    on_error: Callable[[str], None],
-                   abort_check: Optional[Callable[[], bool]] = None) -> None:
+                   abort_check: Optional[Callable[[], bool]] = None,
+                   trace: Optional[tuple] = None,
+                   member_spans: Optional[List[int]] = None) -> None:
         """One fused push and pull of small partitions of one server
         (Op.FUSED): ``members`` is ``[(key, cmd, version, payload), ...]``,
         routed by the first key, and ``cb`` gets the decoded reply
         ``[(key, version, payload), ...]``.  The frame carries the worker
         flag, so the server runs each member through its replay ledger.
-        No in-place heal: a failed frame falls back to per-key requests."""
-        frame = encode_fused_push(members)
+        No in-place heal: a failed frame falls back to per-key requests.
+        ``trace`` is the pack's span (the frame's trace block) and
+        ``member_spans`` the members' (the body's trailer), fixed for every
+        attempt."""
+        frame = encode_fused_push(members, span_ids=member_spans)
         route_key = members[0][0]
         flags = self._worker_flag()
 
@@ -1831,7 +1866,7 @@ class PSClient:
         self._async_rpc(
             route_key,
             lambda seq: Message(Op.FUSED, key=route_key, seq=seq, payload=frame,
-                                cmd=len(members), flags=flags),
+                                cmd=len(members), flags=flags, trace=trace),
             deliver, on_error, abort_check=abort_check, heal=False, chase=False,
         )
 
@@ -1840,7 +1875,7 @@ class PSClient:
              request_type: RequestType = RequestType.DEFAULT_PUSH_PULL,
              sink: Optional[memoryview] = None,
              abort_check: Optional[Callable[[], bool]] = None,
-             payload: bytes = b"") -> None:
+             payload: bytes = b"", trace: Optional[tuple] = None) -> None:
         """Asynchronous pull of round ``version``; ``cb`` gets the payload,
         or :data:`ZERO_COPIED` when it landed in ``sink`` (ZPull).  Read
         only, so retried freely: a retry follows the teardown of the
@@ -1850,6 +1885,6 @@ class PSClient:
         self._async_rpc(
             key,
             lambda seq: Message(Op.PULL, key=key, seq=seq, cmd=cmd, version=version,
-                                payload=payload),
+                                payload=payload, trace=trace),
             lambda msg: cb(msg.payload), on_error, sink=sink, abort_check=abort_check,
         )

@@ -13,9 +13,13 @@ and SHUTDOWN.  Control payloads are JSON, never pickle.
 
 A heartbeat may carry the node's metric delta (``core/telemetry.py``):
 the scheduler folds it into ``metrics_agg``, its cluster aggregate, under
-``{role, rank}`` labels; the delta's ``fr`` field (the node's flight
+``{role, rank}`` labels, served in the Prometheus text format on
+``BYTEPS_METRICS_PORT``; the delta's ``fr`` field (the node's flight
 ledger tail) goes to ``flight``, the cluster step matrix
-(``core/flightrec.py``), and a server's ``hot`` report to the tuner.
+(``core/flightrec.py``), its ``fb`` field (the node's uploaded flight
+bundles, ``BYTEPS_FLIGHT_UPLOAD``) under the scheduler's
+``BYTEPS_FLIGHT_DIR`` (``flight_bundle_rx``), and a server's ``hot``
+report to the tuner.
 
 Membership (docs/elasticity.md; docs/robustness.md, "Liveness policy and
 eviction" and "Control-plane recovery"):
@@ -79,6 +83,7 @@ were before the tuner existed.
 from __future__ import annotations
 
 import json
+import os
 import socket
 import sys
 import threading
@@ -192,8 +197,10 @@ class Scheduler:
         from byteps_tpu_torch.core.flightrec import ClusterFlight
         from byteps_tpu_torch.core.telemetry import MetricsRegistry
 
-        #: the cluster aggregate of the nodes' heartbeat deltas
+        #: the cluster aggregate of the nodes' heartbeat deltas, and its
+        #: endpoint (BYTEPS_METRICS_PORT)
         self.metrics_agg = MetricsRegistry()
+        self._metrics_http = None
         self.metrics_agg.gauge_fn("cluster_map_epoch", lambda: self.map_epoch)
         #: the cluster step matrix of the nodes' flight ledger tails
         self.flight = ClusterFlight()
@@ -206,6 +213,12 @@ class Scheduler:
 
     def start(self) -> None:
         threading.Thread(target=self._accept_loop, name="sched-accept", daemon=True).start()
+        port = max(0, int(os.environ.get("BYTEPS_METRICS_PORT") or 0))
+        if port > 0 and self._metrics_http is None:
+            from byteps_tpu_torch.core.telemetry import serve_metrics
+
+            # the cluster aggregate: one scrape sees the whole job
+            self._metrics_http = serve_metrics(port, self.metrics_agg.render_prometheus)
         if self.dead_node_timeout > 0:
             threading.Thread(target=self._monitor_loop, name="sched-liveness",
                              daemon=True).start()
@@ -318,13 +331,41 @@ class Scheduler:
         hot = delta.pop("hot", None)
         if hot and ident and ident[0] == "server" and self.tuner is not None:
             self.tuner.note_hot(ident[1], hot)
+        fb = delta.pop("fb", None)
+        if fb and ident:
+            try:
+                self._store_uploaded_bundles(ident, fb)
+            except Exception as e:  # noqa: BLE001
+                _log(f"flight bundle store failed: {e!r}")
         try:
             self.metrics_agg.merge_delta(delta, labels=labels)
         except Exception as e:  # noqa: BLE001
             _log(f"metric delta merge failed: {e!r}")
 
+    def _store_uploaded_bundles(self, ident, bundles) -> None:
+        """A node's uploaded flight bundles (their compact form) under this
+        scheduler's ``BYTEPS_FLIGHT_DIR``, one ``trigger.json`` each, beside
+        the tuner's decision bundles."""
+        base = os.environ.get("BYTEPS_FLIGHT_DIR") or "./flight_bundles"
+        who = f"{ident[0]}{ident[1]}" if ident else "unknown"
+        for b in bundles or ():
+            if not isinstance(b, dict):
+                continue
+            try:
+                path = os.path.join(base, f"{time.strftime('%Y%m%d-%H%M%S')}-{who}"
+                                          f"-step{b.get('step', 0)}-{b.get('rule', 'trigger')}")
+                os.makedirs(path, exist_ok=True)
+                with open(os.path.join(path, "trigger.json"), "w") as f:
+                    json.dump(b, f, indent=2, default=str)
+            except OSError:
+                continue
+            self.metrics_agg.counters.bump("flight_bundle_rx")
+
     def stop(self) -> None:
         self._stop.set()
+        if self._metrics_http is not None:
+            self._metrics_http.close()
+            self._metrics_http = None
         close_socket(self._sock)  # shutdown wakes the accept loop
         with self._lock:
             conns = list(self._conns)

@@ -400,8 +400,8 @@ def _sendmsg_all(sock: socket.socket, bufs: list) -> None:
 # Request body (network byte order):
 #     u32 count
 #     count x [u64 key, u32 cmd, u32 version, u64 length, length bytes]
-#     optional trailer: count x u64 member span ids (sent by a traced
-#     reference worker; the port sends none and reads past it)
+#     optional trailer: count x u64 member span ids (a traced worker's;
+#     the pack's own span rides the header's trace block)
 # Reply body:
 #     u32 count
 #     count x [u64 key, u32 version, u64 length, length bytes]
@@ -417,13 +417,18 @@ _FUSED_REPLY_FMT = "!QIQ"
 _FUSED_REPLY_SIZE = struct.calcsize(_FUSED_REPLY_FMT)
 
 
-def encode_fused_push(members) -> bytes:
-    """``[(key, cmd, version, payload), ...]`` as one frame body."""
+def encode_fused_push(members, span_ids=None) -> bytes:
+    """``[(key, cmd, version, payload), ...]`` as one frame body;
+    ``span_ids`` (one per member, in order) append the span trailer."""
     parts = [struct.pack("!I", len(members))]
     for key, cmd, version, payload in members:
         parts.append(struct.pack(_FUSED_MEMBER_FMT, key, cmd, version,
                                  memoryview(payload).nbytes))
         parts.append(payload if isinstance(payload, bytes) else bytes(payload))
+    if span_ids:
+        if len(span_ids) != len(members):
+            raise ValueError("span_ids must match members 1:1")
+        parts.append(struct.pack(f"!{len(span_ids)}Q", *span_ids))
     return b"".join(parts)
 
 
@@ -451,6 +456,15 @@ def decode_fused_push(body: bytes) -> list:
     """Inverse of :func:`encode_fused_push`: [(key, cmd, version, bytes)];
     a span trailer is ignored."""
     return _walk_fused_members(body)[0]
+
+
+def decode_fused_spans(body: bytes) -> Optional[List[int]]:
+    """A fused frame's member span ids from its trailer, or None when it
+    carries none."""
+    members, off = _walk_fused_members(body)
+    if members and len(body) - off == 8 * len(members):
+        return list(struct.unpack_from(f"!{len(members)}Q", body, off))
+    return None
 
 
 def encode_fused_reply(members) -> bytes:

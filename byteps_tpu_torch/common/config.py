@@ -182,6 +182,37 @@ class Config:
     #: inbound before it drops them back to the caller's retry path
     migrate_deadline_s: float = 10.0  # BYTEPS_MIGRATE_DEADLINE_S
 
+    # --- observability (docs/observability.md; BYTEPS_LOG_LEVEL is read by
+    # common/logging.py at every init) ---
+    #: the stage envelopes and spans of core/tracing.py, written under
+    #: BYTEPS_TRACE_DIR; envelopes for the tensor versions in the window
+    trace_on: bool = False  # BYTEPS_TRACE_ON
+    trace_start_step: int = 10  # BYTEPS_TRACE_START_STEP
+    trace_end_step: int = 20  # BYTEPS_TRACE_END_STEP
+    trace_dir: str = "."  # BYTEPS_TRACE_DIR
+    #: off: envelopes only, no spans and no trace blocks on the wire
+    trace_spans: bool = True  # BYTEPS_TRACE_SPANS
+    #: the windowed push/pull MB/s (api.get_pushpull_speed)
+    telemetry_on: bool = False  # BYTEPS_TELEMETRY_ON
+    #: the Prometheus endpoint's port (0 = none; a taken port falls back
+    #: to an ephemeral one)
+    metrics_port: int = 0  # BYTEPS_METRICS_PORT
+    #: a tensor name (substring) whose values are logged after each stage
+    debug_sample_tensor: str = ""  # BYTEPS_DEBUG_SAMPLE_TENSOR
+    # the flight recorder's triggers and bundles (core/flightrec.py)
+    flight_steps: int = 256  # BYTEPS_FLIGHT_STEPS
+    flight_slow_factor: float = 3.0  # BYTEPS_FLIGHT_SLOW_FACTOR
+    flight_stall_s: float = 5.0  # BYTEPS_FLIGHT_STALL_S
+    #: where bundles land ("" = <trace_dir>/flight_bundles)
+    flight_dir: str = ""  # BYTEPS_FLIGHT_DIR
+    #: one bundle a rule at most this often (later firings are counted)
+    flight_bundle_s: float = 60.0  # BYTEPS_FLIGHT_BUNDLE_S
+    #: a bundle's compact form rides the heartbeat to the scheduler's
+    #: BYTEPS_FLIGHT_DIR
+    flight_upload: bool = False  # BYTEPS_FLIGHT_UPLOAD
+    #: a step slower than this fires slo_breach (0 = off)
+    job_slo_s: float = 0.0  # BYTEPS_JOB_SLO_S
+
     @property
     def is_distributed(self) -> bool:
         """More than one worker, or the single-worker fake-cluster
@@ -250,6 +281,21 @@ class Config:
             elastic_reshard=_env_bool("BYTEPS_ELASTIC_RESHARD"),
             ring_vnodes=max(1, _env_int("BYTEPS_RING_VNODES", 64)),
             migrate_deadline_s=_env_float("BYTEPS_MIGRATE_DEADLINE_S", 10.0),
+            trace_on=_env_bool("BYTEPS_TRACE_ON"),
+            trace_start_step=_env_int("BYTEPS_TRACE_START_STEP", 10),
+            trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),
+            trace_dir=os.environ.get("BYTEPS_TRACE_DIR") or ".",
+            trace_spans=_env_bool("BYTEPS_TRACE_SPANS", True),
+            telemetry_on=_env_bool("BYTEPS_TELEMETRY_ON"),
+            metrics_port=max(0, _env_int("BYTEPS_METRICS_PORT", 0)),
+            debug_sample_tensor=os.environ.get("BYTEPS_DEBUG_SAMPLE_TENSOR") or "",
+            flight_steps=max(0, _env_int("BYTEPS_FLIGHT_STEPS", 256)),
+            flight_slow_factor=max(1.1, _env_float("BYTEPS_FLIGHT_SLOW_FACTOR", 3.0)),
+            flight_stall_s=max(0.001, _env_float("BYTEPS_FLIGHT_STALL_S", 5.0)),
+            flight_dir=os.environ.get("BYTEPS_FLIGHT_DIR") or "",
+            flight_bundle_s=max(0.0, _env_float("BYTEPS_FLIGHT_BUNDLE_S", 60.0)),
+            flight_upload=_env_bool("BYTEPS_FLIGHT_UPLOAD"),
+            job_slo_s=max(0.0, _env_float("BYTEPS_JOB_SLO_S", 0.0)),
         )
 
 
@@ -276,16 +322,12 @@ def clear_config() -> None:
     _config = None
 
 
-#: planes of byteps_tpu this port does not carry yet (the flight
-#: recorder's upload and trigger rules), each with the ROADMAP.md item that
-#: brings it.
-#: Selecting one raises rather than run a different job than the one asked
-#: for.
+#: planes of byteps_tpu this port does not carry yet, each with the
+#: ROADMAP.md item that brings it.  Selecting one raises rather than run a
+#: different job than the one asked for.
 UNPORTED = {
-    "flight_upload": "the flight recorder's bundle upload (BYTEPS_FLIGHT_UPLOAD): "
-                     "ROADMAP.md Queue 1 item 10",
-    "slo_trigger": "the flight recorder's slo_breach trigger rule (BYTEPS_JOB_SLO_S), with "
-                   "its bundles: ROADMAP.md Queue 1 item 10",
+    "link_shaping": "the van's link shaping (BYTEPS_VAN_DELAY_MS, BYTEPS_VAN_RATE_MBYTES_S, "
+                    "BYTEPS_VAN_RATE_MBPS; comm/shaping.py): ROADMAP.md Queue 1 item 10.4",
 }
 
 
@@ -294,11 +336,16 @@ def unported(plane: str, what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: not ported yet, {UNPORTED[plane]}")
 
 
+def _positive(v: str) -> bool:
+    return float(v) > 0
+
+
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
 _UNPORTED_KNOBS = (
-    ("BYTEPS_FLIGHT_UPLOAD", "flight_upload", truthy),
-    ("BYTEPS_JOB_SLO_S", "slo_trigger", lambda v: float(v) > 0),
+    ("BYTEPS_VAN_DELAY_MS", "link_shaping", _positive),
+    ("BYTEPS_VAN_RATE_MBYTES_S", "link_shaping", _positive),
+    ("BYTEPS_VAN_RATE_MBPS", "link_shaping", _positive),
 )
 
 

@@ -175,8 +175,14 @@ class TensorTableEntry:
     context: Any = None
     #: once-guard: a task may be failed from two racing paths
     failed: bool = False
-    #: time.monotonic() when the task entered its current stage's queue
+    #: when the task entered its current stage's queue: time.monotonic()
+    #: for the dwell, time.time() for the stage's span
     enqueued_at: float = 0.0
+    enqueued_wall: float = 0.0
+    #: the job's trace id and this task's span id, carried by the task's
+    #: frames (0: tracing off)
+    trace_id: int = 0
+    span_id: int = 0
     #: a fused member's slot of the fused reply, which PULL delivers
     #: locally instead of pulling
     fused_reply: Optional[bytes] = None

@@ -51,6 +51,16 @@ def _base_map() -> tuple:
     return m0, m1
 
 
+def _identity_map() -> tuple:
+    """The map that leaves (s0, s1) as it is: basis bit b goes to itself."""
+    m0 = np.zeros(128, dtype=np.uint64)
+    m1 = np.zeros(128, dtype=np.uint64)
+    for b in range(64):
+        m0[b] = 1 << b
+        m1[64 + b] = 1 << b
+    return m0, m1
+
+
 def _compose(a: tuple, bm: tuple) -> tuple:
     """Map composition out[b] = A(B[b]) — all 128 columns at once."""
     a0, a1 = a
@@ -104,6 +114,11 @@ def _jump_map(steps: int) -> tuple:
     with _JUMP_LOCK:
         m = _JUMP_CACHE.get(steps)
         if m is not None:
+            return m
+        if steps == 0:
+            # T^0 is the identity (the reference returns None and caches
+            # it: the sixteenth deliberate divergence, ROADMAP.md Queue 3)
+            m = _JUMP_CACHE[0] = _identity_map()
             return m
         if not _POW_CACHE:
             _POW_CACHE.append(_base_map())

@@ -115,8 +115,18 @@ the side stream into the pinned push payload, and one wait), the result
 goes back to the device when it is delivered.  It never fuses and never
 compresses.
 
-Tracing spans are not ported (ROADMAP.md Queue 1).  Each stage's dwell is
-observed as ``stage_dwell_seconds{stage}`` (``core/telemetry.py``).
+Each stage's dwell is observed as ``stage_dwell_seconds{stage}``
+(``core/telemetry.py``).  With a tracer on (``BYTEPS_TRACE_ON``,
+``core/tracing.py``) every push_pull has a trace id and each of its
+partition tasks a span id, fixed for the task's life (every resend of its
+RPCs carries it), which rides the task's INIT, PUSH and PULL frames, and a
+fusion pack's frame its own span with the members' ids in its trailer
+(``FUSED_RPC``).  A finished stage records the tensor's stage envelope (in
+the ``BYTEPS_TRACE_START_STEP``..``_END_STEP`` window) and the task's span;
+an INIT its own span.  ``BYTEPS_DEBUG_SAMPLE_TENSOR`` logs, at INFO, the
+norm and first value a tensor's partitions hold after each stage
+(core_loops.cc:37-67).  The bytes pushed and pulled feed the windowed
+``PushPullSpeed``.
 """
 
 from __future__ import annotations
@@ -161,6 +171,7 @@ from byteps_tpu_torch.core.telemetry import (
     job_labels,
     metrics,
 )
+from byteps_tpu_torch.core.tracing import new_trace_id, span_args
 from byteps_tpu_torch.server.update_rules import parse_hp, rule_name
 
 
@@ -194,6 +205,7 @@ class _Job:
         "name", "ctx", "flat", "result", "result_t", "dtype_id", "average",
         "handle", "pending", "shape", "is_torch", "device", "ready",
         "version", "device_parts", "failed", "step_counted", "rowsparse", "lock",
+        "t0", "trace_id",
     )
 
     def __init__(self, name, ctx, flat, dtype_id, average, handle, shape,
@@ -222,6 +234,10 @@ class _Job:
         #: a row-sparse job's (push payload, pull request)
         self.rowsparse: Optional[tuple] = None
         self.lock = threading.Lock()
+        #: the stage envelopes start here
+        self.t0 = time.time()
+        #: the trace every partition task's span joins (0: tracing off)
+        self.trace_id = 0
 
 
 class _FusionGroup:
@@ -361,9 +377,13 @@ class PipelineEngine:
     #: engine re-runs its init barrier
     _epoch_counter = itertools.count()
 
-    def __init__(self, cfg: Config, ps_client, flightrec=None) -> None:
+    def __init__(self, cfg: Config, ps_client, telemetry=None, tracer=None,
+                 flightrec=None) -> None:
         self.cfg = cfg
         self.client = ps_client
+        #: core.telemetry.PushPullSpeed and core.tracing.Tracer, or None
+        self.telemetry = telemetry
+        self.tracer = tracer
         self._epoch = next(PipelineEngine._epoch_counter)
         self._stop = threading.Event()
         # PUSH round gate: counts[key] = highest round allowed out
@@ -729,17 +749,21 @@ class PipelineEngine:
             job.result = _np_view(job.result_t)
         else:
             job.result = np.empty(flat.shape, dtype=flat.dtype)
+        if self._traced():
+            job.trace_id = new_trace_id()
         self._step_begin()
         for part in ctx.partitions:
             stages, small = self._stages(part, job, itemsize)
             if small:
                 with self._fuse_lock:
                     self._staged_smalls += 1
-            self.queues[QueueType.COPYD2H].add_task(TensorTableEntry(
+            task = TensorTableEntry(
                 tensor_name=name, key=part.key, priority=priority,
                 version=ctx.version, offset=part.offset, length=part.length,
                 queue_list=list(stages), context=job, fuse_staged=small,
-            ))
+            )
+            self._stamp_task_trace(task, job)
+            self.queues[QueueType.COPYD2H].add_task(task)
 
     def submit_rowsparse(self, name: str, indices: Any, values: Any, total_rows: int,
                          average: bool, priority: int, handle: int) -> None:
@@ -771,12 +795,16 @@ class PipelineEngine:
             job.result = job.result_t.numpy()
         else:
             job.result = np.empty(nrows * row_len, dtype=np.float32)
+        if self._traced():
+            job.trace_id = new_trace_id()
         self._step_begin()
         part = ctx.partitions[0]
-        self.queues[QueueType.PUSH].add_task(TensorTableEntry(
+        task = TensorTableEntry(
             tensor_name=name, key=part.key, priority=priority, version=ctx.version,
             offset=0, length=part.length, queue_list=[QueueType.PUSH, QueueType.PULL],
-            context=job))
+            context=job)
+        self._stamp_task_trace(task, job)
+        self.queues[QueueType.PUSH].add_task(task)
 
     def _rowsparse_to_host(self, indices: Any, values: Any, total_rows: int) -> tuple:
         """(int64 indices, float32 rows, push payload) of a row-sparse call,
@@ -876,7 +904,13 @@ class PipelineEngine:
                     # the average is the rule's to do, on the server
                     profile.update(server_opt=rule, server_opt_hp={"average": True, **hp})
                 for part in ctx.partitions:
-                    self.client.init_tensor(part.key, part.length, dtype_id, **profile)
+                    trace = (new_trace_id(), new_trace_id()) if self._traced() else None
+                    t0 = time.time()
+                    self.client.init_tensor(part.key, part.length, dtype_id,
+                                            trace=trace, **profile)
+                    if trace is not None:
+                        self.tracer.record_span(ctx.name, "INIT", t0, time.time() - t0,
+                                                span_args(*trace, key=part.key))
                     self._table[part.key] = (ctx.name, part.length, itemsize)
                 if again:
                     # a forced re-init under this engine: the servers' chains
@@ -1008,16 +1042,82 @@ class PipelineEngine:
                 for key, (name, length, itemsize) in self._table.items()
             ]
 
+    # --- tracing ---------------------------------------------------------
+
+    def _traced(self) -> bool:
+        return (self.tracer is not None and self.tracer.enabled
+                and self.tracer.spans_enabled)
+
+    @staticmethod
+    def _stamp_task_trace(task: TensorTableEntry, job: _Job) -> None:
+        """A partition task's span under its job's trace, fixed for the
+        task's life: every attempt of its RPCs carries it, so the servers'
+        children (a replay's ``dedupe`` too) join the right span."""
+        if job.trace_id:
+            task.trace_id = job.trace_id
+            task.span_id = new_trace_id()
+
+    @staticmethod
+    def _task_trace(task: TensorTableEntry) -> Optional[tuple]:
+        """The (trace id, span id) a task's frames carry, or None."""
+        return (task.trace_id, task.span_id) if task.trace_id else None
+
+    def _wire_bytes(self, name: str, nbytes: int, task: TensorTableEntry) -> None:
+        """Bytes a task moved on the wire: ``wire_tx_bytes`` /
+        ``wire_rx_bytes`` and the push/pull speed."""
+        counters().bump(name, nbytes, labels=job_labels(task.job))
+        if self.telemetry is not None:
+            self.telemetry.record(nbytes)
+
+    def _sample(self, task: TensorTableEntry, job: _Job, finished: QueueType) -> None:
+        """``BYTEPS_DEBUG_SAMPLE_TENSOR`` (core_loops.cc:37-67): the norm and
+        first value of what a stage left, at INFO.  Pull-side stages sample
+        what came back (a device-lane job's decoded partition on the card;
+        a compressed PULL, codec bytes, not at all), push-side stages the
+        host copy."""
+        from byteps_tpu_torch.common import logging as bpslog
+
+        back = (QueueType.DECOMPRESS, QueueType.COPYH2D)
+        if job.device_parts is not None and finished in back:
+            part = job.device_parts.get(task.offset)
+            vals = None if part is None else part.detach().double().cpu().numpy()
+        elif finished in back or (finished == QueueType.PULL and task.compressed is None):
+            vals = (None if job.result is None
+                    else job.result[task.offset: task.offset + task.length])
+        elif finished == QueueType.PULL:
+            vals = None
+        else:
+            vals = task.cpubuff
+        if vals is None or not np.size(vals):
+            return
+        vals = np.asarray(vals)
+        if job.dtype_id == DataType.BFLOAT16 and vals.dtype == np.uint16:
+            vals = (vals.astype(np.uint32) << 16).view(np.float32)
+        vals = vals.reshape(-1).astype(np.float64)
+        bpslog.info("sample %s key=%d stage=%s v=%d norm=%.6g first=%.6g", job.name,
+                    task.key, finished.name, task.version, float(np.linalg.norm(vals)),
+                    float(vals[0]))
+
     # --- completion ------------------------------------------------------
 
     def _proceed(self, task: TensorTableEntry) -> None:
         """Advance a task to its next stage, or finish its partition."""
         finished = task.queue_list.pop(0)
         job: _Job = task.context
+        if self.cfg.debug_sample_tensor and self.cfg.debug_sample_tensor in job.name:
+            self._sample(task, job, finished)
+        if self.tracer is not None:
+            self.tracer.record(job.name, finished.name, job.t0, time.time() - job.t0,
+                               job.version)
         if task.enqueued_at:
             # the finished stage's dwell, enqueue to done
             metrics().observe("stage_dwell_seconds", time.monotonic() - task.enqueued_at,
                               labels={"stage": finished.name})
+        if task.trace_id and self._traced():
+            self.tracer.record_span(job.name, finished.name, task.enqueued_wall,
+                                    time.time() - task.enqueued_wall,
+                                    span_args(task.trace_id, task.span_id, key=task.key,
+                                              version=task.version))
         self.queues[finished].report_finish(task)
         if task.queue_list:
             self.queues[task.queue_list[0]].add_task(task)
@@ -1286,17 +1386,29 @@ class PipelineEngine:
                 for m, payload in members]
         counters().bump("fused_frames")
         counters().bump("fused_keys", len(members))
-        counters().bump("wire_tx_bytes", sum(memoryview(p).nbytes for *_, p in wire),
-                        labels=job_labels(group_task.job))
+        self._wire_bytes("wire_tx_bytes", sum(memoryview(p).nbytes for *_, p in wire),
+                         group_task)
         if self._journal is not None:
             # each member on its own: a heal replays them as plain pushes,
             # which the server sums through the same replay ledger
             for key, cmd, version, payload in wire:
                 self._journal.record(key, version, cmd, payload, fused=True)
 
+        # the pack's own span (its members are spans of their jobs' traces,
+        # whose ids ride the frame's trailer), fixed for the frame's life
+        pack_trace = member_spans = None
+        t_pack = time.time()
+        if self._traced():
+            pack_trace = (new_trace_id(), new_trace_id())
+            member_spans = [m.span_id for m, _ in members]
+
         def deliver(replies: list) -> None:
             if not finish_group():
                 return
+            if pack_trace is not None:
+                self.tracer.record_span("<fused>", "FUSED_RPC", t_pack, time.time() - t_pack,
+                                        span_args(pack_trace[0], pack_trace[1],
+                                                  keys=len(members)))
             by_key = {key: payload for key, _, payload in replies}
             for mtask, _ in members:
                 payload = by_key.get(mtask.key)
@@ -1312,7 +1424,8 @@ class PipelineEngine:
                 self._unfuse_members(group, reason)
 
         self.client.push_fused(wire, cb=deliver, on_error=on_error,
-                               abort_check=lambda: all(m.context.failed for m, _ in members))
+                               abort_check=lambda: all(m.context.failed for m, _ in members),
+                               trace=pack_trace, member_spans=member_spans)
 
     def _unfuse_members(self, group: _FusionGroup, reason: str) -> None:
         """A pack whose frame failed: each live member goes back to the PUSH
@@ -1348,7 +1461,7 @@ class PipelineEngine:
         # there ships its container; wire_tx_bytes counts the raw bytes
         lossless = (rtype == RequestType.DEFAULT_PUSH_PULL and task.key in self._lossless_keys
                     ) or None
-        counters().bump("wire_tx_bytes", memoryview(payload).nbytes, labels=job_labels(task.job))
+        self._wire_bytes("wire_tx_bytes", memoryview(payload).nbytes, task)
         if self._journal is not None:
             # before the send, so a give-up of this very push can replay it
             self._journal.record(task.key, task.version,
@@ -1359,6 +1472,7 @@ class PipelineEngine:
             on_error=lambda reason: self._fail_task(task, QueueType.PUSH, reason,
                                                     degraded=True),
             request_type=rtype, abort_check=lambda: job.failed, lossless=lossless,
+            trace=self._task_trace(task),
         )
 
     def _pull_once(self, task: TensorTableEntry) -> None:
@@ -1371,7 +1485,7 @@ class PipelineEngine:
         if task.fused_reply is not None:
             # a fused member: the frame's reply carried this round already
             payload, task.fused_reply = task.fused_reply, None
-            counters().bump("wire_rx_bytes", len(payload), labels=job_labels(task.job))
+            self._wire_bytes("wire_rx_bytes", len(payload), task)
             if compressed:
                 task.compressed = payload
             else:
@@ -1388,9 +1502,9 @@ class PipelineEngine:
             from byteps_tpu_torch.comm.ps_client import ZERO_COPIED
 
             if payload is ZERO_COPIED:
-                counters().bump("wire_rx_bytes", len(sink), labels=job_labels(task.job))
+                self._wire_bytes("wire_rx_bytes", len(sink), task)
             else:
-                counters().bump("wire_rx_bytes", len(payload), labels=job_labels(task.job))
+                self._wire_bytes("wire_rx_bytes", len(payload), task)
                 if compressed:
                     task.compressed = payload
                 else:
@@ -1409,6 +1523,7 @@ class PipelineEngine:
             dtype_id=job.dtype_id, request_type=rtype, sink=sink,
             abort_check=lambda: job.failed,
             payload=job.rowsparse[1] if job.rowsparse is not None else b"",
+            trace=self._task_trace(task),
         )
 
     @staticmethod

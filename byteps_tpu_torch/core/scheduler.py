@@ -97,6 +97,7 @@ class ScheduledQueue:
         # the stage's dwell (stage_dwell_seconds) counts from here, so the
         # wait in the queue is part of it
         task.enqueued_at = time.monotonic()
+        task.enqueued_wall = time.time()
         with self._cv:
             lane = self._lanes.get(task.job)
             if lane is None:

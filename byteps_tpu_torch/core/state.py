@@ -14,9 +14,14 @@ per host, as in ``byteps_tpu``, and the root tells the other local ranks
 the host's worker rank and the number of hosts.  A distributed process at
 ``BYTEPS_LOCAL_SIZE > 1`` without the rendezvous raises: it could neither
 join the PS nor reach its host's root.
-``shutdown_state()`` stops all of it; the worker's node uid stays, so
-that a resume rejoins as the same member, and a suspend keeps the host's
-group.  The server and scheduler roles run
+Every init also brings up the observability plane (docs/observability.md):
+the log level (``BYTEPS_LOG_LEVEL``), the tracer (``BYTEPS_TRACE_ON``; the
+process tracer, named ``worker<rank>`` once the scheduler gave a rank), the
+windowed push/pull speed (``BYTEPS_TELEMETRY_ON``, the ``pushpull_mbps``
+gauge) and, with ``BYTEPS_METRICS_PORT``, the Prometheus endpoint.
+``shutdown_state()`` stops all of it and flushes the tracer; the worker's
+node uid stays, so that a resume rejoins as the same member, and a suspend
+keeps the host's group.  The server and scheduler roles run
 as their own processes (``python -m byteps_tpu_torch.server``).
 """
 
@@ -47,6 +52,9 @@ class RuntimeState:
         self.engine = None  # core.engine.PipelineEngine (distributed mode)
         #: core.flightrec.FlightRecorder the engine stamps once a step
         self.flightrec = None
+        self.telemetry = None  # core.telemetry.PushPullSpeed
+        self.tracer = None  # core.tracing.Tracer
+        self.metrics_http = None  # core.telemetry.MetricsHTTPServer
         self.mesh = None  # comm.mesh.Mesh: the host's process group, under the launcher
         #: (worker rank, number of workers) of this host, from local rank 0
         self.host: Optional[Tuple[int, int]] = None
@@ -103,6 +111,7 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                     f"byteps_tpu_torch.launcher.launch`, or set {LOCAL_INIT_METHOD}"
                 )
         try:
+            _observe(cfg, st)
             if local_group and st.mesh is None:  # a suspend keeps the host's group
                 from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
 
@@ -119,6 +128,9 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                 client = PSClient(cfg, node_uid=st.node_uid)
                 client.connect()
                 st.ps_client = client
+                if client.rank is not None:
+                    # the process's name on the merged timeline
+                    st.tracer.process_name = f"worker{client.rank}"
 
                 def flight_context(c=client, job=cfg.job_id) -> dict:
                     # the epochs and incarnation each step ran under
@@ -127,8 +139,10 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
                             "incarnation": c.sched_incarnation,
                             "degraded": 0 if c._sched_up.is_set() else 1, "job": job}
 
-                st.flightrec = ensure_process_recorder(context_fn=flight_context)
-                st.engine = PipelineEngine(cfg, client, flightrec=st.flightrec)
+                st.flightrec = ensure_process_recorder(cfg, context_fn=flight_context,
+                                                       tracer=st.tracer)
+                st.engine = PipelineEngine(cfg, client, telemetry=st.telemetry,
+                                           tracer=st.tracer, flightrec=st.flightrec)
                 st.engine.start()
             if st.mesh is not None:
                 st.host = _host_identity(cfg, st)
@@ -138,6 +152,23 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
         st.config = cfg
         st.initialized = True
         return st
+
+
+def _observe(cfg: Config, st: RuntimeState) -> None:
+    """The log level, the tracer, the push/pull speed and the endpoint."""
+    from byteps_tpu_torch.common import logging as bpslog
+    from byteps_tpu_torch.core.telemetry import PushPullSpeed, metrics, serve_metrics
+    from byteps_tpu_torch.core.tracing import Tracer, set_process_tracer
+
+    bpslog.apply_env_level()
+    st.telemetry = PushPullSpeed(enabled=cfg.telemetry_on)
+    st.tracer = Tracer(enabled=cfg.trace_on, start_step=cfg.trace_start_step,
+                       end_step=cfg.trace_end_step, trace_dir=cfg.trace_dir,
+                       local_rank=cfg.local_rank, spans_enabled=cfg.trace_spans)
+    set_process_tracer(st.tracer)
+    metrics().gauge_fn("pushpull_mbps", st.telemetry.mbps)
+    if cfg.metrics_port > 0 and st.metrics_http is None:
+        st.metrics_http = serve_metrics(cfg.metrics_port)
 
 
 def _host_identity(cfg: Config, st: RuntimeState) -> Tuple[int, int]:
@@ -171,6 +202,16 @@ def _stop(st: RuntimeState, keep_mesh: bool = False) -> None:
         if get_process_recorder() is st.flightrec:
             set_process_recorder(None)
         st.flightrec = None
+    if st.tracer is not None:
+        from byteps_tpu_torch.core.tracing import get_process_tracer, set_process_tracer
+
+        st.tracer.flush()
+        if get_process_tracer() is st.tracer:
+            set_process_tracer(None)
+        st.tracer = None
+    if st.metrics_http is not None:
+        st.metrics_http.close()
+        st.metrics_http = None
     if st.mesh is not None and not keep_mesh:
         from byteps_tpu_torch.comm.mesh import get_global_mesh, set_global_mesh
 

@@ -87,8 +87,14 @@ changed since the last beat (counters flat and labeled, histogram
 buckets, gauges that changed or went), :meth:`~MetricsRegistry.reship_for`
 makes the first beat to a new scheduler incarnation carry the whole
 history, and the scheduler folds each delta into its aggregate with
-:meth:`~MetricsRegistry.merge_delta` under ``{role, rank}`` labels.  The
-Prometheus exposition is not ported (ROADMAP.md Queue 1 item 10).
+:meth:`~MetricsRegistry.merge_delta` under ``{role, rank}`` labels.
+
+The Prometheus exposition (:meth:`MetricsRegistry.render_prometheus`, text
+format 0.0.4, byte for byte the reference's) is served by
+:func:`serve_metrics` on ``BYTEPS_METRICS_PORT``: a worker's, a server's
+and (its aggregate) the scheduler's.  :class:`PushPullSpeed` is the
+windowed push/pull MB/s (``BYTEPS_TELEMETRY_ON``; global.cc:697-752), a
+worker's ``pushpull_mbps`` gauge.
 """
 
 from __future__ import annotations
@@ -96,7 +102,47 @@ from __future__ import annotations
 import bisect
 import json
 import threading
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, Iterable, List, Optional, Tuple
+
+#: PushPullSpeed's window (global.cc:703)
+WINDOW_SEC = 10.0
+
+
+class PushPullSpeed:
+    """Bytes pushed and pulled over the last :data:`WINDOW_SEC` seconds, as
+    MB/s; records nothing when off."""
+
+    def __init__(self, enabled: bool = True) -> None:
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._events: Deque[Tuple[float, int]] = deque()
+        self._total_bytes = 0
+
+    def record(self, nbytes: int) -> None:
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, nbytes))
+            self._total_bytes += nbytes
+            self._evict(now)
+
+    def _evict(self, now: float) -> None:
+        while self._events and now - self._events[0][0] > WINDOW_SEC:
+            _, nb = self._events.popleft()
+            self._total_bytes -= nb
+
+    def mbps(self) -> float:
+        """The window's MB/s; 0 when off or idle."""
+        now = time.monotonic()
+        with self._lock:
+            self._evict(now)
+            if not self._events:
+                return 0.0
+            span = max(now - self._events[0][0], 1e-6)
+            return self._total_bytes / span / 1e6
 
 
 class Counters:
@@ -399,11 +445,14 @@ class MetricsRegistry:
     # --- reading ---------------------------------------------------------
 
     def snapshot(self) -> dict:
-        """{"histograms": {name{labels}: {"count", "sum", "p50", "p90",
-        "p99"}}, "gauges": {name{labels}: value}}, local and provider
-        histograms together."""
+        """{"counters": flat totals, "counters_labeled": {name: {labels:
+        count}}, "gauges": {name{labels}: value}, "histograms":
+        {name{labels}: {"count", "sum", "p50", "p90", "p99"}}}, local and
+        provider histograms together (``api.get_metrics()``)."""
         gauges = {name + _render_labels(lkey): v
                   for (name, lkey), v in self._gauge_values().items()}
+        labeled = {name: {_render_labels(k) or "{}": v for k, v in per.items()}
+                   for name, per in self.counters.labeled_raw().items()}
         out = {}
         for (name, lkey), (bounds, counts, vsum, count) in self._hist_states().items():
             out[name + _render_labels(lkey)] = {
@@ -413,7 +462,59 @@ class MetricsRegistry:
                 "p90": _state_percentile(bounds, counts, 0.90),
                 "p99": _state_percentile(bounds, counts, 0.99),
             }
-        return {"histograms": out, "gauges": gauges}
+        return {"counters": self.counters.snapshot(), "counters_labeled": labeled,
+                "gauges": gauges, "histograms": out}
+
+    def render_prometheus(self, prefix: str = "byteps_") -> str:
+        """The text exposition (format 0.0.4): a counter as ``_total``, its
+        label slices as a family of their own (``_labeled_total``: the flat
+        total counts them already), gauges, and each histogram's
+        ``_bucket``/``_sum``/``_count`` with ``_p50``/``_p90``/``_p99``
+        gauges beside, so that a bare scrape reads the tail."""
+        lines: List[str] = []
+        flat = self.counters.snapshot()
+        labeled = self.counters.labeled_raw()
+        for name in sorted(flat):
+            metric = f"{prefix}{name}_total"
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {flat[name]}")
+            if labeled.get(name):
+                lmetric = f"{prefix}{name}_labeled_total"
+                lines.append(f"# TYPE {lmetric} counter")
+                for lkey in sorted(labeled[name]):
+                    lines.append(f"{lmetric}{_render_labels(lkey)} {labeled[name][lkey]}")
+        g_fams: Dict[str, List[Tuple[tuple, float]]] = {}
+        for (name, lkey), v in self._gauge_values().items():
+            g_fams.setdefault(name, []).append((lkey, v))
+        for name in sorted(g_fams):
+            metric = f"{prefix}{name}"
+            lines.append(f"# TYPE {metric} gauge")
+            for lkey, v in sorted(g_fams[name]):
+                lines.append(f"{metric}{_render_labels(lkey)} {v}")
+        by_family: Dict[str, List[Tuple[tuple, list]]] = {}
+        for (name, lkey), st in self._hist_states().items():
+            by_family.setdefault(name, []).append((lkey, st))
+        for name in sorted(by_family):
+            metric = f"{prefix}{name}"
+            series = sorted(by_family[name], key=lambda kv: kv[0])
+            lines.append(f"# TYPE {metric} histogram")
+            for lkey, (bounds, counts, vsum, count) in series:
+                cum = 0
+                for le, c in zip(bounds, counts):
+                    cum += c
+                    labels = dict(lkey) | {"le": repr(float(le))}
+                    lines.append(f"{metric}_bucket{_render_labels(_label_key(labels))} {cum}")
+                labels = dict(lkey) | {"le": "+Inf"}
+                lines.append(f"{metric}_bucket{_render_labels(_label_key(labels))} {count}")
+                lines.append(f"{metric}_sum{_render_labels(lkey)} {vsum}")
+                lines.append(f"{metric}_count{_render_labels(lkey)} {count}")
+            for q, tag in ((0.50, "p50"), (0.90, "p90"), (0.99, "p99")):
+                qmetric = f"{metric}_{tag}"
+                lines.append(f"# TYPE {qmetric} gauge")
+                for lkey, (bounds, counts, _vsum, _count) in series:
+                    lines.append(f"{qmetric}{_render_labels(lkey)} "
+                                 f"{_state_percentile(bounds, counts, q)}")
+        return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         """Drop local histograms and the delta baselines; re-baseline
@@ -628,6 +729,65 @@ def _apply_baseline(st: list, base) -> bool:
         st[2] = max(0.0, st[2] - base[1])
         st[3] = max(0, st[3] - base[2])
     return st[3] > 0
+
+
+class MetricsHTTPServer:
+    """A threaded HTTP server of one render function (the text
+    exposition).  Port 0 binds an ephemeral port; a taken port falls back
+    to one, logged, so that every process of a host that shares one
+    ``BYTEPS_METRICS_PORT`` still serves (:attr:`port` is the one bound)."""
+
+    def __init__(self, port: int, render: Callable[[], str], host: str = "0.0.0.0") -> None:
+        import http.server
+
+        render_fn = render
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 - http.server's name
+                try:
+                    body = render_fn().encode()
+                except Exception as e:  # noqa: BLE001 - a scrape answers 500, never dies
+                    self.send_response(500)
+                    self.end_headers()
+                    self.wfile.write(repr(e).encode())
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # no line a scrape
+                pass
+
+        try:
+            self._httpd = http.server.ThreadingHTTPServer((host, port), _Handler)
+        except OSError:
+            from byteps_tpu_torch.common import logging as bpslog
+
+            self._httpd = http.server.ThreadingHTTPServer((host, 0), _Handler)
+            bpslog.warning("BYTEPS_METRICS_PORT=%d in use; serving metrics on %d instead",
+                           port, self._httpd.server_address[1])
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="bps-metrics-http", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except OSError:
+            pass
+
+
+def serve_metrics(port: int, render: Optional[Callable[[], str]] = None,
+                  host: str = "0.0.0.0") -> MetricsHTTPServer:
+    """The Prometheus endpoint, of the process's registry unless
+    ``render`` is given."""
+    return MetricsHTTPServer(port, render if render is not None
+                             else metrics().render_prometheus, host=host)
 
 
 _metrics = MetricsRegistry(_counters)

@@ -17,6 +17,13 @@ and ``BYTEPS_NATIVE_CLIENT=1`` (``comm.ps_client._NativeServerConn``); the
 host codecs (``compression/impl.py``) call the codec entries on numpy
 inputs.  ``BYTEPS_SERVER_STRIPES`` (reducer lanes of a server) and
 ``BYTEPS_WIRE_CHECKSUM`` reach the C++ side from the environment.
+
+The server's span plane (docs/observability.md): the engine records the
+recv, sum, publish, reply and resync child spans of traced frames into a
+bounded ring (``bps_native_server_set_trace`` turns it on and off,
+``bps_native_server_drain_spans`` takes its records, :data:`SPAN_REC_DTYPE`
+each); ``server.native.NativePSServer`` drains them into its tracer.  The
+client lanes send a frame's trace block with ``bpsc_send2``.
 """
 
 from __future__ import annotations
@@ -75,6 +82,23 @@ NATIVE_COUNTER_NAMES = (
     "native_lossless_fail",
 )
 
+#: ps_server.cc's SpanRec (change both together); ``stripe`` is the
+#: reducer lane that ran the stage, -1 a serve or control thread
+SPAN_REC_DTYPE = np.dtype([
+    ("trace", "<u8"), ("parent", "<u8"), ("key", "<u8"),
+    ("ts", "<f8"), ("dur", "<f8"), ("kind", "<i4"), ("flags", "<u4"),
+    ("stripe", "<i4"), ("_pad", "<u4"),
+])
+assert SPAN_REC_DTYPE.itemsize == 56
+
+#: ps_server.cc's SpanKind order: the Python server's child-span names
+NATIVE_SPAN_KINDS = ("recv", "sum", "publish", "reply", "resync")
+
+#: SpanRec.flags bits: a replay the ledger acked without a sum, a fused
+#: frame's member
+SPAN_FLAG_DEDUPE = 1
+SPAN_FLAG_FUSED = 2
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -110,6 +134,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bps_native_server_counters": ([c.c_int32, c.POINTER(c.c_uint64), c.c_int32],
                                        c.c_int32),
         "bps_native_server_metrics_json": ([c.c_int32, c.c_void_p, c.c_uint64], c.c_int64),
+        "bps_native_server_set_trace": ([c.c_int32, c.c_int32], None),
+        "bps_native_server_drain_spans": ([c.c_int32, c.c_void_p, c.c_int32], c.c_int32),
         "bps_wire_key_stripe": ([c.c_uint64, c.c_int32], c.c_int32),
         "bps_wire_ring_hash": ([c.c_uint64], c.c_uint64),
         "bps_wire_golden": ([c.c_void_p, c.c_uint64], c.c_int64),
@@ -124,8 +150,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "bpsc_create": ([c.c_char_p, c.c_int32, c.c_int32, c.c_int32], c.c_int64),
         "bpsc_set_cb": ([c.c_int64, BPSC_CALLBACK, c.c_void_p], None),
         "bpsc_alloc_seq": ([c.c_int64, c.c_void_p, c.c_uint64], c.c_int64),
-        "bpsc_send": ([c.c_int64, c.c_int32, c.c_uint32, c.c_uint64, c.c_uint32,
-                       c.c_uint32, c.c_uint32, c.c_void_p, c.c_uint64], c.c_int32),
+        # a frame with its (trace id, span id) block; (0, 0) sends none
+        "bpsc_send2": ([c.c_int64, c.c_int32, c.c_uint32, c.c_uint64, c.c_uint32,
+                        c.c_uint32, c.c_uint32, c.c_void_p, c.c_uint64, c.c_uint64,
+                        c.c_uint64], c.c_int32),
         "bpsc_drain": ([c.c_int64, c.c_void_p, c.c_int64, c.c_void_p, c.c_uint64],
                        c.c_int64),
         "bpsc_metrics_json": ([c.c_int64, c.c_void_p, c.c_uint64], c.c_int64),
@@ -161,6 +189,19 @@ def native_server_counters(server_id: int) -> dict:
     out = (ctypes.c_uint64 * len(NATIVE_COUNTER_NAMES))()
     n = get_lib().bps_native_server_counters(server_id, out, len(NATIVE_COUNTER_NAMES))
     return {NATIVE_COUNTER_NAMES[i]: int(out[i]) for i in range(max(0, n))}
+
+
+def native_server_set_trace(server_id: int, on: bool) -> None:
+    """Turn a native server's span ring on or off."""
+    get_lib().bps_native_server_set_trace(server_id, int(bool(on)))
+
+
+def native_server_drain_spans(server_id: int, max_recs: int = 4096) -> np.ndarray:
+    """Take up to ``max_recs`` child-span records from a native server's
+    ring, as :data:`SPAN_REC_DTYPE` (empty when none, or once stopped)."""
+    recs = np.zeros(max_recs, dtype=SPAN_REC_DTYPE)
+    n = get_lib().bps_native_server_drain_spans(server_id, recs.ctypes.data, max_recs)
+    return recs[:max(0, n)]
 
 
 def _metrics_json(call, ident) -> list:

@@ -47,6 +47,15 @@ and publishes a ``unix://`` or ``shm+unix://`` address.  Under
 ``BYTEPS_VAN=chaos:<van>`` it publishes a ``chaos+`` address: the workers
 fault their own side, the engine's replies stay clean.  The engine
 scatter-sums row-sparse pushes, and decodes lossless frames, in C++.
+
+Under ``BYTEPS_TRACE_ON`` the engine records the Python server's child
+spans (recv, sum, publish, reply, resync) of traced frames into its ring,
+and a thread of this wrapper drains it every 0.1 s into the server's
+tracer, tagged ``engine: "native"``, each reducer stripe on a track of its
+own (``stripe<n>``; a serve or control thread's on the key's row); the
+stop drains what is left and flushes to ``BYTEPS_TRACE_DIR/server<rank>``.
+``BYTEPS_METRICS_PORT`` serves the process registry, the engine's
+histograms included.
 """
 
 from __future__ import annotations
@@ -63,7 +72,13 @@ from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
 from byteps_tpu_torch.comm.transport import close_socket
 from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX, check_shm_arch, new_socket_path
 from byteps_tpu_torch.core.telemetry import metrics
-from byteps_tpu_torch.server.server import PSServer, init_tuning_state, summarize_histograms
+from byteps_tpu_torch.core.tracing import new_trace_id, span_args
+from byteps_tpu_torch.server.server import (
+    PSServer,
+    init_tuning_state,
+    server_tracer,
+    summarize_histograms,
+)
 
 #: the engine's histograms a stop report summarizes (merged over keys)
 NATIVE_HISTOGRAMS = ("native_server_sum_seconds", "native_server_publish_seconds")
@@ -130,9 +145,19 @@ class NativePSServer:
         self._final: Optional[tuple] = None
         init_tuning_state(self)
         self._warned_overrides = False
+        self._metrics_http = None
+        self.tracer = server_tracer(cfg)
         from byteps_tpu_torch.core.flightrec import ensure_process_recorder
+        from byteps_tpu_torch.native import native_server_set_trace
 
-        ensure_process_recorder(context_fn=self._flight_context)
+        ensure_process_recorder(cfg, context_fn=self._flight_context, tracer=self.tracer)
+        traced = cfg.trace_on and cfg.trace_spans
+        native_server_set_trace(sid, traced)
+        self._span_drain_thread: Optional[threading.Thread] = None
+        if traced:
+            self._span_drain_thread = threading.Thread(
+                target=self._span_drain_loop, name="bps-native-span-drain", daemon=True)
+            self._span_drain_thread.start()
 
     # the control plane of the Python server: these touch only the state
     # both classes carry (cfg, host, port, uid, rank, num_workers, the
@@ -151,6 +176,44 @@ class NativePSServer:
     # the tuning section is noted (and reported on a rejoin); with no
     # _hot_report the borrowed loop sends no hot report
     _adopt_tuning = PSServer._adopt_tuning
+    _serve_metrics = PSServer._serve_metrics
+    _stop_observing = PSServer._stop_observing
+
+    def _drain_spans_once(self) -> int:
+        """Record the engine's buffered child spans on the tracer; the count
+        taken.  The children's own ids are minted here (nothing refers to
+        them: they parent on the workers' span ids)."""
+        from byteps_tpu_torch.native import (
+            NATIVE_SPAN_KINDS,
+            SPAN_FLAG_DEDUPE,
+            SPAN_FLAG_FUSED,
+            native_server_drain_spans,
+        )
+
+        recs = native_server_drain_spans(self._id)
+        for rec in recs:
+            kind = int(rec["kind"])
+            name = NATIVE_SPAN_KINDS[kind] if 0 <= kind < len(NATIVE_SPAN_KINDS) else f"kind{kind}"
+            flags = int(rec["flags"])
+            extra = {"engine": "native", "key": int(rec["key"])}
+            if name == "sum":
+                extra["dedupe"] = bool(flags & SPAN_FLAG_DEDUPE)
+            if flags & SPAN_FLAG_FUSED:
+                extra["fused"] = True
+            stripe = int(rec["stripe"])
+            if stripe >= 0:
+                track = f"stripe{stripe}"
+                extra["stripe"] = stripe
+            else:
+                track = f"key{int(rec['key'])}"
+            self.tracer.record_span(track, name, float(rec["ts"]), float(rec["dur"]),
+                                    span_args(int(rec["trace"]), new_trace_id(),
+                                              parent_id=int(rec["parent"]), **extra))
+        return len(recs)
+
+    def _span_drain_loop(self) -> None:
+        while not self._stop.wait(0.1):
+            self._drain_spans_once()
 
     def _adopt_book(self, book: dict) -> None:
         """Hand a book's ownership map to the engine: the ring's sorted
@@ -201,6 +264,7 @@ class NativePSServer:
         self._lib.bps_native_server_set_live_workers(self._id, arr, len(flags))
 
     def start(self, register: bool = True) -> None:
+        self._serve_metrics()
         if register:
             try:
                 self._register_with_scheduler()
@@ -248,15 +312,21 @@ class NativePSServer:
     def stop(self) -> None:
         """Stop the engine (once): its histograms are folded into the
         registry and its totals frozen for the stop report first."""
-        from byteps_tpu_torch.core.flightrec import release_process_recorder
-
         self._stop.set()
-        release_process_recorder(self._flight_context)
+        self._stop_observing()
         with self._stop_lock:
             if self._stopped:
                 return
             self._stopped = True
             self._final = (*self._read_stats(), self.native_counters())
             metrics().absorb_hist_provider(self._hist_provider)
+            if self._span_drain_thread is not None:
+                self._span_drain_thread.join(timeout=2.0)
+                self._span_drain_thread = None
+            # the ring's last records, while the instance still exists
+            # (a call takes one batch at most)
+            while self._drain_spans_once():
+                pass
             self._lib.bps_native_server_stop(self._id)
+        self.tracer.flush()
         close_socket(self._sched_conn)

@@ -140,6 +140,7 @@ from byteps_tpu_torch.comm.transport import (
     close_socket,
     connect,
     decode_fused_push,
+    decode_fused_spans,
     decode_init_profile,
     decode_migrate_extra,
     decode_migrate_state,
@@ -154,6 +155,13 @@ from byteps_tpu_torch.comm.transport import (
 )
 from byteps_tpu_torch.comm.van import get_van, unlink_published
 from byteps_tpu_torch.core.telemetry import Counters, _state_percentile, counters, metrics
+from byteps_tpu_torch.core.tracing import (
+    Tracer,
+    get_process_tracer,
+    new_trace_id,
+    set_process_tracer,
+    span_args,
+)
 from byteps_tpu_torch.native import cpu_reducer
 from byteps_tpu_torch.server import update_rules
 
@@ -447,6 +455,25 @@ class _QuotaBucket:
             return max(0.0, admit_at - now)
 
 
+def _summed_already(ks, msg: Message) -> bool:
+    """A traced push the replay ledger holds (its sum span's ``dedupe``);
+    the fence and the count are :meth:`PSServer._is_replayed_push_locked`'s."""
+    return (msg.trace is not None and bool(msg.flags)
+            and 0 < msg.version <= ks.push_seen.get(msg.flags, 0))
+
+
+def server_tracer(cfg: Config) -> Tracer:
+    """A server's tracer (``BYTEPS_TRACE_ON``): its children of the
+    workers' spans, written under ``BYTEPS_TRACE_DIR/server<rank>``.  It is
+    the process tracer unless one is set already (an in-process fleet's
+    worker's), so that the chaos van tags faults on it."""
+    tracer = Tracer(enabled=cfg.trace_on, trace_dir=cfg.trace_dir, local_rank="server",
+                    process_name="server", spans_enabled=cfg.trace_spans)
+    if get_process_tracer() is None:
+        set_process_tracer(tracer)
+    return tracer
+
+
 class PSServer:
     def __init__(self, cfg: Config, host: str = "127.0.0.1") -> None:
         check_unported_env()
@@ -513,9 +540,11 @@ class PSServer:
         init_tuning_state(self)
         #: the hot report's baseline: key -> request bytes at the last beat
         self._hot_last: Dict[int, int] = {}
+        self._metrics_http = None
+        self.tracer = server_tracer(cfg)
         from byteps_tpu_torch.core.flightrec import ensure_process_recorder
 
-        ensure_process_recorder(context_fn=self._flight_context)
+        ensure_process_recorder(cfg, context_fn=self._flight_context, tracer=self.tracer)
 
     def _flight_context(self) -> dict:
         """The control context stamped into each flight record."""
@@ -529,6 +558,7 @@ class PSServer:
         for i, q in enumerate(self._queues):
             self._spawn(self._engine_loop, (q,), f"ps-engine-{i}")
         self._spawn(self._accept_loop, (), "ps-accept")
+        self._serve_metrics()
         if register:
             try:
                 self._register_with_scheduler()
@@ -551,12 +581,29 @@ class PSServer:
         hists = metrics().snapshot()["histograms"]
         return {name: hists[name] for name in SERVER_HISTOGRAMS if name in hists}
 
-    def stop(self) -> None:
+    def _serve_metrics(self) -> None:
+        """The process registry's Prometheus endpoint (BYTEPS_METRICS_PORT)."""
+        if self.cfg.metrics_port > 0 and self._metrics_http is None:
+            from byteps_tpu_torch.core.telemetry import serve_metrics
+
+            self._metrics_http = serve_metrics(self.cfg.metrics_port)
+
+    def _stop_observing(self) -> None:
+        """Close the endpoint; release the recorder iff this server made it
+        (not a worker's) and the process tracer iff it is this one."""
         from byteps_tpu_torch.core.flightrec import release_process_recorder
 
-        self._stop.set()
-        # the recorder goes iff this server made it (not a worker's)
+        if self._metrics_http is not None:
+            self._metrics_http.close()
+            self._metrics_http = None
         release_process_recorder(self._flight_context)
+        if get_process_tracer() is self.tracer:
+            set_process_tracer(None)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._stop_observing()
+        self.tracer.flush()
         close_socket(self._sock)  # shutdown wakes the accept loop
         unlink_published(self.host)
         with self._conns_lock:
@@ -609,6 +656,8 @@ class PSServer:
             close_socket(self._sched_conn)
         self._sched_conn = conn
         self.rank = book["rank"]
+        # the process's name and trace directory on the merged timeline
+        self.tracer.process_name = self.tracer.local_rank = f"server{self.rank}"
         self._adopt_jobs(book)  # before any round completes against it
         if initial:
             self.num_workers = book["num_workers"]
@@ -724,6 +773,7 @@ class PSServer:
         while not self._stop.is_set():
             next_beat = time.monotonic() + hb if hb > 0 else None
             delta: dict = {}
+            ups = None
             try:
                 while not self._stop.is_set():
                     now = time.monotonic()
@@ -741,6 +791,10 @@ class PSServer:
                             tail = rec.ledger_tail()
                             if tail:
                                 delta["fr"] = tail
+                            # bundles for the scheduler (BYTEPS_FLIGHT_UPLOAD)
+                            ups = rec.take_uploads()
+                            if ups:
+                                delta["fb"] = ups
                         # the C++ engine's wrapper has no key table and
                         # sends no hot report: never a rebalance end
                         hot_fn = getattr(self, "_hot_report", None)
@@ -749,13 +803,15 @@ class PSServer:
                             delta["hot"] = hot
                         send_message(conn, Message(
                             Op.PING, payload=json.dumps(delta).encode() if delta else b""))
-                        delta = {}
+                        delta, ups = {}, None
                         next_beat = now + hb
                     readable, _, _ = select.select([conn], [], [], 0.3)
                     if readable:
                         self._handle_control(conn, recv_message(conn))
             except (ConnectionError, OSError, ValueError):
                 metrics().requeue_delta(delta)  # a beat that did not leave
+                if ups:
+                    get_process_recorder().requeue_uploads(ups)
                 if self._stop.is_set() or self._sched_shutdown:
                     return
                 conn = self._sched_reconnect()
@@ -1448,8 +1504,10 @@ class PSServer:
             if tid is None:
                 tid = self._tid_cache[msg.key] = int(np.argmin(self._tid_load))
             self._tid_load[tid] += len(msg.payload)
-        self._queues[tid].put((msg, conn, send_lock), job=job if self._qos_active else 0,
-                              cost=len(msg.payload))
+        # the wall-clock stamp bounds the "recv" child span: the queue's
+        # wait is part of what the worker sees
+        self._queues[tid].put((msg, conn, send_lock, time.time()),
+                              job=job if self._qos_active else 0, cost=len(msg.payload))
 
     # --- engine plane ----------------------------------------------------
 
@@ -1461,9 +1519,12 @@ class PSServer:
             item = q.get(timeout=0.2)
             if item is None:
                 continue
-            msg, conn, send_lock = item
+            msg, conn, send_lock, t_enq = item
             try:
-                getattr(self, self._HANDLERS[msg.op])(msg, conn, send_lock)
+                if msg.op in (Op.PUSH, Op.PULL, Op.FUSED):
+                    getattr(self, self._HANDLERS[msg.op])(msg, conn, send_lock, t_enq)
+                else:
+                    getattr(self, self._HANDLERS[msg.op])(msg, conn, send_lock)
             except (ConnectionError, OSError):
                 continue
             except Exception as e:  # noqa: BLE001 - the engine thread serves every key pinned to it
@@ -1785,39 +1846,71 @@ class PSServer:
             return ks.store.reshape(total_rows, row_len)[idx].tobytes()
         return ks.wire_payload(wants, async_mode)
 
-    def _observe_push(self, t_start: float, published: float) -> None:
-        # the push's sum, less the publish of the round it closed
-        metrics().observe("server_sum_seconds", max(0.0, time.time() - t_start - published))
+    def _observe_push(self, t_start: float, published: float) -> float:
+        """Observe the push's sum, less the publish of the round it closed,
+        and the publish; the sum's seconds."""
+        sum_s = max(0.0, time.time() - t_start - published)
+        metrics().observe("server_sum_seconds", sum_s)
         if published:
             metrics().observe("server_publish_seconds", published)
+        return sum_s
 
-    def _handle_push(self, msg: Message, conn, send_lock) -> None:
+    def _child_span(self, trace, key: int, name: str, t0: float, dur: float,
+                    **extra) -> None:
+        """A server-side child of a worker's span: the frame's trace id,
+        parented on the frame's span id (``trace`` is that pair; nothing
+        for an untraced frame or with the tracer off)."""
+        if trace is None or not (self.tracer.enabled and self.tracer.spans_enabled):
+            return
+        self.tracer.record_span(f"key{key}", name, t0, dur,
+                                span_args(trace[0], new_trace_id(), parent_id=trace[1],
+                                          **extra))
+
+    def _handle_push(self, msg: Message, conn, send_lock,
+                     t_enq: Optional[float] = None) -> None:
         t_start = time.time()
+        if t_enq is not None:
+            # the wait in the engine queue
+            self._child_span(msg.trace, msg.key, "recv", t_enq, t_start - t_enq)
         ks = self._key_state(msg.key)
         rowsparse = decode_command_type(msg.cmd)[0] == RequestType.ROW_SPARSE_PUSH_PULL
         flush: List = []
         with ks.lock:
             if self._redirect_or_park_locked(msg.key, ks, msg, conn, send_lock):
                 return
+            dedupe = not rowsparse and _summed_already(ks, msg)
             if rowsparse:
                 published = self._sum_rowsparse_locked(ks, msg, flush)
             else:
                 compressed, arr = self._push_args(ks, msg)
                 published = self._apply_push_locked(ks, msg, compressed, arr, flush)
-        self._observe_push(t_start, published)
+        sum_s = self._observe_push(t_start, published)
+        self._child_span(msg.trace, msg.key, "sum", t_start, sum_s, dedupe=dedupe)
+        t_summed = t_start + sum_s
+        if published:
+            self._child_span(msg.trace, msg.key, "publish", t_summed, published)
+            t_summed += published
         self._send_reply(conn, Message(Op.PUSH, key=msg.key, seq=msg.seq,
                                        version=msg.version), send_lock)
+        self._child_span(msg.trace, msg.key, "reply", t_summed, time.time() - t_summed)
         self._flush_pulls(msg.key, flush)
 
-    def _handle_fused(self, msg: Message, conn, send_lock) -> None:
+    def _handle_fused(self, msg: Message, conn, send_lock,
+                      t_enq: Optional[float] = None) -> None:
         """A FUSED frame: every member goes through the push path under its
         key's lock (the same replay ledger, publish and rule), and its pull
         half is answered into the frame's one reply at once when its round
         is out (async: when within the staleness bound), or parked on the
-        key until then."""
+        key until then.  A member's sum and publish spans are children of
+        the member's own span (the frame's trailer), else of the pack's;
+        no reply span: the one reply leaves with the last member's round."""
         members = decode_fused_push(msg.payload)
         if not members:
             raise RuntimeError("empty fused frame")
+        member_spans = decode_fused_spans(msg.payload) if msg.trace else None
+        if t_enq is not None:
+            self._child_span(msg.trace, msg.key, "recv", t_enq, time.time() - t_enq,
+                             keys=len(members))
         reply = _FusedReply(conn, send_lock, msg.seq, msg.key, [m[0] for m in members])
         for slot, (key, cmd, version, payload) in enumerate(members):
             t_start = time.time()
@@ -1840,6 +1933,7 @@ class PSServer:
                             self._park_awaiting(key, msg, conn, send_lock)
                     return
                 compressed, arr = self._push_args(ks, sub)
+                dedupe = _summed_already(ks, sub)
                 published = self._apply_push_locked(ks, sub, compressed, arr, flush)
                 is_async = self._async_ks(ks)
                 if (self._staleness_ready_locked(ks, version) if is_async
@@ -1851,7 +1945,15 @@ class PSServer:
                     ks.fused_waiters.append((version, reply, slot, compressed))
                     if is_async:
                         self.stats.bump("pulls_parked")
-            self._observe_push(t_start, published)
+            sum_s = self._observe_push(t_start, published)
+            if msg.trace is not None:
+                member = (msg.trace[0], member_spans[slot] if member_spans is not None
+                          else msg.trace[1])
+                self._child_span(member, key, "sum", t_start, sum_s, dedupe=dedupe,
+                                 fused=True)
+                if published:
+                    self._child_span(member, key, "publish", t_start + sum_s, published,
+                                     fused=True)
             self._flush_pulls(key, flush)
 
     def _publish_round_locked(self, ks: _KeyState) -> List:
@@ -1923,7 +2025,9 @@ class PSServer:
         version, the newest version of the asking worker's pushes the
         replay ledger holds (``seen``), the round's pushes so far.  A read:
         the worker's replayed pushes take the ordinary PUSH path.  A body
-        that does not decode drops the connection (the engine loop)."""
+        that does not decode drops the connection (the engine loop).  A
+        ``resync`` child span joins the worker's heal."""
+        t0 = time.time()
         wid, keys = decode_resync_query(msg.payload)
         if not keys:
             with self._keys_lock:
@@ -1942,8 +2046,15 @@ class PSServer:
                             "recv_count": ks.recv_count, "init": True}
         send_message(conn, Message(Op.RESYNC_STATE, key=msg.key, seq=msg.seq,
                                    payload=encode_resync_state(out)), send_lock)
+        self._child_span(msg.trace, msg.key, "resync", t0, time.time() - t0, keys=len(out))
 
-    def _handle_pull(self, msg: Message, conn, send_lock) -> None:
+    def _handle_pull(self, msg: Message, conn, send_lock,
+                     t_enq: Optional[float] = None) -> None:
+        """A pull: answered at once when its round is out (async: within
+        the staleness bound), else parked until the publish answers it
+        (the worker's PULL span covers the wait: no server span for it)."""
+        if t_enq is not None:
+            self._child_span(msg.trace, msg.key, "recv", t_enq, time.time() - t_enq)
         rtype, _ = decode_command_type(msg.cmd)
         wants = (bytes(msg.payload) if rtype == RequestType.ROW_SPARSE_PUSH_PULL
                  else rtype == RequestType.COMPRESSED_PUSH_PULL)
@@ -1965,8 +2076,10 @@ class PSServer:
                 return
             payload = self._wire_reply(ks, wants, is_async)
             ver = ks.store_version
+        t_ready = time.time()
         self._send_reply(conn, Message(Op.PULL, key=msg.key, payload=payload,
                                        seq=msg.seq, version=ver), send_lock)
+        self._child_span(msg.trace, msg.key, "reply", t_ready, time.time() - t_ready)
 
 
 def summarize_histograms(recs_by_name: Dict[str, list]) -> Dict[str, dict]:

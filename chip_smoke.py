@@ -102,7 +102,7 @@ Phases, each fatal on failure:
      a step, keys a frame, the stage split with FUSE's dwell, and the step
      beside the unfused one;
  16. the server-side optimizer: DistributedOptimizer(None,
-     server_side=True, server_rule="adam") at 6 layers through two
+     server_side=True, server_rule="adam") at 2 layers through two
      Python servers, every round of six tensors' partitions bitwise a CPU
      replay of update_rules.Adam, falling losses, no optimizer state on
      the worker; the round journal's copy of these raw f32 pushes, steps
@@ -140,7 +140,7 @@ Phases, each fatal on failure:
      and rejoined above its last epoch with no eviction; host 1 killed and
      host 0's next step completed once it was evicted; each stage's ms,
      launches, d2h bytes and time to recover printed;
- 21. online resharding, phase (d) (6 layers, widths kept): a scheduler, two
+ 21. online resharding, phase (d) (2 layers, widths kept): a scheduler, two
      Python servers and a third started on demand, all with
      BYTEPS_ELASTIC_RESHARD=1, one worker: 2 steps at two servers, a
      scale-up to three asked from a second thread once the step's first
@@ -202,7 +202,23 @@ Phases, each fatal on failure:
      model check's rule of f32; (i5) the f32 expert model's cached decode
      on {sp:2, tp:2} and {pp:2, tp:2} equal to one process's; (i6)
      ``byteps_tpu_torch.dryrun.dryrun_multichip(4)`` on the host's ranks;
- 26. one JSON line listing the kernels, then the contract line
+ 26. the observability plane, phase (j) (``train_observability``; 2
+     layers, widths kept): one worker, a Python server and a C++ one, bare
+     onebit, fusion at 131072, BYTEPS_TRACE_ON with the envelopes' window
+     over the timed steps, BYTEPS_METRICS_PORT on the worker and the
+     scheduler, BYTEPS_JOB_SLO_S under the step with BYTEPS_FLIGHT_UPLOAD,
+     3 steps (the last under ``profiler.trace``) and one untraced: (j1) the
+     first loss bitwise the same model's forward without the PS; (j2)
+     tools/trace_merge.py, run as a tool over the worker's and both
+     servers' trace files, counts no orphan, every worker PUSH/PULL span
+     and FUSED_RPC has server children, the C++ server's tagged
+     ``engine: "native"``; (j3) the profiled step's device trace holds
+     K1-K4 4, 2, 2 and 99 times; (j4) both endpoints serve the round trips
+     and the stage dwell, read by tools/bps_top.py --once; (j5) slo_breach
+     fired, its bundle holds its files, tools/bps_doctor.py --json
+     diagnoses it, its upload is in the scheduler's flight directory; (j6)
+     the traced step's wall beside the untraced one's;
+ 27. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
@@ -227,6 +243,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import signal
 import subprocess
 import sys
@@ -241,8 +258,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # main path: BERT-large at seq 512, batch 32
 BATCH, SEQ, STEPS, WARMUP = 32, 512, 5, 1
 N_LAYERS_FULL = 24
-# distributed path: the same model, fewer timed steps (each crosses the servers)
-DIST_STEPS, DIST_WARMUP = 3, 1
+# distributed path: the same model, fewer timed steps (each crosses the
+# servers; 2 since the observability phase (j) joined, 3 before)
+DIST_STEPS, DIST_WARMUP = 2, 1
 # the distributed path on the native lanes (both halves C++), and each half
 # alone (6 and 3 timed steps before the self-healing plane's phases joined;
 # the halves at 1 from 2 since the data plane's phase (f) joined; the whole
@@ -985,10 +1003,12 @@ def train_main_path(card: str) -> dict:
 
 
 def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
-                        server_ports: list = None, sched_args: list = None) -> tuple:
+                        server_ports: list = None, sched_args: list = None,
+                        sched_env: dict = None, per_server_env: list = None) -> tuple:
     """A scheduler and two servers of the port, as `python -m
     byteps_tpu_torch.server` processes (the servers with ``server_env``
-    added; the scheduler with the interpreter arguments ``sched_args``
+    added, server i with ``per_server_env[i]`` too; the scheduler with
+    ``sched_env`` added, and the interpreter arguments ``sched_args``
     instead, when given), each server's stderr in a file of ``log_dir``;
     returns (scheduler port, processes), and the servers' ports in
     ``server_ports`` when given (each server prints its port before it
@@ -1003,7 +1023,7 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
         port = str(probe.getsockname()[1])
     procs = [_track(subprocess.Popen(
         [sys.executable, *(sched_args or ["-m", "byteps_tpu_torch.server"])], cwd=REPO,
-        env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
+        env={**env, **(sched_env or {}), "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
         stdout=subprocess.PIPE, text=True,
     ), "scheduler", node=True)]
     for i in range(2):
@@ -1012,6 +1032,7 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
             procs.append(_track(subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
                 env={"BYTEPS_CONNECT_RETRY_S": "60", **env, **(server_env or {}),
+                     **(per_server_env[i] if per_server_env else {}),
                      "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
                 stdout=subprocess.PIPE, stderr=log, text=True,
             ), f"server {i}", path, node=True))
@@ -1138,8 +1159,10 @@ class _Watchdog:
 
 
 @contextlib.contextmanager
-def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None):
-    """A scheduler and two server processes (with ``server_env``) for one
+def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None,
+              sched_env: dict = None, per_server_env: list = None):
+    """A scheduler (with ``sched_env``) and two server processes (with
+    ``server_env``, and server i with ``per_server_env[i]``) for one
     worker (this process, with ``worker_env``), the worker's environment
     set while the block runs: a new job, so the tensor registry starts
     empty (a declaration merges into an earlier one of the same name, and
@@ -1158,7 +1181,8 @@ def _ps_fleet(label: str, server_env: dict = None, worker_env: dict = None):
     saved = dict(os.environ)
     with tempfile.TemporaryDirectory() as log_dir:
         fleet = types.SimpleNamespace(log_dir=log_dir, report=None, server_ports=[])
-        port, procs = _start_ps_processes(env, log_dir, server_env, fleet.server_ports)
+        port, procs = _start_ps_processes(env, log_dir, server_env, fleet.server_ports,
+                                          sched_env=sched_env, per_server_env=per_server_env)
         try:
             os.environ.update({**env, **(worker_env or {}), "DMLC_PS_ROOT_PORT": port})
             yield fleet
@@ -2715,9 +2739,10 @@ FUSION_STEPS, FUSION_LAYERS = 2, 2
 _FUSION_BASE: dict = {}
 #: the server-side optimizer: Adam on the servers, a seed round and 3 steps
 SERVER_OPT_RULE, SERVER_OPT_HP, SERVER_OPT_STEPS = "adam", {"lr": 1e-4}, 3
-#: its depth: 6 layers since the resharding phase joined (12 before, 24
-#: before the elastic one), to keep the script under 75% of its time limit
-SERVER_OPT_LAYERS = 6
+#: its depth: 2 layers since the observability phase (j) joined (6 since the
+#: resharding phase, 12 before, 24 before the elastic one), to keep the
+#: script under 75% of its time limit
+SERVER_OPT_LAYERS = 2
 #: the tensors whose every pulled partition is held against a CPU replay of
 #: the servers' Adam: the word embedding, layer 0's Q, K and V weights, and
 #: the final LayerNorm
@@ -4086,8 +4111,9 @@ def train_elastic(card: str) -> dict:
 
 
 #: phase (d), online resharding: depth, steps at each of its three stages
-#: (two servers, three, two again), and the server-side Adam's settings
-RESHARD_LAYERS, RESHARD_STAGE_STEPS = 6, 2
+#: (two servers, three, two again), and the server-side Adam's settings (2
+#: layers since the observability phase (j) joined, 6 before)
+RESHARD_LAYERS, RESHARD_STAGE_STEPS = 2, 2
 RESHARD_HP = {"lr": 1e-4}
 
 
@@ -5217,8 +5243,9 @@ def train_data_plane(card: str) -> dict:
 #: phase (g), job namespaces: BERT-large's depth, each host's sequences and
 #: steps; job 1 (the latency job: two hosts, priority 4) and job 2 (the
 #: bulk job: one host, under a quota in the shared run), each host's numpy
-#: seed of its tokens
-TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 2, 16, 4
+#: seed of its tokens (3 steps since the observability phase (j) joined, 4
+#: before)
+TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 2, 16, 3
 TENANCY_JOB1_PRIORITY = 4
 TENANCY_SEEDS = {"job1.h0": 101, "job1.h1": 102, "job2.h0": 202}
 
@@ -6376,6 +6403,286 @@ def _mp_await(label: str, host, path: str, work: str, runs: tuple) -> dict:
     return res
 
 
+#: phase (j), the observability plane: BERT-large at OBS_LAYERS through one
+#: worker, a Python server and a C++ one, OBS_STEPS traced steps (the last
+#: under profiler.trace) and one untraced step; the SLO under any step
+OBS_LAYERS, OBS_STEPS, OBS_SLO_S = 2, 3, 0.05
+#: the hand kernels' launches in one step at OBS_LAYERS (PERF.md §6)
+OBS_LAUNCHES = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2, "onebit_pack": 99}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def _device_launches(prof) -> tuple:
+    """Each hand kernel's launches among a profile's device events, and the
+    events' names with their counts."""
+    from torch.autograd import DeviceType
+
+    out, keys = dict.fromkeys(OBS_LAUNCHES, 0), {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        for name in out:
+            if name in e.key:
+                out[name] += e.count
+                keys[e.key[:60]] = e.count
+    return out, keys
+
+
+def _tool(args: list, timeout: float = 120) -> subprocess.CompletedProcess:
+    """One of the repo's stdlib tools, run as a tool."""
+    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def _span_checks(events: list) -> list:
+    """What is wrong with a merged timeline's spans: a child whose parent
+    or trace is missing, a worker PUSH/PULL span or a FUSED_RPC without
+    server children, a server whose children are not all of one engine, no
+    C++ children tagged ``engine: "native"``."""
+    spans = [e for e in events if e.get("cat") == "span" and e.get("ph") == "X"]
+    owners, packs, kids, bad = {}, {}, {}, []
+    for e in spans:
+        a = e["args"]
+        if "parent" in a:
+            kids.setdefault(a["parent"], []).append(e)
+        else:
+            owners.setdefault(a["span"], set()).add((a["trace"], e["name"]))
+            if e["name"] == "FUSED_RPC":
+                packs[a["trace"]] = a["span"]
+    fused_kids = {}
+    for parent, ks in kids.items():
+        for k in ks:
+            if parent not in owners:
+                bad.append(f"a child without its parent: {k}")
+            elif k["args"].get("fused"):
+                fused_kids.setdefault(k["args"]["trace"], 0)
+                fused_kids[k["args"]["trace"]] += k["args"]["trace"] in packs
+            elif k["args"]["trace"] not in {t for t, _ in owners[parent]}:
+                bad.append(f"a child off its parent's trace: {k}")
+    for span, names in owners.items():
+        if {"PUSH", "PULL"} & {n for _, n in names} and not kids.get(span):
+            bad.append(f"a worker span without server children: {sorted(names)}")
+    missing = [t for t in packs if not fused_kids.get(t)]
+    if not packs or missing:
+        bad.append(f"{len(packs)} FUSED_RPC packs, {len(missing)} without member children")
+    engines = {}
+    for ks in kids.values():
+        for k in ks:
+            engines.setdefault(k["pid"], set()).add(k["args"].get("engine", "python"))
+    if sorted(map(sorted, engines.values())) != [["native"], ["python"]]:
+        bad.append(f"the servers' children by engine: {engines}")
+    return bad
+
+
+def train_observability(card: str) -> dict:
+    """Phase (j): the observability plane on BERT-large's traced distributed
+    step.  One worker (this process), a scheduler, a Python server and a
+    C++ one; bare onebit, fusion at FUSION_THRESHOLD, BYTEPS_TRACE_ON with
+    the envelopes' window over the timed steps, BYTEPS_METRICS_PORT on the
+    worker and the scheduler, BYTEPS_JOB_SLO_S under the step with
+    BYTEPS_FLIGHT_UPLOAD.  OBS_STEPS steps, the last under
+    ``profiler.trace``, and one untraced.  Fails unless (j1) the first loss
+    is bitwise the same model's forward without the PS; (j2)
+    tools/trace_merge.py joins the worker's and both servers' files with no
+    orphan, every worker PUSH/PULL span and FUSED_RPC has server children
+    and the C++ server's are tagged ``engine: "native"``; (j3) the
+    profiler's device trace of its step holds K1-K4 at OBS_LAUNCHES; (j4)
+    both endpoints serve the round trips and the stage dwell, and
+    tools/bps_top.py reads them; (j5) slo_breach fired, its bundle holds
+    its files, tools/bps_doctor.py diagnoses it, and its upload landed in
+    the scheduler's flight directory.  Prints (j6) the traced step's wall
+    beside the untraced one's.  Returns the hand kernels' launches a step."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import profiler
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.models.transformer import build_train_step
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    label = "observability (j)"
+    wall = time.perf_counter()
+    bps.init()
+    _, model, tok, tgt = _bert(OBS_LAYERS)
+    want_first = float(model.loss(tok, tgt).detach())
+    bps.shutdown()
+    del model
+    work = tempfile.mkdtemp(prefix="bps-obs-")
+    trace_dir, prof_dir = os.path.join(work, "trace"), os.path.join(work, "prof")
+    node_flight, sched_flight = os.path.join(work, "flight"), os.path.join(work, "sched-flight")
+    traced = {"BYTEPS_TRACE_ON": "1", "BYTEPS_TRACE_DIR": trace_dir}
+    sched_port = _free_port()
+    worker_env = {**traced, "BYTEPS_TRACE_START_STEP": "2",
+                  "BYTEPS_TRACE_END_STEP": str(OBS_STEPS),
+                  "BYTEPS_FUSION_THRESHOLD": str(FUSION_THRESHOLD),
+                  "BYTEPS_METRICS_PORT": str(_free_port()), "BYTEPS_JOB_SLO_S": str(OBS_SLO_S),
+                  "BYTEPS_FLIGHT_UPLOAD": "1", "BYTEPS_FLIGHT_DIR": node_flight,
+                  "BYTEPS_HEARTBEAT_INTERVAL": "1"}
+    bad = []
+    with _ps_fleet(label, traced, worker_env,
+                   sched_env={"BYTEPS_METRICS_PORT": str(sched_port),
+                              "BYTEPS_FLIGHT_DIR": sched_flight},
+                   per_server_env=[{}, {"BYTEPS_SERVER_NATIVE": "1"}]):
+        bps.init()
+        cfg, model, tok, tgt = _bert(OBS_LAYERS)
+        bps.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression_params={"compressor": "onebit", "scaling": True},
+        )
+        step = build_train_step(model, opt)
+        st = get_state()
+        fa.reset_launches()
+        ob.reset_launches()
+
+        def timed() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(tok, tgt)))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        losses, ms = [], []
+        for i in range(OBS_STEPS):
+            if i == OBS_STEPS - 1:
+                with profiler.trace(prof_dir) as prof:
+                    ms.append(timed())
+                device, device_keys = _device_launches(prof)
+            else:
+                ms.append(timed())
+        launches = {**fa.launches, **ob.launches}
+        st.tracer.enabled = False  # (j6): the same step untraced
+        ms.append(timed())
+        traced_files = glob.glob(os.path.join(prof_dir, "**", "comm*.json"), recursive=True)
+        # (j4) the worker's endpoint and the scheduler's aggregate, once a
+        # heartbeat carried the steps' histograms
+        urls = [f"http://127.0.0.1:{st.metrics_http.port}/metrics",
+                f"http://127.0.0.1:{sched_port}/metrics"]
+        families = ("byteps_rpc_round_trip_seconds_bucket", "byteps_stage_dwell_seconds_bucket")
+        uploaded = []
+        deadline = time.monotonic() + 30
+        while True:
+            texts = [_scrape(u) for u in urls]
+            uploaded = [d for d in (os.listdir(sched_flight) if os.path.isdir(sched_flight)
+                                    else []) if "-worker0-" in d and "slo_breach" in d]
+            if (all(f in t for f in families for t in texts) and uploaded
+                    and "byteps_flight_bundle_rx_total" in texts[1]) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        top = _tool(["tools/bps_top.py", "--once", *urls])
+        fired = counters().labeled_raw().get("flight_trigger", {})
+        bundles = list(st.flightrec.bundles_written)
+        bps.shutdown()
+        del model, opt, step
+    n_fired = fired.get((("rule", "slo_breach"),), 0)
+
+    # (j1)
+    if losses[0] != want_first or not all(math.isfinite(x) for x in losses):
+        bad.append(f"(j1) losses {losses}: the first is not the forward's {want_first!r}")
+    # (j2)
+    merged, attrib = os.path.join(work, "merged.json"), os.path.join(work, "attrib.json")
+    # a copy of the tool outside the repo, run isolated: its optional
+    # hot-stripe check imports the JAX package's flight recorder when it
+    # can, and from there it finds none
+    merge_tool = shutil.copy(os.path.join(REPO, "tools", "trace_merge.py"), work)
+    if subprocess.run([sys.executable, "-I", "-c", "import byteps_tpu.core.flightrec"],
+                      cwd=work, capture_output=True, timeout=60).returncode == 0:
+        bad.append("(j2) the JAX package imports outside the repo: trace_merge would run it")
+    res = subprocess.run([sys.executable, "-I", merge_tool, "-o", merged, "--critical-path",
+                          attrib, trace_dir, prof_dir], cwd=work, capture_output=True,
+                         text=True, timeout=120)
+    if res.returncode != 0:
+        bad.append(f"(j2) trace_merge exited {res.returncode}: {res.stderr[-2000:]}")
+        meta, span_bad, engines = {}, [], {}
+    else:
+        with open(merged) as f:
+            doc = json.load(f)
+        meta = doc["otherData"]
+        span_bad = _span_checks(doc["traceEvents"])
+        with open(attrib) as f:
+            by_engine = json.load(f)["engines"]
+        engines = {k: v["rpcs"] for k, v in by_engine.items()}
+        hot = {k: v["hot_stripe"] for k, v in by_engine.items() if "hot_stripe" in v}
+        if hot:
+            bad.append(f"(j2) trace_merge ran a hot-stripe rule it cannot import here: {hot}")
+        if meta["orphaned_spans"] or not meta["linked_spans"]:
+            bad.append(f"(j2) {meta['orphaned_spans']} orphaned spans, "
+                       f"{meta['linked_spans']} linked")
+        bad += [f"(j2) {b}" for b in span_bad[:5]]
+        if sorted(engines) != ["native", "python"]:
+            bad.append(f"(j2) the critical path's engines {engines}")
+    if not traced_files:
+        bad.append(f"(j2) profiler.trace left no host trace under {prof_dir}")
+    # (j3)
+    if device != OBS_LAUNCHES:
+        bad.append(f"(j3) the profiled step's device trace holds {device}, expected "
+                   f"{OBS_LAUNCHES}: {device_keys}")
+    if launches != {k: v * OBS_STEPS for k, v in OBS_LAUNCHES.items()}:
+        bad.append(f"(j3) the wrappers counted {launches} in {OBS_STEPS} steps")
+    # (j4)
+    missing = [f"{u}: {f}" for u, t in zip(urls, texts) for f in families if f not in t]
+    if missing:
+        bad.append(f"(j4) families missing: {missing}")
+    if top.returncode != 0 or "unreachable" in top.stdout:
+        bad.append(f"(j4) bps_top exited {top.returncode}: {top.stdout[-1500:]}"
+                   f"{top.stderr[-1500:]}")
+    # (j5)
+    slo = [b for b in bundles if b.rsplit("-", 2)[-2] == "slo_breach"]
+    want_files = {"trigger.json", "ledger.jsonl", "metrics.json", "config.json",
+                  "trace_window.json"}
+    if not n_fired or not slo:
+        bad.append(f"(j5) slo_breach fired {n_fired} times, bundles {bundles}")
+    else:
+        got = set(os.listdir(slo[0]))
+        if got != want_files:
+            bad.append(f"(j5) the bundle holds {sorted(got)}")
+        doctor = _tool(["tools/bps_doctor.py", "--json", slo[0]])
+        rules = ([f["rule"] for f in json.loads(doctor.stdout)] if doctor.returncode == 0
+                 else None)
+        if not rules or "slo_breach" not in rules:
+            bad.append(f"(j5) bps_doctor exited {doctor.returncode} with {rules}: "
+                       f"{doctor.stderr[-1500:]}")
+    if not uploaded:
+        bad.append(f"(j5) no slo_breach upload from worker0 in the scheduler's "
+                   f"{sched_flight}: {os.listdir(sched_flight) if os.path.isdir(sched_flight) else None}")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    print(f"{label}: BERT-large at {OBS_LAYERS} layers, seq {SEQ} bf16 remat flash, batch "
+          f"{BATCH}, 1 worker + a Python and a C++ server, bare onebit, fusion at "
+          f"{FUSION_THRESHOLD}: losses {[round(x, 4) for x in losses]}, the first bitwise the "
+          f"forward's without the PS ({want_first!r})", flush=True)
+    print(f"{label}: trace_merge: {meta['linked_spans']} linked spans, "
+          f"{meta['cross_process_children']} cross-process children, 0 orphans; the critical "
+          f"path's rpcs by engine {engines}; K1-K4 in the profiled step's device trace "
+          f"{device}", flush=True)
+    print(f"{label}: endpoints {urls} and bps_top --once read; slo_breach fired {n_fired} "
+          f"times (SLO {OBS_SLO_S} s), bundle {os.path.basename(slo[0])} diagnosed "
+          f"{rules}, uploaded as {uploaded[0]}", flush=True)
+    print(f"{label}: step wall ms, traced: {[round(x, 1) for x in ms[:OBS_STEPS]]} (the first "
+          f"with the init barriers, the last under the profiler), untraced: {ms[OBS_STEPS]:.1f};"
+          f" on {card}; phase wall {time.perf_counter() - wall:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: v // OBS_STEPS for k, v in launches.items()}
+
+
+def _scrape(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as r:
+        return r.read().decode()
+
+
 def check_int8_ring_ops() -> None:
     """The int8 ring's quantize and dequantize (plain torch ops, as the
     reference leaves them to XLA) on one full partition on the card: bitwise
@@ -6571,6 +6878,8 @@ def main() -> None:
     mark("tenancy (g)")
     model_parallel = train_model_parallel(card, after_h=lambda: mark("model parallel (h)"))
     mark("moe and generation (i)")
+    planes["observability"] = train_observability(card)
+    mark("observability (j)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)

@@ -225,8 +225,17 @@ def test_the_recorder_belongs_to_the_role_that_made_it():
 
 
 def test_the_bundle_upload_raises_naming_its_item(monkeypatch):
+    """The bundle upload and the slo trigger are ported and no longer
+    raise; the link-shaping knobs, the one plane left unported, raise in
+    their place, naming the item that brings them."""
     from byteps_tpu_torch.common.config import check_unported_env
 
     monkeypatch.setenv("BYTEPS_FLIGHT_UPLOAD", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    monkeypatch.setenv("BYTEPS_JOB_SLO_S", "0.5")
+    check_unported_env()
+    for knob in ("BYTEPS_VAN_DELAY_MS", "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS"):
+        monkeypatch.setenv(knob, "5")
+        with pytest.raises(NotImplementedError, match=f"{knob}=5.*Queue 1 item 10.4"):
+            check_unported_env()
+        monkeypatch.setenv(knob, "0")
         check_unported_env()

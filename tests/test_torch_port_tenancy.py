@@ -88,18 +88,24 @@ def test_the_job_knobs_read_as_the_reference_reads_them(monkeypatch, env):
 @pytest.mark.parametrize("value, raises", [("0", False), ("", False), ("0.0", False),
                                            ("0.25", True), ("3", True)])
 def test_a_job_slo_raises_naming_item_10(monkeypatch, value, raises):
-    """The reference's ``slo_breach`` is one of the flight recorder's
-    trigger rules, which come with ROADMAP.md item 10: the port refuses
-    the knob (at init() and at a server's construction) rather than
-    accept it and fire nothing."""
+    """The knob that raised naming ROADMAP.md item 10 until the flight
+    recorder's ``slo_breach`` rule was ported (``raises``: the values that
+    select the rule) is now read as the reference reads it: by a worker's
+    config and by a server's recorder, the rule armed exactly for those
+    values (tests/test_torch_port_flight_rules.py fires it)."""
+    from byteps_tpu_torch.core import flightrec
+
     monkeypatch.setenv("BYTEPS_JOB_SLO_S", value)
-    if not raises:
-        port_config.check_unported_env()
-        return
-    with pytest.raises(NotImplementedError, match=r"slo_breach.*ROADMAP.md Queue 1 item 10"):
-        port_config.check_unported_env()
-    with pytest.raises(NotImplementedError, match="BYTEPS_JOB_SLO_S"):
-        pserver.PSServer(PortConfig(num_worker=1, num_server=1))
+    port_config.check_unported_env()
+    assert PortConfig.from_env().job_slo_s == RefConfig.from_env().job_slo_s
+    flightrec.set_process_recorder(None)
+    srv = pserver.PSServer(PortConfig(num_worker=1, num_server=1))
+    try:
+        assert (flightrec.get_process_recorder().slo_s > 0) == raises
+        assert flightrec.get_process_recorder().slo_s == float(value or 0)
+    finally:
+        srv.stop()
+        flightrec.set_process_recorder(None)
 
 
 def test_a_task_takes_its_job_from_its_key():

@@ -287,10 +287,11 @@ def test_trap_bf16_casts_follow_the_jax_code():
 
 
 def test_unported_features_raise():
-    """Only the flight recorder's upload and slo trigger stay unported:
-    mixture-of-experts layers, both generation builders and their specs
-    now build and run (tests/test_torch_port_moe.py, _generate.py)."""
-    assert set(port_config.UNPORTED) == {"flight_upload", "slo_trigger"}
+    """Only the van's link shaping stays unported: the flight recorder's
+    upload and slo trigger are ported (tests/test_torch_port_flight_rules.py),
+    and mixture-of-experts layers, both generation builders and their specs
+    build and run (tests/test_torch_port_moe.py, _generate.py)."""
+    assert set(port_config.UNPORTED) == {"link_shaping"}
     for plane in port_config.UNPORTED:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             raise port_config.unported(plane, plane)

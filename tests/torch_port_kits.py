@@ -276,6 +276,12 @@ class RawNode:
         self.k.tr.close_socket(self.sock)
 
 
+class _Nodes(list):
+    """A fleet's servers, with its scheduler as ``sched``."""
+
+    sched = None
+
+
 @contextlib.contextmanager
 def fleet(monkeypatch, server: str, workers: int = 1, servers: int = 2, **extra):
     """A scheduler and ``servers`` servers in-process, yielded as the server
@@ -283,7 +289,8 @@ def fleet(monkeypatch, server: str, workers: int = 1, servers: int = 2, **extra)
     scheduler is of the servers' package).  Every socket file goes under a
     fresh short directory (``BYTEPS_SOCKET_PATH``: an AF_UNIX path has at
     most 107 bytes); when the fleet stops, :func:`assert_no_leftovers`
-    holds it to leaving neither a socket file nor a ring behind."""
+    holds it to leaving neither a socket file nor a ring behind.  The list
+    carries the scheduler as ``sched``."""
     pkg, native = server.split("-")[0], server.endswith("-native")
     k = kit(pkg)
     sock_dir = tempfile.mkdtemp(dir="/tmp", prefix="bps")
@@ -291,7 +298,8 @@ def fleet(monkeypatch, server: str, workers: int = 1, servers: int = 2, **extra)
     sched = k.Scheduler(num_workers=workers, num_servers=servers, host="127.0.0.1")
     sched.start()
     env(monkeypatch, sched, workers, servers, **extra)
-    nodes = []
+    nodes = _Nodes()
+    nodes.sched = sched
     try:
         for _ in range(servers):
             if native and pkg == "port":
