@@ -132,6 +132,7 @@ from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX
 from byteps_tpu_torch.compression.lossless import LosslessError, decompress_frame
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, GROUP_WORKERS, RESIZE_SEQ
 from byteps_tpu_torch.comm.retry import Backoff
+from byteps_tpu_torch.comm.shaping import maybe_shape, shaping_enabled, warn_native_bypass_once
 from byteps_tpu_torch.comm.transport import (
     PROFILE_ASYNC,
     PROFILE_SERVER_OPT,
@@ -170,7 +171,9 @@ class _ServerConn:
     """One server: its socket, send lock and the pending requests."""
 
     def __init__(self, host: str, port: int, label: str, dial_timeout: float = 30.0) -> None:
-        self.sock = connect(host, port, timeout=dial_timeout)
+        # data-plane link: shaped when BYTEPS_VAN_DELAY_MS /
+        # BYTEPS_VAN_RATE_MBYTES_S emulate a DCN link (comm/shaping.py)
+        self.sock = maybe_shape(connect(host, port, timeout=dial_timeout))
         self.send_lock = threading.Lock()
         self.label = label
         self.cb_lock = threading.Lock()
@@ -1088,7 +1091,13 @@ class PSClient:
     # --- connections -----------------------------------------------------
 
     def _new_conn(self, host: str, port: int, label: str, dial_timeout: float = 30.0):
-        if self.cfg.native_client:
+        shaped = shaping_enabled()
+        if shaped and self.cfg.native_client:
+            # the C++ lanes (the only striped ones) would skip the shaper and
+            # report an unshaped link as shaped: the reference takes the
+            # Python lanes, one connection a server, warned
+            warn_native_bypass_once("ignoring BYTEPS_NATIVE_CLIENT=1")
+        if self.cfg.native_client and not shaped:
             if host.startswith(CHAOS_PREFIX):
                 raise RuntimeError(
                     f"BYTEPS_NATIVE_CLIENT=1 cannot dial the chaos address {host!r}: the "

@@ -61,6 +61,9 @@ class Config:
     #: how the host's group moves CUDA tensors: "" = NCCL, "staged" = gloo
     #: through pinned host buffers, which lets several ranks share one card
     mesh_transport: str = ""  # BYTEPS_MESH_TRANSPORT
+    #: the host's group laid out over named axes, the reference's spelling
+    #: ("dp:4,tp:2"); empty = dp over the whole group
+    mesh_shape: str = ""  # BYTEPS_TPU_MESH
     global_rank: Optional[int] = None  # BYTEPS_GLOBAL_RANK
     force_distributed: bool = False  # BYTEPS_FORCE_DISTRIBUTED
     job_id: int = 0  # BYTEPS_JOB_ID: key namespace of declared tensors
@@ -228,6 +231,7 @@ class Config:
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
             mesh_transport=os.environ.get("BYTEPS_MESH_TRANSPORT", ""),
+            mesh_shape=os.environ.get("BYTEPS_TPU_MESH", ""),
             global_rank=(
                 int(os.environ["BYTEPS_GLOBAL_RANK"])
                 if os.environ.get("BYTEPS_GLOBAL_RANK")
@@ -324,11 +328,10 @@ def clear_config() -> None:
 
 #: planes of byteps_tpu this port does not carry yet, each with the
 #: ROADMAP.md item that brings it.  Selecting one raises rather than run a
-#: different job than the one asked for.
-UNPORTED = {
-    "link_shaping": "the van's link shaping (BYTEPS_VAN_DELAY_MS, BYTEPS_VAN_RATE_MBYTES_S, "
-                    "BYTEPS_VAN_RATE_MBPS; comm/shaping.py): ROADMAP.md Queue 1 item 10.4",
-}
+#: different job than the one asked for.  Every plane is ported: the map
+#: and the knobs below are empty, and the functions stay for the code that
+#: cites them.
+UNPORTED: dict = {}
 
 
 def unported(plane: str, what: str) -> NotImplementedError:
@@ -336,17 +339,9 @@ def unported(plane: str, what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: not ported yet, {UNPORTED[plane]}")
 
 
-def _positive(v: str) -> bool:
-    return float(v) > 0
-
-
 #: environment knobs that select an unported plane: (variable, plane, is
 #: it selected by this value)
-_UNPORTED_KNOBS = (
-    ("BYTEPS_VAN_DELAY_MS", "link_shaping", _positive),
-    ("BYTEPS_VAN_RATE_MBYTES_S", "link_shaping", _positive),
-    ("BYTEPS_VAN_RATE_MBPS", "link_shaping", _positive),
-)
+_UNPORTED_KNOBS: tuple = ()
 
 
 def check_unported_env() -> None:

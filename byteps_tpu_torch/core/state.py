@@ -115,8 +115,14 @@ def init_state(device: Union[str, torch.device, None] = None) -> RuntimeState:
             if local_group and st.mesh is None:  # a suspend keeps the host's group
                 from byteps_tpu_torch.comm.mesh import build_mesh, set_global_mesh
 
-                st.mesh = build_mesh(device=st.device)
+                st.mesh = build_mesh(spec=cfg.mesh_shape, device=st.device)
                 set_global_mesh(st.mesh)
+            elif not local_group and cfg.mesh_shape:
+                # one process is the whole host: a spec must fit one rank, as
+                # the reference's build_mesh holds it to its devices
+                from byteps_tpu_torch.comm.mesh import _axes_of
+
+                _axes_of(cfg.mesh_shape, 1)
             if cfg.is_distributed and (st.mesh is None or st.mesh.rank == 0):
                 from byteps_tpu_torch.comm.ps_client import PSClient
                 from byteps_tpu_torch.core.engine import PipelineEngine

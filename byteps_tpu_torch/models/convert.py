@@ -131,3 +131,64 @@ def params_to_jax(
             stacked = collectives.all_gather_axis(mine.contiguous(), "pp", 0, mesh)
         out[name] = host(stacked).reshape((pp_size, lps) + shape)
     return out
+
+
+# --- the conv models (models/resnet.py, models/vgg.py) -----------------------
+#
+# flax's tree {"params": {...}, "batch_stats": {...}} and the port's state
+# dict share their names (models.resnet): a path joined by "." is the
+# module, and the leaves map kernel → weight (HWIO → OIHW, a Dense's
+# (in, out) → (out, in)), bias, scale, and the running mean and var.
+
+
+def _flat(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple:
+    mod, _, leaf = name.rpartition(".")
+    if leaf != "kernel":
+        return name, arr
+    if arr.ndim == 4:
+        return f"{mod}.weight", arr.transpose(3, 2, 0, 1)
+    return f"{mod}.weight", arr.T
+
+
+def conv_params_from_jax(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax conv model's variables (``params`` and ``batch_stats``) as
+    ``model``'s state dict (CPU float32 tensors).  A name missing on either
+    side raises."""
+    flat = {**_flat(variables["params"]), **_flat(variables.get("batch_stats", {}))}
+    sd = {}
+    for name, arr in flat.items():
+        key, arr = _to_torch_leaf(name, arr)
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    _check_names(sd, model.state_dict())
+    return sd
+
+
+def conv_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                       model: torch.nn.Module) -> Dict[str, Dict]:
+    """The inverse of :func:`conv_params_from_jax`: ``{"params": ...,
+    "batch_stats": ...}`` as nested dicts of float32 numpy arrays."""
+    _check_names(state_dict, model.state_dict())
+    stats = {n for n, _ in model.named_buffers()}
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()
+        mod, _, leaf = key.rpartition(".")
+        if leaf == "weight":
+            leaf, arr = "kernel", (arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T.copy())
+        node = out["batch_stats" if key in stats else "params"]
+        for part in mod.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

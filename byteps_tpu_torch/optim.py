@@ -30,7 +30,9 @@ parameters the servers computed into ``p``.
 The step builders of ``byteps_tpu.optim`` run over the host's process
 group (``comm.mesh``, NCCL on the card), each process on its own part of
 the batch: :func:`allreduce_gradients`, :func:`build_data_parallel_step`
-(with ``accumulate_steps`` and the int8 ring, ``grad_quant_bits=8``) and
+(with ``accumulate_steps`` and the int8 ring, ``grad_quant_bits=8``),
+:func:`build_batchnorm_data_parallel_step` (``build_flax_data_parallel_step``:
+the batch statistics averaged beside the gradients) and
 :func:`build_zero1_step`.  The reference's ``donate`` (buffer donation to
 XLA) has no meaning for eager torch and is dropped.
 """
@@ -305,6 +307,48 @@ def build_data_parallel_step(
                 return _mean_loss(loss, mesh)
             grads, acc, mini = acc, [], 0
         for p, g in zip(params, reduce(grads)):
+            p.grad = g
+        optimizer.step()
+        return _mean_loss(loss, mesh)
+
+    return step
+
+
+def build_batchnorm_data_parallel_step(
+    loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor],
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh: Optional[Mesh] = None,
+) -> Callable[[Any], torch.Tensor]:
+    """DistributedDataParallel for models with batch statistics (conv nets
+    with BatchNorm): the counterpart of
+    ``byteps_tpu.optim.build_flax_data_parallel_step``.
+
+    Returns ``step(batch) -> loss``.  Each process runs ``loss_fn(model,
+    batch)`` in train mode on its part of the batch, so each normalizes
+    with its own batch's statistics and updates its running ones.  Then
+    the gradients and the updated running statistics (floating buffers
+    only, as the reference's ``_pmean_float_leaves``) are averaged over the
+    host's group, ``optimizer`` steps, and the loss comes back averaged."""
+    mesh = mesh or require_mesh()
+    params = [p for p in model.parameters() if p.requires_grad]
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+
+    def step(batch: Any) -> torch.Tensor:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        if mesh.size == 1:  # the mean over one process is its own value
+            optimizer.step()
+            return loss.detach()
+        grads = collectives.push_pull_tree(_grads(params), average=True, mesh=mesh)
+        if stats:
+            with torch.no_grad():
+                for b, mean in zip(stats, collectives.push_pull_tree(stats, average=True,
+                                                                     mesh=mesh)):
+                    b.copy_(mean)
+        for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         return _mean_loss(loss, mesh)

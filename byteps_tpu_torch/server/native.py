@@ -69,6 +69,7 @@ from typing import Dict, List, Optional
 
 from byteps_tpu_torch.common.config import Config, check_unported_env, resolve_node_uid
 from byteps_tpu_torch.comm.chaos import CHAOS_PREFIX
+from byteps_tpu_torch.comm.shaping import shaping_enabled, warn_native_bypass_once
 from byteps_tpu_torch.comm.transport import close_socket
 from byteps_tpu_torch.comm.van import SHM_PREFIX, UNIX_PREFIX, check_shm_arch, new_socket_path
 from byteps_tpu_torch.core.telemetry import metrics
@@ -89,6 +90,10 @@ class NativePSServer:
         from byteps_tpu_torch.native import get_lib, native_server_histograms
 
         check_unported_env()
+        if shaping_enabled():
+            # built directly under the shaping knobs: the engine's replies
+            # bypass the shaper, and the link is shaped one way only
+            warn_native_bypass_once("NativePSServer responses bypass the shaper (half-shaped link)")
         self._lib = get_lib()
         self.cfg = cfg
         # under BYTEPS_VAN=chaos:<van> the engine's listener stays plain

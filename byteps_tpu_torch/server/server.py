@@ -128,6 +128,7 @@ from byteps_tpu_torch.common.types import (
     to_datatype,
 )
 from byteps_tpu_torch.comm.rendezvous import GROUP_ALL, RESIZE_SEQ, Scheduler
+from byteps_tpu_torch.comm.shaping import maybe_shape, shaping_enabled, warn_native_bypass_once
 from byteps_tpu_torch.comm.transport import (
     PROFILE_ASYNC,
     PROFILE_SERVER_OPT,
@@ -1389,6 +1390,7 @@ class PSServer:
                 return
             if conn.family == socket.AF_INET:
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            conn = maybe_shape(conn)  # the reply direction of a shaped link
             with self._conns_lock:
                 self._conns.append(conn)
             self._spawn(self._serve_conn, (conn,), "ps-serve")
@@ -2200,7 +2202,12 @@ def run_server() -> None:
         # launcher reads it here
         print(f"BYTEPS_SCHEDULER_PORT={node.port}", flush=True)
     elif cfg.role == "server":
-        if cfg.server_native:
+        if cfg.server_native and shaping_enabled():
+            # the C++ engine's replies would bypass the shaper: a link shaped
+            # one way only; the reference runs the Python engine, warned
+            warn_native_bypass_once("ignoring BYTEPS_SERVER_NATIVE=1, using the Python engine")
+            node = PSServer(cfg, host=cfg.node_host or "127.0.0.1")
+        elif cfg.server_native:
             from byteps_tpu_torch.server.native import NativePSServer
 
             node = NativePSServer(cfg, host=cfg.node_host or "127.0.0.1")

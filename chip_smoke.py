@@ -218,15 +218,38 @@ Phases, each fatal on failure:
      fired, its bundle holds its files, tools/bps_doctor.py --json
      diagnoses it, its upload is in the scheduler's flight directory; (j6)
      the traced step's wall beside the untraced one's;
- 27. one JSON line listing the kernels, then the contract line
+ 27. the training kit and the conv models, phase (k) (``train_kit``):
+     (k1) ResNetTiny f32, one batch-statistics step on the card within
+     1e-4 of the CPU's; ResNet-50 at 224x224, 1000 classes, bf16, batch 64,
+     3 SGD-momentum steps through ``build_batchnorm_data_parallel_step``,
+     losses finite and falling, ms a step, samples/s and peak memory;
+     ResNet-18 on two ranks of the card (staged), one step: the running
+     statistics bitwise equal on both ranks and the mean of their own;
+     (k2) BERT-large at 24 layers, flash, batch 32, bf16 parameters under
+     master_weights(AdamW) and dynamic_loss_scale, the batches through
+     ShardedDataset and prefetch_to_device, 4 steps, one forced to
+     overflow (parameters, masters and AdamW's state bitwise unchanged,
+     the scale halved), K1-K3 48/24/24 a step; (k3) VGG-16 at 224x224,
+     bf16, two launcher hosts of 32 images, two Python servers, bare
+     onebit: host 0's checkpoint and shard, host 1 from zeros through
+     restore_and_broadcast (digests equal, read_shard host 0's bytes),
+     BroadcastGlobalVariables, LearningRateWarmup and MetricAverage over
+     disjoint shards, 2 steps on plain links, then the link shaped
+     (BYTEPS_VAN_RATE_MBYTES_S, BYTEPS_VAN_DELAY_MS; the servers on a cue,
+     the hosts through suspend and resume) for 3: the hosts bitwise equal
+     after each step, the metric equal, K4 launched a step once a
+     partition of at least 64 KiB, the shaped step at least its bytes to
+     a server over the rate;
+ 28. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
 `--async-host <dir>` phase 17's, `--heal-host <dir>` phase 19's,
 `--elastic-host <dir>` phase 20's, `--control-host <dir>` phase 22's,
-`--rowsparse-host <dir>` phase 23's, `--tenant-host <dir>` phase (g)'s and
-`--mp-host <dir>` phase 24's ranks, which the launcher runs; they are not
-run by hand.
+`--rowsparse-host <dir>` phase 23's, `--tenant-host <dir>` phase (g)'s,
+`--mp-host <dir>` phase 24's, `--conv-host <dir>` phase (k1)'s and
+`--vgg-host <dir>` phase (k3)'s ranks, which the launcher runs; they are
+not run by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -265,8 +288,9 @@ DIST_STEPS, DIST_WARMUP = 2, 1
 # alone (6 and 3 timed steps before the self-healing plane's phases joined;
 # the halves at 1 from 2 since the data plane's phase (f) joined; the whole
 # at 2 from 3, the halves at NATIVE_HALF_LAYERS from 24, since the model
-# parallelism's expert and generation phase (i) joined)
-NATIVE_STEPS, NATIVE_HALF_STEPS, NATIVE_HALF_LAYERS = 2, 1, 2
+# parallelism's expert and generation phase (i) joined; the whole at 1 from
+# 2 since the training kit's phase (k) joined)
+NATIVE_STEPS, NATIVE_HALF_STEPS, NATIVE_HALF_LAYERS = 1, 1, 2
 #: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
 #: and the bytes one worker moves a step, from the distributed path's table
 DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
@@ -949,6 +973,10 @@ def profile_step(step, tok, tgt, step_ms: float) -> tuple:
     return loss, total_ms
 
 
+#: what later phases compare with the main path: its ms a step
+MAIN_PATH: dict = {}
+
+
 def train_main_path(card: str) -> dict:
     import torch
 
@@ -993,6 +1021,7 @@ def train_main_path(card: str) -> dict:
     if counts != want:
         fail(f"kernel launches on the main path {counts}, expected {want}")
     sps = BATCH * STEPS / dt
+    MAIN_PATH["step_ms"] = dt / STEPS * 1e3
     print(f"main path: BERT-large seq {SEQ} bf16 remat flash, batch {BATCH}: "
           f"losses {[round(x, 4) for x in losses]}", flush=True)
     print(f"main path: {sps:.2f} samples/s ({dt / STEPS * 1e3:.1f} ms/step over {STEPS} "
@@ -1004,10 +1033,12 @@ def train_main_path(card: str) -> dict:
 
 def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
                         server_ports: list = None, sched_args: list = None,
-                        sched_env: dict = None, per_server_env: list = None) -> tuple:
+                        sched_env: dict = None, per_server_env: list = None,
+                        server_args: list = None) -> tuple:
     """A scheduler and two servers of the port, as `python -m
     byteps_tpu_torch.server` processes (the servers with ``server_env``
-    added, server i with ``per_server_env[i]`` too; the scheduler with
+    added, server i with ``per_server_env[i]`` too, and the interpreter
+    arguments ``server_args`` instead, when given; the scheduler with
     ``sched_env`` added, and the interpreter arguments ``sched_args``
     instead, when given), each server's stderr in a file of ``log_dir``;
     returns (scheduler port, processes), and the servers' ports in
@@ -1030,7 +1061,7 @@ def _start_ps_processes(env: dict, log_dir: str, server_env: dict = None,
         path = os.path.join(log_dir, f"server{i}.log")
         with open(path, "w") as log:
             procs.append(_track(subprocess.Popen(
-                [sys.executable, "-m", "byteps_tpu_torch.server"], cwd=REPO,
+                [sys.executable, *(server_args or ["-m", "byteps_tpu_torch.server"])], cwd=REPO,
                 env={"BYTEPS_CONNECT_RETRY_S": "60", **env, **(server_env or {}),
                      **(per_server_env[i] if per_server_env else {}),
                      "DMLC_ROLE": "server", "DMLC_PS_ROOT_PORT": port},
@@ -2762,11 +2793,13 @@ ASYNC_LAYERS = 2
 #: gradients, and an AdamW update is at most ~lr an element (|m^ / sqrt(v^)|
 #: <= 1 at step 1), so the two trajectories part by at most ~2 lr a step
 ASYNC_ATOL = 2 * ASYNC_LR * ASYNC_STEPS
-#: the per-key profile on two launcher hosts: bounded staleness 1, 4 steps
-ASYNC_HOST_STEPS, ASYNC_BOUND = 4, 1
+#: the per-key profile on two launcher hosts: bounded staleness 1, 3 steps (4,
+#: with a second lag at step 3, before the kit's phase (k) joined: one lag
+#: parks pulls enough, 222 with two in PR 22 call 2)
+ASYNC_HOST_STEPS, ASYNC_BOUND = 3, 1
 #: host 1 sleeps ASYNC_LAG_S before its pushes of these training steps, so
 #: host 0 runs rounds ahead of it and its next pulls must park
-ASYNC_LAG_STEPS, ASYNC_LAG_S = (1, 3), 4.0
+ASYNC_LAG_STEPS, ASYNC_LAG_S = (1,), 4.0
 
 
 def _state_bytes(opt) -> int:
@@ -3632,7 +3665,7 @@ def _await_mark(work: str, name: str, timeout: float = 300.0) -> dict:
     deadline = time.monotonic() + timeout
     while not os.path.exists(path):
         if time.monotonic() > deadline:
-            fail(f"elastic: no cue {name!r} in {timeout:.0f} s")
+            fail(f"no cue {name!r} in {timeout:.0f} s")
         time.sleep(0.02)
     with open(path) as f:
         return json.load(f)
@@ -5248,6 +5281,12 @@ def train_data_plane(card: str) -> dict:
 TENANCY_LAYERS, TENANCY_BATCH, TENANCY_STEPS = 2, 16, 3
 TENANCY_JOB1_PRIORITY = 4
 TENANCY_SEEDS = {"job1.h0": 101, "job1.h1": 102, "job2.h0": 202}
+#: job 2's quota in the shared run, a share of its solo push rate: a quarter
+#: (a half until PR 22). Beside job 1 alone job 2 pushes at about half its
+#: solo rate (770.0 against 415.9 ms a step in PR 22 call 3), so a quota of a
+#: half hardly bound and the meter's 0.25 s burst let one server defer
+#: nothing; under a quarter every server's meter binds whatever the contention
+TENANCY_QUOTA_SHARE = 0.25
 
 
 def _merged_round_trips(hist_states: dict) -> dict:
@@ -5462,8 +5501,8 @@ def train_tenancy(card: str) -> dict:
     (g1) each job alone, as job 0, on a fleet of its own: job 2 (one
     host), then job 1 (two hosts).  (g2) both on one fleet of three
     workers: job 1 as BYTEPS_JOB_ID=1 with priority 4, job 2 as
-    BYTEPS_JOB_ID=2 under a quota of half its solo push rate (its solo
-    wire bytes a step over its solo seconds a step, over 2).  Fails unless
+    BYTEPS_JOB_ID=2 under a quota of TENANCY_QUOTA_SHARE of its solo push
+    rate (its solo wire bytes a step over its solo seconds a step).  Fails unless
     each job's losses and parameters in (g2) are bitwise its (g1) run's;
     a worker's book maps job 1 to two ranks at priority 4 and job 2 to one
     with its quota, halved over the two servers; both servers deferred
@@ -5499,7 +5538,7 @@ def train_tenancy(card: str) -> dict:
             walls["solo1"] = solo.pop("wall")
             s2 = solo["job2.h0"]["steps"][1:]
             rate = sum(s["tx"] for s in s2) / (sum(s["ms"] for s in s2) / 1e3)
-            quota = rate / 2 / 1e6
+            quota = rate * TENANCY_QUOTA_SHARE / 1e6
             shared = _tenant_go(label, started[2],
                                 {"job2.h0": {"BYTEPS_JOB_QUOTA_MBPS": repr(quota)}})
             walls["shared"] = shared.pop("wall")
@@ -6803,6 +6842,561 @@ def check_step_builders(card: str) -> None:
           f"{moved:.3e}); phase wall {time.perf_counter() - wall:.1f} s, on {card}", flush=True)
 
 
+# --- phase (k): the training kit and the conv models ------------------------
+
+#: (k1) ResNet-50 at published widths (bench.py:168-198, the smaller of its
+#: two batches), 3 SGD-momentum steps (optax.sgd(0.1, momentum=0.9), the
+#: reference's conv bench) through the batch-statistics step; the card against
+#: the CPU for ResNetTiny in f32 (one step: logits, loss, parameters and
+#: running statistics within atol + rtol); the two-rank run of ResNet-18
+CONV_BATCH, CONV_IMAGE, CONV_STEPS, CONV_LR = 64, 224, 3, 0.1
+CONV_TINY_BATCH, CONV_TINY_IMAGE, CONV_TINY_ATOL, CONV_TINY_RTOL = 8, 32, 1e-4, 1e-4
+CONV_RANKS, CONV_RANK_BATCH = 2, 8
+#: the two ranks share the card over the staged transport, as phase (h)'s
+CONV_HOST_DEVICE, CONV_TRANSPORT = "cuda:0", "staged"
+#: (k2) BERT-large with bf16 parameters under master_weights(AdamW) wrapped by
+#: dynamic_loss_scale: 4 steps, the second through a probe scaler whose
+#: initial scale (f32's largest) makes the scaled loss inf
+KIT_STEPS, KIT_OVERFLOW_STEP = 4, 1
+#: (k3) VGG-16 at published widths, two hosts, bf16, the link shaped after two
+#: unshaped steps (the first with the init barriers): a rate at which a step's
+#: 1-bit payloads (8.7 MB a host to each server) take ~1.1 s each way, longer
+#: than a whole unshaped step (646-894 ms in PR 22 calls 1-2: at 20 MB/s the
+#: wire's 437 ms hid under the host's work)
+VGG_BATCH, VGG_UNSHAPED_STEPS, VGG_SHAPED_STEPS, VGG_LR = 32, 2, 3, 0.01
+SHAPE_RATE_MBYTES_S, SHAPE_DELAY_MS = 8.0, 2.0
+#: a server that takes the shaping knobs once its cue file holds them, for the
+#: connections it accepts from then on (the reference reads them at accept)
+SHAPE_CUE_SERVER = (
+    "import json, os, sys, threading, time\n"
+    "def watch(cue=sys.argv[1]):\n"
+    "    while not os.path.exists(cue):\n"
+    "        time.sleep(0.02)\n"
+    "    with open(cue) as f:\n"
+    "        os.environ.update(json.load(f))\n"
+    "    open(f'{cue}.{os.getpid()}', 'w').close()\n"
+    "threading.Thread(target=watch, daemon=True).start()\n"
+    "from byteps_tpu_torch.server.server import run_server\n"
+    "run_server()\n")
+
+
+def _conv_data(n: int, image: int, seed: int) -> tuple:
+    """NHWC images and labels as bench.py makes them (numpy ``seed``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, image, image, 3), dtype=np.float32)
+    return x, rng.integers(0, 1000, n)
+
+
+def _ce(model, batch):
+    import torch
+
+    x, y = batch
+    return torch.nn.functional.cross_entropy(model(x), y)
+
+
+def _one_process(dev):
+    """A host group of this process alone: the batch-statistics step's
+    averages over it are the values themselves."""
+    from byteps_tpu_torch.comm.mesh import Mesh
+
+    return Mesh(0, 1, dev, "nccl" if dev.type == "cuda" else "gloo")
+
+
+def _wait_files(paths: list, timeout: float, label: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        if time.monotonic() > deadline:
+            fail(f"{label}: no {[p for p in paths if not os.path.exists(p)]} in {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def _check_tiny_conv_on_the_card(dev) -> float:
+    """ResNetTiny in f32, one batch-statistics step on the card and on the
+    CPU from the same weights and inputs: the largest difference of the
+    logits, the loss, every parameter and running statistic after it."""
+    import torch
+
+    from byteps_tpu_torch.models.resnet import ResNetTiny
+    from byteps_tpu_torch.optim import build_batchnorm_data_parallel_step
+
+    x, y = _conv_data(CONV_TINY_BATCH, CONV_TINY_IMAGE, 3)
+    y = y % 10
+    out = {}
+    for where in ("cpu", dev):
+        model = ResNetTiny(seed=0).to(where)
+        with torch.no_grad():
+            logits = model(torch.from_numpy(x).to(where)).cpu()
+        opt = torch.optim.SGD(model.parameters(), lr=CONV_LR, momentum=0.9)
+        step = build_batchnorm_data_parallel_step(_ce, model, opt,
+                                                  mesh=_one_process(torch.device(where)))
+        loss = step((torch.from_numpy(x).to(where), torch.from_numpy(y).to(where)))
+        out[str(where)] = {"logits": logits, "loss": loss.reshape(1).cpu(),
+                           **{k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    worst = 0.0
+    cpu, card = out["cpu"], out[str(dev)]
+    for k in cpu:
+        diff = (card[k] - cpu[k]).abs()
+        if not bool((diff <= CONV_TINY_ATOL + CONV_TINY_RTOL * cpu[k].abs()).all()):
+            fail(f"conv (k1): ResNetTiny's {k} on the card is {float(diff.max()):.3g} from the "
+                 f"CPU's (atol {CONV_TINY_ATOL}, rtol {CONV_TINY_RTOL})")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def _train_resnet50(card: str, dev) -> dict:
+    """(k1): ResNet-50 at 224x224, 1000 classes, bf16, batch CONV_BATCH,
+    CONV_STEPS SGD-momentum steps through the batch-statistics step."""
+    import torch
+
+    from byteps_tpu_torch.models.resnet import ResNet50
+    from byteps_tpu_torch.optim import build_batchnorm_data_parallel_step
+
+    model = ResNet50(dtype=torch.bfloat16, seed=0).to(dev)
+    x, y = _conv_data(CONV_BATCH, CONV_IMAGE, 0)
+    batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    opt = torch.optim.SGD(model.parameters(), lr=CONV_LR, momentum=0.9)
+    step = build_batchnorm_data_parallel_step(_ce, model, opt, mesh=_one_process(dev))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(CONV_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))  # a host read: the step has ended
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"conv (k1): ResNet-50's losses {losses}: not finite and falling")
+    ms = sum(times[1:]) / (CONV_STEPS - 1) * 1e3
+    out = {"losses": losses, "first_ms": times[0] * 1e3, "ms": ms,
+           "samples_s": CONV_BATCH / ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"conv (k1): ResNet-50 224x224 bf16 batch {CONV_BATCH}, SGD momentum: losses "
+          f"{[round(v, 4) for v in losses]}; {ms:.1f} ms a step over steps 2-{CONV_STEPS} "
+          f"(first {times[0] * 1e3:.1f}), {out['samples_s']:.2f} samples/s, peak memory "
+          f"{out['peak_gib']:.2f} GiB, on {card}", flush=True)
+    return out
+
+
+def conv_host(work: str) -> None:
+    """One rank of (k1)'s two-rank host, under the port's launcher
+    (``chip_smoke.py --conv-host <dir>``, BYTEPS_LOCAL_SIZE=2,
+    BYTEPS_MESH_TRANSPORT=staged, no PS): ResNet-18 at 224x224 in bf16,
+    CONV_RANK_BATCH images a rank, one batch-statistics step once
+    <dir>/go-k1 exists.  Writes <dir>/conv.<rank>.pt: the running
+    statistics its own batch made, and the averaged ones after the step."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.mesh import get_global_mesh
+    from byteps_tpu_torch.models.resnet import ResNet18
+    from byteps_tpu_torch.optim import build_batchnorm_data_parallel_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    bps.init(device=os.environ["MP_HOST_DEVICE"] or None)
+    mesh, rank = get_global_mesh(), bps.local_rank()
+    model = ResNet18(dtype=torch.bfloat16, seed=0).to(bps.device())
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    own: list = []
+
+    def loss_fn(m, batch):
+        loss = _ce(m, batch)
+        own[:] = [b.detach().cpu().clone() for b in stats]  # before the average
+        return loss
+
+    opt = torch.optim.SGD(model.parameters(), lr=CONV_LR, momentum=0.9)
+    step = build_batchnorm_data_parallel_step(loss_fn, model, opt, mesh=mesh)
+    x, y = _conv_data(CONV_RANKS * CONV_RANK_BATCH, CONV_IMAGE, 5)
+    rows = slice(rank * CONV_RANK_BATCH, (rank + 1) * CONV_RANK_BATCH)
+    batch = (torch.from_numpy(x[rows]).to(bps.device()), torch.from_numpy(y[rows]).to(bps.device()))
+    _wait_files([os.path.join(work, "go-k1")], PHASE_STALL_S, "conv host")
+    loss = float(step(batch))
+    torch.save({"own": own, "mean": [b.detach().cpu() for b in stats], "loss": loss,
+                "mesh": repr(mesh)}, os.path.join(work, f"conv.{rank}.pt"))
+    torch.distributed.barrier()
+    bps.shutdown()
+
+
+def _check_conv_ranks(work: str) -> dict:
+    """Both ranks' running statistics bitwise equal, and each the mean of
+    the two ranks' own (f32: (a + b) / 2, exact in the halving)."""
+    import torch
+
+    r = [torch.load(os.path.join(work, f"conv.{i}.pt")) for i in range(CONV_RANKS)]
+    for i, (m0, m1, a, b) in enumerate(zip(r[0]["mean"], r[1]["mean"], r[0]["own"],
+                                           r[1]["own"])):
+        if not torch.equal(m0, m1):
+            fail(f"conv (k1): the ranks' running statistic {i} differs after the step")
+        if not torch.equal(m0, (a + b) / 2):
+            fail(f"conv (k1): running statistic {i} is not the mean of the ranks' own "
+                 f"(max |diff| {float((m0 - (a + b) / 2).abs().max()):.3g})")
+        if torch.equal(a, b):
+            fail(f"conv (k1): the ranks' batches made the same statistic {i}")
+    print(f"conv (k1): ResNet-18 on {CONV_RANKS} ranks of one card ({r[0]['mesh']}), "
+          f"{CONV_RANK_BATCH} images a rank: {len(r[0]['mean'])} running statistics bitwise "
+          f"equal on both ranks and the mean of their own; losses "
+          f"{[round(x['loss'], 4) for x in r]}", flush=True)
+    return {"losses": [x["loss"] for x in r]}
+
+
+def _train_kit_bert(card: str, dev, main_ms: float) -> dict:
+    """(k2): BERT-large (seq SEQ, 24 layers, flash, remat, batch BATCH) with
+    bf16 parameters under master_weights(AdamW) and dynamic_loss_scale, the
+    batches through ShardedDataset and prefetch_to_device; step
+    KIT_OVERFLOW_STEP through a probe scaler whose scaled loss is inf."""
+    import torch
+
+    from byteps_tpu_torch.data import ShardedDataset, prefetch_to_device
+    from byteps_tpu_torch.mixed_precision import dynamic_loss_scale, master_weights
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    cfg, model, _, _ = _bert(N_LAYERS_FULL)
+    model.to(torch.bfloat16)
+    mw = master_weights(model.parameters(),
+                        lambda ms: torch.optim.AdamW(ms, lr=1e-4, weight_decay=1e-4))
+    opt = dynamic_loss_scale(mw, init_scale=2.0 ** 15)
+    probe = dynamic_loss_scale(mw, init_scale=float(torch.finfo(torch.float32).max))
+    # the main path's sequences, an epoch a step (each a reshuffle of them):
+    # the losses of one batch fall, as the main path's do
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(np.int64)
+    data = ShardedDataset((tokens, np.roll(tokens, -1, axis=1)), BATCH, seed=0,
+                          worker_rank=0, num_workers=1)
+    batches = prefetch_to_device((b for e in range(KIT_STEPS) for b in data.epoch(e)), size=2,
+                                 device=dev)
+
+    def state() -> list:
+        """The parameters, the masters and AdamW's state, as tensors."""
+        return [*model.parameters(), *mw.masters,
+                *(v for s in mw.inner.state.values() for v in s.values() if torch.is_tensor(v))]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, times, skipped = [], [], None
+    for i, (tok, tgt) in enumerate(batches):
+        scaler = probe if i == KIT_OVERFLOW_STEP else opt
+        before = [t.detach().clone() for t in state()] if scaler is probe else None
+        t0 = time.perf_counter()
+        loss = model.loss(tok, tgt)
+        (loss * scaler.scale).backward()
+        stepped = scaler.step()
+        scaler.zero_grad()
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+        if scaler is probe:
+            after = state()
+            skipped = {"stepped": stepped, "scale": probe.scale,
+                       "unchanged": len(after) == len(before) and all(
+                           torch.equal(a, b) for a, b in zip(after, before))}
+            del before, after
+        elif not stepped:
+            fail(f"kit (k2): step {i} overflowed at scale {opt.scale}")
+    counts = dict(fa.launches)
+    n = len(losses)
+    want = {"flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
+            "flash_bwd_dkv": cfg.n_layers * n}
+    if n != KIT_STEPS or counts != want:
+        fail(f"kit (k2): {n} steps launched {counts}, expected {want}")
+    if skipped["stepped"] or not skipped["unchanged"]:
+        fail(f"kit (k2): the overflowing step moved the model or its optimizer: {skipped}")
+    if skipped["scale"] != float(torch.finfo(torch.float32).max) / 2:
+        fail(f"kit (k2): the probe's scale is {skipped['scale']} after its overflow")
+    real = [x for i, x in enumerate(losses) if i != KIT_OVERFLOW_STEP]
+    if not all(math.isfinite(x) for x in real) or not real[-1] < real[0]:
+        fail(f"kit (k2): losses {losses}: not finite and falling")
+    ms = sum(times[KIT_OVERFLOW_STEP + 1:]) / (n - KIT_OVERFLOW_STEP - 1) * 1e3
+    print(f"kit (k2): BERT-large bf16 parameters, f32 masters under AdamW, dynamic loss "
+          f"scale {opt.scale:g} (growth interval {opt.growth_interval}), batches through "
+          f"ShardedDataset + prefetch_to_device: losses {[round(x, 4) for x in losses]}; "
+          f"step {KIT_OVERFLOW_STEP} overflowed at scale {float(torch.finfo(torch.float32).max):g} "
+          f"and was skipped (parameters, masters and AdamW's state bitwise unchanged, the "
+          f"scale halved to {skipped['scale']:g}); {ms:.1f} ms a step (the main path's "
+          f"{main_ms:.1f}), launches {counts} over {n} steps, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}", flush=True)
+    del model, mw, opt, probe
+    return {name: counts[name] // n for name in counts}
+
+
+def _vgg_step(model, opt, batch) -> float:
+    opt.zero_grad()
+    loss = _ce(model, batch)
+    loss.backward()
+    opt.step()
+    return float(loss)
+
+
+def vgg_host(work: str) -> None:
+    """One host of (k3), under the port's launcher at BYTEPS_LOCAL_SIZE=1
+    (``chip_smoke.py --vgg-host <dir>``): VGG-16 at 224x224 in bf16, batch
+    VGG_BATCH, through two Python servers with bare onebit.  Host 0 saves a
+    checkpoint and writes one shard; host 1 starts from zeros and takes host
+    0's state through ``restore_and_broadcast``; BroadcastGlobalVariables,
+    LearningRateWarmup and MetricAverage drive the steps over
+    ``ShardedDataset``'s disjoint shards: VGG_UNSHAPED_STEPS on plain
+    links, then (once both hosts and the servers took the shaping cue,
+    the hosts through suspend and resume) VGG_SHAPED_STEPS on shaped ones.
+    Writes <dir>/vgg.<host>.json."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import checkpoint
+    from byteps_tpu_torch.callbacks import (BroadcastGlobalVariablesCallback,
+                                            LearningRateWarmupCallback, MetricAverageCallback)
+    from byteps_tpu_torch.core.state import get_state
+    from byteps_tpu_torch.core.telemetry import counters
+    from byteps_tpu_torch.data import ShardedDataset, prefetch_to_device, shard_for_worker
+    from byteps_tpu_torch.models.vgg import VGG16
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = int(os.environ["DMLC_WORKER_ID"])
+    bps.init()
+    dev = bps.device()
+    model = VGG16(dtype=torch.bfloat16, image=CONV_IMAGE,
+                  seed=0 if host == 0 else None).to(dev)
+    steps = VGG_UNSHAPED_STEPS + VGG_SHAPED_STEPS
+    n = bps.size() * VGG_BATCH * steps
+    images, labels = _conv_data(n, CONV_IMAGE, 11)
+    data = ShardedDataset((images, labels), VGG_BATCH, seed=1, worker_rank=bps.rank(),
+                          num_workers=bps.size())
+    _mark(work, f"vgg-ready.{host}", bps.rank())
+    _await_mark(work, "go-k3", PHASE_STALL_S)
+    out = {"host": host, "rank": bps.rank()}
+
+    # startup: host 0's checkpoint, its state broadcast to host 1 from zeros
+    t0 = time.perf_counter()
+    ckpt, shard = os.path.join(work, "vgg16.pt"), os.path.join(work, "vgg16.dense_2.shard")
+    if host == 0:
+        checkpoint.save(ckpt, model.state_dict())
+        out["shard_bytes"] = checkpoint.write_shard(
+            shard, model.Dense_2.weight.detach().cpu().numpy().tobytes())
+        _mark(work, "vgg-saved")
+    else:
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                t.zero_()
+        _await_mark(work, "vgg-saved", PHASE_STALL_S)
+    root = _await_mark(work, "vgg-ready.0", 60)["value"]
+    tree = checkpoint.restore_and_broadcast(ckpt, dict(model.state_dict()), root_rank=root)
+    model.load_state_dict(tree)
+    out["restored_digest"] = _param_digest(model)
+    out["shard_is_host0s"] = (checkpoint.read_shard(shard)
+                              == model.Dense_2.weight.detach().cpu().numpy().tobytes())
+    out["startup_s"] = time.perf_counter() - t0
+
+    opt = bps.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=VGG_LR, momentum=0.9),
+                                   named_parameters=model.named_parameters(),
+                                   compression_params={"compressor": "onebit", "scaling": True})
+    BroadcastGlobalVariablesCallback(root_rank=root).on_train_begin(model.state_dict(), opt)
+    warmup = LearningRateWarmupCallback(VGG_LR, warmup_epochs=steps)
+    metric = MetricAverageCallback()
+    out["steps"] = []
+
+    def run(i: int, batch) -> dict:
+        lr = warmup.apply(opt, i)
+        ob.reset_launches()
+        counters().reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _vgg_step(model, opt, batch)
+        torch.cuda.synchronize()
+        return {"loss": loss, "s": time.perf_counter() - t0, "lr": lr,
+                "k4": ob.launches["onebit_pack"],
+                "tx": counters().snapshot().get("wire_tx_bytes", 0),
+                "digest": _param_digest(model)}
+
+    batches = prefetch_to_device(data.epoch(0), size=2, device=dev)
+    for i in range(VGG_UNSHAPED_STEPS):
+        out["steps"].append({**run(i, next(batches)), "shaped": False})
+    # the shaping cue: the servers take the knobs for the connections they
+    # accept from now on; the hosts reconnect through suspend and resume
+    _mark(work, f"vgg-unshaped.{host}")
+    knobs = {"BYTEPS_VAN_RATE_MBYTES_S": str(SHAPE_RATE_MBYTES_S),
+             "BYTEPS_VAN_DELAY_MS": str(SHAPE_DELAY_MS)}
+    if host == 0:
+        _await_mark(work, "vgg-unshaped.1", PHASE_STALL_S)
+        cue = os.path.join(work, "shape-cue.json")
+        with open(cue + ".tmp", "w") as f:
+            json.dump(knobs, f)
+        os.replace(cue + ".tmp", cue)
+    deadline = time.monotonic() + 60
+    while len(glob.glob(os.path.join(work, "shape-cue.json.*[0-9]"))) < 2:
+        if time.monotonic() > deadline:
+            fail(f"vgg host {host}: the servers did not take the shaping cue")
+        time.sleep(0.02)
+    os.environ.update(knobs)
+    t0 = time.perf_counter()
+    bps.suspend()
+    bps.resume()
+    out["reshape_s"] = time.perf_counter() - t0
+    client = get_state().ps_client
+    from byteps_tpu_torch.comm.shaping import ShapedSocket
+
+    out["shaped_conns"] = [isinstance(sc.sock, ShapedSocket) for sc in client._servers]
+    for i in range(VGG_UNSHAPED_STEPS, steps):
+        out["steps"].append({**run(i, next(batches)), "shaped": True})
+    table = get_state().engine.partition_table()
+    grads = [r for r in table if r["name"].startswith("Gradient.")]
+    out["compressed_parts"] = sum(r["wire_nbytes"] is not None for r in grads)
+    out["tx_by_server"] = {}
+    for r in grads:
+        sid = str(client.server_for(r["key"]))
+        nbytes = r["wire_nbytes"] if r["wire_nbytes"] is not None else r["length"] * r["itemsize"]
+        out["tx_by_server"][sid] = out["tx_by_server"].get(sid, 0) + nbytes
+    out["metric"] = metric.on_epoch_end({"loss": out["steps"][-1]["loss"]})
+    out["indices"] = shard_for_worker(n, bps.rank(), bps.size(), seed=data.seed).tolist()
+    bps.shutdown()
+    with open(os.path.join(work, f"vgg.{host}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _check_vgg(work: str, report: list) -> dict:
+    """(k3)'s checks over the hosts' files and the servers' stop reports."""
+    r = []
+    for h in range(HYBRID_HOSTS):
+        with open(os.path.join(work, f"vgg.{h}.json")) as f:
+            r.append(json.load(f))
+    label = "vgg (k3)"
+    if r[0]["restored_digest"] != r[1]["restored_digest"]:
+        fail(f"{label}: host 1's parameters after restore_and_broadcast are not host 0's")
+    if not (r[0]["shard_is_host0s"] and r[1]["shard_is_host0s"]):
+        fail(f"{label}: read_shard did not return host 0's bytes")
+    if set(r[0]["indices"]) & set(r[1]["indices"]):
+        fail(f"{label}: the hosts' ShardedDataset shards overlap")
+    if r[0]["metric"] != r[1]["metric"]:
+        fail(f"{label}: the averaged metric differs: {r[0]['metric']} {r[1]['metric']}")
+    want = (r[0]["steps"][-1]["loss"] + r[1]["steps"][-1]["loss"]) / 2
+    if abs(r[0]["metric"]["loss"] - want) > 1e-12 * max(1.0, abs(want)):
+        fail(f"{label}: the averaged metric {r[0]['metric']} is not the hosts' mean {want}")
+    for i, (a, b) in enumerate(zip(r[0]["steps"], r[1]["steps"])):
+        if a["digest"] != b["digest"]:
+            fail(f"{label}: the hosts' parameters differ after step {i}")
+        if not (math.isfinite(a["loss"]) and math.isfinite(b["loss"])):
+            fail(f"{label}: step {i}'s losses {a['loss']}, {b['loss']}")
+    for x in r:
+        if not all(x["shaped_conns"]):
+            fail(f"{label}: host {x['host']}'s connections after the cue are not all shaped")
+        for i, s in enumerate(x["steps"]):
+            if s["k4"] != x["compressed_parts"]:
+                fail(f"{label}: host {x['host']} step {i} launched K4 {s['k4']} times, "
+                     f"VGG-16 has {x['compressed_parts']} partitions of at least 64 KiB")
+            if s["tx"] != sum(x["tx_by_server"].values()):
+                fail(f"{label}: host {x['host']} step {i} sent {s['tx']} bytes, its partition "
+                     f"table says {sum(x['tx_by_server'].values())}")
+    rate = SHAPE_RATE_MBYTES_S * 1e6
+    shaped = [[s["s"] for s in x["steps"] if s["shaped"]][1:] for x in r]
+    plain = [x["steps"][VGG_UNSHAPED_STEPS - 1]["s"] for x in r]
+    bounds = [max(x["tx_by_server"].values()) / rate for x in r]
+    for x, steps, bound in zip(r, shaped, bounds):
+        if min(steps) < bound:
+            fail(f"{label}: host {x['host']}'s shaped step {min(steps):.3f} s is under the "
+                 f"wire's bound {bound:.3f} s")
+    if any(v is None for v in report):
+        fail(f"{label}: a server logged no stop report: {report}")
+    print(f"vgg (k3): VGG-16 224x224 bf16, {VGG_BATCH} images a host, 2 hosts, 2 Python "
+          f"servers, bare onebit: startup (host 0's checkpoint and shard, host 1 from zeros "
+          f"through restore_and_broadcast) {r[0]['startup_s']:.1f} s, digests equal; losses "
+          f"{[[round(s['loss'], 4) for s in x['steps']] for x in r]}, lr "
+          f"{[s['lr'] for s in r[0]['steps']]}, averaged metric {r[0]['metric']}; K4 "
+          f"{r[0]['compressed_parts']} launches a step (VGG-16's partitions >= 64 KiB); "
+          f"bytes a step to each server {[x['tx_by_server'] for x in r]}", flush=True)
+    print(f"vgg (k3): link shaped at {SHAPE_RATE_MBYTES_S:g} MB/s and {SHAPE_DELAY_MS:g} ms "
+          f"(after the cue; reconnect {[round(x['reshape_s'], 2) for x in r]} s): a step "
+          f"{[[round(v * 1e3, 1) for v in s] for s in shaped]} ms against the wire's bound "
+          f"{[round(b * 1e3, 1) for b in bounds]} ms; unshaped step "
+          f"{[round(v * 1e3, 1) for v in plain]} ms", flush=True)
+    print("vgg (k3): " + "; ".join(_server_lines(report)), flush=True)
+    return {"onebit_pack": r[0]["compressed_parts"]}
+
+
+def train_kit(card: str, main_ms: float) -> dict:
+    """Phase (k): the training kit and the conv models.  A two-rank host
+    for (k1) and (k3)'s fleet (a scheduler, two Python servers that take
+    the shaping knobs on a cue, two launcher hosts) start first and warm up
+    while this process runs (k1) ResNetTiny on the card against the CPU
+    and ResNet-50, and (k2) BERT-large in mixed precision; then the
+    two-rank ResNet-18 step and (k3) VGG-16 through the PS, together.
+    Returns the launches a step of K1-K3 in (k2) and of K4 in (k3)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    with tempfile.TemporaryDirectory() as work:
+        base = {**os.environ, "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
+                "DMLC_PS_ROOT_URI": "127.0.0.1"}
+        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS",
+                  "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS", "BYTEPS_VAN_DELAY_MS",
+                  "BYTEPS_FORCE_DISTRIBUTED"):
+            base.pop(k, None)
+        conv_log = os.path.join(work, "conv.log")
+        with open(conv_log, "w") as log:
+            conv = _track(subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--conv-host", work],
+                cwd=REPO, env={**base, "DMLC_NUM_WORKER": "1",
+                               "BYTEPS_LOCAL_SIZE": str(CONV_RANKS),
+                               "BYTEPS_MESH_TRANSPORT": CONV_TRANSPORT,
+                               "MP_HOST_DEVICE": CONV_HOST_DEVICE},
+                stdout=log, stderr=subprocess.STDOUT), "conv host", conv_log)
+        vgg_env = {**base, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+                   "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": "1"}
+        port, fleet = _start_ps_processes(
+            vgg_env, work, server_args=["-c", SHAPE_CUE_SERVER,
+                                        os.path.join(work, "shape-cue.json")])
+        hosts = []
+        for h in range(HYBRID_HOSTS):
+            path = os.path.join(work, f"vgg-host{h}.log")
+            with open(path, "w") as log:
+                hosts.append(_track(subprocess.Popen(
+                    [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                     sys.executable, os.path.join(REPO, "chip_smoke.py"), "--vgg-host", work],
+                    cwd=REPO, env={**vgg_env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
+                    stdout=log, stderr=subprocess.STDOUT), f"vgg host {h}", path))
+        walls, t0 = {}, time.perf_counter()
+
+        def lap(name: str) -> None:
+            walls[name] = round(time.perf_counter() - t0 - sum(walls.values()), 1)
+
+        try:
+            bps.init()
+            dev = bps.device()
+            err = _check_tiny_conv_on_the_card(dev)
+            print(f"conv (k1): ResNetTiny f32, one batch-statistics step on the card within "
+                  f"{err:.3g} of the CPU's (logits, loss, parameters, running statistics)",
+                  flush=True)
+            _train_resnet50(card, dev)
+            lap("k1 one process")
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches = _train_kit_bert(card, dev, main_ms)
+            bps.shutdown()
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("k2")
+            # the two-rank step and (k3) together: each host has been
+            # starting since the phase began, and their runs share nothing
+            open(os.path.join(work, "go-k1"), "w").close()
+            _mark(work, "go-k3")
+            if conv.wait(timeout=PHASE_STALL_S) != 0:
+                with open(conv_log) as f:
+                    print(f.read()[-6000:], file=sys.stderr)
+                fail(f"conv (k1): the two-rank host exited {conv.returncode}")
+            _check_conv_ranks(work)
+            lap("k1 two ranks")
+            for h, proc in enumerate(hosts):
+                if proc.wait(timeout=PHASE_STALL_S) != 0:
+                    _fleet_tails("vgg (k3)", hosts)
+                    fail(f"vgg (k3): host {h} exited {proc.returncode}")
+            lap("k3 after the two ranks")
+        finally:
+            _stop_processes([conv, *hosts])
+            _stop_processes(fleet)
+        launches.update(_check_vgg(work, _server_report(work)))
+        lap("k3 stop")
+        print(f"kit (k): walls (s) {walls}", flush=True)
+    return launches
+
+
 def main_path_setup() -> str:
     """The settings every measured run starts from: f32 matmuls in full
     precision.  Prints and returns the card's name and power limit."""
@@ -6897,6 +7491,8 @@ def main() -> None:
     check_int8_ring_ops()
     check_step_builders(card)
     mark("int8 ops, step builders")
+    planes["kit"] = train_kit(card, MAIN_PATH["step_ms"])
+    mark("kit and conv models (k)")
     watchdog.cancel()
     print(f"phase walls (s): {json.dumps(walls)}; total {sum(walls.values()):.1f} s", flush=True)
 
@@ -6996,5 +7592,9 @@ if __name__ == "__main__":
         tenant_host(sys.argv[2])  # one host of phase (g), job namespaces
     elif sys.argv[1:2] == ["--mp-host"]:
         mp_host(sys.argv[2])  # one rank of phase (h)'s host, model parallelism
+    elif sys.argv[1:2] == ["--conv-host"]:
+        conv_host(sys.argv[2])  # one rank of phase (k1)'s two-rank host
+    elif sys.argv[1:2] == ["--vgg-host"]:
+        vgg_host(sys.argv[2])  # one host of phase (k3), VGG-16 on a shaped link
     else:
         main()

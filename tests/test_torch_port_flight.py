@@ -226,8 +226,11 @@ def test_the_recorder_belongs_to_the_role_that_made_it():
 
 def test_the_bundle_upload_raises_naming_its_item(monkeypatch):
     """The bundle upload and the slo trigger are ported and no longer
-    raise; the link-shaping knobs, the one plane left unported, raise in
-    their place, naming the item that brings them."""
+    raise; neither do the link-shaping knobs, which raised in their place
+    until the van's shaping was ported (ROADMAP.md Queue 1 item 10.4): each
+    now sets the port's link as it sets the reference's."""
+    from byteps_tpu.comm import shaping as ref_shaping
+    from byteps_tpu_torch.comm import shaping as port_shaping
     from byteps_tpu_torch.common.config import check_unported_env
 
     monkeypatch.setenv("BYTEPS_FLIGHT_UPLOAD", "1")
@@ -235,7 +238,10 @@ def test_the_bundle_upload_raises_naming_its_item(monkeypatch):
     check_unported_env()
     for knob in ("BYTEPS_VAN_DELAY_MS", "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS"):
         monkeypatch.setenv(knob, "5")
-        with pytest.raises(NotImplementedError, match=f"{knob}=5.*Queue 1 item 10.4"):
-            check_unported_env()
+        check_unported_env()
+        assert port_shaping.shaping_enabled() and ref_shaping.shaping_enabled()
+        assert port_shaping.shaping_params() == ref_shaping.shaping_params()
         monkeypatch.setenv(knob, "0")
         check_unported_env()
+        assert not port_shaping.shaping_enabled()
+        monkeypatch.delenv(knob)  # a canonical "0" would win over the alias

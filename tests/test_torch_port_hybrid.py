@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+import torch_port_kits as kits
 import torch_port_ranks as ranks
 from byteps_tpu.optim import build_data_parallel_step as ref_dp_step
 from byteps_tpu.optim import build_zero1_step as ref_zero1_step
@@ -35,6 +36,13 @@ from byteps_tpu_torch.server.server import PSServer
 
 SGD_TOL = dict(rtol=1e-5, atol=1e-6)
 ADAM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _reset(monkeypatch):
+    # HybridDataParallel declares its keys in the process's registry: a
+    # later file on the same worker would number its tensors after them
+    yield from kits.reset_runtime(monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -56,14 +56,23 @@ def job0_frames() -> dict:
     plane) and the server's replies, each normalized (seq 0, an
     INIT's random token salt dropped, the node uid blanked), sorted
     (the stage threads race) and hashed.  Runs on any tree of the port,
-    so that a digest can be frozen from one and checked on another."""
+    so that a digest can be frozen from one and checked on another.
+
+    The job is the process's first: its tensors are keys 0 and 1 << 16.
+    A registry that an earlier test in the same process left declared
+    would number them after its own and change every keyed frame (an
+    xdist worker that ran ``test_torch_port_hybrid.py`` first did), so
+    the registry starts empty."""
     import torch
 
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.comm import ps_client, transport
     from byteps_tpu_torch.comm.rendezvous import Scheduler
     from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.registry import reset_registry
     from byteps_tpu_torch.server import server as server_mod
+
+    reset_registry()
 
     sent = {"requests": [], "replies": []}
 

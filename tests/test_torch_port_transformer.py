@@ -286,15 +286,31 @@ def test_trap_bf16_casts_follow_the_jax_code():
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
 
 
-def test_unported_features_raise():
-    """Only the van's link shaping stays unported: the flight recorder's
-    upload and slo trigger are ported (tests/test_torch_port_flight_rules.py),
-    and mixture-of-experts layers, both generation builders and their specs
-    build and run (tests/test_torch_port_moe.py, _generate.py)."""
-    assert set(port_config.UNPORTED) == {"link_shaping"}
-    for plane in port_config.UNPORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            raise port_config.unported(plane, plane)
+def test_unported_features_raise(monkeypatch):
+    """No plane is left unported: the van's link shaping, the last, shapes
+    (tests/test_torch_port_shaping.py) where its knobs raised; the flight
+    recorder's upload and slo trigger are ported
+    (tests/test_torch_port_flight_rules.py), and mixture-of-experts layers,
+    both generation builders and their specs build and run
+    (tests/test_torch_port_moe.py, _generate.py)."""
+    import socket
+
+    from byteps_tpu_torch.comm import shaping
+
+    assert port_config.UNPORTED == {} and port_config._UNPORTED_KNOBS == ()
+    for knob in ("BYTEPS_VAN_DELAY_MS", "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS"):
+        monkeypatch.setenv(knob, "5")
+        port_config.check_unported_env()
+        assert shaping.shaping_enabled()
+        a, b = socket.socketpair()
+        shaped = shaping.maybe_shape(a)
+        try:
+            assert isinstance(shaped, shaping.ShapedSocket)
+        finally:
+            shaped.close()
+            b.close()
+        monkeypatch.delenv(knob)
+    assert not shaping.shaping_enabled()
     cfg = tt.tiny_test(moe=True, causal=True)
     model = tt.Transformer(cfg, device="cpu")
     assert {"router", "ew1", "eb1", "ew2", "eb2"} <= set(tt.param_specs(cfg))

@@ -627,7 +627,79 @@ def case_cuda_clash() -> dict:
     return out
 
 
-CASES = {"collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
+#: the batch-statistics step's case: SGD with momentum, two steps, the
+#: global batch of BN_BATCH split over the group's ranks in order
+BN_STEPS, BN_BATCH, BN_IMAGE, BN_LR = 2, 8, 16, 0.1
+
+
+def bn_data():
+    """(steps, BN_BATCH, H, W, 3) NHWC images and (steps, BN_BATCH) labels."""
+    r = np.random.default_rng(31)
+    x = r.normal(size=(BN_STEPS, BN_BATCH, BN_IMAGE, BN_IMAGE, 3)).astype(np.float32)
+    return x, r.integers(0, 10, (BN_STEPS, BN_BATCH))
+
+
+def bn_loss(model, batch) -> torch.Tensor:
+    x, y = batch
+    return torch.nn.functional.cross_entropy(model(x), y)
+
+
+def case_bn_step() -> dict:
+    """ResNetTiny from the reference's weights (``bn_weights.pt`` in the
+    out dir), each rank on its rows of each step's batch, through
+    ``build_batchnorm_data_parallel_step``: the losses, and every
+    parameter and running statistic after the steps."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.resnet import ResNetTiny
+    from byteps_tpu_torch.optim import build_batchnorm_data_parallel_step
+
+    from byteps_tpu_torch.comm.mesh import require_mesh
+
+    bps.init(device="cpu")
+    mesh = require_mesh()
+    model = ResNetTiny()
+    model.load_state_dict(torch.load(os.path.join(sys.argv[2], "bn_weights.pt")))
+    opt = torch.optim.SGD(model.parameters(), lr=BN_LR, momentum=0.9)
+    step = build_batchnorm_data_parallel_step(bn_loss, model, opt, mesh=mesh)
+    x, y = bn_data()
+    n = BN_BATCH // mesh.size
+    rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    losses = [float(step((torch.from_numpy(x[s][rows]), torch.from_numpy(y[s][rows]))))
+              for s in range(BN_STEPS)]
+    out = {"losses": losses,
+           "state": {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}}
+    torch.distributed.barrier()
+    bps.shutdown()
+    return out
+
+
+def case_mesh_env() -> dict:
+    """``BYTEPS_TPU_MESH`` lays out the host's group at ``init()``: a spec
+    whose sizes do not multiply to the group's size raises before any
+    group comes up; "dp:1,tp:2" gives the group that layout."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import collectives
+    from byteps_tpu_torch.comm.mesh import get_global_mesh
+
+    out = {}
+    os.environ["BYTEPS_TPU_MESH"] = "dp:3"
+    try:
+        bps.init(device="cpu")
+    except ValueError as e:
+        out["raised"] = str(e)
+    out["initialized_after_raise"] = torch.distributed.is_initialized()
+    os.environ["BYTEPS_TPU_MESH"] = "dp:1,tp:2"
+    bps.init(device="cpu")
+    mesh = get_global_mesh()
+    out.update(shape=dict(mesh.shape), ranks=mesh.ranks.copy(), tp=mesh.axis_index("tp"),
+               psum=float(collectives.psum(torch.tensor(float(mesh.rank + 1)), "tp", mesh)))
+    torch.distributed.barrier()
+    bps.shutdown()
+    return out
+
+
+CASES = {"bn_step": case_bn_step, "mesh_env": case_mesh_env,
+         "collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
          "degraded": case_degraded, "elastic": case_elastic,
          "mp_attention": case_mp_attention, "mp_train": case_mp_train,
          "mp_generate": case_mp_generate, "dryrun": case_dryrun,
