@@ -7,7 +7,8 @@ with the same Horovod-style surface as ``byteps_tpu``:
     rank / size / local_rank / local_size
     declare_tensor / push_pull / push_pull_async / push_pull_inplace / poll /
     synchronize / push_pull_rowsparse / push_pull_rowsparse_async
-    DistributedOptimizer / Compression / set_compression_lr
+    DistributedOptimizer / distributed_optimizer / Compression / set_compression_lr
+    get_config / reset_config
     get_robustness_counters / get_metrics / get_metrics_text / get_pushpull_speed
     broadcast_parameters / broadcast_optimizer_state / broadcast_object
     parallel.DistributedDataParallel / CrossBarrier
@@ -44,12 +45,14 @@ _EXPORTS = {
         "set_compression_lr", "shutdown", "size", "suspend", "synchronize")},
     "Config": "byteps_tpu_torch.common.config",
     "get_config": "byteps_tpu_torch.common.config",
+    "reset_config": "byteps_tpu_torch.common.config",
     "TensorRegistry": "byteps_tpu_torch.common.registry",
     "get_registry": "byteps_tpu_torch.common.registry",
     "DegradedError": "byteps_tpu_torch.common.types",
     "Compression": "byteps_tpu_torch.compression.base",
     "CrossBarrier": "byteps_tpu_torch.cross_barrier",
     "DistributedOptimizer": "byteps_tpu_torch.optim",
+    "distributed_optimizer": "byteps_tpu_torch.optim",
 }
 
 
@@ -80,6 +83,7 @@ __all__ = [
     "broadcast_parameters",
     "declare_tensor",
     "device",
+    "distributed_optimizer",
     "get_config",
     "get_metrics",
     "get_metrics_text",
@@ -97,6 +101,7 @@ __all__ = [
     "push_pull_rowsparse",
     "push_pull_rowsparse_async",
     "rank",
+    "reset_config",
     "resume",
     "set_compression_lr",
     "shutdown",

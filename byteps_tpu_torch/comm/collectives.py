@@ -372,6 +372,16 @@ def all_gather_axis(x: torch.Tensor, axis: str, dim: int = 0,
     return _land(torch.cat(parts, dim=dim), mesh, x.device)
 
 
+def stack_stages(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """A pipeline stage's per-layer tensors stacked, and the stages' stacks
+    gathered over pp: ``(pp, layers a stage, ...)``, stage i's at row i, on
+    every rank (no autograd): the reference's stacked layer layout."""
+    mine = torch.stack([t.detach() for t in tensors]).contiguous()
+    pp = mesh.axis_size("pp") if mesh is not None else 1
+    out = mine if pp == 1 else all_gather_axis(mine, "pp", 0, mesh)
+    return out.reshape((pp,) + tuple(mine.shape))
+
+
 def sync_grads(params: Mapping[str, torch.Tensor], axes_of: Mapping[str, Sequence[str]],
                mesh: Mesh) -> None:
     """Sum each parameter's gradient over the axes ``axes_of`` lists for

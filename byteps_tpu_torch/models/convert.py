@@ -120,15 +120,11 @@ def params_to_jax(
         if not is_layer_param(name):
             out[name] = host(whole(state_dict[name], name))
             continue
-        if mesh is None:
-            stacked = torch.stack([state_dict[f"layers.{i}.{name}"].detach()
-                                   for i in range(cfg.n_layers)])
-        else:
-            mpp = mesh.axis_size("pp")
-            first = mesh.axis_index("pp") * (cfg.n_layers // mpp)
-            mine = torch.stack([whole(state_dict[f"layers.{first + j}.{name}"], name)
-                                for j in range(cfg.n_layers // mpp)])
-            stacked = collectives.all_gather_axis(mine.contiguous(), "pp", 0, mesh)
+        mpp = mesh.axis_size("pp") if mesh is not None else 1
+        first = mesh.axis_index("pp") * (cfg.n_layers // mpp) if mesh is not None else 0
+        stacked = collectives.stack_stages(
+            [whole(state_dict[f"layers.{first + j}.{name}"], name)
+             for j in range(cfg.n_layers // mpp)], mesh)
         out[name] = host(stacked).reshape((pp_size, lps) + shape)
     return out
 

@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -620,6 +620,23 @@ class Transformer(nn.Module):
         """Parameter name → :func:`grad_sync_axes`' entry for it."""
         table = grad_sync_axes(self.cfg)
         return {name: table[name.rsplit(".", 1)[-1]] for name, _ in self.named_parameters()}
+
+    def stacked_keys(self) -> List[Tuple[str, Tuple[int, ...], List[str]]]:
+        """The reference's parameter tree as ``HybridDataParallel`` pushes
+        it: for each entry of :func:`param_shapes`, in sorted order (the
+        order of the reference's tree leaves), (its name, its global shape,
+        the names of this rank's parameters that fill it).  A layer
+        parameter is one array stacked ``(pp, layers a stage) + shape``,
+        filled by this stage's layers in order (``params_to_jax``'s
+        layout); a global one is itself."""
+        cfg, shapes = self.cfg, param_shapes(self.cfg)
+        pp = self.axis_size("pp")
+        lps = cfg.n_layers // pp
+        first = self.axis_index("pp") * lps
+        return [(name, (pp, lps) + shapes[name],
+                 [f"layers.{first + j}.{name}" for j in range(lps)])
+                if is_layer_param(name) else (name, shapes[name], [name])
+                for name in sorted(shapes)]
 
     def sync_grads(self) -> None:
         """Sum each gradient over the axes :func:`grad_sync_axes` lists

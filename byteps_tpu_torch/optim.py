@@ -228,6 +228,47 @@ def weak_hook(owner: object, method: str, *args) -> Callable[[torch.nn.Parameter
 # --- step builders over the host's process group ---------------------------
 
 
+class _MeshReducedOptimizer:
+    """``inner`` whose ``step()`` first all-reduces every ``.grad`` over
+    the mesh axes ``axis_names`` (:func:`distributed_optimizer`); every
+    other attribute is the inner optimizer's."""
+
+    def __init__(self, inner: torch.optim.Optimizer, axis_names: Tuple[str, ...],
+                 average: bool, mesh: Optional[Mesh]) -> None:
+        self.inner, self.axis_names, self.average, self.mesh = inner, axis_names, average, mesh
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self.inner, name)
+
+    def step(self, closure: Optional[Callable[[], Any]] = None) -> Any:
+        mesh = self.mesh or require_mesh()
+        missing = [ax for ax in self.axis_names if ax not in mesh.axis_names]
+        if missing:
+            raise ValueError(f"axes {missing} are not axes of the mesh {mesh.shape}")
+        n = 1
+        for ax in self.axis_names:
+            n *= mesh.axis_size(ax)
+        for group in self.inner.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                for ax in self.axis_names:
+                    g = collectives.all_reduce_axis(g, ax, mesh)
+                p.grad = divide(g, n) if self.average else g
+        return self.inner.step(closure)
+
+
+def distributed_optimizer(optimizer: torch.optim.Optimizer,
+                          axis_names: Tuple[str, ...] = ("dp",), average: bool = True,
+                          mesh: Optional[Mesh] = None) -> _MeshReducedOptimizer:
+    """Horovod-style wrap (``byteps_tpu.optim.distributed_optimizer``, there
+    an optax chain): ``optimizer`` whose ``step()`` sums every gradient
+    over the named axes of ``mesh`` (default: the global mesh), divides it
+    by the product of their sizes when ``average``, then steps."""
+    return _MeshReducedOptimizer(optimizer, tuple(axis_names), average, mesh)
+
+
 def allreduce_gradients(parameters: Iterable[torch.Tensor], average: bool = True,
                         mesh: Optional[Mesh] = None) -> None:
     """All-reduce every ``.grad`` of ``parameters`` in place over the host's

@@ -171,24 +171,27 @@ Phases, each fatal on failure:
      dense result's, the hosts bitwise, every dense partition probed under
      the entropy cutoff and every dense push flagged; rows, payload bytes
      and the container's bytes against raw printed;
- 24. model parallelism, phase (h) (after phase (g); ``train_model_parallel``):
+ 24. model parallelism, phase (h) (after phase (g), its fleet and ranks
+     started before the fusion phase; ``train_model_parallel``):
      K1-K3 at the phase's shapes against their plain versions, then one
      launcher host of four ranks on this card over the staged transport
      (BYTEPS_MESH_TRANSPORT=staged), a scheduler and two Python servers:
      BERT-large at 4 layers on {pp:2, tp:2} (4 microbatches), GPT-2 medium
      at 2 layers on {sp:2, tp:2} (the ring of flash hops, and Ulysses),
-     BERT-large at 2 layers on {dp:2, tp:2} through HybridDataParallel and
-     the servers, each rank holding its shards of init_params(seed=0):
-     every run's losses within 2e-2 of one process of the same model on
-     the card, one f32 step of the first two at 2 layers within atol 1e-6
-     + rtol 1e-5 per parameter gathered, K1-K3 launched a step on every
-     rank as its coordinates say, the hybrid's keys the model's names at
-     full shapes and its pulls bitwise the host's sum;
+     BERT-large at 2 layers on {dp:2, tp:2} and on {dp:2, pp:2} (one layer
+     a stage, 2 microbatches) through HybridDataParallel and the servers,
+     each rank holding its shards of init_params(seed=0): every run's
+     losses within 2e-2 of one process of the same model on the card, one
+     f32 step of the first two at 2 layers within atol 1e-6 + rtol 1e-5
+     per parameter gathered, K1-K3 launched a step on every rank as its
+     coordinates say, the hybrids' keys the reference's tree (a layer
+     parameter stacked (pp, layers a stage, ...)) and their pulls bitwise
+     the host's sum;
  25. mixture-of-experts and generation, phase (i) (on phase (h)'s host;
      ``_moe_generation``), GPT-2 medium's widths, experts at the
      reference's defaults (8, top-2, capacity factor 2.0, aux 0.01): K1-K3
      at the phase's shapes against their plain versions; (i1) 4 layers in
-     one process, 3 AdamW steps on 8 sequences: losses finite and falling,
+     one process, 2 AdamW steps on 8 sequences: losses finite and falling,
      the drops per layer and step, K1-K3 as depth and remat say, and one
      f32 step at 2 layers per parameter against the CPU's; (i2) 2 layers on
      {sp:2, tp:2}, 4 experts a rank: at no-drop capacity without the aux
@@ -291,11 +294,32 @@ DIST_STEPS, DIST_WARMUP = 2, 1
 # parallelism's expert and generation phase (i) joined; the whole at 1 from
 # 2 since the training kit's phase (k) joined)
 NATIVE_STEPS, NATIVE_HALF_STEPS, NATIVE_HALF_LAYERS = 1, 1, 2
-#: the compressed partitions of BERT-large's gradient (onebit, >= 64 KiB)
-#: and the bytes one worker moves a step, from the distributed path's table
-DIST_COMPRESSED_PARTS, DIST_D2H_STEP = 495, 46_524_348
-#: the same at each depth the distributed path runs (2: HYBRID_LAYERS')
-DIST_TABLES = {N_LAYERS_FULL: (DIST_COMPRESSED_PARTS, DIST_D2H_STEP), 2: (99, 11_108_748)}
+
+
+def onebit_table(layers: int) -> tuple:
+    """(compressed partitions, bytes one worker moves a step) of BERT-large's
+    gradient at ``layers`` under bare onebit, computed from the parameter
+    shapes as the engine partitions them: one key a parameter
+    (DistributedOptimizer's ``Gradient.<name>``), 4,096,000-byte partitions,
+    each of a float32 tensor of at least 64 KiB compressed to a scale and
+    its sign words, the rest raw (495 and 46,524,348 at 24 layers, 99 and
+    11,108,748 at 2)."""
+    from byteps_tpu_torch.common.partition import partition_elements
+    from byteps_tpu_torch.models.transformer import bert_large, is_layer_param, param_shapes
+
+    cfg = dataclasses.replace(bert_large(max_seq=SEQ), n_layers=layers)
+    parts, nbytes = 0, 0
+    for name, shape in param_shapes(cfg).items():
+        n = int(np.prod(shape))
+        copies = layers if is_layer_param(name) else 1
+        if 4 * n < 65536:
+            nbytes += copies * 4 * n
+            continue
+        lengths = [ln for _, ln in partition_elements(n, 4, 4_096_000)]
+        parts += copies * len(lengths)
+        nbytes += copies * sum(4 + 4 * ((ln + 31) // 32) for ln in lengths)
+    return parts, nbytes
+
 
 # sequence lengths at and around the bf16 dh=64 kernels' tiles: K1's and K2's
 # 128 query rows and 64-key tiles, K3's 128 keys and 64-row query tiles
@@ -1470,7 +1494,7 @@ def _run_distributed(card: str, label: str, steps: int, server_native: bool = Fa
     bad = []
     if not all(math.isfinite(x) for x in losses):
         bad.append(f"non-finite loss: {losses}")
-    want_parts, want_step = DIST_TABLES[layers]
+    want_parts, want_step = onebit_table(layers)
     if len(compressed) != want_parts or want_d2h != want_step:
         bad.append(f"the partition table: {len(compressed)} compressed partitions, "
                    f"{want_d2h} bytes a step, expected {want_parts} and {want_step}")
@@ -2258,9 +2282,8 @@ HYBRID_BATCH = BATCH // HYBRID_HOSTS  # per host: 16, the main path's 32 togethe
 HYBRID_WARMUP, HYBRID_STEPS = 1, 2
 #: the hybrid's BERT-large depth, cut from 24 with online resharding's phase
 #: and from 6 with the data plane's, to keep the script under 75% of its
-#: time limit; its partition table (bare onebit): compressed partitions, and
-#: bytes a worker moves a step (the fusion phase's at 2 layers)
-HYBRID_LAYERS, HYBRID_COMPRESSED_PARTS, HYBRID_D2H_STEP = 2, 99, 11_108_748
+#: time limit (its partition table under bare onebit: ``onebit_table``)
+HYBRID_LAYERS = 2
 # the 2-layer equivalence: f32, SGD, 4 sequences a host, 3 steps.  Bitwise one
 # process that averages the two halves' gradients as the servers do, and
 # within atol 1e-5 + rtol 1e-4 of one process on the combined batch of 8: the
@@ -2730,19 +2753,20 @@ def train_hybrid(card: str) -> dict:
                    "averaging the two halves' gradients")
     if not (all(math.isfinite(x) for r in results for x in r["losses"]) and mean[-1] < mean[0]):
         bad.append(f"the global batch's losses not finite and falling: {mean}")
+    want_parts, want_step = onebit_table(HYBRID_LAYERS)
     for r in results:
         h, c = r["host"], r["counters"]
-        if (r["compressed_parts"] != HYBRID_COMPRESSED_PARTS
-                or r["want_d2h"] != HYBRID_D2H_STEP):
+        if (r["compressed_parts"] != want_parts
+                or r["want_d2h"] != want_step):
             bad.append(f"host {h}'s partition table: {r['compressed_parts']} compressed "
                        f"partitions, {r['want_d2h']} bytes a step, expected "
-                       f"{HYBRID_COMPRESSED_PARTS} and {HYBRID_D2H_STEP}")
-        bad += [f"host {h} {k} {c.get(k, 0) / n:.0f} a step, expected {HYBRID_D2H_STEP}"
+                       f"{want_parts} and {want_step}")
+        bad += [f"host {h} {k} {c.get(k, 0) / n:.0f} a step, expected {want_step}"
                 for k in ("d2h_bytes", "wire_tx_bytes", "wire_rx_bytes")
-                if c.get(k, 0) != n * HYBRID_D2H_STEP]
-        if r["launches"]["onebit_pack"] != n * HYBRID_COMPRESSED_PARTS:
+                if c.get(k, 0) != n * want_step]
+        if r["launches"]["onebit_pack"] != n * want_parts:
             bad.append(f"host {h} launched K4 {r['launches']['onebit_pack']} times in {n} "
-                       f"steps, expected {HYBRID_COMPRESSED_PARTS} a step")
+                       f"steps, expected {want_parts} a step")
         if {k: r["launches"][k] for k in want_flash} != want_flash:
             bad.append(f"host {h} flash launches {r['launches']}, expected {want_flash}")
         if r["eq_launches"] != {k: EQ_LAYERS * EQ_STEPS for k in want_flash}:
@@ -5319,7 +5343,7 @@ def tenant_host(work: str) -> None:
     Taps its INITs' payload bytes.  Writes <dir>/<TENANT_RUN>-<name>.json:
     losses, ms, wire bytes and launches a step, the parameters' digest, the
     book's job map, its ranks, its job-labelled wire bytes, its round
-    trips, and the seconds since the phase began (``TENANT_T0``) at which
+    trips, and the seconds since its processes started (``TENANT_T0``) at which
     it entered, was ready, was let go, came up, built the model, trained
     and shut down."""
     marks = {"entered": time.time()}
@@ -5494,10 +5518,42 @@ def _tenant_go(label: str, r: dict, go: dict, timeout: float = 240) -> dict:
     return out
 
 
-def train_tenancy(card: str) -> dict:
+def start_tenancy() -> dict:
+    """Phase (g)'s processes: every run's scheduler, servers and hosts
+    (``_tenant_start``), each host coming up and waiting for its run's go.
+    ``main`` starts them ahead of the data plane's phase (f), so that their
+    start (the hosts ready after 25-30 s, PR 24 call 2) overlaps it.
+    Returns what ``train_tenancy`` takes; ``stop_tenancy`` stops it."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_g_")
+    j1, j2 = {"DMLC_NUM_WORKER": "2"}, {"DMLC_NUM_WORKER": "1"}
+    j1s = {**j1, "BYTEPS_JOB_ID": "1", "BYTEPS_JOB_PRIORITY": str(TENANCY_JOB1_PRIORITY)}
+    t0 = time.time()
+    started = {"work": work, "runs": []}
+    try:
+        for run, hosts, n in (
+                ("solo2", [("job2.h0", j2)], 1),
+                ("solo1", [("job1.h0", j1), ("job1.h1", j1)], 2),
+                ("shared", [("job1.h0", j1s), ("job1.h1", j1s),
+                            ("job2.h0", {**j2, "BYTEPS_JOB_ID": "2"})], 3)):
+            started["runs"].append(_tenant_start(work, run, hosts, n, t0))
+    except BaseException:
+        stop_tenancy(started)
+        raise
+    return started
+
+
+def stop_tenancy(started: dict) -> None:
+    """Stop what ``start_tenancy`` started and remove its directory."""
+    for r in started["runs"]:
+        _stop_processes([p for p in r["launched"] + r["fleet"] if p in _FLEET])
+    shutil.rmtree(started["work"], ignore_errors=True)
+
+
+def train_tenancy(card: str, started: dict = None) -> dict:
     """Phase (g), job namespaces: two jobs that declare the same tensor
     names.  Every run's fleet and hosts start at once and come up (torch,
-    CUDA); then the runs train one after another, each alone on the card.
+    CUDA; ``started``, or started here: ``start_tenancy``); then the runs
+    train one after another, each alone on the card.
     (g1) each job alone, as job 0, on a fleet of its own: job 2 (one
     host), then job 1 (two hosts).  (g2) both on one fleet of three
     workers: job 1 as BYTEPS_JOB_ID=1 with priority 4, job 2 as
@@ -5512,39 +5568,27 @@ def train_tenancy(card: str) -> dict:
     launched K1-K4 each step as the depth and its partitions say.  Prints
     each job's ms a step and round trips, solo and shared.  Returns job 2's
     shared launches a step."""
+    import torch
+
     label = "tenancy (g)"
     wall = time.perf_counter()
-    j1 = {"DMLC_NUM_WORKER": "2"}
-    j2 = {"DMLC_NUM_WORKER": "1"}
     bad = []
-    j1s = {**j1, "BYTEPS_JOB_ID": "1", "BYTEPS_JOB_PRIORITY": str(TENANCY_JOB1_PRIORITY)}
-    started = []
-    with tempfile.TemporaryDirectory() as work:
-        try:
-            # every run's processes come up at once (torch, CUDA); then the
-            # runs train one after another, each alone on the card
-            t0 = time.time()
-            started = [_tenant_start(work, "solo2", [("job2.h0", j2)], 1, t0),
-                       _tenant_start(work, "solo1", [("job1.h0", j1), ("job1.h1", j1)], 2, t0),
-                       _tenant_start(work, "shared", [("job1.h0", j1s), ("job1.h1", j1s),
-                                                      ("job2.h0", {**j2, "BYTEPS_JOB_ID": "2"})],
-                                     3, t0)]
-            import torch
-
-            torch.save(_bert_weights(_bert_cfg(TENANCY_LAYERS)), os.path.join(work, "weights.pt"))
-            solo = _tenant_go(label, started[0], {})
-            walls = {"solo2": solo.pop("wall")}
-            solo.update(_tenant_go(label, started[1], {}))
-            walls["solo1"] = solo.pop("wall")
-            s2 = solo["job2.h0"]["steps"][1:]
-            rate = sum(s["tx"] for s in s2) / (sum(s["ms"] for s in s2) / 1e3)
-            quota = rate * TENANCY_QUOTA_SHARE / 1e6
-            shared = _tenant_go(label, started[2],
-                                {"job2.h0": {"BYTEPS_JOB_QUOTA_MBPS": repr(quota)}})
-            walls["shared"] = shared.pop("wall")
-        finally:
-            for r in started:
-                _stop_processes([p for p in r["launched"] + r["fleet"] if p in _FLEET])
+    started = started or start_tenancy()
+    runs = started["runs"]
+    try:
+        torch.save(_bert_weights(_bert_cfg(TENANCY_LAYERS)),
+                   os.path.join(started["work"], "weights.pt"))
+        solo = _tenant_go(label, runs[0], {})
+        walls = {"solo2": solo.pop("wall")}
+        solo.update(_tenant_go(label, runs[1], {}))
+        walls["solo1"] = solo.pop("wall")
+        s2 = solo["job2.h0"]["steps"][1:]
+        rate = sum(s["tx"] for s in s2) / (sum(s["ms"] for s in s2) / 1e3)
+        quota = rate * TENANCY_QUOTA_SHARE / 1e6
+        shared = _tenant_go(label, runs[2], {"job2.h0": {"BYTEPS_JOB_QUOTA_MBPS": repr(quota)}})
+        walls["shared"] = shared.pop("wall")
+    finally:
+        stop_tenancy(started)
     names = list(TENANCY_SEEDS)
     for name in names:
         a, b = solo[name], shared[name]
@@ -5612,7 +5656,7 @@ def train_tenancy(card: str) -> dict:
               f"ms; fleet rank {b['rank']}, job rank {b['job_rank']}, size {b['size']}; "
               f"launches a step {b['steps'][-1]['launches']}; on {card}", flush=True)
     print(f"{label}: each run's wall s from its go: {walls}; the hosts' marks (s from the "
-          f"phase's start): " + "; ".join(
+          f"processes' start): " + "; ".join(
               f"{run} {n} {r[n]['marks']}" for run, r in (("solo", solo), ("shared", shared))
               for n in names), flush=True)
     print(f"{label}: job 2's solo push rate {rate / 1e6:.3f} MB/s, quota {quota:.3f} MB/s "
@@ -5632,8 +5676,9 @@ def train_tenancy(card: str) -> dict:
 #: phase (h)'s host: four ranks of one launcher on the one card, a gloo group
 #: over the staged transport (NCCL refuses two ranks of one group on one
 #: device); its local rank 0 is the one worker of a scheduler and two
-#: Python servers, which (h4)'s hybrid pushes through
-MP_RANKS, MP_STEPS, MP_BATCH = 4, 3, 4
+#: Python servers, which (h4)'s and (h5)'s hybrids push through; each run
+#: trains MP_STEPS steps (3 before (h5) joined: PERF.md section 4)
+MP_RANKS, MP_STEPS, MP_BATCH = 4, 2, 4
 MP_DEVICE, MP_TRANSPORT = "cuda", "staged"
 #: the device each rank binds: every rank on the one card (on one GPU a rank,
 #: tools/torch_port_model_parallel.py leaves it to the launcher: "")
@@ -5651,6 +5696,7 @@ MP_RUNS = (
     ("h2", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ring"}, False),
     ("h3", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ulysses"}, False),
     ("h4", "bert", 2, {"dp": 2, "tp": 2}, {}, True),
+    ("h5", "bert", 2, {"dp": 2, "pp": 2}, {"microbatches": 2}, True),
     ("h1 f32", "bert", 2, {"pp": 2, "tp": 2}, {"microbatches": 4, "dtype": "float32"}, False),
     ("h2 f32", "gpt2", 2, {"sp": 2, "tp": 2}, {"seq_parallel_impl": "ring",
                                                "dtype": "float32"}, False),
@@ -5713,18 +5759,28 @@ def _mp_want(run: tuple, coords: dict) -> dict:
     return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
 
 
+def _reference_keys(cfg, pp: int) -> list:
+    """The keys the reference's hybrid pushes for ``cfg`` on a mesh of ``pp``
+    stages, less their "Hybrid.<instance>" prefix: one a leaf of
+    ``init_params(cfg, pp_size=pp)`` in sorted order, a layer parameter
+    stacked (pp, layers a stage) + its shape."""
+    from byteps_tpu_torch.models.transformer import is_layer_param, param_shapes
+
+    return [[f"['{n}']", [pp, cfg.n_layers // pp, *s] if is_layer_param(n) else list(s)]
+            for n, s in sorted(param_shapes(cfg).items())]
+
+
 def _mp_one_process(run: tuple, work: str) -> dict:
     """The run's model, weights and tokens in this process alone on the
     card: its losses and ms a step (the f32 runs: one SGD step, its
-    parameters saved for the hosts to compare), and (h4) the hybrid's keys
-    and shapes for this model."""
+    parameters saved for the hosts to compare), and (h4, h5) the keys the
+    reference's hybrid pushes for this model on the run's mesh."""
     import torch
 
     from byteps_tpu_torch.models.convert import params_from_jax, params_to_jax
     from byteps_tpu_torch.models.transformer import Transformer, build_train_step
-    from byteps_tpu_torch.parallel.hybrid import tree_path
 
-    name, model_name, layers, _, overrides, hybrid = run
+    name, model_name, layers, axes, overrides, hybrid = run
     cfg = _mp_cfg(model_name, layers, overrides)
     model = Transformer(cfg, device=MP_DEVICE)
     model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, f"w {model_name} {layers}")),
@@ -5746,18 +5802,18 @@ def _mp_one_process(run: tuple, work: str) -> dict:
     if f32:
         _mp_save(_mp_dir(work, f"ref {name}"), params_to_jax(model.state_dict(), cfg))
     if hybrid:
-        out["keys"] = [[tree_path(n), list(p.shape)] for n, p in model.named_parameters()]
+        out["keys"] = _reference_keys(cfg, axes.get("pp", 1))
     return out
 
 
 def _mp_host_run(run: tuple, work: str) -> dict:
     """One run of phase (h) on this rank: the mesh, this rank's shards of
     the weights and its block of the tokens, MP_STEPS steps (f32: one),
-    each step's loss, ms and K1-K3 launches.  (h4) trains through
-    HybridDataParallel, each pull checked on the way: bitwise the host's
-    pushed sum over the group (one worker), averaged.  The f32 runs gather
-    the parameters after their step and compare them on rank 0 with the
-    one-process step's."""
+    each step's loss, ms and K1-K3 launches.  (h4) and
+    (h5) train through HybridDataParallel, each pull checked on the way:
+    bitwise the host's pushed sum over the group (one worker), averaged.
+    The f32 runs gather the parameters after their step and compare them
+    on rank 0 with the one-process step's."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -6301,13 +6357,16 @@ def _mp_check(label: str, runs: tuple, one: dict, res: dict, card: str) -> tuple
             continue
         if hybrid:
             for r, rr in enumerate(ranks):
-                # the hybrid's keys less their "Hybrid.<instance>" prefix
+                # the hybrid's keys less their "Hybrid.<instance>" prefix: the
+                # reference's stacked tree (_reference_keys)
                 if [[k[k.index("["):], shape] for k, shape in rr["keys"]] != one[name]["keys"]:
                     bad.append(f"{name} rank {r}: keys {rr['keys'][:3]}..., one process's "
                                f"{one[name]['keys'][:3]}...")
                 if rr["bad_pulls"]:
                     bad.append(f"{name} rank {r}: pulls not the host's sum: {rr['bad_pulls']}")
         ms = [[round(s["ms"], 1) for s in rr["steps"]] for rr in ranks]
+        keys_note = (f"; keys {len(ranks[0]['keys'])} the reference's stacked tree "
+                     f"({ranks[0]['keys'][-1]} last), pulls bitwise" if hybrid else "")
         models = {"bert": "BERT-large", "gpt2": "GPT-2 medium",
                   "moe": "GPT-2 medium with 8 experts (top-2)"}
         drops = ("" if model_name != "moe" else
@@ -6323,7 +6382,7 @@ def _mp_check(label: str, runs: tuple, one: dict, res: dict, card: str) -> tuple
               f"step per rank "
               f"{[rr['steps'][-1]['launches'] for rr in ranks]} at coordinates "
               f"{[rr['coords'] for rr in ranks]}"
-              f"{'; keys ' + str(len(ranks[0]['keys'])) + ' at full shapes, pulls bitwise' if hybrid else ''}"
+              f"{keys_note}"
               f"{drops}; on {card}", flush=True)
     return bad, launches
 
@@ -6340,81 +6399,110 @@ def _mp_draw(work: str, specs: list) -> None:
         os.replace(path + ".part", path)
 
 
-def train_model_parallel(card: str, after_h=None, one_process_i: bool = True) -> dict:
+#: the (model, depth) of phase (h)'s weights, drawn by a child of
+#: ``start_model_parallel``
+MP_WEIGHTS = [("bert", 4), ("bert", 2), ("gpt2", 2)]
+
+
+def start_model_parallel() -> dict:
+    """Phase (h)'s processes: a scheduler and two Python servers, one
+    launcher host of MP_RANKS ranks on this card over the staged transport
+    (each comes up, then waits for <work>/go), and a child that draws and
+    saves (h)'s weights (``init_params(seed=0)`` of MP_WEIGHTS).  ``main``
+    starts them ahead of the fusion phase: the ranks' start (25.0 s on a
+    fast host, 41.8 s on a slow one, PR 24 calls 1 and 2) then overlaps
+    the phases before (h).  Returns what ``train_model_parallel`` takes;
+    ``stop_model_parallel`` stops it."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
+           "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": str(MP_RANKS),
+           "BYTEPS_MESH_TRANSPORT": MP_TRANSPORT}
+    for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
+        env.pop(k, None)
+    port, fleet = _start_ps_processes(env, work)
+    path = os.path.join(work, "host.log")
+    with open(path, "w") as log:
+        host = _track(subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+             sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-host", work],
+            cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "MP_HOST_DEVICE": MP_HOST_DEVICE},
+            stdout=log, stderr=subprocess.STDOUT), "model parallel host", path)
+    draw = _track(subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs._mp_draw({work!r}, {MP_WEIGHTS!r})"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {MP_WEIGHTS}")
+    return {"work": work, "host": host, "path": path, "draw": draw, "procs": [host, draw] + fleet}
+
+
+def stop_model_parallel(started: dict) -> None:
+    """Stop what ``start_model_parallel`` started and remove its directory."""
+    _stop_processes([p for p in started["procs"] if p in _FLEET])
+    shutil.rmtree(started["work"], ignore_errors=True)
+
+
+def train_model_parallel(card: str, after_h=None, one_process_i: bool = True,
+                         started: dict = None) -> dict:
     """Phase (h), model parallelism, then phase (i) on the same host: a
     scheduler, two Python servers and one launcher host of MP_RANKS ranks
-    on this card over the staged transport, started together and warmed
-    up while this process draws the weights (``init_params(seed=0)``; two
-    processes draw phase (i)'s meanwhile) and runs every run alone in one
-    process on the card.  Then the host trains, each run in turn, its
+    on this card over the staged transport (``started``, or started here:
+    ``start_model_parallel``), warmed up while a child draws the weights
+    (``init_params(seed=0)``; two processes draw phase (i)'s meanwhile)
+    and this process runs every run alone in one process on the card.
+    Then the host trains, each run in turn, its
     ranks holding the shards ``shard_params_from_jax`` cuts: (h1)
     BERT-large at 4 layers on {pp:2, tp:2}, 4 microbatches; (h2) GPT-2
     medium at 2 layers on {sp:2, tp:2}, the ring of flash hops; (h3) the
-    same on Ulysses; (h4) BERT-large at 2 layers on {dp:2, tp:2} through
+    same on Ulysses; (h4) BERT-large at 2 layers on {dp:2, tp:2} and (h5)
+    on {dp:2, pp:2} (a layer a stage, 2 microbatches) through
     HybridDataParallel and the PS; and one f32 SGD step of (h1) and (h2) at
     2 layers.  Fails unless every bf16 run's losses are within
     MP_LOSS_RTOL of one process's on every rank, every f32 parameter
     gathered within atol MP_F32_ATOL + rtol MP_F32_RTOL of one process's,
-    every rank launched K1-K3 a step as its coordinates say, (h4)'s keys
-    are the one-process model's names at full shapes and every pull is
-    bitwise the host's pushed sum.  Prints the launches of every rank, the
+    every rank launched K1-K3 a step as its coordinates say, (h4)'s and
+    (h5)'s keys are the reference hybrid's (``_reference_keys``, from
+    param_shapes and the sorted order) and every pull is bitwise the
+    host's pushed sum.  Prints the launches of every rank, the
     step ms and the transport.  Calls ``after_h`` once (h) passed, then
     runs phase (i) (``_moe_generation``; without its one-process parts
     (i1) and (i4) unless ``one_process_i``).  Returns {"h": {run: [each
     rank's launches a step]}, "i": phase (i)'s}."""
     import torch
 
-    from byteps_tpu_torch.models.transformer import init_params
-
     label = "model parallel (h)"
     wall = time.perf_counter()
-    check_mp_kernel_shapes()
-    with tempfile.TemporaryDirectory() as work:
-        env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
-               "DMLC_PS_ROOT_URI": "127.0.0.1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
-               "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": str(MP_RANKS),
-               "BYTEPS_MESH_TRANSPORT": MP_TRANSPORT}
-        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS"):
-            env.pop(k, None)
-        port, fleet = _start_ps_processes(env, work)
-        path = os.path.join(work, "host.log")
-        with open(path, "w") as log:
-            host = _track(subprocess.Popen(
-                [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
-                 sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-host", work],
-                cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port,
-                               "MP_HOST_DEVICE": MP_HOST_DEVICE}, stdout=log,
-                stderr=subprocess.STDOUT), "model parallel host", path)
-        draws = [_track(subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke as cs; cs._mp_draw({work!r}, {specs!r})"],
-            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {specs}")
-            for specs in MOE_WEIGHTS if one_process_i or specs != MOE_WEIGHTS[-1]]
-        try:
-            t0 = time.perf_counter()
-            for model_name, layers in (("bert", 4), ("bert", 2), ("gpt2", 2)):
-                cfg = _mp_cfg(model_name, layers, {})
-                _mp_save(_mp_dir(work, f"w {model_name} {layers}"), init_params(cfg, seed=0))
-            weights_s = time.perf_counter() - t0
-            one = {run[0]: _mp_one_process(run, work) for run in MP_RUNS}
-            torch.cuda.empty_cache()
-            refs_s = time.perf_counter() - t0 - weights_s
-            t_go = time.perf_counter()
-            open(os.path.join(work, "go"), "w").close()
-            res = _mp_await(label, host, path, work, MP_RUNS)
-            host_s = time.perf_counter() - t_go
-            bad, launches = _mp_check(label, MP_RUNS, one, res, card)
-            print(f"{label}: weights drawn and saved {weights_s:.1f} s, one-process runs "
-                  f"{refs_s:.1f} s, the host's runs {host_s:.1f} s; the ranks' marks (s) "
-                  f"{[rr['marks'] for rr in res[MP_RUNS[-1][0]]]}; phase wall "
-                  f"{time.perf_counter() - wall:.1f} s", flush=True)
-            if bad:
-                open(os.path.join(work, "no-i"), "w").close()
-                fail(f"{label}: " + "; ".join(bad))
-            if after_h is not None:
-                after_h()
-            moe_i = _moe_generation(card, work, host, path, draws, one_process_i)
-        finally:
-            _stop_processes([host] + fleet + draws)
+    started = started or start_model_parallel()
+    work, host, path = started["work"], started["host"], started["path"]
+    draws = [_track(subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs._mp_draw({work!r}, {specs!r})"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {specs}")
+        for specs in MOE_WEIGHTS if one_process_i or specs != MOE_WEIGHTS[-1]]
+    try:
+        check_mp_kernel_shapes()
+        t0 = time.perf_counter()
+        if started["draw"].wait(timeout=PHASE_STALL_S) != 0:
+            fail(f"{label}: drawing the weights exited {started['draw'].returncode}")
+        weights_s = time.perf_counter() - t0
+        one = {run[0]: _mp_one_process(run, work) for run in MP_RUNS}
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0 - weights_s
+        t_go = time.perf_counter()
+        open(os.path.join(work, "go"), "w").close()
+        res = _mp_await(label, host, path, work, MP_RUNS)
+        host_s = time.perf_counter() - t_go
+        bad, launches = _mp_check(label, MP_RUNS, one, res, card)
+        print(f"{label}: waited for the weights {weights_s:.1f} s, one-process runs "
+              f"{refs_s:.1f} s, the host's runs {host_s:.1f} s; the ranks' marks (s) "
+              f"{[rr['marks'] for rr in res[MP_RUNS[-1][0]]]}; phase wall "
+              f"{time.perf_counter() - wall:.1f} s", flush=True)
+        if bad:
+            open(os.path.join(work, "no-i"), "w").close()
+            fail(f"{label}: " + "; ".join(bad))
+        if after_h is not None:
+            after_h()
+        moe_i = _moe_generation(card, work, host, path, draws, one_process_i)
+    finally:
+        _stop_processes(draws)
+        stop_model_parallel(started)
     return {"h": {run[0]: [launches[run[0]][r][-1] for r in range(MP_RANKS)] for run in MP_RUNS
                   if run[4].get("dtype") != "float32"}, "i": moe_i}
 
@@ -7464,13 +7552,24 @@ def main() -> None:
     mark("reshard (d)")
     planes["control"] = train_control(card)
     mark("control plane (e)")
-    planes["fusion"] = train_fusion(card)
-    mark("fusion")
-    planes.update(train_data_plane(card))
-    mark("data plane (f)")
-    planes["tenancy"] = train_tenancy(card)
-    mark("tenancy (g)")
-    model_parallel = train_model_parallel(card, after_h=lambda: mark("model parallel (h)"))
+    # phase (h)'s fleet and ranks come up while fusion, (f) and (g) run,
+    # and phase (g)'s while (f) runs
+    mp_started = start_model_parallel()
+    try:
+        planes["fusion"] = train_fusion(card)
+        mark("fusion")
+        g_started = start_tenancy()
+        try:
+            planes.update(train_data_plane(card))
+            mark("data plane (f)")
+            planes["tenancy"] = train_tenancy(card, started=g_started)
+        finally:
+            stop_tenancy(g_started)
+        mark("tenancy (g)")
+        model_parallel = train_model_parallel(card, after_h=lambda: mark("model parallel (h)"),
+                                              started=mp_started)
+    finally:
+        stop_model_parallel(mp_started)
     mark("moe and generation (i)")
     planes["observability"] = train_observability(card)
     mark("observability (j)")

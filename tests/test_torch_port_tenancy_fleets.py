@@ -267,13 +267,25 @@ CHAOS_ENV = {"BYTEPS_CHAOS_SEED": "11", "BYTEPS_CHAOS_DROP": "0.05",
              "BYTEPS_RPC_BACKOFF_S": "0.05", "BYTEPS_CONNECT_RETRY_S": "0.2"}
 
 
+#: the async tensor: 17,600 bytes a push, against the 12,500 bytes of idle
+#: credit (0.25 s) of its server's share of the quota (0.05 MB/s of 0.1)
+ASYNC_DIM = 4400
+
+
 @pytest.mark.parametrize("server", ["port", "ref"])
 def test_an_async_tenant_under_chaos_with_a_quota_is_the_exact_sum(monkeypatch, server):
     """``TestMultiTenantDemo::test_async_tenant_exact_under_chaos_retries``
     with the port's worker as job 2 under a quota: a sync tensor of job 1
     stays bitwise each step, the async tensor's pull is the exact running
     sum of every applied push, and its store advanced once a push, through
-    dropped and delayed frames and the quota's deferrals."""
+    dropped and delayed frames and the quota's deferrals.
+
+    The deferral does not depend on the host's speed: each step's async
+    push (ASYNC_DIM floats, one partition) costs its server 0.352 s of
+    the quota's 50,000 bytes a second, past the meter's 0.25 s of idle
+    credit, so the pull that follows it within 0.1 s waits for the meter
+    however long the steps take; it takes twelve steps whose pulls all
+    trail their pushes by more for none to wait."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -283,7 +295,7 @@ def test_an_async_tenant_under_chaos_with_a_quota_is_the_exact_sum(monkeypatch, 
     steps, dim = 12, 1024
     rng = np.random.default_rng(11)
     w = rng.standard_normal(dim).astype(np.float32)
-    running = np.zeros(dim, dtype=np.float32)
+    running = np.zeros(ASYNC_DIM, dtype=np.float32)
     with kits.fleet(monkeypatch, server, workers=1, servers=2, BYTEPS_VAN="chaos:tcp") as nodes:
         for k, v in {**CHAOS_ENV, "BYTEPS_JOB_ID": "2", "BYTEPS_JOB_QUOTA_MBPS": "0.1"}.items():
             monkeypatch.setenv(k, v)
@@ -296,7 +308,7 @@ def test_an_async_tenant_under_chaos_with_a_quota_is_the_exact_sum(monkeypatch, 
             agg = bps.push_pull(torch.from_numpy(grad), name="mt.sync", average=True).numpy()
             np.testing.assert_array_equal(agg, grad)
             w = w - np.float32(0.05) * agg
-            delta = rng.standard_normal(dim).astype(np.float32)
+            delta = rng.standard_normal(ASYNC_DIM).astype(np.float32)
             pulled = bps.push_pull(torch.from_numpy(delta), name="mt.async",
                                    average=False).numpy()
             running = running + delta

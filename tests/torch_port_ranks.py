@@ -217,6 +217,46 @@ def case_builders() -> dict:
     return out
 
 
+#: distributed_optimizer: SGD over the group's dp axis, BUILDER_STEPS steps
+#: of the step builders' batches, averaged and summed
+DIST_OPT_AVERAGE = (True, False)
+
+
+def case_dist_opt() -> dict:
+    """``optim.distributed_optimizer(SGD)`` over the global mesh's dp axis,
+    each rank on its rows of every step's global batch: the losses and
+    the parameters after each step, with ``average`` on and off."""
+    import byteps_tpu_torch as bps
+
+    bps.init(device="cpu")
+    r, n = bps.local_rank(), bps.local_size()
+    x, y = builder_data()
+    per = x.shape[1] // n
+    out = {}
+    for average in DIST_OPT_AVERAGE:
+        model = MLP(mlp_params())
+        opt = bps.distributed_optimizer(torch.optim.SGD(model.parameters(), lr=BUILDER_LR),
+                                        axis_names=("dp",), average=average)
+        losses, params = [], []
+        for s in range(BUILDER_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = mlp_loss(model, (torch.from_numpy(x[s][r * per:(r + 1) * per]),
+                                    torch.from_numpy(y[s][r * per:(r + 1) * per])))
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+            params.append({k: v.detach().numpy().copy() for k, v in model.named_parameters()})
+        out[average] = {"losses": losses, "params": params}
+    try:
+        bps.distributed_optimizer(torch.optim.SGD(model.parameters(), lr=BUILDER_LR),
+                                  axis_names=("tp",)).step()
+    except ValueError as e:
+        out["unknown_axis"] = str(e)
+    torch.distributed.barrier()
+    bps.shutdown()
+    return out
+
+
 #: the host-level degraded case: one host of two local ranks, its root's
 #: pushes dropped by the chaos van (one partition a tensor)
 DEGRADED_N = 300
@@ -324,11 +364,15 @@ MP_TRAIN = [
     ("moe_pp2", {"pp": 2}, {"moe": True, "microbatches": 2, "moe_top_k": 1}),
     ("moe_sp2_tp2", {"sp": 2, "tp": 2}, {"moe": True, "n_kv_heads": 2, "use_flash": True}),
     ("moe_dp2_sp2_hybrid", {"dp": 2, "sp": 2}, {"moe": True, "causal": True}),
+    # the hybrid over pipeline stages: the reference's stacked layer keys
+    ("dp2_pp2_hybrid", {"dp": 2, "pp": 2}, {"microbatches": 2}),
+    ("pp2_tp2_hybrid", {"pp": 2, "tp": 2}, {"causal": True, "attn_bias": True,
+                                            "microbatches": 2}),
 ]
 #: the MP_TRAIN cases that train through HybridDataParallel (one host, no
 #: PS: its hop is the identity at one worker), each rank's loss that of its
 #: dp replica, averaged over dp as the reference's hybrid averages it
-MP_HYBRID_TRAIN = {"moe_dp2_sp2_hybrid"}
+MP_HYBRID_TRAIN = {"moe_dp2_sp2_hybrid", "dp2_pp2_hybrid", "pp2_tp2_hybrid"}
 
 
 def attn_inputs(seed: int):
@@ -337,10 +381,10 @@ def attn_inputs(seed: int):
     return [r.normal(size=ATTN_SHAPE).astype(np.float32) for _ in range(4)]
 
 
-def mp_data(vocab: int, seq: int):
+def mp_data(vocab: int, seq: int, seed: int = MP_SEED):
     """(tokens, targets) of the training cases: next-token targets, a few
     ignored (< 0)."""
-    r = np.random.default_rng(MP_SEED)
+    r = np.random.default_rng(seed)
     tokens = r.integers(0, vocab, size=(MP_BATCH, seq)).astype(np.int32)
     targets = np.roll(tokens, -1, axis=1).astype(np.int32)
     targets[:, -1] = -1
@@ -606,6 +650,57 @@ def case_mp_hybrid() -> dict:
     return out
 
 
+#: the hybrid over pipeline stages on two hosts: each a {pp:2} group,
+#: tiny_test at two microbatches, its batch from seed MP_SEED + 1 + host
+MP_HYBRID_PP_AXES, MP_HYBRID_PP_CFG, MP_HYBRID_PP_STEPS = {"pp": 2}, {"microbatches": 2}, 3
+
+
+def case_mp_hybrid_pp() -> dict:
+    """One host of the hybrid over pipeline stages: HybridDataParallel on
+    this rank's stage of tiny_test, the host's batch, each step from the
+    reference's parameters of that step (``<out>/ref.mp_hybrid_pp.pkl``:
+    tiny_test's f32 loss is chaotic, see ``case_mp_train``).  The keys it
+    declared, every pull the root's PS hop brought back (whole, stacked),
+    the losses, the rank's stage and its parameters after the last step."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import transformer as tt
+    from byteps_tpu_torch.models.convert import shard_params_from_jax
+    from byteps_tpu_torch.parallel import HybridDataParallel
+    from byteps_tpu_torch.parallel import hybrid as hybrid_mod
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    bps.init(device="cpu")
+    host = int(os.environ["BYTEPS_GLOBAL_RANK"])
+    mesh = make_training_mesh(axis_sizes=MP_HYBRID_PP_AXES)
+    cfg = tt.tiny_test(**MP_HYBRID_PP_CFG)
+    model = tt.Transformer(cfg, device="cpu", mesh=mesh)
+    hdp = HybridDataParallel(model, torch.optim.SGD(model.parameters(), lr=MP_LR), mesh=mesh,
+                             param_specs=model.param_specs(),
+                             grad_sync_axes=model.grad_sync_axes())
+    pulls = []
+    real = hybrid_mod.synchronize
+
+    def tap(handle):
+        out = real(handle)
+        pulls.append(out.numpy().copy())
+        return out
+
+    hybrid_mod.synchronize = tap
+    tokens, targets = (torch.from_numpy(a) for a in
+                       mp_data(cfg.vocab_size, cfg.max_seq, seed=MP_SEED + 1 + host))
+    ref_params = wait_for(os.path.join(sys.argv[2], "ref.mp_hybrid_pp.pkl"))
+    losses = []
+    for k in range(MP_HYBRID_PP_STEPS):
+        model.load_state_dict(shard_params_from_jax(ref_params[k], cfg, mesh))
+        losses.append(hdp.step((tokens.long(), targets),
+                               lambda m, b: m.loss(*b, over=("pp", "sp"))))
+    out = {"keys": hdp.keys, "pulls": pulls, "losses": losses, "stage": mesh.axis_index("pp"),
+           "params": {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}}
+    torch.distributed.barrier()
+    bps.shutdown()
+    return out
+
+
 def case_cuda_clash() -> dict:
     """Two ranks that name one CUDA device, no staged transport: build_mesh
     raises before any process group comes up.  Then the same two ranks
@@ -699,12 +794,13 @@ def case_mesh_env() -> dict:
 
 
 CASES = {"bn_step": case_bn_step, "mesh_env": case_mesh_env,
-         "collectives": case_collectives, "hybrid": case_hybrid, "builders": case_builders,
-         "degraded": case_degraded, "elastic": case_elastic,
+         "collectives": case_collectives, "dist_opt": case_dist_opt, "hybrid": case_hybrid,
+         "builders": case_builders, "degraded": case_degraded, "elastic": case_elastic,
          "mp_attention": case_mp_attention, "mp_train": case_mp_train,
          "mp_generate": case_mp_generate, "dryrun": case_dryrun,
          "moe_ep": case_moe_ep,
-         "mp_hybrid": case_mp_hybrid, "cuda_clash": case_cuda_clash}
+         "mp_hybrid": case_mp_hybrid, "mp_hybrid_pp": case_mp_hybrid_pp,
+         "cuda_clash": case_cuda_clash}
 
 
 # --- the test side --------------------------------------------------------

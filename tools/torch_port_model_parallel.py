@@ -10,10 +10,11 @@ host's group up over NCCL, where chip_smoke.py puts the four ranks on one
 card over the staged transport.  The same runs and checks: (h1)
 BERT-large at 4 layers on {pp:2, tp:2}, (h2) GPT-2 medium at 2 layers on
 {sp:2, tp:2} (the ring of flash hops), (h3) the same on Ulysses, (h4)
-BERT-large at 2 layers on {dp:2, tp:2} through HybridDataParallel and two
-Python servers, and one f32 step of (h1) and (h2) at 2 layers; then phase
-(i)'s mesh parts: (i2) GPT-2 medium with 8 experts at 2 layers on {sp:2,
-tp:2} (no-drop, the defaults, one f32 step), (i3) on {dp:2, sp:2} through
+BERT-large at 2 layers on {dp:2, tp:2} and (h5) on {dp:2, pp:2} through
+HybridDataParallel and two Python servers, and one f32 step of (h1) and
+(h2) at 2 layers; then phase (i)'s mesh parts: (i2) GPT-2 medium with 8
+experts at 2 layers on {sp:2, tp:2} (no-drop, the defaults, one f32
+step), (i3) on {dp:2, sp:2} through
 HybridDataParallel, (i5) its f32 KV-cached decode on {sp:2, tp:2} and
 {pp:2, tp:2}, (i6) ``dryrun_multichip(4)``.  Each is held to one process
 of the same model, weights and tokens on GPU 0, every rank's K1-K3
