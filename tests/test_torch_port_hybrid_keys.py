@@ -45,10 +45,11 @@ def _reference_keys(axes, kw):
     mesh = make_training_mesh(n_devices=4, axis_sizes=sizes)
     rbps.init()
     try:
-        hdp = RefHybrid(lambda p, b: jnp.zeros(()),
-                        jt.init_params(cfg, seed=ranks.MP_SEED, pp_size=sizes["pp"]),
-                        optax.sgd(0.1), mesh=mesh, param_specs=jt.param_specs(cfg),
-                        batch_spec=P("dp", "sp"))
+        with kits.ref_hybrids_from_zero():
+            hdp = RefHybrid(lambda p, b: jnp.zeros(()),
+                            jt.init_params(cfg, seed=ranks.MP_SEED, pp_size=sizes["pp"]),
+                            optax.sgd(0.1), mesh=mesh, param_specs=jt.param_specs(cfg),
+                            batch_spec=P("dp", "sp"))
         return [(n, tuple(v.shape)) for n, v in
                 zip(hdp._names, jax.tree_util.tree_leaves(hdp.params))]
     finally:

@@ -27,6 +27,7 @@ from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 import byteps_tpu as rbps
+import torch_port_kits as kits
 import torch_port_ranks as ranks
 from byteps_tpu.parallel.hybrid import HybridDataParallel as RefHybrid
 from byteps_tpu_torch.comm.rendezvous import Scheduler
@@ -66,8 +67,9 @@ def _reference():
     specs = {k: P(*v) for k, v in ranks.MP_HYBRID_SPECS.items()}
     rbps.init()
     try:
-        hdp = RefHybrid(loss_fn, ranks.mlp_params(), optax.sgd(ranks.LR), mesh=mesh,
-                        param_specs=specs, batch_spec=(P("dp"), P("dp")))
+        with kits.ref_hybrids_from_zero():
+            hdp = RefHybrid(loss_fn, ranks.mlp_params(), optax.sgd(ranks.LR), mesh=mesh,
+                            param_specs=specs, batch_spec=(P("dp"), P("dp")))
         keys = [(hdp._prefix + n, tuple(v.shape)) for n, v in
                 zip(hdp._names, jax.tree_util.tree_leaves(hdp.params))]
         params, pulls = hdp.params, []

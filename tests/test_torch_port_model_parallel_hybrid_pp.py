@@ -32,6 +32,7 @@ import pytest
 from jax.sharding import PartitionSpec as P
 
 import byteps_tpu as rbps
+import torch_port_kits as kits
 import torch_port_mp_ref as mpref
 import torch_port_ranks as ranks
 from byteps_tpu.models import transformer as jt
@@ -77,10 +78,12 @@ def _reference():
     mesh = make_training_mesh(n_devices=pp, axis_sizes=ranks.MP_HYBRID_PP_AXES)
     rbps.init()
     try:
-        hdp = RefHybrid(lambda p, b: mpref.replica_loss(cfg, mesh, p, *b),
-                        jt.init_params(cfg, seed=ranks.MP_SEED, pp_size=pp),
-                        optax.sgd(ranks.MP_LR), mesh=mesh, param_specs=jt.param_specs(cfg),
-                        batch_spec=(P("dp", "sp"), P("dp", "sp")))
+        with kits.ref_hybrids_from_zero():
+            hdp = RefHybrid(lambda p, b: mpref.replica_loss(cfg, mesh, p, *b),
+                            jt.init_params(cfg, seed=ranks.MP_SEED, pp_size=pp),
+                            optax.sgd(ranks.MP_LR), mesh=mesh,
+                            param_specs=jt.param_specs(cfg),
+                            batch_spec=(P("dp", "sp"), P("dp", "sp")))
         keys = [(hdp._prefix + n, tuple(v.shape)) for n, v in
                 zip(hdp._names, jax.tree_util.tree_leaves(hdp.params))]
         params, pulls, before = hdp.params, [], []

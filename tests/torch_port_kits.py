@@ -141,6 +141,22 @@ def reset_runtime(monkeypatch):
     ref_chaos.reset_fault_budget(None)
 
 
+@contextlib.contextmanager
+def ref_hybrids_from_zero():
+    """The reference's HybridDataParallel numbers its instances per process
+    (``Hybrid.<i>``) while a port rank is a fresh process that starts at 0:
+    count the reference's from 0 too, whatever built one earlier in this
+    process, and put the count back after."""
+    from byteps_tpu.parallel.hybrid import HybridDataParallel
+
+    saved = HybridDataParallel._instances
+    HybridDataParallel._instances = 0
+    try:
+        yield
+    finally:
+        HybridDataParallel._instances = saved
+
+
 def env(monkeypatch, sched, workers: int, servers: int, **extra) -> None:
     for key, v in {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(sched.port),
                    "DMLC_NUM_WORKER": str(workers), "DMLC_NUM_SERVER": str(servers),
