@@ -198,11 +198,11 @@ Phases, each fatal on failure:
      term within 2e-2 of one process (and one f32 step per parameter), at
      the defaults finite and falling; (i3) the no-drop model on {dp:2,
      sp:2} through HybridDataParallel and the servers, the experts pushed
-     whole, every pull bitwise the host's sum; (i4) dense at 24 layers, 8
-     prompts of 128, 64 new greedy by recompute (K1) and by the KV cache:
-     tokens a second, K1's launches, at 2 layers f32 the builders' tokens
-     equal on the card and to the CPU's, bf16 prefill logits within the
-     model check's rule of f32; (i5) the f32 expert model's cached decode
+     whole, every pull bitwise the host's sum; (i4) dense at 2 layers, 8
+     prompts of 128, 64 new greedy: in f32 the builders' tokens (recompute
+     on K1, and the KV cache) equal on the card and to the CPU's, bf16
+     prefill logits within the model check's rule of f32 (at 24 layers:
+     phase (l)'s (l4)); (i5) the f32 expert model's cached decode
      on {sp:2, tp:2} and {pp:2, tp:2} equal to one process's; (i6)
      ``byteps_tpu_torch.dryrun.dryrun_multichip(4)`` on the host's ranks;
  26. the observability plane, phase (j) (``train_observability``; 2
@@ -243,7 +243,23 @@ Phases, each fatal on failure:
      after each step, the metric equal, K4 launched a step once a
      partition of at least 64 KiB, the shaped step at least its bytes to
      a server over the rate;
- 28. one JSON line listing the kernels, then the contract line
+ 28. GPT-2 medium from a HuggingFace checkpoint, phase (l) (``train_hf_gpt2``;
+     on the card while phase (i)'s host runs): the published widths (HF's
+     gpt2-medium config: 24 layers, 1024 wide, 16 heads, 1024 positions,
+     vocab 50257, gelu_new, eps 1e-5), a checkpoint in HF's key names and
+     layouts drawn from numpy seed 0 by a child started before fusion, nothing
+     downloaded and no ``transformers``: (l1) imported by
+     ``models.hf_import.load_gpt2_weights`` on a duck-typed model, every
+     parameter bitwise its HF tensor; (l2) an independent plain-torch GPT-2
+     forward in f32 at 24 layers on 2 sequences of 1024, the port's f32 model
+     within 1e-3 of it, its bf16 logits through K1 within 1.25 times dense
+     attention's distance; (l4) greedy decoding, both builders' f32 tokens at
+     2 layers equal to the independent forward's, at 24 layers in bf16
+     tokens a second and K1's launches; (l3) 3 AdamW steps of 8 sequences of
+     1024 through init -> DistributedOptimizer, bf16 on K1-K3 with the
+     attention biases: falling losses, the first within 2e-2 of the
+     independent forward's f32 loss, K1-K3 24/24/24 a step;
+ 29. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
@@ -276,6 +292,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -2434,6 +2451,7 @@ def hybrid_host(work: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     host = int(os.environ["DMLC_WORKER_ID"])
+    _host_go()
     t0 = time.perf_counter()
     bps.init()
     mesh = get_global_mesh()
@@ -2565,14 +2583,34 @@ def _check_server_rounds(label: str, taps: list) -> list:
     return [float(v) for v in (s0 > s1).mean(axis=0)]
 
 
-def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
-               server_env: dict = None, host_env=None) -> dict:
+def _host_go() -> None:
+    """A launcher host's start before its go: CUDA's context, the matmul
+    libraries and what the first optimizer step imports, then a wait for
+    the file HOST_GO names, which its phase writes (``_await_hosts``: at
+    once, or when the phase comes if ``main`` started the hosts ahead)."""
+    import torch
+
+    warm = torch.ones(8, 8, device="cuda" if torch.cuda.is_available() else "cpu",
+                      requires_grad=True)
+    warm.matmul(warm).sum().backward()
+    torch.optim.AdamW([warm], lr=1e-4, weight_decay=1e-4).step()
+    float(warm.sum())
+    deadline = time.monotonic() + PHASE_STALL_S
+    while not os.path.exists(os.environ["HOST_GO"]):
+        if time.monotonic() > deadline:
+            sys.exit(f"host {os.environ.get('DMLC_WORKER_ID')}: no go file after "
+                     f"{PHASE_STALL_S} s")
+        time.sleep(0.05)
+
+
+def _launch_hosts(env: dict, flag: str, work: str, server_env: dict = None,
+                  host_env=None) -> dict:
     """A scheduler and two servers (their logs in ``work``; the servers with
     ``server_env``), and HYBRID_HOSTS hosts, each `python -m
     byteps_tpu_torch.launcher.launch` running `chip_smoke.py <flag> <work>`
     as worker DMLC_WORKER_ID=h, with ``host_env(h, server ports)`` added;
-    waits for the hosts (at most ``timeout`` s), stops every process, and
-    fails unless every host exited 0.  Returns each host's output."""
+    each host comes up and waits for <work>/go (``_host_go``).  Returns what
+    ``_await_hosts`` takes."""
     server_ports: list = []
     port, procs = _start_ps_processes(env, work, server_env, server_ports)
     hosts = []
@@ -2584,8 +2622,22 @@ def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
                     [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                      sys.executable, os.path.join(REPO, "chip_smoke.py"), flag, work],
                     cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
+                                   "HOST_GO": os.path.join(work, "go"),
                                    **(host_env(h, server_ports) if host_env else {})},
                     stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
+    except BaseException:
+        _stop_processes(hosts + procs)
+        raise
+    return {"work": work, "fleet": procs, "hosts": hosts}
+
+
+def _await_hosts(label: str, started: dict, timeout: float) -> dict:
+    """Let the hosts ``_launch_hosts`` started go, wait for them (at most
+    ``timeout`` s), stop every process, and fail unless every host exited
+    0.  Returns each host's output."""
+    work, hosts = started["work"], started["hosts"]
+    open(os.path.join(work, "go"), "w").close()
+    try:
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
             if any(p.poll() not in (None, 0) for p in hosts):
@@ -2594,7 +2646,7 @@ def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
         rcs = [p.poll() for p in hosts]
     finally:
         _stop_processes(hosts)
-        _stop_processes(procs)
+        _stop_processes(started["fleet"])
     logs = {}
     for h in range(HYBRID_HOSTS):
         with open(os.path.join(work, f"host{h}.log")) as f:
@@ -2606,12 +2658,48 @@ def _run_hosts(label: str, env: dict, flag: str, work: str, timeout: float,
     return logs
 
 
-def train_hybrid(card: str) -> dict:
+def _start_hosts(prefix: str, launch) -> dict:
+    """``launch(work)`` (a ``_launch_hosts``) in a directory of its own:
+    a phase's fleet and hosts started ahead by ``main``, their start
+    overlapping the phases before it; ``stop_hosts`` stops them."""
+    work = tempfile.mkdtemp(prefix=prefix)
+    try:
+        return launch(work)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def stop_hosts(started: dict) -> None:
+    """Stop what ``_start_hosts`` started and remove its directory."""
+    _stop_processes([p for p in started["hosts"] + started["fleet"] if p in _FLEET])
+    shutil.rmtree(started["work"], ignore_errors=True)
+
+
+def _two_hosts_env() -> dict:
+    """The environment of a phase's two launcher hosts of one process each
+    (DMLC_NUM_WORKER=2, two servers, CRC32C) and of their fleet."""
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker"}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    return env
+
+
+def start_hybrid() -> dict:
+    """The hybrid phase's fleet and hosts, each host up and waiting for its
+    go: ``main`` starts them ahead of the compressed chain."""
+    return _start_hosts("chip_smoke_hybrid_",
+                        lambda work: _launch_hosts(_two_hosts_env(), "--hybrid-host", work))
+
+
+def train_hybrid(card: str, started: dict = None) -> dict:
     """The hybrid path: a scheduler and two servers of the port, and two
     hosts, each `python -m byteps_tpu_torch.launcher.launch` at
     BYTEPS_LOCAL_SIZE=1 on this card (NCCL refuses two ranks of one group on
     one GPU, so each host's group is one process), DMLC_NUM_WORKER=2: the
-    port's first run with two workers, real sums on the servers.  Checks the
+    port's first run with two workers, real sums on the servers
+    (``started``, or started here: ``start_hybrid``).  Checks the
     hosts' one-rank NCCL collectives, the 2-layer equivalence with one
     process on the combined batch, and BERT-large at HYBRID_LAYERS: falling
     losses, both hosts' parameters bitwise equal, bytes against the
@@ -2623,13 +2711,11 @@ def train_hybrid(card: str) -> dict:
 
     label = "hybrid"
     wall = time.perf_counter()
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker"}
-    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    started = started or start_hybrid()
+    work = started["work"]
     results = []
-    with tempfile.TemporaryDirectory() as work:
-        logs = _run_hosts(label, env, "--hybrid-host", work, timeout=420)
+    try:
+        logs = _await_hosts(label, started, timeout=420)
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"host{h}.json")) as f:
                 results.append(json.load(f))
@@ -2639,6 +2725,8 @@ def train_hybrid(card: str) -> dict:
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"host{h}.rounds.pkl"), "rb") as f:
                 taps.append(pickle.load(f))
+    finally:
+        stop_hosts(started)
     led = _check_server_rounds(label, taps)
     for h, text in logs.items():
         for line in text.splitlines():
@@ -3300,6 +3388,7 @@ def async_host(work: str) -> None:
     from byteps_tpu_torch.ops import onebit_device as ob
 
     host = int(os.environ["DMLC_WORKER_ID"])
+    _host_go()
     bps.init()
     _, model, tok, tgt = _bert(ASYNC_LAYERS)
     rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
@@ -3360,25 +3449,15 @@ def async_host(work: str) -> None:
         json.dump(out, f)
 
 
-def train_async(card: str) -> dict:
-    """Async on the distributed path.  Server-wide (BYTEPS_ENABLE_ASYNC=1),
-    once with Python-engine servers and once with native ones: one worker
-    with local AdamW pushes its weight deltas and adopts the pulled store,
-    held bitwise to prev + delta at every pull and within ASYNC_ATOL of bare
-    AdamW on the card after ASYNC_STEPS steps.  Per key with bounded
-    staleness (BYTEPS_ASYNC=1, BYTEPS_STALENESS_BOUND=1) on two launcher
-    hosts of one process each through two Python servers, the same loop for
-    ASYNC_HOST_STEPS steps with host 1 lagging two rounds behind in some:
-    finite losses on both hosts, pulls parked by the servers, and no pull
-    answered with a store more than one round ahead of the other host's
-    applied pushes.  Prints the servers' parked pulls.  Returns the
-    kernels' launches a step of the server-wide run on Python servers."""
+def _async_server_wide(card: str, label: str) -> tuple:
+    """``train_async``'s server-wide runs, on Python and on native servers,
+    each against bare AdamW on the card.  Returns (the failures, the
+    kernels' launches a step of the run on Python servers, the launches
+    expected a step)."""
     import torch
 
     import byteps_tpu_torch as bps
 
-    label = "async"
-    wall = time.perf_counter()
     # bare AdamW on the card, the same weights, tokens and steps; and AdamW
     # with the store's rounding (p = prev + (p - prev)) done on the card
     bare, bare_losses = {}, {}
@@ -3445,20 +3524,39 @@ def train_async(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # per key, bounded staleness 1, two hosts
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", "BYTEPS_ASYNC": "1",
-           "BYTEPS_STALENESS_BOUND": str(ASYNC_BOUND)}
-    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
-    with tempfile.TemporaryDirectory() as work:
-        logs = _run_hosts(f"{label}, per key", env, "--async-host", work, timeout=420)
+    return bad, a_step, want_step
+
+
+def train_async(card: str) -> dict:
+    """Async on the distributed path.  Server-wide (BYTEPS_ENABLE_ASYNC=1),
+    once with Python-engine servers and once with native ones: one worker
+    with local AdamW pushes its weight deltas and adopts the pulled store,
+    held bitwise to prev + delta at every pull and within ASYNC_ATOL of bare
+    AdamW on the card after ASYNC_STEPS steps.  Per key with bounded
+    staleness (BYTEPS_ASYNC=1, BYTEPS_STALENESS_BOUND=1) on two launcher
+    hosts of one process each through two Python servers, the same loop for
+    ASYNC_HOST_STEPS steps with host 1 lagging two rounds behind in some:
+    finite losses on both hosts, pulls parked by the servers, and no pull
+    answered with a store more than one round ahead of the other host's
+    applied pushes.  Prints the servers' parked pulls.  Returns the
+    kernels' launches a step of the server-wide run on Python servers."""
+    label = "async"
+    wall = time.perf_counter()
+    # per key, bounded staleness 1, two hosts: their fleet and hosts come up
+    # while the server-wide runs go
+    env = {**_two_hosts_env(), "BYTEPS_ASYNC": "1", "BYTEPS_STALENESS_BOUND": str(ASYNC_BOUND)}
+    per_key = _start_hosts("chip_smoke_async_",
+                           lambda work: _launch_hosts(env, "--async-host", work))
+    try:
+        bad, a_step, want_step = _async_server_wide(card, label)
+        _await_hosts(f"{label}, per key", per_key, timeout=420)
         results = []
         for h in range(HYBRID_HOSTS):
-            with open(os.path.join(work, f"async{h}.json")) as f:
+            with open(os.path.join(per_key["work"], f"async{h}.json")) as f:
                 results.append(json.load(f))
-        report = _server_report(work)
-    del logs
+        report = _server_report(per_key["work"])
+    finally:
+        stop_hosts(per_key)
     for r in results:
         print(f"{label}, per key, host {r['host']}: BYTEPS_ASYNC=1 BYTEPS_STALENESS_BOUND="
               f"{ASYNC_BOUND}, BERT-large, batch {HYBRID_BATCH} a host, local AdamW and the "
@@ -3529,6 +3627,7 @@ def heal_host(work: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     host = int(os.environ["DMLC_WORKER_ID"])
+    _host_go()
     bps.init()
     cfg = get_config()
     deadline = cfg.rpc_deadline_s
@@ -3590,10 +3689,30 @@ def heal_host(work: str) -> None:
         json.dump(out, f)
 
 
-def train_heal(card: str) -> dict:
+def _heal_host_env(h: int, ports: list) -> dict:
+    """Host 1 of phase (b) drops every push to server 0 (under a fault
+    budget its heal_host opens) and gives up after one retry."""
+    if h != 1:
+        return {}
+    return {"BYTEPS_CHAOS_DROP": "1.0", "BYTEPS_CHAOS_OPS": "push",
+            "BYTEPS_CHAOS_TARGET_PORT": str(ports[0]), "BYTEPS_CHAOS_FAULT_BUDGET": "0",
+            "BYTEPS_RPC_RETRIES": "1", "BYTEPS_RPC_DEADLINE_S": "1",
+            "BYTEPS_RPC_BACKOFF_S": "0.05"}
+
+
+def start_heal() -> dict:
+    """Phase (b)'s fleet and hosts, each host up and waiting for its go:
+    ``main`` starts them ahead of phase (a)."""
+    return _start_hosts("chip_smoke_heal_", lambda work: _launch_hosts(
+        _two_hosts_env(), "--heal-host", work, server_env={"BYTEPS_VAN": "chaos:tcp"},
+        host_env=_heal_host_env))
+
+
+def train_heal(card: str, started: dict = None) -> dict:
     """Phase (b): the one-sided heal.  A scheduler, two Python servers
     under the chaos van (no faults of their own) and two launcher hosts of
-    one process each (``heal_host``), bare onebit, HEAL_LAYERS deep.  Host 1's
+    one process each (``heal_host``; ``started``, or started here:
+    ``start_heal``), bare onebit, HEAL_LAYERS deep.  Host 1's
     pushes to server 0 die in one step until its retries give up
     (BYTEPS_RPC_RETRIES=1): its client heals in place (RESYNC_QUERY, the
     journaled rounds replayed, a fresh attempt).  Fails unless the heal
@@ -3603,27 +3722,17 @@ def train_heal(card: str) -> dict:
     step in the faulted run."""
     label = "one-sided heal"
     wall = time.perf_counter()
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker"}
-    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
-
-    def host_env(h: int, ports: list) -> dict:
-        if h != 1:
-            return {}
-        return {"BYTEPS_CHAOS_DROP": "1.0", "BYTEPS_CHAOS_OPS": "push",
-                "BYTEPS_CHAOS_TARGET_PORT": str(ports[0]), "BYTEPS_CHAOS_FAULT_BUDGET": "0",
-                "BYTEPS_RPC_RETRIES": "1", "BYTEPS_RPC_DEADLINE_S": "1",
-                "BYTEPS_RPC_BACKOFF_S": "0.05"}
-
-    with tempfile.TemporaryDirectory() as work:
-        _run_hosts(label, env, "--heal-host", work, timeout=420,
-                   server_env={"BYTEPS_VAN": "chaos:tcp"}, host_env=host_env)
+    started = started or start_heal()
+    work = started["work"]
+    try:
+        _await_hosts(label, started, timeout=420)
         results = []
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"heal{h}.json")) as f:
                 results.append(json.load(f))
         report = _server_report(work)
+    finally:
+        stop_hosts(started)
     bad = []
     for r in results:
         clean, faults = r["clean"], r["faults"]
@@ -5149,6 +5258,7 @@ def rowsparse_host(work: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     host = int(os.environ["DMLC_WORKER_ID"])
+    _host_go()
     bps.init()
     cfg, model, tok, tgt = _bert(ROWSPARSE_LAYERS)
     rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
@@ -5231,7 +5341,7 @@ def train_rowsparse(card: str) -> dict:
            "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ROWSPARSE_ENV}
     env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
     with tempfile.TemporaryDirectory() as work:
-        _run_hosts(label, env, "--rowsparse-host", work, timeout=300)
+        _await_hosts(label, _launch_hosts(env, "--rowsparse-host", work), timeout=300)
         results = []
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"rowsparse{h}.json")) as f:
@@ -5973,10 +6083,10 @@ def check_mp_kernel_shapes() -> None:
 
 # --- phase (i): mixture-of-experts and generation ------------------------------
 
-#: phase (i)'s weights, drawn by two processes beside phase (h): GPT-2 medium
-#: with expert layers at 4 and 2 layers, and dense at 24 (the dense 2-layer
-#: weights are phase (h)'s)
-MOE_WEIGHTS = ([("moe", 4), ("moe", 2)], [("gpt2", 24)])
+#: phase (i)'s weights, drawn by a process beside phase (h): GPT-2 medium
+#: with expert layers at 4 and 2 layers (the dense 2-layer weights are phase
+#: (h)'s; (i4)'s dense 24-layer generation runs on phase (l)'s checkpoint)
+MOE_WEIGHTS = [("moe", 4), ("moe", 2)]
 #: (i1)'s depth, (i2)-(i5)'s, and the sequences of every training run (the
 #: first MOE_F32_CPU_ROWS of them for (i1)'s f32 step against the CPU: the
 #: CPU takes seconds a sequence at GPT-2 medium's widths)
@@ -6047,7 +6157,7 @@ def _moe_host_run(run: tuple, work: str) -> dict:
 def check_moe_kernel_shapes() -> None:
     """K1-K3 at the shapes phase (i) gives them, against their plain
     versions: GPT-2 medium's 16 heads at S 1024 causal on MOE_BATCH
-    sequences (one process: (i1) and (i4)'s recompute), and a causal
+    sequences (one process: (i1), and (l)'s recompute), and a causal
     ring's diagonal and full hops on MOE_BATCH sequences of 512 with 8
     tp-local heads ((i2))."""
     import torch
@@ -6149,42 +6259,24 @@ def _generate_timed(gen, prompt, n_new: int) -> tuple:
 
 
 def _generation_one_process(card: str, work: str) -> tuple:
-    """(i4): GPT-2 medium, dense, at 24 layers alone on the card, bf16,
-    flash: GEN_PROMPTS prompts of GEN_PROMPT_LEN tokens, GEN_NEW new
-    tokens greedy by recompute (``build_generate``: K1 causal on the
-    max_seq window, once a layer a token) and with the KV cache
-    (``build_generate_cached``: no kernel), each after a warm-up call of 2
-    tokens, tokens a second and K1's launches.  At 2 layers in f32 the two
-    builders' tokens on the card and the cached builder's on the CPU are
-    equal; in bf16 the prefill logits (flash) are no further from the
-    card's f32 logits, on average, than 1.25 times the dense attention's
-    bf16 logits are (the model check's rule); the share of bf16 tokens
-    equal to f32's is printed.  Returns (the failures, the result)."""
+    """(i4): GPT-2 medium, dense, at 2 layers alone on the card, GEN_PROMPTS
+    prompts of GEN_PROMPT_LEN tokens, GEN_NEW new tokens greedy: in f32
+    the two builders' tokens (``build_generate``, K1 causal on the max_seq
+    window; ``build_generate_cached``) on the card and the cached
+    builder's on the CPU are equal; in bf16 the prefill logits (flash) are
+    no further from the card's f32 logits, on average, than 1.25 times the
+    dense attention's bf16 logits are (the model check's rule); the share
+    of bf16 tokens equal to f32's is printed.  The 24-layer generation
+    (tokens a second, K1's launches) is phase (l)'s (l4), on the imported
+    checkpoint.  Returns (the failures, the result)."""
     import torch
 
     from byteps_tpu_torch.models.convert import params_from_jax
     from byteps_tpu_torch.models.transformer import (Transformer, build_forward,
                                                      build_generate, build_generate_cached)
 
-    bad, out = [], {}
-    cfg = _mp_cfg("gpt2", 24, {})
-    prompt = _gen_prompt(cfg)
-    model = Transformer(cfg, device=MP_DEVICE)
-    model.load_state_dict(params_from_jax(_mp_load(_mp_dir(work, "w gpt2 24")), cfg))
-    tokens = {}
-    for name, build in (("recompute", build_generate), ("cached", build_generate_cached)):
-        gen = build(model)
-        gen(prompt, 2)
-        tokens[name], s, launches = _generate_timed(gen, prompt, GEN_NEW)
-        want = {"flash_fwd": GEN_NEW * cfg.n_layers if name == "recompute" else 0,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-        if {k: launches.get(k, 0) for k in want} != want:
-            bad.append(f"i4 {name}: launches {launches}, expected {want}")
-        out[name] = {"tokens_per_s": GEN_PROMPTS * GEN_NEW / s, "s": s, "launches": launches}
-    agree = float((tokens["recompute"] == tokens["cached"])[:, GEN_PROMPT_LEN:].mean())
-    del model
-    torch.cuda.empty_cache()
-
+    bad = []
+    prompt = _gen_prompt(_mp_cfg("gpt2", 2, {}))
     sd = params_from_jax(_mp_load(_mp_dir(work, "w gpt2 2")), _mp_cfg("gpt2", 2, {}))
     runs = {}
     for label, overrides, dev in (("f32", {"dtype": "float32"}, MP_DEVICE),
@@ -6209,22 +6301,16 @@ def _generation_one_process(card: str, work: str) -> tuple:
         bad.append(f"i4 bf16 prefill logits: flash {ef:.3e} from f32 on average, dense "
                    f"attention {ed:.3e}")
     same = float((runs["bf16"]["cached"] == f32["cached"])[:, GEN_PROMPT_LEN:].mean())
-    print(f"moe and generation (i) i4: GPT-2 medium at 24 layers, bf16, flash, "
-          f"{GEN_PROMPTS} prompts of {GEN_PROMPT_LEN} tokens, {GEN_NEW} new greedy: recompute "
-          f"(max_seq window {cfg.max_seq}) {out['recompute']['tokens_per_s']:.1f} tokens/s "
-          f"({out['recompute']['s']:.3f} s), K1 launches {out['recompute']['launches']}; KV "
-          f"cache {out['cached']['tokens_per_s']:.1f} tokens/s ({out['cached']['s']:.3f} s), "
-          f"launches {out['cached']['launches']}; new tokens equal between the two "
-          f"{agree:.3f}; at 2 layers f32: the builders on the card and the CPU's cached "
-          f"tokens equal {'i4 f32' not in ' '.join(bad)}; bf16 prefill logits mean abs from "
-          f"f32 {ef:.3e} (dense attention {ed:.3e}); bf16 greedy tokens equal to f32's "
-          f"{same:.3f}; on {card}", flush=True)
-    out.update(agree=agree, bf16_same=same)
-    return bad, out
+    print(f"moe and generation (i) i4: GPT-2 medium at 2 layers, {GEN_PROMPTS} prompts of "
+          f"{GEN_PROMPT_LEN} tokens, {GEN_NEW} new greedy: in f32 the builders on the card "
+          f"and the CPU's cached tokens equal {'i4 f32' not in ' '.join(bad)}; bf16 prefill "
+          f"logits mean abs from f32 {ef:.3e} (dense attention {ed:.3e}); bf16 greedy tokens "
+          f"equal to f32's {same:.3f} (at 24 layers: phase (l)'s l4); on {card}", flush=True)
+    return bad, {"bf16_same": same}
 
 
 def _moe_generation(card: str, work: str, host, path: str, draws: list,
-                    one_process: bool) -> dict:
+                    one_process: bool, beside=None) -> dict:
     """Phase (i), mixture-of-experts and generation, on phase (h)'s host
     (``train_model_parallel`` runs it; its ranks wait for <work>/go-i).
     K1-K3 at the phase's shapes against their plain versions; the
@@ -6239,9 +6325,11 @@ def _moe_generation(card: str, work: str, host, path: str, draws: list,
     one f32 step of (i2) within atol MP_F32_ATOL + rtol MP_F32_RTOL per
     parameter, (i5) the f32 model's cached decode on {sp:2, tp:2} and
     {pp:2, tp:2} (tokens equal one process's), (i6) ``dryrun_multichip``
-    on the four ranks.  After the host, (i4) (``_generation_one_process``)
-    alone on the card when ``one_process``.  Fails on any failure.
-    Returns {"i1": K1-K3 a step, "i2": each rank's, "i4": K1 a call}."""
+    on the four ranks.  ``beside()``, when given, runs after (i1) while
+    the host's runs go on.  After the host, (i4)
+    (``_generation_one_process``) alone on the card when ``one_process``.
+    Fails on any failure.  Returns {"i1": K1-K3 a step, "i2": each rank's,
+    "beside": what ``beside`` returned}."""
     import torch
 
     from byteps_tpu_torch.models.convert import params_from_jax
@@ -6266,6 +6354,10 @@ def _moe_generation(card: str, work: str, host, path: str, draws: list,
     if one_process:
         b, result["i1"] = _moe_one_process(card, work)
         bad += b
+        gc.collect()
+        torch.cuda.empty_cache()
+    if beside is not None:
+        result["beside"] = beside()
         gc.collect()
         torch.cuda.empty_cache()
     res = _mp_await(label, host, path, work, MOE_HOST_RUNS)
@@ -6303,8 +6395,7 @@ def _moe_generation(card: str, work: str, host, path: str, draws: list,
           f"{[round(rr['s'], 2) for rr in res['i6']]}", flush=True)
     if one_process:
         gc.collect()
-        b, result["i4"] = _generation_one_process(card, work)
-        bad += b
+        bad += _generation_one_process(card, work)[0]
     print(f"{label}: weights drawn beside phase (h), waited {draws_s:.1f} s; one-process "
           f"references {refs_s:.1f} s; the host's runs {host_s:.1f} s; the ranks' marks (s) "
           f"{[rr['marks'] for rr in res['i6']]}; phase wall {time.perf_counter() - wall:.1f} s",
@@ -6441,12 +6532,12 @@ def stop_model_parallel(started: dict) -> None:
 
 
 def train_model_parallel(card: str, after_h=None, one_process_i: bool = True,
-                         started: dict = None) -> dict:
+                         started: dict = None, beside_i=None) -> dict:
     """Phase (h), model parallelism, then phase (i) on the same host: a
     scheduler, two Python servers and one launcher host of MP_RANKS ranks
     on this card over the staged transport (``started``, or started here:
     ``start_model_parallel``), warmed up while a child draws the weights
-    (``init_params(seed=0)``; two processes draw phase (i)'s meanwhile)
+    (``init_params(seed=0)``; another draws phase (i)'s meanwhile)
     and this process runs every run alone in one process on the card.
     Then the host trains, each run in turn, its
     ranks holding the shards ``shard_params_from_jax`` cuts: (h1)
@@ -6464,8 +6555,9 @@ def train_model_parallel(card: str, after_h=None, one_process_i: bool = True,
     host's pushed sum.  Prints the launches of every rank, the
     step ms and the transport.  Calls ``after_h`` once (h) passed, then
     runs phase (i) (``_moe_generation``; without its one-process parts
-    (i1) and (i4) unless ``one_process_i``).  Returns {"h": {run: [each
-    rank's launches a step]}, "i": phase (i)'s}."""
+    (i1) and (i4) unless ``one_process_i``; ``beside_i``, when given, is
+    called while the host runs phase (i), its result under "beside").
+    Returns {"h": {run: [each rank's launches a step]}, "i": phase (i)'s}."""
     import torch
 
     label = "model parallel (h)"
@@ -6473,9 +6565,9 @@ def train_model_parallel(card: str, after_h=None, one_process_i: bool = True,
     started = started or start_model_parallel()
     work, host, path = started["work"], started["host"], started["path"]
     draws = [_track(subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke as cs; cs._mp_draw({work!r}, {specs!r})"],
-        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {specs}")
-        for specs in MOE_WEIGHTS if one_process_i or specs != MOE_WEIGHTS[-1]]
+        [sys.executable, "-c",
+         f"import chip_smoke as cs; cs._mp_draw({work!r}, {MOE_WEIGHTS!r})"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), f"weights {MOE_WEIGHTS}")]
     try:
         check_mp_kernel_shapes()
         t0 = time.perf_counter()
@@ -6499,7 +6591,7 @@ def train_model_parallel(card: str, after_h=None, one_process_i: bool = True,
             fail(f"{label}: " + "; ".join(bad))
         if after_h is not None:
             after_h()
-        moe_i = _moe_generation(card, work, host, path, draws, one_process_i)
+        moe_i = _moe_generation(card, work, host, path, draws, one_process_i, beside_i)
     finally:
         _stop_processes(draws)
         stop_model_parallel(started)
@@ -6528,6 +6620,400 @@ def _mp_await(label: str, host, path: str, work: str, runs: tuple) -> dict:
             with open(os.path.join(work, f"{_mp_dir('', run[0])}.{r}.json")) as f:
                 res[run[0]].append(json.load(f))
     return res
+
+
+# --- phase (l): GPT-2 medium from a HuggingFace checkpoint ---------------------
+
+#: GPT-2 medium as HF's gpt2-medium config.json states it (the GPT-2 paper's
+#: 345M row, Radford et al. 2019, Table 2): the fields the importer reads
+HF_GPT2_MEDIUM = {"vocab_size": 50257, "n_positions": 1024, "n_embd": 1024, "n_layer": 24,
+                  "n_head": 16, "n_inner": None, "layer_norm_epsilon": 1e-5,
+                  "activation_function": "gelu_new"}
+#: (l2)'s sequences; (l3)'s sequences and AdamW steps; (l4)'s new tokens
+#: (on GEN_PROMPTS prompts of GEN_PROMPT_LEN) and the depth of its f32 run
+HF_CHECK_ROWS, HF_BATCH, HF_STEPS, HF_NEW, HF_DECODE_LAYERS = 2, 8, 3, 32, 2
+#: (l2): the port's f32 logits against the independent forward's, max abs
+#: (check_full_depth's rule); (l3): its first bf16 loss against the
+#: independent forward's f32 loss, relative (MP_LOSS_RTOL's)
+HF_F32_ATOL, HF_LOSS_RTOL = 1e-3, 2e-2
+#: (l3)'s AdamW rate, a GPT-2 fine-tuning rate: at 1e-4 the third loss rose
+#: past the first (each step moves every c_proj weight, std 0.02 / sqrt(48),
+#: by ~3% of its std)
+HF_LR = 2e-5
+
+
+def _hf_keys(n_layer: int) -> list:
+    """HF GPT2LMHeadModel's state-dict keys, ``lm_head.weight`` (tied to the
+    token embedding) aside."""
+    keys = ["transformer.wte.weight", "transformer.wpe.weight"]
+    for i in range(n_layer):
+        keys += [f"transformer.h.{i}.{k}" for k in (
+            "ln_1.weight", "ln_1.bias", "attn.c_attn.weight", "attn.c_attn.bias",
+            "attn.c_proj.weight", "attn.c_proj.bias", "ln_2.weight", "ln_2.bias",
+            "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight", "mlp.c_proj.bias")]
+    return keys + ["transformer.ln_f.weight", "transformer.ln_f.bias"]
+
+
+def _hf_draw(path: str) -> None:
+    """Draw GPT-2 medium's checkpoint in HF's key names and layouts from
+    numpy seed 0 and save it under ``path`` (``python -c`` in a process of
+    its own, started before the phase): weights normal with std 0.02 as HF
+    initialises them (the residual projections ``c_proj`` 0.02 /
+    sqrt(2 n_layer)), LayerNorm scales 1 + N(0, 0.05), every bias N(0, 0.02)
+    so that a bias mapped wrong cannot hide behind zeros.  f32; Conv1D
+    weights (in, out)."""
+    c = HF_GPT2_MEDIUM
+    d, f, n = c["n_embd"], c["n_inner"] or 4 * c["n_embd"], c["n_layer"]
+    shapes = (("wte.weight", (c["vocab_size"], d)), ("wpe.weight", (c["n_positions"], d)),
+              ("c_attn.weight", (d, 3 * d)), ("c_attn.bias", (3 * d,)),
+              ("attn.c_proj.weight", (d, d)), ("c_fc.weight", (d, f)), ("c_fc.bias", (f,)),
+              ("mlp.c_proj.weight", (f, d)))
+    rng = np.random.default_rng(0)
+    os.makedirs(path + ".part")
+    for key in _hf_keys(n):
+        shape = next((shp for suffix, shp in shapes if key.endswith(suffix)), (d,))
+        z = rng.standard_normal(shape, dtype=np.float32)
+        if "ln_" in key and key.endswith(".weight"):
+            arr = 1 + np.float32(0.05) * z
+        elif key.endswith("c_proj.weight"):
+            arr = np.float32(0.02 / math.sqrt(2 * n)) * z
+        else:
+            arr = np.float32(0.02) * z
+        np.save(os.path.join(path + ".part", key + ".npy"), arr)
+    os.replace(path + ".part", path)
+
+
+def start_hf_gpt2() -> dict:
+    """Phase (l)'s checkpoint, drawn by a child (``_hf_draw``): ``main``
+    starts it with phase (h)'s processes, so the draw overlaps the phases
+    before (l).  ``stop_hf_gpt2`` stops it and removes its directory."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    path = os.path.join(work, "gpt2-medium")
+    draw = _track(subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs._hf_draw({path!r})"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}), "GPT-2 medium checkpoint")
+    return {"work": work, "path": path, "draw": draw}
+
+
+def stop_hf_gpt2(started: dict) -> None:
+    _stop_processes([started["draw"]])
+    shutil.rmtree(started["work"], ignore_errors=True)
+
+
+def _hf_model(state: dict, n_layer: int):
+    """A GPT-2 model as the importer reads one, with no ``transformers``
+    behind it: a namespace ``config`` (HF_GPT2_MEDIUM at ``n_layer``) and a
+    ``state_dict()`` in HF's key names, ``lm_head.weight`` tied as HF's."""
+    config = types.SimpleNamespace(**{**HF_GPT2_MEDIUM, "n_layer": n_layer})
+    return types.SimpleNamespace(config=config, state_dict=lambda: {
+        **state, "lm_head.weight": state["transformer.wte.weight"]})
+
+
+def _hf_sources(hf: dict, n_layer: int) -> dict:
+    """The port's state-dict name → the HF tensor it must equal, mapped here
+    by hand: Conv1D weights are (in, out) as the port's; c_attn's thirds
+    on its output axis are q, k and v, each split by head; c_proj's input
+    axis is (head, d_head); the head is the token embedding transposed."""
+    c = HF_GPT2_MEDIUM
+    d, h = c["n_embd"], c["n_head"]
+    src = {"embed": hf["transformer.wte.weight"], "pos": hf["transformer.wpe.weight"],
+           "ln_f_s": hf["transformer.ln_f.weight"], "ln_f_b": hf["transformer.ln_f.bias"],
+           "head": hf["transformer.wte.weight"].t()}
+    for i in range(n_layer):
+        p = f"transformer.h.{i}."
+        q, k, v = hf[p + "attn.c_attn.weight"].split(d, dim=1)
+        qb, kb, vb = hf[p + "attn.c_attn.bias"].split(d)
+        src.update({f"layers.{i}.{name}": t for name, t in {
+            "ln1_s": hf[p + "ln_1.weight"], "ln1_b": hf[p + "ln_1.bias"],
+            "ln2_s": hf[p + "ln_2.weight"], "ln2_b": hf[p + "ln_2.bias"],
+            "wq": q.reshape(d, h, d // h), "wk": k.reshape(d, h, d // h),
+            "wv": v.reshape(d, h, d // h), "wq_b": qb.reshape(h, d // h),
+            "wk_b": kb.reshape(h, d // h), "wv_b": vb.reshape(h, d // h),
+            "wo": hf[p + "attn.c_proj.weight"].reshape(h, d // h, d),
+            "wo_b": hf[p + "attn.c_proj.bias"],
+            "w1": hf[p + "mlp.c_fc.weight"], "b1": hf[p + "mlp.c_fc.bias"],
+            "w2": hf[p + "mlp.c_proj.weight"], "b2": hf[p + "mlp.c_proj.bias"]}.items()})
+    return src
+
+
+def gpt2_forward(hf: dict, n_layer: int, tokens):
+    """GPT-2's forward in plain torch, straight from an HF state dict and
+    nothing of the port's model, in the tensors' dtype: Conv1D products
+    ``x @ W + b``, heads split, a causal softmax, gelu_new written out,
+    LayerNorm at eps 1e-5, the head ``wte.T``.  (B, S) → (B, S, vocab)."""
+    import torch
+    import torch.nn.functional as F
+
+    c = HF_GPT2_MEDIUM
+    d, h, eps = c["n_embd"], c["n_head"], c["layer_norm_epsilon"]
+    b, s = tokens.shape
+    causal = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
+
+    def ln(x, name):
+        return F.layer_norm(x, (d,), hf[name + ".weight"], hf[name + ".bias"], eps)
+
+    def conv1d(x, name):
+        return x @ hf[name + ".weight"] + hf[name + ".bias"]
+
+    def heads(x):  # (B, S, D) → (B, H, S, dh)
+        return x.reshape(b, s, h, d // h).transpose(1, 2)
+
+    x = hf["transformer.wte.weight"][tokens] + hf["transformer.wpe.weight"][:s]
+    for i in range(n_layer):
+        p = f"transformer.h.{i}."
+        q, k, v = (heads(t) for t in conv1d(ln(x, p + "ln_1"), p + "attn.c_attn").split(d, -1))
+        scores = (q @ k.transpose(-1, -2)) / math.sqrt(d // h)
+        attn = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1) @ v
+        x = x + conv1d(attn.transpose(1, 2).reshape(b, s, d), p + "attn.c_proj")
+        u = conv1d(ln(x, p + "ln_2"), p + "mlp.c_fc")
+        u = 0.5 * u * (1 + torch.tanh(math.sqrt(2 / math.pi) * (u + 0.044715 * u ** 3)))
+        x = x + conv1d(u, p + "mlp.c_proj")
+    return ln(x, "transformer.ln_f") @ hf["transformer.wte.weight"].t()
+
+
+def _gpt2_greedy(hf: dict, n_layer: int, prompt, n_new: int) -> np.ndarray:
+    """Greedy decoding by ``gpt2_forward``'s argmax on the whole prefix:
+    (B, P + n_new) int64 numpy."""
+    import torch
+
+    x = torch.as_tensor(prompt, device=hf["transformer.wte.weight"].device)
+    with torch.no_grad():
+        for _ in range(n_new):
+            x = torch.cat([x, gpt2_forward(hf, n_layer, x)[:, -1].argmax(-1)[:, None]], dim=1)
+    return x.cpu().numpy()
+
+
+def train_hf_gpt2(card: str, started: dict = None) -> dict:
+    """Phase (l): GPT-2 medium at its published widths (HF_GPT2_MEDIUM) from
+    an HF-layout checkpoint drawn from numpy seed 0 (``started``, or started
+    here: ``start_hf_gpt2``) into the port, without ``transformers``.
+
+    (l1) ``hf_import.load_gpt2_weights`` on a duck-typed model, then
+    ``params_from_jax``, then ``Transformer(use_flash=True, bf16)`` on the
+    card: every parameter bitwise the HF tensor it came from
+    (``_hf_sources``).  (l2) ``gpt2_forward`` in f32 at 24 layers on
+    HF_CHECK_ROWS sequences of 1024: the port's f32 model (dense attention)
+    within HF_F32_ATOL max abs of it; the port's bf16 logits through K1 no
+    further from it, on average, than 1.25 times the bf16 dense
+    attention's (check_model's rule).  (l4) at HF_DECODE_LAYERS layers in
+    f32 both builders' greedy tokens equal ``gpt2_forward``'s; at 24
+    layers in bf16 both builders on GEN_PROMPTS prompts of
+    GEN_PROMPT_LEN, HF_NEW new tokens: tokens a second, K1's launches, the
+    tokens equal between the builders and to ``gpt2_forward``'s f32
+    greedy.  (l3) HF_STEPS steps of HF_BATCH sequences of 1024 (numpy seed
+    0) through init -> broadcast_parameters -> DistributedOptimizer(AdamW at
+    HF_LR)
+    -> build_train_step, bf16 on K1-K3 with the attention biases and the
+    importer's remat=False: finite, falling losses, the first within
+    HF_LOSS_RTOL of ``gpt2_forward``'s f32 loss on the batch, K1-K3
+    24/24/24 a step; ms a step, samples/s and peak memory.  Fails on any
+    failure.  Returns {"l3 a step": K1-K3 launches, "build_generate" and
+    "build_generate_cached": a 24-layer call's tokens a second, s and
+    K1-K3 launches}."""
+    import torch
+    import torch.nn.functional as F
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models.convert import params_from_jax
+    from byteps_tpu_torch.models.hf_import import load_gpt2_weights
+    from byteps_tpu_torch.models.transformer import (Transformer, build_generate,
+                                                     build_generate_cached, build_train_step)
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    label = "GPT-2 from an HF checkpoint (l)"
+    wall = time.perf_counter()
+    parts, tick = {}, [wall]
+
+    def lap(name: str) -> None:  # each part's wall seconds
+        now = time.perf_counter()
+        parts[name] = round(now - tick[0], 1)
+        tick[0] = now
+
+    own = started is None
+    started = started or start_hf_gpt2()
+    bad, out = [], {}
+    n, dev, bf16 = HF_GPT2_MEDIUM["n_layer"], MP_DEVICE, torch.bfloat16
+    try:
+        check_case("(l) GPT-2 medium bf16", HF_CHECK_ROWS, 16, 1024, 64, bf16, True, seed=60)
+        t0 = time.perf_counter()
+        if started["draw"].wait(timeout=PHASE_STALL_S) != 0:
+            fail(f"{label}: drawing the checkpoint exited {started['draw'].returncode}")
+        waited_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = {k: torch.from_numpy(np.load(os.path.join(started["path"], k + ".npy")))
+                 for k in _hf_keys(n)}
+        read_s = time.perf_counter() - t0
+
+        # (l1) the import
+        t0 = time.perf_counter()
+        cfg, params = load_gpt2_weights(_hf_model(state, n))
+        sd = params_from_jax(params, cfg)
+        del params
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flash_cfg = dataclasses.replace(cfg, use_flash=True, compute_dtype=bf16)
+        model = Transformer(flash_cfg, device=dev)
+        model.load_state_dict(sd)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        hf = {k: v.to(dev) for k, v in state.items()}
+        src = _hf_sources(hf, n)
+        got = dict(model.state_dict())
+        if set(got) != set(src):
+            bad.append(f"l1: parameters {sorted(set(got) ^ set(src))[:4]} on one side only")
+        unequal = [k for k in src if k in got and not (
+            got[k].shape == src[k].shape and torch.equal(got[k], src[k]))]
+        if unequal:
+            bad.append(f"l1: {len(unequal)} parameters not bitwise their HF tensors, "
+                       f"{unequal[:4]}")
+        print(f"{label} l1: GPT-2 medium {HF_GPT2_MEDIUM}, {len(state)} HF tensors "
+              f"({sum(v.numel() for v in state.values()) * 4} bytes, f32): checkpoint drawn "
+              f"beside the phases before, waited {waited_s:.1f} s, read {read_s:.2f} s; "
+              f"load_gpt2_weights + params_from_jax {import_s:.2f} s; onto the card "
+              f"{load_s:.2f} s; {len(got)} parameters, bitwise their HF tensors: "
+              f"{not unequal and set(got) == set(src)}; config {cfg}; on {card}", flush=True)
+        del got, src
+        lap("check, wait, read, l1")
+
+        # (l2) the architecture against gpt2_forward, in f32 at full depth
+        tokens, targets = _mp_tokens(cfg, HF_BATCH)
+        tok, tgt = (torch.as_tensor(a, device=dev) for a in (tokens, targets))
+        rows = tok[:HF_CHECK_ROWS]
+        runs = {}
+        with torch.no_grad():
+            ref = gpt2_forward(hf, n, rows)
+            ref_loss = float(F.cross_entropy(gpt2_forward(hf, n, tok).flatten(0, 1),
+                                             tgt.flatten(), ignore_index=-1))
+            for name, c in (("f32", dataclasses.replace(cfg, compute_dtype=torch.float32)),
+                            ("bf16 dense", dataclasses.replace(flash_cfg, use_flash=False)),
+                            ("bf16 flash", None)):
+                m = model
+                if c is not None:
+                    m = Transformer(c, device=dev)
+                    m.load_state_dict(sd)
+                fa.reset_launches()
+                runs[name] = m(rows).float()
+                runs[name + " launches"] = dict(fa.launches)
+                del m
+        err = float((runs["f32"] - ref).abs().max())
+        ef = float((runs["bf16 flash"] - ref).abs().mean())
+        ed = float((runs["bf16 dense"] - ref).abs().mean())
+        if not err <= HF_F32_ATOL:
+            bad.append(f"l2: the port's f32 logits {err:.3e} from gpt2_forward's, max abs, "
+                       f"beyond {HF_F32_ATOL}")
+        if not ef <= 1.25 * ed:
+            bad.append(f"l2: bf16 logits through K1 {ef:.3e} from f32 on average, dense "
+                       f"attention {ed:.3e}")
+        if runs["bf16 flash launches"].get("flash_fwd") != n:
+            bad.append(f"l2: K1 launches {runs['bf16 flash launches']}, expected {n}")
+        print(f"{label} l2: {n} layers, {HF_CHECK_ROWS} sequences of {cfg.max_seq}: the port "
+              f"in f32 (dense attention) against the independent GPT-2 forward, max abs "
+              f"{err:.3e} (limit {HF_F32_ATOL}); mean abs from its f32 logits, bf16 through "
+              f"K1 {ef:.3e}, bf16 dense attention {ed:.3e} (limit 1.25x); K1 launches "
+              f"{runs['bf16 flash launches']}; on {card}", flush=True)
+        del runs, ref
+        lap("l2")
+
+        # (l4) decoding, before (l3) trains the model
+        prompt = tokens[:GEN_PROMPTS, :GEN_PROMPT_LEN]
+        small_cfg, small = load_gpt2_weights(_hf_model(state, HF_DECODE_LAYERS))
+        sm = Transformer(dataclasses.replace(small_cfg, use_flash=True), device=dev)
+        sm.load_state_dict(params_from_jax(small, small_cfg))
+        want = _gpt2_greedy(hf, HF_DECODE_LAYERS, prompt, HF_NEW)
+        f32_tokens = {b.__name__: b(sm)(prompt, HF_NEW)
+                      for b in (build_generate, build_generate_cached)}
+        same_f32 = {k: bool(np.array_equal(v, want)) for k, v in f32_tokens.items()}
+        if not all(same_f32.values()):
+            bad.append(f"l4: f32 greedy tokens at {HF_DECODE_LAYERS} layers equal to "
+                       f"gpt2_forward's {same_f32}")
+        del sm, small
+        gen_tokens = {}
+        for b in (build_generate, build_generate_cached):
+            gen = b(model)
+            gen(prompt, 2)
+            gen_tokens[b.__name__], s, launches = _generate_timed(gen, prompt, HF_NEW)
+            want = {"flash_fwd": n * HF_NEW if b is build_generate else 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            if {k: launches.get(k, 0) for k in want} != want:
+                bad.append(f"l4 {b.__name__}: launches {launches}, expected {want}")
+            out[b.__name__] = {"tokens_per_s": GEN_PROMPTS * HF_NEW / s, "s": s,
+                               "launches": launches}
+        greedy = _gpt2_greedy(hf, n, prompt, HF_NEW)
+        new = slice(GEN_PROMPT_LEN, None)
+        agree = float((gen_tokens["build_generate"] == gen_tokens["build_generate_cached"])
+                      [:, new].mean())
+        same = {k: float((v == greedy)[:, new].mean()) for k, v in gen_tokens.items()}
+        print(f"{label} l4: at {HF_DECODE_LAYERS} layers in f32, {GEN_PROMPTS} prompts of "
+              f"{GEN_PROMPT_LEN}, {HF_NEW} new: both builders' greedy tokens equal to the "
+              f"independent forward's {same_f32}; at {n} layers, bf16, flash: recompute "
+              f"{out['build_generate']['tokens_per_s']:.1f} tokens/s "
+              f"({out['build_generate']['s']:.3f} s), launches "
+              f"{out['build_generate']['launches']}; KV cache "
+              f"{out['build_generate_cached']['tokens_per_s']:.1f} tokens/s "
+              f"({out['build_generate_cached']['s']:.3f} s), launches "
+              f"{out['build_generate_cached']['launches']}; new tokens equal between the two "
+              f"{agree:.3f}, to the independent forward's f32 greedy {same}; on {card}",
+              flush=True)
+
+        lap("l4")
+
+        # (l3) fine-tuning through the normal entry points
+        del hf
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bps.init()
+        bps.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = bps.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=HF_LR, weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        step = build_train_step(model, opt)
+        steps = []
+        for _ in range(HF_STEPS):
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(tok, tgt))
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": dict(fa.launches)})
+        peak = torch.cuda.max_memory_allocated()
+        bps.shutdown()
+        losses = [s["loss"] for s in steps]
+        # the importer's remat=False: K1 once a layer forward, no recompute;
+        # K2 and K3 once a layer in backward
+        want_l = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        if not (all(math.isfinite(x) for x in losses)
+                and all(b < a for a, b in zip(losses, losses[1:]))):
+            bad.append(f"l3: losses {losses} not finite and falling")
+        if not abs(losses[0] - ref_loss) <= HF_LOSS_RTOL * abs(ref_loss):
+            bad.append(f"l3: first loss {losses[0]!r}, the independent forward's f32 "
+                       f"{ref_loss!r}")
+        off = [i + 1 for i, s in enumerate(steps) if s["launches"] != want_l]
+        if off:
+            bad.append(f"l3 steps {off}: launches {steps[off[0] - 1]['launches']}, "
+                       f"expected {want_l}")
+        timed = [s["ms"] for s in steps[1:]]
+        print(f"{label} l3: {n} layers, {HF_BATCH} sequences of {cfg.max_seq}, bf16, flash, "
+              f"attention biases, remat {flash_cfg.remat}, through init -> "
+              f"broadcast_parameters -> DistributedOptimizer(AdamW, lr {HF_LR}) -> "
+              f"build_train_step: "
+              f"losses {losses}, the independent forward's f32 loss on the batch "
+              f"{ref_loss!r} (first loss off by {abs(losses[0] - ref_loss) / ref_loss:.2e}, "
+              f"limit {HF_LOSS_RTOL}); ms a step {[round(s['ms'], 1) for s in steps]} "
+              f"({HF_BATCH * len(timed) / sum(timed) * 1e3:.2f} samples/s after the first); "
+              f"peak memory {peak / 2**30:.2f} GiB; K1-K3 launches a step "
+              f"{steps[-1]['launches']} (want {want_l}); on {card}", flush=True)
+        out["l3 a step"] = steps[-1]["launches"]
+        del model, opt, step
+        lap("l3")
+    finally:
+        if own:
+            stop_hf_gpt2(started)
+    print(f"{label}: phase wall {time.perf_counter() - wall:.1f} s ({parts})", flush=True)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return out
 
 
 #: phase (j), the observability plane: BERT-large at OBS_LAYERS through one
@@ -7542,9 +8028,14 @@ def main() -> None:
     mark("distributed")
     train_distributed_native(card, dist["losses"][0])
     mark("native lanes")
-    planes = {"chaos": train_chaos(card, dist)}
-    mark("faults (a)")
-    planes["heal"] = train_heal(card)
+    # phase (b)'s fleet and hosts come up while phase (a) runs
+    heal_started = start_heal()
+    try:
+        planes = {"chaos": train_chaos(card, dist)}
+        mark("faults (a)")
+        planes["heal"] = train_heal(card, started=heal_started)
+    finally:
+        stop_hosts(heal_started)
     mark("heal (b)")
     planes["elastic"] = train_elastic(card)
     mark("elastic (c)")
@@ -7553,8 +8044,9 @@ def main() -> None:
     planes["control"] = train_control(card)
     mark("control plane (e)")
     # phase (h)'s fleet and ranks come up while fusion, (f) and (g) run,
-    # and phase (g)'s while (f) runs
+    # phase (g)'s while (f) runs, and phase (l)'s checkpoint is drawn meanwhile
     mp_started = start_model_parallel()
+    hf_started = start_hf_gpt2()
     try:
         planes["fusion"] = train_fusion(card)
         mark("fusion")
@@ -7566,26 +8058,35 @@ def main() -> None:
         finally:
             stop_tenancy(g_started)
         mark("tenancy (g)")
-        model_parallel = train_model_parallel(card, after_h=lambda: mark("model parallel (h)"),
-                                              started=mp_started)
+        # phase (l) runs on the card while phase (i)'s host does
+        model_parallel = train_model_parallel(
+            card, after_h=lambda: mark("model parallel (h)"), started=mp_started,
+            beside_i=lambda: train_hf_gpt2(card, started=hf_started))
     finally:
+        stop_hf_gpt2(hf_started)
         stop_model_parallel(mp_started)
-    mark("moe and generation (i)")
+    mark("moe and generation (i), GPT-2 from HF (l)")
+    hf_gpt2 = model_parallel["i"]["beside"]
     planes["observability"] = train_observability(card)
     mark("observability (j)")
     planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
     mark("server optimizer")
     planes["async"] = train_async(card)
     mark("async")
-    train_compressed_chain(card, dist["wire_tx_step"])
-    mark("compressed chain")
-    train_device_codecs(card)
-    check_device_codecs()
-    mark("device codecs")
-    train_randomk_ef(card)
-    check_ddp_cross_barrier(card)
-    mark("randomk, DDP, CrossBarrier")
-    hybrid = train_hybrid(card)
+    # the hybrid phase's fleet and hosts come up while the next three run
+    hybrid_started = start_hybrid()
+    try:
+        train_compressed_chain(card, dist["wire_tx_step"])
+        mark("compressed chain")
+        train_device_codecs(card)
+        check_device_codecs()
+        mark("device codecs")
+        train_randomk_ef(card)
+        check_ddp_cross_barrier(card)
+        mark("randomk, DDP, CrossBarrier")
+        hybrid = train_hybrid(card, started=hybrid_started)
+    finally:
+        stop_hosts(hybrid_started)
     mark("hybrid")
     check_int8_ring_ops()
     check_step_builders(card)
@@ -7642,10 +8143,11 @@ def main() -> None:
                 run: [r[name] for r in ranks] for run, ranks in model_parallel["h"].items()},
             "moe_generation_launches": {
                 "i1 a step": model_parallel["i"]["i1"]["launches"][name],
-                "i2 a step per rank": [r[name] for r in model_parallel["i"]["i2"]],
-                "i4 a generate call": {k: v["launches"].get(name, 0)
-                                       for k, v in model_parallel["i"]["i4"].items()
-                                       if k in ("recompute", "cached")}},
+                "i2 a step per rank": [r[name] for r in model_parallel["i"]["i2"]]},
+            "hf_gpt2_launches": {"l3 a step": hf_gpt2["l3 a step"][name],
+                                 "l4 a generate call": {
+                                     k: hf_gpt2[k]["launches"][name]
+                                     for k in ("build_generate", "build_generate_cached")}},
             **extra,
         })
     kernels.append({

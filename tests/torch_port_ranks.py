@@ -536,6 +536,45 @@ def case_mp_generate() -> dict:
     return out
 
 
+#: the GPT-2 import on a mesh: the checkpoint the test side saves (its
+#: config's fields and HF state dict as numpy), the mesh, the prompts
+HF_CKPT, HF_AXES = "hf_gpt2.pkl", {"pp": 2, "tp": 2}
+HF_PROMPT, HF_NEW = np.array([[5, 17, 42, 7], [9, 3, 88, 21]], np.int64), 6
+
+
+def hf_duck(config: dict, state: dict):
+    """A GPT-2 model as the importer reads one, with no ``transformers``
+    behind it: a namespace ``config`` and a ``state_dict()`` of tensors."""
+    import types
+
+    return types.SimpleNamespace(config=types.SimpleNamespace(**config),
+                                 state_dict=lambda: {k: torch.from_numpy(v)
+                                                     for k, v in state.items()})
+
+
+def case_hf_generate() -> dict:
+    """The saved checkpoint imported at pp_size=2 through ``hf_duck``, this
+    rank's shards on HF_AXES cut by ``shard_params_from_jax``: the cached
+    builder's greedy tokens."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import transformer as tt
+    from byteps_tpu_torch.models.convert import shard_params_from_jax
+    from byteps_tpu_torch.models.hf_import import load_gpt2_weights
+    from byteps_tpu_torch.parallel.mesh_utils import make_training_mesh
+
+    with open(os.path.join(sys.argv[2], HF_CKPT), "rb") as f:
+        ckpt = pickle.load(f)
+    bps.init(device="cpu")
+    mesh = make_training_mesh(axis_sizes=HF_AXES)
+    cfg, params = load_gpt2_weights(hf_duck(**ckpt), pp_size=HF_AXES["pp"])
+    model = tt.Transformer(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(shard_params_from_jax(params, cfg, mesh))
+    out = {"cached": tt.build_generate_cached(model)(HF_PROMPT, HF_NEW),
+           "coords": {ax: mesh.axis_index(ax) for ax in ("dp", "pp", "sp", "tp")}}
+    bps.shutdown()
+    return out
+
+
 #: the expert-parallel layer alone: (label, top_k, capacity factor), on
 #: T tokens a rank, D wide, F hidden, E experts in all
 MOE_EP_CASES = [("top1", 1, 2.0), ("top2", 2, 2.0), ("top2_drops", 2, 0.5)]
@@ -798,6 +837,7 @@ CASES = {"bn_step": case_bn_step, "mesh_env": case_mesh_env,
          "builders": case_builders, "degraded": case_degraded, "elastic": case_elastic,
          "mp_attention": case_mp_attention, "mp_train": case_mp_train,
          "mp_generate": case_mp_generate, "dryrun": case_dryrun,
+         "hf_generate": case_hf_generate,
          "moe_ep": case_moe_ep,
          "mp_hybrid": case_mp_hybrid, "mp_hybrid_pp": case_mp_hybrid_pp,
          "cuda_clash": case_cuda_clash}
