@@ -11,7 +11,7 @@ with the same Horovod-style surface as ``byteps_tpu``:
     get_config / reset_config
     get_robustness_counters / get_metrics / get_metrics_text / get_pushpull_speed
     broadcast_parameters / broadcast_optimizer_state / broadcast_object
-    parallel.DistributedDataParallel / CrossBarrier
+    parallel.DistributedDataParallel / CrossBarrier / CrossBarrierOptimizer
 
 With one worker ``push_pull`` is the identity.  In distributed mode
 (``DMLC_NUM_WORKER>1`` or ``BYTEPS_FORCE_DISTRIBUTED=1``) ``init()``
@@ -51,6 +51,7 @@ _EXPORTS = {
     "DegradedError": "byteps_tpu_torch.common.types",
     "Compression": "byteps_tpu_torch.compression.base",
     "CrossBarrier": "byteps_tpu_torch.cross_barrier",
+    "CrossBarrierOptimizer": "byteps_tpu_torch.cross_barrier",
     "DistributedOptimizer": "byteps_tpu_torch.optim",
     "distributed_optimizer": "byteps_tpu_torch.optim",
 }
@@ -75,6 +76,7 @@ __all__ = [
     "Compression",
     "Config",
     "CrossBarrier",
+    "CrossBarrierOptimizer",
     "DegradedError",
     "DistributedOptimizer",
     "TensorRegistry",

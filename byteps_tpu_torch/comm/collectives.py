@@ -99,9 +99,13 @@ def push_pull(
 ) -> torch.Tensor:
     """The sum of ``x`` over the host's group, divided by its size when
     ``average``.  ``mode="scatter_gather"`` runs the reference's two-phase
-    form: reduce-scatter, then all-gather."""
+    form: reduce-scatter, then all-gather.  A process alone, with no
+    process group (a ``Mesh(0, 1, ...)`` before any
+    ``init_process_group``), gets a copy of ``x``."""
     mesh = _group(x, mesh)
     n = mesh.size
+    if n == 1 and not dist.is_initialized():  # no group to reduce over
+        return x.detach().clone()
     if mode == "scatter_gather":
         flat = _wire(x, mesh, copy=False).reshape(-1)
         pad = (-flat.numel()) % n

@@ -1,6 +1,8 @@
 """CrossBarrier: the pipelined per-parameter optimizer of BytePS's
 cross-iteration scheduling (``byteps_tpu.torch.cross_barrier``; the
-reference's byteps/torch/cross_barrier.py:28-382).
+reference's byteps/torch/cross_barrier.py:28-382), and
+:class:`CrossBarrierOptimizer`, the same pipelining over a dict of tensors
+(``byteps_tpu.cross_barrier.CrossBarrierOptimizer``).
 
 The global barrier between backward and the optimizer goes:
 
@@ -33,11 +35,12 @@ onto the first, as autograd accumulates without ``zero_grad``).
 
 from __future__ import annotations
 
-from typing import Dict, List
+import threading
+from typing import Any, Dict, List, Mapping
 
 import torch
 
-from byteps_tpu_torch.api import declare_tensor, push_pull_async, synchronize
+from byteps_tpu_torch.api import declare_tensor, device, push_pull_async, synchronize
 from byteps_tpu_torch.optim import weak_hook
 
 
@@ -176,3 +179,59 @@ class CrossBarrier:
     def outstanding(self) -> int:
         """Gradients still in flight."""
         return len(self._handles)
+
+
+class CrossBarrierOptimizer:
+    """Per-parameter pipelined optimizer over async push_pull handles, on a
+    dict of tensors (``byteps_tpu/cross_barrier.py:79-150``).
+
+    The parameters are kept as float32 on the device ``init()`` bound, and
+    ``Gradient.<name>`` is declared for each in the dict's order.
+    ``backward(grads)`` starts one push_pull per gradient at priority
+    -(declaration index), so the front parameters sync first; ``wait(name)``
+    applies that one parameter's update once its gradient is back, and
+    ``step()`` is the full barrier.  ``opt_name``: sgd | adam | rmsprop."""
+
+    def __init__(self, params: Mapping[str, Any], opt_name: str = "sgd",
+                 average: bool = True, **opt_kwargs) -> None:
+        if opt_name not in _OPTS:
+            raise ValueError(f"unsupported optimizer {opt_name!r}; use one of {list(_OPTS)}")
+        dev = device()
+        self.params: Dict[str, torch.Tensor] = {
+            k: torch.as_tensor(v).to(dev, torch.float32, copy=True) for k, v in params.items()}
+        self.opt = _OPTS[opt_name](**opt_kwargs)
+        self.average = average
+        self._order = {name: i for i, name in enumerate(self.params)}
+        self._handles: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        for name in self.params:
+            declare_tensor(f"Gradient.{name}")
+
+    def backward(self, grads: Mapping[str, Any]) -> None:
+        """Start one push_pull per gradient and return.  A handle still
+        outstanding for the same parameter is synchronized and applied
+        first, so no gradient is dropped and no handle leaks."""
+        for name in grads:
+            self.wait(name)
+        dev = device()
+        with self._lock:
+            for name, g in grads.items():
+                self._handles[name] = push_pull_async(
+                    torch.as_tensor(g).to(dev, torch.float32), name=f"Gradient.{name}",
+                    average=self.average, priority=-self._order[name])
+
+    def wait(self, name: str) -> torch.Tensor:
+        """Block until this parameter's gradient is back, apply its update
+        and return the parameter."""
+        with self._lock:
+            handle = self._handles.pop(name, None)
+        if handle is not None:
+            grad = synchronize(handle)
+            self.params[name] = self.opt.update(name, self.params[name], grad)
+        return self.params[name]
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        """Apply every outstanding update (a full barrier)."""
+        for name in list(self.params):
+            self.wait(name)
+        return self.params

@@ -16,9 +16,11 @@ import.  Keys the state dict may also hold (``lm_head.weight``, the
 attention's ``bias`` and ``masked_bias`` buffers) are not read.
 
 The port's layer norm (eps 1e-5) and tanh GELU are GPT-2's
-``layer_norm_epsilon`` and ``gelu_new``; a config that states another
-epsilon or activation is refused, where the reference would import it
-and compute something else.
+``layer_norm_epsilon`` and ``gelu_new``, and its attention scales the
+scores by 1/sqrt(d_head) in every layer (``scale_attn_weights`` True,
+``scale_attn_by_inverse_layer_idx`` False); a config that states another
+epsilon, activation or attention scaling is refused, naming the field,
+where the reference would import it and compute something else.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from byteps_tpu_torch.models.transformer import TransformerConfig
 
 #: what the port's layer math computes (``transformer._ln``, ``_dense_mlp``)
 _LN_EPS, _ACTIVATION = 1e-5, "gelu_new"
+#: GPT-2's attention flags at the values the port's attention computes:
+#: the scores scaled by 1/sqrt(d_head), the same in every layer
+_ATTENTION = {"scale_attn_weights": True, "scale_attn_by_inverse_layer_idx": False}
 
 
 def config_from_gpt2(hf_config) -> TransformerConfig:
@@ -39,6 +44,11 @@ def config_from_gpt2(hf_config) -> TransformerConfig:
     if eps != _LN_EPS or act != _ACTIVATION:
         raise ValueError(f"layer_norm_epsilon {eps} and activation_function {act!r}: the "
                          f"model computes {_LN_EPS} and {_ACTIVATION!r}")
+    for field, want in _ATTENTION.items():
+        got = getattr(hf_config, field, want)
+        if got != want:
+            raise ValueError(f"{field}={got!r}: the model computes {field}={want!r} (the "
+                             f"attention scores scaled by 1/sqrt(d_head) in every layer)")
     return TransformerConfig(
         vocab_size=hf_config.vocab_size,
         d_model=hf_config.n_embd,

@@ -380,9 +380,6 @@ def build_batchnorm_data_parallel_step(
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
         loss.backward()
-        if mesh.size == 1:  # the mean over one process is its own value
-            optimizer.step()
-            return loss.detach()
         grads = collectives.push_pull_tree(_grads(params), average=True, mesh=mesh)
         if stats:
             with torch.no_grad():

@@ -259,7 +259,30 @@ Phases, each fatal on failure:
      1024 through init -> DistributedOptimizer, bf16 on K1-K3 with the
      attention biases: falling losses, the first within 2e-2 of the
      independent forward's f32 loss, K1-K3 24/24/24 a step;
- 29. one JSON line listing the kernels, then the contract line
+ 29. the port's examples, phase (m) (``run_examples`` on a thread while
+     the hybrid phase's hosts run, ``train_benchmarks`` alone at the end),
+     each run as a user runs it, ``byteps_tpu_torch.examples.<name>`` as
+     ``__main__`` (``chip_smoke.py --example``, which then writes the
+     process's kernel launches): mnist_push_pull, cross_barrier_torch,
+     compressed_training (onebit, vanilla error feedback), async_training
+     (BYTEPS_ENABLE_ASYNC=1) and elastic_benchmark, each one worker against
+     a scheduler and two servers of its own, at their defaults: finite,
+     falling losses, 0 handles outstanding, the keys stable, the async
+     store's final loss below its first; ``python -m
+     byteps_tpu_torch.tools.check_cluster`` against the async fleet, exit 0
+     and every node OK; hybrid_mesh_ps (dp 2 x tp 2, through a scheduler
+     and two servers), bert_4d_parallel (pp 2 x sp 2, --moe) and
+     long_context_ring (seq 4096, ring and Ulysses), each on a launcher host
+     of four ranks on this card over the staged transport, started ahead
+     at the lowest CPU priority and let go with the hybrid's hosts: every
+     rank's losses finite, falling and equal, every rank's attention
+     within 1e-3 of dense; benchmark_ddp at published
+     widths, ResNet-50 and VGG-16 at 224x224, batch 64, and BERT-large at
+     seq 128, batch 32, 24 layers, dense attention, all bf16, each in a
+     process of its own: img/s or samples/s, ms a step, peak memory and a
+     finite final loss (its three processes started with the hybrid's go
+     at the lowest CPU priority, each given its go in turn at the end);
+ 30. one JSON line listing the kernels, then the contract line
      {"ok": true, "device": {...}} last.
 
 `python3 chip_smoke.py --hybrid-host <dir>` is phase 12's host,
@@ -267,8 +290,9 @@ Phases, each fatal on failure:
 `--elastic-host <dir>` phase 20's, `--control-host <dir>` phase 22's,
 `--rowsparse-host <dir>` phase 23's, `--tenant-host <dir>` phase (g)'s,
 `--mp-host <dir>` phase 24's, `--conv-host <dir>` phase (k1)'s and
-`--vgg-host <dir>` phase (k3)'s ranks, which the launcher runs; they are
-not run by hand.
+`--vgg-host <dir>` phase (k3)'s ranks, which the launcher runs, and
+`--example <out> <name> <args>` one process of phase (m); they are not run
+by hand.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -2671,8 +2695,10 @@ def _start_hosts(prefix: str, launch) -> dict:
 
 
 def stop_hosts(started: dict) -> None:
-    """Stop what ``_start_hosts`` started and remove its directory."""
-    _stop_processes([p for p in started["hosts"] + started["fleet"] if p in _FLEET])
+    """Stop what a phase's ``start_*`` started (its hosts, its fleet, and
+    any ``others``) and remove its directory."""
+    procs = started["hosts"] + started["fleet"] + started.get("others", [])
+    _stop_processes([p for p in procs if p in _FLEET])
     shutil.rmtree(started["work"], ignore_errors=True)
 
 
@@ -3892,6 +3918,7 @@ def elastic_host(work: str) -> None:
         with open(path, "w") as f:
             json.dump(out, f)
 
+    _host_go()
     bps.init()
     _, model, tok, tgt = _bert(ELASTIC_LAYERS)
     rows = slice(host * HYBRID_BATCH, (host + 1) * HYBRID_BATCH)
@@ -4059,34 +4086,25 @@ def elastic_host(work: str) -> None:
     bps.shutdown()
 
 
-def train_elastic(card: str) -> dict:
-    """Phase (c): elastic membership.  A scheduler, two Python servers and a
-    third waiting to be started, and two launcher hosts of one process each
-    (``elastic_host``); this process starts the third server on host 0's cue,
-    and kills the scheduler (SIGKILL) on another and restarts it on the
-    same port.  Fails unless every probe pull is exactly the sum over the
-    members of its step, host 1's keys are the same after its resume, the
-    most device and pinned memory its step ends after the resume held (or
-    it held right after the resume) exceed the most its step ends before
-    the suspend held by no more than two step ends with no suspend
-    between them grew, its threads at those step ends are as many, a
-    1 MiB pinned probe shows in the pinned reading while it lives, the keys
-    re-homed at three servers and the generation moved, the third server
-    exited on SHUTDOWN, the steps through the scheduler's restart are
-    bitwise the steps without it (losses and parameters), every node
-    reconnected and rejoined with no eviction and a newer epoch, and host
-    0's step after host 1's death completed with the eviction counted.
-    Returns host 0's launches a step at the first stage."""
+def _elastic_env() -> dict:
+    """The environment of phase (c)'s fleet and hosts."""
+    return {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+            "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+            "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ELASTIC_ENV,
+            # a host resumed at one worker stays a PS worker
+            "BYTEPS_FORCE_DISTRIBUTED": "1"}
 
-    label = "elastic"
-    wall = time.perf_counter()
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ELASTIC_ENV,
-           # a host resumed at one worker stays a PS worker
-           "BYTEPS_FORCE_DISTRIBUTED": "1"}
-    bad = []
-    with tempfile.TemporaryDirectory() as work:
+
+def start_elastic() -> dict:
+    """Phase (c)'s fleet (a scheduler and two Python servers), the third
+    server and the scheduler's successor waiting for their cues, and the
+    two launcher hosts, each up and waiting for its go (``_host_go``):
+    ``main`` starts them ahead of phase (a).  ``train_elastic`` (or
+    ``stop_hosts``) stops them and removes the directory."""
+    env = _elastic_env()
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    procs, hosts = [], []
+    try:
         port, procs = _start_ps_processes(env, work)
 
         def waiting(role: str, go: str, log: str = None, **popen_kw) -> subprocess.Popen:
@@ -4104,24 +4122,59 @@ def train_elastic(card: str) -> dict:
                 cwd=REPO, env={**env, "DMLC_ROLE": role, "DMLC_PS_ROOT_PORT": port},
                 **popen_kw), f"waiting {role}", log, node=True)
 
-        go_server, go_sched = os.path.join(work, "server2.go"), os.path.join(work, "sched.go")
         spare_log = os.path.join(work, "server2.log")
         with open(spare_log, "w") as log:
-            spare = waiting("server", go_server, spare_log, stdout=subprocess.DEVNULL,
-                            stderr=log)
-        restarted = waiting("scheduler", go_sched, stdout=subprocess.PIPE, text=True)
-        hosts = []
-        try:
-            for h in range(HYBRID_HOSTS):
-                path = os.path.join(work, f"host{h}.log")
-                with open(path, "w") as log:
-                    hosts.append(_track(subprocess.Popen(
-                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
-                         sys.executable, os.path.join(REPO, "chip_smoke.py"), "--elastic-host",
-                         work],
-                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
-                        stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
+            procs.append(waiting("server", os.path.join(work, "server2.go"), spare_log,
+                                 stdout=subprocess.DEVNULL, stderr=log))
+        procs.append(waiting("scheduler", os.path.join(work, "sched.go"),
+                             stdout=subprocess.PIPE, text=True))
+        for h in range(HYBRID_HOSTS):
+            path = os.path.join(work, f"host{h}.log")
+            with open(path, "w") as log:
+                hosts.append(_track(subprocess.Popen(
+                    [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                     sys.executable, os.path.join(REPO, "chip_smoke.py"), "--elastic-host", work],
+                    cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
+                                   "HOST_GO": os.path.join(work, "go")},
+                    stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
+    except BaseException:
+        _stop_processes(hosts + procs)
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    # the fleet: the scheduler, two servers, the third and the successor
+    return {"work": work, "port": port, "fleet": procs, "hosts": hosts,
+            "spare": procs[3], "restarted": procs[4]}
 
+
+def train_elastic(card: str, started: dict = None) -> dict:
+    """Phase (c): elastic membership.  A scheduler, two Python servers and a
+    third waiting to be started, and two launcher hosts of one process each
+    (``elastic_host``; ``started``, or started here: ``start_elastic``);
+    this process starts the third server on host 0's cue, and kills the
+    scheduler (SIGKILL) on another and restarts it on the same port.  Fails unless every probe pull is exactly the sum over the
+    members of its step, host 1's keys are the same after its resume, the
+    most device and pinned memory its step ends after the resume held (or
+    it held right after the resume) exceed the most its step ends before
+    the suspend held by no more than two step ends with no suspend
+    between them grew, its threads at those step ends are as many, a
+    1 MiB pinned probe shows in the pinned reading while it lives, the keys
+    re-homed at three servers and the generation moved, the third server
+    exited on SHUTDOWN, the steps through the scheduler's restart are
+    bitwise the steps without it (losses and parameters), every node
+    reconnected and rejoined with no eviction and a newer epoch, and host
+    0's step after host 1's death completed with the eviction counted.
+    Returns host 0's launches a step at the first stage."""
+
+    label = "elastic"
+    wall = time.perf_counter()
+    started = started or start_elastic()
+    work, port, procs, hosts = (started[k] for k in ("work", "port", "fleet", "hosts"))
+    spare, restarted = started["spare"], started["restarted"]
+    go_server, go_sched = os.path.join(work, "server2.go"), os.path.join(work, "sched.go")
+    bad = []
+    open(os.path.join(work, "go"), "w").close()
+    try:
+        try:
             def watch(name: str) -> dict:
                 path = os.path.join(work, f"{name}.mark")
                 deadline = time.monotonic() + 420
@@ -4153,7 +4206,7 @@ def train_elastic(card: str) -> dict:
             spare_rc = spare.poll()
         finally:
             _stop_processes(hosts)
-            _stop_processes(procs + [spare, restarted])
+            _stop_processes(procs)
         logs = {}
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"host{h}.log")) as f:
@@ -4169,6 +4222,8 @@ def train_elastic(card: str) -> dict:
         report = _server_report(work)
         with open(os.path.join(work, "server2.log")) as f:
             spare_log = f.read()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # what each stage's probe must read: the sum of rank + 1 over its members
     want_probe = {"1 both": 3, "2 alone": 1, "3 both again": 3, "4 three servers": 3,
                   "5 two servers": 3, "6 clean": 3, "6 scheduler restart": 3,
@@ -4776,6 +4831,7 @@ def control_host(work: str) -> None:
     host = int(os.environ["DMLC_WORKER_ID"])
     key, target = int(os.environ["CONTROL_MOVE_KEY"]), int(os.environ["CONTROL_MOVE_RANK"])
     sample = {key, int(os.environ["CONTROL_OFF_KEY"])}
+    _host_go()
     bps.init()
     _, model, tok, tgt = _bert(CONTROL_LAYERS_2)
     rows = slice(host * CONTROL_BATCH, (host + 1) * CONTROL_BATCH)
@@ -4880,9 +4936,54 @@ def _control_keys(n_layers: int) -> tuple:
     return key, 1 - HashRing([0, 1]).owner(key), off
 
 
-def _control_stage2(card: str) -> dict:
+def start_control() -> dict:
+    """Stage 2 of phase (e)'s processes: a scheduler whose tuner forces the
+    move of ``_control_keys``' key once its cue exists, two Python servers,
+    the scheduler's successor (imported, waiting for its cue) and two
+    launcher hosts, each up and waiting for its go (``_host_go``): ``main``
+    starts them ahead of phase (d)."""
+    key, target, off_key = _control_keys(CONTROL_LAYERS_2)
+    work = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **CONTROL_ENV,
+           "CONTROL_MOVE_KEY": str(key), "CONTROL_MOVE_RANK": str(target),
+           "CONTROL_OFF_KEY": str(off_key), "BYTEPS_FLIGHT_DIR": os.path.join(work, "bundles")}
+    tuner_go, sched_go = os.path.join(work, "tuner.go"), os.path.join(work, "sched2.go")
+    sweeps = os.path.join(work, "sweeps.log")
+    procs, hosts = [], []
+    try:
+        port, procs = _start_ps_processes(
+            {**env, "BYTEPS_AUTOTUNE_FORCE": f"move={key}:{target}"}, work,
+            sched_args=["-c", CONTROL_SCHED, "", tuner_go, sweeps])
+        # the successor: imported already, it binds the port once its go
+        # file exists, with no forced action, its tuner sweeping at once
+        procs.append(_track(subprocess.Popen(
+            [sys.executable, "-c", CONTROL_SCHED, sched_go, sched_go, sweeps], cwd=REPO,
+            env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
+            stdout=subprocess.PIPE, text=True), "successor scheduler", node=True))
+        for h in range(HYBRID_HOSTS):
+            path = os.path.join(work, f"host{h}.log")
+            with open(path, "w") as log:
+                hosts.append(_track(subprocess.Popen(
+                    [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
+                     sys.executable, os.path.join(REPO, "chip_smoke.py"), "--control-host",
+                     work],
+                    cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h),
+                                   "HOST_GO": os.path.join(work, "go")},
+                    stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
+    except BaseException:
+        _stop_processes(hosts + procs)
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    # the fleet: the scheduler, two servers and the successor
+    return {"work": work, "port": port, "fleet": procs, "hosts": hosts, "target": target}
+
+
+def _control_stage2(card: str, started: dict = None) -> dict:
     """Stage 2 of phase (e): the tuner, with two launcher hosts of one
-    process each (``control_host``), a scheduler and two Python servers.
+    process each (``control_host``; ``started``, or started here:
+    ``start_control``), a scheduler and two Python servers.
     The tuner sweeps once both hosts trained a step: a forced move of
     ``_control_keys``' key to the server that does not own it, then
     codec_consensus on the hosts' topk verdicts.  After step
@@ -4899,39 +5000,16 @@ def _control_stage2(card: str) -> dict:
     from byteps_tpu_torch.compression.impl import TopKCompressor
 
     label = "control (e) stage 2"
-    key, target, off_key = _control_keys(CONTROL_LAYERS_2)
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **CONTROL_ENV,
-           "CONTROL_MOVE_KEY": str(key), "CONTROL_MOVE_RANK": str(target),
-           "CONTROL_OFF_KEY": str(off_key)}
+    started = started or start_control()
+    target = started["target"]
+    work, port, procs, hosts = (started[k] for k in ("work", "port", "fleet", "hosts"))
+    successor = procs[3]
+    bundles, sweeps = os.path.join(work, "bundles"), os.path.join(work, "sweeps.log")
+    tuner_go, sched_go = os.path.join(work, "tuner.go"), os.path.join(work, "sched2.go")
     bad = []
-    with tempfile.TemporaryDirectory() as work:
-        bundles = os.path.join(work, "bundles")
-        env["BYTEPS_FLIGHT_DIR"] = bundles
-        tuner_go, sched_go = os.path.join(work, "tuner.go"), os.path.join(work, "sched2.go")
-        sweeps = os.path.join(work, "sweeps.log")
-        port, procs = _start_ps_processes(
-            {**env, "BYTEPS_AUTOTUNE_FORCE": f"move={key}:{target}"}, work,
-            sched_args=["-c", CONTROL_SCHED, "", tuner_go, sweeps])
-        # the successor: imported already, it binds the port once its go
-        # file exists, with no forced action, its tuner sweeping at once
-        successor = _track(subprocess.Popen(
-            [sys.executable, "-c", CONTROL_SCHED, sched_go, sched_go, sweeps], cwd=REPO,
-            env={**env, "DMLC_ROLE": "scheduler", "DMLC_PS_ROOT_PORT": port},
-            stdout=subprocess.PIPE, text=True), "successor scheduler", node=True)
-        hosts = []
+    open(os.path.join(work, "go"), "w").close()
+    try:
         try:
-            for h in range(HYBRID_HOSTS):
-                path = os.path.join(work, f"host{h}.log")
-                with open(path, "w") as log:
-                    hosts.append(_track(subprocess.Popen(
-                        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
-                         sys.executable, os.path.join(REPO, "chip_smoke.py"), "--control-host",
-                         work],
-                        cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
-                        stdout=log, stderr=subprocess.STDOUT), f"host {h}", path))
-
             def cue(name: str) -> bool:
                 deadline = time.monotonic() + 300
                 while not all(os.path.exists(os.path.join(work, f"{name}-host{h}.mark"))
@@ -4962,7 +5040,7 @@ def _control_stage2(card: str) -> dict:
             rcs = [p.poll() for p in hosts]
         finally:
             _stop_processes(hosts)
-            _stop_processes(procs + [successor])
+            _stop_processes(procs)
         if rcs != [0] * HYBRID_HOSTS:
             for h in range(HYBRID_HOSTS):
                 with open(os.path.join(work, f"host{h}.log")) as f:
@@ -4981,6 +5059,8 @@ def _control_stage2(card: str) -> dict:
         for path in sorted(glob.glob(os.path.join(bundles, "*", "decision.json"))):
             with open(path) as f:
                 decisions.append((os.path.basename(os.path.dirname(path)), json.load(f)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # --- what it printed and what must hold ---
     ms = [round(float(r[0]), 3) for r in sweep_rows]
     print(f"{label}: {len(ms)} sweeps, ms each p50 {np.median(ms):.3f}, max {max(ms):.3f}; "
@@ -5110,14 +5190,14 @@ def _waves_of(log_dir: str, servers: int) -> list:
     return out
 
 
-def train_control(card: str) -> dict:
+def train_control(card: str, started: dict = None) -> dict:
     """Phase (e), the closed-loop control plane: adaptive compression on one
     worker (``_control_stage1``), then the autotuner across two hosts and a
-    scheduler restart (``_control_stage2``).  Returns stage 2's launches a
-    step (host 0, step 1)."""
+    scheduler restart (``_control_stage2``, on ``started``'s processes when
+    given).  Returns stage 2's launches a step (host 0, step 1)."""
     wall = time.perf_counter()
     one = _control_stage1(card)
-    two = _control_stage2(card)
+    two = _control_stage2(card, started)
     print(f"control (e): phase wall {time.perf_counter() - wall:.1f} s; stage 1 launches a "
           f"step {one['launches_a_step']}", flush=True)
     return two["launches_a_step"]
@@ -5320,33 +5400,44 @@ def rowsparse_host(work: str) -> None:
     bps.shutdown()
 
 
-def train_rowsparse(card: str) -> dict:
+def start_rowsparse() -> dict:
+    """Phase (f2)'s fleet and hosts, each host up and waiting for its go:
+    ``main`` starts them ahead of phase (f1)."""
+    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
+           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
+           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ROWSPARSE_ENV}
+    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    return _start_hosts("chip_smoke_rowsparse_",
+                        lambda work: _launch_hosts(env, "--rowsparse-host", work))
+
+
+def train_rowsparse(card: str, started: dict = None) -> dict:
     """Phase (f2), row-sparse push_pull and the lossless arm: a scheduler
     and two Python servers on tcp with CRC32C, and two launcher hosts
-    (``rowsparse_host``) under BYTEPS_COMPRESSION_AUTO=1 and
-    BYTEPS_WIRE_LOSSLESS=1.  Holds: every step on each host, the
-    row-sparse rows bitwise the dense result at the host's rows; the
-    hosts' parameters bitwise equal after the last step; each partition of
-    the dense push in the off set, probed at or under the entropy cutoff,
-    and every one of its pushes flagged lossless; K1-K3 at their launches a
-    step.  Prints the rows, the row-sparse payload bytes and the dense
+    (``rowsparse_host``; ``started``, or started here: ``start_rowsparse``)
+    under BYTEPS_COMPRESSION_AUTO=1 and BYTEPS_WIRE_LOSSLESS=1.  Holds:
+    every step on each host, the row-sparse rows bitwise the dense result
+    at the host's rows; the hosts' parameters bitwise equal after the last
+    step; each partition of the dense push in the off set, probed at or
+    under the entropy cutoff, and every one of its pushes flagged lossless;
+    K1-K3 at their launches a step.  Prints the rows, the row-sparse payload bytes and the dense
     push's raw and on-wire bytes, a host and a step.  Returns the kernels'
     launches a step of host 0."""
     from byteps_tpu_torch.compression.lossless import lossless_entropy_cutoff
 
     label = "row-sparse (f2)"
     wall = time.perf_counter()
-    env = {**os.environ, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
-           "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO,
-           "BYTEPS_LOCAL_SIZE": "1", "DMLC_ROLE": "worker", **ROWSPARSE_ENV}
-    env.pop("BYTEPS_FORCE_DISTRIBUTED", None)
-    with tempfile.TemporaryDirectory() as work:
-        _await_hosts(label, _launch_hosts(env, "--rowsparse-host", work), timeout=300)
+    started = started or start_rowsparse()
+    work = started["work"]
+    try:
+        _await_hosts(label, started, timeout=300)
         results = []
         for h in range(HYBRID_HOSTS):
             with open(os.path.join(work, f"rowsparse{h}.json")) as f:
                 results.append(json.load(f))
         report = _server_report(work)
+    finally:
+        stop_hosts(started)
     cutoff = lossless_entropy_cutoff()
     want = {"flash_fwd": 2 * ROWSPARSE_LAYERS, "flash_bwd_dq": ROWSPARSE_LAYERS,
             "flash_bwd_dkv": ROWSPARSE_LAYERS, "onebit_pack": 0}
@@ -5401,10 +5492,11 @@ def train_rowsparse(card: str) -> dict:
     return results[0]["steps"][-1]["launches"]
 
 
-def train_data_plane(card: str) -> dict:
-    """Phase (f): the vans (f1), then row-sparse and the lossless arm (f2).
-    Returns each stage's kernel launches a step."""
-    return {"vans": train_vans(card), "rowsparse": train_rowsparse(card)}
+def train_data_plane(card: str, started: dict = None) -> dict:
+    """Phase (f): the vans (f1), then row-sparse and the lossless arm (f2;
+    on ``started``'s processes when given).  Returns each stage's kernel
+    launches a step."""
+    return {"vans": train_vans(card), "rowsparse": train_rowsparse(card, started)}
 
 
 #: phase (g), job namespaces: BERT-large's depth, each host's sequences and
@@ -7883,41 +7975,35 @@ def _check_vgg(work: str, report: list) -> dict:
     return {"onebit_pack": r[0]["compressed_parts"]}
 
 
-def train_kit(card: str, main_ms: float) -> dict:
-    """Phase (k): the training kit and the conv models.  A two-rank host
-    for (k1) and (k3)'s fleet (a scheduler, two Python servers that take
-    the shaping knobs on a cue, two launcher hosts) start first and warm up
-    while this process runs (k1) ResNetTiny on the card against the CPU
-    and ResNet-50, and (k2) BERT-large in mixed precision; then the
-    two-rank ResNet-18 step and (k3) VGG-16 through the PS, together.
-    Returns the launches a step of K1-K3 in (k2) and of K4 in (k3)."""
-    import torch
-
-    import byteps_tpu_torch as bps
-
-    with tempfile.TemporaryDirectory() as work:
-        base = {**os.environ, "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
-                "DMLC_PS_ROOT_URI": "127.0.0.1"}
-        for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS",
-                  "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS", "BYTEPS_VAN_DELAY_MS",
-                  "BYTEPS_FORCE_DISTRIBUTED"):
-            base.pop(k, None)
+def start_kit() -> dict:
+    """Phase (k)'s processes: the two-rank host of (k1) and (k3)'s fleet (a
+    scheduler, two Python servers that take the shaping knobs on a cue, two
+    launcher hosts), each waiting for its cue in <work>: ``main`` starts
+    them ahead of the hybrid phase."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_kit_")
+    base = {**os.environ, "PYTHONPATH": REPO, "DMLC_ROLE": "worker",
+            "DMLC_PS_ROOT_URI": "127.0.0.1"}
+    for k in ("BYTEPS_JOB_ID", "BYTEPS_JOB_PRIORITY", "BYTEPS_JOB_QUOTA_MBPS",
+              "BYTEPS_VAN_RATE_MBYTES_S", "BYTEPS_VAN_RATE_MBPS", "BYTEPS_VAN_DELAY_MS",
+              "BYTEPS_FORCE_DISTRIBUTED"):
+        base.pop(k, None)
+    conv, fleet, hosts = [], [], []
+    try:
         conv_log = os.path.join(work, "conv.log")
         with open(conv_log, "w") as log:
-            conv = _track(subprocess.Popen(
+            conv.append(_track(subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.launcher.launch", "--",
                  sys.executable, os.path.join(REPO, "chip_smoke.py"), "--conv-host", work],
                 cwd=REPO, env={**base, "DMLC_NUM_WORKER": "1",
                                "BYTEPS_LOCAL_SIZE": str(CONV_RANKS),
                                "BYTEPS_MESH_TRANSPORT": CONV_TRANSPORT,
                                "MP_HOST_DEVICE": CONV_HOST_DEVICE},
-                stdout=log, stderr=subprocess.STDOUT), "conv host", conv_log)
+                stdout=log, stderr=subprocess.STDOUT), "conv host", conv_log))
         vgg_env = {**base, "DMLC_NUM_WORKER": str(HYBRID_HOSTS), "DMLC_NUM_SERVER": "2",
                    "BYTEPS_FORCE_DISTRIBUTED": "1", "BYTEPS_LOCAL_SIZE": "1"}
         port, fleet = _start_ps_processes(
             vgg_env, work, server_args=["-c", SHAPE_CUE_SERVER,
                                         os.path.join(work, "shape-cue.json")])
-        hosts = []
         for h in range(HYBRID_HOSTS):
             path = os.path.join(work, f"vgg-host{h}.log")
             with open(path, "w") as log:
@@ -7926,6 +8012,31 @@ def train_kit(card: str, main_ms: float) -> dict:
                      sys.executable, os.path.join(REPO, "chip_smoke.py"), "--vgg-host", work],
                     cwd=REPO, env={**vgg_env, "DMLC_PS_ROOT_PORT": port, "DMLC_WORKER_ID": str(h)},
                     stdout=log, stderr=subprocess.STDOUT), f"vgg host {h}", path))
+    except BaseException:
+        _stop_processes(conv + hosts + fleet)
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    return {"work": work, "others": conv, "fleet": fleet, "hosts": hosts}
+
+
+def train_kit(card: str, main_ms: float, started: dict = None) -> dict:
+    """Phase (k): the training kit and the conv models.  A two-rank host
+    for (k1) and (k3)'s fleet (a scheduler, two Python servers that take
+    the shaping knobs on a cue, two launcher hosts; ``started``, or started
+    here: ``start_kit``) warm up while this process runs (k1) ResNetTiny on
+    the card against the CPU and ResNet-50, and (k2) BERT-large in mixed
+    precision; then the two-rank ResNet-18 step and (k3) VGG-16 through the
+    PS, together.  Returns the launches a step of K1-K3 in (k2) and of K4
+    in (k3)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    started = started or start_kit()
+    work, hosts, fleet = (started[k] for k in ("work", "hosts", "fleet"))
+    conv = started["others"][0]
+    conv_log = os.path.join(work, "conv.log")
+    try:
         walls, t0 = {}, time.perf_counter()
 
         def lap(name: str) -> None:
@@ -7968,7 +8079,353 @@ def train_kit(card: str, main_ms: float) -> dict:
         launches.update(_check_vgg(work, _server_report(work)))
         lap("k3 stop")
         print(f"kit (k): walls (s) {walls}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+# --- phase (m): the port's examples -------------------------------------------
+
+#: benchmark_ddp at published widths, one process each, alone on the card:
+#: (model, batch); 3 warm-up steps, then EXAMPLE_BENCH_STEPS timed
+EXAMPLE_BENCH = (("resnet50", 64), ("vgg16", 64), ("bert_large", 32))
+EXAMPLE_BENCH_STEPS = 10
+#: the launcher hosts of four ranks on this card over the staged transport:
+#: label -> (example, its arguments, whether its root pushes through a fleet)
+EXAMPLE_HOSTS = {
+    "hybrid_mesh_ps": ("hybrid_mesh_ps", ["--dp", "2", "--tp", "2"], True),
+    "bert_4d_parallel": ("bert_4d_parallel",
+                         ["--dp", "1", "--pp", "2", "--sp", "2", "--tp", "1", "--moe"], False),
+    "long_context_ring ring": ("long_context_ring", ["--seq", "4096", "--impl", "ring"], False),
+    "long_context_ring ulysses": ("long_context_ring", ["--seq", "4096", "--impl", "ulysses"],
+                                  False),
+}
+EXAMPLE_RANKS = 4
+#: the one-worker runs at their defaults, each against a fleet of its own (a
+#: scheduler and two servers): label -> (example, arguments, the fleet's and
+#: the worker's added environment)
+EXAMPLE_WORKERS = {
+    "mnist_push_pull": ("mnist_push_pull", [], {}),
+    "cross_barrier_torch": ("cross_barrier_torch", [], {}),
+    "compressed_training": ("compressed_training", ["--compressor", "onebit", "--ef", "vanilla"],
+                            {}),
+    "async_training": ("async_training", [], {"BYTEPS_ENABLE_ASYNC": "1"}),
+    "elastic_benchmark": ("elastic_benchmark", [], {}),
+}
+_LOSS = r"loss (-?[\d.]+|nan|inf)"
+
+
+def example_run(out: str, name: str, args: list) -> None:
+    """``chip_smoke.py --example <out> <name> <args>``: run
+    ``byteps_tpu_torch.examples.<name>`` as ``__main__`` with ``args`` (a
+    launcher host's rank first waits for its go: ``_host_go``), then write
+    this process's kernel launches to <out>.<local rank>.json."""
+    import runpy
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import onebit_device as ob
+
+    if "HOST_GO" in os.environ:
+        _host_go()
+    sys.argv = [name, *args]
+    runpy.run_module(f"byteps_tpu_torch.examples.{name}", run_name="__main__", alter_sys=True)
+    with open(f"{out}.{os.environ.get('BYTEPS_LOCAL_RANK', '0')}.json", "w") as f:
+        json.dump({**fa.launches, **ob.launches}, f)
+
+
+def _slug(label: str) -> str:
+    return label.replace(" ", "_")
+
+
+def start_examples() -> dict:
+    """Phase (m)'s launcher hosts (EXAMPLE_HOSTS: four ranks each, staged on
+    this card), the hybrid's with a scheduler and two servers, each rank
+    coming up and then waiting for its go: ``main`` starts them ahead of
+    the server-side optimizer, at the lowest CPU priority (`nice -n 19`,
+    which their ranks keep), so that their start-up takes the cores the
+    phases before the go leave idle."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    base = {**os.environ, "PYTHONPATH": REPO, "DMLC_ROLE": "worker", "DMLC_NUM_WORKER": "1",
+            "DMLC_PS_ROOT_URI": "127.0.0.1", "BYTEPS_LOCAL_SIZE": str(EXAMPLE_RANKS),
+            "BYTEPS_MESH_TRANSPORT": "staged", "HOST_GO": os.path.join(work, "go")}
+    base.pop("BYTEPS_FORCE_DISTRIBUTED", None)
+    hosts, fleet = [], []
+    try:
+        for label, (name, args, pushes) in EXAMPLE_HOSTS.items():
+            env = dict(base)
+            if pushes:
+                env.update({"DMLC_NUM_SERVER": "2", "BYTEPS_FORCE_DISTRIBUTED": "1",
+                            "BYTEPS_WIRE_CHECKSUM": "1"})
+                logs = os.path.join(work, f"{_slug(label)}.fleet")
+                os.makedirs(logs)
+                port, procs = _start_ps_processes(env, logs)
+                fleet += procs
+                env["DMLC_PS_ROOT_PORT"] = port
+            path = os.path.join(work, f"{_slug(label)}.log")
+            with open(path, "w") as log:
+                hosts.append(_track(subprocess.Popen(
+                    ["nice", "-n", "19", sys.executable, "-m",
+                     "byteps_tpu_torch.launcher.launch", "--",
+                     sys.executable, os.path.join(REPO, "chip_smoke.py"), "--example",
+                     os.path.join(work, _slug(label)), name, *args, "--device", "cuda:0"],
+                    cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT),
+                    f"examples (m) {label}", path))
+    except BaseException:
+        _stop_processes(hosts + fleet)
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    return {"work": work, "hosts": hosts, "fleet": fleet}
+
+
+def _launches_of(prefix: str) -> dict:
+    """The kernel launches the processes of one run wrote, summed."""
+    total = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "onebit_pack": 0}
+    for path in glob.glob(f"{prefix}.*.json"):
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                total[k] += v
+    return total
+
+
+def _losses(lines: list, pattern: str = _LOSS) -> list:
+    import re
+
+    return [float(m.group(1)) for m in (re.search(pattern, ln) for ln in lines) if m]
+
+
+def _finite_falling(losses: list) -> bool:
+    return (len(losses) >= 2 and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0])
+
+
+def _one_worker_example(label: str, work: str) -> dict:
+    """One EXAMPLE_WORKERS run: its fleet, the example as this card's one
+    worker, and (on the async run's fleet, the worker gone)
+    ``byteps_tpu_torch.tools.check_cluster``.  Returns its output, exit
+    code, launches and seconds."""
+    name, args, extra = EXAMPLE_WORKERS[label]
+    env = {**os.environ, "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+           "BYTEPS_FORCE_DISTRIBUTED": "1", "DMLC_PS_ROOT_URI": "127.0.0.1",
+           "BYTEPS_WIRE_CHECKSUM": "1", "PYTHONPATH": REPO, "DMLC_ROLE": "worker", **extra}
+    env.pop("BYTEPS_LOCAL_SIZE", None)
+    logs = os.path.join(work, f"{label}.fleet")
+    os.makedirs(logs)
+    t0 = time.perf_counter()
+    port, procs = _start_ps_processes(env, logs)
+    out = {}
+    try:
+        run = subprocess.run(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--example",
+             os.path.join(work, label), name, *args],
+            cwd=REPO, env={**env, "DMLC_PS_ROOT_PORT": port}, capture_output=True, text=True,
+            timeout=PHASE_STALL_S - 60)
+        out.update(lines=run.stdout.splitlines(), rc=run.returncode, err=run.stderr[-4000:])
+        if label == "async_training":
+            tool = subprocess.run(
+                [sys.executable, "-m", "byteps_tpu_torch.tools.check_cluster", "--port", port],
+                cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+            out["check_cluster"] = (tool.stdout.splitlines(), tool.returncode)
+    finally:
+        _stop_processes(procs)
+    out.update(launches=_launches_of(os.path.join(work, label)),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _example_checks(label: str, r: dict) -> list:
+    """What one one-worker run must show."""
+    lines, bad = r["lines"], []
+    if r["rc"] != 0:
+        return [f"{label} exited {r['rc']}: {r['err']}"]
+    if label == "async_training":
+        if not _finite_falling(_losses(lines)):
+            bad.append(f"{label}: the store's final loss is not below its first: {lines}")
+        tool_lines, rc = r["check_cluster"]
+        if rc != 0 or sum("OK" in ln for ln in tool_lines) < 2:
+            bad.append(f"check_cluster exited {rc}: {tool_lines}")
+    elif label == "elastic_benchmark":
+        if "gen 1: keys stable, traffic OK" not in lines:
+            bad.append(f"{label}: no 'keys stable' line: {lines}")
+    elif not _finite_falling(_losses(lines)):
+        bad.append(f"{label}: the losses are not finite and falling: {lines}")
+    if label == "cross_barrier_torch" and not lines[-1].endswith(
+            "0 handles outstanding (must be 0)"):
+        bad.append(f"{label}: handles outstanding: {lines[-1]}")
+    return bad
+
+
+def _host_checks(label: str, text: str) -> tuple:
+    """Each rank's lines of one EXAMPLE_HOSTS run (tagged ``[local r/4]``),
+    and what they must show: the hybrid's and the 4-D model's losses finite,
+    falling and equal on every rank (the ranks of a dp line average one
+    loss), the attention's own dense check on every rank."""
+    import re
+
+    ranks = {r: [] for r in range(EXAMPLE_RANKS)}
+    # a record runs from its rank's tag to the next tag or the line's end
+    # (the ranks share one log, and a write can land inside another's line)
+    tag = rf"\[local (\d+)/{EXAMPLE_RANKS}\] "
+    for m in re.finditer(rf"{tag}(.*?)(?={tag}|$)", text, re.M):
+        ranks[int(m.group(1))].append(m.group(2))
+    bad = []
+    if label.startswith("long_context_ring"):
+        for r, lines in ranks.items():
+            errs = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+                    if ln.startswith("max abs err vs dense: ")]
+            if len(errs) != 1 or not errs[0] < 1e-3:
+                bad.append(f"{label} rank {r}: the dense check {errs}")
+    else:
+        losses = {r: _losses(lines) for r, lines in ranks.items()}
+        if not all(_finite_falling(v) for v in losses.values()):
+            bad.append(f"{label}: losses not finite and falling: {losses}")
+        if any(v != losses[0] for v in losses.values()):
+            bad.append(f"{label}: the ranks' losses differ: {losses}")
+    return ranks, bad
+
+
+def run_examples(started: dict) -> dict:
+    """Phase (m) but benchmark_ddp, run: the launcher hosts
+    ``start_examples`` started get their go, and the one-worker examples
+    run meanwhile, three at a time, each against its own fleet; ``main``
+    runs this on a thread of its own while the hybrid phase's hosts run,
+    and ``check_examples`` then reads what it returns (each run's output,
+    exit code, launches and seconds; it prints nothing)."""
+    work = started["work"]
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        open(os.path.join(work, "go"), "w").close()
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            runs = {label: pool.submit(_one_worker_example, label, work)
+                    for label in EXAMPLE_WORKERS}
+            out.update({label: fut.result() for label, fut in runs.items()})
+        hosts = started["hosts"]
+        deadline = time.monotonic() + PHASE_STALL_S - 60
+        while any(p.poll() is None for p in hosts) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in hosts):
+                break
+            time.sleep(0.5)
+        rcs = [p.poll() for p in hosts]
+    finally:
+        _stop_processes([p for p in started["hosts"] + started["fleet"] if p in _FLEET])
+        for label in EXAMPLE_HOSTS:
+            with open(os.path.join(work, f"{_slug(label)}.log"), errors="replace") as f:
+                out[label] = {"text": f.read()}
+            out[label]["launches"] = _launches_of(os.path.join(work, _slug(label)))
+        shutil.rmtree(work, ignore_errors=True)
+    for label, rc in zip(EXAMPLE_HOSTS, rcs):
+        out[label]["rc"] = rc
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_examples(card: str, out: dict) -> dict:
+    """What ``run_examples`` returned, printed and checked: fails on any
+    miss; returns each run's launches."""
+    bad, launches = [], {}
+    for label in EXAMPLE_WORKERS:
+        r = out[label]
+        bad += _example_checks(label, r)
+        launches[label] = r["launches"]
+        print(f"examples (m) {label}, one worker, its fleet of two servers: "
+              f"{' | '.join(r['lines'][-4:])}; {r['seconds']:.1f} s; launches "
+              f"{r['launches']}; on {card}", flush=True)
+        if "check_cluster" in r:
+            print(f"examples (m) check_cluster against the async fleet: exit "
+                  f"{r['check_cluster'][1]}: {' | '.join(r['check_cluster'][0])}", flush=True)
+    for label in EXAMPLE_HOSTS:
+        r = out[label]
+        ranks, host_bad = _host_checks(label, r["text"])
+        if r["rc"] != 0:
+            host_bad.append(f"{label}: the host exited {r['rc']}:\n{r['text'][-6000:]}")
+        bad += host_bad
+        launches[label] = r["launches"]
+        for rank, lines in ranks.items():
+            print(f"examples (m) {label}, local rank {rank} of {EXAMPLE_RANKS} (staged, one "
+                  f"card): {' | '.join(lines[-4:])}", flush=True)
+        print(f"examples (m) {label}: launches {r['launches']}; on {card}", flush=True)
+    print(f"examples (m): the hosts and the one-worker runs took {out['seconds']:.1f} s "
+          f"from their go", flush=True)
+    if bad:
+        fail("examples (m): " + "; ".join(bad))
+    return launches
+
+
+def start_benchmarks() -> dict:
+    """benchmark_ddp's three processes (EXAMPLE_BENCH, each `chip_smoke.py
+    --example`), each with torch imported and the card's context up,
+    waiting for its own go (``_host_go``, <work>/<model>.go): ``main``
+    starts them with the hybrid's go, at the lowest CPU priority (`nice -n
+    19`; each runs alone at the end, where no process competes)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    procs = []
+    try:
+        for model, batch in EXAMPLE_BENCH:
+            with open(os.path.join(work, f"{model}.out"), "w") as out, \
+                    open(os.path.join(work, f"{model}.err"), "w") as err:
+                procs.append(_track(subprocess.Popen(
+                    ["nice", "-n", "19", sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                     "--example", os.path.join(work, model), "benchmark_ddp", "--model", model,
+                     "--batch", str(batch), "--steps", str(EXAMPLE_BENCH_STEPS)],
+                    cwd=REPO, env={**os.environ, "PYTHONPATH": REPO,
+                                   "HOST_GO": os.path.join(work, f"{model}.go")},
+                    stdout=out, stderr=err), f"benchmark_ddp {model}", err.name))
+    except BaseException:
+        _stop_processes(procs)
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    return {"work": work, "hosts": procs, "fleet": []}
+
+
+def train_benchmarks(card: str, started: dict = None) -> dict:
+    """Phase (m)'s benchmark_ddp: ResNet-50 at 224x224 and VGG-16, batch 64,
+    and BERT-large at seq 128, batch 32, 24 layers, dense attention, each
+    bf16 in a process of its own (`python -m
+    byteps_tpu_torch.examples.benchmark_ddp`, through ``--example``;
+    ``started``, or started here: ``start_benchmarks``), each alone on the
+    card once its go is written.  Fails unless each exits 0 with a finite
+    final loss.  Returns each run's rate, ms a step, peak memory, final
+    loss and launches."""
+    import re
+
+    started = started or start_benchmarks()
+    work = started["work"]
+    out, bad = {}, []
+    try:
+        for (model, batch), proc in zip(EXAMPLE_BENCH, started["hosts"]):
+            t0 = time.perf_counter()
+            open(os.path.join(work, f"{model}.go"), "w").close()
+            try:
+                rc = proc.wait(timeout=PHASE_STALL_S - 60)
+            except subprocess.TimeoutExpired:
+                rc = None
+            with open(os.path.join(work, f"{model}.out"), errors="replace") as f:
+                text = f.read()
+            with open(os.path.join(work, f"{model}.err"), errors="replace") as f:
+                err = f.read()
+            rate = re.search(rf"^{model}: ([\d.]+) (img|samples)/s \(batch {batch}, rank 0/1\)$",
+                             text, re.M)
+            tail = re.search(rf"^{model}: ([\d.]+) ms a step, final loss (\S+), peak device "
+                             rf"memory (\S+ GiB|not measured)$", text, re.M)
+            if rc != 0 or not rate or not tail or not math.isfinite(float(tail.group(2))):
+                bad.append(f"benchmark_ddp {model} exited {rc}: {text[-2000:]} {err[-4000:]}")
+                continue
+            out[model] = {"rate": float(rate.group(1)), "unit": rate.group(2) + "/s",
+                          "ms": float(tail.group(1)), "final_loss": float(tail.group(2)),
+                          "peak": tail.group(3), "launches": _launches_of(
+                              os.path.join(work, model)),
+                          "seconds": round(time.perf_counter() - t0, 1)}
+            r = out[model]
+            print(f"examples (m) benchmark_ddp {model}, batch {batch}, bf16, "
+                  f"{EXAMPLE_BENCH_STEPS} timed steps after 3: {r['rate']} {r['unit']}, "
+                  f"{r['ms']} ms a step, peak device memory {r['peak']}, final loss "
+                  f"{r['final_loss']}; launches {r['launches']}; {r['seconds']} s from its go; "
+                  f"on {card}", flush=True)
+    finally:
+        stop_hosts(started)
+    if bad:
+        fail("examples (m): " + "; ".join(bad))
+    return out
 
 
 def main_path_setup() -> str:
@@ -8028,20 +8485,29 @@ def main() -> None:
     mark("distributed")
     train_distributed_native(card, dist["losses"][0])
     mark("native lanes")
-    # phase (b)'s fleet and hosts come up while phase (a) runs
+    # phase (b)'s and phase (c)'s fleets and hosts come up while phase (a) runs
     heal_started = start_heal()
+    elastic_started = start_elastic()
     try:
-        planes = {"chaos": train_chaos(card, dist)}
-        mark("faults (a)")
-        planes["heal"] = train_heal(card, started=heal_started)
+        try:
+            planes = {"chaos": train_chaos(card, dist)}
+            mark("faults (a)")
+            planes["heal"] = train_heal(card, started=heal_started)
+        finally:
+            stop_hosts(heal_started)
+        mark("heal (b)")
+        planes["elastic"] = train_elastic(card, started=elastic_started)
     finally:
-        stop_hosts(heal_started)
-    mark("heal (b)")
-    planes["elastic"] = train_elastic(card)
+        stop_hosts(elastic_started)
     mark("elastic (c)")
-    planes["reshard"] = train_reshard(card)
-    mark("reshard (d)")
-    planes["control"] = train_control(card)
+    # phase (e)'s second stage comes up while phase (d) runs
+    control_started = start_control()
+    try:
+        planes["reshard"] = train_reshard(card)
+        mark("reshard (d)")
+        planes["control"] = train_control(card, started=control_started)
+    finally:
+        stop_hosts(control_started)
     mark("control plane (e)")
     # phase (h)'s fleet and ranks come up while fusion, (f) and (g) run,
     # phase (g)'s while (f) runs, and phase (l)'s checkpoint is drawn meanwhile
@@ -8051,11 +8517,13 @@ def main() -> None:
         planes["fusion"] = train_fusion(card)
         mark("fusion")
         g_started = start_tenancy()
+        f2_started = start_rowsparse()
         try:
-            planes.update(train_data_plane(card))
+            planes.update(train_data_plane(card, started=f2_started))
             mark("data plane (f)")
             planes["tenancy"] = train_tenancy(card, started=g_started)
         finally:
+            stop_hosts(f2_started)
             stop_tenancy(g_started)
         mark("tenancy (g)")
         # phase (l) runs on the card while phase (i)'s host does
@@ -8069,13 +8537,22 @@ def main() -> None:
     hf_gpt2 = model_parallel["i"]["beside"]
     planes["observability"] = train_observability(card)
     mark("observability (j)")
-    planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
-    mark("server optimizer")
-    planes["async"] = train_async(card)
-    mark("async")
-    # the hybrid phase's fleet and hosts come up while the next three run
-    hybrid_started = start_hybrid()
+    # phase (m)'s launcher hosts come up from here to the hybrid's go at the
+    # lowest CPU priority (their sixteen ranks' start-up at the normal one
+    # slowed a host-bound phase beside it 2-5x); the hybrid phase's fleet
+    # and hosts come up while the chain, the codecs and randomk run; phase
+    # (m)'s examples but benchmark_ddp run while the hybrid's hosts do, and
+    # benchmark_ddp's three processes come up meanwhile, also at the lowest
+    # priority, each to run alone at the end
+    examples_started = start_examples()
+    hybrid_started = bench_started = None
+    beside = concurrent.futures.ThreadPoolExecutor(1)
     try:
+        planes["server_opt"] = train_server_opt(card, dist["state_bytes"])
+        mark("server optimizer")
+        planes["async"] = train_async(card)
+        mark("async")
+        hybrid_started = start_hybrid()
         train_compressed_chain(card, dist["wire_tx_step"])
         mark("compressed chain")
         train_device_codecs(card)
@@ -8084,17 +8561,36 @@ def main() -> None:
         train_randomk_ef(card)
         check_ddp_cross_barrier(card)
         mark("randomk, DDP, CrossBarrier")
+        examples_run = beside.submit(run_examples, examples_started)
+        bench_started = start_benchmarks()
         hybrid = train_hybrid(card, started=hybrid_started)
+        examples = check_examples(card, examples_run.result())
+        mark("hybrid, examples (m) beside it")
+        # phase (k)'s processes come up while the next two run
+        kit_started = start_kit()
+        try:
+            check_int8_ring_ops()
+            check_step_builders(card)
+            mark("int8 ops, step builders")
+            planes["kit"] = train_kit(card, MAIN_PATH["step_ms"], started=kit_started)
+        finally:
+            stop_hosts(kit_started)
+        mark("kit and conv models (k)")
+        benchmarks = train_benchmarks(card, started=bench_started)
     finally:
-        stop_hosts(hybrid_started)
-    mark("hybrid")
-    check_int8_ring_ops()
-    check_step_builders(card)
-    mark("int8 ops, step builders")
-    planes["kit"] = train_kit(card, MAIN_PATH["step_ms"])
-    mark("kit and conv models (k)")
+        for started in (hybrid_started, examples_started, bench_started):
+            if started is not None:
+                stop_hosts(started)
+        beside.shutdown(wait=False)
+    mark("examples (m): benchmark_ddp")
     watchdog.cancel()
     print(f"phase walls (s): {json.dumps(walls)}; total {sum(walls.values()):.1f} s", flush=True)
+
+    def examples_launches(name: str) -> dict:
+        # phase (m): each example's launches over its whole run (all ranks)
+        runs = {**examples, **{f"benchmark_ddp {m}": r["launches"]
+                               for m, r in benchmarks.items()}}
+        return {label: r[name] for label, r in runs.items()}
 
     b = bounds(BATCH, 16, SEQ, 64, "bfloat16", False)
     replaces = {
@@ -8144,6 +8640,7 @@ def main() -> None:
             "moe_generation_launches": {
                 "i1 a step": model_parallel["i"]["i1"]["launches"][name],
                 "i2 a step per rank": [r[name] for r in model_parallel["i"]["i2"]]},
+            "examples_launches": examples_launches(name),
             "hf_gpt2_launches": {"l3 a step": hf_gpt2["l3 a step"][name],
                                  "l4 a generate call": {
                                      k: hf_gpt2[k]["launches"][name]
@@ -8166,6 +8663,7 @@ def main() -> None:
         "path": "distributed path (1 worker, 2 servers, onebit)",
         "hybrid_launches_a_step_per_host": hybrid["launches_a_step"]["onebit_pack"],
         "plane_launches_a_step": {k: v["onebit_pack"] for k, v in planes.items()},
+        "examples_launches": examples_launches("onebit_pack"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -8174,7 +8672,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] != [] and sys.argv[1].endswith("-host"):
+    if sys.argv[1:2] != [] and (sys.argv[1].endswith("-host") or sys.argv[1] == "--example"):
         # a host under a launcher: a stalled phase asks for its stacks
         faulthandler.register(signal.SIGUSR1, all_threads=True)
     if sys.argv[1:2] == ["--hybrid-host"]:
@@ -8197,5 +8695,7 @@ if __name__ == "__main__":
         conv_host(sys.argv[2])  # one rank of phase (k1)'s two-rank host
     elif sys.argv[1:2] == ["--vgg-host"]:
         vgg_host(sys.argv[2])  # one host of phase (k3), VGG-16 on a shaped link
+    elif sys.argv[1:2] == ["--example"]:
+        example_run(sys.argv[2], sys.argv[3], sys.argv[4:])  # one process of phase (m)
     else:
         main()

@@ -401,6 +401,12 @@ def test_import_loads_neither_jax_nor_byteps_tpu():
                                                       "byteps_tpu_torch.")]
         assert "byteps_tpu_torch.server.server" in mods, mods
         assert "byteps_tpu_torch.server.native" in mods, mods
+        examples = ["mnist_push_pull", "cross_barrier_torch", "compressed_training",
+                    "async_training", "elastic_benchmark", "benchmark_ddp",
+                    "hybrid_mesh_ps", "bert_4d_parallel", "long_context_ring"]
+        for name in [f"byteps_tpu_torch.examples.{e}" for e in examples] + [
+                "byteps_tpu_torch.tools.check_cluster"]:
+            assert name in mods, (name, mods)
         for name in mods:
             importlib.import_module(name)
         bad = [m for m in sys.modules
@@ -422,12 +428,14 @@ def test_import_loads_neither_jax_nor_byteps_tpu():
 
 @pytest.mark.parametrize("entry", ["byteps_tpu_torch.server.__main__",
                                    "byteps_tpu_torch.launcher.launch",
-                                   "byteps_tpu_torch.server.native"])
+                                   "byteps_tpu_torch.server.native",
+                                   "byteps_tpu_torch.tools.check_cluster"])
 def test_a_server_or_launcher_process_starts_without_torch(entry):
     """The package's names load on first use: the server and scheduler
-    entry, the C++ server's wrapper and the launcher import no torch, so
-    each fleet's processes start without its import; the public names
-    still resolve, and an unknown one raises AttributeError."""
+    entry, the C++ server's wrapper, the launcher and the cluster health
+    tool import no torch, so each fleet's processes start without its
+    import; the public names still resolve, and an unknown one raises
+    AttributeError."""
     code = textwrap.dedent(f"""
         import sys
         import {entry}

@@ -167,6 +167,38 @@ def test_int8_ring_group_of_one_is_identity():
     np.testing.assert_array_equal(out.numpy(), x.numpy())
 
 
+@pytest.mark.parametrize("mode", ["psum", "scatter_gather"])
+def test_a_group_of_one_runs_its_collective_and_a_process_alone_none(monkeypatch, mode):
+    """push_pull on a mesh of one: with a process group (a launcher's host
+    of one process) the sum goes through the group's collective; with none
+    (a process alone) it is a copy of its input.  Both equal the
+    reference's push_pull over a one-device mesh, bitwise."""
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.comm import collectives as pcoll
+
+    xs = ranks.member_inputs(50, 1, (37,))
+    want = np.asarray(_smap(lambda v: jcoll.push_pull(v[0], "dp", mode=mode, axis_size=1),
+                            1)(xs))
+    calls = []
+    for name in ("all_reduce", "reduce_scatter_tensor"):
+        real = getattr(dist, name)
+        monkeypatch.setattr(dist, name, lambda *a, _real=real, _name=name, **k: (
+            calls.append(_name), _real(*a, **k))[1])
+    one = PortMesh(0, 1, torch.device("cpu"), "gloo")
+    x = torch.from_numpy(xs[0])
+    alone = pcoll.push_pull(x, mode=mode, mesh=one)
+    assert calls == [] and alone is not x
+    np.testing.assert_array_equal(alone.numpy(), want)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        grouped = pcoll.push_pull(x, mode=mode, mesh=one)
+    finally:
+        dist.destroy_process_group()
+    assert calls == ["all_reduce" if mode == "psum" else "reduce_scatter_tensor"]
+    np.testing.assert_array_equal(grouped.numpy(), want)
+
+
 def test_a_cuda_tensor_never_goes_through_gloo():
     """The group's device kind is checked before any collective: a CUDA
     tensor is refused by a gloo group, a CPU tensor by an NCCL group."""

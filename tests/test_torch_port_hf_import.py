@@ -150,12 +150,17 @@ def test_the_module_imports_without_transformers(monkeypatch):
     assert mod is not hf_import and callable(mod.load_gpt2_weights)
 
 
-@pytest.mark.parametrize("field,value", [("layer_norm_epsilon", 1e-6),
-                                         ("activation_function", "relu")])
-def test_a_config_the_model_does_not_compute_is_refused(gpt2_small, field, value):
+@pytest.mark.parametrize("field,value,message", [
+    ("layer_norm_epsilon", 1e-6, "the model computes 1e-05 and 'gelu_new'"),
+    ("activation_function", "relu", "the model computes 1e-05 and 'gelu_new'"),
+    ("scale_attn_weights", False,
+     "scale_attn_weights=False: the model computes scale_attn_weights=True"),
+    ("scale_attn_by_inverse_layer_idx", True, "scale_attn_by_inverse_layer_idx=True: the "
+     "model computes scale_attn_by_inverse_layer_idx=False")])
+def test_a_config_the_model_does_not_compute_is_refused(gpt2_small, field, value, message):
     ckpt = _checkpoint(gpt2_small[0])
     ckpt["config"][field] = value
-    with pytest.raises(ValueError, match="the model computes 1e-05 and 'gelu_new'"):
+    with pytest.raises(ValueError, match=message):
         hf_import.load_gpt2_weights(ranks.hf_duck(**ckpt))
 
 

@@ -294,13 +294,31 @@ def _worker(uid: str, job: int, prio: int = 1, quota: float = 0.0, nw: int = 3) 
             "num_servers": 2, "job": job, "job_priority": prio, "job_quota_mbps": quota}
 
 
+def _age_out(sched, uid: str) -> bool:
+    """Make node ``uid``'s last heartbeat infinitely old (the eviction's
+    clock, set by the test) until the scheduler has evicted it; True once
+    it is gone."""
+    with sched._lock:
+        for role, nodes in sched._nodes.items():
+            for n in nodes:
+                if n.uid == uid:
+                    sched._last_seen[(role, n.rank)] = float("-inf")
+                    return False
+    return True
+
+
 def _jobs_books(pkg: str) -> dict:
     """A scheduler of ``pkg`` for three workers and two servers: job 1's
     two workers (priorities 4 and 2, declaring 2 workers), job 2's one
     (a 12 MB/s quota, declaring 1); then server 1 goes.  The books each
-    node received, and the scheduler's worker count."""
+    node received, and the scheduler's worker count.
+
+    Server 1's eviction is the test's: the timeout is a minute, which the
+    staying nodes' beats (every 50 ms, from threads that a loaded host can
+    delay) cannot miss, and server 1's last heartbeat is made older than
+    it once its connection is closed (ROADMAP F13)."""
     k = kits.kit(pkg)
-    sched = k.Scheduler(3, 2, host="127.0.0.1", dead_node_timeout=0.5)
+    sched = k.Scheduler(3, 2, host="127.0.0.1", dead_node_timeout=60.0)
     sched.start()
     try:
         servers = [kits.RawNode(k, sched.port, {"role": "server", "host": "127.0.0.1",
@@ -314,6 +332,7 @@ def _jobs_books(pkg: str) -> dict:
         assert kits.wait(lambda: all(n.books for n in servers + w), 5)
         nw_after_bringup = sched.num_workers
         servers[1].close()
+        assert kits.wait(lambda: _age_out(sched, "s1"), 10)
         assert kits.wait(lambda: len(servers[0].books) >= 2 and len(w[2].books) >= 2, 5)
         got = {"s0": servers[0].books, "w2": w[2].books[:2], "num_workers": nw_after_bringup}
         for n in servers + w:

@@ -8,9 +8,14 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import importlib
+import io
 import json
 import os
+import re
+import runpy
 import socket
+import sys
 import tempfile
 import threading
 import time
@@ -340,3 +345,40 @@ def assert_no_leftovers(sock_dir: str) -> None:
     rings = lambda: glob.glob(f"/dev/shm/byteps_ring_*_{os.getpid()}_*")  # noqa: E731
     assert wait(lambda: not rings(), 5.0), rings()
     os.rmdir(sock_dir)
+
+
+# --- the examples ---------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: a printed number: its digits after the point say the print's resolution
+NUMBER = re.compile(r"-?\d+(?:\.(\d+))?(?:e[-+]\d+)?")
+
+
+def run_example(pkg: str, name: str, argv: list, monkeypatch) -> list:
+    """Run an example in this process with ``argv``: the JAX package's
+    ``examples/<name>.py`` as ``__main__`` (``pkg`` "ref") or the port's
+    ``byteps_tpu_torch.examples.<name>``'s ``main()`` on the CPU ("port").
+    Returns the lines it printed."""
+    out = io.StringIO()
+    if pkg == "ref":
+        path = os.path.join(REPO, "examples", f"{name}.py")
+        monkeypatch.setattr(sys, "argv", [path, *argv])
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    else:
+        monkeypatch.setattr(sys, "argv", [name, *argv, "--device", "cpu"])
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(f"byteps_tpu_torch.examples.{name}").main()
+    return out.getvalue().splitlines()
+
+
+def assert_lines_close(got: list, want: list, rtol: float) -> None:
+    """The same lines, every number within ``rtol`` of the reference's plus
+    one unit of its last printed digit, the words equal."""
+    assert len(got) == len(want), (got, want)
+    for g, w in zip(got, want):
+        assert NUMBER.sub("#", g) == NUMBER.sub("#", w), (g, w)
+        for mg, mw in zip(NUMBER.finditer(g), NUMBER.finditer(w)):
+            a, b = float(mg.group()), float(mw.group())
+            unit = 10.0 ** -len(mw.group(1) or "") if "e" not in mw.group() else 0.0
+            assert abs(a - b) <= rtol * abs(b) + unit, (g, w)

@@ -832,6 +832,35 @@ def case_mesh_env() -> dict:
     return out
 
 
+def case_example() -> dict:
+    """One rank of a port example run as ``__main__`` under a local group
+    (``EXAMPLE`` names it, ``EXAMPLE_ARGV`` holds its arguments as JSON,
+    ``--device cpu`` added): the lines it printed, and for
+    ``long_context_ring`` this rank's output block."""
+    import contextlib
+    import importlib
+    import io
+    import json
+
+    name = os.environ["EXAMPLE"]
+    mod = importlib.import_module(f"byteps_tpu_torch.examples.{name}")
+    blocks = []
+    if name == "long_context_ring":
+        real = mod.attend
+
+        def attend(args, mesh):
+            out = real(args, mesh)
+            blocks.append(out[0].numpy().copy())
+            return out
+
+        mod.attend = attend
+    sys.argv = [name, *json.loads(os.environ["EXAMPLE_ARGV"]), "--device", "cpu"]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        mod.main()
+    return {"lines": text.getvalue().splitlines(), "blocks": blocks}
+
+
 CASES = {"bn_step": case_bn_step, "mesh_env": case_mesh_env,
          "collectives": case_collectives, "dist_opt": case_dist_opt, "hybrid": case_hybrid,
          "builders": case_builders, "degraded": case_degraded, "elastic": case_elastic,
@@ -840,7 +869,7 @@ CASES = {"bn_step": case_bn_step, "mesh_env": case_mesh_env,
          "hf_generate": case_hf_generate,
          "moe_ep": case_moe_ep,
          "mp_hybrid": case_mp_hybrid, "mp_hybrid_pp": case_mp_hybrid_pp,
-         "cuda_clash": case_cuda_clash}
+         "cuda_clash": case_cuda_clash, "example": case_example}
 
 
 # --- the test side --------------------------------------------------------
